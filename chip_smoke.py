@@ -8,20 +8,37 @@ result line:
 
 1. env     card name and power limit (nvidia-smi), torch/CUDA versions;
            TF32 off for matmuls and cuDNN.
-2. build   compile the port's kernel library from csrc/.
+2. build   compile the port's kernel libraries from csrc/, one nvcc each,
+           in parallel.
 3. kernel  lstm_seq_fwd (csrc/lstm_seq_fwd.cu) against its plain PyTorch
            version on the card: T=64, B in {1, 8, 32}, H=256 (the served
            flagship) and T=100, B=64, H=1280 (the wide row), in float32 and
            bfloat16; errors, CUDA-event times, the bound, and cuDNN's LSTM
            time for information (not the same function); then T=32, B=128,
            H=1280, which runs as several launches of row chunks.
-4. serve   the flagship text classifier at full width (vocab 30000, emb
+4. kernel_bwd  lstm_seq_bwd (csrc/lstm_seq_bwd.cu) the same way at
+           (T, B, H) = (100, 64, 256) (the training bench row), (64, 8,
+           256), (100, 64, 1280) (the wide row) and (32, 128, 1280) (row
+           chunks), float32 and bfloat16; cuDNN's LSTM forward + backward
+           for information.
+5. serve   the flagship text classifier at full width (vocab 30000, emb
            128, 2 x LSTM 256, 2 classes, random weights from a numpy seed)
            exported as a bundle, served by the batching engine and over
            HTTP, every answer held against the same bundle run on the CPU,
            and the kernel's launch count against the dispatched batches.
-5. serve   the same model at hidden 1280 (bucket 64, seq_len 100).
-6. kernels one entry per TPU kernel the port replaced, then the card's
+6. serve   the same model at hidden 1280 (bucket 64, seq_len 100).
+7. train_flagship  the same model plus a label and classification_cost,
+           trained by trainer.SGD with Momentum(0.01, 0.9) on the card:
+           3 ragged steps held against the same steps on the CPU (costs and
+           every parameter), every gradient of step 1 finite and nonzero,
+           20 steps at batch 64, length 100 (ms per batch, launch counts),
+           the same under the bfloat16 compute policy, and the trained
+           parameters exported as a bundle whose answers match
+           inference.infer on the CPU.
+8. train_h1280  hidden 1280, batch 64, length 100: a few steps on the card
+           (ms per batch, launch counts) and one step on 8 rows held
+           against the CPU (cost and every gradient).
+9. kernels one entry per TPU kernel the port replaced, then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -50,6 +67,20 @@ TOL_F32 = 1e-4
 # through the recurrence.
 TOL_BF16 = 3e-2
 TOL_SERVE = 1e-4          # probabilities, card vs CPU (both float32)
+# backward kernel vs its plain version, max |err| over dgates, dh0, dc0 and
+# dpeep, each divided by max(1, its largest |value|): float32 sums both
+# GEMVs in another order; in bfloat16 a flipped rounding of dz feeds
+# through the dh carry
+TOL_BWD = {"float32": 1e-4, "bfloat16": 3e-2}
+# training, card vs CPU (float32): every GEMM, both LSTM kernels and the
+# embedding gradient's scatter-add sum in another order than the CPU's;
+# on the mean cost and on every parameter after 3 steps (absolute), and on
+# each gradient divided by its largest |entry|
+TOL_TRAIN = 1e-4
+# training, bfloat16 policy vs float32, both on the card: the mean cost of
+# each of the 3 ragged steps (bfloat16 keeps about 3 significant digits,
+# and the rounding compounds through 2 LSTM layers of 100 steps)
+TOL_TRAIN_BF16 = 5e-2
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, data sheet
 
@@ -57,6 +88,9 @@ KERNEL_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256), (100, 64, 1280)]
 # a batch whose grid is not co-resident in one launch: the wrapper splits
 # it into row chunks (checked, not on the main path)
 CHUNKED_CASES = [(32, 128, 1280)]
+BWD_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 1280)]
+BWD_CHUNKED_CASES = [(32, 128, 1280)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, H1280_STEPS = 64, 100, 20, 5
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
 BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
@@ -184,6 +218,97 @@ def phase_kernel(torch, lk):
             emit(row)
             if not (err <= tol and launch["launches"] >= 2):
                 raise AssertionError("chunked lstm_seq_fwd: %r" % row)
+    return results
+
+
+def lstm_bwd_bound_ms(steps, batch, hidden, dtype_name):
+    """Least time for the backward: its bytes (gates, mask, W, peep, hprev,
+    cprev, c_seq, dh_seq, dh_f, dc_f read once; dgates, dh0, dc0, dpeep
+    written once) over HBM rate, or its two recurrent GEMMs (recompute
+    h.W and dz.W^T, 2 * 2*T*B*H*4H FLOPs) over the peak rate for the
+    dtype, whichever is larger."""
+    isz = 2 if dtype_name == "bfloat16" else 4
+    g4 = 4 * hidden
+    nbytes = (2 * steps * batch * g4 * isz + steps * batch * 4
+              + hidden * g4 * isz + 2 * 3 * hidden * 4
+              + 4 * steps * batch * hidden * isz + 4 * batch * hidden * isz)
+    flops = 2 * 2.0 * steps * batch * hidden * g4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_inputs(torch, lk, steps, batch, hidden, dtype, seed):
+    """The backward's inputs from a forward of numpy-seeded inputs (plain
+    version on the card), with numpy-seeded cotangents."""
+    gates, mask, w, peep, h0, c0 = kernel_inputs(torch, steps, batch, hidden,
+                                                 dtype, seed)
+    h_seq, c_seq = lk.lstm_seq_fwd_reference(gates, mask, w, peep, h0, c0)
+    rng = np.random.RandomState(seed + 1)
+
+    def dev(a):
+        return torch.tensor(a, dtype=dtype, device=DEVICE)
+
+    return (gates, mask, w, peep, torch.cat([h0[None], h_seq[:-1]]),
+            torch.cat([c0[None], c_seq[:-1]]), c_seq,
+            dev(rng.randn(steps, batch, hidden) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5))
+
+
+def bwd_error(got, want):
+    """max over the outputs of max |got - want| / max(1, max |want|)."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def phase_kernel_bwd(torch, lk):
+    results = []
+    for steps, batch, hidden in BWD_CASES + BWD_CHUNKED_CASES:
+        chunked = (steps, batch, hidden) in BWD_CHUNKED_CASES
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = bwd_inputs(torch, lk, steps, batch, hidden, dtype,
+                              SEED + 7 * batch + hidden)
+            got = lk.lstm_seq_bwd(*args)
+            torch.cuda.synchronize()
+            launch = dict(lk.lstm_seq_bwd.last_launch)
+            err = bwd_error(got, lk.lstm_seq_bwd_reference(*args))
+            tol = TOL_BWD[name]
+            ms = time_ms(torch, lambda: lk.lstm_seq_bwd(*args))
+            plain_ms = time_ms(torch,
+                               lambda: lk.lstm_seq_bwd_reference(*args),
+                               warmup=1, reps=5)
+            cudnn = torch.nn.LSTM(hidden, hidden).to(DEVICE, dtype)
+            cudnn.flatten_parameters()
+            x = torch.randn(steps, batch, hidden, device=DEVICE, dtype=dtype,
+                            requires_grad=True)
+            dy = torch.randn(steps, batch, hidden, device=DEVICE, dtype=dtype)
+
+            def cudnn_fwd_bwd():
+                cudnn(x)[0].backward(dy)
+
+            bound, bound_by = lstm_bwd_bound_ms(steps, batch, hidden, name)
+            row = {"phase": "kernel_bwd", "kernel": "lstm_seq_bwd",
+                   "T": steps, "B": batch, "H": hidden, "dtype": name,
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by,
+                   "cudnn_lstm_fwd_bwd_ms_not_same_function":
+                       time_ms(torch, cudnn_fwd_bwd),
+                   "launch": launch}
+            emit(row)
+            if not err <= tol:
+                raise AssertionError("lstm_seq_bwd disagrees with its plain "
+                                     "version: %r" % row)
+            if chunked and launch["launches"] < 2:
+                raise AssertionError("lstm_seq_bwd at B=%d, H=%d did not run "
+                                     "as row chunks: %r" % (batch, hidden,
+                                                            row))
+            if not chunked:
+                results.append(row)
     return results
 
 
@@ -359,13 +484,257 @@ def phase_serve_wide(torch, lk, tmp):
     return row
 
 
-def kernel_entry(cases, name, replaces, launches, hidden):
+class Batch(list):
+    """A minibatch padded to ``bucket`` steps (the trainer reads it)."""
+    bucket = TRAIN_SEQ
+
+
+def train_batches(seed, n, rows, ragged, vocab):
+    """``n`` minibatches of (ids, label): lengths in [0, 100] including 0, 1
+    and 100 when ``ragged``, else all 100 (the bench rows' traffic)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = (rng.randint(0, TRAIN_SEQ + 1, rows) if ragged
+                else np.full(rows, TRAIN_SEQ))
+        if ragged:
+            lens[:3] = (TRAIN_SEQ, 0, 1)
+        out.append(Batch((rng.randint(0, vocab, int(k)).tolist(),
+                          int(rng.randint(0, 2))) for k in lens))
+    return out
+
+
+class TrainRig:
+    """The flagship's cost topology at one width and its numpy-seeded
+    initial parameters; ``trainer(device)`` gives a fresh trainer on its
+    own copy of them."""
+
+    def __init__(self, hidden, seed):
+        from paddle_tpu_torch import data_type, layer
+        from paddle_tpu_torch.graph import reset_name_counters
+        from paddle_tpu_torch.models.text import text_classification_lstm
+        from paddle_tpu_torch.topology import Topology
+
+        reset_name_counters()
+        self.config = dict(FLAGSHIP, hidden=hidden)
+        self.out = text_classification_lstm(**self.config)
+        label = layer.data(name="label", type=data_type.integer_value(2))
+        self.cost = layer.classification_cost(input=self.out, label=label)
+        self.topology = Topology(self.cost)
+        self.init = numpy_params(self.topology, seed)
+
+    def trainer(self, device):
+        from paddle_tpu_torch import optimizer, trainer
+        from paddle_tpu_torch.parameters import Parameters
+
+        params = Parameters({k: v.clone()
+                             for k, v in self.init.as_dict().items()},
+                            self.topology.param_specs())
+        return trainer.SGD(self.cost, params, optimizer.Momentum(
+            learning_rate=0.01, momentum=0.9), device=device)
+
+
+def train(torch, tr, batches, timed=False):
+    """Run ``batches`` through ``tr.train``; returns the per-step costs and,
+    with ``timed``, the median ms between consecutive steps, each ended by
+    a synchronize (the first step, which builds caches, is left out)."""
+    from paddle_tpu_torch.event import EndIteration
+
+    costs, stamps = [], []
+
+    def handler(evt):
+        if isinstance(evt, EndIteration):
+            if timed:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+            costs.append(evt.cost)
+
+    tr.train(lambda: iter(batches), event_handler=handler)
+    if not timed:
+        return costs
+    return costs, statistics.median(np.diff(stamps) * 1e3)
+
+
+def profile_steps(torch, tr, batches):
+    """Where a training step's time goes on the card (torch.profiler over
+    ``batches``): wall ms per step (profiler on), the kernels' busy ms per
+    step (the union of their intervals), the idle share, and the largest
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(torch, tr, batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        total, calls = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (total + (end - start) / 1e3, calls + 1)
+    busy_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    steps = len(batches)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"steps": steps, "device_events": len(spans),
+            "wall_ms_per_step": wall_ms / steps,
+            "busy_ms_per_step": busy_us / 1e3 / steps,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "kernels_per_step": len(spans) / steps,
+            "top": [{"kernel": name[:100], "ms_per_step": t / steps,
+                     "calls_per_step": c / steps}
+                    for name, (t, c) in top]}
+
+
+def param_error(a, b):
+    """max over the parameters of max |a - b| (numpy, from Parameters)."""
+    return max(float(np.abs(a.get(n) - b.get(n)).max()) for n in a.names())
+
+
+def check_launches(lk, steps, what):
+    fwd, bwd = lk.launches, lk.bwd_launches
+    if not (fwd == 2 * steps and bwd == 2 * steps):
+        raise AssertionError(
+            "%s: %d steps of a 2-LSTM model launched lstm_seq_fwd %d and "
+            "lstm_seq_bwd %d times (want %d each)" % (what, steps, fwd, bwd,
+                                                      2 * steps))
+    return fwd, bwd
+
+
+def phase_train_flagship(torch, lk, tmp):
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.inference import infer
+    from paddle_tpu_torch.serve import load_bundle
+    from paddle_tpu_torch.serve.export import parse_builder
+
+    rig = TrainRig(256, SEED + 2)
+    vocab = FLAGSHIP["dict_size"]
+    ragged = train_batches(SEED + 3, 3, TRAIN_BATCH, True, vocab)
+    full = train_batches(SEED + 4, TRAIN_STEPS, TRAIN_BATCH, False, vocab)
+    # f32 on the card: step 1 alone (its gradients checked), then 2 and 3
+    card = rig.trainer(DEVICE)
+    lk.reset_launches()
+    costs = train(torch, card, ragged[:1])
+    no_grad = [n for n, p in card._trainable.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or float(p.grad.abs().max()) == 0.0]
+    costs += train(torch, card, ragged[1:])
+    ragged_launches = check_launches(lk, 3, "ragged steps")
+    cpu = rig.trainer("cpu")
+    cpu_costs = train(torch, cpu, ragged)
+    cost_err = float(np.abs(np.subtract(costs, cpu_costs)).max())
+    param_err = param_error(card.parameters, cpu.parameters)
+    lk.reset_launches()  # the main path: 20 steps at the bench row's traffic
+    _, ms = train(torch, card, full, timed=True)
+    launches = check_launches(lk, TRAIN_STEPS, "f32 training")
+    profile = profile_steps(torch, card, full[:5])
+    # the same under the bfloat16 compute policy (float32 masters)
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        costs16 = train(torch, card16, ragged)
+        lk.reset_launches()
+        _, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_launches(lk, TRAIN_STEPS, "bf16 training")
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = float(np.abs(np.subtract(costs16, costs)).max())
+    # the trained f32 parameters served from a bundle on the card
+    bundle_dir = os.path.join(tmp, "trained")
+    card.export_inference_bundle(parse_builder(BUILDER, FLAGSHIP),
+                                 bundle_dir, batch_sizes=(8,),
+                                 seq_len=TRAIN_SEQ)
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    req = random_request(np.random.RandomState(SEED + 5), 8, TRAIN_SEQ,
+                         vocab)
+    rows = [(req["word"][i, :req["word:lens"][i]].tolist(),)
+            for i in range(8)]
+    served_err = check_close(bundle.infer(req)["lstm_out"],
+                             infer(rig.out, card.parameters, rows,
+                                   device="cpu"), "trained bundle")
+    row = {"phase": "train_flagship", "config": rig.config,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "optimizer": "Momentum(learning_rate=0.01, momentum=0.9)",
+           "ragged_costs_card": costs, "ragged_costs_cpu": cpu_costs,
+           "cost_err_vs_cpu": cost_err, "param_err_vs_cpu": param_err,
+           "tol": TOL_TRAIN, "params_without_gradient": no_grad,
+           "ragged_launches": ragged_launches, "steps": TRAIN_STEPS,
+           "ms_per_batch_f32": ms, "launches_f32": launches,
+           "profile_f32": profile, "bf16_ragged_costs": costs16,
+           "bf16_cost_err_vs_f32": bf16_err,
+           "tol_bf16": TOL_TRAIN_BF16, "ms_per_batch_bf16": ms16,
+           "launches_bf16": launches16,
+           "trained_bundle_err_vs_cpu_infer": served_err}
+    emit(row)
+    if no_grad:
+        raise AssertionError("parameters without a finite nonzero gradient "
+                             "at step 1: %s" % no_grad)
+    if not (cost_err <= TOL_TRAIN and param_err <= TOL_TRAIN):
+        raise AssertionError("training on the card departs from the CPU: "
+                             "%r" % row)
+    if not bf16_err <= TOL_TRAIN_BF16:
+        raise AssertionError("bf16 training departs from f32: %r" % row)
+    return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
+def grad_error(a, b):
+    """max over the parameters of max |a.grad - b.grad| / max |b.grad|."""
+    out = 0.0
+    for name, p in b._trainable.items():
+        ref = p.grad.float()
+        diff = (a._trainable[name].grad.float().cpu() - ref).abs().max()
+        out = max(out, float(diff) / max(float(ref.abs().max()), 1e-30))
+    return out
+
+
+def phase_train_h1280(torch, lk):
+    rig = TrainRig(1280, SEED + 6)
+    vocab = FLAGSHIP["dict_size"]
+    full = train_batches(SEED + 7, H1280_STEPS, TRAIN_BATCH, False, vocab)
+    card = rig.trainer(DEVICE)
+    lk.reset_launches()  # the main path of this width
+    _, ms = train(torch, card, full, timed=True)
+    launches = check_launches(lk, H1280_STEPS, "h1280 training")
+    profile = profile_steps(torch, card, full[:3])
+    # one step on the first 8 rows, card against CPU
+    head = [Batch(full[0][:8])]
+    card8, cpu8 = rig.trainer(DEVICE), rig.trainer("cpu")
+    cost_card = train(torch, card8, head)[0]
+    cost_cpu = train(torch, cpu8, head)[0]
+    cost_err = abs(cost_card - cost_cpu)
+    grad_err = grad_error(card8, cpu8)
+    row = {"phase": "train_h1280", "config": rig.config,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": H1280_STEPS,
+           "ms_per_batch_f32": ms, "launches": launches,
+           "profile_f32": profile, "rows8_cost_card": cost_card,
+           "rows8_cost_cpu": cost_cpu,
+           "rows8_cost_err": cost_err, "rows8_grad_err_rel": grad_err,
+           "tol": TOL_TRAIN}
+    emit(row)
+    if not (cost_err <= TOL_TRAIN and grad_err <= TOL_TRAIN):
+        raise AssertionError("h1280 step on the card departs from the CPU: "
+                             "%r" % row)
+    return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
+def kernel_entry(cases, name, replaces, launches, hidden, source):
     """The kernels-line entry for one TPU kernel: numbers of the float32
-    case at the widest batch of its width (what serving runs)."""
+    case at the widest batch of its width (what the main path runs)."""
     f32 = [c for c in cases if c["H"] == hidden and c["dtype"] == "float32"]
     main = max(f32, key=lambda c: c["B"])
     return {"name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/lstm_seq_fwd.cu",
+            "source": "paddle_tpu_torch/csrc/%s.cu" % source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -394,24 +763,33 @@ def main():
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    lib = _build.build("lstm_seq_fwd")
+    libs = _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.basename(lib),
+          "libraries": [os.path.basename(lib) for lib in libs],
           "ptxas": {k: [ln for ln in v.splitlines() if "Used" in ln]
                     for k, v in _build.build_logs.items()}})
 
     cases = phase_kernel(torch, lk)
+    bwd_cases = phase_kernel_bwd(torch, lk)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
+        trained = phase_train_flagship(torch, lk, tmp)
+    trained_wide = phase_train_h1280(torch, lk)
 
     emit({"kernels": [
         kernel_entry(cases, "lstm_seq_fwd[K1,h256]",
                      "paddle_tpu/ops/pallas_kernels.py:146",
-                     flagship["kernel_launches"], 256),
+                     flagship["kernel_launches"], 256, "lstm_seq_fwd"),
         kernel_entry(cases, "lstm_seq_fwd[K3,h1280]",
                      "paddle_tpu/ops/pallas_kernels.py:244",
-                     wide["kernel_launches"], 1280)]})
+                     wide["kernel_launches"], 1280, "lstm_seq_fwd"),
+        kernel_entry(bwd_cases, "lstm_seq_bwd[K2,h256]",
+                     "paddle_tpu/ops/pallas_kernels.py:347",
+                     trained["bwd_launches"], 256, "lstm_seq_bwd"),
+        kernel_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
+                     "paddle_tpu/ops/pallas_kernels.py:456",
+                     trained_wide["bwd_launches"], 1280, "lstm_seq_bwd")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,16 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
     probs = paddle.inference.infer(out, params, [([3, 1, 4],)])
 
 Ported so far: the serving path of the LSTM text classifier (layers,
-topology, parameters, bundle export/load, batching engine, HTTP server)
-and its whole-sequence LSTM kernel (csrc/lstm_seq_fwd.cu).
+topology, parameters, bundle export/load, batching engine, HTTP server),
+its training path (classification_cost, optimizer.Momentum, trainer.SGD
+with the v2 event stream, parameter tars), and its whole-sequence LSTM
+kernels, forward and backward (csrc/lstm_seq_fwd.cu, csrc/lstm_seq_bwd.cu).
 """
 
 __version__ = "0.1.0"
 
-from paddle_tpu_torch import (activation, attr, data_type, inference, layer,
-                              networks, parameters, pooling, topology)
+from paddle_tpu_torch import (activation, attr, data_type, event, inference,
+                              layer, networks, optimizer, parameters, pooling,
+                              topology, trainer)
+from paddle_tpu_torch.minibatch import batch
 from paddle_tpu_torch.utils.error import EnforceError, enforce

@@ -58,3 +58,10 @@ def to_compute(x):
             and x.dtype != cd:
         return x.to(cd)
     return x
+
+
+def upcast_f32(x):
+    """Locally lift low-precision values to float32 (cost layers)."""
+    if torch.is_tensor(x) and x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x

@@ -41,16 +41,19 @@ class SequenceBatch:
         return m if dtype is None else m.to(dtype)
 
     @staticmethod
-    def from_sequences(seqs, device=None):
+    def from_sequences(seqs, device=None, max_len=None):
         """Build from a list of per-sequence numpy arrays (ragged), zero
-        padded to the length bucket of the longest."""
+        padded to ``max_len`` (default: the length bucket of the
+        longest)."""
         enforce(len(seqs) > 0, "empty sequence batch")
         seqs = [np.asarray(s) for s in seqs]
         lengths = np.array([len(s) for s in seqs], dtype=np.int32)
-        tmax = bucket_length(int(lengths.max()))
+        tmax = max_len or bucket_length(int(lengths.max()))
         data = np.zeros((len(seqs), tmax) + seqs[0].shape[1:],
                         dtype=seqs[0].dtype)
         for i, s in enumerate(seqs):
+            enforce(len(s) <= tmax, "sequence %d longer than max_len %d", i,
+                    tmax)
             data[i, : len(s)] = s
         return SequenceBatch(torch.as_tensor(data, device=device),
                              torch.as_tensor(lengths, device=device))

@@ -41,13 +41,14 @@ def reset_name_counters():
 class ParamSpec:
     """Declaration of one named parameter buffer (cf. ParameterConfig)."""
 
-    __slots__ = ("name", "shape", "initializer", "attr")
+    __slots__ = ("name", "shape", "initializer", "attr", "is_state")
 
-    def __init__(self, name, shape, initializer, attr=None):
+    def __init__(self, name, shape, initializer, attr=None, is_state=False):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.initializer = initializer
         self.attr = attr or ParamAttr()
+        self.is_state = is_state  # non-trainable running state
 
     def materialize(self, generator, dtype, device):
         return self.initializer(generator, self.shape, dtype, device)

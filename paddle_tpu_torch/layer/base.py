@@ -82,9 +82,17 @@ def bias_spec(layer_name, shape, bias_attr):
     return ParamSpec(name, shape, init, attr)
 
 
+def mark_activation(node, act):
+    """Record the output activation name on the node so cost layers can tell
+    probabilities from logits (classification_cost works in log space on
+    softmax outputs; paddle_tpu/layer/base.py mark_activation)."""
+    node.output_activation = to_activation(act).name
+    return node
+
+
 def finalize(x, act, extra_attr, ctx):
-    """Apply the activation; dropout (ExtraAttr.drop_rate) is a training
-    feature and arrives with the training slice."""
+    """Apply the activation; dropout (ExtraAttr.drop_rate) in train mode is
+    not ported yet and raises."""
     enforce(not (extra_attr and extra_attr.drop_rate and ctx.is_train),
             "dropout in train mode is not ported yet")
     return featurewise(to_activation(act).apply, x)

@@ -11,6 +11,7 @@ from paddle_tpu_torch.layer.base import (
     finalize,
     like,
     make_node,
+    mark_activation,
     register_layer,
     to_list,
     weight_spec,
@@ -49,7 +50,7 @@ def fc(input, size, act=None, name=None, param_attr=None, bias_attr=None,
     node = make_node("fc", forward, inputs, name=name, size=size,
                      param_specs=[s for s in specs + [bspec] if s is not None],
                      layer_attr=layer_attr)
-    return node
+    return mark_activation(node, act)
 
 
 @register_layer("embedding")

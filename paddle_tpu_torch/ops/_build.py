@@ -10,6 +10,7 @@ Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -78,6 +79,13 @@ def build(name):
             proc.returncode, proc.stdout)
     os.replace(tmp, out)  # atomic: a reader never sees a partial file
     return out
+
+
+def build_all(names):
+    """Build several kernel libraries at once, one nvcc process each (the
+    builds run in parallel). Returns their paths in order."""
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name):

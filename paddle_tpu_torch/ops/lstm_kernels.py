@@ -1,5 +1,5 @@
-"""Whole-sequence LSTM forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Whole-sequence LSTM forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the autograd Function that joins them.
 
 ``lstm_seq_fwd`` has the function and contract of paddle_tpu/ops/
 pallas_kernels.py ``lstm_fused`` forward (the TPU kernels K1
@@ -18,6 +18,20 @@ one co-resident grid runs as a few launches of equal row chunks, each
 counted) or raises; on a CPU
 tensor it runs ``lstm_seq_fwd_reference``, the plain loop of the same
 function, which is also the oracle the kernel is held against.
+
+``lstm_seq_bwd`` has the function and contract of the backward kernels K2
+``_lstm_bwd_kernel`` and K4 ``_lstm_bwd_tiled_kernel`` (pallas_kernels.py
+``_vjp_bwd``): from the saved forward (hprev = [h0, h_seq[:-1]], cprev =
+[c0, c_seq[:-1]], c_seq) and the cotangents (dh_seq [T, B, H], dh_f, dc_f
+[B, H]) it gives dgates [T, B, 4H] and dh0, dc0 [B, H] in the gates' dtype
+and dpeep [3, H] in float32. Its kernel is csrc/lstm_seq_bwd.cu; on a CPU
+tensor it runs ``lstm_seq_bwd_reference``.
+
+``LstmSeq`` is the autograd Function around the pair (the JAX package's
+``lstm_fused`` custom VJP): its forward is ``lstm_seq_fwd``, its backward
+``lstm_seq_bwd`` plus the weight gradient hprev^T . dgates as one matmul
+outside the kernel. It runs the same way on both devices, so the CPU tests
+exercise the backward the card runs, not autograd through the plain loop.
 """
 
 import ctypes
@@ -29,22 +43,31 @@ from paddle_tpu_torch.utils.error import enforce
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset (a launch made to compare the kernel
-# with its plain version counts too; callers reset around the path they read)
+# kernel launches since the last reset, forward (``launches``) and backward
+# (``bwd_launches``) apart (a launch made to compare a kernel with its plain
+# version counts too; callers reset around the path they read)
 launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 
 
 def reset_launches():
-    global launches
+    global launches, bwd_launches
     with _count_lock:
         launches = 0
+        bwd_launches = 0
 
 
 def _count_launches(n):
     global launches
     with _count_lock:
         launches += n
+
+
+def _count_bwd_launches(n):
+    global bwd_launches
+    with _count_lock:
+        bwd_launches += n
 
 
 def lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0):
@@ -76,28 +99,135 @@ def lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0):
     return torch.stack(hs), torch.stack(cs)
 
 
-def _check(gates_tm, mask_tm, w_rec, peep, h0, c0):
+def lstm_seq_bwd_reference(gates_tm, mask_tm, w_rec, peep, hprev_tm,
+                           cprev_tm, c_seq, dh_seq, dh_f, dc_f):
+    """The plain PyTorch reverse loop of the backward kernel's function
+    (same dtype rules as pallas_kernels.py ``_lstm_bwd_kernel``: f32
+    products and sums; tanh(c_t) from c_seq as stored, c_new recomputed in
+    f32; dz rounded to the gates' dtype for dgates and before dz . W^T;
+    dh0/dc0 in the gates' dtype, dpeep summed in f32)."""
+    steps, _, g4 = gates_tm.shape
+    hidden = g4 // 4
+    dt = gates_tm.dtype
+    w = w_rec.float()
+    pi, pf, po = peep.float().reshape(3, hidden)
+    dh = dh_f.float()
+    dc = dc_f.float()
+    dgates = torch.empty_like(gates_tm)
+    dpeep = torch.zeros((3, hidden), dtype=torch.float32,
+                        device=gates_tm.device)
+    for t in range(steps - 1, -1, -1):
+        c_prev = cprev_tm[t].float()
+        z = gates_tm[t].float() + torch.matmul(hprev_tm[t].float(), w)
+        zi, zf, zg, zo = torch.split(z, hidden, dim=-1)
+        i = torch.sigmoid(zi + c_prev * pi)
+        f = torch.sigmoid(zf + c_prev * pf)
+        g = torch.tanh(zg)
+        c_new = f * c_prev + i * g
+        o = torch.sigmoid(zo + c_new * po)
+        tc = torch.tanh(c_seq[t].float())
+        m = (mask_tm[t] > 0)[:, None]
+        dh_tot = dh_seq[t].float() + dh
+        dh_eff = torch.where(m, dh_tot, 0.0)
+        dzo = dh_eff * tc * o * (1.0 - o)
+        # o's peephole reads c_t: its gradient feeds back into dc
+        dc_eff = (torch.where(m, dc, 0.0) + dh_eff * o * (1.0 - tc * tc)
+                  + dzo * po)
+        dzi = dc_eff * g * i * (1.0 - i)
+        dzf = dc_eff * c_prev * f * (1.0 - f)
+        dzg = dc_eff * i * (1.0 - g * g)
+        dz = torch.cat([dzi, dzf, dzg, dzo], dim=-1).to(dt)
+        dgates[t] = dz
+        dh = torch.where(m, 0.0, dh_tot) + torch.matmul(dz.float(), w.t())
+        dc = dc_eff * f + dzi * pi + dzf * pf + torch.where(m, 0.0, dc)
+        dpeep += torch.stack([(dzi * c_prev).sum(0), (dzf * c_prev).sum(0),
+                              (dzo * c_new).sum(0)])
+    return dgates, dh.to(dt), dc.to(dt), dpeep
+
+
+def _gates_shape(gates_tm):
+    """(T, B, H) of gates [T, B, 4H]."""
     enforce(gates_tm.dim() == 3 and gates_tm.shape[-1] % 4 == 0,
             "gates_tm must be [T, B, 4H], got %s", tuple(gates_tm.shape))
     steps, batch, g4 = gates_tm.shape
-    hidden = g4 // 4
+    return steps, batch, g4 // 4
+
+
+def _check_args(what, gates_tm, named):
+    """Shapes, dtypes and devices against the gates; ``named`` holds
+    (name, tensor, shape, dtype) with dtype None for the gates' dtype."""
     dt = gates_tm.dtype
-    enforce(dt in _DTYPE_CODES, "lstm_seq_fwd takes float32 or bfloat16 "
-            "gates, got %s", dt)
-    enforce(steps >= 1 and batch >= 1, "empty sequence batch %s",
-            tuple(gates_tm.shape))
-    for name, x, shape, want in (
-            ("mask_tm", mask_tm, (steps, batch), torch.float32),
-            ("w_rec", w_rec, (hidden, g4), dt),
-            ("peep", peep, (3, hidden), torch.float32),
-            ("h0", h0, (batch, hidden), dt),
-            ("c0", c0, (batch, hidden), dt)):
+    enforce(dt in _DTYPE_CODES, "%s takes float32 or bfloat16 gates, got %s",
+            what, dt)
+    enforce(gates_tm.shape[0] >= 1 and gates_tm.shape[1] >= 1,
+            "empty sequence batch %s", tuple(gates_tm.shape))
+    for name, x, shape, want in named:
+        want = dt if want is None else want
         enforce(tuple(x.shape) == shape, "%s must be %s, got %s", name,
                 shape, tuple(x.shape))
         enforce(x.dtype == want, "%s must be %s, got %s", name, want,
                 x.dtype)
         enforce(x.device == gates_tm.device, "%s is on %s, gates on %s",
                 name, x.device, gates_tm.device)
+
+
+def _check(gates_tm, mask_tm, w_rec, peep, h0, c0):
+    steps, batch, hidden = _gates_shape(gates_tm)
+    _check_args("lstm_seq_fwd", gates_tm, (
+        ("mask_tm", mask_tm, (steps, batch), torch.float32),
+        ("w_rec", w_rec, (hidden, 4 * hidden), None),
+        ("peep", peep, (3, hidden), torch.float32),
+        ("h0", h0, (batch, hidden), None),
+        ("c0", c0, (batch, hidden), None)))
+
+
+def _check_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
+               dh_seq, dh_f, dc_f):
+    steps, batch, hidden = _gates_shape(gates_tm)
+    seq = (steps, batch, hidden)
+    _check_args("lstm_seq_bwd", gates_tm, (
+        ("mask_tm", mask_tm, (steps, batch), torch.float32),
+        ("w_rec", w_rec, (hidden, 4 * hidden), None),
+        ("peep", peep, (3, hidden), torch.float32),
+        ("hprev_tm", hprev_tm, seq, None),
+        ("cprev_tm", cprev_tm, seq, None),
+        ("c_seq", c_seq, seq, None),
+        ("dh_seq", dh_seq, seq, None),
+        ("dh_f", dh_f, (batch, hidden), None),
+        ("dc_f", dc_f, (batch, hidden), None)))
+
+
+def _launch(name, dev, tensors, outputs, shape, count):
+    """Call the C entry ``name`` of library ``name`` with the dtype code,
+    the pointers of ``tensors`` and ``outputs``, ``shape`` (T, B, H), the
+    device, the stream and an info array; ``count`` gets the launches made
+    (also when the call then fails). Returns the info array."""
+    enforce(all(x.is_contiguous() for x in tensors),
+            "%s needs contiguous inputs", name)
+    from paddle_tpu_torch.ops import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    npt = len(tensors) + len(outputs)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * npt
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, name + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    info = (ctypes.c_int * 6)()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = fn(_DTYPE_CODES[tensors[0].dtype],
+            *(x.data_ptr() for x in tuple(tensors) + tuple(outputs)), *shape,
+            index, stream, info)
+    count(info[5])
+    if rc != 0:
+        raise RuntimeError(
+            "%s kernel launch failed (code %d: %s; T=%d B=%d H=%d)"
+            % ((name, rc, err(rc).decode()) + tuple(shape)))
+    return info
 
 
 def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
@@ -110,37 +240,15 @@ def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
         return lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0)
     enforce(dev.type == "cuda", "lstm_seq_fwd runs on cuda or cpu tensors, "
             "got %s", dev)
-    tensors = (gates_tm, mask_tm, w_rec, peep, h0, c0)
-    enforce(all(x.is_contiguous() for x in tensors),
-            "lstm_seq_fwd needs contiguous inputs")
-    from paddle_tpu_torch.ops import _build
-
-    lib = _build.load("lstm_seq_fwd")
-    fn = lib.lstm_seq_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p,
-                                           ctypes.POINTER(ctypes.c_int)])
-    fn.restype = ctypes.c_int
-    lib.lstm_seq_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.lstm_seq_fwd_error_string.restype = ctypes.c_char_p
     steps, batch, g4 = gates_tm.shape
-    hidden = g4 // 4
-    h_seq = torch.empty((steps, batch, hidden), dtype=gates_tm.dtype,
+    h_seq = torch.empty((steps, batch, g4 // 4), dtype=gates_tm.dtype,
                         device=dev)
     c_seq = torch.empty_like(h_seq)
-    hbuf = torch.empty((2, batch, hidden), dtype=gates_tm.dtype, device=dev)
-    info = (ctypes.c_int * 6)()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    rc = fn(_DTYPE_CODES[gates_tm.dtype], *(x.data_ptr() for x in tensors),
-            h_seq.data_ptr(), c_seq.data_ptr(), hbuf.data_ptr(), steps, batch,
-            hidden, index, stream, info)
-    _count_launches(info[5])
-    if rc != 0:
-        raise RuntimeError(
-            "lstm_seq_fwd kernel launch failed (code %d: %s; T=%d B=%d H=%d)"
-            % (rc, lib.lstm_seq_fwd_error_string(rc).decode(), steps, batch,
-               hidden))
+    hbuf = torch.empty((2, batch, g4 // 4), dtype=gates_tm.dtype, device=dev)
+    info = _launch("lstm_seq_fwd", dev,
+                   (gates_tm, mask_tm, w_rec, peep, h0, c0),
+                   (h_seq, c_seq, hbuf), (steps, batch, g4 // 4),
+                   _count_launches)
     lstm_seq_fwd.last_launch = dict(zip(
         ("blocks", "rows_per_block", "w_resident", "smem_bytes",
          "rows_per_launch", "launches"), info))
@@ -148,3 +256,73 @@ def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
 
 
 lstm_seq_fwd.last_launch = None
+
+
+def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
+                 dh_seq, dh_f, dc_f):
+    """Masked peephole-LSTM backward over the whole sequence (see module
+    docstring): -> dgates [T, B, 4H], dh0, dc0 [B, H], dpeep [3, H] f32.
+    After a kernel call, ``lstm_seq_bwd.last_launch`` holds the grid the
+    kernel chose and the number of launches it made."""
+    args = (gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
+            dh_seq, dh_f, dc_f)
+    _check_bwd(*args)
+    dev = gates_tm.device
+    if dev.type == "cpu":
+        return lstm_seq_bwd_reference(*args)
+    enforce(dev.type == "cuda", "lstm_seq_bwd runs on cuda or cpu tensors, "
+            "got %s", dev)
+    steps, batch, g4 = gates_tm.shape
+    hidden = g4 // 4
+    dgates = torch.empty_like(gates_tm)
+    dh0 = torch.empty((batch, hidden), dtype=gates_tm.dtype, device=dev)
+    dc0 = torch.empty_like(dh0)
+    # one [3, H] partial per batch tile, at the row of its first batch row
+    dpeep_part = torch.zeros((batch, 3, hidden), dtype=torch.float32,
+                             device=dev)
+    # W transposed ([4H, H]) beside W: the kernel's dz . W^T loop reads it
+    # coalesced
+    w_t = w_rec.t().contiguous()
+    info = _launch("lstm_seq_bwd", dev, args[:3] + (w_t,) + args[3:],
+                   (dgates, dh0, dc0, dpeep_part), (steps, batch, hidden),
+                   _count_bwd_launches)
+    lstm_seq_bwd.last_launch = dict(zip(
+        ("blocks", "rows_per_block", "w_placement", "smem_bytes",
+         "rows_per_launch", "launches"), info))
+    return dgates, dh0, dc0, dpeep_part.sum(dim=0)
+
+
+lstm_seq_bwd.last_launch = None
+
+
+class LstmSeq(torch.autograd.Function):
+    """Differentiable whole-sequence LSTM: (gates_tm, mask_tm, w_rec, peep,
+    h0, c0) -> (h_seq, h_f, c_f), as pallas_kernels.py ``lstm_fused``.
+    Forward and backward are the kernel wrappers, on either device; mask_tm
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, gates_tm, mask_tm, w_rec, peep, h0, c0):
+        h_seq, c_seq = lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0)
+        ctx.save_for_backward(gates_tm, mask_tm, w_rec, peep, h0, c0, h_seq,
+                              c_seq)
+        return h_seq, h_seq[-1].clone(), c_seq[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_f, dc_f):
+        gates_tm, mask_tm, w_rec, peep, h0, c0, h_seq, c_seq = \
+            ctx.saved_tensors
+        hprev_tm = torch.cat([h0[None], h_seq[:-1]])
+        cprev_tm = torch.cat([c0[None], c_seq[:-1]])
+        dgates, dh0, dc0, dpeep = lstm_seq_bwd(
+            gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
+            dh_seq.contiguous(), dh_f.contiguous(), dc_f.contiguous())
+        hidden = w_rec.shape[0]
+        # the weight gradient: one large GEMM outside the kernel, as the JAX
+        # VJP leaves it to XLA (pallas_kernels.py:640-643)
+        dw = torch.matmul(hprev_tm.reshape(-1, hidden).t(),
+                          dgates.reshape(-1, 4 * hidden))
+        return dgates, None, dw, dpeep, dh0, dc0
+
+
+lstm_seq = LstmSeq.apply

@@ -9,7 +9,7 @@ state past each sequence's end. Gate layout is [input, forget, cell
 
 import torch
 
-from paddle_tpu_torch.ops.lstm_kernels import lstm_seq_fwd
+from paddle_tpu_torch.ops.lstm_kernels import lstm_seq
 
 
 def lstm_step(carry, gates_t, w_rec, mask_t, gate_act, state_act,
@@ -46,12 +46,14 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
     """Full-sequence LSTM. x [B, T, D] -> h_seq [B, T, H], (h_T, c_T).
 
     With standard activations (sigmoid gates, tanh states) the whole scan
-    is one ``lstm_seq_fwd`` call: the hand-written kernel on a CUDA tensor,
-    its plain version on a CPU tensor — the eligibility of paddle_tpu/ops/
-    rnn.py:149-165 without the TPU's VMEM test. Other activations take the
-    eager ``lstm_step`` loop on either device (the JAX package's own
-    non-kernel branch, rnn.py:167-191). Reverse and packed-reset scans come
-    with later parts of the port.
+    is one ``lstm_kernels.lstm_seq`` call, the autograd Function whose
+    forward and backward are the hand-written kernels on a CUDA tensor and
+    their plain versions on a CPU tensor — the eligibility of paddle_tpu/
+    ops/rnn.py:149-165 without the TPU's VMEM test; gradients reach gates,
+    w_rec, the peepholes, h0 and c0 only through it. Other activations take
+    the eager ``lstm_step`` loop on either device, differentiated by
+    autograd (the JAX package's own non-kernel branch, rnn.py:167-191).
+    Reverse and packed-reset scans come with later parts of the port.
     """
     b_, t, d = x_btd.shape
     hidden = w_rec.shape[0]
@@ -78,10 +80,9 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
         else:
             peep = torch.zeros((3, hidden), dtype=torch.float32,
                                device=gates_tm.device)
-        h_seq_tm, c_seq_tm = lstm_seq_fwd(
+        ys, h_f, c_f = lstm_seq(
             gates_tm, mask_tm.float().contiguous(), w_rec.contiguous(),
             peep.contiguous(), h0.contiguous(), c0.contiguous())
-        ys, h_f, c_f = h_seq_tm, h_seq_tm[-1], c_seq_tm[-1]
     else:
         carry = (h0, c0)
         outs = []

@@ -1,24 +1,43 @@
-"""Parameters: named tensors with numpy get/set and the npz payload
-(paddle_tpu/parameters.py; v2 Parameters). Values are a plain
-``{name: tensor}`` dict keyed by the JAX package's names; weights keep the
-[in, out] layout."""
+"""Parameters: named tensors with their specs, numpy get/set, the npz
+payload and the tar checkpoint format (paddle_tpu/parameters.py; v2
+Parameters). Values are a plain ``{name: tensor}`` dict keyed by the JAX
+package's names; weights keep the [in, out] layout.
+
+``to_tar`` / ``from_tar`` write and read the JAX package's format
+(``manifest.json`` of format ``paddle_tpu-parameters-v1`` plus one ``.npy``
+per parameter), so a tar written by either package loads in the other.
+"""
+
+import io
+import json
+import tarfile
+import time
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.attr import ParamAttr
+from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.graph import ParamSpec
+from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.utils.error import enforce
+
+TAR_FORMAT = "paddle_tpu-parameters-v1"
 
 
 class Parameters:
-    def __init__(self, values=None):
+    def __init__(self, values=None, specs=None):
         self._values = dict(values or {})
+        self._specs = dict(specs or {})
 
     @staticmethod
     def create(topology, seed=None, device=None, dtype=None):
         """Initialize every parameter of ``topology`` (v2
-        paddle.parameters.create parity)."""
+        paddle.parameters.create parity) on ``device`` (the card unless
+        ``device="cpu"``)."""
         return Parameters(topology.init_params(seed=seed, device=device,
-                                               dtype=dtype))
+                                               dtype=dtype),
+                          topology.param_specs())
 
     def names(self):
         return sorted(self._values)
@@ -45,9 +64,36 @@ class Parameters:
                 tuple(old.shape))
         self._values[key] = value.to(dtype=old.dtype, device=old.device)
 
+    def spec(self, key):
+        return self._specs.get(key)
+
+    def partition(self):
+        """(trainable, static, state) name lists: static parameters
+        (ParamAttr.is_static) receive no updates; state entries are running
+        statistics."""
+        trainable, static, state = [], [], []
+        for name in self.names():
+            spec = self._specs.get(name)
+            if spec is not None and spec.is_state:
+                state.append(name)
+            elif spec is not None and spec.attr.is_static:
+                static.append(name)
+            else:
+                trainable.append(name)
+        return trainable, static, state
+
     def as_dict(self):
         """``{name: tensor}``, the form Topology.apply takes."""
         return dict(self._values)
+
+    def update_from(self, values):
+        """Take new values for known names, each kept on its own device and
+        in its own dtype."""
+        for key, val in values.items():
+            old = self._values.get(key)
+            if old is not None:
+                self._values[key] = val.detach().to(dtype=old.dtype,
+                                                    device=old.device)
 
     def to_npz(self, f):
         """Packed flat export of the raw values (the serving bundle's
@@ -63,9 +109,74 @@ class Parameters:
             return Parameters({k: torch.from_numpy(pz[k]).to(device)
                                for k in pz.files})
 
+    def to_tar(self, f):
+        """Write a tar: manifest.json + one .npy per parameter (the JAX
+        package's format; bf16 values are written as float32)."""
+        tar = tarfile.open(fileobj=f, mode="w")
+        manifest = {"format": TAR_FORMAT,
+                    "created": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                             time.gmtime()),
+                    "parameters": {}}
+        for name in self.names():
+            arr = self.get(name)
+            spec = self._specs.get(name)
+            manifest["parameters"][name] = {
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "is_state": bool(spec.is_state) if spec else False,
+                "is_static": bool(spec.attr.is_static) if spec else False,
+            }
+            payload = io.BytesIO()
+            np.save(payload, arr, allow_pickle=False)
+            _add(tar, _safe_entry(name) + ".npy", payload.getvalue())
+        _add(tar, "manifest.json", json.dumps(manifest, indent=2).encode())
+        tar.close()
+
+    @staticmethod
+    def from_tar(f, device=None):
+        """Load Parameters from a tar written by either package's
+        ``to_tar`` onto ``device`` (the card unless ``device="cpu"``); the
+        manifest restores the static/state partition."""
+        device = resolve_device(device)
+        tar = tarfile.open(fileobj=f, mode="r")
+        members = {m.name: m for m in tar.getmembers()}
+        enforce("manifest.json" in members, "not a paddle_tpu parameter tar")
+        manifest = json.loads(tar.extractfile(members["manifest.json"])
+                              .read())
+        values, specs = {}, {}
+        for name, meta in manifest["parameters"].items():
+            entry = _safe_entry(name) + ".npy"
+            enforce(entry in members, "missing tar entry %r", entry)
+            arr = np.load(io.BytesIO(tar.extractfile(members[entry]).read()),
+                          allow_pickle=False)
+            values[name] = torch.from_numpy(arr).to(device)
+            specs[name] = ParamSpec(
+                name, arr.shape, Constant(0.0),
+                attr=ParamAttr(is_static=bool(meta.get("is_static", False))),
+                is_state=bool(meta.get("is_state", False)))
+        tar.close()
+        return Parameters(values, specs)
+
+    def init_from_tar(self, f):
+        """Overwrite matching parameters from a tar (v2 init_from_tar)."""
+        other = Parameters.from_tar(f, device="cpu")
+        for name in other.names():
+            if name in self._values:
+                self.set(name, other.get(name))
+
     def __repr__(self):
         return "Parameters(%d params: %s)" % (len(self),
                                               ", ".join(self.names()[:6]))
+
+
+def _safe_entry(name):
+    return name.replace("/", "__slash__")
+
+
+def _add(tar, name, data):
+    info = tarfile.TarInfo(name=name)
+    info.size = len(data)
+    tar.addfile(info, io.BytesIO(data))
 
 
 create = Parameters.create

@@ -7,6 +7,8 @@ parameter names (``lstm0.w0``, ``lstm0.wbias``, ...): those names contain
 so that parameters copy across between the two packages by name.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -67,16 +69,22 @@ class Topology:
     # -- evaluation ---------------------------------------------------------
     def apply(self, params, feed, mode="test", outputs=None):
         """Evaluate the DAG. Returns ``{layer_name: value}`` for the output
-        nodes (or ``outputs``). Only the inference forward (``mode="test"``)
-        is ported; training comes with its own slice."""
-        enforce(mode == "test", "Topology.apply: only mode='test' is ported "
-                "yet, got %r", mode)
+        nodes (or ``outputs``). ``mode="test"`` runs under
+        ``torch.inference_mode()`` (serving); ``mode="train"`` records the
+        autograd graph, so a cost from it can be differentiated back to the
+        parameters (under the mixed-precision policy, through their casts
+        to the compute dtype)."""
+        enforce(mode in ("test", "train"), "Topology.apply: mode must be "
+                "'test' or 'train', got %r", mode)
         ctx = Context(mode=mode)
         cd = dtype_mod.compute_dtype()
-        if cd is not None:
-            params = {k: dtype_mod.to_compute(v) for k, v in params.items()}
         values = {}
-        with torch.inference_mode():
+        grad_mode = (torch.inference_mode() if mode == "test"
+                     else contextlib.nullcontext())
+        with grad_mode:
+            if cd is not None:
+                params = {k: dtype_mod.to_compute(v)
+                          for k, v in params.items()}
             for node in self.nodes:
                 try:
                     if node.layer_type == "data":
@@ -109,10 +117,11 @@ def _map_data(fn, value):
     return fn(value)
 
 
-def convert_feed(topology, data_batch, device, feeding=None):
+def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
     """Convert a host minibatch (list of tuples, v2 reader convention) into
     feed values on ``device``: dense slots become [B, dim] tensors, index
-    slots int32 [B], sequence slots SequenceBatch."""
+    slots int32 [B], sequence slots SequenceBatch (padded to ``max_len``,
+    default the length bucket of the batch's longest sequence)."""
     names = [name for name, _ in topology.data_types()]
     if feeding is None:
         feeding = {name: i for i, name in enumerate(names)}
@@ -120,11 +129,11 @@ def convert_feed(topology, data_batch, device, feeding=None):
     for name, itype in topology.data_types():
         idx = feeding[name]
         col = [row[idx] for row in data_batch]
-        feed[name] = convert_column(col, itype, device)
+        feed[name] = convert_column(col, itype, device, max_len)
     return feed
 
 
-def convert_column(col, itype, device):
+def convert_column(col, itype, device, max_len=None):
     np_dtype = {DENSE: np.float32, INDEX: np.int32}.get(itype.value_type)
     enforce(np_dtype is not None, "input type %r is not ported yet", itype)
     if itype.seq_type == SEQ_NONE:
@@ -132,4 +141,4 @@ def convert_column(col, itype, device):
     enforce(itype.seq_type == SEQ_SINGLE,
             "nested sequence inputs are not ported yet (%r)", itype)
     seqs = [np.asarray(s, dtype=np_dtype) for s in col]
-    return SequenceBatch.from_sequences(seqs, device=device)
+    return SequenceBatch.from_sequences(seqs, device=device, max_len=max_len)

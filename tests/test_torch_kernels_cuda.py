@@ -1,4 +1,5 @@
-"""The hand-written LSTM kernel against its plain version ON THE CARD.
+"""The hand-written LSTM kernels, forward and backward, against their plain
+versions ON THE CARD.
 
 Needs an NVIDIA card and nvcc; skips with a reason elsewhere. This file
 imports neither JAX nor paddle_tpu, so it also runs on a machine that has
@@ -17,8 +18,9 @@ from paddle_tpu_torch.ops import lstm_kernels as lk
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode "
-                    "(tests/test_torch_lstm.py covers its plain version)")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode "
+                    "(tests/test_torch_lstm.py and test_torch_lstm_bwd.py "
+                    "cover their plain versions)")
     return torch.device("cuda")
 
 
@@ -60,3 +62,52 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
     h_r, c_r = lk.lstm_seq_fwd_reference(*args)
     torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0, atol=tol)
     torch.testing.assert_close(c_k.float(), c_r.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch,hidden", [(3, 40), (64, 256), (64, 1280),
+                                          (128, 1280)])
+def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
+                                                  batch, hidden):
+    """The backward kernel against its plain version on the card: dgates,
+    dh0, dc0 absolute, dpeep (a sum over B and T) relative to its size.
+    The tolerance covers the different summation order of both GEMVs (and,
+    in bfloat16, a flipped rounding of dz feeding through the dh carry).
+    B=128 at H=1280 needs more blocks than one co-resident grid holds, so
+    the wrapper runs it as several launches of row chunks."""
+    rng = np.random.RandomState(hidden + batch)
+    steps = 20
+    lens = rng.randint(0, steps + 1, batch)
+    lens[:3] = (steps, 0, 1)[:batch]
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=cuda_device)
+
+    seq = (steps, batch, hidden)
+    args = (dev(rng.randn(steps, batch, 4 * hidden) * 0.5),
+            dev((np.arange(steps)[:, None] < lens[None, :]), torch.float32),
+            dev(rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)),
+            dev(rng.randn(3, hidden) * 0.3, torch.float32),
+            dev(np.tanh(rng.randn(*seq))), dev(rng.randn(*seq) * 0.5),
+            dev(rng.randn(*seq) * 0.5), dev(rng.randn(*seq) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5))
+    before = lk.bwd_launches
+    got = lk.lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    launch = lk.lstm_seq_bwd.last_launch
+    assert lk.bwd_launches == before + launch["launches"]
+    if batch <= 64:
+        assert launch["launches"] == 1, launch
+    if hidden == 1280 and batch == 128:
+        assert launch["launches"] >= 2, launch
+    want = lk.lstm_seq_bwd_reference(*args)
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got[:3], want[:3]):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol,
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
+    scale = float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=tol * scale,
+                               msg=lambda m: "dpeep: %s" % m)

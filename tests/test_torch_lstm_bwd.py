@@ -1,0 +1,227 @@
+"""The LSTM backward of the port against the JAX package, on the CPU.
+
+- ``lstm_seq_bwd_reference`` (the plain version of csrc/lstm_seq_bwd.cu)
+  against the Pallas backward kernels in interpret mode, as
+  tests/test_pallas_kernels.py runs them: ``_lstm_bwd_resident`` (K2) at
+  H=64 and ``_lstm_bwd_tiled`` (K4) at H=256.
+- The gradients of the port's ``rnn.lstm_scan`` (its kernel branch is the
+  ``LstmSeq`` autograd Function) against ``jax.grad`` of the JAX
+  ``lstm_scan`` on its fused path in interpret mode, with a check that the
+  plain backward, not autograd through the plain forward, produced them.
+
+Inputs come from a numpy seed: peepholes, h0, c0, dh_f and dc_f are
+nonzero and the lengths include 0, 1 and T. Tolerances, float32: the JAX
+kernels and the port's loop sum the same products in another order
+(XLA's dot against torch.matmul on the CPU), and the errors compound
+through the T reverse steps; 5e-6 absolute and relative is six times the
+largest |err| these inputs show (8.3e-7, on gradients of size 1-4), and
+far tighter than the 2e-4/2e-5 and 2e-3/2e-4 that test_pallas_kernels.py
+allows the kernels against lax.scan.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.ops import pallas_kernels as pk
+from paddle_tpu.ops import rnn as jax_rnn
+from paddle_tpu_torch.ops import lstm_kernels as lk
+from paddle_tpu_torch.ops import rnn as torch_rnn
+
+B, T = 4, 6
+LENGTHS = np.array([T, 0, 3, 1])
+TOL = 5e-6
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    if not pk.available():
+        pytest.skip("pallas unavailable in this JAX install")
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+
+
+def _bwd_inputs(hidden, seed):
+    """Time-major backward inputs; hprev/cprev/c_seq from the forward."""
+    rng = np.random.RandomState(seed)
+    mask = (np.arange(T)[:, None] < LENGTHS[None, :]).astype(np.float32)
+    gates = (rng.randn(T, B, 4 * hidden) * 0.5).astype(np.float32)
+    w = (rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)).astype(np.float32)
+    peep = (rng.randn(3, hidden) * 0.3).astype(np.float32)
+    h0 = (rng.randn(B, hidden) * 0.5).astype(np.float32)
+    c0 = (rng.randn(B, hidden) * 0.5).astype(np.float32)
+    h_seq, c_seq = lk.lstm_seq_fwd_reference(*(torch.from_numpy(a) for a in (
+        gates, mask, w, peep, h0, c0)))
+    h_seq, c_seq = h_seq.numpy(), c_seq.numpy()
+    return {
+        "gates": gates, "mask": mask, "w": w, "peep": peep,
+        "hprev": np.concatenate([h0[None], h_seq[:-1]]),
+        "cprev": np.concatenate([c0[None], c_seq[:-1]]),
+        "c_seq": c_seq,
+        "dh_seq": (rng.randn(T, B, hidden) * 0.5).astype(np.float32),
+        "dh_f": (rng.randn(B, hidden) * 0.5).astype(np.float32),
+        "dc_f": (rng.randn(B, hidden) * 0.5).astype(np.float32),
+    }
+
+
+_ORDER = ("gates", "mask", "w", "peep", "hprev", "cprev", "c_seq", "dh_seq",
+          "dh_f", "dc_f")
+
+
+@pytest.mark.parametrize("hidden,kernel", [(64, "resident_K2"),
+                                           (256, "tiled_K4")])
+def test_bwd_reference_matches_jax_kernel(hidden, kernel, interpret):
+    assert pk.lstm_mode(B, hidden, jnp.float32) == kernel.split("_")[0]
+    x = _bwd_inputs(hidden, seed=hidden)
+    jax_bwd = (pk._lstm_bwd_resident if kernel == "resident_K2"
+               else pk._lstm_bwd_tiled)
+    want = jax_bwd(*(jnp.asarray(x[k]) for k in _ORDER))
+    got = lk.lstm_seq_bwd_reference(*(torch.from_numpy(x[k])
+                                      for k in _ORDER))
+    for name, g, w in zip(("dgates", "dh0", "dc0", "dpeep"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL, err_msg=name)
+
+
+def test_bwd_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    x = {k: torch.from_numpy(v) for k, v in _bwd_inputs(16, seed=5).items()}
+    before = lk.bwd_launches
+    got = lk.lstm_seq_bwd(*(x[k] for k in _ORDER))
+    want = lk.lstm_seq_bwd_reference(*(x[k] for k in _ORDER))
+    assert lk.bwd_launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # a length-0 row passes dh and dc straight through
+    d = x["dh_f"][1] + x["dh_seq"][:, 1].sum(0)
+    torch.testing.assert_close(got[1][1], d, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[2][1], x["dc_f"][1])
+    assert not got[0][:, 1].any()
+
+
+@pytest.mark.parametrize("index,bad,match", [
+    (0, torch.zeros(B, 64), r"\[T, B, 4H\]"),
+    (4, torch.zeros(T, B, 8), "hprev_tm must be"),
+    (7, torch.zeros(T, B, 16, dtype=torch.bfloat16), "dh_seq must be"),
+    (3, torch.zeros(3, 16, dtype=torch.bfloat16), "peep must be"),
+    (9, torch.zeros(B, 16, dtype=torch.float64), "dc_f must be"),
+])
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(index, bad, match):
+    from paddle_tpu_torch.utils.error import EnforceError
+
+    args = [torch.from_numpy(v) for v in
+            (_bwd_inputs(16, seed=6)[k] for k in _ORDER)]
+    args[index] = bad
+    with pytest.raises(EnforceError, match=match):
+        lk.lstm_seq_bwd(*args)
+
+
+def test_bwd_reference_bf16_tracks_f32():
+    """bfloat16 inputs: dz is rounded to bfloat16 for dgates and before
+    dz . W^T, tanh(c_t) reads the bfloat16 c_seq; the gradients stay within
+    bfloat16 rounding of the float32 run (dpeep, summed in f32 over B and
+    T, within a few bfloat16 ulps of its size)."""
+    x = _bwd_inputs(64, seed=7)
+    f32 = [torch.from_numpy(x[k]) for k in _ORDER]
+    bf = [a if i in (1, 3) else a.bfloat16() for i, a in enumerate(f32)]
+    want = lk.lstm_seq_bwd_reference(*f32)
+    got = lk.lstm_seq_bwd_reference(*bf)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
+    for name, g, w, tol in zip(("dgates", "dh0", "dc0", "dpeep"), got, want,
+                               (3e-2, 5e-2, 5e-2, 1e-1)):
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), atol=tol,
+                                   err_msg=name)
+
+
+def _scan_inputs(hidden, seed):
+    rng = np.random.RandomState(seed)
+    return {
+        "gates": (rng.randn(B, T, 4 * hidden) * 0.5).astype(np.float32),
+        "mask": (np.arange(T)[None, :] < LENGTHS[:, None]).astype(np.float32),
+        "w": (rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)).astype(
+            np.float32),
+        "peep": (rng.randn(3 * hidden) * 0.3).astype(np.float32),
+        "h0": (rng.randn(B, hidden) * 0.5).astype(np.float32),
+        "c0": (rng.randn(B, hidden) * 0.5).astype(np.float32),
+        # cotangents of h_seq [B, T, H], h_f and c_f
+        "r_seq": rng.randn(B, T, hidden).astype(np.float32),
+        "r_h": rng.randn(B, hidden).astype(np.float32),
+        "r_c": rng.randn(B, hidden).astype(np.float32),
+    }
+
+
+_WRT = ("gates", "w", "peep", "h0", "c0")
+
+
+def _jax_grads(x):
+    def loss(gates, w, peep, h0, c0):
+        h_seq, (h_f, c_f) = jax_rnn.lstm_scan(
+            gates, jnp.asarray(x["mask"]), w_in=None, b=None, w_rec=w,
+            h0=h0, c0=c0, use_peephole=True, w_peep=peep,
+            standard_acts=True)
+        return (jnp.sum(h_seq * x["r_seq"]) + jnp.sum(h_f * x["r_h"])
+                + jnp.sum(c_f * x["r_c"]))
+
+    grads = jax.grad(loss, argnums=tuple(range(5)))(
+        *(jnp.asarray(x[k]) for k in _WRT))
+    return [np.asarray(g) for g in grads]
+
+
+def _torch_grads(x):
+    leaves = {k: torch.from_numpy(x[k]).requires_grad_() for k in _WRT}
+    h_seq, (h_f, c_f) = torch_rnn.lstm_scan(
+        leaves["gates"], torch.from_numpy(x["mask"]), w_in=None, b=None,
+        w_rec=leaves["w"], h0=leaves["h0"], c0=leaves["c0"],
+        use_peephole=True, w_peep=leaves["peep"])
+    loss = ((h_seq * torch.from_numpy(x["r_seq"])).sum()
+            + (h_f * torch.from_numpy(x["r_h"])).sum()
+            + (c_f * torch.from_numpy(x["r_c"])).sum())
+    loss.backward()
+    return [leaves[k].grad.numpy() for k in _WRT]
+
+
+@pytest.mark.parametrize("hidden", [64, 256], ids=["resident_K2",
+                                                   "tiled_K4"])
+def test_lstm_scan_grads_match_jax_grad_of_fused_path(hidden, interpret,
+                                                      monkeypatch):
+    """The port's lstm_scan gradients (through LstmSeq on the CPU) against
+    jax.grad of the JAX lstm_scan on the fused (Pallas, interpret) path;
+    the plain backward ran once and nothing else differentiated the scan."""
+    calls = []
+    plain = lk.lstm_seq_bwd_reference
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return plain(*args)
+
+    monkeypatch.setattr(lk, "lstm_seq_bwd_reference", counted)
+    x = _scan_inputs(hidden, seed=hidden + 1)
+    got = _torch_grads(x)
+    assert calls == [(T, B, 4 * hidden)]
+    for name, g, w in zip(_WRT, got, _jax_grads(x)):
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL, err_msg=name)
+
+
+def test_kernel_branch_gradients_come_only_from_the_function(monkeypatch):
+    """With the plain backward stubbed out, the scan's kernel branch yields
+    the stub's gradients: no other route (autograd through the plain
+    forward loop) reaches the inputs."""
+    x = _scan_inputs(8, seed=9)
+
+    def stub(gates_tm, mask_tm, w_rec, peep, hprev, cprev, c_seq, dh_seq,
+             dh_f, dc_f):
+        return (torch.full_like(gates_tm, 2.0), torch.full_like(dh_f, 3.0),
+                torch.full_like(dc_f, 4.0), torch.full_like(peep, 5.0))
+
+    monkeypatch.setattr(lk, "lstm_seq_bwd_reference", stub)
+    gates, w, peep, h0, c0 = _torch_grads(x)
+    assert np.all(gates == 2.0) and np.all(h0 == 3.0) and np.all(c0 == 4.0)
+    assert np.all(peep == 5.0)
+    # dW is hprev^T . dgates outside the kernel: every column 2 * sum(hprev)
+    h_seq, _ = lk.lstm_seq_fwd_reference(*(torch.from_numpy(a) for a in (
+        x["gates"].transpose(1, 0, 2).copy(), x["mask"].T.copy(), x["w"],
+        x["peep"].reshape(3, 8), x["h0"], x["c0"])))
+    hprev = np.concatenate([x["h0"][None], h_seq[:-1].numpy()])
+    want = np.repeat(2.0 * hprev.reshape(-1, 8).sum(0)[:, None], 32, axis=1)
+    np.testing.assert_allclose(w, want, rtol=1e-5, atol=1e-5)
