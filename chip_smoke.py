@@ -38,7 +38,28 @@ result line:
 8. train_h1280  hidden 1280, batch 64, length 100: a few steps on the card
            (ms per batch, launch counts) and one step on 8 rows held
            against the CPU (cost and every gradient).
-9. kernels one entry per TPU kernel the port replaced, then the card's
+9. kernel_gru  gru_seq_fwd (csrc/gru_seq_fwd.cu) against its plain
+           version at (T, B, H) = (128, 1|8|32, 256) (the served tagger),
+           (128, 64, 256) (the trained tagger) and (30, 64, 512) (the NMT
+           encoder's width), float32 and bfloat16, ragged masks; errors,
+           CUDA-event times, the bound, and cuDNN's GRU time for scale
+           (not the same function).
+10. kernel_gru_bwd  gru_seq_bwd (csrc/gru_seq_bwd.cu) the same way at
+           (128, 64, 256) and (30, 64, 512).
+11. serve_tagger  the GRU sequence tagger (vocab 1000, emb 32, GRU 256,
+           32 labels, random weights from a numpy seed) exported with
+           buckets 1/8/32 and seq_len 128, a burst of 16 requests of 1-8
+           rows with lognormal lengths, then 3 HTTP requests; every
+           per-timestep probability held against the same bundle on the
+           CPU, and the forward kernel's launches against the dispatched
+           batches.
+12. train_tagger  the tagger plus a sequence label and
+           classification_cost, trained by trainer.SGD with
+           Momentum(1e-3, 0.9) at batch 64: 3 ragged steps held against
+           the CPU (costs and every parameter), bfloat16 against float32,
+           20 steps at length 128 in each (ms per batch, 1 forward and 1
+           backward GRU launch per step) and a torch.profiler summary.
+13. kernels one entry per TPU kernel the port replaced, then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -94,6 +115,19 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, H1280_STEPS = 64, 100, 20, 5
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
 BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
+# the GRU kernels at the tagger's served and trained shapes and at the NMT
+# encoder's width (benchmark/harness.py:476)
+GRU_CASES = [(128, 1, 256), (128, 8, 256), (128, 32, 256), (128, 64, 256),
+             (30, 64, 512)]
+GRU_BWD_CASES = [(128, 64, 256), (30, 64, 512)]
+# the tagger of benchmark/exp_serve.py:154-168 (served at seq_len 128) and
+# of benchmark/exp_checkpoint.py:78-94 (trained with Momentum(1e-3, 0.9))
+TAGGER = {"dict_size": 1000, "label_size": 32, "emb_size": 32, "hidden": 256}
+TAGGER_BUILDER = "paddle_tpu_torch.models.text:sequence_tagging_gru"
+TAGGER_SEQ = 128
+# the tagger's cost is a sum over up to 128 per-timestep costs (about 440
+# at the start): its limits, card vs CPU (TOL_TRAIN) and bfloat16 vs
+# float32 (TOL_TRAIN_BF16), apply to the cost divided by max(1, |cost|)
 DEVICE = "cuda"
 
 
@@ -312,6 +346,136 @@ def phase_kernel_bwd(torch, lk):
     return results
 
 
+def gru_bound_ms(steps, batch, hidden, dtype_name, backward=False):
+    """Least time for the GRU forward (backward): the bytes it must move
+    (forward: proj, mask, w_rz, w_c, h0 read once, h_seq written once;
+    backward: proj, mask, w_rz, w_c, hprev, dh_seq, dh_f read once, dproj
+    and dh0 written once) over HBM rate, or its recurrent GEMV FLOPs
+    (2*T*B*H*3H forward, twice that backward) over the peak rate for the
+    dtype, whichever is larger."""
+    isz = 2 if dtype_name == "bfloat16" else 4
+    g3 = 3 * hidden
+    seq, rows = steps * batch, batch * hidden
+    if backward:
+        nbytes = (2 * seq * g3 * isz + seq * 4 + hidden * g3 * isz
+                  + 2 * seq * hidden * isz + 2 * rows * isz)
+    else:
+        nbytes = (seq * g3 * isz + seq * 4 + hidden * g3 * isz + rows * isz
+                  + seq * hidden * isz)
+    flops = (2 if backward else 1) * 2.0 * seq * hidden * g3
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gru_inputs(torch, steps, batch, hidden, dtype, seed):
+    """Numpy-seeded GRU inputs: lengths that include T, 0 and 1 (as far
+    as the batch allows), nonzero h0, update and reset weights drawn
+    independently."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(0, steps + 1, batch)
+    lens[:3] = (steps, 0, 1)[:batch]
+    mask = (np.arange(steps)[:, None] < lens[None, :]).astype(np.float32)
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=DEVICE)
+
+    return (dev(rng.randn(steps, batch, 3 * hidden) * 0.5),
+            dev(mask, torch.float32),
+            dev(rng.randn(hidden, 2 * hidden) / np.sqrt(hidden)),
+            dev(rng.randn(hidden, hidden) / np.sqrt(hidden)),
+            dev(rng.randn(batch, hidden) * 0.5))
+
+
+def phase_kernel_gru(torch, gk):
+    results = []
+    for steps, batch, hidden in GRU_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = gru_inputs(torch, steps, batch, hidden, dtype,
+                              SEED + 3 * batch + hidden)
+            h_k = gk.gru_seq_fwd(*args)
+            torch.cuda.synchronize()
+            launch = dict(gk.gru_seq_fwd.last_launch)
+            err = bwd_error([h_k], [gk.gru_seq_fwd_reference(*args)])
+            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            ms = time_ms(torch, lambda: gk.gru_seq_fwd(*args))
+            plain_ms = time_ms(torch,
+                               lambda: gk.gru_seq_fwd_reference(*args),
+                               warmup=1)
+            cudnn = torch.nn.GRU(hidden, hidden).to(DEVICE, dtype)
+            cudnn.flatten_parameters()
+            x = torch.randn(steps, batch, hidden, device=DEVICE, dtype=dtype)
+            with torch.no_grad():
+                cudnn_ms = time_ms(torch, lambda: cudnn(x))
+            bound, bound_by = gru_bound_ms(steps, batch, hidden, name)
+            row = {"phase": "kernel_gru", "kernel": "gru_seq_fwd",
+                   "T": steps, "B": batch, "H": hidden, "dtype": name,
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by,
+                   "cudnn_gru_ms_not_same_function": cudnn_ms,
+                   "launch": launch}
+            emit(row)
+            if not err <= tol:
+                raise AssertionError("gru_seq_fwd disagrees with its plain "
+                                     "version: %r" % row)
+            results.append(row)
+    return results
+
+
+def phase_kernel_gru_bwd(torch, gk):
+    results = []
+    for steps, batch, hidden in GRU_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            seed = SEED + 5 * batch + hidden
+            proj, mask, w_rz, w_c, h0 = gru_inputs(torch, steps, batch,
+                                                   hidden, dtype, seed)
+            h_seq = gk.gru_seq_fwd_reference(proj, mask, w_rz, w_c, h0)
+            rng = np.random.RandomState(seed + 1)
+            args = (proj, mask, w_rz, w_c, torch.cat([h0[None], h_seq[:-1]]),
+                    torch.tensor(rng.randn(steps, batch, hidden) * 0.5,
+                                 dtype=dtype, device=DEVICE),
+                    torch.tensor(rng.randn(batch, hidden) * 0.5, dtype=dtype,
+                                 device=DEVICE))
+            got = gk.gru_seq_bwd(*args)
+            torch.cuda.synchronize()
+            launch = dict(gk.gru_seq_bwd.last_launch)
+            err = bwd_error(got, gk.gru_seq_bwd_reference(*args))
+            tol = TOL_BWD[name]
+            ms = time_ms(torch, lambda: gk.gru_seq_bwd(*args))
+            plain_ms = time_ms(torch,
+                               lambda: gk.gru_seq_bwd_reference(*args),
+                               warmup=1, reps=5)
+            cudnn = torch.nn.GRU(hidden, hidden).to(DEVICE, dtype)
+            cudnn.flatten_parameters()
+            x = torch.randn(steps, batch, hidden, device=DEVICE, dtype=dtype,
+                            requires_grad=True)
+            dy = torch.randn(steps, batch, hidden, device=DEVICE, dtype=dtype)
+
+            def cudnn_fwd_bwd():
+                cudnn(x)[0].backward(dy)
+
+            bound, bound_by = gru_bound_ms(steps, batch, hidden, name,
+                                           backward=True)
+            row = {"phase": "kernel_gru_bwd", "kernel": "gru_seq_bwd",
+                   "T": steps, "B": batch, "H": hidden, "dtype": name,
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by,
+                   "cudnn_gru_fwd_bwd_ms_not_same_function":
+                       time_ms(torch, cudnn_fwd_bwd),
+                   "launch": launch}
+            emit(row)
+            if not err <= tol:
+                raise AssertionError("gru_seq_bwd disagrees with its plain "
+                                     "version: %r" % row)
+            results.append(row)
+    return results
+
+
 def numpy_params(topology, seed):
     """Every parameter from a numpy seed: weights N(0, 1/fan_in), biases
     and peephole checks N(0, 0.1^2)."""
@@ -335,12 +499,12 @@ def random_request(rng, rows, seq_len, vocab):
             "word:lens": lens}
 
 
-def export(tmp, sub, kwargs, batch_sizes, seq_len):
+def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER):
     from paddle_tpu_torch.serve.bundle import build_outputs
     from paddle_tpu_torch.serve.export import export_bundle, parse_builder
     from paddle_tpu_torch.topology import Topology
 
-    builder = parse_builder(BUILDER, kwargs)
+    builder = parse_builder(builder, kwargs)
     params = numpy_params(Topology(build_outputs(builder)), SEED)
     out_dir = os.path.join(tmp, sub)
     export_bundle(builder, params, out_dir, batch_sizes=batch_sizes,
@@ -357,6 +521,43 @@ def check_close(got, want, what):
     return err
 
 
+def run_burst(engine, burst):
+    """Submit ``burst`` from as many client threads at once; returns the
+    answers, each request's latency (ms) and the burst's wall time (s)."""
+    results = [None] * len(burst)
+    gate = threading.Barrier(len(burst) + 1)
+
+    def client(i):
+        gate.wait()
+        t_sub = time.perf_counter()
+        out = engine.infer(burst[i], timeout=300)
+        results[i] = (out, t_sub, time.perf_counter())
+
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(len(burst))]
+    for c in clients:
+        c.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for c in clients:
+        c.join(timeout=300)
+    if any(r is None for r in results):
+        raise AssertionError("a burst request did not complete")
+    wall = max(r[2] for r in results) - t0
+    return ([r[0] for r in results],
+            [(r[2] - r[1]) * 1e3 for r in results], wall)
+
+
+def post_infer(url, req):
+    """POST /infer with ``req``; returns the decoded outputs."""
+    body = json.dumps({"inputs": {k: v.tolist()
+                                  for k, v in req.items()}}).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            url + "/infer", data=body,
+            headers={"Content-Type": "application/json"})) as fh:
+        return json.loads(fh.read())["outputs"]
+
+
 def phase_serve_flagship(torch, lk, tmp):
     from paddle_tpu_torch.serve import (InferenceEngine, load_bundle,
                                         serve_in_thread)
@@ -369,34 +570,14 @@ def phase_serve_flagship(torch, lk, tmp):
     lk.reset_launches()  # the main path starts here (engine warmup included)
     engine = InferenceEngine(bundle, max_batch_size=32, max_latency_ms=10.0)
     server = thread = None
-    errs, latencies = [], []
+    errs = []
     try:
         # a burst of 16 concurrent requests (flushes on size), then single
         # requests spaced past the deadline (flushes on deadline)
         burst = [random_request(rng, int(rng.randint(1, 9)), seq_len, vocab)
                  for _ in range(16)]
-        results = [None] * len(burst)
-        gate = threading.Barrier(len(burst) + 1)
-
-        def client(i):
-            gate.wait()
-            t_sub = time.perf_counter()
-            out = engine.infer(burst[i], timeout=300)
-            results[i] = (out, t_sub, time.perf_counter())
-
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(burst))]
-        for c in clients:
-            c.start()
-        gate.wait()
-        t0 = time.perf_counter()
-        for c in clients:
-            c.join(timeout=300)
-        if any(r is None for r in results):
-            raise AssertionError("a burst request did not complete")
-        wall = max(r[2] for r in results) - t0
-        for req, (out, t_sub, t_done) in zip(burst, results):
-            latencies.append((t_done - t_sub) * 1e3)
+        outs, latencies, wall = run_burst(engine, burst)
+        for req, out in zip(burst, outs):
             errs.append(check_close(out["lstm_out"],
                                     cpu.infer(req)["lstm_out"], "burst"))
         for _ in range(4):
@@ -412,14 +593,8 @@ def phase_serve_flagship(torch, lk, tmp):
             ready = json.loads(fh.read())
         for _ in range(3):
             req = random_request(rng, int(rng.randint(1, 5)), seq_len, vocab)
-            body = json.dumps({"inputs": {k: v.tolist()
-                                          for k, v in req.items()}}).encode()
-            with urllib.request.urlopen(urllib.request.Request(
-                    url + "/infer", data=body,
-                    headers={"Content-Type": "application/json"})) as fh:
-                resp = json.loads(fh.read())
             errs.append(check_close(
-                np.asarray(resp["outputs"]["lstm_out"], np.float32),
+                np.asarray(post_infer(url, req)["lstm_out"], np.float32),
                 cpu.infer(req)["lstm_out"], "http"))
     finally:
         if server is not None:
@@ -484,9 +659,80 @@ def phase_serve_wide(torch, lk, tmp):
     return row
 
 
+def tagger_request(rng, rows):
+    """``rows`` sequences with the lognormal lengths of the tagger's
+    serving trace (benchmark/exp_serve.py arrival_trace: median 8, sigma
+    0.8, clipped to [1, 128]), padded to seq_len 128."""
+    lens = np.clip(np.rint(rng.lognormal(np.log(8.0), 0.8, rows)), 1,
+                   TAGGER_SEQ).astype(np.int32)
+    return {"word": rng.randint(0, TAGGER["dict_size"],
+                                (rows, TAGGER_SEQ)).astype(np.int32),
+            "word:lens": lens}
+
+
+def phase_serve_tagger(torch, gk, tmp):
+    from paddle_tpu_torch.serve import (InferenceEngine, load_bundle,
+                                        serve_in_thread)
+
+    bundle_dir = export(tmp, "tagger", TAGGER, (1, 8, 32), TAGGER_SEQ,
+                        TAGGER_BUILDER)
+    cpu = load_bundle(bundle_dir, device="cpu")
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    rng = np.random.RandomState(SEED + 8)
+    gk.reset_launches()  # the main path starts here (engine warmup included)
+    engine = InferenceEngine(bundle, max_batch_size=32, max_latency_ms=10.0)
+    server = thread = None
+    errs = []
+    try:
+        burst = [tagger_request(rng, int(rng.randint(1, 9)))
+                 for _ in range(16)]
+        outs, latencies, wall = run_burst(engine, burst)
+        for req, out in zip(burst, outs):
+            errs.append(check_close(out["gru_tag_out"],
+                                    cpu.infer(req)["gru_tag_out"], "burst"))
+        server, thread = serve_in_thread(bundle, engine)
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        for _ in range(3):
+            req = tagger_request(rng, int(rng.randint(1, 9)))
+            errs.append(check_close(
+                np.asarray(post_infer(url, req)["gru_tag_out"], np.float32),
+                cpu.infer(req)["gru_tag_out"], "http"))
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        engine.stop()
+    launches = gk.launches
+    stats = engine.stats()
+    dispatched = stats["warmup_batches"] + stats["batches"]
+    row = {"phase": "serve_tagger", "config": TAGGER, "seq_len": TAGGER_SEQ,
+           "buckets": bundle.batch_sizes(), "requests": stats["requests"],
+           "rows": stats["rows"], "batches": stats["batches"],
+           "warmup_batches": stats["warmup_batches"],
+           "flush_on_size": stats["flush_on_size"],
+           "flush_on_deadline": stats["flush_on_deadline"],
+           "kernel_launches": launches,
+           "last_launch": gk.gru_seq_fwd.last_launch,
+           "max_abs_err_vs_cpu": max(errs), "burst_qps": len(burst) / wall,
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_p99": float(np.percentile(latencies, 99))}
+    emit(row)
+    if launches != dispatched:
+        raise AssertionError("gru_seq_fwd launched %d times for %d "
+                             "dispatched batches of a 1-GRU model"
+                             % (launches, dispatched))
+    if stats["batches_failed"] != 0:
+        raise AssertionError("tagger batches failed: %r" % stats)
+    return row
+
+
 class Batch(list):
     """A minibatch padded to ``bucket`` steps (the trainer reads it)."""
-    bucket = TRAIN_SEQ
+
+    def __init__(self, rows, bucket=TRAIN_SEQ):
+        super().__init__(rows)
+        self.bucket = bucket
 
 
 def train_batches(seed, n, rows, ragged, vocab):
@@ -504,21 +750,39 @@ def train_batches(seed, n, rows, ragged, vocab):
     return out
 
 
-class TrainRig:
-    """The flagship's cost topology at one width and its numpy-seeded
-    initial parameters; ``trainer(device)`` gives a fresh trainer on its
-    own copy of them."""
+def tagger_batches(seed, n, rows, ragged):
+    """``n`` minibatches of (ids, labels) padded to 128 steps: lengths in
+    [0, 128] including 0, 1 and 128 when ``ragged``, else all 128."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = (rng.randint(0, TAGGER_SEQ + 1, rows) if ragged
+                else np.full(rows, TAGGER_SEQ))
+        if ragged:
+            lens[:3] = (TAGGER_SEQ, 0, 1)
+        out.append(Batch(((rng.randint(0, TAGGER["dict_size"], int(k))
+                           .tolist(),
+                           rng.randint(0, TAGGER["label_size"], int(k))
+                           .tolist()) for k in lens), bucket=TAGGER_SEQ))
+    return out
 
-    def __init__(self, hidden, seed):
-        from paddle_tpu_torch import data_type, layer
+
+class TrainRig:
+    """A model's output plus a label and classification_cost, its cost
+    topology and numpy-seeded initial parameters; ``trainer(device)``
+    gives a fresh trainer with Momentum(learning_rate, 0.9) on its own
+    copy of them."""
+
+    def __init__(self, build, config, label_type, seed, learning_rate):
+        from paddle_tpu_torch import layer
         from paddle_tpu_torch.graph import reset_name_counters
-        from paddle_tpu_torch.models.text import text_classification_lstm
         from paddle_tpu_torch.topology import Topology
 
         reset_name_counters()
-        self.config = dict(FLAGSHIP, hidden=hidden)
-        self.out = text_classification_lstm(**self.config)
-        label = layer.data(name="label", type=data_type.integer_value(2))
+        self.config = config
+        self.learning_rate = learning_rate
+        self.out = build(**config)
+        label = layer.data(name="label", type=label_type)
         self.cost = layer.classification_cost(input=self.out, label=label)
         self.topology = Topology(self.cost)
         self.init = numpy_params(self.topology, seed)
@@ -531,7 +795,15 @@ class TrainRig:
                              for k, v in self.init.as_dict().items()},
                             self.topology.param_specs())
         return trainer.SGD(self.cost, params, optimizer.Momentum(
-            learning_rate=0.01, momentum=0.9), device=device)
+            learning_rate=self.learning_rate, momentum=0.9), device=device)
+
+
+def flagship_rig(hidden, seed):
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.models.text import text_classification_lstm
+
+    return TrainRig(text_classification_lstm, dict(FLAGSHIP, hidden=hidden),
+                    data_type.integer_value(2), seed, 0.01)
 
 
 def train(torch, tr, batches, timed=False):
@@ -602,14 +874,32 @@ def param_error(a, b):
     return max(float(np.abs(a.get(n) - b.get(n)).max()) for n in a.names())
 
 
-def check_launches(lk, steps, what):
-    fwd, bwd = lk.launches, lk.bwd_launches
-    if not (fwd == 2 * steps and bwd == 2 * steps):
+def check_launches(kernels, steps, per_step, what):
+    """The forward and backward launch counts of a kernel module
+    (lstm_kernels or gru_kernels) after ``steps`` training steps of a
+    model with ``per_step`` such layers."""
+    fwd, bwd = kernels.launches, kernels.bwd_launches
+    if not (fwd == per_step * steps and bwd == per_step * steps):
         raise AssertionError(
-            "%s: %d steps of a 2-LSTM model launched lstm_seq_fwd %d and "
-            "lstm_seq_bwd %d times (want %d each)" % (what, steps, fwd, bwd,
-                                                      2 * steps))
+            "%s: %d steps launched the forward kernel %d and the backward "
+            "kernel %d times (want %d each)" % (what, steps, fwd, bwd,
+                                                per_step * steps))
     return fwd, bwd
+
+
+def cost_error(got, want):
+    """max over the steps of |got - want| / max(1, |want|)."""
+    return max(abs(g - w) / max(1.0, abs(w)) for g, w in zip(got, want))
+
+
+def no_gradient(tr):
+    """Parameters of a trainer's last step without a finite nonzero
+    gradient."""
+    import torch
+
+    return [n for n, p in tr._trainable.items()
+            if p.grad is None or not bool(torch.isfinite(p.grad).all())
+            or float(p.grad.abs().max()) == 0.0]
 
 
 def phase_train_flagship(torch, lk, tmp):
@@ -618,7 +908,7 @@ def phase_train_flagship(torch, lk, tmp):
     from paddle_tpu_torch.serve import load_bundle
     from paddle_tpu_torch.serve.export import parse_builder
 
-    rig = TrainRig(256, SEED + 2)
+    rig = flagship_rig(256, SEED + 2)
     vocab = FLAGSHIP["dict_size"]
     ragged = train_batches(SEED + 3, 3, TRAIN_BATCH, True, vocab)
     full = train_batches(SEED + 4, TRAIN_STEPS, TRAIN_BATCH, False, vocab)
@@ -626,18 +916,16 @@ def phase_train_flagship(torch, lk, tmp):
     card = rig.trainer(DEVICE)
     lk.reset_launches()
     costs = train(torch, card, ragged[:1])
-    no_grad = [n for n, p in card._trainable.items()
-               if p.grad is None or not bool(torch.isfinite(p.grad).all())
-               or float(p.grad.abs().max()) == 0.0]
+    no_grad = no_gradient(card)
     costs += train(torch, card, ragged[1:])
-    ragged_launches = check_launches(lk, 3, "ragged steps")
+    ragged_launches = check_launches(lk, 3, 2, "ragged steps")
     cpu = rig.trainer("cpu")
     cpu_costs = train(torch, cpu, ragged)
     cost_err = float(np.abs(np.subtract(costs, cpu_costs)).max())
     param_err = param_error(card.parameters, cpu.parameters)
     lk.reset_launches()  # the main path: 20 steps at the bench row's traffic
     _, ms = train(torch, card, full, timed=True)
-    launches = check_launches(lk, TRAIN_STEPS, "f32 training")
+    launches = check_launches(lk, TRAIN_STEPS, 2, "f32 training")
     profile = profile_steps(torch, card, full[:5])
     # the same under the bfloat16 compute policy (float32 masters)
     dtype_mod.set_mixed_precision("bfloat16")
@@ -646,7 +934,7 @@ def phase_train_flagship(torch, lk, tmp):
         costs16 = train(torch, card16, ragged)
         lk.reset_launches()
         _, ms16 = train(torch, card16, full, timed=True)
-        launches16 = check_launches(lk, TRAIN_STEPS, "bf16 training")
+        launches16 = check_launches(lk, TRAIN_STEPS, 2, "bf16 training")
     finally:
         dtype_mod.set_mixed_precision(None)
     bf16_err = float(np.abs(np.subtract(costs16, costs)).max())
@@ -688,6 +976,69 @@ def phase_train_flagship(torch, lk, tmp):
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
 
 
+def phase_train_tagger(torch, gk):
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.models.text import sequence_tagging_gru
+
+    rig = TrainRig(sequence_tagging_gru, TAGGER,
+                   data_type.integer_value_sequence(TAGGER["label_size"]),
+                   SEED + 9, 1e-3)
+    ragged = tagger_batches(SEED + 10, 3, TRAIN_BATCH, True)
+    full = tagger_batches(SEED + 11, TRAIN_STEPS, TRAIN_BATCH, False)
+    # f32 on the card: step 1 alone (its gradients checked), then 2 and 3
+    card = rig.trainer(DEVICE)
+    gk.reset_launches()
+    costs = train(torch, card, ragged[:1])
+    no_grad = no_gradient(card)
+    costs += train(torch, card, ragged[1:])
+    ragged_launches = check_launches(gk, 3, 1, "tagger ragged steps")
+    cpu = rig.trainer("cpu")
+    cpu_costs = train(torch, cpu, ragged)
+    cost_err = cost_error(costs, cpu_costs)
+    param_err = param_error(card.parameters, cpu.parameters)
+    gk.reset_launches()  # the main path: 20 steps at length 128
+    _, ms = train(torch, card, full, timed=True)
+    launches = check_launches(gk, TRAIN_STEPS, 1, "tagger f32 training")
+    profile = profile_steps(torch, card, full[:5])
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        costs16 = train(torch, card16, ragged)
+        gk.reset_launches()
+        _, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_launches(gk, TRAIN_STEPS, 1,
+                                    "tagger bf16 training")
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = cost_error(costs16, costs)
+    row = {"phase": "train_tagger", "config": rig.config,
+           "batch": TRAIN_BATCH, "seq_len": TAGGER_SEQ,
+           "optimizer": "Momentum(learning_rate=0.001, momentum=0.9)",
+           "ragged_costs_card": costs, "ragged_costs_cpu": cpu_costs,
+           "cost_err_rel_vs_cpu": cost_err, "param_err_vs_cpu": param_err,
+           "tol": TOL_TRAIN, "params_without_gradient": no_grad,
+           "ragged_launches": ragged_launches, "steps": TRAIN_STEPS,
+           "ms_per_batch_f32": ms, "launches_f32": launches,
+           "last_fwd_launch": gk.gru_seq_fwd.last_launch,
+           "last_bwd_launch": gk.gru_seq_bwd.last_launch,
+           "profile_f32": profile, "bf16_ragged_costs": costs16,
+           "bf16_cost_err_rel_vs_f32": bf16_err,
+           "tol_bf16": TOL_TRAIN_BF16, "ms_per_batch_bf16": ms16,
+           "launches_bf16": launches16}
+    emit(row)
+    if no_grad:
+        raise AssertionError("tagger parameters without a finite nonzero "
+                             "gradient at step 1: %s" % no_grad)
+    if not (cost_err <= TOL_TRAIN and param_err <= TOL_TRAIN):
+        raise AssertionError("tagger training on the card departs from the "
+                             "CPU: %r" % row)
+    if not bf16_err <= TOL_TRAIN_BF16:
+        raise AssertionError("tagger bf16 training departs from f32: %r"
+                             % row)
+    return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
 def grad_error(a, b):
     """max over the parameters of max |a.grad - b.grad| / max |b.grad|."""
     out = 0.0
@@ -699,13 +1050,13 @@ def grad_error(a, b):
 
 
 def phase_train_h1280(torch, lk):
-    rig = TrainRig(1280, SEED + 6)
+    rig = flagship_rig(1280, SEED + 6)
     vocab = FLAGSHIP["dict_size"]
     full = train_batches(SEED + 7, H1280_STEPS, TRAIN_BATCH, False, vocab)
     card = rig.trainer(DEVICE)
     lk.reset_launches()  # the main path of this width
     _, ms = train(torch, card, full, timed=True)
-    launches = check_launches(lk, H1280_STEPS, "h1280 training")
+    launches = check_launches(lk, H1280_STEPS, 2, "h1280 training")
     profile = profile_steps(torch, card, full[:3])
     # one step on the first 8 rows, card against CPU
     head = [Batch(full[0][:8])]
@@ -728,11 +1079,14 @@ def phase_train_h1280(torch, lk):
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
 
 
-def kernel_entry(cases, name, replaces, launches, hidden, source):
+def kernel_entry(cases, name, replaces, launches, hidden, source,
+                 batch=None):
     """The kernels-line entry for one TPU kernel: numbers of the float32
-    case at the widest batch of its width (what the main path runs)."""
+    case at the batch the main path runs (default: the widest batch of its
+    width)."""
     f32 = [c for c in cases if c["H"] == hidden and c["dtype"] == "float32"]
-    main = max(f32, key=lambda c: c["B"])
+    main = (max(f32, key=lambda c: c["B"]) if batch is None
+            else next(c for c in f32 if c["B"] == batch))
     return {"name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/%s.cu" % source,
             "replaces": replaces, "launches": launches,
@@ -751,6 +1105,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import gru_kernels as gk
     from paddle_tpu_torch.ops import lstm_kernels as lk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -763,7 +1118,8 @@ def main():
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd"])
+    libs = _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd", "gru_seq_fwd",
+                             "gru_seq_bwd"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(lib) for lib in libs],
           "ptxas": {k: [ln for ln in v.splitlines() if "Used" in ln]
@@ -771,10 +1127,14 @@ def main():
 
     cases = phase_kernel(torch, lk)
     bwd_cases = phase_kernel_bwd(torch, lk)
+    gru_cases = phase_kernel_gru(torch, gk)
+    gru_bwd_cases = phase_kernel_gru_bwd(torch, gk)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
+        tagger = phase_serve_tagger(torch, gk, tmp)
+    trained_tagger = phase_train_tagger(torch, gk)
     trained_wide = phase_train_h1280(torch, lk)
 
     emit({"kernels": [
@@ -789,7 +1149,13 @@ def main():
                      trained["bwd_launches"], 256, "lstm_seq_bwd"),
         kernel_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
                      "paddle_tpu/ops/pallas_kernels.py:456",
-                     trained_wide["bwd_launches"], 1280, "lstm_seq_bwd")]})
+                     trained_wide["bwd_launches"], 1280, "lstm_seq_bwd"),
+        kernel_entry(gru_cases, "gru_seq_fwd[K5,h256]",
+                     "paddle_tpu/ops/pallas_kernels.py:668",
+                     tagger["kernel_launches"], 256, "gru_seq_fwd", batch=32),
+        kernel_entry(gru_bwd_cases, "gru_seq_bwd[K6,h256]",
+                     "paddle_tpu/ops/pallas_kernels.py:724",
+                     trained_tagger["bwd_launches"], 256, "gru_seq_bwd")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,11 @@ Ported so far: the serving path of the LSTM text classifier (layers,
 topology, parameters, bundle export/load, batching engine, HTTP server),
 its training path (classification_cost, optimizer.Momentum, trainer.SGD
 with the v2 event stream, parameter tars), and its whole-sequence LSTM
-kernels, forward and backward (csrc/lstm_seq_fwd.cu, csrc/lstm_seq_bwd.cu).
+kernels, forward and backward (csrc/lstm_seq_fwd.cu, csrc/lstm_seq_bwd.cu);
+the GRU sequence tagger (models.text.sequence_tagging_gru: grumemory,
+networks.simple_gru, a per-timestep output and sequence label) served and
+trained the same way, over its whole-sequence GRU kernels
+(csrc/gru_seq_fwd.cu, csrc/gru_seq_bwd.cu).
 """
 
 __version__ = "0.1.0"

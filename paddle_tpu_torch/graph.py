@@ -21,6 +21,7 @@ _creation_counter = itertools.count()
 # layer types this package has (e.g. pooling -> "__seq_pooling_0__").
 _REF_NAME_TAGS = {
     "embedding_layer": "embedding",
+    "grumemory": "gru",
     "pooling": "seq_pooling",
 }
 

@@ -3,7 +3,7 @@ building a lazy DAG that paddle_tpu_torch.topology.Topology evaluates.
 
   io.py         data
   basic.py      fc, embedding
-  recurrent.py  lstmemory
+  recurrent.py  lstmemory, grumemory
   sequence.py   pooling
   cost.py       classification_cost, cross_entropy
 """
@@ -13,5 +13,5 @@ from paddle_tpu_torch.layer.base import layer_registry
 from paddle_tpu_torch.layer.basic import embedding, fc
 from paddle_tpu_torch.layer.cost import classification_cost, cross_entropy
 from paddle_tpu_torch.layer.io import data
-from paddle_tpu_torch.layer.recurrent import lstmemory
+from paddle_tpu_torch.layer.recurrent import grumemory, lstmemory
 from paddle_tpu_torch.layer.sequence import pooling

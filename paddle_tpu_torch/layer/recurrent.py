@@ -1,6 +1,8 @@
-"""Recurrent layers: lstmemory (reference: LstmLayer.cpp; paddle_tpu/layer/
-recurrent.py). Like the reference, ``lstmemory`` consumes an input already
-projected to 4*size (networks.simple_lstm puts an fc in front)."""
+"""Recurrent layers: lstmemory and grumemory (reference: LstmLayer.cpp,
+GatedRecurrentLayer; paddle_tpu/layer/recurrent.py). Like the reference,
+``lstmemory`` consumes an input already projected to 4*size and
+``grumemory`` one projected to 3*size (networks.simple_lstm /
+simple_gru put an fc in front)."""
 
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.core.sequence import SequenceBatch
@@ -72,4 +74,50 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("lstmemory", forward, [input], name=name, size=size,
+                     param_specs=specs, layer_attr=layer_attr)
+
+
+@register_layer("grumemory")
+def grumemory(input, name=None, size=None, reverse=False, act=None,
+              gate_act=None, bias_attr=None, param_attr=None,
+              layer_attr=None):
+    """GRU over a pre-projected sequence (input.size == 3*size).
+
+    ONE recurrent weight [size, 3*size] (the reference
+    GatedRecurrentLayer's single parameter, so a shared ParamAttr name
+    ties whole GRUs together), whose columns are the update gate, the
+    reset gate and the candidate in that order (paddle_tpu/ops/rnn.py
+    gru_step), and a 3*size bias added to the projection before the scan.
+    ``act`` is the candidate activation (default tanh), ``gate_act`` the
+    gates' (default sigmoid). ``reverse=True`` and the streaming decode
+    state come with later parts of the port.
+    """
+    size = size or input.size // 3
+    enforce(input.size == 3 * size, "grumemory input.size must be 3*size")
+    enforce(not reverse, "grumemory(reverse=True) is not ported yet")
+    from paddle_tpu_torch.graph import auto_name
+
+    name = name or auto_name("grumemory")
+    wspec = weight_spec(name, 0, (size, 3 * size), param_attr, fan_in=size)
+    bspec = bias_spec(name, (3 * size,), bias_attr)
+    g_act = to_activation(gate_act or "sigmoid")
+    s_act = to_activation(act or "tanh")
+    standard_acts = g_act.name == "sigmoid" and s_act.name == "tanh"
+
+    def forward(params, values, ctx):
+        x = values[0]
+        enforce(is_seq(x), "grumemory expects a sequence input")
+        proj = x.data
+        if bspec is not None:
+            proj = proj + params[bspec.name]
+        w = params[wspec.name]
+        h_seq, _ = rnn_ops.gru_scan(
+            proj, x.mask(proj.dtype), w_in=None, b=None,
+            w_rec_rz=w[:, :2 * size], w_rec_c=w[:, 2 * size:],
+            gate_act=g_act.apply, state_act=s_act.apply,
+            standard_acts=standard_acts)
+        return SequenceBatch(h_seq, x.lengths)
+
+    specs = [s for s in (wspec, bspec) if s is not None]
+    return make_node("grumemory", forward, [input], name=name, size=size,
                      param_specs=specs, layer_attr=layer_attr)

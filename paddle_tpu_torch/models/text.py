@@ -23,3 +23,18 @@ def text_classification_lstm(dict_size=30000, emb_size=128, hidden=128,
     pooled = L.pooling(input=t, pooling_type=pool.MaxPooling())
     return L.fc(input=pooled, size=num_classes, act=A.Softmax(),
                 name="lstm_out")
+
+
+def sequence_tagging_gru(dict_size=1000, label_size=16, emb_size=32,
+                         hidden=64, name="gru_tag"):
+    """Forward-GRU tagger emitting per-timestep label probabilities
+    (paddle_tpu/models/text.py:60; reference lineage: the
+    sequence_tagging demo's RNN half): embedding, simple_gru, fc + softmax
+    at every position. Layer and parameter names are the JAX builder's
+    (<name>_emb, <name>_gru_transform, <name>_gru, <name>_out)."""
+    words = L.data(name="word",
+                   type=data_type.integer_value_sequence(dict_size))
+    emb = L.embedding(input=words, size=emb_size, name=name + "_emb")
+    rnn = networks.simple_gru(input=emb, size=hidden, name=name + "_gru")
+    return L.fc(input=rnn, size=label_size, act=A.Softmax(),
+                name=name + "_out")

@@ -17,3 +17,27 @@ def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
                        gate_act=gate_act, state_act=state_act,
                        bias_attr=bias_param_attr, param_attr=inner_param_attr,
                        layer_attr=lstm_cell_attr, name=name)
+
+
+def simple_gru(input, size, name=None, reverse=False, mat_param_attr=None,
+               bias_param_attr=None, inner_param_attr=None, act=None,
+               gate_act=None, mixed_param_attr=None,
+               mixed_bias_param_attr=None, mixed_layer_attr=None,
+               gru_param_attr=None, gru_bias_attr=None, gru_layer_attr=None):
+    """fc (3*size projection) + grumemory. Accepts both this framework's
+    arg names and the v1 DSL's (reference: networks.py simple_gru —
+    mixed_param_attr/gru_param_attr naming)."""
+    name = name or auto_name("simple_gru")  # reference wrap_name_default
+    mat_param_attr = mixed_param_attr or mat_param_attr
+    inner_param_attr = gru_param_attr or inner_param_attr
+    bias_param_attr = gru_bias_attr if gru_bias_attr is not None \
+        else bias_param_attr
+    proj_bias = mixed_bias_param_attr if mixed_bias_param_attr is not None \
+        else False
+    proj = L.fc(input=input, size=size * 3, act=None, bias_attr=proj_bias,
+                param_attr=mat_param_attr, layer_attr=mixed_layer_attr,
+                name="%s_transform" % name)
+    return L.grumemory(input=proj, size=size, reverse=reverse, act=act,
+                       gate_act=gate_act, bias_attr=bias_param_attr,
+                       param_attr=inner_param_attr, layer_attr=gru_layer_attr,
+                       name=name)

@@ -1,10 +1,15 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and call the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/lib<name>-<hash>.so``), loaded
 with ``ctypes``. The build runs at first use, from the sources in the
 checkout only; the file name carries a hash of the source, so an edited
 kernel rebuilds and a stale library is never loaded.
+
+``check_args`` and ``launch`` are what every kernel wrapper shares: the
+argument checks against the kernel's contract, and the ctypes call of a
+C entry with the common signature (dtype code, pointers, T, B, H, device,
+stream, info array).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -18,7 +23,11 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 from paddle_tpu_torch.utils.error import enforce
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -97,3 +106,53 @@ def load(name):
             lib = ctypes.CDLL(path)
             _loaded[name] = lib
         return lib
+
+
+def check_args(what, lead, named):
+    """Shapes, dtypes and devices against the leading tensor ``lead``
+    (float32 or bfloat16); ``named`` holds (name, tensor, shape, dtype)
+    with dtype None for ``lead``'s dtype."""
+    dt = lead.dtype
+    enforce(dt in DTYPE_CODES, "%s takes float32 or bfloat16 inputs, got %s",
+            what, dt)
+    enforce(lead.shape[0] >= 1 and lead.shape[1] >= 1,
+            "empty sequence batch %s", tuple(lead.shape))
+    for name, x, shape, want in named:
+        want = dt if want is None else want
+        enforce(tuple(x.shape) == shape, "%s must be %s, got %s", name,
+                shape, tuple(x.shape))
+        enforce(x.dtype == want, "%s must be %s, got %s", name, want,
+                x.dtype)
+        enforce(x.device == lead.device, "%s is on %s, expected %s", name,
+                x.device, lead.device)
+
+
+def launch(name, dev, tensors, outputs, shape, count):
+    """Call the C entry ``name`` of library ``name`` with the dtype code,
+    the pointers of ``tensors`` and ``outputs``, ``shape`` (T, B, H), the
+    device, the stream and an info array; ``count`` gets the launches made
+    (also when the call then fails). Returns the info array."""
+    enforce(all(x.is_contiguous() for x in tensors),
+            "%s needs contiguous inputs", name)
+    lib = load(name)
+    fn = getattr(lib, name)
+    npt = len(tensors) + len(outputs)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * npt
+                   + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    err = getattr(lib, name + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    info = (ctypes.c_int * 6)()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = fn(DTYPE_CODES[tensors[0].dtype],
+            *(x.data_ptr() for x in tuple(tensors) + tuple(outputs)), *shape,
+            index, stream, info)
+    count(info[5])
+    if rc != 0:
+        raise RuntimeError(
+            "%s kernel launch failed (code %d: %s; T=%d B=%d H=%d)"
+            % ((name, rc, err(rc).decode()) + tuple(shape)))
+    return info

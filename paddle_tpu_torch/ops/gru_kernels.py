@@ -1,0 +1,272 @@
+"""Whole-sequence GRU forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the autograd Function that joins them.
+
+``gru_seq_fwd`` has the function and contract of paddle_tpu/ops/
+pallas_kernels.py ``gru_fused`` forward (the TPU kernel K5
+``_gru_fwd_kernel``):
+
+    proj_tm [T, B, 3H]  x.W_in + b, gate columns u (update), r (reset),
+                        c (candidate); float32 or bfloat16
+    mask_tm [T, B]      float32; 0 = padded step, h copied forward
+    w_rz    [H, 2H]     proj's dtype; columns [0:H] the update gate,
+                        [H:2H] the reset gate
+    w_c     [H, H]      proj's dtype
+    h0      [B, H]      proj's dtype
+    -> h_seq [T, B, H] in proj's dtype.
+
+One step: u, r = sigmoid(proj_{u,r} + h.W_rz); c = tanh(proj_c +
+round(r*h).W_c), with r*h rounded to proj's dtype; h = u*h + (1-u)*c,
+stored in proj's dtype; every product sums in float32.
+
+On a CUDA tensor the wrapper launches the kernel (paddle_tpu_torch/csrc/
+gru_seq_fwd.cu, one cooperative launch per sequence; a batch too large for
+one co-resident grid runs as a few launches of equal row chunks, each
+counted) or raises; on a CPU tensor it runs ``gru_seq_fwd_reference``, the
+plain loop of the same function, which is also the oracle the kernel is
+held against.
+
+``gru_seq_bwd`` has the function and contract of the backward kernel K6
+``_gru_bwd_kernel`` (pallas_kernels.py ``_gru_vjp_bwd``): from the saved
+forward (hprev = [h0, h_seq[:-1]]) and the cotangents (dh_seq [T, B, H],
+dh_f [B, H]) it gives dproj [T, B, 3H] and dh0 [B, H] in proj's dtype; the
+dh carry is float32. Its kernel is csrc/gru_seq_bwd.cu; on a CPU tensor it
+runs ``gru_seq_bwd_reference``.
+
+Launch counts: ``launches`` counts the forward kernel's launches and
+``bwd_launches`` the backward's, since the last ``reset_launches()`` (a
+launch made to compare a kernel with its plain version counts too; callers
+reset around the path they read). They are this module's own, apart from
+the LSTM kernels' counts.
+
+``GruSeq`` is the autograd Function around the pair (the JAX package's
+``gru_fused`` custom VJP): its forward is ``gru_seq_fwd``, its backward
+``gru_seq_bwd`` plus the weight gradients as matmuls outside the kernel,
+as the JAX VJP computes them: dw_rz = hprev^T . dproj_{u,r} and dw_c =
+(r * hprev)^T . dproj_c with r recomputed in float32, unrounded. It runs
+the same way on both devices, so the CPU tests exercise the backward the
+card runs, not autograd through the plain loop.
+"""
+
+import threading
+
+import torch
+
+from paddle_tpu_torch.ops._build import check_args, launch
+from paddle_tpu_torch.utils.error import enforce
+
+launches = 0
+bwd_launches = 0
+_count_lock = threading.Lock()
+
+
+def reset_launches():
+    global launches, bwd_launches
+    with _count_lock:
+        launches = 0
+        bwd_launches = 0
+
+
+def _count_launches(n):
+    global launches
+    with _count_lock:
+        launches += n
+
+
+def _count_bwd_launches(n):
+    global bwd_launches
+    with _count_lock:
+        bwd_launches += n
+
+
+def _gates(proj_t, h, w_rz, hidden):
+    """u, r of one step in float32 from proj_t [B, 3H] and h (float32)."""
+    rz = torch.matmul(h, w_rz)
+    u = torch.sigmoid(proj_t[:, :hidden].float() + rz[:, :hidden])
+    r = torch.sigmoid(proj_t[:, hidden:2 * hidden].float() + rz[:, hidden:])
+    return u, r
+
+
+def gru_seq_fwd_reference(proj_tm, mask_tm, w_rz, w_c, h0):
+    """The plain PyTorch loop of the kernel's function (same dtype rules as
+    pallas_kernels.py ``_gru_fwd_kernel``: f32 products and sums, r*h and
+    h rounded to proj's dtype at every step)."""
+    steps, _, g3 = proj_tm.shape
+    hidden = g3 // 3
+    dt = proj_tm.dtype
+    w_rz, w_c = w_rz.float(), w_c.float()
+    h = h0.to(dt)
+    hs = []
+    for t in range(steps):
+        hp = h.float()
+        u, r = _gates(proj_tm[t], hp, w_rz, hidden)
+        rh = (r * hp).to(dt).float()
+        c = torch.tanh(proj_tm[t, :, 2 * hidden:].float()
+                       + torch.matmul(rh, w_c))
+        h_new = u * hp + (1.0 - u) * c
+        h = torch.where((mask_tm[t] > 0)[:, None], h_new.to(dt), h)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def gru_seq_bwd_reference(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq,
+                          dh_f):
+    """The plain PyTorch reverse loop of the backward kernel's function
+    (same dtype rules as pallas_kernels.py ``_gru_bwd_kernel``: u, r, c
+    recomputed in f32 with r*h rounded to proj's dtype; the dh carry in
+    f32; dzc rounded to w_c's dtype before dzc . W_c^T and [dzu, dzr] to
+    w_rz's before . W_rz^T; dproj and dh0 in proj's dtype)."""
+    steps, _, g3 = proj_tm.shape
+    hidden = g3 // 3
+    dt = proj_tm.dtype
+    wrz, wc = w_rz.float(), w_c.float()
+    dh = dh_f.float()
+    dproj = torch.empty_like(proj_tm)
+    for t in range(steps - 1, -1, -1):
+        h32 = hprev_tm[t].float()
+        u, r = _gates(proj_tm[t], h32, wrz, hidden)
+        rh = (r * h32).to(dt).float()
+        c = torch.tanh(proj_tm[t, :, 2 * hidden:].float()
+                       + torch.matmul(rh, wc))
+        m = (mask_tm[t] > 0)[:, None]
+        dh_tot = dh_seq[t].float() + dh
+        dh_eff = torch.where(m, dh_tot, 0.0)
+        du = dh_eff * (h32 - c)
+        dzc = dh_eff * (1.0 - u) * (1.0 - c * c)
+        drh = torch.matmul(dzc.to(w_c.dtype).float(), wc.t())
+        dzu = du * u * (1.0 - u)
+        dzr = drh * h32 * r * (1.0 - r)
+        dzrz = torch.cat([dzu, dzr], dim=-1)
+        dh = (dh_eff * u + drh * r
+              + torch.matmul(dzrz.to(w_rz.dtype).float(), wrz.t())
+              + torch.where(m, 0.0, dh_tot))
+        dproj[t] = torch.cat([dzu, dzr, dzc], dim=-1).to(dt)
+    return dproj, dh.to(dt)
+
+
+def _proj_shape(proj_tm):
+    """(T, B, H) of proj [T, B, 3H]."""
+    enforce(proj_tm.dim() == 3 and proj_tm.shape[-1] % 3 == 0,
+            "proj_tm must be [T, B, 3H], got %s", tuple(proj_tm.shape))
+    steps, batch, g3 = proj_tm.shape
+    return steps, batch, g3 // 3
+
+
+def _weights(proj_tm, mask_tm, w_rz, w_c):
+    steps, batch, hidden = _proj_shape(proj_tm)
+    return (steps, batch, hidden), (
+        ("mask_tm", mask_tm, (steps, batch), torch.float32),
+        ("w_rz", w_rz, (hidden, 2 * hidden), None),
+        ("w_c", w_c, (hidden, hidden), None))
+
+
+def _check(proj_tm, mask_tm, w_rz, w_c, h0):
+    (steps, batch, hidden), named = _weights(proj_tm, mask_tm, w_rz, w_c)
+    check_args("gru_seq_fwd", proj_tm,
+               named + (("h0", h0, (batch, hidden), None),))
+
+
+def _check_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
+    (steps, batch, hidden), named = _weights(proj_tm, mask_tm, w_rz, w_c)
+    seq = (steps, batch, hidden)
+    check_args("gru_seq_bwd", proj_tm, named + (
+        ("hprev_tm", hprev_tm, seq, None),
+        ("dh_seq", dh_seq, seq, None),
+        ("dh_f", dh_f, (batch, hidden), None)))
+
+
+def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0):
+    """Masked GRU forward over the whole sequence (see module docstring).
+    After a kernel call, ``gru_seq_fwd.last_launch`` holds the grid the
+    kernel chose and the number of launches it made."""
+    _check(proj_tm, mask_tm, w_rz, w_c, h0)
+    dev = proj_tm.device
+    if dev.type == "cpu":
+        return gru_seq_fwd_reference(proj_tm, mask_tm, w_rz, w_c, h0)
+    enforce(dev.type == "cuda", "gru_seq_fwd runs on cuda or cpu tensors, "
+            "got %s", dev)
+    steps, batch, hidden = _proj_shape(proj_tm)
+    h_seq = torch.empty((steps, batch, hidden), dtype=proj_tm.dtype,
+                        device=dev)
+    rh = torch.empty((batch, hidden), dtype=proj_tm.dtype, device=dev)
+    info = launch("gru_seq_fwd", dev, (proj_tm, mask_tm, w_rz, w_c, h0),
+                  (h_seq, rh), (steps, batch, hidden), _count_launches)
+    gru_seq_fwd.last_launch = dict(zip(
+        ("blocks", "rows_per_block", "w_resident", "smem_bytes",
+         "rows_per_launch", "launches"), info))
+    return h_seq
+
+
+gru_seq_fwd.last_launch = None
+
+
+def gru_seq_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
+    """Masked GRU backward over the whole sequence (see module docstring):
+    -> dproj [T, B, 3H], dh0 [B, H]. After a kernel call,
+    ``gru_seq_bwd.last_launch`` holds the grid the kernel chose and the
+    number of launches it made."""
+    args = (proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f)
+    _check_bwd(*args)
+    dev = proj_tm.device
+    if dev.type == "cpu":
+        return gru_seq_bwd_reference(*args)
+    enforce(dev.type == "cuda", "gru_seq_bwd runs on cuda or cpu tensors, "
+            "got %s", dev)
+    steps, batch, hidden = _proj_shape(proj_tm)
+    dproj = torch.empty_like(proj_tm)
+    dh0 = torch.empty((batch, hidden), dtype=proj_tm.dtype, device=dev)
+    rh = torch.empty_like(dh0)
+    # W_rz and W_c transposed beside them: the kernel's dzc . W_c^T and
+    # [dzu, dzr] . W_rz^T loops read them coalesced
+    info = launch("gru_seq_bwd", dev,
+                  args[:4] + (w_rz.t().contiguous(), w_c.t().contiguous())
+                  + args[4:],
+                  (dproj, dh0, rh), (steps, batch, hidden),
+                  _count_bwd_launches)
+    gru_seq_bwd.last_launch = dict(zip(
+        ("blocks", "rows_per_block", "w_placement", "smem_bytes",
+         "rows_per_launch", "launches"), info))
+    return dproj, dh0
+
+
+gru_seq_bwd.last_launch = None
+
+
+def _weight_grads(proj_tm, w_rz, hprev_tm, dproj):
+    """dw_rz = hprev^T . dproj_{u,r} and dw_c = (r * hprev)^T . dproj_c,
+    each one matmul over all T*B rows in float32, r recomputed in float32
+    and unrounded (pallas_kernels.py:827-839); cast to the weights'
+    dtype."""
+    hidden = w_rz.shape[0]
+    hp = hprev_tm.reshape(-1, hidden).float()
+    dp = dproj.reshape(-1, 3 * hidden).float()
+    dw_rz = torch.matmul(hp.t(), dp[:, :2 * hidden])
+    zr = torch.matmul(hp, w_rz[:, hidden:].float())
+    r = torch.sigmoid(proj_tm[..., hidden:2 * hidden].reshape(-1, hidden)
+                      .float() + zr)
+    dw_c = torch.matmul((r * hp).t(), dp[:, 2 * hidden:])
+    return dw_rz.to(w_rz.dtype), dw_c.to(w_rz.dtype)
+
+
+class GruSeq(torch.autograd.Function):
+    """Differentiable whole-sequence GRU: (proj_tm, mask_tm, w_rz, w_c, h0)
+    -> (h_seq, h_f), as pallas_kernels.py ``gru_fused``. Forward and
+    backward are the kernel wrappers, on either device; mask_tm gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, proj_tm, mask_tm, w_rz, w_c, h0):
+        h_seq = gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0)
+        ctx.save_for_backward(proj_tm, mask_tm, w_rz, w_c, h0, h_seq)
+        return h_seq, h_seq[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_f):
+        proj_tm, mask_tm, w_rz, w_c, h0, h_seq = ctx.saved_tensors
+        hprev_tm = torch.cat([h0[None], h_seq[:-1]])
+        dproj, dh0 = gru_seq_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm,
+                                 dh_seq.contiguous(), dh_f.contiguous())
+        dw_rz, dw_c = _weight_grads(proj_tm, w_rz, hprev_tm, dproj)
+        return dproj, None, dw_rz, dw_c, dh0
+
+
+gru_seq = GruSeq.apply

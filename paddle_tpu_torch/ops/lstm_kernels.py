@@ -34,14 +34,12 @@ outside the kernel. It runs the same way on both devices, so the CPU tests
 exercise the backward the card runs, not autograd through the plain loop.
 """
 
-import ctypes
 import threading
 
 import torch
 
+from paddle_tpu_torch.ops._build import check_args, launch
 from paddle_tpu_torch.utils.error import enforce
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, forward (``launches``) and backward
 # (``bwd_launches``) apart (a launch made to compare a kernel with its plain
@@ -153,27 +151,9 @@ def _gates_shape(gates_tm):
     return steps, batch, g4 // 4
 
 
-def _check_args(what, gates_tm, named):
-    """Shapes, dtypes and devices against the gates; ``named`` holds
-    (name, tensor, shape, dtype) with dtype None for the gates' dtype."""
-    dt = gates_tm.dtype
-    enforce(dt in _DTYPE_CODES, "%s takes float32 or bfloat16 gates, got %s",
-            what, dt)
-    enforce(gates_tm.shape[0] >= 1 and gates_tm.shape[1] >= 1,
-            "empty sequence batch %s", tuple(gates_tm.shape))
-    for name, x, shape, want in named:
-        want = dt if want is None else want
-        enforce(tuple(x.shape) == shape, "%s must be %s, got %s", name,
-                shape, tuple(x.shape))
-        enforce(x.dtype == want, "%s must be %s, got %s", name, want,
-                x.dtype)
-        enforce(x.device == gates_tm.device, "%s is on %s, gates on %s",
-                name, x.device, gates_tm.device)
-
-
 def _check(gates_tm, mask_tm, w_rec, peep, h0, c0):
     steps, batch, hidden = _gates_shape(gates_tm)
-    _check_args("lstm_seq_fwd", gates_tm, (
+    check_args("lstm_seq_fwd", gates_tm, (
         ("mask_tm", mask_tm, (steps, batch), torch.float32),
         ("w_rec", w_rec, (hidden, 4 * hidden), None),
         ("peep", peep, (3, hidden), torch.float32),
@@ -185,7 +165,7 @@ def _check_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
                dh_seq, dh_f, dc_f):
     steps, batch, hidden = _gates_shape(gates_tm)
     seq = (steps, batch, hidden)
-    _check_args("lstm_seq_bwd", gates_tm, (
+    check_args("lstm_seq_bwd", gates_tm, (
         ("mask_tm", mask_tm, (steps, batch), torch.float32),
         ("w_rec", w_rec, (hidden, 4 * hidden), None),
         ("peep", peep, (3, hidden), torch.float32),
@@ -195,39 +175,6 @@ def _check_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
         ("dh_seq", dh_seq, seq, None),
         ("dh_f", dh_f, (batch, hidden), None),
         ("dc_f", dc_f, (batch, hidden), None)))
-
-
-def _launch(name, dev, tensors, outputs, shape, count):
-    """Call the C entry ``name`` of library ``name`` with the dtype code,
-    the pointers of ``tensors`` and ``outputs``, ``shape`` (T, B, H), the
-    device, the stream and an info array; ``count`` gets the launches made
-    (also when the call then fails). Returns the info array."""
-    enforce(all(x.is_contiguous() for x in tensors),
-            "%s needs contiguous inputs", name)
-    from paddle_tpu_torch.ops import _build
-
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    npt = len(tensors) + len(outputs)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * npt
-                   + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
-    fn.restype = ctypes.c_int
-    err = getattr(lib, name + "_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    info = (ctypes.c_int * 6)()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
-    rc = fn(_DTYPE_CODES[tensors[0].dtype],
-            *(x.data_ptr() for x in tuple(tensors) + tuple(outputs)), *shape,
-            index, stream, info)
-    count(info[5])
-    if rc != 0:
-        raise RuntimeError(
-            "%s kernel launch failed (code %d: %s; T=%d B=%d H=%d)"
-            % ((name, rc, err(rc).decode()) + tuple(shape)))
-    return info
 
 
 def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
@@ -245,7 +192,7 @@ def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
                         device=dev)
     c_seq = torch.empty_like(h_seq)
     hbuf = torch.empty((2, batch, g4 // 4), dtype=gates_tm.dtype, device=dev)
-    info = _launch("lstm_seq_fwd", dev,
+    info = launch("lstm_seq_fwd", dev,
                    (gates_tm, mask_tm, w_rec, peep, h0, c0),
                    (h_seq, c_seq, hbuf), (steps, batch, g4 // 4),
                    _count_launches)
@@ -283,7 +230,7 @@ def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
     # W transposed ([4H, H]) beside W: the kernel's dz . W^T loop reads it
     # coalesced
     w_t = w_rec.t().contiguous()
-    info = _launch("lstm_seq_bwd", dev, args[:3] + (w_t,) + args[3:],
+    info = launch("lstm_seq_bwd", dev, args[:3] + (w_t,) + args[3:],
                    (dgates, dh0, dc0, dpeep_part), (steps, batch, hidden),
                    _count_bwd_launches)
     lstm_seq_bwd.last_launch = dict(zip(

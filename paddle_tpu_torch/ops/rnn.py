@@ -1,15 +1,18 @@
-"""Recurrent ops: the LSTM step and the masked sequence scan
+"""Recurrent ops: the LSTM and GRU steps and their masked sequence scans
 (paddle_tpu/ops/rnn.py).
 
-The [B*T, D] x [D, 4H] input projection runs outside the scan as one
-matmul; the scan carries only the recurrent h/c state. Masking freezes
-state past each sequence's end. Gate layout is [input, forget, cell
-(candidate), output] on the last axis.
+The [B*T, D] x [D, 4H] (or 3H) input projection runs outside the scan as
+one matmul; the scan carries only the recurrent state. Masking freezes
+state past each sequence's end. LSTM gate layout is [input, forget, cell
+(candidate), output] on the last axis; GRU layout is [update, reset,
+candidate].
 """
 
 import torch
 
+from paddle_tpu_torch.ops.gru_kernels import gru_seq
 from paddle_tpu_torch.ops.lstm_kernels import lstm_seq
+from paddle_tpu_torch.utils.error import enforce
 
 
 def lstm_step(carry, gates_t, w_rec, mask_t, gate_act, state_act,
@@ -37,6 +40,21 @@ def lstm_step(carry, gates_t, w_rec, mask_t, gate_act, state_act,
     h = torch.where(m, h, h_prev).to(h_prev.dtype)
     c = torch.where(m, c, c_prev).to(c_prev.dtype)
     return (h, c), h
+
+
+def gru_step(carry, inp_t, w_rec_rz, w_rec_c, mask_t, gate_act, state_act):
+    """One GRU step, reference gate order (hl_gpu_gru.cuh): update u,
+    reset r, candidate c. inp_t [B, 3H] is the precomputed input
+    projection; the update gate keeps the old state."""
+    h_prev = carry
+    xu, xr, xc = torch.chunk(inp_t, 3, dim=-1)
+    zu_r, zr_r = torch.chunk(torch.matmul(h_prev, w_rec_rz), 2, dim=-1)
+    u = gate_act(xu + zu_r)
+    r = gate_act(xr + zr_r)
+    c = state_act(xc + torch.matmul(r * h_prev, w_rec_c))
+    h = u * h_prev + (1.0 - u) * c
+    h = torch.where(mask_t[:, None] > 0, h, h_prev)
+    return h, h
 
 
 def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
@@ -96,3 +114,52 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
         ys = torch.stack(outs)
     h_seq = ys.transpose(0, 1)
     return h_seq * mask_bt[..., None].to(h_seq.dtype), (h_f, c_f)
+
+
+def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
+             gate_act=torch.sigmoid, state_act=torch.tanh, reverse=False,
+             reset_bt=None, standard_acts=None):
+    """Full-sequence GRU. x [B, T, D] -> h_seq [B, T, H], h_T.
+
+    With standard activations (sigmoid gates, tanh candidate) and float32
+    or bfloat16 inputs the whole scan is one ``gru_kernels.gru_seq`` call,
+    the autograd Function whose forward and backward are the hand-written
+    kernels on a CUDA tensor and their plain versions on a CPU tensor (the
+    eligibility of paddle_tpu/ops/rnn.py:228-234 without the TPU's VMEM
+    test). Other activations take the eager ``gru_step`` loop on either
+    device, differentiated by autograd (rnn.py:235-241). Reverse and
+    packed-reset scans come with later parts of the port.
+    """
+    enforce(not reverse, "gru_scan(reverse=True) is not ported yet")
+    enforce(reset_bt is None, "gru_scan(reset_bt=...) (packed sequences) is "
+            "not ported yet")
+    b_, t, d = x_btd.shape
+    hidden = w_rec_c.shape[0]
+    if w_in is None:  # input already projected to 3H (grumemory contract)
+        proj = x_btd
+    else:
+        proj = torch.matmul(x_btd.reshape(b_ * t, d),
+                            w_in).reshape(b_, t, 3 * hidden)
+    if b is not None:
+        proj = proj + b
+    if h0 is None:
+        h0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
+    proj_tm = proj.transpose(0, 1).contiguous()
+    mask_tm = mask_bt.transpose(0, 1)
+
+    if standard_acts is None:
+        standard_acts = gate_act is torch.sigmoid and state_act is torch.tanh
+    if standard_acts and proj_tm.dtype in (torch.float32, torch.bfloat16):
+        ys, h_f = gru_seq(proj_tm, mask_tm.float().contiguous(),
+                          w_rec_rz.contiguous(), w_rec_c.contiguous(),
+                          h0.contiguous())
+    else:
+        h_f = h0
+        outs = []
+        for step in range(t):
+            h_f, y = gru_step(h_f, proj_tm[step], w_rec_rz, w_rec_c,
+                              mask_tm[step], gate_act, state_act)
+            outs.append(y)
+        ys = torch.stack(outs)
+    h_seq = ys.transpose(0, 1)
+    return h_seq * mask_bt[..., None].to(h_seq.dtype), h_f

@@ -71,7 +71,8 @@ def parse_builder(spec, kwargs=None):
 
 
 def export_bundle(builder, parameters, out_dir,
-                  batch_sizes=DEFAULT_BATCH_SIZES, seq_len=None, name=None):
+                  batch_sizes=DEFAULT_BATCH_SIZES, seq_len=None, name=None,
+                  decode_slots=None):
     """Write a bundle directory for the topology ``builder`` builds;
     returns the manifest dict.
 
@@ -79,8 +80,13 @@ def export_bundle(builder, parameters, out_dir,
     (``parse_builder``); ``parameters`` a :class:`Parameters` whose names
     and shapes must match the topology. ``batch_sizes`` are the batch
     buckets the engine pads each dynamic batch up to; ``seq_len`` fixes the
-    padded time dimension of sequence inputs (default 64)."""
+    padded time dimension of sequence inputs (default 64). The
+    continuous-batching decode step (``decode_slots``) is not ported yet
+    and raises."""
     from paddle_tpu_torch.topology import Topology
+
+    enforce(not decode_slots, "export_bundle(decode_slots=...): the "
+            "continuous-batching decode step is not ported yet")
 
     if isinstance(builder, str):
         builder = parse_builder(builder)

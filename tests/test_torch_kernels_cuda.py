@@ -1,5 +1,5 @@
-"""The hand-written LSTM kernels, forward and backward, against their plain
-versions ON THE CARD.
+"""The hand-written LSTM and GRU kernels, forward and backward, against
+their plain versions ON THE CARD.
 
 Needs an NVIDIA card and nvcc; skips with a reason elsewhere. This file
 imports neither JAX nor paddle_tpu, so it also runs on a machine that has
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import gru_kernels as gk
 from paddle_tpu_torch.ops import lstm_kernels as lk
 
 
@@ -19,8 +20,8 @@ from paddle_tpu_torch.ops import lstm_kernels as lk
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode "
-                    "(tests/test_torch_lstm.py and test_torch_lstm_bwd.py "
-                    "cover their plain versions)")
+                    "(tests/test_torch_lstm.py, test_torch_lstm_bwd.py and "
+                    "test_torch_gru.py cover their plain versions)")
     return torch.device("cuda")
 
 
@@ -111,3 +112,91 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
     scale = float(want[3].abs().max())
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=tol * scale,
                                msg=lambda m: "dpeep: %s" % m)
+
+
+def _gru_inputs(rng, device, dtype, steps, batch, hidden):
+    """Numpy-seeded GRU inputs; lengths include T, 0 and 1; the update and
+    reset columns of w_rz drawn independently."""
+    lens = rng.randint(0, steps + 1, batch)
+    lens[:3] = (steps, 0, 1)[:batch]
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    return (dev(rng.randn(steps, batch, 3 * hidden) * 0.5),
+            dev((np.arange(steps)[:, None] < lens[None, :]), torch.float32),
+            dev(rng.randn(hidden, 2 * hidden) / np.sqrt(hidden)),
+            dev(rng.randn(hidden, hidden) / np.sqrt(hidden)),
+            dev(rng.randn(batch, hidden) * 0.5))
+
+
+# (B, H): odd widths (H not a multiple of 32, nor of 4), the tagger's
+# served and trained batches, the NMT encoder width, a width whose W
+# slices do not fit shared memory (W streams from L2), and a batch too
+# large for one co-resident grid (several launches of row chunks)
+GRU_SHAPES = [(3, 37), (8, 256), (64, 256), (64, 512), (4, 1024), (600, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch,hidden", GRU_SHAPES)
+def test_gru_fwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
+                                                      tol, batch, hidden):
+    """The GRU forward kernel against its plain version on the card; the
+    tolerance covers the different summation order of both GEMVs (and, in
+    bfloat16, one flipped rounding of r*h or h feeding through the
+    recurrence)."""
+    rng = np.random.RandomState(hidden + batch)
+    args = _gru_inputs(rng, cuda_device, dtype, 20, batch, hidden)
+    before = gk.launches
+    h_k = gk.gru_seq_fwd(*args)
+    torch.cuda.synchronize()
+    launch = gk.gru_seq_fwd.last_launch
+    assert gk.launches == before + launch["launches"]
+    if batch <= 64:
+        assert launch["launches"] == 1, launch
+    if batch == 600:
+        assert launch["launches"] >= 2, launch
+    h_r = gk.gru_seq_fwd_reference(*args)
+    assert h_k.dtype == dtype
+    torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch,hidden", GRU_SHAPES)
+def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
+                                                      tol, batch, hidden):
+    """The GRU backward kernel against its plain version on the card:
+    dproj and dh0, each relative to max(1, its largest |entry|). The
+    tolerance covers the different summation order of the recompute and
+    the two transposed GEMVs (and, in bfloat16, a flipped rounding of dz
+    feeding through the dh carry)."""
+    rng = np.random.RandomState(7 * batch + hidden)
+    steps = 20
+    proj, mask, w_rz, w_c, h0 = _gru_inputs(rng, cuda_device, dtype, steps,
+                                            batch, hidden)
+    h_seq = gk.gru_seq_fwd_reference(proj, mask, w_rz, w_c, h0)
+    args = (proj, mask, w_rz, w_c, torch.cat([h0[None], h_seq[:-1]]),
+            torch.tensor(rng.randn(steps, batch, hidden) * 0.5, dtype=dtype,
+                         device=cuda_device),
+            torch.tensor(rng.randn(batch, hidden) * 0.5, dtype=dtype,
+                         device=cuda_device))
+    before = gk.bwd_launches
+    got = gk.gru_seq_bwd(*args)
+    torch.cuda.synchronize()
+    launch = gk.gru_seq_bwd.last_launch
+    assert gk.bwd_launches == before + launch["launches"]
+    if batch <= 64:
+        assert launch["launches"] == 1, launch
+    if batch == 600:
+        assert launch["launches"] >= 2, launch
+    want = gk.gru_seq_bwd_reference(*args)
+    for name, g, w in zip(("dproj", "dh0"), got, want):
+        assert g.dtype == dtype
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * scale,
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
