@@ -59,7 +59,33 @@ result line:
            the CPU (costs and every parameter), bfloat16 against float32,
            20 steps at length 128 in each (ms per batch, 1 forward and 1
            backward GRU launch per step) and a torch.profiler summary.
-13. kernels one entry per TPU kernel the port replaced, then the card's
+13. kernel_conv  conv2d_same_fwd (csrc/conv2d_same_fwd.cu, K7) against its
+           plain version at the 13 distinct stride-1 conv shapes of
+           ResNet-50 at batch 64 (and at N=1, and C=F=8 at an odd width),
+           float32 and bfloat16: errors, CUDA-event times, the bound, and
+           the time of F.conv2d (cuDNN, TF32 off), which computes the same
+           function.
+14. kernel_conv_bwd  the data gradient (K7 on the flipped, transposed
+           weight) and conv2d_same_bwd_filter (csrc/conv2d_same_bwdw.cu, K8)
+           the same way, with aten.convolution_backward as the library
+           time of each.
+15. serve_resnet  ResNet-50 at full size (224x224, 1000 classes, random
+           weights and batch-norm statistics from a numpy seed) exported
+           with buckets 1/8/32, a burst of 8 requests of 1-4 images through
+           the engine and 2 HTTP requests of 1 image, every probability
+           held against the same bundle on the CPU, and K7's launches
+           against 46 per dispatched batch.
+16. train_resnet  ResNet-50 plus a label and classification_cost, trained
+           by trainer.SGD with Momentum(0.01, 0.9): 3 steps on 4 images
+           against the same steps on the CPU (step 1's cost and moving
+           statistics, its whole update, the 3 costs; every parameter and
+           statistic after 3 steps reported), every gradient of step 1
+           finite and nonzero, 10 steps at batch 64 in f32 and bf16 (ms per
+           batch, images per second, exactly 92 K7 and 46 K8 launches per
+           step), a torch.profiler summary, and the trained parameters and
+           statistics exported as a bundle whose answers match
+           inference.infer on the CPU.
+17. kernels one entry per TPU kernel the port replaced, then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -102,6 +128,21 @@ TOL_TRAIN = 1e-4
 # each of the 3 ragged steps (bfloat16 keeps about 3 significant digits,
 # and the rounding compounds through 2 LSTM layers of 100 steps)
 TOL_TRAIN_BF16 = 5e-2
+# ResNet-50 training, card vs CPU on 4 images (float32). Step 1's cost and
+# every moving statistic after it (each relative to its tensor's largest
+# |entry|) are forward values: TOL_TRAIN. Its gradient is not: in train
+# mode at this batch ResNet-50's gradient is ill-conditioned, in the JAX
+# package as in the port (tests/test_torch_resnet.py): on the CPU at
+# 32x32, float32 against float64 moves the whole gradient by 2.0e-2
+# (norm-wise) and some channels by 30 %, so a zero-initialised tensor (a
+# beta) differs after one step by that much relative to its own largest
+# entry, and the next steps amplify it (measured on one H100, 3 steps:
+# 1.23 for a beta, 0.33 for a moving mean near 0). Held instead: step 1's
+# whole update, ||card - CPU|| / ||CPU update|| over all parameters
+# (measured on one H100: 2.7e-2), and the 3 steps' costs relative to
+# max(1, |cost|) (measured on one H100 in two runs: 5.9e-3 and 5.1e-3).
+TOL_TRAIN_RESNET_UPDATE = 1e-1
+TOL_TRAIN_RESNET_COST = 2e-2
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, data sheet
 
@@ -129,6 +170,30 @@ TAGGER_SEQ = 128
 # at the start): its limits, card vs CPU (TOL_TRAIN) and bfloat16 vs
 # float32 (TOL_TRAIN_BF16), apply to the cost divided by max(1, |cost|)
 DEVICE = "cuda"
+# ResNet-50 as benchmark/harness.py builds it for the vision bench row
+RESNET = {"depth": 50, "num_classes": 1000, "im_size": 224}
+RESNET_BUILDER = "paddle_tpu_torch.models.vision:resnet"
+RESNET_PIXELS = 3 * 224 * 224
+RESNET_BATCH, RESNET_STEPS = 64, 10
+# ResNet-50's stride-1 convs (k, C, F, H=W) with their number in one
+# forward: 46 in all, every one in the kernels' family
+RESNET_CONVS = [(1, 64, 64, 57, 1), (3, 64, 64, 57, 3), (1, 64, 256, 57, 4),
+                (1, 256, 64, 57, 2), (3, 128, 128, 29, 4),
+                (1, 128, 512, 29, 4), (1, 512, 128, 29, 3),
+                (3, 256, 256, 15, 6), (1, 256, 1024, 15, 6),
+                (1, 1024, 256, 15, 5), (3, 512, 512, 8, 3),
+                (1, 512, 2048, 8, 3), (1, 2048, 512, 8, 2)]
+# (N, H, W, C, F, k): the 13 shapes at batch 64, then N=1 and the narrowest
+# channels at an odd width
+CONV_CASES = ([(RESNET_BATCH, hw, hw, c, f, k)
+               for k, c, f, hw, _ in RESNET_CONVS]
+              + [(1, 57, 57, 64, 64, 3), (64, 17, 23, 8, 8, 3)])
+# K7 and the data gradient against their plain versions, divided by
+# max(1, max |plain|): float32 sums in another order; bfloat16 rounds the
+# float32 sum once, and the two roundings can land one bfloat16 step
+# (2^-8 relative) apart. K8 returns float32 in both cases.
+TOL_CONV = {"float32": 1e-4, "bfloat16": 1e-2}
+TOL_CONV_BWDW = 1e-4
 
 
 def emit(obj):
@@ -769,11 +834,13 @@ def tagger_batches(seed, n, rows, ragged):
 
 class TrainRig:
     """A model's output plus a label and classification_cost, its cost
-    topology and numpy-seeded initial parameters; ``trainer(device)``
+    topology and numpy-seeded initial parameters (``params(topology,
+    seed)``, default numpy_params); ``trainer(device)``
     gives a fresh trainer with Momentum(learning_rate, 0.9) on its own
     copy of them."""
 
-    def __init__(self, build, config, label_type, seed, learning_rate):
+    def __init__(self, build, config, label_type, seed, learning_rate,
+                 params=None):
         from paddle_tpu_torch import layer
         from paddle_tpu_torch.graph import reset_name_counters
         from paddle_tpu_torch.topology import Topology
@@ -785,7 +852,7 @@ class TrainRig:
         label = layer.data(name="label", type=label_type)
         self.cost = layer.classification_cost(input=self.out, label=label)
         self.topology = Topology(self.cost)
-        self.init = numpy_params(self.topology, seed)
+        self.init = (params or numpy_params)(self.topology, seed)
 
     def trainer(self, device):
         from paddle_tpu_torch import optimizer, trainer
@@ -827,11 +894,13 @@ def train(torch, tr, batches, timed=False):
     return costs, statistics.median(np.diff(stamps) * 1e3)
 
 
-def profile_steps(torch, tr, batches):
+def profile_steps(torch, tr, batches, kernels=()):
     """Where a training step's time goes on the card (torch.profiler over
     ``batches``): wall ms per step (profiler on), the kernels' busy ms per
-    step (the union of their intervals), the idle share, and the largest
-    kernels by device time."""
+    step (the union of their intervals), the idle share, the largest
+    kernels by device time, and for each name fragment in ``kernels`` the
+    device ms per step of the kernels whose names contain it and their
+    share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -859,7 +928,12 @@ def profile_steps(torch, tr, batches):
             reach = end
     steps = len(batches)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"steps": steps, "device_events": len(spans),
+    mine = {}
+    for frag in kernels:
+        ms = sum(t for name, (t, _) in by_name.items() if frag in name)
+        mine[frag] = {"ms_per_step": ms / steps,
+                      "share_of_busy": ms * 1e3 / busy_us if busy_us else 0.0}
+    return {"steps": steps, "device_events": len(spans), "kernels": mine,
             "wall_ms_per_step": wall_ms / steps,
             "busy_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -1079,22 +1153,425 @@ def phase_train_h1280(torch, lk):
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
 
 
-def kernel_entry(cases, name, replaces, launches, hidden, source,
-                 batch=None):
-    """The kernels-line entry for one TPU kernel: numbers of the float32
-    case at the batch the main path runs (default: the widest batch of its
-    width)."""
-    f32 = [c for c in cases if c["H"] == hidden and c["dtype"] == "float32"]
-    main = (max(f32, key=lambda c: c["B"]) if batch is None
-            else next(c for c in f32 if c["B"] == batch))
+def conv_bound_ms(nbytes, flops, dtype_name):
+    """Least time for a conv-shaped product: ``nbytes`` (each input read
+    once, each output written once) over HBM rate, or ``flops`` over the
+    peak rate for the dtype, whichever is larger."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_inputs(torch, shape, dtype, seed):
+    """x [N, H, W, C], w [k, k, C, F] (std 1/sqrt(k*k*C)) and dy
+    [N, H, W, F] on the card, from a seeded generator on the card."""
+    n, h, w, c, f, k = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*size, scale=1.0):
+        return (torch.randn(size, generator=gen, device=DEVICE) * scale
+                ).to(dtype)
+
+    return (randn(n, h, w, c, scale=0.5),
+            randn(k, k, c, f, scale=1.0 / np.sqrt(k * k * c)),
+            randn(n, h, w, f, scale=0.5))
+
+
+def rel_error(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    return (float((got.float() - want.float()).abs().max())
+            / max(1.0, float(want.float().abs().max())))
+
+
+def conv_row(phase, kernel, shape, name, err, tol, ms, plain_ms, library_ms,
+             nbytes, launch):
+    n, h, w, c, f, k = shape
+    bound, bound_by = conv_bound_ms(nbytes, 2.0 * n * h * w * k * k * c * f,
+                                    name)
+    row = {"phase": phase, "kernel": kernel, "shape": list(shape),
+           "dtype": name, "max_abs_err": err, "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "tflops": 2.0 * n * h * w * k * k * c * f / ms / 1e9,
+           "launch": launch}
+    emit(row)
+    if not err <= tol:
+        raise AssertionError("%s disagrees with its plain version: %r"
+                             % (kernel, row))
+    return row
+
+
+def phase_kernel_conv(torch, ck):
+    """K7 at every stride-1 conv shape of ResNet-50 at batch 64."""
+    results = []
+    F = torch.nn.functional
+    for i, shape in enumerate(CONV_CASES):
+        n, h, w, c, f, k = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            isz = 2 if dtype == torch.bfloat16 else 4
+            x, wk, _ = conv_inputs(torch, shape, dtype, SEED + 11 * i)
+            y = ck.conv2d_same_fwd(x, wk)
+            torch.cuda.synchronize()
+            launch = dict(ck.conv2d_same_fwd.last_launch)
+            err = rel_error(y, ck.conv2d_same_reference(x, wk))
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(3, 2, 0, 1)
+            results.append(conv_row(
+                "kernel_conv", "conv2d_same_fwd", shape, name, err,
+                TOL_CONV[name], time_ms(torch, lambda: ck.conv2d_same_fwd(
+                    x, wk)),
+                time_ms(torch, lambda: ck.conv2d_same_reference(x, wk),
+                        warmup=1, reps=5),
+                time_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
+                                                padding=k // 2)),
+                (n * h * w * (c + f) + k * k * c * f) * isz, launch))
+    return results
+
+
+def phase_kernel_conv_bwd(torch, ck):
+    """The data gradient (K7 on the flipped, transposed weight) and K8 at
+    the same shapes; aten.convolution_backward is the library time of
+    each."""
+    results = []
+    backward = torch.ops.aten.convolution_backward
+    for i, shape in enumerate(CONV_CASES):
+        n, h, w, c, f, k = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            isz = 2 if dtype == torch.bfloat16 else 4
+            x, wk, dy = conv_inputs(torch, shape, dtype, SEED + 13 * i)
+            w_t = ck.transposed_weight(wk)
+            dx = ck.conv2d_same_fwd(dy, w_t)
+            torch.cuda.synchronize()
+            launch = dict(ck.conv2d_same_fwd.last_launch)
+            dw = ck.conv2d_same_bwd_filter(x, dy, k)
+            torch.cuda.synchronize()
+            launch_w = dict(ck.conv2d_same_bwd_filter.last_launch)
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(3, 2, 0, 1)
+            dy_nchw = dy.permute(0, 3, 1, 2)
+
+            def library(mask):
+                return backward(dy_nchw, x_nchw, w_oihw, None, [1, 1],
+                                [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+                                mask)
+
+            results.append(conv_row(
+                "kernel_conv_bwd", "conv2d_same_fwd[data_gradient]", shape,
+                name, rel_error(dx, ck.conv2d_same_reference(dy, w_t)),
+                TOL_CONV[name],
+                time_ms(torch, lambda: ck.conv2d_same_fwd(
+                    dy, ck.transposed_weight(wk))),
+                time_ms(torch, lambda: ck.conv2d_same_reference(
+                    dy, ck.transposed_weight(wk)), warmup=1, reps=5),
+                time_ms(torch, lambda: library([True, False, False])),
+                (n * h * w * (c + f) + k * k * c * f) * isz, launch))
+            results.append(conv_row(
+                "kernel_conv_bwd", "conv2d_same_bwd_filter", shape, name,
+                rel_error(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)),
+                TOL_CONV_BWDW,
+                time_ms(torch, lambda: ck.conv2d_same_bwd_filter(x, dy, k)),
+                time_ms(torch, lambda: ck.conv2d_same_bwd_filter_reference(
+                    x, dy, k), warmup=1, reps=5),
+                time_ms(torch, lambda: library([False, True, False])),
+                n * h * w * (c + f) * isz + k * k * c * f * 4, launch_w))
+    return results
+
+
+def network_sum(cases, which):
+    """One float32 row for the 46 stride-1 convs of a ResNet-50 forward
+    (``which`` "fwd"), their data gradients ("dgrad") or filter gradients
+    ("bwdw") at batch 64: each shape's numbers times its count in the
+    network, summed."""
+    kernel = {"fwd": "conv2d_same_fwd",
+              "dgrad": "conv2d_same_fwd[data_gradient]",
+              "bwdw": "conv2d_same_bwd_filter"}[which]
+    rows = {tuple(c["shape"]): c for c in cases
+            if c["kernel"] == kernel and c["dtype"] == "float32"}
+    out = {"dtype": "float32", "ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "shape": "ResNet-50 at batch 64, 224x224: the 46 stride-1 convs "
+                    "of one %s (13 shapes, float32)" % {
+                        "fwd": "forward", "dgrad": "backward",
+                        "bwdw": "backward"}[which]}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for k, c, f, hw, count in RESNET_CONVS:
+        row = rows[(RESNET_BATCH, hw, hw, c, f, k)]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += count * row[key]
+        by[row["bound_by"]] += count * row["bound_ms"]
+        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+    out["bound_by"] = max(by, key=by.get)
+    return out
+
+
+def resnet_params(topology, seed, trained_init=False):
+    """Every ResNet parameter from a numpy seed: weights N(0, 1/fan_in);
+    batch-norm gammas 1 + N(0, 0.1^2), betas and moving means N(0, 0.1^2),
+    moving variances 1 + U(0, 0.5) (served statistics), or the
+    initialisers' 1, 0, 0, 1 (``trained_init``)."""
+    import torch
+
+    from paddle_tpu_torch.parameters import Parameters
+
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, spec in sorted(topology.param_specs().items()):
+        shape = spec.shape
+        if name.endswith(".moving_var"):
+            v = (np.ones(shape) if trained_init
+                 else 1 + 0.5 * rng.random_sample(shape))
+        elif name.endswith(".moving_mean") or "_bn.wbias" in name:
+            v = np.zeros(shape) if trained_init else 0.1 * rng.randn(*shape)
+        elif "_bn.w0" in name:
+            v = np.ones(shape) if trained_init else 1 + 0.1 * rng.randn(
+                *shape)
+        elif name.endswith(".wbias"):
+            v = 0.1 * rng.randn(*shape)
+        else:
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        values[name] = torch.from_numpy(v.astype(np.float32))
+    return Parameters(values, topology.param_specs())
+
+
+def resnet_images(rng, rows):
+    """``rows`` flat NCHW images N(0, 1) from a numpy Generator (as
+    benchmark/harness.py feeds the vision bench row random pixels)."""
+    return rng.standard_normal((rows, RESNET_PIXELS), dtype=np.float32)
+
+
+def phase_serve_resnet(torch, ck, tmp):
+    from paddle_tpu_torch.serve import (InferenceEngine, load_bundle,
+                                        serve_in_thread)
+    from paddle_tpu_torch.serve.bundle import build_outputs
+    from paddle_tpu_torch.serve.export import export_bundle, parse_builder
+    from paddle_tpu_torch.topology import Topology
+
+    builder = parse_builder(RESNET_BUILDER, RESNET)
+    bundle_dir = os.path.join(tmp, "resnet")
+    export_bundle(builder, resnet_params(Topology(build_outputs(builder)),
+                                         SEED + 20),
+                  bundle_dir, batch_sizes=(1, 8, 32))
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    rng = np.random.default_rng(SEED + 21)
+    ck.reset_launches()  # the main path starts here (engine warmup included)
+    engine = InferenceEngine(bundle, max_batch_size=32, max_latency_ms=10.0)
+    server = thread = None
+    reqs, got = [], []
+    try:
+        burst = [{"image": resnet_images(rng, int(rng.integers(1, 5)))}
+                 for _ in range(8)]
+        outs, latencies, wall = run_burst(engine, burst)
+        reqs += burst
+        got += [o["res_out"] for o in outs]
+        server, thread = serve_in_thread(bundle, engine)
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        for _ in range(2):
+            req = {"image": resnet_images(rng, 1)}
+            reqs.append(req)
+            got.append(np.asarray(post_infer(url, req)["res_out"],
+                                  np.float32))
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        engine.stop()
+    launches = ck.launches
+    stats = engine.stats()
+    # the CPU answers in one batch: test-mode rows are independent
+    rows = np.concatenate([r["image"] for r in reqs])
+    cpu = load_bundle(bundle_dir, device="cpu")
+    want = cpu.run({"image": rows}, len(rows))["res_out"]
+    err = check_close(np.concatenate(got), want, "resnet50 served")
+    dispatched = stats["warmup_batches"] + stats["batches"]
+    row = {"phase": "serve_resnet", "config": RESNET,
+           "buckets": bundle.batch_sizes(), "requests": stats["requests"],
+           "rows": stats["rows"], "batches": stats["batches"],
+           "warmup_batches": stats["warmup_batches"],
+           "kernel_launches": launches, "max_abs_err_vs_cpu": err,
+           "burst_images_per_s": sum(len(r["image"]) for r in burst) / wall,
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_max": float(np.max(latencies))}
+    emit(row)
+    if launches != 46 * dispatched:
+        raise AssertionError("conv2d_same_fwd launched %d times for %d "
+                             "dispatched batches of ResNet-50 (46 each)"
+                             % (launches, dispatched))
+    if stats["batches_failed"] != 0:
+        raise AssertionError("resnet batches failed: %r" % stats)
+    return row
+
+
+def resnet_batches(seed, n, rows):
+    """``n`` minibatches of ``rows`` (image, label) pairs from a seed."""
+    rng = np.random.default_rng(seed)
+    return [[(img, int(label)) for img, label in zip(
+        resnet_images(rng, rows),
+        rng.integers(0, RESNET["num_classes"], rows))]
+        for _ in range(n)]
+
+
+def tensor_errors(a, b, names):
+    """{name: max |a - b| / max |b|} (each tensor divided by its own
+    largest entry), Parameters a and b."""
+    return {n: float(np.abs(a.get(n) - b.get(n)).max())
+            / max(float(np.abs(b.get(n)).max()), 1e-30) for n in names}
+
+
+def worst(errors, k=3):
+    return sorted(errors.items(), key=lambda kv: -kv[1])[:k]
+
+
+def update_error(card, cpu, init, names):
+    """||card update - CPU update|| / ||CPU update|| over all ``names``
+    together: how far the card's step moved the parameters from where the
+    CPU's moved them."""
+    diff = sum(float(np.square(card.get(n) - cpu.get(n)).sum())
+               for n in names)
+    ref = sum(float(np.square(cpu.get(n) - init.get(n)).sum())
+              for n in names)
+    return (diff / ref) ** 0.5
+
+
+def check_conv_launches(ck, steps, what):
+    k7, k8 = ck.launches, ck.bwdw_launches
+    if not (k7 == 92 * steps and k8 == 46 * steps):
+        raise AssertionError("%s: %d steps launched K7 %d and K8 %d times "
+                             "(want %d and %d)" % (what, steps, k7, k8,
+                                                   92 * steps, 46 * steps))
+    return k7, k8
+
+
+def phase_train_resnet(torch, ck, tmp):
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.inference import infer
+    from paddle_tpu_torch.models.vision import resnet
+    from paddle_tpu_torch.serve import load_bundle
+    from paddle_tpu_torch.serve.export import parse_builder
+
+    rig = TrainRig(resnet, RESNET,
+                   data_type.integer_value(RESNET["num_classes"]), SEED + 22,
+                   0.01, params=lambda topo, seed: resnet_params(
+                       topo, seed, trained_init=True))
+    small = resnet_batches(SEED + 23, 3, 4)
+    full = resnet_batches(SEED + 24, RESNET_STEPS, RESNET_BATCH)
+    names = rig.init.names()
+    state = [n for n in names if ".moving_" in n]
+    weights = [n for n in names if n not in state]
+    # float32, card and CPU: step 1 alone (its gradients checked), then 2, 3
+    card, cpu = rig.trainer(DEVICE), rig.trainer("cpu")
+    ck.reset_launches()
+    costs = train(torch, card, small[:1])
+    no_grad = no_gradient(card)
+    cpu_costs = train(torch, cpu, small[:1])
+    step1 = {"cost_err_rel": cost_error(costs, cpu_costs),
+             "update_err": update_error(card.parameters, cpu.parameters,
+                                        rig.init, weights),
+             "state_err": max(tensor_errors(card.parameters, cpu.parameters,
+                                            state).values()),
+             "worst_params": worst(tensor_errors(
+                 card.parameters, cpu.parameters, weights))}
+    costs += train(torch, card, small[1:])
+    cpu_costs += train(torch, cpu, small[1:])
+    small_launches = check_conv_launches(ck, 3, "resnet 4-image steps")
+    step3 = {"cost_err_rel": cost_error(costs, cpu_costs),
+             "update_err": update_error(card.parameters, cpu.parameters,
+                                        rig.init, weights),
+             "worst_params": worst(tensor_errors(
+                 card.parameters, cpu.parameters, weights)),
+             "worst_state": worst(tensor_errors(
+                 card.parameters, cpu.parameters, state))}
+    # the main path: RESNET_STEPS steps at batch 64
+    card64 = rig.trainer(DEVICE)
+    ck.reset_launches()
+    _, ms = train(torch, card64, full, timed=True)
+    launches = check_conv_launches(ck, RESNET_STEPS, "resnet f32 training")
+    profile = profile_steps(torch, card64, full[:2],
+                            kernels=("conv_fwd_kernel", "conv_bwdw"))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        ck.reset_launches()
+        costs16, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_conv_launches(ck, RESNET_STEPS,
+                                         "resnet bf16 training")
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    # the 4-image-trained parameters and statistics served from a bundle
+    bundle_dir = os.path.join(tmp, "resnet_trained")
+    card.export_inference_bundle(parse_builder(RESNET_BUILDER, RESNET),
+                                 bundle_dir, batch_sizes=(2,))
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    images = resnet_images(np.random.default_rng(SEED + 25), 2)
+    served_err = check_close(
+        bundle.infer({"image": images})["res_out"],
+        infer(rig.out, card.parameters, [(r,) for r in images],
+              device="cpu"), "trained resnet bundle")
+    moved = [n for n in state if np.array_equal(
+        card.parameters.get(n), rig.init.get(n))]
+    row = {"phase": "train_resnet", "config": RESNET,
+           "optimizer": "Momentum(learning_rate=0.01, momentum=0.9)",
+           "small_costs_card": costs, "small_costs_cpu": cpu_costs,
+           "step1_vs_cpu": step1, "step3_vs_cpu": step3,
+           "tol": TOL_TRAIN, "tol_update": TOL_TRAIN_RESNET_UPDATE,
+           "tol_cost_3_steps": TOL_TRAIN_RESNET_COST,
+           "params_without_gradient": no_grad,
+           "small_launches": small_launches, "batch": RESNET_BATCH,
+           "steps": RESNET_STEPS, "ms_per_batch_f32": ms,
+           "images_per_s_f32": RESNET_BATCH / ms * 1e3,
+           "launches_f32": launches, "profile_f32": profile,
+           "ms_per_batch_bf16": ms16,
+           "images_per_s_bf16": RESNET_BATCH / ms16 * 1e3,
+           "bf16_costs": costs16, "launches_bf16": launches16,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "trained_bundle_err_vs_cpu_infer": served_err,
+           "statistics_not_updated": moved}
+    emit(row)
+    if no_grad:
+        raise AssertionError("resnet parameters without a finite nonzero "
+                             "gradient at step 1: %s" % no_grad)
+    if not (step1["cost_err_rel"] <= TOL_TRAIN
+            and step1["state_err"] <= TOL_TRAIN
+            and step1["update_err"] <= TOL_TRAIN_RESNET_UPDATE
+            and step3["cost_err_rel"] <= TOL_TRAIN_RESNET_COST):
+        raise AssertionError("resnet training on the card departs from the "
+                             "CPU: %r" % row)
+    if moved or not np.all(np.isfinite(costs16)):
+        raise AssertionError("resnet: statistics not updated or bf16 costs "
+                             "not finite: %r" % row)
+    return {"k7_launches": launches[0], "k8_launches": launches[1]}
+
+
+def kernel_entry(cases, name, replaces, launches, source, select=None,
+                 pick=None):
+    """The kernels-line entry for one TPU kernel: the numbers of the
+    float32 case ``pick`` chooses (default: the first) among the float32
+    cases ``select`` keeps (default: all); max_abs_err is the largest over
+    those cases."""
+    f32 = [c for c in cases if c["dtype"] == "float32"
+           and (select is None or select(c))]
+    main = pick(f32) if pick else f32[0]
     return {"name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/%s.cu" % source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None,
-            "shape": [main["T"], main["B"], main["H"]]}
+            "library_ms": main.get("library_ms"), "shape": main["shape"]}
+
+
+def recurrent_entry(cases, name, replaces, launches, hidden, source,
+                    batch=None):
+    """kernel_entry of a recurrent kernel: its cases at ``hidden``, the
+    numbers of the batch the main path runs (default: the widest)."""
+    cases = [dict(c, shape=[c["T"], c["B"], c["H"]]) for c in cases]
+    return kernel_entry(
+        cases, name, replaces, launches, source,
+        select=lambda c: c["H"] == hidden,
+        pick=lambda f32: (max(f32, key=lambda c: c["B"]) if batch is None
+                          else next(c for c in f32 if c["B"] == batch)))
 
 
 def main():
@@ -1105,6 +1582,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import conv_kernels as ck
     from paddle_tpu_torch.ops import gru_kernels as gk
     from paddle_tpu_torch.ops import lstm_kernels as lk
 
@@ -1119,7 +1597,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd", "gru_seq_fwd",
-                             "gru_seq_bwd"])
+                             "gru_seq_bwd", "conv2d_same_fwd",
+                             "conv2d_same_bwdw"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(lib) for lib in libs],
           "ptxas": {k: [ln for ln in v.splitlines() if "Used" in ln]
@@ -1129,33 +1608,50 @@ def main():
     bwd_cases = phase_kernel_bwd(torch, lk)
     gru_cases = phase_kernel_gru(torch, gk)
     gru_bwd_cases = phase_kernel_gru_bwd(torch, gk)
+    conv_cases = phase_kernel_conv(torch, ck)
+    conv_bwd_cases = phase_kernel_conv_bwd(torch, ck)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
+        served_resnet = phase_serve_resnet(torch, ck, tmp)
+        trained_resnet = phase_train_resnet(torch, ck, tmp)
     trained_tagger = phase_train_tagger(torch, gk)
     trained_wide = phase_train_h1280(torch, lk)
 
     emit({"kernels": [
-        kernel_entry(cases, "lstm_seq_fwd[K1,h256]",
-                     "paddle_tpu/ops/pallas_kernels.py:146",
-                     flagship["kernel_launches"], 256, "lstm_seq_fwd"),
-        kernel_entry(cases, "lstm_seq_fwd[K3,h1280]",
-                     "paddle_tpu/ops/pallas_kernels.py:244",
-                     wide["kernel_launches"], 1280, "lstm_seq_fwd"),
-        kernel_entry(bwd_cases, "lstm_seq_bwd[K2,h256]",
-                     "paddle_tpu/ops/pallas_kernels.py:347",
-                     trained["bwd_launches"], 256, "lstm_seq_bwd"),
-        kernel_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
-                     "paddle_tpu/ops/pallas_kernels.py:456",
-                     trained_wide["bwd_launches"], 1280, "lstm_seq_bwd"),
-        kernel_entry(gru_cases, "gru_seq_fwd[K5,h256]",
-                     "paddle_tpu/ops/pallas_kernels.py:668",
-                     tagger["kernel_launches"], 256, "gru_seq_fwd", batch=32),
-        kernel_entry(gru_bwd_cases, "gru_seq_bwd[K6,h256]",
-                     "paddle_tpu/ops/pallas_kernels.py:724",
-                     trained_tagger["bwd_launches"], 256, "gru_seq_bwd")]})
+        recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
+                        "paddle_tpu/ops/pallas_kernels.py:146",
+                        flagship["kernel_launches"], 256, "lstm_seq_fwd"),
+        recurrent_entry(cases, "lstm_seq_fwd[K3,h1280]",
+                        "paddle_tpu/ops/pallas_kernels.py:244",
+                        wide["kernel_launches"], 1280, "lstm_seq_fwd"),
+        recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256]",
+                        "paddle_tpu/ops/pallas_kernels.py:347",
+                        trained["bwd_launches"], 256, "lstm_seq_bwd"),
+        recurrent_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
+                        "paddle_tpu/ops/pallas_kernels.py:456",
+                        trained_wide["bwd_launches"], 1280, "lstm_seq_bwd"),
+        recurrent_entry(gru_cases, "gru_seq_fwd[K5,h256]",
+                        "paddle_tpu/ops/pallas_kernels.py:668",
+                        tagger["kernel_launches"], 256, "gru_seq_fwd",
+                        batch=32),
+        recurrent_entry(gru_bwd_cases, "gru_seq_bwd[K6,h256]",
+                        "paddle_tpu/ops/pallas_kernels.py:724",
+                        trained_tagger["bwd_launches"], 256, "gru_seq_bwd"),
+        kernel_entry([network_sum(conv_cases, "fwd")],
+                     "conv2d_same_fwd[K7,resnet50_forward]",
+                     "paddle_tpu/ops/pallas_conv.py:175",
+                     served_resnet["kernel_launches"], "conv2d_same_fwd"),
+        kernel_entry([network_sum(conv_bwd_cases, "dgrad")],
+                     "conv2d_same_fwd[K7,resnet50_data_gradient]",
+                     "paddle_tpu/ops/pallas_conv.py:175",
+                     trained_resnet["k7_launches"], "conv2d_same_fwd"),
+        kernel_entry([network_sum(conv_bwd_cases, "bwdw")],
+                     "conv2d_same_bwd_filter[K8,resnet50_filter_gradient]",
+                     "paddle_tpu/ops/pallas_conv.py:226",
+                     trained_resnet["k8_launches"], "conv2d_same_bwdw")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ kernels, forward and backward (csrc/lstm_seq_fwd.cu, csrc/lstm_seq_bwd.cu);
 the GRU sequence tagger (models.text.sequence_tagging_gru: grumemory,
 networks.simple_gru, a per-timestep output and sequence label) served and
 trained the same way, over its whole-sequence GRU kernels
-(csrc/gru_seq_fwd.cu, csrc/gru_seq_bwd.cu).
+(csrc/gru_seq_fwd.cu, csrc/gru_seq_bwd.cu); ResNet (models.vision.resnet:
+img_conv, img_pool, batch_norm with running statistics, addto) served and
+trained the same way, every stride-1 SAME conv over the implicit-GEMM conv
+kernels (csrc/conv2d_same_fwd.cu for the forward and the data gradient,
+csrc/conv2d_same_bwdw.cu for the filter gradient).
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,10 @@ activation_registry = Registry("activation")
 
 class BaseActivation:
     name = None
+    # elementwise activations commute with the NHWC <-> flat NCHW layout
+    # bridge, so image layers apply them to the NHWC tensor (paddle_tpu/
+    # activation.py); the softmax family is defined on the flat vector
+    elementwise = True
 
     def apply(self, x):
         raise NotImplementedError
@@ -53,8 +57,17 @@ class Tanh(BaseActivation):
 
 
 @_register
+class Relu(BaseActivation):
+    name = "relu"
+
+    def apply(self, x):
+        return torch.relu(x)
+
+
+@_register
 class Softmax(BaseActivation):
     name = "softmax"
+    elementwise = False
 
     def apply(self, x):
         return torch.softmax(x, dim=-1)

@@ -20,8 +20,12 @@ _creation_counter = itertools.count()
 # Auto-name tags aligned with paddle_tpu/graph.py _REF_NAME_TAGS for the
 # layer types this package has (e.g. pooling -> "__seq_pooling_0__").
 _REF_NAME_TAGS = {
+    "conv_layer": "conv",
+    "img_pool": "pool",
+    "batch_norm_layer": "batch_norm",
     "embedding_layer": "embedding",
     "grumemory": "gru",
+    "addto_layer": "addto",
     "pooling": "seq_pooling",
 }
 
@@ -59,14 +63,21 @@ class ParamSpec:
 
 
 class Context:
-    """Per-evaluation context: the train/test mode."""
+    """Per-evaluation context: the train/test mode and a sink for
+    running-state updates (batch norm's moving statistics), as in
+    paddle_tpu/graph.py."""
 
     def __init__(self, mode="test"):
         self.mode = mode
+        self.state_updates = {}
 
     @property
     def is_train(self):
         return self.mode == "train"
+
+    def update_state(self, name, value):
+        """Record the new value of the running-state parameter ``name``."""
+        self.state_updates[name] = value
 
 
 class LayerNode:

@@ -28,20 +28,62 @@ def to_list(inputs):
     return [inputs]
 
 
+class ImageValue:
+    """NHWC image activation flowing between image layers (paddle_tpu/
+    layer/base.py ImageValue).
+
+    At the graph edge an image is the reference's flat NCHW row
+    [B, C*H*W]; between image layers (conv, batch norm, pool, addto) it
+    stays an NHWC tensor, and ``data_of`` gives the flat NCHW view only
+    where a non-image consumer (fc, a cost, the topology's output) reads
+    it."""
+
+    __slots__ = ("nhwc", "img_shape")
+
+    def __init__(self, nhwc, img_shape):
+        self.nhwc = nhwc                   # [B, H, W, C]
+        self.img_shape = tuple(img_shape)  # (C, H, W)
+
+    def flat(self):
+        b, h, w, c = self.nhwc.shape
+        return self.nhwc.permute(0, 3, 1, 2).reshape(b, c * h * w)
+
+
+def as_nhwc(value, c, h, w):
+    """An image layer's input as an NHWC tensor: as it is when an image
+    layer produced it, else one transpose of the flat NCHW rows."""
+    if isinstance(value, ImageValue):
+        enforce(value.img_shape == (c, h, w),
+                "image shape mismatch: producer %s vs consumer (%d, %d, %d)",
+                value.img_shape, c, h, w)
+        return value.nhwc
+    enforce(not isinstance(value, SequenceBatch),
+            "image layers over sequence inputs are not ported yet")
+    return value.reshape(-1, c, h, w).permute(0, 2, 3, 1)
+
+
 def is_seq(value):
     return isinstance(value, SequenceBatch)
 
 
 def featurewise(fn, value):
-    """Apply a featurewise fn to a tensor or a SequenceBatch (padding rows
-    are computed and masked downstream, as in the JAX package)."""
+    """Apply a featurewise fn to a tensor, a SequenceBatch (padding rows
+    are computed and masked downstream, as in the JAX package) or an
+    ImageValue (on its flat NCHW rows, the width that matmuls and
+    per-feature parameters index)."""
     if isinstance(value, SequenceBatch):
         return value.map_data(fn)
+    if isinstance(value, ImageValue):
+        return fn(value.flat())
     return fn(value)
 
 
 def data_of(value):
-    return value.data if isinstance(value, SequenceBatch) else value
+    if isinstance(value, SequenceBatch):
+        return value.data
+    if isinstance(value, ImageValue):
+        return value.flat()
+    return value
 
 
 def like(value, new_data):
@@ -91,11 +133,15 @@ def mark_activation(node, act):
 
 
 def finalize(x, act, extra_attr, ctx):
-    """Apply the activation; dropout (ExtraAttr.drop_rate) in train mode is
-    not ported yet and raises."""
+    """Apply the activation (an elementwise one straight to an
+    ImageValue's NHWC tensor, which stays an ImageValue); dropout
+    (ExtraAttr.drop_rate) in train mode is not ported yet and raises."""
     enforce(not (extra_attr and extra_attr.drop_rate and ctx.is_train),
             "dropout in train mode is not ported yet")
-    return featurewise(to_activation(act).apply, x)
+    act = to_activation(act)
+    if isinstance(x, ImageValue) and act.elementwise:
+        return ImageValue(act.apply(x.nhwc), x.img_shape)
+    return featurewise(act.apply, x)
 
 
 def make_node(layer_type, forward_fn, inputs, name=None, size=0,

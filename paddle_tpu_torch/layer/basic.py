@@ -1,14 +1,19 @@
-"""Core dense layers: fc and embedding (reference: FullyConnectedLayer,
-TableProjection / embedding_layer). Weights keep the JAX package's
-[in, out] layout, so ``x @ w`` and parameters copy across unchanged."""
+"""Core dense layers: fc, embedding and addto (reference:
+FullyConnectedLayer, TableProjection / embedding_layer, AddtoLayer).
+Weights keep the JAX package's [in, out] layout, so ``x @ w`` and
+parameters copy across unchanged."""
 
 import torch
 
+from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.layer.base import (
+    ImageValue,
+    as_nhwc,
     bias_spec,
     data_of,
     featurewise,
     finalize,
+    is_seq,
     like,
     make_node,
     mark_activation,
@@ -73,3 +78,42 @@ def embedding(input, size, name=None, param_attr=None, layer_attr=None):
 
     return make_node("embedding", forward, [input], name=name, size=size,
                      param_specs=[spec], layer_attr=layer_attr)
+
+
+@register_layer("addto")
+def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
+    """Elementwise sum of the inputs, plus an optional bias, then the
+    activation (reference: AddtoLayer). Image inputs of one shape without
+    a bias (ResNet's residual add) are summed as NHWC tensors and stay an
+    ImageValue."""
+    inputs = to_list(input)
+    enforce(len(inputs) >= 1, "addto needs at least one input")
+    from paddle_tpu_torch.graph import auto_name
+
+    name = name or auto_name("addto_layer")
+    size = inputs[0].size
+    bspec = bias_spec(name, (size,), bias_attr)
+    shapes = [getattr(i, "out_img_shape", None) for i in inputs]
+    img_ok = all(s is not None for s in shapes) and len(set(shapes)) == 1
+
+    def forward(params, values, ctx):
+        if (img_ok and bspec is None and not any(is_seq(v) for v in values)
+                and to_activation(act).elementwise):
+            y = as_nhwc(values[0], *shapes[0])
+            for v in values[1:]:
+                y = y + as_nhwc(v, *shapes[0])
+            return finalize(ImageValue(y, shapes[0]), act, node.extra_attr,
+                            ctx)
+        out = data_of(values[0])
+        for v in values[1:]:
+            out = out + data_of(v)
+        if bspec is not None:
+            out = out + params[bspec.name]
+        return finalize(like(values[0], out), act, node.extra_attr, ctx)
+
+    node = make_node("addto", forward, inputs, name=name, size=size,
+                     param_specs=[bspec] if bspec else [],
+                     layer_attr=layer_attr)
+    if img_ok:
+        node.out_img_shape = shapes[0]
+    return mark_activation(node, act)

@@ -1,3 +1,3 @@
 """Model zoo: reference topologies rebuilt on paddle_tpu_torch."""
 
-from paddle_tpu_torch.models import text
+from paddle_tpu_torch.models import text, vision

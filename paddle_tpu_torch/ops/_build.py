@@ -8,8 +8,9 @@ kernel rebuilds and a stale library is never loaded.
 
 ``check_args`` and ``launch`` are what every kernel wrapper shares: the
 argument checks against the kernel's contract, and the ctypes call of a
-C entry with the common signature (dtype code, pointers, T, B, H, device,
-stream, info array).
+C entry with the common signature (dtype code, pointers, the shape's ints
+-- (T, B, H) for the recurrent kernels, (N, H, W, C, F, k, ...) for the
+convolutions -- device, stream, info array).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -129,16 +130,18 @@ def check_args(what, lead, named):
 
 def launch(name, dev, tensors, outputs, shape, count):
     """Call the C entry ``name`` of library ``name`` with the dtype code,
-    the pointers of ``tensors`` and ``outputs``, ``shape`` (T, B, H), the
-    device, the stream and an info array; ``count`` gets the launches made
-    (also when the call then fails). Returns the info array."""
+    the pointers of ``tensors`` and ``outputs``, the ints of ``shape`` (a
+    tuple of any length), the device, the stream and an info array;
+    ``count`` gets the launches made (also when the call then fails).
+    Returns the info array."""
     enforce(all(x.is_contiguous() for x in tensors),
             "%s needs contiguous inputs", name)
+    shape = tuple(int(d) for d in shape)
     lib = load(name)
     fn = getattr(lib, name)
     npt = len(tensors) + len(outputs)
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * npt
-                   + [ctypes.c_int] * 4
+                   + [ctypes.c_int] * (len(shape) + 1)
                    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     err = getattr(lib, name + "_error_string")
@@ -152,7 +155,6 @@ def launch(name, dev, tensors, outputs, shape, count):
             index, stream, info)
     count(info[5])
     if rc != 0:
-        raise RuntimeError(
-            "%s kernel launch failed (code %d: %s; T=%d B=%d H=%d)"
-            % ((name, rc, err(rc).decode()) + tuple(shape)))
+        raise RuntimeError("%s kernel launch failed (code %d: %s; shape %s)"
+                           % (name, rc, err(rc).decode(), shape))
     return info

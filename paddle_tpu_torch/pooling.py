@@ -1,5 +1,6 @@
-"""Sequence pooling types (cf. trainer_config_helpers/poolings.py; C++
-side SequencePoolLayer). Max pooling is the flagship's; average, sum and
+"""Pooling types (cf. trainer_config_helpers/poolings.py; C++ side
+SequencePoolLayer, PoolLayer). Max pooling is the flagship's; average is
+also img_pool's ``pool_type`` (ResNet's global average pool); sum and
 sqrt-average arrive with the models that use them."""
 
 import torch
@@ -29,6 +30,19 @@ class MaxPooling(BasePoolingType):
         # all-empty sequences pool to 0 like the reference's empty handling
         any_valid = torch.any(mask, dim=1)[..., None]
         return torch.where(any_valid, out, torch.zeros_like(out))
+
+
+class AvgPooling(BasePoolingType):
+    name = "average"
+
+    @staticmethod
+    def reduce(data, mask):
+        """data [B, T, D], mask [B, T] bool -> the mean over the valid
+        steps [B, D] (an all-empty sequence pools to 0)."""
+        m = mask[..., None].to(data.dtype)
+        total = torch.sum(data * m, dim=1)
+        count = torch.clamp(torch.sum(m, dim=1), min=1.0)
+        return total / count
 
 
 def to_pooling(pool):

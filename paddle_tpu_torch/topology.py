@@ -17,6 +17,7 @@ from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.data_type import DENSE, INDEX, SEQ_NONE, SEQ_SINGLE
 from paddle_tpu_torch.graph import Context, LayerNode, topo_sort
+from paddle_tpu_torch.layer.base import ImageValue
 from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import enforce
 
@@ -40,6 +41,12 @@ class Topology:
             for n in sorted(self.data_layers.values(),
                             key=lambda n: n.creation_index)
             if getattr(n, "input_type", None) is not None]
+        # running-state parameters (batch norm's moving statistics) stay
+        # float32 under the mixed-precision policy; their updates bypass
+        # the optimizer
+        self._state_param_names = {
+            name for name, spec in self.param_specs().items()
+            if spec.is_state}
 
     # -- parameters ---------------------------------------------------------
     def param_specs(self):
@@ -67,13 +74,17 @@ class Topology:
                 for name, spec in sorted(self.param_specs().items())}
 
     # -- evaluation ---------------------------------------------------------
-    def apply(self, params, feed, mode="test", outputs=None):
+    def apply(self, params, feed, mode="test", outputs=None,
+              state_updates=None):
         """Evaluate the DAG. Returns ``{layer_name: value}`` for the output
-        nodes (or ``outputs``). ``mode="test"`` runs under
-        ``torch.inference_mode()`` (serving); ``mode="train"`` records the
-        autograd graph, so a cost from it can be differentiated back to the
-        parameters (under the mixed-precision policy, through their casts
-        to the compute dtype)."""
+        nodes (or ``outputs``); an image value crosses the boundary as its
+        flat NCHW rows. ``mode="test"`` runs under
+        ``torch.inference_mode()`` (serving) and never updates running
+        state; ``mode="train"`` records the autograd graph, so a cost from
+        it can be differentiated back to the parameters (under the
+        mixed-precision policy, through their casts to the compute dtype),
+        and puts the new values of the running-state parameters into the
+        dict ``state_updates`` when one is given."""
         enforce(mode in ("test", "train"), "Topology.apply: mode must be "
                 "'test' or 'train', got %r", mode)
         ctx = Context(mode=mode)
@@ -83,7 +94,8 @@ class Topology:
                      else contextlib.nullcontext())
         with grad_mode:
             if cd is not None:
-                params = {k: dtype_mod.to_compute(v)
+                params = {k: (v if k in self._state_param_names
+                              else dtype_mod.to_compute(v))
                           for k, v in params.items()}
             for node in self.nodes:
                 try:
@@ -102,13 +114,22 @@ class Topology:
                         node.name, node.layer_type,
                         [p.name for p in node.inputs]))
                     raise
-        wanted = outputs or [o.name for o in self.outputs]
-        return {name: values[name] for name in wanted}
+            wanted = outputs or [o.name for o in self.outputs]
+            out = {name: _external(values[name]) for name in wanted}
+        if state_updates is not None:
+            state_updates.update(ctx.state_updates)
+        return out
 
     def data_types(self):
         """[(name, InputType)] in declaration order (the default feeding
         maps reader tuple columns to data layers in that order)."""
         return self._data_types
+
+
+def _external(value):
+    """Values crossing the topology boundary keep the flat NCHW contract:
+    an NHWC image value gives its flat rows."""
+    return value.flat() if isinstance(value, ImageValue) else value
 
 
 def _map_data(fn, value):

@@ -15,6 +15,14 @@ batch BeginIteration(b); batch b-1 is finalized (its cost read back,
 EndForwardBackward(b-1), EndIteration(b-1)) after step b is queued, so the
 host enqueues the next step while the card runs the last; then EndPass.
 
+Running state (batch norm's moving mean and variance, ``ParamSpec
+.is_state``) lives on the device beside the masters, float32, outside
+autograd and the optimizer: each step's train-mode forward reports the new
+values (``Topology.apply(state_updates=...)``) and they replace the old
+ones, detached, after the update, as the JAX trainer's
+``{**state, **updates}``. ``test()`` and the bundle export read them, and
+``_sync_back`` hands them back to the Parameters object with the masters.
+
 The trainer runs on ``device`` (the card unless ``device="cpu"``; it
 raises without a card) and stages the given Parameters there. Not ported
 yet, and refused rather than ignored: evaluators (``extra_layers``), data
@@ -60,10 +68,8 @@ class SGD:
         self.optimizer = update_equation
         self.feeding = feeding
         trainable, static, state = parameters.partition()
-        enforce(not state, "running-state parameters are not ported yet: %s",
-                state)
         self._param_meta = {n: parameters.spec(n).attr
-                            for n in parameters.names()
+                            for n in trainable + static
                             if parameters.spec(n) is not None}
         values = parameters.as_dict()
         # the trainer's own float32 masters on its device (the Parameters
@@ -73,6 +79,8 @@ class SGD:
             .requires_grad_() for n in trainable}
         self._static = {n: values[n].detach().to(self.device)
                         for n in static}
+        self._state = {n: values[n].detach().to(self.device, torch.float32)
+                       for n in state}
         self._opt_state = update_equation.init_state(self._trainable,
                                                      self._param_meta)
 
@@ -115,12 +123,13 @@ class SGD:
                 self._sync_back()
             event_handler(v2_event.EndPass(pass_id, {}, gm=self))
 
-    def _cost(self, feed, mode):
+    def _cost(self, feed, mode, state_updates=None):
         """The batch's cost: the sum over the cost layers of their mean
         per-sample cost (paddle_tpu/trainer.py:123)."""
-        values = self.topology.apply({**self._trainable, **self._static},
-                                     feed, mode=mode,
-                                     outputs=[c.name for c in self.costs])
+        values = self.topology.apply(
+            {**self._trainable, **self._static, **self._state}, feed,
+            mode=mode, outputs=[c.name for c in self.costs],
+            state_updates=state_updates)
         return sum(values[c.name].float().mean() for c in self.costs)
 
     def _train_step(self, feed):
@@ -128,12 +137,15 @@ class SGD:
         a device scalar (not read back)."""
         for p in self._trainable.values():
             p.grad = None
-        loss = self._cost(feed, "train")
+        updates = {}
+        loss = self._cost(feed, "train", state_updates=updates)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self._trainable.items()}
         self.optimizer.step(self._trainable, grads, self._opt_state,
                             self._param_meta)
+        for name, value in updates.items():
+            self._state[name] = value.detach().float()
         return loss.detach()
 
     def _finalize(self, pending, event_handler):
@@ -155,8 +167,9 @@ class SGD:
 
     # -- parameters ---------------------------------------------------------
     def _sync_back(self):
-        """Copy the trained masters back into the Parameters object."""
-        self.parameters.update_from(self._trainable)
+        """Copy the trained masters and the running state back into the
+        Parameters object."""
+        self.parameters.update_from({**self._trainable, **self._state})
 
     def save_parameter_to_tar(self, f):
         self._sync_back()

@@ -1,5 +1,5 @@
-"""The hand-written LSTM and GRU kernels, forward and backward, against
-their plain versions ON THE CARD.
+"""The hand-written LSTM, GRU and convolution kernels, forward and
+backward, against their plain versions ON THE CARD.
 
 Needs an NVIDIA card and nvcc; skips with a reason elsewhere. This file
 imports neither JAX nor paddle_tpu, so it also runs on a machine that has
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import conv_kernels as ck
 from paddle_tpu_torch.ops import gru_kernels as gk
 from paddle_tpu_torch.ops import lstm_kernels as lk
 
@@ -21,7 +22,8 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode "
                     "(tests/test_torch_lstm.py, test_torch_lstm_bwd.py and "
-                    "test_torch_gru.py cover their plain versions)")
+                    "test_torch_gru.py and test_torch_conv.py cover their "
+                    "plain versions)")
     return torch.device("cuda")
 
 
@@ -200,3 +202,80 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=tol * scale,
                                    msg=lambda m, n=name: "%s: %s" % (n, m))
+
+
+# (N, H, W, C, F, k): ResNet-50 stage shapes at a small batch, N=1, the
+# narrowest channels at odd sizes, and a stage-4 3x3 at batch 64
+CONV_SHAPES = [(2, 57, 57, 64, 64, 3), (2, 57, 57, 64, 256, 1),
+               (2, 29, 29, 512, 128, 1), (1, 8, 8, 2048, 512, 1),
+               (1, 15, 15, 256, 256, 3), (3, 7, 5, 8, 8, 3),
+               (2, 9, 11, 8, 24, 1), (64, 15, 15, 256, 256, 3)]
+
+
+def _conv_inputs(device, dtype, n, h, w, c, f, k):
+    rng = np.random.RandomState(n + h + c + f + k)
+
+    def dev(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return (dev(rng.randn(n, h, w, c) * 0.5),
+            dev(rng.randn(k, k, c, f) / np.sqrt(k * k * c)),
+            dev(rng.randn(n, h, w, f) * 0.5))
+
+
+def _rel_err(got, want):
+    return (float((got.float() - want.float()).abs().max())
+            / max(1.0, float(want.float().abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n,h,w,c,f,k", CONV_SHAPES)
+def test_conv_kernels_match_plain_versions_on_card(cuda_device, dtype, tol,
+                                                   n, h, w, c, f, k):
+    """K7 forward, K7 on the flipped, transposed weight (the data
+    gradient) and K8 (the filter gradient) against their plain versions on
+    the card, each relative to max(1, its largest |entry|). Both sum in
+    float32 in another order; in bfloat16 the output's one rounding can
+    land one bfloat16 step apart (2^-8 = 3.9e-3 relative). K8's output is
+    float32 in both cases: 1e-4."""
+    x, wk, dy = _conv_inputs(cuda_device, dtype, n, h, w, c, f, k)
+    before = (ck.launches, ck.bwdw_launches)
+    y = ck.conv2d_same_fwd(x, wk)
+    w_t = ck.transposed_weight(wk)
+    dx = ck.conv2d_same_fwd(dy, w_t)
+    dw = ck.conv2d_same_bwd_filter(x, dy, k)
+    torch.cuda.synchronize()
+    assert (ck.launches, ck.bwdw_launches) == (before[0] + 2, before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    assert ck.conv2d_same_bwd_filter.last_launch["splits"] == \
+        ck.bwdw_splits(n, h, w, c, f, k)
+    assert _rel_err(y, ck.conv2d_same_reference(x, wk)) <= tol
+    assert _rel_err(dx, ck.conv2d_same_reference(dy, w_t)) <= tol
+    assert _rel_err(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)) \
+        <= 1e-4
+
+
+@pytest.mark.cuda
+def test_conv_same_backward_runs_the_kernels_on_card(cuda_device):
+    """ConvSame on the card: one K7 launch forward, one K7 and one K8
+    launch backward, and the gradients of its plain versions."""
+    x, wk, dy = _conv_inputs(cuda_device, torch.float32, 2, 9, 9, 32, 64, 3)
+    xg, wg = x.clone().requires_grad_(), wk.clone().requires_grad_()
+    ck.reset_launches()
+    ck.conv_same(xg, wg).backward(dy)
+    torch.cuda.synchronize()
+    assert (ck.launches, ck.bwdw_launches) == (2, 1)
+    xr, wr = x.clone().requires_grad_(), wk.clone().requires_grad_()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = (torch.nn.functional.conv2d(xr.permute(0, 3, 1, 2),
+                                          wr.permute(3, 2, 0, 1), padding=1)
+               .permute(0, 2, 3, 1))
+        ref.backward(dy)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert _rel_err(xg.grad, xr.grad) <= 1e-4
+    assert _rel_err(wg.grad, wr.grad) <= 1e-4

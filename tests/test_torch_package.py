@@ -177,6 +177,23 @@ def test_max_pooling_matches_jax_including_empty_sequences():
     assert not got[1].any()  # the all-empty row pools to 0
 
 
+def test_avg_pooling_matches_jax_including_empty_sequences():
+    import jax.numpy as jnp
+
+    from paddle_tpu.pooling import AvgPooling as JaxAvgPooling
+    from paddle_tpu_torch.pooling import AvgPooling, to_pooling
+
+    rng = np.random.RandomState(1)
+    data = rng.randn(3, 4, 5).astype(np.float32)
+    mask = np.arange(4)[None, :] < np.array([4, 0, 3])[:, None]
+    want = np.asarray(JaxAvgPooling().reduce(jnp.asarray(data),
+                                             jnp.asarray(mask)))
+    got = to_pooling(AvgPooling).reduce(torch.from_numpy(data),
+                                        torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    assert not got[1].any()  # the all-empty row pools to 0
+
+
 def test_embedding_clips_ids_like_jax():
     from paddle_tpu_torch import data_type, layer
     from paddle_tpu_torch.core.sequence import SequenceBatch
@@ -189,3 +206,109 @@ def test_embedding_clips_ids_like_jax():
     out = emb.forward({"e.w0": table}, [ids], Context())
     np.testing.assert_array_equal(out.data[0].numpy(),
                                   [[0, 1], [2, 3], [6, 7]])
+
+
+def test_import_scan_covers_the_conv_modules():
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("ops/conv_kernels.py", "ops/conv.py", "layer/conv.py",
+                "models/vision.py"):
+        assert os.path.join("paddle_tpu_torch", mod) in names
+
+
+def _conv_args(dtype=torch.float32, k=3, c=8, f=16):
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.randn(2, 5, 7, c), dtype=dtype)
+    w = torch.tensor(rng.randn(k, k, c, f) / np.sqrt(k * k * c), dtype=dtype)
+    dy = torch.tensor(rng.randn(2, 5, 7, f), dtype=dtype)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_wrappers_on_cpu_run_plain_versions_and_count_nothing(dtype):
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    x, w, dy = _conv_args(dtype)
+    before = (ck.launches, ck.bwdw_launches)
+    assert torch.equal(ck.conv2d_same_fwd(x, w),
+                       ck.conv2d_same_reference(x, w))
+    assert torch.equal(ck.conv2d_same_bwd_filter(x, dy, 3),
+                       ck.conv2d_same_bwd_filter_reference(x, dy, 3))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (ck.conv_same(xg, wg).float() * dy.float()).sum().backward()
+    assert xg.grad.dtype == wg.grad.dtype == dtype
+    assert (ck.launches, ck.bwdw_launches) == before
+    assert ck.conv2d_same_fwd(x, w).dtype == dtype
+    assert ck.conv2d_same_bwd_filter(x, dy, 3).dtype == torch.float32
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float16", "float32 or bfloat16"),
+    ("k2", "k in"),
+    ("c12", "multiples of 8"),
+    ("w_dtype", "w must be"),
+    ("w_channels", "input channels"),
+    ("x3d", r"\[N, H, W, C\]"),
+])
+def test_conv_wrappers_refuse_what_the_kernels_do_not_take(case, match):
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    x, w, _ = _conv_args()
+    if case == "float16":
+        x, w = x.half(), w.half()
+    elif case == "k2":
+        w = torch.zeros(2, 2, 8, 16)
+    elif case == "c12":
+        x, w = torch.zeros(2, 5, 7, 12), torch.zeros(3, 3, 12, 16)
+    elif case == "w_dtype":
+        w = w.bfloat16()
+    elif case == "w_channels":
+        w = torch.zeros(3, 3, 16, 16)
+    elif case == "x3d":
+        x = x[0]
+    with pytest.raises(EnforceError, match=match):
+        ck.conv2d_same_fwd(x, w)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dy_shape", "dy must be"),
+    ("dy_dtype", "dy must be"),
+    ("k5", "k in"),
+])
+def test_bwd_filter_wrapper_refuses_what_the_kernel_does_not_take(case,
+                                                                   match):
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    x, _, dy = _conv_args()
+    k = 3
+    if case == "dy_shape":
+        dy = dy[:, :4]
+    elif case == "dy_dtype":
+        dy = dy.bfloat16()
+    elif case == "k5":
+        k = 5
+    with pytest.raises(EnforceError, match=match):
+        ck.conv2d_same_bwd_filter(x, dy, k)
+
+
+def test_bwdw_split_keeps_blocks_and_positions_in_range():
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    # ResNet-50's stage-2 3x3 at batch 64: 5 row tiles x 1 filter tile
+    assert ck.bwdw_splits(64, 57, 57, 64, 64, 3) == 106
+    # a small map: at least 256 positions per split
+    assert ck.bwdw_splits(1, 8, 8, 512, 512, 3) == 1
+    assert ck.bwdw_splits(64, 8, 8, 2048, 512, 1) == 5
+
+
+def test_resnet_entry_points_without_device_raise_when_no_card(monkeypatch):
+    from paddle_tpu_torch.models.vision import resnet
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    topo = Topology(resnet(depth=18, num_classes=10, im_size=32))
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Parameters.create(topo)
+    params = Parameters.create(topo, device="cpu")
+    assert params.get("res_stem_conv.w0").shape == (7, 7, 3, 64)
+    assert np.all(params.get("res_stem_bn.moving_var") == 1.0)
