@@ -85,7 +85,27 @@ result line:
            step), a torch.profiler summary, and the trained parameters and
            statistics exported as a bundle whose answers match
            inference.infer on the CPU.
-17. kernels one entry per TPU kernel the port replaced, then the card's
+17. kernel_int8  int8_matmul (csrc/int8_matmul.cu, K9) against its plain
+           version at the int8 flagship's products (buckets 32 and 1),
+           ResNet-50's fc (buckets 32, 8 and 1), the mlp's products and an
+           odd shape, float32 and bfloat16: errors, CUDA-event times, the
+           bound, and the time of the dequant-then-matmul product (the JAX
+           package's default path) as the library time.
+18. serve_flagship_int8  the full-width flagship exported with
+           quantize="int8" (buckets 1/8/32, seq_len 64), a burst of 12
+           requests of 1-8 rows through the engine and 2 HTTP requests,
+           every probability held against the same bundle on the CPU and
+           against the fp bundle on the card (argmax agreement >= 0.98, max
+           drift <= 0.05), exactly 3 K9 and 2 K1 launches per dispatched
+           batch, the resident parameter bytes and the host wall time of
+           one bucket-32 forward, fp and int8.
+19. serve_resnet_int8  ResNet-50 at 224 exported int8 (buckets 1/8), a
+           burst of 4 requests of 1-2 images and 1 HTTP request, against the
+           same bundle on the CPU and the fp bundle on the card (drift <=
+           0.05; the argmax agreement reported, not held), exactly 1 K9 and
+           46 K7 launches per dispatched batch, the resident bytes and
+           the time of one bucket-8 forward, fp and int8.
+20. kernels one entry per TPU kernel the port replaced, then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -194,6 +214,24 @@ CONV_CASES = ([(RESNET_BATCH, hw, hw, c, f, k)
 # (2^-8 relative) apart. K8 returns float32 in both cases.
 TOL_CONV = {"float32": 1e-4, "bfloat16": 1e-2}
 TOL_CONV_BWDW = 1e-4
+# K9 (M, K, N): the int8 flagship's three products at bucket 32 and seq_len
+# 64 and at bucket 1, ResNet-50's fc at buckets 32, 8 and 1, the mlp's three
+# products, and an odd shape
+INT8_CASES = [(2048, 128, 1024), (2048, 256, 1024), (32, 256, 2),
+              (64, 128, 1024), (1, 256, 2), (32, 2048, 1000),
+              (8, 2048, 1000), (1, 2048, 1000), (8, 784, 128), (8, 128, 64),
+              (8, 64, 10), (3, 37, 129)]
+# one served flagship batch at bucket 32: lstm0_transform, lstm1_transform,
+# lstm_out; and ResNet-50's fc at its int8 bundle's largest bucket
+INT8_FLAGSHIP_BATCH = [(2048, 128, 1024), (2048, 256, 1024), (32, 256, 2)]
+INT8_RESNET_FC = (8, 2048, 1000)
+# K9 against its plain version, divided by max(1, max |plain|): float32 sums
+# in another order; bfloat16 rounds the float32 sum once, and the two
+# roundings can land one bfloat16 step (2^-8 relative) apart
+TOL_INT8 = {"float32": 1e-4, "bfloat16": 1e-2}
+# the JAX package's accuracy gate of a quantized bundle against its fp twin
+# (tests/test_quantize.py, benchmark/exp_serve.py --mode quant-ab)
+GATE_AGREEMENT, GATE_DRIFT = 0.98, 0.05
 
 
 def emit(obj):
@@ -207,8 +245,17 @@ def nvidia_smi_line():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(torch, fn, warmup=3, reps=20):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warmup."""
+# cycles of torch.cuda._sleep (about 0.6 ms on an H100) that keep the card
+# busy while the host enqueues one timed call
+QUEUE_AHEAD_CYCLES = 1_000_000
+
+
+def time_ms(torch, fn, warmup=3, reps=20, queue_ahead=False):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warmup. With
+    ``queue_ahead`` each timed call is enqueued behind a sleep kernel, so
+    the events time the card's work and not the host's enqueue of a call
+    shorter than its Python overhead (valid only for calls the host
+    enqueues within the sleep: the K9 calls, a few ops each)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -216,6 +263,8 @@ def time_ms(torch, fn, warmup=3, reps=20):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -564,16 +613,19 @@ def random_request(rng, rows, seq_len, vocab):
             "word:lens": lens}
 
 
-def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER):
+def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER,
+           params=numpy_params, seed=SEED, quantize=None):
+    """Export the model ``builder`` builds with ``params(topology, seed)``
+    into ``tmp/sub``; returns the bundle directory."""
     from paddle_tpu_torch.serve.bundle import build_outputs
     from paddle_tpu_torch.serve.export import export_bundle, parse_builder
     from paddle_tpu_torch.topology import Topology
 
     builder = parse_builder(builder, kwargs)
-    params = numpy_params(Topology(build_outputs(builder)), SEED)
     out_dir = os.path.join(tmp, sub)
-    export_bundle(builder, params, out_dir, batch_sizes=batch_sizes,
-                  seq_len=seq_len)
+    export_bundle(builder, params(Topology(build_outputs(builder)), seed),
+                  out_dir, batch_sizes=batch_sizes, seq_len=seq_len,
+                  quantize=quantize)
     return out_dir
 
 
@@ -1184,22 +1236,29 @@ def rel_error(got, want):
             / max(1.0, float(want.float().abs().max())))
 
 
-def conv_row(phase, kernel, shape, name, err, tol, ms, plain_ms, library_ms,
-             nbytes, launch):
-    n, h, w, c, f, k = shape
-    bound, bound_by = conv_bound_ms(nbytes, 2.0 * n * h * w * k * k * c * f,
-                                    name)
+def product_row(phase, kernel, shape, name, err, tol, ms, plain_ms,
+                library_ms, nbytes, flops, launch):
+    """Emit and check one case of a product-shaped kernel (a conv or a
+    matmul of ``flops`` operations on ``nbytes`` of operands)."""
+    bound, bound_by = conv_bound_ms(nbytes, flops, name)
     row = {"phase": phase, "kernel": kernel, "shape": list(shape),
            "dtype": name, "max_abs_err": err, "tol": tol, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound, "bound_by": bound_by,
-           "tflops": 2.0 * n * h * w * k * k * c * f / ms / 1e9,
-           "launch": launch}
+           "tflops": flops / ms / 1e9, "launch": launch}
     emit(row)
     if not err <= tol:
         raise AssertionError("%s disagrees with its plain version: %r"
                              % (kernel, row))
     return row
+
+
+def conv_row(phase, kernel, shape, name, err, tol, ms, plain_ms, library_ms,
+             nbytes, launch):
+    n, h, w, c, f, k = shape
+    return product_row(phase, kernel, shape, name, err, tol, ms, plain_ms,
+                       library_ms, nbytes, 2.0 * n * h * w * k * k * c * f,
+                       launch)
 
 
 def phase_kernel_conv(torch, ck):
@@ -1278,6 +1337,23 @@ def phase_kernel_conv_bwd(torch, ck):
     return results
 
 
+def summed(rows_counts, shape):
+    """One float32 row for a sequence of kernel calls: each (row, count)'s
+    numbers times its count, summed; the bound counted by what bounds most
+    of it."""
+    out = {"dtype": "float32", "ms": 0.0, "plain_ms": 0.0,
+           "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "shape": shape}
+    by = {"bytes": 0.0, "operations": 0.0}
+    for row, count in rows_counts:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += count * row[key]
+        by[row["bound_by"]] += count * row["bound_ms"]
+        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
+    out["bound_by"] = max(by, key=by.get)
+    return out
+
+
 def network_sum(cases, which):
     """One float32 row for the 46 stride-1 convs of a ResNet-50 forward
     (``which`` "fwd"), their data gradients ("dgrad") or filter gradients
@@ -1288,21 +1364,62 @@ def network_sum(cases, which):
               "bwdw": "conv2d_same_bwd_filter"}[which]
     rows = {tuple(c["shape"]): c for c in cases
             if c["kernel"] == kernel and c["dtype"] == "float32"}
-    out = {"dtype": "float32", "ms": 0.0, "plain_ms": 0.0,
-           "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "shape": "ResNet-50 at batch 64, 224x224: the 46 stride-1 convs "
-                    "of one %s (13 shapes, float32)" % {
-                        "fwd": "forward", "dgrad": "backward",
-                        "bwdw": "backward"}[which]}
-    by = {"bytes": 0.0, "operations": 0.0}
-    for k, c, f, hw, count in RESNET_CONVS:
-        row = rows[(RESNET_BATCH, hw, hw, c, f, k)]
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            out[key] += count * row[key]
-        by[row["bound_by"]] += count * row["bound_ms"]
-        out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
-    out["bound_by"] = max(by, key=by.get)
-    return out
+    return summed(
+        [(rows[(RESNET_BATCH, hw, hw, c, f, k)], count)
+         for k, c, f, hw, count in RESNET_CONVS],
+        "ResNet-50 at batch 64, 224x224: the 46 stride-1 convs of one %s "
+        "(13 shapes, float32)" % ("forward" if which == "fwd"
+                                  else "backward"))
+
+
+def int8_inputs(torch, m, k, n, dtype, seed):
+    """x [M, K] N(0, 1) in ``dtype`` and a weight N(0, 1/K) quantized as
+    serve/quantize.py does (per-column amax / 127, rint, clip to +-127):
+    w_q [K, N] int8 and scale [N] float32, from a seeded generator on the
+    card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=DEVICE).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=DEVICE) / np.sqrt(k)
+    amax = w.abs().amax(0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return x, w_q, scale
+
+
+def phase_kernel_int8(torch, ik):
+    """K9 against its plain version at every (M, K, N) of INT8_CASES, with
+    the dequant-then-cuBLAS product (the JAX package's default path, TF32
+    off) as the library time; all three timed on the card's clock with the
+    call queued ahead (a K9 call is shorter than its host overhead)."""
+    results = []
+    for i, (m, k, n) in enumerate(INT8_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            isz = 2 if dtype == torch.bfloat16 else 4
+            x, w_q, scale = int8_inputs(torch, m, k, n, dtype, SEED + 17 * i)
+            y = ik.int8_matmul(x, w_q, scale)
+            torch.cuda.synchronize()
+            launch = dict(ik.int8_matmul.last_launch)
+            results.append(product_row(
+                "kernel_int8", "int8_matmul", (m, k, n), name,
+                rel_error(y, ik.int8_matmul_reference(x, w_q, scale)),
+                TOL_INT8[name],
+                time_ms(torch, lambda: ik.int8_matmul(x, w_q, scale),
+                        queue_ahead=True),
+                time_ms(torch, lambda: ik.int8_matmul_reference(
+                    x, w_q, scale), queue_ahead=True),
+                time_ms(torch, lambda: torch.matmul(
+                    x, w_q.to(x.dtype) * scale.to(x.dtype)),
+                    queue_ahead=True),
+                m * k * isz + k * n + 4 * n + m * n * isz, 2.0 * m * k * n,
+                launch))
+    return results
+
+
+def int8_sum(cases, shapes, shape):
+    """summed() of the float32 K9 cases at ``shapes``, one call each."""
+    rows = {tuple(c["shape"]): c for c in cases if c["dtype"] == "float32"}
+    return summed([(rows[s], 1) for s in shapes], shape)
 
 
 def resnet_params(topology, seed, trained_init=False):
@@ -1400,6 +1517,191 @@ def phase_serve_resnet(torch, ck, tmp):
                              % (launches, dispatched))
     if stats["batches_failed"] != 0:
         raise AssertionError("resnet batches failed: %r" % stats)
+    return row
+
+
+def resident_bytes(bundle):
+    """Bytes of the bundle's parameter tensors resident on its device."""
+    return sum(t.nbytes for t in bundle.params.values())
+
+
+def accuracy_gate(got, want):
+    """(argmax agreement, max |drift|) of quantized answers ``got`` against
+    the fp twin's ``want`` ([rows, classes])."""
+    return (float(np.mean(got.argmax(1) == want.argmax(1))),
+            float(np.abs(got - want).max()))
+
+
+def serve_int8(bundle, engine, burst, http, output):
+    """The int8 main path: ``burst`` through the engine at once, then each
+    request of ``http`` over POST /infer. Returns the requests in order, the
+    answers and the burst's latencies (ms) and wall time (s)."""
+    from paddle_tpu_torch.serve import serve_in_thread
+
+    server = thread = None
+    try:
+        outs, latencies, wall = run_burst(engine, burst)
+        got = [o[output] for o in outs]
+        server, thread = serve_in_thread(bundle, engine)
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        for req in http:
+            got.append(np.asarray(post_infer(url, req)[output], np.float32))
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        engine.stop()
+    return burst + http, got, latencies, wall
+
+
+def forward_ms(bundle, inputs, batch, reps=5):
+    """Median host wall ms of ``reps`` forwards of one bucket (each ends
+    with the outputs copied to the host), after one warm forward."""
+    bundle.run(inputs, batch)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        bundle.run(inputs, batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_int8_launches(what, counts, dispatched):
+    """``counts``: {kernel: (launches, per dispatched batch)}."""
+    for kernel, (got, per_batch) in counts.items():
+        if got != per_batch * dispatched:
+            raise AssertionError(
+                "%s: %s launched %d times for %d dispatched batches (%d "
+                "each)" % (what, kernel, got, dispatched, per_batch))
+
+
+def phase_serve_flagship_int8(torch, ik, lk, tmp):
+    """The full-width flagship exported int8 (its three fc weights native
+    int8, run in K9; its LSTM layers fp in K1), served through the engine
+    and HTTP, against the same bundle on the CPU and the fp bundle on the
+    card."""
+    from paddle_tpu_torch.serve import InferenceEngine, load_bundle
+
+    fp_dir = export(tmp, "flagship_fp", FLAGSHIP, (1, 8, 32), 64)
+    q_dir = export(tmp, "flagship_int8", FLAGSHIP, (1, 8, 32), 64,
+                   quantize="int8")
+    fp = load_bundle(fp_dir, device=DEVICE)
+    bundle = load_bundle(q_dir, device=DEVICE)
+    cpu = load_bundle(q_dir, device="cpu")
+    rng = np.random.RandomState(SEED + 30)
+    seq_len, vocab = bundle.seq_len, FLAGSHIP["dict_size"]
+    burst = [random_request(rng, int(rng.randint(1, 9)), seq_len, vocab)
+             for _ in range(12)]
+    http = [random_request(rng, int(rng.randint(1, 9)), seq_len, vocab)
+            for _ in range(2)]
+    ik.reset_launches()  # the main path starts here (engine warmup included)
+    lk.reset_launches()
+    engine = InferenceEngine(bundle, max_batch_size=32, max_latency_ms=10.0)
+    reqs, got, latencies, wall = serve_int8(bundle, engine, burst, http,
+                                            "lstm_out")
+    k9, k1 = ik.launches, lk.launches
+    stats = engine.stats()
+    dispatched = stats["warmup_batches"] + stats["batches"]
+    errs = [check_close(g, cpu.infer(r)["lstm_out"], "int8 flagship")
+            for r, g in zip(reqs, got)]
+    agreement, drift = accuracy_gate(
+        np.concatenate(got),
+        np.concatenate([fp.infer(r)["lstm_out"] for r in reqs]))
+    full = random_request(rng, 32, seq_len, vocab)
+    row = {"phase": "serve_flagship_int8", "config": FLAGSHIP,
+           "seq_len": seq_len, "buckets": bundle.batch_sizes(),
+           "quantized": sorted(bundle.quantization["params"]),
+           "requests": stats["requests"], "rows": stats["rows"],
+           "batches": stats["batches"],
+           "warmup_batches": stats["warmup_batches"],
+           "k9_launches": k9, "k1_launches": k1,
+           "max_abs_err_vs_cpu": max(errs),
+           "argmax_agreement_vs_fp": agreement, "max_drift_vs_fp": drift,
+           "gate": {"agreement": GATE_AGREEMENT, "drift": GATE_DRIFT},
+           "resident_bytes_fp": resident_bytes(fp),
+           "resident_bytes_int8": resident_bytes(bundle),
+           "forward_ms_bucket32_fp": forward_ms(fp, full, 32),
+           "forward_ms_bucket32_int8": forward_ms(bundle, full, 32),
+           "burst_qps": len(burst) / wall,
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_p99": float(np.percentile(latencies, 99))}
+    emit(row)
+    check_int8_launches("int8 flagship", {"int8_matmul": (k9, 3),
+                                          "lstm_seq_fwd": (k1, 2)},
+                        dispatched)
+    if not (agreement >= GATE_AGREEMENT and drift <= GATE_DRIFT):
+        raise AssertionError("int8 flagship fails the accuracy gate: %r"
+                             % row)
+    if stats["batches_failed"] != 0:
+        raise AssertionError("int8 flagship batches failed: %r" % stats)
+    return row
+
+
+def phase_serve_resnet_int8(torch, ik, ck, tmp):
+    """ResNet-50 at 224 exported int8 (53 conv weights dequantized at the
+    top of every forward, then K7 or F.conv2d; the fc native int8 in K9),
+    served through the engine and HTTP, against the same bundle on the CPU
+    and the fp bundle on the card."""
+    from paddle_tpu_torch.serve import InferenceEngine, load_bundle
+
+    fp_dir = export(tmp, "resnet_fp", RESNET, (1, 8), None, RESNET_BUILDER,
+                    resnet_params, SEED + 20)
+    q_dir = export(tmp, "resnet_int8", RESNET, (1, 8), None, RESNET_BUILDER,
+                   resnet_params, SEED + 20, quantize="int8")
+    fp = load_bundle(fp_dir, device=DEVICE)
+    bundle = load_bundle(q_dir, device=DEVICE)
+    rng = np.random.default_rng(SEED + 31)
+    burst = [{"image": resnet_images(rng, int(rng.integers(1, 3)))}
+             for _ in range(4)]
+    http = [{"image": resnet_images(rng, 1)}]
+    ik.reset_launches()  # the main path starts here (engine warmup included)
+    ck.reset_launches()
+    engine = InferenceEngine(bundle, max_batch_size=8, max_latency_ms=10.0)
+    reqs, got, latencies, wall = serve_int8(bundle, engine, burst, http,
+                                            "res_out")
+    k9, k7 = ik.launches, ck.launches
+    stats = engine.stats()
+    dispatched = stats["warmup_batches"] + stats["batches"]
+    # the CPU and the fp bundle answer in one batch: test-mode rows are
+    # independent
+    rows = {"image": np.concatenate([r["image"] for r in reqs])}
+    got = np.concatenate(got)
+    err = check_close(got, load_bundle(q_dir, device="cpu").run(
+        rows, len(rows["image"]))["res_out"], "int8 resnet50")
+    agreement, drift = accuracy_gate(
+        got, fp.run(rows, len(rows["image"]))["res_out"])
+    full = {"image": resnet_images(rng, 8)}
+    quantized = bundle.quantization["params"]
+    row = {"phase": "serve_resnet_int8", "config": RESNET,
+           "buckets": bundle.batch_sizes(),
+           "quantized_native": sum(q["native"] for q in quantized.values()),
+           "quantized_dequantized_per_forward": sum(
+               not q["native"] for q in quantized.values()),
+           "requests": stats["requests"], "rows": stats["rows"],
+           "batches": stats["batches"],
+           "warmup_batches": stats["warmup_batches"],
+           "k9_launches": k9, "k7_launches": k7, "max_abs_err_vs_cpu": err,
+           "argmax_agreement_vs_fp_not_held": agreement,
+           "max_drift_vs_fp": drift, "tol_drift": GATE_DRIFT,
+           "resident_bytes_fp": resident_bytes(fp),
+           "resident_bytes_int8": resident_bytes(bundle),
+           "resident_int8_tensors": sum(
+               t.dtype == torch.int8 for t in bundle.params.values()),
+           "forward_ms_bucket8_fp": forward_ms(fp, full, 8),
+           "forward_ms_bucket8_int8": forward_ms(bundle, full, 8),
+           "burst_images_per_s": sum(len(r["image"]) for r in burst) / wall,
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_max": float(np.max(latencies))}
+    emit(row)
+    check_int8_launches("int8 resnet50", {"int8_matmul": (k9, 1),
+                                          "conv2d_same_fwd": (k7, 46)},
+                        dispatched)
+    if not (drift <= GATE_DRIFT and row["resident_int8_tensors"] == 54):
+        raise AssertionError("int8 resnet50: drift against fp or resident "
+                             "int8 tensors: %r" % row)
+    if stats["batches_failed"] != 0:
+        raise AssertionError("int8 resnet50 batches failed: %r" % stats)
     return row
 
 
@@ -1584,6 +1886,7 @@ def main():
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import conv_kernels as ck
     from paddle_tpu_torch.ops import gru_kernels as gk
+    from paddle_tpu_torch.ops import int8_kernels as ik
     from paddle_tpu_torch.ops import lstm_kernels as lk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1598,7 +1901,7 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd", "gru_seq_fwd",
                              "gru_seq_bwd", "conv2d_same_fwd",
-                             "conv2d_same_bwdw"])
+                             "conv2d_same_bwdw", "int8_matmul"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.basename(lib) for lib in libs],
           "ptxas": {k: [ln for ln in v.splitlines() if "Used" in ln]
@@ -1610,12 +1913,15 @@ def main():
     gru_bwd_cases = phase_kernel_gru_bwd(torch, gk)
     conv_cases = phase_kernel_conv(torch, ck)
     conv_bwd_cases = phase_kernel_conv_bwd(torch, ck)
+    int8_cases = phase_kernel_int8(torch, ik)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
         served_resnet = phase_serve_resnet(torch, ck, tmp)
+        int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
+        int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
         trained_resnet = phase_train_resnet(torch, ck, tmp)
     trained_tagger = phase_train_tagger(torch, gk)
     trained_wide = phase_train_h1280(torch, lk)
@@ -1651,7 +1957,18 @@ def main():
         kernel_entry([network_sum(conv_bwd_cases, "bwdw")],
                      "conv2d_same_bwd_filter[K8,resnet50_filter_gradient]",
                      "paddle_tpu/ops/pallas_conv.py:226",
-                     trained_resnet["k8_launches"], "conv2d_same_bwdw")]})
+                     trained_resnet["k8_launches"], "conv2d_same_bwdw"),
+        kernel_entry([int8_sum(int8_cases, INT8_FLAGSHIP_BATCH,
+                               "the 3 int8 products of one served flagship "
+                               "batch at bucket 32, seq_len 64 (float32)")],
+                     "int8_matmul[K9,flagship_batch32]",
+                     "paddle_tpu/ops/pallas_kernels.py:908",
+                     int8_flagship["k9_launches"], "int8_matmul"),
+        kernel_entry([int8_sum(int8_cases, [INT8_RESNET_FC],
+                               "ResNet-50's fc at bucket 8 (float32)")],
+                     "int8_matmul[K9,resnet50_fc_batch8]",
+                     "paddle_tpu/ops/pallas_kernels.py:908",
+                     int8_resnet["k9_launches"], "int8_matmul")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

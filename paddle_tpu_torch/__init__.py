@@ -23,7 +23,9 @@ trained the same way, over its whole-sequence GRU kernels
 img_conv, img_pool, batch_norm with running statistics, addto) served and
 trained the same way, every stride-1 SAME conv over the implicit-GEMM conv
 kernels (csrc/conv2d_same_fwd.cu for the forward and the data gradient,
-csrc/conv2d_same_bwdw.cu for the filter gradient).
+csrc/conv2d_same_bwdw.cu for the filter gradient); quantized int8 bundles
+(serve/quantize.py, export_bundle(quantize="int8")), whose fc weights run
+in the dequant-fused matmul kernel (csrc/int8_matmul.cu).
 """
 
 __version__ = "0.1.0"

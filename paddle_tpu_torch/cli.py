@@ -4,13 +4,16 @@ paddle_tpu/cli.py):
     python -m paddle_tpu_torch.cli export \\
         --builder paddle_tpu_torch.models.text:text_classification_lstm \\
         --builder-kwargs '{"hidden": 256, "num_layers": 2}' \\
-        [--params params.npz | --seed 0 [--device cpu]] -o BUNDLE_DIR
+        [--params params.npz | --seed 0 [--device cpu]] [--quantize int8] \
+        -o BUNDLE_DIR
     python -m paddle_tpu_torch.cli serve BUNDLE_DIR [--selfcheck] [--port N]
 
 ``--params`` takes an npz written by either package's
 ``Parameters.to_npz`` (a JAX bundle's params.npz included); without it the
 parameters are initialised from ``--seed`` on the card (or ``--device
-cpu``). ``serve`` runs on the card unless ``--device cpu``.
+cpu``). ``--quantize int8`` writes a quantized bundle (serve/quantize.py),
+which ``serve`` runs unchanged. ``serve`` runs on the card unless
+``--device cpu``.
 """
 
 import argparse
@@ -34,11 +37,15 @@ def cmd_export(args):
     manifest = export_bundle(
         builder, params, args.output,
         batch_sizes=[int(b) for b in args.batch_sizes.split(",") if b],
-        seq_len=args.seq_len, name=args.name or None)
-    print(json.dumps({"bundle": args.output, "name": manifest["name"],
-                      "buckets": [b["batch"] for b in manifest["buckets"]],
-                      "inputs": [i["name"] for i in manifest["inputs"]],
-                      "outputs": manifest["outputs"]}))
+        seq_len=args.seq_len, name=args.name or None,
+        quantize=args.quantize or None)
+    summary = {"bundle": args.output, "name": manifest["name"],
+               "buckets": [b["batch"] for b in manifest["buckets"]],
+               "inputs": [i["name"] for i in manifest["inputs"]],
+               "outputs": manifest["outputs"]}
+    if manifest.get("quantization"):
+        summary["quantization"] = manifest["quantization"]["scheme"]
+    print(json.dumps(summary))
     return 0
 
 
@@ -101,6 +108,11 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=None,
                    help="padded time dim for sequence inputs (default 64)")
     p.add_argument("--name", default="")
+    p.add_argument("--quantize", default="", choices=("", "int8"),
+                   help="weight-only quantization: int8 stores matmul/conv "
+                        "weights per-output-channel symmetric int8 with "
+                        "float32 scale sidecars (biases, norm and embedding "
+                        "tables and recurrent cells stay fp)")
     p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("serve", help="serve a bundle over HTTP")

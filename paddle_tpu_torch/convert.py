@@ -15,38 +15,58 @@ from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.utils.error import enforce
 
 
-def check_param_shapes(shapes, topology):
+def check_param_shapes(shapes, topology, quantization=None):
     """Raise unless ``shapes`` (``{name: shape}``) names exactly the
-    topology's parameters, each with its declared shape. Returns the
-    topology's ``{name: ParamSpec}``."""
+    topology's parameters, each with its declared shape, plus, for a
+    quantized payload (``quantization``, the manifest block of
+    serve/quantize.py), the scale sidecar of each quantized tensor with
+    shape ``[N]``, N its tensor's last dimension. Returns the topology's
+    ``{name: ParamSpec}``."""
     specs = topology.param_specs()
-    missing = sorted(set(specs) - set(shapes))
-    extra = sorted(set(shapes) - set(specs))
+    expected = {name: spec.shape for name, spec in specs.items()}
+    for name, info in (quantization or {}).get("params", {}).items():
+        enforce(name in specs, "quantized parameter %r is not in the "
+                "topology", name)
+        expected[info["scale"]] = (specs[name].shape[-1],)
+    missing = sorted(set(expected) - set(shapes))
+    extra = sorted(set(shapes) - set(expected))
     enforce(not missing and not extra,
             "parameter names differ from the topology: missing %s, "
             "unexpected %s", missing, extra)
-    for name, spec in specs.items():
-        enforce(tuple(shapes[name]) == spec.shape,
+    for name, shape in expected.items():
+        enforce(tuple(shapes[name]) == shape,
                 "parameter %r: shape %s, the topology declares %s", name,
-                tuple(shapes[name]), spec.shape)
+                tuple(shapes[name]), shape)
     return specs
 
 
-def params_from_numpy(np_dict, topology, device=None, dtype=None):
+def params_from_numpy(np_dict, topology, device=None, dtype=None,
+                      quantization=None):
     """``{name: tensor}`` on ``device`` from ``{name: np.ndarray}``.
 
     Raises when the name sets differ or any shape differs from the
-    topology's ParamSpec. Floating arrays become ``dtype`` (default: the
-    default dtype policy, float32); integer arrays keep their type."""
+    topology's ParamSpec (``check_param_shapes``, with the scale sidecars
+    of a ``quantization`` block). Floating arrays become ``dtype``
+    (default: the default dtype policy, float32), except the scale
+    sidecars, which stay float32; integer arrays keep their type, and each
+    tensor the block lists must be int8."""
     device = resolve_device(device)
     dtype = dtype_mod.canonical(dtype)
     specs = check_param_shapes(
-        {name: np.shape(arr) for name, arr in np_dict.items()}, topology)
+        {name: np.shape(arr) for name, arr in np_dict.items()}, topology,
+        quantization)
+    qinfo = (quantization or {}).get("params", {})
+    sidecars = {info["scale"] for info in qinfo.values()}
     out = {}
-    for name in specs:
+    for name in list(specs) + sorted(sidecars):
         arr = np.asarray(np_dict[name])
+        enforce(name not in qinfo or arr.dtype == np.int8,
+                "quantized parameter %r must be int8, got %s", name,
+                arr.dtype)
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if t.is_floating_point():
+        if name in sidecars:
+            t = t.float()
+        elif t.is_floating_point():
             t = t.to(dtype)
         out[name] = t.to(device)
     return out

@@ -1,7 +1,9 @@
 """Core dense layers: fc, embedding and addto (reference:
 FullyConnectedLayer, TableProjection / embedding_layer, AddtoLayer).
 Weights keep the JAX package's [in, out] layout, so ``x @ w`` and
-parameters copy across unchanged."""
+parameters copy across unchanged. An fc weight of a quantized bundle
+(serve/quantize.py) is int8 with a ``<name>::scale`` sidecar and runs in
+the dequant-fused kernel ``ops.int8_kernels.int8_matmul``."""
 
 import torch
 
@@ -21,6 +23,8 @@ from paddle_tpu_torch.layer.base import (
     to_list,
     weight_spec,
 )
+from paddle_tpu_torch.ops.int8_kernels import int8_matmul
+from paddle_tpu_torch.serve.quantize import scale_name
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -41,13 +45,21 @@ def fc(input, size, act=None, name=None, param_attr=None, bias_attr=None,
              for i, inp in enumerate(inputs)]
     bspec = bias_spec(name, (size,), bias_attr)
 
+    def matmul(value, spec, params):
+        w = params[spec.name]
+        if w.dtype == torch.int8:
+            # quantized bundle: the int8 weight stays int8 on the device and
+            # the kernel dequantizes it with its float32 sidecar (a bfloat16
+            # policy has rounded the sidecar; the kernel takes it widened)
+            scale = params[scale_name(spec.name)].float()
+            return featurewise(lambda d: int8_matmul(d, w, scale), value)
+        return featurewise(lambda d: torch.matmul(d, w), value)
+
     def forward(params, values, ctx):
-        out = featurewise(lambda d: torch.matmul(d, params[specs[0].name]),
-                          values[0])
+        out = matmul(values[0], specs[0], params)
         for value, spec in zip(values[1:], specs[1:]):
-            nxt = featurewise(lambda d, s=spec: torch.matmul(d, params[s.name]),
-                              value)
-            out = like(out, data_of(out) + data_of(nxt))
+            out = like(out, data_of(out) + data_of(matmul(value, spec,
+                                                          params)))
         if bspec is not None:
             out = like(out, data_of(out) + params[bspec.name])
         return finalize(out, act, node.extra_attr, ctx)

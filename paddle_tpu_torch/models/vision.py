@@ -6,6 +6,18 @@ from paddle_tpu_torch import layer as L
 from paddle_tpu_torch import pooling as pool
 
 
+def mlp(img=None, num_classes=10, hidden=(128, 64)):
+    """Simple MLP (reference: v1_api_demo/mnist simple mlp config;
+    paddle_tpu/models/vision.py:26): 784 -> 128 -> 64 -> 10 with the JAX
+    builder's names (mlp_fc0, mlp_fc1, mlp_out)."""
+    if img is None:
+        img = L.data(name="pixel", type=data_type.dense_vector(784))
+    tmp = img
+    for i, h in enumerate(hidden):
+        tmp = L.fc(input=tmp, size=h, act=A.Relu(), name="mlp_fc%d" % i)
+    return L.fc(input=tmp, size=num_classes, act=A.Softmax(), name="mlp_out")
+
+
 def resnet(img=None, depth=50, num_classes=1000, im_size=224):
     """ResNet (reference: v1_api_demo/model_zoo/resnet/resnet.py;
     paddle_tpu/models/vision.py:137) -- basic blocks at depth 18 and 34,

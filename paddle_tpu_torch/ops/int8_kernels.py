@@ -1,0 +1,102 @@
+"""The dequant-fused matmul of quantized serving bundles: the hand-written
+CUDA kernel and its plain PyTorch version.
+
+``int8_matmul`` has the function of paddle_tpu/ops/pallas_kernels.py
+``int8_matmul`` when it takes the TPU kernel K9 ``_int8_matmul_kernel``:
+
+    x      [..., K]  float32 or bfloat16
+    w_q    [K, N]    int8, per-output-channel symmetric (serve/quantize.py)
+    scale  [N]       float32
+    -> y   [..., N]  in x's dtype,
+    y = x @ round_to_x_dtype(float32(w_q) * scale)
+
+with every product summed in float32 and the result rounded once to x's
+dtype. The lead dimensions are flattened to a contiguous [M, K] for the
+kernel and restored after it.
+
+On a CUDA tensor the wrapper launches the kernel (csrc/int8_matmul.cu) or
+raises; on a CPU tensor it runs the plain version beside it
+(``int8_matmul_reference``), which is also the oracle the kernel is held
+against. In bfloat16 the plain version rounds the dequantized weight to
+bfloat16 before the product, as the TPU kernel does: the JAX package's
+XLA path (pallas_kernels.py:959) rounds the scale instead, and the two
+differ by up to one bfloat16 step.
+
+Serving only: the TPU kernel has no VJP, and the wrapper raises when x
+asks for a gradient.
+
+Not ported: the JAX package's ``int8_matmul`` flag, ``int8_matmul_mode``
+and the ``_INT8_MEASURED_WINS`` gate. They choose between the Pallas kernel
+and XLA's dequant-fused dot by TPU conditions (N a multiple of 128, K a
+multiple of 8, the VMEM budget, a recorded on-chip win); here every int8
+product on the card runs the kernel, at any M, K, N >= 1.
+
+``launches`` counts the kernel's launches since the last
+``reset_launches()`` (a launch made to compare the kernel with its plain
+version counts too; callers reset around the path they read).
+"""
+
+import threading
+
+import torch
+
+from paddle_tpu_torch.ops._build import DTYPE_CODES, check_args, launch
+from paddle_tpu_torch.utils.error import enforce
+
+launches = 0
+_count_lock = threading.Lock()
+
+
+def reset_launches():
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def _count_launches(n):
+    global launches
+    with _count_lock:
+        launches += n
+
+
+def int8_matmul_reference(x, w_q, scale):
+    """The plain PyTorch version of K9 (float32 products and sums, the
+    dequantized weight rounded to x's dtype first, one rounding of the
+    result)."""
+    w = (w_q.float() * scale).to(x.dtype).float()
+    return torch.matmul(x.float(), w).to(x.dtype)
+
+
+def int8_matmul(x, w_q, scale):
+    """K9: ``x @ dequant(w_q, scale)`` for x [..., K], w_q [K, N] int8 and
+    scale [N] float32 (see module docstring). After a kernel call,
+    ``int8_matmul.last_launch`` holds the grid the kernel used."""
+    enforce(x.dtype in DTYPE_CODES, "int8_matmul takes float32 or bfloat16 "
+            "x, got %s", x.dtype)
+    enforce(not (torch.is_grad_enabled() and x.requires_grad),
+            "int8_matmul serves quantized bundles only: it has no gradient")
+    enforce(w_q.dim() == 2, "int8_matmul: w_q must be [K, N], got %s",
+            tuple(w_q.shape))
+    k, n = w_q.shape
+    enforce(x.dim() >= 1 and x.shape[-1] == k,
+            "int8_matmul: x must be [..., %d], got %s", k, tuple(x.shape))
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, k).contiguous()
+    check_args("int8_matmul", x2, [("w_q", w_q, (k, n), torch.int8),
+                                   ("scale", scale, (n,), torch.float32)])
+    dev = x.device
+    if dev.type == "cpu":
+        return int8_matmul_reference(x2, w_q, scale).reshape(lead + (n,))
+    enforce(dev.type == "cuda", "int8_matmul runs on cuda or cpu tensors, "
+            "got %s", dev)
+    y = torch.empty((x2.shape[0], n), dtype=x.dtype, device=dev)
+    info = launch("int8_matmul", dev,
+                  (x2, w_q.contiguous(), scale.contiguous()), (y,),
+                  (x2.shape[0], k, n), _count_launches)
+    int8_matmul.last_launch = dict(zip(
+        ("column_tiles", "row_tiles", "weight_load_bytes", "k_chunk",
+         "smem_bytes", "launches"), info))
+    return y.reshape(lead + (n,))
+
+
+int8_matmul.last_launch = None

@@ -49,7 +49,8 @@ class Parameters:
         return len(self._values)
 
     def get(self, key):
-        """The value as a host numpy array (float32 for bf16 tensors)."""
+        """The value as a host numpy array: float32 for a bf16 tensor, every
+        other dtype (a quantized bundle's int8 included) as it is."""
         t = self._values[key].detach()
         if t.dtype == torch.bfloat16:
             t = t.float()

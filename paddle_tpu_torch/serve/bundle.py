@@ -8,6 +8,12 @@ rebuilds the topology by calling that builder, then copies ``params.npz``
 onto the device through ``convert.params_from_numpy``, which checks every
 name and shape. (A deserialisation-only artifact, ``torch.export`` with
 the kernels registered as custom ops, is queued in ROADMAP.md.)
+
+A quantized bundle (``export_bundle(quantize="int8")``) keeps its int8
+tensors int8 and its scale sidecars float32 on the device; every forward
+of ``run`` dequantizes the conv weights for that forward
+(``quantize.dequant_for_forward``), and ``fc`` runs its int8 weight in the
+dequant-fused kernel.
 """
 
 import importlib
@@ -21,6 +27,7 @@ import torch
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.data.bucketing import bucket_index
+from paddle_tpu_torch.serve.quantize import dequant_for_forward
 
 MANIFEST_NAME = "manifest.json"
 BUNDLE_FORMAT = "paddle_tpu_torch-bundle-v1"
@@ -71,6 +78,8 @@ class Bundle:
         self.inputs = self.manifest["inputs"]
         self.outputs = self.manifest["outputs"]
         self.seq_len = self.manifest.get("seq_len")
+        # the quantization block of a quantized bundle (serve/quantize.py)
+        self.quantization = self.manifest.get("quantization")
         self.buckets = sorted(self.manifest["buckets"],
                               key=lambda b: b["batch"])
         if not self.buckets:
@@ -81,7 +90,8 @@ class Bundle:
         with np.load(os.path.join(self.directory,
                                   self.manifest["params_file"])) as pz:
             arrays = {k: pz[k] for k in pz.files}
-        self.params = params_from_numpy(arrays, self.topology, self.device)
+        self.params = params_from_numpy(arrays, self.topology, self.device,
+                                        quantization=self.quantization)
         # the engine's async warmup thread and its batcher worker may both
         # run a forward; one at a time keeps the device work ordered
         self._run_lock = threading.Lock()
@@ -165,7 +175,10 @@ class Bundle:
                 raise ValueError("input %r has %d rows, bucket is %d"
                                  % (key, np.shape(arr)[0], batch))
         with self._run_lock:
-            values = self.topology.apply(self.params, self._feed(flat_inputs),
+            params = self.params
+            if self.quantization:
+                params = dequant_for_forward(params, self.quantization)
+            values = self.topology.apply(params, self._feed(flat_inputs),
                                          mode="test")
             out = {}
             for name in self._out_names:
@@ -197,9 +210,11 @@ class Bundle:
         return {k: arr[:rows] for k, arr in out.items()}
 
     def __repr__(self):
-        return "Bundle(%r, buckets=%s, inputs=%s, device=%s)" % (
+        quant = (", quantized=%s" % self.quantization["scheme"]
+                 if self.quantization else "")
+        return "Bundle(%r, buckets=%s, inputs=%s, device=%s%s)" % (
             self.name, self.batch_sizes(), [i["name"] for i in self.inputs],
-            self.device)
+            self.device, quant)
 
 
 def pad_rows(arr, to_rows):

@@ -7,6 +7,12 @@ payload the JAX package writes. Nothing runs on a device: the parameter
 names and shapes are checked against the rebuilt topology, and the output
 specs come from the output layers' widths (``[seq_len, size]`` per row for
 a sequence output, ``[size]`` otherwise; float32, the compute dtype).
+
+``quantize="int8"`` stores the matmul/conv weights as per-output-channel
+int8 with float32 scale sidecars (serve/quantize.py) in ``params.npz`` and
+records the scheme in ``manifest["quantization"]``. The JAX manifest's
+``hbm_estimate_bytes`` is not written yet (it belongs to the fleet's
+``--replicas auto``, which is not ported).
 """
 
 import importlib
@@ -20,6 +26,7 @@ from paddle_tpu_torch.convert import check_param_shapes
 from paddle_tpu_torch.data_type import DENSE, INDEX, SEQ_NONE, SEQ_SINGLE
 from paddle_tpu_torch.serve.bundle import (BUNDLE_FORMAT, MANIFEST_NAME,
                                            SEQ_KINDS, build_outputs)
+from paddle_tpu_torch.serve.quantize import quantize_parameters
 from paddle_tpu_torch.utils.error import enforce
 
 DEFAULT_BATCH_SIZES = (1, 8, 32)
@@ -72,7 +79,7 @@ def parse_builder(spec, kwargs=None):
 
 def export_bundle(builder, parameters, out_dir,
                   batch_sizes=DEFAULT_BATCH_SIZES, seq_len=None, name=None,
-                  decode_slots=None):
+                  decode_slots=None, quantize=None):
     """Write a bundle directory for the topology ``builder`` builds;
     returns the manifest dict.
 
@@ -80,9 +87,10 @@ def export_bundle(builder, parameters, out_dir,
     (``parse_builder``); ``parameters`` a :class:`Parameters` whose names
     and shapes must match the topology. ``batch_sizes`` are the batch
     buckets the engine pads each dynamic batch up to; ``seq_len`` fixes the
-    padded time dimension of sequence inputs (default 64). The
-    continuous-batching decode step (``decode_slots``) is not ported yet
-    and raises."""
+    padded time dimension of sequence inputs (default 64). ``quantize``
+    ("int8" or None) quantizes the weights of the payload (module
+    docstring). The continuous-batching decode step (``decode_slots``) is
+    not ported yet and raises."""
     from paddle_tpu_torch.topology import Topology
 
     enforce(not decode_slots, "export_bundle(decode_slots=...): the "
@@ -98,9 +106,15 @@ def export_bundle(builder, parameters, out_dir,
             "batch_sizes must be positive, got %r", batch_sizes)
     has_seq = any(s["kind"] in SEQ_KINDS for s in specs)
     seq_len = int(seq_len or DEFAULT_SEQ_LEN) if has_seq else None
+    quantization = None
+    if quantize:
+        enforce(quantize == "int8",
+                "unsupported quantize scheme %r (only 'int8')", quantize)
+        # the quantized Parameters replace the fp payload from here on
+        parameters, quantization = quantize_parameters(parameters, topology)
     check_param_shapes({name: tuple(t.shape)
                         for name, t in parameters.as_dict().items()},
-                       topology)
+                       topology, quantization)
 
     os.makedirs(out_dir, exist_ok=True)
     params_file = "params.npz"
@@ -123,6 +137,8 @@ def export_bundle(builder, parameters, out_dir,
         "buckets": [{"batch": b} for b in batch_sizes],
         "params_file": params_file,
     }
+    if quantization is not None:
+        manifest["quantization"] = quantization
     with open(os.path.join(out_dir, MANIFEST_NAME), "w") as fh:
         json.dump(manifest, fh, indent=2)
     return manifest

@@ -1,5 +1,5 @@
-"""The hand-written LSTM, GRU and convolution kernels, forward and
-backward, against their plain versions ON THE CARD.
+"""The hand-written LSTM, GRU, convolution and int8 matmul kernels,
+forward and backward, against their plain versions ON THE CARD.
 
 Needs an NVIDIA card and nvcc; skips with a reason elsewhere. This file
 imports neither JAX nor paddle_tpu, so it also runs on a machine that has
@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu_torch.ops import conv_kernels as ck
 from paddle_tpu_torch.ops import gru_kernels as gk
+from paddle_tpu_torch.ops import int8_kernels as ik
 from paddle_tpu_torch.ops import lstm_kernels as lk
 
 
@@ -21,9 +22,9 @@ from paddle_tpu_torch.ops import lstm_kernels as lk
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode "
-                    "(tests/test_torch_lstm.py, test_torch_lstm_bwd.py and "
-                    "test_torch_gru.py and test_torch_conv.py cover their "
-                    "plain versions)")
+                    "(tests/test_torch_lstm.py, test_torch_lstm_bwd.py, "
+                    "test_torch_gru.py, test_torch_conv.py and "
+                    "test_torch_int8.py cover their plain versions)")
     return torch.device("cuda")
 
 
@@ -279,3 +280,35 @@ def test_conv_same_backward_runs_the_kernels_on_card(cuda_device):
         torch.backends.cudnn.allow_tf32 = prev
     assert _rel_err(xg.grad, xr.grad) <= 1e-4
     assert _rel_err(wg.grad, wr.grad) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,k,n", [(2048, 256, 1024), (1, 2048, 1000),
+                                   (32, 256, 2), (3, 37, 129)])
+def test_int8_matmul_kernel_matches_plain_version_on_card(cuda_device, dtype,
+                                                          tol, m, k, n):
+    """K9 against its plain version on the card, divided by max(1, max
+    |plain|): float32 sums in another order; bfloat16 rounds the float32 sum
+    once, and the two roundings can land one bfloat16 step apart. The
+    shapes take the 16-byte, 8-byte and byte weight loads, and ragged K, M
+    and N edges."""
+    rng = np.random.RandomState(m + k + n)
+    w = rng.randn(k, n) / np.sqrt(k)
+    scale = np.abs(w).max(0) / 127.0
+    w_q = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+    x = torch.tensor(rng.randn(m, k), dtype=dtype, device=cuda_device)
+    w_q = torch.tensor(w_q, device=cuda_device)
+    scale = torch.tensor(scale, dtype=torch.float32, device=cuda_device)
+    before = ik.launches
+    y = ik.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert ik.launches == before + 1
+    assert y.dtype == dtype and y.shape == (m, n)
+    want = ik.int8_matmul_reference(x, w_q, scale)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err / max(1.0, want.float().abs().max().item()) <= tol
+    # lead dimensions flatten into one launch
+    y3 = ik.int8_matmul(x.reshape(1, m, k), w_q, scale)
+    assert ik.launches == before + 2 and torch.equal(y3[0], y)

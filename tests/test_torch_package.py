@@ -215,6 +215,12 @@ def test_import_scan_covers_the_conv_modules():
         assert os.path.join("paddle_tpu_torch", mod) in names
 
 
+def test_import_scan_covers_the_int8_modules():
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("ops/int8_kernels.py", "serve/quantize.py"):
+        assert os.path.join("paddle_tpu_torch", mod) in names
+
+
 def _conv_args(dtype=torch.float32, k=3, c=8, f=16):
     rng = np.random.RandomState(1)
     x = torch.tensor(rng.randn(2, 5, 7, c), dtype=dtype)
