@@ -68,7 +68,11 @@ result line:
 14. kernel_conv_bwd  the data gradient (K7 on the flipped, transposed
            weight) and conv2d_same_bwd_filter (csrc/conv2d_same_bwdw.cu, K8)
            the same way, with aten.convolution_backward as the library
-           time of each.
+           time of each; K8 runs its tensor-core path in bfloat16 and its
+           CUDA-core path in float32 (each row names the path), and a
+           repeat of every K8 call is bit-identical. Then the 46-conv sums
+           of K7, its data gradient and K8 in float32 and bfloat16 (cuDNN
+           in the same dtype as the library).
 15. serve_resnet  ResNet-50 at full size (224x224, 1000 classes, random
            weights and batch-norm statistics from a numpy seed) exported
            with buckets 1/8/32, a burst of 8 requests of 1-4 images through
@@ -90,7 +94,12 @@ result line:
            ResNet-50's fc (buckets 32, 8 and 1), the mlp's products and an
            odd shape, float32 and bfloat16: errors, CUDA-event times, the
            bound, and the time of the dequant-then-matmul product (the JAX
-           package's default path) as the library time.
+           package's default path) as the library time. Each row names the
+           path the planner chose (split-K for M <= 32, tensor cores for
+           bfloat16 and CUDA cores for float32 above); each path runs at
+           least once, and a repeat of every call is bit-identical. Then
+           one line of readings: K9 at ResNet-50's fc against the library,
+           and K8's bfloat16 sum against its float32 sum.
 18. serve_flagship_int8  the full-width flagship exported with
            quantize="int8" (buckets 1/8/32, seq_len 64), a burst of 12
            requests of 1-8 rows through the engine and 2 HTTP requests,
@@ -255,7 +264,9 @@ def time_ms(torch, fn, warmup=3, reps=20, queue_ahead=False):
     ``queue_ahead`` each timed call is enqueued behind a sleep kernel, so
     the events time the card's work and not the host's enqueue of a call
     shorter than its Python overhead (valid only for calls the host
-    enqueues within the sleep: the K9 calls, a few ops each)."""
+    enqueues within the sleep: the K7, K8 and K9 calls and their library
+    calls, a few ops each; bfloat16 K8 and cuDNN calls take 0.04-0.15 ms,
+    less than their host overhead)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1279,11 +1290,12 @@ def phase_kernel_conv(torch, ck):
             results.append(conv_row(
                 "kernel_conv", "conv2d_same_fwd", shape, name, err,
                 TOL_CONV[name], time_ms(torch, lambda: ck.conv2d_same_fwd(
-                    x, wk)),
+                    x, wk), queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_reference(x, wk),
                         warmup=1, reps=5),
                 time_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
-                                                padding=k // 2)),
+                                                padding=k // 2),
+                        queue_ahead=True),
                 (n * h * w * (c + f) + k * k * c * f) * isz, launch))
     return results
 
@@ -1307,6 +1319,16 @@ def phase_kernel_conv_bwd(torch, ck):
             dw = ck.conv2d_same_bwd_filter(x, dy, k)
             torch.cuda.synchronize()
             launch_w = dict(ck.conv2d_same_bwd_filter.last_launch)
+            want_path = "tc_bf16" if dtype == torch.bfloat16 else "simt_f32"
+            if launch_w["path"] != want_path:
+                raise AssertionError("K8 %s at %s ran path %r, not %r"
+                                     % (name, shape, launch_w["path"],
+                                        want_path))
+            # the split reduction is summed in a fixed order: a repeat is
+            # the same bit for bit
+            if not torch.equal(ck.conv2d_same_bwd_filter(x, dy, k), dw):
+                raise AssertionError("K8 %s at %s: a repeat differs"
+                                     % (name, shape))
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(3, 2, 0, 1)
             dy_nchw = dy.permute(0, 3, 1, 2)
 
@@ -1320,28 +1342,31 @@ def phase_kernel_conv_bwd(torch, ck):
                 name, rel_error(dx, ck.conv2d_same_reference(dy, w_t)),
                 TOL_CONV[name],
                 time_ms(torch, lambda: ck.conv2d_same_fwd(
-                    dy, ck.transposed_weight(wk))),
+                    dy, ck.transposed_weight(wk)), queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_reference(
                     dy, ck.transposed_weight(wk)), warmup=1, reps=5),
-                time_ms(torch, lambda: library([True, False, False])),
+                time_ms(torch, lambda: library([True, False, False]),
+                        queue_ahead=True),
                 (n * h * w * (c + f) + k * k * c * f) * isz, launch))
             results.append(conv_row(
                 "kernel_conv_bwd", "conv2d_same_bwd_filter", shape, name,
                 rel_error(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)),
                 TOL_CONV_BWDW,
-                time_ms(torch, lambda: ck.conv2d_same_bwd_filter(x, dy, k)),
+                time_ms(torch, lambda: ck.conv2d_same_bwd_filter(x, dy, k),
+                        queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_bwd_filter_reference(
                     x, dy, k), warmup=1, reps=5),
-                time_ms(torch, lambda: library([False, True, False])),
+                time_ms(torch, lambda: library([False, True, False]),
+                        queue_ahead=True),
                 n * h * w * (c + f) * isz + k * k * c * f * 4, launch_w))
     return results
 
 
-def summed(rows_counts, shape):
-    """One float32 row for a sequence of kernel calls: each (row, count)'s
-    numbers times its count, summed; the bound counted by what bounds most
-    of it."""
-    out = {"dtype": "float32", "ms": 0.0, "plain_ms": 0.0,
+def summed(rows_counts, shape, dtype="float32"):
+    """One row for a sequence of kernel calls of ``dtype``: each (row,
+    count)'s numbers times its count, summed; the bound counted by what
+    bounds most of it."""
+    out = {"dtype": dtype, "ms": 0.0, "plain_ms": 0.0,
            "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
            "shape": shape}
     by = {"bytes": 0.0, "operations": 0.0}
@@ -1354,22 +1379,35 @@ def summed(rows_counts, shape):
     return out
 
 
-def network_sum(cases, which):
-    """One float32 row for the 46 stride-1 convs of a ResNet-50 forward
-    (``which`` "fwd"), their data gradients ("dgrad") or filter gradients
-    ("bwdw") at batch 64: each shape's numbers times its count in the
-    network, summed."""
+def network_sum(cases, which, dtype="float32"):
+    """One row of ``dtype`` for the 46 stride-1 convs of a ResNet-50
+    forward (``which`` "fwd"), their data gradients ("dgrad") or filter
+    gradients ("bwdw") at batch 64: each shape's numbers times its count in
+    the network, summed (the library is cuDNN in the same dtype)."""
     kernel = {"fwd": "conv2d_same_fwd",
               "dgrad": "conv2d_same_fwd[data_gradient]",
               "bwdw": "conv2d_same_bwd_filter"}[which]
     rows = {tuple(c["shape"]): c for c in cases
-            if c["kernel"] == kernel and c["dtype"] == "float32"}
+            if c["kernel"] == kernel and c["dtype"] == dtype}
     return summed(
         [(rows[(RESNET_BATCH, hw, hw, c, f, k)], count)
          for k, c, f, hw, count in RESNET_CONVS],
         "ResNet-50 at batch 64, 224x224: the 46 stride-1 convs of one %s "
-        "(13 shapes, float32)" % ("forward" if which == "fwd"
-                                  else "backward"))
+        "(13 shapes, %s)" % ("forward" if which == "fwd" else "backward",
+                             dtype), dtype)
+
+
+def phase_network_sums(conv_cases, conv_bwd_cases):
+    """The 46-conv sums of K7, its data gradient and K8, in float32 and
+    bfloat16; K8 in bfloat16 runs the tensor cores."""
+    sums = {}
+    for which, cases in (("fwd", conv_cases), ("dgrad", conv_bwd_cases),
+                         ("bwdw", conv_bwd_cases)):
+        for dtype in ("float32", "bfloat16"):
+            row = network_sum(cases, which, dtype)
+            sums[(which, dtype)] = row
+            emit(dict(row, phase="network_sum", kernel=which))
+    return sums
 
 
 def int8_inputs(torch, m, k, n, dtype, seed):
@@ -1391,7 +1429,7 @@ def phase_kernel_int8(torch, ik):
     the dequant-then-cuBLAS product (the JAX package's default path, TF32
     off) as the library time; all three timed on the card's clock with the
     call queued ahead (a K9 call is shorter than its host overhead)."""
-    results = []
+    results, paths = [], set()
     for i, (m, k, n) in enumerate(INT8_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -1400,6 +1438,12 @@ def phase_kernel_int8(torch, ik):
             y = ik.int8_matmul(x, w_q, scale)
             torch.cuda.synchronize()
             launch = dict(ik.int8_matmul.last_launch)
+            paths.add(launch["path"])
+            # split-K sums its partials in a fixed order: a repeat is the
+            # same bit for bit, as are the other paths
+            if not torch.equal(ik.int8_matmul(x, w_q, scale), y):
+                raise AssertionError("K9 %s at %s: a repeat differs"
+                                     % (name, (m, k, n)))
             results.append(product_row(
                 "kernel_int8", "int8_matmul", (m, k, n), name,
                 rel_error(y, ik.int8_matmul_reference(x, w_q, scale)),
@@ -1413,7 +1457,27 @@ def phase_kernel_int8(torch, ik):
                     queue_ahead=True),
                 m * k * isz + k * n + 4 * n + m * n * isz, 2.0 * m * k * n,
                 launch))
+    if paths != {"splitk", "tc_bf16", "simt_f32"}:
+        raise AssertionError("K9 paths launched: %s" % sorted(paths))
     return results
+
+
+def emit_redesign_readings(int8_cases, sums):
+    """The readings the K9 and K8 redesigns are judged by, measured in this
+    run and reported (not held: they are times): K9 at ResNet-50's fc
+    shapes against dequant + cuBLAS in both dtypes, and K8's bfloat16 sum
+    over the 46 convs against its float32 sum."""
+    fc = [{"shape": c["shape"], "dtype": c["dtype"], "ms": c["ms"],
+           "library_ms": c["library_ms"],
+           "kernel_over_library": c["ms"] / c["library_ms"]}
+          for c in int8_cases
+          if tuple(c["shape"][1:]) == INT8_RESNET_FC[1:]]
+    k8 = {d: sums[("bwdw", d)]["ms"] for d in ("float32", "bfloat16")}
+    emit({"phase": "redesign_readings", "k9_resnet50_fc": fc,
+          "k9_fc_no_slower_than_library": all(
+              r["ms"] <= r["library_ms"] for r in fc),
+          "k8_sum_ms": k8,
+          "k8_bf16_below_f32": k8["bfloat16"] < k8["float32"]})
 
 
 def int8_sum(cases, shapes, shape):
@@ -1914,6 +1978,8 @@ def main():
     conv_cases = phase_kernel_conv(torch, ck)
     conv_bwd_cases = phase_kernel_conv_bwd(torch, ck)
     int8_cases = phase_kernel_int8(torch, ik)
+    sums = phase_network_sums(conv_cases, conv_bwd_cases)
+    emit_redesign_readings(int8_cases, sums)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)

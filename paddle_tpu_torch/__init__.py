@@ -3,13 +3,15 @@
 Same layer DSL, layer names and parameter names as ``paddle_tpu`` (the JAX
 package, which stays the reference); PyTorch underneath, and a
 hand-written Hopper kernel wherever the JAX package had a Pallas kernel.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Entry points run on the card unless the caller passes ``device="cpu"``, or
+``init(use_tpu=False)`` made the CPU the default.
 
     import paddle_tpu_torch as paddle
+    paddle.init(use_tpu=True)   # the card; use_tpu=False runs on the CPU
     from paddle_tpu_torch.models.text import text_classification_lstm
     out = text_classification_lstm(hidden=256, num_layers=2)
-    params = paddle.parameters.create(paddle.topology.Topology(out))
-    probs = paddle.inference.infer(out, params, [([3, 1, 4],)])
+    params = paddle.parameters.create(out)
+    probs = paddle.infer(out, params, [([3, 1, 4],)])
 
 Ported so far: the serving path of the LSTM text classifier (layers,
 topology, parameters, bundle export/load, batching engine, HTTP server),
@@ -33,5 +35,33 @@ __version__ = "0.1.0"
 from paddle_tpu_torch import (activation, attr, data_type, event, inference,
                               layer, networks, optimizer, parameters, pooling,
                               topology, trainer)
+from paddle_tpu_torch.core.place import resolve_device, set_default_device
+from paddle_tpu_torch.inference import infer
 from paddle_tpu_torch.minibatch import batch
+from paddle_tpu_torch.utils import flags as _flags
 from paddle_tpu_torch.utils.error import EnforceError, enforce
+
+
+def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
+    """Initialize the port process-wide (paddle_tpu.init; v2
+    ``paddle.init``). ``use_tpu`` picks the default device of every entry
+    point: True or None the card, False the CPU. The card stays the
+    default, and choosing it on a machine without one raises: the port
+    never moves to the CPU on its own. ``seed`` is the default seed of
+    parameter initialisation; other keywords become flags, as in the JAX
+    package. Data parallelism (``trainer_count`` other than 1) is not
+    ported yet."""
+    enforce(int(trainer_count) == 1,
+            "init(trainer_count=%r): data parallelism is not ported yet",
+            trainer_count)
+    device = "cpu" if use_tpu is False else "cuda"
+    resolve_device(device)  # raises for the card on a machine without one
+    set_default_device(device)
+    if seed is not None:
+        _flags.set_flag("seed", int(seed))
+    for key, value in kwargs.items():
+        _flags.set_flag(key, value, create=True)
+    if log_level is not None:
+        from paddle_tpu_torch.utils.logger import set_level
+
+        set_level(log_level)

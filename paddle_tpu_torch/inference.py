@@ -7,11 +7,12 @@ from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.graph import LayerNode
 from paddle_tpu_torch.topology import Topology, convert_feed
+from paddle_tpu_torch.utils.error import enforce
 
 
 class Inference:
-    """Forward pass over output layers on one device (the card unless
-    ``device="cpu"``)."""
+    """Forward pass over output layers on one device (the default device
+    of ``core.place`` unless ``device`` is given)."""
 
     def __init__(self, output_layer, parameters, device=None):
         self.outputs = ([output_layer] if isinstance(output_layer, LayerNode)
@@ -21,7 +22,11 @@ class Inference:
         self._params = {k: v.to(self.device)
                         for k, v in parameters.as_dict().items()}
 
-    def infer(self, input, feeding=None):
+    def infer(self, input, feeding=None, field="value"):
+        """The output layers' values as numpy arrays (``field="value"``,
+        the JAX package's default and the one field ported)."""
+        enforce(field == "value", "infer(field=%r) is not ported yet",
+                field)
         feed = convert_feed(self.topology, input, self.device, feeding)
         out = self.topology.apply(self._params, feed, mode="test")
         results = []
@@ -35,6 +40,8 @@ class Inference:
         return results[0] if len(results) == 1 else results
 
 
-def infer(output_layer, parameters, input, feeding=None, device=None):
-    return Inference(output_layer, parameters, device).infer(input, feeding)
+def infer(output_layer, parameters, input, feeding=None, field="value",
+          device=None):
+    return Inference(output_layer, parameters, device).infer(input, feeding,
+                                                             field)
 

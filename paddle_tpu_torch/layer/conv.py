@@ -165,7 +165,7 @@ def img_pool(input, pool_size, name=None, num_channels=None, pool_type=None,
 @register_layer("batch_norm")
 def batch_norm(input, name=None, num_channels=None, act=None, bias_attr=None,
                param_attr=None, layer_attr=None, use_global_stats=None,
-               moving_average_fraction=0.9, epsilon=1e-5):
+               moving_average_fraction=0.9, epsilon=1e-5, img3D=False):
     """Batch normalisation (reference: BatchNormLayer). The moving mean
     and variance are running state (``<name>.moving_mean`` /
     ``.moving_var``): a train-mode evaluation normalises with the batch
@@ -173,6 +173,7 @@ def batch_norm(input, name=None, num_channels=None, act=None, bias_attr=None,
     ``Context.update_state``; test mode normalises with the moving ones."""
     from paddle_tpu_torch.graph import auto_name
 
+    enforce(not img3D, "batch_norm(img3D=True) is not ported yet")
     name = name or auto_name("batch_norm_layer")
     shape = getattr(input, "out_img_shape", None)
     channels = shape[0] if shape else (num_channels or input.size)

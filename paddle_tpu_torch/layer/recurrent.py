@@ -17,10 +17,17 @@ from paddle_tpu_torch.ops import rnn as rnn_ops
 from paddle_tpu_torch.utils.error import enforce
 
 
+# The default of ``gate_bias_attr``, as paddle_tpu/layer/recurrent.py: any
+# other value (None included) selects the JAX package's split gate-bias
+# parameterization, which is not ported.
+MERGED_GATE_BIAS = object()
+
+
 @register_layer("lstmemory")
 def lstmemory(input, name=None, size=None, reverse=False, act=None,
               gate_act=None, state_act=None, bias_attr=None, param_attr=None,
-              use_peephole=None, layer_attr=None):
+              use_peephole=None, gate_bias_attr=MERGED_GATE_BIAS,
+              layer_attr=None):
     """LSTM over a pre-projected sequence (input.size == 4*size).
 
     act = cell-output activation (default tanh), gate_act sigmoid,
@@ -31,12 +38,16 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
     peephole connections are ON whenever the layer has a bias.
     ``bias_attr=False`` gives the plain (bias-free, peephole-free) cell;
     ``use_peephole=False`` forces a 4*size bias without peepholes. The
-    recurrent-group split parameterization and ``reverse=True`` come with
-    later parts of the port.
+    recurrent-group split parameterization (``gate_bias_attr`` other than
+    its default) and ``reverse=True`` come with later parts of the port
+    and raise.
     """
     size = size or input.size // 4
     enforce(input.size == 4 * size, "lstmemory input.size must be 4*size")
     enforce(not reverse, "lstmemory(reverse=True) is not ported yet")
+    enforce(gate_bias_attr is MERGED_GATE_BIAS or gate_bias_attr == "merged",
+            "lstmemory(gate_bias_attr=...): the split gate-bias "
+            "parameterization is not ported yet")
     from paddle_tpu_torch.graph import auto_name
 
     name = name or auto_name("lstmemory")

@@ -15,7 +15,11 @@ def pooling(input, pooling_type=None, name=None, bias_attr=False,
     enforce(not agg_level and stride <= 0,
             "pooling: nested (agg_level) and strided pooling are not "
             "ported yet")
-    enforce(bias_attr is False, "pooling: bias is not ported yet")
+    # the JAX package declares no bias here and ignores bias_attr; None
+    # (sequence_conv_pool's default) and False mean no bias, and a real
+    # bias is refused rather than dropped
+    enforce(bias_attr is None or bias_attr is False,
+            "pooling: bias is not ported yet")
     ptype = to_pooling(pooling_type)
 
     def forward(params, values, ctx):

@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/lib<name>-<hash>.so``), loaded
 with ``ctypes``. The build runs at first use, from the sources in the
-checkout only; the file name carries a hash of the source, so an edited
-kernel rebuilds and a stale library is never loaded.
+checkout only; the file name carries a hash of the source and of the
+shared headers ``csrc/*.cuh``, so an edited kernel rebuilds and a stale
+library is never loaded.
 
-``check_args`` and ``launch`` are what every kernel wrapper shares: the
-argument checks against the kernel's contract, and the ctypes call of a
+``check_args``, ``aligned`` and ``launch`` are what every kernel wrapper
+shares: the argument checks against the kernel's contract, 16-byte
+aligned contiguous inputs, and the ctypes call of a
 C entry with the common signature (dtype code, pointers, the shape's ints
 -- (T, B, H) for the recurrent kernels, (N, H, W, C, F, k, ...) for the
 convolutions -- device, stream, info array).
@@ -18,6 +20,7 @@ port on a machine without ``nvcc``.
 
 import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -64,8 +67,14 @@ def source_path(name):
 
 
 def library_path(name):
-    with open(source_path(name), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256()
+    for path in [source_path(name)] + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                     digest.hexdigest()[:12]))
 
@@ -126,6 +135,13 @@ def check_args(what, lead, named):
                 x.dtype)
         enforce(x.device == lead.device, "%s is on %s, expected %s", name,
                 x.device, lead.device)
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels load it (a
+    copy only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch(name, dev, tensors, outputs, shape, count):

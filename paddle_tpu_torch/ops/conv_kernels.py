@@ -43,18 +43,27 @@ import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import DTYPE_CODES, launch
+from paddle_tpu_torch.ops._build import DTYPE_CODES, aligned, launch
 from paddle_tpu_torch.utils.error import enforce
 
 launches = 0
 bwdw_launches = 0
 _count_lock = threading.Lock()
 
-# about four blocks of the filter-gradient kernel per SM of an H100 (132
-# SMs), and at least this many positions in each split of the reduction
-_BWDW_TARGET_BLOCKS = 4 * 132
-_BWDW_MIN_POSITIONS = 256
-_ROWS_PER_TILE, _FILTERS_PER_TILE = 128, 64
+# The filter-gradient kernel's two paths (csrc/conv2d_same_bwdw.cu), by
+# dtype: blocks of 128 dW rows x 64 filters (the tensor-core path: 128
+# filters where F >= 128), walking their range of positions in chunks; the
+# reduction is split into about ``target_blocks`` blocks in all (four blocks
+# per SM of an H100's 132 for the CUDA-core path, two for the tensor-core
+# path, whose blocks have twice the threads), at least ``min_positions``
+# positions in each split.
+_ROWS_PER_TILE = 128
+_BWDW_PATHS = {
+    torch.float32: {"path": "simt_f32", "code": 2, "chunk": 16,
+                    "target_blocks": 4 * 132, "min_positions": 256},
+    torch.bfloat16: {"path": "tc_bf16", "code": 1, "chunk": 32,
+                     "target_blocks": 2 * 132, "min_positions": 512},
+}
 
 
 def reset_launches():
@@ -128,12 +137,6 @@ def _check(what, x, w_shape, other=None):
                 t.device, x.device)
 
 
-def _kernel_input(t):
-    """Contiguous and 16-byte aligned, as the kernels load it."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _shifted(xp, dh, dw, height, width):
     """Tap (dh, dw) of the zero-padded xp as [M, C]."""
     return xp[:, dh:dh + height, dw:dw + width, :].reshape(-1, xp.shape[3])
@@ -187,7 +190,7 @@ def conv2d_same_fwd(x, w):
     k, _, _, f = w.shape
     y = torch.empty((n, height, width, f), dtype=x.dtype, device=dev)
     info = launch("conv2d_same_fwd", dev,
-                  (_kernel_input(x), _kernel_input(w)), (y,),
+                  (aligned(x), aligned(w)), (y,),
                   (n, height, width, c, f, k), _count_launches)
     conv2d_same_fwd.last_launch = dict(zip(
         ("filter_tiles", "position_tiles", "positions_per_tile",
@@ -198,21 +201,44 @@ def conv2d_same_fwd(x, w):
 conv2d_same_fwd.last_launch = None
 
 
-def bwdw_splits(n, height, width, c, f, k):
-    """How many contiguous position ranges K8 splits its reduction into:
-    about ``_BWDW_TARGET_BLOCKS`` blocks in all, at least
-    ``_BWDW_MIN_POSITIONS`` positions in each range."""
+def bwdw_plan(n, height, width, c, f, k, dtype):
+    """K8's path and split for x [n, height, width, c] of ``dtype`` and
+    k x k taps, from the shapes and dtype alone: ``path`` ("tc_bf16" or
+    "simt_f32"), the block tile, ``splits`` S contiguous ranges of
+    ``positions_per_split`` positions (a multiple of the path's chunk;
+    split s sums positions [s * per, min(P, (s + 1) * per)), every range
+    non-empty, P = n * height * width), and ``workspace`` (float32 entries
+    of the partials, S * k*k*c * f, or 0 when S = 1 writes dW directly)."""
+    enforce(dtype in _BWDW_PATHS, "conv2d_same_bwd_filter takes float32 or "
+            "bfloat16 inputs, got %s", dtype)
+    cfg = _BWDW_PATHS[dtype]
     positions = n * height * width
-    tiles = (-(-k * k * c // _ROWS_PER_TILE)) * (-(-f // _FILTERS_PER_TILE))
-    want = -(-_BWDW_TARGET_BLOCKS // tiles)
-    return max(1, min(want, positions // _BWDW_MIN_POSITIONS))
+    rows = k * k * c
+    cols = 128 if cfg["path"] == "tc_bf16" and f >= 128 else 64
+    tiles = -(-rows // _ROWS_PER_TILE) * -(-f // cols)
+    want = max(1, min(-(-cfg["target_blocks"] // tiles),
+                      positions // cfg["min_positions"]))
+    chunk = cfg["chunk"]
+    per = -(-(-(-positions // want)) // chunk) * chunk
+    splits = -(-positions // per)
+    return {"path": cfg["path"], "rows_per_tile": _ROWS_PER_TILE,
+            "filters_per_tile": cols,
+            "positions_per_chunk": chunk, "splits": splits,
+            "positions_per_split": per,
+            "workspace": splits * rows * f if splits > 1 else 0}
+
+
+def bwdw_splits(n, height, width, c, f, k, dtype=torch.float32):
+    """How many contiguous position ranges K8 splits its reduction into
+    (``bwdw_plan``'s ``splits``)."""
+    return bwdw_plan(n, height, width, c, f, k, dtype)["splits"]
 
 
 def conv2d_same_bwd_filter(x, dy, k):
     """K8: the filter gradient dw [k, k, C, F] (float32) of the stride-1
     SAME conv from x [N, H, W, C] and dy [N, H, W, F] (see module
     docstring). After a kernel call, ``conv2d_same_bwd_filter.last_launch``
-    holds the grid and the split of the reduction."""
+    holds the plan (``bwdw_plan``: path and split) and the grid."""
     enforce(dy.dim() == 4, "conv2d_same_bwd_filter: dy must be [N, H, W, F],"
             " got %s", tuple(dy.shape))
     f = dy.shape[3]
@@ -224,15 +250,18 @@ def conv2d_same_bwd_filter(x, dy, k):
     enforce(dev.type == "cuda", "conv2d_same_bwd_filter runs on cuda or cpu "
             "tensors, got %s", dev)
     n, height, width, c = x.shape
-    splits = bwdw_splits(n, height, width, c, f, k)
+    plan = bwdw_plan(n, height, width, c, f, k, x.dtype)
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=dev)
-    ws = torch.empty((splits, k * k * c, f), dtype=torch.float32, device=dev)
+    ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=dev)
     info = launch("conv2d_same_bwdw", dev,
-                  (_kernel_input(x), _kernel_input(dy)), (dw, ws),
-                  (n, height, width, c, f, k, splits), _count_bwdw_launches)
-    conv2d_same_bwd_filter.last_launch = dict(zip(
-        ("filter_tiles", "row_tiles", "splits", "positions_per_split",
-         "smem_bytes", "launches"), info))
+                  (aligned(x), aligned(dy)), (dw, ws),
+                  (n, height, width, c, f, k,
+                   _BWDW_PATHS[x.dtype]["code"], plan["filters_per_tile"],
+                   plan["splits"], plan["positions_per_split"]),
+                  _count_bwdw_launches)
+    conv2d_same_bwd_filter.last_launch = dict(plan, **dict(zip(
+        ("filter_tiles", "row_tiles", "grid_splits", "grid_positions",
+         "smem_bytes", "launches"), info)))
     return dw
 
 

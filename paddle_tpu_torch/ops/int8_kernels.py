@@ -31,16 +31,27 @@ and XLA's dequant-fused dot by TPU conditions (N a multiple of 128, K a
 multiple of 8, the VMEM budget, a recorded on-chip win); here every int8
 product on the card runs the kernel, at any M, K, N >= 1.
 
+The kernel has three paths, and ``int8_plan`` picks one from (M, K, N,
+dtype) alone (no flag, no environment variable): split-K on the CUDA cores
+for M <= 32 (the served fc layers: the weight's bytes bound them), the
+tensor cores for bfloat16 and the CUDA cores in 128 x 64 tiles for
+float32 above that (the arithmetic rate bounds them); see
+csrc/int8_matmul.cu. Split-K sums S contiguous K ranges into a float32
+workspace ``[S, M, N]`` that the wrapper allocates, and a second pass in
+the same call adds them in the order s = 0, 1, ..., S-1: deterministic.
+
 ``launches`` counts the kernel's launches since the last
 ``reset_launches()`` (a launch made to compare the kernel with its plain
-version counts too; callers reset around the path they read).
+version counts too; callers reset around the path they read). A call
+counts as one launch, split-K's second pass included.
 """
 
 import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import DTYPE_CODES, check_args, launch
+from paddle_tpu_torch.ops._build import (DTYPE_CODES, aligned, check_args,
+                                         launch)
 from paddle_tpu_torch.utils.error import enforce
 
 launches = 0
@@ -67,10 +78,48 @@ def int8_matmul_reference(x, w_q, scale):
     return torch.matmul(x.float(), w).to(x.dtype)
 
 
+SPLITK_MAX_M = 32
+# about three split-K blocks per SM of an H100 (132 SMs)
+_SPLITK_TARGET_BLOCKS = 3 * 132
+_SPLITK_COLS, _SPLITK_CHUNK = 64, 32
+_PATHS = {"splitk": 0, "tc_bf16": 1, "simt_f32": 2}
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def int8_plan(m, k, n, dtype):
+    """The kernel's path and tiling for x [m, k] of ``dtype`` and w_q
+    [k, n], from the shapes and dtype alone: ``path`` ("splitk", "tc_bf16"
+    or "simt_f32"), ``row_tile`` and ``col_tile`` (the block's outputs),
+    ``splits`` S and ``k_per_split`` (split s sums k in [s *
+    k_per_split, min(k, (s + 1) * k_per_split)), every range non-empty),
+    and ``workspace`` (float32 entries of the partials, S * m * n, or 0
+    when S = 1)."""
+    m, k, n = int(m), int(k), int(n)
+    if m <= SPLITK_MAX_M:
+        col_tiles = _ceil(n, _SPLITK_COLS)
+        chunks = _ceil(k, _SPLITK_CHUNK)
+        want = min(chunks, _ceil(_SPLITK_TARGET_BLOCKS, col_tiles))
+        k_per_split = _ceil(chunks, want) * _SPLITK_CHUNK
+        splits = _ceil(k, k_per_split)
+        return {"path": "splitk", "row_tile": 16 if m <= 16 else 32,
+                "col_tile": _SPLITK_COLS, "splits": splits,
+                "k_per_split": k_per_split,
+                "workspace": splits * m * n if splits > 1 else 0}
+    if dtype == torch.bfloat16:
+        return {"path": "tc_bf16", "row_tile": 64, "col_tile": 64,
+                "splits": 1, "k_per_split": k, "workspace": 0}
+    return {"path": "simt_f32", "row_tile": 128, "col_tile": 64,
+            "splits": 1, "k_per_split": k, "workspace": 0}
+
+
 def int8_matmul(x, w_q, scale):
     """K9: ``x @ dequant(w_q, scale)`` for x [..., K], w_q [K, N] int8 and
     scale [N] float32 (see module docstring). After a kernel call,
-    ``int8_matmul.last_launch`` holds the grid the kernel used."""
+    ``int8_matmul.last_launch`` holds the plan and the grid the kernel
+    used."""
     enforce(x.dtype in DTYPE_CODES, "int8_matmul takes float32 or bfloat16 "
             "x, got %s", x.dtype)
     enforce(not (torch.is_grad_enabled() and x.requires_grad),
@@ -89,13 +138,17 @@ def int8_matmul(x, w_q, scale):
         return int8_matmul_reference(x2, w_q, scale).reshape(lead + (n,))
     enforce(dev.type == "cuda", "int8_matmul runs on cuda or cpu tensors, "
             "got %s", dev)
-    y = torch.empty((x2.shape[0], n), dtype=x.dtype, device=dev)
+    m = x2.shape[0]
+    plan = int8_plan(m, k, n, x.dtype)
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=dev)
     info = launch("int8_matmul", dev,
-                  (x2, w_q.contiguous(), scale.contiguous()), (y,),
-                  (x2.shape[0], k, n), _count_launches)
-    int8_matmul.last_launch = dict(zip(
-        ("column_tiles", "row_tiles", "weight_load_bytes", "k_chunk",
-         "smem_bytes", "launches"), info))
+                  (aligned(x2), aligned(w_q), scale.contiguous()), (y, ws),
+                  (m, k, n, _PATHS[plan["path"]], plan["row_tile"],
+                   plan["splits"], plan["k_per_split"]), _count_launches)
+    int8_matmul.last_launch = dict(plan, **dict(zip(
+        ("column_tiles", "row_tiles", "grid_splits", "weight_load_bytes",
+         "smem_bytes", "launches"), info)))
     return y.reshape(lead + (n,))
 
 

@@ -31,13 +31,34 @@ class Parameters:
         self._specs = dict(specs or {})
 
     @staticmethod
-    def create(topology, seed=None, device=None, dtype=None):
-        """Initialize every parameter of ``topology`` (v2
-        paddle.parameters.create parity) on ``device`` (the card unless
-        ``device="cpu"``)."""
-        return Parameters(topology.init_params(seed=seed, device=device,
-                                               dtype=dtype),
-                          topology.param_specs())
+    def create(topology_or_cost, rng=None, dtype=None, seed=None,
+               device=None):
+        """Initialize every parameter of a topology, a cost layer or a list
+        of layers (v2 paddle.parameters.create parity) on ``device`` (the
+        default device of ``core.place`` unless given). ``rng`` is the JAX
+        package's keyword: here an int seed or None, the same as ``seed``
+        (a JAX key cannot cross to PyTorch)."""
+        from paddle_tpu_torch.graph import LayerNode
+        from paddle_tpu_torch.topology import Topology
+
+        topo = topology_or_cost
+        if isinstance(topo, (LayerNode, list)):
+            topo = Topology(topo)
+        enforce(isinstance(topo, Topology), "parameters.create takes a "
+                "Topology, a layer or a list of layers, got %s",
+                type(topo).__name__)
+        if rng is not None:
+            enforce(isinstance(rng, (int, np.integer))
+                    and not isinstance(rng, bool),
+                    "parameters.create(rng=...) takes an int seed here, "
+                    "got %s", type(rng).__name__)
+            enforce(seed is None or int(seed) == int(rng),
+                    "parameters.create: rng=%r and seed=%r disagree", rng,
+                    seed)
+            seed = int(rng)
+        return Parameters(topo.init_params(seed=seed, device=device,
+                                           dtype=dtype),
+                          topo.param_specs())
 
     def names(self):
         return sorted(self._values)

@@ -1,0 +1,315 @@
+"""The v2 entry points of the port against the JAX package, on the CPU:
+``init`` and ``infer`` at the package's top, ``parameters.create`` on a
+cost layer, ``infer(field=)``, ``layer.data(height=, width=)``, the
+keywords ``lstmemory(gate_bias_attr=)`` and ``batch_norm(img3D=)``, and
+``pooling(bias_attr=None)``; then the README's quick tour run unchanged on
+``import paddle_tpu_torch as paddle`` after ``paddle.init(use_tpu=False)``
+and on ``import paddle_tpu as paddle``, from the same parameters on the
+same seeded minibatches.
+
+Tolerance 1e-5 (absolute, float32): the two packages sum the same float32
+products in different orders; the quick tour's three costs and its final
+parameters differ by about 1e-7 on these inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import paddle_tpu as jpaddle
+from paddle_tpu.core import place as jplace
+from paddle_tpu.graph import reset_name_counters as jax_reset_names
+from paddle_tpu.utils import flags as jflags
+
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.convert import params_from_numpy
+from paddle_tpu_torch.core import place
+from paddle_tpu_torch.graph import reset_name_counters
+from paddle_tpu_torch.parameters import Parameters
+from paddle_tpu_torch.topology import Topology
+from paddle_tpu_torch.utils import flags
+from paddle_tpu_torch.utils.error import EnforceError
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _restore_defaults():
+    """init() is process-wide in both packages: put back what it sets."""
+    device, seed = place.default_device(), flags.get_flag("seed")
+    jdefault = jplace.default_place()
+    jvalues = {k: jflags.get_flag(k) for k in ("use_tpu", "trainer_count")}
+    yield
+    place.set_default_device(device)
+    flags.set_flag("seed", seed)
+    jplace.set_default_place(jdefault)
+    for key, value in jvalues.items():
+        jflags.set_flag(key, value)
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _mlp(pkg, hidden=12, classes=4, dim=20):
+    """The quick tour's network at a small width, built by ``pkg``."""
+    x = pkg.layer.data(name="x", type=pkg.data_type.dense_vector(dim))
+    h = pkg.layer.fc(input=x, size=hidden, act=pkg.activation.Relu())
+    y = pkg.layer.fc(input=h, size=classes, act=pkg.activation.Softmax())
+    label = pkg.layer.data(name="label",
+                           type=pkg.data_type.integer_value(classes))
+    return y, pkg.layer.classification_cost(input=y, label=label)
+
+
+def _both(build):
+    jax_reset_names()
+    jout = build(jpaddle)
+    reset_name_counters()
+    return jout, build(paddle)
+
+
+def _carry(jparams, outputs):
+    """The JAX package's parameter values, carried to the port through
+    numpy (convert.params_from_numpy), as a port Parameters object."""
+    topo = Topology(outputs)
+    values = params_from_numpy({n: np.asarray(jparams.get(n))
+                                for n in jparams.names()}, topo,
+                               device="cpu")
+    return Parameters(values, topo.param_specs())
+
+
+def _rows(seed, n, dim=20, classes=4):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(dim).astype(np.float32), int(rng.randint(classes)))
+            for _ in range(n)]
+
+
+# -- A.1: init and infer ----------------------------------------------------
+
+def test_init_use_tpu_false_makes_the_cpu_the_default():
+    assert jpaddle.init(use_tpu=False) is None
+    assert paddle.init(use_tpu=False) is None
+    assert place.resolve_device(None) == torch.device("cpu")
+    assert isinstance(jplace.default_place(), jplace.CPUPlace)
+    _, (_, cost) = _both(_mlp)
+    params = paddle.parameters.create(cost)  # no device= needed any more
+    assert all(params.as_dict()[n].device.type == "cpu"
+               for n in params.names())
+    paddle.init(use_tpu=False, seed=7)
+    a = paddle.parameters.create(cost)
+    b = paddle.parameters.create(cost)
+    assert all(np.array_equal(a.get(n), b.get(n)) for n in a.names())
+    assert flags.get_flag("seed") == 7
+
+
+@pytest.mark.parametrize("use_tpu", [None, True])
+def test_init_without_a_card_raises_and_keeps_the_default(monkeypatch,
+                                                          use_tpu):
+    """The card stays the default, and choosing it on a machine without one
+    raises: the port never moves to the CPU on its own."""
+    paddle.init(use_tpu=False)
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle.init(use_tpu=use_tpu)
+    assert place.resolve_device(None) == torch.device("cpu")
+    place.set_default_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place.resolve_device(None)
+
+
+def test_init_refuses_what_is_not_ported():
+    with pytest.raises(EnforceError, match="not ported yet"):
+        paddle.init(use_tpu=False, trainer_count=2)
+    paddle.init(use_tpu=False, log_level="WARNING", my_flag=3)
+    assert flags.get_flag("my_flag") == 3
+
+
+def test_top_level_infer_matches_jax():
+    (jy, jcost), (y, cost) = _both(_mlp)
+    jparams = jpaddle.parameters.create(jcost)
+    rows = [(r[0],) for r in _rows(3, 5)]
+    want = np.asarray(jpaddle.infer(jy, jparams, rows))
+    paddle.init(use_tpu=False)
+    got = paddle.infer(y, _carry(jparams, [cost]), rows)
+    assert got.shape == (5, 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+# -- A.2: parameters.create on a cost layer or a list ----------------------
+
+def test_parameters_create_takes_a_cost_or_a_list():
+    (jy, jcost), (y, cost) = _both(_mlp)
+    jparams = jpaddle.parameters.create(jcost)
+    for arg in (cost, [cost], [y, cost], Topology(cost)):
+        params = Parameters.create(arg, device="cpu")
+        assert params.names() == jparams.names()
+        assert all(params.get(n).shape == np.shape(jparams.get(n))
+                   for n in params.names())
+
+
+def test_parameters_create_rng_is_an_int_seed():
+    _, (_, cost) = _both(_mlp)
+    a = paddle.parameters.create(cost, rng=5, device="cpu")
+    b = paddle.parameters.create(cost, seed=5, device="cpu")
+    assert all(np.array_equal(a.get(n), b.get(n)) for n in a.names())
+    with pytest.raises(EnforceError, match="int seed"):
+        paddle.parameters.create(cost, rng=jax.random.PRNGKey(0),
+                                 device="cpu")
+    with pytest.raises(EnforceError, match="disagree"):
+        paddle.parameters.create(cost, rng=1, seed=2, device="cpu")
+    with pytest.raises(EnforceError, match="Topology, a layer"):
+        paddle.parameters.create("cost", device="cpu")
+
+
+# -- A.3: infer(field=) -------------------------------------------------------
+
+def test_infer_field_value_matches_jax():
+    (jy, jcost), (y, cost) = _both(_mlp)
+    jparams = jpaddle.parameters.create(jcost)
+    params = _carry(jparams, [cost])
+    rows = [(r[0],) for r in _rows(4, 6)]
+    want = np.asarray(jpaddle.inference.infer(jy, jparams, rows,
+                                              field="value"))
+    got = paddle.inference.infer(y, params, rows, field="value",
+                                 device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    engine = paddle.inference.Inference(y, params, device="cpu")
+    np.testing.assert_allclose(engine.infer(rows, field="value"), want,
+                               rtol=0, atol=TOL)
+    with pytest.raises(EnforceError, match="not ported yet"):
+        engine.infer(rows, field="id")
+
+
+# -- A.4: layer.data(height=, width=) and the unported keywords -------------
+
+def _image_net(pkg):
+    img = pkg.layer.data(name="pixel",
+                         type=pkg.data_type.dense_vector(2 * 6 * 5),
+                         height=6, width=5)
+    conv = pkg.layer.img_conv(input=img, filter_size=3, num_filters=8,
+                              padding=1, act=pkg.activation.Relu())
+    pool = pkg.layer.img_pool(input=conv, pool_size=2, stride=2)
+    return img, pkg.layer.fc(input=pool, size=3,
+                             act=pkg.activation.Softmax())
+
+
+def test_data_height_width_sets_the_image_geometry():
+    (jimg, jout), (img, out) = _both(_image_net)
+    assert img.out_img_shape == tuple(jimg.out_img_shape) == (2, 6, 5)
+    jparams = jpaddle.parameters.create(jout)
+    params = _carry(jparams, [out])
+    rng = np.random.RandomState(6)
+    rows = [(rng.randn(60).astype(np.float32),) for _ in range(4)]
+    want = np.asarray(jpaddle.infer(jout, jparams, rows))
+    got = paddle.infer(out, params, rows, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("height,width", [(6, None), (7, 5), (0, 5)])
+def test_data_height_width_refused_like_jax(height, width):
+    for pkg in (jpaddle, paddle):
+        with pytest.raises(pkg.EnforceError):
+            pkg.layer.data(name="pixel",
+                           type=pkg.data_type.dense_vector(60),
+                           height=height, width=width)
+
+
+def test_lstmemory_gate_bias_and_batch_norm_img3d_are_refused():
+    """Both keywords exist in the JAX package; the port accepts their
+    defaults and refuses the rest as not ported (not TypeError)."""
+    reset_name_counters()
+    seq = paddle.layer.data(
+        name="w", type=paddle.data_type.integer_value_sequence(10))
+    emb = paddle.layer.embedding(input=seq, size=8)
+    proj = paddle.layer.fc(input=emb, size=16)
+    assert paddle.layer.lstmemory(input=proj).size == 4
+    assert paddle.layer.lstmemory(input=proj,
+                                  gate_bias_attr="merged").size == 4
+    for value in (None, False, paddle.attr.ParamAttr()):
+        with pytest.raises(EnforceError, match="not ported yet"):
+            paddle.layer.lstmemory(input=proj, gate_bias_attr=value)
+    img = paddle.layer.data(name="im", type=paddle.data_type.dense_vector(
+        3 * 4 * 4), height=4, width=4)
+    assert paddle.layer.batch_norm(input=img, img3D=False).size == 48
+    with pytest.raises(EnforceError, match="not ported yet"):
+        paddle.layer.batch_norm(input=img, img3D=True)
+
+
+# -- A.5: pooling(bias_attr=None) ------------------------------------------
+
+def _pooled(pkg, bias_attr):
+    seq = pkg.layer.data(name="w",
+                         type=pkg.data_type.integer_value_sequence(10))
+    emb = pkg.layer.embedding(input=seq, size=6)
+    pooled = pkg.layer.pooling(input=emb, bias_attr=bias_attr,
+                               pooling_type=pkg.pooling.MaxPooling())
+    return pkg.layer.fc(input=pooled, size=2, act=pkg.activation.Softmax())
+
+
+@pytest.mark.parametrize("bias_attr", [None, False])
+def test_pooling_without_bias_matches_jax(bias_attr):
+    jout, out = _both(lambda pkg: _pooled(pkg, bias_attr))
+    jparams = jpaddle.parameters.create(jout)
+    params = _carry(jparams, [out])
+    rows = [([1, 4, 2],), ([7],), ([3, 3, 9, 0, 5],)]
+    want = np.asarray(jpaddle.infer(jout, jparams, rows))
+    got = paddle.infer(out, params, rows, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+def test_pooling_with_a_bias_is_refused():
+    reset_name_counters()
+    with pytest.raises(EnforceError, match="bias is not ported yet"):
+        _pooled(paddle, paddle.attr.ParamAttr())
+
+
+# -- the README quick tour --------------------------------------------------
+
+def _quick_tour(pkg, reader, costs, start):
+    """README.md's quick tour, line for line, at batch 16 for one pass (the
+    README trains 5 passes at 128). An empty ``start`` receives the
+    initial parameter values as numpy arrays; a filled one replaces them
+    (convert.params_from_numpy), so both packages start alike."""
+    pkg.init(use_tpu=False)
+    x = pkg.layer.data(name='x', type=pkg.data_type.dense_vector(784))
+    h = pkg.layer.fc(input=x, size=128, act=pkg.activation.Relu())
+    y = pkg.layer.fc(input=h, size=10, act=pkg.activation.Softmax())
+    cost = pkg.layer.classification_cost(input=y, label=pkg.layer.data(
+        name='label', type=pkg.data_type.integer_value(10)))
+    params = pkg.parameters.create(cost)
+    if start:
+        topo = Topology(cost)
+        params = Parameters(params_from_numpy(start, topo),
+                            topo.param_specs())
+    else:
+        start.update({n: np.array(params.get(n)) for n in params.names()})
+    trainer = pkg.trainer.SGD(cost, params,
+                              pkg.optimizer.Momentum(learning_rate=0.01))
+    trainer.train(pkg.batch(reader, 16), num_passes=1,
+                  event_handler=lambda e: costs.append(float(e.cost))
+                  if isinstance(e, pkg.event.EndIteration) else None)
+    return params
+
+
+def test_readme_quick_tour_matches_jax():
+    samples = _rows(11, 48, dim=784, classes=10)
+
+    def reader():
+        return iter(samples)
+
+    start, jcosts, costs = {}, [], []
+    jax_reset_names()
+    jparams = _quick_tour(jpaddle, reader, jcosts, start)
+    reset_name_counters()
+    params = _quick_tour(paddle, reader, costs, start)
+    assert place.resolve_device(None) == torch.device("cpu")
+    assert len(costs) == len(jcosts) == 3
+    np.testing.assert_allclose(costs, jcosts, rtol=0, atol=TOL)
+    assert params.names() == jparams.names() == sorted(start)
+    for name in params.names():
+        assert not np.array_equal(params.get(name), start[name]), name
+        np.testing.assert_allclose(params.get(name),
+                                   np.asarray(jparams.get(name)), rtol=0,
+                                   atol=TOL, err_msg=name)

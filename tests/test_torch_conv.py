@@ -330,3 +330,41 @@ def test_out_size_and_pool_pads_match_jax():
             assert conv_ops._pool_pads((size, size), (window, window),
                                        (stride, stride), (pad, pad),
                                        ceil) == want
+
+
+# ResNet-50's stride-1 convs (k, C, F, H=W), as chip_smoke.py's RESNET_CONVS
+RESNET_STRIDE1 = [(1, 64, 64, 57), (3, 64, 64, 57), (1, 64, 256, 57),
+                  (1, 256, 64, 57), (3, 128, 128, 29), (1, 128, 512, 29),
+                  (1, 512, 128, 29), (3, 256, 256, 15), (1, 256, 1024, 15),
+                  (1, 1024, 256, 15), (3, 512, 512, 8), (1, 512, 2048, 8),
+                  (1, 2048, 512, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c,f,hw", RESNET_STRIDE1 + [(3, 8, 8, 5)])
+def test_bwdw_plan_covers_every_position_once(dtype, k, c, f, hw):
+    """K8's planner at batch 64: the tensor-core path for bfloat16, the
+    CUDA cores for float32; S ranges of a whole number of chunks partition
+    the N*H*W positions, none empty; the workspace holds exactly S partial
+    dW tiles (none when S = 1)."""
+    n = 64
+    plan = ck.bwdw_plan(n, hw, hw, c, f, k, dtype)
+    assert plan == ck.bwdw_plan(n, hw, hw, c, f, k, dtype)
+    assert plan["path"] == ("tc_bf16" if dtype == torch.bfloat16
+                            else "simt_f32")
+    positions = n * hw * hw
+    per, s = plan["positions_per_split"], plan["splits"]
+    assert per % plan["positions_per_chunk"] == 0
+    assert (s - 1) * per < positions <= s * per
+    assert plan["workspace"] == (s * k * k * c * f if s > 1 else 0)
+    assert ck.bwdw_splits(n, hw, hw, c, f, k, dtype) == s
+    cols = plan["filters_per_tile"]
+    assert cols == (128 if dtype == torch.bfloat16 and f >= 128 else 64)
+    tiles = -(-k * k * c // 128) * -(-f // cols)
+    assert s == 1 or tiles * s <= (4 if dtype == torch.float32 else 2) * 132 \
+        + tiles
+
+
+def test_bwdw_plan_refuses_other_dtypes():
+    with pytest.raises(Exception, match="float32 or bfloat16"):
+        ck.bwdw_plan(1, 4, 4, 8, 8, 3, torch.float16)

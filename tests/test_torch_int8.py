@@ -136,3 +136,74 @@ def test_reset_launches():
     assert ik.launches >= 2
     ik.reset_launches()
     assert ik.launches == 0
+
+
+# -- the kernel's planner: a pure function of (M, K, N, dtype) --------------
+
+# chip_smoke.py's INT8_CASES: the int8 flagship's products at buckets 32 and
+# 1, ResNet-50's fc at buckets 32, 8 and 1, the mlp's products, an odd shape
+INT8_CASES = [(2048, 128, 1024), (2048, 256, 1024), (32, 256, 2),
+              (64, 128, 1024), (1, 256, 2), (32, 2048, 1000),
+              (8, 2048, 1000), (1, 2048, 1000), (8, 784, 128), (8, 128, 64),
+              (8, 64, 10), (3, 37, 129)]
+
+
+def _k_ranges(plan, k):
+    per = plan["k_per_split"]
+    return [(s * per, min(k, (s + 1) * per)) for s in range(plan["splits"])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_CASES)
+def test_plan_path_and_split_cover_k_once(dtype, m, k, n):
+    """Split-K for M <= 32, else the tensor cores in bfloat16 and the CUDA
+    cores in float32; the K ranges partition [0, K), none empty; the
+    workspace holds exactly S partial [M, N] tiles (none when S = 1)."""
+    plan = ik.int8_plan(m, k, n, dtype)
+    want = ("splitk" if m <= 32
+            else "tc_bf16" if dtype == torch.bfloat16 else "simt_f32")
+    assert plan["path"] == want
+    assert plan == ik.int8_plan(m, k, n, dtype)  # no hidden state
+    ranges = _k_ranges(plan, k)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0]
+               for i in range(len(ranges) - 1))
+    s = plan["splits"]
+    assert plan["workspace"] == (s * m * n if s > 1 else 0)
+    if want == "splitk":
+        assert plan["k_per_split"] % 32 == 0
+        assert m <= plan["row_tile"] in (16, 32)
+        # column tiles x S: at most about three blocks per SM of 132
+        assert -(-n // plan["col_tile"]) * s <= 3 * 132 + -(-n // 64)
+    else:
+        assert s == 1 and plan["k_per_split"] == k
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_plan_spreads_resnet50_fc_over_the_card(m):
+    """ResNet-50's fc (K 2048, N 1000): 16 column tiles x S blocks fill the
+    132 SMs about three times over, each block a few chunks of K."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ik.int8_plan(m, 2048, 1000, dtype)
+        assert plan["path"] == "splitk"
+        assert plan["row_tile"] == (16 if m <= 16 else 32)
+        assert 2 * 132 <= 16 * plan["splits"] <= 3 * 132
+        assert plan["k_per_split"] <= 128
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (32, 784, 128),
+                                   (3, 37, 129), (1, 256, 2)])
+def test_split_k_order_matches_the_reference(m, k, n):
+    """The split-K path's arithmetic in plain PyTorch: each K range's float32
+    partial, added in the order s = 0, 1, ..., S-1, matches the plain
+    version within 1e-6 of max(1, max |y|) (float32)."""
+    x, q, scale = _port(*_case(m, k, n, seed=m + k + n))
+    plan = ik.int8_plan(m, k, n, torch.float32)
+    w = q.float() * scale
+    total = torch.zeros((m, n))
+    for a, b in _k_ranges(plan, k):
+        total = total + torch.matmul(x[:, a:b], w[a:b])
+    want = ik.int8_matmul_reference(x, q, scale)
+    err = float((total - want).abs().max())
+    assert err <= 1e-6 * max(1.0, float(want.abs().max()))

@@ -250,8 +250,8 @@ def test_conv_kernels_match_plain_versions_on_card(cuda_device, dtype, tol,
     torch.cuda.synchronize()
     assert (ck.launches, ck.bwdw_launches) == (before[0] + 2, before[1] + 1)
     assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
-    assert ck.conv2d_same_bwd_filter.last_launch["splits"] == \
-        ck.bwdw_splits(n, h, w, c, f, k)
+    assert ck.conv2d_same_bwd_filter.last_launch["grid_splits"] == \
+        ck.bwdw_splits(n, h, w, c, f, k, dtype)
     assert _rel_err(y, ck.conv2d_same_reference(x, wk)) <= tol
     assert _rel_err(dx, ck.conv2d_same_reference(dy, w_t)) <= tol
     assert _rel_err(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)) \
@@ -312,3 +312,67 @@ def test_int8_matmul_kernel_matches_plain_version_on_card(cuda_device, dtype,
     # lead dimensions flatten into one launch
     y3 = ik.int8_matmul(x.reshape(1, m, k), w_q, scale)
     assert ik.launches == before + 2 and torch.equal(y3[0], y)
+
+
+def _int8_case(device, dtype, m, k, n):
+    rng = np.random.RandomState(m + k + n)
+    w = rng.randn(k, n) / np.sqrt(k)
+    scale = np.abs(w).max(0) / 127.0
+    w_q = np.clip(np.rint(w / scale), -127, 127).astype(np.int8)
+    return (torch.tensor(rng.randn(m, k), dtype=dtype, device=device),
+            torch.tensor(w_q, device=device),
+            torch.tensor(scale, dtype=torch.float32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n", [2, 129, 1000])
+@pytest.mark.parametrize("k", [37, 2048])
+@pytest.mark.parametrize("m", [1, 3, 33, 2048])
+def test_int8_matmul_paths_at_awkward_shapes_on_card(cuda_device, dtype, tol,
+                                                     m, k, n):
+    """Each of K9's three paths (split-K for M <= 32, the tensor cores for
+    bfloat16 and the CUDA cores for float32 above) at ragged M, K and N,
+    against the plain version (as above), one launch per call, and a
+    repeat that is bit-identical (split-K sums its partials in a fixed
+    order, no atomics)."""
+    x, w_q, scale = _int8_case(cuda_device, dtype, m, k, n)
+    before = ik.launches
+    y = ik.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    plan = ik.int8_matmul.last_launch
+    assert ik.launches == before + 1
+    assert plan["path"] == ik.int8_plan(m, k, n, dtype)["path"]
+    assert plan["grid_splits"] == plan["splits"]
+    want = ik.int8_matmul_reference(x, w_q, scale)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err / max(1.0, want.float().abs().max().item()) <= tol
+    again = ik.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(again, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,f,k", [(64, 29, 29, 128, 512, 1),
+                                         (64, 15, 15, 256, 256, 3)])
+def test_bwd_filter_paths_on_card_repeat_bit_identical(cuda_device, dtype,
+                                                       n, h, w, c, f, k):
+    """K8's tensor-core path (bfloat16) and CUDA-core path (float32) at a
+    ResNet-50 1x1 and 3x3 shape at batch 64: within 1e-4 of max(1, max
+    |plain|) (both sum float32, in another order), split as planned, and a
+    repeat bit-identical (fixed-order second pass, no atomics)."""
+    x, _, dy = _conv_inputs(cuda_device, dtype, n, h, w, c, f, k)
+    dw = ck.conv2d_same_bwd_filter(x, dy, k)
+    torch.cuda.synchronize()
+    plan = ck.conv2d_same_bwd_filter.last_launch
+    assert plan["path"] == ("tc_bf16" if dtype == torch.bfloat16
+                            else "simt_f32")
+    assert plan["grid_splits"] == plan["splits"]
+    assert plan["grid_positions"] == plan["positions_per_split"]
+    assert _rel_err(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)) \
+        <= 1e-4
+    again = ck.conv2d_same_bwd_filter(x, dy, k)
+    torch.cuda.synchronize()
+    assert torch.equal(again, dw)
