@@ -20,7 +20,10 @@ result line:
            (T, B, H) = (100, 64, 256) (the training bench row), (64, 8,
            256), (100, 64, 1280) (the wide row) and (32, 128, 1280) (row
            chunks), float32 and bfloat16; cuDNN's LSTM forward + backward
-           for information.
+           for information. Each row names the layout the planner chose
+           (unit tiles at H=256; W tiles at H=1280, resident in bfloat16,
+           streamed from L2 in float32), which is held, and a repeat of
+           every call is bit-identical.
 5. serve   the flagship text classifier at full width (vocab 30000, emb
            128, 2 x LSTM 256, 2 classes, random weights from a numpy seed)
            exported as a bundle, served by the batching engine and over
@@ -64,13 +67,15 @@ result line:
            ResNet-50 at batch 64 (and at N=1, and C=F=8 at an odd width),
            float32 and bfloat16: errors, CUDA-event times, the bound, and
            the time of F.conv2d (cuDNN, TF32 off), which computes the same
-           function.
+           function. Each row names the path (tensor cores in bfloat16,
+           CUDA cores in float32), which is held, and a repeat of every
+           call is bit-identical.
 14. kernel_conv_bwd  the data gradient (K7 on the flipped, transposed
            weight) and conv2d_same_bwd_filter (csrc/conv2d_same_bwdw.cu, K8)
            the same way, with aten.convolution_backward as the library
-           time of each; K8 runs its tensor-core path in bfloat16 and its
-           CUDA-core path in float32 (each row names the path), and a
-           repeat of every K8 call is bit-identical. Then the 46-conv sums
+           time of each; K7 and K8 run their tensor-core paths in bfloat16
+           and their CUDA-core paths in float32 (each row names the path),
+           and a repeat of every call is bit-identical. Then the 46-conv sums
            of K7, its data gradient and K8 in float32 and bfloat16 (cuDNN
            in the same dtype as the library).
 15. serve_resnet  ResNet-50 at full size (224x224, 1000 classes, random
@@ -99,7 +104,9 @@ result line:
            bfloat16 and CUDA cores for float32 above); each path runs at
            least once, and a repeat of every call is bit-identical. Then
            one line of readings: K9 at ResNet-50's fc against the library,
-           and K8's bfloat16 sum against its float32 sum.
+           K8's bfloat16 sum against its float32 sum, K7's sums and the
+           LSTM backward at (100, 64, 1280) and (100, 64, 256) against the
+           targets of their redesign (reported, not held).
 18. serve_flagship_int8  the full-width flagship exported with
            quantize="int8" (buckets 1/8/32, seq_len 64), a burst of 12
            requests of 1-8 rows through the engine and 2 HTTP requests,
@@ -114,7 +121,8 @@ result line:
            0.05; the argmax agreement reported, not held), exactly 1 K9 and
            46 K7 launches per dispatched batch, the resident bytes and
            the time of one bucket-8 forward, fp and int8.
-20. kernels one entry per TPU kernel the port replaced, then the card's
+20. kernels one entry per TPU kernel the port replaced (the redesigned
+           ones with the paths or layouts they ran), then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -181,6 +189,10 @@ KERNEL_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256), (100, 64, 1280)]
 CHUNKED_CASES = [(32, 128, 1280)]
 BWD_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 1280)]
 BWD_CHUNKED_CASES = [(32, 128, 1280)]
+# the backward's layout by hidden size (ops/lstm_kernels.bwd_plan)
+BWD_LAYOUTS = {256: "unit_tiles", 1280: "w_tiles"}
+# widths at which both backward layouts are timed (T=100, B=64)
+BWD_LAYOUT_WIDTHS = [256, 512, 768, 1280]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, H1280_STEPS = 64, 100, 20, 5
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
@@ -223,6 +235,11 @@ CONV_CASES = ([(RESNET_BATCH, hw, hw, c, f, k)
 # (2^-8 relative) apart. K8 returns float32 in both cases.
 TOL_CONV = {"float32": 1e-4, "bfloat16": 1e-2}
 TOL_CONV_BWDW = 1e-4
+# the targets of K7's redesign (46-conv sums at batch 64, forward and data
+# gradient alike) and of K4's at (100, 64, 1280) f32, reported beside the
+# measured times (not held: they are times)
+K7_TARGET_MS = {"float32": 14.6, "bfloat16": 3.6}
+K4_TARGET_MS = 6.0
 # K9 (M, K, N): the int8 flagship's three products at bucket 32 and seq_len
 # 64 and at bucket 1, ResNet-50's fc at buckets 32, 8 and 1, the mlp's three
 # products, and an odd shape
@@ -434,6 +451,28 @@ def phase_kernel_bwd(torch, lk):
             got = lk.lstm_seq_bwd(*args)
             torch.cuda.synchronize()
             launch = dict(lk.lstm_seq_bwd.last_launch)
+            # the planner's layout: unit tiles at H=256, W tiles at H=1280
+            # (resident in bfloat16, streamed from L2 in float32; (D) on the
+            # tensor cores in bfloat16 at more than 8 rows per launch)
+            want = BWD_LAYOUTS[hidden]
+            placement = ({"w_tiles": 4 if dtype == torch.bfloat16 else 3}
+                         .get(want))
+            dh_path = ({"w_tiles": "tc_bf16" if dtype == torch.bfloat16
+                        else "simt_f32"}.get(want))
+            if launch["layout"] != want or (
+                    placement is not None
+                    and (launch["w_placement"], launch["dh_path"])
+                    != (placement, dh_path)):
+                raise AssertionError("lstm_seq_bwd %s at H=%d ran layout %r "
+                                     "(placement %r, dh %r), not %r"
+                                     % (name, hidden, launch["layout"],
+                                        launch["w_placement"],
+                                        launch.get("dh_path"), want))
+            # partial sums in a fixed order: a repeat is the same bit for bit
+            if not all(torch.equal(a, b)
+                       for a, b in zip(lk.lstm_seq_bwd(*args), got)):
+                raise AssertionError("lstm_seq_bwd %s at %s: a repeat differs"
+                                     % (name, (steps, batch, hidden)))
             err = bwd_error(got, lk.lstm_seq_bwd_reference(*args))
             tol = TOL_BWD[name]
             ms = time_ms(torch, lambda: lk.lstm_seq_bwd(*args))
@@ -469,6 +508,47 @@ def phase_kernel_bwd(torch, lk):
             if not chunked:
                 results.append(row)
     return results
+
+
+def phase_kernel_bwd_layouts(torch, lk):
+    """Both layouts of the LSTM backward at (100, 64, H) for H across the
+    planner's switch (``BWD_LAYOUT_WIDTHS``), each held against the plain
+    version (TOL_BWD) and timed: the reading ``bwd_plan``'s switch from
+    unit tiles to W tiles at H=512 is set by. Reported, not held: times."""
+    rows = []
+    steps, batch = 100, 64
+    limits = lk.device_limits(torch.device(DEVICE))
+    for hidden in BWD_LAYOUT_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = bwd_inputs(torch, lk, steps, batch, hidden, dtype,
+                              SEED + 11 * hidden)
+            want = lk.lstm_seq_bwd_reference(*args)
+            row = {"phase": "kernel_bwd_layouts", "kernel": "lstm_seq_bwd",
+                   "T": steps, "B": batch, "H": hidden, "dtype": name,
+                   "tol": TOL_BWD[name],
+                   "planner": lk.bwd_plan(batch, hidden, dtype,
+                                          *limits)["layout"]}
+            plans = {"unit_tiles": {"layout": "unit_tiles", "code": 0},
+                     "w_tiles": lk.bwd_plan(batch, hidden, dtype, *limits,
+                                            min_hidden=0)}
+            for layout, plan in plans.items():
+                got = lk.lstm_seq_bwd(*args, plan=plan)
+                torch.cuda.synchronize()
+                launch = dict(lk.lstm_seq_bwd.last_launch)
+                err = bwd_error(got, want)
+                row[layout] = {
+                    "ms": time_ms(torch,
+                                  lambda p=plan: lk.lstm_seq_bwd(*args,
+                                                                 plan=p)),
+                    "max_abs_err": err, "launch": launch}
+                if launch["layout"] != layout or not err <= TOL_BWD[name]:
+                    raise AssertionError("lstm_seq_bwd %s layout %s at H=%d: "
+                                         "%r" % (name, layout, hidden, row))
+            row["faster"] = min(plans, key=lambda k: row[k]["ms"])
+            emit(row)
+            rows.append(row)
+    return rows
 
 
 def gru_bound_ms(steps, batch, hidden, dtype_name, backward=False):
@@ -1272,6 +1352,17 @@ def conv_row(phase, kernel, shape, name, err, tol, ms, plain_ms, library_ms,
                        launch)
 
 
+def check_k7(torch, ck, launch, y, args, name, shape):
+    """K7's path for the dtype (tensor cores in bfloat16, CUDA cores in
+    float32) and a bit-identical repeat (no split of K, no atomics)."""
+    want = "tc_bf16" if name == "bfloat16" else "simt_f32"
+    if launch["path"] != want:
+        raise AssertionError("K7 %s at %s ran path %r, not %r"
+                             % (name, shape, launch["path"], want))
+    if not torch.equal(ck.conv2d_same_fwd(*args), y):
+        raise AssertionError("K7 %s at %s: a repeat differs" % (name, shape))
+
+
 def phase_kernel_conv(torch, ck):
     """K7 at every stride-1 conv shape of ResNet-50 at batch 64."""
     results = []
@@ -1285,6 +1376,7 @@ def phase_kernel_conv(torch, ck):
             y = ck.conv2d_same_fwd(x, wk)
             torch.cuda.synchronize()
             launch = dict(ck.conv2d_same_fwd.last_launch)
+            check_k7(torch, ck, launch, y, (x, wk), name, shape)
             err = rel_error(y, ck.conv2d_same_reference(x, wk))
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(3, 2, 0, 1)
             results.append(conv_row(
@@ -1316,6 +1408,7 @@ def phase_kernel_conv_bwd(torch, ck):
             dx = ck.conv2d_same_fwd(dy, w_t)
             torch.cuda.synchronize()
             launch = dict(ck.conv2d_same_fwd.last_launch)
+            check_k7(torch, ck, launch, dx, (dy, w_t), name, shape)
             dw = ck.conv2d_same_bwd_filter(x, dy, k)
             torch.cuda.synchronize()
             launch_w = dict(ck.conv2d_same_bwd_filter.last_launch)
@@ -1462,22 +1555,41 @@ def phase_kernel_int8(torch, ik):
     return results
 
 
-def emit_redesign_readings(int8_cases, sums):
-    """The readings the K9 and K8 redesigns are judged by, measured in this
-    run and reported (not held: they are times): K9 at ResNet-50's fc
-    shapes against dequant + cuBLAS in both dtypes, and K8's bfloat16 sum
-    over the 46 convs against its float32 sum."""
+def emit_redesign_readings(int8_cases, bwd_cases, sums):
+    """The readings the redesigns are judged by, measured in this run and
+    reported (not held: they are times): K9 at ResNet-50's fc shapes
+    against dequant + cuBLAS in both dtypes; K8's bfloat16 sum over the 46
+    convs against its float32 sum; K7's sums (forward and data gradient)
+    against cuDNN in the same dtype and against the targets of its
+    redesign; the LSTM backward at (100, 64, 1280) (K4) and (100, 64, 256)
+    (K2)."""
     fc = [{"shape": c["shape"], "dtype": c["dtype"], "ms": c["ms"],
            "library_ms": c["library_ms"],
            "kernel_over_library": c["ms"] / c["library_ms"]}
           for c in int8_cases
           if tuple(c["shape"][1:]) == INT8_RESNET_FC[1:]]
     k8 = {d: sums[("bwdw", d)]["ms"] for d in ("float32", "bfloat16")}
+    k7 = {"%s_%s" % (which, d): {
+        "ms": sums[(which, d)]["ms"],
+        "library_ms": sums[(which, d)]["library_ms"],
+        "bound_ms": sums[(which, d)]["bound_ms"],
+        "target_ms": K7_TARGET_MS[d],
+        "met": sums[(which, d)]["ms"] <= K7_TARGET_MS[d]}
+        for which in ("fwd", "dgrad") for d in ("float32", "bfloat16")}
+    lstm = {"%s_h%d" % (c["dtype"], c["H"]): {
+        "ms": c["ms"], "bound_ms": c["bound_ms"],
+        "layout": c["launch"]["layout"],
+        "w_placement": c["launch"]["w_placement"],
+        "dh_path": c["launch"].get("dh_path")}
+        for c in bwd_cases if (c["T"], c["B"]) == (100, 64)}
     emit({"phase": "redesign_readings", "k9_resnet50_fc": fc,
           "k9_fc_no_slower_than_library": all(
               r["ms"] <= r["library_ms"] for r in fc),
           "k8_sum_ms": k8,
-          "k8_bf16_below_f32": k8["bfloat16"] < k8["float32"]})
+          "k8_bf16_below_f32": k8["bfloat16"] < k8["float32"],
+          "k7_sums": k7, "lstm_bwd": lstm,
+          "k4_f32_target_ms": K4_TARGET_MS,
+          "k4_f32_met": lstm["float32_h1280"]["ms"] <= K4_TARGET_MS})
 
 
 def int8_sum(cases, shapes, shape):
@@ -1855,7 +1967,7 @@ def phase_train_resnet(torch, ck, tmp):
     _, ms = train(torch, card64, full, timed=True)
     launches = check_conv_launches(ck, RESNET_STEPS, "resnet f32 training")
     profile = profile_steps(torch, card64, full[:2],
-                            kernels=("conv_fwd_kernel", "conv_bwdw"))
+                            kernels=("conv_fwd", "bwdw"))
     dtype_mod.set_mixed_precision("bfloat16")
     try:
         card16 = rig.trainer(DEVICE)
@@ -1911,7 +2023,7 @@ def phase_train_resnet(torch, ck, tmp):
 
 
 def kernel_entry(cases, name, replaces, launches, source, select=None,
-                 pick=None):
+                 pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
     float32 case ``pick`` chooses (default: the first) among the float32
     cases ``select`` keeps (default: all); max_abs_err is the largest over
@@ -1925,11 +2037,27 @@ def kernel_entry(cases, name, replaces, launches, source, select=None,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main.get("library_ms"), "shape": main["shape"]}
+            "library_ms": main.get("library_ms"), "shape": main["shape"],
+            **({"path": path} if path else {})}
+
+
+def conv_paths(cases, kernel):
+    """{dtype: the paths K7 or K8 ran at the 13 ResNet-50 shapes}."""
+    return {d: sorted({c["launch"]["path"] for c in cases
+                       if c["kernel"] == kernel and c["dtype"] == d})
+            for d in ("float32", "bfloat16")}
+
+
+def bwd_layouts(cases, hidden):
+    """{dtype: the LSTM backward's layout and W placement at ``hidden``}."""
+    return {c["dtype"]: "%s (placement %d%s)" % (
+        c["launch"]["layout"], c["launch"]["w_placement"],
+        ", dh %s" % c["launch"]["dh_path"] if "dh_path" in c["launch"]
+        else "") for c in cases if c["H"] == hidden}
 
 
 def recurrent_entry(cases, name, replaces, launches, hidden, source,
-                    batch=None):
+                    batch=None, path=None):
     """kernel_entry of a recurrent kernel: its cases at ``hidden``, the
     numbers of the batch the main path runs (default: the widest)."""
     cases = [dict(c, shape=[c["T"], c["B"], c["H"]]) for c in cases]
@@ -1937,7 +2065,8 @@ def recurrent_entry(cases, name, replaces, launches, hidden, source,
         cases, name, replaces, launches, source,
         select=lambda c: c["H"] == hidden,
         pick=lambda f32: (max(f32, key=lambda c: c["B"]) if batch is None
-                          else next(c for c in f32 if c["B"] == batch)))
+                          else next(c for c in f32 if c["B"] == batch)),
+        path=path)
 
 
 def main():
@@ -1973,13 +2102,14 @@ def main():
 
     cases = phase_kernel(torch, lk)
     bwd_cases = phase_kernel_bwd(torch, lk)
+    phase_kernel_bwd_layouts(torch, lk)
     gru_cases = phase_kernel_gru(torch, gk)
     gru_bwd_cases = phase_kernel_gru_bwd(torch, gk)
     conv_cases = phase_kernel_conv(torch, ck)
     conv_bwd_cases = phase_kernel_conv_bwd(torch, ck)
     int8_cases = phase_kernel_int8(torch, ik)
     sums = phase_network_sums(conv_cases, conv_bwd_cases)
-    emit_redesign_readings(int8_cases, sums)
+    emit_redesign_readings(int8_cases, bwd_cases, sums)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
@@ -2001,10 +2131,12 @@ def main():
                         wide["kernel_launches"], 1280, "lstm_seq_fwd"),
         recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:347",
-                        trained["bwd_launches"], 256, "lstm_seq_bwd"),
+                        trained["bwd_launches"], 256, "lstm_seq_bwd",
+                        path=bwd_layouts(bwd_cases, 256)),
         recurrent_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
                         "paddle_tpu/ops/pallas_kernels.py:456",
-                        trained_wide["bwd_launches"], 1280, "lstm_seq_bwd"),
+                        trained_wide["bwd_launches"], 1280, "lstm_seq_bwd",
+                        path=bwd_layouts(bwd_cases, 1280)),
         recurrent_entry(gru_cases, "gru_seq_fwd[K5,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:668",
                         tagger["kernel_launches"], 256, "gru_seq_fwd",
@@ -2015,15 +2147,20 @@ def main():
         kernel_entry([network_sum(conv_cases, "fwd")],
                      "conv2d_same_fwd[K7,resnet50_forward]",
                      "paddle_tpu/ops/pallas_conv.py:175",
-                     served_resnet["kernel_launches"], "conv2d_same_fwd"),
+                     served_resnet["kernel_launches"], "conv2d_same_fwd",
+                     path=conv_paths(conv_cases, "conv2d_same_fwd")),
         kernel_entry([network_sum(conv_bwd_cases, "dgrad")],
                      "conv2d_same_fwd[K7,resnet50_data_gradient]",
                      "paddle_tpu/ops/pallas_conv.py:175",
-                     trained_resnet["k7_launches"], "conv2d_same_fwd"),
+                     trained_resnet["k7_launches"], "conv2d_same_fwd",
+                     path=conv_paths(conv_bwd_cases,
+                                     "conv2d_same_fwd[data_gradient]")),
         kernel_entry([network_sum(conv_bwd_cases, "bwdw")],
                      "conv2d_same_bwd_filter[K8,resnet50_filter_gradient]",
                      "paddle_tpu/ops/pallas_conv.py:226",
-                     trained_resnet["k8_launches"], "conv2d_same_bwdw"),
+                     trained_resnet["k8_launches"], "conv2d_same_bwdw",
+                     path=conv_paths(conv_bwd_cases,
+                                     "conv2d_same_bwd_filter")),
         kernel_entry([int8_sum(int8_cases, INT8_FLAGSHIP_BATCH,
                                "the 3 int8 products of one served flagship "
                                "batch at bucket 32, seq_len 64 (float32)")],

@@ -25,11 +25,14 @@
 // dh0, dc0 are the final carries (gates' dtype); dpeep is f32. The weight
 // gradient hprev^T . dgates is one large GEMM the caller runs outside.
 //
-// Design: ONE cooperative launch per sequence over a persistent grid, as
-// the forward. Block (unit tile, batch tile) owns 32 hidden units (one per
-// lane) x R batch rows for the whole sequence; warp r keeps row r's
-// dh/dc carries and dpeep partial sums of its 32 units in registers. Per
-// step a block
+// Two layouts, picked by the caller's planner (ops/lstm_kernels.bwd_plan)
+// and recorded in info[2]; both are ONE cooperative launch per sequence
+// (or per row chunk) over a persistent grid.
+//
+// UNIT TILES (small H: K2 at H=256). Block (unit tile, batch tile) owns 32
+// hidden units (one per lane) x R batch rows for the whole sequence; warp r
+// keeps row r's dh/dc carries and dpeep partial sums of its 32 units in
+// registers. Per step a block
 //   (a) recomputes z for its 4 x 32 gate columns from hprev_t, which the
 //       forward saved (read-only here: no dependence between blocks): the
 //       hprev rows are staged in shared memory and K = H is split over the
@@ -50,25 +53,58 @@
 // Because (d) writes only the block's own units, the next step's (b) needs
 // no second barrier: one grid barrier per step. dpeep's per-row partials
 // are reduced inside the block in row order and written to
-// dpeep_part[first row of the tile, 3, H]; the caller sums that small
-// tensor over its rows (no float atomics: the result is deterministic).
-// The host picks R and the W placement so that the grid is co-resident
-// (both slices resident, then the column slice, then neither; resident
-// with the smallest R that fits, L2 with the largest), and splits a batch
-// too large for one co-resident grid into equal row chunks, one launch
-// each, in stream order.
+// dpeep_part[first row of the tile, 3, H]. The host picks R and the W
+// placement so that the grid is co-resident (both slices resident, then
+// the column slice, then neither; resident with the smallest R that fits,
+// L2 with the largest). At large H this layout has every batch tile read
+// both W slices every step: at H=1280 in f32, 320 blocks x 1.31 MB from L2
+// per step.
 //
-// What bounds it on this card: as the forward, the T steps are serially
-// dependent and one step's two GEMVs ([R, H] x [H, 128] and [R, 4H] x
-// [4H, 32] per block) are far too small to fill the card, so time is set by
-// per-step latency (the hprev staging, the K loops, the grid barrier, the
-// dz round trip through L2), not by HBM bytes or peak FLOPs. Resident W
-// slices take L2 round trips out of the K loops, the K split over 8 warps
-// cuts each loop's length by 8, and the per-step inputs are fetched before
-// the loops so that their latency hides behind them. At H=1280 both W
-// slices stream from L2 every step; cp.async/TMA staging of those, tensor
-// cores, and overlapping (a) of step t-1 with the barrier of step t come
-// next.
+// W TILES (large H: K4 at H=1280). W [H, 4H] is cut into a 2-D grid of
+// tiles, unit range x gate-column range (at H=1280: 8 x 16 tiles of 160
+// units x 320 columns, 128 blocks), and block (unit tile, column tile) owns
+// one tile for the whole sequence and serves ALL rows of the launch with
+// it, so each byte of W is read once per step, by one block, from shared
+// memory (bfloat16: the tile stays resident, 128 KB at H=1280) or streamed
+// once per step from L2 through a 3-stage cp.async ring (float32: the 26 MB
+// of W and the staging every block needs exceed the card's shared memory,
+// but fit its 50 MB L2).
+//   (a) goes out of the recurrence: z_t depends only on the saved hprev, so
+//       a recompute pass before the cooperative launch writes z = gates +
+//       hprev . W in float32 for every step at once ([T*B, H] x [H, 4H], a
+//       tiled GEMM: bfloat16 on the tensor cores, mma.sync in 128 x 128
+//       tiles; float32 on the CUDA cores in 128 x 64 tiles of 8 x 8
+//       micro-tiles); its float32 workspace is the caller's.
+//   Per step: (C) the cell backward, one (row, unit) pair per thread slot
+//       of the whole grid (carries and dpeep sums in registers); its dh
+//       carry is dh_pass plus the column tiles' partials of the step
+//       before, summed in tile order; grid barrier; (D) each block stages
+//       dz_t's rows of its columns (L2-only loads) and forms the partial
+//       dh[b, u] = sum over its columns of dz[b, j] W[u, j] for every row b
+//       and unit u of its tile, written to the float32 workspace
+//       part[column tile, b, u] (float32, and bfloat16 launches of at most
+//       8 rows: f32 FMA on the CUDA cores, a warp takes 1 or 8 rows, a
+//       lane units lane + 32j for a compile-time count of j; bfloat16
+//       launches of 9-64 rows: mma.sync.m16n8k16 on the tensor cores, a
+//       warp one m16 tile of rows x half the tile's units); the
+//       next step's inputs of the cell are fetched; grid barrier.
+// Two barriers per step; the partials are summed in a fixed order by one
+// thread each: no float atomics, a repeat is the same bit for bit. dpeep
+// is written per (row, unit) to dpeep_part[b, 3, H].
+//
+// Both layouts split a batch too large for one grid (unit tiles: not
+// co-resident; W tiles: more than 64 rows or 4 pairs per thread slot) into
+// equal row chunks, one launch each, in stream order. The caller sums
+// dpeep_part over its rows (no float atomics: the result is deterministic).
+//
+// What bounds it on this card: the T steps are serially dependent. With
+// unit tiles a step is bound by latency (the hprev staging, the K loops,
+// the grid barrier, the dz round trip through L2) at small H, and by the
+// L2 traffic of the W slices at large H. With W tiles a step's work is
+// spread over 128 SMs: B*H*4H f32 FMAs of (D) (13.6 us per step at the
+// CUDA cores' peak at B=64, H=1280; in bfloat16 on the tensor cores, about
+// a microsecond) plus two grid barriers; the recompute is one GEMM at the
+// arithmetic rate.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,6 +114,9 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
+
+#include "sm90_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -456,6 +495,841 @@ void* pick_kernel(int mode, int rows) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// W tiles: the recompute pass, z = gates + hprev . W in float32 for every
+// step ([rows, H] x [H, 4H], rows = T * B), before the cooperative launch.
+
+constexpr int kZBM = 128;  // rows per block
+constexpr int kZBN = 64;   // gate columns per block
+constexpr int kZBK = 16;   // K chunk
+constexpr int kZThreads = 128;
+constexpr int kZALd = kZBM + 4;  // k-major A rows, 16-byte aligned
+
+__device__ __forceinline__ void load4_ro(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// float32: CUDA cores, 128 x 64 tiles, 8 x 8 micro-tiles. H % 8 == 0, so a
+// group of 4 K values or 4 columns is all inside or all outside; every row
+// of a [., H] or [., 4H] array starts 16-byte aligned.
+__global__ void __launch_bounds__(kZThreads)
+lstm_bwd_recompute(const float* __restrict__ gates,
+                   const float* __restrict__ hprev,
+                   const float* __restrict__ w_rec, float* __restrict__ z,
+                   int rows, int hidden) {
+  __shared__ __align__(16) float a_s[2][kZBK][kZALd];  // [k][row]
+  __shared__ __align__(16) float b_s[2][kZBK][kZBN];   // [k][column]
+  const int tid = threadIdx.x;
+  const int g4 = 4 * hidden;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kZBM;
+  const int n0 = blockIdx.y * kZBN;
+  const int n_chunks = (hidden + kZBK - 1) / kZBK;
+  // loaders: hprev row tid (16 K values); W row tid / 8, columns
+  // (tid % 8) * 4 and 32 + (tid % 8) * 4
+  const long long a_row = m0 + tid;
+  const bool a_ok = a_row < rows;
+  const int b_row = tid / 8;
+  const int b_col = (tid % 8) * 4;
+  float ra[kZBK], rb[8];
+  auto fetch = [&](int chunk) {
+    const int k0 = chunk * kZBK;
+#pragma unroll
+    for (int q = 0; q < kZBK / 4; ++q) {
+      const int k = k0 + 4 * q;
+      if (a_ok && k < hidden) {
+        load4_ro(hprev + a_row * hidden + k, ra + 4 * q);
+      } else {
+        ra[4 * q] = ra[4 * q + 1] = ra[4 * q + 2] = ra[4 * q + 3] = 0.f;
+      }
+    }
+    const int k = k0 + b_row;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + b_col + 32 * h;
+      if (k < hidden && col < g4) {
+        load4_ro(w_rec + static_cast<long long>(k) * g4 + col, rb + 4 * h);
+      } else {
+        rb[4 * h] = rb[4 * h + 1] = rb[4 * h + 2] = rb[4 * h + 3] = 0.f;
+      }
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < kZBK; ++kk) a_s[buf][kk][tid] = ra[kk];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(&b_s[buf][b_row][b_col + 32 * h]) =
+          make_float4(rb[4 * h], rb[4 * h + 1], rb[4 * h + 2], rb[4 * h + 3]);
+    }
+  };
+
+  // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns tx*4 + {0..3} and
+  // 32 + tx*4 + {0..3}
+  const int tx = tid % 8;
+  const int ty = tid / 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const int buf = chunk & 1;
+    if (chunk + 1 < n_chunks) fetch(chunk + 1);
+#pragma unroll
+    for (int kk = 0; kk < kZBK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(&a_s[buf][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&a_s[buf][kk][64 + ty * 4]);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(&b_s[buf][kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&b_s[buf][kk][32 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (chunk + 1 < n_chunks) stage(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long row = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 32 + tx * 4;
+      if (col >= g4) continue;
+      float gv[4];
+      load4_ro(gates + row * g4 + col, gv);
+      *reinterpret_cast<float4*>(z + row * g4 + col) =
+          make_float4(gv[0] + acc[i][4 * h], gv[1] + acc[i][4 * h + 1],
+                      gv[2] + acc[i][4 * h + 2], gv[3] + acc[i][4 * h + 3]);
+    }
+  }
+}
+
+// The recompute pass in bfloat16: tensor cores, mma.sync.m16n8k16 bf16 with
+// float32 accumulators (products of bf16 values are exact in float32, so z
+// sums as the float32 version does). 128 x 128 tiles of z, 8 warps of
+// 64 x 32, K in chunks of 32 through a 3-stage cp.async ring: hprev's rows
+// (ldmatrix) and W's k-major rows (ldmatrix.trans), rows padded by 16 bytes
+// so that ldmatrix is conflict-free.
+constexpr int kZtBM = 128;
+constexpr int kZtBN = 128;
+constexpr int kZtBK = 32;
+constexpr int kZtThreads = 256;
+constexpr int kZtStages = 3;
+constexpr int kZtALd = kZtBK + 8;  // 80-byte rows
+constexpr int kZtBLd = kZtBN + 8;  // 272-byte rows
+constexpr int kZtSmem = static_cast<int>(sizeof(__nv_bfloat16)) * kZtStages *
+                        (kZtBM * kZtALd + kZtBK * kZtBLd);
+
+__global__ void __launch_bounds__(kZtThreads)
+lstm_bwd_recompute_tc(const __nv_bfloat16* __restrict__ gates,
+                      const __nv_bfloat16* __restrict__ hprev,
+                      const __nv_bfloat16* __restrict__ w_rec,
+                      float* __restrict__ z, int rows, int hidden) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto a_s = reinterpret_cast<__nv_bfloat16(*)[kZtBM][kZtALd]>(smem_raw);
+  auto b_s = reinterpret_cast<__nv_bfloat16(*)[kZtBK][kZtBLd]>(
+      smem_raw + sizeof(__nv_bfloat16) * kZtStages * kZtBM * kZtALd);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g4 = 4 * hidden;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kZtBM;
+  const int n0 = blockIdx.y * kZtBN;
+  const int n_chunks = (hidden + kZtBK - 1) / kZtBK;
+  // loaders: K segment s (8 values) of hprev rows j and j + 64; W rows
+  // tid / 16 and 16 + tid / 16, 8 columns at (tid % 16) * 8
+  const int s = (tid % 4) * 8;
+  const int j = tid / 4;
+  const int wr = tid / 16;
+  const int wc = (tid % 16) * 8;
+  auto load = [&](int chunk) {
+    if (chunk < n_chunks) {
+      const int st = chunk % kZtStages;
+      const int k = chunk * kZtBK + s;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = m0 + j + 64 * h;
+        const bool ok = row < rows && k < hidden;
+        sm90::cp_async16(&a_s[st][j + 64 * h][s],
+                         ok ? hprev + row * hidden + k : hprev, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kr = chunk * kZtBK + wr + 16 * h;
+        const bool ok = kr < hidden && n0 + wc < g4;
+        sm90::cp_async16(
+            &b_s[st][wr + 16 * h][wc],
+            ok ? w_rec + static_cast<long long>(kr) * g4 + n0 + wc : w_rec,
+            ok ? 16 : 0);
+      }
+    }
+    sm90::cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  const int wm = (warp / 4) * 64;  // the warp's 64 rows x 32 columns
+  const int wn = (warp % 4) * 32;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+
+  load(0);
+  load(1);
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+    load(chunk + 2);
+    const int st = chunk % kZtStages;
+#pragma unroll
+    for (int ks = 0; ks < kZtBK; ks += 16) {
+      uint32_t a[4][4], b[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        sm90::ldmatrix_x4(
+            a[mt], &a_s[st][wm + mt * 16 + lane % 16][ks + (lane / 16) * 8]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        sm90::ldmatrix_x4_trans(
+            b[np], &b_s[st][ks + lane % 8 + ((lane / 8) % 2) * 8]
+                       [wn + np * 16 + (lane / 16) * 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          sm90::mma_bf16(acc[mt][nt], a[mt], b[nt / 2][(nt % 2) * 2],
+                         b[nt / 2][(nt % 2) * 2 + 1]);
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = m0 + wm + mt * 16 + g + h * 8;
+        const int col = n0 + wn + nt * 8 + t * 2;  // 4H % 32 == 0: col+1 too
+        if (row < rows && col < g4) {
+          const float2 gv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(gates + row * g4 +
+                                                       col));
+          *reinterpret_cast<float2*>(z + row * g4 + col) =
+              make_float2(gv.x + acc[mt][nt][2 * h],
+                          gv.y + acc[mt][nt][2 * h + 1]);
+        }
+      }
+}
+
+// the recompute pass of the W-tile layout: tensor cores for bfloat16, CUDA
+// cores for float32
+int launch_recompute(const float* gates, const float* hprev,
+                     const float* w_rec, float* z, int rows, int hidden,
+                     int /*device*/, cudaStream_t stream) {
+  const dim3 grid((rows + kZBM - 1) / kZBM, (4 * hidden + kZBN - 1) / kZBN);
+  lstm_bwd_recompute<<<grid, kZThreads, 0, stream>>>(
+      gates, hprev, w_rec, z, rows, hidden);
+  return static_cast<int>(cudaGetLastError());
+}
+
+std::mutex tc_smem_mutex;
+bool tc_smem_set[64];
+
+int launch_recompute(const __nv_bfloat16* gates, const __nv_bfloat16* hprev,
+                     const __nv_bfloat16* w_rec, float* z, int rows,
+                     int hidden, int device, cudaStream_t stream) {
+  {
+    // more than 48 KB of dynamic shared memory: the limit is raised once
+    // per device (the kernel has one shape)
+    std::lock_guard<std::mutex> lock(tc_smem_mutex);
+    if (device < 0 || device >= 64 || !tc_smem_set[device]) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          lstm_bwd_recompute_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kZtSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (device >= 0 && device < 64) tc_smem_set[device] = true;
+    }
+  }
+  const dim3 grid((rows + kZtBM - 1) / kZtBM,
+                  (4 * hidden + kZtBN - 1) / kZtBN);
+  lstm_bwd_recompute_tc<<<grid, kZtThreads, kZtSmem, stream>>>(
+      gates, hprev, w_rec, z, rows, hidden);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// W tiles: the recurrence.
+
+// The layout's constants and wt_smem_bytes have a copy in the caller's
+// planner (ops/lstm_kernels.py, _BWD_*), which a CPU test holds equal to
+// these.
+constexpr int kWtPairs = 4;   // (row, unit) pairs per thread slot, at most
+constexpr int kWtChunk = 32;  // W columns per chunk
+constexpr int kWtStages = 3;
+
+// elements of a 16-byte copy, and the W row pitch of a chunk in elements:
+// 144 bytes (float32) or 80 bytes (bfloat16), 16-byte aligned and free of
+// bank conflicts for a warp's 16-byte loads of 32 consecutive rows
+template <typename T>
+__host__ __device__ constexpr int wt_vec() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int wt_ld() {
+  return kWtChunk + wt_vec<T>();
+}
+
+// dz rows are staged in the gates' dtype at a pitch of cols + 16/esz
+// elements (16-byte aligned rows for cp.async)
+template <typename T>
+__host__ __device__ constexpr int wt_stage_pitch(int cols) {
+  return cols + wt_vec<T>();
+}
+
+template <typename T>
+int wt_smem_bytes(int units, int cols, int rows_per_warp, bool resident) {
+  const int chunks = cols / kWtChunk;
+  return static_cast<int>(sizeof(T)) *
+         ((resident ? chunks : kWtStages) * units * wt_ld<T>() +
+          kWarps * rows_per_warp * wt_stage_pitch<T>(cols));
+}
+
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// 4 consecutive staged dz values (a broadcast: every lane of a warp reads
+// the same row)
+__device__ __forceinline__ float4 load4_smem(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_smem(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// (D), one block's partial dh[b, u] = sum over its columns j of
+// dz[b, j] W[u, j], 32 columns (one chunk) at a time: ``wc`` is the chunk's
+// W rows (the tile's units, pitch wt_ld), ``st`` the staged dz rows (pitch
+// ``sp``), ``col`` the chunk's first column in the staging. ``store``
+// writes the block's partials to its column tile's slice of ``part``.
+//
+// DhSimt: f32 FMA on the CUDA cores; warp w takes rows wR .. wR + R - 1, a
+// lane units lane + 32 j (j < UJ).
+template <typename T, int R, int UJ>
+struct DhSimt {
+  float acc[R][UJ];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < UJ; ++j) acc[r][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void chunk(const T* wc, const T* st, int sp,
+                                        int col, int warp, int lane) {
+    constexpr int kVec = wt_vec<T>();
+    constexpr int kLd = wt_ld<T>();
+    const T* dz = st + warp * R * sp + col;
+#pragma unroll
+    for (int jj = 0; jj < kWtChunk; jj += kVec) {
+      float wv[UJ][kVec];
+#pragma unroll
+      for (int j = 0; j < UJ; ++j) {
+        load_vec(wc + (lane + 32 * j) * kLd + jj, wv[j]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int v = 0; v < kVec; v += 4) {
+          const float4 d = load4_smem(dz + r * sp + jj + v);
+#pragma unroll
+          for (int j = 0; j < UJ; ++j) {
+            acc[r][j] = fmaf(d.x, wv[j][v], acc[r][j]);
+            acc[r][j] = fmaf(d.y, wv[j][v + 1], acc[r][j]);
+            acc[r][j] = fmaf(d.z, wv[j][v + 2], acc[r][j]);
+            acc[r][j] = fmaf(d.w, wv[j][v + 3], acc[r][j]);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* pt, int batch, int hidden,
+                                        int u_base, int warp, int lane) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = warp * R + r;
+#pragma unroll
+      for (int j = 0; j < UJ; ++j) {
+        const int u = u_base + lane + 32 * j;
+        if (b < batch && u < hidden) {
+          pt[static_cast<size_t>(b) * hidden + u] = acc[r][j];
+        }
+      }
+    }
+  }
+};
+
+// DhMma: bfloat16 on the tensor cores, mma.sync.m16n8k16 with float32
+// accumulators (products of bf16 values are exact in float32), for 64
+// staged rows: warp w takes rows 16 (w % 4) .. + 15 (one m16 tile of dz)
+// and half w / 4 of the tile's units (2 UJ n8 tiles). A is dz (row major,
+// ldmatrix); B is W[u, j] with the reduction index j contiguous, which is
+// the "col" operand as it lies (ldmatrix without .trans). The rows' pitches
+// (80 bytes for W, 2 cols + 16 for dz) keep ldmatrix free of bank conflicts.
+template <int UJ>
+struct DhMma {
+  float acc[2 * UJ][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int n = 0; n < 2 * UJ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+
+  __device__ __forceinline__ void chunk(const __nv_bfloat16* wc,
+                                        const __nv_bfloat16* st, int sp,
+                                        int col, int warp, int lane) {
+    constexpr int kLd = wt_ld<__nv_bfloat16>();
+    const int wm = (warp % 4) * 16;
+    const int wn = (warp / 4) * 16 * UJ;
+    const int m = lane / 8;  // the 8 x 8 matrix this lane addresses
+#pragma unroll
+    for (int ks = 0; ks < kWtChunk; ks += 16) {
+      uint32_t a[4];
+      sm90::ldmatrix_x4(a, st + (wm + lane % 16) * sp + col + ks +
+                               (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < UJ; ++np) {
+        // n8 tiles 2np and 2np + 1, k 0-7 and 8-15 of each
+        uint32_t b[4];
+        sm90::ldmatrix_x4(b, wc + (wn + np * 16 + (m / 2) * 8 + lane % 8) *
+                                      kLd +
+                                  ks + (m % 2) * 8);
+        sm90::mma_bf16(acc[2 * np], a, b[0], b[1]);
+        sm90::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* pt, int batch, int hidden,
+                                        int u_base, int warp, int lane) {
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int wm = (warp % 4) * 16;
+    const int wn = (warp / 4) * 16 * UJ;
+#pragma unroll
+    for (int n = 0; n < 2 * UJ; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = wm + g + 8 * h;
+        const int u = u_base + wn + n * 8 + 2 * t;  // H % 8 == 0: u+1 too
+        if (b < batch && u < hidden) {
+          *reinterpret_cast<float2*>(pt + static_cast<size_t>(b) * hidden +
+                                     u) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+        }
+      }
+  }
+};
+
+// R: batch rows per warp (8R rows per launch at most); UJ: units per lane
+// (32 UJ units per tile; a compile-time count, so that no multiply-add is
+// issued for a unit a lane does not hold); kResident: the W tile stays in
+// shared memory for the sequence, else it streams from L2 once per step
+// through a 3-stage ring.
+template <typename T, int R, int UJ, bool kResident>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_wtiles(const float* __restrict__ z, const float* __restrict__ mask,
+                const T* __restrict__ w_rec, const float* __restrict__ peep,
+                const T* __restrict__ cprev, const T* __restrict__ c_seq,
+                const T* __restrict__ dh_seq, const T* __restrict__ dh_f,
+                const T* __restrict__ dc_f, T* dgates, T* __restrict__ dh0,
+                T* __restrict__ dc0, float* __restrict__ dpeep_part,
+                float* part, int steps, int batch, int stride, int hidden,
+                int units, int cols, int unit_tiles, int row_base) {
+  // batch: the rows of this launch; stride: the rows of the whole batch,
+  // the pitch of every [T, B, ...] array (the pointers start at this
+  // launch's first row, which is row ``row_base`` of the whole batch)
+  constexpr int kVec = wt_vec<T>();
+  constexpr int kLd = wt_ld<T>();
+  // (D) on the tensor cores in bfloat16 at 8 rows per warp, else on the
+  // CUDA cores
+  using Dh = typename std::conditional<
+      std::is_same<T, __nv_bfloat16>::value && R == 8, DhMma<UJ>,
+      DhSimt<T, R, UJ>>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::grid_group grid = cg::this_grid();
+  const int g4 = 4 * hidden;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int iu = blockIdx.x % unit_tiles;
+  const int ic = blockIdx.x / unit_tiles;
+  const int col_tiles = gridDim.x / unit_tiles;
+  const int u_base = iu * units;
+  const int c_base = ic * cols;
+  const int chunks = cols / kWtChunk;
+  const int sp = wt_stage_pitch<T>(cols);
+  T* w_s = reinterpret_cast<T*>(smem_raw);
+  T* st = w_s + static_cast<size_t>(kResident ? chunks : kWtStages) * units *
+                    kLd;
+
+  // chunk c of this block's W tile into slot ``slot``: rows u_base ..
+  // u_base + units - 1, columns c_base + 32 c .. (zeros past H and 4H)
+  auto load_w = [&](int c, int slot) {
+    constexpr int kSegs = kWtChunk / kVec;
+    const int col = c_base + c * kWtChunk;
+    for (int e = tid; e < units * kSegs; e += kThreads) {
+      const int r = e / kSegs;
+      const int sg = (e % kSegs) * kVec;
+      const bool ok = u_base + r < hidden && col + sg < g4;
+      sm90::cp_async16(
+          w_s + (static_cast<size_t>(slot) * units + r) * kLd + sg,
+          ok ? w_rec + static_cast<size_t>(u_base + r) * g4 + col + sg
+             : w_rec,
+          ok ? 16 : 0);
+    }
+    sm90::cp_async_commit();
+  };
+  if (kResident) {
+    for (int c = 0; c < chunks; ++c) load_w(c, c);
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // this thread slot's (row, unit) pairs of the cell backward
+  const int slots = gridDim.x * kThreads;
+  const int slot = blockIdx.x * kThreads + tid;
+  int pb[kWtPairs], pu[kWtPairs];
+  bool pok[kWtPairs];
+  float pi[kWtPairs], pf[kWtPairs], po[kWtPairs];
+  float dh_c[kWtPairs], dh_pass[kWtPairs], dc_c[kWtPairs];
+  float dp0[kWtPairs], dp1[kWtPairs], dp2[kWtPairs];
+  // the pairs' inputs of the next step, fetched ahead (before the barrier
+  // that precedes their use, so that their latency hides behind it)
+  float nz[kWtPairs][4], ncp[kWtPairs], ncs[kWtPairs], ndhs[kWtPairs];
+  bool nlive[kWtPairs];
+  auto prefetch = [&](int t) {
+    const size_t row_t = static_cast<size_t>(t) * stride;
+#pragma unroll
+    for (int i = 0; i < kWtPairs; ++i) {
+      if (!pok[i]) continue;
+      const size_t r = row_t + pb[i];
+      const float* zr = z + r * g4 + pu[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) nz[i][q] = __ldg(zr + q * hidden);
+      const size_t o = r * hidden + pu[i];
+      ncp[i] = load_ro(cprev + o);
+      ncs[i] = load_ro(c_seq + o);
+      ndhs[i] = load_ro(dh_seq + o);
+      nlive[i] = mask[r] > 0.f;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kWtPairs; ++i) {
+    const long long p = slot + static_cast<long long>(i) * slots;
+    pok[i] = p < static_cast<long long>(batch) * hidden;
+    pb[i] = pok[i] ? static_cast<int>(p / hidden) : 0;
+    pu[i] = pok[i] ? static_cast<int>(p % hidden) : 0;
+    pi[i] = pf[i] = po[i] = 0.f;
+    dh_c[i] = dh_pass[i] = dc_c[i] = 0.f;
+    dp0[i] = dp1[i] = dp2[i] = 0.f;
+    if (pok[i]) {
+      pi[i] = peep[pu[i]];
+      pf[i] = peep[hidden + pu[i]];
+      po[i] = peep[2 * hidden + pu[i]];
+      const size_t o = static_cast<size_t>(pb[i]) * hidden + pu[i];
+      dh_c[i] = to_f(dh_f[o]);
+      dc_c[i] = to_f(dc_f[o]);
+    }
+  }
+  // the dh carries: dh_pass plus the column tiles' partials of the step
+  // just done, summed in tile order (the loads of all pairs and of 4 tiles
+  // at a time are in flight together)
+  auto gather = [&]() {
+    float s[kWtPairs];
+#pragma unroll
+    for (int i = 0; i < kWtPairs; ++i) s[i] = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < col_tiles; ++q) {
+#pragma unroll
+      for (int i = 0; i < kWtPairs; ++i) {
+        if (pok[i]) {
+          s[i] += __ldcg(part + (static_cast<size_t>(q) * batch + pb[i]) *
+                                    hidden + pu[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWtPairs; ++i) dh_c[i] = dh_pass[i] + s[i];
+  };
+
+  prefetch(steps - 1);
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t row_t = static_cast<size_t>(t) * stride;
+    // (C) the cell backward of this slot's pairs
+    if (t < steps - 1) gather();
+#pragma unroll
+    for (int i = 0; i < kWtPairs; ++i) {
+      if (!pok[i]) continue;
+      const float cp = ncp[i];
+      const bool live = nlive[i];
+      const float ig = sigmoidf(nz[i][0] + cp * pi[i]);
+      const float fg = sigmoidf(nz[i][1] + cp * pf[i]);
+      const float gg = tanhf(nz[i][2]);
+      const float cn = fg * cp + ig * gg;
+      const float og = sigmoidf(nz[i][3] + cn * po[i]);
+      const float tc = tanhf(ncs[i]);
+      const float dh_tot = ndhs[i] + dh_c[i];
+      const float dh_eff = live ? dh_tot : 0.f;
+      const float dzo = dh_eff * tc * og * (1.f - og);
+      const float dc_eff = (live ? dc_c[i] : 0.f) +
+                           dh_eff * og * (1.f - tc * tc) + dzo * po[i];
+      const float dzi = dc_eff * gg * ig * (1.f - ig);
+      const float dzf = dc_eff * cp * fg * (1.f - fg);
+      const float dzg = dc_eff * ig * (1.f - gg * gg);
+      T* dg = dgates + (row_t + pb[i]) * g4 + pu[i];
+      dg[0] = from_f<T>(dzi);
+      dg[hidden] = from_f<T>(dzf);
+      dg[2 * hidden] = from_f<T>(dzg);
+      dg[3 * hidden] = from_f<T>(dzo);
+      dh_pass[i] = live ? 0.f : dh_tot;
+      dc_c[i] = dc_eff * fg + dzi * pi[i] + dzf * pf[i] +
+                (live ? 0.f : dc_c[i]);
+      dp0[i] += dzi * cp;
+      dp1[i] += dzf * cp;
+      dp2[i] += dzo * cn;
+    }
+    grid.sync();  // dz_t of every gate column complete everywhere
+
+    // (D) this tile's partial dh: dz_t's rows of the tile's columns staged
+    // by cp.async (an L2 read: other blocks wrote them this step; zeros past
+    // the launch's rows), then W chunks 0 and 1 in flight (ring)
+    {
+      constexpr int kSegs = 16 / static_cast<int>(sizeof(T));
+      const int segs = cols / kSegs;
+      for (int e = tid; e < kWarps * R * segs; e += kThreads) {
+        const int b = e / segs;
+        const int j = (e % segs) * kSegs;
+        const bool ok = b < batch && c_base + j < g4;
+        sm90::cp_async16(st + b * sp + j,
+                         ok ? dgates + (row_t + b) * g4 + c_base + j
+                            : dgates,
+                         ok ? 16 : 0);
+      }
+      sm90::cp_async_commit();
+    }
+    if (!kResident) {
+      load_w(0, 0);
+      if (chunks > 1) load_w(1, 1);
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    Dh dh;
+    dh.zero();
+    if (kResident) __syncthreads();  // the staged rows are visible
+    for (int c = 0; c < chunks; ++c) {
+      if (!kResident) {
+        // chunk c (and, the first time, the staged rows) has landed; the
+        // slot of chunk c - 1 is free
+        if (c + 1 < chunks) {
+          sm90::cp_async_wait<1>();
+        } else {
+          sm90::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (c + 2 < chunks) load_w(c + 2, (c + 2) % kWtStages);
+      }
+      dh.chunk(w_s + static_cast<size_t>(kResident ? c : c % kWtStages) *
+                         units * kLd,
+               st, sp, c * kWtChunk, warp, lane);
+    }
+    dh.store(part + static_cast<size_t>(ic) * batch * hidden, batch, hidden,
+             u_base, warp, lane);
+    if (t > 0) prefetch(t - 1);
+    __syncthreads();  // the staging and the ring are free for the next step
+    grid.sync();      // every tile's partials complete
+  }
+
+  gather();
+#pragma unroll
+  for (int i = 0; i < kWtPairs; ++i) {
+    if (!pok[i]) continue;
+    const size_t o = static_cast<size_t>(pb[i]) * hidden + pu[i];
+    dh0[o] = from_f<T>(dh_c[i]);
+    dc0[o] = from_f<T>(dc_c[i]);
+    float* dp =
+        dpeep_part + static_cast<size_t>(row_base + pb[i]) * 3 * hidden;
+    dp[pu[i]] = dp0[i];
+    dp[hidden + pu[i]] = dp1[i];
+    dp[2 * hidden + pu[i]] = dp2[i];
+  }
+}
+
+template <typename T, int R, int UJ>
+void* wt_kernel_res(bool resident) {
+  return resident ? reinterpret_cast<void*>(lstm_bwd_wtiles<T, R, UJ, true>)
+                  : reinterpret_cast<void*>(lstm_bwd_wtiles<T, R, UJ, false>);
+}
+
+template <typename T, int R>
+void* wt_kernel_uj(int units_per_lane, bool resident) {
+  switch (units_per_lane) {
+    case 2:
+      return wt_kernel_res<T, R, 2>(resident);
+    case 5:
+      return wt_kernel_res<T, R, 5>(resident);
+    default:
+      return wt_kernel_res<T, R, 8>(resident);
+  }
+}
+
+// rows per warp 1 (at most 8 rows per launch) or 8; units per lane 2, 5 or 8
+template <typename T>
+void* wt_kernel(int rows_per_warp, int units_per_lane, bool resident) {
+  return rows_per_warp == 1 ? wt_kernel_uj<T, 1>(units_per_lane, resident)
+                            : wt_kernel_uj<T, 8>(units_per_lane, resident);
+}
+
+std::mutex wt_mutex;
+std::map<std::tuple<int, int, int, int, bool, int>, bool> wt_fits;
+
+// The W-tile layout: the recompute pass over the whole batch, then one
+// cooperative launch per chunk of rows_per_launch rows. The tiling (units x
+// cols per tile), the rows per launch and the placement come from the
+// caller's planner; this checks that they fit (shared memory, the pair
+// slots, a co-resident grid).
+template <typename T>
+int launch_wtiles(const void* gates, const void* mask, const void* w_rec,
+                  const void* peep, const void* hprev, const void* cprev,
+                  const void* c_seq, const void* dh_seq, const void* dh_f,
+                  const void* dc_f, void* dgates, void* dh0, void* dc0,
+                  void* dpeep_part, void* zbuf, void* part, int steps,
+                  int batch, int hidden, int units, int cols,
+                  int rows_per_launch, bool resident, int device,
+                  cudaStream_t stream, int* info) {
+  const int uj = units / 32;
+  if (hidden % 8 != 0 || units % 32 != 0 || (uj != 2 && uj != 5 && uj != 8) ||
+      cols < kWtChunk || cols % kWtChunk != 0 ||
+      rows_per_launch < 1 || rows_per_launch > kWarps * 8 ||
+      zbuf == nullptr || part == nullptr) {
+    return kErrBadArgument;
+  }
+  int unit_tiles = (hidden + units - 1) / units;
+  const int col_tiles = (4 * hidden + cols - 1) / cols;
+  const int blocks = unit_tiles * col_tiles;
+  const int rpw = rows_per_launch <= kWarps ? 1 : 8;
+  if (static_cast<long long>(rows_per_launch) * hidden >
+      static_cast<long long>(kWtPairs) * blocks * kThreads) {
+    return kErrBadArgument;
+  }
+  const int smem = wt_smem_bytes<T>(units, cols, rpw, resident);
+  void* kern = wt_kernel<T>(rpw, uj, resident);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  {
+    std::lock_guard<std::mutex> lock(wt_mutex);
+    const auto key = std::make_tuple(static_cast<int>(sizeof(T)), units,
+                                     cols, rpw, resident, device);
+    auto it = wt_fits.find(key);
+    if (it == wt_fits.end()) {
+      int sms = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          kThreads, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      it = wt_fits.emplace(key, blocks <= per_sm * sms).first;
+    }
+    if (!it->second) return kErrNotCoResident;
+  }
+  info[0] = blocks;
+  info[1] = rpw * kWarps;
+  info[2] = resident ? 4 : 3;
+  info[3] = smem;
+  info[4] = rows_per_launch;
+  info[5] = 0;  // launches made
+  const int rc = launch_recompute(
+      static_cast<const T*>(gates), static_cast<const T*>(hprev),
+      static_cast<const T*>(w_rec), static_cast<float*>(zbuf), steps * batch,
+      hidden, device, stream);
+  if (rc != 0) return rc;
+  const T* w = static_cast<const T*>(w_rec);
+  const float* p = static_cast<const float*>(peep);
+  float* dpp = static_cast<float*>(dpeep_part);
+  float* pt = static_cast<float*>(part);
+  int stride = batch;
+  for (int row0 = 0; row0 < batch; row0 += rows_per_launch) {
+    int n = std::min(rows_per_launch, batch - row0);
+    const size_t hb = static_cast<size_t>(row0) * hidden;
+    const float* zb = static_cast<const float*>(zbuf) + 4 * hb;
+    const float* m = static_cast<const float*>(mask) + row0;
+    const T* cp = static_cast<const T*>(cprev) + hb;
+    const T* cs = static_cast<const T*>(c_seq) + hb;
+    const T* dhs = static_cast<const T*>(dh_seq) + hb;
+    const T* dhf = static_cast<const T*>(dh_f) + hb;
+    const T* dcf = static_cast<const T*>(dc_f) + hb;
+    T* dg = static_cast<T*>(dgates) + 4 * hb;
+    T* dh = static_cast<T*>(dh0) + hb;
+    T* dc = static_cast<T*>(dc0) + hb;
+    int base = row0;
+    void* args[] = {&zb,  &m,     &w,      &p,     &cp,     &cs,
+                    &dhs, &dhf,   &dcf,    &dg,    &dh,     &dc,
+                    &dpp, &pt,    &steps,  &n,     &stride, &hidden,
+                    &units, &cols, &unit_tiles, &base};
+    err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(kThreads),
+                                      args, smem, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++info[5];
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 struct Config {
   int mode;    // W placement, as pick_mode
   int rows;    // batch rows per block
@@ -521,12 +1395,13 @@ std::mutex config_mutex;
 std::map<std::tuple<int, int, int, int>, Config> config_cache;
 
 template <typename T>
-int launch(int dtype, const void* gates, const void* mask, const void* w_rec,
-           const void* w_rec_t, const void* peep, const void* hprev, const void* cprev,
-           const void* c_seq, const void* dh_seq, const void* dh_f,
-           const void* dc_f, void* dgates, void* dh0, void* dc0,
-           void* dpeep_part, int steps, int batch, int hidden, int device,
-           cudaStream_t stream, int* info) {
+int launch_unit_tiles(int dtype, const void* gates, const void* mask,
+                      const void* w_rec, const void* w_rec_t,
+                      const void* peep, const void* hprev, const void* cprev,
+                      const void* c_seq, const void* dh_seq, const void* dh_f,
+                      const void* dc_f, void* dgates, void* dh0, void* dc0,
+                      void* dpeep_part, int steps, int batch, int hidden,
+                      int device, cudaStream_t stream, int* info) {
   Config cfg{};
   {
     // the choice (and the kernel's shared-memory limit it sets) is made
@@ -601,22 +1476,34 @@ int launch(int dtype, const void* gates, const void* mask, const void* w_rec,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (gates, w_rec, w_rec_t, hprev, cprev,
-// c_seq, dh_seq, dh_f, dc_f, dgates, dh0, dc0); mask, peep and dpeep_part
-// are float32. w_rec_t is w_rec transposed, [4H, H] contiguous. dpeep_part is [B, 3, H], zero-filled by the caller: each batch
-// tile writes its partial sums at the row of its first batch row, and the
-// caller sums it over B. info receives {blocks of a full-chunk launch,
-// batch rows per block, W placement (2 both slices resident, 1 the column
-// slice, 0 neither), dynamic shared memory bytes, batch rows per launch,
-// launches made}.
+// c_seq, dh_seq, dh_f, dc_f, dgates, dh0, dc0); mask, peep, dpeep_part,
+// zbuf and part are float32. dpeep_part is [B, 3, H], zero-filled by the
+// caller, who sums it over B.
+// layout 0 = unit tiles: w_rec_t is w_rec transposed, [4H, H] contiguous;
+//   zbuf, part, units, cols, rows_per_launch and resident are not read
+//   (the grid and W placement are chosen here).
+// layout 1 = W tiles of ``units`` x ``cols`` (H % 8 == 0), at most
+//   ``rows_per_launch`` rows per launch, the tile resident in shared memory
+//   (resident 1) or streamed from L2; w_rec_t is not read; zbuf is a
+//   [T, B, 4H] workspace, part a [ceil(4H / cols), rows_per_launch, H] one.
+// info receives {blocks of a full-chunk launch, batch rows per block, W
+// placement (unit tiles: 2 both slices resident, 1 the column slice, 0
+// neither; W tiles: 3 streamed from L2, 4 resident), dynamic shared memory
+// bytes, batch rows per launch, launches made (cooperative launches; the
+// W-tile layout's recompute pass is part of the call's first)}.
 // Returns 0, a cudaError_t value, or one of the negative codes above.
 int lstm_seq_bwd(int dtype, const void* gates, const void* mask,
                  const void* w_rec, const void* w_rec_t, const void* peep,
                  const void* hprev, const void* cprev, const void* c_seq,
                  const void* dh_seq, const void* dh_f, const void* dc_f,
                  void* dgates, void* dh0, void* dc0, void* dpeep_part,
-                 int steps, int batch, int hidden, int device, void* stream,
-                 int* info) {
-  if (steps < 1 || batch < 1 || hidden < 1) return kErrBadArgument;
+                 void* zbuf, void* part, int steps, int batch, int hidden,
+                 int layout, int units, int cols, int rows_per_launch,
+                 int resident, int device, void* stream, int* info) {
+  if (steps < 1 || batch < 1 || hidden < 1 || (dtype != 0 && dtype != 1) ||
+      (layout != 0 && layout != 1)) {
+    return kErrBadArgument;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int coop = 0;
@@ -624,18 +1511,41 @@ int lstm_seq_bwd(int dtype, const void* gates, const void* mask,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return kErrNoCooperative;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == 1) {
+    if (dtype == 0) {
+      return launch_wtiles<float>(gates, mask, w_rec, peep, hprev, cprev,
+                                  c_seq, dh_seq, dh_f, dc_f, dgates, dh0,
+                                  dc0, dpeep_part, zbuf, part, steps, batch,
+                                  hidden, units, cols, rows_per_launch,
+                                  resident != 0, device, s, info);
+    }
+    return launch_wtiles<__nv_bfloat16>(
+        gates, mask, w_rec, peep, hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
+        dgates, dh0, dc0, dpeep_part, zbuf, part, steps, batch, hidden, units,
+        cols, rows_per_launch, resident != 0, device, s, info);
+  }
   if (dtype == 0) {
-    return launch<float>(dtype, gates, mask, w_rec, w_rec_t, peep, hprev,
-                         cprev, c_seq, dh_seq, dh_f, dc_f, dgates, dh0, dc0,
-                         dpeep_part, steps, batch, hidden, device, s, info);
+    return launch_unit_tiles<float>(dtype, gates, mask, w_rec, w_rec_t, peep,
+                                    hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
+                                    dgates, dh0, dc0, dpeep_part, steps,
+                                    batch, hidden, device, s, info);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(dtype, gates, mask, w_rec, w_rec_t, peep,
-                                 hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
-                                 dgates, dh0, dc0, dpeep_part, steps, batch,
-                                 hidden, device, s, info);
-  }
-  return kErrBadArgument;
+  return launch_unit_tiles<__nv_bfloat16>(
+      dtype, gates, mask, w_rec, w_rec_t, peep, hprev, cprev, c_seq, dh_seq,
+      dh_f, dc_f, dgates, dh0, dc0, dpeep_part, steps, batch, hidden, device,
+      s, info);
+}
+
+// The card's limits that the caller's planner (ops/lstm_kernels.bwd_plan)
+// sizes the W tiles by: out = {SM count, opt-in dynamic shared memory per
+// block in bytes}. Returns 0 or a cudaError_t value.
+int lstm_seq_bwd_limits(int device, int* out) {
+  cudaError_t err = cudaDeviceGetAttribute(
+      &out[0], cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  return static_cast<int>(err);
 }
 
 const char* lstm_seq_bwd_error_string(int code) {
@@ -646,7 +1556,8 @@ const char* lstm_seq_bwd_error_string(int code) {
     case kErrNoCooperative:
       return "device does not support cooperative launches";
     case kErrBadArgument:
-      return "bad argument (dtype code or an empty shape)";
+      return "bad argument (dtype or layout code, an empty shape, or a W "
+             "tiling the layout does not take)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -32,6 +32,9 @@ import torch
 from paddle_tpu_torch.utils.error import enforce
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the planners size their grids by the card's SM count (``sm_count``); this
+# is their default, an H100 SXM's, which the CPU tests plan for
+H100_SMS = 132
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -135,6 +138,12 @@ def check_args(what, lead, named):
                 x.dtype)
         enforce(x.device == lead.device, "%s is on %s, expected %s", name,
                 x.device, lead.device)
+
+
+def sm_count(dev):
+    """The SM count of the card ``dev``."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def aligned(t):

@@ -43,26 +43,38 @@ import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import DTYPE_CODES, aligned, launch
+from paddle_tpu_torch.ops._build import (DTYPE_CODES, H100_SMS, aligned,
+                                         launch, sm_count)
 from paddle_tpu_torch.utils.error import enforce
 
 launches = 0
 bwdw_launches = 0
 _count_lock = threading.Lock()
 
+# K7's two paths (csrc/conv2d_same_fwd.cu), by dtype: the tensor-core path
+# (bfloat16) takes 128 positions x 128 filters where F >= 128 and the grid
+# keeps at least ``min_blocks_per_sm`` blocks per SM (two: its blocks have
+# 256 threads), else 128 x 64; the CUDA-core path (float32) takes 128 (or
+# 64) positions x 64 filters, 64 where 128 would give fewer than four of
+# its 128-thread blocks per SM.
+_FWD_PATHS = {
+    torch.float32: {"path": "simt_f32", "code": 2, "min_blocks_per_sm": 4},
+    torch.bfloat16: {"path": "tc_bf16", "code": 1, "min_blocks_per_sm": 2},
+}
+
 # The filter-gradient kernel's two paths (csrc/conv2d_same_bwdw.cu), by
 # dtype: blocks of 128 dW rows x 64 filters (the tensor-core path: 128
 # filters where F >= 128), walking their range of positions in chunks; the
-# reduction is split into about ``target_blocks`` blocks in all (four blocks
-# per SM of an H100's 132 for the CUDA-core path, two for the tensor-core
-# path, whose blocks have twice the threads), at least ``min_positions``
-# positions in each split.
+# reduction is split into about ``target_blocks_per_sm`` blocks per SM in
+# all (four for the CUDA-core path, two for the tensor-core path, whose
+# blocks have twice the threads), at least ``min_positions`` positions in
+# each split.
 _ROWS_PER_TILE = 128
 _BWDW_PATHS = {
     torch.float32: {"path": "simt_f32", "code": 2, "chunk": 16,
-                    "target_blocks": 4 * 132, "min_positions": 256},
+                    "target_blocks_per_sm": 4, "min_positions": 256},
     torch.bfloat16: {"path": "tc_bf16", "code": 1, "chunk": 32,
-                     "target_blocks": 2 * 132, "min_positions": 512},
+                     "target_blocks_per_sm": 2, "min_positions": 512},
 }
 
 
@@ -175,10 +187,36 @@ def conv2d_same_bwd_filter_reference(x, dy, k):
     return dw
 
 
+def fwd_plan(n, height, width, f, dtype, sms=H100_SMS):
+    """K7's path and tile for an output of n * height * width positions x
+    f filters in ``dtype`` on a card of ``sms`` SMs, from the shapes and
+    dtype alone: ``path`` ("tc_bf16" or "simt_f32") and the positions and
+    filters per tile."""
+    enforce(dtype in _FWD_PATHS, "conv2d_same_fwd takes float32 or bfloat16 "
+            "inputs, got %s", dtype)
+    cfg = _FWD_PATHS[dtype]
+    min_blocks = cfg["min_blocks_per_sm"] * sms
+    positions = n * height * width
+
+    def blocks(rows, cols):
+        return -(-positions // rows) * -(-f // cols)
+
+    if cfg["path"] == "tc_bf16":
+        rows = 128
+        cols = 128 if f >= 128 and blocks(128, 128) >= min_blocks \
+            else 64
+    else:
+        cols = 64
+        rows = 128 if blocks(128, 64) >= min_blocks else 64
+    return {"path": cfg["path"], "positions_per_tile": rows,
+            "filters_per_tile": cols}
+
+
 def conv2d_same_fwd(x, w):
     """K7: the stride-1 SAME conv of x [N, H, W, C] with w [k, k, C, F]
     (see module docstring). After a kernel call, ``conv2d_same_fwd
-    .last_launch`` holds the grid the kernel used."""
+    .last_launch`` holds the plan (``fwd_plan``: path and tile) and the
+    grid the kernel used."""
     _check("conv2d_same_fwd", x, tuple(w.shape),
            ("w", w, tuple(w.shape)))
     dev = x.device
@@ -188,22 +226,26 @@ def conv2d_same_fwd(x, w):
             "tensors, got %s", dev)
     n, height, width, c = x.shape
     k, _, _, f = w.shape
+    plan = fwd_plan(n, height, width, f, x.dtype, sm_count(dev))
     y = torch.empty((n, height, width, f), dtype=x.dtype, device=dev)
     info = launch("conv2d_same_fwd", dev,
                   (aligned(x), aligned(w)), (y,),
-                  (n, height, width, c, f, k), _count_launches)
-    conv2d_same_fwd.last_launch = dict(zip(
-        ("filter_tiles", "position_tiles", "positions_per_tile",
-         "filters_per_tile", "smem_bytes", "launches"), info))
+                  (n, height, width, c, f, k, _FWD_PATHS[x.dtype]["code"],
+                   plan["filters_per_tile"], plan["positions_per_tile"]),
+                  _count_launches)
+    conv2d_same_fwd.last_launch = dict(plan, **dict(zip(
+        ("filter_tiles", "position_tiles", "grid_positions_per_tile",
+         "grid_filters_per_tile", "smem_bytes", "launches"), info)))
     return y
 
 
 conv2d_same_fwd.last_launch = None
 
 
-def bwdw_plan(n, height, width, c, f, k, dtype):
+def bwdw_plan(n, height, width, c, f, k, dtype, sms=H100_SMS):
     """K8's path and split for x [n, height, width, c] of ``dtype`` and
-    k x k taps, from the shapes and dtype alone: ``path`` ("tc_bf16" or
+    k x k taps on a card of ``sms`` SMs, from the shapes and dtype alone:
+    ``path`` ("tc_bf16" or
     "simt_f32"), the block tile, ``splits`` S contiguous ranges of
     ``positions_per_split`` positions (a multiple of the path's chunk;
     split s sums positions [s * per, min(P, (s + 1) * per)), every range
@@ -216,7 +258,7 @@ def bwdw_plan(n, height, width, c, f, k, dtype):
     rows = k * k * c
     cols = 128 if cfg["path"] == "tc_bf16" and f >= 128 else 64
     tiles = -(-rows // _ROWS_PER_TILE) * -(-f // cols)
-    want = max(1, min(-(-cfg["target_blocks"] // tiles),
+    want = max(1, min(-(-cfg["target_blocks_per_sm"] * sms // tiles),
                       positions // cfg["min_positions"]))
     chunk = cfg["chunk"]
     per = -(-(-(-positions // want)) // chunk) * chunk
@@ -250,7 +292,7 @@ def conv2d_same_bwd_filter(x, dy, k):
     enforce(dev.type == "cuda", "conv2d_same_bwd_filter runs on cuda or cpu "
             "tensors, got %s", dev)
     n, height, width, c = x.shape
-    plan = bwdw_plan(n, height, width, c, f, k, x.dtype)
+    plan = bwdw_plan(n, height, width, c, f, k, x.dtype, sm_count(dev))
     dw = torch.empty((k, k, c, f), dtype=torch.float32, device=dev)
     ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=dev)
     info = launch("conv2d_same_bwdw", dev,

@@ -50,8 +50,8 @@ import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import (DTYPE_CODES, aligned, check_args,
-                                         launch)
+from paddle_tpu_torch.ops._build import (DTYPE_CODES, H100_SMS, aligned,
+                                         check_args, launch, sm_count)
 from paddle_tpu_torch.utils.error import enforce
 
 launches = 0
@@ -79,8 +79,8 @@ def int8_matmul_reference(x, w_q, scale):
 
 
 SPLITK_MAX_M = 32
-# about three split-K blocks per SM of an H100 (132 SMs)
-_SPLITK_TARGET_BLOCKS = 3 * 132
+# about three split-K blocks per SM
+_SPLITK_BLOCKS_PER_SM = 3
 _SPLITK_COLS, _SPLITK_CHUNK = 64, 32
 _PATHS = {"splitk": 0, "tc_bf16": 1, "simt_f32": 2}
 
@@ -89,19 +89,19 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def int8_plan(m, k, n, dtype):
+def int8_plan(m, k, n, dtype, sms=H100_SMS):
     """The kernel's path and tiling for x [m, k] of ``dtype`` and w_q
-    [k, n], from the shapes and dtype alone: ``path`` ("splitk", "tc_bf16"
-    or "simt_f32"), ``row_tile`` and ``col_tile`` (the block's outputs),
-    ``splits`` S and ``k_per_split`` (split s sums k in [s *
-    k_per_split, min(k, (s + 1) * k_per_split)), every range non-empty),
-    and ``workspace`` (float32 entries of the partials, S * m * n, or 0
-    when S = 1)."""
+    [k, n] on a card of ``sms`` SMs, from the shapes and dtype alone:
+    ``path`` ("splitk", "tc_bf16" or "simt_f32"), ``row_tile`` and
+    ``col_tile`` (the block's outputs), ``splits`` S and ``k_per_split``
+    (split s sums k in [s * k_per_split, min(k, (s + 1) * k_per_split)),
+    every range non-empty), and ``workspace`` (float32 entries of the
+    partials, S * m * n, or 0 when S = 1)."""
     m, k, n = int(m), int(k), int(n)
     if m <= SPLITK_MAX_M:
         col_tiles = _ceil(n, _SPLITK_COLS)
         chunks = _ceil(k, _SPLITK_CHUNK)
-        want = min(chunks, _ceil(_SPLITK_TARGET_BLOCKS, col_tiles))
+        want = min(chunks, _ceil(_SPLITK_BLOCKS_PER_SM * sms, col_tiles))
         k_per_split = _ceil(chunks, want) * _SPLITK_CHUNK
         splits = _ceil(k, k_per_split)
         return {"path": "splitk", "row_tile": 16 if m <= 16 else 32,
@@ -139,7 +139,7 @@ def int8_matmul(x, w_q, scale):
     enforce(dev.type == "cuda", "int8_matmul runs on cuda or cpu tensors, "
             "got %s", dev)
     m = x2.shape[0]
-    plan = int8_plan(m, k, n, x.dtype)
+    plan = int8_plan(m, k, n, x.dtype, sm_count(dev))
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=dev)
     info = launch("int8_matmul", dev,

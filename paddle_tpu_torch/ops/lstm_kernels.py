@@ -24,8 +24,13 @@ function, which is also the oracle the kernel is held against.
 ``_vjp_bwd``): from the saved forward (hprev = [h0, h_seq[:-1]], cprev =
 [c0, c_seq[:-1]], c_seq) and the cotangents (dh_seq [T, B, H], dh_f, dc_f
 [B, H]) it gives dgates [T, B, 4H] and dh0, dc0 [B, H] in the gates' dtype
-and dpeep [3, H] in float32. Its kernel is csrc/lstm_seq_bwd.cu; on a CPU
-tensor it runs ``lstm_seq_bwd_reference``.
+and dpeep [3, H] in float32. Its kernel is csrc/lstm_seq_bwd.cu, in one
+of two layouts that ``bwd_plan`` picks from the shapes and dtype: unit
+tiles (small H: each block a slice of units x rows, W slices per block) or
+W tiles (large H: W cut into a grid of unit x gate-column tiles, each
+serving every row, after a recompute pass of z for all steps; in bfloat16
+each step's dz . W^T runs on the tensor cores); on a CPU tensor it runs
+``lstm_seq_bwd_reference``.
 
 ``LstmSeq`` is the autograd Function around the pair (the JAX package's
 ``lstm_fused`` custom VJP): its forward is ``lstm_seq_fwd``, its backward
@@ -34,11 +39,13 @@ outside the kernel. It runs the same way on both devices, so the CPU tests
 exercise the backward the card runs, not autograd through the plain loop.
 """
 
+import ctypes
 import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import check_args, launch
+from paddle_tpu_torch.ops._build import (H100_SMS, aligned, check_args,
+                                         launch, load)
 from paddle_tpu_torch.utils.error import enforce
 
 # kernel launches since the last reset, forward (``launches``) and backward
@@ -66,6 +73,113 @@ def _count_bwd_launches(n):
     global bwd_launches
     with _count_lock:
         bwd_launches += n
+
+
+# The backward's W-tile layout (csrc/lstm_seq_bwd.cu), for H >= 512 with
+# H % 8 == 0: tiles of ``units`` (32 x 2, 5 or 8: the kernel is compiled
+# for these units per lane) x ``cols`` (a multiple of 32) of W [H, 4H], one
+# block each, at most one block per SM; at most 64 rows per launch (8 warps
+# of 1 or 8 rows) and 4 (row, unit) pairs per thread slot of the grid's
+# 256-thread blocks. These constants and ``_wt_smem`` copy the kernel's
+# (kWtChunk, kWtStages, kWtPairs, kWarps, wt_smem_bytes);
+# tests/test_torch_lstm_bwd.py holds the two equal. The card's SM count
+# and shared memory per block come from the card (``device_limits``); the
+# defaults are an H100's, which the CPU tests plan for.
+H100_SMEM_OPTIN = 232448
+_BWD_MIN_HIDDEN = 512
+_BWD_WARPS = 8
+_BWD_MAX_ROWS = 8 * _BWD_WARPS
+_BWD_THREADS = 32 * _BWD_WARPS
+_BWD_PAIRS = 4
+_BWD_CHUNK = 32
+_BWD_STAGES = 3
+_BWD_UNITS_PER_LANE = (2, 5, 8)
+_limits = {}
+
+
+def _wt_smem(units, cols, rows, esz, resident):
+    """Shared memory of a W-tile block, in the gates' dtype: the W tile
+    (all its 32-column chunks, or a 3-chunk ring) at a pitch of 32 + 16/esz
+    elements, and the staged dz rows (8 warps x 1 or 8 rows, pitch cols +
+    16/esz)."""
+    per_warp = 1 if rows <= _BWD_WARPS else 8
+    chunks = cols // _BWD_CHUNK if resident else _BWD_STAGES
+    return esz * (chunks * units * (_BWD_CHUNK + 16 // esz)
+                  + _BWD_WARPS * per_warp * (cols + 16 // esz))
+
+
+def device_limits(dev):
+    """(SM count, opt-in shared memory per block in bytes) of the card
+    ``dev``, as the kernel's C side reads them."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _limits:
+        fn = load("lstm_seq_bwd").lstm_seq_bwd_limits
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 2)()
+        rc = fn(index, out)
+        enforce(rc == 0, "lstm_seq_bwd: reading the limits of cuda:%d "
+                "failed (code %d)", index, rc)
+        _limits[index] = (out[0], out[1])
+    return _limits[index]
+
+
+def bwd_plan(batch, hidden, dtype, sms=H100_SMS, smem=H100_SMEM_OPTIN,
+             min_hidden=_BWD_MIN_HIDDEN):
+    """The LSTM backward's layout for a batch of ``batch`` rows at
+    ``hidden`` units in ``dtype`` on a card of ``sms`` SMs and ``smem``
+    bytes of shared memory per block, from the shapes and dtype alone:
+    ``layout`` "unit_tiles" (the kernel then picks its grid and W placement
+    itself), or "w_tiles" with ``units`` x ``cols`` per tile (the fewest
+    multiply-adds per block, summed over the launches, among tilings of
+    at most ``sms`` tiles), the tile grid, ``rows_per_launch`` (equal
+    chunks of at most 64 rows), ``resident`` (the tile stays in shared
+    memory; else it streams from L2 once per step) and ``dh_path``, the
+    product of (D): "tc_bf16" (tensor cores: bfloat16 at more than 8 rows
+    per launch) or "simt_f32". W tiles need H >= ``min_hidden`` (unit tiles
+    are the faster layout below it) and H % 8 == 0; where no tiling's block
+    fits in ``smem`` even at one row (f32 at H >= 3200 on an H100), the
+    plan is unit tiles."""
+    enforce(dtype in (torch.float32, torch.bfloat16), "lstm_seq_bwd takes "
+            "float32 or bfloat16 inputs, got %s", dtype)
+    unit_tiles = {"layout": "unit_tiles", "code": 0}
+    if hidden < min_hidden or hidden % 8:
+        return unit_tiles
+    esz = 4 if dtype == torch.float32 else 2
+    g4 = 4 * hidden
+    best = None
+    for per_lane in _BWD_UNITS_PER_LANE:
+        units = 32 * per_lane
+        ku = -(-hidden // units)
+        if ku > sms:
+            continue
+        kc = sms // ku
+        cols = 32 * -(-g4 // (32 * kc))
+        kc = -(-g4 // cols)
+        # the least shared memory a block of this tiling takes (one row per
+        # warp): where even that does not fit, no row count does
+        if _wt_smem(units, cols, 1, esz, False) > smem:
+            continue
+        # more launches of fewer rows until both the pair slots and the
+        # staging fit; at 8 rows or fewer both do, so this ends
+        launches = -(-batch // _BWD_MAX_ROWS)
+        while True:
+            rows = -(-batch // launches)
+            if (rows * hidden <= _BWD_PAIRS * ku * kc * _BWD_THREADS
+                    and _wt_smem(units, cols, rows, esz, False) <= smem):
+                break
+            launches += 1
+        key = (launches * units * cols, ku * kc)
+        if best is None or key < best[0]:
+            best = (key, units, cols, ku, kc, rows)
+    if best is None:
+        return unit_tiles
+    _, units, cols, ku, kc, rows = best
+    return {"layout": "w_tiles", "code": 1, "units": units, "cols": cols,
+            "unit_tiles": ku, "col_tiles": kc, "rows_per_launch": rows,
+            "resident": _wt_smem(units, cols, rows, esz, True) <= smem,
+            "dh_path": ("tc_bf16" if esz == 2 and rows > _BWD_WARPS
+                        else "simt_f32")}
 
 
 def lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0):
@@ -206,11 +320,13 @@ lstm_seq_fwd.last_launch = None
 
 
 def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
-                 dh_seq, dh_f, dc_f):
+                 dh_seq, dh_f, dc_f, plan=None):
     """Masked peephole-LSTM backward over the whole sequence (see module
     docstring): -> dgates [T, B, 4H], dh0, dc0 [B, H], dpeep [3, H] f32.
-    After a kernel call, ``lstm_seq_bwd.last_launch`` holds the grid the
-    kernel chose and the number of launches it made."""
+    On a CUDA tensor ``plan`` is the layout to run (a ``bwd_plan`` result;
+    None: ``bwd_plan``'s choice for this card). After a kernel call,
+    ``lstm_seq_bwd.last_launch`` holds the plan, the grid the kernel chose
+    and the number of launches it made."""
     args = (gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
             dh_seq, dh_f, dc_f)
     _check_bwd(*args)
@@ -224,18 +340,35 @@ def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
     dgates = torch.empty_like(gates_tm)
     dh0 = torch.empty((batch, hidden), dtype=gates_tm.dtype, device=dev)
     dc0 = torch.empty_like(dh0)
-    # one [3, H] partial per batch tile, at the row of its first batch row
+    # [3, H] partials by row: one per batch tile (unit tiles, at the row of
+    # its first batch row) or one per row (W tiles)
     dpeep_part = torch.zeros((batch, 3, hidden), dtype=torch.float32,
                              device=dev)
-    # W transposed ([4H, H]) beside W: the kernel's dz . W^T loop reads it
-    # coalesced
-    w_t = w_rec.t().contiguous()
-    info = launch("lstm_seq_bwd", dev, args[:3] + (w_t,) + args[3:],
-                   (dgates, dh0, dc0, dpeep_part), (steps, batch, hidden),
-                   _count_bwd_launches)
-    lstm_seq_bwd.last_launch = dict(zip(
+    if plan is None:
+        plan = bwd_plan(batch, hidden, gates_tm.dtype, *device_limits(dev))
+    if plan["layout"] == "w_tiles":
+        # z of every step (float32) and the column tiles' dh partials
+        w_t = w_rec
+        zbuf = torch.empty((steps, batch, g4), dtype=torch.float32,
+                           device=dev)
+        part = torch.empty((plan["col_tiles"], plan["rows_per_launch"],
+                            hidden), dtype=torch.float32, device=dev)
+        tiling = (plan["units"], plan["cols"], plan["rows_per_launch"],
+                  int(plan["resident"]))
+    else:
+        # W transposed ([4H, H]) beside W: the unit-tile layout's dz . W^T
+        # loop reads it coalesced
+        w_t = w_rec.t().contiguous()
+        zbuf = part = torch.empty((0,), dtype=torch.float32, device=dev)
+        tiling = (0, 0, 0, 0)
+    info = launch("lstm_seq_bwd", dev,
+                  tuple(aligned(a) for a in args[:3] + (w_t,) + args[3:]),
+                  (dgates, dh0, dc0, dpeep_part, zbuf, part),
+                  (steps, batch, hidden, plan["code"]) + tiling,
+                  _count_bwd_launches)
+    lstm_seq_bwd.last_launch = dict(plan, **dict(zip(
         ("blocks", "rows_per_block", "w_placement", "smem_bytes",
-         "rows_per_launch", "launches"), info))
+         "grid_rows_per_launch", "launches"), info)))
     return dgates, dh0, dc0, dpeep_part.sum(dim=0)
 
 

@@ -368,3 +368,70 @@ def test_bwdw_plan_covers_every_position_once(dtype, k, c, f, hw):
 def test_bwdw_plan_refuses_other_dtypes():
     with pytest.raises(Exception, match="float32 or bfloat16"):
         ck.bwdw_plan(1, 4, 4, 8, 8, 3, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c,f,hw", RESNET_STRIDE1 + [(3, 8, 8, 5)])
+def test_fwd_plan_at_resnet50_shapes(dtype, k, c, f, hw):
+    """K7's planner at batch 64, for the forward (F outputs) and the data
+    gradient (C outputs): the tensor-core path for bfloat16 in 128-position
+    tiles, 128 filters only where F >= 128 and the grid keeps two blocks
+    per SM; the CUDA cores for float32 in 64 filters, 64-position tiles
+    where 128 would give fewer than four blocks per SM."""
+    n = 64
+    positions = n * hw * hw
+    for cols in (f, c):
+        plan = ck.fwd_plan(n, hw, hw, cols, dtype)
+        assert plan == ck.fwd_plan(n, hw, hw, cols, dtype)
+
+        def blocks(rows, filters):
+            return -(-positions // rows) * -(-cols // filters)
+
+        if dtype == torch.bfloat16:
+            assert plan["path"] == "tc_bf16"
+            assert plan["positions_per_tile"] == 128
+            wide = cols >= 128 and blocks(128, 128) >= 2 * 132
+            assert plan["filters_per_tile"] == (128 if wide else 64)
+        else:
+            assert plan["path"] == "simt_f32"
+            assert plan["filters_per_tile"] == 64
+            assert plan["positions_per_tile"] == (
+                128 if blocks(128, 64) >= 4 * 132 else 64)
+    # the stage-2 convs of 57 x 57 keep 128-position tiles in both dtypes;
+    # stage 4's 3x3 at 8 x 8 is small enough for 64-filter (bf16) and
+    # 64-position (f32) tiles
+    if hw == 57:
+        assert ck.fwd_plan(n, hw, hw, f, dtype)["positions_per_tile"] == 128
+    if (k, c, f, hw) == (3, 512, 512, 8):
+        plan = ck.fwd_plan(n, hw, hw, f, dtype)
+        assert (plan["positions_per_tile"], plan["filters_per_tile"]) == \
+            ((128, 64) if dtype == torch.bfloat16 else (64, 64))
+
+
+@pytest.mark.parametrize("sms", [60, 114, 264])
+def test_conv_plans_follow_the_cards_sm_count(sms):
+    """K7's and K8's planners size their grids by the card's SM count: at
+    60 SMs stage 4's 3x3 (8 x 8, batch 64) keeps 128-filter
+    (bf16) and 128-position (f32) tiles, as K7's rule gives for that count;
+    K8's split keeps about its blocks per SM."""
+    n, hw, k, c, f = 64, 8, 3, 512, 512
+    positions = n * hw * hw
+    bf = ck.fwd_plan(n, hw, hw, f, torch.bfloat16, sms)
+    f32 = ck.fwd_plan(n, hw, hw, f, torch.float32, sms)
+    assert bf["filters_per_tile"] == (
+        128 if -(-positions // 128) * -(-f // 128) >= 2 * sms else 64)
+    assert f32["positions_per_tile"] == (
+        128 if -(-positions // 128) * -(-f // 64) >= 4 * sms else 64)
+    if sms == 60:
+        assert (bf["filters_per_tile"], f32["positions_per_tile"]) == \
+            (128, 128)
+    for dtype, per_sm in ((torch.float32, 4), (torch.bfloat16, 2)):
+        plan = ck.bwdw_plan(n, 15, 15, 256, 256, 3, dtype, sms)
+        tiles = -(-9 * 256 // 128) * -(-256 // plan["filters_per_tile"])
+        assert plan["splits"] == 1 or \
+            tiles * plan["splits"] <= per_sm * sms + tiles
+
+
+def test_fwd_plan_refuses_other_dtypes():
+    with pytest.raises(Exception, match="float32 or bfloat16"):
+        ck.fwd_plan(1, 4, 4, 8, torch.float16)

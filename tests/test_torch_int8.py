@@ -192,6 +192,16 @@ def test_plan_spreads_resnet50_fc_over_the_card(m):
         assert plan["k_per_split"] <= 128
 
 
+@pytest.mark.parametrize("sms", [66, 114, 264])
+def test_plan_split_follows_the_cards_sm_count(sms):
+    """The split-K planner fills about three blocks per SM of the card it is
+    given, at ResNet-50's fc (16 column tiles): more splits on more SMs."""
+    plan = ik.int8_plan(8, 2048, 1000, torch.float32, sms)
+    assert 16 * plan["splits"] <= 3 * sms + 16
+    assert plan["splits"] > ik.int8_plan(8, 2048, 1000, torch.float32,
+                                         sms // 2)["splits"]
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (32, 784, 128),
                                    (3, 37, 129), (1, 256, 2)])
 def test_split_k_order_matches_the_reference(m, k, n):

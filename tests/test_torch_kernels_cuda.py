@@ -71,16 +71,19 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("batch,hidden", [(3, 40), (64, 256), (64, 1280),
-                                          (128, 1280)])
+@pytest.mark.parametrize("batch", [1, 3, 8, 64, 128])
+@pytest.mark.parametrize("hidden", [40, 256, 1280])
 def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
                                                   batch, hidden):
-    """The backward kernel against its plain version on the card: dgates,
-    dh0, dc0 absolute, dpeep (a sum over B and T) relative to its size.
-    The tolerance covers the different summation order of both GEMVs (and,
-    in bfloat16, a flipped rounding of dz feeding through the dh carry).
-    B=128 at H=1280 needs more blocks than one co-resident grid holds, so
-    the wrapper runs it as several launches of row chunks."""
+    """The backward kernel against its plain version on the card, with
+    ragged masks (lengths T, 0, 1 and random): dgates, dh0, dc0 absolute,
+    dpeep (a sum over B and T) relative to its size. The tolerance covers
+    the different summation order of both GEMVs (and, in bfloat16, a
+    flipped rounding of dz feeding through the dh carry). The layout is
+    ``bwd_plan``'s: unit tiles at H=40 and 256, W tiles at H=1280 (resident
+    in bfloat16, streamed from L2 in float32), where B=128 runs as two
+    launches of 64 rows. A repeat is bit-identical (partial sums in a fixed
+    order, no atomics)."""
     rng = np.random.RandomState(hidden + batch)
     steps = 20
     lens = rng.randint(0, steps + 1, batch)
@@ -101,12 +104,23 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
     before = lk.bwd_launches
     got = lk.lstm_seq_bwd(*args)
     torch.cuda.synchronize()
-    launch = lk.lstm_seq_bwd.last_launch
+    launch = dict(lk.lstm_seq_bwd.last_launch)
     assert lk.bwd_launches == before + launch["launches"]
     if batch <= 64:
         assert launch["launches"] == 1, launch
     if hidden == 1280 and batch == 128:
-        assert launch["launches"] >= 2, launch
+        assert launch["launches"] == 2, launch
+    plan = lk.bwd_plan(batch, hidden, dtype)
+    assert launch["layout"] == plan["layout"] == (
+        "w_tiles" if hidden == 1280 else "unit_tiles")
+    if plan["layout"] == "w_tiles":
+        assert plan["resident"] == (dtype == torch.bfloat16)
+        assert launch["w_placement"] == (4 if plan["resident"] else 3)
+        # (D) on the tensor cores in bfloat16 at more than 8 rows a launch
+        assert launch["dh_path"] == ("tc_bf16" if dtype == torch.bfloat16
+                                     and batch > 8 else "simt_f32")
+    else:
+        assert launch["w_placement"] in (0, 1, 2)
     want = lk.lstm_seq_bwd_reference(*args)
     for name, g, w in zip(("dgates", "dh0", "dc0"), got[:3], want[:3]):
         assert g.dtype == dtype
@@ -115,6 +129,56 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
     scale = float(want[3].abs().max())
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=tol * scale,
                                msg=lambda m: "dpeep: %s" % m)
+    again = lk.lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch", [8, 64])
+@pytest.mark.parametrize("hidden", [3200, 4096, 8192])
+def test_bwd_kernel_at_wide_hidden_on_card(cuda_device, dtype, tol, batch,
+                                           hidden):
+    """The backward at widths where a W tile of 2 units per lane fits no
+    row count (H=3200, 4096) and, in float32, where no W tile fits at all
+    (H=8192: unit tiles): the planner's layout runs, agrees with the plain
+    version (as test_bwd_kernel_matches_plain_version_on_card) and repeats
+    bit for bit. Inputs from a seeded generator on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hidden + batch)
+    steps = 2
+
+    def randn(*shape, scale=0.5, dt=dtype):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).to(dt)
+
+    seq = (steps, batch, hidden)
+    mask = torch.ones((steps, batch), device=cuda_device)
+    mask[1, : batch // 2] = 0.0
+    args = (randn(steps, batch, 4 * hidden), mask,
+            randn(hidden, 4 * hidden, scale=hidden ** -0.5),
+            randn(3, hidden, scale=0.3, dt=torch.float32),
+            torch.tanh(randn(*seq, scale=1.0)), randn(*seq), randn(*seq),
+            randn(*seq), randn(batch, hidden), randn(batch, hidden))
+    plan = lk.bwd_plan(batch, hidden, dtype,
+                       *lk.device_limits(cuda_device))
+    got = lk.lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    launch = dict(lk.lstm_seq_bwd.last_launch)
+    assert launch["layout"] == plan["layout"] == (
+        "unit_tiles" if hidden == 8192 and dtype == torch.float32
+        else "w_tiles"), launch
+    want = lk.lstm_seq_bwd_reference(*args)
+    for name, g, w in zip(("dgates", "dh0", "dc0"), got[:3], want[:3]):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol,
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
+    scale = float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=tol * scale,
+                               msg=lambda m: "dpeep: %s" % m)
+    again = lk.lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 def _gru_inputs(rng, device, dtype, steps, batch, hidden):
@@ -206,11 +270,16 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
 
 
 # (N, H, W, C, F, k): ResNet-50 stage shapes at a small batch, N=1, the
-# narrowest channels at odd sizes, and a stage-4 3x3 at batch 64
+# narrowest channels at odd sizes, a stage-4 3x3 at batch 64; and for K7's
+# tiles: C=F=8 at 17x23 (one 16-byte bfloat16 copy is a whole tap), F=192
+# (not a multiple of 128) in 128-filter tiles, and ResNet-50's widest 1x1
+# at batch 64
 CONV_SHAPES = [(2, 57, 57, 64, 64, 3), (2, 57, 57, 64, 256, 1),
                (2, 29, 29, 512, 128, 1), (1, 8, 8, 2048, 512, 1),
                (1, 15, 15, 256, 256, 3), (3, 7, 5, 8, 8, 3),
-               (2, 9, 11, 8, 24, 1), (64, 15, 15, 256, 256, 3)]
+               (2, 9, 11, 8, 24, 1), (64, 15, 15, 256, 256, 3),
+               (1, 57, 57, 64, 64, 3), (64, 17, 23, 8, 8, 3),
+               (64, 29, 29, 128, 192, 1), (64, 8, 8, 512, 2048, 1)]
 
 
 def _conv_inputs(device, dtype, n, h, w, c, f, k):
@@ -240,7 +309,9 @@ def test_conv_kernels_match_plain_versions_on_card(cuda_device, dtype, tol,
     the card, each relative to max(1, its largest |entry|). Both sum in
     float32 in another order; in bfloat16 the output's one rounding can
     land one bfloat16 step apart (2^-8 = 3.9e-3 relative). K8's output is
-    float32 in both cases: 1e-4."""
+    float32 in both cases: 1e-4. K7 runs the path and tile of
+    ``fwd_plan`` (tensor cores in bfloat16, CUDA cores in float32), and a
+    repeat of each K7 call is bit-identical (no split of K, no atomics)."""
     x, wk, dy = _conv_inputs(cuda_device, dtype, n, h, w, c, f, k)
     before = (ck.launches, ck.bwdw_launches)
     y = ck.conv2d_same_fwd(x, wk)
@@ -256,6 +327,16 @@ def test_conv_kernels_match_plain_versions_on_card(cuda_device, dtype, tol,
     assert _rel_err(dx, ck.conv2d_same_reference(dy, w_t)) <= tol
     assert _rel_err(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)) \
         <= 1e-4
+    for out, inp, weight, cols in ((y, x, wk, f), (dx, dy, w_t, c)):
+        assert torch.equal(ck.conv2d_same_fwd(inp, weight), out)
+        torch.cuda.synchronize()
+        launch = ck.conv2d_same_fwd.last_launch
+        plan = ck.fwd_plan(n, h, w, cols, dtype)
+        assert launch["path"] == plan["path"] == (
+            "tc_bf16" if dtype == torch.bfloat16 else "simt_f32")
+        assert (launch["grid_positions_per_tile"],
+                launch["grid_filters_per_tile"]) == (
+            plan["positions_per_tile"], plan["filters_per_tile"])
 
 
 @pytest.mark.cuda
@@ -376,3 +457,4 @@ def test_bwd_filter_paths_on_card_repeat_bit_identical(cuda_device, dtype,
     again = ck.conv2d_same_bwd_filter(x, dy, k)
     torch.cuda.synchronize()
     assert torch.equal(again, dw)
+

@@ -225,3 +225,122 @@ def test_kernel_branch_gradients_come_only_from_the_function(monkeypatch):
     hprev = np.concatenate([x["h0"][None], h_seq[:-1].numpy()])
     want = np.repeat(2.0 * hprev.reshape(-1, 8).sum(0)[:, None], 32, axis=1)
     np.testing.assert_allclose(w, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 8, 64, 128])
+@pytest.mark.parametrize("hidden", [40, 256, 1280])
+def test_bwd_plan_layouts_at_the_lstm_shapes(dtype, batch, hidden):
+    """The backward's planner: unit tiles below H=512 (K2 at the flagship's
+    256, the odd test width 40); at H=1280 (K4, the wide row) W tiles of 160
+    units x 320 gate columns, 8 x 16 = 128 blocks (one per SM), at most 64
+    rows per launch (128 rows as two launches), the tile resident in shared
+    memory in bfloat16 (128 KB) and streamed from L2 in float32, (D) on the
+    tensor cores in bfloat16 launches of more than 8 rows, and every
+    block's shared memory within the card's 227 KB."""
+    plan = lk.bwd_plan(batch, hidden, dtype)
+    assert plan == lk.bwd_plan(batch, hidden, dtype)
+    if hidden < 512:
+        assert plan == {"layout": "unit_tiles", "code": 0}
+        return
+    assert plan["layout"] == "w_tiles" and plan["code"] == 1
+    assert (plan["units"], plan["cols"]) == (160, 320)
+    assert (plan["unit_tiles"], plan["col_tiles"]) == (8, 16)
+    assert plan["unit_tiles"] * plan["units"] >= hidden
+    assert plan["col_tiles"] * plan["cols"] >= 4 * hidden
+    assert plan["rows_per_launch"] == min(batch, 64)
+    assert -(-batch // plan["rows_per_launch"]) == (2 if batch == 128 else 1)
+    assert plan["resident"] == (dtype == torch.bfloat16)
+    assert plan["dh_path"] == ("tc_bf16" if dtype == torch.bfloat16
+                               and plan["rows_per_launch"] > 8
+                               else "simt_f32")
+    esz = 4 if dtype == torch.float32 else 2
+    assert lk._wt_smem(plan["units"], plan["cols"], plan["rows_per_launch"],
+                       esz, plan["resident"]) <= 232448
+
+
+def _check_w_tiles(plan, batch, hidden, dtype, sms, smem):
+    """A W-tile plan covers W with at most ``sms`` tiles of 32 x 2, 5 or 8
+    units and a multiple of 32 gate columns, holds each launch's pairs
+    within 4 per thread slot, and fits each block in ``smem`` bytes; a
+    unit-tile plan only where no tiling fits at one row per warp."""
+    esz = 4 if dtype == torch.float32 else 2
+    if plan["layout"] == "unit_tiles":
+        for per_lane in (2, 5, 8):
+            ku = -(-hidden // (32 * per_lane))
+            if ku > sms:
+                continue
+            cols = 32 * -(-4 * hidden // (32 * (sms // ku)))
+            assert lk._wt_smem(32 * per_lane, cols, 1, esz, False) > smem
+        return
+    assert plan["units"] // 32 in (2, 5, 8) and plan["cols"] % 32 == 0
+    assert plan["unit_tiles"] * plan["col_tiles"] <= sms
+    assert plan["unit_tiles"] * plan["units"] >= hidden
+    assert plan["col_tiles"] * plan["cols"] >= 4 * hidden
+    rows = plan["rows_per_launch"]
+    assert 1 <= rows <= min(batch, 64)
+    assert rows * hidden <= 4 * 256 * plan["unit_tiles"] * plan["col_tiles"]
+    assert lk._wt_smem(plan["units"], plan["cols"], rows, esz,
+                       plan["resident"]) <= smem
+    assert plan["dh_path"] == ("tc_bf16" if esz == 2 and rows > 8
+                               else "simt_f32")
+
+
+@pytest.mark.parametrize("hidden", [512, 1000, 2048, 3200, 4096, 8192])
+def test_bwd_plan_w_tiles_cover_w_and_fit(hidden):
+    """W tiles at other widths, up to those where a float32 tile of 2 units
+    per lane fits no row count (H=3200: 50 x 2 tiles of 6400 columns) and
+    where none fits (float32 at H=8192: unit tiles): every plan ends, and
+    is a W-tile plan that covers W and fits (_check_w_tiles) or unit tiles
+    where no W tile fits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 8, 64, 128):
+            plan = lk.bwd_plan(batch, hidden, dtype)
+            assert plan == lk.bwd_plan(batch, hidden, dtype)
+            _check_w_tiles(plan, batch, hidden, dtype, 132, 232448)
+            if hidden <= 4096:
+                assert plan["layout"] == "w_tiles"
+    assert lk.bwd_plan(64, 8192, torch.float32)["layout"] == "unit_tiles"
+
+
+@pytest.mark.parametrize("sms,smem", [(114, 232448), (108, 166912),
+                                      (80, 101376)])
+@pytest.mark.parametrize("hidden", [512, 1280, 3200])
+def test_bwd_plan_follows_the_cards_limits(sms, smem, hidden):
+    """The planner sizes the tiles by the card's SM count and shared memory
+    per block (an H100 PCIe's 114 SMs, an A100's 108 and 163 KB, a smaller
+    card's 99 KB), not by an H100's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (8, 64):
+            plan = lk.bwd_plan(batch, hidden, dtype, sms, smem)
+            _check_w_tiles(plan, batch, hidden, dtype, sms, smem)
+
+
+def test_bwd_plan_constants_match_the_kernel():
+    """The planner's copy of the W-tile layout's constants equals the
+    kernel's (csrc/lstm_seq_bwd.cu), so that a change on one side cannot
+    leave the other planning another layout."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(lk.__file__), os.pardir, "csrc",
+                            "lstm_seq_bwd.cu")).read()
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+);" % name,
+                             src).group(1))
+
+    assert const("kWtChunk") == lk._BWD_CHUNK
+    assert const("kWtStages") == lk._BWD_STAGES
+    assert const("kWtPairs") == lk._BWD_PAIRS
+    assert const("kWarps") == lk._BWD_WARPS
+    # the units per lane the kernel is compiled for (wt_kernel_uj's cases)
+    body = src[src.index("void* wt_kernel_uj("):]
+    body = body[:body.index("\n}\n")]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", body)) + (8,) \
+        == lk._BWD_UNITS_PER_LANE
+    assert "wt_kernel_res<T, R, 8>" in body
+
+
+def test_bwd_plan_refuses_other_dtypes():
+    with pytest.raises(Exception, match="float32 or bfloat16"):
+        lk.bwd_plan(8, 1280, torch.float16)
