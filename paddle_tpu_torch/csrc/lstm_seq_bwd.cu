@@ -25,40 +25,81 @@
 // dh0, dc0 are the final carries (gates' dtype); dpeep is f32. The weight
 // gradient hprev^T . dgates is one large GEMM the caller runs outside.
 //
-// Two layouts, picked by the caller's planner (ops/lstm_kernels.bwd_plan)
-// and recorded in info[2]; both are ONE cooperative launch per sequence
-// (or per row chunk) over a persistent grid.
+// Three layouts, picked by the caller's planner (ops/lstm_kernels.bwd_plan)
+// from the shapes and dtype and recorded in info[2]. In all three the T
+// steps are serially dependent, and no float atomics are used: every sum
+// runs in a fixed order, so a repeat is the same bit for bit. The caller
+// sums dpeep_part over its rows.
 //
-// UNIT TILES (small H: K2 at H=256). Block (unit tile, batch tile) owns 32
-// hidden units (one per lane) x R batch rows for the whole sequence; warp r
-// keeps row r's dh/dc carries and dpeep partial sums of its 32 units in
-// registers. Per step a block
-//   (a) recomputes z for its 4 x 32 gate columns from hprev_t, which the
-//       forward saved (read-only here: no dependence between blocks): the
-//       hprev rows are staged in shared memory and K = H is split over the
-//       8 warps, each summing its K slice in f32 on CUDA cores, reading W's
-//       column slice [H, 128] from shared memory when it fits ("column
-//       resident") or from L2; the partial sums are reduced in a fixed order,
-//   (b) runs the cell backward for its units and rows (carries in
-//       registers, inputs of step t prefetched at the start of the step) and
-//       writes dz to dgates_t,
+// UNIT TILES (H % 8 != 0, or a width whose cluster does not fit). ONE
+// cooperative launch per sequence (or row chunk) over a persistent grid.
+// Block (unit tile, batch tile) owns 32 hidden units (one per lane) x R
+// batch rows for the whole sequence; warp r keeps row r's dh/dc carries and
+// dpeep partial sums of its 32 units in registers. Per step a block
+//   (a) recomputes z for its 4 x 32 gate columns from hprev_t (staged in
+//       shared memory; K = H split over the 8 warps against W's column
+//       slice [H, 128], from shared memory when it fits, else from L2; the
+//       partial sums reduced in a fixed order),
+//   (b) runs the cell backward for its units and rows and writes dz to
+//       dgates_t,
 //   (c) waits at the grid barrier (dz of every gate column is needed next),
 //   (d) forms the dh carry of its own units: dz_t rows of its batch tile
-//       are staged through shared memory in chunks of 1024 columns (L2-only
-//       loads: other blocks wrote them this step) and K = 4H is split over
-//       the warps against W's row slice [32, 4H], from shared memory when it
-//       fits ("row resident") or from L2. The caller passes W transposed
-//       as well ([4H, H]): the row slice is a column slice of W^T, so a
-//       warp's loads of it are coalesced, as in (a).
-// Because (d) writes only the block's own units, the next step's (b) needs
-// no second barrier: one grid barrier per step. dpeep's per-row partials
-// are reduced inside the block in row order and written to
-// dpeep_part[first row of the tile, 3, H]. The host picks R and the W
-// placement so that the grid is co-resident (both slices resident, then
-// the column slice, then neither; resident with the smallest R that fits,
-// L2 with the largest). At large H this layout has every batch tile read
-// both W slices every step: at H=1280 in f32, 320 blocks x 1.31 MB from L2
-// per step.
+//       staged through shared memory (L2-only loads: other blocks wrote
+//       them this step), K = 4H split over the warps against W's row slice
+//       [32, 4H] (a column slice of W^T, which the caller passes too), from
+//       shared memory when it fits.
+// dpeep's per-row partials are reduced inside the block in row order and
+// written to dpeep_part[first row of the tile, 3, H]. The host picks R and
+// the W placement so that the grid is co-resident. Bound on this card: at
+// small H by the step's serial latency (the hprev staging and K loop of
+// (a), the grid barrier over every block, the dz round trip through L2: at
+// H=256, B=64 8.5 us a step); at large H by the L2 traffic of the W slices
+// (every batch tile reads both every step). That latency is what the
+// cluster layout takes out; this layout stays for what it cannot take.
+//
+// CLUSTERS (K2: H % 8 == 0, H <= 32 x 16). The latency of unit tiles
+// comes from a step's exchange of dz running through L2 behind a barrier
+// over the whole grid, although batch rows never exchange anything: only
+// the units of one row do. So each batch tile is ONE thread-block cluster
+// of ceil(H / 32) blocks (8 at H=256; above 8 a non-portable size, up to
+// 16), one per unit tile, and clusters never wait for each other (no
+// cooperative launch: clusters that do not fit run later). Before the
+// launch, the recompute pass (seq_recompute.cuh: bfloat16 on the tensor
+// cores, float32 on the CUDA cores) writes z = gates + hprev . W for every
+// step into the float32 workspace, so (a) leaves the step loop and W's
+// column slice of (a) leaves shared memory. A block keeps
+// W's columns of its own units [4 x 32 gate columns, all H units] for the
+// sequence, in shared memory and, in clusters of at most 8 blocks, in
+// registers (float32: a thread's 128 values; bfloat16: the B fragments of
+// mma.sync.m16n8k16). Per step:
+//   (C) the cell backward of its R rows x 32 units from z_t (the step's
+//       inputs fetched one step ahead, two where (D) runs on the tensor
+//       cores); dz to dgates_t and round(dz) (float32, so that (D) widens
+//       nothing) to the block's own dz rows; a block barrier;
+//   (D) from its own 128 columns, the partial dh of every unit for its R
+//       rows, warp w taking units 32w .. 32w + 31 (and 32(w + 8) .. above
+//       8 tiles): float32 FMA on the CUDA cores, or bfloat16 on the tensor
+//       cores (products of bf16 values are exact in float32); the partials
+//       of a group of 32 units stored into the shared memory of the block
+//       that owns them (distributed shared memory: R x 32 values to each
+//       peer, a quarter of what exchanging dz would move);
+//   (B) one cluster barrier (arrive.release, the next inputs fetched,
+//       wait.acquire); the dh carry of the block's units is the partials
+//       of every block, summed in rank order.
+// The received partials are double-buffered by step parity, so one
+// cluster barrier a step is enough: a block stores into buffer t % 2 at
+// step t - 2 only after the barrier of step t - 1, which every peer reaches
+// after it has read that buffer at step t. A cluster barrier before the
+// loop (peers' shared memory exists) and one before exit (no peer
+// addresses a block that has left) frame it. R (rows per block: 1, 2, 4,
+// 5 or 8) is the smallest that keeps the batch's clusters co-resident,
+// from the card's count of active clusters (lstm_seq_bwd_limits: 15 of 8
+// on an H100 SXM, so B=64 runs as 13 clusters of 5 rows). Bound on this
+// card: the step is still serial, now on the latency of the cell, two
+// barriers (one of the block, one of the cluster over 8 SMs instead of a
+// grid barrier over 128) and the partials' round trip between SMs, plus
+// R x 128 x H FMAs per block in float32; the recompute is one GEMM at the
+// arithmetic rate.
 //
 // W TILES (large H: K4 at H=1280). W [H, 4H] is cut into a 2-D grid of
 // tiles, unit range x gate-column range (at H=1280: 8 x 16 tiles of 160
@@ -68,43 +109,28 @@
 // memory (bfloat16: the tile stays resident, 128 KB at H=1280) or streamed
 // once per step from L2 through a 3-stage cp.async ring (float32: the 26 MB
 // of W and the staging every block needs exceed the card's shared memory,
-// but fit its 50 MB L2).
-//   (a) goes out of the recurrence: z_t depends only on the saved hprev, so
-//       a recompute pass before the cooperative launch writes z = gates +
-//       hprev . W in float32 for every step at once ([T*B, H] x [H, 4H], a
-//       tiled GEMM: bfloat16 on the tensor cores, mma.sync in 128 x 128
-//       tiles; float32 on the CUDA cores in 128 x 64 tiles of 8 x 8
-//       micro-tiles); its float32 workspace is the caller's.
-//   Per step: (C) the cell backward, one (row, unit) pair per thread slot
-//       of the whole grid (carries and dpeep sums in registers); its dh
-//       carry is dh_pass plus the column tiles' partials of the step
-//       before, summed in tile order; grid barrier; (D) each block stages
-//       dz_t's rows of its columns (L2-only loads) and forms the partial
-//       dh[b, u] = sum over its columns of dz[b, j] W[u, j] for every row b
-//       and unit u of its tile, written to the float32 workspace
-//       part[column tile, b, u] (float32, and bfloat16 launches of at most
-//       8 rows: f32 FMA on the CUDA cores, a warp takes 1 or 8 rows, a
-//       lane units lane + 32j for a compile-time count of j; bfloat16
-//       launches of 9-64 rows: mma.sync.m16n8k16 on the tensor cores, a
-//       warp one m16 tile of rows x half the tile's units); the
+// but fit its 50 MB L2). The recompute pass runs first, as for clusters.
+// ONE cooperative launch per chunk of rows; per step:
+//   (C) the cell backward, one (row, unit) pair per thread slot of the
+//       whole grid (carries and dpeep sums in registers); its dh carry is
+//       dh_pass plus the column tiles' partials of the step before, summed
+//       in tile order; grid barrier;
+//   (D) each block stages dz_t's rows of its columns (L2-only loads) and
+//       forms the partial dh[b, u] = sum over its columns of dz[b, j]
+//       W[u, j] for every row b and unit u of its tile, written to the
+//       float32 workspace part[column tile, b, u] (float32, and bfloat16
+//       launches of at most 8 rows: f32 FMA on the CUDA cores, a warp takes
+//       1 or 8 rows, a lane units lane + 32j for a compile-time count of j;
+//       bfloat16 launches of 9-64 rows: mma.sync.m16n8k16 on the tensor
+//       cores, a warp one m16 tile of rows x half the tile's units); the
 //       next step's inputs of the cell are fetched; grid barrier.
-// Two barriers per step; the partials are summed in a fixed order by one
-// thread each: no float atomics, a repeat is the same bit for bit. dpeep
-// is written per (row, unit) to dpeep_part[b, 3, H].
-//
-// Both layouts split a batch too large for one grid (unit tiles: not
-// co-resident; W tiles: more than 64 rows or 4 pairs per thread slot) into
-// equal row chunks, one launch each, in stream order. The caller sums
-// dpeep_part over its rows (no float atomics: the result is deterministic).
-//
-// What bounds it on this card: the T steps are serially dependent. With
-// unit tiles a step is bound by latency (the hprev staging, the K loops,
-// the grid barrier, the dz round trip through L2) at small H, and by the
-// L2 traffic of the W slices at large H. With W tiles a step's work is
-// spread over 128 SMs: B*H*4H f32 FMAs of (D) (13.6 us per step at the
-// CUDA cores' peak at B=64, H=1280; in bfloat16 on the tensor cores, about
-// a microsecond) plus two grid barriers; the recompute is one GEMM at the
-// arithmetic rate.
+// Two grid barriers per step; dpeep is written per (row, unit) to
+// dpeep_part[b, 3, H]. A batch above 64 rows or 4 pairs per thread slot
+// runs as equal row chunks, one launch each, in stream order. Bound on this
+// card: a step's work is spread over 128 SMs: B*H*4H f32 FMAs of (D) (13.6
+// us per step at the CUDA cores' peak at B=64, H=1280; in bfloat16 on the
+// tensor cores about a microsecond) plus two grid barriers and the gather
+// of the column tiles' partials.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -116,6 +142,8 @@
 #include <tuple>
 #include <type_traits>
 
+#include "seq_recompute.cuh"
+#include "sm90_cluster.cuh"
 #include "sm90_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -496,286 +524,422 @@ void* pick_kernel(int mode, int rows) {
 }
 
 // ---------------------------------------------------------------------------
-// W tiles: the recompute pass, z = gates + hprev . W in float32 for every
-// step ([rows, H] x [H, 4H], rows = T * B), before the cooperative launch.
+// The recompute pass of the cluster and W-tile layouts: z = gates + hprev . W
+// in float32 for every step ([rows, H] x [H, 4H], rows = T * B), before the
+// recurrence's launch (seq_recompute.cuh: tensor cores for bfloat16, CUDA
+// cores for float32).
 
-constexpr int kZBM = 128;  // rows per block
-constexpr int kZBN = 64;   // gate columns per block
-constexpr int kZBK = 16;   // K chunk
-constexpr int kZThreads = 128;
-constexpr int kZALd = kZBM + 4;  // k-major A rows, 16-byte aligned
+template <typename T>
+struct ZEpilogue {  // z = gates + hprev . W
+  const T* gates;
+  float* z;
+  int g4;
+  template <int kN>
+  __device__ __forceinline__ void operator()(long long row, int col,
+                                             const float (&v)[kN]) const {
+    const size_t o = static_cast<size_t>(row) * g4 + col;
+    if constexpr (kN == 4) {
+      // gemm (float32 only): one 16-byte load and store (col % 4 == 0)
+      const float4 gv = __ldg(reinterpret_cast<const float4*>(gates + o));
+      *reinterpret_cast<float4*>(z + o) =
+          make_float4(gv.x + v[0], gv.y + v[1], gv.z + v[2], gv.w + v[3]);
+    } else {
+      // gemm in bfloat16: one load of the gate pair and one 8-byte store
+      // (col % 2 == 0)
+      const float2 gv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(gates + o));
+      *reinterpret_cast<float2*>(z + o) =
+          make_float2(gv.x + v[0], gv.y + v[1]);
+    }
+  }
+};
 
-__device__ __forceinline__ void load4_ro(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-
-// float32: CUDA cores, 128 x 64 tiles, 8 x 8 micro-tiles. H % 8 == 0, so a
-// group of 4 K values or 4 columns is all inside or all outside; every row
-// of a [., H] or [., 4H] array starts 16-byte aligned.
-__global__ void __launch_bounds__(kZThreads)
-lstm_bwd_recompute(const float* __restrict__ gates,
-                   const float* __restrict__ hprev,
-                   const float* __restrict__ w_rec, float* __restrict__ z,
-                   int rows, int hidden) {
-  __shared__ __align__(16) float a_s[2][kZBK][kZALd];  // [k][row]
-  __shared__ __align__(16) float b_s[2][kZBK][kZBN];   // [k][column]
-  const int tid = threadIdx.x;
+// ``tag`` only selects the dtype.
+template <typename T>
+int recompute_z(const void* gates, const void* hprev, const void* w_rec,
+                void* zbuf, int rows, int hidden, cudaStream_t stream,
+                const T* /*tag*/) {
   const int g4 = 4 * hidden;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kZBM;
-  const int n0 = blockIdx.y * kZBN;
-  const int n_chunks = (hidden + kZBK - 1) / kZBK;
-  // loaders: hprev row tid (16 K values); W row tid / 8, columns
-  // (tid % 8) * 4 and 32 + (tid % 8) * 4
-  const long long a_row = m0 + tid;
-  const bool a_ok = a_row < rows;
-  const int b_row = tid / 8;
-  const int b_col = (tid % 8) * 4;
-  float ra[kZBK], rb[8];
-  auto fetch = [&](int chunk) {
-    const int k0 = chunk * kZBK;
-#pragma unroll
-    for (int q = 0; q < kZBK / 4; ++q) {
-      const int k = k0 + 4 * q;
-      if (a_ok && k < hidden) {
-        load4_ro(hprev + a_row * hidden + k, ra + 4 * q);
-      } else {
-        ra[4 * q] = ra[4 * q + 1] = ra[4 * q + 2] = ra[4 * q + 3] = 0.f;
-      }
-    }
-    const int k = k0 + b_row;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + b_col + 32 * h;
-      if (k < hidden && col < g4) {
-        load4_ro(w_rec + static_cast<long long>(k) * g4 + col, rb + 4 * h);
-      } else {
-        rb[4 * h] = rb[4 * h + 1] = rb[4 * h + 2] = rb[4 * h + 3] = 0.f;
-      }
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int kk = 0; kk < kZBK; ++kk) a_s[buf][kk][tid] = ra[kk];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<float4*>(&b_s[buf][b_row][b_col + 32 * h]) =
-          make_float4(rb[4 * h], rb[4 * h + 1], rb[4 * h + 2], rb[4 * h + 3]);
-    }
-  };
-
-  // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns tx*4 + {0..3} and
-  // 32 + tx*4 + {0..3}
-  const int tx = tid % 8;
-  const int ty = tid / 8;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  stage(0);
-  __syncthreads();
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int buf = chunk & 1;
-    if (chunk + 1 < n_chunks) fetch(chunk + 1);
-#pragma unroll
-    for (int kk = 0; kk < kZBK; ++kk) {
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(&a_s[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&a_s[buf][kk][64 + ty * 4]);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(&b_s[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&b_s[buf][kk][32 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (chunk + 1 < n_chunks) stage(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 32 + tx * 4;
-      if (col >= g4) continue;
-      float gv[4];
-      load4_ro(gates + row * g4 + col, gv);
-      *reinterpret_cast<float4*>(z + row * g4 + col) =
-          make_float4(gv[0] + acc[i][4 * h], gv[1] + acc[i][4 * h + 1],
-                      gv[2] + acc[i][4 * h + 2], gv[3] + acc[i][4 * h + 3]);
-    }
-  }
+  const T* a = static_cast<const T*>(hprev);
+  const T* b = static_cast<const T*>(w_rec);
+  const ZEpilogue<T> epi{static_cast<const T*>(gates),
+                         static_cast<float*>(zbuf), g4};
+  return seqre::gemm(a, b, rows, hidden, g4, g4, epi, stream);
 }
 
-// The recompute pass in bfloat16: tensor cores, mma.sync.m16n8k16 bf16 with
-// float32 accumulators (products of bf16 values are exact in float32, so z
-// sums as the float32 version does). 128 x 128 tiles of z, 8 warps of
-// 64 x 32, K in chunks of 32 through a 3-stage cp.async ring: hprev's rows
-// (ldmatrix) and W's k-major rows (ldmatrix.trans), rows padded by 16 bytes
-// so that ldmatrix is conflict-free.
-constexpr int kZtBM = 128;
-constexpr int kZtBN = 128;
-constexpr int kZtBK = 32;
-constexpr int kZtThreads = 256;
-constexpr int kZtStages = 3;
-constexpr int kZtALd = kZtBK + 8;  // 80-byte rows
-constexpr int kZtBLd = kZtBN + 8;  // 272-byte rows
-constexpr int kZtSmem = static_cast<int>(sizeof(__nv_bfloat16)) * kZtStages *
-                        (kZtBM * kZtALd + kZtBK * kZtBLd);
+// ---------------------------------------------------------------------------
+// Clusters: one thread-block cluster per batch tile.
 
-__global__ void __launch_bounds__(kZtThreads)
-lstm_bwd_recompute_tc(const __nv_bfloat16* __restrict__ gates,
-                      const __nv_bfloat16* __restrict__ hprev,
-                      const __nv_bfloat16* __restrict__ w_rec,
-                      float* __restrict__ z, int rows, int hidden) {
+// The layout's constants and cl_smem_bytes have a copy in the caller's
+// planner (ops/lstm_kernels.py, _CL_*), which a CPU test holds equal to
+// these.
+constexpr int kClMaxTiles = 16;  // unit tiles (blocks) per cluster, at most
+// the local dz rows are padded by 8 floats (32 bytes), so that the
+// tensor-core path's fragment loads of 8 rows hit distinct banks
+constexpr int kDzLd = kCols + 8;
+
+// Shared memory of a cluster block in bytes: W's column slice [128][32 x
+// tiles] in the gates' dtype, then the block's dz rows [R][kDzLd] (round(dz)
+// held in float32, so that (D) widens nothing) and the partial sums it
+// receives [2][tiles][R][32], in float32.
+__host__ __device__ constexpr int cl_smem_bytes(int hidden, int rows,
+                                                int elem_bytes) {
+  return round_up(kCols * round_up(hidden, kUnits) * elem_bytes, 16) +
+         rows * kDzLd * static_cast<int>(sizeof(float)) +
+         2 * round_up(hidden, kUnits) * rows *
+             static_cast<int>(sizeof(float));
+}
+
+// kRegW (clusters of at most 8 blocks, H <= 256: one group of 32 units per
+// warp in (D)): each thread keeps W in registers for the sequence, so that
+// (D) reads only dz from shared memory: in float32 the 128 W values of its
+// unit; in bfloat16 the B fragments of mma.sync.m16n8k16, (D) then on the
+// tensor cores (products of bf16 values are exact in float32, so this sums
+// what the float32 loop sums, in another order). Else (D) reads W's column
+// slice from shared memory.
+template <typename T, int R, bool kRegW>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_cluster(const float* __restrict__ z, const float* __restrict__ mask,
+                 const T* __restrict__ w_rec, const float* __restrict__ peep,
+                 const T* __restrict__ cprev, const T* __restrict__ c_seq,
+                 const T* __restrict__ dh_seq, const T* __restrict__ dh_f,
+                 const T* __restrict__ dc_f, T* __restrict__ dgates,
+                 T* __restrict__ dh0, T* __restrict__ dc0,
+                 float* __restrict__ dpeep_part, int steps, int batch,
+                 int hidden) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto a_s = reinterpret_cast<__nv_bfloat16(*)[kZtBM][kZtALd]>(smem_raw);
-  auto b_s = reinterpret_cast<__nv_bfloat16(*)[kZtBK][kZtBLd]>(
-      smem_raw + sizeof(__nv_bfloat16) * kZtStages * kZtBM * kZtALd);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kEsz = static_cast<int>(sizeof(T));
+  constexpr bool kMma = kRegW && std::is_same<T, __nv_bfloat16>::value;
   const int g4 = 4 * hidden;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kZtBM;
-  const int n0 = blockIdx.y * kZtBN;
-  const int n_chunks = (hidden + kZtBK - 1) / kZtBK;
-  // loaders: K segment s (8 values) of hprev rows j and j + 64; W rows
-  // tid / 16 and 16 + tid / 16, 8 columns at (tid % 16) * 8
-  const int s = (tid % 4) * 8;
-  const int j = tid / 4;
-  const int wr = tid / 16;
-  const int wc = (tid % 16) * 8;
-  auto load = [&](int chunk) {
-    if (chunk < n_chunks) {
-      const int st = chunk % kZtStages;
-      const int k = chunk * kZtBK + s;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = m0 + j + 64 * h;
-        const bool ok = row < rows && k < hidden;
-        sm90::cp_async16(&a_s[st][j + 64 * h][s],
-                         ok ? hprev + row * hidden + k : hprev, ok ? 16 : 0);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kr = chunk * kZtBK + wr + 16 * h;
-        const bool ok = kr < hidden && n0 + wc < g4;
-        sm90::cp_async16(
-            &b_s[st][wr + 16 * h][wc],
-            ok ? w_rec + static_cast<long long>(kr) * g4 + n0 + wc : w_rec,
-            ok ? 16 : 0);
-      }
-    }
-    sm90::cp_async_commit();  // an empty group past the end keeps the count
-  };
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tiles = gridDim.x;  // the cluster: one block per unit tile
+  const int hp = tiles * kUnits;  // the units, padded to whole tiles
+  const int src = blockIdx.x;     // this block's rank in the cluster
+  const int u0 = src * kUnits;
+  const int u = u0 + lane;
+  const bool u_ok = u < hidden;
+  const int b0 = blockIdx.y * R;
+  const int b = b0 + warp;  // warp r owns row r of the tile
+  const bool owner = warp < R && u_ok && b < batch;
 
-  const int wm = (warp / 4) * 64;  // the warp's 64 rows x 32 columns
-  const int wn = (warp % 4) * 32;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
-
-  load(0);
-  load(1);
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    sm90::cp_async_wait<1>();
-    __syncthreads();
-    load(chunk + 2);
-    const int st = chunk % kZtStages;
-#pragma unroll
-    for (int ks = 0; ks < kZtBK; ks += 16) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        sm90::ldmatrix_x4(
-            a[mt], &a_s[st][wm + mt * 16 + lane % 16][ks + (lane / 16) * 8]);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        sm90::ldmatrix_x4_trans(
-            b[np], &b_s[st][ks + lane % 8 + ((lane / 8) % 2) * 8]
-                       [wn + np * 16 + (lane / 16) * 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          sm90::mma_bf16(acc[mt][nt], a[mt], b[nt / 2][(nt % 2) * 2],
-                         b[nt / 2][(nt % 2) * 2 + 1]);
-    }
+  // shared memory: wc[j * hp + v] = W[v, (j % 4) * H + u0 + j / 4], W's
+  // columns of this block's units (local column j: unit u0 + j / 4, gate
+  // j % 4) for every unit v; dzl[r * kDzLd + j] = round(dz) of row r,
+  // local column j; rcv[2][tiles][R][32]: the partial sums over each
+  // block's columns for this block's units, by step parity
+  T* wc = reinterpret_cast<T*>(smem_raw);
+  float* dzl = reinterpret_cast<float*>(
+      smem_raw + round_up(kCols * hp * kEsz, 16));
+  float* rcv = dzl + R * kDzLd;
+  for (int e = threadIdx.x; e < kCols * hp; e += kThreads) {
+    const int v = e / kCols;  // consecutive threads read one row of W
+    const int j = e - v * kCols;
+    const int uu = u0 + j / 4;
+    wc[j * hp + v] =
+        v < hidden && uu < hidden
+            ? w_rec[static_cast<size_t>(v) * g4 + (j % 4) * hidden + uu]
+            : from_f<T>(0.f);
   }
-  sm90::cp_async_wait<0>();
-
-  const int g = lane / 4;
-  const int t = lane % 4;
+  // rows past the batch are never stored: zeros, read and discarded
+  for (int e = threadIdx.x; e < R * kDzLd + 2 * hp * R; e += kThreads) {
+    dzl[e] = 0.f;
+  }
+  __syncthreads();  // W's slice is complete
+  // W in registers, this warp's group of 32 units (warp < tiles): float32
+  // W[warp * 32 + lane, column of j]; or the B fragments of B[k][n] =
+  // W[warp * 32 + nt * 8 + n, column of 16 ks + k], lane (g, t) holding
+  // B[2t, 2t + 1][g] and B[2t + 8, 2t + 9][g] (sm90_mma.cuh)
+  float wreg[kRegW && !kMma ? kCols : 1];
+  uint32_t bfrag[kMma ? kCols / 16 : 1][4][2];
+  if constexpr (kMma) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int ks = 0; ks < kCols / 16; ++ks)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = m0 + wm + mt * 16 + g + h * 8;
-        const int col = n0 + wn + nt * 8 + t * 2;  // 4H % 32 == 0: col+1 too
-        if (row < rows && col < g4) {
-          const float2 gv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(gates + row * g4 +
-                                                       col));
-          *reinterpret_cast<float2*>(z + row * g4 + col) =
-              make_float2(gv.x + acc[mt][nt][2 * h],
-                          gv.y + acc[mt][nt][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int j = ks * 16 + 2 * (lane % 4) + 8 * h;
+          const int v = warp * kUnits + nt * 8 + lane / 4;
+          __nv_bfloat162 p;
+          p.x = warp < tiles ? wc[j * hp + v] : from_f<T>(0.f);
+          p.y = warp < tiles ? wc[(j + 1) * hp + v] : from_f<T>(0.f);
+          bfrag[ks][nt][h] = *reinterpret_cast<const uint32_t*>(&p);
         }
-      }
-}
-
-// the recompute pass of the W-tile layout: tensor cores for bfloat16, CUDA
-// cores for float32
-int launch_recompute(const float* gates, const float* hprev,
-                     const float* w_rec, float* z, int rows, int hidden,
-                     int /*device*/, cudaStream_t stream) {
-  const dim3 grid((rows + kZBM - 1) / kZBM, (4 * hidden + kZBN - 1) / kZBN);
-  lstm_bwd_recompute<<<grid, kZThreads, 0, stream>>>(
-      gates, hprev, w_rec, z, rows, hidden);
-  return static_cast<int>(cudaGetLastError());
-}
-
-std::mutex tc_smem_mutex;
-bool tc_smem_set[64];
-
-int launch_recompute(const __nv_bfloat16* gates, const __nv_bfloat16* hprev,
-                     const __nv_bfloat16* w_rec, float* z, int rows,
-                     int hidden, int device, cudaStream_t stream) {
-  {
-    // more than 48 KB of dynamic shared memory: the limit is raised once
-    // per device (the kernel has one shape)
-    std::lock_guard<std::mutex> lock(tc_smem_mutex);
-    if (device < 0 || device >= 64 || !tc_smem_set[device]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          lstm_bwd_recompute_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kZtSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (device >= 0 && device < 64) tc_smem_set[device] = true;
+  } else if constexpr (kRegW) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      wreg[j] = warp < tiles ? to_f(wc[j * hp + warp * kUnits + lane]) : 0.f;
     }
   }
-  const dim3 grid((rows + kZtBM - 1) / kZtBM,
-                  (4 * hidden + kZtBN - 1) / kZtBN);
-  lstm_bwd_recompute_tc<<<grid, kZtThreads, kZtSmem, stream>>>(
-      gates, hprev, w_rec, z, rows, hidden);
-  return static_cast<int>(cudaGetLastError());
+
+  float pi = 0.f, pf = 0.f, po = 0.f;
+  float dh_c = 0.f, dc_c = 0.f, dh_pass = 0.f;
+  float dp0 = 0.f, dp1 = 0.f, dp2 = 0.f;
+  if (owner) {
+    pi = peep[u];
+    pf = peep[hidden + u];
+    po = peep[2 * hidden + u];
+    const size_t o = static_cast<size_t>(b) * hidden + u;
+    dh_c = to_f(dh_f[o]);
+    dc_c = to_f(dc_f[o]);
+  }
+  // the cell's inputs of a step, fetched kAhead steps ahead: two where (D)
+  // runs on the tensor cores (so short that a load fetched one step ahead
+  // has not landed), into one of two register sets (the loop is unrolled
+  // by two, so that no copy waits on a load in flight); one where the
+  // CUDA-core loop hides the loads (and unrolling costs more than it
+  // saves: measured on the card)
+  constexpr int kAhead = kMma ? 2 : 1;
+  struct StepIn {
+    float z[4];
+    float cp, cs, dhs;
+    bool live;
+  };
+  StepIn in0 = {}, in1 = {};
+  auto prefetch = [&](int t, StepIn& in) {
+    if (!owner || t < 0) return;
+    const size_t r = static_cast<size_t>(t) * batch + b;
+    const float* zr = z + r * g4 + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in.z[q] = __ldg(zr + q * hidden);
+    const size_t o = r * hidden + u;
+    in.cp = load_ro(cprev + o);
+    in.cs = load_ro(c_seq + o);
+    in.dhs = load_ro(dh_seq + o);
+    in.live = mask[r] > 0.f;
+  };
+  prefetch(steps - 1, in0);
+  if (kAhead == 2) prefetch(steps - 2, in1);
+  // every peer's shared memory exists, and this block's W slice and zeroed
+  // buffers are complete, before anyone stores into a peer
+  cluster.sync();
+
+  auto step = [&](int t, StepIn& in) {
+    float* rt = rcv + (t & 1) * hp * R;  // this step's received partials
+    // (C) the cell backward; round(dz) to this block's dz rows
+    if (owner) {
+      const float cp = in.cp;
+      const bool live = in.live;
+      const float ig = sigmoidf(in.z[0] + cp * pi);
+      const float fg = sigmoidf(in.z[1] + cp * pf);
+      const float gg = tanhf(in.z[2]);
+      const float cn = fg * cp + ig * gg;
+      const float og = sigmoidf(in.z[3] + cn * po);
+      const float tc = tanhf(in.cs);
+      const float dh_tot = in.dhs + dh_c;
+      const float dh_eff = live ? dh_tot : 0.f;
+      const float dzo = dh_eff * tc * og * (1.f - og);
+      const float dc_eff = (live ? dc_c : 0.f) +
+                           dh_eff * og * (1.f - tc * tc) + dzo * po;
+      const float dzi = dc_eff * gg * ig * (1.f - ig);
+      const float dzf = dc_eff * cp * fg * (1.f - fg);
+      const float dzg = dc_eff * ig * (1.f - gg * gg);
+      const T ri = from_f<T>(dzi), rf = from_f<T>(dzf);
+      const T rg = from_f<T>(dzg), ro = from_f<T>(dzo);
+      T* dg = dgates + (static_cast<size_t>(t) * batch + b) * g4 + u;
+      dg[0] = ri;
+      dg[hidden] = rf;
+      dg[2 * hidden] = rg;
+      dg[3 * hidden] = ro;
+      dh_pass = live ? 0.f : dh_tot;
+      dc_c = dc_eff * fg + dzi * pi + dzf * pf + (live ? 0.f : dc_c);
+      dp0 += dzi * cp;
+      dp1 += dzf * cp;
+      dp2 += dzo * cn;
+      sm90::store4(dzl + warp * kDzLd + lane * 4, to_f(ri), to_f(rf),
+                   to_f(rg), to_f(ro));
+    }
+    __syncthreads();  // this block's dz rows are complete
+    // (D) for each group of 32 units (one per warp, two per warp above 8
+    // tiles), the partial sums over this block's columns for the R rows,
+    // stored into the group's block at rcv[src]
+    for (int grp = warp; grp < tiles; grp += kWarps) {
+      float* dst = cluster.map_shared_rank(rt, grp) + src * R * kUnits;
+      if constexpr (kMma) {
+        const int g = lane / 4;
+        const float* arow = dzl + min(g, R - 1) * kDzLd + 2 * (lane % 4);
+        float d[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          d[nt][0] = d[nt][1] = d[nt][2] = d[nt][3] = 0.f;
+        }
+#pragma unroll
+        for (int ks = 0; ks < kCols / 16; ++ks) {
+          // rows past R and rows 8-15 of A are zero
+          const uint32_t a[4] = {
+              g < R ? sm90::pack_bf16(sm90::load2(arow + ks * 16)) : 0u, 0u,
+              g < R ? sm90::pack_bf16(sm90::load2(arow + ks * 16 + 8)) : 0u,
+              0u};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            sm90::mma_bf16(d[nt], a, bfrag[ks][nt][0], bfrag[ks][nt][1]);
+          }
+        }
+        sm90::store_d_rows(d, dst, kUnits, R, lane);
+      } else {
+        float acc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = 0.f;
+        if constexpr (kRegW) {
+#pragma unroll
+          for (int l = 0; l < kUnits; ++l) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float4 dv = sm90::load4(dzl + r * kDzLd + 4 * l);
+              acc[r] = fmaf(dv.x, wreg[4 * l], acc[r]);
+              acc[r] = fmaf(dv.y, wreg[4 * l + 1], acc[r]);
+              acc[r] = fmaf(dv.z, wreg[4 * l + 2], acc[r]);
+              acc[r] = fmaf(dv.w, wreg[4 * l + 3], acc[r]);
+            }
+          }
+        } else {
+          const T* wv = wc + grp * kUnits + lane;
+#pragma unroll 4
+          for (int l = 0; l < kUnits; ++l) {
+            const float w0 = to_f(wv[(4 * l) * hp]);
+            const float w1 = to_f(wv[(4 * l + 1) * hp]);
+            const float w2 = to_f(wv[(4 * l + 2) * hp]);
+            const float w3 = to_f(wv[(4 * l + 3) * hp]);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float4 dv = sm90::load4(dzl + r * kDzLd + 4 * l);
+              acc[r] = fmaf(dv.x, w0, acc[r]);
+              acc[r] = fmaf(dv.y, w1, acc[r]);
+              acc[r] = fmaf(dv.z, w2, acc[r]);
+              acc[r] = fmaf(dv.w, w3, acc[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) dst[r * kUnits + lane] = acc[r];
+      }
+    }
+    // (B) every block's partials for this block's units have landed; a
+    // block stores into rcv of parity t % 2 again at step t - 2, after the
+    // barrier of step t - 1, which every owner here reaches after reading
+    sm90::cluster_arrive();
+    prefetch(t - kAhead, in);
+    sm90::cluster_wait();
+    // the dh carry: the blocks' partial sums in rank order
+    if (owner) {
+      float s = 0.f;
+      for (int k = 0; k < tiles; ++k) s += rt[(k * R + warp) * kUnits + lane];
+      dh_c = dh_pass + s;
+    }
+  };
+  if constexpr (kAhead == 2) {
+    for (int t = steps - 1; t >= 0; t -= 2) {
+      step(t, in0);
+      if (t > 0) step(t - 1, in1);
+    }
+  } else {
+    for (int t = steps - 1; t >= 0; --t) step(t, in0);
+  }
+
+  if (owner) {
+    const size_t o = static_cast<size_t>(b) * hidden + u;
+    dh0[o] = from_f<T>(dh_c);
+    dc0[o] = from_f<T>(dc_c);
+  }
+  // dpeep: this tile's rows summed in row order (dzl is free: every (D)
+  // of the last step ended before its barrier)
+  float* red = dzl;
+  if (warp < R) {
+    red[(0 * R + warp) * kUnits + lane] = owner ? dp0 : 0.f;
+    red[(1 * R + warp) * kUnits + lane] = owner ? dp1 : 0.f;
+    red[(2 * R + warp) * kUnits + lane] = owner ? dp2 : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 * kUnits) {
+    const int q = threadIdx.x / kUnits;
+    if (u_ok) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) s += red[(q * R + r) * kUnits + lane];
+      dpeep_part[(static_cast<size_t>(b0) * 3 + q) * hidden + u] = s;
+    }
+  }
+  // no block leaves while a peer may still address its shared memory
+  cluster.sync();
+}
+
+template <typename T, int R>
+void* cl_kernel_w(int tiles) {
+  return tiles <= sm90::kPortableClusterSize
+             ? reinterpret_cast<void*>(lstm_bwd_cluster<T, R, true>)
+             : reinterpret_cast<void*>(lstm_bwd_cluster<T, R, false>);
+}
+
+// rows per block: 1, 2, 4, 5 or 8; W in registers for clusters of at most
+// 8 blocks
+template <typename T>
+void* cl_kernel(int rows, int tiles) {
+  switch (rows) {
+    case 1:
+      return cl_kernel_w<T, 1>(tiles);
+    case 2:
+      return cl_kernel_w<T, 2>(tiles);
+    case 4:
+      return cl_kernel_w<T, 4>(tiles);
+    case 5:
+      return cl_kernel_w<T, 5>(tiles);
+    default:
+      return cl_kernel_w<T, 8>(tiles);
+  }
+}
+
+// The cluster layout: the recompute pass over the whole batch, then one
+// launch of ceil(B / rows) clusters of ceil(H / 32) blocks. The rows per
+// block come from the caller's planner; this checks that the layout takes
+// the shape.
+template <typename T>
+int launch_cluster_layout(const void* gates, const void* mask,
+                          const void* w_rec, const void* peep,
+                          const void* hprev, const void* cprev,
+                          const void* c_seq, const void* dh_seq,
+                          const void* dh_f, const void* dc_f, void* dgates,
+                          void* dh0, void* dc0, void* dpeep_part, void* zbuf,
+                          int steps, int batch, int hidden, int rows,
+                          cudaStream_t stream, int* info) {
+  const int tiles = (hidden + kUnits - 1) / kUnits;
+  if (hidden % 8 != 0 || tiles > kClMaxTiles ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 5 && rows != 8) ||
+      zbuf == nullptr) {
+    return kErrBadArgument;
+  }
+  const int batch_tiles = (batch + rows - 1) / rows;
+  const int smem = cl_smem_bytes(hidden, rows, static_cast<int>(sizeof(T)));
+  info[0] = tiles * batch_tiles;
+  info[1] = rows;
+  info[2] = 5;  // W's row slice resident, dz exchanged through DSMEM
+  info[3] = smem;
+  info[4] = batch;
+  info[5] = 0;  // launches made
+  int rc = recompute_z(gates, hprev, w_rec, zbuf, steps * batch, hidden,
+                       stream, static_cast<const T*>(nullptr));
+  if (rc != 0) return rc;
+  const float* zb = static_cast<const float*>(zbuf);
+  const float* m = static_cast<const float*>(mask);
+  const T* w = static_cast<const T*>(w_rec);
+  const float* p = static_cast<const float*>(peep);
+  const T* cp = static_cast<const T*>(cprev);
+  const T* cs = static_cast<const T*>(c_seq);
+  const T* dhs = static_cast<const T*>(dh_seq);
+  const T* dhf = static_cast<const T*>(dh_f);
+  const T* dcf = static_cast<const T*>(dc_f);
+  T* dg = static_cast<T*>(dgates);
+  T* dh = static_cast<T*>(dh0);
+  T* dc = static_cast<T*>(dc0);
+  float* dpp = static_cast<float*>(dpeep_part);
+  void* args[] = {&zb, &m,  &w,  &p,   &cp,    &cs,    &dhs,   &dhf,
+                  &dcf, &dg, &dh, &dc, &dpp, &steps, &batch, &hidden};
+  rc = sm90::launch_clusters(cl_kernel<T>(rows, tiles), tiles, batch_tiles,
+                             kThreads, smem, stream, args);
+  if (rc != 0) return rc;
+  info[5] = 1;
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -1292,10 +1456,8 @@ int launch_wtiles(const void* gates, const void* mask, const void* w_rec,
   info[3] = smem;
   info[4] = rows_per_launch;
   info[5] = 0;  // launches made
-  const int rc = launch_recompute(
-      static_cast<const T*>(gates), static_cast<const T*>(hprev),
-      static_cast<const T*>(w_rec), static_cast<float*>(zbuf), steps * batch,
-      hidden, device, stream);
+  const int rc = recompute_z(gates, hprev, w_rec, zbuf, steps * batch,
+                             hidden, stream, static_cast<const T*>(nullptr));
   if (rc != 0) return rc;
   const T* w = static_cast<const T*>(w_rec);
   const float* p = static_cast<const float*>(peep);
@@ -1480,17 +1642,21 @@ extern "C" {
 // zbuf and part are float32. dpeep_part is [B, 3, H], zero-filled by the
 // caller, who sums it over B.
 // layout 0 = unit tiles: w_rec_t is w_rec transposed, [4H, H] contiguous;
-//   zbuf, part, units, cols, rows_per_launch and resident are not read
-//   (the grid and W placement are chosen here).
-// layout 1 = W tiles of ``units`` x ``cols`` (H % 8 == 0), at most
-//   ``rows_per_launch`` rows per launch, the tile resident in shared memory
-//   (resident 1) or streamed from L2; w_rec_t is not read; zbuf is a
-//   [T, B, 4H] workspace, part a [ceil(4H / cols), rows_per_launch, H] one.
+//   zbuf, part, units, cols, rows and resident are not read (the grid and
+//   W placement are chosen here).
+// layout 1 = W tiles of ``units`` x ``cols`` (H % 8 == 0), at most ``rows``
+//   rows per launch, the tile resident in shared memory (resident 1) or
+//   streamed from L2; w_rec_t is not read; zbuf is a [T, B, 4H] workspace,
+//   part a [ceil(4H / cols), rows, H] one.
+// layout 2 = clusters (H % 8 == 0, H <= 512) of ``rows`` (1, 2, 4, 5, 8)
+//   batch rows per block; w_rec_t, part, units, cols and resident are not
+//   read; zbuf is a [T, B, 4H] workspace.
 // info receives {blocks of a full-chunk launch, batch rows per block, W
 // placement (unit tiles: 2 both slices resident, 1 the column slice, 0
-// neither; W tiles: 3 streamed from L2, 4 resident), dynamic shared memory
-// bytes, batch rows per launch, launches made (cooperative launches; the
-// W-tile layout's recompute pass is part of the call's first)}.
+// neither; W tiles: 3 streamed from L2, 4 resident; clusters: 5, the row
+// slice resident), dynamic shared memory bytes, batch rows per launch,
+// launches made (the launches of the recurrence; the recompute pass of
+// the W-tile and cluster layouts is part of the call's first)}.
 // Returns 0, a cudaError_t value, or one of the negative codes above.
 int lstm_seq_bwd(int dtype, const void* gates, const void* mask,
                  const void* w_rec, const void* w_rec_t, const void* peep,
@@ -1498,31 +1664,43 @@ int lstm_seq_bwd(int dtype, const void* gates, const void* mask,
                  const void* dh_seq, const void* dh_f, const void* dc_f,
                  void* dgates, void* dh0, void* dc0, void* dpeep_part,
                  void* zbuf, void* part, int steps, int batch, int hidden,
-                 int layout, int units, int cols, int rows_per_launch,
-                 int resident, int device, void* stream, int* info) {
+                 int layout, int units, int cols, int rows, int resident,
+                 int device, void* stream, int* info) {
   if (steps < 1 || batch < 1 || hidden < 1 || (dtype != 0 && dtype != 1) ||
-      (layout != 0 && layout != 1)) {
+      layout < 0 || layout > 2) {
     return kErrBadArgument;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == 2) {
+    if (dtype == 0) {
+      return launch_cluster_layout<float>(
+          gates, mask, w_rec, peep, hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
+          dgates, dh0, dc0, dpeep_part, zbuf, steps, batch, hidden, rows, s,
+          info);
+    }
+    return launch_cluster_layout<__nv_bfloat16>(
+        gates, mask, w_rec, peep, hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
+        dgates, dh0, dc0, dpeep_part, zbuf, steps, batch, hidden, rows, s,
+        info);
+  }
   int coop = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return kErrNoCooperative;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (layout == 1) {
     if (dtype == 0) {
       return launch_wtiles<float>(gates, mask, w_rec, peep, hprev, cprev,
                                   c_seq, dh_seq, dh_f, dc_f, dgates, dh0,
                                   dc0, dpeep_part, zbuf, part, steps, batch,
-                                  hidden, units, cols, rows_per_launch,
-                                  resident != 0, device, s, info);
+                                  hidden, units, cols, rows, resident != 0,
+                                  device, s, info);
     }
     return launch_wtiles<__nv_bfloat16>(
         gates, mask, w_rec, peep, hprev, cprev, c_seq, dh_seq, dh_f, dc_f,
         dgates, dh0, dc0, dpeep_part, zbuf, part, steps, batch, hidden, units,
-        cols, rows_per_launch, resident != 0, device, s, info);
+        cols, rows, resident != 0, device, s, info);
   }
   if (dtype == 0) {
     return launch_unit_tiles<float>(dtype, gates, mask, w_rec, w_rec_t, peep,
@@ -1536,16 +1714,12 @@ int lstm_seq_bwd(int dtype, const void* gates, const void* mask,
       s, info);
 }
 
-// The card's limits that the caller's planner (ops/lstm_kernels.bwd_plan)
-// sizes the W tiles by: out = {SM count, opt-in dynamic shared memory per
-// block in bytes}. Returns 0 or a cudaError_t value.
+// The card's limits that ops/lstm_kernels.bwd_plan sizes its layouts by
+// (sm90::card_limits: SM count, opt-in shared memory per block, clusters
+// of 8 and of 16 of this file's cluster kernel held at once). Returns 0 or
+// a cudaError_t value.
 int lstm_seq_bwd_limits(int device, int* out) {
-  cudaError_t err = cudaDeviceGetAttribute(
-      &out[0], cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  return static_cast<int>(err);
+  return sm90::card_limits(cl_kernel<float>(1, 16), kThreads, device, out);
 }
 
 const char* lstm_seq_bwd_error_string(int code) {

@@ -1,8 +1,8 @@
 // Building blocks shared by the port's Hopper (sm_90a) GEMM-shaped kernels
-// (csrc/int8_matmul.cu, csrc/conv2d_same_bwdw.cu): asynchronous 16-byte
-// copies into shared memory with zero-fill, ldmatrix fragment loads, and
-// the bfloat16 tensor-core product mma.sync.m16n8k16 with float32
-// accumulators.
+// (csrc/int8_matmul.cu, csrc/conv2d_same_bwdw.cu, and the recurrent
+// backward kernels): asynchronous 16-byte copies into shared memory with
+// zero-fill, ldmatrix fragment loads, and the bfloat16 tensor-core product
+// mma.sync.m16n8k16 with float32 accumulators.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane = 4 * group + t:
@@ -76,6 +76,29 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values that hold bfloat16 numbers, as one packed bfloat16
+// pair (exact)
+__device__ __forceinline__ uint32_t pack_bf16(float2 v) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// rows 0-7 of four accumulator tiles d[nt] (16 x 8 each, mma_bf16's D),
+// those below ``rows`` only, to out[row * pitch + nt * 8 + column]
+__device__ __forceinline__ void store_d_rows(const float (&d)[4][4],
+                                             float* out, int pitch, int rows,
+                                             int lane) {
+  const int g = lane / 4;
+  if (g < rows) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* p = out + g * pitch + nt * 8 + 2 * (lane % 4);
+      p[0] = d[nt][0];
+      p[1] = d[nt][1];
+    }
+  }
 }
 
 }  // namespace sm90

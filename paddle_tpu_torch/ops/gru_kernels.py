@@ -29,8 +29,14 @@ held against.
 ``_gru_bwd_kernel`` (pallas_kernels.py ``_gru_vjp_bwd``): from the saved
 forward (hprev = [h0, h_seq[:-1]]) and the cotangents (dh_seq [T, B, H],
 dh_f [B, H]) it gives dproj [T, B, 3H] and dh0 [B, H] in proj's dtype; the
-dh carry is float32. Its kernel is csrc/gru_seq_bwd.cu; on a CPU tensor it
-runs ``gru_seq_bwd_reference``.
+dh carry is float32. Its kernel is csrc/gru_seq_bwd.cu, in one of two
+layouts that ``gru_bwd_plan`` picks from the shapes and dtype: "cluster"
+(H % 8 == 0 up to 512 units: two recompute passes give u, r, rh and c for
+all steps, then one thread-block cluster per batch tile, its blocks the
+unit tiles, each step's dzc and [dzu, dzr] exchanged through distributed
+shared memory behind two cluster barriers) or "unit_tiles" (what the
+cluster layout does not take: the recompute inside the step loop, two
+grid barriers a step); on a CPU tensor it runs ``gru_seq_bwd_reference``.
 
 Launch counts: ``launches`` counts the forward kernel's launches and
 ``bwd_launches`` the backward's, since the last ``reset_launches()`` (a
@@ -51,7 +57,8 @@ import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import check_args, launch
+from paddle_tpu_torch.ops import clusters as cl
+from paddle_tpu_torch.ops._build import aligned, check_args, launch
 from paddle_tpu_torch.utils.error import enforce
 
 launches = 0
@@ -76,6 +83,58 @@ def _count_bwd_launches(n):
     global bwd_launches
     with _count_lock:
         bwd_launches += n
+
+
+def device_limits(dev):
+    """(SM count, opt-in shared memory per block in bytes, (clusters of 8,
+    clusters of 16)) of the card ``dev``, as the backward kernel's C side
+    reads them for its cluster kernel (``clusters.device_limits``)."""
+    return cl.device_limits("gru_seq_bwd", dev)
+
+
+# The cluster layout (``clusters``): both W row slices resident, the
+# exchange buffers and the warps' partial sums in float32. These constants
+# and ``_cl_smem`` copy the kernel's (kXPad, cl_smem_bytes);
+# tests/test_torch_gru_bwd_plan.py holds the two equal.
+_CL_XPAD = 8
+
+
+def _cl_xpad(hidden):
+    """Floats of padding at the end of an exchange row: 8 in clusters of at
+    most 8 blocks (where the bfloat16 path runs on the tensor cores), else
+    none."""
+    return _CL_XPAD if hidden <= 32 * cl.PORTABLE else 0
+
+
+def _cl_smem(hidden, rows, esz):
+    """Shared memory of a GRU cluster block (csrc/gru_seq_bwd.cu
+    cl_smem_bytes): W_c's row slice [H][32] and W_rz's [H][32][2] in proj's
+    dtype (rounded up to 16 bytes), then the exchange buffers [R][H + pad]
+    and [R][2H + pad] (``_cl_xpad``) and the warps' partial
+    sums [8][R][32] in float32."""
+    return (-(-96 * hidden * esz // 16) * 16
+            + 4 * rows * (3 * hidden + 2 * _cl_xpad(hidden)) + 1024 * rows)
+
+
+def gru_bwd_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
+                 clusters=cl.H100_CLUSTERS):
+    """The GRU backward's layout for a batch of ``batch`` rows at ``hidden``
+    units in ``dtype`` on a card of ``smem`` bytes of shared memory per
+    block and ``clusters`` (``device_limits``): "cluster" where it takes
+    the shape (H % 8 == 0, at most 16 unit tiles, the row slices and
+    buffers in ``smem``; ``rows_per_block`` by ``clusters.cluster_rows``),
+    else "unit_tiles" (the kernel then picks its grid and W placement
+    itself)."""
+    enforce(dtype in (torch.float32, torch.bfloat16), "gru_seq_bwd takes "
+            "float32 or bfloat16 inputs, got %s", dtype)
+    esz = 4 if dtype == torch.float32 else 2
+    rows = cl.cluster_rows(batch, hidden, lambda r: _cl_smem(hidden, r, esz),
+                           smem, clusters)
+    if rows is None:
+        return {"layout": "unit_tiles", "code": 0}
+    return {"layout": "cluster", "code": 2, "rows_per_block": rows,
+            "cluster_size": -(-hidden // 32), "clusters": -(-batch // rows),
+            "smem_bytes": _cl_smem(hidden, rows, esz)}
 
 
 def _gates(proj_t, h, w_rz, hidden):
@@ -199,11 +258,14 @@ def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0):
 gru_seq_fwd.last_launch = None
 
 
-def gru_seq_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
+def gru_seq_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f,
+                plan=None):
     """Masked GRU backward over the whole sequence (see module docstring):
-    -> dproj [T, B, 3H], dh0 [B, H]. After a kernel call,
-    ``gru_seq_bwd.last_launch`` holds the grid the kernel chose and the
-    number of launches it made."""
+    -> dproj [T, B, 3H], dh0 [B, H]. On a CUDA tensor ``plan`` is the
+    layout to run (a ``gru_bwd_plan`` result; None: ``gru_bwd_plan``'s
+    choice for this card). After a kernel call, ``gru_seq_bwd.last_launch``
+    holds the plan, the grid the kernel chose and the number of launches it
+    made."""
     args = (proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f)
     _check_bwd(*args)
     dev = proj_tm.device
@@ -211,21 +273,46 @@ def gru_seq_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
         return gru_seq_bwd_reference(*args)
     enforce(dev.type == "cuda", "gru_seq_bwd runs on cuda or cpu tensors, "
             "got %s", dev)
+    return _launch_bwd(args, plan)[0]
+
+
+def _launch_bwd(args, plan):
+    """One call of the backward kernel on checked CUDA inputs ``args``:
+    ((dproj, dh0), (zbuf, rh)), the workspaces as the call leaves them
+    (clusters: u, r, c [T, B, 3H] in float32 and rh [T, B, H] of every
+    step, as the recompute passes wrote them)."""
+    proj_tm, _, w_rz, w_c = args[:4]
+    dev = proj_tm.device
     steps, batch, hidden = _proj_shape(proj_tm)
     dproj = torch.empty_like(proj_tm)
     dh0 = torch.empty((batch, hidden), dtype=proj_tm.dtype, device=dev)
-    rh = torch.empty_like(dh0)
-    # W_rz and W_c transposed beside them: the kernel's dzc . W_c^T and
-    # [dzu, dzr] . W_rz^T loops read them coalesced
+    if plan is None:
+        _, smem, clusters = device_limits(dev)
+        plan = gru_bwd_plan(batch, hidden, proj_tm.dtype, smem, clusters)
+    if plan["layout"] == "cluster":
+        # u, r, c of every step (float32) and rh of every step
+        w_t = (w_rz, w_c)
+        rh = torch.empty((steps, batch, hidden), dtype=proj_tm.dtype,
+                         device=dev)
+        zbuf = torch.empty((steps, batch, 3 * hidden), dtype=torch.float32,
+                           device=dev)
+        rows = plan["rows_per_block"]
+    else:
+        # W_rz and W_c transposed beside them: the kernel's dzc . W_c^T and
+        # [dzu, dzr] . W_rz^T loops read them coalesced
+        w_t = (w_rz.t().contiguous(), w_c.t().contiguous())
+        rh = torch.empty_like(dh0)
+        zbuf = torch.empty((0,), dtype=torch.float32, device=dev)
+        rows = 0
     info = launch("gru_seq_bwd", dev,
-                  args[:4] + (w_rz.t().contiguous(), w_c.t().contiguous())
-                  + args[4:],
-                  (dproj, dh0, rh), (steps, batch, hidden),
+                  tuple(aligned(a) for a in args[:4] + w_t + args[4:]),
+                  (dproj, dh0, rh, zbuf),
+                  (steps, batch, hidden, plan["code"], rows),
                   _count_bwd_launches)
-    gru_seq_bwd.last_launch = dict(zip(
+    gru_seq_bwd.last_launch = dict(plan, **dict(zip(
         ("blocks", "rows_per_block", "w_placement", "smem_bytes",
-         "rows_per_launch", "launches"), info))
-    return dproj, dh0
+         "rows_per_launch", "launches"), info)))
+    return (dproj, dh0), (zbuf, rh)
 
 
 gru_seq_bwd.last_launch = None

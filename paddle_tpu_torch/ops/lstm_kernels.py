@@ -25,11 +25,15 @@ function, which is also the oracle the kernel is held against.
 [c0, c_seq[:-1]], c_seq) and the cotangents (dh_seq [T, B, H], dh_f, dc_f
 [B, H]) it gives dgates [T, B, 4H] and dh0, dc0 [B, H] in the gates' dtype
 and dpeep [3, H] in float32. Its kernel is csrc/lstm_seq_bwd.cu, in one
-of two layouts that ``bwd_plan`` picks from the shapes and dtype: unit
-tiles (small H: each block a slice of units x rows, W slices per block) or
-W tiles (large H: W cut into a grid of unit x gate-column tiles, each
-serving every row, after a recompute pass of z for all steps; in bfloat16
-each step's dz . W^T runs on the tensor cores); on a CPU tensor it runs
+of three layouts that ``bwd_plan`` picks from the shapes and dtype:
+"cluster" (H % 8 == 0 up to 512 units: a recompute pass of z for all
+steps, then one thread-block cluster per batch tile, its blocks the unit
+tiles, each step's dz exchanged through distributed shared memory behind
+one cluster barrier), "w_tiles" (H >= 512: W cut into a grid of unit x
+gate-column tiles, each serving every row, after the same recompute pass;
+in bfloat16 each step's dz . W^T runs on the tensor cores) or
+"unit_tiles" (what neither takes: each block a slice of units x rows, W
+slices per block, a grid barrier a step); on a CPU tensor it runs
 ``lstm_seq_bwd_reference``.
 
 ``LstmSeq`` is the autograd Function around the pair (the JAX package's
@@ -39,13 +43,12 @@ outside the kernel. It runs the same way on both devices, so the CPU tests
 exercise the backward the card runs, not autograd through the plain loop.
 """
 
-import ctypes
 import threading
 
 import torch
 
-from paddle_tpu_torch.ops._build import (H100_SMS, aligned, check_args,
-                                         launch, load)
+from paddle_tpu_torch.ops import clusters as cl
+from paddle_tpu_torch.ops._build import H100_SMS, aligned, check_args, launch
 from paddle_tpu_torch.utils.error import enforce
 
 # kernel launches since the last reset, forward (``launches``) and backward
@@ -85,7 +88,6 @@ def _count_bwd_launches(n):
 # tests/test_torch_lstm_bwd.py holds the two equal. The card's SM count
 # and shared memory per block come from the card (``device_limits``); the
 # defaults are an H100's, which the CPU tests plan for.
-H100_SMEM_OPTIN = 232448
 _BWD_MIN_HIDDEN = 512
 _BWD_WARPS = 8
 _BWD_MAX_ROWS = 8 * _BWD_WARPS
@@ -94,7 +96,6 @@ _BWD_PAIRS = 4
 _BWD_CHUNK = 32
 _BWD_STAGES = 3
 _BWD_UNITS_PER_LANE = (2, 5, 8)
-_limits = {}
 
 
 def _wt_smem(units, cols, rows, esz, resident):
@@ -109,42 +110,66 @@ def _wt_smem(units, cols, rows, esz, resident):
 
 
 def device_limits(dev):
-    """(SM count, opt-in shared memory per block in bytes) of the card
-    ``dev``, as the kernel's C side reads them."""
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _limits:
-        fn = load("lstm_seq_bwd").lstm_seq_bwd_limits
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 2)()
-        rc = fn(index, out)
-        enforce(rc == 0, "lstm_seq_bwd: reading the limits of cuda:%d "
-                "failed (code %d)", index, rc)
-        _limits[index] = (out[0], out[1])
-    return _limits[index]
+    """(SM count, opt-in shared memory per block in bytes, (clusters of 8,
+    clusters of 16)) of the card ``dev``, as the kernel's C side reads them
+    for its cluster kernel (``clusters.device_limits``)."""
+    return cl.device_limits("lstm_seq_bwd", dev)
 
 
-def bwd_plan(batch, hidden, dtype, sms=H100_SMS, smem=H100_SMEM_OPTIN,
-             min_hidden=_BWD_MIN_HIDDEN):
+# The cluster layout (``clusters``): W's column slice resident, dz rows and
+# the received partial sums in float32. These constants and ``_cl_smem``
+# copy the kernel's (kDzLd, cl_smem_bytes); tests/test_torch_lstm_bwd.py
+# holds the two equal.
+_CL_DZ_LD = 136  # floats per local dz row: 4 x 32 columns and 8 of padding
+
+
+def _cl_smem(hidden, rows, esz):
+    """Shared memory of an LSTM cluster block: W's column slice [128][H
+    rounded up to 32] in the gates' dtype (rounded up to 16 bytes), then
+    the block's dz rows [R][136] and the partial sums it receives
+    [2][tiles][R][32] in float32."""
+    hp = -(-hidden // 32) * 32
+    return (-(-128 * hp * esz // 16) * 16 + 4 * rows * _CL_DZ_LD
+            + 8 * hp * rows)
+
+
+def cluster_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
+                 clusters=cl.H100_CLUSTERS):
+    """The LSTM backward's cluster layout for this shape (rows per block by
+    ``clusters.cluster_rows``), or None where it does not take it."""
+    esz = 4 if dtype == torch.float32 else 2
+    rows = cl.cluster_rows(batch, hidden, lambda r: _cl_smem(hidden, r, esz),
+                           smem, clusters)
+    if rows is None:
+        return None
+    return {"layout": "cluster", "code": 2, "rows_per_block": rows,
+            "cluster_size": -(-hidden // 32), "clusters": -(-batch // rows),
+            "smem_bytes": _cl_smem(hidden, rows, esz)}
+
+
+def bwd_plan(batch, hidden, dtype, sms=H100_SMS, smem=cl.H100_SMEM_OPTIN,
+             clusters=cl.H100_CLUSTERS, min_hidden=_BWD_MIN_HIDDEN):
     """The LSTM backward's layout for a batch of ``batch`` rows at
-    ``hidden`` units in ``dtype`` on a card of ``sms`` SMs and ``smem``
-    bytes of shared memory per block, from the shapes and dtype alone:
-    ``layout`` "unit_tiles" (the kernel then picks its grid and W placement
-    itself), or "w_tiles" with ``units`` x ``cols`` per tile (the fewest
-    multiply-adds per block, summed over the launches, among tilings of
-    at most ``sms`` tiles), the tile grid, ``rows_per_launch`` (equal
-    chunks of at most 64 rows), ``resident`` (the tile stays in shared
-    memory; else it streams from L2 once per step) and ``dh_path``, the
-    product of (D): "tc_bf16" (tensor cores: bfloat16 at more than 8 rows
-    per launch) or "simt_f32". W tiles need H >= ``min_hidden`` (unit tiles
-    are the faster layout below it) and H % 8 == 0; where no tiling's block
-    fits in ``smem`` even at one row (f32 at H >= 3200 on an H100), the
-    plan is unit tiles."""
+    ``hidden`` units in ``dtype`` on a card of ``sms`` SMs, ``smem`` bytes
+    of shared memory per block and ``clusters`` (``device_limits``), from
+    the shapes and dtype alone:
+    "w_tiles" with ``units`` x ``cols`` per tile (the fewest multiply-adds
+    per block, summed over the launches, among tilings of at most ``sms``
+    tiles), the tile grid, ``rows_per_launch`` (equal chunks of at most 64
+    rows), ``resident`` (the tile stays in shared memory; else it streams
+    from L2 once per step) and ``dh_path``, the product of (D): "tc_bf16"
+    (tensor cores: bfloat16 at more than 8 rows per launch) or "simt_f32",
+    for H >= ``min_hidden`` with H % 8 == 0 where a tiling's block fits in
+    ``smem`` at one row (f32 below H=3200 on an H100);
+    below that width, "cluster" (``cluster_plan``) where it takes the
+    shape; else "unit_tiles" (the kernel then picks its grid and W
+    placement itself)."""
     enforce(dtype in (torch.float32, torch.bfloat16), "lstm_seq_bwd takes "
             "float32 or bfloat16 inputs, got %s", dtype)
     unit_tiles = {"layout": "unit_tiles", "code": 0}
     if hidden < min_hidden or hidden % 8:
-        return unit_tiles
+        return (cluster_plan(batch, hidden, dtype, smem, clusters)
+                or unit_tiles)
     esz = 4 if dtype == torch.float32 else 2
     g4 = 4 * hidden
     best = None
@@ -335,13 +360,23 @@ def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
         return lstm_seq_bwd_reference(*args)
     enforce(dev.type == "cuda", "lstm_seq_bwd runs on cuda or cpu tensors, "
             "got %s", dev)
+    return _launch_bwd(args, plan)[0]
+
+
+def _launch_bwd(args, plan):
+    """One call of the backward kernel on checked CUDA inputs ``args``:
+    ((dgates, dh0, dc0, dpeep), zbuf), the float32 workspace as the call
+    leaves it (clusters and W tiles: z [T, B, 4H] of every step, as the
+    recompute pass wrote it)."""
+    gates_tm, w_rec = args[0], args[2]
+    dev = gates_tm.device
     steps, batch, g4 = gates_tm.shape
     hidden = g4 // 4
     dgates = torch.empty_like(gates_tm)
     dh0 = torch.empty((batch, hidden), dtype=gates_tm.dtype, device=dev)
     dc0 = torch.empty_like(dh0)
-    # [3, H] partials by row: one per batch tile (unit tiles, at the row of
-    # its first batch row) or one per row (W tiles)
+    # [3, H] partials by row: one per batch tile (unit tiles and clusters,
+    # at the row of its first batch row) or one per row (W tiles)
     dpeep_part = torch.zeros((batch, 3, hidden), dtype=torch.float32,
                              device=dev)
     if plan is None:
@@ -355,6 +390,13 @@ def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
                             hidden), dtype=torch.float32, device=dev)
         tiling = (plan["units"], plan["cols"], plan["rows_per_launch"],
                   int(plan["resident"]))
+    elif plan["layout"] == "cluster":
+        # z of every step (float32)
+        w_t = w_rec
+        zbuf = torch.empty((steps, batch, g4), dtype=torch.float32,
+                           device=dev)
+        part = torch.empty((0,), dtype=torch.float32, device=dev)
+        tiling = (0, 0, plan["rows_per_block"], 0)
     else:
         # W transposed ([4H, H]) beside W: the unit-tile layout's dz . W^T
         # loop reads it coalesced
@@ -369,7 +411,7 @@ def lstm_seq_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
     lstm_seq_bwd.last_launch = dict(plan, **dict(zip(
         ("blocks", "rows_per_block", "w_placement", "smem_bytes",
          "grid_rows_per_launch", "launches"), info)))
-    return dgates, dh0, dc0, dpeep_part.sum(dim=0)
+    return (dgates, dh0, dc0, dpeep_part.sum(dim=0)), zbuf
 
 
 lstm_seq_bwd.last_launch = None

@@ -80,10 +80,11 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
     dpeep (a sum over B and T) relative to its size. The tolerance covers
     the different summation order of both GEMVs (and, in bfloat16, a
     flipped rounding of dz feeding through the dh carry). The layout is
-    ``bwd_plan``'s: unit tiles at H=40 and 256, W tiles at H=1280 (resident
-    in bfloat16, streamed from L2 in float32), where B=128 runs as two
-    launches of 64 rows. A repeat is bit-identical (partial sums in a fixed
-    order, no atomics)."""
+    ``bwd_plan``'s for this card: clusters at H=40 and 256 (W's row slice
+    resident, one launch), W tiles at H=1280 (resident in bfloat16,
+    streamed from L2 in float32), where B=128 runs as two launches of 64
+    rows. A repeat is bit-identical (partial sums in a fixed order, no
+    atomics)."""
     rng = np.random.RandomState(hidden + batch)
     steps = 20
     lens = rng.randint(0, steps + 1, batch)
@@ -110,9 +111,9 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
         assert launch["launches"] == 1, launch
     if hidden == 1280 and batch == 128:
         assert launch["launches"] == 2, launch
-    plan = lk.bwd_plan(batch, hidden, dtype)
+    plan = lk.bwd_plan(batch, hidden, dtype, *lk.device_limits(cuda_device))
     assert launch["layout"] == plan["layout"] == (
-        "w_tiles" if hidden == 1280 else "unit_tiles")
+        "w_tiles" if hidden == 1280 else "cluster")
     if plan["layout"] == "w_tiles":
         assert plan["resident"] == (dtype == torch.bfloat16)
         assert launch["w_placement"] == (4 if plan["resident"] else 3)
@@ -120,7 +121,10 @@ def test_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
         assert launch["dh_path"] == ("tc_bf16" if dtype == torch.bfloat16
                                      and batch > 8 else "simt_f32")
     else:
-        assert launch["w_placement"] in (0, 1, 2)
+        assert launch["w_placement"] == 5
+        assert launch["rows_per_block"] == plan["rows_per_block"]
+        assert launch["blocks"] == (plan["cluster_size"]
+                                    * plan["clusters"])
     want = lk.lstm_seq_bwd_reference(*args)
     for name, g, w in zip(("dgates", "dh0", "dc0"), got[:3], want[:3]):
         assert g.dtype == dtype
@@ -240,7 +244,10 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
     dproj and dh0, each relative to max(1, its largest |entry|). The
     tolerance covers the different summation order of the recompute and
     the two transposed GEMVs (and, in bfloat16, a flipped rounding of dz
-    feeding through the dh carry)."""
+    feeding through the dh carry). The layout is ``gru_bwd_plan``'s for
+    this card: clusters at H=256 and 512 (one launch, whatever the batch),
+    unit tiles at H=37 and 1024 (B=600 would run as row chunks there). A
+    repeat is bit-identical."""
     rng = np.random.RandomState(7 * batch + hidden)
     steps = 20
     proj, mask, w_rz, w_c, h0 = _gru_inputs(rng, cuda_device, dtype, steps,
@@ -254,12 +261,14 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
     before = gk.bwd_launches
     got = gk.gru_seq_bwd(*args)
     torch.cuda.synchronize()
-    launch = gk.gru_seq_bwd.last_launch
+    launch = dict(gk.gru_seq_bwd.last_launch)
     assert gk.bwd_launches == before + launch["launches"]
-    if batch <= 64:
+    _, smem, clusters = gk.device_limits(cuda_device)
+    plan = gk.gru_bwd_plan(batch, hidden, dtype, smem, clusters)
+    assert launch["layout"] == plan["layout"] == (
+        "cluster" if hidden in (256, 512) else "unit_tiles")
+    if batch <= 64 or plan["layout"] == "cluster":
         assert launch["launches"] == 1, launch
-    if batch == 600:
-        assert launch["launches"] >= 2, launch
     want = gk.gru_seq_bwd_reference(*args)
     for name, g, w in zip(("dproj", "dh0"), got, want):
         assert g.dtype == dtype
@@ -267,6 +276,253 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=tol * scale,
                                    msg=lambda m, n=name: "%s: %s" % (n, m))
+    again = gk.gru_seq_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def _lstm_bwd_inputs(rng, device, dtype, steps, batch, hidden):
+    """Numpy-seeded LSTM backward inputs; lengths include T, 0 and 1."""
+    lens = rng.randint(0, steps + 1, batch)
+    lens[:3] = (steps, 0, 1)[:batch]
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    seq = (steps, batch, hidden)
+    return (dev(rng.randn(steps, batch, 4 * hidden) * 0.5),
+            dev((np.arange(steps)[:, None] < lens[None, :]), torch.float32),
+            dev(rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)),
+            dev(rng.randn(3, hidden) * 0.3, torch.float32),
+            dev(np.tanh(rng.randn(*seq))), dev(rng.randn(*seq) * 0.5),
+            dev(rng.randn(*seq) * 0.5), dev(rng.randn(*seq) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5))
+
+
+def _forced_plan(kind, layout, batch, hidden, dtype, rows, device):
+    """The plan of ``layout`` for this shape on this card, its rows per
+    block set to ``rows`` where given, or None where the layout does not
+    take the shape."""
+    mod = gk if kind == "gru" else lk
+    sms, smem, clusters = mod.device_limits(device)
+    if layout == "unit_tiles":
+        return {"layout": "unit_tiles", "code": 0}
+    if kind == "gru":
+        plan = gk.gru_bwd_plan(batch, hidden, dtype, smem, clusters)
+    elif layout == "cluster":
+        plan = lk.cluster_plan(batch, hidden, dtype, smem, clusters)
+    else:
+        plan = lk.bwd_plan(batch, hidden, dtype, sms, smem, clusters,
+                           min_hidden=0)
+    if plan is None or plan["layout"] != layout:
+        return None
+    if rows is not None:
+        esz = 4 if dtype == torch.float32 else 2
+        plan = dict(plan, rows_per_block=rows, clusters=-(-batch // rows),
+                    smem_bytes=mod._cl_smem(hidden, rows, esz))
+        assert plan["smem_bytes"] <= smem
+    return plan
+
+
+# The recompute passes' float32 products against float64, as a share of
+# each element's scale (|bias| + sum of |terms|): full float32 stays
+# within it (a sequential float32 sum over K = 256 terms: about 3e-7);
+# a TF32 product (10 mantissa bits, about 1e-4) does not.
+RECOMPUTE_TOL = 1e-6
+
+
+def _recompute_error(got, bias, a, b, act=None):
+    """max |got - f(bias + a . b)| / (f' x (|bias| + |a| . |b|)) over all
+    elements, the product in float64; with an activation ``act``
+    ("sigmoid" or "tanh") its own rounding (up to 2^-21) is set aside
+    first."""
+    a = a.double().reshape(-1, a.shape[-1])
+    b = b.double()
+    z = bias.double().reshape(a.shape[0], -1) + a @ b
+    scale = bias.double().abs().reshape(z.shape) + a.abs() @ b.abs()
+    got = got.double().reshape(z.shape)
+    if act is None:
+        return float(((got - z).abs() / scale).max())
+    want = torch.sigmoid(z) if act == "sigmoid" else torch.tanh(z)
+    slope = want * (1 - want) if act == "sigmoid" else 1 - want * want
+    err = ((got - want).abs() - 2.0 ** -21).clamp(min=0)
+    return float((err / (slope * scale)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,layout,batch,hidden", [
+    ("lstm", "cluster", 64, 256), ("lstm", "w_tiles", 64, 512),
+    ("gru", "cluster", 64, 256)])
+def test_recompute_pass_is_full_float32_on_card(cuda_device, kind, layout,
+                                                batch, hidden):
+    """The float32 recompute pass of the cluster and W-tile layouts keeps
+    full float32 products, as the forward kernels and the reference do:
+    z = gates + hprev . W (LSTM), and u, r = sigmoid(proj_{u,r} + hprev .
+    W_rz) and c = tanh(proj_c + rh . W_c) (GRU, with the kernel's own rh),
+    as the call leaves them in its workspace, against float64 within
+    RECOMPUTE_TOL of each element's scale."""
+    rng = np.random.RandomState(hidden + batch)
+    steps = 50
+    if kind == "lstm":
+        args = _lstm_bwd_inputs(rng, cuda_device, torch.float32, steps, batch,
+                                hidden)
+        plan = _forced_plan(kind, layout, batch, hidden, torch.float32, None,
+                            cuda_device)
+        _, z = lk._launch_bwd(args, plan)
+        torch.cuda.synchronize()
+        assert lk.lstm_seq_bwd.last_launch["layout"] == layout
+        err = _recompute_error(z, args[0], args[4], args[2])
+        assert err <= RECOMPUTE_TOL, err
+        return
+    proj, mask, w_rz, w_c, _ = _gru_inputs(rng, cuda_device, torch.float32,
+                                           steps, batch, hidden)
+    hprev = torch.tanh(torch.tensor(rng.randn(steps, batch, hidden),
+                                    dtype=torch.float32, device=cuda_device))
+    dh = torch.zeros_like(hprev)
+    plan = _forced_plan(kind, layout, batch, hidden, torch.float32, None,
+                        cuda_device)
+    _, (zbuf, rh) = gk._launch_bwd(
+        (proj, mask, w_rz, w_c, hprev, dh, dh[0]), plan)
+    torch.cuda.synchronize()
+    assert gk.gru_seq_bwd.last_launch["layout"] == layout
+    h2 = 2 * hidden
+    for name, got, bias, a, b, act in (
+            ("u, r", zbuf[..., :h2], proj[..., :h2], hprev, w_rz, "sigmoid"),
+            ("c", zbuf[..., h2:], proj[..., h2:], rh, w_c, "tanh")):
+        err = _recompute_error(got, bias, a, b, act)
+        assert err <= RECOMPUTE_TOL, (name, err)
+
+
+# (B, H, rows per block of a cluster; None: the planner's): H = 96 (3 unit
+# tiles) and 200 (7, the last of 8 units), B not a multiple of the rows, the
+# flagship's and the tagger's widths at their trained batch and at B=1, and
+# for the GRU the NMT encoder's width (clusters of 16) and a batch whose
+# unit tiles run as row chunks
+BWD_LAYOUT_SHAPES = [(6, 96, 4), (3, 200, 2), (9, 256, 5), (13, 256, 8),
+                     (64, 256, None), (1, 256, None)]
+GRU_LAYOUT_SHAPES = BWD_LAYOUT_SHAPES + [(64, 512, None), (600, 256, None)]
+
+
+def _check_bwd_outputs(got, want, tol, dtype, dpeep=False):
+    names = ("dgates", "dh0", "dc0") if dpeep else ("dproj", "dh0")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == dtype
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * scale,
+                                   msg=lambda m, n=name: "%s: %s" % (n, m))
+    if dpeep:
+        scale = float(want[3].abs().max())
+        torch.testing.assert_close(got[3], want[3], rtol=0, atol=tol * scale,
+                                   msg=lambda m: "dpeep: %s" % m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch,hidden,rows", BWD_LAYOUT_SHAPES)
+@pytest.mark.parametrize("layout", ["unit_tiles", "cluster", "w_tiles"])
+def test_bwd_layouts_forced_on_card(cuda_device, layout, batch, hidden,
+                                    rows, dtype, tol):
+    """Each layout of the LSTM backward, forced by ``plan=``, against the
+    plain version on the card (TOL_BWD of chip_smoke.py), with ragged
+    masks (lengths T, 0 and 1), batches that are no multiple of the rows
+    per block, and widths of 3 and 7 unit tiles; one counted launch of
+    the recurrence (the cluster's recompute pass is part of it), and a
+    repeat that is bit-identical."""
+    rng = np.random.RandomState(31 * hidden + batch)
+    args = _lstm_bwd_inputs(rng, cuda_device, dtype, 20, batch, hidden)
+    plan = _forced_plan("lstm", layout, batch, hidden, dtype, rows,
+                        cuda_device)
+    assert plan is not None
+    before = lk.bwd_launches
+    got = lk.lstm_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    launch = dict(lk.lstm_seq_bwd.last_launch)
+    assert launch["layout"] == layout and launch["launches"] == 1
+    assert lk.bwd_launches == before + 1
+    if layout == "cluster":
+        assert launch["rows_per_block"] == plan["rows_per_block"]
+        assert rows is None or plan["rows_per_block"] == rows
+    _check_bwd_outputs(got, lk.lstm_seq_bwd_reference(*args), tol, dtype,
+                       dpeep=True)
+    again = lk.lstm_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("batch,hidden,rows", GRU_LAYOUT_SHAPES)
+@pytest.mark.parametrize("layout", ["unit_tiles", "cluster"])
+def test_gru_bwd_layouts_forced_on_card(cuda_device, layout, batch, hidden,
+                                        rows, dtype, tol):
+    """Each layout of the GRU backward, forced by ``plan=``, against the
+    plain version on the card, as test_bwd_layouts_forced_on_card; unit
+    tiles at B=600 run as several launches of row chunks, a cluster launch
+    is one launch at any batch."""
+    rng = np.random.RandomState(37 * hidden + batch)
+    args = _gru_inputs(rng, cuda_device, dtype, 20, batch, hidden)
+    h_seq = gk.gru_seq_fwd_reference(*args)
+    args = (args[0], args[1], args[2], args[3],
+            torch.cat([args[4][None], h_seq[:-1]]),
+            torch.tensor(rng.randn(20, batch, hidden) * 0.5, dtype=dtype,
+                         device=cuda_device),
+            torch.tensor(rng.randn(batch, hidden) * 0.5, dtype=dtype,
+                         device=cuda_device))
+    plan = _forced_plan("gru", layout, batch, hidden, dtype, rows,
+                        cuda_device)
+    assert plan is not None
+    before = gk.bwd_launches
+    got = gk.gru_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    launch = dict(gk.gru_seq_bwd.last_launch)
+    assert launch["layout"] == layout
+    assert gk.bwd_launches == before + launch["launches"]
+    if layout == "cluster" or batch <= 64:
+        assert launch["launches"] == 1, launch
+    else:
+        assert launch["launches"] >= 2, launch
+    if layout == "cluster":
+        assert launch["w_placement"] == 5
+        assert rows is None or launch["rows_per_block"] == rows
+    _check_bwd_outputs(got, gk.gru_seq_bwd_reference(*args), tol, dtype)
+    again = gk.gru_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises_on_card(cuda_device):
+    """A cluster plan the kernel does not take raises; nothing falls back
+    to another layout or to the plain version: rows per block the kernel
+    is not compiled for (3), a width that is no multiple of 8, an LSTM
+    float32 block whose row slice exceeds the card's shared memory (H=480:
+    240 KB), and a GRU cluster of 17 blocks (H=544)."""
+    rng = np.random.RandomState(3)
+    for batch, hidden, rows in ((6, 96, 3), (6, 100, 1), (2, 480, 1)):
+        args = _lstm_bwd_inputs(rng, cuda_device, torch.float32, 4, batch,
+                                hidden)
+        plan = {"layout": "cluster", "code": 2, "rows_per_block": rows}
+        before = lk.bwd_launches
+        with pytest.raises(RuntimeError, match="lstm_seq_bwd kernel launch "
+                           "failed"):
+            lk.lstm_seq_bwd(*args, plan=plan)
+        assert lk.bwd_launches == before
+    for batch, hidden, rows in ((6, 96, 3), (6, 100, 1), (2, 544, 1)):
+        plan = {"layout": "cluster", "code": 2, "rows_per_block": rows}
+        before = gk.bwd_launches
+        gargs = _gru_inputs(rng, cuda_device, torch.float32, 4, batch,
+                            hidden)
+        gargs = gargs[:4] + (gargs[4][None].expand(4, -1, -1).contiguous(),
+                             torch.zeros(4, batch, hidden, device=cuda_device),
+                             gargs[4])
+        with pytest.raises(RuntimeError, match="gru_seq_bwd kernel launch "
+                           "failed"):
+            gk.gru_seq_bwd(*gargs, plan=plan)
+        assert gk.bwd_launches == before
 
 
 # (N, H, W, C, F, k): ResNet-50 stage shapes at a small batch, N=1, the

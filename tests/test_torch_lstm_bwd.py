@@ -28,6 +28,7 @@ import torch
 
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu.ops import rnn as jax_rnn
+from paddle_tpu_torch.ops import clusters
 from paddle_tpu_torch.ops import lstm_kernels as lk
 from paddle_tpu_torch.ops import rnn as torch_rnn
 
@@ -231,17 +232,31 @@ def test_kernel_branch_gradients_come_only_from_the_function(monkeypatch):
 @pytest.mark.parametrize("batch", [1, 8, 64, 128])
 @pytest.mark.parametrize("hidden", [40, 256, 1280])
 def test_bwd_plan_layouts_at_the_lstm_shapes(dtype, batch, hidden):
-    """The backward's planner: unit tiles below H=512 (K2 at the flagship's
-    256, the odd test width 40); at H=1280 (K4, the wide row) W tiles of 160
-    units x 320 gate columns, 8 x 16 = 128 blocks (one per SM), at most 64
-    rows per launch (128 rows as two launches), the tile resident in shared
-    memory in bfloat16 (128 KB) and streamed from L2 in float32, (D) on the
-    tensor cores in bfloat16 launches of more than 8 rows, and every
-    block's shared memory within the card's 227 KB."""
+    """The backward's planner: clusters below H=512 (K2 at the flagship's
+    256: one cluster of 8 blocks per batch tile, 5 rows per block at B=64
+    so that its 13 clusters are co-resident on an H100 (which holds 15), 1
+    row at B=1 and 8, 8 rows at B=128; the test width 40: clusters of 2, 2
+    and 4 rows at B=64 and 128);
+    at H=1280 (K4, the
+    wide row) W tiles of 160 units x 320 gate columns, 8 x 16 = 128 blocks
+    (one per SM), at most 64 rows per launch (128 rows as two launches), the
+    tile resident in shared memory in bfloat16 (128 KB) and streamed from
+    L2 in float32, (D) on the tensor cores in bfloat16 launches of more
+    than 8 rows, and every block's shared memory within the card's 227
+    KB."""
     plan = lk.bwd_plan(batch, hidden, dtype)
     assert plan == lk.bwd_plan(batch, hidden, dtype)
     if hidden < 512:
-        assert plan == {"layout": "unit_tiles", "code": 0}
+        # 15 clusters of 8 blocks at once on an H100, 60 of 2
+        rows = ({1: 1, 8: 1, 64: 5, 128: 8} if hidden == 256
+                else {1: 1, 8: 1, 64: 2, 128: 4})[batch]
+        esz = 4 if dtype == torch.float32 else 2
+        assert plan == {"layout": "cluster", "code": 2,
+                        "rows_per_block": rows,
+                        "cluster_size": -(-hidden // 32),
+                        "clusters": -(-batch // rows),
+                        "smem_bytes": lk._cl_smem(hidden, rows, esz)}
+        assert plan["smem_bytes"] <= 232448
         return
     assert plan["layout"] == "w_tiles" and plan["code"] == 1
     assert (plan["units"], plan["cols"]) == (160, 320)
@@ -339,6 +354,148 @@ def test_bwd_plan_constants_match_the_kernel():
     assert tuple(int(c) for c in re.findall(r"case (\d+):", body)) + (8,) \
         == lk._BWD_UNITS_PER_LANE
     assert "wt_kernel_res<T, R, 8>" in body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [36, 100, 250, 508])
+def test_bwd_plan_unit_tiles_where_h_is_not_a_multiple_of_8(dtype, hidden):
+    """The recompute pass and the cluster layout take H % 8 == 0 only; the
+    planner keeps unit tiles at every other width below the W tiles'."""
+    for batch in (1, 8, 64):
+        assert lk.bwd_plan(batch, hidden, dtype) == {"layout": "unit_tiles",
+                                                     "code": 0}
+        assert lk.cluster_plan(batch, hidden, dtype) is None
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_bwd_plan_unit_tiles_where_a_cluster_does_not_fit(batch):
+    """Unit tiles where the cluster layout cannot hold the width: W's row
+    slice of a float32 block at H=488 (16 blocks) exceeds an H100's 227 KB
+    (in bfloat16 it fits); 17 or more unit tiles exceed a cluster (on a card
+    whose W tiles start above that width); a card that offers no clusters
+    of 16 leaves H=384 (12 blocks) to unit tiles; and a card of less shared
+    memory leaves H=256 in float32 to unit tiles."""
+    unit = {"layout": "unit_tiles", "code": 0}
+    assert lk.bwd_plan(batch, 488, torch.float32) == unit
+    assert lk.bwd_plan(batch, 488, torch.bfloat16)["layout"] == "cluster"
+    assert lk.bwd_plan(batch, 544, torch.bfloat16, min_hidden=1024) == unit
+    assert lk.bwd_plan(batch, 384, torch.float32)["layout"] == "cluster"
+    assert lk.bwd_plan(batch, 384, torch.float32,
+                       clusters=(16, 0)) == unit
+    assert lk.bwd_plan(batch, 256, torch.float32, smem=101376) == unit
+    assert lk.bwd_plan(batch, 256, torch.bfloat16,
+                       smem=101376)["layout"] == "cluster"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [40, 96, 200, 256, 384, 480])
+@pytest.mark.parametrize("batch", [1, 3, 8, 64, 128, 600])
+def test_cluster_plan_rows_keep_the_batch_co_resident(dtype, hidden, batch):
+    """The rows per block: the smallest of 1, 2, 4, 5, 8 whose clusters the
+    card holds at once (15 clusters of 8 on an H100, twice as many of 4 or
+    fewer blocks, 7 of 16 blocks), else the largest whose block fits;
+    every plan's block fits in 227 KB."""
+    plan = lk.cluster_plan(batch, hidden, dtype)
+    esz = 4 if dtype == torch.float32 else 2
+    tiles = -(-hidden // 32)
+    if lk._cl_smem(hidden, 1, esz) > 232448:
+        assert plan is None
+        return
+    slots = 15 * (8 // tiles) if tiles <= 8 else 7
+    rows = plan["rows_per_block"]
+    assert plan["cluster_size"] == tiles
+    assert plan["clusters"] == -(-batch // rows)
+    assert plan["smem_bytes"] == lk._cl_smem(hidden, rows, esz) <= 232448
+    fits = [r for r in clusters.ROWS if lk._cl_smem(hidden, r, esz) <= 232448]
+    co_resident = [r for r in fits if -(-batch // r) <= slots]
+    assert rows == (co_resident[0] if co_resident else fits[-1])
+
+
+# (B, H, rows per block the planner picks): every count the cluster
+# kernel is compiled for, at an ordinary batch
+ROWS_AT = [(8, 256, 1), (64, 40, 2), (200, 40, 4), (64, 256, 5),
+           (128, 256, 8)]
+
+
+@pytest.mark.parametrize("batch,hidden,rows", ROWS_AT)
+def test_cluster_plan_reaches_every_compiled_row_count(batch, hidden, rows):
+    """Every rows-per-block count the kernel is compiled for comes out of
+    the planner at an ordinary batch, so the card tests reach each one
+    through ``cluster_plan``; a width that is no multiple of 8 has no
+    cluster plan."""
+    assert sorted({r for _, _, r in ROWS_AT}) == list(clusters.ROWS)
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = lk.cluster_plan(batch, hidden, dtype)
+        assert plan["rows_per_block"] == rows
+        assert plan["clusters"] == -(-batch // rows)
+    assert lk.cluster_plan(batch, 100, torch.float32) is None
+
+
+def _cluster_smem_from_source(path):
+    """cl_smem_bytes of a csrc/*.cu, as a Python function of (hidden, rows,
+    element bytes), from the C expression itself."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(lk.__file__), os.pardir, "csrc",
+                            path)).read()
+    body = src[src.index("constexpr int cl_smem_bytes("):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    expr = expr.replace("static_cast<int>(sizeof(float))", "4")
+
+    consts = {"round_up": lambda x, m: -(-x // m) * m, "kUnits": 32,
+              "kWarps": 8, "kCols": 128,
+              "kDzLd": 128 + int(re.search(
+                  r"constexpr int kDzLd = kCols \+ (\d+);", src).group(1))}
+
+    def evaluate(hidden, rows, esz):
+        return eval("(%s)" % expr, dict(consts, hidden=hidden, rows=rows,
+                                        elem_bytes=esz))
+    return src, evaluate
+
+
+def test_cluster_constants_match_the_kernel():
+    """The planner's copy of the cluster layout's constants equals the
+    kernel's (csrc/lstm_seq_bwd.cu, csrc/sm90_cluster.cuh): the cluster
+    size limit, the portable size, the rows per block the kernel is
+    compiled for, the units per block and warps, and the shared-memory
+    formula (W's row slice, the double-buffered exchange buffers and the
+    partial sums), evaluated from the C expression."""
+    import os
+    import re
+    src, smem = _cluster_smem_from_source("lstm_seq_bwd.cu")
+    assert int(re.search(r"constexpr int kClMaxTiles = (\d+);",
+                         src).group(1)) == clusters.MAX_TILES
+    assert int(re.search(r"constexpr int kUnits = (\d+);", src).group(1)) == 32
+    assert int(re.search(r"constexpr int kWarps = (\d+);", src).group(1)) == 8
+    hdr = open(os.path.join(os.path.dirname(lk.__file__), os.pardir, "csrc",
+                            "sm90_cluster.cuh")).read()
+    assert int(re.search(r"constexpr int kPortableClusterSize = (\d+);",
+                         hdr).group(1)) == clusters.PORTABLE
+    body = src[src.index("void* cl_kernel(int rows, int tiles)"):]
+    body = body[:body.index("\n}\n")]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", body)) + (8,) \
+        == clusters.ROWS
+    assert "cl_kernel_w<T, 8>" in body.split("default:")[1]
+    assert "lstm_bwd_cluster<T, R, true>" in src
+    # the card's limits are read for this file's own cluster kernel
+    assert ("return sm90::card_limits(cl_kernel<float>(1, 16), kThreads, "
+            "device, out);" in src)
+    assert "int lstm_seq_bwd_limits(int device, int* out)" in src
+    # the exchange: each block's dz rows at kDzLd floats a row, its partial
+    # sums for a group of 32 units stored into the group's block at
+    # rcv[src], two buffers by step parity, summed there in rank order
+    assert int(re.search(r"constexpr int kDzLd = kCols \+ (\d+);",
+                         src).group(1)) + 128 == lk._CL_DZ_LD
+    assert "float* rt = rcv + (t & 1) * hp * R;" in src
+    assert ("float* dst = cluster.map_shared_rank(rt, grp) + src * R * kUnits;"
+            in src)
+    assert ("for (int k = 0; k < tiles; ++k) s += rt[(k * R + warp) * kUnits "
+            "+ lane];" in src)
+    for hidden in (40, 96, 200, 256, 384, 480):
+        for rows in clusters.ROWS:
+            for esz in (2, 4):
+                assert smem(hidden, rows, esz) == lk._cl_smem(hidden, rows,
+                                                              esz)
 
 
 def test_bwd_plan_refuses_other_dtypes():
