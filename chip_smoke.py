@@ -13,9 +13,20 @@ result line:
 3. kernel  lstm_seq_fwd (csrc/lstm_seq_fwd.cu) against its plain PyTorch
            version on the card: T=64, B in {1, 8, 32}, H=256 (the served
            flagship) and T=100, B=64, H=1280 (the wide row), in float32 and
-           bfloat16; errors, CUDA-event times, the bound, and cuDNN's LSTM
-           time for information (not the same function); then T=32, B=128,
-           H=1280, which runs as several launches of row chunks.
+           bfloat16; errors, CUDA-event times behind a sleep kernel, the
+           bound, and cuDNN's LSTM time for information (not the same
+           function). Each row names the layout the planner chose
+           (clusters at H=256, the grid at H=1280), which is held, and a
+           repeat of every call is bit-identical. Then T=32, B=128, H=1280
+           with the unit-tile layout forced, which runs as several launches
+           of row chunks, and in the planner's layout (the grid: one launch
+           of two passes).
+   kernel_fwd_layouts  every layout of the LSTM forward that takes the
+           shape (unit tiles; clusters; the grid) at the shapes of phase 3
+           and training's (100, 64, 256), (100, 64, 512), each held against
+           the plain version, repeated bit for bit and timed: the reading
+           the planner's switches are set by; the planner's layout must be
+           within 10 % of the fastest.
 4. kernel_bwd  lstm_seq_bwd (csrc/lstm_seq_bwd.cu) the same way at
            (T, B, H) = (100, 64, 256) (the training bench row), (64, 8,
            256), (100, 64, 1280) (the wide row) and (32, 128, 1280) (row
@@ -53,8 +64,13 @@ result line:
            version at (T, B, H) = (128, 1|8|32, 256) (the served tagger),
            (128, 64, 256) (the trained tagger) and (30, 64, 512) (the NMT
            encoder's width), float32 and bfloat16, ragged masks; errors,
-           CUDA-event times, the bound, and cuDNN's GRU time for scale
-           (not the same function).
+           CUDA-event times behind a sleep kernel, the bound, and cuDNN's
+           GRU time for scale (not the same function); each row's layout
+           (clusters at H=256) is held, and a repeat of every call is
+           bit-identical.
+   kernel_gru_fwd_layouts  both layouts of the GRU forward (unit tiles,
+           clusters) at the same shapes, held, repeated and timed; the
+           planner's layout within 10 % of the faster.
 10. kernel_gru_bwd  gru_seq_bwd (csrc/gru_seq_bwd.cu) the same way at
            (128, 64, 256) and (30, 64, 512); each row's layout (clusters at
            both) is held, and a repeat of every call is bit-identical.
@@ -116,10 +132,12 @@ result line:
            least once, and a repeat of every call is bit-identical. Then
            one line of readings: K9 at ResNet-50's fc against the library,
            K8's bfloat16 sum against its float32 sum, K7's sums, the LSTM
-           backward at (100, 64, 1280) (K4) and (100, 64, 256) (K2) and the
-           GRU backward at (128, 64, 256) (K6) against the targets of their
-           redesigns, per step, and whether the planners picked the layout
-           their layouts phases measured faster (reported, not held).
+           backward at (100, 64, 1280) (K4) and (100, 64, 256) (K2), the
+           GRU backward at (128, 64, 256) (K6), and the forward kernels K3
+           at (100, 64, 1280), K1 at (64, 32, 256) and K5 at (128, 32, 256)
+           against the targets of their redesigns, per step, and whether
+           the planners picked the layout their layouts phases measured
+           faster.
 18. serve_flagship_int8  the full-width flagship exported with
            quantize="int8" (buckets 1/8/32, seq_len 64), a burst of 12
            requests of 1-8 rows through the engine and 2 HTTP requests,
@@ -197,9 +215,22 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, data sheet
 
 KERNEL_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256), (100, 64, 1280)]
-# a batch whose grid is not co-resident in one launch: the wrapper splits
-# it into row chunks (checked, not on the main path)
+# a batch whose unit-tile grid is not co-resident in one launch: with that
+# layout forced the wrapper splits it into row chunks (checked, not on the
+# main path); the planner's grid layout takes it in one launch
 CHUNKED_CASES = [(32, 128, 1280)]
+UNIT_TILES = {"layout": "unit_tiles", "code": 0}
+# the forward's layout by hidden size (ops/lstm_kernels.fwd_plan,
+# ops/gru_kernels.gru_fwd_plan)
+FWD_LAYOUTS = {256: "cluster", 1280: "grid"}
+GRU_FWD_LAYOUTS = {256: "cluster"}
+# (T, B, H) at which every forward layout that takes the shape is timed
+FWD_LAYOUT_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256),
+                    (100, 64, 256), (100, 64, 512), (100, 64, 1280),
+                    (32, 128, 1280)]
+# the planner's layout against the fastest measured: layouts whose times
+# differ by less than this swap places between runs
+PLANNER_SLACK = 1.10
 BWD_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 1280)]
 BWD_CHUNKED_CASES = [(32, 128, 1280)]
 # the backward's layout by hidden size (ops/lstm_kernels.bwd_plan)
@@ -260,6 +291,11 @@ K4_TARGET_MS = 6.0
 # (128, 64, 256), reported beside the measured times (not held)
 K2_TARGET_MS = {"float32": 0.40, "bfloat16": 0.35}
 K6_TARGET_MS = {"float32": 0.60}
+# the targets of the forward redesign: K3 at (100, 64, 1280), K1 at (64,
+# 32, 256) and K5 at (128, 32, 256), float32 (reported, not held)
+K3_TARGET_MS = {"float32": 2.5}
+K1_TARGET_MS = {"float32": 0.12}
+K5_TARGET_MS = {"float32": 0.40}
 # K9 (M, K, N): the int8 flagship's three products at bucket 32 and seq_len
 # 64 and at bucket 1, ResNet-50's fc at buckets 32, 8 and 1, the mlp's three
 # products, and an odd shape
@@ -358,6 +394,12 @@ def kernel_inputs(torch, steps, batch, hidden, dtype, seed):
             dev(rng.randn(batch, hidden) * 0.5))
 
 
+def fwd_error(got, want):
+    """max over the outputs of max |got - want| (absolute)."""
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
 def phase_kernel(torch, lk):
     results = []
     for steps, batch, hidden in KERNEL_CASES:
@@ -365,14 +407,23 @@ def phase_kernel(torch, lk):
             name = str(dtype).replace("torch.", "")
             args = kernel_inputs(torch, steps, batch, hidden, dtype,
                                  SEED + batch + hidden)
-            h_k, c_k = lk.lstm_seq_fwd(*args)
+            got = lk.lstm_seq_fwd(*args)
             torch.cuda.synchronize()
             launch = dict(lk.lstm_seq_fwd.last_launch)
-            h_r, c_r = lk.lstm_seq_fwd_reference(*args)
-            err = max((h_k.float() - h_r.float()).abs().max().item(),
-                      (c_k.float() - c_r.float()).abs().max().item())
+            if launch["layout"] != FWD_LAYOUTS[hidden]:
+                raise AssertionError("lstm_seq_fwd %s at H=%d ran layout %r,"
+                                     " not %r" % (name, hidden,
+                                                  launch["layout"],
+                                                  FWD_LAYOUTS[hidden]))
+            # sums in a fixed order: a repeat is the same bit for bit
+            if not all(torch.equal(a, b)
+                       for a, b in zip(lk.lstm_seq_fwd(*args), got)):
+                raise AssertionError("lstm_seq_fwd %s at %s: a repeat differs"
+                                     % (name, (steps, batch, hidden)))
+            err = fwd_error(got, lk.lstm_seq_fwd_reference(*args))
             tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-            ms = time_ms(torch, lambda: lk.lstm_seq_fwd(*args))
+            ms = time_ms(torch, lambda: lk.lstm_seq_fwd(*args),
+                         queue_ahead=True)
             plain_ms = time_ms(torch,
                                lambda: lk.lstm_seq_fwd_reference(*args),
                                warmup=1)
@@ -385,6 +436,7 @@ def phase_kernel(torch, lk):
             row = {"phase": "kernel", "kernel": "lstm_seq_fwd", "T": steps,
                    "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
+                   "ms_per_step": ms / steps,
                    "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by,
                    "cudnn_lstm_ms_not_same_function": cudnn_ms,
@@ -399,22 +451,113 @@ def phase_kernel(torch, lk):
             name = str(dtype).replace("torch.", "")
             args = kernel_inputs(torch, steps, batch, hidden, dtype,
                                  SEED + batch + hidden)
-            h_k, c_k = lk.lstm_seq_fwd(*args)
-            torch.cuda.synchronize()
-            launch = dict(lk.lstm_seq_fwd.last_launch)
-            h_r, c_r = lk.lstm_seq_fwd_reference(*args)
-            err = max((h_k.float() - h_r.float()).abs().max().item(),
-                      (c_k.float() - c_r.float()).abs().max().item())
+            want = lk.lstm_seq_fwd_reference(*args)
             tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-            row = {"phase": "kernel_chunked", "kernel": "lstm_seq_fwd",
-                   "T": steps, "B": batch, "H": hidden, "dtype": name,
-                   "max_abs_err": err, "tol": tol,
-                   "ms": time_ms(torch, lambda: lk.lstm_seq_fwd(*args)),
-                   "launch": launch}
-            emit(row)
-            if not (err <= tol and launch["launches"] >= 2):
-                raise AssertionError("chunked lstm_seq_fwd: %r" % row)
+            # unit tiles forced: the batch runs as row chunks; then the
+            # planner's layout (the grid) in one launch
+            for phase, plan in (("kernel_chunked", UNIT_TILES),
+                                ("kernel_b128", None)):
+                got = lk.lstm_seq_fwd(*args, plan=plan)
+                torch.cuda.synchronize()
+                launch = dict(lk.lstm_seq_fwd.last_launch)
+                err = fwd_error(got, want)
+                row = {"phase": phase, "kernel": "lstm_seq_fwd",
+                       "T": steps, "B": batch, "H": hidden, "dtype": name,
+                       "max_abs_err": err, "tol": tol,
+                       "ms": time_ms(torch,
+                                     lambda p=plan: lk.lstm_seq_fwd(*args,
+                                                                    plan=p),
+                                     queue_ahead=True),
+                       "launch": launch}
+                emit(row)
+                if not err <= tol:
+                    raise AssertionError("lstm_seq_fwd at B=%d: %r"
+                                         % (batch, row))
+                if plan is UNIT_TILES and launch["launches"] < 2:
+                    raise AssertionError("chunked lstm_seq_fwd: %r" % row)
+                if plan is None and (launch["layout"], launch["launches"]) \
+                        != (FWD_LAYOUTS[hidden], 1):
+                    raise AssertionError("lstm_seq_fwd at B=%d did not run "
+                                         "as one %s launch: %r"
+                                         % (batch, FWD_LAYOUTS[hidden], row))
     return results
+
+
+def layouts_row(torch, phase, kernel, shape, dtype, run, reference, plans,
+                planned, tol):
+    """One row of a forward layouts phase: each layout of ``plans`` (that
+    takes the shape) run by ``run(plan)``, held against ``reference()``
+    within ``tol``, repeated bit for bit and timed behind a sleep kernel;
+    the planner's layout ``planned`` must be within PLANNER_SLACK of the
+    fastest."""
+    steps, batch, hidden = shape
+    name = str(dtype).replace("torch.", "")
+
+    def outputs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    want = outputs(reference())
+    row = {"phase": phase, "kernel": kernel, "T": steps, "B": batch,
+           "H": hidden, "dtype": name, "tol": tol, "planner": planned}
+    for layout, plan in plans.items():
+        got = outputs(run(plan))
+        torch.cuda.synchronize()
+        launch = dict(run.last_launch())
+        err = fwd_error(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(outputs(run(plan)), got))
+        row[layout] = {"ms": time_ms(torch, lambda p=plan: run(p),
+                                     queue_ahead=True),
+                       "max_abs_err": err, "launch": launch}
+        if launch["layout"] != layout or not err <= tol or not same:
+            raise AssertionError("%s %s layout %s at %s: %r (repeat "
+                                 "identical: %s)" % (kernel, name, layout,
+                                                     shape, row, same))
+    row["faster"] = min(plans, key=lambda k: row[k]["ms"])
+    row["planner_over_fastest"] = (row[planned]["ms"]
+                                   / row[row["faster"]]["ms"])
+    emit(row)
+    if row["planner_over_fastest"] > PLANNER_SLACK:
+        raise AssertionError("%s planner picked %s at %s %s, %.2fx the "
+                             "fastest (%s)" % (kernel, planned, shape, name,
+                                               row["planner_over_fastest"],
+                                               row["faster"]))
+    return row
+
+
+def runner(fn, wrapper, *args):
+    """``plan -> wrapper(*args, plan=plan)``, with ``last_launch()`` reading
+    the wrapper's record of its last call."""
+    def run(plan):
+        return fn(*args, plan=plan)
+    run.last_launch = lambda: wrapper.last_launch
+    return run
+
+
+def phase_kernel_fwd_layouts(torch, lk):
+    """Every layout of the LSTM forward that takes the shape (unit tiles;
+    clusters, H % 8 == 0 up to 16 unit tiles; the grid, up to 10 units a
+    block) at ``FWD_LAYOUT_CASES``, float32 and bfloat16: the reading
+    ``fwd_plan``'s switches are set by."""
+    rows = []
+    sms, smem, clusters = lk.fwd_device_limits(torch.device(DEVICE))
+    for steps, batch, hidden in FWD_LAYOUT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = kernel_inputs(torch, steps, batch, hidden, dtype,
+                                 SEED + 17 * hidden + batch)
+            plans = {"unit_tiles": UNIT_TILES,
+                     "cluster": lk.fwd_cluster_plan(batch, hidden, dtype,
+                                                    smem, clusters),
+                     "grid": lk.grid_plan(batch, hidden, dtype, sms, smem)}
+            plans = {k: v for k, v in plans.items() if v is not None}
+            rows.append(layouts_row(
+                torch, "kernel_fwd_layouts", "lstm_seq_fwd",
+                (steps, batch, hidden), dtype,
+                runner(lk.lstm_seq_fwd, lk.lstm_seq_fwd, *args),
+                lambda: lk.lstm_seq_fwd_reference(*args), plans,
+                lk.fwd_plan(batch, hidden, dtype, sms, smem,
+                            clusters)["layout"],
+                TOL_F32 if dtype == torch.float32 else TOL_BF16))
+    return rows
 
 
 def lstm_bwd_bound_ms(steps, batch, hidden, dtype_name):
@@ -634,9 +777,19 @@ def phase_kernel_gru(torch, gk):
             h_k = gk.gru_seq_fwd(*args)
             torch.cuda.synchronize()
             launch = dict(gk.gru_seq_fwd.last_launch)
+            want = GRU_FWD_LAYOUTS.get(hidden)
+            if want and launch["layout"] != want:
+                raise AssertionError("gru_seq_fwd %s at H=%d ran layout %r, "
+                                     "not %r" % (name, hidden,
+                                                 launch["layout"], want))
+            # sums in a fixed order: a repeat is the same bit for bit
+            if not torch.equal(gk.gru_seq_fwd(*args), h_k):
+                raise AssertionError("gru_seq_fwd %s at %s: a repeat differs"
+                                     % (name, (steps, batch, hidden)))
             err = bwd_error([h_k], [gk.gru_seq_fwd_reference(*args)])
             tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-            ms = time_ms(torch, lambda: gk.gru_seq_fwd(*args))
+            ms = time_ms(torch, lambda: gk.gru_seq_fwd(*args),
+                         queue_ahead=True)
             plain_ms = time_ms(torch,
                                lambda: gk.gru_seq_fwd_reference(*args),
                                warmup=1)
@@ -649,6 +802,7 @@ def phase_kernel_gru(torch, gk):
             row = {"phase": "kernel_gru", "kernel": "gru_seq_fwd",
                    "T": steps, "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
+                   "ms_per_step": ms / steps,
                    "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by,
                    "cudnn_gru_ms_not_same_function": cudnn_ms,
@@ -659,6 +813,32 @@ def phase_kernel_gru(torch, gk):
                                      "version: %r" % row)
             results.append(row)
     return results
+
+
+def phase_kernel_gru_fwd_layouts(torch, gk):
+    """Both layouts of the GRU forward (unit tiles; clusters, H % 8 == 0 up
+    to 16 unit tiles) at ``GRU_CASES``, float32 and bfloat16: the reading
+    ``gru_fwd_plan`` is set by."""
+    rows = []
+    _, smem, clusters = gk.fwd_device_limits(torch.device(DEVICE))
+    for steps, batch, hidden in GRU_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = gru_inputs(torch, steps, batch, hidden, dtype,
+                              SEED + 19 * hidden + batch)
+            plans = {"unit_tiles": UNIT_TILES}
+            cluster = gk.fwd_cluster_plan(batch, hidden, dtype, smem,
+                                          clusters)
+            if cluster is not None:
+                plans["cluster"] = cluster
+            rows.append(layouts_row(
+                torch, "kernel_gru_fwd_layouts", "gru_seq_fwd",
+                (steps, batch, hidden), dtype,
+                runner(gk.gru_seq_fwd, gk.gru_seq_fwd, *args),
+                lambda: gk.gru_seq_fwd_reference(*args), plans,
+                gk.gru_fwd_plan(batch, hidden, dtype, smem,
+                                clusters)["layout"],
+                TOL_F32 if dtype == torch.float32 else TOL_BF16))
+    return rows
 
 
 def gru_bwd_inputs(torch, gk, steps, batch, hidden, dtype, seed):
@@ -1668,16 +1848,20 @@ def planner_vs_faster(layout_rows, shapes):
 
 
 def emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
-                           bwd_layout_rows, gru_bwd_layout_rows):
+                           bwd_layout_rows, gru_bwd_layout_rows, fwd_cases,
+                           gru_fwd_cases, fwd_layout_rows,
+                           gru_fwd_layout_rows):
     """The readings the redesigns are judged by, measured in this run and
     reported (not held: they are times): K9 at ResNet-50's fc shapes
     against dequant + cuBLAS in both dtypes; K8's bfloat16 sum over the 46
     convs against its float32 sum; K7's sums (forward and data gradient)
     against cuDNN in the same dtype and against the targets of its
     redesign; the LSTM backward at (100, 64, 1280) (K4) and (100, 64, 256)
-    (K2) and the GRU backward at (128, 64, 256) (K6) against the targets
-    of theirs, with the time per step; and whether the planners picked the
-    layout their layouts phases measured faster at K2's and K6's shapes."""
+    (K2) and the GRU backward at (128, 64, 256) (K6), and the forward
+    kernels K3 at (100, 64, 1280), K1 at (64, 32, 256) and K5 at (128, 32,
+    256), against the targets of theirs, with the time per step; and
+    whether the planners picked the layout their layouts phases measured
+    faster at K2's and K6's shapes and at every forward shape."""
     fc = [{"shape": c["shape"], "dtype": c["dtype"], "ms": c["ms"],
            "library_ms": c["library_ms"],
            "kernel_over_library": c["ms"] / c["library_ms"]}
@@ -1693,7 +1877,7 @@ def emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
         for which in ("fwd", "dgrad") for d in ("float32", "bfloat16")}
 
     def recurrent(c, targets):
-        return {"ms": c["ms"], "ms_unqueued": c["ms_unqueued"],
+        return {"ms": c["ms"], "ms_unqueued": c.get("ms_unqueued"),
                 "ms_per_step": c["ms_per_step"], "bound_ms": c["bound_ms"],
                 "layout": c["launch"]["layout"],
                 "rows_per_block": c["launch"]["rows_per_block"],
@@ -1709,6 +1893,12 @@ def emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
     gru = {"%s_h%d" % (c["dtype"], c["H"]): recurrent(
         c, K6_TARGET_MS if c["H"] == 256 else {})
         for c in gru_bwd_cases}
+    fwd = {"%s_%s" % (k, c["dtype"]): recurrent(c, targets)
+           for k, shape, cases_, targets in (
+               ("k3", (100, 64, 1280), fwd_cases, K3_TARGET_MS),
+               ("k1", (64, 32, 256), fwd_cases, K1_TARGET_MS),
+               ("k5", (128, 32, 256), gru_fwd_cases, K5_TARGET_MS))
+           for c in cases_ if (c["T"], c["B"], c["H"]) == shape}
     emit({"phase": "redesign_readings", "k9_resnet50_fc": fc,
           "k9_fc_no_slower_than_library": all(
               r["ms"] <= r["library_ms"] for r in fc),
@@ -1723,7 +1913,13 @@ def emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
               planner_vs_faster(bwd_layout_rows,
                                 [(100, 64, 256), (64, 8, 256)]),
               **planner_vs_faster(gru_bwd_layout_rows,
-                                  [(128, 64, 256), (30, 64, 512)]))})
+                                  [(128, 64, 256), (30, 64, 512)])),
+          "fwd": fwd,
+          "fwd_met": {k: v["met"] for k, v in fwd.items()
+                      if v["met"] is not None},
+          "fwd_planner_vs_faster": {
+              "lstm": planner_vs_faster(fwd_layout_rows, FWD_LAYOUT_CASES),
+              "gru": planner_vs_faster(gru_fwd_layout_rows, GRU_CASES)}})
 
 
 def int8_sum(cases, shapes, shape):
@@ -2182,8 +2378,8 @@ def conv_paths(cases, kernel):
             for d in ("float32", "bfloat16")}
 
 
-def bwd_layouts(cases, hidden):
-    """{dtype: a recurrent backward's layout and W placement at ``hidden``
+def layouts(cases, hidden):
+    """{dtype: a recurrent kernel's layout and W placement at ``hidden``
     and the widest batch (the main path's; and the rows per block of a
     cluster layout)}."""
     widest = max(c["B"] for c in cases if c["H"] == hidden)
@@ -2235,8 +2431,11 @@ def main():
                              "gru_seq_bwd", "conv2d_same_fwd",
                              "conv2d_same_bwdw", "int8_matmul"])
     limits = {}
-    for name, mod in (("lstm_seq_bwd", lk), ("gru_seq_bwd", gk)):
-        sms, smem, clusters = mod.device_limits(torch.device(DEVICE))
+    for name, read in (("lstm_seq_fwd", lk.fwd_device_limits),
+                       ("lstm_seq_bwd", lk.device_limits),
+                       ("gru_seq_fwd", gk.fwd_device_limits),
+                       ("gru_seq_bwd", gk.device_limits)):
+        sms, smem, clusters = read(torch.device(DEVICE))
         limits[name] = {"sms": sms, "smem_optin_bytes": smem,
                         "clusters_of_8": clusters[0],
                         "clusters_of_16": clusters[1]}
@@ -2247,9 +2446,11 @@ def main():
           "device_limits": limits})
 
     cases = phase_kernel(torch, lk)
+    fwd_layout_rows = phase_kernel_fwd_layouts(torch, lk)
     bwd_cases = phase_kernel_bwd(torch, lk)
     bwd_layout_rows = phase_kernel_bwd_layouts(torch, lk)
     gru_cases = phase_kernel_gru(torch, gk)
+    gru_fwd_layout_rows = phase_kernel_gru_fwd_layouts(torch, gk)
     gru_bwd_cases = phase_kernel_gru_bwd(torch, gk)
     gru_bwd_layout_rows = phase_kernel_gru_bwd_layouts(torch, gk, lk)
     conv_cases = phase_kernel_conv(torch, ck)
@@ -2257,7 +2458,8 @@ def main():
     int8_cases = phase_kernel_int8(torch, ik)
     sums = phase_network_sums(conv_cases, conv_bwd_cases)
     emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
-                           bwd_layout_rows, gru_bwd_layout_rows)
+                           bwd_layout_rows, gru_bwd_layout_rows, cases,
+                           gru_cases, fwd_layout_rows, gru_fwd_layout_rows)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
@@ -2273,26 +2475,28 @@ def main():
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:146",
-                        flagship["kernel_launches"], 256, "lstm_seq_fwd"),
+                        flagship["kernel_launches"], 256, "lstm_seq_fwd",
+                        path=layouts(cases, 256)),
         recurrent_entry(cases, "lstm_seq_fwd[K3,h1280]",
                         "paddle_tpu/ops/pallas_kernels.py:244",
-                        wide["kernel_launches"], 1280, "lstm_seq_fwd"),
+                        wide["kernel_launches"], 1280, "lstm_seq_fwd",
+                        path=layouts(cases, 1280)),
         recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:347",
                         trained["bwd_launches"], 256, "lstm_seq_bwd",
-                        path=bwd_layouts(bwd_cases, 256)),
+                        path=layouts(bwd_cases, 256)),
         recurrent_entry(bwd_cases, "lstm_seq_bwd[K4,h1280]",
                         "paddle_tpu/ops/pallas_kernels.py:456",
                         trained_wide["bwd_launches"], 1280, "lstm_seq_bwd",
-                        path=bwd_layouts(bwd_cases, 1280)),
+                        path=layouts(bwd_cases, 1280)),
         recurrent_entry(gru_cases, "gru_seq_fwd[K5,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:668",
                         tagger["kernel_launches"], 256, "gru_seq_fwd",
-                        batch=32),
+                        batch=32, path=layouts(gru_cases, 256)),
         recurrent_entry(gru_bwd_cases, "gru_seq_bwd[K6,h256]",
                         "paddle_tpu/ops/pallas_kernels.py:724",
                         trained_tagger["bwd_launches"], 256, "gru_seq_bwd",
-                        path=bwd_layouts(gru_bwd_cases, 256)),
+                        path=layouts(gru_bwd_cases, 256)),
         kernel_entry([network_sum(conv_cases, "fwd")],
                      "conv2d_same_fwd[K7,resnet50_forward]",
                      "paddle_tpu/ops/pallas_conv.py:175",

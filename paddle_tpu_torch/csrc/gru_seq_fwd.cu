@@ -13,14 +13,46 @@
 // copies h forward. The output is h_seq [T, B, H]; the final state is its
 // last row.
 //
-// Design: ONE cooperative launch per sequence over a persistent grid, the
-// skeleton of lstm_seq_fwd.cu. Block (unit tile, batch tile) owns 32
+// A GRU step needs TWO exchanges between the blocks that share a row where
+// the LSTM needs one: the candidate's product (r . h_{t-1}) . W_c sums over
+// all H units, so every unit's reset gate must be visible before any block
+// can form its candidate. The T steps are serially dependent, and at the
+// tagger's shapes (B <= 64, H = 256 or 512) one step's two products ([B, H]
+// x [H, 2H], then [B, H] x [H, H]) are far too small to fill the card, so
+// time is set by per-step latency. Two layouts, picked by the caller's
+// planner (ops/gru_kernels.gru_fwd_plan) and recorded in info[2]; every sum
+// runs in a fixed order, so a repeat is the same bit for bit.
+//
+// CLUSTERS (H % 8 == 0, at most 16 unit tiles: the tagger's H=256 in
+// clusters of 8, the NMT encoder's H=512 in clusters of 16). Batch rows
+// never exchange anything, so each batch tile of R rows is ONE thread-block
+// cluster of ceil(H / 32) blocks, block j owning units 32j .. 32j + 31, and
+// clusters never wait for each other (no cooperative launch). A block keeps
+// its columns of W_rz (64) and W_c (32) on chip for the whole launch
+// (fwd_cluster.cuh: in registers up to 8 blocks, else in shared memory:
+// 96 KB at H=256 and 192 KB at H=512 in float32) and, in its own shared
+// memory, h_{t-1} and round(r * h_{t-1}) of all units for its R rows. Per
+// step (warp r: row r, lane l: unit l):
+//   1. the u and r products of its units over the full K (float32 on the
+//      CUDA cores; bfloat16 on the tensor cores, mma.sync), u and r, and
+//      round(r * h_{t-1}) stored into every peer's rh rows (distributed
+//      shared memory); cluster barrier 1;
+//   2. the candidate's product against W_c, the cell update, h_t to h_seq
+//      and into every peer's h rows; cluster barrier 2 (arrive; the next
+//      step's projection and mask are fetched; wait).
+// Two barriers a step also order the buffers, so neither needs a second
+// copy: a block stores rh at step t after barrier 2 of step t - 1, which
+// every peer reaches after its last read of rh (step t - 1's candidate),
+// and h_t after barrier 1 of step t, which every peer reaches after its
+// last read of h_{t-1} (step t's first product). R (1, 2, 3, 4, 5 or 8) is
+// the smallest that keeps the batch's clusters co-resident
+// (gru_seq_fwd_limits).
+//
+// UNIT TILES (what clusters do not take). ONE cooperative launch per
+// sequence over a persistent grid. Block (unit tile, batch tile) owns 32
 // hidden units (one per lane) x R batch rows for the whole sequence; warp
-// r keeps the h of row r's 32 units in registers across all T steps. A GRU
-// step needs TWO exchanges between blocks where the LSTM needs one: the
-// candidate's product (r . h_{t-1}) . W_c sums over all H units, so every
-// unit's reset gate must be visible before any block can form its
-// candidate. Per step a block
+// r keeps the h of row r's 32 units in registers across all T steps. Per
+// step a block
 //   1. stages the h_{t-1} rows of its batch tile into shared memory
 //      (h_seq[t-1] as other blocks wrote it, or h0, read with L2-only
 //      loads),
@@ -42,18 +74,6 @@
 // the most blocks that fit, else W in L2 with the largest R. Rows are
 // independent, so a batch too large for one co-resident grid is split into
 // the fewest equal chunks that fit, one launch per chunk in stream order.
-//
-// What bounds it on this card: the T steps are serially dependent, and at
-// the tagger's shapes (B <= 64, H = 256 or 512) one step's two GEMVs
-// ([B, H] x [H, 2H], then [B, H] x [H, H]) are far too small to fill the
-// card, so time is set by per-step latency: two staging round trips
-// through L2, two K loops and two grid barriers per step, about twice the
-// LSTM forward's barrier count. Resident W slices (H x 96 values per
-// block: 96 KB at H=256 and 192 KB at H=512 in f32) take the L2 round
-// trips out of the K loops, and the split over 8 warps cuts each loop by
-// 8. Fusing the two barriers (the candidate of unit j needs only r of all
-// units, which a cluster could exchange through distributed shared
-// memory) and tensor cores for bf16 come next.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -63,6 +83,11 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
+
+#include "fwd_cluster.cuh"
+#include "sm90_cluster.cuh"
+#include "sm90_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -416,10 +441,10 @@ std::mutex config_mutex;
 std::map<std::tuple<int, int, int, int>, Config> config_cache;
 
 template <typename T>
-int launch(int dtype, const void* proj, const void* mask, const void* w_rz,
-           const void* w_c, const void* h0, void* h_seq, void* rh, int steps,
-           int batch, int hidden, int device, cudaStream_t stream,
-           int* info) {
+int launch_unit_tiles(int dtype, const void* proj, const void* mask,
+                      const void* w_rz, const void* w_c, const void* h0,
+                      void* h_seq, void* rh, int steps, int batch, int hidden,
+                      int device, cudaStream_t stream, int* info) {
   Config cfg{};
   {
     // the choice (and the kernel's shared-memory limit it sets) is made
@@ -479,37 +504,243 @@ int launch(int dtype, const void* proj, const void* mask, const void* w_rz,
   return 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// Clusters: one thread-block cluster per batch tile.
+
+// The layout's shared memory has a copy in the caller's planner
+// (ops/gru_kernels.py, _fwd_cl_smem), which a CPU test holds equal to
+// this: [W_rz's and W_c's column slices, where they are not in registers]
+// [h_{t-1} and rh of the block's rows, R x x_pitch floats each] [the
+// products' scratch].
+__host__ __device__ constexpr int cl_smem_bytes(int hidden, int rows,
+                                                int elem_bytes) {
+  return fwdcl::w_bytes((hidden + kUnits - 1) / kUnits, kRzCols,
+                        elem_bytes) +
+         fwdcl::w_bytes((hidden + kUnits - 1) / kUnits, kUnits, elem_bytes) +
+         2 * rows * fwdcl::x_pitch((hidden + kUnits - 1) / kUnits) *
+             static_cast<int>(sizeof(float)) +
+         (fwdcl::scratch_floats(kRzCols, rows, elem_bytes) >
+                  fwdcl::scratch_floats(kUnits, rows, elem_bytes)
+              ? fwdcl::scratch_floats(kRzCols, rows, elem_bytes)
+              : fwdcl::scratch_floats(kUnits, rows, elem_bytes)) *
+             static_cast<int>(sizeof(float));
+}
+
+template <typename T, int R, bool kRegW>
+__global__ void __launch_bounds__(fwdcl::kThreads, 1)
+gru_fwd_cluster(const T* __restrict__ proj, const float* __restrict__ mask,
+                const T* __restrict__ w_rz, const T* __restrict__ w_c,
+                const T* __restrict__ h0, T* __restrict__ h_seq, int steps,
+                int batch, int hidden) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using ProdRz = fwdcl::Product<T, R, kRzCols, kRegW>;
+  using ProdC = fwdcl::Product<T, R, kUnits, kRegW>;
+  constexpr int kEsz = static_cast<int>(sizeof(T));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tiles = gridDim.x;  // the cluster: one block per unit tile
+  const int xp = fwdcl::x_pitch(tiles);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int u0 = blockIdx.x * kUnits;  // blockIdx.x: the rank in the cluster
+  const int u = u0 + lane;
+  const int b0 = blockIdx.y * R;
+  const int b = b0 + warp;  // warp r owns row r of the tile
+  const bool owner = warp < R && u < hidden && b < batch;
+  const int g3 = 3 * hidden;
+
+  // shared memory: [W_rz slice] [W_c slice] [hx: h_{t-1}, R rows]
+  // [rx: rh, R rows] [scratch]; rows past the batch and units past H stay
+  // zero
+  unsigned char* wc_s = smem_raw + fwdcl::w_bytes(tiles, kRzCols, kEsz);
+  float* hx = reinterpret_cast<float*>(
+      wc_s + fwdcl::w_bytes(tiles, kUnits, kEsz));
+  float* rx = hx + R * xp;
+  float* scratch = rx + R * xp;
+  ProdRz prz;
+  prz.load(w_rz, hidden, u0, tiles, smem_raw);
+  ProdC pc;
+  pc.load(w_c, hidden, u0, tiles, wc_s);
+  for (int e = threadIdx.x; e < 2 * R * xp; e += kThreads) {
+    const int r = (e / xp) % R;
+    const int k = e % xp;
+    hx[e] = e < R * xp && b0 + r < batch && k < hidden
+                ? to_f(h0[static_cast<size_t>(b0 + r) * hidden + k])
+                : 0.f;
+  }
+
+  float h = 0.f;
+  float xpj[3] = {0.f, 0.f, 0.f};
+  float mk = 0.f;
+  // the projection and mask of step t: plain loads, nothing waits for them
+  // before step t (a comparison here would stall the barrier)
+  auto fetch = [&](int t) {
+    const size_t row = static_cast<size_t>(t) * batch + b;
+    const T* pp = proj + row * g3 + u;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) xpj[q] = load_ro(pp + q * hidden);
+    mk = mask[row];
+  };
+  if (owner) {
+    h = to_f(h0[static_cast<size_t>(b) * hidden + u]);
+    fetch(0);
+  }
+  // every peer's buffers exist and are initialised (and this block's W
+  // slices are complete) before anyone stores into a peer
+  cluster.sync();
+
+  for (int t = 0; t < steps; ++t) {
+    // 1. u and r; round(r * h_{t-1}) into every block's rh rows
+    prz.run(hx, xp, scratch);
+    float ug = 0.f;
+    if (owner) {
+      ug = sigmoidf(xpj[0] + ProdRz::sum(scratch, warp, lane));
+      const float rg = sigmoidf(xpj[1] + ProdRz::sum(scratch, warp,
+                                                     kUnits + lane));
+      const float rh = to_f(from_f<T>(rg * h));
+      float* dst = rx + warp * xp + u;
+      for (int p = 0; p < tiles; ++p) *cluster.map_shared_rank(dst, p) = rh;
+    }
+    sm90::cluster_sync();  // rh of every unit, in every block
+    // 2. the candidate, the cell update; h_t into every block's h rows
+    pc.run(rx, xp, scratch);
+    if (owner) {
+      const float cg_ = tanhf(xpj[2] + ProdC::sum(scratch, warp, lane));
+      const float hn = ug * h + (1.f - ug) * cg_;
+      if (mk > 0.f) h = to_f(from_f<T>(hn));
+      h_seq[(static_cast<size_t>(t) * batch + b) * hidden + u] = from_f<T>(h);
+      float* dst = hx + warp * xp + u;
+      for (int p = 0; p < tiles; ++p) *cluster.map_shared_rank(dst, p) = h;
+    }
+    sm90::cluster_arrive();
+    if (owner && t + 1 < steps) fetch(t + 1);
+    sm90::cluster_wait();
+  }
+  // no peer addresses this block's shared memory after the last barrier
+}
+
+template <typename T, int R>
+void* cl_kernel_w(int tiles) {
+  return fwdcl::reg_w(tiles)
+             ? reinterpret_cast<void*>(gru_fwd_cluster<T, R, true>)
+             : reinterpret_cast<void*>(gru_fwd_cluster<T, R, false>);
+}
+
+// rows per block: 1, 2, 3, 4, 5 or 8; W in registers for clusters of at
+// most 8 blocks
+template <typename T>
+void* cl_kernel(int rows, int tiles) {
+  switch (rows) {
+    case 1:
+      return cl_kernel_w<T, 1>(tiles);
+    case 2:
+      return cl_kernel_w<T, 2>(tiles);
+    case 3:
+      return cl_kernel_w<T, 3>(tiles);
+    case 4:
+      return cl_kernel_w<T, 4>(tiles);
+    case 5:
+      return cl_kernel_w<T, 5>(tiles);
+    default:
+      return cl_kernel_w<T, 8>(tiles);
+  }
+}
+
+// One launch of ceil(B / rows) clusters of ceil(H / 32) blocks. The rows
+// per block come from the caller's planner; this checks that the layout
+// takes the shape (a block that does not fit the card's shared memory is
+// refused by the launch).
+template <typename T>
+int launch_cluster_layout(const void* proj, const void* mask,
+                          const void* w_rz, const void* w_c, const void* h0,
+                          void* h_seq, int steps, int batch, int hidden,
+                          int rows, cudaStream_t stream, int* info) {
+  const int tiles = (hidden + kUnits - 1) / kUnits;
+  if (hidden % 8 != 0 || tiles > fwdcl::kMaxTiles ||
+      ((rows < 1 || rows > 5) && rows != 8)) {
+    return kErrBadArgument;
+  }
+  const int batch_tiles = (batch + rows - 1) / rows;
+  const int smem = cl_smem_bytes(hidden, rows, static_cast<int>(sizeof(T)));
+  info[0] = tiles * batch_tiles;
+  info[1] = rows;
+  info[2] = 5;  // W's column slices on chip, h and rh exchanged via DSMEM
+  info[3] = smem;
+  info[4] = batch;
+  info[5] = 0;  // launches made
+  const T* p = static_cast<const T*>(proj);
+  const float* m = static_cast<const float*>(mask);
+  const T* wrz = static_cast<const T*>(w_rz);
+  const T* wc = static_cast<const T*>(w_c);
+  const T* hh = static_cast<const T*>(h0);
+  T* hs_out = static_cast<T*>(h_seq);
+  void* args[] = {&p,      &m,     &wrz,   &wc,    &hh,
+                  &hs_out, &steps, &batch, &hidden};
+  const int rc = sm90::launch_clusters(cl_kernel<T>(rows, tiles), tiles,
+                                       batch_tiles, kThreads, smem, stream,
+                                       args);
+  if (rc != 0) return rc;
+  info[5] = 1;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (proj, w_rz, w_c, h0, h_seq, rh); mask
-// is float32. rh is scratch of B*H elements. info receives {blocks of a
-// full-chunk launch, batch rows per block, W resident, dynamic shared
-// memory bytes, batch rows per launch, launches made}: a batch larger than
-// one co-resident grid runs as several launches of equal chunks.
+// is float32.
+// layout 0 = unit tiles: rh is scratch of B*H elements; rows is not read
+//   (the grid and W placement are chosen here).
+// layout 2 = clusters (H % 8 == 0, H <= 512) of ``rows`` (1, 2, 3, 4, 5,
+//   8) batch rows per block; rh is not read.
+// info receives {blocks of a full-chunk launch, batch rows per block, W
+// placement (unit tiles: 1 resident, 0 in L2; clusters: 5), dynamic shared
+// memory bytes, batch rows per launch, launches made}: unit tiles run a
+// batch larger than one co-resident grid as several launches of equal
+// chunks.
 // Returns 0, a cudaError_t value, or one of the negative codes above.
 int gru_seq_fwd(int dtype, const void* proj, const void* mask,
                 const void* w_rz, const void* w_c, const void* h0,
                 void* h_seq, void* rh, int steps, int batch, int hidden,
-                int device, void* stream, int* info) {
-  if (steps < 1 || batch < 1 || hidden < 1) return kErrBadArgument;
+                int layout, int rows, int device, void* stream, int* info) {
+  if (steps < 1 || batch < 1 || hidden < 1 || (dtype != 0 && dtype != 1) ||
+      (layout != 0 && layout != 2)) {
+    return kErrBadArgument;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == 2) {
+    if (dtype == 0) {
+      return launch_cluster_layout<float>(proj, mask, w_rz, w_c, h0, h_seq,
+                                          steps, batch, hidden, rows, s,
+                                          info);
+    }
+    return launch_cluster_layout<__nv_bfloat16>(proj, mask, w_rz, w_c, h0,
+                                                h_seq, steps, batch, hidden,
+                                                rows, s, info);
+  }
   int coop = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return kErrNoCooperative;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(dtype, proj, mask, w_rz, w_c, h0, h_seq, rh, steps,
-                         batch, hidden, device, s, info);
+    return launch_unit_tiles<float>(dtype, proj, mask, w_rz, w_c, h0, h_seq,
+                                    rh, steps, batch, hidden, device, s,
+                                    info);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(dtype, proj, mask, w_rz, w_c, h0, h_seq, rh,
-                                 steps, batch, hidden, device, s, info);
-  }
-  return kErrBadArgument;
+  return launch_unit_tiles<__nv_bfloat16>(dtype, proj, mask, w_rz, w_c, h0,
+                                          h_seq, rh, steps, batch, hidden,
+                                          device, s, info);
+}
+
+// The card's limits that ops/gru_kernels.gru_fwd_plan sizes its layouts by
+// (sm90::card_limits: SM count, opt-in shared memory per block, clusters
+// of 8 and of 16 of this file's cluster kernel held at once). Returns 0 or
+// a cudaError_t value.
+int gru_seq_fwd_limits(int device, int* out) {
+  return sm90::card_limits(cl_kernel<float>(1, 16), kThreads, device, out);
 }
 
 const char* gru_seq_fwd_error_string(int code) {
@@ -520,7 +751,8 @@ const char* gru_seq_fwd_error_string(int code) {
     case kErrNoCooperative:
       return "device does not support cooperative launches";
     case kErrBadArgument:
-      return "bad argument (dtype code or an empty shape)";
+      return "bad argument (dtype or layout code, an empty shape, or a "
+             "cluster the layout does not take)";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

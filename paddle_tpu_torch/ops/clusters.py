@@ -1,13 +1,16 @@
-"""What the cluster layouts of the recurrent backward kernels
-(csrc/lstm_seq_bwd.cu and csrc/gru_seq_bwd.cu) plan by: the card's limits,
-as the library of the kernel being planned reads them, and the rows per
-block of one thread-block cluster per batch tile.
+"""What the cluster layouts of the recurrent kernels (csrc/lstm_seq_fwd.cu,
+csrc/lstm_seq_bwd.cu, csrc/gru_seq_fwd.cu, csrc/gru_seq_bwd.cu) plan by:
+the card's limits, as the library of the kernel being planned reads them,
+the rows per block of one thread-block cluster per batch tile, and the
+shared memory of the forward kernels' product step (csrc/fwd_cluster.cuh).
 
 A cluster holds ceil(H / 32) blocks, one per unit tile (at most 16; above
 8 a non-portable size), each serving 1, 2, 4, 5 or 8 batch rows. These
-constants copy the kernels' (kClMaxTiles, sm90::kPortableClusterSize, the
-rows the kernels are compiled for); tests/test_torch_lstm_bwd.py and
-tests/test_torch_gru_bwd_plan.py hold them equal.
+constants copy the kernels' (kClMaxTiles, fwdcl::kMaxTiles,
+sm90::kPortableClusterSize, the rows the kernels are compiled for, and
+fwd_cluster.cuh's kRegK and kXPad); tests/test_torch_lstm_bwd.py,
+tests/test_torch_gru_bwd_plan.py and tests/test_torch_fwd_plan.py hold
+them equal.
 """
 
 import ctypes
@@ -26,7 +29,42 @@ H100_CLUSTERS = (15, 7)
 MAX_TILES = 16
 PORTABLE = 8
 ROWS = (1, 2, 4, 5, 8)
+# the forward cluster kernels are also compiled for 3 rows (B=32 then runs
+# as 11 clusters of the 15 an H100 holds, not 8)
+FWD_ROWS = (1, 2, 3, 4, 5, 8)
+# the forward product's K where W sits in registers (clusters of at most 8
+# blocks: zero-padded to 8 warps x 32), and the floats past K in a row of
+# the block's state buffers
+FWD_REG_K = 256
+FWD_XPAD = 8
 _limits = {}
+
+
+def fwd_k_len(tiles):
+    """K of a forward cluster block's product (fwdcl::k_len)."""
+    return FWD_REG_K if tiles <= PORTABLE else 32 * tiles
+
+
+def fwd_w_bytes(tiles, cols, esz):
+    """Bytes of a forward cluster block's W slice of ``cols`` columns in
+    shared memory: none where it sits in registers (fwdcl::w_bytes)."""
+    return 0 if tiles <= PORTABLE else fwd_k_len(tiles) * cols * esz
+
+
+def fwd_scratch_floats(cols, rows, esz):
+    """Floats of the scratch of a ``cols``-column forward product at
+    ``rows`` rows (fwdcl::scratch_floats): the 8 warps' partial sums in
+    float32; in bfloat16 the tile, once per K part."""
+    if esz == 4:
+        return 8 * cols * rows
+    tiles8 = cols // 8
+    return (1 if tiles8 >= 8 else 8 // tiles8) * cols * rows
+
+
+def fwd_state_bytes(tiles, rows, buffers):
+    """Bytes of ``buffers`` float32 state buffers of ``rows`` rows at the
+    pitch fwdcl::x_pitch."""
+    return 4 * buffers * rows * (fwd_k_len(tiles) + FWD_XPAD)
 
 
 def device_limits(name, dev):
@@ -49,20 +87,27 @@ def device_limits(name, dev):
     return _limits[key]
 
 
-def cluster_rows(batch, hidden, smem_of, smem, clusters):
+def cluster_slots(hidden, clusters):
+    """How many clusters of ceil(H / 32) blocks the card holds at once
+    (``clusters`` = (of 8, of 16), as ``device_limits`` reads them)."""
+    tiles = -(-hidden // 32)
+    return (clusters[0] * (PORTABLE // tiles) if tiles <= PORTABLE
+            else clusters[1])
+
+
+def cluster_rows(batch, hidden, smem_of, smem, clusters, rows=ROWS):
     """The rows per block of a cluster layout, or None where it does not
     take ``hidden``: H % 8 == 0, ceil(H / 32) <= 16 blocks per cluster, a
     card that holds such a cluster (``clusters`` = (of 8, of 16), as
     ``device_limits`` reads them), and a block that fits in ``smem`` bytes
-    (``smem_of(rows)``). The smallest R whose ceil(B / R) clusters the
-    card holds at once (clusters of k <= 8 blocks: (8 // k) x those of 8),
-    or where none is, the largest that fits."""
-    tiles = -(-hidden // 32)
-    if hidden % 8 or tiles > MAX_TILES:
+    (``smem_of(rows)``). The smallest R of ``rows`` (the counts the kernel
+    is compiled for) whose ceil(B / R) clusters the card holds at once
+    (clusters of k <= 8 blocks: (8 // k) x those of 8), or where none is,
+    the largest that fits."""
+    if hidden % 8 or -(-hidden // 32) > MAX_TILES:
         return None
-    slots = (clusters[0] * (PORTABLE // tiles) if tiles <= PORTABLE
-             else clusters[1])
-    fits = [r for r in ROWS if smem_of(r) <= smem]
+    slots = cluster_slots(hidden, clusters)
+    fits = [r for r in rows if smem_of(r) <= smem]
     if not slots or not fits:
         return None
     return next((r for r in fits if -(-batch // r) <= slots), fits[-1])

@@ -19,11 +19,16 @@ round(r*h).W_c), with r*h rounded to proj's dtype; h = u*h + (1-u)*c,
 stored in proj's dtype; every product sums in float32.
 
 On a CUDA tensor the wrapper launches the kernel (paddle_tpu_torch/csrc/
-gru_seq_fwd.cu, one cooperative launch per sequence; a batch too large for
-one co-resident grid runs as a few launches of equal row chunks, each
-counted) or raises; on a CPU tensor it runs ``gru_seq_fwd_reference``, the
-plain loop of the same function, which is also the oracle the kernel is
-held against.
+gru_seq_fwd.cu) in one of two layouts that ``gru_fwd_plan`` picks from the
+shapes and dtype: "cluster" (H % 8 == 0 up to 16 unit tiles, where all
+the batch's clusters fit on the card at once: one thread-block cluster
+per batch tile, each block's W_rz and W_c columns on chip, rh and h_t
+exchanged through distributed shared memory behind two cluster barriers
+a step) or "unit_tiles" (else: one cooperative launch per row chunk that
+fits, two grid barriers a step; each launch counted), or raises; on a
+CPU tensor it runs
+``gru_seq_fwd_reference``, the plain loop of the same function, which is
+also the oracle the kernel is held against.
 
 ``gru_seq_bwd`` has the function and contract of the backward kernel K6
 ``_gru_bwd_kernel`` (pallas_kernels.py ``_gru_vjp_bwd``): from the saved
@@ -137,6 +142,59 @@ def gru_bwd_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
             "smem_bytes": _cl_smem(hidden, rows, esz)}
 
 
+def fwd_device_limits(dev):
+    """(SM count, opt-in shared memory per block in bytes, (clusters of 8,
+    clusters of 16)) of the card ``dev``, as the forward kernel's C side
+    reads them for its cluster kernel (``clusters.device_limits``)."""
+    return cl.device_limits("gru_seq_fwd", dev)
+
+
+def _fwd_cl_smem(hidden, rows, esz):
+    """Shared memory of a GRU forward cluster block (csrc/gru_seq_fwd.cu
+    cl_smem_bytes): W_rz's 64 and W_c's 32 columns where they are not in
+    registers, h_{t-1} and rh of the block's rows, and the larger of the
+    two products' scratch."""
+    tiles = -(-hidden // 32)
+    return (cl.fwd_w_bytes(tiles, 64, esz) + cl.fwd_w_bytes(tiles, 32, esz)
+            + cl.fwd_state_bytes(tiles, rows, 2)
+            + 4 * max(cl.fwd_scratch_floats(64, rows, esz),
+                      cl.fwd_scratch_floats(32, rows, esz)))
+
+
+def fwd_cluster_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
+                     clusters=cl.H100_CLUSTERS):
+    """The GRU forward's cluster layout for this shape (H % 8 == 0, at most
+    16 unit tiles, the block in ``smem``; ``rows_per_block`` by
+    ``clusters.cluster_rows``), or None where it does not take it."""
+    esz = 4 if dtype == torch.float32 else 2
+    rows = cl.cluster_rows(batch, hidden,
+                           lambda r: _fwd_cl_smem(hidden, r, esz), smem,
+                           clusters, cl.FWD_ROWS)
+    if rows is None:
+        return None
+    return {"layout": "cluster", "code": 2, "rows_per_block": rows,
+            "cluster_size": -(-hidden // 32), "clusters": -(-batch // rows),
+            "smem_bytes": _fwd_cl_smem(hidden, rows, esz)}
+
+
+def gru_fwd_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
+                 clusters=cl.H100_CLUSTERS):
+    """The GRU forward's layout for a batch of ``batch`` rows at ``hidden``
+    units in ``dtype`` on a card of ``smem`` bytes of shared memory per
+    block and ``clusters`` (``fwd_device_limits``): "cluster"
+    (``fwd_cluster_plan``) where its clusters all fit on the card at once,
+    else "unit_tiles" (the kernel then picks its grid and W placement
+    itself). A second wave of clusters doubles the step count the card
+    runs, and then unit tiles are faster (H=512 at B=64: 13 clusters of 16
+    blocks against the 7 an H100 holds)."""
+    enforce(dtype in (torch.float32, torch.bfloat16), "gru_seq_fwd takes "
+            "float32 or bfloat16 inputs, got %s", dtype)
+    plan = fwd_cluster_plan(batch, hidden, dtype, smem, clusters)
+    if plan is None or plan["clusters"] > cl.cluster_slots(hidden, clusters):
+        return {"layout": "unit_tiles", "code": 0}
+    return plan
+
+
 def _gates(proj_t, h, w_rz, hidden):
     """u, r of one step in float32 from proj_t [B, 3H] and h (float32)."""
     rz = torch.matmul(h, w_rz)
@@ -233,25 +291,36 @@ def _check_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
         ("dh_f", dh_f, (batch, hidden), None)))
 
 
-def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0):
+def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0, plan=None):
     """Masked GRU forward over the whole sequence (see module docstring).
-    After a kernel call, ``gru_seq_fwd.last_launch`` holds the grid the
-    kernel chose and the number of launches it made."""
-    _check(proj_tm, mask_tm, w_rz, w_c, h0)
+    On a CUDA tensor ``plan`` is the layout to run (a ``gru_fwd_plan``
+    result; None: ``gru_fwd_plan``'s choice for this card). After a kernel
+    call, ``gru_seq_fwd.last_launch`` holds the plan, the grid the kernel
+    chose and the number of launches it made."""
+    args = (proj_tm, mask_tm, w_rz, w_c, h0)
+    _check(*args)
     dev = proj_tm.device
     if dev.type == "cpu":
-        return gru_seq_fwd_reference(proj_tm, mask_tm, w_rz, w_c, h0)
+        return gru_seq_fwd_reference(*args)
     enforce(dev.type == "cuda", "gru_seq_fwd runs on cuda or cpu tensors, "
             "got %s", dev)
     steps, batch, hidden = _proj_shape(proj_tm)
+    if plan is None:
+        _, smem, clusters = fwd_device_limits(dev)
+        plan = gru_fwd_plan(batch, hidden, proj_tm.dtype, smem, clusters)
     h_seq = torch.empty((steps, batch, hidden), dtype=proj_tm.dtype,
                         device=dev)
-    rh = torch.empty((batch, hidden), dtype=proj_tm.dtype, device=dev)
-    info = launch("gru_seq_fwd", dev, (proj_tm, mask_tm, w_rz, w_c, h0),
-                  (h_seq, rh), (steps, batch, hidden), _count_launches)
-    gru_seq_fwd.last_launch = dict(zip(
-        ("blocks", "rows_per_block", "w_resident", "smem_bytes",
-         "rows_per_launch", "launches"), info))
+    # the unit tiles' rh scratch rows (the clusters keep rh on chip)
+    rh = torch.empty((batch, hidden) if plan["layout"] == "unit_tiles"
+                     else (0,), dtype=proj_tm.dtype, device=dev)
+    info = launch("gru_seq_fwd", dev, tuple(aligned(a) for a in args),
+                  (h_seq, rh),
+                  (steps, batch, hidden, plan["code"],
+                   plan.get("rows_per_block", 0)),
+                  _count_launches)
+    gru_seq_fwd.last_launch = dict(plan, **dict(zip(
+        ("blocks", "rows_per_block", "w_placement", "smem_bytes",
+         "rows_per_launch", "launches"), info)))
     return h_seq
 
 

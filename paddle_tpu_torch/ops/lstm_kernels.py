@@ -13,9 +13,17 @@ pallas_kernels.py ``lstm_fused`` forward (the TPU kernels K1
     -> h_seq, c_seq [T, B, H] in the gates' dtype; c is carried in f32.
 
 On a CUDA tensor the wrapper launches the kernel (paddle_tpu_torch/csrc/
-lstm_seq_fwd.cu, one cooperative launch per sequence; a batch too large for
-one co-resident grid runs as a few launches of equal row chunks, each
-counted) or raises; on a CPU
+lstm_seq_fwd.cu) in one of three layouts that ``fwd_plan`` picks from the
+shapes and dtype: "cluster" (H % 8 == 0 up to 16 unit tiles, in float32
+up to 8: one thread-block cluster per batch tile, each block's W columns
+on chip, h_t exchanged through distributed shared memory behind one
+cluster barrier a step), "grid" (512 <= H <= 1320 on an H100 where the
+cluster does not run: W spread over the shared memory of one persistent
+grid of one block per SM, each block U units for every row, h_{t-1}
+streamed from L2 each step, one grid barrier a step; batches above 128
+rows as equal row chunks, one launch each) or "unit_tiles" (what neither
+takes: blocks of 32 units x R rows, one cooperative launch per row chunk
+that fits, a grid barrier a step); each launch is counted. On a CPU
 tensor it runs ``lstm_seq_fwd_reference``, the plain loop of the same
 function, which is also the oracle the kernel is held against.
 
@@ -207,6 +215,112 @@ def bwd_plan(batch, hidden, dtype, sms=H100_SMS, smem=cl.H100_SMEM_OPTIN,
                         else "simt_f32")}
 
 
+def fwd_device_limits(dev):
+    """(SM count, opt-in shared memory per block in bytes, (clusters of 8,
+    clusters of 16)) of the card ``dev``, as the forward kernel's C side
+    reads them for its cluster kernel (``clusters.device_limits``)."""
+    return cl.device_limits("lstm_seq_fwd", dev)
+
+
+def _fwd_cl_smem(hidden, rows, esz):
+    """Shared memory of an LSTM forward cluster block (csrc/lstm_seq_fwd.cu
+    cl_smem_bytes): W's 128 columns where they are not in registers, h_{t-1}
+    of the block's rows in two parities, and the product's scratch."""
+    tiles = -(-hidden // 32)
+    return (cl.fwd_w_bytes(tiles, 128, esz)
+            + cl.fwd_state_bytes(tiles, rows, 2)
+            + 4 * cl.fwd_scratch_floats(128, rows, esz))
+
+
+def fwd_cluster_plan(batch, hidden, dtype, smem=cl.H100_SMEM_OPTIN,
+                     clusters=cl.H100_CLUSTERS):
+    """The LSTM forward's cluster layout for this shape (rows per block by
+    ``clusters.cluster_rows``), or None where it does not take it."""
+    esz = 4 if dtype == torch.float32 else 2
+    rows = cl.cluster_rows(batch, hidden,
+                           lambda r: _fwd_cl_smem(hidden, r, esz), smem,
+                           clusters, cl.FWD_ROWS)
+    if rows is None:
+        return None
+    return {"layout": "cluster", "code": 2, "rows_per_block": rows,
+            "cluster_size": -(-hidden // 32), "clusters": -(-batch // rows),
+            "smem_bytes": _fwd_cl_smem(hidden, rows, esz)}
+
+
+# The grid layout (csrc/lstm_seq_fwd.cu, kGr*): ceil(H / SMs) units per
+# block rounded up to even, one warp each (at most 10); passes of 64 rows,
+# at most 2 per launch; h_{t-1} staged in K chunks (32 in float32, 64 in
+# bfloat16) through a 3-slot ring. These constants and ``_gr_smem`` copy
+# the kernel's; tests/test_torch_fwd_plan.py holds the two equal.
+_GR_MIN_HIDDEN = 512
+_GR_ROWS = 64
+_GR_MAX_PASSES = 2
+_GR_MAX_UNITS = 10
+_GR_STAGES = 3
+_GR_KC = {4: 32, 2: 64}
+_GR_LD_BF16 = _GR_ROWS + 8
+
+
+def _gr_smem(hidden, units, esz):
+    """Shared memory of a grid block (csrc/lstm_seq_fwd.cu gr_smem_bytes):
+    float32: W [K up to 32][4U, + 4 where U % 4 == 0] and the staging ring
+    [3][32][64]; bfloat16: W's B fragments [K up to 64 / 16][ceil(U / 2)][32
+    lanes] x 8 bytes, the ring [3][64][72] and the tile [64][8 ceil(U / 2)]
+    in float32."""
+    kc = _GR_KC[esz]
+    kpad = -(-hidden // kc) * kc
+    if esz == 4:
+        wp = 4 * units + (4 if units % 4 == 0 else 0)
+        return kpad * wp * 4 + _GR_STAGES * kc * _GR_ROWS * 4
+    nts = -(-4 * units // 8)
+    return (kpad // 16 * nts * 32 * 8 + _GR_STAGES * kc * _GR_LD_BF16 * 2
+            + _GR_ROWS * nts * 8 * 4)
+
+
+def grid_plan(batch, hidden, dtype, sms=H100_SMS, smem=cl.H100_SMEM_OPTIN):
+    """The LSTM forward's grid layout for this shape on a card of ``sms``
+    SMs and ``smem`` bytes of shared memory per block, or None where it
+    does not take it (more than 10 units a block: above H=1320 on an H100;
+    or a block's slice that does not fit): ``units`` = ceil(H / sms) per
+    block rounded up to even, ``rows_per_launch`` the equal row chunks of
+    at most 128 rows, ``passes`` of 64 rows per step."""
+    esz = 4 if dtype == torch.float32 else 2
+    units = -(-hidden // sms)
+    units += units % 2
+    if units > _GR_MAX_UNITS or _gr_smem(hidden, units, esz) > smem:
+        return None
+    launches = -(-batch // (_GR_ROWS * _GR_MAX_PASSES))
+    rows = -(-batch // launches)
+    return {"layout": "grid", "code": 1, "units": units,
+            "blocks": -(-hidden // units), "rows_per_launch": rows,
+            "passes": -(-rows // _GR_ROWS),
+            "smem_bytes": _gr_smem(hidden, units, esz)}
+
+
+def fwd_plan(batch, hidden, dtype, sms=H100_SMS, smem=cl.H100_SMEM_OPTIN,
+             clusters=cl.H100_CLUSTERS, min_hidden=_GR_MIN_HIDDEN):
+    """The LSTM forward's layout for a batch of ``batch`` rows at
+    ``hidden`` units in ``dtype`` on a card of ``sms`` SMs, ``smem`` bytes
+    of shared memory per block and ``clusters`` (``fwd_device_limits``),
+    from the shapes and dtype alone: "cluster" (``fwd_cluster_plan``)
+    where it takes the shape, in float32 only where W's columns sit in
+    registers (H <= 256: with W in shared memory the float32 cluster loop
+    loses to unit tiles at B=32); else "grid" (``grid_plan``) for H >=
+    ``min_hidden`` where it fits; else "unit_tiles" (the kernel then picks
+    its grid and W placement itself)."""
+    enforce(dtype in (torch.float32, torch.bfloat16), "lstm_seq_fwd takes "
+            "float32 or bfloat16 inputs, got %s", dtype)
+    plan = fwd_cluster_plan(batch, hidden, dtype, smem, clusters)
+    if plan is not None and (dtype == torch.bfloat16
+                             or plan["cluster_size"] <= cl.PORTABLE):
+        return plan
+    if hidden >= min_hidden:
+        plan = grid_plan(batch, hidden, dtype, sms, smem)
+        if plan is not None:
+            return plan
+    return {"layout": "unit_tiles", "code": 0}
+
+
 def lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0):
     """The plain PyTorch loop of the kernel's function (same dtype rules:
     f32 products and sums, c carried in f32, h rounded to the gates'
@@ -316,28 +430,44 @@ def _check_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
         ("dc_f", dc_f, (batch, hidden), None)))
 
 
-def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0):
+def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0, plan=None):
     """Masked peephole-LSTM forward over the whole sequence (see module
-    docstring). After a kernel call, ``lstm_seq_fwd.last_launch`` holds
-    the grid the kernel chose and the number of launches it made."""
-    _check(gates_tm, mask_tm, w_rec, peep, h0, c0)
+    docstring). On a CUDA tensor ``plan`` is the layout to run (a
+    ``fwd_plan`` result; None: ``fwd_plan``'s choice for this card). After
+    a kernel call, ``lstm_seq_fwd.last_launch`` holds the plan, the grid
+    the kernel chose and the number of launches it made."""
+    args = (gates_tm, mask_tm, w_rec, peep, h0, c0)
+    _check(*args)
     dev = gates_tm.device
     if dev.type == "cpu":
-        return lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0)
+        return lstm_seq_fwd_reference(*args)
     enforce(dev.type == "cuda", "lstm_seq_fwd runs on cuda or cpu tensors, "
             "got %s", dev)
-    steps, batch, g4 = gates_tm.shape
-    h_seq = torch.empty((steps, batch, g4 // 4), dtype=gates_tm.dtype,
+    steps, batch, hidden = _gates_shape(gates_tm)
+    if plan is None:
+        plan = fwd_plan(batch, hidden, gates_tm.dtype, *fwd_device_limits(dev))
+    h_seq = torch.empty((steps, batch, hidden), dtype=gates_tm.dtype,
                         device=dev)
     c_seq = torch.empty_like(h_seq)
-    hbuf = torch.empty((2, batch, g4 // 4), dtype=gates_tm.dtype, device=dev)
-    info = launch("lstm_seq_fwd", dev,
-                   (gates_tm, mask_tm, w_rec, peep, h0, c0),
-                   (h_seq, c_seq, hbuf), (steps, batch, g4 // 4),
-                   _count_launches)
-    lstm_seq_fwd.last_launch = dict(zip(
-        ("blocks", "rows_per_block", "w_resident", "smem_bytes",
-         "rows_per_launch", "launches"), info))
+    if plan["layout"] == "grid":
+        # h of every unit, unit-major: [2][H][64 per pass]
+        hbuf = torch.empty((2, hidden, _GR_ROWS * plan["passes"]),
+                           dtype=gates_tm.dtype, device=dev)
+        tiling = (plan["units"], plan["rows_per_launch"])
+    elif plan["layout"] == "cluster":
+        hbuf = torch.empty((0,), dtype=gates_tm.dtype, device=dev)
+        tiling = (0, plan["rows_per_block"])
+    else:
+        hbuf = torch.empty((2, batch, hidden), dtype=gates_tm.dtype,
+                           device=dev)
+        tiling = (0, 0)
+    info = launch("lstm_seq_fwd", dev, tuple(aligned(a) for a in args),
+                  (h_seq, c_seq, hbuf),
+                  (steps, batch, hidden, plan["code"]) + tiling,
+                  _count_launches)
+    lstm_seq_fwd.last_launch = dict(plan, **dict(zip(
+        ("blocks", "rows_per_block", "w_placement", "smem_bytes",
+         "rows_per_launch", "launches"), info)))
     return h_seq, c_seq
 
 

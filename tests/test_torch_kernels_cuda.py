@@ -37,9 +37,12 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
                                               batch, hidden):
     """The hand-written kernel against its plain version on the card; the
     tolerance covers the different summation order (and, in bfloat16, one
-    flipped rounding of h feeding through the recurrence). The last two
-    shapes need more blocks than one co-resident grid holds, so the
-    wrapper runs them as several launches of row chunks."""
+    flipped rounding of h feeding through the recurrence). The planner's
+    layout runs first (clusters at H=40 and 256, one launch at any batch;
+    the grid at H=1280, one launch up to 128 rows). The last two shapes
+    need more blocks than one co-resident unit-tile grid holds, so with
+    that layout forced the wrapper runs them as several launches of row
+    chunks."""
     rng = np.random.RandomState(hidden + batch)
     steps = 20
     lens = rng.randint(0, steps + 1, batch)
@@ -54,18 +57,28 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, tol,
             dev(rng.randn(3, hidden) * 0.3, torch.float32),
             dev(rng.randn(batch, hidden) * 0.5),
             dev(rng.randn(batch, hidden) * 0.5))
-    before = lk.launches
-    h_k, c_k = lk.lstm_seq_fwd(*args)
-    torch.cuda.synchronize()
-    assert lk.launches == before + lk.lstm_seq_fwd.last_launch["launches"]
-    if batch <= 64:
-        assert lk.lstm_seq_fwd.last_launch["launches"] == 1
-    if hidden == 1280 and batch == 128:
-        # 40 unit tiles x 16 row tiles of 8 > 3 blocks per SM x 132 SMs
-        assert lk.lstm_seq_fwd.last_launch["launches"] >= 2
     h_r, c_r = lk.lstm_seq_fwd_reference(*args)
-    torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0, atol=tol)
-    torch.testing.assert_close(c_k.float(), c_r.float(), rtol=0, atol=tol)
+    plans = [None]
+    if batch > 64:
+        plans.append({"layout": "unit_tiles", "code": 0})
+    for plan in plans:
+        before = lk.launches
+        h_k, c_k = lk.lstm_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        launch = lk.lstm_seq_fwd.last_launch
+        assert lk.launches == before + launch["launches"]
+        if plan is None:
+            assert launch["layout"] == ("grid" if hidden == 1280
+                                        else "cluster")
+            assert launch["launches"] == 1
+        else:
+            # 40 unit tiles x 16 row tiles of 8 > 3 blocks per SM x 132
+            # SMs; 600 rows of 8 unit tiles likewise
+            assert launch["launches"] >= 2
+        torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0,
+                                   atol=tol)
+        torch.testing.assert_close(c_k.float(), c_r.float(), rtol=0,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
@@ -214,24 +227,28 @@ GRU_SHAPES = [(3, 37), (8, 256), (64, 256), (64, 512), (4, 1024), (600, 256)]
 @pytest.mark.parametrize("batch,hidden", GRU_SHAPES)
 def test_gru_fwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
                                                       tol, batch, hidden):
-    """The GRU forward kernel against its plain version on the card; the
-    tolerance covers the different summation order of both GEMVs (and, in
-    bfloat16, one flipped rounding of r*h or h feeding through the
-    recurrence)."""
+    """The GRU forward kernel against its plain version on the card, in
+    the planner's layout and in unit tiles; the tolerance covers the
+    different summation order of both GEMVs (and, in bfloat16, one flipped
+    rounding of r*h or h feeding through the recurrence). Unit tiles run
+    B=600 as several launches of row chunks; a cluster launch is one
+    launch at any batch."""
     rng = np.random.RandomState(hidden + batch)
     args = _gru_inputs(rng, cuda_device, dtype, 20, batch, hidden)
-    before = gk.launches
-    h_k = gk.gru_seq_fwd(*args)
-    torch.cuda.synchronize()
-    launch = gk.gru_seq_fwd.last_launch
-    assert gk.launches == before + launch["launches"]
-    if batch <= 64:
-        assert launch["launches"] == 1, launch
-    if batch == 600:
-        assert launch["launches"] >= 2, launch
     h_r = gk.gru_seq_fwd_reference(*args)
-    assert h_k.dtype == dtype
-    torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0, atol=tol)
+    for plan in (None, {"layout": "unit_tiles", "code": 0}):
+        before = gk.launches
+        h_k = gk.gru_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        launch = gk.gru_seq_fwd.last_launch
+        assert gk.launches == before + launch["launches"]
+        if batch <= 64 or launch["layout"] == "cluster":
+            assert launch["launches"] == 1, launch
+        if batch == 600 and plan is not None:
+            assert launch["launches"] >= 2, launch
+        assert h_k.dtype == dtype
+        torch.testing.assert_close(h_k.float(), h_r.float(), rtol=0,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
@@ -523,6 +540,216 @@ def test_refused_cluster_launch_raises_on_card(cuda_device):
                            "failed"):
             gk.gru_seq_bwd(*gargs, plan=plan)
         assert gk.bwd_launches == before
+
+
+# (T, B, H) of the forward layouts: widths of 3 and 7 unit tiles (H=96, 200)
+# and batches no multiple of the rows per block, the served and trained
+# flagship, H=384 (12 unit tiles: W in shared memory), H=512 (clusters of
+# 16 in bfloat16; the grid's 4 units a block), the wide model, and B=130
+# at H=768 (the grid in two launches of 65 rows, two passes each)
+FWD_LAYOUT_SHAPES = [(20, 6, 96), (20, 3, 200), (64, 32, 256),
+                     (20, 64, 256), (20, 64, 384), (20, 64, 512),
+                     (30, 64, 1280), (10, 130, 768)]
+
+
+def _lstm_fwd_inputs(rng, device, dtype, steps, batch, hidden):
+    """Numpy-seeded LSTM forward inputs: lengths include T, 0 and 1,
+    nonzero peepholes, h0 and c0."""
+    lens = rng.randint(0, steps + 1, batch)
+    lens[:3] = (steps, 0, 1)[:batch]
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    return (dev(rng.randn(steps, batch, 4 * hidden) * 0.5),
+            dev((np.arange(steps)[:, None] < lens[None, :]), torch.float32),
+            dev(rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)),
+            dev(rng.randn(3, hidden) * 0.3, torch.float32),
+            dev(rng.randn(batch, hidden) * 0.5),
+            dev(rng.randn(batch, hidden) * 0.5))
+
+
+def _fwd_plans(kind, batch, hidden, dtype, device):
+    """{layout: plan} of every forward layout that takes the shape on this
+    card."""
+    plans = {"unit_tiles": {"layout": "unit_tiles", "code": 0}}
+    if kind == "lstm":
+        sms, smem, clusters = lk.fwd_device_limits(device)
+        plans["cluster"] = lk.fwd_cluster_plan(batch, hidden, dtype, smem,
+                                               clusters)
+        plans["grid"] = lk.grid_plan(batch, hidden, dtype, sms, smem)
+    else:
+        _, smem, clusters = gk.fwd_device_limits(device)
+        plans["cluster"] = gk.fwd_cluster_plan(batch, hidden, dtype, smem,
+                                               clusters)
+    return {k: v for k, v in plans.items() if v is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("steps,batch,hidden", FWD_LAYOUT_SHAPES)
+def test_fwd_layouts_forced_on_card(cuda_device, steps, batch, hidden, dtype,
+                                    tol):
+    """Every layout of the LSTM forward that takes the shape, forced by
+    ``plan=``, against the plain version on the card (TOL_F32 / TOL_BF16
+    of chip_smoke.py), with ragged masks (lengths T, 0 and 1) and nonzero
+    h0 and c0; counted launches, and a repeat that is bit-identical."""
+    rng = np.random.RandomState(41 * hidden + batch)
+    args = _lstm_fwd_inputs(rng, cuda_device, dtype, steps, batch, hidden)
+    want = lk.lstm_seq_fwd_reference(*args)
+    plans = _fwd_plans("lstm", batch, hidden, dtype, cuda_device)
+    assert "grid" in plans  # at most 10 units a block at every width here
+    for layout, plan in plans.items():
+        before = lk.launches
+        got = lk.lstm_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        launch = dict(lk.lstm_seq_fwd.last_launch)
+        assert launch["layout"] == layout
+        assert lk.launches == before + launch["launches"]
+        if layout == "cluster":
+            assert launch["launches"] == 1
+            assert launch["rows_per_block"] == plan["rows_per_block"]
+        if layout == "grid":
+            assert launch["launches"] == -(-batch // plan["rows_per_launch"])
+            assert launch["blocks"] == plan["blocks"]
+        for name, g, w in zip(("h_seq", "c_seq"), got, want):
+            assert g.dtype == dtype
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=0, atol=tol,
+                msg=lambda m, n=name, lay=layout: "%s %s: %s" % (lay, n, m))
+        again = lk.lstm_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("steps,batch,hidden", [
+    (20, 6, 96), (20, 3, 200), (128, 32, 256), (20, 64, 256),
+    (20, 64, 512), (20, 600, 256)])
+def test_gru_fwd_layouts_forced_on_card(cuda_device, steps, batch, hidden,
+                                        dtype, tol):
+    """Both layouts of the GRU forward, forced by ``plan=``, against the
+    plain version on the card, as test_fwd_layouts_forced_on_card; the
+    clusters of 16 at H=512 run in two waves (13 or 8 clusters of the 7 a
+    card holds), which is slower but right."""
+    rng = np.random.RandomState(43 * hidden + batch)
+    args = _gru_inputs(rng, cuda_device, dtype, steps, batch, hidden)
+    want = gk.gru_seq_fwd_reference(*args)
+    plans = _fwd_plans("gru", batch, hidden, dtype, cuda_device)
+    assert "cluster" in plans
+    for layout, plan in plans.items():
+        before = gk.launches
+        got = gk.gru_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        launch = dict(gk.gru_seq_fwd.last_launch)
+        assert launch["layout"] == layout
+        assert gk.launches == before + launch["launches"]
+        if layout == "cluster":
+            assert launch["launches"] == 1 and launch["w_placement"] == 5
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol, msg=lambda m, lay=layout:
+                                   "%s: %s" % (lay, m))
+        again = gk.gru_seq_fwd(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got), layout
+
+
+@pytest.mark.cuda
+def test_forced_fwd_plan_the_card_cannot_hold_raises(cuda_device):
+    """A forward plan the card or the kernel does not take raises; nothing
+    falls back to another layout or to the plain version: cluster rows the
+    kernel is not compiled for (6), a width that is no multiple of 8, a
+    float32 LSTM cluster block whose W slice exceeds the shared memory
+    (H=512: 256 KB), a GRU cluster of 17 blocks (H=544), a grid of an odd
+    unit count or of 12 units a block, and a float32 grid block whose
+    slice exceeds the shared memory (H=1536, 12 units; 10 units would
+    need 154 blocks, more than the card's SMs)."""
+    rng = np.random.RandomState(5)
+    cases = [((6, 96), {"layout": "cluster", "code": 2,
+                        "rows_per_block": 6}),
+             ((6, 100), {"layout": "cluster", "code": 2,
+                         "rows_per_block": 1}),
+             ((2, 512), {"layout": "cluster", "code": 2,
+                         "rows_per_block": 1}),
+             ((4, 1280), {"layout": "grid", "code": 1, "units": 9,
+                          "rows_per_launch": 4, "passes": 1}),
+             ((4, 1280), {"layout": "grid", "code": 1, "units": 12,
+                          "rows_per_launch": 4, "passes": 1}),
+             ((4, 1536), {"layout": "grid", "code": 1, "units": 10,
+                          "rows_per_launch": 4, "passes": 1})]
+    for (batch, hidden), plan in cases:
+        args = _lstm_fwd_inputs(rng, cuda_device, torch.float32, 3, batch,
+                                hidden)
+        before = lk.launches
+        with pytest.raises(RuntimeError, match="lstm_seq_fwd kernel launch "
+                           "failed"):
+            lk.lstm_seq_fwd(*args, plan=plan)
+        assert lk.launches == before, (batch, hidden, plan)
+    for batch, hidden, rows in ((6, 96, 6), (6, 100, 1), (2, 544, 1)):
+        gargs = _gru_inputs(rng, cuda_device, torch.float32, 3, batch,
+                            hidden)
+        before = gk.launches
+        with pytest.raises(RuntimeError, match="gru_seq_fwd kernel launch "
+                           "failed"):
+            gk.gru_seq_fwd(*gargs, plan={"layout": "cluster", "code": 2,
+                                         "rows_per_block": rows})
+        assert gk.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,layout,batch,hidden", [
+    ("lstm", "cluster", 32, 256), ("lstm", "grid", 64, 1280),
+    ("lstm", "grid", 64, 512), ("lstm", "cluster", 64, 384),
+    ("gru", "cluster", 64, 256), ("gru", "cluster", 8, 512)])
+def test_fwd_product_is_full_float32_on_card(cuda_device, kind, layout,
+                                            batch, hidden):
+    """The float32 forward layouts form their products in full float32, as
+    the reference does: one step whose cell returns tanh of the product
+    (LSTM: input gate saturated open, forget gate shut, c0 = 0, so c_1 =
+    tanh(h0 . W_g); GRU: update gate shut, reset gate open, so h_1 =
+    tanh(h0 . W_c)), inverted in float64 and held against the float64
+    product within RECOMPUTE_TOL of each element's scale. A TF32-class
+    product (10 mantissa bits) misses by about 1e-4."""
+    rng = np.random.RandomState(hidden + batch)
+    dev = cuda_device
+    h0 = torch.tensor(rng.randn(batch, hidden) * 0.5, dtype=torch.float32,
+                      device=dev)
+    mask = torch.ones((1, batch), device=dev)
+    plans = _fwd_plans(kind, batch, hidden, torch.float32, dev)
+    plan = plans[layout]
+    if kind == "lstm":
+        w = torch.tensor(rng.randn(hidden, 4 * hidden) * 0.1 / np.sqrt(hidden),
+                         dtype=torch.float32, device=dev)
+        gates = torch.zeros((1, batch, 4 * hidden), device=dev)
+        gates[..., :hidden] = 30.0           # i = 1
+        gates[..., hidden:2 * hidden] = -30.0  # f = 0 (c0 = 0 anyway)
+        peep = torch.zeros((3, hidden), device=dev)
+        _, c_seq = lk.lstm_seq_fwd(gates, mask, w, peep, h0,
+                                   torch.zeros_like(h0), plan=plan)
+        torch.cuda.synchronize()
+        assert lk.lstm_seq_fwd.last_launch["layout"] == layout
+        got, b = c_seq[0], w[:, 2 * hidden:3 * hidden]
+    else:
+        w_rz = torch.tensor(rng.randn(hidden, 2 * hidden) / np.sqrt(hidden),
+                            dtype=torch.float32, device=dev)
+        w_c = torch.tensor(rng.randn(hidden, hidden) * 0.1 / np.sqrt(hidden),
+                           dtype=torch.float32, device=dev)
+        proj = torch.zeros((1, batch, 3 * hidden), device=dev)
+        proj[..., :hidden] = -30.0            # u = 0: h_1 = c
+        proj[..., hidden:2 * hidden] = 30.0   # r = 1: rh = h0
+        got = gk.gru_seq_fwd(proj, mask, w_rz, w_c, h0, plan=plan)[0]
+        torch.cuda.synchronize()
+        assert gk.gru_seq_fwd.last_launch["layout"] == layout
+        b = w_c
+    z = torch.atanh(got.double())
+    want = h0.double() @ b.double()
+    scale = h0.double().abs() @ b.double().abs()
+    err = float(((z - want).abs() / scale).max())
+    assert err <= RECOMPUTE_TOL, err
 
 
 # (N, H, W, C, F, k): ResNet-50 stage shapes at a small batch, N=1, the

@@ -22,7 +22,8 @@ PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
 
 
 def _port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, name)
+             for name in ("chip_smoke.py", "chip_kernel_probe.py")]
     for dirpath, dirnames, filenames in os.walk(PKG):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "build")]
