@@ -152,8 +152,40 @@ result line:
            0.05; the argmax agreement reported, not held), exactly 1 K9 and
            46 K7 launches per dispatched batch, the resident bytes and
            the time of one bucket-8 forward, fp and int8.
-20. kernels one entry per TPU kernel the port replaced (the redesigned
-           ones with the paths or layouts they ran), then the card's
+20. kernel_conv_googlenet  K7 forward, K7 data gradient and K8 (as
+           phases 13-14: the plain version, the path, a bit-identical
+           repeat, the time behind a sleep kernel, the bound and cuDNN) at
+           each distinct stride-1 conv shape of GoogleNet (40 shapes, 47
+           convs) and AlexNet (3) at batch 128, float32 and bfloat16:
+           partial K chunks (C = 112, 144, 528), filter counts that fill
+           part of a tile (F = 16, 24, 48, 208); then each network's sums.
+21. dropout  masks from a CUDA generator: the same for one seed, other
+           for another, the kept share at 128 x 4096 within 4 sigma of
+           1 - rate, the kept values scaled by 1 / (1 - rate).
+22. train_googlenet, train_alexnet  each model plus a label and
+           classification_cost, trained by trainer.SGD with
+           Momentum(0.01, 0.9): one float32 step on 2 images against the
+           same step on the CPU with the same dropout masks (seeded numpy
+           masks in place of ops.dropout.keep_mask, in this check only):
+           the cost and every parameter within 1e-4 of max(1, max |CPU|);
+           10 steps at batch 128 in f32 and bf16 with the card's own
+           generator (ms per batch, images per second, exactly 94 K7 and
+           47 K8 launches per GoogleNet step, 6 and 3 per AlexNet step, a
+           2-step torch.profiler summary, peak memory); the 2-image-trained
+           parameters served from a bundle at batch size 2 against
+           inference.infer on the CPU, 47 (3) K7 launches per batch.
+23. train_bilstm_crf  the BiLSTM-CRF tagger (sequence_tagging_rnn + crf,
+           vocab 30000, 67 labels, emb 64, hidden 128) trained with
+           Momentum(2e-3, 0.9): 3 ragged f32 steps at 32 x 60 against the
+           CPU (costs and every parameter within 1e-4) and the same steps
+           under the bf16 policy (costs within 1e-1 of f32), 20 steps at
+           32 x 60 in f32 and bf16 (ms per batch, exactly 2 K1 and 2 K2
+           launches per step: both directions), and crf_decoding's paths
+           on the card equal to the CPU's. Phases 3-4 and their layouts phases
+           also hold K1 and K2 at its (60, 32, 128) (clusters of 4 blocks).
+24. kernels one entry per TPU kernel the port replaced (the redesigned
+           ones with the paths or layouts they ran; K7, K8, K1 and K2 also
+           at GoogleNet's and the BiLSTM's shapes), then the card's
            name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -169,6 +201,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 
@@ -214,7 +247,10 @@ TOL_TRAIN_RESNET_COST = 2e-2
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, data sheet
 
-KERNEL_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256), (100, 64, 1280)]
+# the BiLSTM-CRF tagger's recurrences (T, B, H), both directions
+BILSTM_SHAPE = (60, 32, 128)
+KERNEL_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256), (100, 64, 1280),
+                BILSTM_SHAPE]
 # a batch whose unit-tile grid is not co-resident in one launch: with that
 # layout forced the wrapper splits it into row chunks (checked, not on the
 # main path); the planner's grid layout takes it in one launch
@@ -222,22 +258,22 @@ CHUNKED_CASES = [(32, 128, 1280)]
 UNIT_TILES = {"layout": "unit_tiles", "code": 0}
 # the forward's layout by hidden size (ops/lstm_kernels.fwd_plan,
 # ops/gru_kernels.gru_fwd_plan)
-FWD_LAYOUTS = {256: "cluster", 1280: "grid"}
+FWD_LAYOUTS = {128: "cluster", 256: "cluster", 1280: "grid"}
 GRU_FWD_LAYOUTS = {256: "cluster"}
 # (T, B, H) at which every forward layout that takes the shape is timed
 FWD_LAYOUT_CASES = [(64, 1, 256), (64, 8, 256), (64, 32, 256),
                     (100, 64, 256), (100, 64, 512), (100, 64, 1280),
-                    (32, 128, 1280)]
+                    (32, 128, 1280), BILSTM_SHAPE]
 # the planner's layout against the fastest measured: layouts whose times
 # differ by less than this swap places between runs
 PLANNER_SLACK = 1.10
-BWD_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 1280)]
+BWD_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 1280), BILSTM_SHAPE]
 BWD_CHUNKED_CASES = [(32, 128, 1280)]
 # the backward's layout by hidden size (ops/lstm_kernels.bwd_plan)
-BWD_LAYOUTS = {256: "cluster", 1280: "w_tiles"}
+BWD_LAYOUTS = {128: "cluster", 256: "cluster", 1280: "w_tiles"}
 # (T, B, H) at which every backward layout that takes the width is timed
 BWD_LAYOUT_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 512),
-                    (100, 64, 768), (100, 64, 1280)]
+                    (100, 64, 768), (100, 64, 1280), BILSTM_SHAPE]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, H1280_STEPS = 64, 100, 20, 5
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
@@ -282,6 +318,33 @@ CONV_CASES = ([(RESNET_BATCH, hw, hw, c, f, k)
 # (2^-8 relative) apart. K8 returns float32 in both cases.
 TOL_CONV = {"float32": 1e-4, "bfloat16": 1e-2}
 TOL_CONV_BWDW = 1e-4
+# GoogleNet (224x224) and AlexNet (227x227) as benchmark/harness.py builds
+# them for the vision bench rows, trained at batch 128; their stride-1 convs
+# in the kernels' family (47 and 3) are read from the models' topologies
+GOOGLENET = {"num_classes": 1000}
+GOOGLENET_BUILDER = "paddle_tpu_torch.models.vision:googlenet"
+ALEXNET = {"num_classes": 1000}
+ALEXNET_BUILDER = "paddle_tpu_torch.models.vision:alexnet"
+# name: (builder, config, image side, kernel-family convs, output layer)
+VISION_NETS = {
+    "googlenet": (GOOGLENET_BUILDER, GOOGLENET, 224, 47, "goog_out"),
+    "alexnet": (ALEXNET_BUILDER, ALEXNET, 227, 3, "alex_fc8")}
+VISION_BATCH, VISION_STEPS = 128, 10
+# the BiLSTM-CRF tagger of benchmark/harness.py:425-473 (the tagging bench
+# row: batch 32, length 60, Momentum(2e-3, 0.9))
+BILSTM = {"word_dict_size": 30000, "label_dict_size": 67, "emb_size": 64,
+          "hidden": 128}
+BILSTM_BUILDER = "paddle_tpu_torch.models.text:sequence_tagging_rnn"
+BILSTM_STEPS = 20
+# the BiLSTM-CRF's 3 ragged steps, bfloat16 policy against float32 (each
+# cost relative to max(1, |cost|)): its cost is the difference of two
+# bfloat16 sums of a few hundred (log Z and the path score), so the first
+# cost alone departs by 3.4 % in the JAX package too (244.0 against 252.6
+# at 32 x 60 on the CPU)
+TOL_TRAIN_BF16_CRF = 1e-1
+# dropout's kept share at 128 x 4096, held within this many standard
+# deviations of 1 - rate
+DROPOUT_SIGMAS = 4.0
 # the targets of K7's redesign (46-conv sums at batch 64, forward and data
 # gradient alike) and of K4's at (100, 64, 1280) f32, reported beside the
 # measured times (not held: they are times)
@@ -488,8 +551,8 @@ def layouts_row(torch, phase, kernel, shape, dtype, run, reference, plans,
     """One row of a forward layouts phase: each layout of ``plans`` (that
     takes the shape) run by ``run(plan)``, held against ``reference()``
     within ``tol``, repeated bit for bit and timed behind a sleep kernel;
-    the planner's layout ``planned`` must be within PLANNER_SLACK of the
-    fastest."""
+    the planner's layout ``planned`` must be within ``PLANNER_SLACK`` of
+    the fastest."""
     steps, batch, hidden = shape
     name = str(dtype).replace("torch.", "")
 
@@ -1256,14 +1319,14 @@ def tagger_batches(seed, n, rows, ragged):
 
 
 class TrainRig:
-    """A model's output plus a label and classification_cost, its cost
-    topology and numpy-seeded initial parameters (``params(topology,
-    seed)``, default numpy_params); ``trainer(device)``
-    gives a fresh trainer with Momentum(learning_rate, 0.9) on its own
-    copy of them."""
+    """A model's output plus a label and a cost (``cost(input, label)``,
+    default classification_cost), its cost topology and numpy-seeded
+    initial parameters (``params(topology, seed)``, default numpy_params);
+    ``trainer(device)`` gives a fresh trainer with Momentum(learning_rate,
+    0.9) on its own copy of them."""
 
     def __init__(self, build, config, label_type, seed, learning_rate,
-                 params=None):
+                 params=None, cost=None):
         from paddle_tpu_torch import layer
         from paddle_tpu_torch.graph import reset_name_counters
         from paddle_tpu_torch.topology import Topology
@@ -1273,7 +1336,8 @@ class TrainRig:
         self.learning_rate = learning_rate
         self.out = build(**config)
         label = layer.data(name="label", type=label_type)
-        self.cost = layer.classification_cost(input=self.out, label=label)
+        self.cost = (cost or layer.classification_cost)(input=self.out,
+                                                        label=label)
         self.topology = Topology(self.cost)
         self.init = (params or numpy_params)(self.topology, seed)
 
@@ -1646,11 +1710,13 @@ def check_k7(torch, ck, launch, y, args, name, shape):
         raise AssertionError("K7 %s at %s: a repeat differs" % (name, shape))
 
 
-def phase_kernel_conv(torch, ck):
-    """K7 at every stride-1 conv shape of ResNet-50 at batch 64."""
+def phase_kernel_conv(torch, ck, cases=CONV_CASES, phase="kernel_conv",
+                      plain_reps=5):
+    """K7 at ``cases`` (default: every stride-1 conv shape of ResNet-50 at
+    batch 64)."""
     results = []
     F = torch.nn.functional
-    for i, shape in enumerate(CONV_CASES):
+    for i, shape in enumerate(cases):
         n, h, w, c, f, k = shape
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -1663,11 +1729,11 @@ def phase_kernel_conv(torch, ck):
             err = rel_error(y, ck.conv2d_same_reference(x, wk))
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), wk.permute(3, 2, 0, 1)
             results.append(conv_row(
-                "kernel_conv", "conv2d_same_fwd", shape, name, err,
+                phase, "conv2d_same_fwd", shape, name, err,
                 TOL_CONV[name], time_ms(torch, lambda: ck.conv2d_same_fwd(
                     x, wk), queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_reference(x, wk),
-                        warmup=1, reps=5),
+                        warmup=1, reps=plain_reps),
                 time_ms(torch, lambda: F.conv2d(x_nchw, w_oihw,
                                                 padding=k // 2),
                         queue_ahead=True),
@@ -1675,13 +1741,14 @@ def phase_kernel_conv(torch, ck):
     return results
 
 
-def phase_kernel_conv_bwd(torch, ck):
+def phase_kernel_conv_bwd(torch, ck, cases=CONV_CASES,
+                          phase="kernel_conv_bwd", plain_reps=5):
     """The data gradient (K7 on the flipped, transposed weight) and K8 at
     the same shapes; aten.convolution_backward is the library time of
     each."""
     results = []
     backward = torch.ops.aten.convolution_backward
-    for i, shape in enumerate(CONV_CASES):
+    for i, shape in enumerate(cases):
         n, h, w, c, f, k = shape
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -1714,24 +1781,25 @@ def phase_kernel_conv_bwd(torch, ck):
                                 mask)
 
             results.append(conv_row(
-                "kernel_conv_bwd", "conv2d_same_fwd[data_gradient]", shape,
+                phase, "conv2d_same_fwd[data_gradient]", shape,
                 name, rel_error(dx, ck.conv2d_same_reference(dy, w_t)),
                 TOL_CONV[name],
                 time_ms(torch, lambda: ck.conv2d_same_fwd(
                     dy, ck.transposed_weight(wk)), queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_reference(
-                    dy, ck.transposed_weight(wk)), warmup=1, reps=5),
+                    dy, ck.transposed_weight(wk)), warmup=1,
+                    reps=plain_reps),
                 time_ms(torch, lambda: library([True, False, False]),
                         queue_ahead=True),
                 (n * h * w * (c + f) + k * k * c * f) * isz, launch))
             results.append(conv_row(
-                "kernel_conv_bwd", "conv2d_same_bwd_filter", shape, name,
+                phase, "conv2d_same_bwd_filter", shape, name,
                 rel_error(dw, ck.conv2d_same_bwd_filter_reference(x, dy, k)),
                 TOL_CONV_BWDW,
                 time_ms(torch, lambda: ck.conv2d_same_bwd_filter(x, dy, k),
                         queue_ahead=True),
                 time_ms(torch, lambda: ck.conv2d_same_bwd_filter_reference(
-                    x, dy, k), warmup=1, reps=5),
+                    x, dy, k), warmup=1, reps=plain_reps),
                 time_ms(torch, lambda: library([False, True, False]),
                         queue_ahead=True),
                 n * h * w * (c + f) * isz + k * k * c * f * 4, launch_w))
@@ -1755,22 +1823,26 @@ def summed(rows_counts, shape, dtype="float32"):
     return out
 
 
-def network_sum(cases, which, dtype="float32"):
-    """One row of ``dtype`` for the 46 stride-1 convs of a ResNet-50
-    forward (``which`` "fwd"), their data gradients ("dgrad") or filter
-    gradients ("bwdw") at batch 64: each shape's numbers times its count in
-    the network, summed (the library is cuDNN in the same dtype)."""
+def network_sum(cases, which, dtype="float32", convs=RESNET_CONVS,
+                batch=RESNET_BATCH,
+                net="ResNet-50 at batch 64, 224x224"):
+    """One row of ``dtype`` for the stride-1 convs ``convs`` ((k, C, F,
+    H=W, count); default the 46 of a ResNet-50) of one forward (``which``
+    "fwd"), their data gradients ("dgrad") or filter gradients ("bwdw") at
+    ``batch``: each shape's numbers times its count in the network, summed
+    (the library is cuDNN in the same dtype)."""
     kernel = {"fwd": "conv2d_same_fwd",
               "dgrad": "conv2d_same_fwd[data_gradient]",
               "bwdw": "conv2d_same_bwd_filter"}[which]
     rows = {tuple(c["shape"]): c for c in cases
             if c["kernel"] == kernel and c["dtype"] == dtype}
     return summed(
-        [(rows[(RESNET_BATCH, hw, hw, c, f, k)], count)
-         for k, c, f, hw, count in RESNET_CONVS],
-        "ResNet-50 at batch 64, 224x224: the 46 stride-1 convs of one %s "
-        "(13 shapes, %s)" % ("forward" if which == "fwd" else "backward",
-                             dtype), dtype)
+        [(rows[(batch, hw, hw, c, f, k)], count)
+         for k, c, f, hw, count in convs],
+        "%s: the %d stride-1 convs of one %s (%d shapes, %s)" % (
+            net, sum(conv[-1] for conv in convs),
+            "forward" if which == "fwd" else "backward", len(convs), dtype),
+        dtype)
 
 
 def phase_network_sums(conv_cases, conv_bwd_cases):
@@ -2211,12 +2283,14 @@ def phase_serve_resnet_int8(torch, ik, ck, tmp):
     return row
 
 
-def resnet_batches(seed, n, rows):
-    """``n`` minibatches of ``rows`` (image, label) pairs from a seed."""
+def image_batches(seed, n, rows, pixels=RESNET_PIXELS,
+                  classes=RESNET["num_classes"]):
+    """``n`` minibatches of ``rows`` (flat NCHW image N(0, 1), label)
+    pairs from a seed (default: ResNet-50's)."""
     rng = np.random.default_rng(seed)
     return [[(img, int(label)) for img, label in zip(
-        resnet_images(rng, rows),
-        rng.integers(0, RESNET["num_classes"], rows))]
+        rng.standard_normal((rows, pixels), dtype=np.float32),
+        rng.integers(0, classes, rows))]
         for _ in range(n)]
 
 
@@ -2242,12 +2316,16 @@ def update_error(card, cpu, init, names):
     return (diff / ref) ** 0.5
 
 
-def check_conv_launches(ck, steps, what):
+def check_conv_launches(ck, steps, what, convs=46):
+    """K7's and K8's launches after ``steps`` training steps of a network
+    with ``convs`` stride-1 convs in their family: two K7 (forward, data
+    gradient) and one K8 per conv per step."""
     k7, k8 = ck.launches, ck.bwdw_launches
-    if not (k7 == 92 * steps and k8 == 46 * steps):
+    if not (k7 == 2 * convs * steps and k8 == convs * steps):
         raise AssertionError("%s: %d steps launched K7 %d and K8 %d times "
                              "(want %d and %d)" % (what, steps, k7, k8,
-                                                   92 * steps, 46 * steps))
+                                                   2 * convs * steps,
+                                                   convs * steps))
     return k7, k8
 
 
@@ -2263,8 +2341,8 @@ def phase_train_resnet(torch, ck, tmp):
                    data_type.integer_value(RESNET["num_classes"]), SEED + 22,
                    0.01, params=lambda topo, seed: resnet_params(
                        topo, seed, trained_init=True))
-    small = resnet_batches(SEED + 23, 3, 4)
-    full = resnet_batches(SEED + 24, RESNET_STEPS, RESNET_BATCH)
+    small = image_batches(SEED + 23, 3, 4)
+    full = image_batches(SEED + 24, RESNET_STEPS, RESNET_BATCH)
     names = rig.init.names()
     state = [n for n in names if ".moving_" in n]
     weights = [n for n in names if n not in state]
@@ -2352,6 +2430,373 @@ def phase_train_resnet(torch, ck, tmp):
     return {"k7_launches": launches[0], "k8_launches": launches[1]}
 
 
+def family_convs(build, config, batch):
+    """The stride-1 convs of ``build(**config)`` that are in the kernels'
+    family, as [(k, C, F, H=W, count)] sorted by shape (read from the
+    topology, by conv_kernels.kernel_supported at the layer's geometry)."""
+    import torch
+
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.ops import conv_kernels as ck
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+    topology = Topology(build(**config))
+    specs = topology.param_specs()
+    counts = {}
+    for node in topology.nodes:
+        if node.layer_type != "img_conv":
+            continue
+        k, _, c, f = specs[node.name + ".w0"].shape
+        _, hw, _ = node.inputs[0].out_img_shape
+        pad = k // 2
+        if node.out_img_shape[1] == hw and ck.kernel_supported(
+                (batch, hw, hw, c), (k, k, c, f), (1, 1),
+                ((pad, pad), (pad, pad)), 1, (1, 1), torch.float32,
+                torch.float32):
+            counts[(k, c, f, hw)] = counts.get((k, c, f, hw), 0) + 1
+    return [key + (n,) for key, n in sorted(counts.items())]
+
+
+def phase_kernel_conv_googlenet(torch, ck, vision_convs):
+    """K7 forward, K7 data gradient and K8 at every distinct stride-1 conv
+    shape of GoogleNet and AlexNet at batch 128 (partial K chunks and
+    filter tiles that ResNet-50 never gave them), float32 and bfloat16, as
+    phases 13-14 do; then the networks' sums."""
+    cases = sorted({(VISION_BATCH, hw, hw, c, f, k)
+                    for convs in vision_convs.values()
+                    for k, c, f, hw, _ in convs})
+    rows = (phase_kernel_conv(torch, ck, cases, "kernel_conv_googlenet",
+                              plain_reps=3)
+            + phase_kernel_conv_bwd(torch, ck, cases,
+                                    "kernel_conv_googlenet", plain_reps=3))
+    sums = {}
+    for net, convs in vision_convs.items():
+        label = "%s at batch %d, %dx%d" % (net, VISION_BATCH,
+                                           VISION_NETS[net][2],
+                                           VISION_NETS[net][2])
+        for which in ("fwd", "dgrad", "bwdw"):
+            for dtype in ("float32", "bfloat16"):
+                row = network_sum(rows, which, dtype, convs, VISION_BATCH,
+                                  label)
+                sums[(net, which, dtype)] = row
+                emit(dict(row, phase="network_sum_%s" % net, kernel=which))
+    return rows, sums
+
+
+def phase_dropout(torch):
+    """ops.dropout on the card: masks from a CUDA generator repeat for one
+    seed and differ across seeds; at 128 x 4096 the kept share is within
+    DROPOUT_SIGMAS standard deviations of 1 - rate, and the kept values
+    are x / (1 - rate)."""
+    from paddle_tpu_torch.ops import dropout as dropout_ops
+
+    x = torch.ones(128, 4096, device=DEVICE)
+    rows = []
+    for rate in (0.4, 0.5):
+        def run(seed):
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            return dropout_ops.dropout(x, rate, gen)
+
+        a, b, c = run(SEED), run(SEED), run(SEED + 1)
+        kept = a != 0
+        share = float(kept.float().mean())
+        sigma = (rate * (1 - rate) / x.numel()) ** 0.5
+        row = {"phase": "dropout", "shape": list(x.shape), "rate": rate,
+               "kept_share": share, "sigmas_from_keep":
+                   abs(share - (1 - rate)) / sigma,
+               "same_seed_equal": bool(torch.equal(a, b)),
+               "other_seed_differs": not bool(torch.equal(a, c)),
+               "kept_values_scaled": bool(torch.equal(
+                   a[kept], torch.full_like(a[kept], 1 / (1 - rate))))}
+        emit(row)
+        if not (row["same_seed_equal"] and row["other_seed_differs"]
+                and row["kept_values_scaled"]
+                and row["sigmas_from_keep"] <= DROPOUT_SIGMAS):
+            raise AssertionError("dropout on the card: %r" % row)
+        rows.append(row)
+    return rows
+
+
+def vision_params(topology, seed, output):
+    """Every parameter of an image classifier from a numpy seed: weights
+    N(0, 2/fan_in) (fan_in all but the last axis: the activations keep
+    their scale through GoogleNet's 22 weight layers), the output layer's
+    N(0, 0.01/fan_in) (a first cost near ln(classes), as at a real start),
+    biases N(0, 0.01^2)."""
+    import torch
+
+    from paddle_tpu_torch.parameters import Parameters
+
+    rng = np.random.RandomState(seed)
+    values = {}
+    for name, spec in sorted(topology.param_specs().items()):
+        shape = spec.shape
+        if name.endswith(".wbias"):
+            v = 0.01 * rng.standard_normal(shape)
+        else:
+            gain = 0.01 if name == output + ".w0" else 2.0
+            v = rng.standard_normal(shape) * np.sqrt(gain / np.prod(
+                shape[:-1]))
+        values[name] = torch.from_numpy(v.astype(np.float32))
+    return Parameters(values, topology.param_specs())
+
+
+class SeededMasks:
+    """A stand-in for ops.dropout.keep_mask in the card-against-CPU checks
+    only: the i-th mask since ``reset()`` drawn on the CPU from numpy seed
+    ``seed + i`` and moved to the device asked for, so the card's and the
+    CPU's steps drop the same elements."""
+
+    def __init__(self, seed):
+        self.seed = seed
+        self.calls = 0
+
+    def reset(self):
+        self.calls = 0
+
+    def __call__(self, shape, keep, generator, device):
+        import torch
+
+        rng = np.random.RandomState(self.seed + self.calls)
+        self.calls += 1
+        return torch.from_numpy(rng.random_sample(shape) < keep).to(device)
+
+
+def rel_param_error(a, b, names):
+    """max over ``names`` of max |a - b| / max(1, max |b|) (Parameters)."""
+    return max(float(np.abs(a.get(n) - b.get(n)).max())
+               / max(1.0, float(np.abs(b.get(n)).max())) for n in names)
+
+
+def phase_train_vision(torch, ck, tmp, net):
+    """GoogleNet or AlexNet plus a label and classification_cost, trained
+    by trainer.SGD with Momentum(0.01, 0.9): one float32 step on 2 images
+    against the same step on the CPU with the same dropout masks (cost
+    and every updated parameter), VISION_STEPS steps at batch 128 in f32
+    and bf16 with the card's own generator (ms per batch, images per
+    second, K7/K8 launches held, a 2-step profile, peak memory), and the
+    2-image-trained parameters served from a bundle at batch size 2
+    against inference.infer on the CPU."""
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.inference import infer
+    from paddle_tpu_torch.models import vision
+    from paddle_tpu_torch.ops import dropout as dropout_ops
+    from paddle_tpu_torch.serve import load_bundle
+    from paddle_tpu_torch.serve.export import parse_builder
+
+    builder, config, side, convs, output = VISION_NETS[net]
+    classes = config["num_classes"]
+    torch.cuda.reset_peak_memory_stats()
+    rig = TrainRig(getattr(vision, net), config,
+                   data_type.integer_value(classes), SEED + 30, 0.01,
+                   params=lambda topo, seed: vision_params(topo, seed,
+                                                           output))
+    names = rig.init.names()
+    small = image_batches(SEED + 31, 1, 2, 3 * side * side, classes)
+    full = image_batches(SEED + 32, VISION_STEPS, VISION_BATCH,
+                         3 * side * side, classes)
+    # float32, card and CPU, one step with the same dropout masks
+    masks = SeededMasks(SEED + 33)
+    card, cpu = rig.trainer(DEVICE), rig.trainer("cpu")
+    with mock.patch.object(dropout_ops, "keep_mask", masks):
+        ck.reset_launches()
+        costs = train(torch, card, small)
+        small_launches = check_conv_launches(ck, 1, "%s 2-image step" % net,
+                                             convs)
+        no_grad = no_gradient(card)
+        dropped = masks.calls
+        masks.reset()
+        cpu_costs = train(torch, cpu, small)
+    vs_cpu = {"cost_err_rel": cost_error(costs, cpu_costs),
+              "param_err_rel": rel_param_error(card.parameters,
+                                               cpu.parameters, names),
+              "worst_params": worst(tensor_errors(card.parameters,
+                                                  cpu.parameters, names))}
+    # the main path: VISION_STEPS steps at batch 128, f32 then bf16
+    card128 = rig.trainer(DEVICE)
+    ck.reset_launches()
+    costs32, ms = train(torch, card128, full, timed=True)
+    launches = check_conv_launches(ck, VISION_STEPS, "%s f32 training" % net,
+                                   convs)
+    profile = profile_steps(torch, card128, full[:2],
+                            kernels=("conv_fwd", "bwdw"))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        ck.reset_launches()
+        costs16, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_conv_launches(ck, VISION_STEPS,
+                                         "%s bf16 training" % net, convs)
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the 2-image-trained parameters served from a bundle
+    bundle_dir = os.path.join(tmp, "%s_trained" % net)
+    card.export_inference_bundle(parse_builder(builder, config), bundle_dir,
+                                 batch_sizes=(2,))
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    images = np.stack([img for img, _ in small[0]])
+    ck.reset_launches()
+    served = bundle.infer({"image": images})[rig.out.name]
+    served_launches = ck.launches
+    served_err = check_close(
+        served, infer(rig.out, card.parameters, [(r,) for r in images],
+                      device="cpu"), "trained %s bundle" % net)
+    row = {"phase": "train_%s" % net, "config": config,
+           "optimizer": "Momentum(learning_rate=0.01, momentum=0.9)",
+           "small_costs_card": costs, "small_costs_cpu": cpu_costs,
+           "vs_cpu": vs_cpu, "tol": TOL_TRAIN, "dropout_masks": dropped,
+           "params_without_gradient": no_grad,
+           "small_launches": small_launches, "batch": VISION_BATCH,
+           "steps": VISION_STEPS, "ms_per_batch_f32": ms,
+           "images_per_s_f32": VISION_BATCH / ms * 1e3,
+           "costs_f32": costs32, "launches_f32": launches,
+           "profile_f32": profile, "ms_per_batch_bf16": ms16,
+           "images_per_s_bf16": VISION_BATCH / ms16 * 1e3,
+           "costs_bf16": costs16, "launches_bf16": launches16,
+           "peak_memory_gb": peak_gb, "served_launches": served_launches,
+           "trained_bundle_err_vs_cpu_infer": served_err}
+    emit(row)
+    if no_grad:
+        raise AssertionError("%s parameters without a finite nonzero "
+                             "gradient: %s" % (net, no_grad))
+    if not (vs_cpu["cost_err_rel"] <= TOL_TRAIN
+            and vs_cpu["param_err_rel"] <= TOL_TRAIN):
+        raise AssertionError("%s training on the card departs from the "
+                             "CPU: %r" % (net, row))
+    if not (np.all(np.isfinite(costs32)) and np.all(np.isfinite(costs16))):
+        raise AssertionError("%s: costs not finite: %r" % (net, row))
+    if served_launches != convs:
+        raise AssertionError("%s bundle: K7 launched %d times for one batch "
+                             "(want %d)" % (net, served_launches, convs))
+    return {"k7_launches": launches[0], "k8_launches": launches[1],
+            "served_k7_launches": served_launches}
+
+
+def bilstm_batches(seed, n, ragged):
+    """``n`` minibatches of BILSTM_SHAPE's batch (ids, tags) padded to its
+    length: lengths in [1, 60] including 1 and 60 when ``ragged`` (a CRF
+    row needs one valid step), else all 60."""
+    steps, rows, _ = BILSTM_SHAPE
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = (rng.randint(1, steps + 1, rows) if ragged
+                else np.full(rows, steps))
+        if ragged:
+            lens[:2] = (steps, 1)
+        out.append(Batch(((rng.randint(0, BILSTM["word_dict_size"], int(k))
+                           .tolist(),
+                           rng.randint(0, BILSTM["label_dict_size"], int(k))
+                           .tolist()) for k in lens), bucket=steps))
+    return out
+
+
+def decode_paths(torch, rig, params, batch, device):
+    """crf_decoding's best paths over ``batch`` with ``params`` on
+    ``device`` (the CRF weight shared with the trained cost's)."""
+    from paddle_tpu_torch import attr, layer
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    decode = layer.crf_decoding(input=rig.out, param_attr=attr.ParamAttr(
+        name="tag_crf.w0"))
+    topology = Topology(decode)
+    feed = convert_feed(topology, [(ids,) for ids, _ in batch], device,
+                        max_len=batch.bucket)
+    values = {n: torch.as_tensor(params.get(n), device=device)
+              for n in topology.param_specs()}
+    paths = topology.apply(values, feed)[decode.name]
+    return paths.data.cpu().numpy(), paths.lengths.cpu().numpy()
+
+
+def phase_train_bilstm_crf(torch, lk):
+    """The BiLSTM-CRF tagger (sequence_tagging_rnn + layer.crf) at the
+    bench widths, trained by trainer.SGD with Momentum(2e-3, 0.9): 3 ragged
+    f32 steps against the CPU (costs and every parameter) and under the
+    bf16 policy against f32 (costs), BILSTM_STEPS steps at 32 x 60 in f32
+    and bf16 (ms per batch, 2 K1 and 2 K2 launches a step held), and
+    crf_decoding's paths on the card against the CPU's."""
+    from paddle_tpu_torch import data_type, layer
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.models.text import sequence_tagging_rnn
+
+    steps_len, rows, _ = BILSTM_SHAPE
+    rig = TrainRig(sequence_tagging_rnn, BILSTM,
+                   data_type.integer_value_sequence(
+                       BILSTM["label_dict_size"]), SEED + 40, 2e-3,
+                   cost=lambda input, label: layer.crf(
+                       input=input, label=label, name="tag_crf"))
+    ragged = bilstm_batches(SEED + 41, 3, True)
+    full = bilstm_batches(SEED + 42, BILSTM_STEPS, False)
+    card = rig.trainer(DEVICE)
+    lk.reset_launches()
+    costs = train(torch, card, ragged[:1])
+    no_grad = no_gradient(card)
+    costs += train(torch, card, ragged[1:])
+    ragged_launches = check_launches(lk, 3, 2, "bilstm ragged steps")
+    cpu = rig.trainer("cpu")
+    cpu_costs = train(torch, cpu, ragged)
+    cost_err = cost_error(costs, cpu_costs)
+    param_err = param_error(card.parameters, cpu.parameters)
+    card_paths, lengths = decode_paths(torch, rig, card.parameters,
+                                       ragged[0], DEVICE)
+    cpu_paths, _ = decode_paths(torch, rig, card.parameters, ragged[0],
+                                "cpu")
+    differing = int((card_paths != cpu_paths).sum())
+    lk.reset_launches()  # the main path: BILSTM_STEPS steps at 32 x 60
+    costs32, ms = train(torch, card, full, timed=True)
+    launches = check_launches(lk, BILSTM_STEPS, 2, "bilstm f32 training")
+    profile = profile_steps(torch, card, full[:5],
+                            kernels=("lstm_fwd", "lstm_bwd"))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        ragged16 = train(torch, card16, ragged)
+        lk.reset_launches()
+        costs16, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_launches(lk, BILSTM_STEPS, 2,
+                                    "bilstm bf16 training")
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = cost_error(ragged16, costs)
+    row = {"phase": "train_bilstm_crf", "config": BILSTM,
+           "batch": rows, "seq_len": steps_len,
+           "optimizer": "Momentum(learning_rate=0.002, momentum=0.9)",
+           "ragged_costs_card": costs, "ragged_costs_cpu": cpu_costs,
+           "cost_err_rel_vs_cpu": cost_err, "param_err_vs_cpu": param_err,
+           "tol": TOL_TRAIN, "params_without_gradient": no_grad,
+           "ragged_launches": ragged_launches,
+           "decoded_positions": int(lengths.sum()),
+           "decoded_differing_from_cpu": differing,
+           "steps": BILSTM_STEPS, "ms_per_batch_f32": ms,
+           "sentences_per_s_f32": rows / ms * 1e3,
+           "costs_f32": costs32, "launches_f32": launches,
+           "last_fwd_launch": lk.lstm_seq_fwd.last_launch,
+           "last_bwd_launch": lk.lstm_seq_bwd.last_launch,
+           "profile_f32": profile, "bf16_ragged_costs": ragged16,
+           "bf16_cost_err_rel_vs_f32": bf16_err,
+           "tol_bf16": TOL_TRAIN_BF16_CRF, "ms_per_batch_bf16": ms16,
+           "costs_bf16": costs16, "launches_bf16": launches16}
+    emit(row)
+    if not bf16_err <= TOL_TRAIN_BF16_CRF:
+        raise AssertionError("bilstm-crf bf16 training departs from f32: %r"
+                             % row)
+    if no_grad:
+        raise AssertionError("bilstm parameters without a finite nonzero "
+                             "gradient at step 1: %s" % no_grad)
+    if not (cost_err <= TOL_TRAIN and param_err <= TOL_TRAIN):
+        raise AssertionError("bilstm-crf training on the card departs from "
+                             "the CPU: %r" % row)
+    if differing:
+        raise AssertionError("crf_decoding on the card differs from the CPU "
+                             "at %d positions" % differing)
+    if not (np.all(np.isfinite(costs32)) and np.all(np.isfinite(costs16))):
+        raise AssertionError("bilstm-crf costs not finite: %r" % row)
+    return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -2411,6 +2856,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.models import vision
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import conv_kernels as ck
     from paddle_tpu_torch.ops import gru_kernels as gk
@@ -2460,6 +2906,16 @@ def main():
     emit_redesign_readings(int8_cases, bwd_cases, sums, gru_bwd_cases,
                            bwd_layout_rows, gru_bwd_layout_rows, cases,
                            gru_cases, fwd_layout_rows, gru_fwd_layout_rows)
+    vision_convs = {}
+    for net, (_, config, _, n_convs, _) in VISION_NETS.items():
+        vision_convs[net] = family_convs(getattr(vision, net), config,
+                                         VISION_BATCH)
+        if sum(conv[-1] for conv in vision_convs[net]) != n_convs:
+            raise AssertionError("%s has %r in the kernels' family, not %d "
+                                 "convs" % (net, vision_convs[net], n_convs))
+    vision_conv_rows, vision_sums = phase_kernel_conv_googlenet(
+        torch, ck, vision_convs)
+    phase_dropout(torch)
     with tempfile.TemporaryDirectory() as tmp:
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
@@ -2469,8 +2925,11 @@ def main():
         int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
         int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
         trained_resnet = phase_train_resnet(torch, ck, tmp)
+        trained_googlenet = phase_train_vision(torch, ck, tmp, "googlenet")
+        phase_train_vision(torch, ck, tmp, "alexnet")
     trained_tagger = phase_train_tagger(torch, gk)
     trained_wide = phase_train_h1280(torch, lk)
+    trained_bilstm = phase_train_bilstm_crf(torch, lk)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -2513,6 +2972,32 @@ def main():
                      "paddle_tpu/ops/pallas_conv.py:226",
                      trained_resnet["k8_launches"], "conv2d_same_bwdw",
                      path=conv_paths(conv_bwd_cases,
+                                     "conv2d_same_bwd_filter")),
+        recurrent_entry(cases, "lstm_seq_fwd[K1,h128_bilstm]",
+                        "paddle_tpu/ops/pallas_kernels.py:146",
+                        trained_bilstm["fwd_launches"], 128, "lstm_seq_fwd",
+                        path=layouts(cases, 128)),
+        recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h128_bilstm]",
+                        "paddle_tpu/ops/pallas_kernels.py:347",
+                        trained_bilstm["bwd_launches"], 128, "lstm_seq_bwd",
+                        path=layouts(bwd_cases, 128)),
+        kernel_entry([vision_sums[("googlenet", "fwd", "float32")]],
+                     "conv2d_same_fwd[K7,googlenet_forward]",
+                     "paddle_tpu/ops/pallas_conv.py:175",
+                     trained_googlenet["served_k7_launches"],
+                     "conv2d_same_fwd",
+                     path=conv_paths(vision_conv_rows, "conv2d_same_fwd")),
+        kernel_entry([vision_sums[("googlenet", "dgrad", "float32")]],
+                     "conv2d_same_fwd[K7,googlenet_data_gradient]",
+                     "paddle_tpu/ops/pallas_conv.py:175",
+                     trained_googlenet["k7_launches"], "conv2d_same_fwd",
+                     path=conv_paths(vision_conv_rows,
+                                     "conv2d_same_fwd[data_gradient]")),
+        kernel_entry([vision_sums[("googlenet", "bwdw", "float32")]],
+                     "conv2d_same_bwd_filter[K8,googlenet_filter_gradient]",
+                     "paddle_tpu/ops/pallas_conv.py:226",
+                     trained_googlenet["k8_launches"], "conv2d_same_bwdw",
+                     path=conv_paths(vision_conv_rows,
                                      "conv2d_same_bwd_filter")),
         kernel_entry([int8_sum(int8_cases, INT8_FLAGSHIP_BATCH,
                                "the 3 int8 products of one served flagship "

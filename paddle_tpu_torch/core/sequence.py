@@ -61,6 +61,18 @@ class SequenceBatch:
     def map_data(self, fn):
         return SequenceBatch(fn(self.data), self.lengths)
 
+    def reverse(self):
+        """Each sequence reversed within its valid region, the padding
+        left where it is (paddle_tpu/core/sequence.py:126-133; for
+        bidirectional RNNs): position t < length takes length - 1 - t."""
+        t = torch.arange(self.max_len, device=self.lengths.device)[None, :]
+        lens = self.lengths.long()[:, None]
+        idx = torch.where(t < lens, lens - 1 - t, t)
+        idx = idx.reshape(idx.shape + (1,) * (self.data.dim() - 2))
+        return SequenceBatch(
+            torch.gather(self.data, 1, idx.expand(self.data.shape)),
+            self.lengths)
+
     def __repr__(self):
         return "SequenceBatch(data=%s%s, lengths=%s)" % (
             self.data.dtype, tuple(self.data.shape),

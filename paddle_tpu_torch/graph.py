@@ -24,6 +24,7 @@ _REF_NAME_TAGS = {
     "img_pool": "pool",
     "batch_norm_layer": "batch_norm",
     "embedding_layer": "embedding",
+    "img_cmrnorm": "crmnorm",
     "grumemory": "gru",
     "addto_layer": "addto",
     "pooling": "seq_pooling",
@@ -63,17 +64,31 @@ class ParamSpec:
 
 
 class Context:
-    """Per-evaluation context: the train/test mode and a sink for
-    running-state updates (batch norm's moving statistics), as in
-    paddle_tpu/graph.py."""
+    """Per-evaluation context: the train/test mode, the random generator
+    of the stochastic layers (dropout) and a sink for running-state
+    updates (batch norm's moving statistics), as in paddle_tpu/graph.py
+    (there a JAX key folded per draw; here a ``torch.Generator`` whose
+    state advances with every draw)."""
 
-    def __init__(self, mode="test"):
+    def __init__(self, mode="test", generator=None):
         self.mode = mode
+        self.generator = generator
         self.state_updates = {}
 
     @property
     def is_train(self):
         return self.mode == "train"
+
+    def rng_for(self, tensor):
+        """The generator to draw a mask for ``tensor`` from; it must be on
+        the tensor's device."""
+        gen = self.generator
+        enforce(gen is not None, "this network uses stochastic layers "
+                "(dropout); pass generator= to Topology.apply")
+        enforce(gen.device.type == tensor.device.type,
+                "the generator is on %s, the tensor on %s", gen.device,
+                tensor.device)
+        return gen
 
     def update_state(self, name, value):
         """Record the new value of the running-state parameter ``name``."""

@@ -10,6 +10,7 @@ from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.graph import LayerNode, ParamSpec
 from paddle_tpu_torch.initializer import Normal, Uniform, Xavier, \
     default_bias_init
+from paddle_tpu_torch.ops import dropout as dropout_ops
 from paddle_tpu_torch.utils.error import enforce
 from paddle_tpu_torch.utils.registry import Registry
 
@@ -133,15 +134,23 @@ def mark_activation(node, act):
 
 
 def finalize(x, act, extra_attr, ctx):
-    """Apply the activation (an elementwise one straight to an
-    ImageValue's NHWC tensor, which stays an ImageValue); dropout
-    (ExtraAttr.drop_rate) in train mode is not ported yet and raises."""
-    enforce(not (extra_attr and extra_attr.drop_rate and ctx.is_train),
-            "dropout in train mode is not ported yet")
+    """Apply the activation, then, in train mode, dropout
+    (``ExtraAttr.drop_rate``) on the layer's output, as paddle_tpu/layer/
+    base.py:228-256: an elementwise activation and its dropout act on an
+    ImageValue's NHWC tensor, which stays an ImageValue; anything else on
+    the flat rows (a sequence's padded data included)."""
     act = to_activation(act)
+    drop = extra_attr.drop_rate if extra_attr else None
+    drop = drop if drop and ctx.is_train else None
+
+    def dropped(d):
+        return dropout_ops.dropout(d, drop, ctx.rng_for(d))
+
     if isinstance(x, ImageValue) and act.elementwise:
-        return ImageValue(act.apply(x.nhwc), x.img_shape)
-    return featurewise(act.apply, x)
+        y = act.apply(x.nhwc)
+        return ImageValue(dropped(y) if drop else y, x.img_shape)
+    out = featurewise(act.apply, x)
+    return featurewise(dropped, out) if drop else out
 
 
 def make_node(layer_type, forward_fn, inputs, name=None, size=0,

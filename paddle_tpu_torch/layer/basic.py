@@ -1,5 +1,6 @@
-"""Core dense layers: fc, embedding and addto (reference:
-FullyConnectedLayer, TableProjection / embedding_layer, AddtoLayer).
+"""Core dense layers: fc, embedding, concat, addto and dropout (reference:
+FullyConnectedLayer, TableProjection / embedding_layer,
+ConcatenateLayer, AddtoLayer; v2 layer.dropout).
 Weights keep the JAX package's [in, out] layout, so ``x @ w`` and
 parameters copy across unchanged. An fc weight of a quantized bundle
 (serve/quantize.py) is int8 with a ``<name>::scale`` sidecar and runs in
@@ -8,6 +9,8 @@ the dequant-fused kernel ``ops.int8_kernels.int8_matmul``."""
 import torch
 
 from paddle_tpu_torch.activation import to_activation
+from paddle_tpu_torch.attr import ExtraAttr
+from paddle_tpu_torch.graph import LayerNode
 from paddle_tpu_torch.layer.base import (
     ImageValue,
     as_nhwc,
@@ -129,3 +132,54 @@ def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
     if img_ok:
         node.out_img_shape = shapes[0]
     return mark_activation(node, act)
+
+
+@register_layer("concat")
+def concat(input, name=None, act=None, layer_attr=None):
+    """Feature-axis concatenation (reference: ConcatenateLayer;
+    paddle_tpu/layer/basic.py:123-163). Images of one height and width
+    are joined on the NHWC channel axis and stay an ImageValue (the
+    node's ``out_img_shape`` sums their channels); other inputs are
+    joined on their last axis: flat rows, or sequences (the lengths of
+    the first input) as the BiLSTM's two directions. Projection inputs
+    (the mixed-layer path) are not ported yet."""
+    inputs = to_list(input)
+    enforce(len(inputs) >= 1, "concat needs at least one input")
+    enforce(all(isinstance(i, LayerNode) for i in inputs),
+            "concat over projections (the mixed-layer path) is not ported "
+            "yet")
+    shapes = [getattr(i, "out_img_shape", None) for i in inputs]
+    img_ok = (all(s is not None for s in shapes)
+              and len({s[1:] for s in shapes}) == 1)
+    out_shape = ((sum(s[0] for s in shapes),) + shapes[0][1:] if img_ok
+                 else None)
+
+    def forward(params, values, ctx):
+        if img_ok and not any(is_seq(v) for v in values):
+            y = torch.cat([as_nhwc(v, *s) for v, s in zip(values, shapes)],
+                          dim=-1)
+            return finalize(ImageValue(y, out_shape), act, node.extra_attr,
+                            ctx)
+        out = torch.cat([data_of(v) for v in values], dim=-1)
+        return finalize(like(values[0], out), act, node.extra_attr, ctx)
+
+    node = make_node("concat", forward, inputs, name=name,
+                     size=sum(i.size for i in inputs), layer_attr=layer_attr)
+    if img_ok:
+        node.out_img_shape = out_shape
+    return node
+
+
+@register_layer("dropout")
+def dropout(input, dropout_rate, name=None):
+    """Standalone dropout (v2 layer.dropout; paddle_tpu/layer/basic.py:
+    211-222): the input unchanged in test mode; in train mode each
+    element kept with probability ``1 - dropout_rate`` and scaled by its
+    inverse (``layer.base.finalize``)."""
+
+    def forward(params, values, ctx):
+        return finalize(values[0], None, node.extra_attr, ctx)
+
+    node = make_node("dropout", forward, [input], name=name, size=input.size,
+                     layer_attr=ExtraAttr(drop_rate=dropout_rate))
+    return node

@@ -1,6 +1,6 @@
-"""Image layers: img_conv, img_pool and batch_norm (paddle_tpu/layer/
-conv.py; reference ExpandConvLayer/CudnnConvLayer, PoolLayer,
-BatchNormLayer).
+"""Image layers: img_conv, img_pool, batch_norm and img_cmrnorm
+(paddle_tpu/layer/conv.py; reference ExpandConvLayer/CudnnConvLayer,
+PoolLayer, BatchNormLayer, CMRProjectionNormLayer).
 
 The reference flattens feature maps to [B, C*H*W] rows in NCHW order
 between layers; these layers take that flat layout at the graph edge,
@@ -218,4 +218,25 @@ def batch_norm(input, name=None, num_channels=None, act=None, bias_attr=None,
                      layer_attr=layer_attr)
     if shape:
         node.out_img_shape = shape
+    return node
+
+
+@register_layer("img_cmrnorm")
+def img_cmrnorm(input, size, scale=0.0128, power=0.75, name=None,
+                num_channels=None, layer_attr=None):
+    """Local response normalisation across channel maps (reference:
+    CMRProjectionNormLayer; paddle_tpu/layer/conv.py:267-285). Like the
+    JAX layer it hands ``scale * size`` to ``ops.conv.cross_map_norm_auto``,
+    which divides it by ``size`` again: the effective alpha is ``scale``.
+    Over sequence inputs it raises, as the other image layers do."""
+    c, h, w = _img_shape(input, num_channels)
+
+    def forward(params, values, ctx):
+        y = conv_ops.cross_map_norm_auto(as_nhwc(values[0], c, h, w), size,
+                                         scale * size, power)
+        return ImageValue(y, (c, h, w))
+
+    node = make_node("img_cmrnorm", forward, [input], name=name,
+                     size=input.size, layer_attr=layer_attr)
+    node.out_img_shape = (c, h, w)
     return node

@@ -37,14 +37,14 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
     gate biases followed by the three peephole check vectors, and the
     peephole connections are ON whenever the layer has a bias.
     ``bias_attr=False`` gives the plain (bias-free, peephole-free) cell;
-    ``use_peephole=False`` forces a 4*size bias without peepholes. The
-    recurrent-group split parameterization (``gate_bias_attr`` other than
-    its default) and ``reverse=True`` come with later parts of the port
-    and raise.
+    ``use_peephole=False`` forces a 4*size bias without peepholes.
+    ``reverse=True`` runs each sequence right to left (``ops.rnn.
+    lstm_scan``). The recurrent-group split parameterization
+    (``gate_bias_attr`` other than its default) comes with a later part
+    of the port and raises.
     """
     size = size or input.size // 4
     enforce(input.size == 4 * size, "lstmemory input.size must be 4*size")
-    enforce(not reverse, "lstmemory(reverse=True) is not ported yet")
     enforce(gate_bias_attr is MERGED_GATE_BIAS or gate_bias_attr == "merged",
             "lstmemory(gate_bias_attr=...): the split gate-bias "
             "parameterization is not ported yet")
@@ -79,8 +79,8 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
         h_seq, _ = rnn_ops.lstm_scan(
             gates, x.mask(gates.dtype), w_in=None, b=None,
             w_rec=params[wspec.name], gate_act=g_act.apply,
-            state_act=s_act.apply, use_peephole=peephole, w_peep=w_peep,
-            standard_acts=standard_acts, out_act=o_act.apply)
+            state_act=s_act.apply, reverse=reverse, use_peephole=peephole,
+            w_peep=w_peep, standard_acts=standard_acts, out_act=o_act.apply)
         return SequenceBatch(h_seq, x.lengths)
 
     specs = [s for s in (wspec, bspec) if s is not None]
@@ -100,12 +100,12 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
     reset gate and the candidate in that order (paddle_tpu/ops/rnn.py
     gru_step), and a 3*size bias added to the projection before the scan.
     ``act`` is the candidate activation (default tanh), ``gate_act`` the
-    gates' (default sigmoid). ``reverse=True`` and the streaming decode
-    state come with later parts of the port.
+    gates' (default sigmoid). ``reverse=True`` runs each sequence right
+    to left (``ops.rnn.gru_scan``). The streaming decode state comes with
+    a later part of the port.
     """
     size = size or input.size // 3
     enforce(input.size == 3 * size, "grumemory input.size must be 3*size")
-    enforce(not reverse, "grumemory(reverse=True) is not ported yet")
     from paddle_tpu_torch.graph import auto_name
 
     name = name or auto_name("grumemory")
@@ -125,7 +125,7 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
         h_seq, _ = rnn_ops.gru_scan(
             proj, x.mask(proj.dtype), w_in=None, b=None,
             w_rec_rz=w[:, :2 * size], w_rec_c=w[:, 2 * size:],
-            gate_act=g_act.apply, state_act=s_act.apply,
+            gate_act=g_act.apply, state_act=s_act.apply, reverse=reverse,
             standard_acts=standard_acts)
         return SequenceBatch(h_seq, x.lengths)
 

@@ -25,6 +25,25 @@ def text_classification_lstm(dict_size=30000, emb_size=128, hidden=128,
                 name="lstm_out")
 
 
+def sequence_tagging_rnn(word_dict_size=5000, label_dict_size=67,
+                         emb_size=64, hidden=128):
+    """BiLSTM tagger emitting per-step label scores (reference:
+    v1_api_demo/sequence_tagging rnn_crf.py minus the CRF head, which
+    attaches through layer.crf; paddle_tpu/models/text.py:44-57): an
+    embedding, a forward and a reversed simple_lstm, their concat, and an
+    fc to the label scores. Layer and parameter names are the JAX
+    builder's (tag_emb, tag_fwd, tag_bwd, tag_concat, tag_scores)."""
+    words = L.data(name="word",
+                   type=data_type.integer_value_sequence(word_dict_size))
+    emb = L.embedding(input=words, size=emb_size, name="tag_emb")
+    fwd = networks.simple_lstm(input=emb, size=hidden, name="tag_fwd")
+    bwd = networks.simple_lstm(input=emb, size=hidden, reverse=True,
+                               name="tag_bwd")
+    merged = L.concat(input=[fwd, bwd], name="tag_concat")
+    return L.fc(input=merged, size=label_dict_size, act=None,
+                name="tag_scores")
+
+
 def sequence_tagging_gru(dict_size=1000, label_size=16, emb_size=32,
                          hidden=64, name="gru_tag"):
     """Forward-GRU tagger emitting per-timestep label probabilities

@@ -13,6 +13,13 @@ other conv (a strided stem, a stride-2 1x1) runs ``F.conv2d`` on the
 permuted NCHW/OIHW views, as the JAX package computes it in XLA outside
 any Pallas kernel.
 
+Cross-map (LRN) normalisation: ``cross_map_norm`` with the JAX
+package's analytic backward as an autograd Function, and
+``cross_map_norm_auto``, the window sum as a banded [C, C] product in
+float32 (or wider), as the JAX package computes it outside any Pallas
+kernel (paddle_tpu/ops/conv.py:381-472); its bfloat16-band option
+(``lrn_bf16_band``, off by default there) is not ported.
+
 Pooling pads explicitly, as the JAX package's reduce_window does: -inf
 for max, zeros with true window counts for averages that exclude the
 padding; ``_pool_pads`` adds the extra high-side padding that ceil-mode
@@ -53,6 +60,71 @@ def out_size(in_size, filter_size, stride, padding, caffe_mode=True):
     if caffe_mode:
         return (in_size + 2 * padding - filter_size) // stride + 1
     return (in_size + 2 * padding - filter_size + stride - 1) // stride + 1
+
+
+def _channel_window_sum(x, size, lo, hi):
+    """Sum over a sliding window of ``size`` on the channel (last) axis,
+    with ``lo`` / ``hi`` zeros padded below / above."""
+    c = x.shape[-1]
+    padded = F.pad(x, (lo, hi))
+    return sum(padded[..., i:i + c] for i in range(size))
+
+
+class _CrossMapNorm(torch.autograd.Function):
+    """out = x / (1 + scale/size * sum_{window} x^2)^power (reference
+    CrossMapNormalOp); backward is the JAX custom VJP's three window sums
+    (paddle_tpu/ops/conv.py _cmr_vjp_bwd):
+    dx = dy * base^-p - 2 (scale/size) p x W^T[dy x base^(-p-1)]."""
+
+    @staticmethod
+    def forward(ctx, x, size, scale, power):
+        base = 1.0 + (scale / size) * _channel_window_sum(
+            x * x, size, size // 2, size - 1 - size // 2)
+        ctx.save_for_backward(x, base)
+        ctx.size, ctx.scale, ctx.power = size, scale, power
+        return x * base ** (-power)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, base = ctx.saved_tensors
+        size, power = ctx.size, ctx.power
+        half = size // 2
+        t = dy * x * base ** (-power - 1.0)
+        # the transpose of the forward window: flipped padding
+        s = _channel_window_sum(t, size, size - 1 - half, half)
+        dx = dy * base ** (-power) - (2.0 * ctx.scale / size * power) * x * s
+        return dx, None, None, None
+
+
+def cross_map_norm(x_nhwc, size, scale, power):
+    """Local response normalisation across the channels of an NHWC
+    tensor, in its dtype (see ``_CrossMapNorm``)."""
+    return _CrossMapNorm.apply(x_nhwc, int(size), float(scale), float(power))
+
+
+def _lrn_band(channels, size, dtype, device):
+    """0/1 banded [C, C] matrix: column c sums the size-wide channel
+    window around c (rows c - size//2 .. c + size - 1 - size//2)."""
+    lo, hi = size // 2, size - 1 - size // 2
+    row = torch.arange(channels, device=device)[:, None]
+    col = torch.arange(channels, device=device)[None, :]
+    return ((row >= col - lo) & (row <= col + hi)).to(dtype)
+
+
+def cross_map_norm_auto(x_nhwc, size, scale, power):
+    """LRN with the channel window sum as a banded [C, C] product in
+    float32 (float64 stays float64), then cast back to x's dtype;
+    autograd differentiates it (the product's transpose). Above 1024
+    channels, where the band would waste products, ``cross_map_norm``."""
+    c = x_nhwc.shape[-1]
+    if c > 1024:
+        return cross_map_norm(x_nhwc, size, scale, power)
+    ctype = torch.promote_types(x_nhwc.dtype, torch.float32)
+    x2 = x_nhwc.to(ctype) ** 2
+    s = torch.matmul(x2.reshape(-1, c), _lrn_band(c, size, ctype,
+                                                  x_nhwc.device))
+    base = 1.0 + (scale / size) * s.reshape(x_nhwc.shape)
+    return x_nhwc * (base ** (-power)).to(x_nhwc.dtype)
 
 
 def _pool_pads(spatial, window, stride, padding, ceil_mode):

@@ -6,10 +6,17 @@ one matmul; the scan carries only the recurrent state. Masking freezes
 state past each sequence's end. LSTM gate layout is [input, forget, cell
 (candidate), output] on the last axis; GRU layout is [update, reset,
 candidate].
+
+``reverse=True`` runs each sequence right to left within its valid
+region: the input is reversed before the scan and the output reversed
+back (``SequenceBatch.reverse``; paddle_tpu/ops/rnn.py:140-146, 193-197),
+so the padding stays at the end of every row and the kernels' masks mean
+what they mean in a forward scan.
 """
 
 import torch
 
+from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops.gru_kernels import gru_seq
 from paddle_tpu_torch.ops.lstm_kernels import lstm_seq
 from paddle_tpu_torch.utils.error import enforce
@@ -57,8 +64,14 @@ def gru_step(carry, inp_t, w_rec_rz, w_rec_c, mask_t, gate_act, state_act):
     return h, h
 
 
+def _reversed(x_btd, mask_bt):
+    """x reversed within the valid region of each row of ``mask_bt``."""
+    lengths = (mask_bt > 0).sum(dim=1)
+    return SequenceBatch(x_btd, lengths).reverse().data
+
+
 def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
-              gate_act=torch.sigmoid, state_act=torch.tanh,
+              gate_act=torch.sigmoid, state_act=torch.tanh, reverse=False,
               use_peephole=False, w_peep=None, standard_acts=None,
               out_act=None):
     """Full-sequence LSTM. x [B, T, D] -> h_seq [B, T, H], (h_T, c_T).
@@ -71,7 +84,8 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
     w_rec, the peepholes, h0 and c0 only through it. Other activations take
     the eager ``lstm_step`` loop on either device, differentiated by
     autograd (the JAX package's own non-kernel branch, rnn.py:167-191).
-    Reverse and packed-reset scans come with later parts of the port.
+    ``reverse`` reverses around the scan (module docstring); packed-reset
+    scans come with a later part of the port.
     """
     b_, t, d = x_btd.shape
     hidden = w_rec.shape[0]
@@ -86,6 +100,8 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
         h0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
     if c0 is None:
         c0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
+    if reverse:
+        gates = _reversed(gates, mask_bt)
     gates_tm = gates.transpose(0, 1).contiguous()
     mask_tm = mask_bt.transpose(0, 1)
 
@@ -113,6 +129,8 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
         h_f, c_f = carry
         ys = torch.stack(outs)
     h_seq = ys.transpose(0, 1)
+    if reverse:
+        h_seq = _reversed(h_seq, mask_bt)
     return h_seq * mask_bt[..., None].to(h_seq.dtype), (h_f, c_f)
 
 
@@ -127,10 +145,10 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
     kernels on a CUDA tensor and their plain versions on a CPU tensor (the
     eligibility of paddle_tpu/ops/rnn.py:228-234 without the TPU's VMEM
     test). Other activations take the eager ``gru_step`` loop on either
-    device, differentiated by autograd (rnn.py:235-241). Reverse and
-    packed-reset scans come with later parts of the port.
+    device, differentiated by autograd (rnn.py:235-241). ``reverse``
+    reverses around the scan (module docstring); packed-reset scans come
+    with a later part of the port.
     """
-    enforce(not reverse, "gru_scan(reverse=True) is not ported yet")
     enforce(reset_bt is None, "gru_scan(reset_bt=...) (packed sequences) is "
             "not ported yet")
     b_, t, d = x_btd.shape
@@ -144,6 +162,8 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
         proj = proj + b
     if h0 is None:
         h0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
+    if reverse:
+        proj = _reversed(proj, mask_bt)
     proj_tm = proj.transpose(0, 1).contiguous()
     mask_tm = mask_bt.transpose(0, 1)
 
@@ -162,4 +182,6 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
             outs.append(y)
         ys = torch.stack(outs)
     h_seq = ys.transpose(0, 1)
+    if reverse:
+        h_seq = _reversed(h_seq, mask_bt)
     return h_seq * mask_bt[..., None].to(h_seq.dtype), h_f

@@ -79,7 +79,7 @@ def parse_builder(spec, kwargs=None):
 
 def export_bundle(builder, parameters, out_dir,
                   batch_sizes=DEFAULT_BATCH_SIZES, seq_len=None, name=None,
-                  decode_slots=None, quantize=None):
+                  decode_slots=None, quantize=None, trained=False):
     """Write a bundle directory for the topology ``builder`` builds;
     returns the manifest dict.
 
@@ -90,7 +90,11 @@ def export_bundle(builder, parameters, out_dir,
     padded time dimension of sequence inputs (default 64). ``quantize``
     ("int8" or None) quantizes the weights of the payload (module
     docstring). The continuous-batching decode step (``decode_slots``) is
-    not ported yet and raises."""
+    not ported yet and raises. ``trained=True`` takes ``parameters`` as a
+    trainer's superset and keeps the names the topology declares: a cost
+    head's own (a CRF's transitions) stay behind, as the served forward
+    never reads them; a declared name the superset lacks still raises."""
+    from paddle_tpu_torch.parameters import Parameters
     from paddle_tpu_torch.topology import Topology
 
     enforce(not decode_slots, "export_bundle(decode_slots=...): the "
@@ -99,6 +103,12 @@ def export_bundle(builder, parameters, out_dir,
     if isinstance(builder, str):
         builder = parse_builder(builder)
     topology = Topology(build_outputs(builder))
+    if trained:
+        declared = topology.param_specs()
+        values = parameters.as_dict()
+        kept = [n for n in values if n in declared]
+        parameters = Parameters({n: values[n] for n in kept},
+                                {n: parameters.spec(n) for n in kept})
     specs = _input_specs(topology)
     enforce(bool(specs), "topology has no data layers to feed")
     batch_sizes = sorted({int(b) for b in batch_sizes})

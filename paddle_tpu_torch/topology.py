@@ -75,7 +75,7 @@ class Topology:
 
     # -- evaluation ---------------------------------------------------------
     def apply(self, params, feed, mode="test", outputs=None,
-              state_updates=None):
+              state_updates=None, generator=None):
         """Evaluate the DAG. Returns ``{layer_name: value}`` for the output
         nodes (or ``outputs``); an image value crosses the boundary as its
         flat NCHW rows. ``mode="test"`` runs under
@@ -84,10 +84,13 @@ class Topology:
         it can be differentiated back to the parameters (under the
         mixed-precision policy, through their casts to the compute dtype),
         and puts the new values of the running-state parameters into the
-        dict ``state_updates`` when one is given."""
+        dict ``state_updates`` when one is given. ``generator`` (a
+        ``torch.Generator`` on the feed's device) draws the dropout masks
+        of a train-mode evaluation; one that needs a mask raises without
+        it."""
         enforce(mode in ("test", "train"), "Topology.apply: mode must be "
                 "'test' or 'train', got %r", mode)
-        ctx = Context(mode=mode)
+        ctx = Context(mode=mode, generator=generator)
         cd = dtype_mod.compute_dtype()
         values = {}
         grad_mode = (torch.inference_mode() if mode == "test"

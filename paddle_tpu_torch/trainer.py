@@ -23,6 +23,12 @@ ones, detached, after the update, as the JAX trainer's
 ``{**state, **updates}``. ``test()`` and the bundle export read them, and
 ``_sync_back`` hands them back to the Parameters object with the masters.
 
+Dropout draws its masks from the trainer's own ``torch.Generator`` on
+its device, seeded from the ``seed`` flag when the trainer is built
+(paddle_tpu/trainer.py:231, a JAX key split per step there); every
+train-mode step draws from it in turn, so a trainer's run is reproducible
+from the seed.
+
 The trainer runs on ``device`` (the card unless ``device="cpu"``; it
 raises without a card) and stages the given Parameters there. Not ported
 yet, and refused rather than ignored: evaluators (``extra_layers``), data
@@ -38,6 +44,7 @@ from paddle_tpu_torch.graph import LayerNode
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.topology import Topology, convert_feed
+from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import enforce
 
 # paddle_tpu.trainer.SGD.train options this port refuses unless left off
@@ -83,6 +90,8 @@ class SGD:
                        for n in state}
         self._opt_state = update_equation.init_state(self._trainable,
                                                      self._param_meta)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            int(flags.get_flag("seed") or 0))
 
     # -- main loop ----------------------------------------------------------
     def train(self, reader, num_passes=1, event_handler=None, feeding=None,
@@ -129,7 +138,7 @@ class SGD:
         values = self.topology.apply(
             {**self._trainable, **self._static, **self._state}, feed,
             mode=mode, outputs=[c.name for c in self.costs],
-            state_updates=state_updates)
+            state_updates=state_updates, generator=self._generator)
         return sum(values[c.name].float().mean() for c in self.costs)
 
     def _train_step(self, feed):
@@ -179,11 +188,13 @@ class SGD:
         """Sync the trained parameters back and export a serving bundle of
         the topology ``builder`` builds (``"module.path:function"`` or a
         manifest builder entry; serve/export.py export_bundle kwargs pass
-        through). The bundle's parameter names must be the trained ones."""
+        through). The bundle carries the trained parameters that topology
+        reads (export_bundle's ``trained=True``)."""
         from paddle_tpu_torch.serve.export import export_bundle
 
         self._sync_back()
-        return export_bundle(builder, self.parameters, out_dir, **export_kw)
+        return export_bundle(builder, self.parameters, out_dir, trained=True,
+                             **export_kw)
 
 
 def default_event_handler(evt):

@@ -512,6 +512,36 @@ def test_gru_bwd_layouts_forced_on_card(cuda_device, layout, batch, hidden,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("layout", ["unit_tiles", "cluster", "w_tiles"])
+def test_bwd_layouts_at_the_bilstm_shape_on_card(cuda_device, layout, dtype,
+                                                 tol):
+    """Each layout of the LSTM backward at the BiLSTM-CRF tagger's
+    (T, B, H) = (60, 32, 128) (the planner's choice there, clusters of 4
+    blocks, never ran before the tagger), against the plain version with
+    ragged masks, one counted launch and a bit-identical repeat."""
+    rng = np.random.RandomState(60 * 128 + 32)
+    args = _lstm_bwd_inputs(rng, cuda_device, dtype, 60, 32, 128)
+    plan = _forced_plan("lstm", layout, 32, 128, dtype, None, cuda_device)
+    assert plan is not None
+    if layout == "cluster":
+        sms, smem, clusters = lk.device_limits(cuda_device)
+        assert lk.bwd_plan(32, 128, dtype, sms, smem, clusters) == plan
+        assert plan["cluster_size"] == 4
+    before = lk.bwd_launches
+    got = lk.lstm_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert lk.lstm_seq_bwd.last_launch["layout"] == layout
+    assert lk.bwd_launches == before + 1
+    _check_bwd_outputs(got, lk.lstm_seq_bwd_reference(*args), tol, dtype,
+                       dpeep=True)
+    again = lk.lstm_seq_bwd(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
 def test_refused_cluster_launch_raises_on_card(cuda_device):
     """A cluster plan the kernel does not take raises; nothing falls back
     to another layout or to the plain version: rows per block the kernel
@@ -545,11 +575,12 @@ def test_refused_cluster_launch_raises_on_card(cuda_device):
 # (T, B, H) of the forward layouts: widths of 3 and 7 unit tiles (H=96, 200)
 # and batches no multiple of the rows per block, the served and trained
 # flagship, H=384 (12 unit tiles: W in shared memory), H=512 (clusters of
-# 16 in bfloat16; the grid's 4 units a block), the wide model, and B=130
-# at H=768 (the grid in two launches of 65 rows, two passes each)
+# 16 in bfloat16; the grid's 4 units a block), the wide model, B=130 at
+# H=768 (the grid in two launches of 65 rows, two passes each), and the
+# BiLSTM-CRF tagger's (60, 32, 128) (clusters of 4 blocks)
 FWD_LAYOUT_SHAPES = [(20, 6, 96), (20, 3, 200), (64, 32, 256),
                      (20, 64, 256), (20, 64, 384), (20, 64, 512),
-                     (30, 64, 1280), (10, 130, 768)]
+                     (30, 64, 1280), (10, 130, 768), (60, 32, 128)]
 
 
 def _lstm_fwd_inputs(rng, device, dtype, steps, batch, hidden):
@@ -756,13 +787,19 @@ def test_fwd_product_is_full_float32_on_card(cuda_device, kind, layout,
 # narrowest channels at odd sizes, a stage-4 3x3 at batch 64; and for K7's
 # tiles: C=F=8 at 17x23 (one 16-byte bfloat16 copy is a whole tap), F=192
 # (not a multiple of 128) in 128-filter tiles, and ResNet-50's widest 1x1
-# at batch 64
+# at batch 64; then GoogleNet's tails: C = 112, 144 and 528 leave a partial
+# last K chunk (k*k*C = 1008, 1296, 528), F = 16, 32, 48 fill part of a
+# 64-filter tile and F = 208 part of a 128-filter one, and K8's rows
+# (1008, 1296) are no multiple of its 128-row tile
 CONV_SHAPES = [(2, 57, 57, 64, 64, 3), (2, 57, 57, 64, 256, 1),
                (2, 29, 29, 512, 128, 1), (1, 8, 8, 2048, 512, 1),
                (1, 15, 15, 256, 256, 3), (3, 7, 5, 8, 8, 3),
                (2, 9, 11, 8, 24, 1), (64, 15, 15, 256, 256, 3),
                (1, 57, 57, 64, 64, 3), (64, 17, 23, 8, 8, 3),
-               (64, 29, 29, 128, 192, 1), (64, 8, 8, 512, 2048, 1)]
+               (64, 29, 29, 128, 192, 1), (64, 8, 8, 512, 2048, 1),
+               (2, 14, 14, 112, 224, 3), (2, 14, 14, 144, 288, 3),
+               (2, 14, 14, 96, 208, 3), (2, 14, 14, 528, 32, 1),
+               (2, 7, 7, 832, 48, 1), (2, 28, 28, 192, 16, 1)]
 
 
 def _conv_inputs(device, dtype, n, h, w, c, f, k):
@@ -941,3 +978,31 @@ def test_bwd_filter_paths_on_card_repeat_bit_identical(cuda_device, dtype,
     torch.cuda.synchronize()
     assert torch.equal(again, dw)
 
+
+
+@pytest.mark.cuda
+def test_dropout_masks_on_a_card_generator(cuda_device):
+    """``ops.dropout`` on the card: masks from a CUDA generator repeat for
+    one seed and differ across seeds, their kept share at 128 x 4096 is
+    within 4 sigma of 1 - rate, the kept values are scaled by 1 / keep,
+    and a CPU generator for a card tensor raises."""
+    from paddle_tpu_torch.graph import Context
+    from paddle_tpu_torch.ops import dropout as dropout_ops
+    from paddle_tpu_torch.utils.error import EnforceError
+
+    x = torch.ones(128, 4096, device=cuda_device)
+    rate = 0.4
+
+    def run(seed):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        return dropout_ops.dropout(x, rate, gen)
+
+    a, b, c = run(5), run(5), run(6)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = a != 0
+    share = kept.float().mean().item()
+    assert abs(share - 0.6) <= 4 * (0.6 * 0.4 / x.numel()) ** 0.5
+    assert torch.equal(a[kept], torch.full_like(a[kept], 1 / 0.6))
+    ctx = Context(mode="train", generator=torch.Generator())
+    with pytest.raises(EnforceError, match="generator is on cpu"):
+        ctx.rng_for(x)

@@ -319,3 +319,32 @@ def test_resnet_entry_points_without_device_raise_when_no_card(monkeypatch):
     params = Parameters.create(topo, device="cpu")
     assert params.get("res_stem_conv.w0").shape == (7, 7, 3, 64)
     assert np.all(params.get("res_stem_bn.moving_var") == 1.0)
+
+
+def test_import_scan_covers_the_dropout_and_crf_modules():
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("ops/dropout.py", "ops/crf.py", "layer/extra.py"):
+        assert os.path.join("paddle_tpu_torch", mod) in names
+
+
+def test_trainer_of_a_dropout_model_needs_a_card(monkeypatch):
+    """trainer.SGD's generator lives on its device: without a card and
+    without device="cpu" the trainer raises; on the CPU its generator is
+    a CPU one."""
+    from paddle_tpu_torch import data_type, layer, optimizer, trainer
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+    x = layer.data(name="x", type=data_type.dense_vector(4))
+    h = layer.dropout(input=layer.fc(input=x, size=3), dropout_rate=0.5)
+    cost = layer.classification_cost(
+        input=h, label=layer.data(name="y", type=data_type.integer_value(3)))
+    params = Parameters.create(Topology(cost), device="cpu")
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.SGD(cost, params, optimizer.Momentum(learning_rate=0.1))
+    sgd = trainer.SGD(cost, params, optimizer.Momentum(learning_rate=0.1),
+                      device="cpu")
+    assert sgd._generator.device.type == "cpu"
