@@ -123,8 +123,11 @@ result line:
            inference.infer on the CPU.
 17. kernel_int8  int8_matmul (csrc/int8_matmul.cu, K9) against its plain
            version at the int8 flagship's products (buckets 32 and 1),
-           ResNet-50's fc (buckets 32, 8 and 1), the mlp's products and an
-           odd shape, float32 and bfloat16: errors, CUDA-event times, the
+           ResNet-50's fc (buckets 32, 8 and 1), the mlp's products, an
+           odd shape, the int8 CTR's products at batch 512 ((K, N) = (16,
+           64), (64, 32), (32, 1)) and the int8 movielens bundle's at
+           bucket 32 ((19, 16), (32, 64), (16, 64)), float32 and
+           bfloat16: errors, CUDA-event times, the
            bound, and the time of the dequant-then-matmul product (the JAX
            package's default path) as the library time. Each row names the
            path the planner chose (split-K for M <= 32, tensor cores for
@@ -183,10 +186,34 @@ result line:
            launches per step: both directions), and crf_decoding's paths
            on the card equal to the CPU's. Phases 3-4 and their layouts phases
            also hold K1 and K2 at its (60, 32, 128) (clusters of 4 blocks).
-24. kernels one entry per TPU kernel the port replaced (the redesigned
+24. train_ctr  the Wide&Deep CTR at the bench row's width (1M sparse
+           dims, 39 ids a row, fields 1000/1000/100, emb 16, hidden
+           64/32, batch 512; benchmark/harness.py:527-570) trained by
+           trainer.SGD with Momentum(1e-2, 0.9), the wide table and the
+           field embeddings updating by rows: 3 steps against the same
+           steps on the CPU (costs and every parameter within 1e-4 of
+           max(1, max |CPU|), row_step equal), the wide rows the 3 steps
+           never named bit-equal to their initial values, 20 timed steps
+           in float32 and in bfloat16 (bf16 costs within 5e-2 of f32; ms
+           per batch, samples per second, convert_feed's ms, a
+           torch.profiler summary: busy and idle share, top kernels), a
+           test_period=10 run (2 TestResults in 20 steps), and the
+           trained model through paddle.infer on the card against the
+           CPU, fp and int8 (quantize_parameters: the wide table gathered
+           as int8, five K9 launches a forward, drift from fp <= 0.05).
+25. serve_movielens  the movielens recommender's score (default width:
+           6041 users, 3953 movies, emb 32, hidden 64, the 19-category
+           slot densified) exported fp and int8 with buckets 1/8/32 and
+           seq_len 16, each served by the engine (a burst of 12 requests
+           of 1-8 rows) and over HTTP (2 requests), every answer held
+           against the same bundle on the CPU; the int8 bundle's drift
+           from the fp one <= 0.05; no K9 launch for the fp bundle and
+           exactly 8 per dispatched int8 batch.
+26. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
-           at GoogleNet's and the BiLSTM's shapes), then the card's
-           name and power limit, then the last line
+           at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
+           CTR's and the int8 movielens bundle's products), then the
+           card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
 Needs one CUDA card; exits 2 without one.
@@ -361,15 +388,43 @@ K1_TARGET_MS = {"float32": 0.12}
 K5_TARGET_MS = {"float32": 0.40}
 # K9 (M, K, N): the int8 flagship's three products at bucket 32 and seq_len
 # 64 and at bucket 1, ResNet-50's fc at buckets 32, 8 and 1, the mlp's three
-# products, and an odd shape
+# products, an odd shape, the int8 CTR's products at batch 512 (ctr_h0's
+# three [16, 64], ctr_h1 [64, 32], ctr_deep [32, 1]) and the int8 movielens
+# bundle's at bucket 32 (rec_cat_fc [19, 16] over the densified category
+# slot, the towers' [32, 64] and [16, 64])
 INT8_CASES = [(2048, 128, 1024), (2048, 256, 1024), (32, 256, 2),
               (64, 128, 1024), (1, 256, 2), (32, 2048, 1000),
               (8, 2048, 1000), (1, 2048, 1000), (8, 784, 128), (8, 128, 64),
-              (8, 64, 10), (3, 37, 129)]
+              (8, 64, 10), (3, 37, 129), (512, 16, 64), (512, 64, 32),
+              (512, 32, 1), (32, 19, 16), (32, 32, 64), (32, 16, 64)]
 # one served flagship batch at bucket 32: lstm0_transform, lstm1_transform,
 # lstm_out; and ResNet-50's fc at its int8 bundle's largest bucket
 INT8_FLAGSHIP_BATCH = [(2048, 128, 1024), (2048, 256, 1024), (32, 256, 2)]
 INT8_RESNET_FC = (8, 2048, 1000)
+# one int8 CTR forward at batch 512 (5 K9 launches) and one int8 movielens
+# batch at bucket 32 (8 K9 launches)
+INT8_CTR_BATCH = [(512, 16, 64)] * 3 + [(512, 64, 32), (512, 32, 1)]
+INT8_MOVIELENS_BATCH = ([(32, 19, 16)] + [(32, 32, 64)] * 3
+                        + [(32, 16, 64)] * 4)
+# the Wide&Deep CTR bench row (benchmark/harness.py:527-570): 1M sparse
+# dims, 39 ids a row, batch 512, Momentum(1e-2, 0.9)
+CTR = {"sparse_dim": 1_000_000, "field_dims": (1000, 1000, 100), "emb": 16,
+       "hidden": (64, 32)}
+CTR_BATCH, CTR_NNZ, CTR_STEPS, CTR_LR = 512, 39, 20, 1e-2
+# bfloat16 training's cost against float32's over the same steps
+# (relative to max(1, |cost|))
+TOL_TRAIN_BF16_CTR = 5e-2
+# the int8 CTR's K9 launches per forward; the int8 movielens bundle's per
+# dispatched batch
+CTR_K9_PER_FORWARD = 5
+MOVIELENS_K9_PER_BATCH = 8
+MOVIELENS_BUILDER = "paddle_tpu_torch.models.recommender:movielens_score"
+MOVIELENS_SEQ = 16
+# requests of 1-8 rows submitted at once to each movielens bundle's engine
+MOVIELENS_BURST = 384
+# movielens_recommender() at its defaults trained with Momentum(1e-2, 0.9)
+# at batch 256: 3 steps against the CPU, then 20 timed steps
+MOVIELENS_BATCH, MOVIELENS_STEPS, MOVIELENS_LR = 256, 20, 1e-2
 # K9 against its plain version, divided by max(1, max |plain|): float32 sums
 # in another order; bfloat16 rounds the float32 sum once, and the two
 # roundings can land one bfloat16 step (2^-8 relative) apart
@@ -2797,6 +2852,338 @@ def phase_train_bilstm_crf(torch, lk):
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
 
 
+def ctr_batches(seed, n):
+    """``n`` minibatches of CTR_BATCH (39 wide ids in [0, 1M), field0,
+    field1, field2, click) from a seed, as the bench row draws them
+    (benchmark/harness.py:555-560)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, CTR["sparse_dim"], (CTR_BATCH, CTR_NNZ))
+        f0, f1 = (rng.randint(0, 1000, CTR_BATCH) for _ in range(2))
+        f2 = rng.randint(0, 100, CTR_BATCH)
+        click = rng.randint(0, 2, CTR_BATCH)
+        out.append([(ids[i].tolist(), int(f0[i]), int(f1[i]), int(f2[i]),
+                     [float(click[i])]) for i in range(CTR_BATCH)])
+    return out
+
+
+class CostRig(TrainRig):
+    """A model whose builder returns (output, label, cost), as the
+    recommender models' do, its numpy-seeded initial parameters, and
+    Momentum(learning_rate, 0.9) trainers."""
+
+    def __init__(self, build, config, seed, learning_rate):
+        from paddle_tpu_torch.graph import reset_name_counters
+        from paddle_tpu_torch.topology import Topology
+
+        reset_name_counters()
+        self.config = config
+        self.learning_rate = learning_rate
+        self.out, _, self.cost = build(**config)
+        self.topology = Topology(self.cost)
+        self.init = numpy_params(self.topology, seed)
+
+
+def feed_ms(torch, topology, batches):
+    """Median host ms of convert_feed for one batch onto the card (the
+    SparseRows build of 512 x 39 ids included), each ended by a
+    synchronize."""
+    from paddle_tpu_torch.topology import convert_feed
+
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        convert_feed(topology, batch, DEVICE)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_train_ctr(torch, ik):
+    """The Wide&Deep CTR at its bench width trained by trainer.SGD on the
+    card: 3 steps against the same steps on the CPU (costs and every
+    parameter), untouched wide rows bit-equal to their initial values,
+    CTR_STEPS timed steps in float32 and in bfloat16 (ms per batch,
+    samples per second, the feed's ms, a torch.profiler summary), a
+    test_period run, and the trained model through paddle.infer on the
+    card against the CPU, fp and int8 (quantize_parameters: the int8
+    gather of the wide table, K9 for the five fc weights)."""
+    from paddle_tpu_torch import event
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.inference import infer
+    from paddle_tpu_torch.models.recommender import wide_deep_ctr
+    from paddle_tpu_torch.serve.quantize import quantize_parameters
+    from paddle_tpu_torch.topology import Topology
+    from paddle_tpu_torch.utils import flags
+
+    rig = CostRig(wide_deep_ctr, CTR, SEED + 60, CTR_LR)
+    names = rig.init.names()
+    small = ctr_batches(SEED + 61, 3)
+    full = ctr_batches(SEED + 62, CTR_STEPS)
+    # 3 steps, card and CPU
+    card, cpu = rig.trainer(DEVICE), rig.trainer("cpu")
+    costs = train(torch, card, small)
+    no_grad = no_gradient(card)
+    cpu_costs = train(torch, cpu, small)
+    touched = {i for batch in small for sample in batch for i in sample[0]}
+    untouched = np.setdiff1d(np.arange(CTR["sparse_dim"]),
+                             np.fromiter(touched, np.int64))
+    wide = card.parameters.get("ctr_wide_w")
+    untouched_equal = bool(np.array_equal(
+        wide[untouched], rig.init.get("ctr_wide_w")[untouched]))
+    row_steps_equal = all(
+        torch.equal(card._opt_state["row_step"][n].cpu(),
+                    cpu._opt_state["row_step"][n])
+        for n in cpu._opt_state["row_step"])
+    vs_cpu = {"cost_err_rel": cost_error(costs, cpu_costs),
+              "param_err_rel": rel_param_error(card.parameters,
+                                               cpu.parameters, names),
+              "worst_params": worst(tensor_errors(card.parameters,
+                                                  cpu.parameters, names))}
+    # the main path: CTR_STEPS steps at batch 512, f32 then bf16
+    feed = feed_ms(torch, rig.topology, full[:10])
+    card32 = rig.trainer(DEVICE)
+    costs32, ms = train(torch, card32, full, timed=True)
+    profile = profile_steps(torch, card32, full[:5],
+                            kernels=("index", "gemm"))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        costs16, ms16 = train(torch, card16, full, timed=True)
+        profile16 = profile_steps(torch, card16, full[:5],
+                                  kernels=("index", "gemm"))
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = cost_error(costs16, costs32)
+    # a test pass every 10 steps (the test_period flag)
+    flags.set_flag("test_period", 10)
+    try:
+        periodic = []
+        rig.trainer(DEVICE).train(
+            lambda: iter(full), test_reader=lambda: iter(small[:2]),
+            event_handler=lambda e: periodic.append(e.cost)
+            if isinstance(e, event.TestResult) else None)
+    finally:
+        flags.reset_flag("test_period")
+    # the trained model through paddle.infer, fp then int8 (the main path
+    # of K9 here: two int8 forwards at batch 512)
+    inputs = [[s[:4] for s in batch] for batch in full[:2]]
+    fp_card = [infer(rig.out, card.parameters, x, device=DEVICE)
+               for x in inputs]
+    fp_err = max(check_close(g, infer(rig.out, card.parameters, x,
+                                      device="cpu"), "trained CTR infer")
+                 for g, x in zip(fp_card, inputs))
+    qparams, qmanifest = quantize_parameters(card.parameters,
+                                             Topology(rig.out))
+    ik.reset_launches()
+    q_card = [infer(rig.out, qparams, x, device=DEVICE) for x in inputs]
+    k9 = ik.launches
+    q_err = max(check_close(g, infer(rig.out, qparams, x, device="cpu"),
+                            "int8 CTR infer")
+                for g, x in zip(q_card, inputs))
+    drift = float(max(np.abs(q - f).max() for q, f in zip(q_card, fp_card)))
+    row = {"phase": "train_ctr", "config": CTR, "batch": CTR_BATCH,
+           "ids_per_row": CTR_NNZ,
+           "optimizer": "Momentum(learning_rate=%g, momentum=0.9)" % CTR_LR,
+           "sparse_rows": sorted(card._opt_state["row_step"]),
+           "small_costs_card": costs, "small_costs_cpu": cpu_costs,
+           "vs_cpu": vs_cpu, "tol": TOL_TRAIN,
+           "row_step_equal_cpu": row_steps_equal,
+           "untouched_wide_rows": int(untouched.size),
+           "untouched_wide_rows_bit_equal": untouched_equal,
+           "params_without_gradient": no_grad, "steps": CTR_STEPS,
+           "feed_ms": feed, "ms_per_batch_f32": ms,
+           "samples_per_s_f32": CTR_BATCH / ms * 1e3,
+           "costs_f32": costs32, "profile_f32": profile,
+           "ms_per_batch_bf16": ms16,
+           "samples_per_s_bf16": CTR_BATCH / ms16 * 1e3,
+           "costs_bf16": costs16, "profile_bf16": profile16,
+           "bf16_cost_err_rel": bf16_err, "tol_bf16": TOL_TRAIN_BF16_CTR,
+           "test_results_in_%d_steps" % CTR_STEPS: len(periodic),
+           "infer_err_vs_cpu": fp_err,
+           "int8_quantized": sorted(qmanifest["params"]),
+           "int8_infer_err_vs_cpu": q_err, "int8_drift_vs_fp": drift,
+           "k9_launches": k9, "int8_forwards": len(inputs)}
+    emit(row)
+    if no_grad:
+        raise AssertionError("CTR parameters without a finite nonzero "
+                             "gradient: %s" % no_grad)
+    if not (vs_cpu["cost_err_rel"] <= TOL_TRAIN
+            and vs_cpu["param_err_rel"] <= TOL_TRAIN and row_steps_equal):
+        raise AssertionError("CTR training on the card departs from the "
+                             "CPU: %r" % row)
+    if not untouched_equal:
+        raise AssertionError("CTR: untouched wide rows moved")
+    if not (np.all(np.isfinite(costs32)) and np.all(np.isfinite(costs16))
+            and bf16_err <= TOL_TRAIN_BF16_CTR):
+        raise AssertionError("CTR bf16 departs from f32: %r" % row)
+    if len(periodic) != 2:
+        raise AssertionError("CTR test_period=10: %d TestResults in %d "
+                             "steps (want 2)" % (len(periodic), CTR_STEPS))
+    if drift > GATE_DRIFT:
+        raise AssertionError("int8 CTR drifts from fp: %r" % row)
+    check_int8_launches("int8 CTR", {"int8_matmul": (
+        k9, CTR_K9_PER_FORWARD)}, len(inputs))
+    return row
+
+
+def movielens_batches(seed, n, rows):
+    """``n`` minibatches of ``rows`` movielens samples (user, gender, age,
+    job, movie, category ids, title ids, rating) from a seed, drawn as
+    paddle_tpu/dataset/movielens.py's synthetic reader draws them (1-3
+    categories, titles of 2-7 ids, the rating a function of user and
+    movie), with title ids below the model's title_dict."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        batch = []
+        for _ in range(rows):
+            user, movie = rng.randint(1, 6041), rng.randint(1, 3953)
+            batch.append((
+                user, rng.randint(0, 2), rng.randint(0, 7),
+                rng.randint(0, 21), movie,
+                rng.randint(0, 19, rng.randint(1, 4)).tolist(),
+                rng.randint(0, 1000, rng.randint(2, 8)).tolist(),
+                [float(1 + (user * 31 + movie * 17) % 5)]))
+        out.append(batch)
+    return out
+
+
+def phase_train_movielens(torch):
+    """The movielens recommender at its default width trained by
+    trainer.SGD on the card: 3 steps against the same steps on the CPU
+    (costs and every parameter), every parameter with a finite nonzero
+    gradient on the card (the backward of cos_sim, SumPooling,
+    square_error_cost and the dense category fc ran there), then
+    MOVIELENS_STEPS timed steps in float32 and a torch.profiler
+    summary."""
+    from paddle_tpu_torch.models.recommender import movielens_recommender
+
+    rig = CostRig(movielens_recommender, {}, SEED + 80, MOVIELENS_LR)
+    names = rig.init.names()
+    small = movielens_batches(SEED + 81, 3, MOVIELENS_BATCH)
+    full = movielens_batches(SEED + 82, MOVIELENS_STEPS, MOVIELENS_BATCH)
+    card, cpu = rig.trainer(DEVICE), rig.trainer("cpu")
+    costs = train(torch, card, small)
+    no_grad = no_gradient(card)
+    cpu_costs = train(torch, cpu, small)
+    vs_cpu = {"cost_err_rel": cost_error(costs, cpu_costs),
+              "param_err_rel": rel_param_error(card.parameters,
+                                               cpu.parameters, names),
+              "worst_params": worst(tensor_errors(card.parameters,
+                                                  cpu.parameters, names))}
+    timed = rig.trainer(DEVICE)
+    costs32, ms = train(torch, timed, full, timed=True)
+    profile = profile_steps(torch, timed, full[:5])
+    row = {"phase": "train_movielens", "batch": MOVIELENS_BATCH,
+           "optimizer": "Momentum(learning_rate=%g, momentum=0.9)"
+           % MOVIELENS_LR,
+           "small_costs_card": costs, "small_costs_cpu": cpu_costs,
+           "vs_cpu": vs_cpu, "tol": TOL_TRAIN,
+           "params_without_gradient": no_grad, "steps": MOVIELENS_STEPS,
+           "ms_per_batch_f32": ms,
+           "samples_per_s_f32": MOVIELENS_BATCH / ms * 1e3,
+           "costs_f32": costs32, "profile_f32": profile}
+    emit(row)
+    if no_grad:
+        raise AssertionError("movielens parameters without a finite "
+                             "nonzero gradient: %s" % no_grad)
+    if not (vs_cpu["cost_err_rel"] <= TOL_TRAIN
+            and vs_cpu["param_err_rel"] <= TOL_TRAIN):
+        raise AssertionError("movielens training on the card departs from "
+                             "the CPU: %r" % row)
+    if not np.all(np.isfinite(costs32)):
+        raise AssertionError("movielens costs not finite: %r" % row)
+    return row
+
+
+def movielens_request(rng, rows):
+    """Flat inputs of the movielens score bundle: ids, the category slot
+    densified (1-3 categories a row), padded title ids (lengths 2-7)."""
+    cats = np.zeros((rows, 19), np.float32)
+    for i in range(rows):
+        for c in rng.randint(0, 19, rng.randint(1, 4)):
+            cats[i, c] += 1.0
+    lens = rng.randint(2, 8, rows).astype(np.int32)
+    title = rng.randint(0, 1000, (rows, MOVIELENS_SEQ)).astype(np.int32)
+    title[np.arange(MOVIELENS_SEQ)[None, :] >= lens[:, None]] = 0
+    return {"user_id": rng.randint(1, 6041, rows).astype(np.int32),
+            "gender_id": rng.randint(0, 2, rows).astype(np.int32),
+            "age_id": rng.randint(0, 7, rows).astype(np.int32),
+            "job_id": rng.randint(0, 21, rows).astype(np.int32),
+            "movie_id": rng.randint(1, 3953, rows).astype(np.int32),
+            "category_ids": cats, "movie_title": title,
+            "movie_title:lens": lens}
+
+
+def phase_serve_movielens(torch, ik, tmp):
+    """The movielens recommender's score at its default width exported fp
+    and int8 (buckets 1/8/32), each served through the engine and HTTP
+    against the same bundle on the CPU; the int8 bundle's drift from the
+    fp one and its K9 launches (8 per dispatched batch). The engine takes
+    a burst of MOVIELENS_BURST requests of 1-8 rows submitted at once by
+    as many client threads: its rate is the burst's requests over its
+    wall time, and each request's latency counts its wait behind the
+    batches dispatched before it."""
+    from paddle_tpu_torch.serve import InferenceEngine, load_bundle
+
+    dirs = {q: export(tmp, "movielens_%s" % (q or "fp"), {}, (1, 8, 32),
+                      MOVIELENS_SEQ, builder=MOVIELENS_BUILDER, quantize=q)
+            for q in (None, "int8")}
+    rng = np.random.RandomState(SEED + 70)
+    burst = [movielens_request(rng, int(rng.randint(1, 9)))
+             for _ in range(MOVIELENS_BURST)]
+    http = [movielens_request(rng, int(rng.randint(1, 9))) for _ in range(2)]
+    row = {"phase": "serve_movielens", "seq_len": MOVIELENS_SEQ}
+    answers = {}
+    for q, out_dir in dirs.items():
+        bundle = load_bundle(out_dir, device=DEVICE)
+        cpu = load_bundle(out_dir, device="cpu")
+        ik.reset_launches()  # the main path starts here (warmup included)
+        engine = InferenceEngine(bundle, max_batch_size=32,
+                                 max_latency_ms=10.0)
+        reqs, got, latencies, wall = serve_int8(bundle, engine, burst, http,
+                                                "rec_score")
+        k9 = ik.launches
+        stats = engine.stats()
+        errs = [check_close(g, cpu.infer(r)["rec_score"],
+                            "movielens %s" % (q or "fp"))
+                for r, g in zip(reqs, got)]
+        tag = q or "fp"
+        answers[tag] = np.concatenate(got)
+        row[tag] = {"buckets": bundle.batch_sizes(),
+                    "quantized": sorted((bundle.quantization or {})
+                                        .get("params", {})),
+                    "requests": stats["requests"], "rows": stats["rows"],
+                    "batches": stats["batches"],
+                    "warmup_batches": stats["warmup_batches"],
+                    "batches_failed": stats["batches_failed"],
+                    "k9_launches": k9, "max_abs_err_vs_cpu": max(errs),
+                    "resident_bytes": resident_bytes(bundle),
+                    "burst_requests": len(burst),
+                    "burst_rows": int(sum(len(r["user_id"])
+                                          for r in burst)),
+                    "burst_wall_s": wall, "burst_qps": len(burst) / wall,
+                    "latency_ms_p50": float(np.percentile(latencies, 50)),
+                    "latency_ms_p99": float(np.percentile(latencies, 99))}
+    row["int8_drift_vs_fp"] = float(np.abs(answers["int8"]
+                                           - answers["fp"]).max())
+    row["gate_drift"] = GATE_DRIFT
+    emit(row)
+    check_int8_launches("fp movielens", {"int8_matmul": (
+        row["fp"]["k9_launches"], 0)}, 1)
+    q = row["int8"]
+    check_int8_launches("int8 movielens", {"int8_matmul": (
+        q["k9_launches"], MOVIELENS_K9_PER_BATCH)},
+        q["warmup_batches"] + q["batches"])
+    if row["int8_drift_vs_fp"] > GATE_DRIFT:
+        raise AssertionError("int8 movielens drifts from fp: %r" % row)
+    if row["fp"]["batches_failed"] or q["batches_failed"]:
+        raise AssertionError("movielens batches failed: %r" % row)
+    return {"k9_launches": q["k9_launches"]}
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -2930,6 +3317,10 @@ def main():
     trained_tagger = phase_train_tagger(torch, gk)
     trained_wide = phase_train_h1280(torch, lk)
     trained_bilstm = phase_train_bilstm_crf(torch, lk)
+    trained_ctr = phase_train_ctr(torch, ik)
+    phase_train_movielens(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        served_movielens = phase_serve_movielens(torch, ik, tmp)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -3009,7 +3400,19 @@ def main():
                                "ResNet-50's fc at bucket 8 (float32)")],
                      "int8_matmul[K9,resnet50_fc_batch8]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
-                     int8_resnet["k9_launches"], "int8_matmul")]})
+                     int8_resnet["k9_launches"], "int8_matmul"),
+        kernel_entry([int8_sum(int8_cases, INT8_CTR_BATCH,
+                               "the 5 int8 products of one int8 CTR "
+                               "forward at batch 512 (float32)")],
+                     "int8_matmul[K9,ctr_batch512]",
+                     "paddle_tpu/ops/pallas_kernels.py:908",
+                     trained_ctr["k9_launches"], "int8_matmul"),
+        kernel_entry([int8_sum(int8_cases, INT8_MOVIELENS_BATCH,
+                               "the 8 int8 products of one int8 movielens "
+                               "batch at bucket 32 (float32)")],
+                     "int8_matmul[K9,movielens_bucket32]",
+                     "paddle_tpu/ops/pallas_kernels.py:908",
+                     served_movielens["k9_launches"], "int8_matmul")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,15 @@ trained the same way, every stride-1 SAME conv over the implicit-GEMM conv
 kernels (csrc/conv2d_same_fwd.cu for the forward and the data gradient,
 csrc/conv2d_same_bwdw.cu for the filter gradient); quantized int8 bundles
 (serve/quantize.py, export_bundle(quantize="int8")), whose fc weights run
-in the dequant-fused matmul kernel (csrc/int8_matmul.cu).
+in the dequant-fused matmul kernel (csrc/int8_matmul.cu); GoogleNet,
+AlexNet and the BiLSTM-CRF tagger; the Wide&Deep CTR model and the
+movielens recommender (models.recommender: sparse_binary_vector and
+sparse_vector feeds as core.sparse.SparseRows, the sparse fc, sparse-row
+Momentum updates, cos_sim, square_error_cost,
+multi_binary_label_cross_entropy, SumPooling), trained, and movielens
+also served fp and int8. The process flags ``test_period`` and
+``log_period`` act as in the JAX package; the JAX package's other
+process flags are refused at any value but their default.
 """
 
 __version__ = "0.1.0"

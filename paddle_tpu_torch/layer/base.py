@@ -7,6 +7,7 @@ application over SequenceBatch."""
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sparse import SparseRows
 from paddle_tpu_torch.graph import LayerNode, ParamSpec
 from paddle_tpu_torch.initializer import Normal, Uniform, Xavier, \
     default_bias_init
@@ -69,13 +70,17 @@ def is_seq(value):
 
 def featurewise(fn, value):
     """Apply a featurewise fn to a tensor, a SequenceBatch (padding rows
-    are computed and masked downstream, as in the JAX package) or an
+    are computed and masked downstream, as in the JAX package), an
     ImageValue (on its flat NCHW rows, the width that matmuls and
-    per-feature parameters index)."""
+    per-feature parameters index) or SparseRows (on its dense rows, which
+    ``to_dense`` refuses at reference scale; fc takes the sparse path
+    instead)."""
     if isinstance(value, SequenceBatch):
         return value.map_data(fn)
     if isinstance(value, ImageValue):
         return fn(value.flat())
+    if isinstance(value, SparseRows):
+        return fn(value.to_dense())
     return fn(value)
 
 
@@ -84,6 +89,8 @@ def data_of(value):
         return value.data
     if isinstance(value, ImageValue):
         return value.flat()
+    if isinstance(value, SparseRows):
+        return value.to_dense()
     return value
 
 

@@ -1,15 +1,18 @@
-"""Core dense layers: fc, embedding, concat, addto and dropout (reference:
-FullyConnectedLayer, TableProjection / embedding_layer,
-ConcatenateLayer, AddtoLayer; v2 layer.dropout).
+"""Core dense layers: fc, embedding, concat, addto, dropout and cos_sim
+(reference: FullyConnectedLayer, TableProjection / embedding_layer,
+ConcatenateLayer, AddtoLayer, CosSimLayer; v2 layer.dropout).
 Weights keep the JAX package's [in, out] layout, so ``x @ w`` and
 parameters copy across unchanged. An fc weight of a quantized bundle
 (serve/quantize.py) is int8 with a ``<name>::scale`` sidecar and runs in
-the dequant-fused kernel ``ops.int8_kernels.int8_matmul``."""
+the dequant-fused kernel ``ops.int8_kernels.int8_matmul``. An fc input
+of SparseRows (a sparse slot at or above ``sparse_feed_threshold``)
+takes the row gather of core/sparse.py, for an int8 weight too."""
 
 import torch
 
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.attr import ExtraAttr
+from paddle_tpu_torch.core.sparse import SparseRows
 from paddle_tpu_torch.graph import LayerNode
 from paddle_tpu_torch.layer.base import (
     ImageValue,
@@ -55,7 +58,16 @@ def fc(input, size, act=None, name=None, param_attr=None, bias_attr=None,
             # the kernel dequantizes it with its float32 sidecar (a bfloat16
             # policy has rounded the sidecar; the kernel takes it widened)
             scale = params[scale_name(spec.name)].float()
+            if isinstance(value, SparseRows):
+                # the gather converts only the K picked int8 rows
+                # (core/sparse.py); the per-output-channel scale commutes
+                # past the row sum
+                return value.matmul(w) * scale
             return featurewise(lambda d: int8_matmul(d, w, scale), value)
+        if isinstance(value, SparseRows):
+            # the sparse fast path: row gather + weighted K-sum, K * size
+            # reads instead of dim * size
+            return value.matmul(w)
         return featurewise(lambda d: torch.matmul(d, w), value)
 
     def forward(params, values, ctx):
@@ -183,3 +195,28 @@ def dropout(input, dropout_rate, name=None):
     node = make_node("dropout", forward, [input], name=name, size=input.size,
                      layer_attr=ExtraAttr(drop_rate=dropout_rate))
     return node
+
+
+@register_layer("cos_sim")
+def cos_sim(a, b, scale=1.0, size=1, name=None, layer_attr=None):
+    """Cosine similarity times ``scale`` (reference: CosSimLayer;
+    paddle_tpu/layer/basic.py:291-312). With ``size`` > 1, b is [B,
+    size * dim], read as ``size`` vectors each compared against a."""
+
+    def forward(params, values, ctx):
+        x, y = data_of(values[0]), data_of(values[1])
+        if size > 1:
+            y = y.reshape(y.shape[:-1] + (size, x.shape[-1]))
+            xx = x[..., None, :]
+        else:
+            xx = x
+        dot = torch.sum(xx * y, dim=-1)
+        nx = torch.sqrt(torch.clamp(torch.sum(xx * xx, dim=-1), min=1e-12))
+        ny = torch.sqrt(torch.clamp(torch.sum(y * y, dim=-1), min=1e-12))
+        out = scale * dot / (nx * ny)
+        if size == 1:
+            out = out[..., None]
+        return like(values[0], out)
+
+    return make_node("cos_sim", forward, [a, b], name=name, size=size,
+                     layer_attr=layer_attr)

@@ -1,8 +1,11 @@
-"""Cost layers: classification_cost and cross_entropy (reference:
-MultiClassCrossEntropy, v2 layer.classification_cost; paddle_tpu/layer/
-cost.py:27-89). Every cost node outputs a per-sample cost [B] (a sequence
-cost is summed over the valid timesteps of each sequence); the trainer
-takes the mean. The other cost layers come with the models that use them.
+"""Cost layers: classification_cost, cross_entropy, square_error_cost
+(mse_cost, regression_cost) and multi_binary_label_cross_entropy
+(reference: MultiClassCrossEntropy, SumOfSquaresCostLayer,
+MultiBinaryLabelCrossEntropy, v2 layer.classification_cost; paddle_tpu/
+layer/cost.py:27-122). Every cost node outputs a per-sample cost [B] (a
+sequence cost is summed over the valid timesteps of each sequence); the
+trainer takes the mean. The other cost layers come with the models that
+use them.
 """
 
 import torch
@@ -66,3 +69,40 @@ def classification_cost(input, label, name=None, weight=None,
 
     return make_node("classification_cost", forward, inputs, name=name,
                      size=1, layer_attr=layer_attr)
+
+
+@register_layer("square_error_cost")
+def square_error_cost(input, label, name=None, weight=None, layer_attr=None):
+    """0.5 * sum((x - y)^2) per sample (reference: SumOfSquaresCostLayer)."""
+    inputs = [input, label] + ([weight] if weight is not None else [])
+
+    def forward(params, values, ctx):
+        x = upcast_f32(data_of(values[0]))
+        y = upcast_f32(data_of(values[1]))
+        cost = _per_sample(0.5 * torch.sum((x - y) ** 2, dim=-1), values[1])
+        return _maybe_weight(cost, values, weight is not None)
+
+    return make_node("square_error_cost", forward, inputs, name=name, size=1,
+                     layer_attr=layer_attr)
+
+
+mse_cost = square_error_cost
+regression_cost = square_error_cost
+
+
+@register_layer("multi_binary_label_cross_entropy")
+def multi_binary_label_cross_entropy(input, label, name=None,
+                                     layer_attr=None):
+    """Independent per-class sigmoid cross entropy against a multi-hot
+    label, summed over the classes (reference:
+    MultiBinaryLabelCrossEntropy); input carries probabilities."""
+
+    def forward(params, values, ctx):
+        p = upcast_f32(data_of(values[0]))
+        y = upcast_f32(data_of(values[1]))
+        cost = -(y * torch.log(p + _EPS) + (1.0 - y) * torch.log(
+            1.0 - p + _EPS))
+        return torch.sum(cost, dim=-1)
+
+    return make_node("multi_binary_label_cross_entropy", forward,
+                     [input, label], name=name, size=1, layer_attr=layer_attr)

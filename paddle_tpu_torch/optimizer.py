@@ -7,9 +7,18 @@ float32 master parameters: Momentum keeps ``v <- mu*v - lr*g; p <- p + v``
 (not ``torch.optim.SGD``'s ``v <- mu*v + g; p <- p - lr*v``). Unlike the
 JAX package's pure functions, ``step`` updates the parameters and the
 optimizer state IN PLACE, under ``torch.no_grad()``: it saves a copy of
-every parameter and slot per step. Sparse-row updates, update hooks and
-model averaging are not ported yet and raise; so do the other optimizers,
-which come with later parts of the port.
+every parameter and slot per step.
+
+Sparse-row updates (paddle_tpu/optimizer.py:86-93, 119-173): a parameter
+with ``ParamAttr(sparse_update=True)``, or every parameter of two or more
+dims under ``Optimizer(sparse=True)``, updates only the rows whose
+gradient has a nonzero entry this step. A row's step of last update is
+kept in ``state["row_step"]`` (int32 per row); when a dormant row is next
+touched, the L2 and L1 decay of the steps it missed is applied in one
+shot before its update (the reference's catchUpWith), and the per-row
+slots of untouched rows (momentum) are left as they were. Update hooks
+and model averaging are not ported yet and raise; so do the other
+optimizers, which come with later parts of the port.
 """
 
 import math
@@ -59,7 +68,6 @@ class Optimizer:
                  slot_dtype=None):
         enforce(model_average is None,
                 "model averaging is not ported yet")
-        enforce(not sparse, "sparse-row updates are not ported yet")
         self.lr_fn = make_lr_schedule(
             learning_rate, learning_rate_decay_a, learning_rate_decay_b,
             learning_rate_schedule)
@@ -70,6 +78,10 @@ class Optimizer:
         # store; the parameters keep full precision
         self.slot_dtype = dtype_mod.canonical(slot_dtype) if slot_dtype \
             else None
+        # sparse-row mode for every parameter of 2+ dims (a bias element
+        # whose gradient is exactly 0 must not be frozen); one parameter
+        # opts in with ParamAttr(sparse_update=True)
+        self.sparse = bool(sparse)
 
     # slots -----------------------------------------------------------------
     def init_slot(self, param):
@@ -86,17 +98,54 @@ class Optimizer:
         raise NotImplementedError
 
     # full step -------------------------------------------------------------
+    def _is_sparse_param(self, attr, param):
+        if getattr(attr, "sparse_update", False):
+            return True
+        return self.sparse and param.dim() >= 2
+
     def init_state(self, params, param_meta=None):
         param_meta = param_meta or {}
         for name in params:
             attr = param_meta.get(name)
-            enforce(not getattr(attr, "sparse_update", False),
-                    "parameter %r: sparse-row updates are not ported yet",
-                    name)
             enforce(not (getattr(attr, "update_hooks", None) or ()),
                     "parameter %r: update hooks are not ported yet", name)
-        return {"step": 0,
-                "slots": {k: self.init_slot(v) for k, v in params.items()}}
+        state = {"step": 0,
+                 "slots": {k: self.init_slot(v) for k, v in params.items()}}
+        row_step = {
+            k: torch.zeros((v.shape[0],), dtype=torch.int32, device=v.device)
+            for k, v in params.items()
+            if v.dim() >= 1 and self._is_sparse_param(param_meta.get(k), v)}
+        if row_step:
+            state["row_step"] = row_step
+        return state
+
+    def _sparse_row_step(self, grad, slot, param, lr, l1, l2, last_step,
+                         step_no):
+        """Update the rows of ``param`` touched this step (any nonzero
+        gradient entry) in place, with the L2 and L1 decay of the steps
+        each missed since its last update applied first; the per-row slots
+        and ``last_step`` of untouched rows are kept as they were."""
+        touched = (grad != 0).reshape(grad.shape[0], -1).any(dim=1)
+        mask = touched.reshape((-1,) + (1,) * (grad.dim() - 1))
+        missed = (step_no - last_step).to(param.dtype).reshape(mask.shape)
+        p = param
+        if l2:
+            p = p * torch.pow(1.0 - lr * l2, torch.where(
+                mask, missed, torch.zeros_like(missed)))
+        if l1:
+            shrunk = torch.sign(p) * torch.clamp(
+                p.abs() - lr * l1 * missed, min=0.0)
+            p = torch.where(mask, shrunk, p)
+        old = [t.clone() for t in slot]
+        delta = self.apply_update(grad, slot, p, lr)
+        for new, was in zip(slot, old):
+            if new.dim() >= 1 and new.shape[0] == mask.shape[0]:
+                # only per-row slots are masked; a global slot (a scalar
+                # step counter) always advances
+                new.copy_(torch.where(mask, new, was))
+        param.copy_(torch.where(mask, p + delta, param))
+        last_step.copy_(torch.where(touched, torch.full_like(
+            last_step, step_no), last_step))
 
     @torch.no_grad()
     def step(self, params, grads, state, param_meta=None):
@@ -121,6 +170,11 @@ class Optimizer:
                 l1 = self.regularization.l1 if l1 is None else l1
                 l2 = self.regularization.l2 if l2 is None else l2
             lr = lr_t * lr_mult
+            if name in state.get("row_step", {}):
+                self._sparse_row_step(grad, state["slots"][name], param, lr,
+                                      l1, l2, state["row_step"][name],
+                                      step_no)
+                continue
             if l2:
                 grad = grad + l2 * param
             param.add_(self.apply_update(grad, state["slots"][name], param,
@@ -134,8 +188,8 @@ class Optimizer:
 
 
 class Momentum(Optimizer):
-    """SGD with (optionally Nesterov) momentum (reference: SgdOptimizer;
-    v2 optimizer.Momentum)."""
+    """SGD with (optionally Nesterov) momentum (reference: SgdOptimizer /
+    SparseMomentumParameterOptimizer; v2 optimizer.Momentum)."""
 
     def __init__(self, momentum=0.0, sparse=False, nesterov=False, **kw):
         super().__init__(sparse=sparse, **kw)

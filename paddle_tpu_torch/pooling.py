@@ -1,7 +1,8 @@
 """Pooling types (cf. trainer_config_helpers/poolings.py; C++ side
 SequencePoolLayer, PoolLayer). Max pooling is the flagship's; average is
-also img_pool's ``pool_type`` (ResNet's global average pool); sum and
-sqrt-average arrive with the models that use them."""
+also img_pool's ``pool_type`` (ResNet's global average pool); sum is the
+movielens recommender's title pooling; sqrt-average arrives with the
+models that use it."""
 
 import torch
 
@@ -43,6 +44,16 @@ class AvgPooling(BasePoolingType):
         total = torch.sum(data * m, dim=1)
         count = torch.clamp(torch.sum(m, dim=1), min=1.0)
         return total / count
+
+
+class SumPooling(BasePoolingType):
+    name = "sum"
+
+    @staticmethod
+    def reduce(data, mask):
+        """data [B, T, D], mask [B, T] bool -> the sum over the valid
+        steps [B, D] (paddle_tpu/pooling.py:43-49)."""
+        return torch.sum(data * mask[..., None].to(data.dtype), dim=1)
 
 
 def to_pooling(pool):

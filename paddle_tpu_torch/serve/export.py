@@ -23,7 +23,8 @@ import time
 import torch
 
 from paddle_tpu_torch.convert import check_param_shapes
-from paddle_tpu_torch.data_type import DENSE, INDEX, SEQ_NONE, SEQ_SINGLE
+from paddle_tpu_torch.data_type import (DENSE, INDEX, SEQ_NONE, SEQ_SINGLE,
+                                        SPARSE_BINARY, SPARSE_FLOAT)
 from paddle_tpu_torch.serve.bundle import (BUNDLE_FORMAT, MANIFEST_NAME,
                                            SEQ_KINDS, build_outputs)
 from paddle_tpu_torch.serve.quantize import quantize_parameters
@@ -39,8 +40,27 @@ _KINDS = {(SEQ_NONE, DENSE): ("dense", "float32"),
 
 
 def _input_specs(topology):
+    """Manifest input specs from the topology's data layers. A sparse slot
+    below the ``sparse_feed_threshold`` flag feeds as densified [B, dim]
+    rows (the boundary convert_feed uses), so it exports as ``dense``; at
+    or above it, and in a sequence, it is refused, with the JAX package's
+    messages (paddle_tpu/serve/export.py:49-84)."""
+    from paddle_tpu_torch.utils import flags
+
     specs = []
     for name, itype in topology.data_types():
+        if itype.value_type in (SPARSE_BINARY, SPARSE_FLOAT):
+            enforce(itype.seq_type == SEQ_NONE, "input %r: sparse sequence "
+                    "slots are not exportable", name)
+            enforce(
+                itype.dim < flags.get_flag("sparse_feed_threshold"),
+                "input %r: sparse slots at/above sparse_feed_threshold "
+                "(dim %d) feed as SparseRows, which has no fixed "
+                "exportable shape; densify or lower the threshold",
+                name, itype.dim)
+            specs.append({"name": name, "kind": "dense", "dim": itype.dim,
+                          "dtype": "float32"})
+            continue
         kind = _KINDS.get((itype.seq_type, itype.value_type))
         enforce(kind is not None, "input %r: type %r is not exportable yet",
                 name, itype)

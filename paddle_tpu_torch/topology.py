@@ -15,11 +15,20 @@ import torch
 from paddle_tpu_torch.core import dtype as dtype_mod
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.core.sequence import SequenceBatch
-from paddle_tpu_torch.data_type import DENSE, INDEX, SEQ_NONE, SEQ_SINGLE
+from paddle_tpu_torch.core.sparse import SparseRows
+from paddle_tpu_torch.data_type import (DENSE, INDEX, SEQ_NONE, SEQ_SINGLE,
+                                        SPARSE_BINARY, SPARSE_FLOAT)
 from paddle_tpu_torch.graph import Context, LayerNode, topo_sort
 from paddle_tpu_torch.layer.base import ImageValue
 from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import enforce
+
+# sparse slots at/above this dim feed as SparseRows (padded id lists);
+# below it they densify at the boundary (paddle_tpu/topology.py:25)
+flags.define_flag("sparse_feed_threshold", 4096,
+                  "sparse_binary/float_vector slots with dim >= this use "
+                  "the gather/weighted-sum sparse path instead of dense "
+                  "[B, dim] conversion")
 
 
 class Topology:
@@ -138,6 +147,8 @@ def _external(value):
 def _map_data(fn, value):
     if isinstance(value, SequenceBatch):
         return value.map_data(fn)
+    if isinstance(value, SparseRows):
+        return value.map_vals(fn)
     return fn(value)
 
 
@@ -145,7 +156,9 @@ def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
     """Convert a host minibatch (list of tuples, v2 reader convention) into
     feed values on ``device``: dense slots become [B, dim] tensors, index
     slots int32 [B], sequence slots SequenceBatch (padded to ``max_len``,
-    default the length bucket of the batch's longest sequence)."""
+    default the length bucket of the batch's longest sequence), sparse
+    slots SparseRows at or above the ``sparse_feed_threshold`` flag and
+    dense [B, dim] rows below it."""
     names = [name for name, _ in topology.data_types()]
     if feeding is None:
         feeding = {name: i for i, name in enumerate(names)}
@@ -158,11 +171,47 @@ def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
 
 
 def convert_column(col, itype, device, max_len=None):
+    sparse = itype.value_type in (SPARSE_BINARY, SPARSE_FLOAT)
     np_dtype = {DENSE: np.float32, INDEX: np.int32}.get(itype.value_type)
-    enforce(np_dtype is not None, "input type %r is not ported yet", itype)
+    enforce(sparse or np_dtype is not None,
+            "input type %r is not ported yet", itype)
     if itype.seq_type == SEQ_NONE:
-        return torch.as_tensor(np.asarray(col, dtype=np_dtype), device=device)
+        if not sparse:
+            return torch.as_tensor(np.asarray(col, dtype=np_dtype),
+                                   device=device)
+        if itype.dim >= flags.get_flag("sparse_feed_threshold"):
+            # padded id lists + the gather/weighted-sum matmul instead of
+            # [B, dim] rows (paddle_tpu/topology.py:298-308)
+            return SparseRows.from_rows(
+                col, itype.dim, with_values=itype.value_type == SPARSE_FLOAT,
+                device=device)
+        return torch.as_tensor(_densify(col, itype), device=device)
     enforce(itype.seq_type == SEQ_SINGLE,
             "nested sequence inputs are not ported yet (%r)", itype)
-    seqs = [np.asarray(s, dtype=np_dtype) for s in col]
+    if sparse:
+        # a sparse sequence slot densifies per step at any dim
+        seqs = [_densify(s, itype) for s in col]
+    else:
+        seqs = [np.asarray(s, dtype=np_dtype) for s in col]
     return SequenceBatch.from_sequences(seqs, device=device, max_len=max_len)
+
+
+def _densify(rows, itype):
+    """Sparse ids / (id, value) pairs -> dense float32 rows (the JAX
+    package's paddle_tpu/topology.py:327-345). Duplicate ids sum, as the
+    SparseRows gather/weighted-sum path does, so results agree on both
+    sides of sparse_feed_threshold."""
+    if isinstance(rows, np.ndarray) and rows.ndim == 2:
+        return rows.astype(np.float32)
+    first = rows[0] if len(rows) else None
+    is_batch = isinstance(first, (list, tuple, np.ndarray))
+    batch = rows if is_batch else [rows]
+    out = np.zeros((len(batch), itype.dim), dtype=np.float32)
+    for i, row in enumerate(batch):
+        for item in row:
+            if isinstance(item, (tuple, list)):
+                idx, val = item
+                out[i, int(idx)] += float(val)
+            else:
+                out[i, int(item)] += 1.0
+    return out if is_batch else out[0]

@@ -14,6 +14,17 @@ The event stream is the JAX package's, one step deep: BeginPass, then per
 batch BeginIteration(b); batch b-1 is finalized (its cost read back,
 EndForwardBackward(b-1), EndIteration(b-1)) after step b is queued, so the
 host enqueues the next step while the card runs the last; then EndPass.
+With a ``test_reader``, the ``test_period`` flag (paddle_tpu/trainer.py:
+557-575, 644-650) runs a test pass every ``test_period`` global steps and
+emits its TestResult when that step is finalized, before its
+EndIteration; at 0 (the default) one test pass runs at the end of every
+pass instead. The ``log_period`` flag logs the cost of every
+``log_period``-th batch of a pass.
+
+Sparse-row parameters (``ParamAttr(sparse_update=True)``, or
+``Momentum(sparse=True)`` for every matrix) carry the optimizer's
+``row_step`` in its state; their gradient is dense, as the JAX package's
+scatter-add is, and the optimizer updates only the rows it touches.
 
 Running state (batch norm's moving mean and variance, ``ParamSpec
 .is_state``) lives on the device beside the masters, float32, outside
@@ -46,6 +57,7 @@ from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.topology import Topology, convert_feed
 from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import enforce
+from paddle_tpu_torch.utils.logger import logger
 
 # paddle_tpu.trainer.SGD.train options this port refuses unless left off
 _UNPORTED_TRAIN_ARGS = {
@@ -92,13 +104,15 @@ class SGD:
                                                      self._param_meta)
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(flags.get_flag("seed") or 0))
+        self._step_count = 0  # global steps, across passes and train calls
 
     # -- main loop ----------------------------------------------------------
     def train(self, reader, num_passes=1, event_handler=None, feeding=None,
               sync_params=True, test_reader=None, **options):
         """Event-driven training (v2 SGD.train parity). ``reader`` yields
         minibatches (lists of sample tuples); with ``test_reader`` a test
-        pass runs at the end of every pass."""
+        pass runs every ``test_period`` steps (the flag), or at the end of
+        every pass when it is 0."""
         for key, value in options.items():
             if key not in _UNPORTED_TRAIN_ARGS:
                 raise TypeError("train() got an unexpected keyword argument "
@@ -108,6 +122,28 @@ class SGD:
                     "train(%s=%r) is not ported yet", key, value)
         event_handler = event_handler or default_event_handler
         feeding = feeding or self.feeding
+        log_period = flags.get_flag("log_period")
+        test_period = (flags.get_flag("test_period")
+                       if test_reader is not None else 0)
+
+        def finalize(pending):
+            """Read back a queued step's cost and emit its events: the
+            periodic log line and test pass come between
+            EndForwardBackward and EndIteration, as in the JAX trainer."""
+            pass_id, batch_id, loss, step = pending
+            cost = float(loss)
+            event_handler(v2_event.EndForwardBackward(pass_id, batch_id,
+                                                      gm=self))
+            if log_period and batch_id % log_period == 0:
+                logger.info("pass %d batch %d cost=%.6f", pass_id, batch_id,
+                            cost)
+            if test_period and step % test_period == 0:
+                result = self.test(test_reader, feeding=feeding,
+                                   pass_id=pass_id)
+                logger.info("periodic test: cost=%.6f", result.cost)
+                event_handler(result)
+            event_handler(v2_event.EndIteration(pass_id, batch_id, cost, {}))
+
         for pass_id in range(num_passes):
             event_handler(v2_event.BeginPass(pass_id))
             pending = None
@@ -120,12 +156,13 @@ class SGD:
                                     max_len=getattr(data_batch, "bucket",
                                                     None))
                 loss = self._train_step(feed)
+                self._step_count += 1
                 if pending is not None:
-                    self._finalize(pending, event_handler)
-                pending = (pass_id, batch_id, loss)
+                    finalize(pending)
+                pending = (pass_id, batch_id, loss, self._step_count)
             if pending is not None:
-                self._finalize(pending, event_handler)
-            if test_reader is not None:
+                finalize(pending)
+            if test_reader is not None and not test_period:
                 event_handler(self.test(test_reader, feeding=feeding,
                                         pass_id=pass_id))
             if sync_params:
@@ -156,12 +193,6 @@ class SGD:
         for name, value in updates.items():
             self._state[name] = value.detach().float()
         return loss.detach()
-
-    def _finalize(self, pending, event_handler):
-        pass_id, batch_id, loss = pending
-        cost = float(loss)
-        event_handler(v2_event.EndForwardBackward(pass_id, batch_id, gm=self))
-        event_handler(v2_event.EndIteration(pass_id, batch_id, cost, {}))
 
     def test(self, reader, feeding=None, pass_id=0):
         """One evaluation pass; returns a TestResult event (v2 SGD.test)."""

@@ -5,7 +5,11 @@ keywords ``lstmemory(gate_bias_attr=)`` and ``batch_norm(img3D=)``, and
 ``pooling(bias_attr=None)``; then the README's quick tour run unchanged on
 ``import paddle_tpu_torch as paddle`` after ``paddle.init(use_tpu=False)``
 and on ``import paddle_tpu as paddle``, from the same parameters on the
-same seeded minibatches.
+same seeded minibatches; and the process flags of ``init``: the
+``test_period`` flag gives the same event stream in both packages
+(a TestResult every 2 steps, none at the end of the pass), ``log_period``
+logs every N-th batch, and the flags the port does not act on yet are
+refused at any value but their default.
 
 Tolerance 1e-5 (absolute, float32): the two packages sum the same float32
 products in different orders; the quick tour's three costs and its final
@@ -313,3 +317,112 @@ def test_readme_quick_tour_matches_jax():
         np.testing.assert_allclose(params.get(name),
                                    np.asarray(jparams.get(name)), rtol=0,
                                    atol=TOL, err_msg=name)
+
+
+# -- the process flags --------------------------------------------------------
+
+def _events_with_test_period(pkg, samples, start):
+    """The quick tour's mlp trained 6 batches of 4 with a test reader
+    under ``init(test_period=2)``: the stream of (event type, pass,
+    batch) and the TestResult costs."""
+    pkg.init(use_tpu=False, test_period=2)
+    try:
+        y, cost = _mlp(pkg)
+        params = pkg.parameters.create(cost)
+        if start:
+            topo = Topology(cost)
+            params = Parameters(params_from_numpy(start, topo),
+                                topo.param_specs())
+        else:
+            start.update({n: np.array(params.get(n))
+                          for n in params.names()})
+        trainer = pkg.trainer.SGD(cost, params, pkg.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9))
+        stream, test_costs = [], []
+
+        def handler(evt):
+            stream.append((type(evt).__name__,
+                           getattr(evt, "pass_id", None),
+                           getattr(evt, "batch_id", None)))
+            if isinstance(evt, pkg.event.TestResult):
+                test_costs.append(float(evt.cost))
+
+        trainer.train(pkg.batch(lambda: iter(samples), 4), num_passes=1,
+                      event_handler=handler,
+                      test_reader=pkg.batch(lambda: iter(samples[:8]), 4))
+    finally:
+        pkg.init(use_tpu=False, test_period=0)
+    return stream, test_costs
+
+
+def test_test_period_event_stream_matches_jax():
+    samples = _rows(5, 24)
+    start = {}
+    jax_reset_names()
+    jstream, jtests = _events_with_test_period(jpaddle, samples, start)
+    reset_name_counters()
+    stream, tests = _events_with_test_period(paddle, samples, start)
+    assert stream == jstream
+    names = [s[0] for s in stream]
+    assert names.count("TestResult") == 3 and names.count(
+        "EndIteration") == 6
+    # each TestResult comes after its step's EndForwardBackward and before
+    # its EndIteration; none follows the last EndIteration
+    assert names[-2:] == ["EndIteration", "EndPass"]
+    for i, name in enumerate(names):
+        if name == "TestResult":
+            assert names[i - 1] == "EndForwardBackward"
+            assert names[i + 1] == "EndIteration"
+    np.testing.assert_allclose(tests, jtests, rtol=0, atol=TOL)
+    assert flags.get_flag("test_period") == 0
+
+
+def test_log_period_logs_every_nth_batch():
+    import logging
+
+    from paddle_tpu_torch.utils.logger import logger
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger.addHandler(handler)
+    level = logger.level
+    paddle.init(use_tpu=False, log_period=2, log_level="INFO")
+    try:
+        reset_name_counters()
+        _, cost = _mlp(paddle)
+        trainer = paddle.trainer.SGD(
+            cost, paddle.parameters.create(cost),
+            paddle.optimizer.Momentum(learning_rate=0.1))
+        trainer.train(paddle.batch(lambda: iter(_rows(6, 20)), 4),
+                      num_passes=1)
+    finally:
+        paddle.init(use_tpu=False, log_period=100)
+        logger.setLevel(level)
+        logger.removeHandler(handler)
+    logged = [r.getMessage().split(" cost=")[0] for r in records]
+    assert logged == ["pass 0 batch 0", "pass 0 batch 2", "pass 0 batch 4"]
+
+
+@pytest.mark.parametrize("name,value", [
+    ("trap_fpe", True), ("show_layer_stat", True),
+    ("show_parameter_stats_period", 10), ("matmul_precision", "default"),
+    ("telemetry", "/tmp/telemetry"), ("stats", True)])
+def test_unported_flags_are_refused_at_other_values(name, value):
+    default = flags.get_flag(name)
+    with pytest.raises(EnforceError, match="flag %s=.* is not ported yet"
+                       % name):
+        paddle.init(use_tpu=False, **{name: value})
+    with pytest.raises(EnforceError, match="not ported yet"):
+        flags.set_flag(name, value)
+    assert flags.get_flag(name) == default
+    paddle.init(use_tpu=False, **{name: default})  # the default is taken
+    assert flags.get_flag(name) == default
+    # the JAX package's defaults
+    assert default == jflags.get_flag(name)
+
+
+def test_ported_flags_keep_the_jax_defaults():
+    for name in ("log_period", "test_period", "seed", "compute_dtype",
+                 "default_dtype"):
+        assert flags.get_flag(name) == jflags.get_flag(name), name

@@ -20,6 +20,12 @@ on the CPU, with inputs made by numpy from a seed.
   gradients.
 - ``batch_norm_train`` / ``batch_norm_infer`` against the JAX package's:
   outputs, moving statistics and gradients.
+- The layers ``img_pool`` (max and average, stride 1 and 2, padding 0
+  and 1, ``ceil_mode`` on and off, average with and without
+  ``exclude_mode``) and ``img_conv`` at stride 2 (odd and even sizes,
+  filters 1, 3 and 5) through both packages' topologies from the same
+  numpy parameters: output geometry, outputs and gradients (of the input
+  and of every parameter) within 1e-5.
 """
 
 import numpy as np
@@ -30,11 +36,23 @@ import jax.numpy as jnp
 from jax import lax
 import torch
 
+from paddle_tpu import activation as JA
+from paddle_tpu import data_type as jdt
+from paddle_tpu import layer as JL
+from paddle_tpu import pooling as jpool
+from paddle_tpu.graph import reset_name_counters as jax_reset_names
 from paddle_tpu.ops import conv as jax_conv
 from paddle_tpu.ops import pallas_conv as pc
+from paddle_tpu.topology import Topology as JaxTopology
 
+from paddle_tpu_torch import activation as A
+from paddle_tpu_torch import data_type as dt
+from paddle_tpu_torch import layer as L
+from paddle_tpu_torch import pooling as pool
+from paddle_tpu_torch.graph import reset_name_counters
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import conv_kernels as ck
+from paddle_tpu_torch.topology import Topology
 
 TOL_F32 = 1e-5
 TOL_BF16 = 1e-2
@@ -435,3 +453,95 @@ def test_conv_plans_follow_the_cards_sm_count(sms):
 def test_fwd_plan_refuses_other_dtypes():
     with pytest.raises(Exception, match="float32 or bfloat16"):
         ck.fwd_plan(1, 4, 4, 8, torch.float16)
+
+
+# -- img_pool and img_conv at the layer level --------------------------------
+
+def _layer_pair(build, c, size):
+    """(port topology, JAX topology, output names) of ``build(layer, dt,
+    activation, pooling, image)`` over a c x size x size image."""
+    reset_name_counters()
+    img = L.data(name="image", type=dt.dense_vector(c * size * size),
+                 height=size, width=size)
+    out = build(L, A, pool, img)
+    jax_reset_names()
+    jimg = JL.data(name="image", type=jdt.dense_vector(c * size * size),
+                   height=size, width=size)
+    jout = build(JL, JA, jpool, jimg)
+    assert out.out_img_shape == jout.out_img_shape
+    assert out.size == jout.size
+    return Topology(out), JaxTopology(jout), out.name, jout.name
+
+
+def _layer_parity(topo, jtopo, name, jname, c, size, seed):
+    """Forward and the gradients (input and every parameter) of
+    sum(out * sel) through both packages, from the same numpy values."""
+    rng = np.random.RandomState(seed)
+    arrays = {n: (rng.randn(*spec.shape) * 0.3).astype(np.float32)
+              for n, spec in sorted(topo.param_specs().items())}
+    assert sorted(arrays) == sorted(jtopo.param_specs())
+    x = rng.randn(2, c * size * size).astype(np.float32)
+    params = {n: torch.from_numpy(v.copy()).requires_grad_()
+              for n, v in arrays.items()}
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    y = topo.apply(params, {"image": tx}, mode="train")[name]
+    sel = rng.randn(*y.shape).astype(np.float32)
+    (y * torch.from_numpy(sel)).sum().backward()
+
+    def jfn(p, a):
+        values, _ = jtopo.apply(p, {"image": a}, mode="test")
+        return jnp.sum(values[jname] * sel), values[jname]
+
+    (_, want), (jgp, jgx) = jax.value_and_grad(jfn, argnums=(0, 1),
+                                               has_aux=True)(
+        {n: jnp.asarray(v) for n, v in arrays.items()}, jnp.asarray(x))
+    assert tuple(y.shape) == tuple(want.shape)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=TOL_F32)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=0,
+                               atol=TOL_F32)
+    for n, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgp[n]),
+                                   rtol=0, atol=TOL_F32, err_msg=n)
+
+
+POOL_CASES = ([("max", s, p, ceil, True) for s in (1, 2) for p in (0, 1)
+               for ceil in (True, False)]
+              + [("avg", s, p, ceil, excl) for s in (1, 2) for p in (0, 1)
+                 for ceil in (True, False) for excl in (True, False)])
+
+
+@pytest.mark.parametrize("kind,stride,pad,ceil,exclude", POOL_CASES)
+def test_img_pool_layer_matches_jax(kind, stride, pad, ceil, exclude):
+    c, size, window = 3, 8, 3
+
+    def build(layer, act, pooling, img):
+        ptype = (pooling.MaxPooling() if kind == "max"
+                 else pooling.AvgPooling())
+        return layer.img_pool(input=img, pool_size=window, stride=stride,
+                              padding=pad, pool_type=ptype, ceil_mode=ceil,
+                              exclude_mode=exclude, name="pool")
+
+    topo, jtopo, name, jname = _layer_pair(build, c, size)
+    floor = (size + 2 * pad - window) // stride + 1
+    ceiled = -(-(size + 2 * pad - window) // stride) + 1
+    assert topo.by_name[name].out_img_shape[1] == (ceiled if ceil
+                                                   else floor)
+    _layer_parity(topo, jtopo, name, jname, c, size, seed=stride + pad)
+
+
+@pytest.mark.parametrize("fsize,pad,size", [(3, 1, 7), (3, 0, 8),
+                                            (1, 0, 7), (5, 2, 9)])
+def test_img_conv_layer_at_stride_2_matches_jax(fsize, pad, size):
+    c, f = 3, 4
+
+    def build(layer, act, pooling, img):
+        return layer.img_conv(input=img, filter_size=fsize, num_filters=f,
+                              stride=2, padding=pad, act=act.Relu(),
+                              name="conv")
+
+    topo, jtopo, name, jname = _layer_pair(build, c, size)
+    assert topo.by_name[name].out_img_shape == (
+        f, (size + 2 * pad - fsize) // 2 + 1,
+        (size + 2 * pad - fsize) // 2 + 1)
+    _layer_parity(topo, jtopo, name, jname, c, size, seed=fsize + size)

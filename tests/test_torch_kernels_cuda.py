@@ -928,6 +928,37 @@ def _int8_case(device, dtype, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,k,n", [(512, 16, 64), (512, 64, 32),
+                                   (512, 32, 1), (32, 19, 16), (32, 32, 64),
+                                   (32, 16, 64), (8, 19, 16), (1, 19, 16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_int8_matmul_at_the_recommender_shapes_on_card(cuda_device, dtype,
+                                                       tol, m, k, n, offset):
+    """K9 at the int8 CTR's products (M = 512 at K = 16, 32, 64; N = 1: a
+    w_q row one byte wide) and the int8 movielens bundle's (K = 19: x rows
+    that are not a multiple of 16 bytes), with x at a 16-byte aligned base
+    and one element past it: against the plain version, one launch, and a
+    bit-identical repeat."""
+    x, w_q, scale = _int8_case(cuda_device, dtype, m, k, n)
+    if offset:
+        x = torch.cat([torch.zeros(1, dtype=dtype, device=cuda_device),
+                       x.reshape(-1)])[offset:].reshape(m, k)
+    before = ik.launches
+    y = ik.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert ik.launches == before + 1
+    assert ik.int8_matmul.last_launch["path"] == ik.int8_plan(
+        m, k, n, dtype)["path"]
+    assert y.dtype == dtype and y.shape == (m, n)
+    want = ik.int8_matmul_reference(x, w_q, scale)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err / max(1.0, want.float().abs().max().item()) <= tol
+    assert torch.equal(ik.int8_matmul(x, w_q, scale), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("n", [2, 129, 1000])
 @pytest.mark.parametrize("k", [37, 2048])
 @pytest.mark.parametrize("m", [1, 3, 33, 2048])

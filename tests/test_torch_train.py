@@ -308,8 +308,11 @@ def test_momentum_step_matches_jax(kw):
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    with pytest.raises(EnforceError, match="sparse"):
-        opt.Momentum(sparse=True)
+    # sparse-row updates are ported: Momentum(sparse=True) makes every
+    # matrix row-sparse and leaves vectors dense
+    state = opt.Momentum(sparse=True).init_state(
+        {"w": torch.zeros(3, 2), "b": torch.zeros(2)})
+    assert sorted(state["row_step"]) == ["w"]
     with pytest.raises(EnforceError, match="model averaging"):
         opt.Momentum(model_average=0.99)
     from paddle_tpu_torch.attr import ParamAttr
