@@ -209,10 +209,30 @@ result line:
            against the same bundle on the CPU; the int8 bundle's drift
            from the fp one <= 0.05; no K9 launch for the fp bundle and
            exactly 8 per dispatched int8 batch.
-26. kernels one entry per TPU kernel the port replaced (the redesigned
+26. train_nmt  the attention NMT at the bench row's width
+           (seq2seq_attention: dictionaries 30000, emb/enc/dec 512;
+           benchmark/harness.py:476-524) trained by trainer.SGD with
+           Momentum(5e-4, 0.9): 3 ragged f32 steps (lengths 5-30) against
+           the same steps on the CPU (costs and every parameter within
+           1e-4 of max(1, max |CPU|)), every gradient of step 1 finite and
+           nonzero, the same steps under the bf16 policy (costs within
+           5e-2 of f32), 20 steps at 64 x 30 x 30 in f32 and bf16 (ms per
+           batch, samples per second, exactly 2 K5 and 2 K6 launches a
+           step: both encoder directions at (30, 64, 512), their layouts),
+           peak memory and torch.profiler summaries (f32 and bf16).
+27. generate_nmt  beam search (beam 4, at most 30 tokens) over 8 ragged
+           sources with the trained parameters, as the demo runs it and
+           with a candidate_adjust callback that forbids eos before the
+           last step (all 30 steps run): ms per generate call, steps run,
+           tokens per second, exactly 2 K5 launches a call; the card's
+           sequences, lengths and scores against the CPU's (a source may
+           differ only where the CPU's beam-th and (beam+1)-th candidates
+           of a step lie within 1e-4; such sources printed).
+28. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
-           CTR's and the int8 movielens bundle's products), then the
+           CTR's and the int8 movielens bundle's products; K5 and K6 also
+           at the NMT encoder's (30, 64, 512)), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -425,6 +445,35 @@ MOVIELENS_BURST = 384
 # movielens_recommender() at its defaults trained with Momentum(1e-2, 0.9)
 # at batch 256: 3 steps against the CPU, then 20 timed steps
 MOVIELENS_BATCH, MOVIELENS_STEPS, MOVIELENS_LR = 256, 20, 1e-2
+# the attention NMT bench row (benchmark/harness.py:476-524): emb, encoder
+# and decoder 512, dictionaries 30000, 30 x 30 tokens, batch 64,
+# Momentum(5e-4, 0.9)
+NMT = {"src_dict_size": 30000, "trg_dict_size": 30000, "emb_size": 512,
+       "enc_size": 512, "dec_size": 512}
+NMT_BATCH, NMT_LEN, NMT_STEPS, NMT_LR = 64, 30, 20, 5e-4
+NMT_BOS, NMT_EOS = 0, 1
+# the batch of the 3 ragged steps held against the CPU (lengths 5-30)
+NMT_CPU_BATCH = 64
+# name fragments of a training step's kernels in its profile: K5 and K6 in
+# each layout, the recompute GEMM of K6's cluster layout, the library's
+# GEMMs (CUTLASS and cuBLAS float32, cuBLAS bfloat16), and the copies to
+# the host (the trainer's parameter sync at the end of the profiled pass,
+# not part of a step)
+NMT_KERNELS = ("gru_seq_fwd_kernel", "gru_fwd_cluster", "gru_bwd_cluster",
+               "gru_seq_bwd_kernel", "seqre::gemm", "sgemm", "xmma_gemm",
+               "nvjet", "Memcpy DtoH")
+# the layouts K5 and K6 take at the encoder's (30, 64, 512), as phases
+# kernel_gru and kernel_gru_bwd run them (ops/gru_kernels.gru_fwd_plan,
+# gru_bwd_plan): 13 clusters of 16 blocks do not fit the card at once
+NMT_LAYOUTS = {"fwd": "unit_tiles", "bwd": "cluster"}
+# beam search as the demo runs it (beam 4, at most 30 tokens) on 8 ragged
+# sources, timed over NMT_GEN_REPS calls
+NMT_BEAM, NMT_GEN_SOURCES, NMT_GEN_REPS = 4, 8, 3
+# beam search, card against CPU: scores relative to max(1, |score|); a
+# step whose beam-th and (beam+1)-th candidates lie closer than this
+# (relative to max(1, |candidate|)) may pick either, and then the rest of
+# that source's beams may differ
+TOL_GENERATE = 1e-4
 # K9 against its plain version, divided by max(1, max |plain|): float32 sums
 # in another order; bfloat16 rounds the float32 sum once, and the two
 # roundings can land one bfloat16 step (2^-8 relative) apart
@@ -3184,6 +3233,271 @@ def phase_serve_movielens(torch, ik, tmp):
     return {"k9_launches": q["k9_launches"]}
 
 
+def nmt_batches(seed, n, rows, ragged):
+    """``n`` minibatches of ``rows`` (source, <s> + target, target + </s>)
+    rows padded to NMT_LEN: source and target lengths drawn from 5 to 30
+    when ``ragged``, else all 30 (the bench row's traffic); ids in [2,
+    30000)."""
+    rng = np.random.RandomState(seed)
+    vocab = NMT["trg_dict_size"]
+    out = []
+    for _ in range(n):
+        slen, tlen = ((rng.randint(5, NMT_LEN + 1, rows) for _ in range(2))
+                      if ragged else (np.full(rows, NMT_LEN),) * 2)
+        batch = []
+        for s, t in zip(slen, tlen):
+            trg = rng.randint(2, vocab, int(t) - 1).tolist()
+            batch.append((rng.randint(2, vocab, int(s)).tolist(),
+                          [NMT_BOS] + trg, trg + [NMT_EOS]))
+        out.append(Batch(batch, bucket=NMT_LEN))
+    return out
+
+
+class NmtRig(TrainRig):
+    """seq2seq_attention at the bench width: its cost topology, its
+    generator builder, numpy-seeded initial parameters and
+    Momentum(NMT_LR, 0.9) trainers."""
+
+    def __init__(self, seed):
+        from paddle_tpu_torch.graph import reset_name_counters
+        from paddle_tpu_torch.models.text import seq2seq_attention
+        from paddle_tpu_torch.topology import Topology
+
+        reset_name_counters()
+        self.config = NMT
+        self.learning_rate = NMT_LR
+        self.cost, self.make_generator = seq2seq_attention(
+            bos_id=NMT_BOS, eos_id=NMT_EOS, **NMT)
+        self.topology = Topology(self.cost)
+        self.init = numpy_params(self.topology, seed)
+
+
+def phase_train_nmt(torch, gk):
+    """The attention NMT at the bench width trained by trainer.SGD with
+    Momentum(5e-4, 0.9): 3 ragged f32 steps at NMT_CPU_BATCH against the
+    same steps on the CPU (costs and every parameter), every parameter
+    with a finite nonzero gradient at step 1, the same 3 steps under the
+    bf16 policy against f32 (costs), NMT_STEPS steps at 64 x 30 x 30 in
+    f32 and bf16 (ms per batch, samples per second, exactly 2 K5 and 2 K6
+    launches a step: both encoder directions, and their layouts), peak
+    memory and torch.profiler summaries."""
+    from paddle_tpu_torch.core import dtype as dtype_mod
+
+    rig = NmtRig(SEED + 90)
+    ragged = nmt_batches(SEED + 91, 3, NMT_CPU_BATCH, True)
+    full = nmt_batches(SEED + 92, NMT_STEPS, NMT_BATCH, False)
+    card = rig.trainer(DEVICE)
+    gk.reset_launches()
+    costs = train(torch, card, ragged[:1])
+    no_grad = no_gradient(card)
+    costs += train(torch, card, ragged[1:])
+    ragged_launches = check_launches(gk, 3, 2, "nmt ragged steps")
+    t0 = time.perf_counter()
+    cpu = rig.trainer("cpu")
+    cpu_costs = train(torch, cpu, ragged)
+    cpu_s = time.perf_counter() - t0
+    cost_err = cost_error(costs, cpu_costs)
+    param_err = param_error(card.parameters, cpu.parameters)
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launches()  # the main path: NMT_STEPS steps at 64 x 30 x 30
+    costs32, ms = train(torch, card, full, timed=True)
+    launches = check_launches(gk, NMT_STEPS, 2, "nmt f32 training")
+    layouts_f32 = {"fwd": gk.gru_seq_fwd.last_launch,
+                   "bwd": gk.gru_seq_bwd.last_launch}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_steps(torch, card, full[:5], kernels=NMT_KERNELS)
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = rig.trainer(DEVICE)
+        ragged16 = train(torch, card16, ragged)
+        gk.reset_launches()
+        costs16, ms16 = train(torch, card16, full, timed=True)
+        launches16 = check_launches(gk, NMT_STEPS, 2, "nmt bf16 training")
+        layouts_bf16 = {"fwd": gk.gru_seq_fwd.last_launch,
+                        "bwd": gk.gru_seq_bwd.last_launch}
+        profile16 = profile_steps(torch, card16, full[:5],
+                                  kernels=NMT_KERNELS)
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = cost_error(ragged16, costs)
+    row = {"phase": "train_nmt", "config": NMT, "batch": NMT_BATCH,
+           "seq_len": [NMT_LEN, NMT_LEN],
+           "optimizer": "Momentum(learning_rate=%g, momentum=0.9)" % NMT_LR,
+           "cpu_batch": NMT_CPU_BATCH, "cpu_seconds_3_steps": cpu_s,
+           "ragged_costs_card": costs, "ragged_costs_cpu": cpu_costs,
+           "cost_err_rel_vs_cpu": cost_err, "param_err_vs_cpu": param_err,
+           "tol": TOL_TRAIN, "params_without_gradient": no_grad,
+           "ragged_launches": ragged_launches, "steps": NMT_STEPS,
+           "ms_per_batch_f32": ms,
+           "samples_per_s_f32": NMT_BATCH / ms * 1e3,
+           "costs_f32": costs32, "launches_f32": launches,
+           "layouts_f32": layouts_f32, "peak_memory_gb_f32": peak_gb,
+           "profile_f32": profile, "bf16_ragged_costs": ragged16,
+           "bf16_cost_err_rel_vs_f32": bf16_err,
+           "tol_bf16": TOL_TRAIN_BF16, "ms_per_batch_bf16": ms16,
+           "samples_per_s_bf16": NMT_BATCH / ms16 * 1e3,
+           "costs_bf16": costs16, "launches_bf16": launches16,
+           "layouts_bf16": layouts_bf16, "profile_bf16": profile16}
+    emit(row)
+    if no_grad:
+        raise AssertionError("nmt parameters without a finite nonzero "
+                             "gradient at step 1: %s" % no_grad)
+    if not (cost_err <= TOL_TRAIN and param_err <= TOL_TRAIN):
+        raise AssertionError("nmt training on the card departs from the "
+                             "CPU: %r" % row)
+    if not bf16_err <= TOL_TRAIN_BF16:
+        raise AssertionError("nmt bf16 training departs from f32: %r" % row)
+    ran = {d: {k: v["layout"] for k, v in lay.items()}
+           for d, lay in (("float32", layouts_f32), ("bfloat16",
+                                                     layouts_bf16))}
+    if any(r != NMT_LAYOUTS for r in ran.values()):
+        raise AssertionError("nmt: the GRU kernels ran in %r, the kernel "
+                             "phases' layouts are %r" % (ran, NMT_LAYOUTS))
+    if not (np.all(np.isfinite(costs32)) and np.all(np.isfinite(costs16))):
+        raise AssertionError("nmt costs not finite: %r" % row)
+    return {"fwd_launches": launches[0], "bwd_launches": launches[1],
+            "rig": rig, "parameters": card.parameters}
+
+
+def near_ties(calls, beam):
+    """Rows of the batch at which some step's beam-th and (beam+1)-th
+    candidates (``calls``: the sorted [B, beam * V] totals of each step)
+    lie within TOL_GENERATE of each other."""
+    rows = set()
+    for values in calls:
+        kth, nxt = values[:, beam - 1], values[:, beam]
+        gap = (kth - nxt).abs() / kth.abs().clamp(min=1.0)
+        rows.update(int(i) for i in np.nonzero(gap.numpy()
+                                               <= TOL_GENERATE)[0])
+    return rows
+
+
+def decode_nmt(torch, gk, gen, on_card, params, feed):
+    """NMT_GEN_REPS generate calls of ``gen`` on the card with the
+    parameters ``on_card`` (ms each, steps run, K5 and K6 launches) and
+    one on the CPU with the same ``params`` that records the sorted
+    candidates of each step; the card's results against the CPU's."""
+    from paddle_tpu_torch.layer import rnn_group
+
+    steps = []
+    gen.control.on_step = lambda t, *_: steps.append(t)
+    gk.reset_launches()  # the main path: NMT_GEN_REPS generate calls
+    times = []
+    for _ in range(NMT_GEN_REPS):
+        del steps[:]
+        t0 = time.perf_counter()
+        seqs, lengths, scores = gen.generate(on_card, feed, device=DEVICE)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = (gk.launches, gk.bwd_launches)
+    steps_run = len(steps)
+    top_k = rnn_group._top_k
+    sorted_totals = []
+
+    def recording_top_k(total, k):
+        sorted_totals.append(torch.sort(total, dim=1, descending=True,
+                                        stable=True).values[:, :k + 1])
+        return top_k(total, k)
+
+    with mock.patch.object(rnn_group, "_top_k", recording_top_k):
+        cpu_seqs, cpu_lengths, cpu_scores = gen.generate(params, feed,
+                                                         device="cpu")
+    tied = near_ties(sorted_totals, NMT_BEAM)
+    differing = [i for i in range(NMT_GEN_SOURCES)
+                 if not (np.array_equal(seqs[i], cpu_seqs[i])
+                         and np.array_equal(lengths[i], cpu_lengths[i]))]
+    ms = statistics.median(times)
+    case = {"ms_per_generate": ms, "ms_per_call": times,
+            "steps_run": steps_run,
+            "ms_per_step": ms / max(steps_run, 1),
+            "beam_tokens_per_s": NMT_GEN_SOURCES * NMT_BEAM * steps_run
+            / ms * 1e3,
+            "k5_launches": launches[0], "k6_launches": launches[1],
+            "lengths_best": lengths[:, 0].tolist(),
+            "scores_best": scores[:, 0].tolist(),
+            "score_err_rel_vs_cpu": max(
+                (float(np.abs(scores[i] - cpu_scores[i]).max()
+                       / max(1.0, float(np.abs(cpu_scores[i]).max())))
+                 for i in range(NMT_GEN_SOURCES) if i not in differing),
+                default=0.0),
+            "near_tie_sources": sorted(tied),
+            "differing_from_cpu": differing,
+            "differing_at_near_ties": {
+                str(i): {"card": seqs[i].tolist(),
+                         "cpu": cpu_seqs[i].tolist(),
+                         "card_scores": scores[i].tolist(),
+                         "cpu_scores": cpu_scores[i].tolist()}
+                for i in differing if i in tied}}
+    faults = []
+    if launches != (2 * NMT_GEN_REPS, 0):
+        faults.append("%d calls launched K5 %d and K6 %d times (want 2 and "
+                      "0 a call)" % ((NMT_GEN_REPS,) + launches))
+    if [i for i in differing if i not in tied]:
+        faults.append("sources differ from the CPU without a near tie")
+    if not case["score_err_rel_vs_cpu"] <= TOL_GENERATE:
+        faults.append("scores depart from the CPU's")
+    if not (seqs.shape == (NMT_GEN_SOURCES, NMT_BEAM, NMT_LEN)
+            and np.all(np.isfinite(scores))
+            and (scores[:, :-1] >= scores[:, 1:]).all()):
+        faults.append("results malformed")
+    return case, faults
+
+
+def phase_generate_nmt(torch, gk, trained):
+    """Beam search (make_generator(beam_size=4, max_length=30)) over 8
+    ragged sources with the parameters train_nmt trained, as the demo runs
+    it and again with a BeamSearchControlCallbacks ``candidate_adjust``
+    that forbids eos before the last step, so that every call runs all 30
+    steps (the trained model puts eos first, and plain decoding ends in
+    two steps): each generate call's ms, steps run, tokens per second and
+    exactly 2 K5 launches (the encoder's two directions) and no K6 launch
+    a call; the card's results against the same call on the CPU (scores
+    within TOL_GENERATE of max(1, |score|), sequences and lengths equal;
+    a source may differ only if at one of its steps the CPU's beam-th and
+    (beam+1)-th candidates lie within TOL_GENERATE, and such sources are
+    printed)."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+    from paddle_tpu_torch.layer import BeamSearchControlCallbacks
+
+    def no_eos_before_last(t, tokens, history, logp):
+        if t < NMT_LEN - 1:
+            logp = logp.clone()
+            logp[:, NMT_EOS] = -float("inf")
+        return logp
+
+    from paddle_tpu_torch.parameters import Parameters
+
+    # the trained parameters on the card, where a trainer's Parameters
+    # live when they were created there (the rig's are on the host)
+    params = trained["parameters"]
+    on_card = Parameters({k: v.to(DEVICE) for k, v in
+                          params.as_dict().items()})
+    rng = np.random.RandomState(SEED + 93)
+    sources = [rng.randint(2, NMT["src_dict_size"], int(k)).astype(np.int32)
+               for k in rng.randint(5, NMT_LEN + 1, NMT_GEN_SOURCES)]
+    feed = {"source_words": SequenceBatch.from_sequences(sources,
+                                                         max_len=NMT_LEN)}
+    row = {"phase": "generate_nmt", "beam_size": NMT_BEAM,
+           "max_length": NMT_LEN, "sources": NMT_GEN_SOURCES,
+           "source_lengths": [len(s) for s in sources],
+           "calls": NMT_GEN_REPS, "tol": TOL_GENERATE}
+    faults = []
+    for name, control in (
+            ("demo", None),
+            ("eos_at_last_step", BeamSearchControlCallbacks(
+                candidate_adjust=no_eos_before_last))):
+        gen = trained["rig"].make_generator(beam_size=NMT_BEAM,
+                                            max_length=NMT_LEN)
+        if control is not None:
+            gen.control = control
+        row[name], case_faults = decode_nmt(torch, gk, gen, on_card,
+                                            params, feed)
+        faults += ["%s: %s" % (name, f) for f in case_faults]
+    emit(row)
+    if faults:
+        raise AssertionError("generate_nmt: %s" % "; ".join(faults))
+    return row
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -3321,6 +3635,8 @@ def main():
     phase_train_movielens(torch)
     with tempfile.TemporaryDirectory() as tmp:
         served_movielens = phase_serve_movielens(torch, ik, tmp)
+    trained_nmt = phase_train_nmt(torch, gk)
+    phase_generate_nmt(torch, gk, trained_nmt)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -3407,6 +3723,14 @@ def main():
                      "int8_matmul[K9,ctr_batch512]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
                      trained_ctr["k9_launches"], "int8_matmul"),
+        recurrent_entry(gru_cases, "gru_seq_fwd[K5,h512_nmt]",
+                        "paddle_tpu/ops/pallas_kernels.py:668",
+                        trained_nmt["fwd_launches"], 512, "gru_seq_fwd",
+                        path=layouts(gru_cases, 512)),
+        recurrent_entry(gru_bwd_cases, "gru_seq_bwd[K6,h512_nmt]",
+                        "paddle_tpu/ops/pallas_kernels.py:724",
+                        trained_nmt["bwd_launches"], 512, "gru_seq_bwd",
+                        path=layouts(gru_bwd_cases, 512)),
         kernel_entry([int8_sum(int8_cases, INT8_MOVIELENS_BATCH,
                                "the 8 int8 products of one int8 movielens "
                                "batch at bucket 32 (float32)")],

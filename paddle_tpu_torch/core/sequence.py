@@ -61,6 +61,16 @@ class SequenceBatch:
     def map_data(self, fn):
         return SequenceBatch(fn(self.data), self.lengths)
 
+    def last_step(self):
+        """The last valid step of each sequence [B, ...] (step 0 for a
+        sequence of length 0; cf. SequenceLastInstanceLayer)."""
+        idx = torch.clamp(self.lengths.long() - 1, min=0)
+        return self.data[torch.arange(self.batch_size,
+                                      device=self.data.device), idx]
+
+    def first_step(self):
+        return self.data[:, 0]
+
     def reverse(self):
         """Each sequence reversed within its valid region, the padding
         left where it is (paddle_tpu/core/sequence.py:126-133; for

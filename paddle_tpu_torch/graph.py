@@ -5,6 +5,13 @@ named DAG node carrying parameter specs and a ``forward(params, inputs,
 ctx)`` on torch tensors — exactly as in paddle_tpu/graph.py, so a config
 builds the same graph, with the same layer and parameter names, in both
 packages. Parameters are keyed by *parameter name* (not layer name).
+
+A ``recurrent_group`` traces its step function once into a step subgraph
+(layer/rnn_group.py). While a step is traced its group's frame is on the
+group trace stack here, and every node built meanwhile is recorded in the
+innermost frame by ``LayerNode.__init__`` itself (the JAX package patches
+``LayerNode.__init__`` when its rnn_group module is imported; here the
+hook is part of the class).
 """
 
 import itertools
@@ -16,6 +23,7 @@ from paddle_tpu_torch.utils.error import enforce, layer_scope
 _name_lock = threading.Lock()
 _name_counters = {}
 _creation_counter = itertools.count()
+_group_state = threading.local()
 
 # Auto-name tags aligned with paddle_tpu/graph.py _REF_NAME_TAGS for the
 # layer types this package has (e.g. pooling -> "__seq_pooling_0__").
@@ -28,6 +36,7 @@ _REF_NAME_TAGS = {
     "grumemory": "gru",
     "addto_layer": "addto",
     "pooling": "seq_pooling",
+    "expand": "expand_layer",
 }
 
 
@@ -42,6 +51,28 @@ def auto_name(layer_type):
 def reset_name_counters():
     with _name_lock:
         _name_counters.clear()
+
+
+def begin_group(group_id):
+    """Push a group trace frame (paddle_tpu/layer/rnn_group.py:58-71): its
+    ``memories`` take the step's memory placeholders and its ``nodes``
+    every node built until ``end_group``. A stack, so groups can nest."""
+    stack = getattr(_group_state, "stack", None)
+    if stack is None:
+        stack = _group_state.stack = []
+    frame = {"id": group_id, "memories": [], "nodes": []}
+    stack.append(frame)
+    return frame
+
+
+def end_group():
+    return _group_state.stack.pop()
+
+
+def current_group():
+    """The innermost group frame being traced, or None."""
+    stack = getattr(_group_state, "stack", None)
+    return stack[-1] if stack else None
 
 
 class ParamSpec:
@@ -111,6 +142,9 @@ class LayerNode:
         # declaration order: the default feeding maps reader tuple columns
         # to data layers in the order the user declared them
         self.creation_index = next(_creation_counter)
+        group = current_group()
+        if group is not None:  # built while a step function is traced
+            group["nodes"].append(self)
 
     def forward(self, params, input_values, ctx):
         with layer_scope(self.name):

@@ -57,3 +57,79 @@ def sequence_tagging_gru(dict_size=1000, label_size=16, emb_size=32,
     rnn = networks.simple_gru(input=emb, size=hidden, name=name + "_gru")
     return L.fc(input=rnn, size=label_size, act=A.Softmax(),
                 name=name + "_out")
+
+
+def seq2seq_attention(src_dict_size=30000, trg_dict_size=30000, emb_size=64,
+                      enc_size=64, dec_size=64, name="nmt", bos_id=0,
+                      eos_id=1):
+    """Attention NMT encoder-decoder (paddle_tpu/models/text.py:96-165;
+    reference: the demo/seqToseq configs): a bidirectional GRU encoder,
+    simple_attention, and a GRU decoder in a recurrent_group booted from
+    the reversed GRU's first step. Layer and parameter names are the JAX
+    builder's.
+
+    Returns (cost, make_generator): ``cost`` trains with the feeds
+    source_words, target_words (<s>-prefixed) and target_next_words
+    (</s>-suffixed); ``make_generator(beam_size, max_length)`` builds a
+    BeamSearchGenerator over a second copy of the encoder that reads the
+    trained parameters by name.
+    """
+    def encoder():
+        src = L.data(name="source_words",
+                     type=data_type.integer_value_sequence(src_dict_size))
+        emb = L.embedding(input=src, size=emb_size, name=name + "_src_emb")
+        fwd = networks.simple_gru(input=emb, size=enc_size,
+                                  name=name + "_enc_fwd")
+        bwd = networks.simple_gru(input=emb, size=enc_size, reverse=True,
+                                  name=name + "_enc_bwd")
+        encoded = L.concat(input=[fwd, bwd], name=name + "_encoded")
+        enc_proj = L.fc(input=encoded, size=dec_size, act=None,
+                        bias_attr=False, name=name + "_enc_proj")
+        boot = L.fc(input=L.first_seq(input=bwd), size=dec_size,
+                    act=A.Tanh(), name=name + "_dec_boot")
+        return encoded, enc_proj, boot
+
+    def step_factory(boot):
+        def step(enc_seq_s, enc_proj_s, trg_emb_t):
+            dec_mem = L.memory(name=name + "_dec_h", size=dec_size,
+                               boot_layer=boot)
+            context = networks.simple_attention(
+                encoded_sequence=enc_seq_s, encoded_proj=enc_proj_s,
+                decoder_state=dec_mem, name=name + "_att")
+            gin = L.fc(input=[context, trg_emb_t], size=dec_size * 3,
+                       act=None, name=name + "_gru_in")
+            h = L.gru_step(input=gin, output_mem=dec_mem, size=dec_size,
+                           name=name + "_dec_h")
+            return L.fc(input=h, size=trg_dict_size, act=A.Softmax(),
+                        name=name + "_out")
+
+        return step
+
+    encoded, enc_proj, boot = encoder()
+    trg = L.data(name="target_words",
+                 type=data_type.integer_value_sequence(trg_dict_size))
+    trg_next = L.data(name="target_next_words",
+                      type=data_type.integer_value_sequence(trg_dict_size))
+    trg_emb = L.embedding(input=trg, size=emb_size, name=name + "_trg_emb")
+    dec_out = L.recurrent_group(
+        step=step_factory(boot),
+        input=[L.StaticInput(input=encoded, is_seq=True),
+               L.StaticInput(input=enc_proj, is_seq=True), trg_emb],
+        name=name + "_decoder")
+    cost = L.classification_cost(input=dec_out, label=trg_next,
+                                 name=name + "_cost")
+
+    def make_generator(beam_size=4, max_length=30):
+        encoded_g, enc_proj_g, boot_g = encoder()
+        return L.beam_search(
+            step=step_factory(boot_g),
+            input=[L.StaticInput(input=encoded_g, is_seq=True),
+                   L.StaticInput(input=enc_proj_g, is_seq=True),
+                   L.GeneratedInput(size=trg_dict_size,
+                                    embedding_name=name + "_trg_emb.w0",
+                                    embedding_size=emb_size,
+                                    bos_id=bos_id, eos_id=eos_id)],
+            bos_id=bos_id, eos_id=eos_id, beam_size=beam_size,
+            max_length=max_length, name=name + "_gen")
+
+    return cost, make_generator

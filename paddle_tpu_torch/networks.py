@@ -1,7 +1,9 @@
 """Composite networks (reference: trainer_config_helpers/networks.py)."""
 
+from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch import layer as L
 from paddle_tpu_torch.graph import auto_name
+from paddle_tpu_torch.layer.attention_utils import sequence_softmax_pool
 
 
 def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
@@ -41,3 +43,22 @@ def simple_gru(input, size, name=None, reverse=False, mat_param_attr=None,
                        gate_act=gate_act, bias_attr=bias_param_attr,
                        param_attr=inner_param_attr, layer_attr=gru_layer_attr,
                        name=name)
+
+
+def simple_attention(encoded_sequence, encoded_proj, decoder_state,
+                     transform_param_attr=None, softmax_param_attr=None,
+                     name=None):
+    """Additive attention (reference: simple_attention): score each encoder
+    step against the decoder state (fc, expand, addto + tanh, fc to one
+    score), softmax over the valid steps, weighted sum of the encoder
+    sequence."""
+    decoder_proj = L.fc(input=decoder_state, size=encoded_proj.size,
+                        act=None, bias_attr=False,
+                        param_attr=transform_param_attr,
+                        name="%s_transform" % name if name else None)
+    expanded = L.expand(input=decoder_proj, expand_as=encoded_proj)
+    combined = L.addto(input=[encoded_proj, expanded], act=act_mod.Tanh())
+    scores = L.fc(input=combined, size=1, act=None, bias_attr=False,
+                  param_attr=softmax_param_attr,
+                  name="%s_scores" % name if name else None)
+    return sequence_softmax_pool(scores, encoded_sequence, name=name)
