@@ -57,6 +57,27 @@ result line:
            the same under the bfloat16 compute policy, and the trained
            parameters exported as a bundle whose answers match
            inference.infer on the CPU.
+   train_loop  the v2 training loop on the card (trainer.SGD.train's
+           feed_pipeline, buckets, steps_per_call, checkpoint_dir/resume):
+           (a) the flagship at 64 x 100 with Adam(1e-3) and
+           classification_error, 40 steps per-step and eager against the
+           same 40 with feed_pipeline=2, steps_per_call=10 (each chunk one
+           replay of a captured CUDA graph of its 10 steps), costs and
+           parameters within 1e-6 of max(1, max |eager|) and the metric
+           equal; the same 40 per-step with feed_pipeline=2 alone (the
+           pinned feed without graphs) held the same way; ms per batch
+           (median over 10-step chunks) of all three, idle share
+           and kernels per step from torch.profiler over one chunk, graph
+           captures, K1/K2 launches per step (the kernels captured in a
+           graph times its replays); (b) ragged rows (lengths 10-100)
+           with buckets=[32, 64, 100] and steps_per_call=4 against the
+           same stream per-step on the card, chunk sizes and graphs
+           cached; (c) (a)'s fused run with checkpoint_every=10, and a
+           fresh trainer resumed from the step-20 checkpoint to step 40
+           equal to the uninterrupted run within 1e-6 (step-thread ms per
+           checkpoint, bytes, overlap); (d) the BiLSTM-CRF at 32 x 60, 20
+           steps per-step against 20 fused (steps_per_call=10) held the
+           same way, with ms per batch, idle share and kernels per step.
 8. train_h1280  hidden 1280, batch 64, length 100: a few steps on the card
            (ms per batch, launch counts) and one step on 8 rows held
            against the CPU (cost and every gradient).
@@ -232,7 +253,8 @@ result line:
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
            CTR's and the int8 movielens bundle's products; K5 and K6 also
-           at the NMT encoder's (30, 64, 512)), then the
+           at the NMT encoder's (30, 64, 512); K1 and K2 also inside the
+           train_loop phase's captured graphs), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -322,6 +344,14 @@ BWD_LAYOUTS = {128: "cluster", 256: "cluster", 1280: "w_tiles"}
 BWD_LAYOUT_CASES = [(100, 64, 256), (64, 8, 256), (100, 64, 512),
                     (100, 64, 768), (100, 64, 1280), BILSTM_SHAPE]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, H1280_STEPS = 64, 100, 20, 5
+# the train_loop phase: 40 flagship steps per-step against chunks of 10 as
+# captured CUDA graphs; ragged rows (lengths 10-100) in buckets, chunks of
+# 4, 24 incoming batches; a checkpoint every 10 steps; 20 BiLSTM-CRF steps.
+# Fused and per-step runs are held within TOL_LOOP of max(1, max |eager|).
+LOOP_STEPS, LOOP_K = 40, 10
+LOOP_BUCKETS, LOOP_BUCKET_K, LOOP_BUCKET_BATCHES = [32, 64, 100], 4, 24
+LOOP_CKPT_EVERY, LOOP_BILSTM_STEPS = 10, 20
+TOL_LOOP = 1e-6
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
 BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
@@ -1439,9 +1469,9 @@ class TrainRig:
         self.config = config
         self.learning_rate = learning_rate
         self.out = build(**config)
-        label = layer.data(name="label", type=label_type)
+        self.label = layer.data(name="label", type=label_type)
         self.cost = (cost or layer.classification_cost)(input=self.out,
-                                                        label=label)
+                                                        label=self.label)
         self.topology = Topology(self.cost)
         self.init = (params or numpy_params)(self.topology, seed)
 
@@ -1464,10 +1494,11 @@ def flagship_rig(hidden, seed):
                     data_type.integer_value(2), seed, 0.01)
 
 
-def train(torch, tr, batches, timed=False):
-    """Run ``batches`` through ``tr.train``; returns the per-step costs and,
-    with ``timed``, the median ms between consecutive steps, each ended by
-    a synchronize (the first step, which builds caches, is left out)."""
+def train(torch, tr, batches, timed=False, **options):
+    """Run ``batches`` through ``tr.train`` (``options`` are train()'s);
+    returns the per-step costs and, with ``timed``, the median ms between
+    consecutive steps, each ended by a synchronize (the first step, which
+    builds caches, is left out)."""
     from paddle_tpu_torch.event import EndIteration
 
     costs, stamps = [], []
@@ -1479,26 +1510,27 @@ def train(torch, tr, batches, timed=False):
                 stamps.append(time.perf_counter())
             costs.append(evt.cost)
 
-    tr.train(lambda: iter(batches), event_handler=handler)
+    tr.train(lambda: iter(batches), event_handler=handler, **options)
     if not timed:
         return costs
     return costs, statistics.median(np.diff(stamps) * 1e3)
 
 
-def profile_steps(torch, tr, batches, kernels=()):
+def profile_steps(torch, tr, batches, kernels=(), **options):
     """Where a training step's time goes on the card (torch.profiler over
-    ``batches``): wall ms per step (profiler on), the kernels' busy ms per
-    step (the union of their intervals), the idle share, the largest
-    kernels by device time, and for each name fragment in ``kernels`` the
-    device ms per step of the kernels whose names contain it and their
-    share of the busy time."""
+    ``batches``; ``options`` are train()'s): wall ms per step (profiler
+    on), the kernels' busy ms per step (the union of their intervals), the
+    idle share (of the wall, and of the device's own window from its first
+    kernel to its last), the largest kernels by device time, and for each
+    name fragment in ``kernels`` the device ms per step of the kernels
+    whose names contain it and their share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train(torch, tr, batches)
+        train(torch, tr, batches, **options)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
@@ -1518,6 +1550,10 @@ def profile_steps(torch, tr, batches, kernels=()):
             busy_us += end - reach
             reach = end
     steps = len(batches)
+    # the idle share inside the device's own window (first kernel's start
+    # to last kernel's end), without the host's time before and after
+    window_us = (max(e for _, e in spans) - min(b for b, _ in spans)
+                 if spans else 0.0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     mine = {}
     for frag in kernels:
@@ -1528,6 +1564,8 @@ def profile_steps(torch, tr, batches, kernels=()):
             "wall_ms_per_step": wall_ms / steps,
             "busy_ms_per_step": busy_us / 1e3 / steps,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "device_window_idle_share": (1.0 - busy_us / window_us
+                                         if window_us else None),
             "kernels_per_step": len(spans) / steps,
             "top": [{"kernel": name[:100], "ms_per_step": t / steps,
                      "calls_per_step": c / steps}
@@ -1539,20 +1577,46 @@ def param_error(a, b):
     return max(float(np.abs(a.get(n) - b.get(n)).max()) for n in a.names())
 
 
-def check_launches(kernels, steps, per_step, what):
+def check_launches(kernels, steps, per_step, what, counts=None):
     """The forward and backward launch counts of a kernel module
     (lstm_kernels or gru_kernels) after ``steps`` training steps of a
     model with ``per_step`` such layers: one launch of each kernel per
     layer per step. The backward's count is the launches of its recurrence;
     the recompute pass that the cluster and W-tile layouts run before it is
-    part of that call and not counted apart."""
-    fwd, bwd = kernels.launches, kernels.bwd_launches
+    part of that call and not counted apart. ``counts`` (fwd, bwd) replaces
+    the module's counters where the steps ran inside captured CUDA graphs
+    (``graph_run_launches``)."""
+    fwd, bwd = counts or (kernels.launches, kernels.bwd_launches)
     if not (fwd == per_step * steps and bwd == per_step * steps):
         raise AssertionError(
             "%s: %d steps launched the forward kernel %d and the backward "
             "kernel %d times (want %d each)" % (what, steps, fwd, bwd,
                                                 per_step * steps))
     return fwd, bwd
+
+
+def graph_run_launches(kernels, tr, graphs_before):
+    """The (fwd, bwd) launches of a kernel module (lstm_kernels or
+    gru_kernels) that ran in a training run of ``tr`` since its counters
+    were reset and ``graphs_before = tr.graph_launches()`` was read. A
+    replay of a captured graph runs no Python, so the wrappers counted its
+    kernels once, at capture, when none ran: the run's launches are the
+    counters, less the launches counted at capture and those of the
+    warm-up step before each capture (it ran and was undone, and is
+    reported apart), plus each graph's captured launches times its
+    replays."""
+    lib = "lstm_seq" if kernels.__name__.endswith("lstm_kernels") \
+        else "gru_seq"
+    after = tr.graph_launches()
+
+    def delta(key, name):
+        return after[key].get(name, 0) - graphs_before[key].get(name, 0)
+
+    return tuple(
+        count - delta("captured", name) - delta("warmup", name)
+        + delta("replayed", name)
+        for count, name in ((kernels.launches, lib + "_fwd"),
+                            (kernels.bwd_launches, lib + "_bwd")))
 
 
 def cost_error(got, want):
@@ -1642,6 +1706,289 @@ def phase_train_flagship(torch, lk, tmp):
     if not bf16_err <= TOL_TRAIN_BF16:
         raise AssertionError("bf16 training departs from f32: %r" % row)
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
+def loop_trainer(rig, err, device=None):
+    """A fresh trainer of ``rig``'s cost on its own copy of the initial
+    parameters, with Adam(1e-3) and the evaluator ``err``."""
+    from paddle_tpu_torch import optimizer, trainer
+    from paddle_tpu_torch.parameters import Parameters
+
+    params = Parameters({k: v.clone() for k, v in rig.init.as_dict().items()},
+                        rig.topology.param_specs())
+    return trainer.SGD(rig.cost, params, optimizer.Adam(learning_rate=1e-3),
+                       extra_layers=[err], device=device or DEVICE)
+
+
+def loop_run(torch, tr, batches, mark=LOOP_K, handler=None, **options):
+    """Train ``batches`` through ``tr.train(**options)``; returns the
+    per-step costs, the per-step evaluator metrics and the ms per batch:
+    the median over the ``mark``-step stretches of the host wall between a
+    synchronize at each stretch's first BeginIteration and the next (the
+    last ended by a synchronize after train() returns)."""
+    from paddle_tpu_torch.event import BeginIteration, EndIteration
+
+    costs, metrics, stamps = [], [], []
+
+    def on_event(evt):
+        if isinstance(evt, BeginIteration) and evt.batch_id % mark == 0:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        if isinstance(evt, EndIteration):
+            costs.append(evt.cost)
+            metrics.append(evt.metrics)
+        if handler is not None:
+            handler(evt)
+
+    tr.train(lambda: iter(batches), event_handler=on_event, **options)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    return costs, metrics, statistics.median(np.diff(stamps) * 1e3) / mark
+
+
+def snapshot(tr):
+    """A trainer's parameters as numpy, by name (as its last train() call
+    left them)."""
+    return {n: tr.parameters.get(n) for n in tr.parameters.names()}
+
+
+def trajectory_errors(pa, pb, costs_a=(), costs_b=()):
+    """max |a - b| / max(1, max |a|) over the costs and over the parameter
+    snapshots ``pa``, ``pb``, and whether both are bit-identical."""
+    cost_err = (float(np.max(np.abs(np.subtract(costs_a, costs_b)))
+                      / max(1.0, float(np.max(np.abs(costs_a)))))
+                if len(costs_a) else 0.0)
+    scale = max(1.0, max(float(np.abs(a).max()) for a in pa.values()))
+    param_err = max(float(np.abs(pa[n] - pb[n]).max()) for n in pa) / scale
+    identical = list(costs_a) == list(costs_b) and all(
+        np.array_equal(pa[n], pb[n]) for n in pa)
+    return cost_err, param_err, identical
+
+
+def ragged_rows(seed, n, rows, lo, hi, vocab):
+    """``n`` minibatches of (ids, label) with lengths uniform in [lo, hi]
+    and no pad target (the trainer's buckets= sets it)."""
+    rng = np.random.RandomState(seed)
+    return [[(rng.randint(0, vocab, int(k)).tolist(), int(rng.randint(0, 2)))
+             for k in rng.randint(lo, hi + 1, rows)] for _ in range(n)]
+
+
+def graph_summary(tr):
+    return [{"steps": g["steps"], "feed_shapes": g["feed_shapes"],
+             "captured": g["captured"], "warmup": g["warmup"],
+             "replays": g["replays"], "capture_ms": g["capture_ms"]}
+            for g in tr.graphs]
+
+
+def phase_train_loop(torch, lk, tmp):
+    """The v2 training loop on the card (module docstring, train_loop):
+    the fused loop as captured CUDA graphs against the eager per-step
+    loop, buckets, checkpoint and resume, and the BiLSTM-CRF."""
+    import shutil
+
+    from paddle_tpu_torch import evaluator
+    from paddle_tpu_torch.event import EndIteration
+
+    fused_opts = {"feed_pipeline": 2, "steps_per_call": LOOP_K}
+    kernels = ("lstm_fwd", "lstm_bwd")
+    # (a) the flagship at its bench width, 40 steps both ways
+    rig = flagship_rig(256, SEED + 70)
+    err = evaluator.classification_error(input=rig.out, label=rig.label)
+    batches = train_batches(SEED + 71, LOOP_STEPS, TRAIN_BATCH, False,
+                            FLAGSHIP["dict_size"])
+    eager = loop_trainer(rig, err)
+    lk.reset_launches()
+    e_costs, e_metrics, _ = loop_run(torch, eager, batches)
+    eager_launches = check_launches(lk, LOOP_STEPS, 2, "train_loop eager")
+    fused = loop_trainer(rig, err)
+    lk.reset_launches()
+    g0 = fused.graph_launches()
+    f_costs, f_metrics, _ = loop_run(torch, fused, batches, **fused_opts)
+    first_launches = check_launches(
+        lk, LOOP_STEPS, 2, "train_loop fused, first run",
+        counts=graph_run_launches(lk, fused, g0))
+    fused_params, eager_params = snapshot(fused), snapshot(eager)
+    cost_err, param_err, identical = trajectory_errors(
+        eager_params, fused_params, e_costs, f_costs)
+    metrics_equal = e_metrics == f_metrics
+    # the pinned feed alone: the per-step loop with feed_pipeline=2
+    pipe = loop_trainer(rig, err)
+    p_costs = loop_run(torch, pipe, batches, feed_pipeline=2)[0]
+    p_cost_err, p_param_err, p_identical = trajectory_errors(
+        eager_params, snapshot(pipe), e_costs, p_costs)
+    # the main path: the same 40 steps again, the graph cached
+    lk.reset_launches()
+    g1 = fused.graph_launches()
+    _, _, ms_fused = loop_run(torch, fused, batches, **fused_opts)
+    fused_launches = check_launches(
+        lk, LOOP_STEPS, 2, "train_loop fused",
+        counts=graph_run_launches(lk, fused, g1))
+    _, _, ms_eager = loop_run(torch, eager, batches)
+    _, _, ms_pipe = loop_run(torch, pipe, batches, feed_pipeline=2)
+    prof_eager = profile_steps(torch, eager, batches[:LOOP_K], kernels)
+    prof_fused = profile_steps(torch, fused, batches[:LOOP_K], kernels,
+                               **fused_opts)
+    flagship_graphs = graph_summary(fused)
+    # (b) ragged rows in length buckets, chunks of 4, against per-step
+    ragged = ragged_rows(SEED + 72, LOOP_BUCKET_BATCHES, TRAIN_BATCH, 10,
+                         TRAIN_SEQ, FLAGSHIP["dict_size"])
+    per_b, fused_b = loop_trainer(rig, err), loop_trainer(rig, err)
+    b_costs = loop_run(torch, per_b, ragged, buckets=LOOP_BUCKETS)[0]
+    fb_costs = loop_run(torch, fused_b, ragged, buckets=LOOP_BUCKETS,
+                        steps_per_call=LOOP_BUCKET_K)[0]
+    b_cost_err, b_param_err, b_identical = trajectory_errors(
+        snapshot(per_b), snapshot(fused_b), b_costs, fb_costs)
+    # (c) (a)'s fused run with a checkpoint every 10 steps, then a fresh
+    # trainer resumed from the step-20 checkpoint to step 40
+    ck = loop_trainer(rig, err)
+    ckdir = os.path.join(tmp, "loop_ckpt")
+
+    def commit_step_20(evt):
+        # the step-20 snapshot is submitted before step 10's events fire;
+        # waiting here keeps the step-30 one from superseding it (newest
+        # wins) before the writer has started it
+        if isinstance(evt, EndIteration) and evt.batch_id == LOOP_K - 1:
+            ck._ckpt_writer.drain()
+
+    c_costs = loop_run(torch, ck, batches, handler=commit_step_20,
+                       checkpoint_dir=ckdir, checkpoint_every=LOOP_CKPT_EVERY,
+                       checkpoint_keep=5, **fused_opts)[0]
+    committed = sorted(os.listdir(ckdir))
+    resume_dir = os.path.join(tmp, "loop_resume")
+    os.makedirs(resume_dir)
+    shutil.copytree(os.path.join(ckdir, "pass-00000-step-00000020"),
+                    os.path.join(resume_dir, "pass-00000-step-00000020"))
+    resumed = loop_trainer(rig, err)
+    r_costs = loop_run(torch, resumed, batches, checkpoint_dir=resume_dir,
+                       resume=True, **fused_opts)[0]
+    ck_cost_err, ck_param_err, ck_identical = trajectory_errors(
+        fused_params, snapshot(ck), f_costs, c_costs)
+    _, resume_err, resume_identical = trajectory_errors(snapshot(ck),
+                                                        snapshot(resumed))
+    resume_cost_err = float(np.max(np.abs(np.subtract(
+        r_costs, c_costs[2 * LOOP_CKPT_EVERY:]))))
+    # (d) the BiLSTM-CRF at its chip_smoke width, 20 steps both ways
+    brig = bilstm_rig(SEED + 75)
+    full = bilstm_batches(SEED + 76, LOOP_BILSTM_STEPS, False)
+    b_eager, b_fused = brig.trainer(DEVICE), brig.trainer(DEVICE)
+    lk.reset_launches()
+    be_costs = loop_run(torch, b_eager, full)[0]
+    check_launches(lk, LOOP_BILSTM_STEPS, 2, "train_loop bilstm eager")
+    lk.reset_launches()
+    g2 = b_fused.graph_launches()
+    bf_costs = loop_run(torch, b_fused, full, **fused_opts)[0]
+    bilstm_launches = check_launches(
+        lk, LOOP_BILSTM_STEPS, 2, "train_loop bilstm fused",
+        counts=graph_run_launches(lk, b_fused, g2))
+    b_pipe = brig.trainer(DEVICE)
+    bp_costs = loop_run(torch, b_pipe, full, feed_pipeline=2)[0]
+    b_eager_params = snapshot(b_eager)
+    d_cost_err, d_param_err, d_identical = trajectory_errors(
+        b_eager_params, snapshot(b_fused), be_costs, bf_costs)
+    dp_cost_err, dp_param_err, dp_identical = trajectory_errors(
+        b_eager_params, snapshot(b_pipe), be_costs, bp_costs)
+    _, _, bms_fused = loop_run(torch, b_fused, full, **fused_opts)
+    _, _, bms_eager = loop_run(torch, b_eager, full)
+    _, _, bms_pipe = loop_run(torch, b_pipe, full, feed_pipeline=2)
+    bprof_eager = profile_steps(torch, b_eager, full[:LOOP_K], kernels)
+    bprof_fused = profile_steps(torch, b_fused, full[:LOOP_K], kernels,
+                                **fused_opts)
+    row = {"phase": "train_loop",
+           "flagship": {
+               "config": rig.config, "batch": TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "steps": LOOP_STEPS,
+               "optimizer": "Adam(learning_rate=0.001)",
+               "evaluator": "classification_error",
+               "fused": fused_opts, "tol": TOL_LOOP,
+               "cost_err_rel": cost_err, "param_err_rel": param_err,
+               "bit_identical": identical, "metrics_equal": metrics_equal,
+               "last_metric": f_metrics[-1],
+               "ms_per_batch_eager": ms_eager, "ms_per_batch_fused": ms_fused,
+               "ms_per_batch_pipeline_only": ms_pipe,
+               "pipeline_only_vs_eager": [p_cost_err, p_param_err,
+                                          p_identical],
+               "idle_share_eager": prof_eager["idle_share"],
+               "idle_share_fused": prof_fused["idle_share"],
+               "device_window_idle_share_fused":
+               prof_fused["device_window_idle_share"],
+               "kernels_per_step_eager": prof_eager["kernels_per_step"],
+               "kernels_per_step_fused": prof_fused["kernels_per_step"],
+               "profile_eager": prof_eager, "profile_fused": prof_fused,
+               "graph_captures": len(flagship_graphs),
+               "graphs": flagship_graphs,
+               "k1_k2_launches_eager": eager_launches,
+               "k1_k2_launches_fused_first_run": first_launches,
+               "k1_k2_launches_fused": fused_launches,
+               "k1_k2_launches_per_step_fused": [n / LOOP_STEPS
+                                                 for n in fused_launches]},
+           "buckets": {
+               "boundaries": LOOP_BUCKETS, "incoming_batches":
+               LOOP_BUCKET_BATCHES, "steps_per_call": LOOP_BUCKET_K,
+               "steps": len(fb_costs), "chunk_sizes": fused_b.chunk_log,
+               "graphs_cached": [(g["steps"], g["feed_shapes"][0])
+                                 for g in fused_b.graphs],
+               "cost_err_rel": b_cost_err, "param_err_rel": b_param_err,
+               "bit_identical": b_identical},
+           "checkpoint": {
+               "every": LOOP_CKPT_EVERY, "committed": committed,
+               "checkpoints": ck.checkpoint_log,
+               "fused_vs_checkpointed_run": [ck_cost_err, ck_param_err,
+                                             ck_identical],
+               "resumed_from": "pass-00000-step-00000020",
+               "resumed_steps": len(r_costs),
+               "resume_param_err_rel": resume_err,
+               "resume_cost_err": resume_cost_err,
+               "resume_bit_identical": resume_identical},
+           "bilstm_crf": {
+               "config": BILSTM, "batch": BILSTM_SHAPE[1],
+               "seq_len": BILSTM_SHAPE[0], "steps": LOOP_BILSTM_STEPS,
+               "cost_err_rel": d_cost_err, "param_err_rel": d_param_err,
+               "bit_identical": d_identical,
+               "ms_per_batch_eager": bms_eager,
+               "ms_per_batch_fused": bms_fused,
+               "ms_per_batch_pipeline_only": bms_pipe,
+               "pipeline_only_vs_eager": [dp_cost_err, dp_param_err,
+                                          dp_identical],
+               "idle_share_eager": bprof_eager["idle_share"],
+               "idle_share_fused": bprof_fused["idle_share"],
+               "device_window_idle_share_fused":
+               bprof_fused["device_window_idle_share"],
+               "kernels_per_step_eager": bprof_eager["kernels_per_step"],
+               "kernels_per_step_fused": bprof_fused["kernels_per_step"],
+               "profile_eager": bprof_eager, "profile_fused": bprof_fused,
+               "graphs": graph_summary(b_fused),
+               "k1_k2_launches_fused": bilstm_launches}}
+    emit(row)
+    checks = {
+        "flagship fused vs eager": cost_err <= TOL_LOOP
+        and param_err <= TOL_LOOP and metrics_equal,
+        "pinned feed alone vs eager": max(p_cost_err, p_param_err,
+                                          dp_cost_err, dp_param_err)
+        <= TOL_LOOP,
+        # two 40-step runs and the profiled chunk: 9 replays of one graph
+        "flagship one graph, cached": len(flagship_graphs) == 1
+        and flagship_graphs[0]["replays"] == 2 * LOOP_STEPS // LOOP_K + 1,
+        "buckets fused vs per-step": b_cost_err <= TOL_LOOP
+        and b_param_err <= TOL_LOOP and len(fb_costs) == len(b_costs),
+        "bucketed chunks fused": any(n > 1 for n in fused_b.chunk_log)
+        and bool(fused_b.graphs),
+        "checkpoints overlapped": bool(ck.checkpoint_log) and all(
+            c["overlapped"] for c in ck.checkpoint_log)
+        and "pass-00000-step-00000040" in committed,
+        "checkpointed run vs fused": ck_cost_err <= TOL_LOOP
+        and ck_param_err <= TOL_LOOP,
+        "resume vs uninterrupted": resume_err <= TOL_LOOP
+        and resume_cost_err <= TOL_LOOP
+        and len(r_costs) == LOOP_STEPS - 2 * LOOP_CKPT_EVERY,
+        "bilstm fused vs eager": d_cost_err <= TOL_LOOP
+        and d_param_err <= TOL_LOOP and len(b_fused.graphs) == 1,
+        "finite": bool(np.all(np.isfinite(f_costs + fb_costs + bf_costs))),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("train_loop: %s failed" % ", ".join(failed))
+    return {"fwd_launches": fused_launches[0],
+            "bwd_launches": fused_launches[1]}
 
 
 def phase_train_tagger(torch, gk):
@@ -2815,6 +3162,19 @@ def decode_paths(torch, rig, params, batch, device):
     return paths.data.cpu().numpy(), paths.lengths.cpu().numpy()
 
 
+def bilstm_rig(seed):
+    """The BiLSTM-CRF tagger (sequence_tagging_rnn + layer.crf) at the
+    bench widths, its trainer Momentum(2e-3, 0.9)."""
+    from paddle_tpu_torch import data_type, layer
+    from paddle_tpu_torch.models.text import sequence_tagging_rnn
+
+    return TrainRig(sequence_tagging_rnn, BILSTM,
+                    data_type.integer_value_sequence(
+                        BILSTM["label_dict_size"]), seed, 2e-3,
+                    cost=lambda input, label: layer.crf(
+                        input=input, label=label, name="tag_crf"))
+
+
 def phase_train_bilstm_crf(torch, lk):
     """The BiLSTM-CRF tagger (sequence_tagging_rnn + layer.crf) at the
     bench widths, trained by trainer.SGD with Momentum(2e-3, 0.9): 3 ragged
@@ -2822,16 +3182,10 @@ def phase_train_bilstm_crf(torch, lk):
     bf16 policy against f32 (costs), BILSTM_STEPS steps at 32 x 60 in f32
     and bf16 (ms per batch, 2 K1 and 2 K2 launches a step held), and
     crf_decoding's paths on the card against the CPU's."""
-    from paddle_tpu_torch import data_type, layer
     from paddle_tpu_torch.core import dtype as dtype_mod
-    from paddle_tpu_torch.models.text import sequence_tagging_rnn
 
     steps_len, rows, _ = BILSTM_SHAPE
-    rig = TrainRig(sequence_tagging_rnn, BILSTM,
-                   data_type.integer_value_sequence(
-                       BILSTM["label_dict_size"]), SEED + 40, 2e-3,
-                   cost=lambda input, label: layer.crf(
-                       input=input, label=label, name="tag_crf"))
+    rig = bilstm_rig(SEED + 40)
     ragged = bilstm_batches(SEED + 41, 3, True)
     full = bilstm_batches(SEED + 42, BILSTM_STEPS, False)
     card = rig.trainer(DEVICE)
@@ -3621,6 +3975,7 @@ def main():
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
+        trained_loop = phase_train_loop(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
         served_resnet = phase_serve_resnet(torch, ck, tmp)
         int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
@@ -3680,6 +4035,14 @@ def main():
                      trained_resnet["k8_launches"], "conv2d_same_bwdw",
                      path=conv_paths(conv_bwd_cases,
                                      "conv2d_same_bwd_filter")),
+        recurrent_entry(cases, "lstm_seq_fwd[K1,h256_graph]",
+                        "paddle_tpu/ops/pallas_kernels.py:146",
+                        trained_loop["fwd_launches"], 256, "lstm_seq_fwd",
+                        path=layouts(cases, 256)),
+        recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256_graph]",
+                        "paddle_tpu/ops/pallas_kernels.py:347",
+                        trained_loop["bwd_launches"], 256, "lstm_seq_bwd",
+                        path=layouts(bwd_cases, 256)),
         recurrent_entry(cases, "lstm_seq_fwd[K1,h128_bilstm]",
                         "paddle_tpu/ops/pallas_kernels.py:146",
                         trained_bilstm["fwd_launches"], 128, "lstm_seq_fwd",

@@ -33,16 +33,20 @@ movielens recommender (models.recommender: sparse_binary_vector and
 sparse_vector feeds as core.sparse.SparseRows, the sparse fc, sparse-row
 Momentum updates, cos_sim, square_error_cost,
 multi_binary_label_cross_entropy, SumPooling), trained, and movielens
-also served fp and int8. The process flags ``test_period`` and
+also served fp and int8; the attention NMT, trained and decoded by beam
+search; and the v2 training loop (data.DeviceFeeder's pinned feed,
+length buckets, steps_per_call as captured CUDA graphs, the seven
+optimizers, evaluators, durable checkpoints with resume). The process
+flags ``test_period`` and
 ``log_period`` act as in the JAX package; the JAX package's other
 process flags are refused at any value but their default.
 """
 
 __version__ = "0.1.0"
 
-from paddle_tpu_torch import (activation, attr, data_type, event, inference,
-                              layer, networks, optimizer, parameters, pooling,
-                              topology, trainer)
+from paddle_tpu_torch import (activation, attr, data_type, evaluator, event,
+                              inference, layer, networks, optimizer,
+                              parameters, pooling, topology, trainer)
 from paddle_tpu_torch.core.place import resolve_device, set_default_device
 from paddle_tpu_torch.inference import infer
 from paddle_tpu_torch.minibatch import batch

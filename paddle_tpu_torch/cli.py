@@ -86,6 +86,12 @@ def cmd_serve(args):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in ("train", "test", "time"):
+        # the JAX package's training commands read a trainer config
+        raise NotImplementedError(
+            "cli %s is not ported yet: it needs the trainer config "
+            "(config.py); train from Python with trainer.SGD" % argv[0])
     parser = argparse.ArgumentParser(prog="paddle_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
 

@@ -5,7 +5,7 @@ building a lazy DAG that paddle_tpu_torch.topology.Topology evaluates.
   basic.py      fc, embedding, concat, addto, dropout, cos_sim
   conv.py       img_conv, img_pool, batch_norm, img_cmrnorm
   recurrent.py  lstmemory, grumemory
-  sequence.py   pooling, first_seq, last_seq, expand
+  sequence.py   pooling, first_seq, last_seq, expand, print_layer
   step.py       gru_step, gru_step_naive (one step, inside a group)
   rnn_group.py  recurrent_group, memory, StaticInput, GeneratedInput,
                 beam_search, BeamSearchControlCallbacks
@@ -34,5 +34,5 @@ from paddle_tpu_torch.layer.rnn_group import (BeamSearchControlCallbacks,
                                               beam_search, memory,
                                               recurrent_group)
 from paddle_tpu_torch.layer.sequence import expand, first_seq, last_seq, \
-    pooling
+    pooling, print_layer
 from paddle_tpu_torch.layer.step import gru_step, gru_step_naive

@@ -85,3 +85,23 @@ def expand(input, expand_as, name=None, bias_attr=False, expand_level=0,
 
     return make_node("expand", forward, [input, expand_as], name=name,
                      size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("print")
+def print_layer(input, format=None, name=None):
+    """Print the inputs' values at every evaluation and pass the first
+    through (reference: PrintLayer; paddle_tpu/layer/sequence.py
+    print_layer). The print reads the values back to the host, so a
+    network with it cannot run under the trainer's captured graphs."""
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+
+    def forward(params, values, ctx):
+        from paddle_tpu_torch.layer.base import data_of
+
+        for node_in, v in zip(inputs, values):
+            print((format or "{name}: {value}").format(
+                name=node_in.name, value=data_of(v).detach().cpu()))
+        return values[0]
+
+    return make_node("print", forward, list(inputs), name=name,
+                     size=inputs[0].size)

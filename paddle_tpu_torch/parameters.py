@@ -108,6 +108,13 @@ class Parameters:
         """``{name: tensor}``, the form Topology.apply takes."""
         return dict(self._values)
 
+    def copy(self):
+        """Shallow copy: fresh name->value/spec dicts over the same tensors
+        (``update_from`` replaces values, it never writes into them). The
+        overlapped checkpoint takes one on the step thread and fills it on
+        the writer thread."""
+        return Parameters(self._values, self._specs)
+
     def update_from(self, values):
         """Take new values for known names, each kept on its own device and
         in its own dtype."""

@@ -1037,3 +1037,153 @@ def test_dropout_masks_on_a_card_generator(cuda_device):
     ctx = Context(mode="train", generator=torch.Generator())
     with pytest.raises(EnforceError, match="generator is on cpu"):
         ctx.rng_for(x)
+
+
+def _loop_trainer(device, build):
+    """A trainer of the network ``build()`` returns (cost, parameters) on
+    ``device``, from a copy of the parameters, with Momentum(0.05, 0.9)."""
+    from paddle_tpu_torch import optimizer, trainer
+    from paddle_tpu_torch.parameters import Parameters
+
+    cost, init = build()
+    params = Parameters({k: v.clone() for k, v in init.as_dict().items()},
+                        {n: init.spec(n) for n in init.names()})
+    return trainer.SGD(cost, params, optimizer.Momentum(
+        learning_rate=0.05, momentum=0.9), device=device)
+
+
+def _run_loop(tr, batches, **options):
+    from paddle_tpu_torch.event import EndIteration
+
+    costs = []
+    tr.train(lambda: iter(batches), event_handler=lambda e: costs.append(
+        e.cost) if isinstance(e, EndIteration) else None, **options)
+    return costs
+
+
+def _small_lstm():
+    from paddle_tpu_torch import data_type, layer
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.models.text import text_classification_lstm
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+    out = text_classification_lstm(dict_size=50, emb_size=16, hidden=32,
+                                   num_classes=2, num_layers=2)
+    label = layer.data(name="label", type=data_type.integer_value(2))
+    cost = layer.classification_cost(input=out, label=label)
+    return cost, Parameters.create(Topology(cost), seed=3, device="cpu")
+
+
+@pytest.mark.cuda
+def test_fused_loop_captures_the_lstm_steps_as_one_graph(cuda_device):
+    """steps_per_call=4 on the card: 8 batches of one shape run as two
+    replays of one captured graph of 4 steps, in which the wrappers
+    counted 2 LSTM forward and 2 backward launches a step; costs and
+    parameters equal the eager per-step run's within 1e-6."""
+    rng = np.random.RandomState(0)
+    batches = [[(rng.randint(0, 50, 12).tolist(), int(rng.randint(0, 2)))
+                for _ in range(8)] for _ in range(8)]
+    eager = _loop_trainer(cuda_device, _small_lstm)
+    fused = _loop_trainer(cuda_device, _small_lstm)
+    want = _run_loop(eager, batches)
+    got = _run_loop(fused, batches, feed_pipeline=2, steps_per_call=4)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    for n in eager.parameters.names():
+        np.testing.assert_allclose(fused.parameters.get(n),
+                                   eager.parameters.get(n), rtol=1e-6,
+                                   atol=1e-6, err_msg=n)
+    assert len(fused.graphs) == 1
+    info = fused.graphs[0]
+    assert info["steps"] == 4 and info["replays"] == 2
+    assert info["captured"] == {"lstm_seq_fwd": 8, "lstm_seq_bwd": 8}
+    assert fused.graph_launches()["replayed"] == {"lstm_seq_fwd": 16,
+                                                  "lstm_seq_bwd": 16}
+
+
+@pytest.mark.cuda
+def test_two_replays_of_a_captured_step_use_steps_one_and_two(cuda_device):
+    """The optimizer's step count and schedule live on the card: a graph
+    captured at step 1 and replayed twice updates with the learning rates
+    of steps 1 and 2 (poly schedule), and the count reads 2."""
+    from paddle_tpu_torch import optimizer
+
+    opt = optimizer.Momentum(learning_rate=0.1, learning_rate_schedule="poly",
+                             learning_rate_decay_a=0.5,
+                             learning_rate_decay_b=2.0)
+    p = {"w": torch.zeros(4, device=cuda_device)}
+    g = {"w": torch.ones(4, device=cuda_device)}
+    state = opt.init_state(p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step(p, g, state)
+    deltas = []
+    for _ in range(2):
+        before = p["w"].clone()
+        graph.replay()
+        deltas.append(float((before - p["w"])[0]))
+    assert int(state["step"]) == 2
+    want = [0.1 * (1 + 0.5 * s) ** -2.0 for s in (1, 2)]
+    np.testing.assert_allclose(deltas, want, rtol=1e-6)
+
+
+def _dropout_net():
+    from paddle_tpu_torch import activation, data_type, layer
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+    x = layer.data(name="x", type=data_type.dense_vector(16))
+    y = layer.data(name="y", type=data_type.integer_value(2))
+    h = layer.dropout(layer.fc(input=x, size=64, act=activation.Relu()),
+                      dropout_rate=0.5)
+    out = layer.fc(input=h, size=2, act=activation.Softmax())
+    cost = layer.classification_cost(input=out, label=y)
+    return cost, Parameters.create(Topology(cost), seed=4, device="cpu")
+
+
+@pytest.mark.cuda
+def test_dropout_under_steps_per_call_draws_the_eager_masks(cuda_device):
+    """A dropout network under steps_per_call=4: the graph registers the
+    trainer's generator, so each replay draws fresh masks — the costs
+    equal the eager run's, step for step, and a replay is not a repeat
+    of the one before (the same batch twice in a row gives two costs)."""
+    rng = np.random.RandomState(1)
+    one = [(rng.randn(16).astype(np.float32), int(rng.randint(0, 2)))
+           for _ in range(8)]
+    batches = [one] * 8
+    eager = _loop_trainer(cuda_device, _dropout_net)
+    fused = _loop_trainer(cuda_device, _dropout_net)
+    want = _run_loop(eager, batches)
+    got = _run_loop(fused, batches, steps_per_call=4)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert len(fused.graphs) == 1 and fused.graphs[0]["replays"] == 2
+    assert len(set(got)) == len(got)
+
+
+@pytest.mark.cuda
+def test_fused_loop_under_the_bf16_policy(cuda_device):
+    """The fused loop under the bfloat16 compute policy (float32 masters):
+    the graph runs the same bfloat16 kernels as the eager loop, so costs
+    and parameters agree within 1e-6."""
+    from paddle_tpu_torch.core import dtype as dtype_mod
+
+    rng = np.random.RandomState(2)
+    batches = [[(rng.randint(0, 50, 12).tolist(), int(rng.randint(0, 2)))
+                for _ in range(8)] for _ in range(4)]
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        eager = _loop_trainer(cuda_device, _small_lstm)
+        fused = _loop_trainer(cuda_device, _small_lstm)
+        want = _run_loop(eager, batches)
+        got = _run_loop(fused, batches, steps_per_call=4)
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    for n in eager.parameters.names():
+        np.testing.assert_allclose(fused.parameters.get(n),
+                                   eager.parameters.get(n), rtol=1e-6,
+                                   atol=1e-6, err_msg=n)
+    assert len(fused.graphs) == 1 and fused.graphs[0]["replays"] == 1

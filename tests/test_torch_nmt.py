@@ -367,12 +367,11 @@ def test_beam_search_matches_hand_computed_markov_chain():
 
 
 def test_generation_shares_trained_params():
-    """tests/test_seq2seq.py's test on the port (Momentum in place of
-    Adam, which is not ported yet)."""
+    """tests/test_seq2seq.py's test on the port, with its Adam recipe."""
     _, (cost, make_generator) = _models(**SMALL)
     params = Parameters.create(cost, seed=0, device="cpu")
-    trainer = paddle.trainer.SGD(cost, params, opt.Momentum(
-        learning_rate=0.05, momentum=0.9), device="cpu")
+    trainer = paddle.trainer.SGD(cost, params, opt.Adam(
+        learning_rate=5e-3), device="cpu")
     trainer.train(paddle.batch(lambda: iter(_rows(seed=10, n=24)), 12),
                   num_passes=2)
     gen = make_generator(beam_size=3, max_length=8)

@@ -12,13 +12,16 @@
   orders and the differences compound over 5 momentum steps at lr 0.1;
   these inputs show at most 3e-8 on the costs and 9e-8 on the parameters
   (which move by up to 0.1).
-- Unit parity: classification_cost, Momentum.step, the event stream, the
-  parameter tar in both directions; and the contracts: unported options
-  raise, entry points without a device raise on a machine with no card,
-  every parameter gets a finite nonzero gradient, bf16 tracks f32.
+- Unit parity: classification_cost, Momentum.step, model averaging and
+  update hooks, every train() option against the JAX trainer, the event
+  stream, the parameter tar in both directions; and the contracts:
+  unported arguments raise, entry points without a device raise on a
+  machine with no card, every parameter gets a finite nonzero gradient,
+  bf16 tracks f32.
 """
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -308,18 +311,42 @@ def test_momentum_step_matches_jax(kw):
 
 
 def test_optimizer_refuses_what_is_not_ported():
+    """Model averaging and update hooks, refused until they were ported,
+    now run and give the JAX package's result over 3 steps (1e-6)."""
+    from paddle_tpu.attr import ParamAttr as JaxParamAttr
+    from paddle_tpu_torch.attr import ParamAttr
+
     # sparse-row updates are ported: Momentum(sparse=True) makes every
     # matrix row-sparse and leaves vectors dense
     state = opt.Momentum(sparse=True).init_state(
         {"w": torch.zeros(3, 2), "b": torch.zeros(2)})
     assert sorted(state["row_step"]) == ["w"]
-    with pytest.raises(EnforceError, match="model averaging"):
-        opt.Momentum(model_average=0.99)
-    from paddle_tpu_torch.attr import ParamAttr
-
-    with pytest.raises(EnforceError, match="update hooks"):
-        opt.Momentum().init_state({"w": torch.zeros(2)},
-                                  {"w": ParamAttr(update_hooks=[object()])})
+    rng = np.random.RandomState(2)
+    params = {"w": rng.randn(5, 4).astype(np.float32),
+              "b": rng.randn(4).astype(np.float32)}
+    grads = [{k: rng.randn(*v.shape).astype(np.float32)
+              for k, v in params.items()} for _ in range(3)]
+    jo = jopt.Momentum(learning_rate=0.1, momentum=0.9, model_average=0.99)
+    to = opt.Momentum(learning_rate=0.1, momentum=0.9, model_average=0.99)
+    jmeta = {"w": JaxParamAttr(update_hooks=[jopt.StaticPruningHook(0.5)])}
+    tmeta = {"w": ParamAttr(update_hooks=[opt.StaticPruningHook(0.5)])}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jo.init_state(jp, jmeta)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = to.init_state(tp, tmeta)
+    for g in grads:
+        jp, jstate = jo.step(jp, {k: jnp.asarray(v) for k, v in g.items()},
+                             jstate, jmeta)
+        to.step(tp, {k: torch.from_numpy(v) for k, v in g.items()}, tstate,
+                tmeta)
+    assert int(tstate["step"]) == 3
+    assert int((tp["w"] == 0).sum()) == 10  # half of w pruned, every step
+    for k in params:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(tstate["average"][k].numpy(),
+                                   np.asarray(jstate["average"][k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
 
 
 def _toy(pkg):
@@ -390,21 +417,92 @@ def test_test_pass_reports_the_mean_cost():
     assert again.cost == pytest.approx(results[-1].cost, rel=1e-6)
 
 
+def _toy_train(pkg, jax_side, options, num_passes=1, params=None):
+    """Train the toy classifier 1 pass (3 batches of 4) from the seeded
+    numpy parameters with ``options``; returns (EndIteration costs,
+    Parameters, trainer)."""
+    if jax_side:
+        jax_reset_names()
+    else:
+        reset_name_counters()
+    cost = _toy(pkg)
+    if params is None:
+        np_params = _numpy_params(Topology(cost) if not jax_side
+                                  else _port_topology_of_toy(), seed=5)
+        if jax_side:
+            params = _jax_params(cost, np_params)
+        else:
+            params = Parameters({k: torch.from_numpy(v.copy())
+                                 for k, v in np_params.items()},
+                                Topology(cost).param_specs())
+    kw = {} if jax_side else {"device": "cpu"}
+    trainer = pkg.trainer.SGD(cost, params, pkg.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9), **kw)
+    costs = []
+    trainer.train(pkg.batch(_toy_batches(), 4), num_passes=num_passes,
+                  event_handler=lambda e: costs.append(e.cost)
+                  if isinstance(e, pkg.event.EndIteration) else None,
+                  **options)
+    return costs, params, trainer
+
+
+def _port_topology_of_toy():
+    reset_name_counters()
+    return Topology(_toy(paddle))
+
+
 @pytest.mark.parametrize("key,value", [
     ("feed_pipeline", True), ("buckets", True), ("buckets", [8, 16]),
     ("steps_per_call", 4), ("checkpoint_dir", "ckpt"),
     ("checkpoint_every", 10), ("checkpoint_keep", 5), ("resume", True),
     ("checkpoint_sync", True)])
-def test_unported_train_options_raise(key, value):
+def test_unported_train_options_raise(key, value, tmp_path):
+    """Each train() option, refused until this slice ported it, now trains
+    and gives the JAX trainer's costs and parameters (1e-6). The
+    checkpoint options run with a checkpoint directory and a cadence of 2
+    steps (one option alone changes nothing); ``resume`` continues a
+    2-pass run from the checkpoint each package wrote in its first pass."""
+    options = {key: value}
+    if key.startswith("checkpoint") or key == "resume":
+        options = {"checkpoint_dir": None, "checkpoint_every": 2, key: value}
+    passes = 2 if key == "resume" else 1
+    results = []
+    for pkg, jax_side in ((jpaddle, True), (paddle, False)):
+        opts = dict(options)
+        if "checkpoint_dir" in opts:
+            opts["checkpoint_dir"] = str(tmp_path / (pkg.__name__ + "_ckpt"))
+        if key == "resume":
+            # a first run checkpoints at step 2 and stops after pass 0; a
+            # fresh trainer resumes at pass 0's third batch and trains on
+            # through pass 1
+            first = dict(opts, resume=False)
+            _toy_train(pkg, jax_side, first, num_passes=1)
+        costs, params, _ = _toy_train(pkg, jax_side, opts,
+                                      num_passes=passes)
+        listing = None
+        if "checkpoint_dir" in opts and os.path.isdir(opts["checkpoint_dir"]):
+            listing = sorted(os.listdir(opts["checkpoint_dir"]))
+        results.append((costs, params, listing))
+    (jcosts, jparams, jlisting), (costs, params, listing) = results
+    if options.get("checkpoint_every") == 2:
+        # an overlapped save still pending when the next one is submitted
+        # is superseded (newest wins), so step 4's may or may not land
+        want = ["pass-00000-step-00000002"] + (
+            ["pass-00001-step-00000004", "pass-00001-step-00000006"]
+            if key == "resume" else [])
+        for got in (listing, jlisting):
+            assert got[-1] == want[-1] and set(got) <= set(want), got
+    else:
+        assert listing == jlisting is None
+    assert len(costs) == len(jcosts) == (4 if key == "resume" else 3)
+    np.testing.assert_allclose(costs, jcosts, rtol=TOL, atol=TOL)
+    for name in jparams.names():
+        np.testing.assert_allclose(params.get(name), jparams.get(name),
+                                   rtol=TOL, atol=TOL, err_msg=name)
     cost = _toy(paddle)
     trainer = paddle.trainer.SGD(
         cost, Parameters.create(Topology(cost), device="cpu"),
         opt.Momentum(learning_rate=0.1), device="cpu")
-    with pytest.raises(EnforceError, match="not ported yet"):
-        trainer.train(paddle.batch(_toy_batches(), 4), **{key: value})
-    # left at their defaults, the options are accepted
-    trainer.train(paddle.batch(_toy_batches(), 4), feed_pipeline=False,
-                  buckets=None, steps_per_call=None, checkpoint_keep=3)
     with pytest.raises(TypeError, match="unexpected keyword"):
         trainer.train(paddle.batch(_toy_batches(), 4), no_such_option=1)
 
