@@ -78,6 +78,31 @@ result line:
            checkpoint, bytes, overlap); (d) the BiLSTM-CRF at 32 x 60, 20
            steps per-step against 20 fused (steps_per_call=10) held the
            same way, with ms per batch, idle share and kernels per step.
+   cli_train  the flagship as a v1 config (``from
+           paddle.trainer_config_helpers import *``, get_config_arg,
+           settings(Adam, L2 8e-4, clip 25), 2 x simple_lstm(256), max
+           pooling, a 2-way softmax fc) with an @provider of 2,560 seeded
+           rows of length 100 (640 for test), trained through
+           ``cli.main(["train", ...])`` at 64 x 100 with --feed-pipeline 2,
+           --steps-per-call 10 and a checkpoint every 20 steps, under
+           PADDLE_TPU_TORCH_TELEMETRY: (a) the step log valid against
+           tests/golden/steplog_schema.json with 40 step, 4 train_chunk, 2
+           checkpoint, pass and end records and the capture's event, the
+           trace with its feed/train_chunk/eval_readback spans, K1/K2
+           launched inside the graph; (b) the same config, seed and rows
+           through trainer.SGD from Python, no CLI, no telemetry: the
+           final parameters bit-identical; (c) ms per batch (median over
+           10-step stretches) of 40-step runs with telemetry on and off
+           in 8 off-on-on-off blocks, fused and eager, and each block's
+           on - off;
+           (d) ``cli time --iters 20``, ``cli test --params`` (the saved
+           tar, equal to the trainer's own test within 1e-6), ``cli
+           observe --json`` (40 steps, wall p50/p95); (e) the device
+           attribution of one fused chunk; (f) a 2-layer hidden-32 copy at
+           batch 8 and learning rate 1e30 with --steps-per-call 4:
+           PADDLE_TPU_TORCH_SENTINEL=halt raises TrainingAnomaly within one
+           chunk of the first non-finite cost with a crash report, and
+           the trap_fpe flag raises FloatingPointError naming a tensor.
 8. train_h1280  hidden 1280, batch 64, length 100: a few steps on the card
            (ms per batch, launch counts) and one step on 8 rows held
            against the CPU (cost and every gradient).
@@ -352,6 +377,14 @@ LOOP_STEPS, LOOP_K = 40, 10
 LOOP_BUCKETS, LOOP_BUCKET_K, LOOP_BUCKET_BATCHES = [32, 64, 100], 4, 24
 LOOP_CKPT_EVERY, LOOP_BILSTM_STEPS = 10, 20
 TOL_LOOP = 1e-6
+# the cli_train phase: the flagship's v1 config through cli.main, 2,560
+# training rows (40 steps of 64) and 640 test rows of length 100; chunks
+# of 10; a checkpoint every 20 steps; the NaN run's copy at hidden 32,
+# batch 8, learning rate 1e30, chunks of 4
+CLI_TRAIN_ROWS, CLI_TEST_ROWS, CLI_K, CLI_CKPT_EVERY = 2560, 640, 10, 20
+CLI_NAN_ARGS = "batch_size=8,hidden_size=32,lstm_num=2,learning_rate=1e30"
+# telemetry's cost: off-on-on-off blocks of 40-step runs, fused and eager
+CLI_COST_BLOCKS = 8
 FLAGSHIP = {"dict_size": 30000, "emb_size": 128, "hidden": 256,
             "num_classes": 2, "num_layers": 2}
 BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
@@ -1517,59 +1550,20 @@ def train(torch, tr, batches, timed=False, **options):
 
 
 def profile_steps(torch, tr, batches, kernels=(), **options):
-    """Where a training step's time goes on the card (torch.profiler over
-    ``batches``; ``options`` are train()'s): wall ms per step (profiler
-    on), the kernels' busy ms per step (the union of their intervals), the
-    idle share (of the wall, and of the device's own window from its first
-    kernel to its last), the largest kernels by device time, and for each
-    name fragment in ``kernels`` the device ms per step of the kernels
-    whose names contain it and their share of the busy time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a training step's time goes on the card: the package's
+    device attribution (paddle_tpu_torch.observe.attribution) over
+    ``batches`` through ``tr.train(**options)`` — wall ms per step
+    (profiler on), the kernels' busy ms per step (the union of their
+    intervals), the idle share (of the wall, and of the device's own
+    window from its first kernel to its last), the largest kernels by
+    device time, and for each name fragment in ``kernels`` the device ms
+    per step of the kernels whose names contain it and their share of the
+    busy time."""
+    from paddle_tpu_torch.observe import attribution
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train(torch, tr, batches, **options)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = evt.time_range.start, evt.time_range.end
-        spans.append((start, end))
-        total, calls = by_name.get(evt.name, (0.0, 0))
-        by_name[evt.name] = (total + (end - start) / 1e3, calls + 1)
-    busy_us, reach = 0.0, None
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    steps = len(batches)
-    # the idle share inside the device's own window (first kernel's start
-    # to last kernel's end), without the host's time before and after
-    window_us = (max(e for _, e in spans) - min(b for b, _ in spans)
-                 if spans else 0.0)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    mine = {}
-    for frag in kernels:
-        ms = sum(t for name, (t, _) in by_name.items() if frag in name)
-        mine[frag] = {"ms_per_step": ms / steps,
-                      "share_of_busy": ms * 1e3 / busy_us if busy_us else 0.0}
-    return {"steps": steps, "device_events": len(spans), "kernels": mine,
-            "wall_ms_per_step": wall_ms / steps,
-            "busy_ms_per_step": busy_us / 1e3 / steps,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "device_window_idle_share": (1.0 - busy_us / window_us
-                                         if window_us else None),
-            "kernels_per_step": len(spans) / steps,
-            "top": [{"kernel": name[:100], "ms_per_step": t / steps,
-                     "calls_per_step": c / steps}
-                    for name, (t, c) in top]}
+    trace = attribution.capture(lambda: train(torch, tr, batches, **options),
+                                torch.cuda.synchronize)
+    return attribution.step_profile(trace, len(batches), kernels)
 
 
 def param_error(a, b):
@@ -1989,6 +1983,349 @@ def phase_train_loop(torch, lk, tmp):
         raise AssertionError("train_loop: %s failed" % ", ".join(failed))
     return {"fwd_launches": fused_launches[0],
             "bwd_launches": fused_launches[1]}
+
+
+CLI_ROWS_SRC = '''
+import numpy as np
+
+
+def cli_rows(seed, n, dict_size, seq_len):
+    """``n`` seeded (ids, label) rows of length ``seq_len``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, dict_size, (n, seq_len))
+    labels = rng.randint(0, 2, n)
+    return [(ids[i].tolist(), int(labels[i])) for i in range(n)]
+'''
+
+CLI_PROVIDER_SRC = CLI_ROWS_SRC + '''
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, dict_size, seq_len, rows, seed, **kwargs):
+    settings.input_types = [integer_value_sequence(dict_size),
+                            integer_value(2)]
+    settings.args = (dict_size, seq_len, rows, seed)
+
+
+@provider(init_hook=hook)
+def process(settings, file_name):
+    dict_size, seq_len, rows, seed = settings.args
+    test = file_name == "test"
+    yield from cli_rows(seed + test, rows[test], dict_size, seq_len)
+'''
+
+# the flagship in the form of the reference's benchmark/paddle/rnn/rnn.py
+CLI_CONFIG_SRC = '''
+from paddle.trainer_config_helpers import *
+
+dict_dim = 30000
+batch_size = get_config_arg("batch_size", int, 64)
+hidden_size = get_config_arg("hidden_size", int, 256)
+lstm_num = get_config_arg("lstm_num", int, 2)
+learning_rate = get_config_arg("learning_rate", float, 2e-3)
+
+define_py_data_sources2(
+    train_list=["train"], test_list=["test"], module="flagship_provider",
+    obj="process", args={"dict_size": dict_dim, "seq_len": %(seq)d,
+                         "rows": (%(train)d, %(test)d), "seed": %(seed)d})
+settings(batch_size=batch_size, learning_rate=learning_rate,
+         learning_method=AdamOptimizer(),
+         regularization=L2Regularization(8e-4),
+         gradient_clipping_threshold=25)
+
+net = data_layer(name="data", size=dict_dim)
+net = embedding_layer(input=net, size=128)
+for i in range(lstm_num):
+    net = simple_lstm(input=net, size=hidden_size)
+net = pooling_layer(input=net, pooling_type=MaxPooling())
+net = fc_layer(input=net, size=2, act=SoftmaxActivation())
+lab = data_layer(name="label", size=2)
+loss = classification_cost(input=net, label=lab)
+outputs(loss)
+'''
+
+
+def cli_call(cli, argv, built=None):
+    """``cli.main(argv)`` in process; returns (rc, stdout, the trainers it
+    built). The trainers also go into ``built`` when given, so a caller
+    that expects the command to raise still gets them."""
+    import contextlib
+    import io
+
+    built, build = [] if built is None else built, cli._build
+
+    def keep(*args, **kwargs):
+        out = build(*args, **kwargs)
+        built.append(out[2])
+        return out
+
+    out = io.StringIO()
+    cli._build = keep
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        cli._build = build
+    return rc, out.getvalue(), built
+
+
+def python_flagship(torch, rows, seed):
+    """The CLI config's network, optimizer and rows built from Python (the
+    public API, no config file): (trainer, reader of 64-row batches)."""
+    from paddle_tpu_torch import (activation, batch, data_type, layer,
+                                  networks, optimizer, pooling, trainer)
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.parameters import Parameters
+
+    reset_name_counters()
+    net = layer.data(name="data",
+                     type=data_type.integer_value_sequence(30000))
+    net = layer.embedding(input=net, size=128)
+    for _ in range(2):
+        net = networks.simple_lstm(input=net, size=256)
+    net = layer.pooling(input=net, pooling_type=pooling.MaxPooling())
+    net = layer.fc(input=net, size=2, act=activation.Softmax())
+    lab = layer.data(name="label", type=data_type.integer_value(2))
+    cost = layer.classification_cost(input=net, label=lab)
+    tr = trainer.SGD(cost, Parameters.create(cost, device=DEVICE),
+                     optimizer.Adam(
+                         learning_rate=2e-3,
+                         regularization=optimizer.L2Regularization(8e-4),
+                         gradient_clipping_threshold=25), device=DEVICE)
+    return tr, batch(lambda: iter(rows), TRAIN_BATCH)
+
+
+def steplog_check(recs, schema):
+    """The records' schema errors: a missing required field, an undeclared
+    one (the meta line's caller extras aside), an unknown type."""
+    bad = []
+    for rec in recs:
+        spec = schema["record_types"].get(rec.get("type"))
+        if spec is None:
+            bad.append(("unknown type", rec.get("type")))
+            continue
+        missing = set(spec["required"]) - set(rec)
+        extra = set(rec) - set(spec["required"]) - set(spec["optional"])
+        if missing or (extra and rec["type"] not in ("meta", "bench_row")):
+            bad.append((rec["type"], sorted(missing), sorted(extra)))
+    return bad
+
+
+def phase_cli_train(torch, lk, tmp):
+    """The flagship's v1 config through the port's CLI with telemetry on
+    (module docstring, cli_train)."""
+    import glob
+    import shutil
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.observe import attribution, sentinel, steplog
+    from paddle_tpu_torch.utils import flags
+
+    ns = {}
+    exec(CLI_ROWS_SRC, ns)
+    work = os.path.join(tmp, "cli")
+    os.makedirs(work)
+    conf = os.path.join(work, "rnn.py")
+    with open(os.path.join(work, "flagship_provider.py"), "w") as fh:
+        fh.write(CLI_PROVIDER_SRC)
+    with open(conf, "w") as fh:
+        fh.write(CLI_CONFIG_SRC % {"seq": TRAIN_SEQ, "train": CLI_TRAIN_ROWS,
+                                   "test": CLI_TEST_ROWS, "seed": SEED + 90})
+    tele, save = os.path.join(work, "tele"), os.path.join(work, "save")
+    args = "batch_size=%d,hidden_size=256,lstm_num=2" % TRAIN_BATCH
+    fused_opts = {"feed_pipeline": 2, "steps_per_call": CLI_K}
+    steps = CLI_TRAIN_ROWS // TRAIN_BATCH
+    test_batches = CLI_TEST_ROWS // TRAIN_BATCH
+    # (a) train through the CLI, telemetry on
+    os.environ["PADDLE_TPU_TORCH_TELEMETRY"] = tele
+    try:
+        lk.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, built = cli_call(cli, [
+            "train", "--config", conf, "--config-args", args,
+            "--num-passes", "1", "--feed-pipeline", "2",
+            "--steps-per-call", str(CLI_K), "--checkpoint-dir",
+            os.path.join(work, "ckpt"), "--checkpoint-every",
+            str(CLI_CKPT_EVERY), "--save-dir", save])
+        cli_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PADDLE_TPU_TORCH_TELEMETRY"]
+    card = built[0]
+    # the training steps run in the graph; the closing test pass runs
+    # K1 eagerly, one launch a layer a batch
+    launches = graph_run_launches(lk, card, {"captured": {}, "warmup": {},
+                                             "replayed": {}})
+    cli_test_cost = float(out.split("test cost=")[1].split()[0])
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "steplog_schema.json")) as fh:
+        schema = json.load(fh)
+    recs = steplog.read_jsonl(os.path.join(tele, "train.steps.jsonl"))
+    kinds = [r["type"] for r in recs]
+    counts = {k: kinds.count(k) for k in sorted(set(kinds))}
+    events = [r for r in recs if r["type"] == "event"]
+    with open(os.path.join(tele, "train.trace.json")) as fh:
+        span_names = sorted({e["name"] for e in json.load(fh)["traceEvents"]
+                             if e.get("ph") == "X"})
+    # (b) the same config, seed and rows from Python: no CLI, no telemetry
+    rows = ns["cli_rows"](SEED + 90, CLI_TRAIN_ROWS, 30000, TRAIN_SEQ)
+    test_rows = ns["cli_rows"](SEED + 91, CLI_TEST_ROWS, 30000, TRAIN_SEQ)
+    py, reader = python_flagship(torch, rows, SEED + 90)
+    py.train(reader, num_passes=1,
+             checkpoint_dir=os.path.join(work, "py_ckpt"),
+             checkpoint_every=CLI_CKPT_EVERY, **fused_opts)
+    cli_params, py_params = snapshot(card), snapshot(py)
+    identical = sorted(cli_params) == sorted(py_params) and all(
+        np.array_equal(cli_params[n], py_params[n]) for n in cli_params)
+    from paddle_tpu_torch import batch as v2_batch
+
+    own_test = py.test(v2_batch(lambda: iter(test_rows), TRAIN_BATCH)).cost
+    # (c) what telemetry costs: ms per batch over 10-step stretches of
+    # 40-step runs, on and off in off-on-on-off blocks, fused (the Python
+    # trainer's cached graph) and eager
+    batches = list(reader())
+    eager = python_flagship(torch, rows, SEED + 90)[0]
+    loop_run(torch, eager, batches[:CLI_K])  # warm-up
+    cost_rows = {}
+    for mode, tr, opts in (("fused", py, fused_opts), ("eager", eager, {})):
+        on, off = [], []
+        for turn in ("off", "on", "on", "off") * CLI_COST_BLOCKS:
+            if turn == "on":
+                os.environ["PADDLE_TPU_TORCH_TELEMETRY"] = os.path.join(
+                    work, "tele_cost")
+            try:
+                ms = loop_run(torch, tr, batches, **opts)[2]
+            finally:
+                os.environ.pop("PADDLE_TPU_TORCH_TELEMETRY", None)
+            (on if turn == "on" else off).append(ms)
+        # each off-on-on-off block's on - off: the host's drift between
+        # blocks cancels
+        blocks = [(on[2 * i] + on[2 * i + 1] - off[2 * i] - off[2 * i + 1])
+                  / 2 for i in range(CLI_COST_BLOCKS)]
+        q_off = np.percentile(off, [25, 75])
+        cost_rows[mode] = {"ms_per_batch_off": off, "ms_per_batch_on": on,
+                           "median_on_minus_off": statistics.median(on)
+                           - statistics.median(off),
+                           "block_on_minus_off": blocks,
+                           "median_block_on_minus_off":
+                           statistics.median(blocks),
+                           "off_interquartile_ms": float(q_off[1]
+                                                         - q_off[0])}
+    # (d) the other commands
+    rc_time, out_time, _ = cli_call(cli, [
+        "time", "--config", conf, "--config-args", args, "--iters", "20"])
+    timed = json.loads(out_time.strip().splitlines()[-1])
+    tar = glob.glob(os.path.join(save, "pass-00000-*", "parameters.tar"))[0]
+    rc_test, out_test, _ = cli_call(cli, [
+        "test", "--config", conf, "--config-args", args, "--params", tar])
+    scored = float(out_test.split("test cost=")[1].split()[0])
+    rc_obs, out_obs, _ = cli_call(cli, ["observe", tele, "--json"])
+    observed = json.loads(out_obs)["runs"][0]
+    # (e) the device attribution of one fused chunk
+    trace = attribution.capture(
+        lambda: train(torch, py, batches[:CLI_K], **fused_opts),
+        torch.cuda.synchronize)
+    chunk_profile = attribution.step_profile(trace, CLI_K,
+                                             ("lstm_fwd", "lstm_bwd"))
+    chunk_gaps = attribution.dispatch_gap(trace, steps=CLI_K)
+    # (f) the NaN run: a 2-layer hidden-32 copy at learning rate 1e30
+    nan_argv = ["train", "--config", conf, "--config-args", CLI_NAN_ARGS,
+                "--num-passes", "1", "--steps-per-call", "4"]
+    nan_tele = os.path.join(work, "tele_nan")
+    os.environ["PADDLE_TPU_TORCH_TELEMETRY"] = nan_tele
+    os.environ["PADDLE_TPU_TORCH_SENTINEL"] = "halt"
+    nan_built, anomaly = [], None
+    try:
+        cli_call(cli, nan_argv, nan_built)
+    except sentinel.TrainingAnomaly as exc:
+        anomaly = exc.anomaly
+    finally:
+        del os.environ["PADDLE_TPU_TORCH_TELEMETRY"]
+        del os.environ["PADDLE_TPU_TORCH_SENTINEL"]
+    nan_recs = steplog.read_jsonl(os.path.join(nan_tele,
+                                               "train.steps.jsonl"))
+    crash = [r for r in nan_recs if r["type"] == "crash_report"]
+    chunks_run = list(nan_built[0].chunk_log) if nan_built else []
+    trap = None
+    flags.set_flag("trap_fpe", True)
+    try:
+        cli_call(cli, nan_argv)
+    except FloatingPointError as exc:
+        trap = str(exc)
+    finally:
+        flags.set_flag("trap_fpe", False)
+    shutil.rmtree(work, ignore_errors=True)
+    row = {"phase": "cli_train",
+           "config": {"dict_size": 30000, "emb_size": 128, "hidden": 256,
+                      "lstm_num": 2, "pooling": "max",
+                      "optimizer": "Adam(2e-3), L2 8e-4, clip 25"},
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": steps,
+           "fused": fused_opts, "checkpoint_every": CLI_CKPT_EVERY,
+           "cli_train_s": cli_s, "rc": rc,
+           "steplog_records": counts, "steplog_schema_errors":
+           steplog_check(recs, schema)[:5],
+           "events": [(e["event"], e["secs"]) for e in events],
+           "trace_spans": span_names, "graphs": graph_summary(card),
+           "k1_k2_launches": launches,
+           "bit_identical_to_python": identical,
+           "telemetry_cost": cost_rows,
+           "cli_time": timed, "cli_test_cost": scored,
+           "trainer_test_cost": own_test, "cli_train_test_cost":
+           cli_test_cost,
+           "observe": {k: observed.get(k) for k in (
+               "steps", "wall_ms_p50", "wall_ms_p95", "wall_ms_steady_mean",
+               "fused_chunks", "checkpoints", "compile_events",
+               "feed_stall_ms_p50")},
+           "chunk_profile": chunk_profile,
+           "chunk_gaps": chunk_gaps,
+           "nan_run": {"args": CLI_NAN_ARGS, "anomaly": anomaly,
+                       "chunks_dispatched": chunks_run,
+                       "crash_report_steps": (crash[0]["steps"]
+                                              if crash else None),
+                       "trap_fpe": trap}}
+    emit(row)
+    first_bad = anomaly["step"] if anomaly else None
+    checks = {
+        "cli train ran": rc == 0 and rc_time == 0 and rc_test == 0
+        and rc_obs == 0,
+        "steplog schema": not steplog_check(recs, schema),
+        "steplog records": counts.get("step") == steps
+        and counts.get("train_chunk") == steps // CLI_K
+        and counts.get("checkpoint") == steps // CLI_CKPT_EVERY
+        and counts.get("pass") == 1 and kinds[-1] == "end"
+        and kinds[0] == "meta",
+        "capture event": any("cuda_graph_capture" in e["event"]
+                             for e in events),
+        "trace spans": {"feed", "train_chunk", "eval_readback"}
+        <= set(span_names),
+        # 2 K1 + 2 K2 a step inside the graph; the test pass's K1 eager
+        "K1/K2 in the graph": launches == (2 * steps + 2 * test_batches,
+                                           2 * steps)
+        and len(card.graphs) == 1
+        and card.graphs[0]["replays"] == steps // CLI_K
+        and card.graphs[0]["captured"].get("lstm_seq_fwd") == 2 * CLI_K,
+        "bit-identical to trainer.SGD": identical,
+        "cli test equals trainer test": abs(scored - own_test) <= 1e-6,
+        "cli time": timed["ms_per_batch"] > 0 and timed["batches"] == 20,
+        "observe": observed.get("steps") == steps
+        and observed.get("wall_ms_p50") is not None
+        and observed.get("wall_ms_p95") is not None,
+        "attribution": chunk_profile["busy_ms_per_step"] > 0
+        and chunk_profile["kernels"]["lstm_fwd"]["ms_per_step"] > 0,
+        "sentinel halts within a chunk": anomaly is not None
+        and anomaly["kind"] == "nan_inf_loss" and bool(crash)
+        and bool(crash[0]["steps"])
+        and len(chunks_run) <= (first_bad - 1) // 4 + 2,
+        "trap_fpe names a tensor": trap is not None
+        and "holds a NaN or an Inf" in trap
+        and any(w in trap for w in ("the cost", "the gradient of",
+                                    "the updated parameter")),
+        "finite": all(np.all(np.isfinite(v)) for v in cli_params.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("cli_train: %s failed" % ", ".join(failed))
+    return {"fwd_launches": launches[0] - 2 * test_batches,
+            "bwd_launches": launches[1]}
 
 
 def phase_train_tagger(torch, gk):
@@ -3976,6 +4313,7 @@ def main():
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
         trained_loop = phase_train_loop(torch, lk, tmp)
+        trained_cli = phase_cli_train(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
         served_resnet = phase_serve_resnet(torch, ck, tmp)
         int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
@@ -4042,6 +4380,14 @@ def main():
         recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256_graph]",
                         "paddle_tpu/ops/pallas_kernels.py:347",
                         trained_loop["bwd_launches"], 256, "lstm_seq_bwd",
+                        path=layouts(bwd_cases, 256)),
+        recurrent_entry(cases, "lstm_seq_fwd[K1,h256_cli_graph]",
+                        "paddle_tpu/ops/pallas_kernels.py:146",
+                        trained_cli["fwd_launches"], 256, "lstm_seq_fwd",
+                        path=layouts(cases, 256)),
+        recurrent_entry(bwd_cases, "lstm_seq_bwd[K2,h256_cli_graph]",
+                        "paddle_tpu/ops/pallas_kernels.py:347",
+                        trained_cli["bwd_launches"], 256, "lstm_seq_bwd",
                         path=layouts(bwd_cases, 256)),
         recurrent_entry(cases, "lstm_seq_fwd[K1,h128_bilstm]",
                         "paddle_tpu/ops/pallas_kernels.py:146",

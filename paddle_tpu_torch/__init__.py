@@ -36,10 +36,12 @@ multi_binary_label_cross_entropy, SumPooling), trained, and movielens
 also served fp and int8; the attention NMT, trained and decoded by beam
 search; and the v2 training loop (data.DeviceFeeder's pinned feed,
 length buckets, steps_per_call as captured CUDA graphs, the seven
-optimizers, evaluators, durable checkpoints with resume). The process
-flags ``test_period`` and
-``log_period`` act as in the JAX package; the JAX package's other
-process flags are refused at any value but their default.
+optimizers, evaluators, durable checkpoints with resume); the v1 config
+front end (``config``, the ``paddle`` shim under ``compat/``, ``cli
+train/test/time/observe``) and the training telemetry (``observe``: spans,
+the step log, metrics, the sentinel, the device attribution). The process
+flags act as in the JAX package, but ``matmul_precision``, which is
+refused at any value but its default.
 """
 
 __version__ = "0.1.0"

@@ -29,9 +29,14 @@ blocked on a full queue; an error of the producer (the reader or the
 conversion raising) is re-raised on the consumer thread.
 
 ``FeedBatch`` carries ``convert_ms``, ``stall_ms`` and the bucket waste
-(``bucket``, ``fill_tokens``, ``pad_tokens``) as plain attributes; the
-JAX feeder's metrics registry and spans wait for the ``observe/`` part of
-the port.
+(``bucket``, ``fill_tokens``, ``pad_tokens``). The consumer's wait is the
+``feed`` span (observe/spans.py), and each batch lands in the metrics
+registry under the JAX feeder's series: the
+``paddle_tpu_data_feed_stall_ms`` and ``paddle_tpu_data_feed_convert_ms``
+histograms, the ``paddle_tpu_data_batches_total`` counter, the
+``paddle_tpu_data_queue_depth`` gauge and, for sequence feeds, the
+cumulative per-bucket fill and waste ratios. The trainer writes each
+batch's ``feed`` steplog record from these attributes.
 
 ``lock`` is held by the producer around its CUDA calls (pinning, the
 copy, the event); the trainer holds it while it captures a CUDA graph,
@@ -45,6 +50,8 @@ import time
 import torch
 
 from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.observe import metrics as observe_metrics
+from paddle_tpu_torch.observe import spans as observe_spans
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.core.sparse import SparseRows
 from paddle_tpu_torch.reader.decorator import _cancellable_put, _drain
@@ -170,7 +177,8 @@ class DeviceFeeder:
     call to ``batches()`` starts a fresh producer thread (one per training
     pass)."""
 
-    def __init__(self, reader, topology, feeding=None, depth=2, device=None):
+    def __init__(self, reader, topology, feeding=None, depth=2, device=None,
+                 metrics_registry=None):
         if depth < 1:
             raise ValueError("DeviceFeeder depth must be >= 1")
         self.reader = reader
@@ -181,6 +189,22 @@ class DeviceFeeder:
         self._cuda = self.device.type == "cuda"
         self._copy_stream = None
         self.lock = threading.Lock()
+        m = metrics_registry or observe_metrics.get_registry()
+        self.metrics = m
+        self._m_stall = m.histogram(
+            "paddle_tpu_data_feed_stall_ms",
+            help="time the step thread blocked waiting for a pipelined "
+                 "batch")
+        self._m_convert = m.histogram(
+            "paddle_tpu_data_feed_convert_ms",
+            help="producer-thread batch conversion + device dispatch time")
+        self._m_batches = m.counter(
+            "paddle_tpu_data_batches_total",
+            help="batches assembled by the feed pipeline")
+        self._m_depth = m.gauge(
+            "paddle_tpu_data_queue_depth",
+            help="device-resident batches waiting ahead of the step")
+        self._per_bucket = {}
 
     # -- producer side ------------------------------------------------------
     def _convert_batch(self, data_batch):
@@ -262,14 +286,20 @@ class DeviceFeeder:
         thread.start()
         try:
             while True:
-                t0 = time.perf_counter()
-                item = q.get()
-                stall_ms = (time.perf_counter() - t0) * 1e3
+                with observe_spans.span("feed",
+                                        args={"pipelined": True}) as scope:
+                    item = q.get()
                 if item is _End:
                     return
                 if isinstance(item, _Error):
                     raise item.exc
-                item.stall_ms = stall_ms
+                item.stall_ms = scope.dur * 1e3
+                self._m_stall.observe(item.stall_ms)
+                self._m_convert.observe(item.convert_ms)
+                self._m_batches.inc()
+                self._m_depth.set(q.qsize())
+                if item.bucket:
+                    self._bucket_gauges(item)
                 self._land(item)
                 yield item
         finally:
@@ -277,6 +307,24 @@ class DeviceFeeder:
             # wake a producer blocked on a full queue, then let it finish
             _drain(q)
             thread.join(timeout=5.0)
+
+    def _bucket_gauges(self, fb):
+        """Cumulative per-bucket fill/waste (the JAX feeder's
+        ``paddle_tpu_data_*_ratio{bucket=}`` series)."""
+        pb = self._per_bucket.setdefault(fb.bucket, [0, 0])
+        pb[0] += fb.fill_tokens
+        pb[1] += fb.pad_tokens
+        fill, pad = pb
+        slots = fill + pad
+        label = {"bucket": str(fb.bucket)}
+        self.metrics.gauge("paddle_tpu_data_bucket_fill_ratio",
+                           help="sequence tokens / padded slots "
+                                "(cumulative, per padded length)",
+                           labels=label).set(fill / slots)
+        self.metrics.gauge("paddle_tpu_data_padding_waste_ratio",
+                           help="padding slots / padded slots "
+                                "(cumulative, per padded length)",
+                           labels=label).set(pad / slots)
 
     def chunks(self, k, skip=0):
         """Generator of :class:`ChunkBatch` groups of up to ``k``

@@ -19,9 +19,12 @@ directory and commits it. A snapshot submitted while the writer is still
 busy REPLACES the pending one (newest wins), so checkpointing never
 stalls the step thread.
 
-The JAX package's steplog records and metrics families wait for the
-``observe/`` part of the port; the writer keeps its counts and its last
-duration as attributes instead.
+Every commit of the writer updates the JAX package's
+``paddle_tpu_checkpoint_*`` metrics families and, given a ``steplog``,
+writes a ``checkpoint`` record (``duration_ms``, ``bytes``,
+``overlapped``, ``step_thread_ms``, ``pass``, ``path``) and the
+``checkpoint_commit`` elastic event, as the JAX writer does; its
+serialization is the ``checkpoint_write`` span.
 """
 
 import hashlib
@@ -36,6 +39,9 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.observe import metrics as observe_metrics
+from paddle_tpu_torch.observe import spans as observe_spans
+from paddle_tpu_torch.observe import trainview
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.utils.error import enforce
 from paddle_tpu_torch.utils.logger import logger
@@ -484,9 +490,25 @@ class AsyncCheckpointer:
     and ``commits`` (one ``{"step", "path", "bytes", "writer_ms"}`` a
     commit) describe the commits."""
 
-    def __init__(self, directory, keep=3):
+    def __init__(self, directory, keep=3, steplog=None,
+                 metrics_registry=None):
         self.directory = directory
         self.keep = int(keep)
+        self._steplog = steplog
+        m = metrics_registry or observe_metrics.get_registry()
+        self._m_saves = m.counter(
+            "paddle_tpu_checkpoint_saves_total",
+            help="checkpoints committed (atomic rename completed)")
+        self._m_superseded = m.counter(
+            "paddle_tpu_checkpoint_superseded_total",
+            help="pending snapshots replaced by a newer one before the "
+                 "writer could start them")
+        self._m_bytes = m.counter(
+            "paddle_tpu_checkpoint_bytes_total",
+            help="bytes committed across all checkpoints")
+        self._m_save_ms = m.histogram(
+            "paddle_tpu_checkpoint_save_ms",
+            help="writer-thread serialize+fsync+rename duration")
         self._cv = threading.Condition()
         self._pending = None
         self._writing = False
@@ -514,6 +536,8 @@ class AsyncCheckpointer:
             if replaced:
                 self.superseded += 1
             self._cv.notify_all()
+        if replaced:
+            self._m_superseded.inc()
         return replaced
 
     def last_committed(self):
@@ -588,9 +612,10 @@ class AsyncCheckpointer:
 
     def _write(self, job):
         t0 = time.perf_counter()
-        if job.event is not None:
-            job.event.synchronize()  # the device-to-host copy has landed
-        host = {k: _tree_numpy(v) for k, v in job.values.items()}
+        with observe_spans.span("checkpoint_write", args={"step": job.step}):
+            if job.event is not None:
+                job.event.synchronize()  # the device-to-host copy landed
+            host = {k: _tree_numpy(v) for k, v in job.values.items()}
         template = job.parameters_template
         arrays = {**host.get("static", {}), **host["params"],
                   **host.get("state", {})}
@@ -614,6 +639,26 @@ class AsyncCheckpointer:
             self.last_step = job.step
             self.commits.append({"step": job.step, "path": path,
                                  "bytes": nbytes, "writer_ms": duration_ms})
+        self._m_saves.inc()
+        self._m_bytes.inc(nbytes)
+        self._m_save_ms.observe(duration_ms)
+        if self._steplog is not None:
+            log_commit(self._steplog, job.step, duration_ms, nbytes, True,
+                       job.step_thread_ms, job.pass_id, path)
+
+
+def log_commit(steplog, step, duration_ms, nbytes, overlapped,
+               step_thread_ms, pass_id, path):
+    """The steplog side of one committed checkpoint: the ``checkpoint``
+    record and its ``checkpoint_commit`` elastic event (the commit a
+    later rewind could target, observe/trainview.py)."""
+    steplog.log_checkpoint(
+        step=step, duration_ms=duration_ms, nbytes=nbytes,
+        overlapped=overlapped, step_thread_ms=step_thread_ms,
+        pass_id=pass_id, path=os.path.basename(path))
+    steplog.log_elastic_event(
+        "checkpoint_commit", worker=trainview.worker_id(), step=step,
+        checkpoint=os.path.basename(path))
 
 
 def _tree_numpy(tree):

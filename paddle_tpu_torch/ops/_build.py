@@ -14,6 +14,10 @@ C entry with the common signature (dtype code, pointers, the shape's ints
 -- (T, B, H) for the recurrent kernels, (N, H, W, C, F, k, ...) for the
 convolutions -- device, stream, info array).
 
+Each library compiled and each library loaded at first use is reported,
+with its seconds, as an ``event`` record of the open step logs
+(observe/steplog.py ``emit_event``).
+
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
 """
@@ -26,9 +30,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
+from paddle_tpu_torch.observe import steplog
 from paddle_tpu_torch.utils.error import enforce
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,6 +96,7 @@ def build(name):
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     tmp = "%s.%d.tmp" % (out, os.getpid())
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                            source_path(name)],
@@ -100,6 +107,8 @@ def build(name):
             "kernel build failed: %s (nvcc exit %d):\n%s", name,
             proc.returncode, proc.stdout)
     os.replace(tmp, out)  # atomic: a reader never sees a partial file
+    steplog.emit_event("/paddle_tpu_torch/kernel_build/" + name,
+                       time.perf_counter() - t0)
     return out
 
 
@@ -115,9 +124,12 @@ def load(name):
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             path = build(name)
             lib = ctypes.CDLL(path)
             _loaded[name] = lib
+            steplog.emit_event("/paddle_tpu_torch/kernel_load/" + name,
+                               time.perf_counter() - t0)
         return lib
 
 

@@ -50,6 +50,24 @@ each replay advances it as the eager steps would. A checkpoint stores its
 state where the JAX package stores its threefry key, so a resumed run
 draws the masks the uninterrupted one would have drawn.
 
+Telemetry (paddle_tpu/trainer.py:344-470): host spans around every phase
+(``feed``, ``train_step``, ``train_chunk``, ``eval_readback``,
+``test_feed``, ``test_step``, ``checkpoint_snapshot``,
+``checkpoint_sync``) feed the global StatSet, dumped and reset at every
+EndPass under the ``stats`` flag; under ``PADDLE_TPU_TORCH_TELEMETRY``
+(or the ``telemetry`` flag) a JSONL step log with the JAX package's
+schema (observe/steplog.py) and, at the end of the run, a Chrome trace of
+the spans. The four training metrics, the per-worker health history and
+the loss sentinel with its flight recorder (``PADDLE_TPU_TORCH_SENTINEL``)
+run on every finalize. All of it reads what finalize already read back:
+no step gains a synchronize, and nothing of it runs inside a captured
+graph. The ``trap_fpe`` flag makes each step compute one finiteness flag
+per tensor it produced (the cost, each gradient, each updated master) on
+the device, read at finalize with the cost: FloatingPointError names the
+first step and tensor that held a NaN or an Inf (one chunk late under
+``steps_per_call``, as the sentinel). ``show_layer_stat`` and
+``show_parameter_stats_period`` log the JAX package's lines.
+
 The trainer runs on ``device`` (the card unless ``device="cpu"``; it
 raises without a card). Not ported yet, and refused: data parallelism
 (``parallelism``), ``MultiNetwork`` costs and the save election
@@ -67,12 +85,18 @@ from paddle_tpu_torch import event as v2_event
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.evaluator import host_stats
 from paddle_tpu_torch.graph import LayerNode
+from paddle_tpu_torch.observe import metrics as observe_metrics
+from paddle_tpu_torch.observe import sentinel as observe_sentinel
+from paddle_tpu_torch.observe import spans as observe_spans
+from paddle_tpu_torch.observe import steplog as observe_steplog
+from paddle_tpu_torch.observe import trainview as observe_trainview
 from paddle_tpu_torch.optimizer import Optimizer, ParamPool
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.topology import Topology, convert_feed
 from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import enforce
 from paddle_tpu_torch.utils.logger import logger
+from paddle_tpu_torch.utils.stat import global_stats
 
 
 def kernel_launch_counts():
@@ -184,6 +208,7 @@ class SGD:
         self.chunk_log = []  # the fused loop's chunk sizes, in order
         self._capture_stream = None
         self._capture_lock = None
+        self._trap = False  # the trap_fpe flag of the running train()
         # the live AsyncCheckpointer while train(checkpoint_dir=...) runs,
         # and the last session's per-checkpoint readings
         self._ckpt_writer = None
@@ -258,8 +283,9 @@ class SGD:
         return cost, stats, outs
 
     def _train_step(self, feed):
-        """Forward, backward and update of one batch; returns the cost and
-        the evaluator stats as device tensors (not read back)."""
+        """Forward, backward and update of one batch; returns the cost, the
+        evaluator stats and, under ``trap_fpe``, the finiteness flags
+        (else None), as device tensors (not read back)."""
         if self._pool is not None:
             self._pool_grad.zero_()
         for n, p in self._trainable.items():
@@ -273,13 +299,32 @@ class SGD:
         with torch.no_grad():
             for name, value in updates.items():
                 self._state[name].copy_(value)
-        return loss.detach(), stats
+            finite = self._finite_flags(loss) if self._trap else None
+        return loss.detach(), stats, finite
+
+    def _finite_flags(self, loss):
+        """One bool per tensor the step produced, in the order of
+        ``_fpe_names``: the cost, each gradient, each updated master."""
+        names = list(self._trainable)
+        flags_ = [torch.isfinite(loss).all()]
+        for n in names:
+            grad = self._trainable[n].grad
+            flags_.append(torch.isfinite(grad).all() if grad is not None
+                          else torch.ones((), dtype=torch.bool,
+                                          device=loss.device))
+        flags_ += [torch.isfinite(self._trainable[n]).all() for n in names]
+        return torch.stack(flags_)
+
+    def _fpe_names(self):
+        names = list(self._trainable)
+        return (["the cost"] + ["the gradient of %s" % n for n in names]
+                + ["the updated parameter %s" % n for n in names])
 
     def _train_chunk(self, chunk):
         """The K steps of a stacked chunk: length-K device stacks of the
-        costs and of each evaluator's stats. On the card one replay of the
-        chunk's captured CUDA graph; on the CPU a loop of the same step
-        function."""
+        costs, of each evaluator's stats and of the finiteness flags. On
+        the card one replay of the chunk's captured CUDA graph; on the CPU
+        a loop of the same step function."""
         if self.device.type == "cuda":
             return self._replay(chunk)
         results = [self._train_step(feed) for feed in chunk.feed]
@@ -289,7 +334,7 @@ class SGD:
     def _replay(self, chunk):
         from paddle_tpu_torch.data.feeder import feed_tensors
 
-        key = (chunk.steps, chunk.key)
+        key = (chunk.steps, chunk.key, self._trap)
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._capture(chunk, key)
@@ -300,10 +345,9 @@ class SGD:
                 dst.copy_(src)
         entry["graph"].replay()
         entry["info"]["replays"] += 1
-        losses, stats = entry["out"]
         # the next replay overwrites the outputs; finalize reads them a
         # chunk late
-        return losses.clone(), _tree_map(torch.clone, stats)
+        return _tree_map(torch.clone, entry["out"])
 
     def _capture(self, chunk, key):
         """Capture the chunk's K train steps as one CUDA graph reading K
@@ -374,6 +418,8 @@ class SGD:
         entry = {"graph": graph, "feeds": feeds, "out": out, "info": info}
         self._graphs[key] = entry
         self.graphs.append(info)
+        observe_steplog.emit_event("/paddle_tpu_torch/cuda_graph_capture",
+                                   info["capture_ms"] / 1e3)
         return entry
 
     def graph_launches(self):
@@ -438,6 +484,8 @@ class SGD:
             enforce(k >= 1, "steps_per_call must be >= 1, got %d", k)
         log_period = flags.get_flag("log_period")
         test_period = flags.get_flag("test_period")
+        self._trap = bool(flags.get_flag("trap_fpe"))
+        tele = _Telemetry(self, num_passes, k)
         start_pass = start_cursor = 0
         if checkpoint_dir and resume:
             start_pass, start_cursor = self._resume_restore(checkpoint_dir,
@@ -447,12 +495,12 @@ class SGD:
             ckpt_ctx = self._checkpoint_setup(checkpoint_dir,
                                               checkpoint_every,
                                               checkpoint_keep,
-                                              checkpoint_sync)
+                                              checkpoint_sync, tele)
         loop = dict(event_handler=event_handler, feeding=feeding,
                     sync_params=sync_params, test_reader=test_reader,
                     log_period=log_period, test_period=test_period,
                     start_pass=start_pass, start_cursor=start_cursor,
-                    ckpt=ckpt_ctx)
+                    ckpt=ckpt_ctx, tele=tele)
         completed = False
         try:
             if k:
@@ -463,6 +511,11 @@ class SGD:
                 self._train_passes(reader, num_passes,
                                    feed_pipeline=feed_pipeline, **loop)
             completed = True
+        except BaseException as exc:
+            # any escape from the loop dumps the black box (a sentinel
+            # halt already did; on_exception skips it)
+            tele.on_exception(exc)
+            raise
         finally:
             # drain and join the ckpt-writer thread; a writer error
             # surfaces here on a normal exit, and an exception already
@@ -474,24 +527,44 @@ class SGD:
                 if completed:
                     raise
                 logger.exception("checkpoint writer error during unwind")
+            finally:
+                tele.close()
 
     def _finalizer(self, pass_id, eval_acc, event_handler, feeding,
-                   test_reader, log_period, test_period):
-        """The per-step finalize shared by the loops: merge the step's
-        evaluator stats, then EndForwardBackward, the periodic log line
-        and test pass, EndIteration with the metrics (TrainerInternal.cpp:
-        66-140, one step late)."""
+                   test_reader, log_period, test_period, tele):
+        """The per-step finalize shared by the loops: the trap_fpe check,
+        the evaluators' merge, the step's telemetry (steplog record,
+        metrics, health history, sentinel), then EndForwardBackward, the
+        periodic log line (with the layer and parameter stats) and test
+        pass, EndIteration with the metrics (TrainerInternal.cpp:66-140,
+        one step late). ``wall_ms`` is the interval since the last
+        finalize; inside a fused chunk it is None (the interval is the
+        chunk's) and ``chunk_index`` is the step's place in the chunk."""
+        fpe_names = self._fpe_names() if self._trap else None
 
-        def finalize(b_id, gstep, cost, stats):
+        def finalize(b_id, gstep, cost, stats, examples, feed, feed_ms=None,
+                     wall_ms=None, finite=None, chunk_index=None):
+            if finite is not None and not finite.all():
+                raise FloatingPointError(
+                    "trap_fpe: step %d (pass %d, batch %d): %s holds a NaN "
+                    "or an Inf" % (gstep, pass_id, b_id,
+                                   fpe_names[int(np.argmin(finite))]))
             metrics = {}
             for e in self.evaluators:
                 eval_acc[e.name] = e.merge(eval_acc[e.name], stats[e.name])
                 metrics[e.name] = e.result(eval_acc[e.name])
+            tele.step(gstep, pass_id, b_id, cost, examples, metrics,
+                      feed_ms, wall_ms, chunk_index)
             event_handler(v2_event.EndForwardBackward(pass_id, b_id,
                                                       gm=self))
             if log_period and b_id % log_period == 0:
                 logger.info("pass %d batch %d cost=%.6f %s", pass_id, b_id,
                             cost, _fmt_metrics(metrics))
+                if flags.get_flag("show_layer_stat"):
+                    self._log_layer_stats(feed)
+            psp = flags.get_flag("show_parameter_stats_period")
+            if psp and gstep % max(psp, 1) == 0:
+                self._log_param_stats()
             if (test_reader is not None and test_period
                     and gstep % test_period == 0):
                 result = self.test(test_reader, feeding=feeding,
@@ -499,6 +572,8 @@ class SGD:
                 logger.info("periodic test: cost=%.6f %s", result.cost,
                             _fmt_metrics(result.metrics))
                 event_handler(result)
+                # the test pass is not charged to the next interval
+                tele.reset_clock()
             event_handler(v2_event.EndIteration(pass_id, b_id, cost,
                                                 metrics))
 
@@ -506,7 +581,7 @@ class SGD:
 
     def _train_passes(self, reader, num_passes, event_handler, feeding,
                       sync_params, test_reader, log_period, test_period,
-                      start_pass=0, start_cursor=0, ckpt=None,
+                      tele, start_pass=0, start_cursor=0, ckpt=None,
                       feed_pipeline=False):
         feeder = None
         for pass_id in range(start_pass, num_passes):
@@ -535,65 +610,94 @@ class SGD:
             eval_acc = {e.name: None for e in self.evaluators}
             finalize = self._finalizer(pass_id, eval_acc, event_handler,
                                        feeding, test_reader, log_period,
-                                       test_period)
+                                       test_period, tele)
             batch_id = cursor0
             pass_base = self._step_count - cursor0
-            pending = None  # (batch_id, loss, stats)
+            pending = None
             for data_batch, fb in batch_iter:
                 event_handler(v2_event.BeginIteration(pass_id, batch_id))
                 if fb is None:
                     # a batch may carry the padded length of its bucket
                     # (``data_batch.bucket``), as in the JAX trainer
-                    feed = convert_feed(
-                        self.topology, data_batch, self.device, feeding,
-                        max_len=getattr(data_batch, "bucket", None))
+                    with observe_spans.span("feed") as feed_scope:
+                        feed = convert_feed(
+                            self.topology, data_batch, self.device, feeding,
+                            max_len=getattr(data_batch, "bucket", None))
+                    feed_ms, n_examples = feed_scope.dur * 1e3, \
+                        len(data_batch)
                 else:
-                    feed = fb.feed
-                loss, stats = self._train_step(feed)
+                    # the pipelined feed's "feed" span and feed_ms are the
+                    # step thread's stall on the queue
+                    feed, feed_ms, n_examples = fb.feed, fb.stall_ms, \
+                        fb.examples
+                with observe_spans.span("train_step"):
+                    loss, stats, finite = self._train_step(feed)
                 self._step_count += 1
                 self._checkpoint_maybe(ckpt, pass_id, batch_id + 1)
+                if fb is not None:
+                    tele.feed(self._step_count, fb, feeder.depth)
                 if pending is not None:
-                    self._finalize_one(finalize, pending, pass_base)
-                pending = (batch_id, loss, stats)
+                    self._finalize_one(finalize, pending, pass_base, tele)
+                pending = (batch_id, loss, stats, finite, feed, feed_ms,
+                           n_examples)
                 batch_id += 1
             if pending is not None:
-                self._finalize_one(finalize, pending, pass_base)
+                self._finalize_one(finalize, pending, pass_base, tele)
             self._finish_pass(pass_id, eval_acc, event_handler, feeding,
-                              sync_params, test_reader, test_period)
+                              sync_params, test_reader, test_period, tele)
         if sync_params:
             self._sync_back()
 
     @staticmethod
-    def _finalize_one(finalize, pending, pass_base):
-        b_id, loss, stats = pending
-        finalize(b_id, pass_base + b_id + 1, float(loss),
-                 {name: host_stats(s) for name, s in stats.items()})
+    def _finalize_one(finalize, pending, pass_base, tele):
+        b_id, loss, stats, finite, feed, feed_ms, n_examples = pending
+        with observe_spans.span("eval_readback"):
+            cost = float(loss)
+            host = {name: host_stats(s) for name, s in stats.items()}
+            if finite is not None:
+                finite = finite.cpu().numpy()
+        finalize(b_id, pass_base + b_id + 1, cost, host, n_examples, feed,
+                 feed_ms=feed_ms, wall_ms=tele.lap(), finite=finite)
 
     def _finish_pass(self, pass_id, eval_acc, event_handler, feeding,
-                     sync_params, test_reader, test_period):
+                     sync_params, test_reader, test_period, tele):
         """Pass-boundary sequence shared by the per-step and fused loops:
-        the per-pass test, sync-back, EndPass with the pass metrics."""
+        the per-pass test, sync-back, the pass record, the StatSet dump
+        under the ``stats`` flag, EndPass with the pass metrics."""
         if test_reader is not None and not test_period:
             result = self.test(test_reader, feeding=feeding,
                                pass_id=pass_id)
             logger.info("pass %d test: cost=%.6f %s", pass_id, result.cost,
                         _fmt_metrics(result.metrics))
             event_handler(result)
+            tele.reset_clock()
         if sync_params:
             self._sync_back()
         pass_metrics = {e.name: e.result(eval_acc[e.name])
                         for e in self.evaluators}
+        if tele.slog is not None:
+            tele.slog.log_pass(pass_id, metrics=pass_metrics)
+        if observe_steplog.stats_enabled():
+            # the reference's per-pass timer dump and reset
+            # (globalStat.printAllStatus at FinishTrainPass)
+            global_stats.print_all()
+            global_stats.reset()
         event_handler(v2_event.EndPass(pass_id, pass_metrics, gm=self))
+        # pass-boundary work (EndPass handlers, a save) is not charged to
+        # the next pass's first step
+        tele.reset_clock()
 
     def _train_passes_fused(self, reader, num_passes, k, event_handler,
                             feeding, sync_params, test_reader, log_period,
-                            test_period, feed_depth=2, start_pass=0,
+                            test_period, tele, feed_depth=2, start_pass=0,
                             start_cursor=0, ckpt=None):
         """The steps_per_call=K loop (paddle_tpu/trainer.py:670-853):
         chunks of K feeds (DeviceFeeder.chunks) through one fused dispatch,
         one chunk deep like the per-step loop — chunk c+1 is dispatched
-        before chunk c's length-K cost and stat stacks are read back, and
-        its per-step events then fire K at a time."""
+        before chunk c's length-K cost, stat and flag stacks are read back,
+        and its per-step events then fire K at a time. The chunk's wall
+        interval lands on its ``train_chunk`` record; its ``step`` records
+        carry none."""
         from paddle_tpu_torch.data.feeder import DeviceFeeder
 
         feeder = DeviceFeeder(reader, self.topology, feeding=feeding,
@@ -613,21 +717,29 @@ class SGD:
             eval_acc = {e.name: None for e in self.evaluators}
             finalize = self._finalizer(pass_id, eval_acc, event_handler,
                                        feeding, test_reader, log_period,
-                                       test_period)
+                                       test_period, tele)
             batch_id = cursor0
-            pending = None  # (batch_id, base_step, losses, stats, chunk)
+            pending = None  # (batch_id, base_step, (losses, stats, finite),
+            #                  chunk)
 
             def finalize_chunk(item):
-                b_id, base_step, losses, stats, chunk = item
-                costs = np.atleast_1d(losses.float().cpu().numpy()
-                                      .astype(np.float64))
-                host = {name: host_stats(s) for name, s in stats.items()}
+                b_id, base_step, (losses, stats, finite), chunk = item
+                with observe_spans.span("eval_readback"):
+                    costs = np.atleast_1d(losses.float().cpu().numpy()
+                                          .astype(np.float64))
+                    host = {name: host_stats(s) for name, s in stats.items()}
+                    if finite is not None:
+                        finite = np.atleast_2d(finite.cpu().numpy())
+                tele.chunk(base_step, pass_id, b_id, costs, chunk)
                 for i in range(len(costs)):
                     step_stats = {name: ({key: v[i] for key, v in s.items()}
                                          if chunk.stacked else s)
                                   for name, s in host.items()}
+                    fb = chunk.batches[i]
                     finalize(b_id + i, base_step + i + 1, float(costs[i]),
-                             step_stats)
+                             step_stats, fb.examples, fb.feed,
+                             finite=None if finite is None else finite[i],
+                             chunk_index=i)
 
             for chunk in chunk_iter:
                 # every real step of the chunk announces itself before the
@@ -637,25 +749,29 @@ class SGD:
                     event_handler(v2_event.BeginIteration(pass_id,
                                                           batch_id + i))
                 self.chunk_log.append(chunk.steps)
-                if chunk.stacked:
-                    losses, stats = self._train_chunk(chunk)
-                else:
-                    # a one-batch chunk runs the per-step program, as the
-                    # JAX package's _stack_chunk does
-                    losses, stats = self._train_step(chunk.feed)
+                with observe_spans.span("train_chunk",
+                                        args={"steps": chunk.steps}):
+                    if chunk.stacked:
+                        out = self._train_chunk(chunk)
+                    else:
+                        # a one-batch chunk runs the per-step program, as
+                        # the JAX package's _stack_chunk does
+                        out = self._train_step(chunk.feed)
                 base_step = self._step_count
                 self._step_count += chunk.steps
                 # chunk boundary == step boundary: the first one at or past
                 # the cadence commits the snapshot
                 self._checkpoint_maybe(ckpt, pass_id, batch_id + chunk.steps)
+                for i, fb in enumerate(chunk.batches):
+                    tele.feed(base_step + i + 1, fb, feeder.depth)
                 if pending is not None:
                     finalize_chunk(pending)
-                pending = (batch_id, base_step, losses, stats, chunk)
+                pending = (batch_id, base_step, out, chunk)
                 batch_id += chunk.steps
             if pending is not None:
                 finalize_chunk(pending)
             self._finish_pass(pass_id, eval_acc, event_handler, feeding,
-                              sync_params, test_reader, test_period)
+                              sync_params, test_reader, test_period, tele)
         self._capture_lock = None
         if sync_params:
             self._sync_back()
@@ -689,18 +805,46 @@ class SGD:
         eval_acc = {e.name: None for e in self.evaluators}
         total, n_batches = 0.0, 0
         for data_batch in reader():
-            feed = convert_feed(self.topology, data_batch, self.device,
-                                feeding)
-            cost, stats, _ = self._forward(feed, "test")
-            total += float(cost)
-            n_batches += 1
-            for e in self.evaluators:
-                eval_acc[e.name] = e.merge(eval_acc[e.name],
-                                           host_stats(stats[e.name]))
+            with observe_spans.span("test_feed"):
+                feed = convert_feed(self.topology, data_batch, self.device,
+                                    feeding)
+            with observe_spans.span("test_step"):
+                cost, stats, _ = self._forward(feed, "test")
+            with observe_spans.span("eval_readback"):
+                total += float(cost)
+                n_batches += 1
+                for e in self.evaluators:
+                    eval_acc[e.name] = e.merge(eval_acc[e.name],
+                                               host_stats(stats[e.name]))
         metrics = {e.name: e.result(eval_acc[e.name])
                    for e in self.evaluators}
         return v2_event.TestResult(pass_id, total / max(n_batches, 1),
                                    metrics)
+
+    # -- the stats flags (Flags.cpp:71 --show_layer_stat;
+    # TrainerInternal.cpp:100-110 --show_param_stats_period) ----------------
+    def _log_layer_stats(self, feed):
+        """Per-layer output mean/|mean|/max from a plain forward on the
+        batch, in the JAX package's line format."""
+        from paddle_tpu_torch.layer.base import data_of
+
+        values = self.topology.apply(
+            {**self._trainable, **self._static, **self._state}, feed,
+            mode="test", outputs=[n.name for n in self.topology.nodes])
+        for name, val in values.items():
+            val = data_of(val)
+            if not (isinstance(val, torch.Tensor)
+                    and (val.is_floating_point() or val.is_complex())):
+                continue
+            arr = val.detach().float().cpu().numpy()
+            logger.info("layer %s: avg=%.6g absavg=%.6g max=%.6g", name,
+                        arr.mean(), np.abs(arr).mean(), arr.max())
+
+    def _log_param_stats(self):
+        for name, val in self._trainable.items():
+            arr = val.detach().float().cpu().numpy()
+            logger.info("param %s: avg_abs=%.6g max_abs=%.6g", name,
+                        np.abs(arr).mean(), np.abs(arr).max())
 
     # -- parameters ---------------------------------------------------------
     def _sync_back(self):
@@ -710,6 +854,17 @@ class SGD:
         self.parameters.update_from(
             {n: t.detach().clone() for n, t in
              {**self._trainable, **self._state}.items()})
+
+    def stage_parameters(self):
+        """Copy the Parameters object's values into the trainer's tensors
+        on the device, in place (after ``parameters.init_from_tar`` or
+        ``set``; the JAX trainer's ``__prepare__``). The optimizer state
+        is left as it is."""
+        values = self.parameters.as_dict()
+        with torch.no_grad():
+            for n, t in {**self._trainable, **self._static,
+                         **self._state}.items():
+                t.copy_(values[n].to(t.device, t.dtype))
 
     def save_parameter_to_tar(self, f):
         self._sync_back()
@@ -728,18 +883,19 @@ class SGD:
                              **export_kw)
 
     # -- checkpoints (paddle_tpu/trainer.py:988-1210) ------------------------
-    def _checkpoint_setup(self, directory, every, keep, sync):
+    def _checkpoint_setup(self, directory, every, keep, sync, tele):
         """One checkpoint session per train() call; ``sync=False`` owns an
-        AsyncCheckpointer whose writer thread train() closes."""
+        AsyncCheckpointer whose writer thread train() closes (and which
+        writes the commits into the run's steplog)."""
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
         every = int(every)
         enforce(every >= 1, "checkpoint_every must be >= 1, got %d", every)
         self.checkpoint_log = []
         ctx = {"dir": directory, "every": every, "keep": int(keep),
-               "sync": bool(sync),
+               "sync": bool(sync), "tele": tele,
                "writer": (None if sync else ckpt.AsyncCheckpointer(
-                   directory, keep=keep)),
+                   directory, keep=keep, steplog=tele.slog)),
                "next": (self._step_count // every + 1) * every}
         self._ckpt_writer = ctx["writer"]
         return ctx
@@ -764,28 +920,32 @@ class SGD:
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
         t0 = time.perf_counter()
-        with torch.no_grad():
-            values = _tree_map(torch.clone, {
-                "params": dict(self._trainable), "state": dict(self._state),
-                "static": dict(self._static), "opt": self._opt_state})
-        event = None
-        if self.device.type == "cuda":
-            if getattr(self, "_ckpt_stream", None) is None:
-                self._ckpt_stream = torch.cuda.Stream(self.device)
-            side = self._ckpt_stream
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                host = _tree_map(lambda t: torch.empty(
-                    t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                        t, non_blocking=True), values)
-                event = torch.cuda.Event()
-                event.record(side)
-            for t in _tree_tensors(values):
-                t.record_stream(side)  # freed only after the copy read it
-        else:
-            host = values
+        with observe_spans.span("checkpoint_snapshot",
+                                args={"step": self._step_count}):
+            with torch.no_grad():
+                values = _tree_map(torch.clone, {
+                    "params": dict(self._trainable),
+                    "state": dict(self._state),
+                    "static": dict(self._static), "opt": self._opt_state})
+            event = None
+            if self.device.type == "cuda":
+                if getattr(self, "_ckpt_stream", None) is None:
+                    self._ckpt_stream = torch.cuda.Stream(self.device)
+                side = self._ckpt_stream
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    host = _tree_map(lambda t: torch.empty(
+                        t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                            t, non_blocking=True), values)
+                    event = torch.cuda.Event()
+                    event.record(side)
+                for t in _tree_tensors(values):
+                    t.record_stream(side)  # freed after the copy read it
+            else:
+                host = values
         unpool = self._pool.unpool_state if self._pool is not None else None
         ms = (time.perf_counter() - t0) * 1e3
+        observe_trainview.get_train_history().record_checkpoint(ms)
         ctx["writer"].submit(ckpt.CheckpointSnapshot(
             host, self.parameters.copy(), step=self._step_count,
             pass_id=pass_id, pass_cursor=cursor,
@@ -801,14 +961,20 @@ class SGD:
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
         t0 = time.perf_counter()
-        path = self.save_checkpoint(ctx["dir"], pass_id=pass_id,
-                                    keep=ctx["keep"],
-                                    resume_at=(pass_id, cursor))
+        with observe_spans.span("checkpoint_sync",
+                                args={"step": self._step_count}):
+            path = self.save_checkpoint(ctx["dir"], pass_id=pass_id,
+                                        keep=ctx["keep"],
+                                        resume_at=(pass_id, cursor))
         ms = (time.perf_counter() - t0) * 1e3
+        observe_trainview.get_train_history().record_checkpoint(ms)
+        nbytes = ckpt.checkpoint_bytes(path)
         self.checkpoint_log.append({"step": self._step_count,
-                                    "step_thread_ms": ms,
-                                    "bytes": ckpt.checkpoint_bytes(path),
+                                    "step_thread_ms": ms, "bytes": nbytes,
                                     "overlapped": False})
+        if ctx["tele"].slog is not None:
+            ckpt.log_commit(ctx["tele"].slog, self._step_count, ms, nbytes,
+                            False, ms, pass_id, path)
 
     def _checkpoint_close(self, ctx):
         """Drain and stop the writer; re-raises a writer error so a
@@ -918,11 +1084,8 @@ class SGD:
             logger.warning(
                 "restore_checkpoint: %d checkpoint parameter(s) not in "
                 "model, skipped: %s", len(skipped), skipped[:8])
-        values = self.parameters.as_dict()
+        self.stage_parameters()
         with torch.no_grad():
-            for n, t in {**self._trainable, **self._static,
-                         **self._state}.items():
-                t.copy_(values[n].to(t.device, t.dtype))
             if opt_flat is not None:
                 # per-name template (the wire format), then re-pool
                 template = _tree_map(ckpt.to_numpy, self.optimizer.init_state(
@@ -936,12 +1099,152 @@ class SGD:
 
 
 def _stack_results(results):
-    """[(loss, stats)] of K steps -> (losses [K], stats with [K] leaves)."""
-    losses = torch.stack([loss for loss, _ in results])
-    stats = {name: {key: torch.stack([s[name][key] for _, s in results])
+    """[(loss, stats, finite)] of K steps -> (losses [K], stats with [K]
+    leaves, finite [K, n] or None)."""
+    losses = torch.stack([r[0] for r in results])
+    stats = {name: {key: torch.stack([r[1][name][key] for r in results])
                     for key in results[0][1][name]}
              for name in results[0][1]}
-    return losses, stats
+    finite = (None if results[0][2] is None
+              else torch.stack([r[2] for r in results]))
+    return losses, stats, finite
+
+
+def _train_metrics():
+    """The four process-wide training metrics under the JAX package's
+    series names (paddle_tpu/trainer.py:451-470); a training-fleet worker
+    labels them."""
+    m = observe_metrics.get_registry()
+    wid = observe_trainview.worker_id()
+    labels = {"worker": wid} if wid is not None else None
+    return (m.counter("paddle_tpu_train_steps_total",
+                      help="finalized training steps", labels=labels),
+            m.counter("paddle_tpu_train_examples_total",
+                      help="examples consumed by training steps",
+                      labels=labels),
+            m.gauge("paddle_tpu_train_loss",
+                    help="last finalized step loss", labels=labels),
+            m.gauge("paddle_tpu_train_examples_per_sec",
+                    help="examples/s of the last finalized step",
+                    labels=labels))
+
+
+class _Telemetry:
+    """One train() call's observability: the steplog (None unless
+    telemetry is on) and the Chrome-trace export of the spans when the run
+    ends, the sentinel, the four training metrics, the per-worker health
+    history and the finalize clock whose laps are the ``wall_ms`` of the
+    step and chunk records. Every method works on values finalize already
+    holds on the host."""
+
+    def __init__(self, trainer, num_passes, k):
+        dev = trainer.device
+        meta = {"phase": "train", "num_passes": int(num_passes),
+                "backend": dev.type,
+                "device_count": (torch.cuda.device_count()
+                                 if dev.type == "cuda" else 1),
+                "torch_version": torch.__version__,
+                "cuda_version": torch.version.cuda}
+        if dev.type == "cuda":
+            meta["device_name"] = torch.cuda.get_device_name(dev)
+        if k:
+            meta["steps_per_call"] = k
+        wid = observe_trainview.worker_id()
+        run_name = "train"
+        if wid is not None:
+            meta["worker"] = wid
+            run_name = observe_trainview.worker_run_name("train", wid)
+        self.tracer = observe_spans.get_tracer()
+        self.slog = observe_steplog.from_env(run_name=run_name, meta=meta)
+        self._prev_recording = self.tracer.record_events
+        if self.slog is not None:
+            # this run exports a trace: record every span, from now on
+            self.tracer.record_events = True
+            self.tracer.reset()
+        self.sentinel = observe_sentinel.from_env(
+            steplog=self.slog, run_name=run_name, worker=wid)
+        (self.m_steps, self.m_examples, self.m_loss,
+         self.m_examples_per_sec) = _train_metrics()
+        self.history = observe_trainview.get_train_history()
+        # the first interval starts with the run, so the first record
+        # includes the first step's warm-up (kernel loads, a capture)
+        self._last = time.perf_counter()
+
+    def lap(self):
+        """Milliseconds since the last lap (or reset)."""
+        now = time.perf_counter()
+        ms = (now - self._last) * 1e3
+        self._last = now
+        return ms
+
+    def reset_clock(self):
+        self._last = time.perf_counter()
+
+    def feed(self, step, fb, depth):
+        if self.slog is not None:
+            self.slog.log_feed(step=step, stall_ms=fb.stall_ms,
+                               convert_ms=fb.convert_ms,
+                               examples=fb.examples, depth=depth,
+                               bucket=fb.bucket, fill_tokens=fb.fill_tokens,
+                               pad_tokens=fb.pad_tokens)
+
+    def step(self, gstep, pass_id, b_id, cost, examples, metrics, feed_ms,
+             wall_ms, chunk_index):
+        """One finalized step. A step of a fused chunk (``chunk_index``
+        set) has no interval of its own and is only checked by the
+        sentinel; the chunk's ring record and interval came through
+        :meth:`chunk`."""
+        if self.slog is not None:
+            self.slog.log_step(step=gstep, pass_id=pass_id, batch_id=b_id,
+                               wall_ms=wall_ms, feed_ms=feed_ms, cost=cost,
+                               examples=examples, metrics=metrics)
+        self.m_steps.inc()
+        self.m_examples.inc(examples)
+        self.m_loss.set(cost)
+        if chunk_index is not None:
+            if self.sentinel is not None:
+                self.sentinel.check(gstep, cost, pass_id=pass_id,
+                                    chunk_index=chunk_index)
+            return
+        if wall_ms > 0:
+            self.m_examples_per_sec.set(examples / wall_ms * 1000.0)
+        self.history.record_step(wall_ms, examples=examples,
+                                 feed_stall_ms=feed_ms)
+        if self.sentinel is not None:
+            # halt mode raises TrainingAnomaly here, its black box dumped
+            self.sentinel.step(gstep, cost=cost, pass_id=pass_id,
+                               batch_id=b_id, wall_ms=round(wall_ms, 4))
+
+    def chunk(self, base_step, pass_id, b_id, costs, chunk):
+        """One fused chunk at its finalize, before its steps."""
+        wall_ms = self.lap()
+        n = len(costs)
+        if self.slog is not None:
+            self.slog.log_train_chunk(
+                step=base_step + 1, steps=n, pass_id=pass_id, batch_id=b_id,
+                wall_ms=wall_ms, feed_ms=chunk.stall_ms,
+                cost_first=float(costs[0]), cost_last=float(costs[-1]),
+                examples=chunk.examples)
+        if wall_ms > 0:
+            self.m_examples_per_sec.set(chunk.examples / wall_ms * 1000.0)
+        self.history.record_chunk(n, wall_ms, examples=chunk.examples,
+                                  feed_stall_ms=chunk.stall_ms)
+        if self.sentinel is not None:
+            self.sentinel.record_chunk(base_step + 1, costs, pass_id=pass_id,
+                                       batch_id=b_id,
+                                       wall_ms=round(wall_ms, 4))
+
+    def on_exception(self, exc):
+        if self.sentinel is not None:
+            self.sentinel.on_exception(exc)
+
+    def close(self):
+        if self.slog is not None:
+            try:
+                self.tracer.export(self.slog.trace_path)
+            finally:
+                self.tracer.record_events = self._prev_recording
+                self.slog.close()
 
 
 def default_event_handler(evt):

@@ -6,10 +6,11 @@ are typed, defaulted, override-able from the environment
 :func:`define_flag` at import time.
 
 The process flags the JAX package acts on are defined here with its
-defaults (paddle_tpu/utils/flags.py:74-101). Those this port does not act
-on yet are refused at any value but their default (``define_flag(...,
-ported=False)``): ``set_flag``, ``init(**flags)`` and the environment
-raise "... is not ported yet" rather than accept a value and ignore it.
+defaults (paddle_tpu/utils/flags.py:74-101). ``matmul_precision``, which
+this port does not act on yet, is refused at any value but its default
+(``define_flag(..., ported=False)``): ``set_flag``, ``init(**flags)`` and
+the environment raise "... is not ported yet" rather than accept a value
+and ignore it.
 Unknown flags stay accepted, as in the JAX package.
 """
 
@@ -96,15 +97,16 @@ define_flag("compute_dtype", "",
             "with float32 master params); empty = parameter dtype")
 define_flag("log_period", 100, "log train stats every N batches")
 define_flag("test_period", 0, "run a test pass every N batches; 0 = per pass")
-# the JAX package acts on these; this port does not yet
 define_flag("show_layer_stat", False,
-            "log per-layer output stats every log_period", ported=False)
+            "log per-layer output stats every log_period")
 define_flag("show_parameter_stats_period", 0,
-            "log per-parameter stats every N batches", ported=False)
+            "log per-parameter stats every N batches")
+define_flag("telemetry", "", "directory for per-step JSONL telemetry")
+define_flag("stats", False, "print + reset the global StatSet at every "
+            "EndPass")
+define_flag("trap_fpe", False, "fail fast on NaN/Inf: FloatingPointError at "
+            "the first step whose loss, gradients or updated parameters hold "
+            "one")
+# the JAX package acts on this; this port does not yet (it decides TF32)
 define_flag("matmul_precision", "highest",
             "matmul precision: default|high|highest", ported=False)
-define_flag("telemetry", "", "directory for per-step JSONL telemetry",
-            ported=False)
-define_flag("stats", False, "print + reset the global StatSet at every "
-            "EndPass", ported=False)
-define_flag("trap_fpe", False, "fail fast on NaN/Inf", ported=False)

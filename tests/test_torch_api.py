@@ -8,8 +8,10 @@ and on ``import paddle_tpu as paddle``, from the same parameters on the
 same seeded minibatches; and the process flags of ``init``: the
 ``test_period`` flag gives the same event stream in both packages
 (a TestResult every 2 steps, none at the end of the pass), ``log_period``
-logs every N-th batch, and the flags the port does not act on yet are
-refused at any value but their default.
+logs every N-th batch, ``telemetry``, ``stats``, ``trap_fpe``,
+``show_layer_stat`` and ``show_parameter_stats_period`` act as in the JAX
+package, and ``matmul_precision``, which the port does not act on yet, is
+refused at any value but its default.
 
 Tolerance 1e-5 (absolute, float32): the two packages sum the same float32
 products in different orders; the quick tour's three costs and its final
@@ -404,11 +406,123 @@ def test_log_period_logs_every_nth_batch():
     assert logged == ["pass 0 batch 0", "pass 0 batch 2", "pass 0 batch 4"]
 
 
-@pytest.mark.parametrize("name,value", [
-    ("trap_fpe", True), ("show_layer_stat", True),
-    ("show_parameter_stats_period", 10), ("matmul_precision", "default"),
-    ("telemetry", "/tmp/telemetry"), ("stats", True)])
-def test_unported_flags_are_refused_at_other_values(name, value):
+def _train_under_flags(pkg, samples, start, **flag_values):
+    """The MLP trained over ``samples`` (batches of 4) from the parameters
+    ``start`` (filled by the first call) under ``init(**flag_values)``;
+    returns the messages its package logged. The flags go back to their
+    defaults after."""
+    import logging
+
+    from paddle_tpu.utils.logger import logger as jlogger
+    from paddle_tpu_torch.utils.logger import logger
+
+    log = jlogger if pkg is jpaddle else logger
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log.addHandler(handler)
+    level = log.level
+    log.setLevel("INFO")
+    registry = jflags if pkg is jpaddle else flags
+    defaults = {k: registry.get_flag(k) for k in flag_values}
+    (jax_reset_names if pkg is jpaddle else reset_name_counters)()
+    pkg.init(use_tpu=False, **flag_values)
+    try:
+        y, cost = _mlp(pkg)
+        params = pkg.parameters.create(cost)
+        if start:
+            topo = Topology(cost)
+            params = Parameters(params_from_numpy(start, topo),
+                                topo.param_specs())
+        else:
+            start.update({n: np.array(params.get(n))
+                          for n in params.names()})
+        trainer = pkg.trainer.SGD(cost, params, pkg.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9))
+        trainer.train(pkg.batch(lambda: iter(samples), 4), num_passes=1)
+    finally:
+        pkg.init(use_tpu=False, **defaults)
+        log.setLevel(level)
+        log.removeHandler(handler)
+    return [r.getMessage() for r in records]
+
+
+def _stat_lines(messages, prefix):
+    """{(occurrence, name): [numbers]} of the lines ``<prefix> name: k=v
+    ...``; the occurrence counts the lines of the same name before."""
+    out, seen = {}, {}
+    for msg in messages:
+        if not msg.startswith(prefix + " "):
+            continue
+        name, _, rest = msg[len(prefix) + 1:].partition(": ")
+        n = seen[name] = seen.get(name, -1) + 1
+        out[(n, name)] = [float(kv.split("=")[1]) for kv in rest.split()]
+    return out
+
+
+def _check_telemetry(tmp_path, got_messages, want_messages):
+    from paddle_tpu.observe import steplog as jsteplog
+    from paddle_tpu_torch.observe import steplog
+
+    got = steplog.read_jsonl(str(tmp_path / "t" / "train.steps.jsonl"))
+    want = jsteplog.read_jsonl(str(tmp_path / "j" / "train.steps.jsonl"))
+    kinds = [r["type"] for r in got if r["type"] != "event"]
+    assert kinds == [r["type"] for r in want if r["type"] != "event"]
+    assert kinds.count("step") == 6
+    np.testing.assert_allclose(
+        [r["cost"] for r in got if r["type"] == "step"],
+        [r["cost"] for r in want if r["type"] == "step"], atol=TOL)
+
+
+def _check_stats(tmp_path, got, want):
+    from paddle_tpu.utils.stat import global_stats as jstats
+    from paddle_tpu_torch.utils.stat import global_stats
+
+    for messages in got, want:
+        assert "======= StatSet: [global] =======" in messages
+    names = sorted(m.split("(")[1].split(":")[0] for m in got
+                   if m.startswith("  Stat("))
+    assert names == sorted(m.split("(")[1].split(":")[0] for m in want
+                           if m.startswith("  Stat("))
+    assert {"feed", "train_step", "eval_readback"} <= set(names)
+    # the dump resets the StatSet at EndPass
+    assert global_stats.as_dict() == {} and jstats.as_dict() == {}
+
+
+def _check_layer_stat(tmp_path, got, want):
+    got, want = _stat_lines(got, "layer"), _stat_lines(want, "layer")
+    # the lines come in the same order; the cost layer's default name is
+    # __cost_N__ in the JAX package and __classification_cost_N__ here
+    assert len(got) == len(want) == 6 * 4
+    for (gkey, gvalues), (wkey, wvalues) in zip(got.items(), want.items()):
+        assert gkey == wkey or "cost" in gkey[1] and "cost" in wkey[1]
+        np.testing.assert_allclose(gvalues, wvalues, rtol=1e-4, atol=1e-6,
+                                   err_msg=str(wkey))
+
+
+def _check_param_stats(tmp_path, got, want):
+    got, want = _stat_lines(got, "param"), _stat_lines(want, "param")
+    # step 10 of 10, four parameters
+    assert sorted(got) == sorted(want) and len(got) == 4
+    for key, values in want.items():
+        np.testing.assert_allclose(got[key], values, rtol=1e-4, atol=1e-6,
+                                   err_msg=str(key))
+
+
+ACTED_ON = {
+    "telemetry": (lambda tmp, side, v: {"telemetry": str(tmp / side)},
+                  _check_telemetry),
+    "stats": (lambda tmp, side, v: {"stats": v}, _check_stats),
+    "show_layer_stat": (lambda tmp, side, v: {"show_layer_stat": v,
+                                              "log_period": 1},
+                        _check_layer_stat),
+    "show_parameter_stats_period": (
+        lambda tmp, side, v: {"show_parameter_stats_period": v},
+        _check_param_stats),
+}
+
+
+def _check_refused(name, value):
     default = flags.get_flag(name)
     with pytest.raises(EnforceError, match="flag %s=.* is not ported yet"
                        % name):
@@ -420,6 +534,56 @@ def test_unported_flags_are_refused_at_other_values(name, value):
     assert flags.get_flag(name) == default
     # the JAX package's defaults
     assert default == jflags.get_flag(name)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("trap_fpe", True), ("show_layer_stat", True),
+    ("show_parameter_stats_period", 10), ("matmul_precision", "default"),
+    ("telemetry", "/tmp/telemetry"), ("stats", True)])
+def test_unported_flags_are_refused_at_other_values(name, value, tmp_path,
+                                                    monkeypatch):
+    """The name is kept from when the port refused all six flags.
+    ``matmul_precision`` still is refused. The other five, set through
+    init(), now act in the port as in the JAX package on the same steps
+    from the same parameters: ``telemetry`` (a directory under
+    ``tmp_path`` rather than ``value``) writes the same step log,
+    ``stats`` dumps and resets the StatSet at EndPass,
+    ``show_layer_stat`` and ``show_parameter_stats_period`` log the JAX
+    package's lines (names and values, 1e-4 of the printed 6 digits), and
+    ``trap_fpe`` raises FloatingPointError at the step whose cost is NaN,
+    naming the tensor."""
+    from paddle_tpu.utils.stat import global_stats as jstats
+    from paddle_tpu_torch.utils.stat import global_stats
+
+    if name == "matmul_precision":
+        _check_refused(name, value)
+        return
+    for env in ("PADDLE_TPU_TELEMETRY", "PADDLE_TPU_TORCH_TELEMETRY",
+                "PADDLE_TPU_STATS", "PADDLE_TPU_TORCH_STATS"):
+        monkeypatch.delenv(env, raising=False)
+    # 10 steps for a period of 10, else 6
+    samples = _rows(6, 40 if name == "show_parameter_stats_period" else 24)
+    if name == "trap_fpe":
+        samples[9] = (np.full(20, np.nan, np.float32), 1)  # batch 2
+        start = {}
+        for pkg in (jpaddle, paddle):
+            with pytest.raises(FloatingPointError) as err:
+                _train_under_flags(pkg, samples, start, trap_fpe=value)
+        assert "step 3 (pass 0, batch 2): the cost holds a NaN" in str(
+            err.value)
+        assert flags.get_flag("trap_fpe") is False
+        return
+    flag_values, check = ACTED_ON[name]
+    global_stats.reset()
+    jstats.reset()
+    start = {}
+    want = _train_under_flags(jpaddle, samples, start,
+                              **flag_values(tmp_path, "j", value))
+    got = _train_under_flags(paddle, samples, start,
+                             **flag_values(tmp_path, "t", value))
+    check(tmp_path, got, want)
+    for key in flag_values(tmp_path, "t", value):
+        assert flags.get_flag(key) == jflags.get_flag(key)
 
 
 def test_ported_flags_keep_the_jax_defaults():

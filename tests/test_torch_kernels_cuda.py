@@ -1187,3 +1187,58 @@ def test_fused_loop_under_the_bf16_policy(cuda_device):
                                    eager.parameters.get(n), rtol=1e-6,
                                    atol=1e-6, err_msg=n)
     assert len(fused.graphs) == 1 and fused.graphs[0]["replays"] == 1
+
+
+@pytest.mark.cuda
+def test_attribution_capture_sees_the_lstm_kernels(cuda_device):
+    """observe.attribution.capture over 4 eager steps of the small LSTM
+    classifier: the CUDA kernel events include the LSTM forward and
+    backward kernels, the busy time is at most the device window, and both
+    idle shares lie in [0, 1)."""
+    from paddle_tpu_torch.observe import attribution
+
+    rng = np.random.RandomState(2)
+    batches = [[(rng.randint(0, 50, 12).tolist(), int(rng.randint(0, 2)))
+                for _ in range(8)] for _ in range(4)]
+    tr = _loop_trainer(cuda_device, _small_lstm)
+    _run_loop(tr, batches[:1])  # the kernels load before the capture
+    trace = attribution.capture(lambda: _run_loop(tr, batches),
+                                torch.cuda.synchronize)
+    assert trace is not None and trace.kernels
+    prof = attribution.step_profile(trace, len(batches),
+                                    ("lstm_fwd", "lstm_bwd"))
+    assert prof["kernels"]["lstm_fwd"]["ms_per_step"] > 0
+    assert prof["kernels"]["lstm_bwd"]["ms_per_step"] > 0
+    assert 0 < trace.busy_us <= trace.window_us
+    assert 0 <= prof["idle_share"] < 1
+    assert 0 <= prof["device_window_idle_share"] < 1
+    gap = attribution.dispatch_gap(trace, steps=len(batches))
+    assert gap["execs_per_step"] == prof["kernels_per_step"]
+
+
+@pytest.mark.cuda
+def test_trap_fpe_under_a_captured_graph(cuda_device):
+    """trap_fpe with steps_per_call=4: the finiteness flags are computed
+    inside the captured graph and read at the chunk's finalize. A first
+    run captures the graph with the flags; then a NaN written into the
+    embedding table makes the next replay's cost NaN, and
+    FloatingPointError names the cost of its step."""
+    from paddle_tpu_torch.utils import flags
+
+    rng = np.random.RandomState(3)
+    batches = [[(rng.randint(0, 50, 12).tolist(), int(rng.randint(0, 2)))
+                for _ in range(8)] for _ in range(4)]
+    tr = _loop_trainer(cuda_device, _small_lstm)
+    table = "lstm_emb.w0"  # the embedding table
+    flags.set_flag("trap_fpe", True)
+    try:
+        _run_loop(tr, batches, feed_pipeline=2, steps_per_call=4)
+        with torch.no_grad():
+            tr._trainable[table][batches[0][0][0][0]] = float("nan")
+        with pytest.raises(FloatingPointError,
+                           match=r"step 5 \(pass 0, batch 0\): the cost "
+                                 "holds a NaN"):
+            _run_loop(tr, batches, feed_pipeline=2, steps_per_call=4)
+    finally:
+        flags.set_flag("trap_fpe", False)
+    assert len(tr.graphs) == 1 and tr.graphs[0]["replays"] == 2
