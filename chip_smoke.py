@@ -129,6 +129,38 @@ result line:
            per-timestep probability held against the same bundle on the
            CPU, and the forward kernel's launches against the dispatched
            batches.
+    serve_continuous  the same tagger served continuously (serve/
+           scheduler.py) as benchmark/exp_serve.py serves it: (a) exported
+           with decode_slots=(48,), window 6, fp and int8, loaded on the
+           card and the CPU; (b) 144 sequences of the serving trace's
+           lengths (lognormal, median 8) through ContinuousScheduler, every
+           answer within 1e-4 of the CPU's whole-request answer, exactly
+           one K5 launch a window (the warmup's two included), no kernel
+           library built or loaded after the warmup and one K5 layout
+           throughout; (c) K5 and K1 at the decode shape (6, 48, 256) with
+           random carries, 8 rows of length 0 and 8 of length 1, float32
+           and bfloat16, against their plain versions, repeated bit for
+           bit, the rows of length 0 returning their carry exactly, timed
+           with the bound; (d) one open-loop trace (400 Poisson arrivals
+           at 2400 qps) replayed through the whole-request engine
+           (max_latency_ms 5) and the scheduler: sustained qps (exp_serve's
+           central 10-90 % completion window), p50/p99 latency, windows,
+           occupancy, every answer held; (e) 96 sessions of 3 chunks (50 ms
+           think time, idle spill after 20 ms) over the 48 slots, every
+           chunk against the CPU's answer for the session so far, spills,
+           restores, the mean spill copy and window times, a closed
+           session starting afresh, SessionGone and HTTP 410 for an
+           evicted one, /infer with session_id and /admin/session/close;
+           (f) (b)'s sequences through the int8 bundle: drift <= 0.05 and
+           argmax agreement >= 0.98 against the fp answers, exactly 2 K9
+           launches a window, K9 at its two decode products (M = 288)
+           against the plain version and dequant + torch.matmul, the
+           resident bytes; (g) generate() with the tagger as a next-token
+           model (vocab 1000, one slot): 64 tokens after a 5-token prime,
+           every feedback edge held in the card's whole-request forward,
+           the tokens equal to the CPU's up to the first near tie, one K5
+           launch a window, and ``cli generate --json`` printing the same
+           tokens.
 12. train_tagger  the tagger plus a sequence label and
            classification_cost, trained by trainer.SGD with
            Momentum(1e-3, 0.9) at batch 64: 3 ragged steps held against
@@ -277,8 +309,9 @@ result line:
 28. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
-           CTR's and the int8 movielens bundle's products; K5 and K6 also
-           at the NMT encoder's (30, 64, 512); K1 and K2 also inside the
+           CTR's and the int8 movielens bundle's products and the int8
+           decode window's; K5 and K6 also at the NMT encoder's (30, 64,
+           512), K5 also at the decode window; K1 and K2 also inside the
            train_loop phase's captured graphs), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
@@ -294,6 +327,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from unittest import mock
 
@@ -400,6 +434,28 @@ GRU_BWD_LAYOUTS = {256: "cluster", 512: "cluster"}
 TAGGER = {"dict_size": 1000, "label_size": 32, "emb_size": 32, "hidden": 256}
 TAGGER_BUILDER = "paddle_tpu_torch.models.text:sequence_tagging_gru"
 TAGGER_SEQ = 128
+# the tagger served continuously as benchmark/exp_serve.py serves it
+# (:154-168, defaults :1884-1887): 48 slots, windows of 6 steps; the
+# open-loop trace's Poisson arrivals at 2400 qps and lognormal lengths
+# (median 8, sigma 0.8, clipped to [1, 128]; :237-250)
+CONT_SLOTS, CONT_WINDOW = 48, 6
+CONT_SEQS = 3 * CONT_SLOTS   # three sequences a slot: every slot is reused
+CONT_TRACE, CONT_QPS = 400, 2400.0
+CONT_SESSIONS, CONT_CHUNKS, CONT_THINK_S = 96, 3, 0.05
+CONT_IDLE_SPILL_MS = 20.0    # below the think gap: parked sessions spill
+DECODE_SHAPE = (CONT_WINDOW, CONT_SLOTS, 256)
+# the int8 decode bundle's two K9 products a window (M = slots x window):
+# the GRU's input projection and the softmax head
+INT8_DECODE = [(CONT_SLOTS * CONT_WINDOW, 32, 768),
+               (CONT_SLOTS * CONT_WINDOW, 256, 32)]
+# streaming generation: the tagger as a next-token model (tests/
+# test_generate.py's shape at the serving width), one slot, window 6
+GEN_MODEL = {"dict_size": 1000, "label_size": 1000, "emb_size": 32,
+             "hidden": 256}
+GEN_PRIME, GEN_STEPS = [5, 17, 3, 42, 7], 64
+# greedy picks on random weights: the card and the CPU may part where the
+# top two probabilities lie within this of each other
+TIE_GAP = 1e-5
 # the tagger's cost is a sum over up to 128 per-timestep costs (about 440
 # at the start): its limits, card vs CPU (TOL_TRAIN) and bfloat16 vs
 # float32 (TOL_TRAIN_BF16), apply to the cost divided by max(1, |cost|)
@@ -1215,7 +1271,8 @@ def random_request(rng, rows, seq_len, vocab):
 
 
 def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER,
-           params=numpy_params, seed=SEED, quantize=None):
+           params=numpy_params, seed=SEED, quantize=None, decode_slots=None,
+           decode_window=None):
     """Export the model ``builder`` builds with ``params(topology, seed)``
     into ``tmp/sub``; returns the bundle directory."""
     from paddle_tpu_torch.serve.bundle import build_outputs
@@ -1226,7 +1283,8 @@ def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER,
     out_dir = os.path.join(tmp, sub)
     export_bundle(builder, params(Topology(build_outputs(builder)), seed),
                   out_dir, batch_sizes=batch_sizes, seq_len=seq_len,
-                  quantize=quantize)
+                  quantize=quantize, decode_slots=decode_slots,
+                  decode_window=decode_window)
     return out_dir
 
 
@@ -1443,6 +1501,593 @@ def phase_serve_tagger(torch, gk, tmp):
     if stats["batches_failed"] != 0:
         raise AssertionError("tagger batches failed: %r" % stats)
     return row
+
+
+def arrival_trace(n, qps, seed, vocab=TAGGER["dict_size"]):
+    """benchmark/exp_serve.py ``arrival_trace``: Poisson arrival offsets
+    (s) at ``qps`` and ``n`` sequences of lognormal lengths (median 8,
+    sigma 0.8, clipped to [1, 128]), drawn in that order from one seed."""
+    rng = np.random.RandomState(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / qps, size=n))
+    lengths = np.clip(np.rint(rng.lognormal(np.log(8.0), 0.8, size=n)), 1,
+                      TAGGER_SEQ).astype(np.int64)
+    return arrivals, [rng.randint(0, vocab, size=(int(k),)).astype(np.int32)
+                      for k in lengths]
+
+
+def whole_answers(torch, bundle, seqs, output="gru_tag_out"):
+    """``bundle``'s whole-request answer for each sequence alone: its
+    forward over 32 sequences at a time, padded to the longest (padding
+    is masked, so each answer is that of the sequence alone, at any
+    length), on the bundle's device."""
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+
+    out = []
+    for lo in range(0, len(seqs), 32):
+        part = seqs[lo:lo + 32]
+        ids = np.zeros((len(part), max(len(q) for q in part)), np.int32)
+        for i, q in enumerate(part):
+            ids[i, :len(q)] = q
+        lens = np.array([len(q) for q in part], np.int32)
+        val = bundle.topology.apply(bundle.params, {"word": SequenceBatch(
+            torch.from_numpy(ids).to(bundle.device),
+            torch.from_numpy(lens).to(bundle.device))})[output]
+        data = val.data.float().cpu().numpy()
+        out += [data[i, :len(q)] for i, q in enumerate(part)]
+    return out
+
+
+def check_all(got, want, what):
+    return max(check_close(g, w, what) for g, w in zip(got, want))
+
+
+def watch_decode(bundle, gk):
+    """From now on, record the K5 layout of every decode window of
+    ``bundle`` and every kernel-library build or load (ops/_build.py
+    reports each as a step-log event). Returns (layouts, events, undo)."""
+    from paddle_tpu_torch.ops import _build
+
+    layouts, events = [], []
+    step = bundle.decode_step
+
+    def recording(carry, flat, slots=None):
+        out = step(carry, flat, slots)
+        launch = gk.gru_seq_fwd.last_launch
+        layouts.append((launch["layout"], launch["rows_per_block"],
+                        launch["blocks"]))
+        return out
+
+    bundle.decode_step = recording
+    patcher = mock.patch.object(
+        _build.steplog, "emit_event",
+        side_effect=lambda name, secs: events.append(name))
+    patcher.start()
+
+    def undo():
+        del bundle.decode_step
+        patcher.stop()
+
+    return layouts, events, undo
+
+
+def run_continuous(gk, bundle, seqs, tmp, what):
+    """``seqs`` through a fresh ContinuousScheduler on ``bundle`` at once;
+    returns the answers and the run's numbers. The warmup (two windows)
+    runs in the constructor; from its end on no kernel library may build
+    or load and K5 must keep one layout."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.observe.steplog import StepLog
+    from paddle_tpu_torch.serve import ContinuousScheduler
+
+    log = StepLog(os.path.join(tmp, "steps_" + what), run_name="serve")
+    sched = ContinuousScheduler(bundle, metrics_registry=MetricsRegistry(),
+                                steplog=log, max_queue=None,
+                                model="tagger_" + what)
+    layouts, events, undo = watch_decode(bundle, gk)
+    try:
+        t0 = time.perf_counter()
+        futures = [sched.submit({"word": q}) for q in seqs]
+        got = [f.result(timeout=300)["gru_tag_out"] for f in futures]
+        wall = time.perf_counter() - t0
+    finally:
+        sched.stop()
+        undo()
+        log.close()
+    stats = sched.stats()
+    with open(log.path) as fh:
+        decodes = [r for r in map(json.loads, fh)
+                   if r["type"] == "serve_decode"]
+    if events or len(set(layouts)) != 1 or len(decodes) != \
+            stats["iterations"]:
+        raise AssertionError(
+            "%s: after the warmup %d kernel builds or loads (%s), K5 "
+            "layouts %s, %d serve_decode records for %d windows"
+            % (what, len(events), events, sorted(set(layouts)),
+               len(decodes), stats["iterations"]))
+    return got, {
+        "requests": stats["requests"], "windows": stats["iterations"],
+        "warmup_windows": 2, "slot_steps": stats["slot_steps"],
+        "admitted": stats["admitted"], "wall_s": wall,
+        "qps": len(seqs) / wall,
+        "window_ms_mean": stats["iter_ms_sum"] / stats["iterations"],
+        "occupancy_mean": float(np.mean([r["active"] for r in decodes]))
+        / CONT_SLOTS,
+        "k5_layout": list(layouts[0])}
+
+
+def decode_kernel_inputs(torch, kind, dtype, seed):
+    """One decode window at DECODE_SHAPE: random non-zero carries, 8 rows
+    of length 0, 8 of length 1 and the rest in [2, T]."""
+    steps, batch, hidden = DECODE_SHAPE
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(2, steps + 1, batch)
+    lens[:8], lens[8:16] = 0, 1
+    mask = (np.arange(steps)[:, None] < lens[None, :]).astype(np.float32)
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=DEVICE)
+
+    gates = 3 if kind == "gru" else 4
+    head = (dev(rng.randn(steps, batch, gates * hidden) * 0.5),
+            dev(mask, torch.float32))
+    if kind == "gru":
+        return head + (dev(rng.randn(hidden, 2 * hidden) / np.sqrt(hidden)),
+                       dev(rng.randn(hidden, hidden) / np.sqrt(hidden)),
+                       dev(rng.randn(batch, hidden) * 0.5))
+    return head + (dev(rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)),
+                   dev(rng.randn(3, hidden) * 0.3, torch.float32),
+                   dev(rng.randn(batch, hidden) * 0.5),
+                   dev(rng.randn(batch, hidden) * 0.5))
+
+
+def decode_kernel_rows(torch, gk, lk):
+    """K5 and K1 at one decode window (DECODE_SHAPE) with carried state,
+    float32 and bfloat16, against their plain versions; a repeat is the
+    same bit for bit and the rows of length 0 return their carry (h0, and
+    c0) exactly."""
+    rows = []
+    for kind, mod, fn, bound in (
+            ("gru", gk, "gru_seq_fwd", gru_bound_ms),
+            ("lstm", lk, "lstm_seq_fwd", lstm_bound_ms)):
+        kernel, reference = getattr(mod, fn), getattr(mod, fn + "_reference")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = decode_kernel_inputs(torch, kind, dtype, SEED + 40)
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            launch = dict(kernel.last_launch)
+            outs = [got] if kind == "gru" else list(got)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    [kernel(*args)] if kind == "gru" else kernel(*args),
+                    outs)):
+                raise AssertionError("%s %s at the decode shape: a repeat "
+                                     "differs" % (fn, name))
+            want = reference(*args)
+            err = bwd_error(outs, [want] if kind == "gru" else list(want))
+            carries = [args[-1]] if kind == "gru" else list(args[-2:])
+            idle_exact = all(torch.equal(seq[-1][:8], carry[:8])
+                             for seq, carry in zip(outs, carries))
+            steps, batch, hidden = DECODE_SHAPE
+            bound_ms, bound_by = bound(steps, batch, hidden, name)
+            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            row = {"phase": "serve_continuous", "check": "kernel_decode",
+                   "kernel": fn, "T": steps, "B": batch, "H": hidden,
+                   "dtype": name, "max_abs_err": err, "tol": tol,
+                   "idle_rows_keep_carry": idle_exact,
+                   "ms": time_ms(torch, lambda: kernel(*args),
+                                 queue_ahead=True),
+                   "plain_ms": time_ms(torch, lambda: reference(*args),
+                                       warmup=1),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "launch": launch}
+            emit(row)
+            if not (err <= tol and idle_exact):
+                raise AssertionError("%s at the decode shape: %r"
+                                     % (fn, row))
+            rows.append(row)
+    return rows
+
+
+def decode_int8_rows(torch, ik):
+    """K9 at the int8 decode bundle's two products (INT8_DECODE, float32)
+    against its plain version, with dequant + torch.matmul as the library
+    time, as phase kernel_int8 holds its shapes."""
+    rows = []
+    for i, (m, k, n) in enumerate(INT8_DECODE):
+        x, w_q, scale = int8_inputs(torch, m, k, n, torch.float32,
+                                    SEED + 50 + i)
+        y = ik.int8_matmul(x, w_q, scale)
+        torch.cuda.synchronize()
+        launch = dict(ik.int8_matmul.last_launch)
+        if not torch.equal(ik.int8_matmul(x, w_q, scale), y):
+            raise AssertionError("K9 at %s: a repeat differs" % ((m, k, n),))
+        rows.append(product_row(
+            "serve_continuous", "int8_matmul", (m, k, n), "float32",
+            rel_error(y, ik.int8_matmul_reference(x, w_q, scale)),
+            TOL_INT8["float32"],
+            time_ms(torch, lambda: ik.int8_matmul(x, w_q, scale),
+                    queue_ahead=True),
+            time_ms(torch, lambda: ik.int8_matmul_reference(x, w_q, scale),
+                    queue_ahead=True),
+            time_ms(torch, lambda: torch.matmul(x, w_q.float() * scale),
+                    queue_ahead=True),
+            m * k * 4 + k * n + 4 * n + m * n * 4, 2.0 * m * k * n, launch))
+    return rows
+
+
+def sustained_qps(completions, lo=0.1, hi=0.9):
+    """benchmark/exp_serve.py ``sustained_qps``: completions over the
+    central 10-90 % completion window."""
+    cs = sorted(completions)
+    i_lo, i_hi = int(len(cs) * lo), min(int(len(cs) * hi), len(cs) - 1)
+    if i_hi <= i_lo or cs[i_hi] <= cs[i_lo]:
+        return len(cs) / max(cs[-1], 1e-9)
+    return (i_hi - i_lo) / (cs[i_hi] - cs[i_lo])
+
+
+def drive_open_loop(submit, arrivals):
+    """benchmark/exp_serve.py ``drive_open_loop``: request i is submitted
+    at ``arrivals[i]`` s after the start whatever has completed (every
+    request due, then one sleep of at most 5 ms); latency counts from the
+    scheduled arrival. Returns (latencies ms, completion times s,
+    futures)."""
+    lock = threading.Lock()
+    latencies, completions, futures = [], [], []
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(arrivals):
+        now = time.perf_counter() - t0
+        while i < len(arrivals) and arrivals[i] <= now:
+            fut = submit(i)
+
+            def done(_, t_sched=float(arrivals[i])):
+                t_c = time.perf_counter() - t0
+                with lock:
+                    completions.append(t_c)
+                    latencies.append((t_c - t_sched) * 1e3)
+
+            fut.add_done_callback(done)
+            futures.append(fut)
+            i += 1
+        if i < len(arrivals):
+            time.sleep(min(max(arrivals[i] - (time.perf_counter() - t0),
+                               0.0), 0.005))
+    for fut in futures:
+        fut.result(timeout=300)
+    with lock:
+        return list(latencies), list(completions), futures
+
+
+def open_loop_row(mode, latencies, completions, **extra):
+    return dict({"phase": "serve_continuous", "check": "open_loop",
+                 "mode": mode, "requests": len(latencies),
+                 "offered_qps": CONT_QPS,
+                 "sustained_qps": sustained_qps(completions),
+                 "qps_whole_run": len(completions) / max(completions),
+                 "latency_ms_p50": float(np.percentile(latencies, 50)),
+                 "latency_ms_p99": float(np.percentile(latencies, 99))},
+                **extra)
+
+
+def open_loop_ab(torch, gk, fp, fp_cpu, tmp):
+    """One fixed-seed open-loop trace (CONT_TRACE requests at CONT_QPS)
+    replayed through the whole-request engine (max_latency_ms 5, every
+    sequence padded to 128) and through the scheduler; every answer held
+    against the CPU."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.observe.steplog import StepLog
+    from paddle_tpu_torch.serve import ContinuousScheduler, InferenceEngine
+
+    arrivals, seqs = arrival_trace(CONT_TRACE, CONT_QPS, SEED + 31)
+    want = whole_answers(torch, fp_cpu, seqs)
+    padded = []
+    for q in seqs:
+        ids = np.zeros((1, TAGGER_SEQ), np.int32)
+        ids[0, :len(q)] = q
+        padded.append({"word": ids, "word:lens": np.array([len(q)],
+                                                          np.int32)})
+    gk.reset_launches()
+    engine = InferenceEngine(fp, max_batch_size=32, max_latency_ms=5.0)
+    try:
+        lat_a, done_a, futs = drive_open_loop(
+            lambda i: engine.submit(padded[i]), arrivals)
+    finally:
+        engine.stop()
+    err_a = check_all([f.result()["gru_tag_out"][0, :len(q)]
+                       for f, q in zip(futs, seqs)], want, "open loop, engine")
+    est = engine.stats()
+    if gk.launches != est["warmup_batches"] + est["batches"]:
+        raise AssertionError("engine: %d K5 launches for %d batches"
+                             % (gk.launches, est["warmup_batches"]
+                                + est["batches"]))
+    row_a = open_loop_row(
+        "whole_request", lat_a, done_a, windows=est["batches"],
+        occupancy_mean=est["rows"] / (est["rows"] + est["pad_rows"]),
+        real_step_share=sum(map(len, seqs)) / (
+            (est["rows"] + est["pad_rows"]) * TAGGER_SEQ),
+        max_abs_err_vs_cpu=err_a)
+    emit(row_a)
+    log = StepLog(os.path.join(tmp, "steps_open_loop"), run_name="serve")
+    gk.reset_launches()
+    sched = ContinuousScheduler(fp, metrics_registry=MetricsRegistry(),
+                                steplog=log, max_queue=None)
+    try:
+        lat_b, done_b, futs = drive_open_loop(
+            lambda i: sched.submit({"word": seqs[i]}), arrivals)
+    finally:
+        sched.stop()
+        log.close()
+    err_b = check_all([f.result()["gru_tag_out"] for f in futs], want,
+                      "open loop, scheduler")
+    sst = sched.stats()
+    if gk.launches != sst["iterations"] + 2:
+        raise AssertionError("scheduler: %d K5 launches for %d windows"
+                             % (gk.launches, sst["iterations"] + 2))
+    with open(log.path) as fh:
+        active = [r["active"] for r in map(json.loads, fh)
+                  if r["type"] == "serve_decode"]
+    row_b = open_loop_row(
+        "continuous", lat_b, done_b, windows=sst["iterations"],
+        occupancy_mean=float(np.mean(active)) / CONT_SLOTS,
+        real_step_share=sst["slot_steps"] / (
+            sst["iterations"] * CONT_SLOTS * CONT_WINDOW),
+        window_ms_mean=sst["iter_ms_sum"] / sst["iterations"],
+        max_abs_err_vs_cpu=err_b)
+    emit(row_b)
+    return row_a, row_b
+
+
+def run_sessions(torch, fp, fp_cpu):
+    """CONT_SESSIONS sessions of CONT_CHUNKS chunks each (trace lengths,
+    CONT_THINK_S between a session's chunks) over the slots at once, idle
+    spill on: every chunk's answer equals the CPU's whole-request answer
+    for the session's sequence so far, at that chunk's positions."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.serve import ContinuousScheduler
+
+    _, chunks = arrival_trace(CONT_SESSIONS * CONT_CHUNKS, CONT_QPS,
+                              SEED + 32)
+    sessions = [chunks[k::CONT_SESSIONS] for k in range(CONT_SESSIONS)]
+    want = whole_answers(torch, fp_cpu, [np.concatenate(c) for c in sessions])
+    got = {}
+    sched = ContinuousScheduler(fp, metrics_registry=MetricsRegistry(),
+                                max_queue=None,
+                                idle_spill_ms=CONT_IDLE_SPILL_MS)
+    gate = threading.Barrier(CONT_SESSIONS + 1)
+
+    def client(k):
+        gate.wait()
+        for c, chunk in enumerate(sessions[k]):
+            got[k, c] = sched.infer({"word": chunk}, session_id="s%d" % k,
+                                    timeout=300)["gru_tag_out"]
+            time.sleep(CONT_THINK_S)
+
+    clients = [threading.Thread(target=client, args=(k,))
+               for k in range(CONT_SESSIONS)]
+    try:
+        for c in clients:
+            c.start()
+        gate.wait()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        errs = []
+        for k, parts in enumerate(sessions):
+            pos = 0
+            for c, chunk in enumerate(parts):
+                if (k, c) not in got:
+                    raise AssertionError("session %d chunk %d did not "
+                                         "complete" % (k, c))
+                errs.append(check_close(got[k, c],
+                                        want[k][pos:pos + len(chunk)],
+                                        "session %d chunk %d" % (k, c)))
+                pos += len(chunk)
+        # a closed session is gone from the scheduler (not evicted: its
+        # id starts afresh, as in the JAX package)
+        sched.close_session("s0")
+        if sched.has_session("s0"):
+            raise AssertionError("closed session s0 is still held")
+        fresh = sched.infer({"word": sessions[1][0]}, session_id="s0",
+                            timeout=300)["gru_tag_out"]
+        check_close(fresh, want[1][:len(sessions[1][0])], "reopened s0")
+    finally:
+        sched.stop()
+    st = sched.stats()
+    if not (st["spills"] > 0 and st["restores"] > 0):
+        raise AssertionError("sessions paged nothing: %r" % st)
+    return {"phase": "serve_continuous", "check": "sessions",
+            "sessions": CONT_SESSIONS, "chunks": CONT_CHUNKS,
+            "think_ms": CONT_THINK_S * 1e3,
+            "idle_spill_ms": CONT_IDLE_SPILL_MS, "wall_s": wall,
+            "spills": st["spills"], "restores": st["restores"],
+            "evictions": st["evictions"],
+            "spill_copy_ms_mean": st["spill_get_ms_sum"] / st["spills"],
+            "window_ms_mean": st["iter_ms_sum"] / st["iterations"],
+            "windows": st["iterations"], "max_abs_err_vs_cpu": max(errs)}
+
+
+def session_gone_and_http(torch, fp, fp_cpu):
+    """A one-session store: an evicted session raises SessionGone; over
+    HTTP one session through /infer in 3 chunks, /admin/session/close,
+    and 410 for an evicted one."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.serve import (ContinuousScheduler, SessionGone,
+                                        serve_in_thread)
+
+    _, chunks = arrival_trace(3, CONT_QPS, SEED + 33)
+    whole = np.concatenate(chunks)
+    want = whole_answers(torch, fp_cpu, [whole])[0]
+    sched = ContinuousScheduler(fp, metrics_registry=MetricsRegistry(),
+                                max_queue=None, session_capacity=1)
+    server, thread = serve_in_thread(fp, sched)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+
+    def post(path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req) as fh:
+                return 200, json.loads(fh.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    try:
+        got = []
+        for chunk in chunks:
+            code, body = post("/infer", {"inputs": {"word": chunk.tolist()},
+                                         "session_id": "web"})
+            if code != 200 or body["session_id"] != "web":
+                raise AssertionError("POST /infer: %d %r" % (code, body))
+            got.append(np.asarray(body["outputs"]["gru_tag_out"],
+                                  np.float32))
+        err = check_close(np.concatenate(got), want, "http session")
+        closed = post("/admin/session/close", {"session_id": "web"})
+        for sid in ("a", "b"):  # capacity 1: spilling b evicts a
+            sched.infer({"word": chunks[0]}, session_id=sid, timeout=300)
+            sched.spill_session(sid)
+        try:
+            sched.submit({"word": chunks[0]}, session_id="a")
+            raise AssertionError("evicted session a was served")
+        except SessionGone as exc:
+            gone = exc.reason
+        code, body = post("/infer", {"inputs": {"word": chunks[0].tolist()},
+                                     "session_id": "a"})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        sched.stop()
+    if closed != (200, {"ok": True, "session_id": "web"}) or gone != \
+            "capacity" or code != 410 or body["reason"] != "capacity":
+        raise AssertionError("session admin over HTTP: close %r, gone %r, "
+                             "%d %r" % (closed, gone, code, body))
+    return {"http_session_err": err, "close": closed[0], "gone": gone,
+            "http_evicted": code}
+
+
+def generation(torch, gk, tmp):
+    """``generate`` on the card with the next-token tagger (GEN_MODEL, one
+    slot, window 6): every feedback edge holds in the card bundle's
+    whole-request forward of the full sequence; the tokens equal the
+    CPU's up to the first step whose CPU top-two probabilities lie within
+    TIE_GAP; ``cli generate --json`` in process prints the same tokens."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.serve import generate, load_bundle
+
+    gen_dir = export(tmp, "generator", GEN_MODEL, (1,), TAGGER_SEQ,
+                     TAGGER_BUILDER, decode_slots=(1,),
+                     decode_window=CONT_WINDOW)
+    card = load_bundle(gen_dir, device=DEVICE)
+    cpu = load_bundle(gen_dir, device="cpu")
+    card.warmup_decoder()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(card, GEN_PRIME, GEN_STEPS)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = gk.launches
+    windows = -(-len(GEN_PRIME) // CONT_WINDOW) + GEN_STEPS - 1
+    if launches != windows:
+        raise AssertionError("generate: %d K5 launches for %d windows"
+                             % (launches, windows))
+    full = GEN_PRIME + out["generated"]
+    dist = whole_answers(torch, card, [np.array(full, np.int32)])[0]
+    broken = [t for t in range(len(GEN_PRIME) - 1, len(full) - 1)
+              if int(dist[t].argmax()) != full[t + 1]]
+    want = generate(cpu, GEN_PRIME, GEN_STEPS)["generated"]
+    cpu_dist = whole_answers(torch, cpu, [np.array(GEN_PRIME + want,
+                                               np.int32)])[0]
+    tie = None
+    for k in range(GEN_STEPS):
+        top = np.sort(cpu_dist[len(GEN_PRIME) - 1 + k])[-2:]
+        if top[1] - top[0] <= TIE_GAP:
+            tie = k
+            break
+    agree = out["generated"][:tie] == want[:tie]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["generate", gen_dir, "--prime",
+                       ",".join(map(str, GEN_PRIME)), "--steps",
+                       str(GEN_STEPS), "--json"])
+    printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+    row = {"phase": "serve_continuous", "check": "generate",
+           "config": GEN_MODEL, "prime": GEN_PRIME, "steps": GEN_STEPS,
+           "ms_per_call": call_ms, "windows": windows,
+           "ms_per_window": call_ms / windows, "k5_launches": launches,
+           "tokens_equal_cpu": out["generated"] == want,
+           "first_cpu_tie_step": tie, "broken_feedback_edges": broken,
+           "cli_tokens_equal": printed["generated"] == out["generated"]}
+    emit(row)
+    if broken or not agree or rc != 0 or not row["cli_tokens_equal"]:
+        raise AssertionError("generation on the card: %r" % row)
+    return row
+
+
+def phase_serve_continuous(torch, gk, ik, lk, tmp):
+    """The tagger served continuously at its serving width (module
+    docstring): (a) export fp and int8 with decode_slots=(48,), window 6;
+    (b) 144 sequences through the scheduler against the CPU, one K5
+    launch a window; (c) K5 and K1 at the decode shape; (d) the open-loop
+    A/B; (e) sessions with idle spill; (f) the int8 bundle; (g)
+    generation."""
+    from paddle_tpu_torch.serve import load_bundle
+
+    dirs = {q: export(tmp, "tagger_decode_%s" % (q or "fp"), TAGGER,
+                      (1, 8, 32), TAGGER_SEQ, TAGGER_BUILDER, quantize=q,
+                      decode_slots=(CONT_SLOTS,), decode_window=CONT_WINDOW)
+            for q in (None, "int8")}
+    fp, fp_cpu = (load_bundle(dirs[None], device=d) for d in (DEVICE, "cpu"))
+    q8, q8_cpu = (load_bundle(dirs["int8"], device=d)
+                  for d in (DEVICE, "cpu"))
+    _, seqs = arrival_trace(CONT_SEQS, CONT_QPS, SEED + 30)
+    want = whole_answers(torch, fp_cpu, seqs)
+    gk.reset_launches()  # the main path starts here (the warmup included)
+    ik.reset_launches()
+    fp_got, fp_run = run_continuous(gk, fp, seqs, tmp, "fp")
+    fp_launches = gk.launches
+    fp_run.update(max_abs_err_vs_cpu=check_all(fp_got, want, "continuous"),
+                  k5_launches=fp_launches, k9_launches=ik.launches)
+    emit(dict({"phase": "serve_continuous", "check": "continuous_fp",
+               "config": TAGGER, "slots": CONT_SLOTS,
+               "window": CONT_WINDOW}, **fp_run))
+    if fp_launches != fp_run["windows"] + 2 or ik.launches:
+        raise AssertionError("fp decode: %d K5 launches for %d windows, %d "
+                             "K9" % (fp_launches, fp_run["windows"] + 2,
+                                     ik.launches))
+    kernel_rows = decode_kernel_rows(torch, gk, lk)
+    row_a, row_b = open_loop_ab(torch, gk, fp, fp_cpu, tmp)
+    sessions = run_sessions(torch, fp, fp_cpu)
+    sessions.update(session_gone_and_http(torch, fp, fp_cpu))
+    emit(sessions)
+    gk.reset_launches()
+    ik.reset_launches()
+    q8_got, q8_run = run_continuous(gk, q8, seqs, tmp, "int8")
+    q8_launches = (gk.launches, ik.launches)
+    drift = max(float(np.abs(a - b).max()) for a, b in zip(q8_got, fp_got))
+    agreement = float(np.mean(np.concatenate(
+        [a.argmax(-1) == b.argmax(-1) for a, b in zip(q8_got, fp_got)])))
+    q8_run.update(
+        max_abs_err_vs_cpu=check_all(q8_got, whole_answers(torch, q8_cpu, seqs),
+                                     "int8 continuous"),
+        k5_launches=q8_launches[0], k9_launches=q8_launches[1],
+        drift_vs_fp=drift, argmax_agreement_vs_fp=agreement,
+        resident_bytes_fp=resident_bytes(fp),
+        resident_bytes_int8=resident_bytes(q8))
+    emit(dict({"phase": "serve_continuous", "check": "continuous_int8"},
+              **q8_run))
+    windows = q8_run["windows"] + 2
+    if q8_launches != (windows, 2 * windows) or not (
+            drift <= GATE_DRIFT and agreement >= GATE_AGREEMENT):
+        raise AssertionError("int8 decode: %r" % q8_run)
+    int8_rows = decode_int8_rows(torch, ik)
+    gen = generation(torch, gk, tmp)
+    return {"fp": fp_run, "int8": q8_run, "kernel_rows": kernel_rows,
+            "int8_rows": int8_rows, "open_loop": [row_a, row_b],
+            "sessions": sessions, "generate": gen}
 
 
 class Batch(list):
@@ -4315,6 +4960,7 @@ def main():
         trained_loop = phase_train_loop(torch, lk, tmp)
         trained_cli = phase_cli_train(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
+        continuous = phase_serve_continuous(torch, gk, ik, lk, tmp)
         served_resnet = phase_serve_resnet(torch, ck, tmp)
         int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
         int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
@@ -4445,7 +5091,24 @@ def main():
                                "batch at bucket 32 (float32)")],
                      "int8_matmul[K9,movielens_bucket32]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
-                     served_movielens["k9_launches"], "int8_matmul")]})
+                     served_movielens["k9_launches"], "int8_matmul"),
+        recurrent_entry(
+            [c for c in continuous["kernel_rows"]
+             if c["kernel"] == "gru_seq_fwd"],
+            "gru_seq_fwd[K5,decode_h256]",
+            "paddle_tpu/ops/pallas_kernels.py:668",
+            continuous["fp"]["k5_launches"], 256, "gru_seq_fwd",
+            path="%s (%d rows per block), carried h0, window %d"
+            % (continuous["kernel_rows"][0]["launch"]["layout"],
+               continuous["kernel_rows"][0]["launch"]["rows_per_block"],
+               CONT_WINDOW)),
+        kernel_entry([int8_sum(continuous["int8_rows"], INT8_DECODE,
+                               "the 2 int8 products of one int8 decode "
+                               "window of the tagger, 48 slots x 6 steps "
+                               "(float32)")],
+                     "int8_matmul[K9,tagger_decode_m288]",
+                     "paddle_tpu/ops/pallas_kernels.py:908",
+                     continuous["int8"]["k9_launches"], "int8_matmul")]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,12 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
         --builder paddle_tpu_torch.models.text:text_classification_lstm \
         --builder-kwargs '{"hidden": 256, "num_layers": 2}' \
         [--params params.npz | --seed 0 [--device cpu]] [--quantize int8] \
-        -o BUNDLE_DIR
-    python -m paddle_tpu_torch.cli serve BUNDLE_DIR [--selfcheck] [--port N]
+        [--decode-slots 48 --decode-window 6] -o BUNDLE_DIR
+    python -m paddle_tpu_torch.cli serve BUNDLE_DIR [--selfcheck] [--port N] \
+        [--continuous [--session-store N] [--idle-spill-ms MS] \
+         [--session-slo-ms MS] [--session-ttl-ms MS]]
+    python -m paddle_tpu_torch.cli generate BUNDLE_DIR --prime 5,17,3 \
+        [--steps 32] [--temperature 0] [--seed 0] [--json]
 
 A --config file is a Python module: either a v1 config (``from
 paddle.trainer_config_helpers import *``, ``settings()``, layers,
@@ -28,12 +32,15 @@ trace there, which ``observe`` summarizes (either package's directories).
 ``Parameters.to_npz`` (a JAX bundle's params.npz included); without it the
 parameters are initialised from ``--seed`` on the card (or ``--device
 cpu``). ``--quantize int8`` writes a quantized bundle (serve/quantize.py),
-which ``serve`` runs unchanged. ``serve`` runs on the card unless
-``--device cpu``.
+which ``serve`` runs unchanged. ``--decode-slots`` adds the
+continuous-batching decode step of a streamable topology, which ``serve
+--continuous`` runs through the scheduler with its session tier and
+``generate`` loops for streaming generation (serve/generate.py).
+``serve`` and ``generate`` run on the card unless ``--device cpu``.
 
 Not ported yet, and refused: ``checkgrad``, ``cluster_train``,
-``merge_model``, ``analyze``, ``generate``, ``observe --regress`` and
-``--fleet-stats``, and ``--trainer-count`` above 1.
+``merge_model``, ``analyze``, ``observe --regress`` and ``--fleet-stats``,
+``serve --session-store-addr``, and ``--trainer-count`` above 1.
 """
 
 import argparse
@@ -493,28 +500,59 @@ def cmd_export(args):
         builder, params, args.output,
         batch_sizes=[int(b) for b in args.batch_sizes.split(",") if b],
         seq_len=args.seq_len, name=args.name or None,
-        quantize=args.quantize or None)
+        decode_slots=[int(n) for n in args.decode_slots.split(",") if n],
+        decode_window=args.decode_window, quantize=args.quantize or None)
     summary = {"bundle": args.output, "name": manifest["name"],
                "buckets": [b["batch"] for b in manifest["buckets"]],
                "inputs": [i["name"] for i in manifest["inputs"]],
                "outputs": manifest["outputs"]}
     if manifest.get("quantization"):
         summary["quantization"] = manifest["quantization"]["scheme"]
+    if manifest.get("decode"):
+        summary["decode_slots"] = [b["slots"] for b in
+                                   manifest["decode"]["slots"]]
+        summary["decode_window"] = manifest["decode"]["window"]
     print(json.dumps(summary))
     return 0
 
 
+def _make_engine(bundle, args, warmup):
+    """The batching engine, or with ``--continuous`` the continuous
+    scheduler and its session tier (paddle_tpu/cli.py ``_make_engine``,
+    one engine per process: the replica fleets are not ported yet)."""
+    from paddle_tpu_torch.serve import ContinuousScheduler, InferenceEngine
+
+    if not args.continuous:
+        return InferenceEngine(bundle, max_batch_size=args.max_batch_size,
+                               max_latency_ms=args.max_latency_ms,
+                               warmup=warmup)
+    return ContinuousScheduler(
+        bundle, warmup=warmup, max_queue=None,
+        session_capacity=args.session_store,
+        idle_spill_ms=args.idle_spill_ms,
+        session_slo_grace_ms=args.session_slo_ms,
+        session_ttl_ms=args.session_ttl_ms)
+
+
 def cmd_serve(args):
     from paddle_tpu_torch.serve.bundle import load_bundle
-    from paddle_tpu_torch.serve.engine import InferenceEngine
     from paddle_tpu_torch.serve.server import make_server
 
+    enforce(not args.session_store_addr, "serve --session-store-addr is not "
+            "ported yet: it needs the remote session store "
+            "(serve/remote_store.py)")
     bundle = load_bundle(args.bundle, device=args.device or None)
+    if args.continuous and not bundle.has_decoder():
+        # refuse loudly: a silent fall-back to the padding engine would
+        # leave the operator believing continuous batching is active
+        print("--continuous: bundle %r has no decode artifacts; "
+              "re-export with --decode-slots" % bundle.name,
+              file=sys.stderr)
+        return 2
     # selfcheck warms synchronously (it IS the warmth gate); serving warms
     # on a thread so /readyz honestly answers 503 until every bucket ran
-    engine = InferenceEngine(bundle, max_batch_size=args.max_batch_size,
-                             max_latency_ms=args.max_latency_ms,
-                             warmup=True if args.selfcheck else "async")
+    engine = _make_engine(bundle, args,
+                          warmup=True if args.selfcheck else "async")
     try:
         if args.selfcheck:
             out = engine.infer(bundle.dummy_inputs(rows=1), timeout=300.0)
@@ -538,6 +576,22 @@ def cmd_serve(args):
         return 0
     finally:
         engine.stop()
+
+
+def cmd_generate(args):
+    """Streaming generation over a decode-capable bundle: the decode step
+    looped on the host, each picked y_t fed back as x_{t+1}; greedy at
+    --temperature 0 (default), seeded sampling above. Prints one JSON
+    line, as the JAX CLI does (``--json`` names that output)."""
+    from paddle_tpu_torch.serve import load_bundle
+    from paddle_tpu_torch.serve.generate import generate
+
+    bundle = load_bundle(args.bundle, device=args.device or None)
+    prime = [int(t) for t in args.prime.split(",") if t.strip()]
+    out = generate(bundle, prime, args.steps, temperature=args.temperature,
+                   seed=args.seed, slots=args.slots)
+    print(json.dumps(out))
+    return 0
 
 
 def main(argv=None):
@@ -611,8 +665,7 @@ def main(argv=None):
             ("checkgrad", "checkgrad.py"),
             ("cluster_train", "distributed/ (the launcher and coordinator)"),
             ("merge_model", "the model proto (proto/)"),
-            ("analyze", "analyze/"),
-            ("generate", "the serving scheduler (serve/scheduler.py)")):
+            ("analyze", "analyze/")):
         p = sub.add_parser(verb, help="not ported yet")
         p.set_defaults(fn=_not_ported(verb, needs))
 
@@ -640,7 +693,35 @@ def main(argv=None):
                         "weights per-output-channel symmetric int8 with "
                         "float32 scale sidecars (biases, norm and embedding "
                         "tables and recurrent cells stay fp)")
+    p.add_argument("--decode-slots", default="",
+                   help="comma-separated slot capacities: add the "
+                        "continuous-batching decode step (streamable "
+                        "recurrent topologies only)")
+    p.add_argument("--decode-window", type=int, default=None,
+                   help="decode timesteps per dispatch (default 8)")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("generate", help="streaming generation")
+    p.add_argument("bundle", help="decode-capable bundle directory "
+                                  "(exported with --decode-slots)")
+    p.add_argument("--prime", required=True,
+                   help="comma-separated token ids to prime the carry "
+                        "with (e.g. 5,17,3)")
+    p.add_argument("--steps", type=int, default=32,
+                   help="tokens to generate after the prime")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy argmax; >0 samples from the "
+                        "temperature-scaled distribution")
+    p.add_argument("--seed", type=int, default=0,
+                   help="sampling seed (reproducible output)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="decode slot capacity to use (default: the "
+                        "largest exported)")
+    p.add_argument("--json", action="store_true",
+                   help="the output is one JSON line (always)")
+    p.add_argument("--device", default="",
+                   help="torch device (default: the card)")
+    p.set_defaults(fn=cmd_generate)
 
     p = sub.add_parser("serve", help="serve a bundle over HTTP")
     p.add_argument("bundle")
@@ -652,6 +733,27 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8866)
     p.add_argument("--max-batch-size", type=int, default=None)
     p.add_argument("--max-latency-ms", type=float, default=5.0)
+    p.add_argument("--continuous", action="store_true",
+                   help="front a decode-capable bundle with the "
+                        "continuous-batching scheduler instead of the "
+                        "padding engine")
+    p.add_argument("--session-store", type=int, default=4096,
+                   help="session tier (--continuous): host-store capacity "
+                        "in suspended sessions; an evicted session answers "
+                        "410 Gone")
+    p.add_argument("--idle-spill-ms", type=float, default=None,
+                   help="session tier: spill a parked session's carry to "
+                        "the host store after this much idle time "
+                        "(default: spill only under slot pressure)")
+    p.add_argument("--session-slo-ms", type=float, default=None,
+                   help="session tier: eviction passes over sessions "
+                        "touched within this SLO grace window while any "
+                        "other candidate exists")
+    p.add_argument("--session-ttl-ms", type=float, default=None,
+                   help="session tier: evict suspended sessions idle past "
+                        "this TTL (reason=ttl)")
+    p.add_argument("--session-store-addr", default="", metavar="HOST:PORT",
+                   help="not ported yet")
     p.set_defaults(fn=cmd_serve)
 
     args, extra = parser.parse_known_args(argv)

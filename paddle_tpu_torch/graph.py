@@ -105,6 +105,13 @@ class Context:
         self.mode = mode
         self.generator = generator
         self.state_updates = {}
+        # a dict in a streaming decode window (Topology.apply_decode): the
+        # recurrent layers boot from decode_state[layer_name] ([leaf, ...];
+        # zeros where absent) and write their final carry to
+        # decode_state_out, which the serving scheduler threads into the
+        # next window
+        self.decode_state = None
+        self.decode_state_out = None
 
     @property
     def is_train(self):

@@ -17,6 +17,32 @@ from paddle_tpu_torch.ops import rnn as rnn_ops
 from paddle_tpu_torch.utils.error import enforce
 
 
+def _run_seq_scan(x, reverse, scan_fn, ctx, name):
+    """Run a masked recurrent scan over the sequence ``x``
+    (paddle_tpu/layer/recurrent.py ``_run_seq_scan`` without its packed
+    branch): ``scan_fn(reverse, state) -> (h_seq [B, T, H], [final carry
+    leaf, ...])``.
+
+    In a streaming decode window (``ctx.decode_state`` is a dict,
+    ``Topology.apply_decode``) the scan boots from
+    ``decode_state[name]`` (zeros when absent) and its final carry goes to
+    ``ctx.decode_state_out[name]``, which the serving scheduler threads
+    into the next window. The scan is masked, so a slot of length 0 this
+    window passes its carry through untouched. A reverse layer reads
+    future timesteps and refuses decode mode."""
+    dstate = ctx.decode_state
+    if dstate is None:
+        h_seq, _ = scan_fn(reverse, None)
+        return SequenceBatch(h_seq, x.lengths)
+    enforce(not reverse,
+            "reverse recurrent layer %r cannot stream: a right-to-left "
+            "scan reads future timesteps the decode window has not seen "
+            "yet", name)
+    h_seq, final = scan_fn(False, dstate.get(name))
+    ctx.decode_state_out[name] = list(final)
+    return SequenceBatch(h_seq, x.lengths)
+
+
 # The default of ``gate_bias_attr``, as paddle_tpu/layer/recurrent.py: any
 # other value (None included) selects the JAX package's split gate-bias
 # parameterization, which is not ported.
@@ -76,12 +102,19 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
             gates = gates + bias[: 4 * size]
             if peephole:
                 w_peep = bias[4 * size:]
-        h_seq, _ = rnn_ops.lstm_scan(
-            gates, x.mask(gates.dtype), w_in=None, b=None,
-            w_rec=params[wspec.name], gate_act=g_act.apply,
-            state_act=s_act.apply, reverse=reverse, use_peephole=peephole,
-            w_peep=w_peep, standard_acts=standard_acts, out_act=o_act.apply)
-        return SequenceBatch(h_seq, x.lengths)
+
+        def scan_fn(rev, state):
+            h_seq, (h_f, c_f) = rnn_ops.lstm_scan(
+                gates, x.mask(gates.dtype), w_in=None, b=None,
+                w_rec=params[wspec.name],
+                h0=None if state is None else state[0],
+                c0=None if state is None else state[1],
+                gate_act=g_act.apply, state_act=s_act.apply, reverse=rev,
+                use_peephole=peephole, w_peep=w_peep,
+                standard_acts=standard_acts, out_act=o_act.apply)
+            return h_seq, [h_f, c_f]
+
+        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("lstmemory", forward, [input], name=name, size=size,
@@ -101,8 +134,8 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
     gru_step), and a 3*size bias added to the projection before the scan.
     ``act`` is the candidate activation (default tanh), ``gate_act`` the
     gates' (default sigmoid). ``reverse=True`` runs each sequence right
-    to left (``ops.rnn.gru_scan``). The streaming decode state comes with
-    a later part of the port.
+    to left (``ops.rnn.gru_scan``). In a decode window the scan carries
+    its state across windows (``_run_seq_scan``).
     """
     size = size or input.size // 3
     enforce(input.size == 3 * size, "grumemory input.size must be 3*size")
@@ -122,12 +155,19 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
         if bspec is not None:
             proj = proj + params[bspec.name]
         w = params[wspec.name]
-        h_seq, _ = rnn_ops.gru_scan(
-            proj, x.mask(proj.dtype), w_in=None, b=None,
-            w_rec_rz=w[:, :2 * size], w_rec_c=w[:, 2 * size:],
-            gate_act=g_act.apply, state_act=s_act.apply, reverse=reverse,
-            standard_acts=standard_acts)
-        return SequenceBatch(h_seq, x.lengths)
+
+        def scan_fn(rev, state):
+            # the final carry is h_seq's last step (masked steps carry h
+            # forward), one K5 launch on a CUDA tensor
+            h_seq, h_f = rnn_ops.gru_scan(
+                proj, x.mask(proj.dtype), w_in=None, b=None,
+                w_rec_rz=w[:, :2 * size], w_rec_c=w[:, 2 * size:],
+                h0=None if state is None else state[0],
+                gate_act=g_act.apply, state_act=s_act.apply, reverse=rev,
+                standard_acts=standard_acts)
+            return h_seq, [h_f]
+
+        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("grumemory", forward, [input], name=name, size=size,

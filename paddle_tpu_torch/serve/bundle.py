@@ -14,6 +14,14 @@ tensors int8 and its scale sidecars float32 on the device; every forward
 of ``run`` dequantizes the conv weights for that forward
 (``quantize.dequant_for_forward``), and ``fc`` runs its int8 weight in the
 dequant-fused kernel.
+
+A bundle exported with ``decode_slots`` also runs the continuous-batching
+decode step (serve/export.py ``_make_decode_step``) for the scheduler
+(serve/scheduler.py): ``zero_carry``, ``decode_step``, and the session
+tier's ``carry_slice`` / ``carry_insert``. The step runs eagerly, one
+kernel launch per recurrent layer a window; its shapes are the slot
+capacity and the window, so admission and retirement change tensor values
+only.
 """
 
 import importlib
@@ -95,6 +103,7 @@ class Bundle:
         # the engine's async warmup thread and its batcher worker may both
         # run a forward; one at a time keeps the device work ordered
         self._run_lock = threading.Lock()
+        self._decode_step = None
 
     # -- bucket/shape machinery ---------------------------------------------
     def batch_sizes(self):
@@ -194,6 +203,136 @@ class Bundle:
         for bucket in self.buckets:
             self.run(self.dummy_inputs(bucket["batch"]), bucket["batch"])
         return len(self.buckets)
+
+    # -- continuous-batching decode side ------------------------------------
+    def has_decoder(self):
+        """True when the bundle was exported with ``decode_slots``."""
+        return bool(self.manifest.get("decode"))
+
+    @property
+    def decode_window(self):
+        """Timesteps per decode dispatch (None without a decoder)."""
+        dec = self.manifest.get("decode")
+        return int(dec["window"]) if dec else None
+
+    def decode_slot_sizes(self):
+        dec = self.manifest.get("decode") or {"slots": []}
+        return sorted(int(b["slots"]) for b in dec["slots"])
+
+    def _decode_bucket(self, slots=None):
+        dec = self.manifest.get("decode")
+        if not dec:
+            raise ValueError(
+                "bundle %s has no decode artifacts; re-export with "
+                "decode_slots= for continuous batching" % self.name)
+        buckets = sorted(dec["slots"], key=lambda b: int(b["slots"]))
+        if slots is None:
+            return buckets[-1]
+        for b in buckets:
+            if int(b["slots"]) == int(slots):
+                return b
+        raise ValueError(
+            "no decode artifact for slot capacity %r (exported: %s)"
+            % (slots, [int(b["slots"]) for b in buckets]))
+
+    def _decode_fn(self):
+        """The decode step over the rebuilt topology (built once)."""
+        if self._decode_step is None:
+            from paddle_tpu_torch.serve.export import _make_decode_step
+
+            specs = [s for s in self.inputs if s["kind"] in SEQ_KINDS]
+            self._decode_step = _make_decode_step(
+                self.topology, specs, self._out_names, self.quantization)
+        return self._decode_step
+
+    def zero_carry(self, slots=None, device=None):
+        """The virgin recurrent carry for one slot capacity,
+        ``{recurrent_layer: [zeros [slots, ...], ...]}`` per the manifest's
+        carry spec, on ``device`` (default: the bundle's)."""
+        slots = int(self._decode_bucket(slots)["slots"])
+        device = self.device if device is None else torch.device(device)
+        return {layer: [torch.zeros((slots,) + tuple(leaf["shape_suffix"]),
+                                    dtype=getattr(torch, leaf["dtype"]),
+                                    device=device)
+                        for leaf in leaves]
+                for layer, leaves in self.manifest["decode"]["carry"].items()}
+
+    def decode_step(self, carry, flat, slots=None):
+        """Run ONE decode window: ``(carry, flat) -> (carry', outputs)``.
+        ``flat`` is ``dummy_decode_flat``'s dict (numpy or tensors); the
+        new carry and the [slots, window, ...] outputs stay on the device
+        (the scheduler's one readback a window is its own). The step
+        returns new carry tensors and never writes ``carry``: callers
+        rebind (``carry, outs = bundle.decode_step(carry, ...)``)."""
+        slots = int(self._decode_bucket(slots)["slots"])
+        lens = flat["lens"]
+        if np.shape(lens) != (slots,):
+            raise ValueError("decode step for %d slots got lens of shape %s"
+                             % (slots, np.shape(lens)))
+        feed = {k: torch.as_tensor(v, device=self.device)
+                for k, v in flat.items()}
+        with self._run_lock:
+            return self._decode_fn()(self.params, carry, feed)
+
+    def carry_slice(self, carry, index):
+        """One slot's carry rows as fresh device copies, ``{layer: [row,
+        ...]}`` with the slot dimension sliced off: the spill extraction of
+        the session tier, enqueued on the current stream, so a later
+        window's step cannot overwrite what it reads."""
+        with torch.inference_mode():
+            return {layer: [leaf[int(index)].clone() for leaf in leaves]
+                    for layer, leaves in carry.items()}
+
+    def carry_insert(self, carry, rows, index):
+        """Write one session's (host) carry rows into slot ``index``: the
+        reset=0 restore path. Returns the new carry; callers rebind
+        (``carry = bundle.carry_insert(carry, ...)``), as with the step."""
+        out = {}
+        with torch.inference_mode():
+            for layer, leaves in carry.items():
+                new = []
+                for leaf, row in zip(leaves, rows[layer]):
+                    leaf = leaf.clone()
+                    # a copy: a store's rows may be read-only arrays
+                    leaf[int(index)] = torch.as_tensor(
+                        row if torch.is_tensor(row) else np.array(row),
+                        dtype=leaf.dtype, device=leaf.device)
+                    new.append(leaf)
+                out[layer] = new
+        return out
+
+    def dummy_decode_flat(self, slots=None, window=None):
+        """Zero-valued decode-step inputs (numpy): ``lens`` and ``reset``
+        [slots] and one [slots, window(, dim)] window per sequence
+        input."""
+        slots = int(self._decode_bucket(slots)["slots"])
+        window = int(window or self.decode_window)
+        flat = {"lens": np.zeros((slots,), np.int32),
+                "reset": np.zeros((slots,), np.float32)}
+        for spec in self.inputs:
+            shape = ((slots, window) if spec["kind"] == "seq_index"
+                     else (slots, window, spec["dim"]))
+            flat[spec["name"]] = np.zeros(shape, np.dtype(spec["dtype"]))
+        return flat
+
+    def warmup_decoder(self, slots=None):
+        """Run the decode step twice (a fresh carry, then the carry it
+        returned) and one slice/insert round trip, as the JAX package's
+        warmup does: the kernel libraries load and the allocator reaches
+        its steady state before traffic, so paging churn after it builds
+        and loads nothing. Returns the slot capacity."""
+        slot_count = int(self._decode_bucket(slots)["slots"])
+        carry = self.zero_carry(slot_count)
+        for _ in range(2):
+            carry, _ = self.decode_step(
+                carry, self.dummy_decode_flat(slot_count), slot_count)
+        rows = self.carry_slice(carry, 0)
+        host = {layer: [leaf.cpu().numpy() for leaf in leaves]
+                for layer, leaves in rows.items()}
+        self.carry_insert(carry, host, 0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return slot_count
 
     def infer(self, flat_inputs, rows=None):
         """Pad ``flat_inputs`` to the nearest bucket, run, slice the

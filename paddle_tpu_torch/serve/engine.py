@@ -25,6 +25,20 @@ from paddle_tpu_torch.serve.bundle import flat_keys, pad_rows
 from paddle_tpu_torch.utils.logger import logger
 
 
+class Overloaded(RuntimeError):
+    """Admission control rejected a request before it entered a queue
+    (paddle_tpu/serve/engine.py): the fast 429 path of serve/server.py.
+    Raised by the continuous scheduler's queue bound (``max_queue``)."""
+
+    def __init__(self, message, model=None, priority=None, reason=None,
+                 queued=None):
+        super().__init__(message)
+        self.model = model
+        self.priority = priority
+        self.reason = reason or "queue_full"
+        self.queued = queued
+
+
 class _Request:
     __slots__ = ("inputs", "rows", "future", "t_enqueue")
 

@@ -100,9 +100,33 @@ class Topology:
         enforce(mode in ("test", "train"), "Topology.apply: mode must be "
                 "'test' or 'train', got %r", mode)
         ctx = Context(mode=mode, generator=generator)
+        out = self._evaluate(params, feed, ctx, outputs)
+        if state_updates is not None:
+            state_updates.update(ctx.state_updates)
+        return out
+
+    def apply_decode(self, params, feed, decode_state, outputs=None):
+        """Evaluate the DAG as ONE streaming window of a longer sequence
+        (paddle_tpu/topology.py apply_decode): the recurrent layers boot
+        from ``decode_state`` (``{layer_name: [carry leaf, ...]}``; a
+        missing layer boots from zeros) and their final carries come back,
+        so the caller can thread them into the next window. Test mode.
+
+        Returns ``({layer_name: value}, {layer_name: [carry leaf, ...]})``;
+        the continuous-batching decode step (serve/export.py) is built on
+        it. Reverse recurrent layers refuse (layer/recurrent.py), and
+        layers that mix time positions are refused at export
+        (serve/export.py ``_check_streamable``)."""
+        ctx = Context(mode="test")
+        ctx.decode_state = {} if decode_state is None else decode_state
+        ctx.decode_state_out = {}
+        out = self._evaluate(params, feed, ctx, outputs)
+        return out, ctx.decode_state_out
+
+    def _evaluate(self, params, feed, ctx, outputs):
         cd = dtype_mod.compute_dtype()
         values = {}
-        grad_mode = (torch.inference_mode() if mode == "test"
+        grad_mode = (torch.inference_mode() if ctx.mode == "test"
                      else contextlib.nullcontext())
         with grad_mode:
             if cd is not None:
@@ -127,10 +151,7 @@ class Topology:
                         [p.name for p in node.inputs]))
                     raise
             wanted = outputs or [o.name for o in self.outputs]
-            out = {name: _external(values[name]) for name in wanted}
-        if state_updates is not None:
-            state_updates.update(ctx.state_updates)
-        return out
+            return {name: _external(values[name]) for name in wanted}
 
     def data_types(self):
         """[(name, InputType)] in declaration order (the default feeding

@@ -565,6 +565,10 @@ def test_unported_flags_are_refused_at_other_values(name, value, tmp_path,
     samples = _rows(6, 40 if name == "show_parameter_stats_period" else 24)
     if name == "trap_fpe":
         samples[9] = (np.full(20, np.nan, np.float32), 1)  # batch 2
+        # JAX's trap is jax_debug_nans, which a program compiled before
+        # it was switched on (by an earlier test in this process) skips:
+        # start from empty compile caches, as a fresh process does
+        jax.clear_caches()
         start = {}
         for pkg in (jpaddle, paddle):
             with pytest.raises(FloatingPointError) as err:

@@ -432,7 +432,8 @@ def test_cli_test_and_time(tmp_path, capsys):
     (["cluster_train", "--num-processes", "2"], "not ported yet"),
     (["merge_model", "--params", "p.tar", "-o", "m.tar"], "not ported yet"),
     (["analyze", "--all"], "not ported yet"),
-    (["generate", "b", "--prime", "1"], "not ported yet"),
+    (["serve", "b", "--continuous", "--session-store-addr", "h:1"],
+     "not ported yet"),
     (["observe", ".", "--regress", "BASELINE.json"], "not ported yet"),
     (["observe", ".", "--fleet-stats", "h:1"], "not ported yet")])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):

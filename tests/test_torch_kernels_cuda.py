@@ -298,6 +298,63 @@ def test_gru_bwd_kernel_matches_plain_version_on_card(cuda_device, dtype,
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+DECODE_SHAPE = (6, 48, 256)  # one decode window of the served tagger
+
+
+def _decode_window_inputs(rng, device, dtype, kind):
+    """One decode window: random non-zero carries, 8 rows of length 0 (an
+    idle slot), 8 of length 1 and the rest in [2, T]."""
+    steps, batch, hidden = DECODE_SHAPE
+    lens = rng.randint(2, steps + 1, batch)
+    lens[:8], lens[8:16] = 0, 1
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    gates = 3 if kind == "gru" else 4
+    head = (dev(rng.randn(steps, batch, gates * hidden) * 0.5),
+            dev(np.arange(steps)[:, None] < lens[None, :], torch.float32))
+    if kind == "gru":
+        return head + (dev(rng.randn(hidden, 2 * hidden) / np.sqrt(hidden)),
+                       dev(rng.randn(hidden, hidden) / np.sqrt(hidden)),
+                       dev(rng.randn(batch, hidden) * 0.5))
+    return head + (dev(rng.randn(hidden, 4 * hidden) / np.sqrt(hidden)),
+                   dev(rng.randn(3, hidden) * 0.3, torch.float32),
+                   dev(rng.randn(batch, hidden) * 0.5),
+                   dev(rng.randn(batch, hidden) * 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_decode_window_kernels_carry_state_on_card(cuda_device, kind, dtype,
+                                                   tol):
+    """K5 and K1 at one decode window of the continuous scheduler (T 6,
+    48 slots, H 256) with carried h0 (and c0): against their plain
+    versions, a repeat bit-identical, and the rows of length 0 return
+    their carry exactly (an idle slot's state passes through)."""
+    mod, fn = (gk, "gru_seq_fwd") if kind == "gru" else (lk, "lstm_seq_fwd")
+    kernel, reference = getattr(mod, fn), getattr(mod, fn + "_reference")
+    args = _decode_window_inputs(np.random.RandomState(6), cuda_device,
+                                 dtype, kind)
+
+    def outputs():
+        got = kernel(*args)
+        return [got] if kind == "gru" else list(got)
+
+    got = outputs()
+    want = reference(*args)
+    want = [want] if kind == "gru" else list(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=tol)
+    assert all(torch.equal(a, b) for a, b in zip(outputs(), got))
+    carries = args[-1:] if kind == "gru" else args[-2:]
+    for seq, carry in zip(got, carries):
+        assert torch.equal(seq[-1][:8], carry[:8])
+        assert torch.equal(seq[:, :8], carry[:8].expand(6, 8, -1))
+
+
 def _lstm_bwd_inputs(rng, device, dtype, steps, batch, hidden):
     """Numpy-seeded LSTM backward inputs; lengths include T, 0 and 1."""
     lens = rng.randint(0, steps + 1, batch)

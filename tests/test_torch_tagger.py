@@ -356,12 +356,23 @@ def test_cli_export_and_serve_the_tagger(tmp_path, capsys):
 
 
 def test_export_refuses_decode_slots(tmp_path):
+    """The decode export takes positive slot capacities and windows only
+    (tests/test_torch_scheduler.py holds the decode block against the JAX
+    package's)."""
     reset_name_counters()
     params = Parameters.create(Topology(sequence_tagging_gru(**SMALL)),
                                device="cpu")
-    with pytest.raises(EnforceError, match="not ported yet"):
-        export_bundle(parse_builder(BUILDER, SMALL), params, str(tmp_path),
-                      seq_len=SEQ_LEN, decode_slots=(4,))
+    builder = parse_builder(BUILDER, SMALL)
+    with pytest.raises(EnforceError, match="decode_slots must be positive"):
+        export_bundle(builder, params, str(tmp_path), seq_len=SEQ_LEN,
+                      decode_slots=(0, 4))
+    with pytest.raises(EnforceError, match="decode_window must be >= 1"):
+        export_bundle(builder, params, str(tmp_path), seq_len=SEQ_LEN,
+                      decode_slots=(4,), decode_window=-1)
+    manifest = export_bundle(builder, params, str(tmp_path),
+                             seq_len=SEQ_LEN, decode_slots=(4,))
+    assert manifest["decode"]["window"] == 8
+    assert manifest["decode"]["slots"] == [{"slots": 4}]
 
 
 def test_bf16_policy_tagger_tracks_f32():
