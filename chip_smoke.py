@@ -306,13 +306,39 @@ result line:
            sequences, lengths and scores against the CPU's (a source may
            differ only where the CPU's beam-th and (beam+1)-th candidates
            of a step lie within 1e-4; such sources printed).
-28. kernels one entry per TPU kernel the port replaced (the redesigned
+28. demos  the reference demos run unchanged through
+           paddle_tpu_torch.demo.run on the card (``paddle_tpu`` bound to
+           the port; their output captured): mnist with VGG-16 (--model
+           vgg --num-passes 1: batch 128, 64 steps) and with LeNet (its
+           defaults; padding 0 goes to F.conv2d, no kernel), quick_start
+           --model lstm (dict 5000, emb 128, hidden 128, batch 64, 3
+           passes), seq2seq --dict-size 30000 (emb 64, hidden 128, batch
+           32, 3 passes, beam 4), traffic_prediction (GRU 64) and
+           fit_a_line --export "" (no kernel); each demo's success lines,
+           finite costs, ms per batch (median between EndIterations, each
+           after a synchronize), the training steps' launches held against
+           one step's (2 K7 and 1 K8 per VGG-16 conv in the kernels'
+           family, 12 of its 13: the first has one channel; 1 K1 and 1 K2
+           for quick_start; 2 K5 and 2 K6 for seq2seq's bidirectional
+           encoder; 1 and 1 for traffic; none for LeNet and fit_a_line)
+           and the recurrent kernels' launch shapes; then one step of
+           each demo's model (its own build, imported through the
+           runner's binding) on its first minibatch from the port's
+           dataset, on the card against the CPU from the same numpy
+           parameters: the cost and every gradient within 1e-4 (VGG-16
+           with the same dropout masks), and the step's launches.
+29. kernel_demos  K1/K2 at quick_start's shape, K5/K6 at seq2seq's and
+           traffic_prediction's (the shapes the demos launched most), and
+           K7/K8 at VGG-16-on-MNIST's 8 conv shapes at batch 128, as
+           phases 3-4, 9-10 and 13-14 time them, with the 12-conv sums.
+30. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
            CTR's and the int8 movielens bundle's products and the int8
            decode window's; K5 and K6 also at the NMT encoder's (30, 64,
            512), K5 also at the decode window; K1 and K2 also inside the
-           train_loop phase's captured graphs), then the
+           train_loop phase's captured graphs; each also at the demos'
+           shapes), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -686,9 +712,12 @@ def fwd_error(got, want):
                for g, w in zip(got, want))
 
 
-def phase_kernel(torch, lk):
+def phase_kernel(torch, lk, cases=KERNEL_CASES, chunked=CHUNKED_CASES,
+                 phase="kernel", layouts=FWD_LAYOUTS):
+    """K1/K3 at ``cases`` (default: phase 3's) and ``chunked``; the layout
+    is held where ``layouts`` names one for the width."""
     results = []
-    for steps, batch, hidden in KERNEL_CASES:
+    for steps, batch, hidden in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = kernel_inputs(torch, steps, batch, hidden, dtype,
@@ -696,11 +725,11 @@ def phase_kernel(torch, lk):
             got = lk.lstm_seq_fwd(*args)
             torch.cuda.synchronize()
             launch = dict(lk.lstm_seq_fwd.last_launch)
-            if launch["layout"] != FWD_LAYOUTS[hidden]:
+            want = layouts.get(hidden)
+            if want and launch["layout"] != want:
                 raise AssertionError("lstm_seq_fwd %s at H=%d ran layout %r,"
                                      " not %r" % (name, hidden,
-                                                  launch["layout"],
-                                                  FWD_LAYOUTS[hidden]))
+                                                  launch["layout"], want))
             # sums in a fixed order: a repeat is the same bit for bit
             if not all(torch.equal(a, b)
                        for a, b in zip(lk.lstm_seq_fwd(*args), got)):
@@ -719,7 +748,7 @@ def phase_kernel(torch, lk):
             with torch.no_grad():
                 cudnn_ms = time_ms(torch, lambda: cudnn(x))
             bound, bound_by = lstm_bound_ms(steps, batch, hidden, name)
-            row = {"phase": "kernel", "kernel": "lstm_seq_fwd", "T": steps,
+            row = {"phase": phase, "kernel": "lstm_seq_fwd", "T": steps,
                    "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "ms_per_step": ms / steps,
@@ -732,7 +761,7 @@ def phase_kernel(torch, lk):
                 raise AssertionError("lstm_seq_fwd disagrees with its plain "
                                      "version: %r" % row)
             results.append(row)
-    for steps, batch, hidden in CHUNKED_CASES:
+    for steps, batch, hidden in chunked:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = kernel_inputs(torch, steps, batch, hidden, dtype,
@@ -889,10 +918,14 @@ def bwd_error(got, want):
                for g, w in zip(got, want))
 
 
-def phase_kernel_bwd(torch, lk):
+def phase_kernel_bwd(torch, lk, cases=BWD_CASES,
+                     chunked_cases=BWD_CHUNKED_CASES, phase="kernel_bwd",
+                     layouts=BWD_LAYOUTS):
+    """K2/K4 at ``cases`` (default: phase 4's) and ``chunked_cases``; the
+    layout is held where ``layouts`` names one for the width."""
     results = []
-    for steps, batch, hidden in BWD_CASES + BWD_CHUNKED_CASES:
-        chunked = (steps, batch, hidden) in BWD_CHUNKED_CASES
+    for steps, batch, hidden in list(cases) + list(chunked_cases):
+        chunked = (steps, batch, hidden) in chunked_cases
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = bwd_inputs(torch, lk, steps, batch, hidden, dtype,
@@ -904,14 +937,14 @@ def phase_kernel_bwd(torch, lk):
             # resident, placement 5), W tiles at H=1280 (resident in
             # bfloat16, streamed from L2 in float32; (D) on the tensor cores
             # in bfloat16 at more than 8 rows per launch)
-            want = BWD_LAYOUTS[hidden]
+            want = layouts.get(hidden)
             placement = {"w_tiles": 4 if dtype == torch.bfloat16 else 3,
-                         "cluster": 5}[want]
+                         "cluster": 5}.get(want)
             dh_path = ({"w_tiles": "tc_bf16" if dtype == torch.bfloat16
                         else "simt_f32"}.get(want))
-            if launch["layout"] != want or (
+            if want and (launch["layout"] != want or (
                     (launch["w_placement"], launch.get("dh_path"))
-                    != (placement, dh_path)):
+                    != (placement, dh_path))):
                 raise AssertionError("lstm_seq_bwd %s at H=%d ran layout %r "
                                      "(placement %r, dh %r), not %r"
                                      % (name, hidden, launch["layout"],
@@ -940,7 +973,7 @@ def phase_kernel_bwd(torch, lk):
                 cudnn(x)[0].backward(dy)
 
             bound, bound_by = lstm_bwd_bound_ms(steps, batch, hidden, name)
-            row = {"phase": "kernel_bwd", "kernel": "lstm_seq_bwd",
+            row = {"phase": phase, "kernel": "lstm_seq_bwd",
                    "T": steps, "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "ms_unqueued": ms_unqueued, "ms_per_step": ms / steps,
@@ -1053,9 +1086,12 @@ def gru_inputs(torch, steps, batch, hidden, dtype, seed):
             dev(rng.randn(batch, hidden) * 0.5))
 
 
-def phase_kernel_gru(torch, gk):
+def phase_kernel_gru(torch, gk, cases=GRU_CASES, phase="kernel_gru",
+                     layouts=GRU_FWD_LAYOUTS):
+    """K5 at ``cases`` (default: phase 9's); the layout is held where
+    ``layouts`` names one for the width."""
     results = []
-    for steps, batch, hidden in GRU_CASES:
+    for steps, batch, hidden in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = gru_inputs(torch, steps, batch, hidden, dtype,
@@ -1063,7 +1099,7 @@ def phase_kernel_gru(torch, gk):
             h_k = gk.gru_seq_fwd(*args)
             torch.cuda.synchronize()
             launch = dict(gk.gru_seq_fwd.last_launch)
-            want = GRU_FWD_LAYOUTS.get(hidden)
+            want = layouts.get(hidden)
             if want and launch["layout"] != want:
                 raise AssertionError("gru_seq_fwd %s at H=%d ran layout %r, "
                                      "not %r" % (name, hidden,
@@ -1085,7 +1121,7 @@ def phase_kernel_gru(torch, gk):
             with torch.no_grad():
                 cudnn_ms = time_ms(torch, lambda: cudnn(x))
             bound, bound_by = gru_bound_ms(steps, batch, hidden, name)
-            row = {"phase": "kernel_gru", "kernel": "gru_seq_fwd",
+            row = {"phase": phase, "kernel": "gru_seq_fwd",
                    "T": steps, "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "ms_per_step": ms / steps,
@@ -1141,9 +1177,12 @@ def gru_bwd_inputs(torch, gk, steps, batch, hidden, dtype, seed):
                          device=DEVICE))
 
 
-def phase_kernel_gru_bwd(torch, gk):
+def phase_kernel_gru_bwd(torch, gk, cases=GRU_BWD_CASES,
+                         phase="kernel_gru_bwd", layouts=GRU_BWD_LAYOUTS):
+    """K6 at ``cases`` (default: phase 10's); the layout is held where
+    ``layouts`` names one for the width."""
     results = []
-    for steps, batch, hidden in GRU_BWD_CASES:
+    for steps, batch, hidden in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             args = gru_bwd_inputs(torch, gk, steps, batch, hidden, dtype,
@@ -1153,8 +1192,8 @@ def phase_kernel_gru_bwd(torch, gk):
             launch = dict(gk.gru_seq_bwd.last_launch)
             # the planner's layout: clusters (the W row slices resident,
             # placement 5) at both widths
-            want = GRU_BWD_LAYOUTS[hidden]
-            if (launch["layout"], launch["w_placement"] == 5) != (
+            want = layouts.get(hidden)
+            if want and (launch["layout"], launch["w_placement"] == 5) != (
                     want, want == "cluster"):
                 raise AssertionError("gru_seq_bwd %s at H=%d ran layout %r "
                                      "(placement %r), not %r"
@@ -1184,7 +1223,7 @@ def phase_kernel_gru_bwd(torch, gk):
 
             bound, bound_by = gru_bound_ms(steps, batch, hidden, name,
                                            backward=True)
-            row = {"phase": "kernel_gru_bwd", "kernel": "gru_seq_bwd",
+            row = {"phase": phase, "kernel": "gru_seq_bwd",
                    "T": steps, "B": batch, "H": hidden, "dtype": name,
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "ms_unqueued": ms_unqueued, "ms_per_step": ms / steps,
@@ -4834,6 +4873,377 @@ def phase_generate_nmt(torch, gk, trained):
     return row
 
 
+# the reference demos run unchanged on the card (paddle_tpu_torch/demo.py):
+# (name, script under demos/, arguments, lines its output must hold, the
+# recurrent kernel module and layers per step, the model's first minibatch
+# size); VGG-16's convs come from the topology (family_convs)
+DEMO_RUNS = [
+    ("mnist_vgg", "mnist/train.py",
+     ["--model", "vgg", "--num-passes", "1", "--save", ""],
+     ("test error", "predictions:"), None, 128),
+    ("mnist_lenet", "mnist/train.py", ["--save", ""],
+     ("test error", "predictions:"), None, 128),
+    ("quick_start_lstm", "quick_start/train.py", ["--model", "lstm"],
+     ("test error",), ("lstm", 1), 64),
+    ("seq2seq", "seq2seq/train.py", ["--dict-size", "30000"],
+     ("beam best",), ("gru", 2), 32),
+    ("traffic_prediction", "traffic_prediction/train.py", [],
+     ("test RMSE",), ("gru", 1), 32),
+    ("fit_a_line", "fit_a_line/train.py", ["--export", ""],
+     ("test cost", "predictions:"), None, 32),
+]
+DEMO_STEP_KERNELS = ("k7", "k8", "lstm_fwd", "lstm_bwd", "gru_fwd",
+                     "gru_bwd")
+
+
+def demo_path(script):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "demos",
+                        script)
+
+
+def demo_model(name, mod):
+    """The cost layer of a demo's model, built by the demo's own function
+    (imported through the runner's binding), the first minibatch of its
+    training data from the port's dataset, and its numpy-seeded initial
+    parameters ({name: CPU tensor}): vision_params for the image
+    classifiers (their activations keep their scale through VGG-16's 16
+    weight layers), as the vision phases do; numpy_params otherwise."""
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+    size = next(r for r in DEMO_RUNS if r[0] == name)[5]
+
+    def first(reader):
+        return [s for _, s in zip(range(size), reader())]
+
+    if name in ("mnist_vgg", "mnist_lenet"):
+        cost = mod.build(name.split("_")[1])[3]
+        init = vision_params(Topology(cost), SEED + 80, cost.inputs[0].name)
+        return cost, first(mod.mnist.train()), init.as_dict()
+    if name == "quick_start_lstm":
+        cost = mod.build("lstm", 5000)[2]
+        rows = first(mod.imdb.train(mod.imdb.word_dict(5000)))
+    elif name == "seq2seq":
+        cost = mod.text.seq2seq_attention(
+            src_dict_size=30000, trg_dict_size=30000, emb_size=64,
+            enc_size=128, dec_size=128)[0]
+        rows = first(mod.wmt14.train(30000))
+    elif name == "traffic_prediction":
+        cost, rows = mod.build()[2], first(mod.make_reader(2048, seed=0))
+    else:
+        cost, rows = mod.build()[1], first(mod.uci_housing.train())
+    return cost, rows, numpy_params(Topology(cost), SEED + 80).as_dict()
+
+
+def kernel_counts(ck, gk, lk):
+    return {"k7": ck.launches, "k8": ck.bwdw_launches,
+            "lstm_fwd": lk.launches, "lstm_bwd": lk.bwd_launches,
+            "gru_fwd": gk.launches, "gru_bwd": gk.bwd_launches}
+
+
+def reset_kernel_counts(ck, gk, ik, lk):
+    for kernels in (ck, gk, ik, lk):
+        kernels.reset_launches()
+
+
+def demo_per_step(name, recurrent, vgg_convs):
+    """The launches one training step of the demo's model makes."""
+    per = dict.fromkeys(DEMO_STEP_KERNELS, 0)
+    if name == "mnist_vgg":
+        per.update(k7=2 * vgg_convs, k8=vgg_convs)
+    if recurrent:
+        kind, layers = recurrent
+        per.update({kind + "_fwd": layers, kind + "_bwd": layers})
+    return per
+
+
+def demo_step(torch, cost, rows, init, device):
+    """Cost and gradients of one train-mode step of ``cost``'s topology on
+    ``rows`` from the parameters ``init`` ({name: CPU tensor})."""
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    topo = Topology(cost)
+    params = {k: v.detach().clone().to(device).requires_grad_()
+              for k, v in init.items()}
+    values = topo.apply(params, convert_feed(topo, rows, device),
+                        mode="train",
+                        generator=torch.Generator(device=device))
+    loss = values[cost.name].float().mean()
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.float().cpu()
+                                  for k, p in params.items()}
+
+
+class SharedKinks:
+    """Stand-ins for ops.conv.max_pool2d and activation.Relu.apply in the
+    card-against-CPU step only. A value within rounding of a kink (two
+    values of a pool window, or a relu's input near zero) may go either
+    way on either device, and the choice moves a gradient: one VGG-16
+    step's gradients then differ by up to 5 % of a tensor's between
+    float32 and float64 on the CPU alone. So while ``record`` is set (the
+    card's pass) each pool and relu runs as the layer does and keeps its
+    choices (the pool's picks, the relu's mask); after, the i-th pool
+    takes its window values at the recorded picks and the i-th relu
+    applies the recorded mask (the CPU's pass). ``differ`` counts the
+    elements the CPU would have decided otherwise."""
+
+    def __init__(self):
+        self.record = True
+        self.kept = {"pool": [], "relu": []}
+        self.calls = {"pool": 0, "relu": 0}
+        self.differ = {"pool": 0, "relu": 0}
+
+    def reset(self):
+        self.record = False
+        self.calls = {"pool": 0, "relu": 0}
+
+    def _choice(self, kind, own):
+        """The recorded choice of this call (and the card's own, kept)."""
+        if self.record:
+            self.kept[kind].append(own.cpu())
+            chosen = own
+        else:
+            chosen = self.kept[kind][self.calls[kind]].to(own.device)
+            self.differ[kind] += int((own != chosen).sum())
+        self.calls[kind] += 1
+        return chosen
+
+    def pool(self, x, window, stride, padding=(0, 0), ceil_mode=True):
+        import math
+
+        import torch.nn.functional as F
+
+        from paddle_tpu_torch.ops import conv as conv_ops
+
+        pads = conv_ops._pool_pads(x.shape[1:3], window, stride, padding,
+                                   ceil_mode)
+        xp = conv_ops._padded_nchw(x, pads, -math.inf)
+        _, own = F.max_pool2d(xp, tuple(window), tuple(stride),
+                              return_indices=True)
+        idx = self._choice("pool", own)
+        y = xp.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return y.permute(0, 2, 3, 1)
+
+    def relu(self, x):
+        return x * self._choice("relu", x > 0).to(x.dtype)
+
+
+def demo_parity(torch, ck, gk, ik, lk, name, path, per_step):
+    """One step of the demo's model on the card against the CPU from the
+    same numpy parameters and the same first minibatch (VGG-16 with the
+    same dropout masks: SeededMasks in place of keep_mask; the CPU's max
+    pools and relus decided as the card's: SharedKinks); the card's step
+    must launch the kernels one training step does. Then where a
+    step's time goes: a torch.profiler window over 3 trainer.SGD steps
+    (Momentum) of the model on that minibatch."""
+    from paddle_tpu_torch import activation, demo, optimizer, trainer
+    from paddle_tpu_torch.ops import conv as conv_ops
+    from paddle_tpu_torch.ops import dropout as dropout_ops
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    mod = demo.load(path, "chip_smoke_demo_" + name)
+    cost, rows, init = demo_model(name, mod)
+    masks, kinks = SeededMasks(SEED + 81), SharedKinks()
+    with mock.patch.object(dropout_ops, "keep_mask", masks), \
+            mock.patch.object(conv_ops, "max_pool2d", kinks.pool), \
+            mock.patch.object(activation.Relu, "apply", kinks.relu):
+        reset_kernel_counts(ck, gk, ik, lk)
+        card = demo_step(torch, cost, rows, init, DEVICE)
+        torch.cuda.synchronize()
+        launched = kernel_counts(ck, gk, lk)
+        masks.reset()
+        kinks.reset()
+        cpu = demo_step(torch, cost, rows, init, "cpu")
+    errors = {n: float((card[1][n] - g).abs().max())
+              / max(float(g.abs().max()), 1e-30) for n, g in cpu[1].items()}
+    grad_err = max(errors.values())
+    tr = trainer.SGD(cost, Parameters({k: v.to(DEVICE) for k, v in
+                                       init.items()},
+                                      Topology(cost).param_specs()),
+                     optimizer.Momentum(learning_rate=1e-3, momentum=0.9),
+                     device=DEVICE)
+    profile = profile_steps(torch, tr, [list(rows)] * 3,
+                            kernels=("conv_fwd", "bwdw", "lstm", "gru"))
+    row = {"rows": len(rows), "cost_card": card[0], "cost_cpu": cpu[0],
+           "cost_err_rel": abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0])),
+           "grad_err_rel": grad_err, "worst_grads": worst(errors),
+           "tol": TOL_TRAIN,
+           "dropout_masks": masks.calls, "shared_kinks": kinks.calls,
+           "decided_otherwise_on_cpu": kinks.differ,
+           "step_launches": launched,
+           "profile": profile}
+    if not (row["cost_err_rel"] <= TOL_TRAIN and grad_err <= TOL_TRAIN
+            and np.isfinite(card[0])):
+        raise AssertionError("demo %s: a step on the card departs from the "
+                             "CPU: %r" % (name, row))
+    if launched != per_step:
+        raise AssertionError("demo %s: one step launched %r, not %r"
+                             % (name, launched, per_step))
+    return row
+
+
+def recording_launch(real, seen):
+    """``_build.launch`` that also counts each call's (kernel, shape)."""
+    def launch(name, dev, tensors, outputs, shape, count):
+        key = (name,) + tuple(int(d) for d in shape[:3])
+        seen[key] = seen.get(key, 0) + 1
+        return real(name, dev, tensors, outputs, shape, count)
+
+    return launch
+
+
+def run_demo_timed(torch, ck, gk, ik, lk, path, args):
+    """demo.run(path, args) on the card, its output captured: each
+    EndIteration's cost and time (a synchronize first), and the kernel
+    launches of the training steps alone (BeginPass to EndPass, before the
+    demo's own EndPass handler runs its test pass), of the whole run, and
+    the recurrent kernels' launch shapes."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import demo, trainer
+    from paddle_tpu_torch.event import BeginPass, EndIteration, EndPass
+
+    real_train = trainer.SGD.train
+    rec = {"costs": [], "stamps": [], "train": dict.fromkeys(
+        DEMO_STEP_KERNELS, 0), "shapes": {}}
+
+    def train(self, reader, *args, **kwargs):
+        inner = kwargs.pop("event_handler", None)
+        if len(args) >= 2:
+            args, inner = (args[0],) + args[2:], args[1]
+        before = {}
+
+        def handler(evt):
+            if isinstance(evt, BeginPass):
+                before.update(kernel_counts(ck, gk, lk))
+                rec["stamps"].append([])
+            elif isinstance(evt, EndIteration):
+                torch.cuda.synchronize()
+                rec["stamps"][-1].append(time.perf_counter())
+                rec["costs"].append(float(evt.cost))
+            elif isinstance(evt, EndPass):
+                for key, n in kernel_counts(ck, gk, lk).items():
+                    rec["train"][key] += n - before[key]
+            if inner is not None:
+                inner(evt)
+
+        return real_train(self, reader, *args, event_handler=handler,
+                          **kwargs)
+
+    out = io.StringIO()
+    reset_kernel_counts(ck, gk, ik, lk)
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer.SGD, "train", train), \
+            mock.patch.object(lk, "launch", recording_launch(
+                lk.launch, rec["shapes"])), \
+            mock.patch.object(gk, "launch", recording_launch(
+                gk.launch, rec["shapes"])), \
+            contextlib.redirect_stdout(out):
+        demo.run(path, args)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["total"] = kernel_counts(ck, gk, lk)
+    rec["stdout"] = out.getvalue()
+    gaps = [b - a for stamps in rec["stamps"]
+            for a, b in zip(stamps[1:], stamps[2:])]
+    rec["ms_per_batch"] = statistics.median(gaps) * 1e3 if gaps else None
+    return rec
+
+
+def vgg_mnist(num_classes=10):
+    """demos/mnist/train.py's VGG-16 on 28x28 single-channel images."""
+    from paddle_tpu_torch import data_type, layer
+    from paddle_tpu_torch.networks import vgg_16_network
+
+    img = layer.data(name="pixel", type=data_type.dense_vector(784))
+    img.out_img_shape = (1, 28, 28)
+    return vgg_16_network(img, num_channels=1, num_classes=num_classes)
+
+
+def phase_demos(torch, ck, gk, ik, lk):
+    """The demos of DEMO_RUNS through demo.run on the card: every success
+    line, finite costs, each training step's launches (K7/K8 against
+    VGG-16's convs in the kernels' family, K1/K2 and K5/K6 per recurrent
+    layer) and none of a kernel off the demo's path; then one step of each
+    demo's model against the CPU."""
+    vgg_convs = family_convs(vgg_mnist, {}, 128)
+    n_vgg = sum(conv[-1] for conv in vgg_convs)
+    results = {}
+    for name, script, args, lines, recurrent, _ in DEMO_RUNS:
+        path = demo_path(script)
+        rec = run_demo_timed(torch, ck, gk, ik, lk, path, args)
+        steps = len(rec["costs"])
+        per_step = demo_per_step(name, recurrent, n_vgg)
+        want = {k: n * steps for k, n in per_step.items()}
+        parity = demo_parity(torch, ck, gk, ik, lk, name, path, per_step)
+        shapes = sorted([list(k) + [n] for k, n in rec["shapes"].items()])
+        row = {"phase": "demos", "demo": name, "script": "demos/" + script,
+               "args": args, "seconds": rec["seconds"], "steps": steps,
+               "ms_per_batch": rec["ms_per_batch"],
+               "first_cost": rec["costs"][0] if steps else None,
+               "last_cost": rec["costs"][-1] if steps else None,
+               "train_launches": rec["train"], "want": want,
+               "run_launches": rec["total"],
+               "recurrent_shapes": shapes, "vs_cpu": parity,
+               "tail": rec["stdout"].strip().splitlines()[-3:]}
+        emit(row)
+        faults = [line for line in lines if line not in rec["stdout"]]
+        if not steps or not np.all(np.isfinite(rec["costs"])) \
+                or "nan" in rec["stdout"].lower():
+            faults.append("costs not finite")
+        if rec["train"] != want:
+            faults.append("training launches %r, want %r"
+                          % (rec["train"], want))
+        if faults:
+            raise AssertionError("demo %s: %s" % (name, "; ".join(faults)))
+        results[name] = dict(row, per_step=per_step)
+    results["vgg_convs"] = vgg_convs
+    return results
+
+
+def most_launched(demo_row, kernel):
+    """The (T, B, H) a recurrent kernel ran most often in a demo."""
+    shapes = [s for s in demo_row["recurrent_shapes"] if s[0] == kernel]
+    return tuple(max(shapes, key=lambda s: s[-1])[1:4])
+
+
+def phase_kernel_demos(torch, ck, gk, lk, demos):
+    """Each kernel at the shapes the demos gave it, as phases 3-4, 9-10
+    and 13-14 time them (the plain version, a bit-identical repeat, the
+    card's time behind a sleep kernel, the bound, cuDNN where it computes
+    the same function): K1/K2 at quick_start's shape, K5/K6 at seq2seq's
+    and traffic_prediction's, K7/K8 at VGG-16-on-MNIST's conv shapes at
+    batch 128 with the 12-conv sums."""
+    qs = demos["quick_start_lstm"]
+    lstm = [most_launched(qs, "lstm_seq_fwd")]
+    gru = sorted({most_launched(demos[d], "gru_seq_fwd")
+                  for d in ("seq2seq", "traffic_prediction")})
+    rows = {"lstm": phase_kernel(torch, lk, lstm, (), "kernel_demos", {}),
+            "lstm_bwd": phase_kernel_bwd(torch, lk, lstm, (), "kernel_demos",
+                                         {}),
+            "gru": phase_kernel_gru(torch, gk, gru, "kernel_demos", {}),
+            "gru_bwd": phase_kernel_gru_bwd(torch, gk, gru, "kernel_demos",
+                                            {})}
+    convs = demos["vgg_convs"]
+    cases = sorted({(128, hw, hw, c, f, k) for k, c, f, hw, _ in convs})
+    conv_rows = (phase_kernel_conv(torch, ck, cases, "kernel_demos",
+                                   plain_reps=3)
+                 + phase_kernel_conv_bwd(torch, ck, cases, "kernel_demos",
+                                         plain_reps=3))
+    label = "VGG-16 on MNIST at batch 128, 28x28"
+    for which in ("fwd", "dgrad", "bwdw"):
+        for dtype in ("float32", "bfloat16"):
+            row = network_sum(conv_rows, which, dtype, convs, 128, label)
+            rows[(which, dtype)] = row
+            emit(dict(row, phase="network_sum_vgg_mnist", kernel=which))
+    rows["shapes"] = {"lstm": lstm, "gru": gru}
+    rows["conv_rows"] = conv_rows
+    return rows
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -4884,6 +5294,57 @@ def recurrent_entry(cases, name, replaces, launches, hidden, source,
         pick=lambda f32: (max(f32, key=lambda c: c["B"]) if batch is None
                           else next(c for c in f32 if c["B"] == batch)),
         path=path)
+
+
+def demo_entries(demos, rows):
+    """The kernels-line entries of the demos phase: K7/K8 as VGG-16 on
+    MNIST's conv sums (K7's launches: every launch of the demo's run, its
+    data gradients: the training steps'), K1/K2 at quick_start's shape,
+    K5/K6 at seq2seq's and traffic_prediction's; launches from the demos'
+    runs (training, test passes and inference)."""
+    vgg, conv_rows = demos["mnist_vgg"], rows["conv_rows"]
+    out = [kernel_entry([rows[("fwd", "float32")]],
+                        "conv2d_same_fwd[K7,vgg16_mnist_forward]",
+                        "paddle_tpu/ops/pallas_conv.py:175",
+                        vgg["run_launches"]["k7"], "conv2d_same_fwd",
+                        path=conv_paths(conv_rows, "conv2d_same_fwd")),
+           kernel_entry([rows[("dgrad", "float32")]],
+                        "conv2d_same_fwd[K7,vgg16_mnist_data_gradient]",
+                        "paddle_tpu/ops/pallas_conv.py:175",
+                        vgg["train_launches"]["k7"] // 2, "conv2d_same_fwd",
+                        path=conv_paths(conv_rows,
+                                        "conv2d_same_fwd[data_gradient]")),
+           kernel_entry([rows[("bwdw", "float32")]],
+                        "conv2d_same_bwd_filter[K8,vgg16_mnist_filter_"
+                        "gradient]", "paddle_tpu/ops/pallas_conv.py:226",
+                        vgg["run_launches"]["k8"], "conv2d_same_bwdw",
+                        path=conv_paths(conv_rows,
+                                        "conv2d_same_bwd_filter"))]
+    qs = demos["quick_start_lstm"]["run_launches"]
+    hidden = rows["shapes"]["lstm"][0][2]
+    out += [recurrent_entry(rows["lstm"], "lstm_seq_fwd[K1,h%d_quick_start]"
+                            % hidden, "paddle_tpu/ops/pallas_kernels.py:146",
+                            qs["lstm_fwd"], hidden, "lstm_seq_fwd",
+                            path=layouts(rows["lstm"], hidden)),
+            recurrent_entry(rows["lstm_bwd"],
+                            "lstm_seq_bwd[K2,h%d_quick_start]" % hidden,
+                            "paddle_tpu/ops/pallas_kernels.py:347",
+                            qs["lstm_bwd"], hidden, "lstm_seq_bwd",
+                            path=layouts(rows["lstm_bwd"], hidden))]
+    for name in ("seq2seq", "traffic_prediction"):
+        run = demos[name]["run_launches"]
+        hidden = most_launched(demos[name], "gru_seq_fwd")[2]
+        out += [recurrent_entry(rows["gru"], "gru_seq_fwd[K5,h%d_%s]"
+                                % (hidden, name),
+                                "paddle_tpu/ops/pallas_kernels.py:668",
+                                run["gru_fwd"], hidden, "gru_seq_fwd",
+                                path=layouts(rows["gru"], hidden)),
+                recurrent_entry(rows["gru_bwd"], "gru_seq_bwd[K6,h%d_%s]"
+                                % (hidden, name),
+                                "paddle_tpu/ops/pallas_kernels.py:724",
+                                run["gru_bwd"], hidden, "gru_seq_bwd",
+                                path=layouts(rows["gru_bwd"], hidden))]
+    return out
 
 
 def main():
@@ -4976,6 +5437,8 @@ def main():
         served_movielens = phase_serve_movielens(torch, ik, tmp)
     trained_nmt = phase_train_nmt(torch, gk)
     phase_generate_nmt(torch, gk, trained_nmt)
+    demos = phase_demos(torch, ck, gk, ik, lk)
+    demo_kernels = phase_kernel_demos(torch, ck, gk, lk, demos)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -5108,7 +5571,8 @@ def main():
                                "(float32)")],
                      "int8_matmul[K9,tagger_decode_m288]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
-                     continuous["int8"]["k9_launches"], "int8_matmul")]})
+                     continuous["int8"]["k9_launches"], "int8_matmul"),
+        *demo_entries(demos, demo_kernels)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -39,21 +39,57 @@ length buckets, steps_per_call as captured CUDA graphs, the seven
 optimizers, evaluators, durable checkpoints with resume); the v1 config
 front end (``config``, the ``paddle`` shim under ``compat/``, ``cli
 train/test/time/observe``) and the training telemetry (``observe``: spans,
-the step log, metrics, the sentinel, the device attribution). The process
-flags act as in the JAX package, but ``matmul_precision``, which is
-refused at any value but its default.
+the step log, metrics, the sentinel, the device attribution); the v2
+data side (``reader``, ``dataset``, ``image``) and ``demo``, which runs a
+script written against the JAX package unchanged on the port. The
+process flags act as in the JAX package, but ``matmul_precision``, which
+is refused at any value but its default. The JAX package's submodules
+load on first use; ``parallel`` and ``interop`` are not ported yet.
 """
 
 __version__ = "0.1.0"
 
+import importlib as _importlib
+
 from paddle_tpu_torch import (activation, attr, data_type, evaluator, event,
                               inference, layer, networks, optimizer,
                               parameters, pooling, topology, trainer)
-from paddle_tpu_torch.core.place import resolve_device, set_default_device
+from paddle_tpu_torch.core.place import (CPUPlace, Place, TPUPlace,
+                                         default_place, device_count,
+                                         resolve_device, set_default_device,
+                                         set_default_place)
 from paddle_tpu_torch.inference import infer
 from paddle_tpu_torch.minibatch import batch
 from paddle_tpu_torch.utils import flags as _flags
 from paddle_tpu_torch.utils.error import EnforceError, enforce
+
+# The JAX package's public submodules (paddle_tpu/__init__.py:50-55), loaded
+# on first use (PEP 562); those without a port raise AttributeError, so
+# ``hasattr`` is false for them.
+_SUBMODULES = (
+    "activation", "attr", "data_type", "layer", "networks", "pooling",
+    "initializer", "optimizer", "parameters", "trainer", "event", "inference",
+    "evaluator", "reader", "minibatch", "dataset", "parallel", "image",
+    "topology", "config", "ops", "models", "interop", "serve", "data",
+)
+_NOT_PORTED = ("parallel", "interop")
+
+_initialized = False
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise AttributeError("paddle_tpu_torch.%s is not ported yet" % name)
+    if name in _SUBMODULES:
+        mod = _importlib.import_module("paddle_tpu_torch." + name)
+        globals()[name] = mod
+        return mod
+    raise AttributeError("module 'paddle_tpu_torch' has no attribute %r"
+                         % name)
+
+
+def __dir__():
+    return sorted(set(globals()) | (set(_SUBMODULES) - set(_NOT_PORTED)))
 
 
 def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
@@ -65,6 +101,7 @@ def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
     parameter initialisation; other keywords become flags, as in the JAX
     package. Data parallelism (``trainer_count`` other than 1) is not
     ported yet."""
+    global _initialized
     enforce(int(trainer_count) == 1,
             "init(trainer_count=%r): data parallelism is not ported yet",
             trainer_count)
@@ -79,3 +116,8 @@ def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
         from paddle_tpu_torch.utils.logger import set_level
 
         set_level(log_level)
+    _initialized = True
+
+
+def is_initialized():
+    return _initialized

@@ -1,8 +1,10 @@
 """Variable-length sequence batches in the padded-with-lengths form.
 
 ``SequenceBatch``: data [B, T, ...] + lengths [B]; the [B, T] validity mask
-is derived on demand. Same contract as paddle_tpu/core/sequence.py; packed
-and nested batches come with later parts of the port.
+is derived on demand. Same contract as paddle_tpu/core/sequence.py,
+host converters included (``from_sequences``, ``from_flat``, ``to_flat``,
+``to_sequences``); packed and nested batches come with later parts of
+the port.
 """
 
 import numpy as np
@@ -40,17 +42,28 @@ class SequenceBatch:
         m = t < self.lengths[:, None]
         return m if dtype is None else m.to(dtype)
 
+    def segment_ids(self):
+        """Flat [B*T] int32 segment ids: row b's valid steps get b, padding
+        -1 (the padded form of sequenceStartPositions)."""
+        ids = torch.arange(self.batch_size, dtype=torch.int32,
+                           device=self.lengths.device)[:, None].expand(
+                               self.batch_size, self.max_len)
+        return torch.where(self.mask(), ids,
+                           torch.full_like(ids, -1)).reshape(-1)
+
     @staticmethod
-    def from_sequences(seqs, device=None, max_len=None):
-        """Build from a list of per-sequence numpy arrays (ragged), zero
-        padded to ``max_len`` (default: the length bucket of the
-        longest)."""
+    def from_sequences(seqs, max_len=None, dtype=None, pad_value=0, *,
+                       device=None):
+        """Build from a list of per-sequence numpy arrays (ragged), padded
+        with ``pad_value`` to ``max_len`` (default: the length bucket of
+        the longest), in ``dtype`` (default: the first sequence's), on
+        ``device`` (default: the CPU)."""
         enforce(len(seqs) > 0, "empty sequence batch")
         seqs = [np.asarray(s) for s in seqs]
         lengths = np.array([len(s) for s in seqs], dtype=np.int32)
         tmax = max_len or bucket_length(int(lengths.max()))
-        data = np.zeros((len(seqs), tmax) + seqs[0].shape[1:],
-                        dtype=seqs[0].dtype)
+        data = np.full((len(seqs), tmax) + seqs[0].shape[1:], pad_value,
+                       dtype=dtype or seqs[0].dtype)
         for i, s in enumerate(seqs):
             enforce(len(s) <= tmax, "sequence %d longer than max_len %d", i,
                     tmax)
@@ -58,8 +71,39 @@ class SequenceBatch:
         return SequenceBatch(torch.as_tensor(data, device=device),
                              torch.as_tensor(lengths, device=device))
 
+    @staticmethod
+    def from_flat(flat, start_positions, max_len=None, *, device=None):
+        """From the reference layout: contiguous [sum(T_i), ...] rows plus
+        start positions [N+1] (cf. Argument.sequenceStartPositions)."""
+        flat = np.asarray(flat)
+        pos = np.asarray(start_positions, dtype=np.int64)
+        seqs = [flat[pos[i]: pos[i + 1]] for i in range(len(pos) - 1)]
+        return SequenceBatch.from_sequences(seqs, max_len=max_len,
+                                            device=device)
+
+    def to_flat(self):
+        """Back to (flat rows, start positions) as host numpy arrays."""
+        seqs = self.to_sequences()
+        pos = np.zeros(len(seqs) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in seqs], out=pos[1:])
+        return np.concatenate(seqs, axis=0), pos
+
+    def to_sequences(self):
+        """The valid steps of each row, as host numpy arrays."""
+        data = self.data.detach().cpu().numpy()
+        lengths = self.lengths.cpu().numpy()
+        return [data[i, : lengths[i]] for i in range(len(lengths))]
+
     def map_data(self, fn):
         return SequenceBatch(fn(self.data), self.lengths)
+
+    def masked_data(self, pad_value=0.0):
+        """The data with every padding step set to ``pad_value``."""
+        m = self.mask()
+        m = m.reshape(m.shape + (1,) * (self.data.dim() - 2))
+        return torch.where(m, self.data,
+                           torch.as_tensor(pad_value, dtype=self.data.dtype,
+                                           device=self.data.device))
 
     def last_step(self):
         """The last valid step of each sequence [B, ...] (step 0 for a

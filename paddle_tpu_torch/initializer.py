@@ -4,7 +4,8 @@ initial_std/initial_strategy, Parameter::randomize).
 Each initializer draws on the CPU from the ``torch.Generator`` it is
 given, then moves the tensor to ``device``, so one seed gives the same
 numbers on every device. Xavier (std = 1/sqrt(fan_in) normal) is the
-default for weights, zeros for biases.
+default for weights (``default_weight_init``), zeros for biases; MSRA
+(std = sqrt(2/fan_in)) is He's init for relu stacks.
 """
 
 import math
@@ -58,6 +59,24 @@ class Xavier(Initializer):
             fan_in = shape[0] if shape else 1
         std = 1.0 / math.sqrt(max(fan_in, 1))
         return Normal(0.0, std)(generator, shape, dtype, device)
+
+
+class MSRA(Initializer):
+    """He init for relu conv stacks: std = sqrt(2/fan_in) normal."""
+
+    def __init__(self, fan_in=None):
+        self.fan_in = fan_in
+
+    def __call__(self, generator, shape, dtype, device):
+        fan_in = self.fan_in
+        if fan_in is None:
+            fan_in = shape[0] if len(shape) > 1 else 1
+        std = math.sqrt(2.0 / max(fan_in, 1))
+        return Normal(0.0, std)(generator, shape, dtype, device)
+
+
+def default_weight_init(fan_in):
+    return Xavier(fan_in=fan_in)
 
 
 def default_bias_init():

@@ -63,11 +63,20 @@ class Parameters:
     def names(self):
         return sorted(self._values)
 
+    def keys(self):
+        return self.names()
+
+    def has_key(self, key):
+        return key in self._values
+
     def __contains__(self, key):
         return key in self._values
 
     def __len__(self):
         return len(self._values)
+
+    def __iter__(self):
+        return iter(self.names())
 
     def get(self, key):
         """The value as a host numpy array: float32 for a bf16 tensor, every
@@ -85,6 +94,15 @@ class Parameters:
                 "shape mismatch for %r: %s vs %s", key, tuple(value.shape),
                 tuple(old.shape))
         self._values[key] = value.to(dtype=old.dtype, device=old.device)
+
+    def __getitem__(self, key):
+        return self.get(key)
+
+    def __setitem__(self, key, value):
+        self.set(key, value)
+
+    def get_shape(self, key):
+        return tuple(self._values[key].shape)
 
     def spec(self, key):
         return self._specs.get(key)

@@ -18,6 +18,8 @@ products in different orders; the quick tour's three costs and its final
 parameters differ by about 1e-7 on these inputs.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,7 @@ from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import EnforceError
 
 TOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -594,3 +597,121 @@ def test_ported_flags_keep_the_jax_defaults():
     for name in ("log_period", "test_period", "seed", "compute_dtype",
                  "default_dtype"):
         assert flags.get_flag(name) == jflags.get_flag(name), name
+
+
+# -- the v2 surface: lazy submodules, places, Parameters, from_sequences ------
+
+SUBMODULE_PROBE = r"""
+import json, sys
+import paddle_tpu_torch as paddle
+out = {}
+for name in sys.argv[1:]:
+    try:
+        mod = getattr(paddle, name)
+        out[name] = ["module", mod.__name__, hasattr(paddle, name)]
+    except AttributeError as exc:
+        out[name] = ["error", str(exc), hasattr(paddle, name)]
+print(json.dumps(out))
+"""
+
+
+def test_every_jax_submodule_resolves_or_raises_on_a_fresh_import():
+    """paddle_tpu/__init__.py:50-76's PEP 562 names on a fresh ``import
+    paddle_tpu_torch`` (a subprocess): each is the port's module of that
+    name, or an AttributeError saying it is not ported yet (``hasattr``
+    false); ``dir()`` lists the ported ones."""
+    import json
+    import subprocess
+    import sys
+
+    names = list(jpaddle._SUBMODULES)
+    proc = subprocess.run([sys.executable, "-c", SUBMODULE_PROBE] + names,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = sorted(n for n, (kind, _, _) in got.items() if kind == "error")
+    assert missing == ["interop", "parallel"]
+    for name, (kind, text, has) in got.items():
+        if kind == "module":
+            assert text == "paddle_tpu_torch." + name and has, name
+        else:
+            assert "not ported yet" in text and not has, name
+    for name in ("models", "config", "reader", "dataset", "image"):
+        assert got[name][0] == "module"
+    assert paddle.dataset.mnist.IMAGE_DIM == 784
+    assert {"reader", "dataset", "image", "infer", "batch"} <= set(
+        dir(paddle))
+    assert "parallel" not in dir(paddle)
+    with pytest.raises(AttributeError, match="no attribute 'nonesuch'"):
+        paddle.nonesuch
+
+
+def test_places_and_device_count_match_jax():
+    for pkg_place in (place, jplace):
+        assert pkg_place.CPUPlace() == pkg_place.CPUPlace(0)
+        assert pkg_place.TPUPlace(1) != pkg_place.TPUPlace(0)
+        assert pkg_place.CPUPlace() != pkg_place.TPUPlace()
+    for cls in ("Place", "CPUPlace", "TPUPlace"):
+        assert getattr(paddle, cls) is getattr(place, cls)
+        assert repr(getattr(place, cls)()) == repr(getattr(jplace, cls)())
+    assert len({place.CPUPlace(), place.CPUPlace(0), place.TPUPlace()}) == 2
+    paddle.init(use_tpu=False)
+    jpaddle.init(use_tpu=False)
+    assert paddle.is_initialized() and jpaddle.is_initialized()
+    assert paddle.default_place() == place.CPUPlace()
+    assert repr(paddle.default_place()) == repr(jpaddle.default_place())
+    assert place.CPUPlace().torch_device() == torch.device("cpu")
+    # device_count counts the CUDA devices (none here); the CPU is one
+    # torch device (the JAX package counts its virtual CPU devices)
+    assert paddle.device_count() == torch.cuda.device_count()
+    assert paddle.device_count(place.CPUPlace) == 1
+    paddle.set_default_place(place.TPUPlace())
+    assert place.default_device() == "cuda"
+    paddle.set_default_place(place.CPUPlace())
+    assert place.resolve_device(None) == torch.device("cpu")
+    with pytest.raises(TypeError, match="expected a Place"):
+        paddle.set_default_place("cpu")
+
+
+def test_tpu_place_names_the_card_and_raises_without_one(monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place.TPUPlace().torch_device()
+
+
+def test_parameters_dict_api_matches_jax():
+    """keys, has_key, __iter__, __getitem__, __setitem__ and get_shape
+    (paddle_tpu/parameters.py:49-85) on the same parameters."""
+    (_, jcost), (_, cost) = _both(_mlp)
+    jparams = jpaddle.parameters.create(jcost)
+    params = _carry(jparams, [cost])
+    assert params.keys() == jparams.keys() == list(params)
+    assert list(params) == list(jparams)
+    name = params.keys()[0]
+    assert params.has_key(name) and jparams.has_key(name)
+    assert not params.has_key("nonesuch") and not jparams.has_key("nonesuch")
+    for n in params:
+        np.testing.assert_array_equal(params[n], jparams[n])
+        assert params.get_shape(n) == jparams.get_shape(n)
+    value = np.full(params.get_shape(name), 0.25, np.float32)
+    params[name] = value
+    jparams[name] = value
+    np.testing.assert_array_equal(params[name], jparams[name])
+    assert params.as_dict()[name].dtype == torch.float32
+    with pytest.raises(EnforceError, match="shape mismatch"):
+        params[name] = np.zeros((1, 1), np.float32)
+
+
+def test_from_sequences_pads_to_the_positional_max_len():
+    from paddle_tpu.core.sequence import SequenceBatch as JaxSeq
+
+    from paddle_tpu_torch.core.sequence import SequenceBatch
+
+    seqs = [np.arange(3, dtype=np.int32), np.arange(7, dtype=np.int32)]
+    got, want = SequenceBatch.from_sequences(seqs, 16), \
+        JaxSeq.from_sequences(seqs, 16)
+    assert got.max_len == want.max_len == 16
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    np.testing.assert_array_equal(got.lengths.numpy(),
+                                  np.asarray(want.lengths))

@@ -55,6 +55,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("part", ["dataset", "reader", "image.py",
+                                  "demo.py"])
+def test_import_scan_covers_the_data_side_and_the_demo_runner(part):
+    """The scan above reads every file of the data side and the demo
+    runner (which names ``paddle_tpu`` only as a string, to bind it)."""
+    sources = [os.path.relpath(p, PKG) for p in _port_sources()
+               if p.startswith(PKG + os.sep)]
+    hits = [p for p in sources if p == part or p.startswith(part + os.sep)]
+    want = {"dataset": 14, "reader": 2}.get(part, 1)
+    assert len(hits) == want, hits
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
