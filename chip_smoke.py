@@ -326,11 +326,56 @@ result line:
            runner's binding) on its first minibatch from the port's
            dataset, on the card against the CPU from the same numpy
            parameters: the cost and every gradient within 1e-4 (VGG-16
-           with the same dropout masks), and the step's launches.
-29. kernel_demos  K1/K2 at quick_start's shape, K5/K6 at seq2seq's and
-           traffic_prediction's (the shapes the demos launched most), and
-           K7/K8 at VGG-16-on-MNIST's 8 conv shapes at batch 128, as
-           phases 3-4, 9-10 and 13-14 time them, with the 12-conv sums.
+           with the same dropout masks), and the step's launches. Also
+           quick_start --model lr (a sparse bag of words over dict 5000
+           into the sparse fc, batch 64) and --model cnn (emb 128, a
+           context window of 3, hidden 128), sequence_tagging --model
+           linear_crf (emb 64, a window -2..+2, an fc to the labels, the
+           CRF) and --model rnn_crf (a forward and a reversed LSTM of 128:
+           2 K1 and 2 K2 a step), both at batch 32, --num-passes 1.
+   v1_text  two v1 configs in the ``from paddle.trainer_config_helpers
+           import *`` form over a synthetic IMDB-schema provider (dict
+           5000, lengths 1-100, batch 64, Adam 2e-3 with L2 8e-4 and
+           clipping 25): the quick_start db-lstm form (embedding 128, a
+           mixed_layer of 512 over a full_matrix_projection, 8 lstmemory
+           layers of 128 alternating direction, each after the first fed
+           by an fc_layer of 512 over the previous [fc, lstm]; max pooling,
+           a softmax fc of 2) and the bidirectional form (embedding 128,
+           bidirectional_lstm of 128, a softmax fc of 2; config arg
+           rnn=gru: bidirectional_gru). Each trained through ``cli train
+           --steps-per-call 10 --feed-pipeline 2`` (30 steps, its launches
+           inside the graph held); the network trained 3 steps with
+           Momentum(2e-3, 0.9) on the card against the CPU (costs and
+           every parameter within 1e-4 of max(1, max |CPU|)) and under
+           the bf16 policy (costs within 5e-2 of f32), after one step's
+           cost and gradients on the card against the CPU (each within
+           1e-4 of its largest entry); the config's Adam over the same 3
+           steps, card against CPU, held within twice the CPU's own change
+           under a 1e-7 perturbation (V1_ADAM_SPREAD); 30
+           steps fused against 30 eager (1e-6), launches a step from the
+           topology (8 + 8 K1/K2; 2 + 2 K1/K2; 2 + 2 K5/K6), ms per batch
+           eager and fused, the idle share of 3 steps.
+   mixed_conv  GoogleNet's inception (3a) block at its published widths
+           in the v1 DSL: 28 x 28 x 192 in, conv_projection towers (1x1
+           64; 1x1 96 -> 3x3 128; 1x1 16 -> 5x5 32; 3x3 max pool -> 1x1 32,
+           the reductions img_conv_layers with relu) joined by
+           concat_layer with relu, a mixed_layer head of one
+           full_matrix_projection to 10 classes, classification_cost,
+           Momentum(1e-4, 0.9) (the 200,704-wide head saturates at 1e-2):
+           one step's cost and gradients on 4 images against the CPU
+           (each within 1e-4 of its largest entry), 10 steps at batch 128
+           in f32 and bf16, K7/K8 launches a step from the topology (the
+           5x5 goes to F.conv2d), the K7/K8 device ms of one step beside
+           phase kernel_conv_googlenet's times for the same convs; then
+           one conv_operator step (each of 8 samples convolved with its own
+           3 x 3 filters, 32 -> 32 channels at 16 x 16: 2 K7 and 1 K8 a
+           sample) against the CPU.
+29. kernel_demos  K1/K2 at quick_start's, the rnn_crf demo's and the
+           db-lstm config's shapes, K5/K6 at seq2seq's, traffic_
+           prediction's and the bidirectional GRU config's (the shapes
+           launched most), and K7/K8 at VGG-16-on-MNIST's 8 conv shapes
+           and inception (3a)'s 5 family convs at batch 128, as phases
+           3-4, 9-10 and 13-14 time them, with the conv sums.
 30. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -338,7 +383,8 @@ result line:
            decode window's; K5 and K6 also at the NMT encoder's (30, 64,
            512), K5 also at the decode window; K1 and K2 also inside the
            train_loop phase's captured graphs; each also at the demos'
-           shapes), then the
+           shapes, and K1/K2, K5/K6 and K7/K8 at the v1_text and
+           mixed_conv phases'), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -353,6 +399,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from unittest import mock
@@ -4891,6 +4938,16 @@ DEMO_RUNS = [
      ("test RMSE",), ("gru", 1), 32),
     ("fit_a_line", "fit_a_line/train.py", ["--export", ""],
      ("test cost", "predictions:"), None, 32),
+    ("quick_start_lr", "quick_start/train.py", ["--model", "lr"],
+     ("test error", "sample 0:"), None, 64),
+    ("quick_start_cnn", "quick_start/train.py", ["--model", "cnn"],
+     ("test error", "sample 0:"), None, 64),
+    ("sequence_tagging_linear_crf", "sequence_tagging/train.py",
+     ["--model", "linear_crf", "--num-passes", "1"], ("token error",), None,
+     32),
+    ("sequence_tagging_rnn_crf", "sequence_tagging/train.py",
+     ["--model", "rnn_crf", "--num-passes", "1"], ("token error",),
+     ("lstm", 2), 32),
 ]
 DEMO_STEP_KERNELS = ("k7", "k8", "lstm_fwd", "lstm_bwd", "gru_fwd",
                      "gru_bwd")
@@ -4921,9 +4978,17 @@ def demo_model(name, mod):
         cost = mod.build(name.split("_")[1])[3]
         init = vision_params(Topology(cost), SEED + 80, cost.inputs[0].name)
         return cost, first(mod.mnist.train()), init.as_dict()
-    if name == "quick_start_lstm":
-        cost = mod.build("lstm", 5000)[2]
+    if name.startswith("quick_start_"):
+        model = name.split("_")[-1]
+        cost = mod.build(model, 5000)[2]
         rows = first(mod.imdb.train(mod.imdb.word_dict(5000)))
+        if model == "lr":
+            rows = [mod.to_bow(5000)(r) for r in rows]
+    elif name.startswith("sequence_tagging_"):
+        word_dict, _, label_dict = mod.conll05.get_dict()
+        cost = mod.build(name[len("sequence_tagging_"):], len(word_dict),
+                         len(label_dict))[2]
+        rows = first(mod.conll05.train())
     elif name == "seq2seq":
         cost = mod.text.seq2seq_attention(
             src_dict_size=30000, trg_dict_size=30000, emb_size=64,
@@ -4973,6 +5038,33 @@ def demo_step(torch, cost, rows, init, device):
     loss.backward()
     return float(loss.detach()), {k: p.grad.float().cpu()
                                   for k, p in params.items()}
+
+
+def step_vs_cpu(torch, cost, rows, init, counts, replays=()):
+    """One train-mode step (demo_step) of ``cost`` on ``rows`` from
+    ``init`` on the card, then on the CPU: the cost's error over max(1,
+    |CPU|), each gradient's largest error over its own largest CPU entry
+    (the worst of them, and the three worst), the parameters whose card
+    gradient is zero or not finite, and ``counts()`` read after the card's
+    step (the caller resets the counters). Each of ``replays``
+    (SharedKinks, SeededMasks, patched in by the caller) is reset between
+    the two passes, so the CPU's pass replays the card's choices."""
+    card = demo_step(torch, cost, rows, init, DEVICE)
+    torch.cuda.synchronize()
+    launched = counts()
+    for replay in replays:
+        replay.reset()
+    cpu = demo_step(torch, cost, rows, init, "cpu")
+    errors = {n: float((card[1][n] - g).abs().max())
+              / max(float(g.abs().max()), 1e-30) for n, g in cpu[1].items()}
+    return {"cost_card": card[0], "cost_cpu": cpu[0],
+            "cost_err_rel": abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0])),
+            "grad_err_rel": max(errors.values()),
+            "worst_grads": worst(errors),
+            "no_gradient": [n for n, g in card[1].items()
+                            if not bool(torch.isfinite(g).all())
+                            or float(g.abs().max()) == 0.0],
+            "launches": launched}
 
 
 class SharedKinks:
@@ -5050,15 +5142,9 @@ def demo_parity(torch, ck, gk, ik, lk, name, path, per_step):
             mock.patch.object(conv_ops, "max_pool2d", kinks.pool), \
             mock.patch.object(activation.Relu, "apply", kinks.relu):
         reset_kernel_counts(ck, gk, ik, lk)
-        card = demo_step(torch, cost, rows, init, DEVICE)
-        torch.cuda.synchronize()
-        launched = kernel_counts(ck, gk, lk)
-        masks.reset()
-        kinks.reset()
-        cpu = demo_step(torch, cost, rows, init, "cpu")
-    errors = {n: float((card[1][n] - g).abs().max())
-              / max(float(g.abs().max()), 1e-30) for n, g in cpu[1].items()}
-    grad_err = max(errors.values())
+        step = step_vs_cpu(torch, cost, rows, init,
+                           lambda: kernel_counts(ck, gk, lk), (masks, kinks))
+    launched = step.pop("launches")
     tr = trainer.SGD(cost, Parameters({k: v.to(DEVICE) for k, v in
                                        init.items()},
                                       Topology(cost).param_specs()),
@@ -5066,16 +5152,13 @@ def demo_parity(torch, ck, gk, ik, lk, name, path, per_step):
                      device=DEVICE)
     profile = profile_steps(torch, tr, [list(rows)] * 3,
                             kernels=("conv_fwd", "bwdw", "lstm", "gru"))
-    row = {"rows": len(rows), "cost_card": card[0], "cost_cpu": cpu[0],
-           "cost_err_rel": abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0])),
-           "grad_err_rel": grad_err, "worst_grads": worst(errors),
-           "tol": TOL_TRAIN,
-           "dropout_masks": masks.calls, "shared_kinks": kinks.calls,
-           "decided_otherwise_on_cpu": kinks.differ,
-           "step_launches": launched,
-           "profile": profile}
-    if not (row["cost_err_rel"] <= TOL_TRAIN and grad_err <= TOL_TRAIN
-            and np.isfinite(card[0])):
+    row = dict(step, rows=len(rows), tol=TOL_TRAIN,
+               dropout_masks=masks.calls, shared_kinks=kinks.calls,
+               decided_otherwise_on_cpu=kinks.differ,
+               step_launches=launched, profile=profile)
+    if not (row["cost_err_rel"] <= TOL_TRAIN
+            and row["grad_err_rel"] <= TOL_TRAIN
+            and np.isfinite(row["cost_card"])):
         raise AssertionError("demo %s: a step on the card departs from the "
                              "CPU: %r" % (name, row))
     if launched != per_step:
@@ -5204,41 +5287,609 @@ def phase_demos(torch, ck, gk, ik, lk):
     return results
 
 
+# -- phase v1_text: the quick_start text configs through cli train ------------
+
+# a synthetic IMDB-schema provider: (word ids, label) rows of lengths
+# 1..max_len from a seed, the test rows from the next seed
+V1_PROVIDER_SRC = '''
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, dict_size, max_len, rows, seed, **kwargs):
+    settings.input_types = [integer_value_sequence(dict_size),
+                            integer_value(2)]
+    settings.args = (dict_size, max_len, rows, seed)
+
+
+@provider(init_hook=hook)
+def process(settings, file_name):
+    dict_size, max_len, rows, seed = settings.args
+    test = file_name == "test"
+    rng = np.random.RandomState(seed + test)
+    for _ in range(rows[test]):
+        n = int(rng.randint(1, max_len + 1))
+        yield rng.randint(0, dict_size, n).tolist(), int(rng.randint(0, 2))
+'''
+
+V1_SETTINGS_SRC = '''
+from paddle.trainer_config_helpers import *
+
+dict_dim = get_config_arg("dict_size", int, 5000)
+emb_dim = get_config_arg("emb_size", int, 128)
+hidden_dim = get_config_arg("hidden_size", int, 128)
+batch_size = get_config_arg("batch_size", int, 64)
+
+define_py_data_sources2(
+    train_list=["train"], test_list=["test"], module="%(module)s",
+    obj="process", args={"dict_size": dict_dim, "max_len": %(max_len)d,
+                         "rows": (%(train)d, %(test)d), "seed": %(seed)d})
+settings(batch_size=batch_size, learning_rate=2e-3,
+         learning_method=AdamOptimizer(),
+         regularization=L2Regularization(8e-4),
+         gradient_clipping_threshold=25)
+
+data = data_layer(name="word", size=dict_dim)
+emb = embedding_layer(input=data, size=emb_dim)
+'''
+
+# the reference's v1_api_demo/quick_start trainer_config.db-lstm.py
+# without its dropout: a mixed_layer of 4 x hidden over one
+# full_matrix_projection, then ``depth`` lstmemory layers of ``hidden``
+# alternating direction, each after the first fed by an fc_layer of
+# 4 x hidden over the previous [fc, lstm] pair; max pooling; softmax fc
+V1_DBLSTM_SRC = V1_SETTINGS_SRC + '''
+depth = get_config_arg("depth", int, 8)
+hidden_0 = mixed_layer(size=hidden_dim * 4,
+                       input=[full_matrix_projection(input=emb)])
+lstm_0 = lstmemory(input=hidden_0)
+input_layers = [hidden_0, lstm_0]
+for i in range(1, depth):
+    fc = fc_layer(input=input_layers, size=hidden_dim * 4)
+    lstm = lstmemory(input=fc, reverse=(i %% 2) == 1)
+    input_layers = [fc, lstm]
+lstm_last = pooling_layer(input=input_layers[1], pooling_type=MaxPooling())
+output = fc_layer(input=lstm_last, size=2, act=SoftmaxActivation())
+label = data_layer(name="label", size=2)
+loss = classification_cost(input=output, label=label)
+outputs(loss)
+'''
+
+# trainer_config.bidi-lstm.py without its dropout; rnn=gru swaps in
+# bidirectional_gru
+V1_BIDI_SRC = V1_SETTINGS_SRC + '''
+rnn = get_config_arg("rnn", str, "lstm")
+if rnn == "lstm":
+    bi = bidirectional_lstm(input=emb, size=hidden_dim)
+else:
+    bi = bidirectional_gru(input=emb, size=hidden_dim)
+output = fc_layer(input=bi, size=2, act=SoftmaxActivation())
+label = data_layer(name="label", size=2)
+loss = classification_cost(input=output, label=label)
+outputs(loss)
+'''
+
+# (name, config source, config args, recurrent layer type)
+V1_TEXT_RUNS = [("dblstm", V1_DBLSTM_SRC, "", "lstmemory"),
+                ("bidi_lstm", V1_BIDI_SRC, "rnn=lstm", "lstmemory"),
+                ("bidi_gru", V1_BIDI_SRC, "rnn=gru", "grumemory")]
+V1_MAX_LEN, V1_STEPS, V1_TEST_ROWS, V1_K = 100, 30, 128, 10
+TOL_BF16_COST = 5e-2
+# One step's cost and gradients are held card against CPU within 1e-4 of
+# each gradient's largest entry (step_vs_cpu), and 3 Momentum steps within
+# 1e-4 of max(1, max |param|). The configs' Adam at 2e-3 moves each
+# parameter by about the learning rate times the sign of its gradient in
+# its first steps, so a gradient near zero decides its parameter's step on
+# rounding: on an H100 (700 W) the card's 3-step Adam parameters were
+# 1.02e-4 (db-lstm), 6.2e-6 (bidi lstm) and 7.1e-6 (bidi gru) of max(1,
+# max |param|) from the CPU's, and a 1e-7 relative perturbation of the
+# initial parameters moved the CPU's own by 1.03e-3, 4.3e-6 and 1.28e-5.
+# So the card's Adam error is held within V1_ADAM_SPREAD times that
+# perturbation's, measured in the same run.
+V1_MOMENTUM_LR, V1_PERTURB, V1_ADAM_SPREAD = 2e-3, 1e-7, 2.0
+
+
+def write_v1_config(work, name, src, seed):
+    """A directory holding the provider (a module name of its own) and the
+    config ``src`` (V1_STEPS batches of training rows, V1_TEST_ROWS test
+    rows); returns the config's path."""
+    rows = (V1_STEPS * TRAIN_BATCH, V1_TEST_ROWS)
+    max_len = V1_MAX_LEN
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    module = "v1_%s_provider" % name
+    with open(os.path.join(d, module + ".py"), "w") as fh:
+        fh.write(V1_PROVIDER_SRC)
+    conf = os.path.join(d, "conf.py")
+    with open(conf, "w") as fh:
+        fh.write(src % {"module": module, "max_len": max_len,
+                        "train": rows[0], "test": rows[1], "seed": seed})
+    return conf
+
+
+class V1Rig:
+    """A v1 config's cost and numpy-seeded initial parameters; each
+    ``trainer(device)`` loads the config anew (its own graph, names
+    restarted, and its own optimizer of the config's settings, or
+    Momentum(V1_MOMENTUM_LR, 0.9) with ``momentum``) on a copy of those
+    parameters, each scaled by (1 + ``perturb`` N(0, 1)) when given."""
+
+    def __init__(self, cli, conf, args, seed):
+        from paddle_tpu_torch import batch
+        from paddle_tpu_torch.topology import Topology
+
+        self.cli, self.conf, self.args = cli, conf, args
+        cfg = cli._load_config(conf, args)
+        self.cost = cfg.cost()
+        self.topology = Topology(self.cost)
+        self.init = numpy_params(self.topology, seed)
+        self.batches = list(batch(cfg.train_reader(), cfg.batch_size)())
+
+    def trainer(self, device, momentum=False, perturb=0.0):
+        import torch
+
+        from paddle_tpu_torch import optimizer, trainer
+        from paddle_tpu_torch.parameters import Parameters
+        from paddle_tpu_torch.topology import Topology
+
+        cfg = self.cli._load_config(self.conf, self.args)
+        cost = cfg.cost()
+        specs = Topology(cost).param_specs()
+        gen = torch.Generator().manual_seed(SEED)
+        params = Parameters({k: v * (1.0 + perturb * torch.randn(
+            v.shape, generator=gen)) if perturb else v.clone()
+            for k, v in self.init.as_dict().items()}, specs)
+        opt = (optimizer.Momentum(learning_rate=V1_MOMENTUM_LR, momentum=0.9)
+               if momentum else cfg.optimizer())
+        return trainer.SGD(cost, params, opt, device=device)
+
+
+def phase_v1_text(torch, gk, lk, tmp):
+    """The quick_start db-lstm and bidirectional configs (module
+    docstring, v1_text)."""
+    import shutil
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.core import dtype as dtype_mod
+
+    work = os.path.join(tmp, "v1_text")
+    results = {}
+    for i, (name, src, args, rnn) in enumerate(V1_TEXT_RUNS):
+        kernels = lk if rnn == "lstmemory" else gk
+        lib = "lstm_seq" if rnn == "lstmemory" else "gru_seq"
+        conf = write_v1_config(work, name, src, SEED + 100 + 10 * i)
+        rig = V1Rig(cli, conf, args, SEED + 101 + 10 * i)
+        per_step = sum(n.layer_type == rnn for n in rig.topology.nodes)
+        batches = rig.batches
+        names = rig.init.names()
+        # (a) through the CLI: the fused loop, the test pass after it
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, built = cli_call(cli, [
+            "train", "--config", conf, "--config-args", args,
+            "--num-passes", "1", "--feed-pipeline", "2",
+            "--steps-per-call", str(V1_K)])
+        cli_s = time.perf_counter() - t0
+        test_batches = -(-V1_TEST_ROWS // TRAIN_BATCH)
+        cli_launches = graph_run_launches(
+            kernels, built[0], {"captured": {}, "warmup": {},
+                                "replayed": {}})
+        cli_test_cost = float(out.split("test cost=")[1].split()[0])
+        # (b) one step's gradients and 3 Momentum steps on the card
+        # against the CPU, f32, then bf16; the config's Adam held against
+        # the CPU's own sensitivity to a 1e-7 perturbation (V1_ADAM_SPREAD)
+        kernels.reset_launches()
+        grads = step_vs_cpu(torch, rig.cost, batches[0], rig.init.as_dict(),
+                            lambda: (kernels.launches, kernels.bwd_launches))
+        card = rig.trainer(DEVICE, momentum=True)
+        cpu = rig.trainer("cpu", momentum=True)
+        costs = train(torch, card, batches[:3])
+        cpu_costs = train(torch, cpu, batches[:3])
+        vs_cpu = {"cost_err_rel": cost_error(costs, cpu_costs),
+                  "param_err_rel": rel_param_error(card.parameters,
+                                                   cpu.parameters, names),
+                  "worst_params": worst(tensor_errors(
+                      card.parameters, cpu.parameters, names))}
+        dtype_mod.set_mixed_precision("bfloat16")
+        try:
+            costs16 = train(torch, rig.trainer(DEVICE, momentum=True),
+                            batches[:3])
+        finally:
+            dtype_mod.set_mixed_precision(None)
+        bf16_err = cost_error(costs16, costs)
+        adam = {}
+        for key, device, perturb in (("card", DEVICE, 0.0), ("cpu", "cpu",
+                                                              0.0),
+                                     ("cpu_perturbed", "cpu", V1_PERTURB)):
+            tr = rig.trainer(device, perturb=perturb)
+            adam[key] = (train(torch, tr, batches[:3]), tr.parameters)
+        adam_vs_cpu = {
+            "card_param_err_rel": rel_param_error(
+                adam["card"][1], adam["cpu"][1], names),
+            "cpu_perturbed_param_err_rel": rel_param_error(
+                adam["cpu_perturbed"][1], adam["cpu"][1], names),
+            "card_cost_err_rel": cost_error(adam["card"][0],
+                                            adam["cpu"][0]),
+            "perturbation": V1_PERTURB}
+        # (c) eager against fused, the eager run's launches and shapes
+        eager, fused = rig.trainer(DEVICE), rig.trainer(DEVICE)
+        shapes = {}
+        kernels.reset_launches()
+        with mock.patch.object(kernels, "launch", recording_launch(
+                kernels.launch, shapes)):
+            e_costs, _, e_ms = loop_run(torch, eager, batches, mark=V1_K)
+        eager_launches = (kernels.launches, kernels.bwd_launches)
+        kernels.reset_launches()
+        before = fused.graph_launches()
+        f_costs, _, f_ms = loop_run(torch, fused, batches, mark=V1_K,
+                                    feed_pipeline=2, steps_per_call=V1_K)
+        fused_launches = graph_run_launches(kernels, fused, before)
+        cost_err, param_err, identical = trajectory_errors(
+            snapshot(eager), snapshot(fused), e_costs, f_costs)
+        profile = profile_steps(torch, rig.trainer(DEVICE), batches[:3],
+                                kernels=("lstm", "gru", "embedding"))
+        steps = len(batches)
+        want = (per_step * steps, per_step * steps)
+        shape_rows = sorted([list(k) + [n] for k, n in shapes.items()])
+        row = {"phase": "v1_text", "config": name, "config_args": args,
+               "recurrent_layers": per_step, "kernel": lib,
+               "batch": TRAIN_BATCH, "max_len": V1_MAX_LEN, "steps": steps,
+               "cli_train_s": cli_s, "cli_rc": rc,
+               "cli_test_cost": cli_test_cost,
+               "cli_launches": cli_launches,
+               "cli_want": (per_step * (steps + test_batches),
+                            per_step * steps),
+               "step_vs_cpu": grads, "costs_card": costs,
+               "costs_cpu": cpu_costs, "vs_cpu": vs_cpu, "tol": TOL_TRAIN,
+               "momentum_learning_rate": V1_MOMENTUM_LR,
+               "adam_vs_cpu": adam_vs_cpu, "costs_bf16": costs16,
+               "bf16_cost_err_rel": bf16_err, "tol_bf16": TOL_BF16_COST,
+               "eager_ms_per_batch": e_ms, "fused_ms_per_batch": f_ms,
+               "fused_vs_eager": {"cost_err_rel": cost_err,
+                                  "param_err_rel": param_err,
+                                  "bit_identical": identical},
+               "tol_loop": TOL_LOOP, "eager_launches": eager_launches,
+               "fused_launches": fused_launches, "want": want,
+               "graphs": graph_summary(fused),
+               "recurrent_shapes": shape_rows, "profile_3_steps": profile}
+        emit(row)
+        checks = {
+            "cli train ran": rc == 0 and np.isfinite(cli_test_cost),
+            "cli launches": tuple(cli_launches) == row["cli_want"],
+            "gradients against cpu": grads["cost_err_rel"] <= TOL_TRAIN
+            and grads["grad_err_rel"] <= TOL_TRAIN
+            and not grads["no_gradient"]
+            and grads["launches"] == (per_step, per_step),
+            "card against cpu": vs_cpu["cost_err_rel"] <= TOL_TRAIN
+            and vs_cpu["param_err_rel"] <= TOL_TRAIN,
+            "adam against cpu": adam_vs_cpu["card_param_err_rel"]
+            <= V1_ADAM_SPREAD * adam_vs_cpu["cpu_perturbed_param_err_rel"],
+            "bf16 against f32": bf16_err <= TOL_BF16_COST
+            and np.all(np.isfinite(costs16)),
+            "fused against eager": cost_err <= TOL_LOOP
+            and param_err <= TOL_LOOP,
+            "eager launches": eager_launches == want,
+            "fused launches": tuple(fused_launches) == want,
+            "finite": np.all(np.isfinite(e_costs)),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("v1_text %s: %s failed" % (name, ", ".join(
+                failed)))
+        results[name] = dict(row, launches=cli_launches)
+    shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+# -- phase mixed_conv: inception (3a) through conv_projection -----------------
+
+# GoogleNet's inception (3a) (Szegedy et al. 2014, Table 1: 28 x 28 x 192
+# in; #1x1 64, #3x3 reduce 96, #3x3 128, #5x5 reduce 16, #5x5 32, pool
+# proj 32) in the v1 DSL of the reference's benchmark/paddle/image/
+# googlenet.py: conv_projection towers, the reductions img_conv_layers,
+# joined by concat_layer with relu; a mixed_layer head of one
+# full_matrix_projection to MIXED_CONV_CLASSES
+MIXED_CONV_CLASSES, MIXED_CONV_SIDE, MIXED_CONV_CHANNELS = 10, 28, 192
+MIXED_CONV_SRC = '''
+from paddle.trainer_config_helpers import *
+
+
+def inception(name, input, channels, filter1, filter3R, filter3, filter5R,
+              filter5, proj):
+    cov1 = conv_projection(input=input, filter_size=1,
+                           num_channels=channels, num_filters=filter1,
+                           stride=1, padding=0)
+    cov3r = img_conv_layer(name=name + "_3r", input=input, filter_size=1,
+                           num_channels=channels, num_filters=filter3R,
+                           stride=1, padding=0, act=ReluActivation())
+    cov3 = conv_projection(input=cov3r, filter_size=3, num_filters=filter3,
+                           stride=1, padding=1)
+    cov5r = img_conv_layer(name=name + "_5r", input=input, filter_size=1,
+                           num_channels=channels, num_filters=filter5R,
+                           stride=1, padding=0, act=ReluActivation())
+    cov5 = conv_projection(input=cov5r, filter_size=5, num_filters=filter5,
+                           stride=1, padding=2)
+    pool1 = img_pool_layer(name=name + "_max", input=input, pool_size=3,
+                           num_channels=channels, stride=1, padding=1)
+    covprj = conv_projection(input=pool1, filter_size=1, num_filters=proj,
+                             stride=1, padding=0)
+    return concat_layer(name=name, input=[cov1, cov3, cov5, covprj],
+                        act=ReluActivation())
+
+
+img = data_layer(name="image", size=%(channels)d * %(side)d * %(side)d,
+                 height=%(side)d, width=%(side)d)
+inc = inception("ince3a", img, %(channels)d, 64, 96, 128, 16, 32, 32)
+out = mixed_layer(name="ince3a_out", size=%(classes)d,
+                  act=SoftmaxActivation(),
+                  input=[full_matrix_projection(input=inc)])
+label = data_layer(name="label", size=%(classes)d)
+loss = classification_cost(input=out, label=label)
+outputs(loss)
+''' % {"classes": MIXED_CONV_CLASSES, "side": MIXED_CONV_SIDE,
+       "channels": MIXED_CONV_CHANNELS}
+# the head reads 256 x 28 x 28 = 200,704 relu features: at 1e-2 (or 1e-3)
+# one step moves its logits by hundreds and the softmax saturates
+MIXED_CONV_LR = 1e-4
+CONV_OP = {"batch": 8, "channels": 32, "side": 16, "filters": 32, "k": 3}
+
+
+def projection_convs(topology, batch):
+    """The stride-1 SAME convs of a topology's img_conv layers and
+    conv_projections (a 4-D weight ``<mixed>.w<i>`` of a mixed layer,
+    branch i reading input i) in the kernels' family, as [(k, C, F, H=W,
+    count, needs_dx)], needs_dx where the conv's input depends on a
+    parameter (its data gradient runs)."""
+    import torch
+
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    trained = set()
+    for node in topology.nodes:  # topological order
+        if node.param_specs or any(p.name in trained for p in node.inputs):
+            trained.add(node.name)
+    found = {}
+    for node in topology.nodes:
+        for spec in node.param_specs:
+            if node.layer_type not in ("img_conv", "mixed") or \
+                    len(spec.shape) != 4:
+                continue
+            k, _, c, f = spec.shape
+            src = node.inputs[int(spec.name.rsplit(".w", 1)[1])]
+            shape = getattr(src, "out_img_shape", None)
+            hw = shape[1] if shape else int(round((src.size // c) ** 0.5))
+            out_hw = int(round((node.size // f) ** 0.5))
+            pad = k // 2
+            if out_hw == hw and ck.kernel_supported(
+                    (batch, hw, hw, c), (k, k, c, f), (1, 1),
+                    ((pad, pad), (pad, pad)), 1, (1, 1), torch.float32,
+                    torch.float32):
+                key = (k, c, f, hw, src.name in trained)
+                found[key] = found.get(key, 0) + 1
+    return [key[:4] + (n, key[4]) for key, n in sorted(found.items())]
+
+
+def inception_rig(cli, work, seed):
+    """MIXED_CONV_SRC written out and loaded, a TrainRig-like holder: the
+    cost, its topology, vision_params from ``seed`` (the output layer
+    small) and ``trainer(device)`` with Momentum(MIXED_CONV_LR, 0.9) on a
+    copy."""
+    from paddle_tpu_torch import optimizer, trainer
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    os.makedirs(work)
+    conf = os.path.join(work, "inception.py")
+    with open(conf, "w") as fh:
+        fh.write(MIXED_CONV_SRC)
+    cfg = cli._load_config(conf, "")
+    rig = types.SimpleNamespace(cost=cfg.cost())
+    rig.topology = Topology(rig.cost)
+    rig.init = vision_params(rig.topology, seed, "ince3a_out")
+
+    def make(device):
+        params = Parameters({k: v.clone() for k, v in
+                             rig.init.as_dict().items()},
+                            rig.topology.param_specs())
+        return trainer.SGD(rig.cost, params, optimizer.Momentum(
+            learning_rate=MIXED_CONV_LR, momentum=0.9), device=device)
+
+    rig.trainer = make
+    return rig
+
+
+def conv_step_launches(convs):
+    """(K7, K8) launches of one training step over ``convs`` from
+    projection_convs: a forward and a filter gradient each, a data
+    gradient where the input is trained."""
+    k7 = sum(n * (2 if dx else 1) for *_, n, dx in convs)
+    return k7, sum(n for *_, n, _ in convs)
+
+
+def phase_mixed_conv(torch, ck, googlenet_rows):
+    """Inception (3a) through conv_projection, and one conv_operator step
+    (module docstring, mixed_conv)."""
+    import shutil
+
+    from paddle_tpu_torch import activation, cli
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.ops import conv as conv_ops
+
+    work = os.path.join(tempfile.mkdtemp(), "mixed_conv")
+    rig = inception_rig(cli, work, SEED + 140)
+    convs = projection_convs(rig.topology, VISION_BATCH)
+    per_step = conv_step_launches(convs)
+    pixels = MIXED_CONV_CHANNELS * MIXED_CONV_SIDE ** 2
+    small = image_batches(SEED + 141, 1, 4, pixels, MIXED_CONV_CLASSES)
+    full = image_batches(SEED + 142, VISION_STEPS, VISION_BATCH, pixels,
+                         MIXED_CONV_CLASSES)
+    # one step's gradients on 4 images, the CPU's pools and relus
+    # deciding as the card's
+    kinks = SharedKinks()
+    with mock.patch.object(conv_ops, "max_pool2d", kinks.pool), \
+            mock.patch.object(activation.Relu, "apply", kinks.relu):
+        ck.reset_launches()
+        vs_cpu = step_vs_cpu(torch, rig.cost, small[0], rig.init.as_dict(),
+                             lambda: (ck.launches, ck.bwdw_launches),
+                             (kinks,))
+    vs_cpu["decided_otherwise_on_cpu"] = kinks.differ
+    # the main path: 10 steps at batch 128, f32 then bf16
+    card128 = rig.trainer(DEVICE)
+    ck.reset_launches()
+    costs32, ms = train(torch, card128, full, timed=True)
+    launches = (ck.launches, ck.bwdw_launches)
+    profile = profile_steps(torch, card128, full[:2],
+                            kernels=("conv_fwd", "bwdw"))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        ck.reset_launches()
+        costs16, ms16 = train(torch, rig.trainer(DEVICE), full, timed=True)
+        launches16 = (ck.launches, ck.bwdw_launches)
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    # K7/K8 in one step against the same convs timed alone (img_conv's)
+    label = "inception (3a) at batch %d" % VISION_BATCH
+    isolated = {which: network_sum(
+        googlenet_rows, which, "float32",
+        [c[:5] for c in convs if which != "dgrad" or c[5]], VISION_BATCH,
+        label)["ms"] for which in ("fwd", "dgrad", "bwdw")}
+    in_step = {k: profile["kernels"][k]["ms_per_step"]
+               for k in ("conv_fwd", "bwdw")}
+    # one conv_operator step at a shape in the family
+    op = phase_conv_operator(torch, ck)
+    want = tuple(VISION_STEPS * n for n in per_step)
+    row = {"phase": "mixed_conv", "block": "inception_3a",
+           "input": [MIXED_CONV_CHANNELS, MIXED_CONV_SIDE, MIXED_CONV_SIDE],
+           "classes": MIXED_CONV_CLASSES, "family_convs": convs,
+           "launches_per_step": per_step, "step_vs_cpu": vs_cpu,
+           "tol": TOL_TRAIN, "batch": VISION_BATCH,
+           "steps": VISION_STEPS, "ms_per_batch_f32": ms,
+           "images_per_s_f32": VISION_BATCH / ms * 1e3,
+           "costs_f32": costs32, "launches_f32": launches,
+           "ms_per_batch_bf16": ms16, "costs_bf16": costs16,
+           "launches_bf16": launches16, "want": want,
+           "profile_f32": profile,
+           "k7_k8_ms_in_one_step": in_step,
+           "k7_k8_ms_alone_kernel_conv_googlenet": isolated,
+           "in_step_over_alone": (in_step["conv_fwd"] + in_step["bwdw"])
+           / sum(isolated.values()),
+           "conv_operator": op}
+    emit(row)
+    shutil.rmtree(os.path.dirname(work), ignore_errors=True)
+    checks = {
+        "card against cpu": vs_cpu["cost_err_rel"] <= TOL_TRAIN
+        and vs_cpu["grad_err_rel"] <= TOL_TRAIN,
+        "every gradient": not vs_cpu["no_gradient"],
+        "launches": vs_cpu["launches"] == per_step and launches == want
+        and launches16 == want,
+        "five convs in the family": sum(c[4] for c in convs) == 5,
+        "finite": np.all(np.isfinite(costs32))
+        and np.all(np.isfinite(costs16)),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("mixed_conv: %s failed: %r" % (
+            ", ".join(failed), row))
+    return dict(row, convs=convs)
+
+
+def phase_conv_operator(torch, ck):
+    """One training step of a conv_operator (each sample's image, from an
+    fc, convolved with its own 3 x 3 filters, from another fc; a mixed
+    layer, a softmax fc, classification_cost) on the card against the CPU:
+    the cost and every gradient within 1e-4 (step_vs_cpu); a shape in the
+    K7 family, so each sample launches K7 forward, K7 data gradient and K8
+    once."""
+    from paddle_tpu_torch import activation, data_type, layer
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    b, c, side, f, k = (CONV_OP[key] for key in ("batch", "channels",
+                                                  "side", "filters", "k"))
+
+    def build(num_classes):
+        reset_name_counters()
+        za = layer.data(name="za", type=data_type.dense_vector(16))
+        zb = layer.data(name="zb", type=data_type.dense_vector(16))
+        img = layer.fc(input=za, size=c * side * side, name="op_img")
+        filt = layer.fc(input=zb, size=f * c * k * k, name="op_filt")
+        conv = layer.mixed(input=layer.conv_operator(
+            img=img, filter=filt, filter_size=k, num_filters=f,
+            num_channels=c, padding=k // 2), name="op_conv")
+        return layer.fc(input=conv, size=num_classes, name="op_out",
+                        act=activation.Softmax())
+
+    def params(topology, seed):
+        # the filters scaled to keep the conv's output near unit scale,
+        # the head small: a first cost near ln(4)
+        init = numpy_params(topology, seed)
+        init.set("op_filt.w0", init.get("op_filt.w0") / np.sqrt(c * k * k))
+        init.set("op_out.w0", init.get("op_out.w0") * 0.1)
+        return init
+
+    rig = TrainRig(build, {"num_classes": 4}, data_type.integer_value(4),
+                   SEED + 150, 0.01, params=params)
+    rng = np.random.RandomState(SEED + 151)
+    rows = [(rng.randn(16).astype(np.float32),
+             rng.randn(16).astype(np.float32), int(rng.randint(0, 4)))
+            for _ in range(b)]
+    ck.reset_launches()
+    row = dict(step_vs_cpu(torch, rig.cost, rows, rig.init.as_dict(),
+                           lambda: (ck.launches, ck.bwdw_launches)),
+               shape=[b, side, side, c, f, k], want=(2 * b, b))
+    if not (row["cost_err_rel"] <= TOL_TRAIN
+            and row["grad_err_rel"] <= TOL_TRAIN and not row["no_gradient"]
+            and row["launches"] == row["want"]):
+        raise AssertionError("conv_operator step: %r" % row)
+    return row
+
+
 def most_launched(demo_row, kernel):
     """The (T, B, H) a recurrent kernel ran most often in a demo."""
     shapes = [s for s in demo_row["recurrent_shapes"] if s[0] == kernel]
     return tuple(max(shapes, key=lambda s: s[-1])[1:4])
 
 
-def phase_kernel_demos(torch, ck, gk, lk, demos):
-    """Each kernel at the shapes the demos gave it, as phases 3-4, 9-10
-    and 13-14 time them (the plain version, a bit-identical repeat, the
-    card's time behind a sleep kernel, the bound, cuDNN where it computes
-    the same function): K1/K2 at quick_start's shape, K5/K6 at seq2seq's
-    and traffic_prediction's, K7/K8 at VGG-16-on-MNIST's conv shapes at
-    batch 128 with the 12-conv sums."""
-    qs = demos["quick_start_lstm"]
-    lstm = [most_launched(qs, "lstm_seq_fwd")]
-    gru = sorted({most_launched(demos[d], "gru_seq_fwd")
-                  for d in ("seq2seq", "traffic_prediction")})
+def phase_kernel_demos(torch, ck, gk, lk, demos, v1_text, mixed):
+    """Each kernel at the shapes the demos and the v1_text and mixed_conv
+    phases gave it, as phases 3-4, 9-10 and 13-14 time them (the plain
+    version, a bit-identical repeat, the card's time behind a sleep
+    kernel, the bound, cuDNN where it computes the same function): K1/K2
+    at quick_start's, the rnn_crf demo's and the db-lstm config's shapes,
+    K5/K6 at seq2seq's, traffic_prediction's and the bidirectional GRU
+    config's, K7/K8 at VGG-16-on-MNIST's conv shapes and inception (3a)'s
+    family convs at batch 128, with the conv sums."""
+    lstm = sorted({most_launched(demos["quick_start_lstm"], "lstm_seq_fwd"),
+                   most_launched(demos["sequence_tagging_rnn_crf"],
+                                 "lstm_seq_fwd"),
+                   most_launched(v1_text["dblstm"], "lstm_seq_fwd")})
+    gru = sorted({most_launched(demos["seq2seq"], "gru_seq_fwd"),
+                  most_launched(demos["traffic_prediction"], "gru_seq_fwd"),
+                  most_launched(v1_text["bidi_gru"], "gru_seq_fwd")})
     rows = {"lstm": phase_kernel(torch, lk, lstm, (), "kernel_demos", {}),
             "lstm_bwd": phase_kernel_bwd(torch, lk, lstm, (), "kernel_demos",
                                          {}),
             "gru": phase_kernel_gru(torch, gk, gru, "kernel_demos", {}),
             "gru_bwd": phase_kernel_gru_bwd(torch, gk, gru, "kernel_demos",
                                             {})}
-    convs = demos["vgg_convs"]
-    cases = sorted({(128, hw, hw, c, f, k) for k, c, f, hw, _ in convs})
+    convs, inception = demos["vgg_convs"], mixed["convs"]
+    cases = sorted({(128, hw, hw, c, f, k) for k, c, f, hw, *_ in
+                    convs + inception})
     conv_rows = (phase_kernel_conv(torch, ck, cases, "kernel_demos",
                                    plain_reps=3)
                  + phase_kernel_conv_bwd(torch, ck, cases, "kernel_demos",
                                          plain_reps=3))
-    label = "VGG-16 on MNIST at batch 128, 28x28"
-    for which in ("fwd", "dgrad", "bwdw"):
-        for dtype in ("float32", "bfloat16"):
-            row = network_sum(conv_rows, which, dtype, convs, 128, label)
-            rows[(which, dtype)] = row
-            emit(dict(row, phase="network_sum_vgg_mnist", kernel=which))
+    for net, net_convs, label in (
+            ("vgg_mnist", convs, "VGG-16 on MNIST at batch 128, 28x28"),
+            ("inception_3a", inception,
+             "inception (3a) through conv_projection at batch 128, "
+             "28x28x192")):
+        for which in ("fwd", "dgrad", "bwdw"):
+            these = [c[:5] for c in net_convs
+                     if which != "dgrad" or len(c) < 6 or c[5]]
+            for dtype in ("float32", "bfloat16"):
+                row = network_sum(conv_rows, which, dtype, these, 128, label)
+                rows[(net, which, dtype)] = row
+                emit(dict(row, phase="network_sum_%s" % net, kernel=which))
     rows["shapes"] = {"lstm": lstm, "gru": gru}
     rows["conv_rows"] = conv_rows
     return rows
@@ -5284,10 +5935,15 @@ def layouts(cases, hidden):
 
 
 def recurrent_entry(cases, name, replaces, launches, hidden, source,
-                    batch=None, path=None):
+                    batch=None, path=None, shape=None):
     """kernel_entry of a recurrent kernel: its cases at ``hidden``, the
-    numbers of the batch the main path runs (default: the widest)."""
+    numbers of the batch the main path runs (default: the widest), or of
+    the case at ``shape`` (T, B, H) exactly."""
     cases = [dict(c, shape=[c["T"], c["B"], c["H"]]) for c in cases]
+    if shape is not None:
+        return kernel_entry(cases, name, replaces, launches, source,
+                            select=lambda c: tuple(c["shape"]) == tuple(
+                                shape), path=path)
     return kernel_entry(
         cases, name, replaces, launches, source,
         select=lambda c: c["H"] == hidden,
@@ -5303,47 +5959,82 @@ def demo_entries(demos, rows):
     K5/K6 at seq2seq's and traffic_prediction's; launches from the demos'
     runs (training, test passes and inference)."""
     vgg, conv_rows = demos["mnist_vgg"], rows["conv_rows"]
-    out = [kernel_entry([rows[("fwd", "float32")]],
+    out = [kernel_entry([rows[("vgg_mnist", "fwd", "float32")]],
                         "conv2d_same_fwd[K7,vgg16_mnist_forward]",
                         "paddle_tpu/ops/pallas_conv.py:175",
                         vgg["run_launches"]["k7"], "conv2d_same_fwd",
                         path=conv_paths(conv_rows, "conv2d_same_fwd")),
-           kernel_entry([rows[("dgrad", "float32")]],
+           kernel_entry([rows[("vgg_mnist", "dgrad", "float32")]],
                         "conv2d_same_fwd[K7,vgg16_mnist_data_gradient]",
                         "paddle_tpu/ops/pallas_conv.py:175",
                         vgg["train_launches"]["k7"] // 2, "conv2d_same_fwd",
                         path=conv_paths(conv_rows,
                                         "conv2d_same_fwd[data_gradient]")),
-           kernel_entry([rows[("bwdw", "float32")]],
+           kernel_entry([rows[("vgg_mnist", "bwdw", "float32")]],
                         "conv2d_same_bwd_filter[K8,vgg16_mnist_filter_"
                         "gradient]", "paddle_tpu/ops/pallas_conv.py:226",
                         vgg["run_launches"]["k8"], "conv2d_same_bwdw",
                         path=conv_paths(conv_rows,
                                         "conv2d_same_bwd_filter"))]
-    qs = demos["quick_start_lstm"]["run_launches"]
-    hidden = rows["shapes"]["lstm"][0][2]
-    out += [recurrent_entry(rows["lstm"], "lstm_seq_fwd[K1,h%d_quick_start]"
-                            % hidden, "paddle_tpu/ops/pallas_kernels.py:146",
-                            qs["lstm_fwd"], hidden, "lstm_seq_fwd",
-                            path=layouts(rows["lstm"], hidden)),
-            recurrent_entry(rows["lstm_bwd"],
-                            "lstm_seq_bwd[K2,h%d_quick_start]" % hidden,
-                            "paddle_tpu/ops/pallas_kernels.py:347",
-                            qs["lstm_bwd"], hidden, "lstm_seq_bwd",
-                            path=layouts(rows["lstm_bwd"], hidden))]
+    for name in ("quick_start_lstm", "sequence_tagging_rnn_crf"):
+        run = demos[name]["run_launches"]
+        shape = most_launched(demos[name], "lstm_seq_fwd")
+        out += recurrent_pair(rows, "lstm", name, shape, run["lstm_fwd"],
+                              run["lstm_bwd"])
     for name in ("seq2seq", "traffic_prediction"):
         run = demos[name]["run_launches"]
-        hidden = most_launched(demos[name], "gru_seq_fwd")[2]
-        out += [recurrent_entry(rows["gru"], "gru_seq_fwd[K5,h%d_%s]"
-                                % (hidden, name),
-                                "paddle_tpu/ops/pallas_kernels.py:668",
-                                run["gru_fwd"], hidden, "gru_seq_fwd",
-                                path=layouts(rows["gru"], hidden)),
-                recurrent_entry(rows["gru_bwd"], "gru_seq_bwd[K6,h%d_%s]"
-                                % (hidden, name),
-                                "paddle_tpu/ops/pallas_kernels.py:724",
-                                run["gru_bwd"], hidden, "gru_seq_bwd",
-                                path=layouts(rows["gru_bwd"], hidden))]
+        shape = most_launched(demos[name], "gru_seq_fwd")
+        out += recurrent_pair(rows, "gru", name, shape, run["gru_fwd"],
+                              run["gru_bwd"])
+    return out
+
+
+def recurrent_pair(rows, kind, name, shape, fwd_launches, bwd_launches):
+    """The kernels-line entries of K1 and K2 (``kind`` "lstm") or K5 and
+    K6 ("gru") at ``shape`` (T, B, H) in the ``rows`` of kernel_demos."""
+    hidden = shape[2]
+    fwd, bwd = {"lstm": (("lstm_seq_fwd", "K1", 146),
+                         ("lstm_seq_bwd", "K2", 347)),
+                "gru": (("gru_seq_fwd", "K5", 668),
+                        ("gru_seq_bwd", "K6", 724))}[kind]
+    return [recurrent_entry(rows[key], "%s[%s,h%d_%s]" % (
+        source, k, hidden, name), "paddle_tpu/ops/pallas_kernels.py:%d"
+        % line, launches, hidden, source, path=layouts(rows[key], hidden),
+        shape=shape)
+        for key, (source, k, line), launches in (
+            (kind, fwd, fwd_launches), (kind + "_bwd", bwd, bwd_launches))]
+
+
+def text_layer_entries(v1_text, mixed, rows):
+    """The kernels-line entries of the v1_text and mixed_conv phases: K1/K2
+    at the db-lstm and bidirectional LSTM configs' shape and K5/K6 at the
+    bidirectional GRU's (launches: each config's ``cli train`` run, its
+    training steps in captured graphs and the test pass), K7/K8 as the
+    sums over inception (3a)'s family convs (launches: the f32 run of
+    mixed_conv at batch 128)."""
+    out = []
+    for name, kind in (("dblstm", "lstm"), ("bidi_lstm", "lstm"),
+                       ("bidi_gru", "gru")):
+        run = v1_text[name]
+        shape = most_launched(run, "%s_seq_fwd" % kind)
+        out += recurrent_pair(rows, kind, "v1_%s_cli_graph" % name, shape,
+                              *run["launches"])
+    k7, k8 = mixed["launches_f32"]
+    dgrad = mixed["steps"] * sum(c[4] for c in mixed["convs"] if c[5])
+    conv_rows = rows["conv_rows"]
+    for which, kernel, line, source, launches, path in (
+            ("fwd", "conv2d_same_fwd[K7,inception_3a_projection_forward]",
+             175, "conv2d_same_fwd", k7 - dgrad, "conv2d_same_fwd"),
+            ("dgrad", "conv2d_same_fwd[K7,inception_3a_projection_data_"
+             "gradient]", 175, "conv2d_same_fwd", dgrad,
+             "conv2d_same_fwd[data_gradient]"),
+            ("bwdw", "conv2d_same_bwd_filter[K8,inception_3a_projection_"
+             "filter_gradient]", 226, "conv2d_same_bwdw", k8,
+             "conv2d_same_bwd_filter")):
+        out.append(kernel_entry(
+            [rows[("inception_3a", which, "float32")]], kernel,
+            "paddle_tpu/ops/pallas_conv.py:%d" % line, launches, source,
+            path=conv_paths(conv_rows, path)))
     return out
 
 
@@ -5438,7 +6129,11 @@ def main():
     trained_nmt = phase_train_nmt(torch, gk)
     phase_generate_nmt(torch, gk, trained_nmt)
     demos = phase_demos(torch, ck, gk, ik, lk)
-    demo_kernels = phase_kernel_demos(torch, ck, gk, lk, demos)
+    with tempfile.TemporaryDirectory() as tmp:
+        v1_text = phase_v1_text(torch, gk, lk, tmp)
+    mixed = phase_mixed_conv(torch, ck, vision_conv_rows)
+    demo_kernels = phase_kernel_demos(torch, ck, gk, lk, demos, v1_text,
+                                      mixed)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -5572,7 +6267,8 @@ def main():
                      "int8_matmul[K9,tagger_decode_m288]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
                      continuous["int8"]["k9_launches"], "int8_matmul"),
-        *demo_entries(demos, demo_kernels)]})
+        *demo_entries(demos, demo_kernels),
+        *text_layer_entries(v1_text, mixed, demo_kernels)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Activation functions (reference: paddle/gserver/activations/
-ActivationFunction.cpp). Each is a stateless object with ``.apply`` over
-tensors, registered by name; the rest of the reference's inventory
-arrives with the layers that use it."""
+ActivationFunction.cpp; paddle_tpu/activation.py). Each is a stateless
+object with ``.apply`` over tensors, registered under the JAX package's
+name: sigmoid, softmax, sequence_softmax, relu, brelu, tanh, stanh,
+softrelu, abs, square, exponential, reciprocal, sqrt, log and linear
+(``Identity``)."""
 
 import torch
 
@@ -40,6 +42,9 @@ class Linear(BaseActivation):
         return x
 
 
+Identity = Linear
+
+
 @_register
 class Sigmoid(BaseActivation):
     name = "sigmoid"
@@ -57,11 +62,41 @@ class Tanh(BaseActivation):
 
 
 @_register
+class STanh(BaseActivation):
+    """Scaled tanh: 1.7159 * tanh(2/3 x) (ActivationFunction.cpp stanh)."""
+
+    name = "stanh"
+
+    def apply(self, x):
+        return 1.7159 * torch.tanh((2.0 / 3.0) * x)
+
+
+@_register
 class Relu(BaseActivation):
     name = "relu"
 
     def apply(self, x):
         return torch.relu(x)
+
+
+@_register
+class BRelu(BaseActivation):
+    """Bounded relu: min(max(x, 0), 24) (ActivationFunction.cpp brelu)."""
+
+    name = "brelu"
+
+    def apply(self, x):
+        return torch.clamp(x, 0.0, 24.0)
+
+
+@_register
+class SoftRelu(BaseActivation):
+    """log(1 + e^x), the input clipped to +-40 as in the reference."""
+
+    name = "softrelu"
+
+    def apply(self, x):
+        return torch.log(1.0 + torch.exp(torch.clamp(x, -40.0, 40.0)))
 
 
 @_register
@@ -71,6 +106,77 @@ class Softmax(BaseActivation):
 
     def apply(self, x):
         return torch.softmax(x, dim=-1)
+
+
+@_register
+class SequenceSoftmax(BaseActivation):
+    """Softmax across the time axis of a sequence of scalars
+    (ActivationFunction.cpp sequence_softmax): ``apply(x, mask)`` with
+    values [B, T] and a [B, T] mask gives masked steps weight exactly 0
+    (an all-masked row gives zeros); without a mask, the last axis's
+    softmax, as a layer's ``finalize`` applies it."""
+
+    name = "sequence_softmax"
+    elementwise = False
+
+    def apply(self, x, mask=None):
+        if mask is None:
+            return torch.softmax(x, dim=-1)
+        mask = mask.to(torch.bool)
+        masked = torch.where(mask, x, torch.full_like(
+            x, torch.finfo(x.dtype).min))
+        z = masked - torch.amax(masked, dim=-1, keepdim=True)
+        e = torch.exp(z) * mask.to(x.dtype)
+        return e / torch.clamp(torch.sum(e, dim=-1, keepdim=True),
+                               min=1e-12)
+
+
+@_register
+class Exp(BaseActivation):
+    name = "exponential"
+
+    def apply(self, x):
+        return torch.exp(x)
+
+
+@_register
+class Log(BaseActivation):
+    name = "log"
+
+    def apply(self, x):
+        return torch.log(x)
+
+
+@_register
+class Abs(BaseActivation):
+    name = "abs"
+
+    def apply(self, x):
+        return torch.abs(x)
+
+
+@_register
+class Square(BaseActivation):
+    name = "square"
+
+    def apply(self, x):
+        return x * x
+
+
+@_register
+class Reciprocal(BaseActivation):
+    name = "reciprocal"
+
+    def apply(self, x):
+        return 1.0 / x
+
+
+@_register
+class Sqrt(BaseActivation):
+    name = "sqrt"
+
+    def apply(self, x):
+        return torch.sqrt(x)
 
 
 def to_activation(act):

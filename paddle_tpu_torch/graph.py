@@ -25,18 +25,33 @@ _name_counters = {}
 _creation_counter = itertools.count()
 _group_state = threading.local()
 
-# Auto-name tags aligned with paddle_tpu/graph.py _REF_NAME_TAGS for the
-# layer types this package has (e.g. pooling -> "__seq_pooling_0__").
+# Auto-name tags of paddle_tpu/graph.py _REF_NAME_TAGS (the reference's
+# wrap_name_default tags) for the layer types this package has, so a node
+# built without a name gets the JAX package's name (e.g. pooling ->
+# "__seq_pooling_0__", classification_cost -> "__cost_0__"). A type absent
+# here keeps its tag verbatim.
 _REF_NAME_TAGS = {
     "conv_layer": "conv",
     "img_pool": "pool",
     "batch_norm_layer": "batch_norm",
-    "embedding_layer": "embedding",
     "img_cmrnorm": "crmnorm",
+    "embedding_layer": "embedding",
+    "classification_cost": "cost",
+    "square_error_cost": "mse_cost",
+    "huber_classification_cost": "huber_cost",
     "grumemory": "gru",
-    "addto_layer": "addto",
-    "pooling": "seq_pooling",
+    "trans": "trans_layer",
     "expand": "expand_layer",
+    "interpolation": "interpolation_layer",
+    "power": "power_layer",
+    "scaling": "scaling_layer",
+    "sum_to_one_norm": "sum_to_one_norm_layer",
+    "linear_comb": "linear_comb_layer",
+    "slope_intercept": "slope_intercept_layer",
+    "addto_layer": "addto",
+    "repeat": "repeat_layer",
+    "pooling": "seq_pooling",
+    "sampling_id": "sampling_id_layer",
 }
 
 
@@ -156,6 +171,54 @@ class LayerNode:
     def forward(self, params, input_values, ctx):
         with layer_scope(self.name):
             return self._forward_fn(params, input_values, ctx)
+
+    # graph sugar (v1 layer_math; paddle_tpu/graph.py LayerNode.__add__):
+    # layer + layer builds addto (a width-1 side broadcasts), layer +/-
+    # const slope_intercept, layer * const a scale, layer * layer a
+    # row-wise scaling when one side has width 1
+    def __add__(self, other):
+        from paddle_tpu_torch import layer as L
+
+        if isinstance(other, LayerNode):
+            a, b = self, other
+            if a.size != b.size:
+                if a.size == 1:
+                    a, b = b, a
+                enforce(b.size == 1, "layer + layer needs equal sizes or a "
+                        "width-1 side (%s vs %s)", a.size, b.size)
+            return L.addto(input=[a, b])
+        return L.slope_intercept(input=self, intercept=float(other))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        from paddle_tpu_torch import layer as L
+
+        if isinstance(other, LayerNode):
+            return L.addto(
+                input=[self, L.slope_intercept(input=other, slope=-1.0)])
+        return L.slope_intercept(input=self, intercept=-float(other))
+
+    def __rsub__(self, other):
+        from paddle_tpu_torch import layer as L
+
+        return L.slope_intercept(input=self, slope=-1.0,
+                                 intercept=float(other))
+
+    def __mul__(self, other):
+        from paddle_tpu_torch import layer as L
+
+        if isinstance(other, LayerNode):
+            if self.size == 1:
+                return L.scaling(input=other, weight=self)
+            if other.size == 1:
+                return L.scaling(input=self, weight=other)
+            raise TypeError(
+                "layer * layer needs one side of width 1 (reference "
+                "layer_math.mul contract); use dotmul for elementwise")
+        return L.slope_intercept(input=self, slope=float(other))
+
+    __rmul__ = __mul__
 
     def __repr__(self):
         return "LayerNode(%s:%s, size=%d)" % (self.name, self.layer_type,

@@ -1,6 +1,11 @@
-"""Core dense layers: fc, embedding, concat, addto, dropout and cos_sim
-(reference: FullyConnectedLayer, TableProjection / embedding_layer,
-ConcatenateLayer, AddtoLayer, CosSimLayer; v2 layer.dropout).
+"""Core dense layers: fc, embedding, concat, addto, dropout, cos_sim and
+the short elementwise layers scaling, slope_intercept, interpolation,
+power, sum_to_one_norm, linear_comb (convex_comb), trans, repeat, resize
+and bias (reference: FullyConnectedLayer, TableProjection /
+embedding_layer, ConcatenateLayer, AddtoLayer, CosSimLayer, ScalingLayer,
+SlopeInterceptLayer, InterpolationLayer, PowerLayer, SumToOneNormLayer,
+LinearCombinationLayer, TransLayer, FeatureMapExpandLayer, ResizeLayer,
+BiasLayer; v2 layer.dropout; paddle_tpu/layer/basic.py).
 Weights keep the JAX package's [in, out] layout, so ``x @ w`` and
 parameters copy across unchanged. An fc weight of a quantized bundle
 (serve/quantize.py) is int8 with a ``<name>::scale`` sidecar and runs in
@@ -149,17 +154,22 @@ def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
 @register_layer("concat")
 def concat(input, name=None, act=None, layer_attr=None):
     """Feature-axis concatenation (reference: ConcatenateLayer;
-    paddle_tpu/layer/basic.py:123-163). Images of one height and width
-    are joined on the NHWC channel axis and stay an ImageValue (the
-    node's ``out_img_shape`` sums their channels); other inputs are
+    paddle_tpu/layer/basic.py:123-166). A projection among the inputs
+    (the v1 DSL's concat_layer over projections) becomes a one-branch
+    ``mixed`` layer first, as in the JAX package. Images of one height
+    and width are joined on the NHWC channel axis and stay an ImageValue
+    (the node's ``out_img_shape`` sums their channels); other inputs are
     joined on their last axis: flat rows, or sequences (the lengths of
-    the first input) as the BiLSTM's two directions. Projection inputs
-    (the mixed-layer path) are not ported yet."""
-    inputs = to_list(input)
+    the first input) as the BiLSTM's two directions."""
+    from paddle_tpu_torch.layer.mixed import BaseProjection, mixed
+
+    inputs = [mixed(input=[i], size=i.size or i.input.size)
+              if isinstance(i, BaseProjection) else i
+              for i in to_list(input)]
     enforce(len(inputs) >= 1, "concat needs at least one input")
     enforce(all(isinstance(i, LayerNode) for i in inputs),
-            "concat over projections (the mixed-layer path) is not ported "
-            "yet")
+            "concat takes layers and projections, got %r",
+            [type(i).__name__ for i in inputs])
     shapes = [getattr(i, "out_img_shape", None) for i in inputs]
     img_ok = (all(s is not None for s in shapes)
               and len({s[1:] for s in shapes}) == 1)
@@ -220,3 +230,155 @@ def cos_sim(a, b, scale=1.0, size=1, name=None, layer_attr=None):
 
     return make_node("cos_sim", forward, [a, b], name=name, size=size,
                      layer_attr=layer_attr)
+
+
+@register_layer("scaling")
+def scaling(input, weight, name=None, layer_attr=None):
+    """Row-wise scale: out[i, :] = w[i] * in[i, :], ``weight`` a width-1
+    layer (reference: ScalingLayer)."""
+
+    def forward(params, values, ctx):
+        return like(values[0], data_of(values[0]) * data_of(values[1]))
+
+    return make_node("scaling", forward, [input, weight], name=name,
+                     size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("slope_intercept")
+def slope_intercept(input, slope=1.0, intercept=0.0, name=None,
+                    layer_attr=None):
+    """out = slope * in + intercept (reference: SlopeInterceptLayer)."""
+
+    def forward(params, values, ctx):
+        return featurewise(lambda d: slope * d + intercept, values[0])
+
+    return make_node("slope_intercept", forward, [input], name=name,
+                     size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("interpolation")
+def interpolation(input, weight, name=None, layer_attr=None):
+    """out = w * a + (1 - w) * b for ``input`` [a, b], ``weight`` a width-1
+    layer (reference: InterpolationLayer)."""
+    inputs = to_list(input)
+    enforce(len(inputs) == 2, "interpolation needs exactly two inputs")
+
+    def forward(params, values, ctx):
+        a, b, w = (data_of(v) for v in values)
+        return like(values[0], w * a + (1.0 - w) * b)
+
+    return make_node("interpolation", forward, inputs + [weight], name=name,
+                     size=inputs[0].size, layer_attr=layer_attr)
+
+
+@register_layer("power")
+def power(input, weight, name=None, layer_attr=None):
+    """out[i, :] = in[i, :] ** w[i], ``weight`` a width-1 layer
+    (reference: PowerLayer)."""
+
+    def forward(params, values, ctx):
+        return like(values[0],
+                    torch.pow(data_of(values[0]), data_of(values[1])))
+
+    return make_node("power", forward, [input, weight], name=name,
+                     size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("sum_to_one_norm")
+def sum_to_one_norm(input, name=None, layer_attr=None):
+    """Each row divided by its sum (at least 1e-12) (reference:
+    SumToOneNormLayer)."""
+
+    def forward(params, values, ctx):
+        def norm(d):
+            return d / torch.clamp(torch.sum(d, dim=-1, keepdim=True),
+                                   min=1e-12)
+
+        return featurewise(norm, values[0])
+
+    return make_node("sum_to_one_norm", forward, [input], name=name,
+                     size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("linear_comb")
+def linear_comb(weights, vectors, size=None, name=None, layer_attr=None):
+    """z = sum_m w[m] * x[m, :] for weights [B, M] and vectors [B, M*size]
+    (reference: LinearCombinationLayer / ConvexCombinationLayer; ``size``
+    defaults to vectors.size // weights.size)."""
+    if size is None:
+        size = vectors.size // weights.size
+
+    def forward(params, values, ctx):
+        w, v = data_of(values[0]), data_of(values[1])
+        v = v.reshape(tuple(v.shape[:-1]) + (w.shape[-1], size))
+        return like(values[0], torch.einsum("...m,...ms->...s", w, v))
+
+    return make_node("linear_comb", forward, [weights, vectors], name=name,
+                     size=size, layer_attr=layer_attr)
+
+
+convex_comb = linear_comb
+
+
+@register_layer("trans")
+def trans(input, name=None, layer_attr=None):
+    """The transpose of the input's trailing two axes, as the JAX
+    package's layer computes it (reference: TransLayer)."""
+
+    def forward(params, values, ctx):
+        x = data_of(values[0])
+        enforce(x.dim() >= 2, "trans expects matrix-like input")
+        return like(values[0], x.transpose(-1, -2))
+
+    return make_node("trans", forward, [input], name=name, size=input.size,
+                     layer_attr=layer_attr)
+
+
+@register_layer("repeat")
+def repeat(input, num_repeats, name=None, act=None, as_row_vector=True,
+           layer_attr=None):
+    """Tile the features ``num_repeats`` times (reference:
+    FeatureMapExpandLayer): as_row_vector [a b] -> [a b a b ...], else
+    [a a ... b b ...]; then the activation."""
+
+    def forward(params, values, ctx):
+        x = data_of(values[0])
+        if as_row_vector:
+            out = x.repeat((1,) * (x.dim() - 1) + (num_repeats,))
+        else:
+            out = torch.repeat_interleave(x, num_repeats, dim=-1)
+        return finalize(like(values[0], out), act, node.extra_attr, ctx)
+
+    node = make_node("repeat", forward, [input], name=name,
+                     size=input.size * num_repeats, layer_attr=layer_attr)
+    return node
+
+
+@register_layer("resize")
+def resize(input, size, name=None, layer_attr=None):
+    """[B, in] reshaped to [B * in / size, size] (reference: ResizeLayer)."""
+
+    def forward(params, values, ctx):
+        return data_of(values[0]).reshape(-1, size)
+
+    return make_node("resize", forward, [input], name=name, size=size,
+                     layer_attr=layer_attr)
+
+
+@register_layer("bias")
+def bias(input, name=None, act=None, bias_attr=None, layer_attr=None):
+    """The input plus a learned bias, then the activation (reference:
+    BiasLayer)."""
+    from paddle_tpu_torch.graph import auto_name
+
+    name = name or auto_name("bias_layer")
+    bspec = bias_spec(name, (input.size,),
+                      bias_attr if bias_attr is not None else True)
+
+    def forward(params, values, ctx):
+        out = featurewise(lambda d: d + params[bspec.name], values[0])
+        return finalize(out, act, node.extra_attr, ctx)
+
+    node = make_node("bias", forward, [input], name=name, size=input.size,
+                     param_specs=[bspec], layer_attr=layer_attr)
+    return node

@@ -1,8 +1,9 @@
-"""Recurrent layers: lstmemory and grumemory (reference: LstmLayer.cpp,
-GatedRecurrentLayer; paddle_tpu/layer/recurrent.py). Like the reference,
-``lstmemory`` consumes an input already projected to 4*size and
-``grumemory`` one projected to 3*size (networks.simple_lstm /
-simple_gru put an fc in front)."""
+"""Recurrent layers: lstmemory, grumemory and recurrent (reference:
+LstmLayer.cpp, GatedRecurrentLayer, RecurrentLayer; paddle_tpu/layer/
+recurrent.py). Like the reference, ``lstmemory`` consumes an input
+already projected to 4*size, ``grumemory`` one projected to 3*size
+(networks.simple_lstm / simple_gru put an fc in front) and ``recurrent``
+one of its own size."""
 
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.core.sequence import SequenceBatch
@@ -43,9 +44,9 @@ def _run_seq_scan(x, reverse, scan_fn, ctx, name):
     return SequenceBatch(h_seq, x.lengths)
 
 
-# The default of ``gate_bias_attr``, as paddle_tpu/layer/recurrent.py: any
-# other value (None included) selects the JAX package's split gate-bias
-# parameterization, which is not ported.
+# The default of ``gate_bias_attr`` (paddle_tpu/layer/recurrent.py): a
+# dedicated object, so that any other value (None included) selects the
+# split gate-bias parameterization it names.
 MERGED_GATE_BIAS = object()
 
 
@@ -65,21 +66,29 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
     ``bias_attr=False`` gives the plain (bias-free, peephole-free) cell;
     ``use_peephole=False`` forces a 4*size bias without peepholes.
     ``reverse=True`` runs each sequence right to left (``ops.rnn.
-    lstm_scan``). The recurrent-group split parameterization
-    (``gate_bias_attr`` other than its default) comes with a later part
-    of the port and raises.
+    lstm_scan``).
+
+    ``gate_bias_attr`` other than its default selects the recurrent-group
+    SPLIT parameterization (networks.lstmemory_group): the 4*size gate
+    bias is its own parameter ``<name>_proj.wbias`` (False: none) and
+    ``bias_attr`` names the 3*size peephole-check parameter.
     """
     size = size or input.size // 4
     enforce(input.size == 4 * size, "lstmemory input.size must be 4*size")
-    enforce(gate_bias_attr is MERGED_GATE_BIAS or gate_bias_attr == "merged",
-            "lstmemory(gate_bias_attr=...): the split gate-bias "
-            "parameterization is not ported yet")
     from paddle_tpu_torch.graph import auto_name
 
     name = name or auto_name("lstmemory")
     wspec = weight_spec(name, 0, (size, 4 * size), param_attr, fan_in=size)
+    # the literal "merged" stays an explicit spelling of the default
+    split = (gate_bias_attr is not MERGED_GATE_BIAS
+             and gate_bias_attr != "merged")
     peephole = use_peephole is not False  # reference default: on with bias
-    bspec = bias_spec(name, ((7 if peephole else 4) * size,), bias_attr)
+    gspec = None
+    if split:
+        gspec = bias_spec(name + "_proj", (4 * size,), gate_bias_attr)
+        bspec = bias_spec(name, (3 * size,), bias_attr) if peephole else None
+    else:
+        bspec = bias_spec(name, ((7 if peephole else 4) * size,), bias_attr)
     if bspec is None:
         enforce(use_peephole is not True,
                 "lstmemory: use_peephole=True needs a bias parameter to hold "
@@ -97,7 +106,12 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
         enforce(is_seq(x), "lstmemory expects a sequence input")
         gates = x.data
         w_peep = None
-        if bspec is not None:
+        if split:
+            if gspec is not None:
+                gates = gates + params[gspec.name]
+            if bspec is not None:
+                w_peep = params[bspec.name]
+        elif bspec is not None:
             bias = params[bspec.name]
             gates = gates + bias[: 4 * size]
             if peephole:
@@ -116,7 +130,7 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
 
         return _run_seq_scan(x, reverse, scan_fn, ctx, name)
 
-    specs = [s for s in (wspec, bspec) if s is not None]
+    specs = [s for s in (wspec, gspec, bspec) if s is not None]
     return make_node("lstmemory", forward, [input], name=name, size=size,
                      param_specs=specs, layer_attr=layer_attr)
 
@@ -171,4 +185,43 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("grumemory", forward, [input], name=name, size=size,
+                     param_specs=specs, layer_attr=layer_attr)
+
+
+@register_layer("recurrent")
+def recurrent(input, name=None, act=None, reverse=False, bias_attr=None,
+              param_attr=None, layer_attr=None):
+    """Vanilla recurrent layer over a pre-projected sequence (reference:
+    RecurrentLayer; input.size == size): h_t = act(x_t + b + h_{t-1} W),
+    act tanh by default. One weight ``<name>.w0`` [size, size] and a bias
+    ``<name>.wbias``; ``reverse=True`` runs each sequence right to left;
+    in a decode window the carry threads across windows
+    (``_run_seq_scan``). The scan is ``ops.rnn.rnn_scan``, a step loop:
+    the JAX package has no Pallas kernel for it."""
+    size = input.size
+    from paddle_tpu_torch.graph import auto_name
+
+    name = name or auto_name("recurrent_layer")
+    wspec = weight_spec(name, 0, (size, size), param_attr, fan_in=size)
+    bspec = bias_spec(name, (size,), bias_attr)
+    act_fn = to_activation(act or "tanh").apply
+
+    def forward(params, values, ctx):
+        x = values[0]
+        enforce(is_seq(x), "recurrent expects a sequence input")
+        inp = x.data
+        if bspec is not None:
+            inp = inp + params[bspec.name]
+
+        def scan_fn(rev, state):
+            h_seq, h_f = rnn_ops.rnn_scan(
+                inp, x.mask(inp.dtype), params[wspec.name],
+                h0=None if state is None else state[0], act=act_fn,
+                reverse=rev)
+            return h_seq, [h_f]
+
+        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
+
+    specs = [s for s in (wspec, bspec) if s is not None]
+    return make_node("recurrent", forward, [input], name=name, size=size,
                      param_specs=specs, layer_attr=layer_attr)

@@ -99,7 +99,7 @@ class _StepProgram:
     """The traced step subgraph and its evaluation."""
 
     # step layers that may be hoisted out of the loop
-    HOISTABLE_TYPES = ("fc", "addto")
+    HOISTABLE_TYPES = ("fc", "mixed", "addto")
 
     def __init__(self, step, inputs, group_id):
         self.seq_inputs = []      # (outer LayerNode, placeholder)

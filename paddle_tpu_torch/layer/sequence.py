@@ -1,11 +1,16 @@
-"""Sequence layers: pooling, last_seq, first_seq and expand (reference:
-SequencePoolLayer, SequenceLastInstanceLayer, ExpandLayer; paddle_tpu/
-layer/sequence.py). Plain single-level sequences only; the nested
-(``agg_level``, ``expand_level``) and strided forms come with later parts
-of the port and raise."""
+"""Sequence layers: pooling, last_seq, first_seq, expand,
+context_projection_layer, max_id (maxid), sampling_id, eos_id and print
+(reference: SequencePoolLayer, SequenceLastInstanceLayer, ExpandLayer,
+ContextProjection, MaxIdLayer, SamplingIdLayer, EosIdCheckLayer,
+PrintLayer; paddle_tpu/layer/sequence.py). Plain single-level sequences
+only; the nested (``agg_level``, ``expand_level``) and strided forms are
+not ported yet and raise."""
+
+import torch
 
 from paddle_tpu_torch.core.sequence import SequenceBatch
-from paddle_tpu_torch.layer.base import is_seq, make_node, register_layer
+from paddle_tpu_torch.layer.base import (data_of, is_seq, like, make_node,
+                                         register_layer)
 from paddle_tpu_torch.ops import sequence as seq_ops
 from paddle_tpu_torch.pooling import to_pooling
 from paddle_tpu_torch.utils.error import enforce
@@ -85,6 +90,83 @@ def expand(input, expand_as, name=None, bias_attr=False, expand_level=0,
 
     return make_node("expand", forward, [input, expand_as], name=name,
                      size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("context_projection_layer")
+def context_projection_layer(input, context_start, context_len,
+                             trainable_padding=False, name=None,
+                             param_attr=None, layer_attr=None):
+    """The context window as a layer of its own (reference:
+    ContextProjection; ``ops.sequence.context_projection``): the
+    ``context_len`` steps from ``context_start`` concatenated, width
+    ``input.size * context_len``; ``trainable_padding`` owns the
+    [max(1, pad rows), in] table ``<name>.w0``."""
+    from paddle_tpu_torch.graph import auto_name
+    from paddle_tpu_torch.layer.mixed import context_projection
+
+    name = name or auto_name("context_projection")
+    proj = context_projection(input, context_start, context_len,
+                              trainable_padding, param_attr)
+    specs = proj.build(name, 0)
+
+    def forward(params, values, ctx):
+        return proj.forward(params, values[0], ctx)
+
+    return make_node("context_projection", forward, [input], name=name,
+                     size=proj.size, param_specs=specs,
+                     layer_attr=layer_attr)
+
+
+@register_layer("max_id")
+def max_id(input, name=None, layer_attr=None):
+    """The index of the largest feature, int32 (reference: MaxIdLayer);
+    over a sequence, one id per step."""
+
+    def forward(params, values, ctx):
+        x = values[0]
+        return like(x, torch.argmax(data_of(x), dim=-1).to(torch.int32))
+
+    return make_node("max_id", forward, [input], name=name, size=1,
+                     layer_attr=layer_attr)
+
+
+maxid = max_id
+
+
+@register_layer("sampling_id")
+def sampling_id(input, name=None, layer_attr=None):
+    """An id drawn from each probability row (reference: SamplingIdLayer),
+    int32, with probability proportional to max(p, 1e-20) as the JAX
+    package's categorical draw over log(max(p, 1e-20)). The draw takes
+    the evaluation's generator (``Topology.apply(generator=)``) and
+    raises without one; the JAX package's key stream is not reproduced.
+    The layer's size is the input's, as in the reference's config."""
+
+    def forward(params, values, ctx):
+        x = data_of(values[0])
+        gen = ctx.rng_for(x)
+        probs = torch.clamp(x.float(), min=1e-20).reshape(-1, x.shape[-1])
+        ids = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return ids.reshape(x.shape[:-1]).to(torch.int32)
+
+    return make_node("sampling_id", forward, [input], name=name,
+                     size=input.size, layer_attr=layer_attr)
+
+
+@register_layer("eos_id")
+def eos_id(input, eos_id, name=None, layer_attr=None):
+    """1 where the input id equals ``eos_id``, else 0, int32 (reference:
+    EosIdCheckLayer); over a sequence, per step."""
+
+    def forward(params, values, ctx):
+        x = values[0]
+        return like(x, (data_of(x) == eos_id).to(torch.int32))
+
+    return make_node("eos_id", forward, [input], name=name, size=1,
+                     layer_attr=layer_attr)
+
+
+eos = eos_id
 
 
 @register_layer("print")

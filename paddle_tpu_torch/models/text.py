@@ -7,6 +7,33 @@ from paddle_tpu_torch import networks
 from paddle_tpu_torch import pooling as pool
 
 
+def text_classification_lr(dict_size=30000, num_classes=2):
+    """Logistic regression over a bag of words (reference: v1_api_demo/
+    quick_start trainer_config.lr.py; paddle_tpu/models/text.py:10): a
+    sparse binary slot ``word`` into a softmax fc ``lr_out``. At
+    ``dict_size`` >= the ``sparse_feed_threshold`` flag the slot feeds as
+    SparseRows and the fc gathers rows."""
+    words = L.data(name="word",
+                   type=data_type.sparse_binary_vector(dict_size))
+    return L.fc(input=words, size=num_classes, act=A.Softmax(),
+                name="lr_out")
+
+
+def text_classification_cnn(dict_size=30000, emb_size=128, hidden=128,
+                            num_classes=2):
+    """Text CNN (reference: quick_start trainer_config.cnn.py;
+    paddle_tpu/models/text.py:18): embedding ``cnn_emb``, a context window
+    of 3 with an fc and max pooling (``sequence_conv_pool``, ``cnn_conv``)
+    and a softmax fc ``cnn_out``."""
+    words = L.data(name="word",
+                   type=data_type.integer_value_sequence(dict_size))
+    emb = L.embedding(input=words, size=emb_size, name="cnn_emb")
+    conv = networks.sequence_conv_pool(input=emb, context_len=3,
+                                       hidden_size=hidden, name="cnn_conv")
+    return L.fc(input=conv, size=num_classes, act=A.Softmax(),
+                name="cnn_out")
+
+
 def text_classification_lstm(dict_size=30000, emb_size=128, hidden=128,
                              num_classes=2, num_layers=1):
     """Stacked-LSTM text classification (reference: quick_start
@@ -57,6 +84,24 @@ def sequence_tagging_gru(dict_size=1000, label_size=16, emb_size=32,
     rnn = networks.simple_gru(input=emb, size=hidden, name=name + "_gru")
     return L.fc(input=rnn, size=label_size, act=A.Softmax(),
                 name=name + "_out")
+
+
+def ngram_lm(dict_size=2000, emb_size=32, hidden=64, gram_n=4):
+    """N-gram neural language model (reference: the v1 word-embedding
+    demo over imikolov; paddle_tpu/models/text.py:78): ``gram_n`` id slots
+    ``w0``.. embedded through ONE table shared by name
+    (``ngram_emb_table``), concatenated, a relu fc ``ngram_h`` and a
+    softmax fc over the dictionary ``ngram_out``."""
+    from paddle_tpu_torch.attr import ParamAttr
+
+    grams = [L.data(name="w%d" % i, type=data_type.integer_value(dict_size))
+             for i in range(gram_n)]
+    embs = [L.embedding(input=g, size=emb_size,
+                        param_attr=ParamAttr(name="ngram_emb_table"))
+            for g in grams]
+    merged = L.concat(input=embs, name="ngram_concat")
+    h = L.fc(input=merged, size=hidden, act=A.Relu(), name="ngram_h")
+    return L.fc(input=h, size=dict_size, act=A.Softmax(), name="ngram_out")
 
 
 def seq2seq_attention(src_dict_size=30000, trg_dict_size=30000, emb_size=64,

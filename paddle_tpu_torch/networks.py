@@ -1,7 +1,9 @@
 """Composite networks (paddle_tpu/networks.py; reference:
 trainer_config_helpers/networks.py): the image helpers simple_img_conv_pool,
-img_conv_bn_pool and vgg_16_network, simple_lstm, simple_gru and
-simple_attention. Names and keywords are the JAX package's."""
+img_conv_bn_pool and vgg_16_network, simple_lstm, bidirectional_lstm,
+simple_gru, bidirectional_gru, lstmemory_group, gru_group,
+sequence_conv_pool (text_conv_pool) and simple_attention. Names and
+keywords are the JAX package's."""
 
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch import layer as L
@@ -60,6 +62,45 @@ def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
                        layer_attr=lstm_cell_attr, name=name)
 
 
+def _route(kwargs):
+    """Split ``fwd_*`` / ``bwd_*`` keywords to their direction; the rest go
+    to both (the reference's attribute routing)."""
+    fwd_kw, bwd_kw = {}, {}
+    for k, v in kwargs.items():
+        if k.startswith("fwd_"):
+            fwd_kw[k[4:]] = v
+        elif k.startswith("bwd_"):
+            bwd_kw[k[4:]] = v
+        else:
+            fwd_kw[k] = v
+            bwd_kw[k] = v
+    return fwd_kw, bwd_kw
+
+
+def _bidirectional(fwd, bwd, name, return_seq):
+    """The two directions joined: their sequences concatenated step by
+    step (``return_seq``), else the forward's last step and the
+    backward's first."""
+    if return_seq:
+        return L.concat(input=[fwd, bwd], name=name)
+    return L.concat(input=[L.last_seq(input=fwd), L.first_seq(input=bwd)],
+                    name=name)
+
+
+def bidirectional_lstm(input, size, name=None, return_seq=False,
+                       fwd_act=None, bwd_act=None, **kwargs):
+    """A forward and a reversed simple_lstm, concatenated (reference:
+    bidirectional_lstm); ``fwd_*`` / ``bwd_*`` keywords go to one
+    direction's simple_lstm, the others to both. Each direction is one
+    K1 launch forward and one K2 backward on the card."""
+    fwd_kw, bwd_kw = _route(kwargs)
+    fwd = simple_lstm(input, size, name="%s_fwd" % name if name else None,
+                      reverse=False, act=fwd_act, **fwd_kw)
+    bwd = simple_lstm(input, size, name="%s_bwd" % name if name else None,
+                      reverse=True, act=bwd_act, **bwd_kw)
+    return _bidirectional(fwd, bwd, name, return_seq)
+
+
 def simple_gru(input, size, name=None, reverse=False, mat_param_attr=None,
                bias_param_attr=None, inner_param_attr=None, act=None,
                gate_act=None, mixed_param_attr=None,
@@ -82,6 +123,78 @@ def simple_gru(input, size, name=None, reverse=False, mat_param_attr=None,
                        gate_act=gate_act, bias_attr=bias_param_attr,
                        param_attr=inner_param_attr, layer_attr=gru_layer_attr,
                        name=name)
+
+
+def bidirectional_gru(input, size, name=None, return_seq=False,
+                      fwd_act=None, bwd_act=None, **kwargs):
+    """A forward and a reversed simple_gru, concatenated (reference:
+    networks.py bidirectional_gru); keywords routed as in
+    ``bidirectional_lstm``. Each direction is one K5 launch forward and
+    one K6 backward on the card."""
+    fwd_kw, bwd_kw = _route(kwargs)
+    fwd = simple_gru(input, size, name="%s_fwd" % name if name else None,
+                     reverse=False, act=fwd_act, **fwd_kw)
+    bwd = simple_gru(input, size, name="%s_bwd" % name if name else None,
+                     reverse=True, act=bwd_act, **bwd_kw)
+    return _bidirectional(fwd, bwd, name, return_seq)
+
+
+def lstmemory_group(input, size=None, name=None, reverse=False,
+                    param_attr=None, act=None, gate_act=None, state_act=None,
+                    input_proj_bias_attr=None, input_proj_layer_attr=None,
+                    lstm_bias_attr=None, lstm_layer_attr=None):
+    """LSTM over a pre-projected sequence, the v1 DSL's recurrent_group
+    spelling of lstmemory (reference: networks.py lstmemory_group). As in
+    the JAX package it maps onto the fused layer, with the split
+    gate-bias parameterization (``input_proj_bias_attr`` the 4*size gate
+    bias, ``lstm_bias_attr`` the peephole checks), so it launches K1/K2
+    like lstmemory."""
+    size = size or input.size // 4
+    name = name or auto_name("lstm_group")  # ref wrap_name_default
+    return L.lstmemory(input=input, size=size, reverse=reverse, act=act,
+                       gate_act=gate_act, state_act=state_act,
+                       bias_attr=lstm_bias_attr, param_attr=param_attr,
+                       gate_bias_attr=input_proj_bias_attr,
+                       layer_attr=lstm_layer_attr, name=name)
+
+
+def gru_group(input, size=None, name=None, reverse=False, param_attr=None,
+              act=None, gate_act=None, gru_bias_attr=None,
+              gru_layer_attr=None):
+    """GRU over a pre-projected sequence (reference: networks.py
+    gru_group), mapped onto grumemory as in the JAX package: K5/K6."""
+    size = size or input.size // 3
+    name = name or auto_name("gru_group")  # ref wrap_name_default
+    return L.grumemory(input=input, size=size, reverse=reverse, act=act,
+                       gate_act=gate_act, bias_attr=gru_bias_attr,
+                       param_attr=param_attr, layer_attr=gru_layer_attr,
+                       name=name)
+
+
+def sequence_conv_pool(input, context_len, hidden_size, name=None,
+                       context_start=None, pool_type=None,
+                       context_proj_param_attr=None, fc_param_attr=None,
+                       fc_bias_attr=None, fc_act=None, pool_bias_attr=None,
+                       fc_attr=None):
+    """Text convolution: a context window, an fc over it and a sequence
+    pooling (reference: sequence_conv_pool / text_conv_pool). The window
+    starts at ``-(context_len // 2)`` by default and has trainable
+    padding when ``context_proj_param_attr`` is given."""
+    start = (context_start if context_start is not None
+             else -(context_len // 2))
+    ctx = L.context_projection_layer(
+        input=input, context_start=start, context_len=context_len,
+        trainable_padding=context_proj_param_attr is not None,
+        param_attr=context_proj_param_attr,
+        name="%s_conv_proj" % name if name else None)
+    fc = L.fc(input=ctx, size=hidden_size, act=fc_act,
+              param_attr=fc_param_attr, bias_attr=fc_bias_attr,
+              name="%s_conv_fc" % name if name else None)
+    return L.pooling(input=fc, pooling_type=pool_type, name=name,
+                     bias_attr=pool_bias_attr)
+
+
+text_conv_pool = sequence_conv_pool
 
 
 def simple_attention(encoded_sequence, encoded_proj, decoder_state,

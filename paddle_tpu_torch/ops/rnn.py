@@ -1,5 +1,5 @@
-"""Recurrent ops: the LSTM and GRU steps and their masked sequence scans
-(paddle_tpu/ops/rnn.py).
+"""Recurrent ops: the LSTM, GRU and vanilla RNN steps and their masked
+sequence scans (paddle_tpu/ops/rnn.py).
 
 The [B*T, D] x [D, 4H] (or 3H) input projection runs outside the scan as
 one matmul; the scan carries only the recurrent state. Masking freezes
@@ -61,6 +61,14 @@ def gru_step(carry, inp_t, w_rec_rz, w_rec_c, mask_t, gate_act, state_act):
     c = state_act(xc + torch.matmul(r * h_prev, w_rec_c))
     h = u * h_prev + (1.0 - u) * c
     h = torch.where(mask_t[:, None] > 0, h, h_prev)
+    return h, h
+
+
+def rnn_step(carry, inp_t, w_rec, mask_t, act):
+    """One vanilla RNN step: h = act(inp_t + h_prev @ w_rec), the carry
+    kept where the step is masked."""
+    h = act(inp_t + torch.matmul(carry, w_rec))
+    h = torch.where(mask_t[:, None] > 0, h, carry)
     return h, h
 
 
@@ -182,6 +190,32 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
             outs.append(y)
         ys = torch.stack(outs)
     h_seq = ys.transpose(0, 1)
+    if reverse:
+        h_seq = _reversed(h_seq, mask_bt)
+    return h_seq * mask_bt[..., None].to(h_seq.dtype), h_f
+
+
+def rnn_scan(x_btd, mask_bt, w_rec, h0=None, act=torch.tanh, reverse=False,
+             reset_bt=None):
+    """Vanilla RNN over a precomputed input projection x [B, T, H]
+    (reference: RecurrentLayer; paddle_tpu/ops/rnn.py:261) -> h_seq
+    [B, T, H], h_T. The JAX package runs it on ``lax.scan`` with no Pallas
+    kernel, so this is a step loop on either device, differentiated by
+    autograd. ``reverse`` reverses around the scan (module docstring);
+    packed-reset scans are not ported yet."""
+    enforce(reset_bt is None, "rnn_scan(reset_bt=...) (packed sequences) is "
+            "not ported yet")
+    b_, t, hidden = x_btd.shape
+    if h0 is None:
+        h0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
+    inp = _reversed(x_btd, mask_bt) if reverse else x_btd
+    inp_tm = inp.transpose(0, 1)
+    mask_tm = mask_bt.transpose(0, 1)
+    h_f, outs = h0, []
+    for step in range(t):
+        h_f, y = rnn_step(h_f, inp_tm[step], w_rec, mask_tm[step], act)
+        outs.append(y)
+    h_seq = (torch.stack(outs) if outs else inp_tm).transpose(0, 1)
     if reverse:
         h_seq = _reversed(h_seq, mask_bt)
     return h_seq * mask_bt[..., None].to(h_seq.dtype), h_f

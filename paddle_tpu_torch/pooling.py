@@ -1,8 +1,8 @@
 """Pooling types (cf. trainer_config_helpers/poolings.py; C++ side
 SequencePoolLayer, PoolLayer). Max pooling is the flagship's; average is
 also img_pool's ``pool_type`` (ResNet's global average pool); sum is the
-movielens recommender's title pooling; sqrt-average arrives with the
-models that use it."""
+movielens recommender's title pooling; sqrt-average divides the sum by
+the square root of the length (paddle_tpu/pooling.py:52)."""
 
 import torch
 
@@ -54,6 +54,20 @@ class SumPooling(BasePoolingType):
         """data [B, T, D], mask [B, T] bool -> the sum over the valid
         steps [B, D] (paddle_tpu/pooling.py:43-49)."""
         return torch.sum(data * mask[..., None].to(data.dtype), dim=1)
+
+
+class SqrtAvgPooling(BasePoolingType):
+    """sum / sqrt(len) (cf. AverageLayer's 'sqrt' strategy); an all-empty
+    sequence pools to 0."""
+
+    name = "sqrt_average"
+
+    @staticmethod
+    def reduce(data, mask):
+        m = mask[..., None].to(data.dtype)
+        total = torch.sum(data * m, dim=1)
+        count = torch.clamp(torch.sum(m, dim=1), min=1.0)
+        return total / torch.sqrt(count)
 
 
 def to_pooling(pool):

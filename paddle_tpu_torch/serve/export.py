@@ -46,11 +46,11 @@ DEFAULT_DECODE_WINDOW = 8
 # cannot reproduce the full-sequence forward: the JAX package derives the
 # set from its layer sources (paddle_tpu/analyze/topology_check.py
 # packed_rejecting_node_types); this is that set restricted to the layer
-# types the port registers (tests/test_torch_scheduler.py holds the two
+# types the port builds (tests/test_torch_scheduler.py holds the two
 # equal).
 STREAM_BLOCKED_TYPES = frozenset({
-    "crf", "crf_decoding", "expand", "first_seq", "last_seq", "pooling",
-    "recurrent_group"})
+    "context_projection", "crf", "crf_decoding", "expand", "first_seq",
+    "last_seq", "pooling", "recurrent_group"})
 
 _KINDS = {(SEQ_NONE, DENSE): ("dense", "float32"),
           (SEQ_NONE, INDEX): ("index", "int32"),

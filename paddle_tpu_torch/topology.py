@@ -56,6 +56,22 @@ class Topology:
         self._state_param_names = {
             name for name, spec in self.param_specs().items()
             if spec.is_state}
+        # {producer name: [(consumer node, input position)]}; a data
+        # layer read only by cost layers at position >= 1 (a label, score
+        # or weight) is a label feed, which the mixed-precision policy
+        # leaves in float32 so the cost sees the exact target
+        # (paddle_tpu/topology.py:91-111)
+        from paddle_tpu_torch.layer.cost import COST_LAYER_TYPES
+
+        consumers = {}
+        for node in self.nodes:
+            for pos, parent in enumerate(node.inputs):
+                consumers.setdefault(parent.name, []).append((node, pos))
+        self._label_feed_names = {
+            name for name in self.data_layers
+            if consumers.get(name)
+            and all(n.layer_type in COST_LAYER_TYPES and pos >= 1
+                    for n, pos in consumers[name])}
 
     # -- parameters ---------------------------------------------------------
     def param_specs(self):
@@ -139,7 +155,8 @@ class Topology:
                         enforce(node.name in feed,
                                 "missing feed for data layer %r", node.name)
                         value = feed[node.name]
-                        if cd is not None:
+                        if cd is not None and \
+                                node.name not in self._label_feed_names:
                             value = _map_data(dtype_mod.to_compute, value)
                         values[node.name] = node.forward(params, [value], ctx)
                     else:

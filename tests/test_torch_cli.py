@@ -18,6 +18,9 @@ against the JAX package's, on the CPU.
   steps); both CLIs run in one process in either order, each on its own
   shim, and the port leaves the ``paddle*`` entries of ``sys.modules`` as
   it found them.
+- chip_smoke.py's v1_text configs (the db-lstm form over mixed_layer and
+  full_matrix_projection, and bidirectional_lstm / _gru) trained by both
+  CLIs at a small size from one JAX checkpoint, held the same way.
 - ``cli test --params`` scores the saved tar as the trainer's own
   ``test`` does; ``cli time`` prints a positive ``ms_per_batch``; the
   verbs and options not ported yet raise.
@@ -293,12 +296,21 @@ def test_shim_binds_every_name_of_the_jax_shim():
 
     assert port_names["fc_layer"] is pt.layer.fc
     assert port_names["simple_lstm"] is pt.networks.simple_lstm
-    with pytest.raises(NotImplementedError, match="mixed_layer is not "
+    # the mixed-layer family, the group and bidirectional RNNs and the
+    # activations are the port's own objects now
+    assert port_names["mixed_layer"] is pt.layer.mixed
+    assert port_names["full_matrix_projection"] is \
+        pt.layer.full_matrix_projection
+    assert port_names["recurrent_layer"] is pt.layer.recurrent
+    assert port_names["STanhActivation"] is pt.activation.STanh
+    assert port_names["SqrtAvgPooling"] is pt.pooling.SqrtAvgPooling
+    for name in ("bidirectional_lstm", "bidirectional_gru",
+                 "lstmemory_group", "gru_group", "sequence_conv_pool",
+                 "text_conv_pool"):
+        assert port_names[name] is getattr(pt.networks, name), name
+    with pytest.raises(NotImplementedError, match="nce_layer is not "
                        "ported yet"):
-        port_names["mixed_layer"](input=None, size=3)
-    with pytest.raises(NotImplementedError, match="STanhActivation is not "
-                       "ported yet"):
-        port_names["STanhActivation"]()
+        port_names["nce_layer"](input=None, label=None, num_classes=3)
 
 
 # -- the CLI against JAX's ---------------------------------------------------
@@ -365,6 +377,58 @@ def test_cli_train_equals_jax_cli(tmp_path, order, capsys):
         for n in want.names():
             np.testing.assert_allclose(np.asarray(got.get(n)),
                                        np.asarray(want.get(n)), rtol=TOL,
+                                       atol=TOL, err_msg=n)
+
+
+V1_SMALL = "dict_size=30,emb_size=8,hidden_size=4,depth=3,batch_size=8"
+
+
+@pytest.mark.parametrize("name,args", [("dblstm", ""),
+                                       ("bidi_lstm", "rnn=lstm"),
+                                       ("bidi_gru", "rnn=gru")])
+def test_v1_text_configs_train_like_the_jax_cli(tmp_path, capsys, name,
+                                                args):
+    """chip_smoke.py's v1_text configs (the quick_start db-lstm form: a
+    mixed_layer over a full_matrix_projection and lstmemory layers of
+    alternating direction; the bidirectional form with
+    bidirectional_lstm or bidirectional_gru) at a small size, trained for
+    2 passes by the port's and the JAX package's ``cli train`` from one
+    JAX checkpoint on the same provider: the same test cost and pass
+    checkpoints (1e-5)."""
+    import chip_smoke
+
+    d = tmp_path / name
+    d.mkdir()
+    module = "v1small_%s_provider" % name
+    (d / (module + ".py")).write_text(chip_smoke.V1_PROVIDER_SRC)
+    src = {run[0]: run[1] for run in chip_smoke.V1_TEXT_RUNS}[name]
+    conf = str(d / "conf.py")
+    with open(conf, "w") as fh:
+        fh.write(src % {"module": module, "max_len": 9, "train": 24,
+                        "test": 8, "seed": 7})
+    args = ",".join(a for a in (args, V1_SMALL) if a)
+    jax_reset_names()
+    cfg = jcli._load_config(conf, args)
+    _, _, trainer = jcli._build(cfg)
+    init = str(tmp_path / "init")
+    trainer.save_checkpoint(init)
+    common = ["--config", conf, "--config-args", args, "--init-model", init,
+              "--num-passes", "2"]
+    jax_reset_names()
+    assert jcli.main(["train", *common, "--save-dir",
+                      str(tmp_path / "save_jax")]) == 0
+    want = _test_cost(capsys.readouterr().out)
+    assert cli.main(["train", *common, "--device", "cpu", "--save-dir",
+                     str(tmp_path / "save_port")]) == 0
+    got = _test_cost(capsys.readouterr().out)
+    assert abs(got - want) < TOL
+    for pass_id in (0, 1):
+        jparams = _pass_params(str(tmp_path / "save_jax"), pass_id)
+        params = _pass_params(str(tmp_path / "save_port"), pass_id)
+        assert sorted(params.names()) == sorted(jparams.names())
+        for n in jparams.names():
+            np.testing.assert_allclose(np.asarray(params.get(n)),
+                                       np.asarray(jparams.get(n)), rtol=TOL,
                                        atol=TOL, err_msg=n)
 
 

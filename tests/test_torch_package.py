@@ -67,6 +67,20 @@ def test_import_scan_covers_the_data_side_and_the_demo_runner(part):
     assert len(hits) == want, hits
 
 
+@pytest.mark.parametrize("part", [
+    "layer/mixed.py", "layer/basic.py", "layer/sequence.py", "layer/cost.py",
+    "layer/recurrent.py", "ops/sequence.py", "ops/rnn.py", "activation.py",
+    "pooling.py", "networks.py", "models/text.py"])
+def test_import_scan_covers_the_text_layers(part):
+    """The scan reads every module of the mixed-layer family and the text
+    layers, and none of them imports JAX or the JAX package."""
+    sources = {os.path.relpath(p, PKG): p for p in _port_sources()
+               if p.startswith(PKG + os.sep)}
+    assert part in sources
+    assert not [m for m in _imported_modules(sources[part])
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -258,10 +258,11 @@ def test_attention_pool_bfloat16_masks_padding_exactly():
 
 # -- a generic recurrent_group ------------------------------------------------
 
-def _group_net(pkg, reverse):
+def _group_net(pkg, reverse, mixed_out=False):
     """Two sequence inputs, a non-sequence StaticInput, a memory booted
     from a constant and one booted from a layer; the step's output is an
-    fc of the second memory's layer (hoisted: it feeds no memory)."""
+    fc of the second memory's layer (hoisted: it feeds no memory), or
+    with ``mixed_out`` a mixed layer over a full_matrix_projection."""
     L, dt, A = pkg.layer, pkg.data_type, pkg.activation
     a = L.data(name="a", type=dt.dense_vector_sequence(4))
     b = L.data(name="b", type=dt.dense_vector_sequence(3))
@@ -274,6 +275,9 @@ def _group_net(pkg, reverse):
         acc_new = L.fc(input=[a_t, acc], size=D, act=A.Tanh(), name="acc")
         gin = L.fc(input=[b_t, ctx_s, acc_new], size=3 * D, name="gin")
         h_new = L.gru_step(input=gin, output_mem=h, size=D, name="h")
+        if mixed_out:
+            return L.mixed(size=4, act=A.Softmax(), name="out",
+                           input=[L.full_matrix_projection(input=h_new)])
         return L.fc(input=h_new, size=4, act=A.Softmax(), name="out")
 
     return L.recurrent_group(step=step, input=[a, b, L.StaticInput(ctx)],
@@ -330,6 +334,19 @@ def test_group_hoists_what_jax_hoists_and_loops_once_per_apply(monkeypatch):
     topo.apply(params, feed)
     assert len(calls) == T and len(hoisted) == 1
     assert all(skip == prog.hoisted_ids for skip in calls)
+
+
+def test_group_hoists_a_mixed_suffix_as_jax_does():
+    """A mixed layer that feeds no memory is hoisted out of the loop, as
+    the JAX package hoists it; values and gradients as above."""
+    jout, out = _both(lambda pkg: _group_net(pkg, False, mixed_out=True))
+    assert [n.name for n in out._step_program.hoisted_order] == [
+        n.name for n in jout._step_program.hoisted_order] == ["out"]
+    topo = Topology(out)
+    got, want, grads, jgrads = _run_both(jout, out, _np_params(topo, 14),
+                                         _group_arrays(15), seed=16)
+    assert _rel(got, want) <= GRAD_TOL
+    _check_grads(grads, jgrads)
 
 
 # -- what is refused ----------------------------------------------------------

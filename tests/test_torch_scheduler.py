@@ -21,6 +21,8 @@ exported step on the CPU).
 Every scheduler is stopped inside its test.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -36,6 +38,7 @@ from tests.torch_decode import (GRU_BUILDER, MODELS, OUTPUT, SMALL,
                                 read_records, schema_valid, sequences)
 
 TOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -80,13 +83,35 @@ def test_decode_bundle_accessors(gru_pair):
         k: (v.shape, v.dtype) for k, v in jflat.items()}
 
 
-def test_stream_blocked_set_is_the_jax_set_on_port_layers():
-    from paddle_tpu.analyze.topology_check import packed_rejecting_node_types
+def _port_node_types():
+    """The layer types the port's nodes carry: the registered constructor
+    names, and the type strings its layer modules pass to ``make_node``
+    (``context_projection_layer`` builds a ``context_projection`` node)."""
+    import ast
+    import glob
+
     from paddle_tpu_torch.layer.base import layer_registry
 
+    types = set(layer_registry.names())
+    for path in glob.glob(os.path.join(ROOT, "paddle_tpu_torch", "layer",
+                                       "*.py")):
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "make_node" and node.args
+                    and isinstance(node.args[0], ast.Constant)):
+                types.add(node.args[0].value)
+    return types
+
+
+def test_stream_blocked_set_is_the_jax_set_on_port_layers():
+    from paddle_tpu.analyze.topology_check import packed_rejecting_node_types
+
     jax_set = packed_rejecting_node_types()
+    assert "context_projection" in _port_node_types()
     assert port_export.STREAM_BLOCKED_TYPES == (
-        jax_set & set(layer_registry.names()))
+        jax_set & _port_node_types())
 
 
 def _refusal(tmp_path, builder, kwargs, seq_len=8):
@@ -114,6 +139,8 @@ def _refusal(tmp_path, builder, kwargs, seq_len=8):
      dict(hidden=(8,)), "every input to be a sequence slot"),
     ("carry_free", "tests.torch_decode:embedding_tagger", SMALL,
      "found no recurrent carries"),
+    ("context_window", "tests.torch_decode:context_tagger", SMALL,
+     "is not streamable: layer"),
 ])
 def test_decode_export_refusals_match_jax(tmp_path, case, builder, kwargs,
                                           match):

@@ -1,0 +1,835 @@
+"""The rest of the text layers of the port against the JAX package, on the
+CPU: the elementwise layers of paddle_tpu/layer/basic.py, the sequence
+layers (context_projection_layer, max_id, eos_id, sampling_id), the
+remaining costs, every activation and SqrtAvgPooling, ``layer.recurrent``,
+the bidirectional and group RNN helpers, sequence_conv_pool, the text
+models lr / cnn / ngram_lm, and the layer arithmetic of v1's layer_math.
+
+Same seeded numpy inputs and parameters in both packages
+(``tests/torch_parity.py``): values within 1e-6 of max(1, max |JAX|),
+gradients with respect to every parameter and floating feed within 1e-5 of
+max(1, max |JAX gradient|); the models' 3-step Momentum trajectories
+against the JAX trainer within 1e-5. The JAX package's LSTM and GRU run
+their Pallas kernels in interpret mode, the port's the kernels' plain
+versions.
+
+Then the three repairs, each through both packages: ``layer.recurrent``
+is the layer (not the submodule), a feed read only as a cost target stays
+float32 under the bf16 policy, and a node built without a name gets the
+JAX package's auto name. Last, the surface: the public names of JAX's
+``layer``, ``networks``, ``models.text``, ``activation`` and ``pooling``
+that the port lacks are exactly the ones ROADMAP.md still queues.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jpaddle
+from paddle_tpu import optimizer as jopt
+from paddle_tpu.activation import SequenceSoftmax as JaxSequenceSoftmax
+from paddle_tpu.core import dtype as jdtype
+from paddle_tpu.graph import reset_name_counters as jax_reset_names
+from paddle_tpu.parameters import Parameters as JaxParameters
+from paddle_tpu.topology import Topology as JaxTopology
+from paddle_tpu.topology import convert_feed as jax_convert_feed
+
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import optimizer as opt
+from paddle_tpu_torch.activation import SequenceSoftmax
+from paddle_tpu_torch.core import dtype as dtype_mod
+from paddle_tpu_torch.graph import reset_name_counters
+from paddle_tpu_torch.parameters import Parameters
+from paddle_tpu_torch.topology import Topology, convert_feed
+from paddle_tpu_torch.utils.error import EnforceError
+
+from torch_parity import assert_match, both, numpy_params, rel, run_both
+
+TOL_TRAJ = 1e-5
+
+
+def _seq_rows(seed, dim=6, vocab=13, lens=(5, 0, 3, 1)):
+    """Ragged rows {xs, ids, x, x2, w, label, y} with a zero-length row."""
+    rng = np.random.RandomState(seed)
+    return [{"xs": rng.randn(k, dim).astype(np.float32),
+             "ids": rng.randint(0, vocab, k).tolist(),
+             "x": rng.randn(dim).astype(np.float32),
+             "x2": rng.randn(dim).astype(np.float32),
+             "w": rng.uniform(0.1, 0.9, 1).astype(np.float32),
+             "label": int(rng.randint(0, 3)),
+             "y": rng.uniform(0.05, 0.95, 3).astype(np.float32)}
+            for k in lens]
+
+
+def _data(pkg, dim=6, vocab=13):
+    L, dt = pkg.layer, pkg.data_type
+    return types.SimpleNamespace(
+        xs=L.data(name="xs", type=dt.dense_vector_sequence(dim)),
+        ids=L.data(name="ids", type=dt.integer_value_sequence(vocab)),
+        x=L.data(name="x", type=dt.dense_vector(dim)),
+        x2=L.data(name="x2", type=dt.dense_vector(dim)),
+        w=L.data(name="w", type=dt.dense_vector(1)),
+        label=L.data(name="label", type=dt.integer_value(3)),
+        y=L.data(name="y", type=dt.dense_vector(3)))
+
+
+# -- basic.py's elementwise layers -------------------------------------------
+
+def _pos(pkg, node, name):
+    """A positive view of ``node`` (power's base)."""
+    return pkg.layer.fc(input=node, size=node.size, name=name,
+                        act=pkg.activation.Sigmoid())
+
+
+BASIC = {
+    "scaling": lambda pkg, d: pkg.layer.scaling(input=d.x, weight=d.w),
+    "slope_intercept": lambda pkg, d: pkg.layer.slope_intercept(
+        input=d.xs, slope=-1.5, intercept=0.25),
+    "interpolation": lambda pkg, d: pkg.layer.interpolation(
+        input=[d.x, d.x2], weight=d.w),
+    "power": lambda pkg, d: pkg.layer.power(input=_pos(pkg, d.x, "base"),
+                                            weight=d.w),
+    "sum_to_one_norm": lambda pkg, d: pkg.layer.sum_to_one_norm(
+        input=_pos(pkg, d.xs, "pos")),
+    "linear_comb": lambda pkg, d: pkg.layer.linear_comb(
+        weights=pkg.layer.fc(input=d.x, size=3, name="wts"), vectors=d.x2,
+        size=2),
+    "convex_comb": lambda pkg, d: pkg.layer.convex_comb(
+        weights=pkg.layer.fc(input=d.x, size=2, name="wts"), vectors=d.x2),
+    "trans": lambda pkg, d: pkg.layer.trans(input=d.x),
+    "repeat_row": lambda pkg, d: pkg.layer.repeat(
+        input=d.xs, num_repeats=3, act=pkg.activation.Tanh()),
+    "repeat_col": lambda pkg, d: pkg.layer.repeat(
+        input=d.x, num_repeats=2, as_row_vector=False),
+    "resize": lambda pkg, d: pkg.layer.resize(input=d.x, size=3),
+    "bias": lambda pkg, d: pkg.layer.bias(input=d.xs,
+                                          act=pkg.activation.Relu()),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BASIC))
+def test_elementwise_layer_matches_jax(kind):
+    def build(pkg):
+        return BASIC[kind](pkg, _data(pkg))
+
+    _, out = both(build)
+    port, jax_side = run_both(build, _seq_rows(1), [out.name], seed=2)
+    assert_match(port, jax_side)
+
+
+def test_layer_arithmetic_matches_jax():
+    """v1 layer_math on LayerOutput: + (equal widths and a width-1 side),
+    -, * by a constant and by a width-1 layer, and their reflections."""
+    def build(pkg):
+        d = _data(pkg)
+        h = pkg.layer.fc(input=d.x, size=6, name="h")
+        s = (h + d.x2) * 0.5 - d.x + (2.0 - h) + 1.0
+        s = s + d.w
+        s = 3.0 * (d.w * s) - 0.5
+        return pkg.layer.fc(input=s, size=2, name="out")
+
+    jout, out = both(build)
+    assert [n.layer_type for n in Topology(out).nodes] == [
+        n.layer_type for n in JaxTopology(jout).nodes]
+    port, jax_side = run_both(build, _seq_rows(3), ["out"], seed=4)
+    assert_match(port, jax_side)
+    with pytest.raises(TypeError, match="width 1"):
+        _ = out * out
+
+
+# -- sequence layers ---------------------------------------------------------
+
+@pytest.mark.parametrize("start,length,trainable", [
+    (-2, 5, False), (-1, 3, True), (0, 2, True)])
+def test_context_projection_layer_matches_jax(start, length, trainable):
+    def build(pkg):
+        d = _data(pkg)
+        ctx = pkg.layer.context_projection_layer(
+            input=d.xs, context_start=start, context_len=length,
+            trainable_padding=trainable)
+        return pkg.layer.fc(input=ctx, size=4, name="fc_ctx")
+
+    jout, out = both(build)
+    assert out.inputs[0].name == jout.inputs[0].name == \
+        "__context_projection_0__"
+    port, jax_side = run_both(build, _seq_rows(5),
+                              ["__context_projection_0__", "fc_ctx"], seed=6)
+    assert_match(port, jax_side)
+    assert ("__context_projection_0__.w0" in port[1]) == trainable
+
+
+@pytest.mark.parametrize("which", ["max_id", "maxid", "eos_id", "eos"])
+def test_id_layers_match_jax(which):
+    def build(pkg):
+        d = _data(pkg)
+        h = pkg.layer.fc(input=d.xs, size=4, name="h")
+        m = pkg.layer.max_id(input=h, name="ids_out")
+        if which.startswith("eos"):
+            return getattr(pkg.layer, which)(input=m, eos_id=2, name="eos")
+        return getattr(pkg.layer, which)(input=pkg.layer.fc(
+            input=d.x, size=5, name="h2"), name="flat_ids")
+
+    _, out = both(build)
+    port, jax_side = run_both(build, _seq_rows(7, lens=(6, 2, 0, 4)),
+                              [out.name], seed=8, loss=False)
+    assert_match(port, jax_side)
+    assert out.size == 1
+
+
+def _sample(probs, n, seed, device="cpu"):
+    reset_name_counters()
+    x = paddle.layer.data(name="p", type=paddle.data_type.dense_vector(
+        probs.shape[1]))
+    ids = paddle.layer.sampling_id(input=x)
+    topo = Topology(ids)
+    gen = torch.Generator().manual_seed(seed)
+    feed = {"p": torch.from_numpy(np.repeat(probs, n, axis=0))}
+    return topo.apply({}, feed, generator=gen)[ids.name].numpy()
+
+
+def test_sampling_id_draws_from_each_row():
+    """One-hot rows always give their index; the frequencies of 20,000
+    draws from a row are within 4 standard errors of it; the same
+    generator seed gives the same ids; ids are int32."""
+    onehot = np.eye(5, dtype=np.float32)
+    got = _sample(onehot, 1, seed=1)
+    assert got.dtype == np.int32 and got.tolist() == [0, 1, 2, 3, 4]
+    row = np.array([[0.1, 0.0, 0.25, 0.6, 0.05]], np.float32)
+    n = 20000
+    ids = _sample(row, n, seed=2)
+    freq = np.bincount(ids, minlength=5) / n
+    se = np.sqrt(row[0] * (1 - row[0]) / n)
+    assert np.all(np.abs(freq - row[0]) <= 4 * se + 1e-12), freq
+    assert freq[1] == 0.0
+    np.testing.assert_array_equal(_sample(row, 100, seed=3),
+                                  _sample(row, 100, seed=3))
+
+
+def test_sampling_id_needs_a_generator_and_keeps_jax_size():
+    jout, out = both(lambda pkg: pkg.layer.sampling_id(
+        input=pkg.layer.data(name="p",
+                             type=pkg.data_type.dense_vector(4))))
+    assert out.size == jout.size == 4 and out.name == jout.name
+    with pytest.raises(EnforceError, match="pass generator="):
+        Topology(out).apply({}, {"p": torch.full((2, 4), 0.25)})
+
+
+# -- costs ---------------------------------------------------------------------
+
+def _probs(pkg, node, size, name):
+    return pkg.layer.fc(input=node, size=size, name=name,
+                        act=pkg.activation.Softmax())
+
+
+COSTS = {
+    "cross_entropy_with_selfnorm": lambda pkg, d:
+        pkg.layer.cross_entropy_with_selfnorm(
+            input=pkg.layer.fc(input=d.x, size=3, name="p",
+                               act=pkg.activation.Exp()),
+            label=d.label, softmax_selfnorm_alpha=0.3),
+    "rank_cost": lambda pkg, d: pkg.layer.rank_cost(
+        left=pkg.layer.fc(input=d.x, size=1, name="l"),
+        right=pkg.layer.fc(input=d.x2, size=1, name="r"), label=d.w),
+    "rank_cost_weighted": lambda pkg, d: pkg.layer.rank_cost(
+        left=pkg.layer.fc(input=d.x, size=1, name="l"),
+        right=pkg.layer.fc(input=d.x2, size=1, name="r"), label=d.w,
+        weight=pkg.layer.fc(input=d.x2, size=1, name="wt",
+                            act=pkg.activation.Sigmoid())),
+    "huber_regression_cost": lambda pkg, d: pkg.layer.huber_regression_cost(
+        input=pkg.layer.fc(input=d.x, size=3, name="h"), label=d.y,
+        delta=0.5),
+    "huber_classification_cost": lambda pkg, d:
+        pkg.layer.huber_classification_cost(
+            input=pkg.layer.fc(input=d.x, size=1, name="h"),
+            label=pkg.layer.data(name="bin",
+                                 type=pkg.data_type.integer_value(2))),
+    "huber_cost": lambda pkg, d: pkg.layer.huber_cost(
+        input=pkg.layer.fc(input=d.x, size=1, name="h"),
+        label=pkg.layer.data(name="bin",
+                             type=pkg.data_type.integer_value(2))),
+    "smooth_l1_cost": lambda pkg, d: pkg.layer.smooth_l1_cost(
+        input=pkg.layer.fc(input=d.x, size=3, name="h"), label=d.y,
+        coeff=1.5),
+    "sum_cost": lambda pkg, d: pkg.layer.sum_cost(
+        input=pkg.layer.fc(input=d.xs, size=3, name="h")),
+    "sum_cost_flat": lambda pkg, d: pkg.layer.sum_cost(
+        input=pkg.layer.fc(input=d.x, size=3, name="h")),
+    "soft_binary_class_cross_entropy": lambda pkg, d:
+        pkg.layer.soft_binary_class_cross_entropy(
+            input=pkg.layer.fc(input=d.x, size=3, name="h",
+                               act=pkg.activation.Sigmoid()), label=d.y),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(COSTS))
+def test_cost_matches_jax(kind):
+    def build(pkg):
+        return COSTS[kind](pkg, _data(pkg))
+
+    rows = _seq_rows(9)
+    for i, r in enumerate(rows):
+        r["bin"] = i % 2
+    jout, out = both(build)
+    assert out.name == jout.name
+    port, jax_side = run_both(build, rows, [out.name], seed=10, scale=2.0)
+    assert_match(port, jax_side)
+
+
+def test_lambda_cost_matches_jax():
+    def build(pkg):
+        L, dt = pkg.layer, pkg.data_type
+        docs = L.data(name="docs", type=dt.dense_vector_sequence(4))
+        rel_ = L.data(name="rel", type=dt.dense_vector_sequence(1))
+        score = L.fc(input=docs, size=1, name="score")
+        return L.lambda_cost(input=score, score=rel_, NDCG_num=3)
+
+    # distinct relevances: at a tie the sort's gradient may go to either
+    rng = np.random.RandomState(11)
+    rows = [(rng.randn(k, 4).astype(np.float32),
+             rng.uniform(0.1, 3.0, (k, 1)).astype(np.float32))
+            for k in (5, 2, 7, 1)]
+    _, out = both(build)
+    port, jax_side = run_both(build, rows, [out.name], seed=12)
+    assert_match(port, jax_side)
+
+
+# -- activations and SqrtAvgPooling -----------------------------------------
+
+ACTIVATIONS = ["STanh", "BRelu", "SoftRelu", "SequenceSoftmax", "Exp", "Log",
+               "Abs", "Square", "Reciprocal", "Sqrt", "Identity", "Linear"]
+
+
+@pytest.mark.parametrize("name", ACTIVATIONS)
+def test_activation_through_fc_and_pooling_matches_jax(name):
+    """Each activation on an fc over ragged sequences, pooled: the inputs
+    kept positive where the function needs it (log, sqrt, reciprocal)."""
+    positive = name in ("Log", "Sqrt", "Reciprocal")
+
+    def build(pkg):
+        d = _data(pkg)
+        base = (pkg.layer.fc(input=d.xs, size=5, name="pre",
+                             act=pkg.activation.Sigmoid())
+                if positive else d.xs)
+        h = pkg.layer.fc(input=base, size=4, name="act_fc",
+                         act=getattr(pkg.activation, name)(),
+                         bias_attr=pkg.attr.ParamAttr(
+                             name="act_fc.b") if positive else None)
+        return pkg.layer.pooling(input=h, name="pooled",
+                                 pooling_type=pkg.pooling.AvgPooling())
+
+    def build_both(pkg):
+        node = build(pkg)
+        return node
+
+    jout, out = both(build_both)
+    assert getattr(paddle.activation, name)().name == getattr(
+        jpaddle.activation, name)().name
+    params = None
+    if positive:
+        jtopo = JaxTopology(jout)
+        params = numpy_params(jtopo.param_specs(), 13)
+        params["act_fc.w0"] = np.abs(params["act_fc.w0"])
+        params["act_fc.b"] = np.abs(params["act_fc.b"]) + 0.5
+    port, jax_side = run_both(build_both, _seq_rows(14), ["act_fc", "pooled"],
+                              seed=13, params=params)
+    assert_match(port, jax_side)
+
+
+def test_activations_resolve_by_name_and_identity_is_linear():
+    for name in ("stanh", "brelu", "softrelu", "sequence_softmax",
+                 "exponential", "log", "abs", "square", "reciprocal", "sqrt"):
+        got = paddle.activation.to_activation(name)
+        assert type(got).__name__ == type(
+            jpaddle.activation.to_activation(name)).__name__, name
+    assert paddle.activation.Identity is paddle.activation.Linear
+
+
+def test_sequence_softmax_with_its_mask_matches_jax():
+    rng = np.random.RandomState(15)
+    x = rng.randn(4, 6).astype(np.float32)
+    mask = np.arange(6)[None, :] < np.array([6, 0, 2, 1])[:, None]
+    want = JaxSequenceSoftmax().apply(x, mask)
+    got = SequenceSoftmax().apply(torch.from_numpy(x), torch.from_numpy(mask))
+    assert rel(got.numpy(), want) <= 1e-6
+    assert not got.numpy()[~mask].any()
+    np.testing.assert_allclose(got.numpy()[mask[:, 0]].sum(-1), 1.0,
+                               rtol=1e-6)
+
+
+def test_sqrt_avg_pooling_matches_jax():
+    def build(pkg):
+        d = _data(pkg)
+        h = pkg.layer.fc(input=d.xs, size=4, name="h")
+        return pkg.layer.pooling(input=h, name="pooled",
+                                 pooling_type=pkg.pooling.SqrtAvgPooling())
+
+    port, jax_side = run_both(build, _seq_rows(16), ["pooled"], seed=17)
+    assert_match(port, jax_side)
+    assert paddle.pooling.SqrtAvgPooling.name == "sqrt_average"
+
+
+# -- layer.recurrent (repair 1) ---------------------------------------------
+
+def test_recurrent_is_the_layer_and_the_v1_shim_builds_it(tmp_path):
+    """In both packages ``layer.recurrent`` is the vanilla RNN layer (the
+    JAX package imports the function over its submodule's name); the v1
+    shim's ``recurrent_layer`` is that function, not a module."""
+    assert isinstance(jpaddle.layer.recurrent, types.FunctionType)
+    assert isinstance(paddle.layer.recurrent, types.FunctionType)
+    from paddle_tpu_torch import cli
+
+    with cli.ConfigScope(str(tmp_path / "conf.py")):
+        from paddle.trainer_config_helpers import (data_layer, fc_layer,
+                                                   recurrent_layer)
+
+        assert recurrent_layer is paddle.layer.recurrent
+        x = data_layer(name="xs", size=4)
+        node = recurrent_layer(input=fc_layer(input=x, size=4))
+    assert node.layer_type == "recurrent" and node.size == 4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("act", [None, "Relu"])
+def test_recurrent_layer_matches_jax(reverse, act):
+    def build(pkg):
+        d = _data(pkg)
+        proj = pkg.layer.fc(input=d.xs, size=5, name="proj", bias_attr=False)
+        return pkg.layer.recurrent(
+            input=proj, reverse=reverse,
+            act=getattr(pkg.activation, act)() if act else None)
+
+    jout, out = both(build)
+    assert out.name == jout.name == "__recurrent_layer_0__"
+    port, jax_side = run_both(build, _seq_rows(18), [out.name], seed=19)
+    assert_match(port, jax_side)
+    assert sorted(k for k in port[1] if k.startswith("__rec")) == [
+        "__recurrent_layer_0__.w0", "__recurrent_layer_0__.wbias"]
+
+
+# -- bf16 policy: cost-only feeds stay float32 (repair 2) ------------------
+
+def _bf16(fn):
+    jdtype.set_mixed_precision("bfloat16")
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        return fn()
+    finally:
+        jdtype.set_mixed_precision(None)
+        dtype_mod.set_mixed_precision(None)
+
+
+PROBES = {
+    "square_error_cost": ([0.3, 0.7], [1 + 2 ** -9, 0.5 + 2 ** -11]),
+    "multi_binary_label_cross_entropy": ([0.3, 0.7],
+                                         [0.25 + 2 ** -11, 1 - 2 ** -10]),
+    "smooth_l1_cost": ([0.3, 0.7], [1 + 2 ** -9, 0.5 + 2 ** -11]),
+    "huber_regression_cost": ([0.3, 0.7], [1 + 2 ** -9, 0.5 + 2 ** -11]),
+}
+
+
+@pytest.mark.parametrize("cost", sorted(PROBES))
+def test_cost_only_feed_stays_float32_under_bf16(cost):
+    """The probe: a dense input and a label of values bf16 cannot hold,
+    the cost under set_mixed_precision("bfloat16"): the label stays
+    float32 in both packages, so the costs agree within 1e-6 (a label
+    rounded to bf16 moves them by 0.5 %)."""
+    x, y = PROBES[cost]
+
+    def build(pkg):
+        L, dt = pkg.layer, pkg.data_type
+        inp = L.data(name="x", type=dt.dense_vector(2))
+        lab = L.data(name="y", type=dt.dense_vector(2))
+        return getattr(L, cost)(input=inp, label=lab)
+
+    rows = [(np.array(x, np.float32), np.array(y, np.float32))]
+
+    def run():
+        jout, out = both(build)
+        jtopo, topo = JaxTopology(jout), Topology(out)
+        assert topo._label_feed_names == jtopo._label_feed_names == {"y"}
+        want = jtopo.apply({}, jax_convert_feed(jtopo, rows), mode="test")[
+            0][jout.name]
+        got = topo.apply({}, convert_feed(topo, rows, "cpu"))[out.name]
+        return np.asarray(want, np.float64), got.double().numpy()
+
+    want, got = _bf16(run)
+    assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
+    if cost == "square_error_cost":
+        # the input was rounded to bf16, the label not
+        xb = torch.tensor(x).bfloat16().double().numpy()
+        assert abs(got[0] - 0.5 * ((xb - np.float32(y)) ** 2).sum()) <= 1e-6
+
+
+def test_a_feed_read_as_target_and_as_input_is_still_cast():
+    """A data layer that is a cost's target and also an fc's input is cast
+    to the compute dtype, as in JAX; a weight read only by a cost stays
+    float32."""
+    def build(pkg):
+        L, dt = pkg.layer, pkg.data_type
+        x = L.data(name="x", type=dt.dense_vector(3))
+        y = L.data(name="y", type=dt.dense_vector(3))
+        w = L.data(name="w", type=dt.dense_vector(1))
+        h = L.fc(input=[x, y], size=3, name="h")
+        return L.square_error_cost(input=h, label=y, weight=w)
+
+    jout, out = both(build)
+    assert Topology(out)._label_feed_names == \
+        JaxTopology(jout)._label_feed_names == {"w"}
+    rows = [(np.full(3, 0.5, np.float32), np.array([1 + 2 ** -9, 0.25, 3.0],
+                                                   np.float32),
+             np.array([1 + 2 ** -10], np.float32))]
+    seen = {}
+
+    def run():
+        topo = Topology(out)
+        feed = convert_feed(topo, rows, "cpu")
+        params = {k: torch.from_numpy(v) for k, v in numpy_params(
+            topo.param_specs(), 20).items()}
+        real = out.inputs[1].forward
+
+        def spy(params_, values, ctx):
+            seen["y"] = values[0].dtype
+            return real(params_, values, ctx)
+
+        out.inputs[1].forward = spy
+        return topo.apply(params, feed)[out.name]
+
+    _bf16(run)
+    assert seen["y"] == torch.bfloat16
+
+
+# -- auto names (repair 3) ---------------------------------------------------
+
+AUTO_NAMED = {
+    "classification_cost": lambda pkg, d: pkg.layer.classification_cost(
+        input=pkg.layer.fc(input=d.x, size=3, name="p",
+                           act=pkg.activation.Softmax()), label=d.label),
+    "square_error_cost": lambda pkg, d: pkg.layer.square_error_cost(
+        input=d.y, label=d.y),
+    "trans": lambda pkg, d: pkg.layer.trans(input=d.x),
+    "interpolation": lambda pkg, d: pkg.layer.interpolation(
+        input=[d.x, d.x2], weight=d.w),
+    "power": lambda pkg, d: pkg.layer.power(input=d.x, weight=d.w),
+    "scaling": lambda pkg, d: pkg.layer.scaling(input=d.x, weight=d.w),
+    "sum_to_one_norm": lambda pkg, d: pkg.layer.sum_to_one_norm(input=d.x),
+    "linear_comb": lambda pkg, d: pkg.layer.linear_comb(weights=d.w,
+                                                        vectors=d.x),
+    "slope_intercept": lambda pkg, d: pkg.layer.slope_intercept(input=d.x),
+    "repeat": lambda pkg, d: pkg.layer.repeat(input=d.x, num_repeats=2),
+    "sampling_id": lambda pkg, d: pkg.layer.sampling_id(input=d.y),
+    "huber_classification_cost": lambda pkg, d:
+        pkg.layer.huber_classification_cost(input=d.w, label=d.label),
+    "mixed": lambda pkg, d: pkg.layer.mixed(
+        input=pkg.layer.full_matrix_projection(input=d.x, size=2)),
+    "context_projection": lambda pkg, d: pkg.layer.context_projection_layer(
+        input=d.xs, context_start=-1, context_len=3),
+    "recurrent": lambda pkg, d: pkg.layer.recurrent(input=d.xs),
+    "bias": lambda pkg, d: pkg.layer.bias(input=d.x),
+    "cross_entropy": lambda pkg, d: pkg.layer.cross_entropy(input=d.y,
+                                                            label=d.label),
+    "max_id": lambda pkg, d: pkg.layer.max_id(input=d.x),
+    "sum_cost": lambda pkg, d: pkg.layer.sum_cost(input=d.x),
+    "rank_cost": lambda pkg, d: pkg.layer.rank_cost(left=d.w, right=d.w,
+                                                    label=d.w),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(AUTO_NAMED))
+def test_auto_name_matches_jax(kind):
+    jout, out = both(lambda pkg: AUTO_NAMED[kind](pkg, _data(pkg)))
+    assert out.name == jout.name
+    assert out.layer_type == jout.layer_type
+
+
+# -- networks ------------------------------------------------------------------
+
+def _tokens(seed, vocab=13, lens=(6, 0, 3, 1, 5)):
+    rng = np.random.RandomState(seed)
+    return [{"ids": rng.randint(0, vocab, k).tolist(),
+             "label": int(rng.randint(0, 3))} for k in lens]
+
+
+def _emb(pkg):
+    d = _data(pkg)
+    return d, pkg.layer.embedding(input=d.ids, size=8, name="emb")
+
+
+@pytest.mark.parametrize("rnn", ["lstm", "gru"])
+@pytest.mark.parametrize("return_seq", [False, True])
+def test_bidirectional_rnn_matches_jax(rnn, return_seq):
+    fn = "bidirectional_" + rnn
+
+    def build(pkg):
+        d, emb = _emb(pkg)
+        bi = getattr(pkg.networks, fn)(input=emb, size=6, name="bi",
+                                       return_seq=return_seq)
+        if return_seq:
+            bi = pkg.layer.pooling(input=bi, name="pooled")
+        return pkg.layer.fc(input=bi, size=3, name="head",
+                            act=pkg.activation.Softmax())
+
+    jout, out = both(build)
+    assert sorted(Topology(out).param_specs()) == sorted(
+        JaxParameters.create(jout).keys())
+    port, jax_side = run_both(build, _tokens(21), ["bi", "head"], seed=22)
+    assert_match(port, jax_side)
+
+
+def test_bidirectional_keyword_routing_matches_jax():
+    """fwd_* / bwd_* keywords reach one direction's simple_lstm, the rest
+    both: a named fwd weight, a bwd activation, a shared bias attr."""
+    def build(pkg):
+        d, emb = _emb(pkg)
+        return pkg.networks.bidirectional_lstm(
+            input=emb, size=4, name="bi",
+            fwd_mat_param_attr=pkg.attr.ParamAttr(name="fwd_mat"),
+            bwd_act=pkg.activation.Relu(),
+            bias_param_attr=pkg.attr.ParamAttr(initial_std=0.5))
+
+    jout, out = both(build)
+    specs = Topology(out).param_specs()
+    assert sorted(specs) == sorted(JaxTopology(jout).param_specs())
+    assert "fwd_mat" in specs and "bi_bwd_transform.w0" in specs
+    port, jax_side = run_both(build, _tokens(23), ["bi"], seed=24)
+    assert_match(port, jax_side)
+
+
+@pytest.mark.parametrize("which", ["lstmemory_group", "gru_group"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_group_rnn_helpers_match_jax(which, reverse):
+    """lstmemory_group / gru_group map onto lstmemory / grumemory, the
+    LSTM with its split gate bias (``<name>_proj.wbias`` and the 3*size
+    peephole checks)."""
+    width = 4 if which == "lstmemory_group" else 3
+
+    def build(pkg):
+        d, emb = _emb(pkg)
+        proj = pkg.layer.fc(input=emb, size=5 * width, name="proj",
+                            bias_attr=False)
+        return getattr(pkg.networks, which)(input=proj, reverse=reverse)
+
+    jout, out = both(build)
+    specs = {k: tuple(v.shape) for k, v in Topology(out).param_specs()
+             .items()}
+    assert specs == {k: tuple(v.shape) for k, v in
+                     JaxTopology(jout).param_specs().items()}
+    if which == "lstmemory_group":
+        assert specs["__lstm_group_0___proj.wbias"] == (20,)
+        assert specs["__lstm_group_0__.wbias"] == (15,)
+    port, jax_side = run_both(build, _tokens(25), [out.name], seed=26)
+    assert_match(port, jax_side)
+
+
+def test_lstmemory_split_gate_bias_without_peepholes_matches_jax():
+    def build(pkg):
+        d, emb = _emb(pkg)
+        proj = pkg.layer.fc(input=emb, size=16, name="proj")
+        return pkg.layer.lstmemory(input=proj, gate_bias_attr=False,
+                                   use_peephole=False, name="split")
+
+    jout, out = both(build)
+    assert sorted(Topology(out).param_specs()) == ["emb.w0", "proj.w0",
+                                                   "proj.wbias", "split.w0"]
+    port, jax_side = run_both(build, _tokens(27), ["split"], seed=28)
+    assert_match(port, jax_side)
+
+
+@pytest.mark.parametrize("trainable", [False, True])
+def test_sequence_conv_pool_matches_jax(trainable):
+    def build(pkg):
+        d, emb = _emb(pkg)
+        attr = pkg.attr.ParamAttr(name="pad") if trainable else None
+        pooled = pkg.networks.sequence_conv_pool(
+            input=emb, context_len=3, hidden_size=5, name="scp",
+            context_proj_param_attr=attr, fc_act=pkg.activation.Tanh())
+        return pkg.layer.fc(input=pooled, size=2, name="head")
+
+    jout, out = both(build)
+    assert paddle.networks.text_conv_pool is \
+        paddle.networks.sequence_conv_pool
+    assert ("pad" in Topology(out).param_specs()) == trainable
+    port, jax_side = run_both(build, _tokens(29), ["scp", "head"], seed=30)
+    assert_match(port, jax_side)
+
+
+# -- the text models -----------------------------------------------------------
+
+def _lr_rows(seed, n, dim):
+    rng = np.random.RandomState(seed)
+    return [(sorted(set(rng.randint(0, dim, rng.randint(1, 9)).tolist())),
+             int(rng.randint(0, 2))) for _ in range(n)]
+
+
+def _cnn_rows(seed, n, vocab):
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, rng.randint(1, 12)).tolist(),
+             int(rng.randint(0, 2))) for _ in range(n)]
+
+
+def _ngram_rows(seed, n, vocab, grams=4):
+    rng = np.random.RandomState(seed)
+    return [tuple(int(v) for v in rng.randint(0, vocab, grams + 1))
+            for _ in range(n)]
+
+
+MODELS = {
+    "text_classification_lr": (
+        lambda pkg: (pkg.models.text.text_classification_lr(dict_size=40),
+                     pkg.layer.data(name="label",
+                                    type=pkg.data_type.integer_value(2))),
+        lambda seed: _lr_rows(seed, 6, 40)),
+    "text_classification_cnn": (
+        lambda pkg: (pkg.models.text.text_classification_cnn(
+            dict_size=30, emb_size=8, hidden=6),
+                     pkg.layer.data(name="label",
+                                    type=pkg.data_type.integer_value(2))),
+        lambda seed: _cnn_rows(seed, 6, 30)),
+    "ngram_lm": (
+        lambda pkg: (pkg.models.text.ngram_lm(dict_size=20, emb_size=4,
+                                              hidden=8),
+                     pkg.layer.data(name="next",
+                                    type=pkg.data_type.integer_value(20))),
+        lambda seed: _ngram_rows(seed, 6, 20)),
+}
+
+
+def _network_classifier(network):
+    """A 2-class classifier over one of the networks: ids -> embedding 6 ->
+    the network (a 4 x width projection first for the group helpers) ->
+    softmax fc."""
+    def build(pkg):
+        L, A = pkg.layer, pkg.activation
+        words = L.data(name="word",
+                       type=pkg.data_type.integer_value_sequence(30))
+        emb = L.embedding(input=words, size=6, name="net_emb")
+        if network in ("lstmemory_group", "gru_group"):
+            width = 4 if network == "lstmemory_group" else 3
+            proj = L.fc(input=emb, size=5 * width, name="net_proj",
+                        bias_attr=False)
+            t = L.pooling(input=getattr(pkg.networks, network)(input=proj),
+                          name="net_pool")
+        elif network == "sequence_conv_pool":
+            t = pkg.networks.sequence_conv_pool(input=emb, context_len=3,
+                                                hidden_size=5, name="net")
+        else:
+            t = getattr(pkg.networks, network)(input=emb, size=5,
+                                               name="net")
+        out = L.fc(input=t, size=2, act=A.Softmax(), name="net_out")
+        return out, L.data(name="label", type=pkg.data_type.integer_value(2))
+
+    return build
+
+
+for _network in ("bidirectional_lstm", "bidirectional_gru", "lstmemory_group",
+                 "gru_group", "sequence_conv_pool"):
+    MODELS[_network] = (_network_classifier(_network),
+                        lambda seed: _cnn_rows(seed, 6, 30))
+
+
+def _model_cost(pkg, name):
+    import importlib
+
+    importlib.import_module(pkg.__name__ + ".models.text")
+    out, label = MODELS[name][0](pkg)
+    return pkg.layer.classification_cost(input=out, label=label)
+
+
+def _costs_of(trainer, batches, event_mod):
+    costs = []
+    trainer.train(lambda: iter(batches), num_passes=1, event_handler=lambda e:
+                  costs.append(e.cost)
+                  if isinstance(e, event_mod.EndIteration) else None)
+    return costs
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_text_model_names_and_momentum_trajectory_match_jax(name):
+    """The text models and a classifier over each network: parameter names
+    and shapes equal JAX's ``Parameters.create`` (ngram_lm's one table
+    shared by name across the n embeddings), and 3 Momentum steps from
+    the same numpy parameters give the same costs and parameters as the
+    JAX trainer, within 1e-5."""
+    jcost, cost = both(lambda pkg: _model_cost(pkg, name))
+    jcreated = JaxParameters.create(jcost)
+    topo = Topology(cost)
+    specs = topo.param_specs()
+    assert {k: tuple(s.shape) for k, s in specs.items()} == {
+        k: tuple(jcreated.get_shape(k)) for k in jcreated.keys()}
+    if name == "ngram_lm":
+        assert "ngram_emb_table" in specs and not any(
+            k.startswith("__embedding") for k in specs)
+    np_params = numpy_params(specs, 31)
+    batches = [MODELS[name][1](s) for s in (32, 33, 34)]
+
+    jparams = JaxParameters()
+    jparams._specs = dict(JaxTopology(jcost).param_specs())
+    jparams._values = {k: v.copy() for k, v in np_params.items()}
+    jcosts = _costs_of(jpaddle.trainer.SGD(
+        jcost, jparams, jopt.Momentum(learning_rate=0.1, momentum=0.9)),
+        batches, jpaddle.event)
+    params = Parameters({k: torch.from_numpy(v.copy())
+                         for k, v in np_params.items()}, specs)
+    costs = _costs_of(paddle.trainer.SGD(
+        cost, params, opt.Momentum(learning_rate=0.1, momentum=0.9),
+        device="cpu"), batches, paddle.event)
+    assert len(costs) == len(jcosts) == 3
+    np.testing.assert_allclose(costs, jcosts, rtol=TOL_TRAJ)
+    for pname in sorted(np_params):
+        assert rel(params.get(pname), jparams.get(pname)) <= TOL_TRAJ, pname
+        assert not np.array_equal(params.get(pname), np_params[pname]), \
+            pname
+
+
+# -- the surface ---------------------------------------------------------------
+
+# The public names of the JAX package's layer, networks, models.text,
+# activation and pooling that the port does not have yet; ROADMAP.md
+# queues each (queue 1: item 4 the nested and packed sequence layers,
+# item 9 misc, detection, the rest of extra and conv, mdlstmemory).
+STILL_QUEUED = {
+    "layer": {
+        # item 4: nested and packed sequences
+        "SubsequenceInput", "get_output", "lstm_step", "seq_concat",
+        "seq_reshape", "seq_slice", "sub_seq",
+        # item 9: layer/misc.py
+        "gated_unit", "multiplex", "out_prod", "prelu", "selective_fc",
+        "tensor",
+        # item 9: layer/detection.py
+        "cross_channel_norm", "detection_output", "multibox_loss",
+        "priorbox",
+        # item 9: the rest of extra.py
+        "ctc", "warp_ctc", "nce", "hsigmoid", "data_norm", "featmap_expand",
+        # item 9: the rest of conv.py and sequence.py, and mdlstmemory
+        "bilinear_interp", "conv_shift", "crop", "maxout", "pad", "rotate",
+        "spp", "block_expand", "row_conv", "mdlstmemory",
+    },
+    "networks": set(),
+    "models.text": set(),
+    "activation": set(),
+    "pooling": set(),
+}
+
+
+def _public(module):
+    """Public names bound to something other than a module or a helper of
+    the package's utils (enforce)."""
+    out = set()
+    for name in dir(module):
+        obj = getattr(module, name)
+        if name.startswith("_") or isinstance(obj, types.ModuleType):
+            continue
+        if ".utils." in (getattr(obj, "__module__", None) or ""):
+            continue
+        out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(STILL_QUEUED))
+def test_surface_left_to_port_is_what_roadmap_queues(module):
+    import importlib
+
+    jmod = importlib.import_module("paddle_tpu." + module)
+    pmod = importlib.import_module("paddle_tpu_torch." + module)
+    assert _public(jmod) - _public(pmod) == STILL_QUEUED[module]

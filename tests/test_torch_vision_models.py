@@ -442,9 +442,24 @@ def test_concat_matches_jax(kind):
 
 
 def test_concat_refuses_projections():
+    """concat over projections is ported: each projection becomes a
+    one-branch mixed layer, as in the JAX package (values and gradients:
+    tests/test_torch_mixed.py); anything that is neither a layer nor a
+    projection is refused."""
+    built = []
+    for pkg, reset in ((jpaddle, jax_reset_names),
+                       (paddle, reset_name_counters)):
+        reset()
+        built.append(pkg.layer.concat(input=[
+            pkg.layer.data(name="x", type=pkg.data_type.dense_vector(4)),
+            pkg.layer.identity_projection(input=pkg.layer.data(
+                name="y", type=pkg.data_type.dense_vector(3)))]))
+    jout, out = built
+    assert [i.name for i in out.inputs] == [i.name for i in jout.inputs]
+    assert out.inputs[1].layer_type == "mixed" and out.size == 7
     reset_name_counters()
     x = paddle.layer.data(name="x", type=paddle.data_type.dense_vector(4))
-    with pytest.raises(EnforceError, match="not ported yet"):
+    with pytest.raises(EnforceError, match="takes layers and projections"):
         paddle.layer.concat(input=[x, object()])
 
 

@@ -27,10 +27,13 @@ MODELS = {"gru": (GRU_BUILDER, SMALL), "lstm": (LSTM_BUILDER, SMALL),
 
 
 def _per_position(pkg, cell, dict_size, label_size, emb_size, hidden,
-                  name, reverse=False):
+                  name, reverse=False, window=False):
     words = pkg.layer.data(
         name="word", type=pkg.data_type.integer_value_sequence(dict_size))
     t = pkg.layer.embedding(input=words, size=emb_size, name=name + "_emb")
+    if window:  # a context window of 3 steps: it reads the next step
+        t = pkg.layer.context_projection_layer(
+            input=t, context_start=-1, context_len=3, name=name + "_ctx")
     if cell is not None:
         t = cell(input=t, size=hidden, name=name + "_rnn", reverse=reverse)
     return pkg.layer.fc(input=t, size=label_size,
@@ -56,6 +59,13 @@ def reverse_gru_tagger(dict_size, label_size, emb_size, hidden):
                          reverse=True)
 
 
+def context_tagger(dict_size, label_size, emb_size, hidden):
+    pkg = _port()
+    return _per_position(pkg, pkg.networks.simple_gru, dict_size,
+                         label_size, emb_size, hidden, "ctx_tag",
+                         window=True)
+
+
 def embedding_tagger(dict_size, label_size, emb_size, hidden):
     return _per_position(_port(), None, dict_size, label_size, emb_size,
                          hidden, "emb_tag")
@@ -74,11 +84,13 @@ def jax_model(builder, **kwargs):
         cell, reverse = {
             "lstm_tagger": (jpkg.networks.simple_lstm, False),
             "reverse_gru_tagger": (jpkg.networks.simple_gru, True),
+            "context_tagger": (jpkg.networks.simple_gru, False),
             "embedding_tagger": (None, False)}[function]
         name = {"lstm_tagger": "lstm_tag", "reverse_gru_tagger": "rev_tag",
+                "context_tagger": "ctx_tag",
                 "embedding_tagger": "emb_tag"}[function]
         return _per_position(jpkg, cell, name=name, reverse=reverse,
-                             **kwargs)
+                             window=function == "context_tagger", **kwargs)
     module = text if ".text:" in builder else vision
     return getattr(module, function)(**kwargs)
 
