@@ -376,7 +376,43 @@ result line:
            launched most), and K7/K8 at VGG-16-on-MNIST's 8 conv shapes
            and inception (3a)'s 5 family convs at batch 128, as phases
            3-4, 9-10 and 13-14 time them, with the conv sums.
-30. kernels one entry per TPU kernel the port replaced (the redesigned
+30. nested_text  the flagship's layers at full width over nested input
+           (paragraphs of 1-5 sentences of 5-30 ids, vocab 30000, batch
+           64): embedding 128, an outer recurrent_group whose step runs 2
+           x simple_lstm(256) over one sentence and keeps its last step,
+           max pooling over the sentence vectors, a softmax fc and
+           classification_cost. One step's cost and every gradient on the
+           card against the CPU (each within 1e-4 of its largest entry),
+           exactly 2 K1 and 2 K2 launches per outer step (10 each a step:
+           5 sentence slots); 10 Momentum steps in f32 and bf16 (ms per
+           batch, bf16 costs within 5e-2 of f32, the launches) and the
+           idle share of 3 profiled steps; K1/K2 at the sub-sequence shape
+           (32, 64, 256) as phases 3-4 time them, and on a batch whose
+           every row has length 0 (the carry passes through, zero
+           dgates) against their plain versions.
+31. packed_tagger  the GRU tagger (hidden 256) on benchmark/exp_data_
+           pipeline.py's tagging lengths, packed by packed_batches into
+           rows of 128, 32 rows a batch: each packed row's outputs equal
+           its samples run unpacked (K5) within 1e-5, forward and with a
+           reversed GRU beside it; train steps on packed rows (the reset
+           path: the step loop, no kernel, as in JAX) against the same
+           samples in length buckets of 32 samples (K5/K6): ms per batch
+           and per sample, padding share, launches.
+32. multi_network  the gan demo's network (its build at the mnist
+           widths 100/784/256, batch 128) through MultiNetworkTrainer:
+           3 alternating dis/gen iterations on the card against the CPU
+           from the same parameters (losses within 1e-4), each phase
+           moving only its own side; ms per iteration.
+33. demos (continued)  demos/gan/train.py --quick on uniform and mnist
+           data, and demos/model_zoo/resnet_infer.py --depth 50 --im-size
+           224 --batch 32 from a parameter tar, unchanged through
+           demo.run: 92 K7 launches (infer's and apply's forwards), the
+           probabilities and the pooled features against the same run on
+           the CPU within 1e-4, the same top-1 classes.
+34. checkgrad  ``cli checkgrad`` on the bidirectional-LSTM v1 config
+           (dict 50, emb 8, hidden 8, batch 4) on the card, in float64
+           (the recurrent layers' step loops): "checkgrad PASSED".
+35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
            CTR's and the int8 movielens bundle's products and the int8
@@ -384,7 +420,7 @@ result line:
            512), K5 also at the decode window; K1 and K2 also inside the
            train_loop phase's captured graphs; each also at the demos'
            shapes, and K1/K2, K5/K6 and K7/K8 at the v1_text and
-           mixed_conv phases'), then the
+           mixed_conv phases', K1/K2 at nested_text's), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -1617,7 +1653,7 @@ def whole_answers(torch, bundle, seqs, output="gru_tag_out"):
         lens = np.array([len(q) for q in part], np.int32)
         val = bundle.topology.apply(bundle.params, {"word": SequenceBatch(
             torch.from_numpy(ids).to(bundle.device),
-            torch.from_numpy(lens).to(bundle.device))})[output]
+            torch.from_numpy(lens).to(bundle.device))}, mode="test")[0][output]
         data = val.data.float().cpu().numpy()
         out += [data[i, :len(q)] for i, q in enumerate(part)]
     return out
@@ -4226,7 +4262,7 @@ def decode_paths(torch, rig, params, batch, device):
                         max_len=batch.bucket)
     values = {n: torch.as_tensor(params.get(n), device=device)
               for n in topology.param_specs()}
-    paths = topology.apply(values, feed)[decode.name]
+    paths = topology.apply(values, feed, mode="test")[0][decode.name]
     return paths.data.cpu().numpy(), paths.lengths.cpu().numpy()
 
 
@@ -5031,9 +5067,9 @@ def demo_step(torch, cost, rows, init, device):
     topo = Topology(cost)
     params = {k: v.detach().clone().to(device).requires_grad_()
               for k, v in init.items()}
-    values = topo.apply(params, convert_feed(topo, rows, device),
+    values, _ = topo.apply(params, convert_feed(topo, rows, device),
                         mode="train",
-                        generator=torch.Generator(device=device))
+                        rng=torch.Generator(device=device))
     loss = values[cost.name].float().mean()
     loss.backward()
     return float(loss.detach()), {k: p.grad.float().cpu()
@@ -5895,6 +5931,536 @@ def phase_kernel_demos(torch, ck, gk, lk, demos, v1_text, mixed):
     return rows
 
 
+# -- phase nested_text: the flagship's layers over nested sequences ----------
+
+# paragraphs of 1-5 sentences of 5-30 ids from the flagship's vocabulary,
+# batch 64: one outer step of the nested group per sentence slot, its two
+# LSTMs at (T, B, H) = (32, 64, 256) (30 ids pad to the bucket 32)
+NESTED = {"vocab": 30000, "emb": 128, "hidden": 256, "layers": 2,
+          "classes": 2, "batch": 64, "subseqs": 5, "words": (5, 30)}
+NESTED_SHAPE = (32, 64, 256)
+NESTED_STEPS = 10
+
+
+def nested_text_net():
+    """The flagship's layers over nested input: embedding(128), an outer
+    recurrent_group whose step runs 2 x simple_lstm(256) over one sentence
+    and keeps its last step, max pooling over the sentence vectors, a
+    softmax fc and classification_cost."""
+    from paddle_tpu_torch import activation, data_type, layer, networks
+    from paddle_tpu_torch import pooling
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    reset_name_counters()
+    words = layer.data(name="paragraph",
+                       type=data_type.integer_value_sub_sequence(
+                           NESTED["vocab"]))
+    emb = layer.embedding(input=words, size=NESTED["emb"], name="nested_emb")
+
+    def step(sentence):
+        h = sentence
+        for i in range(NESTED["layers"]):
+            h = networks.simple_lstm(input=h, size=NESTED["hidden"],
+                                     name="sentence_lstm%d" % i)
+        return layer.last_seq(input=h, name="sentence_vec")
+
+    sentences = layer.recurrent_group(
+        step=step, input=layer.SubsequenceInput(emb), name="sentences")
+    pooled = layer.pooling(input=sentences, name="paragraph_pool",
+                           pooling_type=pooling.MaxPooling())
+    out = layer.fc(input=pooled, size=NESTED["classes"], name="nested_out",
+                   act=activation.Softmax())
+    label = layer.data(name="label", type=data_type.integer_value(
+        NESTED["classes"]))
+    return layer.classification_cost(input=out, label=label,
+                                     name="nested_cost")
+
+
+def nested_batches(seed, n):
+    """``n`` batches of (paragraph, label) rows; each batch's first row
+    has 5 sentences, the first of 30 ids, so every batch pads to (5, 32)."""
+    rng = np.random.RandomState(seed)
+    lo, hi = NESTED["words"]
+    out = []
+    for _ in range(n):
+        rows = []
+        for r in range(NESTED["batch"]):
+            subs = NESTED["subseqs"] if r == 0 else int(rng.randint(
+                1, NESTED["subseqs"] + 1))
+            lens = [hi if (r, s) == (0, 0) else int(rng.randint(lo, hi + 1))
+                    for s in range(subs)]
+            rows.append(([rng.randint(0, NESTED["vocab"], k).tolist()
+                          for k in lens], int(rng.randint(0, 2))))
+        out.append(Batch(rows))
+    return out
+
+
+def lstm_zero_rows(torch, lk):
+    """K1 and K2 at the nested shape on a batch whose every row has length
+    0 (an outer step past every paragraph's end): each against its plain
+    version; the forward carries h0/c0 through, the backward gives zero
+    dgates."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        gates, mask, w, peep, h0, c0 = kernel_inputs(
+            torch, *NESTED_SHAPE, dtype, SEED + 501)
+        mask = torch.zeros_like(mask)
+        fwd_args = (gates, mask, w, peep, h0, c0)
+        got = lk.lstm_seq_fwd(*fwd_args)
+        fwd_err = fwd_error(got, lk.lstm_seq_fwd_reference(*fwd_args))
+        carried = max(float((got[0].float() - h0[None].float()).abs().max()),
+                      float((got[1].float() - c0[None].float()).abs().max()))
+        h_seq, c_seq = lk.lstm_seq_fwd_reference(*fwd_args)
+        rng = np.random.RandomState(SEED + 502)
+
+        def dev(a):
+            return torch.tensor(a, dtype=dtype, device=DEVICE)
+
+        steps, batch, hidden = NESTED_SHAPE
+        bwd_args = (gates, mask, w, peep, torch.cat([h0[None], h_seq[:-1]]),
+                    torch.cat([c0[None], c_seq[:-1]]), c_seq,
+                    dev(rng.randn(steps, batch, hidden) * 0.5),
+                    dev(rng.randn(batch, hidden) * 0.5),
+                    dev(rng.randn(batch, hidden) * 0.5))
+        bgot = lk.lstm_seq_bwd(*bwd_args)
+        bwd_err = bwd_error(bgot, lk.lstm_seq_bwd_reference(*bwd_args))
+        row = {"phase": "kernel_nested_zero_rows", "T": steps, "B": batch,
+               "H": hidden, "dtype": name, "fwd_max_abs_err": fwd_err,
+               "bwd_err_rel": bwd_err, "h_c_carried_err": carried,
+               "dgates_max_abs": float(bgot[0].float().abs().max()),
+               "tol": TOL_F32 if dtype == torch.float32 else TOL_BF16}
+        emit(row)
+        if not (fwd_err <= row["tol"] and bwd_err <= TOL_BWD[name]
+                and carried == 0.0 and row["dgates_max_abs"] == 0.0):
+            raise AssertionError("K1/K2 on rows of length 0 depart from "
+                                 "their plain versions: %r" % row)
+        rows.append(row)
+    return rows
+
+
+def nested_trainer(cost, init, device):
+    from paddle_tpu_torch import optimizer, trainer
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    params = Parameters({k: v.clone() for k, v in init.items()},
+                        Topology(cost).param_specs())
+    return trainer.SGD(cost, params, optimizer.Momentum(
+        learning_rate=1e-2, momentum=0.9), device=device)
+
+
+def phase_nested_text(torch, lk):
+    """nested_text (module docstring)."""
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.topology import Topology
+
+    cost = nested_text_net()
+    init = numpy_params(Topology(cost), SEED + 500).as_dict()
+    batches = nested_batches(SEED + 503, NESTED_STEPS)
+    per_step = NESTED["layers"] * NESTED["subseqs"]
+    lk.reset_launches()
+    step = step_vs_cpu(torch, cost, batches[0], init,
+                       lambda: (lk.launches, lk.bwd_launches))
+    step_launches = step.pop("launches")
+    card = nested_trainer(cost, init, DEVICE)
+    lk.reset_launches()
+    costs, ms = train(torch, card, batches, timed=True)
+    launches = check_launches(lk, NESTED_STEPS, per_step,
+                              "nested_text f32 training")
+    profile = profile_steps(torch, card, batches[:3], kernels=("lstm",))
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        card16 = nested_trainer(cost, init, DEVICE)
+        lk.reset_launches()
+        costs16, ms16 = train(torch, card16, batches, timed=True)
+        launches16 = check_launches(lk, NESTED_STEPS, per_step,
+                                    "nested_text bf16 training")
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16_err = cost_error(costs16, costs)
+    row = {"phase": "nested_text", "config": NESTED, "shape": NESTED_SHAPE,
+           "optimizer": "Momentum(learning_rate=0.01, momentum=0.9)",
+           "vs_cpu": step, "tol": TOL_TRAIN,
+           "step_launches_k1_k2": step_launches, "per_step": per_step,
+           "steps": NESTED_STEPS, "costs_f32": costs, "ms_per_batch_f32": ms,
+           "launches_f32": launches, "profile_f32": profile,
+           "costs_bf16": costs16, "bf16_cost_err_rel_vs_f32": bf16_err,
+           "tol_bf16": TOL_TRAIN_BF16, "ms_per_batch_bf16": ms16,
+           "launches_bf16": launches16,
+           "last_fwd_launch": lk.lstm_seq_fwd.last_launch,
+           "last_bwd_launch": lk.lstm_seq_bwd.last_launch}
+    emit(row)
+    if not (step["cost_err_rel"] <= TOL_TRAIN
+            and step["grad_err_rel"] <= TOL_TRAIN and not step["no_gradient"]
+            and np.all(np.isfinite(costs))):
+        raise AssertionError("nested_text: a step on the card departs from "
+                             "the CPU: %r" % row)
+    if step_launches != (per_step, per_step):
+        raise AssertionError("nested_text: one step launched K1/K2 %r, not "
+                             "%d each" % (step_launches, per_step))
+    if not bf16_err <= TOL_TRAIN_BF16:
+        raise AssertionError("nested_text bf16 departs from f32: %r" % row)
+    kernels = {"fwd": phase_kernel(torch, lk, [NESTED_SHAPE], (),
+                                   "kernel_nested", {}),
+               "bwd": phase_kernel_bwd(torch, lk, [NESTED_SHAPE], (),
+                                       "kernel_nested", {}),
+               "zero_rows": lstm_zero_rows(torch, lk)}
+    return dict(row, kernels=kernels)
+
+
+# -- phase packed_tagger: the GRU tagger trained on packed rows ---------------
+
+# benchmark/exp_data_pipeline.py:41-52's tagging lengths (2 + a log-normal
+# of mean 2.8, sigma 0.7, at most 120), at the tagger's chip_smoke width;
+# packed_batches into rows of 128, 32 rows a batch; the same samples in
+# length buckets of 32 samples
+PACKED_ROW, PACKED_ROWS, PACKED_BATCHES = 128, 32, 6
+PACKED_BUCKETS = [16, 32, 64, 128]
+TOL_PACKED = 1e-5
+
+
+def tagging_samples(n, seed, max_len=120):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        k = 2 + min(int(rng.lognormal(2.8, 0.7)), max_len - 2)
+        out.append((rng.randint(0, TAGGER["dict_size"], k).tolist(),
+                    rng.randint(0, TAGGER["label_size"], k).tolist()))
+    return out
+
+
+def bidirectional_tagger(dict_size, label_size, emb_size, hidden):
+    """The tagger with a reversed GRU beside the forward one."""
+    from paddle_tpu_torch import activation, data_type, layer
+
+    words = layer.data(name="word",
+                       type=data_type.integer_value_sequence(dict_size))
+    emb = layer.embedding(input=words, size=emb_size, name="bi_emb")
+    grus = [layer.grumemory(input=layer.fc(input=emb, size=3 * hidden,
+                                           name="bi_proj%d" % rev),
+                            size=hidden, reverse=bool(rev),
+                            name="bi_gru%d" % rev) for rev in (0, 1)]
+    return layer.fc(input=layer.concat(input=grus, name="bi_cat"),
+                    size=label_size, act=activation.Softmax(), name="bi_out")
+
+
+def packed_vs_unpacked(torch, rig, samples, rows):
+    """The output of every sample inside the packed rows (test mode, on the
+    card) against the same sample in an unpacked batch (K5 on the card):
+    the largest |difference|."""
+    from paddle_tpu_torch.data import bucketing
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    topo = Topology(rig.out)
+    params = {k: v.to(DEVICE) for k, v in rig.init.as_dict().items()}
+    feed = bucketing.pack_feed(topo, rows, max_len=PACKED_ROW, device=DEVICE)
+    packed = topo.apply(params, feed, mode="test")[0][rig.out.name].data
+    flat = [s for row in rows for s in row]
+    alone = topo.apply(params, convert_feed(topo, flat, DEVICE,
+                                            max_len=PACKED_ROW),
+                       mode="test")[0][rig.out.name].data
+    err, i = 0.0, 0
+    for r, row in enumerate(rows):
+        at = 0
+        for sample in row:
+            n = len(sample[0])
+            err = max(err, float((packed[r, at:at + n]
+                                  - alone[i, :n]).abs().max()))
+            at, i = at + n, i + 1
+    return err
+
+
+def timed_steps(torch, tr, feeds):
+    """Median ms of ``tr``'s train step over ``feeds`` (each ended by a
+    synchronize; the first left out)."""
+    stamps = []
+    for feed in feeds:
+        tr._train_step(feed)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    return statistics.median(np.diff(stamps) * 1e3)
+
+
+def phase_packed_tagger(torch, gk):
+    """packed_tagger (module docstring)."""
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.data import bucketing
+    from paddle_tpu_torch.models.text import sequence_tagging_gru
+    from paddle_tpu_torch.topology import convert_feed
+
+    label = data_type.integer_value_sequence(TAGGER["label_size"])
+    samples = tagging_samples(2000, SEED + 600)
+    packed = list(bucketing.packed_batches(
+        lambda: iter(samples), PACKED_ROWS, PACKED_ROW)())[:PACKED_BATCHES]
+    used = [s for batch in packed for row in batch for s in row]
+    check = {}
+    for name, build in (("forward", sequence_tagging_gru),
+                        ("bidirectional", bidirectional_tagger)):
+        rig = TrainRig(build, TAGGER, label, SEED + 601, 1e-3)
+        gk.reset_launches()
+        check[name] = packed_vs_unpacked(torch, rig, used, packed[0])
+        check[name + "_unpacked_k5"] = gk.launches
+    rig = TrainRig(sequence_tagging_gru, TAGGER, label, SEED + 601, 1e-3)
+    topo = rig.topology
+    packed_feeds = [bucketing.pack_feed(topo, b, max_len=PACKED_ROW,
+                                        device=DEVICE) for b in packed]
+    fill = sum(len(s[0]) for s in used)
+    packed_pad = 1.0 - fill / float(sum(len(b) for b in packed) * PACKED_ROW)
+    bucketed = [b for b in bucketing.rebucket_batches(
+        lambda: iter([used[i:i + PACKED_ROWS] for i in range(
+            0, len(used), PACKED_ROWS)]), buckets=PACKED_BUCKETS)()]
+    bucket_feeds = [convert_feed(topo, b, DEVICE, max_len=b.bucket)
+                    for b in bucketed]
+    bucket_pad = 1.0 - fill / float(sum(len(b) * b.bucket
+                                        for b in bucketed))
+    tr = rig.trainer(DEVICE)
+    gk.reset_launches()
+    packed_ms = timed_steps(torch, tr, packed_feeds)
+    packed_launches = (gk.launches, gk.bwd_launches)
+    tr = rig.trainer(DEVICE)
+    gk.reset_launches()
+    bucket_ms = timed_steps(torch, tr, bucket_feeds)
+    bucket_launches = (gk.launches, gk.bwd_launches)
+    row = {"phase": "packed_tagger", "config": TAGGER,
+           "row_len": PACKED_ROW, "rows_per_batch": PACKED_ROWS,
+           "packed_batches": len(packed), "samples": len(used),
+           "tokens": fill, "packed_vs_unpacked_max_abs": check,
+           "tol": TOL_PACKED,
+           "packed": {"ms_per_batch": packed_ms,
+                      "samples_per_batch": len(used) / len(packed),
+                      "ms_per_sample": packed_ms * len(packed) / len(used),
+                      "padding_share": packed_pad,
+                      "k5_k6_launches": packed_launches},
+           "bucketed": {"buckets": PACKED_BUCKETS,
+                        "batches": len(bucketed),
+                        "ms_per_batch": bucket_ms,
+                        "samples_per_batch": len(used) / len(bucketed),
+                        "ms_per_sample": bucket_ms * len(bucketed)
+                        / len(used),
+                        "padding_share": bucket_pad,
+                        "k5_k6_launches": bucket_launches}}
+    emit(row)
+    if not all(check[k] <= TOL_PACKED for k in ("forward", "bidirectional")):
+        raise AssertionError("packed rows depart from their samples run "
+                             "unpacked: %r" % row)
+    if packed_launches != (0, 0) or bucket_launches != (len(bucketed),) * 2:
+        raise AssertionError("packed_tagger launches: %r" % row)
+    return row
+
+
+# -- phase multi_network: the gan demo's network, phase by phase ------------
+
+GAN_DIMS, GAN_BATCH, GAN_ITERS = (100, 784, 256), 128, 3
+
+
+def phase_multi_network(torch):
+    """multi_network (module docstring)."""
+    from paddle_tpu_torch import demo
+    from paddle_tpu_torch import optimizer
+
+    mod = demo.load(demo_path("gan/train.py"), "chip_smoke_gan")
+    with demo.PortBinding():
+        mn, fake = mod.build(*GAN_DIMS)
+
+    def make(device):
+        return mod.MultiNetworkTrainer(
+            mn, update_equations=lambda: optimizer.Adam(learning_rate=2e-4,
+                                                        beta1=0.5),
+            phase_trainable={"gen": lambda p: p.startswith("gen_"),
+                             "dis": lambda p: p.startswith("dis_")},
+            extra_outputs={"gen": [fake]}, device=device)
+
+    card, cpu = make(DEVICE), make("cpu")
+    rng = np.random.RandomState(SEED + 700)
+    for name in sorted(cpu._params):
+        value = torch.from_numpy((rng.standard_normal(
+            tuple(cpu._params[name].shape)) * 0.05).astype(np.float32))
+        cpu._params[name].copy_(value)
+        card._params[name].copy_(value.to(DEVICE))
+    images = np.stack([s[0] for _, s in zip(range(1024),
+                                            mod.mnist.train()())])
+
+    def iteration(tr, rng_it, record):
+        noise = rng_it.randn(GAN_BATCH, GAN_DIMS[0]).astype(np.float32)
+        fakes = tr.infer("gen", [(z, [1.0]) for z in noise])[fake.name]
+        real = images[rng_it.randint(0, len(images), GAN_BATCH)]
+        d_batch = [(s, [1.0]) for s in real] + [(s, [0.0]) for s in fakes]
+        g_batch = [(z, [1.0]) for z in rng_it.randn(
+            GAN_BATCH, GAN_DIMS[0]).astype(np.float32)]
+        for phase, batch, feeding in (
+                ("dis", d_batch, {"sample": 0, "d_label": 1}),
+                ("gen", g_batch, {"noise": 0, "g_label": 1})):
+            before = tr.get_params()
+            loss = tr.train_batch(phase, batch, feeding=feeding)
+            after = tr.get_params()
+            moved = sorted(n for n in after
+                           if not np.array_equal(before[n], after[n]))
+            record.append((phase, loss, moved))
+
+    losses, cpu_losses = [], []
+    for tr, rec in ((card, losses), (cpu, cpu_losses)):
+        rng_it = np.random.RandomState(SEED + 701)
+        for _ in range(GAN_ITERS):
+            iteration(tr, rng_it, rec)
+    errs = [abs(a[1] - b[1]) / max(1.0, abs(b[1]))
+            for a, b in zip(losses, cpu_losses)]
+    wrong_subset = [(p, m) for p, _, m in losses
+                    if not m or not all(n.startswith(p + "_") for n in m)]
+    rng_it = np.random.RandomState(SEED + 702)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        iteration(card, rng_it, [])
+    torch.cuda.synchronize()
+    row = {"phase": "multi_network", "network": "demos/gan/train.py build"
+           "(%d, %d, %d)" % GAN_DIMS, "batch": GAN_BATCH,
+           "iterations": GAN_ITERS,
+           "losses_card": [(p, loss) for p, loss, _ in losses],
+           "losses_cpu": [(p, loss) for p, loss, _ in cpu_losses],
+           "loss_err_rel": max(errs), "tol": TOL_TRAIN,
+           "moved": {p: m for p, _, m in losses[:2]},
+           "ms_per_iteration": (time.perf_counter() - t0) * 100.0}
+    emit(row)
+    if not (max(errs) <= TOL_TRAIN and not wrong_subset):
+        raise AssertionError("multi_network departs from the CPU or a phase "
+                             "moved another's parameters: %r (%r)"
+                             % (row, wrong_subset))
+    return row
+
+
+# -- phase demos_multi: gan and model_zoo through the runner -----------------
+
+GAN_RUNS = [("gan_uniform", ["--quick", "--data", "uniform"],
+             "generated samples"),
+            ("gan_mnist", ["--data", "mnist", "--quick"],
+             "generated image stats")]
+ZOO_ARGS = ["--depth", "50", "--im-size", "224", "--batch", "32"]
+
+
+def zoo_run(torch, ck, tar, device):
+    """model_zoo's resnet_infer.py through demo.run on ``device`` with the
+    parameters of ``tar``: the probabilities infer gave, the features
+    apply gave (both recorded as the demo reads them), its stdout, seconds
+    and K7 launches."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import demo, inference
+    from paddle_tpu_torch.topology import Topology
+
+    seen = {}
+    real_apply, real_infer = Topology.apply, inference.Inference.infer
+
+    def apply(self, *args, **kwargs):
+        out = real_apply(self, *args, **kwargs)
+        seen["features"] = {k: v.float().cpu() for k, v in out[0].items()}
+        return out
+
+    def infer(self, *args, **kwargs):
+        seen["probs"] = real_infer(self, *args, **kwargs)
+        return seen["probs"]
+
+    out = io.StringIO()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(Topology, "apply", apply), \
+            mock.patch.object(inference.Inference, "infer", infer), \
+            contextlib.redirect_stdout(out):
+        demo.run(demo_path("model_zoo/resnet_infer.py"),
+                 ZOO_ARGS + ["--params", tar], device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return dict(seen, stdout=out.getvalue(),
+                seconds=time.perf_counter() - t0, k7=ck.launches)
+
+
+def phase_demos_multi(torch, ck, tmp):
+    """demos, continued (module docstring): gan on both datasets and
+    model_zoo's ResNet-50 at 224 x 224, batch 32."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import demo
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.models import vision
+    from paddle_tpu_torch.parameters import Parameters
+
+    rows = {}
+    for name, args, line in GAN_RUNS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            demo.run(demo_path("gan/train.py"), args)
+        torch.cuda.synchronize()
+        text = out.getvalue()
+        losses = [float(tok) for ln in text.splitlines()
+                  if ln.startswith("iter ")
+                  for tok in ln.split()[3::2]]
+        row = {"phase": "demos", "demo": name, "script": "demos/gan/train.py",
+               "args": args, "seconds": time.perf_counter() - t0,
+               "losses": losses, "tail": text.strip().splitlines()[-3:]}
+        emit(row)
+        if line not in text or not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError("demo %s: %r" % (name, row))
+        rows[name] = row
+    reset_name_counters()
+    out = vision.resnet(depth=50, num_classes=100, im_size=224)
+    tar = os.path.join(tmp, "resnet50.tar")
+    with open(tar, "wb") as fh:
+        Parameters.create(out, seed=SEED + 800, device="cpu").to_tar(fh)
+    card = zoo_run(torch, ck, tar, None)
+    cpu = zoo_run(torch, ck, tar, "cpu")
+    feats = {k: float((card["features"][k] - v).abs().max())
+             / max(1.0, float(v.abs().max()))
+             for k, v in cpu["features"].items()}
+    probs_err = float(np.abs(card["probs"] - cpu["probs"]).max())
+    same_classes = bool((card["probs"].argmax(1)
+                         == cpu["probs"].argmax(1)).all())
+    row = {"phase": "demos", "demo": "model_zoo",
+           "script": "demos/model_zoo/resnet_infer.py", "args": ZOO_ARGS,
+           "seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+           "k7_launches": card["k7"], "feature_err_rel": feats,
+           "probs_max_abs_err": probs_err, "same_top1": same_classes,
+           "tol": TOL_SERVE, "tail": card["stdout"].strip().splitlines()}
+    emit(row)
+    # 46 K7 a ResNet-50 forward (serve_resnet): infer's and apply's
+    if not (card["k7"] == 2 * 46 and same_classes and probs_err <= TOL_SERVE
+            and max(feats.values()) <= TOL_SERVE
+            and "top-1 classes:" in card["stdout"]):
+        raise AssertionError("demo model_zoo: %r" % row)
+    rows["model_zoo"] = row
+    return rows
+
+
+# -- phase checkgrad: cli checkgrad on a v1 config on the card ---------------
+
+CHECKGRAD_ARGS = "dict_size=50,emb_size=8,hidden_size=8,batch_size=4,rnn=lstm"
+
+
+def phase_checkgrad(torch, tmp):
+    """checkgrad (module docstring)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import cli
+
+    conf = write_v1_config(tmp, "checkgrad", V1_BIDI_SRC, SEED + 900)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["checkgrad", "--config", conf, "--config-args",
+                       CHECKGRAD_ARGS])
+    row = {"phase": "checkgrad", "config": "V1_BIDI_SRC",
+           "config_args": CHECKGRAD_ARGS, "rc": rc,
+           "seconds": time.perf_counter() - t0,
+           "stdout": out.getvalue().strip().splitlines()[-1:]}
+    emit(row)
+    if rc != 0 or "checkgrad PASSED" not in out.getvalue():
+        raise AssertionError("cli checkgrad on the card: %r" % row)
+    return row
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -6003,6 +6569,18 @@ def recurrent_pair(rows, kind, name, shape, fwd_launches, bwd_launches):
         shape=shape)
         for key, (source, k, line), launches in (
             (kind, fwd, fwd_launches), (kind + "_bwd", bwd, bwd_launches))]
+
+
+def nested_entries(nested):
+    """The kernels-line entries of K1 and K2 at the nested_text phase's
+    sub-sequence shape (launches: its f32 training run)."""
+    return [recurrent_entry(
+        nested["kernels"][key], "%s[%s,h256_nested_text]" % (source, k),
+        "paddle_tpu/ops/pallas_kernels.py:%d" % line, launches, 256, source,
+        path=layouts(nested["kernels"][key], 256), shape=NESTED_SHAPE)
+        for key, source, k, line, launches in (
+            ("fwd", "lstm_seq_fwd", "K1", 146, nested["launches_f32"][0]),
+            ("bwd", "lstm_seq_bwd", "K2", 347, nested["launches_f32"][1]))]
 
 
 def text_layer_entries(v1_text, mixed, rows):
@@ -6134,6 +6712,12 @@ def main():
     mixed = phase_mixed_conv(torch, ck, vision_conv_rows)
     demo_kernels = phase_kernel_demos(torch, ck, gk, lk, demos, v1_text,
                                       mixed)
+    nested = phase_nested_text(torch, lk)
+    phase_packed_tagger(torch, gk)
+    phase_multi_network(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_demos_multi(torch, ck, tmp)
+        phase_checkgrad(torch, tmp)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -6268,7 +6852,8 @@ def main():
                      "paddle_tpu/ops/pallas_kernels.py:908",
                      continuous["int8"]["k9_launches"], "int8_matmul"),
         *demo_entries(demos, demo_kernels),
-        *text_layer_entries(v1_text, mixed, demo_kernels)]})
+        *text_layer_entries(v1_text, mixed, demo_kernels),
+        *nested_entries(nested)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

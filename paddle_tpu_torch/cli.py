@@ -5,6 +5,7 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
         [--config-args k=v,...] [--steps-per-call 10] [--device cpu]
     python -m paddle_tpu_torch.cli test  --config conf.py --params p.tar
     python -m paddle_tpu_torch.cli time  --config conf.py --iters 20
+    python -m paddle_tpu_torch.cli checkgrad --config conf.py
     python -m paddle_tpu_torch.cli observe TELEMETRY_DIR [--json]
     python -m paddle_tpu_torch.cli export \
         --builder paddle_tpu_torch.models.text:text_classification_lstm \
@@ -23,7 +24,8 @@ paddle.trainer_config_helpers import *``, ``settings()``, layers,
 under paddle_tpu_torch/compat answers those imports) or one that defines
 ``cost()`` and may define ``optimizer()``, ``evaluators()``,
 ``train_reader()``, ``test_reader()`` and ``batch_size``. ``train``,
-``test`` and ``time`` run on the card unless ``--device cpu``; the
+``test``, ``time`` and ``checkgrad`` (the float64 gradient check of
+checkgrad.py) run on the card unless ``--device cpu``; the
 arguments are the JAX package's, keyword for keyword. With
 ``PADDLE_TPU_TORCH_TELEMETRY=<dir>`` training writes its step log and span
 trace there, which ``observe`` summarizes (either package's directories).
@@ -38,7 +40,7 @@ continuous-batching decode step of a streamable topology, which ``serve
 ``generate`` loops for streaming generation (serve/generate.py).
 ``serve`` and ``generate`` run on the card unless ``--device cpu``.
 
-Not ported yet, and refused: ``checkgrad``, ``cluster_train``,
+Not ported yet, and refused: ``cluster_train``,
 ``merge_model``, ``analyze``, ``observe --regress`` and ``--fleet-stats``,
 ``serve --session-store-addr``, and ``--trainer-count`` above 1.
 """
@@ -248,6 +250,26 @@ def cmd_time(args):
     print(json.dumps({"ms_per_batch": round(elapsed, 3),
                       "batch_size": batch_size,
                       "batches": len(feed_batches)}))
+    return 0
+
+
+def cmd_checkgrad(args):
+    """--job=checkgrad parity (paddle_tpu/cli.py cmd_checkgrad): the
+    numeric-against-analytic gradient check in float64 over the config's
+    cost, on its first training batch."""
+    from paddle_tpu_torch import minibatch
+    from paddle_tpu_torch.checkgrad import check_layer_grad
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    cfg = _load_config(args.config, args.config_args)
+    cost = cfg.cost()
+    device = resolve_device(args.device)
+    batch = next(iter(minibatch.batch(cfg.train_reader(),
+                                      getattr(cfg, "batch_size", 8))()))
+    feed = convert_feed(Topology(cost), batch, device)
+    check_layer_grad(cost, feed, check_inputs=False, device=device)
+    print("checkgrad PASSED")
     return 0
 
 
@@ -661,8 +683,10 @@ def main(argv=None):
                    help="not ported yet")
     p.set_defaults(fn=cmd_observe)
 
+    p = sub.add_parser("checkgrad", parents=[common])
+    p.set_defaults(fn=cmd_checkgrad)
+
     for verb, needs in (
-            ("checkgrad", "checkgrad.py"),
             ("cluster_train", "distributed/ (the launcher and coordinator)"),
             ("merge_model", "the model proto (proto/)"),
             ("analyze", "analyze/")):

@@ -10,13 +10,17 @@
   (``BucketBatch.bucket``), which the feed conversion uses as the exact
   pad target: one feed shape, and so one captured CUDA graph of the
   fused loop, per bucket.
-* **Sequence packing** (``pack_samples``, ``pack_feed``,
-  ``packed_batches``) needs ``PackedSequenceBatch`` and the recurrent
-  scans' segment resets, which come with a later part of the port; the
-  three raise until then.
+* **Sequence packing** (:func:`pack_samples` / :func:`pack_feed` /
+  :func:`packed_batches`): concatenate several short sequences into one
+  padded row with segment ids (core/sequence.py PackedSequenceBatch).
+  The recurrent layers reset their carry at segment starts and
+  per-position costs mask on the packed lengths, so costs and gradients
+  match the unpacked batch; layers that mix across positions refuse
+  packed input.
 
 Module-level imports are stdlib + numpy only, as in the JAX package:
-the serving bundle imports the bucket-choice helpers.
+the serving bundle imports the bucket-choice helpers (torch is imported
+in the packing feed builder).
 """
 
 import numpy as np
@@ -220,22 +224,130 @@ def batch_waste(samples, padded_len, length_of=None):
     return fill, len(samples) * int(padded_len) - fill
 
 
-# -- sequence packing (not ported yet) -----------------------------------
-
-def _packing_not_ported(what):
-    raise NotImplementedError(
-        "%s (sequence packing) is not ported yet: it needs "
-        "PackedSequenceBatch and gru_scan(reset_bt=)" % what)
-
+# -- sequence packing -------------------------------------------------------
 
 def pack_samples(samples, max_len, length_of=None):
-    _packing_not_ported("pack_samples")
+    """Greedy first-fit packing of samples into rows of total length
+    <= ``max_len``: a list of rows, each a list of samples, in arrival
+    order within and across rows. A sample longer than ``max_len`` gets a
+    row of its own (it pads, never truncates)."""
+    length_of = length_of or default_length_of
+    rows = []     # [used_len, [samples]]
+    for sample in samples:
+        n = length_of(sample)
+        for row in rows:
+            if row[0] + n <= max_len:
+                row[0] += n
+                row[1].append(sample)
+                break
+        else:
+            rows.append([n, [sample]])
+    return [row[1] for row in rows]
 
 
-def pack_feed(topology, packed_rows, feeding=None, max_len=None):
-    _packing_not_ported("pack_feed")
+def pack_feed(topology, packed_rows, feeding=None, max_len=None, *,
+              device=None):
+    """Packed rows (lists of sample tuples, :func:`pack_samples`) as a feed
+    dict of PackedSequenceBatch values on ``device`` (the default device
+    when None).
+
+    Every data layer must be a single-level dense or index sequence slot:
+    packing has no meaning for per-sample slots. ``max_len`` pads every
+    row to one width (default: the length bucket of the longest packed
+    row); a row longer than ``max_len`` (an overlong sample's own row)
+    widens the whole batch to the bucket of its length: pad, never
+    truncate."""
+    import torch
+
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.core.sequence import (PackedSequenceBatch,
+                                                bucket_length)
+    from paddle_tpu_torch.data_type import DENSE, INDEX, SEQ_SINGLE
+
+    if not packed_rows:
+        raise ValueError("pack_feed needs at least one packed row")
+    device = resolve_device(device)
+    if feeding is None:
+        feeding = {name: i for i, (name, _) in
+                   enumerate(topology.data_types())}
+    row_lens = [sum(default_length_of(s) for s in row)
+                for row in packed_rows]
+    tmax = int(max_len) if max_len else bucket_length(max(row_lens))
+    if max(row_lens) > tmax:
+        tmax = bucket_length(max(row_lens))
+    feed = {}
+    for name, itype in topology.data_types():
+        if itype.seq_type != SEQ_SINGLE or itype.value_type not in (
+                DENSE, INDEX):
+            raise TypeError(
+                "pack_feed supports single-level dense/index sequence "
+                "slots only; data layer %r has type %r" % (name, itype))
+        np_dtype = np.float32 if itype.value_type == DENSE else np.int32
+        idx = feeding[name]
+        feat = np.asarray(packed_rows[0][0][idx], dtype=np_dtype).shape[1:]
+        data = np.zeros((len(packed_rows), tmax) + feat, np_dtype)
+        segments = np.full((len(packed_rows), tmax), -1, np.int32)
+        lengths = np.zeros((len(packed_rows),), np.int32)
+        for r, row in enumerate(packed_rows):
+            at = 0
+            for s, sample in enumerate(row):
+                part = np.asarray(sample[idx], dtype=np_dtype)
+                data[r, at:at + len(part)] = part
+                segments[r, at:at + len(part)] = s
+                at += len(part)
+            lengths[r] = at
+        feed[name] = PackedSequenceBatch(
+            torch.as_tensor(data, device=device),
+            torch.as_tensor(lengths, device=device),
+            torch.as_tensor(segments, device=device))
+    return feed
 
 
 def packed_batches(reader, batch_size, max_len, length_of=None,
                    max_open_rows=64):
-    _packing_not_ported("packed_batches")
+    """Group a SAMPLE reader into batches of packed rows: each item is a
+    list of ``batch_size`` rows, each row a list of samples whose total
+    length fits ``max_len`` (feed with :func:`pack_feed`); the last
+    partial batch is yielded as it is.
+
+    The first-fit open set holds at most ``max_open_rows`` rows: on
+    overflow the fullest open row retires, so per-sample scans and
+    buffered memory stay O(max_open_rows) on an endless stream. A sample
+    of ``max_len`` or more retires at once, in a row of its own."""
+    length_of = length_of or default_length_of
+
+    def batch_reader():
+        open_rows = []  # [used, [samples]]
+        done_rows = []
+
+        def pop_batch():
+            batch = done_rows[:batch_size]
+            del done_rows[:batch_size]
+            return batch
+
+        for sample in reader():
+            n = length_of(sample)
+            for row in open_rows:
+                if row[0] + n <= max_len:
+                    row[0] += n
+                    row[1].append(sample)
+                    if row[0] >= max_len:
+                        open_rows.remove(row)
+                        done_rows.append(row[1])
+                    break
+            else:
+                if n >= max_len:
+                    done_rows.append([sample])
+                else:
+                    open_rows.append([n, [sample]])
+                    if len(open_rows) > max_open_rows:
+                        fullest = max(open_rows, key=lambda r: r[0])
+                        open_rows.remove(fullest)
+                        done_rows.append(fullest[1])
+            if len(done_rows) >= batch_size:
+                yield pop_batch()
+        done_rows.extend(row[1] for row in open_rows)
+        while done_rows:
+            yield pop_batch()
+
+    return batch_reader

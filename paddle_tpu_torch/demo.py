@@ -10,7 +10,11 @@ path finder placed first answers every such name, so a script's own
 package through; a module the port lacks fails with "not ported yet". The
 ``paddle_tpu`` entries of ``sys.modules`` (and ``sys.path``) are set
 aside on entry and exactly those are put back on exit, as
-``cli.ConfigScope`` scopes ``paddle`` for v1 configs.
+``cli.ConfigScope`` scopes ``paddle`` for v1 configs. Inside it
+``np.asarray`` of any tensor (on the card, or one that requires grad)
+gives a host copy, as it does of any JAX array (a script reads
+``Topology.apply``'s values so); outside it torch refuses those, as it
+always does.
 
 :func:`run` executes the file with ``runpy`` as ``__main__`` with its own
 arguments. The card is the default; ``--cpu`` (``device="cpu"``) calls
@@ -66,8 +70,17 @@ class PortBinding:
         self._finder = _PortFinder()
         self._saved = None
         self._path = None
+        self._array = None
 
     def __enter__(self):
+        import torch
+
+        self._array = torch.Tensor.__array__
+
+        def host_array(tensor, *args, **kwargs):
+            return self._array(tensor.detach().cpu(), *args, **kwargs)
+
+        torch.Tensor.__array__ = host_array
         self._saved = {n: m for n, m in sys.modules.items()
                        if port_name(n) is not None}
         for name in self._saved:
@@ -77,12 +90,15 @@ class PortBinding:
         return self
 
     def __exit__(self, *exc):
+        import torch
+
+        torch.Tensor.__array__ = self._array
         sys.meta_path.remove(self._finder)
         sys.path[:] = self._path
         for name in [n for n in sys.modules if port_name(n) is not None]:
             del sys.modules[name]
         sys.modules.update(self._saved)
-        self._saved = self._path = None
+        self._saved = self._path = self._array = None
 
 
 def _with_device(device, fn):

@@ -50,6 +50,8 @@ _REF_NAME_TAGS = {
     "slope_intercept": "slope_intercept_layer",
     "addto_layer": "addto",
     "repeat": "repeat_layer",
+    "seq_concat": "seqconcat",
+    "seq_reshape": "seqreshape",
     "pooling": "seq_pooling",
     "sampling_id": "sampling_id_layer",
 }
@@ -127,6 +129,9 @@ class Context:
         # next window
         self.decode_state = None
         self.decode_state_out = None
+        # {id(step program): [value of each step output]} of the
+        # recurrent groups run so far (layer/rnn_group.py get_output)
+        self.group_outputs = {}
 
     @property
     def is_train(self):
@@ -137,7 +142,7 @@ class Context:
         the tensor's device."""
         gen = self.generator
         enforce(gen is not None, "this network uses stochastic layers "
-                "(dropout); pass generator= to Topology.apply")
+                "(dropout); pass rng= (a torch.Generator) to Topology.apply")
         enforce(gen.device.type == tensor.device.type,
                 "the generator is on %s, the tensor on %s", gen.device,
                 tensor.device)

@@ -4,7 +4,7 @@ paddle_tpu/inference.py)."""
 import torch
 
 from paddle_tpu_torch.core.place import resolve_device
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, SequenceBatch
 from paddle_tpu_torch.graph import LayerNode
 from paddle_tpu_torch.topology import Topology, convert_feed
 from paddle_tpu_torch.utils.error import enforce
@@ -28,11 +28,11 @@ class Inference:
         enforce(field == "value", "infer(field=%r) is not ported yet",
                 field)
         feed = convert_feed(self.topology, input, self.device, feeding)
-        out = self.topology.apply(self._params, feed, mode="test")
+        out, _ = self.topology.apply(self._params, feed, mode="test")
         results = []
         for node in self.outputs:
             val = out[node.name]
-            if isinstance(val, SequenceBatch):
+            if isinstance(val, (SequenceBatch, NestedSequenceBatch)):
                 val = val.data
             results.append(val.float().cpu().numpy()
                            if val.dtype == torch.bfloat16

@@ -9,11 +9,12 @@ building a lazy DAG that paddle_tpu_torch.topology.Topology evaluates.
   recurrent.py  lstmemory, grumemory, recurrent
   sequence.py   pooling, first_seq, last_seq, expand,
                 context_projection_layer, max_id, sampling_id, eos_id,
-                print_layer
-  step.py       gru_step, gru_step_naive (one step, inside a group)
+                print_layer, seq_concat, seq_reshape, seq_slice, sub_seq
+  step.py       lstm_step, gru_step, gru_step_naive (one step, inside a
+                group)
   rnn_group.py  recurrent_group, memory, StaticInput, GeneratedInput,
-                beam_search, BeamSearchControlCallbacks,
-                BeamSearchGenerator
+                SubsequenceInput, get_output, beam_search,
+                BeamSearchControlCallbacks, BeamSearchGenerator
   attention_utils.py  sequence_softmax_pool (networks.simple_attention)
   cost.py       classification_cost, cross_entropy, square_error_cost
                 (mse_cost, regression_cost),
@@ -74,14 +75,17 @@ from paddle_tpu_torch.layer.recurrent import grumemory, lstmemory, recurrent
 from paddle_tpu_torch.layer.rnn_group import (BeamSearchControlCallbacks,
                                               BeamSearchGenerator,
                                               GeneratedInput, StaticInput,
-                                              beam_search, memory,
+                                              SubsequenceInput, beam_search,
+                                              get_output, memory,
                                               recurrent_group)
 from paddle_tpu_torch.layer.sequence import (context_projection_layer, eos,
                                              eos_id, expand, first_seq,
                                              last_seq, max_id, maxid,
                                              pooling, print_layer,
-                                             sampling_id)
-from paddle_tpu_torch.layer.step import gru_step, gru_step_naive
+                                             sampling_id, seq_concat,
+                                             seq_reshape, seq_slice,
+                                             sub_seq)
+from paddle_tpu_torch.layer.step import gru_step, gru_step_naive, lstm_step
 
 # aliases of the v2 naming
 pooling_layer = pooling

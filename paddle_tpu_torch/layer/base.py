@@ -6,7 +6,9 @@ application over SequenceBatch."""
 
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import (NestedSequenceBatch,
+                                            PackedSequenceBatch,
+                                            SequenceBatch)
 from paddle_tpu_torch.core.sparse import SparseRows
 from paddle_tpu_torch.graph import LayerNode, ParamSpec
 from paddle_tpu_torch.initializer import Normal, Uniform, Xavier, \
@@ -70,12 +72,13 @@ def is_seq(value):
 
 def featurewise(fn, value):
     """Apply a featurewise fn to a tensor, a SequenceBatch (padding rows
-    are computed and masked downstream, as in the JAX package), an
+    are computed and masked downstream, as in the JAX package; a packed
+    batch keeps its segment ids), a NestedSequenceBatch, an
     ImageValue (on its flat NCHW rows, the width that matmuls and
     per-feature parameters index) or SparseRows (on its dense rows, which
     ``to_dense`` refuses at reference scale; fc takes the sparse path
     instead)."""
-    if isinstance(value, SequenceBatch):
+    if isinstance(value, (SequenceBatch, NestedSequenceBatch)):
         return value.map_data(fn)
     if isinstance(value, ImageValue):
         return fn(value.flat())
@@ -84,8 +87,20 @@ def featurewise(fn, value):
     return fn(value)
 
 
+def reject_packed(value, what):
+    """Refuse a packed batch where a layer reduces or mixes across time
+    positions (paddle_tpu/layer/base.py reject_packed): a per-sequence
+    reduction would collapse packed neighbours into one output, a context
+    window or a chain cost would read across segment boundaries."""
+    enforce(not isinstance(value, PackedSequenceBatch),
+            "%s does not support packed sequence batches: it would mix "
+            "packed neighbours across segment boundaries; use length "
+            "bucketing (paddle_tpu_torch.data.bucketing) instead of "
+            "packing", what)
+
+
 def data_of(value):
-    if isinstance(value, SequenceBatch):
+    if isinstance(value, (SequenceBatch, NestedSequenceBatch)):
         return value.data
     if isinstance(value, ImageValue):
         return value.flat()
@@ -95,9 +110,11 @@ def data_of(value):
 
 
 def like(value, new_data):
-    """Rewrap new_data with value's sequence metadata."""
-    if isinstance(value, SequenceBatch):
-        return SequenceBatch(new_data, value.lengths)
+    """Rewrap new_data with value's sequence metadata (a packed batch's
+    segment ids included, so a downstream recurrent layer still resets at
+    them)."""
+    if isinstance(value, (SequenceBatch, NestedSequenceBatch)):
+        return value.map_data(lambda _: new_data)
     return new_data
 
 

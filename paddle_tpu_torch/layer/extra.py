@@ -13,6 +13,7 @@ from paddle_tpu_torch.layer.base import (
     is_seq,
     make_node,
     register_layer,
+    reject_packed,
     weight_spec,
 )
 from paddle_tpu_torch.ops import crf as crf_ops
@@ -37,6 +38,9 @@ def crf(input, label, size=None, weight=None, param_attr=None, name=None,
     def forward(params, values, ctx):
         scores, labels = values[0], values[1]
         enforce(is_seq(scores) and is_seq(labels), "crf expects sequences")
+        # chain transitions would bridge packed neighbours
+        reject_packed(scores, "crf")
+        reject_packed(labels, "crf")
         nll = crf_ops.crf_nll(scores.data, labels.data, scores.mask(),
                               params[wspec.name])
         if weight is not None:
@@ -64,6 +68,7 @@ def crf_decoding(input, size=None, label=None, param_attr=None, name=None,
     def forward(params, values, ctx):
         scores = values[0]
         enforce(is_seq(scores), "crf_decoding expects a sequence")
+        reject_packed(scores, "crf_decoding")  # viterbi bridges segments
         paths, _ = crf_ops.crf_decode(scores.data, scores.mask(),
                                       params[wspec.name])
         if label is not None:

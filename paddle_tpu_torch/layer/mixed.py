@@ -32,6 +32,7 @@ from paddle_tpu_torch.layer.base import (
     make_node,
     mark_activation,
     register_layer,
+    reject_packed,
     to_list,
     weight_spec,
 )
@@ -175,6 +176,7 @@ class context_projection(BaseProjection):
 
     def forward(self, params, value, ctx):
         enforce(is_seq(value), "context_projection expects a sequence")
+        reject_packed(value, "context_projection")  # window spans segments
         padding = params[self.specs[0].name] if self.specs else None
         out = seq_ops.context_projection(value.data, value.mask(),
                                          self.context_start,

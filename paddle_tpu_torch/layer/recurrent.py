@@ -6,7 +6,7 @@ already projected to 4*size, ``grumemory`` one projected to 3*size
 one of its own size."""
 
 from paddle_tpu_torch.activation import to_activation
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import PackedSequenceBatch, SequenceBatch
 from paddle_tpu_torch.layer.base import (
     bias_spec,
     is_seq,
@@ -18,11 +18,17 @@ from paddle_tpu_torch.ops import rnn as rnn_ops
 from paddle_tpu_torch.utils.error import enforce
 
 
-def _run_seq_scan(x, reverse, scan_fn, ctx, name):
-    """Run a masked recurrent scan over the sequence ``x``
-    (paddle_tpu/layer/recurrent.py ``_run_seq_scan`` without its packed
-    branch): ``scan_fn(reverse, state) -> (h_seq [B, T, H], [final carry
-    leaf, ...])``.
+def _run_seq_scan(x, inp, reverse, scan_fn, ctx, name):
+    """Run a masked recurrent scan over the (possibly packed) sequence
+    ``x`` whose bias-adjusted projection is ``inp`` (paddle_tpu/layer/
+    recurrent.py ``_run_seq_scan``): ``scan_fn(data, reset_bt, reverse,
+    state) -> (h_seq [B, T, H], [final carry leaf, ...])``.
+
+    A plain SequenceBatch takes the scan with its own ``reverse`` (the
+    kernels' path). A PackedSequenceBatch resets the carry at its segment
+    starts (``reset_bt``), and ``reverse`` reverses each segment before
+    and after a forward scan (``PackedSequenceBatch.reverse``), so a
+    packed row computes what its sequences compute unpacked.
 
     In a streaming decode window (``ctx.decode_state`` is a dict,
     ``Topology.apply_decode``) the scan boots from
@@ -30,18 +36,28 @@ def _run_seq_scan(x, reverse, scan_fn, ctx, name):
     ``ctx.decode_state_out[name]``, which the serving scheduler threads
     into the next window. The scan is masked, so a slot of length 0 this
     window passes its carry through untouched. A reverse layer reads
-    future timesteps and refuses decode mode."""
+    future timesteps and refuses decode mode, and packed rows refuse it
+    too: the slot matrix is the packing."""
     dstate = ctx.decode_state
-    if dstate is None:
-        h_seq, _ = scan_fn(reverse, None)
+    if dstate is not None:
+        enforce(not reverse,
+                "reverse recurrent layer %r cannot stream: a right-to-left "
+                "scan reads future timesteps the decode window has not seen "
+                "yet", name)
+        enforce(not isinstance(x, PackedSequenceBatch),
+                "streaming decode over packed rows is unsupported (layer "
+                "%r): the slot matrix IS the packing", name)
+        h_seq, final = scan_fn(inp, None, False, dstate.get(name))
+        ctx.decode_state_out[name] = list(final)
         return SequenceBatch(h_seq, x.lengths)
-    enforce(not reverse,
-            "reverse recurrent layer %r cannot stream: a right-to-left "
-            "scan reads future timesteps the decode window has not seen "
-            "yet", name)
-    h_seq, final = scan_fn(False, dstate.get(name))
-    ctx.decode_state_out[name] = list(final)
-    return SequenceBatch(h_seq, x.lengths)
+    if not isinstance(x, PackedSequenceBatch):
+        h_seq, _ = scan_fn(inp, None, reverse, None)
+        return SequenceBatch(h_seq, x.lengths)
+    px = PackedSequenceBatch(inp, x.lengths, x.segments)
+    data = px.reverse().data if reverse else px.data
+    h_seq, _ = scan_fn(data, px.reset_mask(), False, None)
+    out = PackedSequenceBatch(h_seq, x.lengths, x.segments)
+    return out.reverse() if reverse else out
 
 
 # The default of ``gate_bias_attr`` (paddle_tpu/layer/recurrent.py): a
@@ -117,18 +133,19 @@ def lstmemory(input, name=None, size=None, reverse=False, act=None,
             if peephole:
                 w_peep = bias[4 * size:]
 
-        def scan_fn(rev, state):
+        def scan_fn(data, reset, rev, state):
             h_seq, (h_f, c_f) = rnn_ops.lstm_scan(
-                gates, x.mask(gates.dtype), w_in=None, b=None,
+                data, x.mask(data.dtype), w_in=None, b=None,
                 w_rec=params[wspec.name],
                 h0=None if state is None else state[0],
                 c0=None if state is None else state[1],
                 gate_act=g_act.apply, state_act=s_act.apply, reverse=rev,
                 use_peephole=peephole, w_peep=w_peep,
-                standard_acts=standard_acts, out_act=o_act.apply)
+                standard_acts=standard_acts, out_act=o_act.apply,
+                reset_bt=reset)
             return h_seq, [h_f, c_f]
 
-        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
+        return _run_seq_scan(x, gates, reverse, scan_fn, ctx, name)
 
     specs = [s for s in (wspec, gspec, bspec) if s is not None]
     return make_node("lstmemory", forward, [input], name=name, size=size,
@@ -170,18 +187,18 @@ def grumemory(input, name=None, size=None, reverse=False, act=None,
             proj = proj + params[bspec.name]
         w = params[wspec.name]
 
-        def scan_fn(rev, state):
+        def scan_fn(data, reset, rev, state):
             # the final carry is h_seq's last step (masked steps carry h
             # forward), one K5 launch on a CUDA tensor
             h_seq, h_f = rnn_ops.gru_scan(
-                proj, x.mask(proj.dtype), w_in=None, b=None,
+                data, x.mask(data.dtype), w_in=None, b=None,
                 w_rec_rz=w[:, :2 * size], w_rec_c=w[:, 2 * size:],
                 h0=None if state is None else state[0],
                 gate_act=g_act.apply, state_act=s_act.apply, reverse=rev,
-                standard_acts=standard_acts)
+                reset_bt=reset, standard_acts=standard_acts)
             return h_seq, [h_f]
 
-        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
+        return _run_seq_scan(x, proj, reverse, scan_fn, ctx, name)
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("grumemory", forward, [input], name=name, size=size,
@@ -213,14 +230,14 @@ def recurrent(input, name=None, act=None, reverse=False, bias_attr=None,
         if bspec is not None:
             inp = inp + params[bspec.name]
 
-        def scan_fn(rev, state):
+        def scan_fn(data, reset, rev, state):
             h_seq, h_f = rnn_ops.rnn_scan(
-                inp, x.mask(inp.dtype), params[wspec.name],
+                data, x.mask(data.dtype), params[wspec.name],
                 h0=None if state is None else state[0], act=act_fn,
-                reverse=rev)
+                reverse=rev, reset_bt=reset)
             return h_seq, [h_f]
 
-        return _run_seq_scan(x, reverse, scan_fn, ctx, name)
+        return _run_seq_scan(x, inp, reverse, scan_fn, ctx, name)
 
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("recurrent", forward, [input], name=name, size=size,

@@ -20,10 +20,14 @@ to the stacked [B, T, ...] values (``_plan_hoisting``), one [B*T, H] x
 batch: top-k pruning over [B, beam * V], eos handling, and memories
 reordered by parent; it stops when every beam has finished.
 
-Not ported yet: ``get_output`` of an inner layer, ``SubsequenceInput``
-and nested (sub-sequence) inputs, which are refused, as are
-``memory(is_seq=True)`` and ``boot_bias``; a step may read a layer from
-outside its group only through a StaticInput or a memory's boot layer.
+A nested input (a NestedSequenceBatch; ``SubsequenceInput`` marks it in
+the v1 DSL) makes the loop run over the SUB-SEQUENCES instead
+(:func:`_nested_forward`): each outer step sees one sub-sequence of every
+row as a SequenceBatch, so the step can run sequence layers, or a group
+of its own, over it. ``get_output`` reads another output of the step (or
+a step cell's second output, ``lstm_step``'s state) from the same run.
+A step may read a layer from outside its group only through a
+StaticInput or a memory's boot layer.
 """
 
 import numpy as np
@@ -31,11 +35,12 @@ import torch
 
 from paddle_tpu_torch.core import dtype as dtype_mod
 from paddle_tpu_torch.core.place import resolve_device
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, SequenceBatch
 from paddle_tpu_torch.graph import (Context, LayerNode, auto_name,
                                     begin_group, current_group, end_group)
-from paddle_tpu_torch.layer.base import (data_of, is_seq, make_node,
-                                         register_layer, to_list)
+from paddle_tpu_torch.layer.base import (ImageValue, data_of, is_seq,
+                                         make_node, register_layer,
+                                         reject_packed, to_list)
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -64,17 +69,25 @@ class GeneratedInput:
         self.eos_id = eos_id
 
 
+def SubsequenceInput(input):
+    """Mark a recurrent_group input as nested (reference:
+    SubsequenceInput: the outer group iterates sub-sequences). Nestedness
+    rides on the VALUE (a NestedSequenceBatch), so this is the identity
+    on the layer, kept for the v1 DSL (paddle_tpu/layer/rnn_group.py)."""
+    return input
+
+
 @register_layer("memory")
 def memory(name, size, boot_layer=None, boot_with_const_value=None,
            is_seq=False, boot_bias=None):
     """The previous step's value of the step layer called ``name``; at the
     first step the boot layer's value, or ``boot_with_const_value``, or
-    zeros. Must be called inside a recurrent_group step function."""
+    zeros. Must be called inside a recurrent_group step function.
+    ``is_seq`` and ``boot_bias`` are accepted and have no effect, as in
+    the JAX package (paddle_tpu/layer/rnn_group.py:108-127)."""
     group = current_group()
     enforce(group is not None, "memory() must be used inside "
             "recurrent_group")
-    enforce(not is_seq, "memory(is_seq=True) is not ported yet")
-    enforce(boot_bias is None, "memory(boot_bias=...) is not ported yet")
 
     def forward(params, values, ctx):  # replaced by the loop's carry
         raise AssertionError("memory placeholder evaluated outside its "
@@ -122,8 +135,7 @@ class _StepProgram:
                 else:  # a sequence layer: one time slice per step
                     enforce(isinstance(item, LayerNode), "recurrent_group "
                             "input %r is not a layer, a StaticInput or a "
-                            "GeneratedInput (nested inputs are not ported "
-                            "yet)", item)
+                            "GeneratedInput", item)
                     ph = _step_input(item.size)
                     self.seq_inputs.append((item, ph))
                 placeholders.append(ph)
@@ -252,13 +264,86 @@ class _StepProgram:
         return list({id(n): n for n in nodes}.values())
 
 
+def _scannable(value):
+    """A step value as the loop stacks it: an image value's flat rows."""
+    return value.flat() if isinstance(value, ImageValue) else value
+
+
+def _nested_forward(program, outer_values, params, ctx, seq_vals):
+    """The loop over the sub-sequences of nested inputs
+    (paddle_tpu/layer/rnn_group.py ``_nested_forward``): outer step s
+    gives each nested input's s-th sub-sequence of every row as a
+    SequenceBatch, and each flat input's s-th step. The memories advance
+    only where s is below the row's outer length. A step output that is a
+    sequence stacks into a NestedSequenceBatch; any other into the outer
+    sequence [B, S, ...], zero past each row's outer length. Returns the
+    values of ``program.outputs``."""
+    ref = next(sv for sv in seq_vals if isinstance(sv, NestedSequenceBatch))
+    subseqs = ref.max_subseqs
+    static_leaf = program.static_leaf_values(outer_values)
+    mems = program.boot_values(outer_values, ref.batch_size, ref.data.dtype,
+                               ref.data.device)
+    sub_ctx = Context(mode=ctx.mode, generator=ctx.generator)
+    steps = []
+    for sv in seq_vals:
+        if isinstance(sv, NestedSequenceBatch):
+            enforce(sv.max_subseqs == subseqs,
+                    "nested inputs must agree on sub-sequence count")
+            steps.append([SequenceBatch(d, n) for d, n in zip(
+                sv.data.unbind(1), sv.inner_lengths.unbind(1))])
+            continue
+        enforce(is_seq(sv), "recurrent_group inputs must be sequences")
+        # a flat input gives one step per sub-sequence: it must cover
+        # every real sub-sequence of its row
+        enforce(sv.max_len >= subseqs,
+                "flat sequence input shorter than sub-sequence count")
+        if bool((sv.lengths < ref.outer_lengths).any()):
+            enforce(False, "flat inlink lengths %s shorter than "
+                    "sub-sequence counts %s", sv.lengths.tolist(),
+                    ref.outer_lengths.tolist())
+        steps.append(sv.data[:, :subseqs].unbind(1))
+    keeps = ref.outer_mask()[..., None].unbind(1)
+    per_step = [[] for _ in program.outputs]
+    for s in range(subseqs):
+        leaf = dict(static_leaf)
+        for (_, ph), x in zip(program.seq_inputs, steps):
+            leaf[id(ph)] = x[s]
+        for m, mv in zip(program.memories, mems):
+            leaf[id(m)] = mv
+        vals = program.eval_step(params, leaf, sub_ctx)
+        new_mems = []
+        for m, old in zip(program.memories, mems):
+            new = data_of(vals[id(program.by_name[m.memory_of])])
+            keep = keeps[s].to(new.dtype)
+            new_mems.append(new * keep + old * (1.0 - keep))
+        mems = new_mems
+        for out, node in zip(per_step, program.outputs):
+            out.append(_scannable(vals[id(node)]))
+    results = []
+    for out in per_step:
+        if isinstance(out[0], SequenceBatch):
+            # the step emitted an inner sequence: [B, S, T, ...]
+            results.append(NestedSequenceBatch(
+                torch.stack([o.data for o in out], dim=1), ref.outer_lengths,
+                torch.stack([o.lengths for o in out], dim=1)))
+            continue
+        data = torch.stack(out, dim=1)
+        data = data * ref.outer_mask(data.dtype).reshape(
+            data.shape[:2] + (1,) * (data.dim() - 2))
+        results.append(SequenceBatch(data, ref.outer_lengths))
+    return results
+
+
 @register_layer("recurrent_group")
 def recurrent_group(step, input, reverse=False, name=None, targetInlink=None):
     """Run ``step`` over the timesteps of the sequence inputs; the step's
     first output, stacked over the steps, is the group's sequence output
     (masked to the first sequence input's lengths). ``reverse=True`` runs
-    each sequence right to left within its valid region. The group owns
-    its step layers' parameters."""
+    each sequence right to left within its valid region. Over nested
+    inputs the loop runs over the sub-sequences (:func:`_nested_forward`;
+    ``reverse`` is refused there, as in the JAX package). The group owns
+    its step layers' parameters; ``get_output`` reads its other
+    outputs."""
     name = name or auto_name("recurrent_group")
     program = _StepProgram(step, to_list(input), group_id=name)
     enforce(program.generated is None,
@@ -272,23 +357,31 @@ def recurrent_group(step, input, reverse=False, name=None, targetInlink=None):
                          [outer for outer, _ in program.seq_inputs]
                          + program.outer_nodes()}.values())
     slot_of = {id(n): i for i, n in enumerate(graph_inputs)}
-    out_node = program.outputs[0]
-    # what the loop keeps of each step: the output unless it is hoisted,
+    # what the loop keeps of each step: the outputs that are not hoisted,
     # and the frontier the hoisted nodes read
-    emit = [] if id(out_node) in program.hoisted_ids else [out_node]
-    emit += [f for f in program.frontier if f is not out_node]
+    emit = [o for o in program.outputs if id(o) not in program.hoisted_ids]
+    emit += [f for f in program.frontier if f not in emit]
 
-    def forward(params, values, ctx):
+    def run(params, values, ctx):
         seq_vals = [values[slot_of[id(outer)]]
                     for outer, _ in program.seq_inputs]
+        outer_values = {id(n): values[slot_of[id(n)]] for n in graph_inputs}
+        if any(isinstance(sv, NestedSequenceBatch) for sv in seq_vals):
+            enforce(not reverse,
+                    "reverse=True over nested sequences is not supported "
+                    "yet; reverse the outer order in the reader")
+            return _nested_forward(program, outer_values, params, ctx,
+                                   seq_vals)
         for sv in seq_vals:
             enforce(is_seq(sv), "recurrent_group inputs must be sequences")
+            # the memories have no segment reset: packed rows would leak
+            # state across neighbours
+            reject_packed(sv, "recurrent_group")
         ref = seq_vals[0]
         steps = ref.max_len
         enforce(all(sv.max_len == steps for sv in seq_vals),
                 "recurrent_group sequence inputs differ in padded length: "
                 "%s", [sv.max_len for sv in seq_vals])
-        outer_values = {id(n): values[slot_of[id(n)]] for n in graph_inputs}
         static_leaf = program.static_leaf_values(outer_values)
         mems = program.boot_values(outer_values, ref.batch_size,
                                    ref.data.dtype, ref.data.device)
@@ -321,20 +414,70 @@ def recurrent_group(step, input, reverse=False, name=None, targetInlink=None):
                 out.append(data_of(vals[id(n)]))
         stacked = {id(n): torch.stack(out, dim=1)
                    for n, out in zip(emit, per_step)}
-        if id(out_node) in program.hoisted_ids:
+        if program.hoisted_ids:
             stacked = program.eval_hoisted(params, stacked, sub_ctx)
-        out_seq = data_of(stacked[id(out_node)])
-        result = SequenceBatch(out_seq, ref.lengths)
-        if reverse:
-            result = result.reverse()
-        return SequenceBatch(
-            result.data * ref.mask(out_seq.dtype)[..., None], ref.lengths)
+        results = []
+        for out_node in program.outputs:
+            out_seq = data_of(stacked[id(out_node)])
+            result = SequenceBatch(out_seq, ref.lengths)
+            if reverse:
+                result = result.reverse()
+            results.append(SequenceBatch(
+                result.data * ref.mask(out_seq.dtype)[..., None],
+                ref.lengths))
+        return results
 
+    def forward(params, values, ctx):
+        # every output of this run, for the group's get_output siblings
+        outs = run(params, values, ctx)
+        ctx.group_outputs[id(program)] = outs
+        return outs[0]
+
+    out_node = program.outputs[0]
     node = make_node("recurrent_group", forward, graph_inputs, name=name,
                      size=out_node.size, param_specs=program.param_specs)
     # a softmax step output stays marked as probabilities for the costs
     node.output_activation = getattr(out_node, "output_activation", None)
     node._step_program = program
+    return node
+
+
+@register_layer("get_output")
+def get_output(input, arg_name=None, name=None):
+    """Another output of a layer (reference: GetOutputLayer; paddle_tpu/
+    layer/rnn_group.py get_output), in one of two forms:
+
+    * a step cell's second output by ``arg_name`` (``lstm_step``'s
+      ``'state'``, its cell state): a node over the cell's inputs that
+      recomputes the cell and returns that output;
+    * a recurrent_group's step layer by name, which the step function
+      must return (in a list): its value from the group's run in the
+      same evaluation.
+    """
+    aux = getattr(input, "aux_outputs", None)
+    if aux is not None and arg_name in aux:
+        aux_fn, aux_size = aux[arg_name]
+        # the cell's parameters too: the cell node itself may be
+        # unreachable from here
+        return make_node("get_output", aux_fn, list(input.inputs), name=name,
+                         size=aux_size, param_specs=list(input.param_specs))
+    program = getattr(input, "_step_program", None)
+    enforce(program is not None,
+            "get_output expects a recurrent_group layer or a layer with "
+            "aux output %r", arg_name)
+    enforce(arg_name in program.by_name, "no inner layer named %r", arg_name)
+    inner = program.by_name[arg_name]
+    enforce(inner in program.outputs,
+            "get_output: inner layer %r must be returned by the step "
+            "function (return a list)", arg_name)
+    idx = program.outputs.index(inner)
+
+    def forward(params, values, ctx):
+        return ctx.group_outputs[id(program)][idx]
+
+    node = make_node("get_output", forward, [input], name=name,
+                     size=inner.size)
+    node.output_activation = getattr(inner, "output_activation", None)
     return node
 
 
@@ -419,8 +562,8 @@ class BeamSearchGenerator:
                     (feed or {}).items()}
             outer_values, batch = {}, 1
             if self.context_nodes:
-                vals = Topology(self.context_nodes).apply(
-                    params, feed, mode="test", generator=rng,
+                vals, _ = Topology(self.context_nodes).apply(
+                    params, feed, mode="test", rng=rng,
                     outputs=[n.name for n in self.context_nodes])
                 outer_values = {id(n): vals[n.name]
                                 for n in self.context_nodes}

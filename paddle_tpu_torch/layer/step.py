@@ -1,7 +1,8 @@
 """Single-step recurrent cells for use inside recurrent_group
-(paddle_tpu/layer/step.py; reference GruStepLayer, config_parser.py:3103).
-``gru_step`` and ``gru_step_naive`` are ported; ``lstm_step`` (and the
-``get_output`` of its cell state) comes with a later part of the port."""
+(paddle_tpu/layer/step.py; reference LstmStepLayer, GruStepLayer,
+config_parser.py:3013, 3103): ``lstm_step``, whose cell state is its
+second output (``get_output(cell, "state")``), ``gru_step`` and
+``gru_step_naive``."""
 
 import torch
 
@@ -10,6 +11,50 @@ from paddle_tpu_torch.graph import auto_name
 from paddle_tpu_torch.layer.base import (bias_spec, data_of, like, make_node,
                                          register_layer, weight_spec)
 from paddle_tpu_torch.utils.error import enforce
+
+
+@register_layer("lstm_step")
+def lstm_step(input, state, size=None, act=None, name=None, gate_act=None,
+              state_act=None, bias_attr=None, layer_attr=None):
+    """One LSTM step (reference: lstm_step_layer; LstmStepLayer.cpp).
+    ``input`` is the 4*size projection W x_t + W_h h_{t-1} made by a
+    preceding mixed or fc layer, ``state`` is c_{t-1} (a memory). The
+    bias holds the three peephole check vectors [Wci, Wcf, Wco]. The
+    output is h_t; the aux output ``'state'`` (``get_output``) is c_t."""
+    size = size or state.size
+    enforce(input.size == 4 * size, "lstm_step input.size must be 4*size")
+    enforce(state.size == size, "lstm_step state.size must equal size")
+    name = name or auto_name("lstm_step")
+    bspec = bias_spec(name, (3 * size,),
+                      bias_attr if bias_attr is not None else True)
+    g_act = to_activation(gate_act or "sigmoid").apply
+    s_act = to_activation(state_act or "tanh").apply
+    o_act = to_activation(act or "tanh").apply
+
+    def cell(params, values):
+        gates, c_prev = data_of(values[0]), data_of(values[1])
+        zi, zf, zg, zo = torch.chunk(gates, 4, dim=-1)
+        if bspec is not None:
+            pi, pf, po = torch.chunk(params[bspec.name], 3, dim=-1)
+        else:
+            pi = pf = po = 0.0
+        i = g_act(zi + c_prev * pi)
+        f = g_act(zf + c_prev * pf)
+        c = f * c_prev + i * s_act(zg)
+        o = g_act(zo + c * po)
+        return o * o_act(c), c
+
+    def forward(params, values, ctx):
+        return like(values[0], cell(params, values)[0])
+
+    def state_out(params, values, ctx):
+        return like(values[0], cell(params, values)[1])
+
+    node = make_node("lstm_step", forward, [input, state], name=name,
+                     size=size, param_specs=[bspec] if bspec else [],
+                     layer_attr=layer_attr)
+    node.aux_outputs = {"state": (state_out, size)}
+    return node
 
 
 def _gru_step_impl(layer_type, input, output_mem, size, act, name, gate_act,

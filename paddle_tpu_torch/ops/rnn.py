@@ -19,7 +19,6 @@ import torch
 from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.ops.gru_kernels import gru_seq
 from paddle_tpu_torch.ops.lstm_kernels import lstm_seq
-from paddle_tpu_torch.utils.error import enforce
 
 
 def lstm_step(carry, gates_t, w_rec, mask_t, gate_act, state_act,
@@ -78,10 +77,27 @@ def _reversed(x_btd, mask_bt):
     return SequenceBatch(x_btd, lengths).reverse().data
 
 
+def _check_reset(reset_bt, reverse):
+    """A packed reset mask composes with reverse only when the caller
+    pre-reverses per segment (``PackedSequenceBatch.reverse``): the
+    scans' whole-row reverse would mix packed neighbours
+    (paddle_tpu/ops/rnn.py ``_check_reset``)."""
+    if reset_bt is not None and reverse:
+        raise ValueError(
+            "reset_bt (packed sequences) cannot combine with reverse=True "
+            "inside the scan; pre-reverse per segment with "
+            "PackedSequenceBatch.reverse() and scan forward")
+
+
+def _reset_carry(carry, boot, r_t):
+    """The carry where ``r_t`` [B] is 0, the boot state where it is 1."""
+    return carry * (1.0 - r_t)[:, None] + boot * r_t[:, None]
+
+
 def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
               gate_act=torch.sigmoid, state_act=torch.tanh, reverse=False,
               use_peephole=False, w_peep=None, standard_acts=None,
-              out_act=None):
+              out_act=None, reset_bt=None):
     """Full-sequence LSTM. x [B, T, D] -> h_seq [B, T, H], (h_T, c_T).
 
     With standard activations (sigmoid gates, tanh states) the whole scan
@@ -92,9 +108,16 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
     w_rec, the peepholes, h0 and c0 only through it. Other activations take
     the eager ``lstm_step`` loop on either device, differentiated by
     autograd (the JAX package's own non-kernel branch, rnn.py:167-191).
-    ``reverse`` reverses around the scan (module docstring); packed-reset
-    scans come with a later part of the port.
+    ``reverse`` reverses around the scan (module docstring).
+
+    ``reset_bt`` [B, T] (packed sequences, ``PackedSequenceBatch.
+    reset_mask``): where it is 1 the carry returns to (h0, c0) before the
+    cell computes, so packed neighbours never see each other's state.
+    The JAX package takes ``lax.scan`` there and no Pallas kernel
+    (rnn.py:160), so a reset scan is the eager step loop on either
+    device.
     """
+    _check_reset(reset_bt, reverse)
     b_, t, d = x_btd.shape
     hidden = w_rec.shape[0]
     if w_in is None:  # input already projected to 4H (lstmemory contract)
@@ -116,7 +139,8 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
     if standard_acts is None:
         standard_acts = (gate_act is torch.sigmoid and state_act is torch.tanh
                          and out_act in (None, torch.tanh))
-    if standard_acts and gates_tm.dtype in (torch.float32, torch.bfloat16):
+    if (reset_bt is None and standard_acts
+            and gates_tm.dtype in (torch.float32, torch.bfloat16)):
         if use_peephole:
             peep = w_peep.reshape(3, hidden).float()
         else:
@@ -128,7 +152,12 @@ def lstm_scan(x_btd, mask_bt, w_in, b, w_rec, h0=None, c0=None,
     else:
         carry = (h0, c0)
         outs = []
+        reset_tm = (None if reset_bt is None
+                    else reset_bt.transpose(0, 1).to(gates_tm.dtype))
         for step in range(t):
+            if reset_tm is not None:
+                carry = (_reset_carry(carry[0], h0, reset_tm[step]),
+                         _reset_carry(carry[1], c0, reset_tm[step]))
             carry, y = lstm_step(carry, gates_tm[step], w_rec, mask_tm[step],
                                  gate_act, state_act,
                                  use_peephole=use_peephole, w_peep=w_peep,
@@ -154,11 +183,11 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
     eligibility of paddle_tpu/ops/rnn.py:228-234 without the TPU's VMEM
     test). Other activations take the eager ``gru_step`` loop on either
     device, differentiated by autograd (rnn.py:235-241). ``reverse``
-    reverses around the scan (module docstring); packed-reset scans come
-    with a later part of the port.
+    reverses around the scan (module docstring). ``reset_bt`` returns the
+    carry to h0 at packed-segment starts, on the step loop (see
+    ``lstm_scan``).
     """
-    enforce(reset_bt is None, "gru_scan(reset_bt=...) (packed sequences) is "
-            "not ported yet")
+    _check_reset(reset_bt, reverse)
     b_, t, d = x_btd.shape
     hidden = w_rec_c.shape[0]
     if w_in is None:  # input already projected to 3H (grumemory contract)
@@ -177,14 +206,19 @@ def gru_scan(x_btd, mask_bt, w_in, b, w_rec_rz, w_rec_c, h0=None,
 
     if standard_acts is None:
         standard_acts = gate_act is torch.sigmoid and state_act is torch.tanh
-    if standard_acts and proj_tm.dtype in (torch.float32, torch.bfloat16):
+    if (reset_bt is None and standard_acts
+            and proj_tm.dtype in (torch.float32, torch.bfloat16)):
         ys, h_f = gru_seq(proj_tm, mask_tm.float().contiguous(),
                           w_rec_rz.contiguous(), w_rec_c.contiguous(),
                           h0.contiguous())
     else:
         h_f = h0
         outs = []
+        reset_tm = (None if reset_bt is None
+                    else reset_bt.transpose(0, 1).to(proj_tm.dtype))
         for step in range(t):
+            if reset_tm is not None:
+                h_f = _reset_carry(h_f, h0, reset_tm[step])
             h_f, y = gru_step(h_f, proj_tm[step], w_rec_rz, w_rec_c,
                               mask_tm[step], gate_act, state_act)
             outs.append(y)
@@ -202,17 +236,21 @@ def rnn_scan(x_btd, mask_bt, w_rec, h0=None, act=torch.tanh, reverse=False,
     [B, T, H], h_T. The JAX package runs it on ``lax.scan`` with no Pallas
     kernel, so this is a step loop on either device, differentiated by
     autograd. ``reverse`` reverses around the scan (module docstring);
-    packed-reset scans are not ported yet."""
-    enforce(reset_bt is None, "rnn_scan(reset_bt=...) (packed sequences) is "
-            "not ported yet")
+    ``reset_bt`` returns the carry to h0 at packed-segment starts (see
+    ``lstm_scan``)."""
+    _check_reset(reset_bt, reverse)
     b_, t, hidden = x_btd.shape
     if h0 is None:
         h0 = torch.zeros((b_, hidden), dtype=x_btd.dtype, device=x_btd.device)
     inp = _reversed(x_btd, mask_bt) if reverse else x_btd
     inp_tm = inp.transpose(0, 1)
     mask_tm = mask_bt.transpose(0, 1)
+    reset_tm = (None if reset_bt is None
+                else reset_bt.transpose(0, 1).to(inp_tm.dtype))
     h_f, outs = h0, []
     for step in range(t):
+        if reset_tm is not None:
+            h_f = _reset_carry(h_f, h0, reset_tm[step])
         h_f, y = rnn_step(h_f, inp_tm[step], w_rec, mask_tm[step], act)
         outs.append(y)
     h_seq = (torch.stack(outs) if outs else inp_tm).transpose(0, 1)

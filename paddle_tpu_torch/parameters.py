@@ -34,15 +34,19 @@ class Parameters:
     def create(topology_or_cost, rng=None, dtype=None, seed=None,
                device=None):
         """Initialize every parameter of a topology, a cost layer or a list
-        of layers (v2 paddle.parameters.create parity) on ``device`` (the
-        default device of ``core.place`` unless given). ``rng`` is the JAX
+        of layers, or a MultiNetwork's cost layers together (v2
+        paddle.parameters.create parity), on ``device`` (the default
+        device of ``core.place`` unless given). ``rng`` is the JAX
         package's keyword: here an int seed or None, the same as ``seed``
         (a JAX key cannot cross to PyTorch)."""
         from paddle_tpu_torch.graph import LayerNode
+        from paddle_tpu_torch.multi_network import MultiNetwork
         from paddle_tpu_torch.topology import Topology
 
         topo = topology_or_cost
-        if isinstance(topo, (LayerNode, list)):
+        if isinstance(topo, MultiNetwork):
+            topo = Topology(topo.costs)
+        elif isinstance(topo, (LayerNode, list)):
             topo = Topology(topo)
         enforce(isinstance(topo, Topology), "parameters.create takes a "
                 "Topology, a layer or a list of layers, got %s",

@@ -187,8 +187,9 @@ class Bundle:
             params = self.params
             if self.quantization:
                 params = dequant_for_forward(params, self.quantization)
-            values = self.topology.apply(params, self._feed(flat_inputs),
-                                         mode="test")
+            values, _ = self.topology.apply(params,
+                                            self._feed(flat_inputs),
+                                            mode="test")
             out = {}
             for name in self._out_names:
                 val = values[name]

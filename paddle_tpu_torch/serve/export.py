@@ -50,7 +50,8 @@ DEFAULT_DECODE_WINDOW = 8
 # equal).
 STREAM_BLOCKED_TYPES = frozenset({
     "context_projection", "crf", "crf_decoding", "expand", "first_seq",
-    "last_seq", "pooling", "recurrent_group"})
+    "last_seq", "pooling", "recurrent_group", "seq_concat", "seq_reshape",
+    "seq_slice", "sub_seq"})
 
 _KINDS = {(SEQ_NONE, DENSE): ("dense", "float32"),
           (SEQ_NONE, INDEX): ("index", "int32"),

@@ -14,10 +14,13 @@ import torch
 
 from paddle_tpu_torch.core import dtype as dtype_mod
 from paddle_tpu_torch.core.place import resolve_device
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import (NestedSequenceBatch,
+                                            PackedSequenceBatch,
+                                            SequenceBatch)
 from paddle_tpu_torch.core.sparse import SparseRows
-from paddle_tpu_torch.data_type import (DENSE, INDEX, SEQ_NONE, SEQ_SINGLE,
-                                        SPARSE_BINARY, SPARSE_FLOAT)
+from paddle_tpu_torch.data_type import (DENSE, INDEX, SEQ_NESTED, SEQ_NONE,
+                                        SEQ_SINGLE, SPARSE_BINARY,
+                                        SPARSE_FLOAT)
 from paddle_tpu_torch.graph import Context, LayerNode, topo_sort
 from paddle_tpu_torch.layer.base import ImageValue
 from paddle_tpu_torch.utils import flags
@@ -99,27 +102,29 @@ class Topology:
                 for name, spec in sorted(self.param_specs().items())}
 
     # -- evaluation ---------------------------------------------------------
-    def apply(self, params, feed, mode="test", outputs=None,
-              state_updates=None, generator=None):
-        """Evaluate the DAG. Returns ``{layer_name: value}`` for the output
-        nodes (or ``outputs``); an image value crosses the boundary as its
-        flat NCHW rows. ``mode="test"`` runs under
-        ``torch.inference_mode()`` (serving) and never updates running
-        state; ``mode="train"`` records the autograd graph, so a cost from
-        it can be differentiated back to the parameters (under the
-        mixed-precision policy, through their casts to the compute dtype),
-        and puts the new values of the running-state parameters into the
-        dict ``state_updates`` when one is given. ``generator`` (a
-        ``torch.Generator`` on the feed's device) draws the dropout masks
-        of a train-mode evaluation; one that needs a mask raises without
-        it."""
+    def apply(self, params, feed, mode="train", rng=None, outputs=None):
+        """Evaluate the DAG; the JAX package's signature and return value
+        (paddle_tpu/topology.py apply). Returns ``({layer_name: value},
+        state_updates)`` for the output nodes (or ``outputs``); an image
+        value crosses the boundary as its flat NCHW rows.
+
+        ``mode="train"`` (the default) records the autograd graph, so a
+        cost from it can be differentiated back to the parameters (under
+        the mixed-precision policy, through their casts to the compute
+        dtype), and ``state_updates`` holds the new values of the
+        running-state parameters (batch norm's moving statistics).
+        ``mode="test"`` runs under ``torch.inference_mode()`` (serving)
+        and updates no running state. ``rng`` (a ``torch.Generator`` on
+        the parameters' device; the counterpart of the JAX PRNG key)
+        draws the dropout masks of a train-mode evaluation; one that
+        needs a mask raises without it. ``feed`` values may be tensors or
+        numpy arrays (and sequence batches of them), which are moved
+        onto the parameters' device."""
         enforce(mode in ("test", "train"), "Topology.apply: mode must be "
                 "'test' or 'train', got %r", mode)
-        ctx = Context(mode=mode, generator=generator)
-        out = self._evaluate(params, feed, ctx, outputs)
-        if state_updates is not None:
-            state_updates.update(ctx.state_updates)
-        return out
+        ctx = Context(mode=mode, generator=rng)
+        out = self._evaluate(params, _feed_on(feed, params), ctx, outputs)
+        return out, ctx.state_updates
 
     def apply_decode(self, params, feed, decode_state, outputs=None):
         """Evaluate the DAG as ONE streaming window of a longer sequence
@@ -139,10 +144,14 @@ class Topology:
         out = self._evaluate(params, feed, ctx, outputs)
         return out, ctx.decode_state_out
 
-    def _evaluate(self, params, feed, ctx, outputs):
+    def _evaluate(self, params, feed, ctx, outputs, record=False):
+        """Run the nodes; a test-mode evaluation runs under
+        ``torch.inference_mode()`` unless ``record`` (the gradient check's
+        test-mode evaluations, which autograd differentiates)."""
         cd = dtype_mod.compute_dtype()
         values = {}
-        grad_mode = (torch.inference_mode() if ctx.mode == "test"
+        grad_mode = (torch.inference_mode()
+                     if ctx.mode == "test" and not record
                      else contextlib.nullcontext())
         with grad_mode:
             if cd is not None:
@@ -183,11 +192,50 @@ def _external(value):
 
 
 def _map_data(fn, value):
-    if isinstance(value, SequenceBatch):
+    if isinstance(value, (SequenceBatch, NestedSequenceBatch)):
         return value.map_data(fn)
     if isinstance(value, SparseRows):
         return value.map_vals(fn)
     return fn(value)
+
+
+def _feed_on(feed, params):
+    """``feed`` with its numpy arrays (also those inside sequence batches)
+    as tensors on the parameters' device (the first tensor's of the feed
+    when there are no parameters), float64 and int64 narrowed to float32
+    and int32 as the JAX package's default precision does."""
+    device = next((v.device for v in params.values()
+                   if isinstance(v, torch.Tensor)), None)
+    if device is None:  # a tensor's .data is the tensor itself
+        device = next((t.device for t in (getattr(v, "data", v)
+                                          for v in feed.values())
+                       if isinstance(t, torch.Tensor)), None)
+    narrow = {np.dtype(np.float64): torch.float32,
+              np.dtype(np.int64): torch.int32}
+
+    def to_tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        x = np.array(x, copy=not np.asarray(x).flags.writeable)
+        return torch.as_tensor(x, dtype=narrow.get(x.dtype), device=device)
+
+    def convert(value):
+        if isinstance(value, PackedSequenceBatch):
+            return PackedSequenceBatch(to_tensor(value.data),
+                                       to_tensor(value.lengths),
+                                       to_tensor(value.segments))
+        if isinstance(value, SequenceBatch):
+            return SequenceBatch(to_tensor(value.data),
+                                 to_tensor(value.lengths))
+        if isinstance(value, NestedSequenceBatch):
+            return NestedSequenceBatch(to_tensor(value.data),
+                                       to_tensor(value.outer_lengths),
+                                       to_tensor(value.inner_lengths))
+        if isinstance(value, (np.ndarray, np.generic)):
+            return to_tensor(value)
+        return value
+
+    return {k: convert(v) for k, v in feed.items()}
 
 
 def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
@@ -196,7 +244,8 @@ def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
     slots int32 [B], sequence slots SequenceBatch (padded to ``max_len``,
     default the length bucket of the batch's longest sequence), sparse
     slots SparseRows at or above the ``sparse_feed_threshold`` flag and
-    dense [B, dim] rows below it."""
+    dense [B, dim] rows below it, nested sequence slots
+    NestedSequenceBatch."""
     names = [name for name, _ in topology.data_types()]
     if feeding is None:
         feeding = {name: i for i, name in enumerate(names)}
@@ -224,14 +273,20 @@ def convert_column(col, itype, device, max_len=None):
                 col, itype.dim, with_values=itype.value_type == SPARSE_FLOAT,
                 device=device)
         return torch.as_tensor(_densify(col, itype), device=device)
-    enforce(itype.seq_type == SEQ_SINGLE,
-            "nested sequence inputs are not ported yet (%r)", itype)
+    # a sparse sequence slot densifies per step at any dim
     if sparse:
-        # a sparse sequence slot densifies per step at any dim
-        seqs = [_densify(s, itype) for s in col]
+        def steps(s):
+            return _densify(s, itype)
     else:
-        seqs = [np.asarray(s, dtype=np_dtype) for s in col]
-    return SequenceBatch.from_sequences(seqs, device=device, max_len=max_len)
+        def steps(s):
+            return np.asarray(s, dtype=np_dtype)
+    if itype.seq_type == SEQ_NESTED:
+        return NestedSequenceBatch.from_nested(
+            [[steps(s) for s in subs] for subs in col], device=device)
+    enforce(itype.seq_type == SEQ_SINGLE, "input type %r is not ported yet",
+            itype)
+    return SequenceBatch.from_sequences([steps(s) for s in col],
+                                        device=device, max_len=max_len)
 
 
 def _densify(rows, itype):

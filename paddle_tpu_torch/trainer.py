@@ -13,8 +13,8 @@ their gradients come back float32 through the cast.
 Every tensor of the training state is updated IN PLACE and never
 replaced: the masters, their gradients where they are pooled, the
 optimizer's slots and step count (int32 on the device), the running state
-(batch norm's moving statistics, written from each step's
-``Topology.apply(state_updates=...)``). A captured CUDA graph of a step
+(batch norm's moving statistics, written from the ``state_updates`` that
+each step's ``Topology.apply`` returns). A captured CUDA graph of a step
 therefore replays into the same memory.
 
 ``ParamPool`` (optimizer.py): the small uniform trainables are views of
@@ -163,7 +163,15 @@ class SGD:
                 "SGD(extra_layers=...) takes layers (evaluators or extra "
                 "outputs), got %r", extra)
         self.device = resolve_device(device)
-        self.costs = [cost] if isinstance(cost, LayerNode) else list(cost)
+        from paddle_tpu_torch.multi_network import MultiNetwork
+
+        if isinstance(cost, MultiNetwork):
+            # the joint cost: sum_i w_i * mean(cost_i)
+            self.costs = list(cost.costs)
+            self._cost_weights = list(cost.weights)
+        else:
+            self.costs = [cost] if isinstance(cost, LayerNode) else list(cost)
+            self._cost_weights = [1.0] * len(self.costs)
         self.evaluators = [e for e in extra
                            if getattr(e, "is_evaluator", False)]
         self.extra_outputs = [e for e in extra
@@ -265,22 +273,23 @@ class SGD:
                 + list(self._state.values()))
 
     # -- one step -----------------------------------------------------------
-    def _forward(self, feed, mode, state_updates=None):
-        """(cost, evaluator stats, extra outputs) of one batch: the cost is
-        the sum over the cost layers of their mean per-sample cost
-        (paddle_tpu/trainer.py:123)."""
+    def _forward(self, feed, mode):
+        """(cost, evaluator stats, extra outputs, running-state updates) of
+        one batch: the cost is the weighted sum over the cost layers of
+        their mean per-sample cost (paddle_tpu/trainer.py:123; each weight
+        1 but under a MultiNetwork's joint cost)."""
         wanted = ([c.name for c in self.costs]
                   + [e.name for e in self.evaluators]
                   + [o.name for o in self.extra_outputs])
-        values = self.topology.apply(
+        values, updates = self.topology.apply(
             {**self._trainable, **self._static, **self._state}, feed,
-            mode=mode, outputs=wanted, state_updates=state_updates,
-            generator=self._generator)
-        cost = sum(values[c.name].float().mean() for c in self.costs)
+            mode=mode, rng=self._generator, outputs=wanted)
+        cost = sum(w * values[c.name].float().mean()
+                   for c, w in zip(self.costs, self._cost_weights))
         stats = {e.name: {k: v.detach() for k, v in values[e.name].items()}
                  for e in self.evaluators}
         outs = {o.name: values[o.name] for o in self.extra_outputs}
-        return cost, stats, outs
+        return cost, stats, outs, updates
 
     def _train_step(self, feed):
         """Forward, backward and update of one batch; returns the cost, the
@@ -291,8 +300,7 @@ class SGD:
         for n, p in self._trainable.items():
             if n not in self._pooled:
                 p.grad = None
-        updates = {}
-        loss, stats, _ = self._forward(feed, "train", state_updates=updates)
+        loss, stats, _, updates = self._forward(feed, "train")
         loss.backward()
         self.optimizer.step(self._carry(), self._carry_grads(),
                             self._opt_state, self._param_meta)
@@ -809,7 +817,7 @@ class SGD:
                 feed = convert_feed(self.topology, data_batch, self.device,
                                     feeding)
             with observe_spans.span("test_step"):
-                cost, stats, _ = self._forward(feed, "test")
+                cost, stats, _, _ = self._forward(feed, "test")
             with observe_spans.span("eval_readback"):
                 total += float(cost)
                 n_batches += 1
@@ -828,7 +836,7 @@ class SGD:
         batch, in the JAX package's line format."""
         from paddle_tpu_torch.layer.base import data_of
 
-        values = self.topology.apply(
+        values, _ = self.topology.apply(
             {**self._trainable, **self._static, **self._state}, feed,
             mode="test", outputs=[n.name for n in self.topology.nodes])
         for name, val in values.items():

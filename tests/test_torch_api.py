@@ -728,3 +728,59 @@ def test_from_sequences_pads_to_the_positional_max_len():
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     np.testing.assert_array_equal(got.lengths.numpy(),
                                   np.asarray(want.lengths))
+
+
+def test_topology_apply_signature_matches_jax():
+    """``Topology.apply`` has the JAX package's parameters, in order and
+    with its defaults (``mode="train"``; ``rng`` takes a torch.Generator
+    here), and returns its pair ``(values, state_updates)``."""
+    import inspect
+
+    from paddle_tpu.topology import Topology as JaxTopology
+
+    want = inspect.signature(JaxTopology.apply).parameters
+    got = inspect.signature(Topology.apply).parameters
+    assert list(got) == list(want) == ["self", "params", "feed", "mode",
+                                       "rng", "outputs"]
+    for name in want:
+        assert got[name].default == want[name].default, name
+        assert got[name].kind == want[name].kind, name
+
+
+def test_topology_apply_takes_numpy_feeds_and_defaults_to_train():
+    """numpy feeds (and sequence batches of numpy arrays) are moved onto
+    the parameters' device; the default train mode records autograd and
+    returns the running-state updates, as JAX's returns them."""
+    from paddle_tpu.core.sequence import SequenceBatch as JaxSequenceBatch
+    from paddle_tpu.topology import Topology as JaxTopology
+
+    def build(pkg):
+        L = pkg.layer
+        x = L.data(name="x", type=pkg.data_type.dense_vector(4))
+        s = L.data(name="s", type=pkg.data_type.dense_vector_sequence(4))
+        h = L.batch_norm(input=L.fc(input=x, size=4, name="h"), name="bn")
+        return L.addto(input=[h, L.pooling(input=s, name="p")], name="o")
+
+    jax_reset_names()
+    jout = build(jpaddle)
+    reset_name_counters()
+    out = build(paddle)
+    topo, jtopo = Topology(out), JaxTopology(jout)
+    params = topo.init_params(seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 4)  # float64: narrowed to float32, as JAX does
+    seq = JaxSequenceBatch.from_sequences(
+        [rng.randn(n, 4).astype(np.float32) for n in (2, 3, 1)])
+    np_seq = paddle.core.sequence.SequenceBatch(np.asarray(seq.data),
+                                                np.asarray(seq.lengths))
+    values, updates = topo.apply(params, {"x": x, "s": np_seq})
+    jvalues, jupdates = jtopo.apply(
+        {k: np.asarray(v) for k, v in params.items()}, {"x": x, "s": seq})
+    assert values["o"].dtype == torch.float32
+    assert not torch.is_inference(values["o"])
+    assert sorted(updates) == sorted(jupdates) and len(updates) == 2
+    np.testing.assert_allclose(values["o"].detach().numpy(),
+                               np.asarray(jvalues[jout.name]), atol=TOL)
+    test_values, test_updates = topo.apply(params, {"x": x, "s": np_seq},
+                                           mode="test")
+    assert test_updates == {} and torch.is_inference(test_values["o"])

@@ -492,7 +492,6 @@ def test_cli_test_and_time(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["train", "--trainer-count", "2"], "data parallelism is not ported"),
-    (["checkgrad"], "checkgrad is not ported yet"),
     (["cluster_train", "--num-processes", "2"], "not ported yet"),
     (["merge_model", "--params", "p.tar", "-o", "m.tar"], "not ported yet"),
     (["analyze", "--all"], "not ported yet"),
@@ -502,7 +501,7 @@ def test_cli_test_and_time(tmp_path, capsys):
     (["observe", ".", "--fleet-stats", "h:1"], "not ported yet")])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):
     conf, _ = _write_config(tmp_path, "cfg_refuse")
-    if argv[0] in ("train", "checkgrad"):
+    if argv[0] == "train":
         argv = argv + ["--config", conf, "--device", "cpu"]
     with pytest.raises((NotImplementedError, EnforceError), match=match):
         cli.main(argv)

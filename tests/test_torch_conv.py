@@ -484,7 +484,7 @@ def _layer_parity(topo, jtopo, name, jname, c, size, seed):
     params = {n: torch.from_numpy(v.copy()).requires_grad_()
               for n, v in arrays.items()}
     tx = torch.from_numpy(x.copy()).requires_grad_()
-    y = topo.apply(params, {"image": tx}, mode="train")[name]
+    y = topo.apply(params, {"image": tx}, mode="train")[0][name]
     sel = rng.randn(*y.shape).astype(np.float32)
     (y * torch.from_numpy(sel)).sum().backward()
 

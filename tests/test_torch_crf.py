@@ -203,7 +203,8 @@ def test_reverse_grumemory_layer_matches_jax():
             jout.name]
     got = topo.apply({k: torch.from_numpy(v) for k, v in np_params.items()},
                      {"w": SequenceBatch(torch.from_numpy(ids),
-                                         torch.from_numpy(LENGTHS))})[out.name]
+                                         torch.from_numpy(LENGTHS))},
+                     mode="test")[0][out.name]
     assert _rel(got.data, want.data) <= TOL
 
 
@@ -363,7 +364,7 @@ def test_crf_layers_match_jax():
                                           jfeed)[0]
     topo = Topology(list(nets))
     assert topo.param_specs()["crfw"].shape == (8, 6)
-    got = topo.apply({"crfw": torch.from_numpy(x["w"])}, feed)
+    got, _ = topo.apply({"crfw": torch.from_numpy(x["w"])}, feed, mode="test")
     cost, path, errors = (got[n.name] for n in nets)
     jcost, jpath, jerrors = (want[n.name] for n in jnets)
     assert _rel(cost, jcost) <= TOL
@@ -473,10 +474,10 @@ def test_bf16_policy_tagger_cost_tracks_f32():
                                   torch.from_numpy(lens)),
             "label": SequenceBatch(torch.from_numpy(tags),
                                    torch.from_numpy(lens))}
-    f32 = topo.apply(params, feed)[cost.name]
+    f32 = topo.apply(params, feed, mode="test")[0][cost.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        bf16 = topo.apply(params, feed)[cost.name]
+        bf16 = topo.apply(params, feed, mode="test")[0][cost.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert bf16.dtype == torch.bfloat16 and f32.dtype == torch.float32

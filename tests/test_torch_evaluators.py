@@ -187,7 +187,7 @@ def _stats(pkg, node, feed):
     if pkg is jpaddle:
         vals, _ = JaxTopology(node).apply({}, feed, mode="test")
         return jax.tree_util.tree_map(np.asarray, vals[node.name])
-    out = Topology(node).apply({}, feed, mode="test")
+    out, _ = Topology(node).apply({}, feed, mode="test")
     return paddle.evaluator.host_stats(out[node.name])
 
 
@@ -235,7 +235,7 @@ def test_value_printer_passes_its_input_through(capsys):
     x = paddle.layer.data(name="x", type=paddle.data_type.dense_vector(3))
     node = paddle.evaluator.value_printer(input=x)
     value = torch.arange(6.0).reshape(2, 3)
-    out = Topology(node).apply({}, {"x": value})
+    out, _ = Topology(node).apply({}, {"x": value}, mode="test")
     assert torch.equal(out[node.name], value)
     assert "x:" in capsys.readouterr().out
 

@@ -382,5 +382,8 @@ def test_unported_options_raise():
     args = (torch.from_numpy(x["proj"]), torch.from_numpy(x["mask"]), None,
             None, torch.from_numpy(x["w_rz"]), torch.from_numpy(x["w_c"]))
     torch_rnn.gru_scan(*args, reverse=True)
-    with pytest.raises(EnforceError, match="not ported yet"):
-        torch_rnn.gru_scan(*args, reset_bt=torch.zeros(B, T))
+    # packed resets are ported (tests/test_torch_packing.py holds them);
+    # with reverse they are refused, as in the JAX package
+    torch_rnn.gru_scan(*args, reset_bt=torch.zeros(B, T))
+    with pytest.raises(ValueError, match="pre-reverse per segment"):
+        torch_rnn.gru_scan(*args, reset_bt=torch.zeros(B, T), reverse=True)

@@ -61,7 +61,8 @@ def test_flagship_forward_matches_jax(num_layers):
                        mode="test")[0][jout.name]
     params = params_from_numpy(np_params, topo, device="cpu")
     got = topo.apply(params, {"word": SequenceBatch(
-        torch.from_numpy(ids), torch.from_numpy(lens))})[out.name]
+        torch.from_numpy(ids), torch.from_numpy(lens))},
+        mode="test")[0][out.name]
     assert got.shape == (5, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
@@ -135,10 +136,10 @@ def test_bf16_compute_policy_tracks_f32():
     ids, lens = _feed()
     feed = {"word": SequenceBatch(torch.from_numpy(ids),
                                   torch.from_numpy(lens))}
-    f32 = topo.apply(params, feed)[out.name]
+    f32 = topo.apply(params, feed, mode="test")[0][out.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        bf16 = topo.apply(params, feed)[out.name]
+        bf16 = topo.apply(params, feed, mode="test")[0][out.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert bf16.dtype == torch.bfloat16 and dtype_mod.compute_dtype() is None

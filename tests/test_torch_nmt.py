@@ -159,7 +159,7 @@ def test_cost_and_gradients_match_jax(monkeypatch):
                         lambda *a: calls.append(1) or plain(*a))
     leaves = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in np_params.items()}
-    got = topo.apply(leaves, feed, mode="train")[cost.name]
+    got = topo.apply(leaves, feed, mode="train")[0][cost.name]
     got.mean().backward()
     assert calls == [1, 1]  # both encoder directions
     assert got.shape == (6,)
@@ -214,7 +214,7 @@ def test_attention_masks_padding():
                     [src], max_len=max_len),
                 "target_words": SequenceBatch.from_sequences([trg_in]),
                 "target_next_words": SequenceBatch.from_sequences([trg_out])}
-        return topo.apply(params, feed)[cost.name].numpy()
+        return topo.apply(params, feed, mode="test")[0][cost.name].numpy()
 
     np.testing.assert_allclose(run(3), run(9), rtol=1e-5, atol=1e-6)
 
@@ -225,10 +225,10 @@ def test_bf16_policy_cost_tracks_f32():
     params = {k: torch.from_numpy(v) for k, v in
               _np_params(topo, seed=5).items()}
     _, feed = _feeds(_rows(seed=6, n=6))
-    f32 = topo.apply(params, feed)[cost.name]
+    f32 = topo.apply(params, feed, mode="test")[0][cost.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        bf16 = topo.apply(params, feed)[cost.name]
+        bf16 = topo.apply(params, feed, mode="test")[0][cost.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert f32.dtype == torch.float32 and bool(torch.isfinite(bf16).all())

@@ -168,7 +168,7 @@ def test_ctr_gradients_match_jax():
     assert isinstance(feed["wide_features"], SparseRows)
     params = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in arrays.items()}
-    loss = topo.apply(params, feed, mode="train")[cost.name].mean()
+    loss = topo.apply(params, feed, mode="train")[0][cost.name].mean()
     loss.backward()
     jfeed = jax_convert_feed(jtopo, batch)
 
@@ -327,7 +327,7 @@ def _both_values_and_grads(build, samples, outputs, seed=0):
     arrays = _numpy_params(topo.param_specs(), seed)
     params = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in arrays.items()}
-    values = topo.apply(params, convert_feed(topo, samples, "cpu"),
+    values, _ = topo.apply(params, convert_feed(topo, samples, "cpu"),
                         mode="train", outputs=outputs)
     values[outputs[-1]].mean().backward()
     jfeed = jax_convert_feed(jtopo, samples)

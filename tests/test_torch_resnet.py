@@ -146,9 +146,9 @@ def test_resnet50_forward_matches_jax():
     for mode in ("test", "train"):
         want, jupdates = jtopo.apply(jparams, {"image": jnp.asarray(x)},
                                      mode=mode)
-        updates = {}
-        got = topo.apply(params, {"image": torch.from_numpy(x)}, mode=mode,
-                         state_updates=updates)[out.name]
+        got, updates = topo.apply(params, {"image": torch.from_numpy(x)},
+                                  mode=mode)
+        got = got[out.name]
         assert got.shape == (2, 10)
         np.testing.assert_allclose(got.detach().numpy(),
                                    np.asarray(want[jout.name]), rtol=1e-4,
@@ -236,7 +236,7 @@ def test_trainer_test_pass_and_tar_use_the_moving_statistics(tmp_path):
     x = torch.from_numpy(np.stack([r[0] for r in batches[0]]))
     y = torch.tensor([r[1] for r in batches[0]], dtype=torch.int32)
     want = topo.apply(params.as_dict(), {"image": x, "label": y},
-                      mode="test")[cost.name].float().mean()
+                      mode="test")[0][cost.name].float().mean()
     got = trainer.test(lambda: iter(batches[:1])).cost
     assert got == pytest.approx(float(want), rel=1e-6)
     path = tmp_path / "params.tar"
@@ -358,12 +358,11 @@ def test_bf16_policy_resnet_tracks_f32():
                                device="cpu")
     feed = {"image": torch.from_numpy(
         np.random.RandomState(8).randn(2, WIDTH).astype(np.float32))}
-    f32 = topo.apply(params, feed)[out.name]
+    f32 = topo.apply(params, feed, mode="test")[0][out.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        updates = {}
-        bf16 = topo.apply(params, feed)[out.name]
-        topo.apply(params, feed, mode="train", state_updates=updates)
+        bf16 = topo.apply(params, feed, mode="test")[0][out.name]
+        _, updates = topo.apply(params, feed, mode="train")
     finally:
         dtype_mod.set_mixed_precision(None)
     assert bf16.dtype == torch.bfloat16

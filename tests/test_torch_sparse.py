@@ -229,7 +229,7 @@ def _samples(kind, dim, seed=0, rows=5):
 def _port_value_and_grads(topo, cost, arrays, feed):
     params = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in arrays.items()}
-    out = topo.apply(params, feed, mode="train", outputs=[cost.name])
+    out, _ = topo.apply(params, feed, mode="train", outputs=[cost.name])
     loss = out[cost.name].mean()
     loss.backward()
     return (float(loss.detach()),
@@ -291,7 +291,8 @@ def test_a_layer_without_a_sparse_path_reads_the_dense_rows(force_sparse):
     jout = build(JL, jdt)
     samples = [(r,) for r in _valued([[1, 4, 4], [11]], seed=2)]
     got = Topology(out).apply({}, convert_feed(Topology(out), samples,
-                                               "cpu"))[out.name]
+                                               "cpu"),
+                                  mode="test")[0][out.name]
     jtopo = JTopology(jout)
     want, _ = jtopo.apply({}, jax_convert_feed(jtopo, samples), mode="test")
     np.testing.assert_allclose(got.numpy(), np.asarray(want[jout.name]),
@@ -325,7 +326,7 @@ def test_int8_sparse_fc_matches_jax_and_the_dequantized_product(
     feed = convert_feed(topo, samples, "cpu")
     got = topo.apply({"qfc.w0": torch.from_numpy(q),
                       "qfc.w0::scale": torch.from_numpy(scale)},
-                     feed)[out.name].numpy()
+                     feed, mode="test")[0][out.name].numpy()
     want, _ = jtopo.apply({"qfc.w0": jnp.asarray(q),
                            "qfc.w0::scale": jnp.asarray(scale)},
                           jax_convert_feed(jtopo, samples), mode="test")
@@ -351,10 +352,10 @@ def test_bfloat16_policy_casts_the_values_and_gathers_the_cast_table(
         _numpy_params(topo.param_specs())["bfc.w0"])}
     feed = convert_feed(topo, [(r,) for r in _valued([[1, 2], [29, 3, 3]])],
                         "cpu")
-    want = topo.apply(params, feed)[out.name]
+    want = topo.apply(params, feed, mode="test")[0][out.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        got = topo.apply(params, feed)[out.name]
+        got = topo.apply(params, feed, mode="test")[0][out.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert want.dtype == torch.float32 and got.dtype == torch.bfloat16

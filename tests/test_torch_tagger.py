@@ -98,7 +98,8 @@ def test_tagger_forward_matches_jax():
                        mode="test")[0][jout.name]
     params = params_from_numpy(np_params, topo, device="cpu")
     got = topo.apply(params, {"word": SequenceBatch(
-        torch.from_numpy(ids), torch.from_numpy(lens))})[out.name]
+        torch.from_numpy(ids), torch.from_numpy(lens))},
+        mode="test")[0][out.name]
     assert isinstance(got, SequenceBatch)
     assert got.data.shape == (5, 9, SMALL["label_size"])
     np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
@@ -387,10 +388,10 @@ def test_bf16_policy_tagger_tracks_f32():
     ids, lens = _feed()
     feed = {"word": SequenceBatch(torch.from_numpy(ids),
                                   torch.from_numpy(lens))}
-    f32 = topo.apply(params, feed)[out.name].data
+    f32 = topo.apply(params, feed, mode="test")[0][out.name].data
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        bf16 = topo.apply(params, feed)[out.name].data
+        bf16 = topo.apply(params, feed, mode="test")[0][out.name].data
     finally:
         dtype_mod.set_mixed_precision(None)
     assert bf16.dtype == torch.bfloat16

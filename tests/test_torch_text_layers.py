@@ -186,7 +186,7 @@ def _sample(probs, n, seed, device="cpu"):
     topo = Topology(ids)
     gen = torch.Generator().manual_seed(seed)
     feed = {"p": torch.from_numpy(np.repeat(probs, n, axis=0))}
-    return topo.apply({}, feed, generator=gen)[ids.name].numpy()
+    return topo.apply({}, feed, rng=gen, mode="test")[0][ids.name].numpy()
 
 
 def test_sampling_id_draws_from_each_row():
@@ -212,8 +212,8 @@ def test_sampling_id_needs_a_generator_and_keeps_jax_size():
         input=pkg.layer.data(name="p",
                              type=pkg.data_type.dense_vector(4))))
     assert out.size == jout.size == 4 and out.name == jout.name
-    with pytest.raises(EnforceError, match="pass generator="):
-        Topology(out).apply({}, {"p": torch.full((2, 4), 0.25)})
+    with pytest.raises(EnforceError, match="pass rng="):
+        Topology(out).apply({}, {"p": torch.full((2, 4), 0.25)}, mode="test")
 
 
 # -- costs ---------------------------------------------------------------------
@@ -451,7 +451,8 @@ def test_cost_only_feed_stays_float32_under_bf16(cost):
         assert topo._label_feed_names == jtopo._label_feed_names == {"y"}
         want = jtopo.apply({}, jax_convert_feed(jtopo, rows), mode="test")[
             0][jout.name]
-        got = topo.apply({}, convert_feed(topo, rows, "cpu"))[out.name]
+        got = topo.apply({}, convert_feed(topo, rows, "cpu"),
+                         mode="test")[0][out.name]
         return np.asarray(want, np.float64), got.double().numpy()
 
     want, got = _bf16(run)
@@ -494,7 +495,7 @@ def test_a_feed_read_as_target_and_as_input_is_still_cast():
             return real(params_, values, ctx)
 
         out.inputs[1].forward = spy
-        return topo.apply(params, feed)[out.name]
+        return topo.apply(params, feed, mode="test")[0][out.name]
 
     _bf16(run)
     assert seen["y"] == torch.bfloat16
@@ -786,13 +787,10 @@ def test_text_model_names_and_momentum_trajectory_match_jax(name):
 
 # The public names of the JAX package's layer, networks, models.text,
 # activation and pooling that the port does not have yet; ROADMAP.md
-# queues each (queue 1: item 4 the nested and packed sequence layers,
-# item 9 misc, detection, the rest of extra and conv, mdlstmemory).
+# queues each (queue 1, item 9: misc, detection, the rest of extra and
+# conv, mdlstmemory).
 STILL_QUEUED = {
     "layer": {
-        # item 4: nested and packed sequences
-        "SubsequenceInput", "get_output", "lstm_step", "seq_concat",
-        "seq_reshape", "seq_slice", "sub_seq",
         # item 9: layer/misc.py
         "gated_unit", "multiplex", "out_prod", "prelu", "selective_fc",
         "tensor",

@@ -249,7 +249,8 @@ def test_cost_layers_match_jax(kind):
             jcost.name]
     got = Topology(cost).apply(
         {k: torch.from_numpy(v) for k, v in np_params.items()},
-        {k: torch.from_numpy(v) for k, v in feed.items()})[cost.name]
+        {k: torch.from_numpy(v) for k, v in feed.items()},
+        mode="test")[0][cost.name]
     assert got.shape == (4,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)

@@ -110,10 +110,12 @@ def test_bucket_helpers_equal_jax():
         jpaddle.topology.Topology([jx, jw]))(sample)
     assert bucketing.topology_length_of(Topology([x, w]))(sample) == jlen \
         == 3
-    for fn in (bucketing.pack_samples, bucketing.pack_feed,
-               bucketing.packed_batches):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn(None, None, None)
+    # the packing helpers are ported (tests/test_torch_packing.py holds
+    # them); first-fit packing as in the JAX package
+    lens = rng.randint(1, 40, 50)
+    samples = [(list(range(int(n))),) for n in lens]
+    assert bucketing.pack_samples(samples, 64) == \
+        jbucketing.pack_samples(samples, 64)
 
 
 # -- the feeder --------------------------------------------------------------

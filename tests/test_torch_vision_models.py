@@ -203,7 +203,7 @@ def test_forward_matches_jax(nets, images, name):
     params = {k: torch.from_numpy(v) for k, v in np_params.items()}
     got = topo.apply(params, {"image": torch.from_numpy(x),
                               "label": torch.from_numpy(labels)},
-                     outputs=[out.name])[out.name].numpy()
+                     outputs=[out.name], mode="test")[0][out.name].numpy()
     assert got.shape == (2, 1000)
     assert _rel(got, want) <= 1e-4
     # the probabilities are not uniform: the signal reached the output
@@ -215,10 +215,12 @@ def test_bf16_policy_googlenet_forward_tracks_f32(nets, images):
     params = {k: torch.from_numpy(v) for k, v in np_params.items()}
     feed = {"image": torch.from_numpy(images["googlenet"]),
             "label": torch.zeros(2, dtype=torch.int32)}
-    f32 = topo.apply(params, feed, outputs=[out.name])[out.name]
+    f32 = topo.apply(params, feed, mode="test",
+                     outputs=[out.name])[0][out.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        bf16 = topo.apply(params, feed, outputs=[out.name])[out.name]
+        bf16 = topo.apply(params, feed, mode="test",
+                          outputs=[out.name])[0][out.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert bf16.dtype == torch.bfloat16
@@ -344,7 +346,7 @@ def test_googlenet_step_at_a_saturated_start_matches_float64(
             "label": torch.tensor([label for _, label in batches[0]])}
     value = topo.apply(wide, {**feed, "image": feed["image"].double()},
                        mode="train", outputs=[cost.name],
-                       generator=torch.Generator())[cost.name].mean()
+                       rng=torch.Generator())[0][cost.name].mean()
     names = sorted(wide)
     grads = dict(zip(names, torch.autograd.grad(
         value, [wide[n] for n in names])))
@@ -431,7 +433,7 @@ def test_concat_matches_jax(kind):
                 else torch.from_numpy(np.array(v)))
             for k, v in jfeed.items()}
     got = topo.apply({k: torch.from_numpy(v) for k, v in np_params.items()},
-                     feed)[out.name]
+                     feed, mode="test")[0][out.name]
     want = want[jout.name]
     if kind == "sequences":
         np.testing.assert_array_equal(got.lengths.numpy(),
@@ -503,11 +505,12 @@ def test_img_cmrnorm_layer_matches_jax_and_refuses_sequences():
     x = np.random.RandomState(2).randn(2, 72).astype(np.float32)
     want = JaxTopology(jout).apply({}, {"image": jnp.asarray(x)})[0][
         jout.name]
-    got = Topology(out).apply({}, {"image": torch.from_numpy(x)})[out.name]
+    got = Topology(out).apply({}, {"image": torch.from_numpy(x)},
+                              mode="test")[0][out.name]
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-6
     seq = SequenceBatch(torch.zeros(2, 3, 72), torch.tensor([3, 1]))
     with pytest.raises(EnforceError, match="not ported yet"):
-        Topology(out).apply({}, {"image": seq})
+        Topology(out).apply({}, {"image": seq}, mode="test")
 
 
 # -- dropout -----------------------------------------------------------------
@@ -525,7 +528,7 @@ def test_dropout_masks_seed_share_scaling_and_test_mode():
 
     def run(seed, mode="train"):
         gen = torch.Generator().manual_seed(seed)
-        return topo.apply({}, {"x": x}, mode=mode, generator=gen)[out.name]
+        return topo.apply({}, {"x": x}, mode=mode, rng=gen)[0][out.name]
 
     a, b, c = run(1), run(1), run(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
@@ -535,8 +538,8 @@ def test_dropout_masks_seed_share_scaling_and_test_mode():
     assert abs(kept.float().mean().item() - 0.7) <= 4 * (0.21 / n) ** 0.5
     torch.testing.assert_close(a[kept], torch.full_like(a[kept], 1 / 0.7))
     # test mode is the identity and needs no generator
-    assert torch.equal(topo.apply({}, {"x": x})[out.name], x)
-    with pytest.raises(EnforceError, match="pass generator="):
+    assert torch.equal(topo.apply({}, {"x": x}, mode="test")[0][out.name], x)
+    with pytest.raises(EnforceError, match="pass rng="):
         topo.apply({}, {"x": x}, mode="train")
 
 
@@ -546,7 +549,7 @@ def test_dropout_keeps_the_compute_dtype_and_an_image_value():
     dtype_mod.set_mixed_precision("bfloat16")
     try:
         y = Topology(out).apply({}, {"x": torch.ones(4, 64)}, mode="train",
-                                generator=gen)[out.name]
+                                rng=gen)[0][out.name]
     finally:
         dtype_mod.set_mixed_precision(None)
     assert y.dtype == torch.bfloat16

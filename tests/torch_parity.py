@@ -16,13 +16,14 @@ import jax.numpy as jnp
 import torch
 
 import paddle_tpu as jpaddle
+from paddle_tpu.core.sequence import NestedSequenceBatch as JaxNested
 from paddle_tpu.core.sequence import SequenceBatch as JaxSequenceBatch
 from paddle_tpu.graph import reset_name_counters as jax_reset_names
 from paddle_tpu.topology import Topology as JaxTopology
 from paddle_tpu.topology import convert_feed as jax_convert_feed
 
 import paddle_tpu_torch as paddle
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import NestedSequenceBatch, SequenceBatch
 from paddle_tpu_torch.graph import reset_name_counters
 from paddle_tpu_torch.topology import Topology, convert_feed
 
@@ -62,12 +63,14 @@ def numpy_params(specs, seed, scale=1.0):
     return out
 
 
+SEQ_TYPES = (SequenceBatch, JaxSequenceBatch, NestedSequenceBatch, JaxNested)
+
+
 def _float_parts(feed, torch_side):
     """{name: the floating tensor of a feed value} (a sequence's data)."""
     parts = {}
     for name, v in feed.items():
-        data = v.data if isinstance(v, (SequenceBatch, JaxSequenceBatch)) \
-            else v
+        data = v.data if isinstance(v, SEQ_TYPES) else v
         floating = (data.is_floating_point() if torch_side
                     else jnp.issubdtype(data.dtype, jnp.floating))
         if floating:
@@ -79,15 +82,24 @@ def _with_parts(feed, parts, seq_cls):
     out = dict(feed)
     for name, data in parts.items():
         v = feed[name]
-        out[name] = seq_cls(data, v.lengths) if isinstance(
-            v, (SequenceBatch, JaxSequenceBatch)) else data
+        if isinstance(v, (NestedSequenceBatch, JaxNested)):
+            out[name] = type(v)(data, v.outer_lengths, v.inner_lengths)
+        elif isinstance(v, (SequenceBatch, JaxSequenceBatch)):
+            out[name] = seq_cls(data, v.lengths)
+        else:
+            out[name] = data
     return out
 
 
 def _masked(value):
-    """A sequence's data with its padding zeroed; anything else as is."""
+    """A sequence's data with its padding zeroed (a nested one's outside
+    its real steps of its real sub-sequences); anything else as is."""
     if isinstance(value, (SequenceBatch, JaxSequenceBatch)):
         return value.masked_data()
+    if isinstance(value, (NestedSequenceBatch, JaxNested)):
+        m = value.inner_mask()
+        return value.data * m.reshape(tuple(m.shape) + (1,) * (
+            value.data.ndim - 3))
     return value
 
 
@@ -127,9 +139,9 @@ def run_both(build, rows, outputs, seed=0, params=None, scale=1.0,
                for k, v in arrays.items()}
     parts = {k: v.clone().requires_grad_(loss)
              for k, v in _float_parts(feed, True).items()}
-    values = topo.apply(tparams, _with_parts(feed, parts, SequenceBatch),
+    values, _ = topo.apply(tparams, _with_parts(feed, parts, SequenceBatch),
                         mode=mode, outputs=outputs,
-                        generator=torch.Generator().manual_seed(0))
+                        rng=torch.Generator().manual_seed(0))
     grads = {}
     if loss:
         _masked(values[outputs[-1]]).float().mean().backward()
