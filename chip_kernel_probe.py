@@ -26,9 +26,9 @@ fwd      lstm_seq_fwd and gru_seq_fwd of the package under ROOT (default:
          versions side by side on one card.
 e2e      the end-to-end phases of ROOT's own chip_smoke.py that the
          recurrent forward kernels serve (the flagship and the tagger,
-         served and trained), and nothing before them: two checkouts'
-         host-bound times compared without the kernel phases each script
-         runs first.
+         served and trained, and the flagship's eager and fused training
+         loop), and nothing before them: two checkouts' host-bound times
+         compared without the kernel phases each script runs first.
 
 Needs one CUDA card and nvcc; exits 2 without a card. ``layouts`` and
 ``grid`` are run when no reading is named.
@@ -254,6 +254,7 @@ def probe_e2e(torch, lk, gk, root):
         smoke.phase_serve_flagship(torch, lk, tmp)
         smoke.phase_serve_tagger(torch, gk, tmp)
         smoke.phase_train_flagship(torch, lk, tmp)
+        smoke.phase_train_loop(torch, lk, tmp)
     smoke.phase_train_tagger(torch, gk)
 
 
@@ -279,6 +280,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if "e2e" in which:
+        # the four recurrent libraries at once, not one by one at first use
+        _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd", "gru_seq_fwd",
+                          "gru_seq_bwd"])
         probe_e2e(torch, lk, gk, root)
     if "fwd" in which:
         probe_fwd(torch, lk, gk, root)

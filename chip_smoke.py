@@ -45,9 +45,13 @@ result line:
            switches are set by.
 5. serve   the flagship text classifier at full width (vocab 30000, emb
            128, 2 x LSTM 256, 2 classes, random weights from a numpy seed)
-           exported as a bundle, served by the batching engine and over
-           HTTP, every answer held against the same bundle run on the CPU,
-           and the kernel's launch count against the dispatched batches.
+           exported as a bundle (one torch.export program per bucket,
+           traced on the card, the kernels inside as the registered ops
+           torch.ops.paddle_tpu_torch.*), served by the batching engine
+           and over HTTP, every answer held against the same bundle run on
+           the CPU, and the kernel's launch count against the dispatched
+           batches. Every serving phase below serves through such
+           programs.
 6. serve   the same model at hidden 1280 (bucket 64, seq_len 100).
 7. train_flagship  the same model plus a label and classification_cost,
            trained by trainer.SGD with Momentum(0.01, 0.9) on the card:
@@ -185,8 +189,10 @@ result line:
            in the same dtype as the library).
 15. serve_resnet  ResNet-50 at full size (224x224, 1000 classes, random
            weights and batch-norm statistics from a numpy seed) exported
-           with buckets 1/8/32, a burst of 8 requests of 1-4 images through
-           the engine and 2 HTTP requests of 1 image, every probability
+           with the buckets it serves, 1 and 32 (an exported program is a
+           few seconds of tracing and loading a bucket), a burst of 8
+           requests of 1-4 images through the engine (one batch) and 2 HTTP
+           requests of 1 image, every probability
            held against the same bundle on the CPU, and K7's launches
            against 46 per dispatched batch.
 16. train_resnet  ResNet-50 plus a label and classification_cost, trained
@@ -229,8 +235,9 @@ result line:
            one bucket-32 forward, fp and int8.
 19. serve_resnet_int8  ResNet-50 at 224 exported int8 (buckets 1/8), a
            burst of 4 requests of 1-2 images and 1 HTTP request, against the
-           same bundle on the CPU and the fp bundle on the card (drift <=
-           0.05; the argmax agreement reported, not held), exactly 1 K9 and
+           same bundle on the CPU and the fp bundle on the card (bucket 8
+           only; drift <= 0.05; the argmax agreement reported, not held),
+           exactly 1 K9 and
            46 K7 launches per dispatched batch, the resident bytes and
            the time of one bucket-8 forward, fp and int8.
 20. kernel_conv_googlenet  K7 forward, K7 data gradient and K8 (as
@@ -314,7 +321,10 @@ result line:
            --model lstm (dict 5000, emb 128, hidden 128, batch 64, 3
            passes), seq2seq --dict-size 30000 (emb 64, hidden 128, batch
            32, 3 passes, beam 4), traffic_prediction (GRU 64) and
-           fit_a_line --export "" (no kernel); each demo's success lines,
+           fit_a_line at its default --export (the demo exports its
+           trained regressor as a bundle in the phase's working directory
+           and holds the reloaded bundle against live inference; no
+           kernel); each demo's success lines,
            finite costs, ms per batch (median between EndIterations, each
            after a synchronize), the training steps' launches held against
            one step's (2 K7 and 1 K8 per VGG-16 conv in the kernels'
@@ -412,6 +422,36 @@ result line:
 34. checkgrad  ``cli checkgrad`` on the bidirectional-LSTM v1 config
            (dict 50, emb 8, hidden 8, batch 4) on the card, in float64
            (the recurrent layers' step loops): "checkgrad PASSED".
+    serve_aot  (after serve_resnet_int8) four bundles exported on the
+           card: the flagship at seq_len 100, buckets 1/8/32, fp and int8;
+           the tagger (seq_len 128, buckets 1/8/32, decode_slots 48, window
+           6); ResNet-50 at 224, bucket 8. Each is loaded in a fresh process
+           on the card (the four at once) that blocks the port's graph,
+           topology, layer, network, model, config and inference modules,
+           serves every bucket once (and one decode window) and prints its
+           launch counts per batch: 2 K1 (and 3 K9 int8), 1 K5, 46 K7. The
+           answers are held against eager Topology.apply of the same
+           parameters on the card (1e-5) and the same bundle on the CPU
+           (1e-4 of each output's largest entry). Reported: seconds to
+           export and save each bucket, to open the bundle, to deserialize
+           each program and for each first call; ms per batch of the
+           program and of the eager forward at the largest bucket (median
+           of 20, synchronized) and the card's idle share of each; a
+           flagship exported under the bfloat16 policy, served here with
+           the policy off (manifest bfloat16, within 1e-2 of the eager
+           bfloat16 forward); and each op (K1, K5, K7, K9) at its served
+           shape against its plain version, its time, bound and library
+           time, and the host microseconds per call of the op against the
+           direct wrapper (the dispatcher's cost).
+    serve_observe  ``cli serve`` of the flagship bundle in a subprocess on
+           the card (--slo-p99-ms 50 --autotune --max-queue-rows 256): 200
+           requests of 1-8 rows one at a time, each with a traceparent,
+           sampled and unsampled in turn (p50/p99 of each), then bursts of
+           96 requests of 32 rows at once until one is shed; /metrics
+           counts exactly the requests and rows served and every 429,
+           /debug/traces and the serve_trace records' phases sum to their
+           latency within 5 %, /debug/slo and /debug/control answer, every
+           answer is within 1e-5 of Bundle.infer.
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -420,13 +460,16 @@ result line:
            512), K5 also at the decode window; K1 and K2 also inside the
            train_loop phase's captured graphs; each also at the demos'
            shapes, and K1/K2, K5/K6 and K7/K8 at the v1_text and
-           mixed_conv phases', K1/K2 at nested_text's), then the
+           mixed_conv phases', K1/K2 at nested_text's; K1, K5, K7 and K9
+           also as the ops inside serve_aot's loaded programs, with the
+           fresh processes' launches), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
 Needs one CUDA card; exits 2 without one.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -597,13 +640,11 @@ TOL_CONV_BWDW = 1e-4
 # them for the vision bench rows, trained at batch 128; their stride-1 convs
 # in the kernels' family (47 and 3) are read from the models' topologies
 GOOGLENET = {"num_classes": 1000}
-GOOGLENET_BUILDER = "paddle_tpu_torch.models.vision:googlenet"
 ALEXNET = {"num_classes": 1000}
-ALEXNET_BUILDER = "paddle_tpu_torch.models.vision:alexnet"
-# name: (builder, config, image side, kernel-family convs, output layer)
+# name: (config, image side, kernel-family convs, output layer)
 VISION_NETS = {
-    "googlenet": (GOOGLENET_BUILDER, GOOGLENET, 224, 47, "goog_out"),
-    "alexnet": (ALEXNET_BUILDER, ALEXNET, 227, 3, "alex_fc8")}
+    "googlenet": (GOOGLENET, 224, 47, "goog_out"),
+    "alexnet": (ALEXNET, 227, 3, "alex_fc8")}
 VISION_BATCH, VISION_STEPS = 128, 10
 # the BiLSTM-CRF tagger of benchmark/harness.py:425-473 (the tagging bench
 # row: batch 32, length 60, Momentum(2e-3, 0.9))
@@ -1392,22 +1433,53 @@ def random_request(rng, rows, seq_len, vocab):
             "word:lens": lens}
 
 
+def build_model(builder, kwargs):
+    """The output layer ``builder`` ("module:function") builds from
+    ``kwargs``, with fresh name counters."""
+    import importlib
+
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    module, _, function = builder.partition(":")
+    reset_name_counters()
+    return getattr(importlib.import_module(module), function)(**kwargs)
+
+
+def on_card(params):
+    """``params`` (a Parameters) moved to the card."""
+    from paddle_tpu_torch.parameters import Parameters
+
+    return Parameters({k: v.to(DEVICE) for k, v in params.as_dict().items()},
+                      {k: params.spec(k) for k in params.names()
+                       if params.spec(k) is not None})
+
+
 def export(tmp, sub, kwargs, batch_sizes, seq_len, builder=BUILDER,
            params=numpy_params, seed=SEED, quantize=None, decode_slots=None,
            decode_window=None):
     """Export the model ``builder`` builds with ``params(topology, seed)``
-    into ``tmp/sub``; returns the bundle directory."""
-    from paddle_tpu_torch.serve.bundle import build_outputs
-    from paddle_tpu_torch.serve.export import export_bundle, parse_builder
+    into ``tmp/sub``, traced on the card with the parameters there, its
+    programs for the card and the CPU; returns the bundle directory."""
+    from paddle_tpu_torch.serve.export import export_bundle
     from paddle_tpu_torch.topology import Topology
 
-    builder = parse_builder(builder, kwargs)
+    out = build_model(builder, kwargs)
     out_dir = os.path.join(tmp, sub)
-    export_bundle(builder, params(Topology(build_outputs(builder)), seed),
-                  out_dir, batch_sizes=batch_sizes, seq_len=seq_len,
-                  quantize=quantize, decode_slots=decode_slots,
-                  decode_window=decode_window)
+    export_bundle(out, on_card(params(Topology(out), seed)), out_dir,
+                  batch_sizes=batch_sizes, seq_len=seq_len,
+                  platforms=("cpu", "cuda"), quantize=quantize,
+                  decode_slots=decode_slots, decode_window=decode_window)
     return out_dir
+
+
+def infer_all(bundle, inputs):
+    """``bundle``'s answer for every row of ``inputs``, in chunks of its
+    largest bucket (test-mode rows are independent)."""
+    rows = len(next(iter(inputs.values())))
+    step = bundle.max_batch()
+    parts = [bundle.infer({k: v[lo:lo + step] for k, v in inputs.items()})
+             for lo in range(0, rows, step)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 def check_close(got, want, what):
@@ -1529,7 +1601,7 @@ def phase_serve_wide(torch, lk, tmp):
     from paddle_tpu_torch.serve import InferenceEngine, load_bundle
 
     kwargs = dict(FLAGSHIP, hidden=1280)
-    bundle_dir = export(tmp, "h1280", kwargs, (64,), 100)
+    bundle_dir = export(tmp, "h1280", kwargs, (8, 64), 100)
     cpu = load_bundle(bundle_dir, device="cpu")
     bundle = load_bundle(bundle_dir, device=DEVICE)
     rng = np.random.RandomState(SEED + 1)
@@ -1637,26 +1709,17 @@ def arrival_trace(n, qps, seed, vocab=TAGGER["dict_size"]):
                       for k in lengths]
 
 
-def whole_answers(torch, bundle, seqs, output="gru_tag_out"):
+def whole_answers(bundle, seqs, output="gru_tag_out"):
     """``bundle``'s whole-request answer for each sequence alone: its
-    forward over 32 sequences at a time, padded to the longest (padding
-    is masked, so each answer is that of the sequence alone, at any
-    length), on the bundle's device."""
-    from paddle_tpu_torch.core.sequence import SequenceBatch
-
-    out = []
-    for lo in range(0, len(seqs), 32):
-        part = seqs[lo:lo + 32]
-        ids = np.zeros((len(part), max(len(q) for q in part)), np.int32)
-        for i, q in enumerate(part):
-            ids[i, :len(q)] = q
-        lens = np.array([len(q) for q in part], np.int32)
-        val = bundle.topology.apply(bundle.params, {"word": SequenceBatch(
-            torch.from_numpy(ids).to(bundle.device),
-            torch.from_numpy(lens).to(bundle.device))}, mode="test")[0][output]
-        data = val.data.float().cpu().numpy()
-        out += [data[i, :len(q)] for i, q in enumerate(part)]
-    return out
+    exported forward over its largest bucket of sequences at a time,
+    padded to its seq_len (padding is masked, so each answer is that of
+    the sequence alone), on the bundle's device."""
+    ids = np.zeros((len(seqs), bundle.seq_len), np.int32)
+    for i, q in enumerate(seqs):
+        ids[i, :len(q)] = q
+    lens = np.array([len(q) for q in seqs], np.int32)
+    data = infer_all(bundle, {"word": ids, "word:lens": lens})[output]
+    return [data[i, :len(q)] for i, q in enumerate(seqs)]
 
 
 def check_all(got, want, what):
@@ -1901,7 +1964,7 @@ def open_loop_ab(torch, gk, fp, fp_cpu, tmp):
     from paddle_tpu_torch.serve import ContinuousScheduler, InferenceEngine
 
     arrivals, seqs = arrival_trace(CONT_TRACE, CONT_QPS, SEED + 31)
-    want = whole_answers(torch, fp_cpu, seqs)
+    want = whole_answers(fp_cpu, seqs)
     padded = []
     for q in seqs:
         ids = np.zeros((1, TAGGER_SEQ), np.int32)
@@ -1970,7 +2033,7 @@ def run_sessions(torch, fp, fp_cpu):
     _, chunks = arrival_trace(CONT_SESSIONS * CONT_CHUNKS, CONT_QPS,
                               SEED + 32)
     sessions = [chunks[k::CONT_SESSIONS] for k in range(CONT_SESSIONS)]
-    want = whole_answers(torch, fp_cpu, [np.concatenate(c) for c in sessions])
+    want = whole_answers(fp_cpu, [np.concatenate(c) for c in sessions])
     got = {}
     sched = ContinuousScheduler(fp, metrics_registry=MetricsRegistry(),
                                 max_queue=None,
@@ -2039,7 +2102,7 @@ def session_gone_and_http(torch, fp, fp_cpu):
 
     _, chunks = arrival_trace(3, CONT_QPS, SEED + 33)
     whole = np.concatenate(chunks)
-    want = whole_answers(torch, fp_cpu, [whole])[0]
+    want = whole_answers(fp_cpu, [whole])[0]
     sched = ContinuousScheduler(fp, metrics_registry=MetricsRegistry(),
                                 max_queue=None, session_capacity=1)
     server, thread = serve_in_thread(fp, sched)
@@ -2095,7 +2158,6 @@ def generation(torch, gk, tmp):
     whole-request forward of the full sequence; the tokens equal the
     CPU's up to the first step whose CPU top-two probabilities lie within
     TIE_GAP; ``cli generate --json`` in process prints the same tokens."""
-    import contextlib
     import io
 
     from paddle_tpu_torch import cli
@@ -2117,11 +2179,11 @@ def generation(torch, gk, tmp):
         raise AssertionError("generate: %d K5 launches for %d windows"
                              % (launches, windows))
     full = GEN_PRIME + out["generated"]
-    dist = whole_answers(torch, card, [np.array(full, np.int32)])[0]
+    dist = whole_answers(card, [np.array(full, np.int32)])[0]
     broken = [t for t in range(len(GEN_PRIME) - 1, len(full) - 1)
               if int(dist[t].argmax()) != full[t + 1]]
     want = generate(cpu, GEN_PRIME, GEN_STEPS)["generated"]
-    cpu_dist = whole_answers(torch, cpu, [np.array(GEN_PRIME + want,
+    cpu_dist = whole_answers(cpu, [np.array(GEN_PRIME + want,
                                                np.int32)])[0]
     tie = None
     for k in range(GEN_STEPS):
@@ -2166,7 +2228,7 @@ def phase_serve_continuous(torch, gk, ik, lk, tmp):
     q8, q8_cpu = (load_bundle(dirs["int8"], device=d)
                   for d in (DEVICE, "cpu"))
     _, seqs = arrival_trace(CONT_SEQS, CONT_QPS, SEED + 30)
-    want = whole_answers(torch, fp_cpu, seqs)
+    want = whole_answers(fp_cpu, seqs)
     gk.reset_launches()  # the main path starts here (the warmup included)
     ik.reset_launches()
     fp_got, fp_run = run_continuous(gk, fp, seqs, tmp, "fp")
@@ -2193,7 +2255,7 @@ def phase_serve_continuous(torch, gk, ik, lk, tmp):
     agreement = float(np.mean(np.concatenate(
         [a.argmax(-1) == b.argmax(-1) for a, b in zip(q8_got, fp_got)])))
     q8_run.update(
-        max_abs_err_vs_cpu=check_all(q8_got, whole_answers(torch, q8_cpu, seqs),
+        max_abs_err_vs_cpu=check_all(q8_got, whole_answers(q8_cpu, seqs),
                                      "int8 continuous"),
         k5_launches=q8_launches[0], k9_launches=q8_launches[1],
         drift_vs_fp=drift, argmax_agreement_vs_fp=agreement,
@@ -2399,7 +2461,6 @@ def phase_train_flagship(torch, lk, tmp):
     from paddle_tpu_torch.core import dtype as dtype_mod
     from paddle_tpu_torch.inference import infer
     from paddle_tpu_torch.serve import load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
 
     rig = flagship_rig(256, SEED + 2)
     vocab = FLAGSHIP["dict_size"]
@@ -2433,8 +2494,7 @@ def phase_train_flagship(torch, lk, tmp):
     bf16_err = float(np.abs(np.subtract(costs16, costs)).max())
     # the trained f32 parameters served from a bundle on the card
     bundle_dir = os.path.join(tmp, "trained")
-    card.export_inference_bundle(parse_builder(BUILDER, FLAGSHIP),
-                                 bundle_dir, batch_sizes=(8,),
+    card.export_inference_bundle(rig.out, bundle_dir, batch_sizes=(8,),
                                  seq_len=TRAIN_SEQ)
     bundle = load_bundle(bundle_dir, device=DEVICE)
     req = random_request(np.random.RandomState(SEED + 5), 8, TRAIN_SEQ,
@@ -2816,7 +2876,6 @@ def cli_call(cli, argv, built=None):
     """``cli.main(argv)`` in process; returns (rc, stdout, the trainers it
     built). The trainers also go into ``built`` when given, so a caller
     that expects the command to raise still gets them."""
-    import contextlib
     import io
 
     built, build = [] if built is None else built, cli._build
@@ -3593,15 +3652,9 @@ def resnet_images(rng, rows):
 def phase_serve_resnet(torch, ck, tmp):
     from paddle_tpu_torch.serve import (InferenceEngine, load_bundle,
                                         serve_in_thread)
-    from paddle_tpu_torch.serve.bundle import build_outputs
-    from paddle_tpu_torch.serve.export import export_bundle, parse_builder
-    from paddle_tpu_torch.topology import Topology
 
-    builder = parse_builder(RESNET_BUILDER, RESNET)
-    bundle_dir = os.path.join(tmp, "resnet")
-    export_bundle(builder, resnet_params(Topology(build_outputs(builder)),
-                                         SEED + 20),
-                  bundle_dir, batch_sizes=(1, 8, 32))
+    bundle_dir = export(tmp, "resnet", RESNET, (1, 32), None,
+                        RESNET_BUILDER, resnet_params, SEED + 20)
     bundle = load_bundle(bundle_dir, device=DEVICE)
     rng = np.random.default_rng(SEED + 21)
     ck.reset_launches()  # the main path starts here (engine warmup included)
@@ -3632,7 +3685,7 @@ def phase_serve_resnet(torch, ck, tmp):
     # the CPU answers in one batch: test-mode rows are independent
     rows = np.concatenate([r["image"] for r in reqs])
     cpu = load_bundle(bundle_dir, device="cpu")
-    want = cpu.run({"image": rows}, len(rows))["res_out"]
+    want = infer_all(cpu, {"image": rows})["res_out"]
     err = check_close(np.concatenate(got), want, "resnet50 served")
     dispatched = stats["warmup_batches"] + stats["batches"]
     row = {"phase": "serve_resnet", "config": RESNET,
@@ -3778,7 +3831,7 @@ def phase_serve_resnet_int8(torch, ik, ck, tmp):
     and the fp bundle on the card."""
     from paddle_tpu_torch.serve import InferenceEngine, load_bundle
 
-    fp_dir = export(tmp, "resnet_fp", RESNET, (1, 8), None, RESNET_BUILDER,
+    fp_dir = export(tmp, "resnet_fp", RESNET, (8,), None, RESNET_BUILDER,
                     resnet_params, SEED + 20)
     q_dir = export(tmp, "resnet_int8", RESNET, (1, 8), None, RESNET_BUILDER,
                    resnet_params, SEED + 20, quantize="int8")
@@ -3800,10 +3853,9 @@ def phase_serve_resnet_int8(torch, ik, ck, tmp):
     # independent
     rows = {"image": np.concatenate([r["image"] for r in reqs])}
     got = np.concatenate(got)
-    err = check_close(got, load_bundle(q_dir, device="cpu").run(
-        rows, len(rows["image"]))["res_out"], "int8 resnet50")
-    agreement, drift = accuracy_gate(
-        got, fp.run(rows, len(rows["image"]))["res_out"])
+    err = check_close(got, infer_all(load_bundle(q_dir, device="cpu"),
+                                     rows)["res_out"], "int8 resnet50")
+    agreement, drift = accuracy_gate(got, infer_all(fp, rows)["res_out"])
     full = {"image": resnet_images(rng, 8)}
     quantized = bundle.quantization["params"]
     row = {"phase": "serve_resnet_int8", "config": RESNET,
@@ -3884,13 +3936,664 @@ def check_conv_launches(ck, steps, what, convs=46):
     return k7, k8
 
 
+# -- phases serve_aot and serve_observe: the AOT bundle, its observability --
+
+# the bundles serve_aot exports on the card and loads in fresh processes:
+# (name, builder, config, buckets, seq_len, params, seed, quantize, decode
+# slots); the flagship at seq_len 100 as the bench row serves it
+AOT_SEQ = 100
+AOT_BUNDLES = [
+    ("flagship", BUILDER, FLAGSHIP, (1, 8, 32), AOT_SEQ, "numpy", SEED + 40,
+     None, None),
+    ("flagship_int8", BUILDER, FLAGSHIP, (1, 8, 32), AOT_SEQ, "numpy",
+     SEED + 40, "int8", None),
+    ("tagger", TAGGER_BUILDER, TAGGER, (1, 8, 32), TAGGER_SEQ, "numpy",
+     SEED + 41, None, (CONT_SLOTS,)),
+    ("resnet", RESNET_BUILDER, RESNET, (8,), None, "resnet", SEED + 20,
+     None, None)]
+# launches per served batch inside an exported program, by kernel: K1 per
+# LSTM layer, K9 per int8 fc, K5 per GRU layer, K7 per stride-1 SAME conv
+AOT_LAUNCHES = {"flagship": {"k1": 2, "k5": 0, "k7": 0, "k9": 0},
+                "flagship_int8": {"k1": 2, "k5": 0, "k7": 0, "k9": 3},
+                "tagger": {"k1": 0, "k5": 1, "k7": 0, "k9": 0},
+                "resnet": {"k1": 0, "k5": 0, "k7": 46, "k9": 0}}
+TOL_AOT_EAGER = 1e-5     # the loaded program against eager apply, the card
+TOL_AOT_CPU = 1e-4       # the card against the CPU, of the largest entry
+TOL_AOT_BF16 = 1e-2      # the bf16 program against the eager bf16 forward
+AOT_TIMED = 20           # synchronized calls timed per bundle
+AOT_DISPATCH_CALLS = 50  # unsynchronized calls per dispatch reading
+# serve_observe: the flagship bundle behind ``cli serve`` in a subprocess
+OBSERVE_REQUESTS = 200
+OBSERVE_QUEUE_ROWS = 256
+OBSERVE_BURST, OBSERVE_BURST_ROWS, OBSERVE_BURST_TRIES = 96, 32, 5
+TOL_TRACE_SUM = 0.05
+
+# the fresh process of serve_aot: the port's graph modules blocked, one
+# bundle loaded on the card, every bucket served once (and one decode
+# window), each batch's launches read from the kernel modules' counters
+AOT_LOADER = r'''
+import json
+import sys
+import time
+
+FORBIDDEN = tuple("paddle_tpu_torch." + m for m in (
+    "graph", "topology", "layer", "networks", "models", "config",
+    "inference"))
+
+
+class GraphImportBlocker:
+    def find_spec(self, name, path=None, target=None):
+        if name in FORBIDDEN or any(name.startswith(f + ".")
+                                    for f in FORBIDDEN):
+            raise ImportError("bundle loading must not rebuild the graph: "
+                              "import of %r" % name)
+        return None
+
+
+sys.meta_path.insert(0, GraphImportBlocker())
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.ops import (conv_kernels, gru_kernels, int8_kernels,
+                                  lstm_kernels)
+from paddle_tpu_torch.serve import load_bundle
+
+KERNELS = {"k1": lstm_kernels, "k5": gru_kernels, "k7": conv_kernels,
+           "k9": int8_kernels}
+job = json.loads(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+bundle = load_bundle(job["bundle"], device="cuda")
+report = {"open_s": time.perf_counter() - t0, "batches": {}}
+
+
+def served(fn):
+    for kernels in KERNELS.values():
+        kernels.reset_launches()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t1, {
+        k: m.launches for k, m in KERNELS.items()}
+
+
+for batch in bundle.batch_sizes():
+    with np.load(job["inputs"] % batch) as data:
+        inputs = {k: data[k] for k in data.files}
+    out, first_s, launches = served(lambda: bundle.run(inputs, batch))
+    np.savez(job["outputs"] % batch, **out)
+    report["batches"][str(batch)] = {"first_call_s": first_s,
+                                     "launches": launches}
+if job["decode"]:
+    with np.load(job["decode"]) as data:
+        flat = {k: data[k] for k in data.files}
+    (carry, outs), first_s, launches = served(
+        lambda: bundle.decode_step(bundle.zero_carry(), flat))
+    out = {k: v.cpu().numpy() for k, v in outs.items()}
+    out.update({"carry:%s:%d" % (layer, i): leaf.cpu().numpy()
+                for layer, leaves in carry.items()
+                for i, leaf in enumerate(leaves)})
+    np.savez(job["decode_outputs"], **out)
+    report["decode"] = {"first_call_s": first_s, "launches": launches}
+report["deserialize_s"] = bundle.load_seconds
+report["graph_modules_imported"] = sorted(
+    m for m in sys.modules if m.startswith(FORBIDDEN))
+print(json.dumps(report))
+'''
+
+
+def aot_inputs(name, batch, rng):
+    if name.startswith("flagship"):
+        return random_request(rng, batch, AOT_SEQ, FLAGSHIP["dict_size"])
+    if name == "tagger":
+        return tagger_request(rng, batch)
+    return {"image": resnet_images(np.random.default_rng(SEED + batch),
+                                   batch)}
+
+
+def aot_decode_flat(bundle, rng):
+    """One decode window of the tagger bundle: every slot admitted (reset
+    1) with 1-6 steps of random ids."""
+    flat = bundle.dummy_decode_flat()
+    flat["word"][:] = rng.randint(0, TAGGER["dict_size"],
+                                  flat["word"].shape)
+    flat["lens"][:] = rng.randint(1, CONT_WINDOW + 1, flat["lens"].shape)
+    flat["reset"][:] = 1.0
+    return flat
+
+
+def worst_error(got, want, relative=False):
+    """max over the outputs of max |got - want| (over max |want| of each
+    output with ``relative``)."""
+    worst = 0.0
+    for key, w in want.items():
+        w = np.asarray(w, np.float32)
+        err = float(np.abs(np.asarray(got[key], np.float32) - w).max())
+        worst = max(worst, err / max(float(np.abs(w).max()), 1e-30)
+                    if relative else err)
+    return worst
+
+
+def host_numpy(out):
+    return {k: (v.float() if v.dtype.is_floating_point else v).cpu().numpy()
+            for k, v in out.items()}
+
+
+def synced_ms(torch, fn, reps=AOT_TIMED):
+    """Median wall ms of ``reps`` calls of ``fn``, each followed by a
+    synchronize, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def idle_share(torch, fn, reps=AOT_TIMED):
+    """The card's idle share of the wall over ``reps`` calls of ``fn``
+    (observe/attribution.py, torch.profiler's kernel intervals)."""
+    from paddle_tpu_torch.observe import attribution
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    trace = attribution.capture(run, torch.cuda.synchronize)
+    return attribution.step_profile(trace, reps)["idle_share"]
+
+
+def dispatch_us(torch, fn, calls=AOT_DISPATCH_CALLS):
+    """Host microseconds per call of ``fn`` over ``calls`` calls that are
+    not synchronized (the card runs behind; the host's cost alone)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def aot_op_rows(torch, ck, gk, ik, lk, launches):
+    """Each kernel's registered op at the shape the exported programs give
+    it (K1 at the flagship's bucket 32, K5 at the tagger's, K7 at
+    ResNet-50's first 3x3 conv at bucket 8, K9 at the int8 flagship's
+    first fc at bucket 32): the op against the plain version (max |err|
+    over max(1, max |want|), within TOL_F32), its time (CUDA events behind
+    a sleep kernel), the bound, the library call where there is one, and
+    the host microseconds per call of the op against the direct wrapper
+    (``_launch_fwd`` / ``_launch``); ``launches`` are the fresh
+    processes' counts, summed over the served batches and the decode
+    window."""
+    rows = []
+    f32 = torch.float32
+    args = kernel_inputs(torch, AOT_SEQ, 32, 256, f32, SEED + 42)
+    gargs = gru_inputs(torch, TAGGER_SEQ, 32, 256, f32, SEED + 43)
+    x, w, _ = conv_inputs(torch, (8, 56, 56, 64, 64, 3), f32, SEED + 44)
+    m, k, n = (32 * AOT_SEQ, FLAGSHIP["emb_size"], 4 * FLAGSHIP["hidden"])
+    xq, wq, scale = int8_inputs(torch, m, k, n, f32, SEED + 45)
+    ops = torch.ops.paddle_tpu_torch
+    F = torch.nn.functional
+    cases = [
+        ("lstm_seq_fwd", "K1", "paddle_tpu/ops/pallas_kernels.py:146",
+         [AOT_SEQ, 32, 256], lambda: ops.lstm_seq_fwd(*args),
+         lambda: lk._launch_fwd(args, None),
+         lambda: lk.lstm_seq_fwd_reference(*args), None,
+         lstm_bound_ms(AOT_SEQ, 32, 256, "float32"), launches["k1"]),
+        ("gru_seq_fwd", "K5", "paddle_tpu/ops/pallas_kernels.py:668",
+         [TAGGER_SEQ, 32, 256], lambda: ops.gru_seq_fwd(*gargs),
+         lambda: gk._launch_fwd(gargs, None),
+         lambda: gk.gru_seq_fwd_reference(*gargs), None,
+         gru_bound_ms(TAGGER_SEQ, 32, 256, "float32"), launches["k5"]),
+        ("conv2d_same_fwd", "K7", "paddle_tpu/ops/pallas_conv.py:175",
+         [8, 56, 56, 64, 64, 3], lambda: ops.conv2d_same_fwd(x, w),
+         lambda: ck._launch_fwd(x, w),
+         lambda: ck.conv2d_same_reference(x, w),
+         lambda: F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                          padding=1),
+         conv_bound_ms(4 * (8 * 56 * 56 * 64 * 2 + 9 * 64 * 64),
+                       2.0 * 8 * 56 * 56 * 9 * 64 * 64, "float32"),
+         launches["k7"]),
+        ("int8_matmul", "K9", "paddle_tpu/ops/pallas_kernels.py:908",
+         [m, k, n], lambda: ops.int8_matmul(xq, wq, scale),
+         lambda: ik._launch(xq, wq, scale),
+         lambda: ik.int8_matmul_reference(xq, wq, scale),
+         lambda: torch.matmul(xq, wq.to(f32) * scale),
+         conv_bound_ms(4 * m * k + k * n + 4 * n + 4 * m * n,
+                       2.0 * m * k * n, "float32"), launches["k9"])]
+    for (kernel, tag, replaces, shape, op, direct, plain, library,
+         (bound, bound_by), count) in cases:
+        got = op()
+        want = plain()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        err = max(rel_error(g, w) for g, w in zip(got, want))
+        row = {"phase": "serve_aot", "check": "op", "kernel": kernel,
+               "tag": tag, "replaces": replaces, "shape": shape,
+               "dtype": "float32", "max_abs_err": err,
+               "ms": time_ms(torch, op, queue_ahead=True),
+               "plain_ms": time_ms(torch, plain, reps=3),
+               "library_ms": (time_ms(torch, library, queue_ahead=True)
+                              if library else None),
+               "bound_ms": bound, "bound_by": bound_by,
+               "host_us_op": dispatch_us(torch, op),
+               "host_us_direct": dispatch_us(torch, direct),
+               "launches": count}
+        row["dispatch_us"] = row["host_us_op"] - row["host_us_direct"]
+        emit(row)
+        if not err <= TOL_F32:
+            raise AssertionError("%s op disagrees with its plain version: "
+                                 "%r" % (kernel, row))
+        rows.append(row)
+    return rows
+
+
+def aot_entry(row, name):
+    """The kernels-line entry of an op row of serve_aot."""
+    source = ("conv2d_same_fwd" if row["kernel"] == "conv2d_same_fwd"
+              else row["kernel"])
+    return {"name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/%s.cu" % source,
+            "replaces": row["replaces"], "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"],
+            "path": "inside a loaded torch.export program, dispatch "
+                    "%.1f us a call" % row["dispatch_us"]}
+
+
+def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
+    """serve_aot (module docstring)."""
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.serve import export as export_mod
+    from paddle_tpu_torch.serve import load_bundle
+    from paddle_tpu_torch.topology import Topology
+
+    rng = np.random.RandomState(SEED + 46)
+    params_of = {"numpy": numpy_params, "resnet": resnet_params}
+    jobs, bundles, export_s = {}, {}, {}
+    for (name, builder, config, buckets, seq_len, params, seed, quantize,
+         slots) in AOT_BUNDLES:
+        out = build_model(builder, config)
+        out_dir = os.path.join(tmp, "aot_" + name)
+        t0 = time.perf_counter()
+        export_mod.export_bundle(
+            out, on_card(params_of[params](Topology(out), seed)), out_dir,
+            batch_sizes=buckets, seq_len=seq_len, platforms=("cpu", "cuda"),
+            quantize=quantize, decode_slots=slots,
+            decode_window=CONT_WINDOW if slots else None)
+        export_s[name] = {"total_s": time.perf_counter() - t0,
+                          **export_mod.last_export_seconds}
+        card = load_bundle(out_dir, device=DEVICE)
+        bundles[name] = (out, card, load_bundle(out_dir, device="cpu"))
+        job = {"bundle": out_dir,
+               "inputs": os.path.join(tmp, "aot_%s_in_%%d.npz" % name),
+               "outputs": os.path.join(tmp, "aot_%s_out_%%d.npz" % name),
+               "decode": None}
+        for batch in buckets:
+            np.savez(job["inputs"] % batch, **aot_inputs(name, batch, rng))
+        if slots:
+            job["decode"] = os.path.join(tmp, "aot_%s_flat.npz" % name)
+            job["decode_outputs"] = os.path.join(tmp,
+                                                 "aot_%s_dec.npz" % name)
+            np.savez(job["decode"], **aot_decode_flat(card, rng))
+        jobs[name] = job
+    # each bundle in a fresh process on the card, the four at once
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", AOT_LOADER, json.dumps(job)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for name, job in jobs.items()}
+    reports = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError("serve_aot: the fresh process of %s failed "
+                                 "(exit %d): %s" % (name, proc.returncode,
+                                                    stderr[-3000:]))
+        reports[name] = json.loads(stdout.strip().splitlines()[-1])
+    launches = dict.fromkeys(("k1", "k5", "k7", "k9"), 0)
+    rows = {}
+    for name, (out, card, cpu) in bundles.items():
+        report, job = reports[name], jobs[name]
+        topology = Topology(out)
+        names = [o["name"] for o in card.outputs]
+        forward = export_mod._make_forward(topology, card.inputs, names,
+                                           card.quantization)
+        eager_err = cpu_err = 0.0
+        faults = list(report["graph_modules_imported"])
+        for batch in card.batch_sizes():
+            with np.load(job["inputs"] % batch) as data:
+                inputs = {k: data[k] for k in data.files}
+            with np.load(job["outputs"] % batch) as data:
+                got = {k: data[k] for k in data.files}
+            with torch.inference_mode():
+                eager = host_numpy(forward(card.params,
+                                           card.device_inputs(inputs)))
+            eager_err = max(eager_err, worst_error(got, eager))
+            cpu_err = max(cpu_err, worst_error(
+                got, cpu.run(inputs, batch), relative=True))
+            counts = report["batches"][str(batch)]["launches"]
+            for key in launches:
+                launches[key] += counts[key]
+            if counts != AOT_LAUNCHES[name]:
+                faults.append("bucket %d launched %r, want %r"
+                              % (batch, counts, AOT_LAUNCHES[name]))
+        row = {"phase": "serve_aot", "check": "bundle", "bundle": name,
+               "buckets": card.batch_sizes(), "seq_len": card.seq_len,
+               "export_s": export_s[name],
+               "open_s": report["open_s"],
+               "deserialize_s": report["deserialize_s"],
+               "first_call_s": {b: r["first_call_s"]
+                                for b, r in report["batches"].items()},
+               "launches_per_batch": {b: r["launches"]
+                                      for b, r in report["batches"].items()},
+               "max_abs_err_vs_eager": eager_err,
+               "max_rel_err_vs_cpu": cpu_err}
+        if job["decode"]:
+            with np.load(job["decode"]) as data:
+                flat = {k: data[k] for k in data.files}
+            with np.load(job["decode_outputs"]) as data:
+                got = {k: data[k] for k in data.files}
+            step = export_mod._make_decode_step(
+                topology, [s for s in card.inputs], names, card.quantization)
+            with torch.inference_mode():
+                carry, outs = step(card.params, card.zero_carry(),
+                                   card.device_inputs(flat))
+            eager = host_numpy(outs)
+            eager.update({"carry:%s:%d" % (layer, i): leaf.cpu().numpy()
+                          for layer, leaves in carry.items()
+                          for i, leaf in enumerate(leaves)})
+            ccarry, couts = cpu.decode_step(cpu.zero_carry(), flat)
+            on_cpu = host_numpy(couts)
+            on_cpu.update({"carry:%s:%d" % (layer, i): leaf.numpy()
+                           for layer, leaves in ccarry.items()
+                           for i, leaf in enumerate(leaves)})
+            row["decode"] = {
+                "first_call_s": report["decode"]["first_call_s"],
+                "launches": report["decode"]["launches"],
+                "max_abs_err_vs_eager": worst_error(got, eager),
+                "max_rel_err_vs_cpu": worst_error(got, on_cpu,
+                                                  relative=True)}
+            row["max_abs_err_vs_eager"] = max(
+                eager_err, row["decode"]["max_abs_err_vs_eager"])
+            row["max_rel_err_vs_cpu"] = max(
+                cpu_err, row["decode"]["max_rel_err_vs_cpu"])
+            launches["k5"] += report["decode"]["launches"]["k5"]
+            if report["decode"]["launches"] != AOT_LAUNCHES[name]:
+                faults.append("the decode window launched %r"
+                              % report["decode"]["launches"])
+        # the largest bucket, program against eager, on the card
+        batch = card.max_batch()
+        with np.load(job["inputs"] % batch) as data:
+            feed = card.device_inputs({k: data[k] for k in data.files})
+        program = card.program(batch)
+
+        def run_program():
+            with torch.inference_mode():
+                program(card.params, feed)
+
+        def run_eager():
+            with torch.inference_mode():
+                forward(card.params, feed)
+
+        row.update({"timed_bucket": batch,
+                    "program_ms": synced_ms(torch, run_program),
+                    "eager_ms": synced_ms(torch, run_eager),
+                    "program_idle_share": idle_share(torch, run_program),
+                    "eager_idle_share": idle_share(torch, run_eager)})
+        emit(row)
+        if not (row["max_abs_err_vs_eager"] <= TOL_AOT_EAGER
+                and row["max_rel_err_vs_cpu"] <= TOL_AOT_CPU):
+            faults.append("outputs off: %r" % row)
+        if faults:
+            raise AssertionError("serve_aot %s: %s" % (name,
+                                                      "; ".join(faults)))
+        rows[name] = row
+    # bf16: exported under the policy, served in this process with it off
+    out, card, _ = bundles["flagship"]
+    bf16_dir = os.path.join(tmp, "aot_flagship_bf16")
+    dtype_mod.set_mixed_precision("bfloat16")
+    try:
+        export_mod.export_bundle(out, Parameters(dict(card.params)),
+                                 bf16_dir, batch_sizes=(8,), seq_len=AOT_SEQ,
+                                 platforms=("cpu", "cuda"))
+        forward = export_mod._make_forward(
+            Topology(out), card.inputs, [o["name"] for o in card.outputs])
+        with np.load(jobs["flagship"]["inputs"] % 8) as data:
+            req = {k: data[k] for k in data.files}
+        with torch.inference_mode():
+            eager16 = host_numpy(forward(card.params, card.device_inputs(req)))
+    finally:
+        dtype_mod.set_mixed_precision(None)
+    bf16 = load_bundle(bf16_dir, device=DEVICE)
+    bf16_row = {"phase": "serve_aot", "check": "bf16",
+                "compute_dtype": bf16.manifest["compute_dtype"],
+                "output_dtype": bf16.manifest["outputs"][0]["dtype"],
+                "max_abs_err_vs_eager_bf16": worst_error(
+                    bf16.run(req, 8), eager16),
+                "max_abs_diff_vs_f32": worst_error(bf16.run(req, 8),
+                                                   card.run(req, 8))}
+    emit(bf16_row)
+    if not (bf16_row["compute_dtype"] == "bfloat16"
+            and bf16_row["max_abs_err_vs_eager_bf16"] <= TOL_AOT_BF16):
+        raise AssertionError("serve_aot bf16: %r" % bf16_row)
+    ops = aot_op_rows(torch, ck, gk, ik, lk, launches)
+    return {"bundles": rows, "bf16": bf16_row, "ops": ops,
+            "launches": launches,
+            "flagship_dir": jobs["flagship"]["bundle"]}
+
+
+def http_json(url, body=None, headers=None):
+    """(status, decoded JSON body, response headers) of a GET, or of a POST
+    of ``body``."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=120) as fh:
+            return fh.status, json.loads(fh.read()), fh.headers
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read()), exc.headers
+
+
+def metric_total(text, family):
+    """The sum of every series of ``family`` in Prometheus text."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def phase_serve_observe(torch, bundle_dir, tmp):
+    """serve_observe (module docstring)."""
+    import signal
+
+    from paddle_tpu_torch.observe import steplog
+    from paddle_tpu_torch.serve import load_bundle
+
+    telemetry = os.path.join(tmp, "observe_telemetry")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)), PADDLE_TPU_TORCH_TELEMETRY=telemetry,
+        PADDLE_TPU_TORCH_TRACE_SAMPLE="0")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", "serve", bundle_dir,
+         "--port", "0", "--max-batch-size", "32", "--slo-p99-ms", "50",
+         "--autotune", "--max-queue-rows", str(OBSERVE_QUEUE_ROWS)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+    bundle = load_bundle(bundle_dir, device=DEVICE)
+    rng = np.random.RandomState(SEED + 47)
+    try:
+        banner, lines = "", []
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and not banner:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "serving" in line and "http://" in line:
+                banner = line
+        if not banner:
+            raise AssertionError("cli serve never came up: %s"
+                                 % "".join(lines)[-3000:])
+        url = "http://" + banner.split("http://", 1)[1].split(" ", 1)[0]
+        while http_json(url + "/readyz")[0] != 200:
+            time.sleep(0.1)
+        # 200 requests one at a time, each carrying traceparent: sampled
+        # (flag 01) and unsampled (flag 00) in turn
+        latencies = {"sampled": [], "unsampled": []}
+        served, rows, errs, echoed = [], 0, [], 0
+        for i in range(OBSERVE_REQUESTS):
+            req = random_request(rng, int(rng.randint(1, 9)), AOT_SEQ,
+                                 FLAGSHIP["dict_size"])
+            flag = "01" if i % 2 == 0 else "00"
+            parent = "00-%032x-%016x-%s" % (i + 1, i + 1, flag)
+            t0 = time.perf_counter()
+            code, body, headers = http_json(
+                url + "/infer", {"inputs": {k: v.tolist()
+                                            for k, v in req.items()}},
+                {"traceparent": parent})
+            latencies["sampled" if flag == "01" else "unsampled"].append(
+                (time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError("request %d answered %d: %r"
+                                     % (i, code, body))
+            echoed += headers.get("traceparent", "").startswith(
+                "00-%032x-" % (i + 1))
+            served.append((req, np.asarray(body["outputs"]["lstm_out"],
+                                           np.float32)))
+            rows += len(req["word"])
+        # the slowest of those requests, before the bursts outrank them
+        traces = http_json(url + "/debug/traces")[1]
+        # bursts past the queue bound until one is shed
+        shed = burst_ok = tries = 0
+        while not shed and tries < OBSERVE_BURST_TRIES:
+            tries += 1
+            burst = [random_request(rng, OBSERVE_BURST_ROWS, AOT_SEQ,
+                                    FLAGSHIP["dict_size"])
+                     for _ in range(OBSERVE_BURST)]
+            answers = [None] * len(burst)
+            gate = threading.Barrier(len(burst))
+
+            def client(j):
+                gate.wait()
+                answers[j] = http_json(url + "/infer", {"inputs": {
+                    k: v.tolist() for k, v in burst[j].items()}})
+
+            threads = [threading.Thread(target=client, args=(j,))
+                       for j in range(len(burst))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            for req, (code, body, _) in zip(burst, answers):
+                if code == 429:
+                    shed += 1
+                elif code == 200:
+                    burst_ok += 1
+                    rows += len(req["word"])
+                    served.append((req, np.asarray(
+                        body["outputs"]["lstm_out"], np.float32)))
+                else:
+                    raise AssertionError("burst answered %d: %r"
+                                         % (code, body))
+        err = max(float(np.abs(got - bundle.infer(req)["lstm_out"]).max())
+                  for req, got in served)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as fh:
+            metrics_text = fh.read().decode()
+        slo_code, slo, _ = http_json(url + "/debug/slo")
+        control_code, control, _ = http_json(url + "/debug/control")
+        compiles = http_json(url + "/debug/compiles")[1]
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    requests_total = metric_total(metrics_text,
+                                  "paddle_tpu_serve_requests_total")
+    rows_total = metric_total(metrics_text, "paddle_tpu_serve_rows_total")
+    shed_total = metric_total(metrics_text, "paddle_tpu_serve_shed_total")
+    sampled = [e for e in traces["slowest"] if e.get("trace")]
+    phase_off = [abs(sum(e["phases"].values()) - e["latency_ms"])
+                 / e["latency_ms"] for e in traces["slowest"]]
+    records = [r for path in sorted(os.listdir(telemetry))
+               if path.endswith(".steps.jsonl")
+               for r in steplog.read_jsonl(os.path.join(telemetry, path))
+               if r.get("type") == "serve_trace"]
+    record_off = [abs(sum(r["phases"].values()) - r["latency_ms"])
+                  / r["latency_ms"] for r in records]
+    row = {"phase": "serve_observe", "requests": len(served),
+           "rows": rows, "burst_tries": tries, "burst_served": burst_ok,
+           "shed_429": shed, "metrics_requests_total": requests_total,
+           "metrics_rows_total": rows_total,
+           "metrics_shed_total": shed_total,
+           "max_abs_err_vs_bundle": err, "traceparent_echoed": echoed,
+           "debug_traces_kept": len(traces["slowest"]),
+           "debug_traces_sampled": len(sampled),
+           "serve_trace_records": len(records),
+           "phase_sum_max_rel_off": max(phase_off + record_off),
+           "slo": {"code": slo_code, "state": slo.get("state"),
+                   "burn_rates": slo.get("burn_rates")},
+           "control": {"code": control_code,
+                       "enabled": control.get("enabled"),
+                       "knobs": sorted(control.get("knobs", {})),
+                       "moves": control.get("moves")},
+           "compiles": compiles.get("compiles")}
+    for key, lats in latencies.items():
+        row["latency_ms_p50_" + key] = float(np.percentile(lats, 50))
+        row["latency_ms_p99_" + key] = float(np.percentile(lats, 99))
+    emit(row)
+    faults = []
+    if requests_total != len(served) or rows_total != rows:
+        faults.append("/metrics counts %d requests, %d rows; served %d, %d"
+                      % (requests_total, rows_total, len(served), rows))
+    if not shed or shed_total != shed:
+        faults.append("%d answers were 429, shed_total says %d"
+                      % (shed, shed_total))
+    if err > TOL_AOT_EAGER:
+        faults.append("answers off the bundle by %g" % err)
+    if echoed != OBSERVE_REQUESTS // 2:
+        faults.append("traceparent echoed %d times" % echoed)
+    if not sampled or len(records) != OBSERVE_REQUESTS // 2:
+        faults.append("%d sampled exemplars, %d serve_trace records"
+                      % (len(sampled), len(records)))
+    if row["phase_sum_max_rel_off"] > TOL_TRACE_SUM:
+        faults.append("phases off their latency by %g"
+                      % row["phase_sum_max_rel_off"])
+    if slo_code != 200 or control_code != 200 or not control["knobs"]:
+        faults.append("/debug/slo %d, /debug/control %d" % (slo_code,
+                                                            control_code))
+    if proc.returncode not in (0, -signal.SIGINT):
+        faults.append("cli serve exited %d" % proc.returncode)
+    if faults:
+        raise AssertionError("serve_observe: %s" % "; ".join(faults))
+    return row
+
+
 def phase_train_resnet(torch, ck, tmp):
     from paddle_tpu_torch import data_type
     from paddle_tpu_torch.core import dtype as dtype_mod
     from paddle_tpu_torch.inference import infer
     from paddle_tpu_torch.models.vision import resnet
     from paddle_tpu_torch.serve import load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
 
     rig = TrainRig(resnet, RESNET,
                    data_type.integer_value(RESNET["num_classes"]), SEED + 22,
@@ -3942,8 +4645,7 @@ def phase_train_resnet(torch, ck, tmp):
         dtype_mod.set_mixed_precision(None)
     # the 4-image-trained parameters and statistics served from a bundle
     bundle_dir = os.path.join(tmp, "resnet_trained")
-    card.export_inference_bundle(parse_builder(RESNET_BUILDER, RESNET),
-                                 bundle_dir, batch_sizes=(2,))
+    card.export_inference_bundle(rig.out, bundle_dir, batch_sizes=(2,))
     bundle = load_bundle(bundle_dir, device=DEVICE)
     images = resnet_images(np.random.default_rng(SEED + 25), 2)
     served_err = check_close(
@@ -4028,8 +4730,8 @@ def phase_kernel_conv_googlenet(torch, ck, vision_convs):
     sums = {}
     for net, convs in vision_convs.items():
         label = "%s at batch %d, %dx%d" % (net, VISION_BATCH,
-                                           VISION_NETS[net][2],
-                                           VISION_NETS[net][2])
+                                           VISION_NETS[net][1],
+                                           VISION_NETS[net][1])
         for which in ("fwd", "dgrad", "bwdw"):
             for dtype in ("float32", "bfloat16"):
                 row = network_sum(rows, which, dtype, convs, VISION_BATCH,
@@ -4139,9 +4841,8 @@ def phase_train_vision(torch, ck, tmp, net):
     from paddle_tpu_torch.models import vision
     from paddle_tpu_torch.ops import dropout as dropout_ops
     from paddle_tpu_torch.serve import load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
 
-    builder, config, side, convs, output = VISION_NETS[net]
+    config, side, convs, output = VISION_NETS[net]
     classes = config["num_classes"]
     torch.cuda.reset_peak_memory_stats()
     rig = TrainRig(getattr(vision, net), config,
@@ -4189,8 +4890,7 @@ def phase_train_vision(torch, ck, tmp, net):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the 2-image-trained parameters served from a bundle
     bundle_dir = os.path.join(tmp, "%s_trained" % net)
-    card.export_inference_bundle(parse_builder(builder, config), bundle_dir,
-                                 batch_sizes=(2,))
+    card.export_inference_bundle(rig.out, bundle_dir, batch_sizes=(2,))
     bundle = load_bundle(bundle_dir, device=DEVICE)
     images = np.stack([img for img, _ in small[0]])
     ck.reset_launches()
@@ -4972,8 +5672,10 @@ DEMO_RUNS = [
      ("beam best",), ("gru", 2), 32),
     ("traffic_prediction", "traffic_prediction/train.py", [],
      ("test RMSE",), ("gru", 1), 32),
-    ("fit_a_line", "fit_a_line/train.py", ["--export", ""],
-     ("test cost", "predictions:"), None, 32),
+    ("fit_a_line", "fit_a_line/train.py", [],
+     ("test cost", "predictions:",
+      "exported bundle to fit_a_line_bundle (buckets [1, 4, 32])",
+      "bundle reload matches live inference"), None, 32),
     ("quick_start_lr", "quick_start/train.py", ["--model", "lr"],
      ("test error", "sample 0:"), None, 64),
     ("quick_start_cnn", "quick_start/train.py", ["--model", "cnn"],
@@ -5219,7 +5921,6 @@ def run_demo_timed(torch, ck, gk, ik, lk, path, args):
     launches of the training steps alone (BeginPass to EndPass, before the
     demo's own EndPass handler runs its test pass), of the whole run, and
     the recurrent kernels' launch shapes."""
-    import contextlib
     import io
 
     from paddle_tpu_torch import demo, trainer
@@ -5282,18 +5983,20 @@ def vgg_mnist(num_classes=10):
     return vgg_16_network(img, num_channels=1, num_classes=num_classes)
 
 
-def phase_demos(torch, ck, gk, ik, lk):
-    """The demos of DEMO_RUNS through demo.run on the card: every success
-    line, finite costs, each training step's launches (K7/K8 against
-    VGG-16's convs in the kernels' family, K1/K2 and K5/K6 per recurrent
-    layer) and none of a kernel off the demo's path; then one step of each
-    demo's model against the CPU."""
+def phase_demos(torch, ck, gk, ik, lk, tmp):
+    """The demos of DEMO_RUNS through demo.run on the card, in ``tmp`` as
+    their working directory (fit_a_line writes its bundle to its default
+    ``--export`` there): every success line, finite costs, each training
+    step's launches (K7/K8 against VGG-16's convs in the kernels' family,
+    K1/K2 and K5/K6 per recurrent layer) and none of a kernel off the
+    demo's path; then one step of each demo's model against the CPU."""
     vgg_convs = family_convs(vgg_mnist, {}, 128)
     n_vgg = sum(conv[-1] for conv in vgg_convs)
     results = {}
     for name, script, args, lines, recurrent, _ in DEMO_RUNS:
         path = demo_path(script)
-        rec = run_demo_timed(torch, ck, gk, ik, lk, path, args)
+        with contextlib.chdir(tmp):
+            rec = run_demo_timed(torch, ck, gk, ik, lk, path, args)
         steps = len(rec["costs"])
         per_step = demo_per_step(name, recurrent, n_vgg)
         want = {k: n * steps for k, n in per_step.items()}
@@ -6343,7 +7046,6 @@ def zoo_run(torch, ck, tar, device):
     parameters of ``tar``: the probabilities infer gave, the features
     apply gave (both recorded as the demo reads them), its stdout, seconds
     and K7 launches."""
-    import contextlib
     import io
 
     from paddle_tpu_torch import demo, inference
@@ -6378,7 +7080,6 @@ def zoo_run(torch, ck, tar, device):
 def phase_demos_multi(torch, ck, tmp):
     """demos, continued (module docstring): gan on both datasets and
     model_zoo's ResNet-50 at 224 x 224, batch 32."""
-    import contextlib
     import io
 
     from paddle_tpu_torch import demo
@@ -6440,7 +7141,6 @@ CHECKGRAD_ARGS = "dict_size=50,emb_size=8,hidden_size=8,batch_size=4,rnn=lstm"
 
 def phase_checkgrad(torch, tmp):
     """checkgrad (module docstring)."""
-    import contextlib
     import io
 
     from paddle_tpu_torch import cli
@@ -6674,7 +7374,7 @@ def main():
                            bwd_layout_rows, gru_bwd_layout_rows, cases,
                            gru_cases, fwd_layout_rows, gru_fwd_layout_rows)
     vision_convs = {}
-    for net, (_, config, _, n_convs, _) in VISION_NETS.items():
+    for net, (config, _, n_convs, _) in VISION_NETS.items():
         vision_convs[net] = family_convs(getattr(vision, net), config,
                                          VISION_BATCH)
         if sum(conv[-1] for conv in vision_convs[net]) != n_convs:
@@ -6694,6 +7394,8 @@ def main():
         served_resnet = phase_serve_resnet(torch, ck, tmp)
         int8_flagship = phase_serve_flagship_int8(torch, ik, lk, tmp)
         int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
+        aot = phase_serve_aot(torch, ck, gk, ik, lk, tmp)
+        phase_serve_observe(torch, aot["flagship_dir"], tmp)
         trained_resnet = phase_train_resnet(torch, ck, tmp)
         trained_googlenet = phase_train_vision(torch, ck, tmp, "googlenet")
         phase_train_vision(torch, ck, tmp, "alexnet")
@@ -6706,7 +7408,8 @@ def main():
         served_movielens = phase_serve_movielens(torch, ik, tmp)
     trained_nmt = phase_train_nmt(torch, gk)
     phase_generate_nmt(torch, gk, trained_nmt)
-    demos = phase_demos(torch, ck, gk, ik, lk)
+    with tempfile.TemporaryDirectory() as tmp:
+        demos = phase_demos(torch, ck, gk, ik, lk, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         v1_text = phase_v1_text(torch, gk, lk, tmp)
     mixed = phase_mixed_conv(torch, ck, vision_conv_rows)
@@ -6851,6 +7554,8 @@ def main():
                      "int8_matmul[K9,tagger_decode_m288]",
                      "paddle_tpu/ops/pallas_kernels.py:908",
                      continuous["int8"]["k9_launches"], "int8_matmul"),
+        *[aot_entry(row, "%s[%s,aot_program]" % (row["kernel"], row["tag"]))
+          for row in aot["ops"]],
         *demo_entries(demos, demo_kernels),
         *text_layer_entries(v1_text, mixed, demo_kernels),
         *nested_entries(nested)]})

@@ -51,21 +51,18 @@ __version__ = "0.1.0"
 
 import importlib as _importlib
 
-from paddle_tpu_torch import (activation, attr, data_type, evaluator, event,
-                              inference, layer, networks, optimizer,
-                              parameters, pooling, topology, trainer)
 from paddle_tpu_torch.core.place import (CPUPlace, Place, TPUPlace,
                                          default_place, device_count,
                                          resolve_device, set_default_device,
                                          set_default_place)
-from paddle_tpu_torch.inference import infer
-from paddle_tpu_torch.minibatch import batch
 from paddle_tpu_torch.utils import flags as _flags
 from paddle_tpu_torch.utils.error import EnforceError, enforce
 
 # The JAX package's public submodules (paddle_tpu/__init__.py:50-55), loaded
-# on first use (PEP 562); those without a port raise AttributeError, so
-# ``hasattr`` is false for them.
+# on first use (PEP 562), as are ``infer`` and ``batch``: a process that
+# only loads a serving bundle never imports the graph or the layers.
+# Those without a port raise AttributeError, so ``hasattr`` is false for
+# them.
 _SUBMODULES = (
     "activation", "attr", "data_type", "layer", "networks", "pooling",
     "initializer", "optimizer", "parameters", "trainer", "event", "inference",
@@ -84,12 +81,19 @@ def __getattr__(name):
         mod = _importlib.import_module("paddle_tpu_torch." + name)
         globals()[name] = mod
         return mod
+    if name == "infer":
+        from paddle_tpu_torch.inference import infer as fn
+        return fn
+    if name == "batch":
+        from paddle_tpu_torch.minibatch import batch as fn
+        return fn
     raise AttributeError("module 'paddle_tpu_torch' has no attribute %r"
                          % name)
 
 
 def __dir__():
-    return sorted(set(globals()) | (set(_SUBMODULES) - set(_NOT_PORTED)))
+    return sorted(set(globals()) | (set(_SUBMODULES) - set(_NOT_PORTED))
+                  | {"infer", "batch"})
 
 
 def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):

@@ -8,11 +8,15 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
     python -m paddle_tpu_torch.cli checkgrad --config conf.py
     python -m paddle_tpu_torch.cli observe TELEMETRY_DIR [--json]
     python -m paddle_tpu_torch.cli export \
-        --builder paddle_tpu_torch.models.text:text_classification_lstm \
-        --builder-kwargs '{"hidden": 256, "num_layers": 2}' \
-        [--params params.npz | --seed 0 [--device cpu]] [--quantize int8] \
+        (--builder paddle_tpu_torch.models.text:text_classification_lstm \
+         [--builder-kwargs '{"hidden": 256, "num_layers": 2}'] \
+         | --config conf.py [--config-args k=v,...]) \
+        [--params params.tar | --seed 0] [--device cpu] \
+        [--platforms cpu,cuda] [--quantize int8] \
         [--decode-slots 48 --decode-window 6] -o BUNDLE_DIR
     python -m paddle_tpu_torch.cli serve BUNDLE_DIR [--selfcheck] [--port N] \
+        [--max-queue-rows N] [--slo-p99-ms MS [--slo-availability PCT] \
+         [--autotune]] \
         [--continuous [--session-store N] [--idle-spill-ms MS] \
          [--session-slo-ms MS] [--session-ttl-ms MS]]
     python -m paddle_tpu_torch.cli generate BUNDLE_DIR --prime 5,17,3 \
@@ -30,10 +34,13 @@ arguments are the JAX package's, keyword for keyword. With
 ``PADDLE_TPU_TORCH_TELEMETRY=<dir>`` training writes its step log and span
 trace there, which ``observe`` summarizes (either package's directories).
 
-``export`` takes ``--params``, an npz written by either package's
-``Parameters.to_npz`` (a JAX bundle's params.npz included); without it the
-parameters are initialised from ``--seed`` on the card (or ``--device
-cpu``). ``--quantize int8`` writes a quantized bundle (serve/quantize.py),
+``export`` exports ``--builder``'s output layer or a ``--config``'s
+``infer_outputs()`` (else ``cost()``); ``--params`` is a tar of either
+package's ``Parameters.to_tar`` or an npz of ``Parameters.to_npz`` (a
+JAX bundle's params.npz included), and without it the parameters are
+initialised from ``--seed``. The programs are traced on the card (or
+``--device cpu``) and serve on ``--platforms`` (default: that device's
+type). ``--quantize int8`` writes a quantized bundle (serve/quantize.py),
 which ``serve`` runs unchanged. ``--decode-slots`` adds the
 continuous-batching decode step of a streamable topology, which ``serve
 --continuous`` runs through the scheduler with its session tier and
@@ -505,29 +512,73 @@ def cmd_observe(args):
     return 0
 
 
-def cmd_export(args):
-    from paddle_tpu_torch.parameters import Parameters
-    from paddle_tpu_torch.serve.bundle import build_outputs
-    from paddle_tpu_torch.serve.export import export_bundle, parse_builder
-    from paddle_tpu_torch.topology import Topology
+def _export_outputs(args):
+    """The output layer(s) ``cli export`` exports: ``--builder``'s
+    function called with ``--builder-kwargs``, or a ``--config``'s
+    ``infer_outputs()`` (else its ``cost()``), built with fresh name
+    counters so layer and parameter names match a fresh process's."""
+    from paddle_tpu_torch.graph import reset_name_counters
 
-    builder = parse_builder(args.builder, json.loads(args.builder_kwargs))
-    if args.params:
-        params = Parameters.from_npz(args.params)
-    else:
-        params = Parameters.create(Topology(build_outputs(builder)),
-                                   seed=args.seed,
-                                   device=args.device or None)
+    reset_name_counters()
+    if args.builder:
+        module, _, function = args.builder.partition(":")
+        enforce(module and function,
+                "builder must be 'module.path:function', got %r",
+                args.builder)
+        fn = getattr(importlib.import_module(module), function)
+        return fn(**json.loads(args.builder_kwargs))
+    cfg = _load_config(args.config, args.config_args)
+    return (getattr(cfg, "infer_outputs", None) or cfg.cost)()
+
+
+def _export_params(args, outputs):
+    """``--params``: a parameter tar (``Parameters.to_tar`` of either
+    package) or an npz (``Parameters.to_npz``, a bundle's params.npz);
+    without it the parameters are initialised from ``--seed``."""
+    import tarfile
+
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.parameters import Parameters
+
+    device = resolve_device(args.device or None)
+    if not args.params:
+        return Parameters.create(outputs, seed=args.seed, device=device)
+    if tarfile.is_tarfile(args.params):
+        with open(args.params, "rb") as fh:
+            return Parameters.from_tar(fh, device=device)
+    return Parameters.from_npz(args.params, device=device)
+
+
+def cmd_export(args):
+    """Export a serving bundle (paddle_tpu/cli.py ``cmd_export``): one
+    ``torch.export`` program per batch bucket, params.npz and the
+    manifest; the bundle loads in a fresh process without running any
+    model or config code. When the exporting device is among the
+    bundle's platforms, the bundle is reloaded and run here first
+    (``verify_bundle``)."""
+    from paddle_tpu_torch.serve.export import export_bundle, verify_bundle
+
+    if not (args.builder or args.config):
+        print("export needs --builder or --config", file=sys.stderr)
+        return 2
+    outputs = _export_outputs(args)
+    params = _export_params(args, outputs)
     manifest = export_bundle(
-        builder, params, args.output,
+        outputs, params, args.output,
         batch_sizes=[int(b) for b in args.batch_sizes.split(",") if b],
         seq_len=args.seq_len, name=args.name or None,
+        platforms=args.platforms.split(",") if args.platforms else None,
         decode_slots=[int(n) for n in args.decode_slots.split(",") if n],
         decode_window=args.decode_window, quantize=args.quantize or None)
+    device = next(iter(params.as_dict().values())).device
+    if device.type in manifest["platforms"]:
+        verify_bundle(args.output, device=device)
     summary = {"bundle": args.output, "name": manifest["name"],
                "buckets": [b["batch"] for b in manifest["buckets"]],
                "inputs": [i["name"] for i in manifest["inputs"]],
-               "outputs": manifest["outputs"]}
+               "outputs": manifest["outputs"],
+               "platforms": manifest["platforms"],
+               "compute_dtype": manifest["compute_dtype"]}
     if manifest.get("quantization"):
         summary["quantization"] = manifest["quantization"]["scheme"]
     if manifest.get("decode"):
@@ -547,13 +598,60 @@ def _make_engine(bundle, args, warmup):
     if not args.continuous:
         return InferenceEngine(bundle, max_batch_size=args.max_batch_size,
                                max_latency_ms=args.max_latency_ms,
-                               warmup=warmup)
+                               warmup=warmup,
+                               max_queue_rows=args.max_queue_rows)
     return ContinuousScheduler(
-        bundle, warmup=warmup, max_queue=None,
+        bundle, warmup=warmup, max_queue=args.max_queue_rows,
         session_capacity=args.session_store,
         idle_spill_ms=args.idle_spill_ms,
         session_slo_grace_ms=args.session_slo_ms,
         session_ttl_ms=args.session_ttl_ms)
+
+
+def _make_slo(fronts, args, model=None):
+    """The burn-rate SLO monitor over the serving fronts
+    (paddle_tpu/cli.py ``_make_slo``): always built, so ``GET /debug/slo``
+    answers; its evaluation thread (and the ``slo_status`` records) runs
+    only when ``--slo-p99-ms`` / ``--slo-availability`` declared an
+    objective."""
+    from paddle_tpu_torch.observe import health as observe_health
+    from paddle_tpu_torch.observe import metrics as observe_metrics
+    from paddle_tpu_torch.observe import steplog
+
+    slo = observe_health.SloMonitor(
+        fronts, p99_ms=args.slo_p99_ms,
+        availability=args.slo_availability,
+        registry=observe_metrics.get_registry(),
+        slog=steplog.from_env("slo", meta={"phase": "slo"}),
+        model=model)
+    if slo.active:
+        slo.start()
+    return slo
+
+
+def _make_controller(slo, fronts, args, model=None):
+    """With ``--autotune``, the controller over every knob the serving
+    fronts register (paddle_tpu/cli.py ``_make_controller``); it needs a
+    declared objective, else there is nothing to steer toward."""
+    if not args.autotune:
+        return None
+    if not slo.active:
+        print("--autotune needs a declared objective: add --slo-p99-ms "
+              "(and optionally --slo-availability)", file=sys.stderr)
+        raise SystemExit(2)
+    from paddle_tpu_torch.control import Controller, KnobRegistry
+    from paddle_tpu_torch.observe import metrics as observe_metrics
+    from paddle_tpu_torch.observe import steplog
+
+    knobs = KnobRegistry()
+    for front in fronts:
+        front.register_knobs(knobs)
+    controller = Controller(
+        slo, knobs, registry=observe_metrics.get_registry(),
+        slog=steplog.from_env("control", meta={"phase": "control"}),
+        model=model)
+    controller.start()
+    return controller
 
 
 def cmd_serve(args):
@@ -575,6 +673,7 @@ def cmd_serve(args):
     # on a thread so /readyz honestly answers 503 until every bucket ran
     engine = _make_engine(bundle, args,
                           warmup=True if args.selfcheck else "async")
+    slo = controller = None
     try:
         if args.selfcheck:
             out = engine.infer(bundle.dummy_inputs(rows=1), timeout=300.0)
@@ -586,9 +685,16 @@ def cmd_serve(args):
                 "stats": {k: v for k, v in engine.stats().items()
                           if isinstance(v, int)}}))
             return 0
-        server = make_server(bundle, engine, host=args.host, port=args.port)
+        slo = _make_slo([engine], args, model=bundle.name)
+        controller = _make_controller(slo, [engine], args,
+                                      model=bundle.name)
+        server = make_server(bundle, engine, host=args.host, port=args.port,
+                             slo=slo, controller=controller)
         print("serving %r on http://%s:%d (POST /infer; GET /healthz "
-              "/readyz)" % (bundle.name, *server.server_address), flush=True)
+              "/livez /readyz /metrics /stats /debug/traces /debug/slo%s "
+              "/debug/compiles /manifest)"
+              % (bundle.name, *server.server_address,
+                 " /debug/control" if controller else ""), flush=True)
         try:
             server.serve_forever()
         except KeyboardInterrupt:
@@ -597,6 +703,10 @@ def cmd_serve(args):
             server.server_close()
         return 0
     finally:
+        if controller is not None:
+            controller.stop()
+        if slo is not None:
+            slo.stop(close_slog=True)
         engine.stop()
 
 
@@ -694,17 +804,23 @@ def main(argv=None):
         p.set_defaults(fn=_not_ported(verb, needs))
 
     p = sub.add_parser("export", help="write a serving bundle")
-    p.add_argument("--builder", required=True,
+    p.add_argument("--config", default="",
+                   help="config whose infer_outputs() (else cost()) is "
+                        "exported")
+    p.add_argument("--builder", default="",
                    help="module.path:function returning the output layer")
+    p.add_argument("--config-args", default="",
+                   help="k=v,... passed to the --config")
     p.add_argument("--builder-kwargs", default="{}",
                    help="JSON object of keyword arguments for the builder")
     p.add_argument("--params", default="",
-                   help="parameter npz (Parameters.to_npz of either package)")
+                   help="parameter tar (Parameters.to_tar) or npz "
+                        "(Parameters.to_npz) of either package")
     p.add_argument("--seed", type=int, default=0,
                    help="initialisation seed when --params is not given")
     p.add_argument("--device", default="",
-                   help="torch device that initialises the parameters "
-                        "(default: the card)")
+                   help="torch device the parameters load on and the "
+                        "programs are traced on (default: the card)")
     p.add_argument("-o", "--output", required=True,
                    help="bundle directory to write")
     p.add_argument("--batch-sizes", default="1,8,32",
@@ -712,6 +828,9 @@ def main(argv=None):
     p.add_argument("--seq-len", type=int, default=None,
                    help="padded time dim for sequence inputs (default 64)")
     p.add_argument("--name", default="")
+    p.add_argument("--platforms", default="",
+                   help="comma-separated torch device types the bundle "
+                        "serves on (cpu,cuda; default: --device's)")
     p.add_argument("--quantize", default="", choices=("", "int8"),
                    help="weight-only quantization: int8 stores matmul/conv "
                         "weights per-output-channel symmetric int8 with "
@@ -757,6 +876,26 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8866)
     p.add_argument("--max-batch-size", type=int, default=None)
     p.add_argument("--max-latency-ms", type=float, default=5.0)
+    p.add_argument("--max-queue-rows", type=int, default=None,
+                   help="bound the queue; a full queue answers 429 "
+                        "instead of queueing (load shedding)")
+    p.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="declare a p99 latency objective: the burn-rate "
+                        "SLO monitor evaluates the health history against "
+                        "it (GET /debug/slo, paddle_tpu_slo_* gauges, "
+                        "slo_status step-log records on transitions)")
+    p.add_argument("--slo-availability", type=float, default=None,
+                   help="availability objective in percent (default 99.0 "
+                        "with --slo-p99-ms): shed or over-objective "
+                        "requests burn the error budget")
+    p.add_argument("--autotune", action="store_true",
+                   help="close the SLO loop: a controller thread moves the "
+                        "registered serving knobs (deadline, queue bound, "
+                        "spill thresholds) on the burn-rate verdicts, with "
+                        "hysteresis, cooldowns and a rollback guard; every "
+                        "move is a control_action record, a "
+                        "paddle_tpu_control_* metric and a GET "
+                        "/debug/control entry. Needs --slo-p99-ms")
     p.add_argument("--continuous", action="store_true",
                    help="front a decode-capable bundle with the "
                         "continuous-batching scheduler instead of the "

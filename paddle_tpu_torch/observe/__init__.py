@@ -1,6 +1,6 @@
 """paddle_tpu_torch.observe — spans, device attribution, step telemetry
-(paddle_tpu/observe, less the serving tier's ``tracing`` and ``health``
-and the bench gate ``regress``, which are not ported yet).
+(paddle_tpu/observe, less the bench gate ``regress``, which gates
+against TPU rows and waits for the port's own benchmark).
 
 * :mod:`~paddle_tpu_torch.observe.spans` — nested named host spans,
   thread-safe, exportable as Chrome-trace/Perfetto JSON, feeding the
@@ -16,6 +16,14 @@ and the bench gate ``regress``, which are not ported yet).
   loss sentinel (``PADDLE_TPU_TORCH_SENTINEL``: warn, halt or off).
 * :mod:`~paddle_tpu_torch.observe.trainview` — per-worker health history,
   step-time skew and the elastic timeline of a telemetry directory.
+* :mod:`~paddle_tpu_torch.observe.tracing` — request tracing for the
+  serving tier: the W3C-traceparent-shaped ``TraceContext`` passed by
+  value through every thread hop, ``PADDLE_TPU_TORCH_TRACE_SAMPLE``
+  sampling, the slowest-N exemplar reservoir (``GET /debug/traces``) and
+  the tail attribution ``cli observe`` prints.
+* :mod:`~paddle_tpu_torch.observe.health` — the serving health history,
+  the burn-rate SLO monitor (``GET /debug/slo``) and the trace/history
+  merge over the serving fronts.
 
 Each is stdlib-only but where it asks torch about the card (the
 synchronize of a span with ``sync=``, the step log's ``backend`` and
@@ -23,8 +31,10 @@ synchronize of a span with ``sync=``, the step log's ``backend`` and
 runs.
 """
 
-from paddle_tpu_torch.observe import (attribution, metrics,  # noqa: F401
-                                      sentinel, spans, steplog)
+from paddle_tpu_torch.observe import (attribution, health,  # noqa: F401
+                                      metrics, sentinel, spans, steplog,
+                                      tracing)
+from paddle_tpu_torch.observe.tracing import TraceContext  # noqa: F401
 from paddle_tpu_torch.observe.metrics import get_registry  # noqa: F401
 from paddle_tpu_torch.observe.spans import get_tracer, span  # noqa: F401
 from paddle_tpu_torch.observe.steplog import (StepLog, from_env,  # noqa: F401

@@ -231,36 +231,6 @@ def from_env(run_name="train", meta=None, flush_every=1):
         return None
 
 
-def tail_attribution(records, q=99.0):
-    """Where the tail's milliseconds went (paddle_tpu/observe/tracing.py
-    ``tail_attribution``, kept here for summarize_dir): over
-    ``serve_trace`` records, take the requests at/above the ``q``-th
-    latency percentile and average their per-phase share. Returns None
-    without records, else ``{"q", "threshold_ms", "requests",
-    "tail_requests", "phases": {phase: mean_pct}}``."""
-    from paddle_tpu_torch.observe.metrics import percentile
-
-    rows = [r for r in records
-            if "latency_ms" in r and isinstance(r.get("phases"), dict)]
-    if not rows:
-        return None
-    lats = [float(r["latency_ms"]) for r in rows]
-    threshold = percentile(lats, q)
-    tail = [r for r in rows if float(r["latency_ms"]) >= threshold]
-    shares = {}
-    for r in tail:
-        total = sum(float(v) for v in r["phases"].values())
-        if total <= 0:
-            continue
-        for k, v in r["phases"].items():
-            shares.setdefault(k, []).append(float(v) / total)
-    phases = {k: round(100.0 * sum(v) / len(v), 1)
-              for k, v in sorted(shares.items()) if v}
-    return {"q": q, "threshold_ms": round(threshold, 3),
-            "requests": len(rows), "tail_requests": len(tail),
-            "phases": phases}
-
-
 class StepLog:
     """JSONL writer of per-step records. Thread-safe; by default every
     record is flushed so a crashed run keeps its telemetry.
@@ -1019,6 +989,8 @@ def summarize_dir(directory):
             # tail attribution over the run's sampled request traces:
             # the phase histogram of the p99 — "where the p99's
             # milliseconds went" (docs/observability.md)
+            from paddle_tpu_torch.observe.tracing import tail_attribution
+
             tail = tail_attribution(traced)
             if tail:
                 run["serve_traces"] = len(traced)
@@ -1072,6 +1044,8 @@ def summarize_dir(directory):
 
         by_worker = fleet_traced[base]
         merged = [r for recs in by_worker.values() for r in recs]
+        from paddle_tpu_torch.observe.tracing import tail_attribution
+
         tail = tail_attribution(merged)
         if not tail:
             continue
@@ -1095,6 +1069,8 @@ def summarize_dir(directory):
 
         by_host = host_traced[base]
         merged = [r for recs in by_host.values() for r in recs]
+        from paddle_tpu_torch.observe.tracing import tail_attribution
+
         tail = tail_attribution(merged)
         if not tail:
             continue

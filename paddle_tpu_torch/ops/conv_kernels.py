@@ -214,14 +214,19 @@ def fwd_plan(n, height, width, f, dtype, sms=H100_SMS):
 
 def conv2d_same_fwd(x, w):
     """K7: the stride-1 SAME conv of x [N, H, W, C] with w [k, k, C, F]
-    (see module docstring). After a kernel call, ``conv2d_same_fwd
-    .last_launch`` holds the plan (``fwd_plan``: path and tile) and the
-    grid the kernel used."""
+    (see module docstring), through the registered op
+    ``torch.ops.paddle_tpu_torch.conv2d_same_fwd`` (``conv2d_same_fwd_op``;
+    an exported program records it). After a kernel call,
+    ``conv2d_same_fwd.last_launch`` holds the plan (``fwd_plan``: path and
+    tile) and the grid the kernel used."""
     _check("conv2d_same_fwd", x, tuple(w.shape),
            ("w", w, tuple(w.shape)))
+    return conv2d_same_fwd_op(x, w)
+
+
+def _launch_fwd(x, w):
+    """One call of K7 on checked inputs (a CUDA tensor, else raises)."""
     dev = x.device
-    if dev.type == "cpu":
-        return conv2d_same_reference(x, w)
     enforce(dev.type == "cuda", "conv2d_same_fwd runs on cuda or cpu "
             "tensors, got %s", dev)
     n, height, width, c = x.shape
@@ -237,6 +242,23 @@ def conv2d_same_fwd(x, w):
         ("filter_tiles", "position_tiles", "grid_positions_per_tile",
          "grid_filters_per_tile", "smem_bytes", "launches"), info)))
     return y
+
+
+@torch.library.custom_op("paddle_tpu_torch::conv2d_same_fwd",
+                         mutates_args=(), device_types="cpu")
+def conv2d_same_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K7 as a registered op: the plain version on the CPU, the kernel on
+    the card (``_launch_fwd``, which counts the launches), the output
+    shape alone while a program is traced."""
+    return conv2d_same_reference(x, w)
+
+
+conv2d_same_fwd_op.register_kernel("cuda")(_launch_fwd)
+
+
+@conv2d_same_fwd_op.register_fake
+def _conv2d_same_fwd_fake(x, w):
+    return x.new_empty(tuple(x.shape[:3]) + (w.shape[3],))
 
 
 conv2d_same_fwd.last_launch = None

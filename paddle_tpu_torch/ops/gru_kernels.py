@@ -293,15 +293,28 @@ def _check_bwd(proj_tm, mask_tm, w_rz, w_c, hprev_tm, dh_seq, dh_f):
 
 def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0, plan=None):
     """Masked GRU forward over the whole sequence (see module docstring).
-    On a CUDA tensor ``plan`` is the layout to run (a ``gru_fwd_plan``
-    result; None: ``gru_fwd_plan``'s choice for this card). After a kernel
-    call, ``gru_seq_fwd.last_launch`` holds the plan, the grid the kernel
-    chose and the number of launches it made."""
+    With ``plan=None`` the call goes through the registered op
+    ``torch.ops.paddle_tpu_torch.gru_seq_fwd`` (``gru_seq_fwd_op``), which
+    launches the kernel in ``gru_fwd_plan``'s layout for this card on a
+    CUDA tensor and runs the plain version on a CPU tensor; an exported
+    program records that op. ``plan`` (a ``gru_fwd_plan`` result) launches
+    that layout directly instead. After a kernel call,
+    ``gru_seq_fwd.last_launch`` holds the plan, the grid the kernel chose
+    and the number of launches it made."""
     args = (proj_tm, mask_tm, w_rz, w_c, h0)
     _check(*args)
-    dev = proj_tm.device
-    if dev.type == "cpu":
+    if plan is None:
+        return gru_seq_fwd_op(*args)
+    if proj_tm.device.type == "cpu":
         return gru_seq_fwd_reference(*args)
+    return _launch_fwd(args, plan)
+
+
+def _launch_fwd(args, plan):
+    """One call of the forward kernel on checked inputs ``args`` (a CUDA
+    tensor, else raises) in layout ``plan`` (None: ``gru_fwd_plan``'s)."""
+    proj_tm = args[0]
+    dev = proj_tm.device
     enforce(dev.type == "cuda", "gru_seq_fwd runs on cuda or cpu tensors, "
             "got %s", dev)
     steps, batch, hidden = _proj_shape(proj_tm)
@@ -322,6 +335,28 @@ def gru_seq_fwd(proj_tm, mask_tm, w_rz, w_c, h0, plan=None):
         ("blocks", "rows_per_block", "w_placement", "smem_bytes",
          "rows_per_launch", "launches"), info)))
     return h_seq
+
+
+@torch.library.custom_op("paddle_tpu_torch::gru_seq_fwd", mutates_args=(),
+                         device_types="cpu")
+def gru_seq_fwd_op(proj_tm: torch.Tensor, mask_tm: torch.Tensor,
+                   w_rz: torch.Tensor, w_c: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """The forward as a registered op (K5): the plain version on the CPU,
+    the kernel on the card (``_launch_fwd``, which counts the launches),
+    the output shape alone while a program is traced."""
+    return gru_seq_fwd_reference(proj_tm, mask_tm, w_rz, w_c, h0)
+
+
+@gru_seq_fwd_op.register_kernel("cuda")
+def _gru_seq_fwd_cuda(proj_tm, mask_tm, w_rz, w_c, h0):
+    return _launch_fwd((proj_tm, mask_tm, w_rz, w_c, h0), None)
+
+
+@gru_seq_fwd_op.register_fake
+def _gru_seq_fwd_fake(proj_tm, mask_tm, w_rz, w_c, h0):
+    steps, batch, hidden = _proj_shape(proj_tm)
+    return proj_tm.new_empty((steps, batch, hidden))
 
 
 gru_seq_fwd.last_launch = None

@@ -133,14 +133,19 @@ def int8_matmul(x, w_q, scale):
     x2 = x.reshape(-1, k).contiguous()
     check_args("int8_matmul", x2, [("w_q", w_q, (k, n), torch.int8),
                                    ("scale", scale, (n,), torch.float32)])
-    dev = x.device
-    if dev.type == "cpu":
-        return int8_matmul_reference(x2, w_q, scale).reshape(lead + (n,))
+    return int8_matmul_op(x2, w_q, scale).reshape(lead + (n,))
+
+
+def _launch(x2, w_q, scale):
+    """One call of K9 on checked inputs x2 [M, K] (a CUDA tensor, else
+    raises) -> [M, N]."""
+    dev = x2.device
     enforce(dev.type == "cuda", "int8_matmul runs on cuda or cpu tensors, "
             "got %s", dev)
-    m = x2.shape[0]
-    plan = int8_plan(m, k, n, x.dtype, sm_count(dev))
-    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    m, k = x2.shape
+    n = w_q.shape[1]
+    plan = int8_plan(m, k, n, x2.dtype, sm_count(dev))
+    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
     ws = torch.empty((plan["workspace"],), dtype=torch.float32, device=dev)
     info = launch("int8_matmul", dev,
                   (aligned(x2), aligned(w_q), scale.contiguous()), (y, ws),
@@ -149,7 +154,25 @@ def int8_matmul(x, w_q, scale):
     int8_matmul.last_launch = dict(plan, **dict(zip(
         ("column_tiles", "row_tiles", "grid_splits", "weight_load_bytes",
          "smem_bytes", "launches"), info)))
-    return y.reshape(lead + (n,))
+    return y
+
+
+@torch.library.custom_op("paddle_tpu_torch::int8_matmul", mutates_args=(),
+                         device_types="cpu")
+def int8_matmul_op(x2: torch.Tensor, w_q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """K9 as a registered op over x2 [M, K]: the plain version on the CPU,
+    the kernel on the card (``_launch``, which counts the launches), the
+    output shape alone while a program is traced."""
+    return int8_matmul_reference(x2, w_q, scale)
+
+
+int8_matmul_op.register_kernel("cuda")(_launch)
+
+
+@int8_matmul_op.register_fake
+def _int8_matmul_fake(x2, w_q, scale):
+    return x2.new_empty((x2.shape[0], w_q.shape[1]))
 
 
 int8_matmul.last_launch = None

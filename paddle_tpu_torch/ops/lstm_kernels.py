@@ -432,15 +432,28 @@ def _check_bwd(gates_tm, mask_tm, w_rec, peep, hprev_tm, cprev_tm, c_seq,
 
 def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0, plan=None):
     """Masked peephole-LSTM forward over the whole sequence (see module
-    docstring). On a CUDA tensor ``plan`` is the layout to run (a
-    ``fwd_plan`` result; None: ``fwd_plan``'s choice for this card). After
-    a kernel call, ``lstm_seq_fwd.last_launch`` holds the plan, the grid
-    the kernel chose and the number of launches it made."""
+    docstring). With ``plan=None`` the call goes through the registered
+    op ``torch.ops.paddle_tpu_torch.lstm_seq_fwd`` (``lstm_seq_fwd_op``),
+    which launches the kernel in ``fwd_plan``'s layout for this card on a
+    CUDA tensor and runs the plain version on a CPU tensor; an exported
+    program records that op. ``plan`` (a ``fwd_plan`` result) launches
+    that layout directly instead. After a kernel call,
+    ``lstm_seq_fwd.last_launch`` holds the plan, the grid the kernel chose
+    and the number of launches it made."""
     args = (gates_tm, mask_tm, w_rec, peep, h0, c0)
     _check(*args)
-    dev = gates_tm.device
-    if dev.type == "cpu":
+    if plan is None:
+        return tuple(lstm_seq_fwd_op(*args))
+    if gates_tm.device.type == "cpu":
         return lstm_seq_fwd_reference(*args)
+    return _launch_fwd(args, plan)
+
+
+def _launch_fwd(args, plan):
+    """One call of the forward kernel on checked inputs ``args`` (a CUDA
+    tensor, else raises) in layout ``plan`` (None: ``fwd_plan``'s)."""
+    gates_tm = args[0]
+    dev = gates_tm.device
     enforce(dev.type == "cuda", "lstm_seq_fwd runs on cuda or cpu tensors, "
             "got %s", dev)
     steps, batch, hidden = _gates_shape(gates_tm)
@@ -469,6 +482,30 @@ def lstm_seq_fwd(gates_tm, mask_tm, w_rec, peep, h0, c0, plan=None):
         ("blocks", "rows_per_block", "w_placement", "smem_bytes",
          "rows_per_launch", "launches"), info)))
     return h_seq, c_seq
+
+
+@torch.library.custom_op("paddle_tpu_torch::lstm_seq_fwd", mutates_args=(),
+                         device_types="cpu")
+def lstm_seq_fwd_op(gates_tm: torch.Tensor, mask_tm: torch.Tensor,
+                    w_rec: torch.Tensor, peep: torch.Tensor,
+                    h0: torch.Tensor, c0: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as a registered op (K1/K3): the plain version on the
+    CPU, the kernel on the card (``_launch_fwd``, which counts the
+    launches), the output shapes alone while a program is traced."""
+    return lstm_seq_fwd_reference(gates_tm, mask_tm, w_rec, peep, h0, c0)
+
+
+@lstm_seq_fwd_op.register_kernel("cuda")
+def _lstm_seq_fwd_cuda(gates_tm, mask_tm, w_rec, peep, h0, c0):
+    return _launch_fwd((gates_tm, mask_tm, w_rec, peep, h0, c0), None)
+
+
+@lstm_seq_fwd_op.register_fake
+def _lstm_seq_fwd_fake(gates_tm, mask_tm, w_rec, peep, h0, c0):
+    steps, batch, hidden = _gates_shape(gates_tm)
+    h_seq = gates_tm.new_empty((steps, batch, hidden))
+    return h_seq, torch.empty_like(h_seq)
 
 
 lstm_seq_fwd.last_launch = None

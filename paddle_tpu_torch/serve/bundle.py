@@ -1,44 +1,48 @@
 """Load side of the port's model bundle (paddle_tpu/serve/bundle.py).
 
-A bundle directory holds ``manifest.json`` and ``params.npz``. The
-manifest keeps the JAX bundle's keys (``inputs``, ``outputs``,
-``seq_len``, ``buckets``, ``params_file``) and adds a ``builder`` entry
-(module, function, kwargs): in this first part of the port the load side
-rebuilds the topology by calling that builder, then copies ``params.npz``
-onto the device through ``convert.params_from_numpy``, which checks every
-name and shape. (A deserialisation-only artifact, ``torch.export`` with
-the kernels registered as custom ops, is queued in ROADMAP.md.)
+A bundle directory is what ``serve.export_bundle`` writes: a versioned
+``manifest.json``, ``params.npz`` (the parameter payload) and one
+``torch.export`` program per batch bucket (and per decode slot capacity).
+:class:`Bundle` loads it by deserialization alone: it imports none of the
+graph, topology, layer, network, model or config modules and never
+builds a topology. ``params.npz`` goes onto the bundle's device once;
+each bucket's program is deserialized at its first use, under a lock,
+moved to that device (one program serves every platform the manifest
+lists) and cached. The kernels inside the programs are the registered
+ops of ``paddle_tpu_torch.ops`` (``_register_ops``), which launch the
+hand-written kernels on the card and run their plain versions on the CPU.
 
-A quantized bundle (``export_bundle(quantize="int8")``) keeps its int8
-tensors int8 and its scale sidecars float32 on the device; every forward
-of ``run`` dequantizes the conv weights for that forward
-(``quantize.dequant_for_forward``), and ``fc`` runs its int8 weight in the
-dequant-fused kernel.
+The programs hold the export's compute dtype: a bundle exported under the
+bfloat16 policy computes in bfloat16 whatever the serving process's
+policy, and its outputs come back as float32 arrays. A quantized bundle
+keeps its int8 tensors int8 on the device; its programs dequantize
+inside.
 
 A bundle exported with ``decode_slots`` also runs the continuous-batching
-decode step (serve/export.py ``_make_decode_step``) for the scheduler
-(serve/scheduler.py): ``zero_carry``, ``decode_step``, and the session
-tier's ``carry_slice`` / ``carry_insert``. The step runs eagerly, one
-kernel launch per recurrent layer a window; its shapes are the slot
-capacity and the window, so admission and retirement change tensor values
-only.
+decode step for the scheduler (serve/scheduler.py): ``zero_carry``,
+``decode_step``, and the session tier's ``carry_slice`` /
+``carry_insert``; its shapes are the slot capacity and the window, so
+admission and retirement change tensor values only.
+
+Bundles written before the programs existed (a manifest ``builder``
+entry and no artifacts) are refused with a message to re-export them.
 """
 
-import importlib
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.place import resolve_device
-from paddle_tpu_torch.core.sequence import SequenceBatch
 from paddle_tpu_torch.data.bucketing import bucket_index
-from paddle_tpu_torch.serve.quantize import dequant_for_forward
 
 MANIFEST_NAME = "manifest.json"
 BUNDLE_FORMAT = "paddle_tpu_torch-bundle-v1"
+# the torch device types a bundle's programs can be listed for
+PLATFORMS = ("cpu", "cuda")
 
 # input kinds (manifest "kind") -> flat feed keys:
 #   dense      f32 [B, dim]                      keys: [name]
@@ -48,6 +52,19 @@ BUNDLE_FORMAT = "paddle_tpu_torch-bundle-v1"
 SEQ_KINDS = ("seq_index", "seq_dense")
 
 
+def is_bundle(path):
+    """True when ``path`` is a bundle directory (manifest present and of
+    the bundle format: a parameter tar or a checkpoint directory is not)."""
+    manifest = os.path.join(path, MANIFEST_NAME)
+    if not (os.path.isdir(path) and os.path.isfile(manifest)):
+        return False
+    try:
+        with open(manifest) as fh:
+            return json.load(fh).get("format") == BUNDLE_FORMAT
+    except (OSError, ValueError):
+        return False
+
+
 def flat_keys(spec):
     """Flat feed keys of one manifest input spec, in feed order."""
     if spec["kind"] in SEQ_KINDS:
@@ -55,25 +72,26 @@ def flat_keys(spec):
     return [spec["name"]]
 
 
-def build_outputs(builder):
-    """Call a manifest ``builder`` entry: the output layer(s) it returns,
-    built with fresh name counters so layer names match the export."""
-    from paddle_tpu_torch.graph import reset_name_counters
+def sorted_dict(d):
+    """``d`` with its keys in sorted order: the order a program's dict
+    arguments are exported and called in."""
+    return dict(sorted(d.items()))
 
-    fn = getattr(importlib.import_module(builder["module"]),
-                 builder["function"])
-    reset_name_counters()
-    return fn(**builder.get("kwargs", {}))
+
+def _register_ops():
+    """Import the kernel modules, which register the ops the programs
+    call (``torch.ops.paddle_tpu_torch.*``); a program naming an op that
+    is not registered does not load."""
+    from paddle_tpu_torch.ops import (conv_kernels, gru_kernels,  # noqa: F401
+                                      int8_kernels, lstm_kernels)
 
 
 class Bundle:
-    """A loaded bundle: manifest, the rebuilt topology, and its parameters
-    resident on ``device`` (the card unless ``device="cpu"``)."""
+    """A loaded bundle: manifest, the parameters resident on ``device``
+    (the card unless ``device="cpu"``) and its programs, deserialized at
+    first use and cached per bucket."""
 
     def __init__(self, directory, device=None):
-        from paddle_tpu_torch.convert import params_from_numpy
-        from paddle_tpu_torch.topology import Topology
-
         self.directory = os.path.abspath(directory)
         self.device = resolve_device(device)
         with open(os.path.join(self.directory, MANIFEST_NAME)) as fh:
@@ -83,27 +101,75 @@ class Bundle:
                              % (directory, BUNDLE_FORMAT,
                                 self.manifest.get("format")))
         self.name = self.manifest.get("name", "model")
+        if "builder" in self.manifest or any(
+                "artifact" not in b for b in self.manifest["buckets"]):
+            raise ValueError(
+                "bundle %s holds no exported programs (it names a builder "
+                "and was written before the bundle held programs): "
+                "re-export it with export_bundle or cli export"
+                % directory)
+        platforms = self.manifest.get("platforms") or []
+        if self.device.type not in platforms:
+            raise ValueError(
+                "bundle %s has no program for device %s (exported for %s);"
+                " re-export with platforms including %r"
+                % (directory, self.device, platforms, self.device.type))
         self.inputs = self.manifest["inputs"]
         self.outputs = self.manifest["outputs"]
         self.seq_len = self.manifest.get("seq_len")
-        # the quantization block of a quantized bundle (serve/quantize.py)
+        # the quantization block of a quantized bundle: descriptive here,
+        # the dequantization is inside the programs
         self.quantization = self.manifest.get("quantization")
         self.buckets = sorted(self.manifest["buckets"],
                               key=lambda b: b["batch"])
         if not self.buckets:
             raise ValueError("bundle %s has no batch buckets" % directory)
-        outputs = build_outputs(self.manifest["builder"])
-        self.topology = Topology(outputs)
         self._out_names = [o["name"] for o in self.outputs]
         with np.load(os.path.join(self.directory,
                                   self.manifest["params_file"])) as pz:
-            arrays = {k: pz[k] for k in pz.files}
-        self.params = params_from_numpy(arrays, self.topology, self.device,
-                                        quantization=self.quantization)
+            self.params = {k: torch.from_numpy(np.ascontiguousarray(pz[k]))
+                           .to(self.device) for k in sorted(pz.files)}
+        _register_ops()
+        self._programs = {}  # artifact -> callable module
+        # seconds per deserialized artifact, in load order: their number
+        # is the port's counterpart of the JAX bundle's compile count
+        # (GET /debug/compiles)
+        self.load_seconds = {}
         # the engine's async warmup thread and its batcher worker may both
-        # run a forward; one at a time keeps the device work ordered
+        # reach a cold bucket or run a forward; one at a time keeps the
+        # loads single and the device work ordered
+        self._lock = threading.Lock()
         self._run_lock = threading.Lock()
-        self._decode_step = None
+        # CUDA-event milliseconds of the last ``run`` on the card, from
+        # before the program's first launch to after its last (None on
+        # the CPU)
+        self.last_device_ms = None
+
+    def _load(self, artifact):
+        """The program in ``artifact``, deserialized, moved to the
+        bundle's device and cached at first use."""
+        program = self._programs.get(artifact)
+        if program is None:
+            with self._lock:
+                program = self._programs.get(artifact)
+                if program is None:
+                    from torch.export.passes import move_to_device_pass
+
+                    t0 = time.perf_counter()
+                    exported = torch.export.load(
+                        os.path.join(self.directory, artifact))
+                    program = move_to_device_pass(
+                        exported, str(self.device)).module()
+                    self.load_seconds[artifact] = time.perf_counter() - t0
+                    self._programs[artifact] = program
+        return program
+
+    def program(self, batch):
+        """The loaded program of one bucket batch size (JAX's
+        ``executable(batch)``): ``program(params, flat) -> {output:
+        tensor}`` on device tensors, deserialized at first use."""
+        bucket = next(b for b in self.buckets if b["batch"] == batch)
+        return self._load(bucket["artifact"])
 
     # -- bucket/shape machinery ---------------------------------------------
     def batch_sizes(self):
@@ -162,40 +228,37 @@ class Bundle:
                                       int(lens.min()), int(lens.max())))
 
     # -- execution ----------------------------------------------------------
-    def _feed(self, flat_inputs):
-        feed = {}
-        for spec in self.inputs:
-            data = torch.as_tensor(np.asarray(flat_inputs[spec["name"]]),
-                                   device=self.device)
-            if spec["kind"] in SEQ_KINDS:
-                lens = torch.as_tensor(
-                    np.asarray(flat_inputs[spec["name"] + ":lens"],
-                               dtype=np.int32), device=self.device)
-                feed[spec["name"]] = SequenceBatch(data, lens)
-            else:
-                feed[spec["name"]] = data
-        return feed
+    def device_inputs(self, flat):
+        """Flat numpy (or tensor) inputs as tensors on the bundle's
+        device, in sorted key order (a program's argument)."""
+        return {k: torch.as_tensor(v if torch.is_tensor(v)
+                                   else np.asarray(v), device=self.device)
+                for k, v in sorted(flat.items())}
 
     def run(self, flat_inputs, batch):
         """Run one exact-bucket batch (no padding logic). Returns
-        ``{output_name: np.ndarray}``."""
+        ``{output_name: np.ndarray}`` (float32 for bfloat16 outputs); on
+        the card ``last_device_ms`` holds the program's time by CUDA
+        events."""
         for key, arr in flat_inputs.items():
             if np.shape(arr)[0] != batch:
                 raise ValueError("input %r has %d rows, bucket is %d"
                                  % (key, np.shape(arr)[0], batch))
-        with self._run_lock:
-            params = self.params
-            if self.quantization:
-                params = dequant_for_forward(params, self.quantization)
-            values, _ = self.topology.apply(params,
-                                            self._feed(flat_inputs),
-                                            mode="test")
-            out = {}
-            for name in self._out_names:
-                val = values[name]
-                val = val.data if isinstance(val, SequenceBatch) else val
-                out[name] = val.float().cpu().numpy()
-        return out
+        program = self.program(batch)
+        with self._run_lock, torch.inference_mode():
+            feed = self.device_inputs(flat_inputs)
+            if self.device.type != "cuda":
+                out = program(self.params, feed)
+                return {name: _host(out[name]) for name in self._out_names}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = program(self.params, feed)
+            end.record()
+            # the readback waits for the card, so both events are done
+            host = {name: _host(out[name]) for name in self._out_names}
+            self.last_device_ms = start.elapsed_time(end)
+            return host
 
     def warmup(self):
         """Run every bucket once on dummy inputs (the kernels build and the
@@ -236,16 +299,6 @@ class Bundle:
             "no decode artifact for slot capacity %r (exported: %s)"
             % (slots, [int(b["slots"]) for b in buckets]))
 
-    def _decode_fn(self):
-        """The decode step over the rebuilt topology (built once)."""
-        if self._decode_step is None:
-            from paddle_tpu_torch.serve.export import _make_decode_step
-
-            specs = [s for s in self.inputs if s["kind"] in SEQ_KINDS]
-            self._decode_step = _make_decode_step(
-                self.topology, specs, self._out_names, self.quantization)
-        return self._decode_step
-
     def zero_carry(self, slots=None, device=None):
         """The virgin recurrent carry for one slot capacity,
         ``{recurrent_layer: [zeros [slots, ...], ...]}`` per the manifest's
@@ -265,15 +318,16 @@ class Bundle:
         (the scheduler's one readback a window is its own). The step
         returns new carry tensors and never writes ``carry``: callers
         rebind (``carry, outs = bundle.decode_step(carry, ...)``)."""
-        slots = int(self._decode_bucket(slots)["slots"])
+        bucket = self._decode_bucket(slots)
+        slots = int(bucket["slots"])
         lens = flat["lens"]
         if np.shape(lens) != (slots,):
             raise ValueError("decode step for %d slots got lens of shape %s"
                              % (slots, np.shape(lens)))
-        feed = {k: torch.as_tensor(v, device=self.device)
-                for k, v in flat.items()}
-        with self._run_lock:
-            return self._decode_fn()(self.params, carry, feed)
+        program = self._load(bucket["artifact"])
+        with self._run_lock, torch.inference_mode():
+            return program(self.params, sorted_dict(carry),
+                           self.device_inputs(flat))
 
     def carry_slice(self, carry, index):
         """One slot's carry rows as fresh device copies, ``{layer: [row,
@@ -355,6 +409,14 @@ class Bundle:
         return "Bundle(%r, buckets=%s, inputs=%s, device=%s%s)" % (
             self.name, self.batch_sizes(), [i["name"] for i in self.inputs],
             self.device, quant)
+
+
+def _host(tensor):
+    """A program's output as a host array (bfloat16 widened to
+    float32)."""
+    if tensor.dtype == torch.bfloat16:
+        tensor = tensor.float()
+    return tensor.cpu().numpy()
 
 
 def pad_rows(arr, to_rows):

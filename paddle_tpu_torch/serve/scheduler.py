@@ -38,9 +38,15 @@ Observability: per-iteration ``serve_decode``, per-request
 labels. The one readback a window (the outputs to the host) happens inside
 the ``serve_decode`` span.
 
-Not ported yet: request tracing (``trace=``, ``stats()["trace"]``), the
-health history and ``register_knobs`` (with the knob-only admission and
-park budgets), and the replica fleets' ``replica`` label.
+Request tracing as in the engine: ``submit(trace=...)`` carries a
+``TraceContext`` by value to the worker (and, for a session's spill, to
+the writer thread); every retired request offers its phase breakdown
+(``queue_ms``, ``spill_restore_ms``, ``decode_ms``, ``serialize_ms``) to
+the exemplar reservoir and the health history, and a sampled one also
+writes its ``serve_trace`` record. ``register_knobs`` adopts the live
+knobs (``max_queue``, ``idle_spill_ms``, ``admit_budget``,
+``park_budget``). The replica fleets' ``replica`` label waits for
+serve/fleet.py.
 """
 
 import collections
@@ -51,9 +57,11 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from paddle_tpu_torch.observe import health as observe_health
 from paddle_tpu_torch.observe import metrics as observe_metrics
 from paddle_tpu_torch.observe import spans as observe_spans
 from paddle_tpu_torch.observe import steplog as observe_steplog
+from paddle_tpu_torch.observe import tracing as observe_tracing
 from paddle_tpu_torch.serve.bundle import SEQ_KINDS
 from paddle_tpu_torch.serve.engine import Overloaded
 from paddle_tpu_torch.serve.sessions import (SessionGone, SessionState,
@@ -64,10 +72,11 @@ from paddle_tpu_torch.utils.logger import logger
 class _DecodeRequest:
     __slots__ = ("data", "length", "future", "t_enqueue", "t_admit",
                  "req_id", "collected", "session", "priority",
-                 "end_session")
+                 "end_session", "trace", "t_defer", "spill_wait_ms",
+                 "restore_ms", "iters")
 
     def __init__(self, data, length, req_id, session=None,
-                 priority=None, end_session=False):
+                 priority=None, end_session=False, trace=None):
         self.data = data          # {input_name: [T, ...] array}
         self.length = length
         self.future = Future()
@@ -78,19 +87,30 @@ class _DecodeRequest:
         self.session = None if session is None else str(session)
         self.priority = priority
         self.end_session = bool(end_session)
+        # request tracing: the TraceContext crosses the submit->worker hop
+        # on the request; the phase accumulators feed the serve_trace
+        # breakdown and the exemplar reservoir
+        self.trace = trace
+        self.t_defer = None       # waiting on its session's spill
+        self.spill_wait_ms = 0.0
+        self.restore_ms = 0.0
+        self.iters = 0            # decode window dispatches spanned
 
 
 class _ResidentSession:
     """A session whose carry lives in the slot matrix (active while its
     request decodes, *parked* between requests)."""
 
-    __slots__ = ("sid", "pos", "priority", "last_active")
+    __slots__ = ("sid", "pos", "priority", "last_active", "trace")
 
     def __init__(self, sid, priority=None, pos=0):
         self.sid = sid
         self.pos = int(pos)
         self.priority = priority or "normal"
         self.last_active = time.monotonic()
+        # the last request's TraceContext: a later spill of this session
+        # records its writer-thread span in that request's lane
+        self.trace = None
 
 
 class _Slot:
@@ -161,6 +181,13 @@ class ContinuousScheduler:
         self.paging = bool(paging)
         self.idle_spill_ms = (None if idle_spill_ms is None
                               else float(idle_spill_ms))
+        # knob-set admission and paging budgets (cv guarded):
+        # ``admit_budget`` caps the fresh admissions of one planning
+        # iteration (parked continues never count), ``park_budget`` caps
+        # the sessions parked in slots before the LRU ones spill without
+        # queue pressure. None leaves both unbounded.
+        self.admit_budget = None
+        self.park_budget = None
         self._labels = {"model": str(model)} if model else {}
         self._seq_specs = [s for s in bundle.inputs
                            if s["kind"] in SEQ_KINDS]
@@ -329,11 +356,9 @@ class ContinuousScheduler:
         array[T, ...]} (one output row per timestep). With ``session_id``
         the decode continues that session's carry (a new id starts fresh;
         an evicted id raises :class:`SessionGone`, the 410 path).
-        ``trace`` (request tracing) is not ported yet and raises."""
-        if trace is not None:
-            raise NotImplementedError(
-                "ContinuousScheduler.submit(trace=...): request tracing is "
-                "not ported yet")
+        ``trace`` is an optional upstream
+        :class:`~paddle_tpu_torch.observe.tracing.TraceContext`; without
+        one the scheduler samples at ``PADDLE_TPU_TORCH_TRACE_SAMPLE``."""
         data, length = self._normalize(inputs)
         sid = None if session_id is None else str(session_id)
         if sid is not None:
@@ -351,18 +376,24 @@ class ContinuousScheduler:
                     and len(self._queue) >= self.max_queue):
                 self._stats["shed"] += 1
                 self._m_shed.inc()
+                observe_health.get_history().record_shed("queue_full")
                 raise Overloaded(
                     "decode queue full: %d requests queued >= "
                     "max_queue=%d" % (len(self._queue), self.max_queue),
                     model=self.model, reason="queue_full",
                     queued=len(self._queue))
             self._req_counter += 1
+            # the dice rolls only for admitted requests, so the sampled
+            # count never exceeds the requests that write a serve_trace
             req = _DecodeRequest(data, length, self._req_counter,
                                  session=sid, priority=priority,
-                                 end_session=end_session)
+                                 end_session=end_session,
+                                 trace=observe_tracing.resolve(trace))
             self._queue.append(req)
             self._in_flight += 1
             self._m_queue_depth.set(len(self._queue))
+            observe_health.get_history().record_queue_depth(
+                len(self._queue))
             self._m_in_flight.set(self._in_flight)
             self._cv.notify_all()
         return req.future
@@ -453,14 +484,55 @@ class ContinuousScheduler:
             out["model"] = self.model
         out["ready"] = self.ready()
         out["latency_ms"] = self._m_latency.percentiles()
+        out["trace"] = observe_tracing.trace_state()
         return out
 
     def register_knobs(self, registry, prefix="sched"):
-        """The live knobs of the JAX scheduler (docs/control.md) come with
-        the controller, which is not ported yet."""
-        raise NotImplementedError(
-            "ContinuousScheduler.register_knobs: the live knobs are not "
-            "ported yet (they need control/)")
+        """Adopt the scheduler's live-adjustable parameters into a
+        :class:`~paddle_tpu_torch.control.knobs.KnobRegistry`
+        (paddle_tpu/serve/scheduler.py). Never the program shapes:
+        ``slots`` and ``window`` are the decode program's, and moving
+        them would need another program. Apply hooks re-take the cv and
+        notify it, so a lowered park budget spills at once.
+        ``idle_spill_ms`` registers only when idle spilling was
+        configured; ``admit_budget``/``park_budget`` start at ``slots``,
+        where they change nothing until the controller moves them."""
+        from paddle_tpu_torch.control.knobs import Knob
+
+        with self._cv:
+            max_queue = self.max_queue
+            idle_spill_ms = self.idle_spill_ms
+            admit_budget = self.admit_budget
+            park_budget = self.park_budget
+
+        def _setter(attr, cast):
+            def _apply(v):
+                with self._cv:
+                    setattr(self, attr, cast(v))
+                    self._cv.notify_all()
+            return _apply
+
+        if max_queue is not None:
+            registry.register(Knob(
+                prefix + ".max_queue", value=max_queue,
+                min=self.slots, max=1 << 16, step=self.slots,
+                integer=True, apply=_setter("max_queue", int)))
+        if self.paging and idle_spill_ms is not None:
+            registry.register(Knob(
+                prefix + ".idle_spill_ms", value=idle_spill_ms,
+                min=1.0, max=600000.0, step=25.0,
+                apply=_setter("idle_spill_ms", float)))
+        registry.register(Knob(
+            prefix + ".admit_budget",
+            value=self.slots if admit_budget is None else admit_budget,
+            min=1, max=self.slots, step=1, integer=True,
+            apply=_setter("admit_budget", int)))
+        if self.paging:
+            registry.register(Knob(
+                prefix + ".park_budget",
+                value=self.slots if park_budget is None else park_budget,
+                min=0, max=self.slots, step=1, integer=True,
+                cost_hint="heavy", apply=_setter("park_budget", int)))
 
     def stop(self, timeout=30.0):
         """Drain queued and in-slot sequences, stop the worker and the
@@ -644,20 +716,24 @@ class ContinuousScheduler:
 
     # -- worker -------------------------------------------------------------
     def _spills_due_locked(self, now):
-        """Forced or idle-threshold spills waiting to run (cv held).
-        Forced spills run even with ``paging=False``; only the idle
-        threshold is a paging feature."""
+        """Forced, idle-threshold or park-budget spills waiting to run (cv
+        held). Forced spills run even with ``paging=False``; the idle
+        threshold and the park budget are paging features."""
+        parked = 0
         for slot in self._slots:
             ses = slot.session
             if ses is None or slot.req is not None:
                 continue
+            parked += 1
             if ses.sid in self._spill_asap:
                 return True
             if (self.paging and self.idle_spill_ms is not None
                     and (now - ses.last_active) * 1e3
                     >= self.idle_spill_ms):
                 return True
-        return False
+        # a park budget below the parked population is due work too
+        return (self.paging and self.park_budget is not None
+                and parked > self.park_budget)
 
     def _free_slot_possible_locked(self):
         """A request with no resident slot can be admitted iff some slot is
@@ -762,22 +838,51 @@ class ContinuousScheduler:
                     # session's own queued request waits for the commit
                     self._pending_spills[ses.sid] = True
                     self._detach_locked(i, spilling=True)
-            # 2. the queue in arrival order
+            # 1b. park-budget pressure: the LRU parked sessions beyond
+            # the budget spill even without queue pressure
+            if self.paging and self.park_budget is not None:
+                parked = [(i, s.session) for i, s in enumerate(self._slots)
+                          if s.session is not None and s.req is None]
+                excess = len(parked) - int(self.park_budget)
+                if excess > 0:
+                    parked.sort(key=lambda t: t[1].last_active)
+                    for i, ses in parked[:excess]:
+                        plan.spills.append((i, ses))
+                        self._pending_spills[ses.sid] = True
+                        self._detach_locked(i, spilling=True)
+            # 2. the queue in arrival order; ``admit_budget`` caps the
+            # fresh admissions (sessionless, brand-new, restores)
             leftovers = collections.deque()
+            admit_budget = self.admit_budget
+            fresh = 0
             while self._queue:
                 req = self._queue.popleft()
                 sid = req.session
                 if sid is None:
+                    if admit_budget is not None and fresh >= admit_budget:
+                        leftovers.append(req)
+                        continue
                     idx = self._claim_slot_locked(plan)
                     if idx is None:
                         leftovers.append(req)
                         continue
                     self._attach_locked(idx, req, now)
                     plan.admitted.append(idx)
+                    fresh += 1
                     continue
                 if sid in self._pending_spills:
+                    if req.t_defer is None:
+                        # waiting on its own session's spill: charged to
+                        # the spill_restore phase, not to queue wait
+                        req.t_defer = time.perf_counter()
                     leftovers.append(req)  # the writer is mid-commit
                     continue
+                if req.t_defer is not None:
+                    # the spill committed: the wait on it ends at the
+                    # first scan that sees it
+                    req.spill_wait_ms += (time.perf_counter()
+                                          - req.t_defer) * 1e3
+                    req.t_defer = None
                 res_idx = self._session_slots.get(sid)
                 if res_idx is not None:
                     if self._slots[res_idx].req is not None:
@@ -786,6 +891,9 @@ class ContinuousScheduler:
                     self._attach_locked(res_idx, req, now)
                     continue  # parked continue: reset=0, no restore
                 # suspended / brand-new / evicted
+                if admit_budget is not None and fresh >= admit_budget:
+                    leftovers.append(req)
+                    continue
                 try:
                     state = store.pop(sid)
                 except SessionGone as exc:
@@ -805,6 +913,7 @@ class ContinuousScheduler:
                     plan.admitted.append(idx)
                 else:
                     plan.restores.append((idx, state))
+                fresh += 1
             self._queue = leftovers
             self._m_queue_depth.set(len(self._queue))
             self._in_flight -= len(plan.failures)
@@ -842,6 +951,9 @@ class ContinuousScheduler:
         slot.req = req
         slot.pos = 0
         req.t_admit = time.perf_counter()
+        if req.t_defer is not None:
+            req.spill_wait_ms += (req.t_admit - req.t_defer) * 1e3
+            req.t_defer = None
         if req.session is not None:
             ses = slot.session
             if ses is None or ses.sid != req.session:
@@ -849,6 +961,7 @@ class ContinuousScheduler:
                 slot.session = ses
                 self._session_slots[req.session] = idx
             ses.last_active = now
+            ses.trace = req.trace
             if req.priority:
                 ses.priority = req.priority
         else:
@@ -949,9 +1062,10 @@ class ContinuousScheduler:
                 rows = self.bundle.carry_slice(self._carry, idx)
                 host, copied = self._spill_copy(rows)
                 with self._swap_cv:
-                    # the device rows ride along until the copy landed
+                    # the device rows ride along until the copy landed;
+                    # the trace context crosses to the writer by value
                     self._swap_q.append((ses.sid, rows, host, copied,
-                                         ses.pos, ses.priority))
+                                         ses.pos, ses.priority, ses.trace))
                     self._swap_cv.notify_all()
                 enqueued += 1
         except Exception:
@@ -968,13 +1082,19 @@ class ContinuousScheduler:
                     [SessionState(ses.sid, {}, ses.pos)], reason="error")
             raise
         for idx, state in plan.restores:
+            # the restoring request is attached already: the restore's
+            # time and span go to its trace lane and spill_restore phase
+            restored_req = self._slots[idx].req
+            ctx = restored_req.trace if restored_req is not None else None
             with observe_spans.span(
                     "serve_swap_restore",
-                    args={"session": state.session_id,
-                          "slot": idx}) as scope:
+                    args={"session": state.session_id, "slot": idx},
+                    trace=None if ctx is None else ctx.child()) as scope:
                 self._carry = self.bundle.carry_insert(self._carry,
                                                        state.carry, idx)
             restore_ms = scope.dur * 1e3
+            if restored_req is not None:
+                restored_req.restore_ms += restore_ms
             with self._cv:
                 self._stats["restores"] += 1
             self._m_restores.inc()
@@ -1031,6 +1151,8 @@ class ContinuousScheduler:
                 self._m_retired.inc(len(retired))
             self._m_iter_ms.observe(infer_ms)
             self._m_occupancy.set(active / self.slots)
+            observe_health.get_history().record_occupancy(
+                active / self.slots)
             if self._slog is not None:
                 self._slog.log_serve_decode(
                     iteration=self._iter_counter, active=active,
@@ -1043,7 +1165,7 @@ class ContinuousScheduler:
             # deliver last, and no matter what: a client waking from
             # infer() finds stats() and the step log already reflecting
             # its request, and a raising sink never strands a result
-            for req, result in deliveries:
+            for req, result, _t_ser in deliveries:
                 if not req.future.done():
                     req.future.set_result(result)
 
@@ -1057,11 +1179,13 @@ class ContinuousScheduler:
                     self._swap_cv.wait()
                 if not self._swap_q:
                     return  # stopped and drained
-                sid, rows, host, copied, pos, priority = \
-                    self._swap_q.popleft()
+                (sid, rows, host, copied, pos, priority,
+                 trace) = self._swap_q.popleft()
             try:
-                with observe_spans.span("serve_swap_spill",
-                                        args={"session": sid}) as scope:
+                with observe_spans.span(
+                        "serve_swap_spill", args={"session": sid},
+                        trace=None if trace is None
+                        else trace.child()) as scope:
                     if copied is not None:
                         copied.synchronize()
                     carry = {layer: [leaf.numpy().copy() for leaf in leaves]
@@ -1117,8 +1241,9 @@ class ContinuousScheduler:
         """Hand each occupied slot its window of outputs; retire sequences
         that finished (a session's slot parks, carry kept, unless the
         request closed it) and emit their per-request telemetry. Returns
-        ``(retired requests, [(request, result)])``; the caller resolves
-        the futures once the iteration's accounting landed."""
+        ``(retired requests, [(request, result, t_serialize)])``; the
+        caller resolves the futures once the iteration's accounting
+        landed."""
         retired = []
         closed = 0
         t_done = time.perf_counter()
@@ -1127,6 +1252,7 @@ class ContinuousScheduler:
             req, k = slot.req, int(lens[i])
             if req is None or k == 0:
                 continue
+            req.iters += 1  # decode dispatches this request spanned
             # copies, not views: a view would pin the whole [slots,
             # window, ...] array until retirement
             req.collected.append({name: outs[name][i, :k].copy()
@@ -1156,12 +1282,16 @@ class ContinuousScheduler:
             self._stats["rows"] += len(retired)
         self._m_requests.inc(len(retired))
         self._m_rows.inc(len(retired))
+        # results and stamps first, telemetry after: the tracing's own
+        # cost is not billed to later retirees' serialize phase
         deliveries = []
         for req in retired:
-            deliveries.append((req, {
-                name: np.concatenate([c[name] for c in req.collected],
-                                     axis=0)
-                for name in self._out_names}))
+            result = {name: np.concatenate([c[name] for c in req.collected],
+                                           axis=0)
+                      for name in self._out_names}
+            deliveries.append((req, result, time.perf_counter()))
+        exemplars = observe_tracing.get_exemplars()
+        for req, _result, t_ser in deliveries:
             # a telemetry failure loses telemetry, never results: these
             # requests are already detached from their slots
             try:
@@ -1173,7 +1303,54 @@ class ContinuousScheduler:
                     self._slog.log_serve_request(
                         rows=1, queue_ms=queue_ms, latency_ms=latency_ms,
                         req_id=req.req_id)
+                # consecutive intervals of enqueue -> serialized result,
+                # the session tier's spill wait and restore pulled out of
+                # queue and decode
+                phases = {
+                    "queue_ms": max(queue_ms - req.spill_wait_ms, 0.0),
+                    "spill_restore_ms": (req.spill_wait_ms
+                                         + req.restore_ms),
+                    "decode_ms": max((t_done - req.t_admit) * 1e3
+                                     - req.restore_ms, 0.0),
+                    "serialize_ms": (t_ser - t_done) * 1e3,
+                }
+                trace_total_ms = (t_ser - req.t_enqueue) * 1e3
+                exemplars.offer(trace_total_ms, phases, model=self.model,
+                                session=req.session,
+                                trace_id=(req.trace.trace_id
+                                          if req.trace else None))
+                observe_health.get_history().record_request(
+                    latency_ms, phases)
+                if req.trace is not None:
+                    self._emit_trace(req, phases, trace_total_ms, t_done,
+                                     t_ser)
             except Exception:  # noqa: BLE001 — lose telemetry, not results
                 logger.exception("per-request telemetry emission failed; "
                                  "result still delivered")
         return retired, deliveries
+
+    def _emit_trace(self, req, phases, latency_ms, t_done, t_ser):
+        """A sampled request's trace at retirement: its phase spans,
+        recorded after the fact (each a child context, so the exporter
+        links them into the request's lane), and the ``serve_trace``
+        record the tail attribution reads."""
+        ctx = req.trace
+        tracer = observe_spans.get_tracer()
+        args = {"id": req.req_id}
+        if req.session is not None:
+            args["session"] = req.session
+        tracer.add_event("serve_queue_wait", req.t_enqueue,
+                         req.t_admit - req.t_enqueue, args=args,
+                         trace=ctx.child())
+        tracer.add_event("serve_decode_seq", req.t_admit,
+                         t_done - req.t_admit,
+                         args=dict(args, iterations=req.iters),
+                         trace=ctx.child())
+        tracer.add_event("serve_serialize", t_done, t_ser - t_done,
+                         args=args, trace=ctx.child())
+        if self._slog is not None:
+            self._slog.log_serve_trace(
+                latency_ms=latency_ms, phases=phases,
+                trace_id=ctx.trace_id, span_id=ctx.span_id,
+                model=self.model, req_id=req.req_id, rows=1,
+                iterations=req.iters, session=req.session)

@@ -878,16 +878,20 @@ class SGD:
         self._sync_back()
         self.parameters.to_tar(f)
 
-    def export_inference_bundle(self, builder, out_dir, **export_kw):
-        """Sync the trained parameters back and export a serving bundle of
-        the topology ``builder`` builds (``"module.path:function"`` or a
-        manifest builder entry; serve/export.py export_bundle kwargs pass
-        through). The bundle carries the trained parameters that topology
-        reads (export_bundle's ``trained=True``)."""
+    def export_inference_bundle(self, output_layer, out_dir, **export_kw):
+        """Sync the trained parameters back and export the inference
+        forward over ``output_layer`` as a serving bundle
+        (paddle_tpu/trainer.py ``export_inference_bundle``;
+        serve/export.py export_bundle kwargs pass through). The programs
+        take the trainer's whole parameter set, as the JAX package's do,
+        and serve on the trainer's device type unless ``platforms`` says
+        otherwise. The train -> export -> serve demo path:
+        demos/fit_a_line/train.py."""
         from paddle_tpu_torch.serve.export import export_bundle
 
         self._sync_back()
-        return export_bundle(builder, self.parameters, out_dir, trained=True,
+        export_kw.setdefault("platforms", (self.device.type,))
+        return export_bundle(output_layer, self.parameters, out_dir,
                              **export_kw)
 
     # -- checkpoints (paddle_tpu/trainer.py:988-1210) ------------------------

@@ -52,8 +52,9 @@ from paddle_tpu_torch.ops import lstm_kernels as lk
 from paddle_tpu_torch.ops import rnn as torch_rnn
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import load_bundle
-from paddle_tpu_torch.serve.export import export_bundle, parse_builder
+from paddle_tpu_torch.serve.export import export_bundle
 from paddle_tpu_torch.topology import Topology
+from tests.torch_decode import port_model
 
 TOL = 1e-5
 B, T, H = 5, 9, 16
@@ -494,7 +495,7 @@ def test_trained_tagger_serves_from_a_bundle(tmp_path):
         device="cpu")
     trainer.train(lambda: iter(_batches(n=2, seed=16)), num_passes=1)
     out_dir = str(tmp_path / "tagger")
-    trainer.export_inference_bundle(parse_builder(BUILDER, SMALL), out_dir,
+    trainer.export_inference_bundle(port_model(BUILDER, **SMALL), out_dir,
                                     batch_sizes=(4,), seq_len=12)
     bundle = load_bundle(out_dir, device="cpu")
     assert bundle.outputs[0]["name"] == "tag_scores"
@@ -511,27 +512,34 @@ def test_trained_tagger_serves_from_a_bundle(tmp_path):
 
 
 def test_export_keeps_the_served_names_of_a_trained_superset(tmp_path):
-    """``export_bundle(trained=True)`` takes a trainer's parameters (the
-    served scores' and the CRF's transitions) and writes only the names
-    the served topology declares; without it the extra name is refused,
-    and a declared name the superset lacks is refused either way."""
+    """``export_bundle`` takes a trainer's whole parameter set (the served
+    scores' and the CRF's transitions), as the JAX package's does: the
+    programs take every name as an argument and read the served ones, so
+    the transitions ride along in params.npz, in both packages; a
+    declared name the set lacks is refused."""
+    from paddle_tpu.serve.export import export_bundle as jax_export
+
     _, cost = _tagger(paddle, text, reset_name_counters, **SMALL)
     topo = Topology(cost)
-    values = {k: torch.from_numpy(v) for k, v in _numpy_params(
-        topo.param_specs(), seed=18).items()}
+    arrays = _numpy_params(topo.param_specs(), seed=18)
+    values = {k: torch.from_numpy(v) for k, v in arrays.items()}
     params = Parameters(values, topo.param_specs())
-    builder = parse_builder(BUILDER, SMALL)
-    with pytest.raises(Exception, match="tag_crf.w0"):
-        export_bundle(builder, params, str(tmp_path / "strict"),
-                      batch_sizes=(4,), seq_len=12)
+    served = port_model(BUILDER, **SMALL)
     out_dir = str(tmp_path / "served")
-    export_bundle(builder, params, out_dir, batch_sizes=(4,), seq_len=12,
-                  trained=True)
+    export_bundle(served, params, out_dir, batch_sizes=(4,), seq_len=12)
     bundle = load_bundle(out_dir, device="cpu")
-    assert sorted(bundle.params) == sorted(
-        n for n in values if n != "tag_crf.w0")
+    assert sorted(bundle.params) == sorted(values)
+    assert "tag_crf.w0" in bundle.params
+    jscores, jcost = _tagger(jpaddle, jax_text, jax_reset_names, **SMALL)
+    jparams = jpaddle.parameters.create(jcost)
+    for name, arr in arrays.items():
+        jparams.set(name, arr)
+    jax_export(jscores, jparams, str(tmp_path / "jax"), batch_sizes=(4,),
+               seq_len=12)
+    with np.load(str(tmp_path / "jax" / "params.npz")) as pz:
+        assert sorted(pz.files) == sorted(bundle.params)
     short = {k: v for k, v in values.items() if k != "tag_fwd.w0"}
     with pytest.raises(Exception, match="tag_fwd.w0"):
-        export_bundle(builder, Parameters(short, topo.param_specs()),
+        export_bundle(served, Parameters(short, topo.param_specs()),
                       str(tmp_path / "short"), batch_sizes=(4,),
-                      seq_len=12, trained=True)
+                      seq_len=12)

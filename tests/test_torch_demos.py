@@ -64,12 +64,12 @@ TOL_GRAD = 1e-4
 SUBPROCESS_ENV = dict(os.environ, OMP_NUM_THREADS="1")
 
 
-def run_demo(script, args, timeout=600):
+def run_demo(script, args, timeout=600, cwd=ROOT):
     proc = subprocess.run(
         [sys.executable, "-m", "paddle_tpu_torch.demo",
          os.path.join(DEMOS, script)] + list(args) + ["--cpu"],
-        capture_output=True, text=True, timeout=timeout, cwd=ROOT,
-        env=SUBPROCESS_ENV)
+        capture_output=True, text=True, timeout=timeout, cwd=cwd,
+        env=dict(SUBPROCESS_ENV, PYTHONPATH=ROOT))
     return proc
 
 
@@ -340,6 +340,43 @@ def test_fit_a_line_step_matches_jax():
     jbuilt, built, mod = _both_built("fit_a_line/train.py",
                                      lambda m: m.build())
     _step_both(jbuilt[1], built[1], _first(mod.uci_housing.train(), 8))
+
+
+def test_fit_a_line_exports_at_its_default_path_like_jax(tmp_path):
+    """fit_a_line at its default ``--export`` (``fit_a_line_bundle`` in the
+    working directory): the demo trains, exports through
+    ``trainer.export_inference_bundle(pred, ...)``, reloads the bundle and
+    holds it against live inference itself. The port's bundle then answers
+    as a JAX bundle exported from the same trained parameters, and its
+    manifest names what the JAX one names."""
+    from paddle_tpu.serve import load_bundle as jax_load
+    from paddle_tpu.serve.export import export_bundle as jax_export
+    from paddle_tpu_torch.serve import load_bundle
+
+    proc = run_demo("fit_a_line/train.py", ["--quick"], cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "exported bundle to fit_a_line_bundle (buckets [1, 4, 32])" \
+        in proc.stdout, proc.stdout[-2000:]
+    assert "bundle reload matches live inference" in proc.stdout
+    port = load_bundle(str(tmp_path / "fit_a_line_bundle"), device="cpu")
+    jmod = _jax_demo("fit_a_line/train.py")
+    jax_reset_names()
+    jpred, jcost = jmod.build()
+    jparams = jmod.Parameters.create(jcost)
+    with np.load(str(tmp_path / "fit_a_line_bundle" / "params.npz")) as pz:
+        for name in pz.files:
+            jparams.set(name, pz[name])
+    jax_dir = str(tmp_path / "jax_bundle")
+    jax_export(jpred, jparams, jax_dir, batch_sizes=(1, 4, 32),
+               name="fit_a_line")
+    ref = jax_load(jax_dir)
+    for key in ("name", "inputs", "outputs", "seq_len", "compute_dtype"):
+        assert port.manifest[key] == ref.manifest[key], key
+    assert port.batch_sizes() == ref.batch_sizes()
+    x = np.stack([s[0] for s in _first(jmod.uci_housing.test(), 5)])
+    np.testing.assert_allclose(port.infer({"x": x})["fal_predict"],
+                               ref.infer({"x": x})["fal_predict"],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("data", ["uniform", "mnist"])

@@ -90,12 +90,11 @@ def test_generation_input_validation(lm_pair, prime, steps, match):
 
 def test_generation_needs_a_decoder(tmp_path):
     from paddle_tpu_torch.serve import export_bundle, load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
     from tests.torch_decode import (numpy_params, port_parameters,
                                     port_topology)
 
     topo = port_topology(GRU_BUILDER, **LM)
-    export_bundle(parse_builder(GRU_BUILDER, LM),
+    export_bundle(topo.outputs,
                   port_parameters(topo, numpy_params(topo.param_specs())),
                   str(tmp_path), batch_sizes=(1,), seq_len=8)
     with pytest.raises(ValueError, match="decode artifacts"):

@@ -81,6 +81,22 @@ def test_import_scan_covers_the_text_layers(part):
                 if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
 
 
+@pytest.mark.parametrize("part", [
+    "serve/export.py", "serve/bundle.py", "serve/engine.py",
+    "serve/server.py", "serve/scheduler.py", "observe/tracing.py",
+    "observe/health.py", "control/__init__.py", "control/knobs.py",
+    "control/controller.py"])
+def test_import_scan_covers_the_serving_modules(part):
+    """The scan reads the AOT bundle's modules and the serving tier's
+    tracing, health and control copies, and none of them imports JAX or
+    the JAX package."""
+    sources = {os.path.relpath(p, PKG): p for p in _port_sources()
+               if p.startswith(PKG + os.sep)}
+    assert part in sources
+    assert not [m for m in _imported_modules(sources[part])
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -92,15 +108,13 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch,
     from paddle_tpu_torch.models.text import text_classification_lstm
     from paddle_tpu_torch.parameters import Parameters
     from paddle_tpu_torch.serve import export_bundle, load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
     from paddle_tpu_torch.topology import Topology
 
     builder = "paddle_tpu_torch.models.text:text_classification_lstm"
     kw = dict(dict_size=20, emb_size=8, hidden=8)
     out = text_classification_lstm(**kw)
     params = Parameters.create(Topology(out), device="cpu")
-    export_bundle(parse_builder(builder, kw), params, str(tmp_path),
-                  batch_sizes=(1,), seq_len=4)
+    export_bundle(out, params, str(tmp_path), batch_sizes=(1,), seq_len=4)
     _no_card(monkeypatch)
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
@@ -114,11 +128,12 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch,
             call()
     assert resolve_device("cpu") == torch.device("cpu")
     assert load_bundle(str(tmp_path), device="cpu").device.type == "cpu"
-    # export writes files and runs nothing, so it needs no device at all
-    manifest = export_bundle(parse_builder(builder, kw), params,
-                             str(tmp_path / "again"), batch_sizes=(1,),
-                             seq_len=4)
+    # export traces on the parameters' device and runs nothing: CPU
+    # parameters export a CPU bundle without a card
+    manifest = export_bundle(out, params, str(tmp_path / "again"),
+                             batch_sizes=(1,), seq_len=4)
     assert manifest["outputs"][0]["shape_suffix"] == [2]
+    assert manifest["platforms"] == ["cpu"]
 
 
 def _kernel_args(dtype=torch.float32, steps=5, batch=3, hidden=8):

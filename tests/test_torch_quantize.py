@@ -51,9 +51,9 @@ from paddle_tpu_torch.ops import int8_kernels as ik
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import InferenceEngine, export_bundle, load_bundle
 from paddle_tpu_torch.serve import quantize as pq
-from paddle_tpu_torch.serve.export import parse_builder
 from paddle_tpu_torch.topology import Topology
 from paddle_tpu_torch.utils.error import EnforceError
+from tests.torch_decode import port_model
 
 MLP_BUILDER = "paddle_tpu_torch.models.vision:mlp"
 LSTM_BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
@@ -239,7 +239,7 @@ def test_export_refuses_other_schemes(tmp_path):
     params = _port_params(topo, _numpy_params(topo.param_specs()))
     with pytest.raises(EnforceError, match=r"unsupported quantize scheme "
                        r"'fp16' \(only 'int8'\)"):
-        export_bundle(parse_builder(MLP_BUILDER), params,
+        export_bundle(port_model(MLP_BUILDER), params,
                       str(tmp_path / "b"), quantize="fp16")
 
 
@@ -252,7 +252,7 @@ def _export_pair(tmp_path, model, batch_sizes, seq_len=None):
     arrays = _numpy_params(topo.param_specs(), seed=7)
     _, _, kwargs, builder = MODELS[model]
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
-    manifest = export_bundle(parse_builder(builder, kwargs),
+    manifest = export_bundle(port_model(builder, **kwargs),
                              _port_params(topo, arrays), port_dir,
                              batch_sizes=batch_sizes, seq_len=seq_len,
                              quantize="int8")
@@ -310,7 +310,7 @@ def test_int8_resnet18_matches_the_jax_forward_over_dequant_for_trace(
     topo, jtopo, jout = _both("resnet18")
     arrays = _numpy_params(topo.param_specs(), seed=9)
     out_dir = str(tmp_path / "b")
-    export_bundle(parse_builder(RESNET_BUILDER, RESNET18),
+    export_bundle(port_model(RESNET_BUILDER, **RESNET18),
                   _port_params(topo, arrays), out_dir, batch_sizes=(2,),
                   quantize="int8")
     bundle = load_bundle(out_dir, device="cpu")
@@ -342,7 +342,7 @@ def _gate(got, want):
 def test_accuracy_gate_on_the_port_mlp(tmp_path):
     topo, _, _ = _both("mlp")
     params = Parameters.create(topo, seed=0, device="cpu")
-    builder = parse_builder(MLP_BUILDER)
+    builder = port_model(MLP_BUILDER)
     export_bundle(builder, params, str(tmp_path / "fp"), batch_sizes=(8,))
     export_bundle(builder, params, str(tmp_path / "q"), batch_sizes=(8,),
                   quantize="int8")
@@ -360,7 +360,7 @@ def test_accuracy_gate_on_the_port_mlp(tmp_path):
 def test_accuracy_gate_on_the_port_flagship_through_the_engine(tmp_path):
     topo, _, _ = _both("flagship")
     params = _port_params(topo, _numpy_params(topo.param_specs(), seed=1))
-    builder = parse_builder(LSTM_BUILDER, SMALL)
+    builder = port_model(LSTM_BUILDER, **SMALL)
     export_bundle(builder, params, str(tmp_path / "fp"), batch_sizes=(1, 8),
                   seq_len=SEQ_LEN)
     export_bundle(builder, params, str(tmp_path / "q"), batch_sizes=(1, 8),

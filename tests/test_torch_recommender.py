@@ -60,9 +60,9 @@ from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import (InferenceEngine, export_bundle,
                                     load_bundle, serve_in_thread)
 from paddle_tpu_torch.serve import quantize as pq
-from paddle_tpu_torch.serve.export import parse_builder
 from paddle_tpu_torch.topology import Topology, convert_feed
 from paddle_tpu_torch.utils.error import EnforceError
+from tests.torch_decode import port_model
 
 TOL_FWD = 1e-5
 TOL_GRAD = 5e-6
@@ -458,7 +458,7 @@ def score_bundles(request, tmp_path_factory):
     arrays = _numpy_params(Topology(score).param_specs(), seed=11)
     tmp = tmp_path_factory.mktemp("ml_" + request.param)
     port_dir, jax_dir = str(tmp / "port"), str(tmp / "jax")
-    manifest = export_bundle(parse_builder(SCORE_BUILDER, MOVIELENS),
+    manifest = export_bundle(port_model(SCORE_BUILDER, **MOVIELENS),
                              _port_params(Topology(score), arrays), port_dir,
                              batch_sizes=(1, 4), seq_len=SEQ_LEN,
                              quantize=quantize)
@@ -531,8 +531,8 @@ def test_ctr_bundle_at_1m_dims_is_refused_in_both_packages(tmp_path):
     arrays = _numpy_params(Topology(logit).param_specs())
     match = "sparse slots at/above sparse_feed_threshold"
     with pytest.raises(EnforceError, match=match):
-        export_bundle(parse_builder(
-            "paddle_tpu_torch.models.recommender:wide_deep_ctr", config),
+        export_bundle(port_model(
+            "paddle_tpu_torch.models.recommender:wide_deep_ctr", **config),
             _port_params(Topology(logit), arrays), str(tmp_path / "port"))
     jparams = JaxParameters()
     jparams._specs = JaxTopology(jlogit).param_specs()

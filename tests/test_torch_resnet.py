@@ -58,8 +58,8 @@ from paddle_tpu_torch.ops import conv_kernels as ck
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import (InferenceEngine, export_bundle,
                                     load_bundle, serve_in_thread)
-from paddle_tpu_torch.serve.export import parse_builder
 from paddle_tpu_torch.topology import Topology
+from tests.torch_decode import port_model
 
 BUILDER = "paddle_tpu_torch.models.vision:resnet"
 SMALL = dict(depth=50, num_classes=10, im_size=32)
@@ -259,7 +259,7 @@ def resnet_bundle(tmp_path_factory):
                          _numpy_params(topo.param_specs(), seed=4).items()},
                         topo.param_specs())
     out_dir = str(tmp_path_factory.mktemp("resnet"))
-    export_bundle(parse_builder(BUILDER, SMALL), params, out_dir,
+    export_bundle(port_model(BUILDER, **SMALL), params, out_dir,
                   batch_sizes=(1, 4))
     return out_dir, out, params
 
@@ -318,7 +318,7 @@ def test_trained_resnet_bundle_carries_its_moving_statistics(tmp_path):
         device="cpu")
     trainer.train(lambda: iter(_batches(1, seed=6)), num_passes=1)
     out_dir = str(tmp_path / "trained")
-    trainer.export_inference_bundle(parse_builder(BUILDER, SMALL), out_dir,
+    trainer.export_inference_bundle(port_model(BUILDER, **SMALL), out_dir,
                                     batch_sizes=(2,))
     bundle = load_bundle(out_dir, device="cpu")
     stats = [n for n in bundle.params if n.endswith(".moving_var")]

@@ -61,8 +61,12 @@ def test_decode_manifest_block_matches_jax(tmp_path, model):
     dec, jdec = manifest["decode"], jmanifest["decode"]
     assert sorted(dec) == sorted(jdec) == ["carry", "slots", "window"]
     assert dec["window"] == jdec["window"] == 8
-    # the port writes no AOT artifact: a slot entry is its capacity alone
-    assert dec["slots"] == [{"slots": b["slots"]} for b in jdec["slots"]]
+    # one decode-step program per slot capacity, as JAX's one artifact
+    assert dec["slots"] == [{"slots": b["slots"],
+                             "artifact": "step_s%d.pt2" % b["slots"]}
+                            for b in jdec["slots"]]
+    assert [b["artifact"] for b in jdec["slots"]] == [
+        "step_s%d.jaxexp" % b["slots"] for b in jdec["slots"]]
     assert dec["carry"] == jdec["carry"]
     leaves = 2 if model == "lstm" else 1
     assert [len(v) for v in dec["carry"].values()] == [leaves]
@@ -376,15 +380,27 @@ def test_scheduler_refusals(gru_pair, tmp_path):
             sched.submit({"word": np.array([1], np.int32)})
         assert exc.value.reason == "queue_full"
         assert sched.stats()["shed"] == 1
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            sched.submit({"word": np.array([1], np.int32)}, trace=object())
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            sched.register_knobs(None)
+        # a traced request is shed like any other, and the live knobs
+        # register with the JAX scheduler's names
+        from paddle_tpu.control import KnobRegistry as JaxKnobs
+        from paddle_tpu.serve import ContinuousScheduler as JaxScheduler
+        from paddle_tpu_torch.control import KnobRegistry
+        from paddle_tpu_torch.observe.tracing import TraceContext
+
+        with pytest.raises(Overloaded, match="max_queue=0"):
+            sched.submit({"word": np.array([1], np.int32)},
+                         trace=TraceContext.mint())
+        knobs = KnobRegistry()
+        sched.register_knobs(knobs)
+        jknobs = JaxKnobs()
+        JaxScheduler.register_knobs(sched, jknobs)
+        assert knobs.names() == jknobs.names() == [
+            "sched.admit_budget", "sched.max_queue", "sched.park_budget"]
+        assert knobs.snapshot() == jknobs.snapshot()
     from paddle_tpu_torch.serve import export_bundle, load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
 
     topo = port_topology(GRU_BUILDER, **SMALL)
-    export_bundle(parse_builder(GRU_BUILDER, SMALL),
+    export_bundle(topo.outputs,
                   port_parameters(topo, numpy_params(topo.param_specs())),
                   str(tmp_path / "plain"), batch_sizes=(1,), seq_len=8)
     with pytest.raises(ValueError, match="decode_slots= for continuous"):

@@ -18,7 +18,6 @@ from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import (InferenceEngine, export_bundle,
                                     load_bundle, serve_in_thread)
 from paddle_tpu_torch.serve.bundle import pad_rows
-from paddle_tpu_torch.serve.export import parse_builder
 from paddle_tpu_torch.topology import Topology
 
 BUILDER = "paddle_tpu_torch.models.text:text_classification_lstm"
@@ -39,8 +38,7 @@ def port_bundle(tmp_path_factory):
         if name.endswith("wbias"):
             params.set(name, rng.randn(*params.get(name).shape) * 0.3)
     out_dir = str(tmp_path_factory.mktemp("bundle"))
-    export_bundle(parse_builder(BUILDER, SMALL), params, out_dir,
-                  batch_sizes=(1, 4), seq_len=SEQ_LEN)
+    export_bundle(out, params, out_dir, batch_sizes=(1, 4), seq_len=SEQ_LEN)
     return out_dir, out, params
 
 
@@ -56,7 +54,9 @@ def _as_batch(req):
 def test_engine_matches_port_infer(port_bundle):
     out_dir, out, params = port_bundle
     bundle = load_bundle(out_dir, device="cpu")
-    assert bundle.manifest["builder"]["kwargs"] == SMALL
+    assert "builder" not in bundle.manifest
+    assert [b["artifact"] for b in bundle.manifest["buckets"]] == [
+        "fwd_b1.pt2", "fwd_b4.pt2"]
     rng = np.random.RandomState(0)
     engine = InferenceEngine(bundle, max_latency_ms=20.0)
     try:
@@ -118,7 +118,8 @@ def test_jax_params_npz_serves_like_the_jax_bundle(tmp_path):
     jax_export(jout, jparams, jax_dir, batch_sizes=(1, 4), seq_len=SEQ_LEN)
 
     port_dir = str(tmp_path / "port")
-    export_bundle(parse_builder(BUILDER, SMALL),
+    reset_name_counters()
+    export_bundle(text_classification_lstm(**SMALL),
                   Parameters.from_npz(str(tmp_path / "jax" / "params.npz")),
                   port_dir, batch_sizes=(1, 4), seq_len=SEQ_LEN)
     port = load_bundle(port_dir, device="cpu")
@@ -185,21 +186,30 @@ def test_cli_export_and_selfcheck(tmp_path, capsys):
     assert check["stats"]["warmup_batches"] == 2
 
 
-def test_export_records_output_specs_without_running_the_model():
-    """Output specs come from the output layers' widths: [size] per row
-    after pooling, [seq_len, size] for a sequence output."""
+def test_export_records_output_specs_without_running_the_model(
+        port_bundle, tmp_path, monkeypatch):
+    """Output specs come from the traced program's outputs (JAX's come
+    from ``out_avals``): [size] per row after pooling, [seq_len, size]
+    for a sequence output. Tracing runs no kernel and no plain version."""
     from paddle_tpu_torch import data_type, layer, networks
-    from paddle_tpu_torch.serve.export import is_sequence, output_specs
+    from paddle_tpu_torch.ops import lstm_kernels
 
+    with open(port_bundle[0] + "/manifest.json") as fh:
+        assert json.load(fh)["outputs"] == [
+            {"name": "lstm_out", "dtype": "float32", "shape_suffix": [2]}]
     reset_name_counters()
-    out = text_classification_lstm(**SMALL)
-    assert output_specs(Topology(out), SEQ_LEN) == [
-        {"name": "lstm_out", "dtype": "float32", "shape_suffix": [2]}]
     words = layer.data(name="w", type=data_type.integer_value_sequence(9))
     emb = layer.embedding(input=words, size=4, name="e")
     lstm = networks.simple_lstm(input=emb, size=6, name="l")
-    assert is_sequence(words) and is_sequence(lstm)
-    assert output_specs(Topology(lstm), 7) == [
+
+    def refuse(*args):
+        raise AssertionError("the export ran the model")
+
+    monkeypatch.setattr(lstm_kernels, "lstm_seq_fwd_reference", refuse)
+    manifest = export_bundle(
+        lstm, Parameters.create(Topology(lstm), seed=1, device="cpu"),
+        str(tmp_path), batch_sizes=(2,), seq_len=7)
+    assert manifest["outputs"] == [
         {"name": lstm.name, "dtype": "float32", "shape_suffix": [7, 6]}]
 
 
@@ -217,9 +227,20 @@ def test_export_refuses_parameters_that_do_not_fit(port_bundle, tmp_path,
         values["stray.w0"] = values[name]
     else:
         values[name] = values[name][:1]
+    reset_name_counters()
+    out = text_classification_lstm(**SMALL)
+    if change == "extra":
+        # names the topology does not declare ride along, as a trainer's
+        # whole set does in the JAX package (a CRF's transitions): the
+        # "unexpected" parameter is carried, not refused
+        export_bundle(out, Parameters(values), str(tmp_path),
+                      batch_sizes=(1,), seq_len=SEQ_LEN)
+        with np.load(str(tmp_path / "params.npz")) as pz:
+            assert "stray.w0" in pz.files
+        return
     with pytest.raises(EnforceError, match=match):
-        export_bundle(parse_builder(BUILDER, SMALL), Parameters(values),
-                      str(tmp_path), batch_sizes=(1,), seq_len=SEQ_LEN)
+        export_bundle(out, Parameters(values), str(tmp_path),
+                      batch_sizes=(1,), seq_len=SEQ_LEN)
 
 
 def test_bundle_refuses_bad_lengths_and_oversized_batches(port_bundle):
@@ -240,3 +261,124 @@ def test_pad_rows_replicates_the_last_row():
     np.testing.assert_array_equal(padded[2:], [[3, 4, 5], [3, 4, 5]])
     with pytest.raises(ValueError):
         pad_rows(arr, 1)
+
+
+def _jax_twin(tmp_path, params):
+    """The JAX package's bundle of the small flagship with ``params``'
+    values."""
+    from paddle_tpu.graph import reset_name_counters as jax_reset_names
+    from paddle_tpu.models.text import text_classification_lstm as jax_model
+    from paddle_tpu.parameters import Parameters as JaxParameters
+    from paddle_tpu.serve import load_bundle as jax_load
+    from paddle_tpu.serve.export import export_bundle as jax_export
+    from paddle_tpu.topology import Topology as JaxTopology
+
+    jax_reset_names()
+    jout = jax_model(**SMALL)
+    jparams = JaxParameters()
+    jparams._specs = JaxTopology(jout).param_specs()
+    jparams._values = {k: params.get(k) for k in params.names()}
+    jax_export(jout, jparams, str(tmp_path / "jax"), batch_sizes=(1, 4),
+               seq_len=SEQ_LEN)
+    return jax_load(str(tmp_path / "jax"))
+
+
+def test_engine_metrics_stats_and_shedding_match_jax(port_bundle, tmp_path):
+    """The engine's metric families (names and labels), its stats() keys
+    and its queue-bound shedding are the JAX engine's, on the same
+    requests; the answers agree within 1e-5."""
+    from paddle_tpu.observe.metrics import MetricsRegistry as JaxRegistry
+    from paddle_tpu.serve import InferenceEngine as JaxEngine
+    from paddle_tpu.serve import Overloaded as JaxOverloaded
+
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.serve import Overloaded
+
+    out_dir, _, params = port_bundle
+    ref = _jax_twin(tmp_path, params)
+    bundle = load_bundle(out_dir, device="cpu")
+    rng = np.random.RandomState(12)
+    reqs = [_request(rng, n) for n in (1, 3, 2)]
+    runs = {}
+    for name, make, reg, shed in (
+            ("port", lambda r: InferenceEngine(
+                bundle, max_latency_ms=1.0, metrics_registry=r,
+                model="m", replica=0, max_queue_rows=4), MetricsRegistry(),
+             Overloaded),
+            ("jax", lambda r: JaxEngine(
+                ref, max_latency_ms=1.0, metrics_registry=r, model="m",
+                replica=0, max_queue_rows=4), JaxRegistry(),
+             JaxOverloaded)):
+        engine = make(reg)
+        try:
+            answers = [engine.infer(r)["lstm_out"] for r in reqs]
+            # a 4-row request fills the bound until its batch flushes;
+            # the 1-row one behind it is shed
+            with engine._cv:
+                engine.submit(_request(rng, 4))
+                with pytest.raises(shed, match="max_queue_rows=4"):
+                    engine.submit(_request(rng, 1))
+            stats = engine.stats()
+        finally:
+            engine.stop()
+        runs[name] = (answers, reg.snapshot(), stats)
+    (got, snap, stats), (want, jsnap, jstats) = runs["port"], runs["jax"]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for kind in ("counters", "gauges", "histograms"):
+        # build_info names each package's framework version
+        assert sorted(k for k in snap[kind] if "build_info" not in k) == \
+            sorted(k for k in jsnap[kind] if "build_info" not in k), kind
+    for key in ('paddle_tpu_serve_requests_total{model="m",replica="0"}',
+                'paddle_tpu_serve_rows_total{model="m",replica="0"}'):
+        assert snap["counters"][key] == jsnap["counters"][key]
+    assert snap["counters"][
+        'paddle_tpu_serve_shed_total{model="m",reason="queue_full",'
+        'replica="0"}'] >= 1
+    assert set(jstats) <= set(stats)
+    assert stats["shed"] >= 1 and stats["model"] == "m"
+
+
+def test_http_routes_answer_as_the_jax_server(port_bundle):
+    """/livez, /metrics, /stats, /debug/traces, /debug/slo,
+    /debug/compiles and /manifest answer; /debug/control is 404 without
+    a controller; traceparent is echoed."""
+    bundle = load_bundle(port_bundle[0], device="cpu")
+    engine = InferenceEngine(bundle, max_latency_ms=2.0)
+    server, thread = serve_in_thread(bundle, engine)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        req = _request(np.random.RandomState(13), 2)
+        parent = "00-%s-%s-01" % ("ab" * 16, "cd" * 8)
+        http_req = urllib.request.Request(
+            url + "/infer",
+            data=json.dumps({"inputs": {k: v.tolist()
+                                        for k, v in req.items()}}).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": parent})
+        with urllib.request.urlopen(http_req) as fh:
+            assert fh.headers["traceparent"].split("-")[1] == "ab" * 16
+        for path in ("/livez", "/stats", "/debug/traces", "/debug/slo",
+                     "/debug/compiles", "/manifest"):
+            with urllib.request.urlopen(url + path) as fh:
+                body = json.loads(fh.read())
+                assert fh.status == 200, path
+            if path == "/debug/compiles":
+                # the two buckets' programs, loaded at warmup
+                assert body == {"compiles": 2}
+            if path == "/manifest":
+                assert body == bundle.manifest
+            if path == "/debug/slo":
+                assert body["state"] == "no_objective"
+        with urllib.request.urlopen(url + "/metrics") as fh:
+            text = fh.read().decode()
+        assert "paddle_tpu_serve_requests_total" in text
+        assert "paddle_tpu_serve_request_latency_ms" in text
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(url + "/debug/control")
+        assert exc.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        engine.stop()

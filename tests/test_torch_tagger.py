@@ -55,9 +55,9 @@ from paddle_tpu_torch.ops import gru_kernels as gk
 from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import (InferenceEngine, export_bundle,
                                     load_bundle, serve_in_thread)
-from paddle_tpu_torch.serve.export import parse_builder
 from paddle_tpu_torch.topology import Topology
 from paddle_tpu_torch.utils.error import EnforceError
+from tests.torch_decode import port_model
 
 BUILDER = "paddle_tpu_torch.models.text:sequence_tagging_gru"
 SMALL = dict(dict_size=50, label_size=5, emb_size=8, hidden=16)
@@ -250,7 +250,7 @@ def tagger_bundle(tmp_path_factory):
                          _numpy_params(topo.param_specs(), seed=2).items()},
                         topo.param_specs())
     out_dir = str(tmp_path_factory.mktemp("tagger"))
-    export_bundle(parse_builder(BUILDER, SMALL), params, out_dir,
+    export_bundle(port_model(BUILDER, **SMALL), params, out_dir,
                   batch_sizes=(1, 4), seq_len=SEQ_LEN)
     return out_dir, out, params
 
@@ -328,7 +328,7 @@ def test_jax_tagger_params_serve_like_the_jax_bundle(tmp_path):
     jax_dir = str(tmp_path / "jax")
     jax_export(jout, jparams, jax_dir, batch_sizes=(1, 4), seq_len=SEQ_LEN)
     port_dir = str(tmp_path / "port")
-    export_bundle(parse_builder(BUILDER, SMALL),
+    export_bundle(port_model(BUILDER, **SMALL),
                   Parameters.from_npz(str(tmp_path / "jax" / "params.npz")),
                   port_dir, batch_sizes=(1, 4), seq_len=SEQ_LEN)
     port, ref = load_bundle(port_dir, device="cpu"), JaxBundle(jax_dir)
@@ -363,7 +363,7 @@ def test_export_refuses_decode_slots(tmp_path):
     reset_name_counters()
     params = Parameters.create(Topology(sequence_tagging_gru(**SMALL)),
                                device="cpu")
-    builder = parse_builder(BUILDER, SMALL)
+    builder = port_model(BUILDER, **SMALL)
     with pytest.raises(EnforceError, match="decode_slots must be positive"):
         export_bundle(builder, params, str(tmp_path), seq_len=SEQ_LEN,
                       decode_slots=(0, 4))
@@ -373,7 +373,8 @@ def test_export_refuses_decode_slots(tmp_path):
     manifest = export_bundle(builder, params, str(tmp_path),
                              seq_len=SEQ_LEN, decode_slots=(4,))
     assert manifest["decode"]["window"] == 8
-    assert manifest["decode"]["slots"] == [{"slots": 4}]
+    assert manifest["decode"]["slots"] == [{"slots": 4,
+                                         "artifact": "step_s4.pt2"}]
 
 
 def test_bf16_policy_tagger_tracks_f32():

@@ -185,7 +185,6 @@ def test_trained_bundle_answers_as_inference_infer(tmp_path):
     bundle served on the CPU answers as inference.infer does with them."""
     from paddle_tpu_torch.inference import infer
     from paddle_tpu_torch.serve import load_bundle
-    from paddle_tpu_torch.serve.export import parse_builder
 
     _, (out, cost) = _both_costs()
     params = Parameters.create(Topology(cost), seed=4, device="cpu")
@@ -194,9 +193,7 @@ def test_trained_bundle_answers_as_inference_infer(tmp_path):
     before = params.get("lstm0.w0").copy()
     trainer.train(_reader(_batches(n=2)))
     assert not np.array_equal(params.get("lstm0.w0"), before)
-    builder = parse_builder(
-        "paddle_tpu_torch.models.text:text_classification_lstm", SMALL)
-    trainer.export_inference_bundle(builder, str(tmp_path), batch_sizes=(4,),
+    trainer.export_inference_bundle(out, str(tmp_path), batch_sizes=(4,),
                                     seq_len=16)
     bundle = load_bundle(str(tmp_path), device="cpu")
     ids = np.random.RandomState(5).randint(0, 50, (3, 16)).astype(np.int32)

@@ -3,11 +3,12 @@ test_torch_sessions.py, test_torch_generate.py): the same numpy parameters
 exported with ``decode_slots`` by both packages, at the small sizes of
 tests/test_scheduler.py (tagger hidden 12, slots 2, window 4, seq_len 32).
 
-The port rebuilds a bundle's topology from its builder entry, so the test
-topologies the port has no model for are builders here: ``lstm_tagger``
-(a per-position LSTM head, two carry leaves), ``reverse_gru_tagger`` (not
-streamable) and ``embedding_tagger`` (no carry). ``jax_model`` builds the
-JAX package's twin of any of them by the same names.
+Models are named by builder strings (``"module:function"``) and built by
+``port_model`` (the port's output layer) and ``jax_model`` (the JAX
+package's twin, by the same names); the test topologies the port has no
+model for are builders here: ``lstm_tagger`` (a per-position LSTM head,
+two carry leaves), ``reverse_gru_tagger`` (not streamable) and
+``embedding_tagger`` (no carry).
 """
 
 import json
@@ -95,12 +96,22 @@ def jax_model(builder, **kwargs):
     return getattr(module, function)(**kwargs)
 
 
+def port_model(builder, **kwargs):
+    """The port's output layer for a builder string, built with fresh
+    name counters."""
+    import importlib
+
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    module, _, function = builder.partition(":")
+    reset_name_counters()
+    return getattr(importlib.import_module(module), function)(**kwargs)
+
+
 def port_topology(builder, **kwargs):
-    from paddle_tpu_torch.serve.bundle import build_outputs
-    from paddle_tpu_torch.serve.export import parse_builder
     from paddle_tpu_torch.topology import Topology
 
-    return Topology(build_outputs(parse_builder(builder, kwargs)))
+    return Topology(port_model(builder, **kwargs))
 
 
 def numpy_params(specs, seed=0):
@@ -141,13 +152,13 @@ def export_pair(tmp, builder, kwargs, seed=7, quantize=None, slots=SLOTS,
     """The same numpy parameters exported with a decoder by both packages.
     Returns (port manifest, port dir, JAX manifest, JAX dir)."""
     from paddle_tpu.serve.export import export_bundle as jax_export
-    from paddle_tpu_torch.serve.export import export_bundle, parse_builder
+    from paddle_tpu_torch.serve.export import export_bundle
 
     topology = port_topology(builder, **kwargs)
     arrays = numpy_params(topology.param_specs(), seed)
     jout = jax_model(builder, **kwargs)
     port_dir, jax_dir = str(tmp / "port"), str(tmp / "jax")
-    manifest = export_bundle(parse_builder(builder, kwargs),
+    manifest = export_bundle(topology.outputs,
                              port_parameters(topology, arrays), port_dir,
                              batch_sizes=(1,), seq_len=seq_len,
                              decode_slots=slots, decode_window=window,
