@@ -452,6 +452,34 @@ result line:
            /debug/traces and the serve_trace records' phases sum to their
            latency within 5 %, /debug/slo and /debug/control answer, every
            answer is within 1e-5 of Bundle.infer.
+    serve_fleet  (after serve_observe) serve_aot's bundles behind the
+           router and the fleets. In this process: the flagship fp (high)
+           and int8 (low) and the tagger (continuous, normal) as
+           ReplicaSets of 1, then 2 engine threads on the card; 300
+           requests (1-8 rows of the flagship at seq_len 100, or one
+           tagger sequence of 1-128 tokens) from 4 client threads, each
+           answer within 1e-4 of the same bundle on the CPU, every replica
+           serving, K1 / K9 / K5 launches equal to 2 x batches / 3 x int8
+           batches / decode windows, p50 / p99 / qps per model, the bytes
+           each bundle and fleet added on the card against its manifest's
+           hbm_estimate_bytes; a burst of high past low's pressure ceiling
+           sheds low, never high. In fresh processes, started together:
+           ``cli serve --model fp=...:high --model int8=...:low --workers
+           2`` (100 HTTP requests within 1e-4 of the CPU, /metrics with
+           worker="0" and worker="1", each worker's own counters read
+           before and after the drive: every worker served, its K1 grew
+           by 2 x its batches and K9 by 3 x (int8) or 0 (fp), SIGTERM
+           exits 0 within 30 s leaving no child and no shared-memory
+           segment); ``cli serve TAGGER --continuous --workers 2
+           --respawn-workers`` (16 sessions of 4 chunks, kill -9 of worker
+           0 after chunk 2, every chunk equal to one scheduler on the card
+           bit for bit; once the respawned worker is ready, 2 fresh
+           sessions homed on it, bit for bit, its K5 growing by its decode
+           windows); ``python -m
+           paddle_tpu_torch.serve.remote_store`` and two ``cli serve
+           TAGGER --continuous --session-store-addr`` hosts (8 sessions:
+           chunks 1-2 on A, spilled, A killed -9, chunks 3-4 on B, bit for
+           bit).
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -472,6 +500,7 @@ Needs one CUDA card; exits 2 without one.
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -752,7 +781,15 @@ TOL_INT8 = {"float32": 1e-4, "bfloat16": 1e-2}
 GATE_AGREEMENT, GATE_DRIFT = 0.98, 0.05
 
 
+SCRIPT_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row also carries the seconds since the
+    script started (``t_s``), so a phase's time is the gap to the row
+    before it."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - SCRIPT_T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -4396,7 +4433,8 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
     ops = aot_op_rows(torch, ck, gk, ik, lk, launches)
     return {"bundles": rows, "bf16": bf16_row, "ops": ops,
             "launches": launches,
-            "flagship_dir": jobs["flagship"]["bundle"]}
+            "flagship_dir": jobs["flagship"]["bundle"],
+            "dirs": {name: job["bundle"] for name, job in jobs.items()}}
 
 
 def http_json(url, body=None, headers=None):
@@ -4585,6 +4623,693 @@ def phase_serve_observe(torch, bundle_dir, tmp):
         faults.append("cli serve exited %d" % proc.returncode)
     if faults:
         raise AssertionError("serve_observe: %s" % "; ".join(faults))
+    return row
+
+
+# -- phase serve_fleet: the router, replica fleets, worker processes and
+# the remote session store --------------------------------------------------
+
+FLEET_REQUESTS, FLEET_CLIENTS = 300, 4   # in-process drive, per replica count
+FLEET_MAX_ROWS = 8
+# the shed burst: high floods past low's pressure ceiling, then low submits
+FLEET_BURST_HIGH, FLEET_BURST_LOW, FLEET_LOW_CEILING = 240, 30, 256
+FLEET_HTTP_REQUESTS = 100        # cli serve --model ... --workers 2
+FLEET_SESSIONS, FLEET_CHUNKS = 16, 4   # --continuous --workers 2
+FLEET_LATE_SESSIONS = 2                # homed on the respawned worker
+FLEET_STORE_SESSIONS = 8               # --session-store-addr, hosts A and B
+FLEET_READY_S = 300
+FLEET_TERM_S = 30
+
+
+def fleet_requests(rng, n):
+    """``n`` requests in turn to fp, int8 and the tagger: 1-8 rows of the
+    flagship at seq_len 100, or one tagger sequence of 1-128 tokens."""
+    reqs = []
+    for i in range(n):
+        model = ("fp", "int8", "tagger")[i % 3]
+        if model == "tagger":
+            reqs.append((model, {"word": rng.randint(
+                0, TAGGER["dict_size"], int(rng.randint(1, TAGGER_SEQ + 1)))
+                .astype(np.int32)}))
+        else:
+            reqs.append((model, random_request(
+                rng, int(rng.randint(1, FLEET_MAX_ROWS + 1)), AOT_SEQ,
+                FLAGSHIP["dict_size"])))
+    return reqs
+
+
+def fleet_references(cpu, reqs):
+    """Each request's answer from the same bundles on the CPU: the
+    flagship's rows batched by bucket, the tagger's sequences whole."""
+    want = [None] * len(reqs)
+    for model in ("fp", "int8"):
+        idx = [i for i, (m, _) in enumerate(reqs) if m == model]
+        if not idx:
+            continue
+        rows = {k: np.concatenate([reqs[i][1][k] for i in idx])
+                for k in reqs[idx[0]][1]}
+        out = infer_all(cpu[model], rows)["lstm_out"]
+        lo = 0
+        for i in idx:
+            n = len(reqs[i][1]["word"])
+            want[i] = out[lo:lo + n]
+            lo += n
+    idx = [i for i, (m, _) in enumerate(reqs) if m == "tagger"]
+    if idx:
+        for i, answer in zip(idx, whole_answers(
+                cpu["tagger"], [reqs[i][1]["word"] for i in idx])):
+            want[i] = answer
+    return want
+
+
+def fleet_drive(router, reqs, clients):
+    """``reqs`` through the router from ``clients`` threads, each request
+    waited for; returns the answers, each model's latencies (ms) and the
+    wall seconds."""
+    answers = [None] * len(reqs)
+    latency = {"fp": [], "int8": [], "tagger": []}
+    gate = threading.Barrier(clients + 1)
+    errors = []
+
+    def client(k):
+        gate.wait()
+        try:
+            for i in range(k, len(reqs), clients):
+                model, inputs = reqs[i]
+                t0 = time.perf_counter()
+                answers[i] = router.infer(model, inputs, timeout=120)
+                latency[model].append((time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return answers, latency, wall
+
+
+def fleet_counts(fleet):
+    """Served batches (engines) or decode windows (schedulers) per
+    replica."""
+    return [m.engine.stats().get("iterations" if fleet.continuous
+                                 else "batches", 0)
+            for m in fleet.replicas()]
+
+
+def fleet_settled(fleet, requests, timeout=60):
+    """Wait until the fleet counted ``requests`` completed requests: an
+    engine resolves a batch's futures before it counts the batch."""
+    deadline = time.monotonic() + timeout
+    while fleet.stats()["requests"] < requests:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve_fleet: %r counted %d of %d requests"
+                                 % (fleet, fleet.stats()["requests"],
+                                    requests))
+        time.sleep(0.01)
+
+
+def serve_fleet_in_process(torch, card, cpu, reqs, want, replicas):
+    """Step 1 at one replica count: the router over three ReplicaSets
+    (fp high, int8 low, the tagger continuous at normal), the drive, the
+    answers against the CPU, each replica's batches, the launches against
+    the dispatched programs, the memory each fleet added; with two
+    replicas also the shed burst."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.ops import gru_kernels as gk
+    from paddle_tpu_torch.ops import int8_kernels as ik
+    from paddle_tpu_torch.ops import lstm_kernels as lk
+    from paddle_tpu_torch.serve import ReplicaSet, Router
+    from paddle_tpu_torch.serve.engine import Overloaded
+
+    reg = MetricsRegistry()
+    router = Router(metrics_registry=reg,
+                    shed_capacity={"low": FLEET_LOW_CEILING})
+    memory = {}
+    for name, prio in (("fp", "high"), ("int8", "low"), ("tagger", "normal")):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fleet = ReplicaSet(card[name], replicas=replicas,
+                           continuous=name == "tagger", model=name,
+                           metrics_registry=reg, warmup=True,
+                           engine_kwargs=None if name == "tagger" else
+                           {"max_latency_ms": 2.0})
+        torch.cuda.synchronize()
+        memory[name] = torch.cuda.memory_allocated() - before
+        router.add_model(name, card[name], fleet, priority=prio)
+    fleets = {name: m.engine for name, m in router.models().items()}
+    try:
+        start = {name: fleet_counts(f) for name, f in fleets.items()}
+        before = {name: f.stats()["requests"] for name, f in fleets.items()}
+        for kernels in (lk, gk, ik):
+            kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        floor = torch.cuda.memory_allocated()
+        answers, latency, wall = fleet_drive(router, reqs, FLEET_CLIENTS)
+        torch.cuda.synchronize()
+        for name, fleet in fleets.items():
+            fleet_settled(fleet, before[name] + len(latency[name]))
+        launches = {"k1": lk.launches, "k5": gk.launches,
+                    "k9": ik.launches}
+        served = {name: [b - a for a, b in zip(start[name],
+                                                fleet_counts(f))]
+                  for name, f in fleets.items()}
+        peak = torch.cuda.max_memory_allocated() - floor
+        err = 0.0
+        for (model, _), got, w in zip(reqs, answers, want):
+            key = "gru_tag_out" if model == "tagger" else "lstm_out"
+            err = max(err, check_close(np.asarray(got[key]), w,
+                                       "serve_fleet %s" % model))
+        row = {"phase": "serve_fleet", "step": "in_process",
+               "replicas": replicas, "requests": len(reqs),
+               "clients": FLEET_CLIENTS, "wall_s": wall,
+               "max_abs_err_vs_cpu": err, "launches": launches,
+               "served_per_replica": served,
+               "fleet_added_bytes": memory, "drive_peak_bytes": peak}
+        for model, lats in latency.items():
+            row[model] = {"requests": len(lats),
+                          "p50_ms": float(np.percentile(lats, 50)),
+                          "p99_ms": float(np.percentile(lats, 99)),
+                          "qps": len(lats) / wall}
+        want_launches = {
+            "k1": 2 * (sum(served["fp"]) + sum(served["int8"])),
+            "k9": 3 * sum(served["int8"]), "k5": sum(served["tagger"])}
+        row["launches_expected"] = want_launches
+        faults = launch_faults(launches, want_launches)
+        if not all(n > 0 for counts in served.values() for n in counts):
+            faults.append("a replica served nothing: %r" % served)
+        if replicas > 1:
+            row["shed_burst"] = fleet_shed_burst(router, reqs, Overloaded)
+            if not (row["shed_burst"]["low_shed"] > 0
+                    and row["shed_burst"]["high_shed"] == 0
+                    and row["shed_burst"]["first_shed"] == "low"):
+                faults.append("shed order %r" % row["shed_burst"])
+        emit(row)
+        if faults:
+            raise AssertionError("serve_fleet in_process: %s"
+                                 % "; ".join(faults))
+        return row
+    finally:
+        router.stop()
+
+
+def launch_faults(launches, want):
+    """The drive's launches against those of the dispatched programs."""
+    if launches != want:
+        return ["launches %r, the dispatched programs %r" % (launches, want)]
+    return []
+
+
+WORKER_KERNELS = {"k1": "lstm_seq_fwd", "k5": "gru_seq_fwd",
+                  "k9": "int8_matmul"}
+
+
+def worker_counters(stats):
+    """Each worker's own counters from a fleet's ``/stats``: pid, served
+    requests, batches (engines) or decode windows (schedulers), and its
+    process's K1 / K5 / K9 launches."""
+    out = {}
+    for i, w in stats["per_worker"].items():
+        launches = w.get("kernel_launches", {})
+        out[i] = {"pid": w.get("pid"), "requests": w.get("requests", 0),
+                  "batches": w.get("batches", 0),
+                  "windows": w.get("iterations", 0)}
+        out[i].update({k: launches.get(name, 0)
+                       for k, name in WORKER_KERNELS.items()})
+    return out
+
+
+def worker_growth(read, before, requests, timeout=30):
+    """Each worker's counters after a drive less ``before``, once the
+    workers counted ``requests`` more served requests in all (an engine
+    counts a batch after it answered it); ``read()`` gives
+    :func:`worker_counters`."""
+    deadline = time.monotonic() + timeout
+    while True:
+        after = read()
+        grown = {i: {k: after[i][k] - before[i][k] for k in after[i]
+                     if k != "pid"} for i in after}
+        if sum(g["requests"] for g in grown.values()) >= requests:
+            return grown
+        if time.monotonic() > deadline:
+            raise AssertionError("serve_fleet: the workers counted %r of %d "
+                                 "requests" % (grown, requests))
+        time.sleep(0.05)
+
+
+def worker_launch_faults(model, grown, int8):
+    """A drive's launches in each worker process against its own served
+    batches: every worker served, K1 = 2 x batches, K9 = 3 x batches (int8)
+    or 0, K5 = 0."""
+    faults = []
+    for i, g in grown.items():
+        want = {"k1": 2 * g["batches"], "k9": 3 * g["batches"] if int8
+                else 0, "k5": 0}
+        got = {k: g[k] for k in want}
+        if g["batches"] <= 0 or got != want:
+            faults.append("%s worker %s served %d batches and launched %r "
+                          "(its programs: %r)" % (model, i, g["batches"],
+                                                  got, want))
+    return faults
+
+
+def fleet_shed_burst(router, reqs, overloaded):
+    """High submits a burst without waiting, past low's pressure ceiling;
+    then low submits: low sheds (pressure) first, high never."""
+    rows = [r for m, r in reqs if m == "fp"]
+    sheds, futures = [], []
+    for i in range(FLEET_BURST_HIGH):
+        try:
+            futures.append(router.submit("fp", rows[i % len(rows)]))
+        except overloaded as exc:
+            sheds.append(("high", exc.reason))
+    queued = router.total_queued()
+    for i in range(FLEET_BURST_LOW):
+        try:
+            futures.append(router.submit("int8", rows[i % len(rows)]))
+        except overloaded as exc:
+            sheds.append(("low", exc.reason))
+    for f in futures:
+        f.result(timeout=300)
+    return {"high_submitted": FLEET_BURST_HIGH,
+            "low_submitted": FLEET_BURST_LOW, "queued_at_low": queued,
+            "low_ceiling": FLEET_LOW_CEILING,
+            "low_shed": sum(1 for who, _ in sheds if who == "low"),
+            "high_shed": sum(1 for who, _ in sheds if who == "high"),
+            "reasons": sorted({r for _, r in sheds}),
+            "first_shed": sheds[0][0] if sheds else None}
+
+
+class FleetProcess:
+    """A command of the port in its own process (``python -m ...``), its
+    output in a file of ``tmp`` (read for its banner: a pipe nobody drains
+    would block it)."""
+
+    def __init__(self, tmp, name, argv):
+        self.log = os.path.join(tmp, "fleet_%s.log" % name)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", *argv], stdout=out,
+                stderr=subprocess.STDOUT, text=True, env=env)
+        self.name = name
+        self.url = None
+
+    def output(self):
+        with open(self.log) as fh:
+            return fh.read()
+
+    def wait_for(self, marker, timeout=FLEET_READY_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in self.output().splitlines():
+                if marker in line:
+                    return line
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        raise AssertionError("%s never printed %r (exit %r): %s"
+                             % (self.name, marker, self.proc.poll(),
+                                self.output()[-3000:]))
+
+    def serving(self):
+        banner = self.wait_for("http://")
+        self.url = ("http://" + banner.split("http://", 1)[1]
+                    .split(" ", 1)[0])
+        return self
+
+    def ready(self, timeout=FLEET_READY_S):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                if http_json(self.url + "/readyz")[0] == 200:
+                    return self
+            except OSError:
+                pass
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.2)
+        raise AssertionError("%s never became ready: %s"
+                             % (self.name, self.output()[-3000:]))
+
+    def children(self):
+        """Every child process, whichever of the process's threads started
+        it (/proc; a kernel may list a child's threads there too, which
+        are left out)."""
+        out, pid = [], self.proc.pid
+        for task in os.listdir("/proc/%d/task" % pid):
+            try:
+                with open("/proc/%d/task/%s/children" % (pid, task)) as fh:
+                    out += [int(p) for p in fh.read().split()]
+            except FileNotFoundError:
+                continue  # the thread ended: its children moved to another
+        return [p for p in out if thread_group(p) == p]
+
+    def stop(self, sig=None):
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=FLEET_TERM_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def thread_group(pid):
+    """The process a task belongs to (its Tgid), or None once it is
+    gone."""
+    try:
+        with open("/proc/%d/status" % pid) as fh:
+            for line in fh:
+                if line.startswith("Tgid:"):
+                    return int(line.split()[1])
+    except OSError:
+        return None
+    return None
+
+
+def process_names(pids):
+    """{command line (its first 80 characters): count} of ``pids``
+    (/proc/<pid>/cmdline)."""
+    names = {}
+    for pid in pids:
+        try:
+            with open("/proc/%d/cmdline" % pid, "rb") as fh:
+                name = fh.read().replace(b"\0", b" ").decode()[:80].strip()
+        except OSError:
+            name = "?"
+        names[name] = names.get(name, 0) + 1
+    return names
+
+
+def pid_alive(pid):
+    try:
+        with open("/proc/%d/stat" % pid) as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def shm_segments(pid):
+    from paddle_tpu_torch.serve.workers import SHM_PREFIX
+
+    prefix = "%s-%d-" % (SHM_PREFIX, pid)
+    return [p for p in os.listdir("/dev/shm") if p.startswith(prefix)]
+
+
+def post_json(url, body):
+    code, answer, _ = http_json(url, body)
+    if code != 200:
+        raise AssertionError("POST %s answered %d: %r" % (url, code, answer))
+    return answer
+
+
+def stop_and_check(server, what):
+    """SIGTERM ``server``: it must exit 0 within FLEET_TERM_S and leave no
+    child process and no shared-memory segment."""
+    children = server.children()
+    names = process_names(children)
+    t0 = time.perf_counter()
+    code = server.stop()
+    term_s = time.perf_counter() - t0
+    deadline = time.monotonic() + FLEET_TERM_S
+    while (any(pid_alive(c) for c in children)
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    left = [c for c in children if pid_alive(c)]
+    segments = shm_segments(server.proc.pid)
+    if code != 0 or term_s > FLEET_TERM_S or left or segments:
+        raise AssertionError(
+            "%s: SIGTERM exit %r after %.1f s, children left %r, segments "
+            "left %r: %s" % (what, code, term_s, left, segments,
+                             server.output()[-3000:]))
+    return {"sigterm_exit": code, "sigterm_s": term_s,
+            "children_before": len(children),
+            "children_by_name": names}
+
+
+def serve_fleet_workers_http(dirs, cpu, server, rng):
+    """Step 2: ``cli serve --model fp=...:high --model int8=...:low
+    --workers 2``: 100 HTTP requests against the CPU, the merged /metrics'
+    worker series, each worker's launches, SIGTERM."""
+    server.serving().ready()
+    reqs = [r for r in fleet_requests(rng, FLEET_HTTP_REQUESTS * 3 // 2)
+            if r[0] != "tagger"][:FLEET_HTTP_REQUESTS]
+    want = fleet_references(cpu, reqs)
+
+    def read(model):
+        return lambda: worker_counters(
+            http_json(server.url + "/stats")[1]["models"][model])
+
+    before = {model: read(model)() for model in ("fp", "int8")}
+    err, latencies = 0.0, []
+    for (model, inputs), w in zip(reqs, want):
+        t0 = time.perf_counter()
+        answer = post_json(server.url + "/infer/" + model, {"inputs": {
+            k: v.tolist() for k, v in inputs.items()}})
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, check_close(np.asarray(answer["outputs"]["lstm_out"],
+                                              np.float32), w,
+                                   "serve_fleet workers %s" % model))
+    grown = {model: worker_growth(read(model), before[model], sum(
+        1 for m, _ in reqs if m == model)) for model in ("fp", "int8")}
+    with urllib.request.urlopen(server.url + "/metrics", timeout=60) as fh:
+        metrics = fh.read().decode()
+    row = {"phase": "serve_fleet", "step": "workers_http",
+           "requests": len(reqs), "max_abs_err_vs_cpu": err,
+           "p50_ms": float(np.percentile(latencies, 50)),
+           "p99_ms": float(np.percentile(latencies, 99)),
+           "workers_at_ready": before, "workers_drive": grown,
+           "metrics_worker_series": [w for w in ("0", "1")
+                                     if 'worker="%s"' % w in metrics]}
+    row.update(stop_and_check(server, "cli serve --workers 2"))
+    emit(row)
+    faults = (worker_launch_faults("fp", grown["fp"], False)
+              + worker_launch_faults("int8", grown["int8"], True))
+    if row["metrics_worker_series"] != ["0", "1"]:
+        faults.append("/metrics holds worker series %r"
+                      % row["metrics_worker_series"])
+    if faults:
+        raise AssertionError("serve_fleet workers_http: %s"
+                             % "; ".join(faults))
+    return row
+
+
+def session_chunks(rng, n):
+    """``n`` sessions of FLEET_CHUNKS chunks of 4-24 tokens."""
+    return {"s%02d" % i: [rng.randint(0, TAGGER["dict_size"], int(
+        rng.randint(4, 25))).astype(np.int32) for _ in range(FLEET_CHUNKS)]
+        for i in range(n)}
+
+
+def homed_sessions(rng, n, home):
+    """``n`` sessions of FLEET_CHUNKS chunks whose home on the ring of
+    two workers is worker ``home``."""
+    from paddle_tpu_torch.serve import ConsistentHashRing
+
+    ring, ids, i = ConsistentHashRing([0, 1]), [], 0
+    while len(ids) < n:
+        sid = "late%02d" % i
+        if ring.lookup(sid) == home:
+            ids.append(sid)
+        i += 1
+    return {sid: [rng.randint(0, TAGGER["dict_size"], int(
+        rng.randint(4, 25))).astype(np.int32) for _ in range(FLEET_CHUNKS)]
+        for sid in ids}
+
+
+def uninterrupted(card_tagger, sessions):
+    """Each session's chunks through one continuous scheduler on the card,
+    in order: the answers a fleet must give bit for bit."""
+    from paddle_tpu_torch.observe.metrics import MetricsRegistry
+    from paddle_tpu_torch.serve import ContinuousScheduler
+
+    with ContinuousScheduler(card_tagger,
+                             metrics_registry=MetricsRegistry()) as one:
+        return {sid: [one.infer({"word": c}, session_id=sid,
+                                timeout=120)["gru_tag_out"]
+                      for c in chunks]
+                for sid, chunks in sessions.items()}
+
+
+def post_chunk(url, sid, chunk):
+    answer = post_json(url + "/infer", {"inputs": {"word": chunk.tolist()},
+                                        "session_id": sid})
+    return np.asarray(answer["outputs"]["gru_tag_out"], np.float32)
+
+
+def serve_fleet_rehome(server, sessions, late, want):
+    """Step 3: ``cli serve TAGGER --continuous --workers 2
+    --respawn-workers``: chunks 1-2 of every session, kill -9 of worker 0
+    (the home of about half of them), chunks 3-4; every chunk equals the
+    uninterrupted run bit for bit. Once the respawned worker is ready, the
+    ``late`` sessions (homed on it) run there, bit for bit, and its own K5
+    counter grows by exactly its decode windows."""
+    from paddle_tpu_torch.serve import ConsistentHashRing
+
+    server.serving().ready()
+
+    def read():
+        return worker_counters(http_json(server.url + "/stats")[1])
+
+    got = {sid: [] for sid in list(sessions) + list(late)}
+    for k in range(2):
+        for sid, chunks in sessions.items():
+            got[sid].append(post_chunk(server.url, sid, chunks[k]))
+    victim = "0"
+    old_pid = read()[victim]["pid"]
+    homed = [sid for sid in sessions
+             if str(ConsistentHashRing([0, 1]).lookup(sid)) == victim]
+    t_kill = time.perf_counter()
+    os.kill(old_pid, signal.SIGKILL)
+    for k in range(2, FLEET_CHUNKS):
+        for sid, chunks in sessions.items():
+            got[sid].append(post_chunk(server.url, sid, chunks[k]))
+    rehome_s = time.perf_counter() - t_kill
+    server.ready()
+    ready_s = time.perf_counter() - t_kill
+    at_ready = read()
+    for k in range(FLEET_CHUNKS):
+        for sid, chunks in late.items():
+            got[sid].append(post_chunk(server.url, sid, chunks[k]))
+    grown = worker_growth(read, at_ready, FLEET_CHUNKS * len(late))
+    router = http_json(server.url + "/stats")[1]["router"]
+    mismatched = [sid for sid in got
+                  if not all(np.array_equal(g, w) for g, w
+                             in zip(got[sid], want[sid]))]
+    respawned = grown[victim]
+    row = {"phase": "serve_fleet", "step": "workers_rehome",
+           "sessions": len(sessions), "chunks": FLEET_CHUNKS,
+           "killed_worker": victim, "sessions_homed_there": len(homed),
+           "chunks_3_4_after_kill_s": rehome_s,
+           "respawned_ready_after_kill_s": ready_s,
+           "router": router, "old_pid": old_pid,
+           "new_pid": at_ready[victim]["pid"],
+           "respawned_warmup_k5": at_ready[victim]["k5"],
+           "late_sessions": len(late), "respawned_drive": respawned,
+           "mismatched_sessions": mismatched}
+    row.update(stop_and_check(server, "cli serve --continuous --workers 2"))
+    emit(row)
+    if (mismatched or not homed or row["new_pid"] in (None, old_pid)
+            or respawned["requests"] != FLEET_CHUNKS * len(late)
+            or respawned["windows"] <= 0
+            or respawned["k5"] != respawned["windows"]
+            or not router.get("backup_restores")):
+        raise AssertionError("serve_fleet workers_rehome: %r" % row)
+    return row
+
+
+def serve_fleet_store(store, hosts, sessions, want):
+    """Step 4: the remote store process and two ``cli serve TAGGER
+    --continuous --session-store-addr`` hosts: chunks 1-2 on A, spilled,
+    A killed -9, chunks 3-4 on B, bit for bit."""
+    a, b = (h.serving().ready() for h in hosts)
+    got = {sid: [] for sid in sessions}
+    for k in range(2):
+        for sid, chunks in sessions.items():
+            got[sid].append(post_chunk(a.url, sid, chunks[k]))
+    for sid in sessions:
+        post_json(a.url + "/admin/session/spill", {"session_id": sid})
+    a.stop(signal.SIGKILL)
+    t0 = time.perf_counter()
+    for k in range(2, FLEET_CHUNKS):
+        for sid, chunks in sessions.items():
+            got[sid].append(post_chunk(b.url, sid, chunks[k]))
+    resume_s = time.perf_counter() - t0
+    restores = http_json(b.url + "/stats")[1].get("restores")
+    mismatched = [sid for sid in sessions
+                  if not all(np.array_equal(g, w) for g, w
+                             in zip(got[sid], want[sid]))]
+    row = {"phase": "serve_fleet", "step": "remote_store",
+           "sessions": len(sessions), "host_a_exit": a.proc.returncode,
+           "host_b_restores": restores, "chunks_3_4_on_b_s": resume_s,
+           "mismatched_sessions": mismatched,
+           "host_b_sigterm_exit": b.stop()}
+    store.stop()
+    emit(row)
+    if mismatched or restores != len(sessions) or row[
+            "host_b_sigterm_exit"] != 0:
+        raise AssertionError("serve_fleet remote_store: %r" % row)
+    return row
+
+
+def phase_serve_fleet(torch, aot, tmp):
+    """serve_fleet (module docstring)."""
+    from paddle_tpu_torch.serve import load_bundle
+
+    dirs = {"fp": aot["dirs"]["flagship"],
+            "int8": aot["dirs"]["flagship_int8"],
+            "tagger": aot["dirs"]["tagger"]}
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 48)
+    card, cpu, memory = {}, {}, {}
+    for name, directory in dirs.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        card[name] = load_bundle(directory, device=DEVICE)
+        torch.cuda.synchronize()
+        memory[name] = {
+            "hbm_estimate_bytes": card[name].manifest["hbm_estimate_bytes"],
+            "params_bytes": sum(t.nbytes for t in
+                                card[name].params.values()),
+            "load_added_bytes": torch.cuda.memory_allocated() - before}
+        cpu[name] = load_bundle(directory, device="cpu")
+    reqs = fleet_requests(rng, FLEET_REQUESTS)
+    want = fleet_references(cpu, reqs)
+    rows = {"one": serve_fleet_in_process(torch, card, cpu, reqs, want, 1),
+            "two": serve_fleet_in_process(torch, card, cpu, reqs, want, 2)}
+    for name in memory:
+        memory[name]["fleet_added_bytes"] = {
+            n: rows[k]["fleet_added_bytes"][name]
+            for n, k in ((1, "one"), (2, "two"))}
+    emit({"phase": "serve_fleet", "step": "memory", "bundles": memory})
+    # steps 2-4 in their own processes, started together
+    cli = ["paddle_tpu_torch.cli", "serve"]
+    workers = FleetProcess(tmp, "workers_http", cli + [
+        "--model", "fp=%s:high" % dirs["fp"],
+        "--model", "int8=%s:low" % dirs["int8"], "--workers", "2",
+        "--device", DEVICE, "--port", "0"])
+    rehome = FleetProcess(tmp, "workers_rehome", cli + [
+        dirs["tagger"], "--continuous", "--workers", "2",
+        "--respawn-workers", "--device", DEVICE, "--port", "0"])
+    store = FleetProcess(tmp, "store", ["paddle_tpu_torch.serve.remote_store"])
+    procs = [workers, rehome, store]
+    try:
+        address = store.wait_for("listening").split()[-1]
+        hosts = [FleetProcess(tmp, "store_host_%s" % h, cli + [
+            dirs["tagger"], "--continuous", "--session-store-addr",
+            address, "--device", DEVICE, "--port", "0"]) for h in "ab"]
+        procs += hosts
+        sessions = session_chunks(rng, FLEET_SESSIONS)
+        store_sessions = session_chunks(rng, FLEET_STORE_SESSIONS)
+        late = homed_sessions(rng, FLEET_LATE_SESSIONS, 0)
+        want_sessions = uninterrupted(card["tagger"], dict(
+            sessions, **late,
+            **{"r" + k: v for k, v in store_sessions.items()}))
+        serve_fleet_workers_http(dirs, cpu, workers, rng)
+        serve_fleet_rehome(rehome, sessions, late, want_sessions)
+        serve_fleet_store(store, hosts, {"r" + k: v for k, v in
+                                         store_sessions.items()},
+                          want_sessions)
+    finally:
+        for proc in procs:
+            proc.stop(signal.SIGKILL)
+    row = {"phase": "serve_fleet", "step": "summary",
+           "seconds": time.perf_counter() - t_phase}
+    for key in ("one", "two"):
+        row["replicas_%s" % key] = {
+            m: {k: rows[key][m][k] for k in ("p50_ms", "p99_ms", "qps")}
+            for m in ("fp", "int8", "tagger")}
+    emit(row)
     return row
 
 
@@ -7396,6 +8121,7 @@ def main():
         int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
         aot = phase_serve_aot(torch, ck, gk, ik, lk, tmp)
         phase_serve_observe(torch, aot["flagship_dir"], tmp)
+        phase_serve_fleet(torch, aot, tmp)
         trained_resnet = phase_train_resnet(torch, ck, tmp)
         trained_googlenet = phase_train_vision(torch, ck, tmp, "googlenet")
         phase_train_vision(torch, ck, tmp, "alexnet")

@@ -18,7 +18,11 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
         [--max-queue-rows N] [--slo-p99-ms MS [--slo-availability PCT] \
          [--autotune]] \
         [--continuous [--session-store N] [--idle-spill-ms MS] \
-         [--session-slo-ms MS] [--session-ttl-ms MS]]
+         [--session-slo-ms MS] [--session-ttl-ms MS] \
+         [--session-store-addr HOST:PORT]] \
+        [--replicas N|auto | --workers N|auto [--respawn-workers]]
+    python -m paddle_tpu_torch.cli serve --model NAME=DIR[:PRIORITY] ... \
+        [--replicas N|auto | --workers N|auto] [serve's other options]
     python -m paddle_tpu_torch.cli generate BUNDLE_DIR --prime 5,17,3 \
         [--steps 32] [--temperature 0] [--seed 0] [--json]
 
@@ -46,13 +50,21 @@ continuous-batching decode step of a streamable topology, which ``serve
 --continuous`` runs through the scheduler with its session tier and
 ``generate`` loops for streaming generation (serve/generate.py).
 ``serve`` and ``generate`` run on the card unless ``--device cpu``.
+``serve --model`` hosts several bundles behind the router
+(serve/router.py); ``--replicas`` serves each as engine threads
+(serve/fleet.py), ``--workers`` as worker processes over shared memory
+(serve/workers.py); ``--session-store-addr`` pages sessions to a remote
+store process (serve/remote_store.py). SIGTERM stops a server as Ctrl-C
+does: engines drain, workers stop, shared memory is unlinked.
 
 Not ported yet, and refused: ``cluster_train``,
 ``merge_model``, ``analyze``, ``observe --regress`` and ``--fleet-stats``,
-``serve --session-store-addr``, and ``--trainer-count`` above 1.
+``serve --join/--front/--host-id/--lease-ttl/--rehome-retries`` (the
+multi-host cluster front), and ``--trainer-count`` above 1.
 """
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -578,7 +590,8 @@ def cmd_export(args):
                "inputs": [i["name"] for i in manifest["inputs"]],
                "outputs": manifest["outputs"],
                "platforms": manifest["platforms"],
-               "compute_dtype": manifest["compute_dtype"]}
+               "compute_dtype": manifest["compute_dtype"],
+               "hbm_estimate_bytes": manifest["hbm_estimate_bytes"]}
     if manifest.get("quantization"):
         summary["quantization"] = manifest["quantization"]["scheme"]
     if manifest.get("decode"):
@@ -589,23 +602,79 @@ def cmd_export(args):
     return 0
 
 
-def _make_engine(bundle, args, warmup):
-    """The batching engine, or with ``--continuous`` the continuous
-    scheduler and its session tier (paddle_tpu/cli.py ``_make_engine``,
-    one engine per process: the replica fleets are not ported yet)."""
-    from paddle_tpu_torch.serve import ContinuousScheduler, InferenceEngine
+def _session_kwargs(args):
+    """The session tier's knobs of ``serve --continuous``
+    (paddle_tpu/cli.py ``_session_kwargs``); ``--session-store-addr``
+    pages against a shared remote store process instead of a private
+    one (serve/remote_store.py)."""
+    kw = {"session_capacity": args.session_store,
+          "idle_spill_ms": args.idle_spill_ms,
+          "session_slo_grace_ms": args.session_slo_ms,
+          "session_ttl_ms": args.session_ttl_ms}
+    if args.session_store_addr:
+        from paddle_tpu_torch.serve.remote_store import RemoteSessionStore
 
-    if not args.continuous:
-        return InferenceEngine(bundle, max_batch_size=args.max_batch_size,
-                               max_latency_ms=args.max_latency_ms,
-                               warmup=warmup,
-                               max_queue_rows=args.max_queue_rows)
-    return ContinuousScheduler(
-        bundle, warmup=warmup, max_queue=args.max_queue_rows,
-        session_capacity=args.session_store,
-        idle_spill_ms=args.idle_spill_ms,
-        session_slo_grace_ms=args.session_slo_ms,
-        session_ttl_ms=args.session_ttl_ms)
+        kw["session_store"] = RemoteSessionStore(args.session_store_addr)
+    return kw
+
+
+def _make_engine(bundle, args, reg=None, model=None, warmup="async",
+                 budget_share=None):
+    """The serving front of one bundle (paddle_tpu/cli.py
+    ``_make_engine``): the batching engine, or with ``--continuous`` the
+    continuous scheduler; ``--replicas N|auto`` makes it a fleet of engine
+    threads (serve/fleet.py), ``--workers N|auto`` a fleet of worker
+    processes (serve/workers.py). ``budget_share`` is this model's part of
+    the device-memory budget for ``auto``."""
+    from paddle_tpu_torch.serve import (ContinuousScheduler,
+                                        InferenceEngine)
+    from paddle_tpu_torch.serve.fleet import auto_replicas
+
+    if args.continuous and not bundle.has_decoder():
+        print("--continuous: bundle %r has no decode artifacts; "
+              "re-export with --decode-slots" % bundle.name,
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.workers and args.replicas:
+        print("--workers (worker processes) and --replicas (in-process "
+              "threads) are mutually exclusive: pick one data plane",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.workers and args.session_store_addr:
+        # a store client holds a live socket, which cannot cross the
+        # worker spawn; the worker protocol carries no dial-up of its own
+        print("--session-store-addr cannot combine with --workers: "
+              "use --replicas or a single engine per process",
+              file=sys.stderr)
+        raise SystemExit(2)
+    kwargs = (dict({"max_queue": args.max_queue_rows},
+                   **_session_kwargs(args)) if args.continuous
+              else {"max_batch_size": args.max_batch_size,
+                    "max_latency_ms": args.max_latency_ms,
+                    "max_queue_rows": args.max_queue_rows})
+    if args.workers:
+        from paddle_tpu_torch.serve import WorkerSet
+
+        # auto sizes as JAX's --replicas auto (each process holds its own
+        # copy, so several may share a card), capped at the host's cores
+        n = (min(auto_replicas(bundle, budget=budget_share, stack=True),
+                 os.cpu_count() or 1)
+             if args.workers == "auto" else int(args.workers))
+        return WorkerSet(bundle, workers=max(n, 1),
+                         continuous=args.continuous, engine_kwargs=kwargs,
+                         metrics_registry=reg, model=model,
+                         respawn=args.respawn_workers)
+    if args.replicas:
+        from paddle_tpu_torch.serve import ReplicaSet
+
+        n = (auto_replicas(bundle, budget=budget_share)
+             if args.replicas == "auto" else int(args.replicas))
+        return ReplicaSet(bundle, replicas=n, continuous=args.continuous,
+                          engine_kwargs=kwargs, metrics_registry=reg,
+                          model=model, warmup=warmup)
+    cls = ContinuousScheduler if args.continuous else InferenceEngine
+    return cls(bundle, warmup=warmup, metrics_registry=reg, model=model,
+               **kwargs)
 
 
 def _make_slo(fronts, args, model=None):
@@ -654,13 +723,65 @@ def _make_controller(slo, fronts, args, model=None):
     return controller
 
 
+_CLUSTER_FLAGS = ("join", "front", "host_id", "lease_ttl", "rehome_retries")
+
+
+@contextlib.contextmanager
+def _graceful_sigterm():
+    """While serving, SIGTERM takes Ctrl-C's path: the ``finally`` blocks
+    stop the engines and fleets (which drain, flush their step logs, stop
+    their worker processes and unlink their shared memory). One-shot: a
+    second SIGTERM during the drain must not abort it. The previous
+    handler comes back on exit."""
+    import signal
+
+    def _term(signum, frame):
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        raise KeyboardInterrupt
+
+    try:
+        previous = signal.signal(signal.SIGTERM, _term)
+    except ValueError:  # not the main thread: keep the default
+        yield
+        return
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+
+
 def cmd_serve(args):
+    """Serve exported bundles (paddle_tpu/cli.py ``cmd_serve``). One
+    model: ``serve DIR`` (``--continuous`` for decode bundles,
+    ``--replicas`` / ``--workers`` for fleets). Several: repeat ``--model
+    NAME=DIR[:PRIORITY]`` to host them behind the router (``POST
+    /infer/<name>``, per-model ``/readyz``, priority shedding).
+    ``--selfcheck`` loads, warms, runs one batch and exits."""
+    for flag in _CLUSTER_FLAGS:
+        enforce(not getattr(args, flag), "serve --%s is not ported yet: it "
+                "needs the multi-host cluster front (serve/cluster.py) and "
+                "the coordinator's leases (distributed/elastic)",
+                flag.replace("_", "-"))
+    with _graceful_sigterm():
+        return _serve(args)
+
+
+def _serve(args):
+    from paddle_tpu_torch.observe import metrics as observe_metrics
     from paddle_tpu_torch.serve.bundle import load_bundle
     from paddle_tpu_torch.serve.server import make_server
 
-    enforce(not args.session_store_addr, "serve --session-store-addr is not "
-            "ported yet: it needs the remote session store "
-            "(serve/remote_store.py)")
+    reg = observe_metrics.get_registry()
+    if args.model:
+        if args.bundle or args.selfcheck:
+            print("--model is multi-model mode: drop the positional "
+                  "bundle / --selfcheck", file=sys.stderr)
+            return 2
+        return _serve_models(args, reg)
+    if not args.bundle:
+        print("serve needs a bundle directory or --model entries",
+              file=sys.stderr)
+        return 2
     bundle = load_bundle(args.bundle, device=args.device or None)
     if args.continuous and not bundle.has_decoder():
         # refuse loudly: a silent fall-back to the padding engine would
@@ -671,11 +792,14 @@ def cmd_serve(args):
         return 2
     # selfcheck warms synchronously (it IS the warmth gate); serving warms
     # on a thread so /readyz honestly answers 503 until every bucket ran
-    engine = _make_engine(bundle, args,
+    engine = _make_engine(bundle, args, reg,
                           warmup=True if args.selfcheck else "async")
     slo = controller = None
     try:
         if args.selfcheck:
+            if hasattr(engine, "wait_ready"):
+                # worker processes warm in themselves
+                engine.wait_ready(timeout=300.0)
             out = engine.infer(bundle.dummy_inputs(rows=1), timeout=300.0)
             print(json.dumps({
                 "ok": True, "bundle": bundle.name,
@@ -708,6 +832,66 @@ def cmd_serve(args):
         if slo is not None:
             slo.stop(close_slog=True)
         engine.stop()
+
+
+def _serve_models(args, reg):
+    """``serve --model NAME=DIR[:PRIORITY] ...``: every bundle behind the
+    router; with ``--replicas auto`` each model's fleet is sized against
+    its share of the device-memory budget."""
+    from paddle_tpu_torch.serve import Router
+    from paddle_tpu_torch.serve.bundle import load_bundle
+    from paddle_tpu_torch.serve.server import make_router_server
+
+    specs = []
+    for spec in args.model:
+        name, _, rest = spec.partition("=")
+        if not rest:
+            print("--model wants NAME=DIR[:PRIORITY], got %r" % spec,
+                  file=sys.stderr)
+            return 2
+        directory, _, priority = rest.rpartition(":")
+        if not directory:  # no priority suffix
+            directory, priority = rest, "normal"
+        specs.append((name, directory, priority or "normal"))
+    budget_share = None
+    if args.replicas == "auto" and len(specs) > 1:
+        from paddle_tpu_torch.analyze.topology_check import hbm_budget_bytes
+
+        budget = hbm_budget_bytes()
+        if budget is not None:
+            budget_share = budget // len(specs)
+    router = Router(metrics_registry=reg)
+    slo = controller = server = None
+    try:
+        for name, directory, priority in specs:
+            bundle = load_bundle(directory, device=args.device or None)
+            router.add_model(name, bundle,
+                             _make_engine(bundle, args, reg, model=name,
+                                          budget_share=budget_share),
+                             priority=priority)
+        fronts = [m.engine for m in router.models().values()]
+        slo = _make_slo(fronts, args)
+        controller = _make_controller(slo, [router] + fronts, args)
+        server = make_router_server(router, host=args.host, port=args.port,
+                                    slo=slo, controller=controller)
+        print("serving %s on http://%s:%d (POST /infer/<model>; GET "
+              "/healthz /readyz /metrics /stats /debug/traces /debug/slo%s "
+              "/manifest/<model>)"
+              % (sorted(router.models()), *server.server_address,
+                 " /debug/control" if controller else ""), flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        return 0
+    finally:
+        if server is not None:
+            server.server_close()
+        if controller is not None:
+            controller.stop()
+        if slo is not None:
+            slo.stop(close_slog=True)
+        router.stop()
 
 
 def cmd_generate(args):
@@ -866,8 +1050,31 @@ def main(argv=None):
                    help="torch device (default: the card)")
     p.set_defaults(fn=cmd_generate)
 
-    p = sub.add_parser("serve", help="serve a bundle over HTTP")
-    p.add_argument("bundle")
+    p = sub.add_parser("serve", help="serve bundles over HTTP")
+    p.add_argument("bundle", nargs="?", default="",
+                   help="bundle directory (one model)")
+    p.add_argument("--model", action="append", default=[],
+                   metavar="NAME=DIR[:PRIORITY]",
+                   help="host NAME from bundle DIR with an optional priority "
+                        "class (high/normal/low); repeat to serve several "
+                        "models behind the router (POST /infer/<name>, "
+                        "per-model /readyz, priority shedding)")
+    p.add_argument("--replicas", default="",
+                   help="N|auto: serve each bundle as N engine threads "
+                        "behind a least-queued dispatch front, cycled over "
+                        "the cards (auto: one per card, fewer when the "
+                        "manifest's hbm_estimate_bytes fits fewer copies "
+                        "in PADDLE_TPU_TORCH_HBM_BUDGET)")
+    p.add_argument("--workers", default="",
+                   help="N|auto: serve each bundle as N worker processes "
+                        "(spawned; rows cross over shared-memory rings; "
+                        "exclusive with --replicas); auto: one per card, "
+                        "or as many copies as the budget fits, capped at "
+                        "the host's cores")
+    p.add_argument("--respawn-workers", action="store_true",
+                   help="--workers: restart a dead worker process in place "
+                        "(its sessions re-home from their last committed "
+                        "carry backup)")
     p.add_argument("--selfcheck", action="store_true",
                    help="load, warm, run one batch, exit (smoke gate)")
     p.add_argument("--device", default="",
@@ -916,7 +1123,20 @@ def main(argv=None):
                    help="session tier: evict suspended sessions idle past "
                         "this TTL (reason=ttl)")
     p.add_argument("--session-store-addr", default="", metavar="HOST:PORT",
-                   help="not ported yet")
+                   help="--continuous: page sessions to the remote store "
+                        "process (python -m "
+                        "paddle_tpu_torch.serve.remote_store) instead of a "
+                        "private store, so committed sessions survive this "
+                        "process and resume bitwise in another")
+    for flag in ("--join", "--host-id"):
+        p.add_argument(flag, default="",
+                       help="not ported yet (the multi-host cluster front)")
+    p.add_argument("--front", action="store_true",
+                   help="not ported yet (the multi-host cluster front)")
+    p.add_argument("--lease-ttl", type=float, default=None,
+                   help="not ported yet (the multi-host cluster front)")
+    p.add_argument("--rehome-retries", type=int, default=None,
+                   help="not ported yet (the multi-host cluster front)")
     p.set_defaults(fn=cmd_serve)
 
     args, extra = parser.parse_known_args(argv)

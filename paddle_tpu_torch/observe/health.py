@@ -1,8 +1,8 @@
 """Fleet-wide SLO observability plane: windowed health history,
 burn-rate SLO monitor, cross-process trace/history aggregation
 (paddle_tpu/observe/health.py, kept as the port's own copy: pure Python).
-The worker fleets are not ported yet, so the cross-process half
-(``_worker_replies``) raises by name for a front with workers.
+The cross-process half (``_worker_replies``) fans a verb out to each live
+worker of a worker fleet (serve/workers.py) over its RPC.
 
 Three layers, landed as the sensing half of the ROADMAP's "self-tuning
 serving" direction — the controller that will someday move knobs needs
@@ -359,18 +359,31 @@ def window_stats(snapshot, seconds, now=None, objective_ms=None):
 # -- cross-process aggregation (the ONE merge path) --------------------------
 
 def _worker_replies(fronts, op, key, timeout=2.0):
-    """Fan a control-RPC verb out to every front that exposes worker
-    handles (paddle_tpu/observe/health.py). The worker fleets
-    (serve/workers.py) are not ported yet, so every front's telemetry
-    lives in this process's globals: a front with ``workers()`` raises by
-    name, the others contribute nothing here."""
+    """Fan a control-RPC verb out to every front that has worker
+    processes (a WorkerSet's ``workers()``); fronts without them add
+    nothing here, their telemetry lives in this process's globals. Best
+    effort: a dead or silent worker sets ``partial`` instead of
+    raising."""
+    replies, partial = [], False
     for front in fronts:
-        if getattr(front, "workers", None) is not None:
-            raise NotImplementedError(
-                "%s.workers(): the %r verb fans out to worker processes, "
-                "which need serve/workers.py (not ported yet)"
-                % (type(front).__name__, op))
-    return [], False
+        workers_fn = getattr(front, "workers", None)
+        if workers_fn is None:
+            continue
+        try:
+            handles = workers_fn()
+        except Exception:  # noqa: BLE001 — a stopping fleet stays scrapeable
+            partial = True
+            continue
+        for handle in handles:
+            if handle.dead():
+                partial = True
+                continue
+            reply = handle.try_rpc({"op": op}, timeout=timeout)
+            if not reply or reply.get(key) is None:
+                partial = True
+                continue
+            replies.append((str(handle.index), reply[key]))
+    return replies, partial
 
 
 def collect_traces(fronts):

@@ -24,6 +24,15 @@ decode step for the scheduler (serve/scheduler.py): ``zero_carry``,
 ``carry_insert``; its shapes are the slot capacity and the window, so
 admission and retirement change tensor values only.
 
+Replica fleets (serve/fleet.py) serve one bundle from several engine
+threads: :meth:`Bundle.view` gives each a :class:`BundleReplica` on a
+device, which shares the manifest, the host payload and the deserialized
+programs, holds the parameters and the programs moved to its device once
+per device (``Bundle.params_on(device)``), and keeps its own per-call
+state (the run lock; ``last_device_ms`` per calling thread). Every view
+on one card shares the card's placement and its default stream, so the
+views' kernels run in the order the threads enqueue them.
+
 Bundles written before the programs existed (a manifest ``builder``
 entry and no artifacts) are refused with a message to re-export them.
 """
@@ -38,11 +47,16 @@ import torch
 
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.data.bucketing import bucket_index
+from paddle_tpu_torch.serve.sessions import host_leaf
 
 MANIFEST_NAME = "manifest.json"
 BUNDLE_FORMAT = "paddle_tpu_torch-bundle-v1"
 # the torch device types a bundle's programs can be listed for
 PLATFORMS = ("cpu", "cuda")
+# torch.export.load keeps the deserializer of the program it is reading in
+# a process-wide global: two loads at once (two bundles warming on two
+# threads) fail, so every load of the process takes this lock
+_DESERIALIZE_LOCK = threading.Lock()
 
 # input kinds (manifest "kind") -> flat feed keys:
 #   dense      f32 [B, dim]                      keys: [name]
@@ -86,10 +100,18 @@ def _register_ops():
                                       int8_kernels, lstm_kernels)
 
 
+def _placement_key(device):
+    """The cache key of a device: ``cuda`` names the current card's
+    index, so ``cuda`` and ``cuda:0`` share one placement."""
+    if device.type == "cuda" and device.index is None:
+        return "cuda:%d" % torch.cuda.current_device()
+    return str(device)
+
+
 class Bundle:
     """A loaded bundle: manifest, the parameters resident on ``device``
     (the card unless ``device="cpu"``) and its programs, deserialized at
-    first use and cached per bucket."""
+    first use and cached per bucket and device."""
 
     def __init__(self, directory, device=None):
         self.directory = os.path.abspath(directory)
@@ -125,44 +147,84 @@ class Bundle:
         if not self.buckets:
             raise ValueError("bundle %s has no batch buckets" % directory)
         self._out_names = [o["name"] for o in self.outputs]
+        # shared by every view of this bundle (``view``): the loads and
+        # the per-device caches, under one lock
+        self._lock = threading.Lock()
+        self._home = _placement_key(self.device)
+        self._device_params = {}  # placement key -> {name: tensor}
+        self._programs = {}  # (artifact, placement key) -> callable module
+        # seconds per deserialized artifact (``artifact@device`` for a
+        # view's other device), in load order: their number is the port's
+        # counterpart of the JAX bundle's compile count (/debug/compiles)
+        self.load_seconds = {}
         with np.load(os.path.join(self.directory,
                                   self.manifest["params_file"])) as pz:
-            self.params = {k: torch.from_numpy(np.ascontiguousarray(pz[k]))
-                           .to(self.device) for k in sorted(pz.files)}
+            self._device_params[self._home] = {
+                k: torch.from_numpy(np.ascontiguousarray(pz[k]))
+                .to(self.device) for k in sorted(pz.files)}
+        # the payload on this bundle's device, a plain dict: the programs'
+        # first argument (their input spec is a dict's)
+        self.params = self._device_params[self._home]
         _register_ops()
-        self._programs = {}  # artifact -> callable module
-        # seconds per deserialized artifact, in load order: their number
-        # is the port's counterpart of the JAX bundle's compile count
-        # (GET /debug/compiles)
-        self.load_seconds = {}
-        # the engine's async warmup thread and its batcher worker may both
-        # reach a cold bucket or run a forward; one at a time keeps the
-        # loads single and the device work ordered
-        self._lock = threading.Lock()
+        # per call: the engine's async warmup thread and its batcher
+        # worker may both run a forward; one at a time keeps the device
+        # work ordered (each view has its own)
         self._run_lock = threading.Lock()
-        # CUDA-event milliseconds of the last ``run`` on the card, from
-        # before the program's first launch to after its last (None on
-        # the CPU)
-        self.last_device_ms = None
+        self._calls = threading.local()
+
+    @property
+    def last_device_ms(self):
+        """CUDA-event milliseconds of the calling thread's last ``run`` on
+        the card, from before the program's first launch to after its last
+        (None on the CPU). Views on one card share its default stream, so
+        the interval may hold another view's kernels enqueued meanwhile."""
+        return getattr(self._calls, "device_ms", None)
+
+    def params_on(self, device):
+        """The parameter payload on ``device``, copied there from the
+        bundle's own device at first use and cached per device: the JAX
+        package's ``Bundle.params(device=)`` (the port's ``params`` is the
+        payload dict on the bundle's device)."""
+        device = resolve_device(device)
+        key = _placement_key(device)
+        values = self._device_params.get(key)
+        if values is None:
+            with self._lock:
+                values = self._device_params.get(key)
+                if values is None:
+                    values = {k: v.to(device) for k, v in
+                              self._device_params[self._home].items()}
+                    self._device_params[key] = values
+        return values
 
     def _load(self, artifact):
-        """The program in ``artifact``, deserialized, moved to the
-        bundle's device and cached at first use."""
-        program = self._programs.get(artifact)
+        """The program in ``artifact``, deserialized, moved to this
+        placement's device and cached at first use per device."""
+        key = _placement_key(self.device)
+        program = self._programs.get((artifact, key))
         if program is None:
             with self._lock:
-                program = self._programs.get(artifact)
+                program = self._programs.get((artifact, key))
                 if program is None:
                     from torch.export.passes import move_to_device_pass
 
                     t0 = time.perf_counter()
-                    exported = torch.export.load(
-                        os.path.join(self.directory, artifact))
-                    program = move_to_device_pass(
-                        exported, str(self.device)).module()
-                    self.load_seconds[artifact] = time.perf_counter() - t0
-                    self._programs[artifact] = program
+                    with _DESERIALIZE_LOCK:
+                        exported = torch.export.load(
+                            os.path.join(self.directory, artifact))
+                        program = move_to_device_pass(
+                            exported, str(self.device)).module()
+                    name = (artifact if key == self._home
+                            else "%s@%s" % (artifact, key))
+                    self.load_seconds[name] = time.perf_counter() - t0
+                    self._programs[(artifact, key)] = program
         return program
+
+    def view(self, device):
+        """A :class:`BundleReplica` of this bundle on ``device``: the unit a
+        replica fleet hands each engine (paddle_tpu/serve/bundle.py
+        ``view``)."""
+        return BundleReplica(self, device)
 
     def program(self, batch):
         """The loaded program of one bucket batch size (JAX's
@@ -245,19 +307,20 @@ class Bundle:
                 raise ValueError("input %r has %d rows, bucket is %d"
                                  % (key, np.shape(arr)[0], batch))
         program = self.program(batch)
+        params = self.params
         with self._run_lock, torch.inference_mode():
             feed = self.device_inputs(flat_inputs)
             if self.device.type != "cuda":
-                out = program(self.params, feed)
+                out = program(params, feed)
                 return {name: _host(out[name]) for name in self._out_names}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = program(self.params, feed)
+            out = program(params, feed)
             end.record()
             # the readback waits for the card, so both events are done
             host = {name: _host(out[name]) for name in self._out_names}
-            self.last_device_ms = start.elapsed_time(end)
+            self._calls.device_ms = start.elapsed_time(end)
             return host
 
     def warmup(self):
@@ -382,7 +445,7 @@ class Bundle:
             carry, _ = self.decode_step(
                 carry, self.dummy_decode_flat(slot_count), slot_count)
         rows = self.carry_slice(carry, 0)
-        host = {layer: [leaf.cpu().numpy() for leaf in leaves]
+        host = {layer: [host_leaf(leaf) for leaf in leaves]
                 for layer, leaves in rows.items()}
         self.carry_insert(carry, host, 0)
         if self.device.type == "cuda":
@@ -409,6 +472,29 @@ class Bundle:
         return "Bundle(%r, buckets=%s, inputs=%s, device=%s%s)" % (
             self.name, self.batch_sizes(), [i["name"] for i in self.inputs],
             self.device, quant)
+
+
+class BundleReplica(Bundle):
+    """A view of a :class:`Bundle` on one device (paddle_tpu/serve/
+    bundle.py ``BundleReplica``): the base's manifest, host payload,
+    deserialized programs and load lock, with the parameters and programs
+    on this view's device (moved there once per device and shared by every
+    view on it) and its own run lock and per-thread ``last_device_ms``.
+    Every ``Bundle`` entry point runs on the view's device."""
+
+    def __init__(self, base, device):
+        self.__dict__.update(base.__dict__)
+        self._base = base
+        self.device = resolve_device(device)
+        self.params = base.params_on(self.device)
+        self._run_lock = threading.Lock()
+        self._calls = threading.local()
+
+    def view(self, device):
+        return self._base.view(device)
+
+    def __repr__(self):
+        return "BundleReplica(%r, device=%s)" % (self.name, self.device)
 
 
 def _host(tensor):

@@ -32,9 +32,10 @@ without a card raises.
 ``quantize="int8"`` stores the matmul/conv weights as per-output-channel
 int8 with float32 scale sidecars (serve/quantize.py) in ``params.npz``;
 the programs dequantize inside (``dequant_for_forward``, traced), and
-``fc`` runs its int8 weight through the ``int8_matmul`` op. The JAX
-manifest's ``hbm_estimate_bytes`` is not written (it needs the static
-analyzer, which is not ported).
+``fc`` runs its int8 weight through the ``int8_matmul`` op. The
+manifest's ``hbm_estimate_bytes`` is the JAX analyzer's static estimate of
+the largest bucket's program (analyze/topology_check.py): the replica
+fleets size ``--replicas auto`` against it.
 """
 
 import json
@@ -51,6 +52,7 @@ from paddle_tpu_torch.serve.bundle import (BUNDLE_FORMAT, MANIFEST_NAME,
 from paddle_tpu_torch.serve.quantize import (dequant_for_forward,
                                              quantize_parameters)
 from paddle_tpu_torch.utils.error import enforce
+from paddle_tpu_torch.utils.logger import logger
 
 DEFAULT_BATCH_SIZES = (1, 8, 32)
 DEFAULT_SEQ_LEN = 64
@@ -364,6 +366,8 @@ def export_bundle(output_layer, parameters, out_dir,
     params_file = "params.npz"
     with open(os.path.join(out_dir, params_file), "wb") as fh:
         parameters.to_npz(fh)
+    hbm_total = _hbm_estimate(topology, specs, parameters, batch_sizes[-1],
+                              seq_len)
     from paddle_tpu_torch import __version__
 
     cd = dtype_mod.compute_dtype()
@@ -381,6 +385,7 @@ def export_bundle(output_layer, parameters, out_dir,
         "seq_len": seq_len,
         "buckets": buckets,
         "params_file": params_file,
+        "hbm_estimate_bytes": hbm_total,
     }
     if quantization is not None:
         manifest["quantization"] = quantization
@@ -389,6 +394,28 @@ def export_bundle(output_layer, parameters, out_dir,
     with open(os.path.join(out_dir, MANIFEST_NAME), "w") as fh:
         json.dump(manifest, fh, indent=2)
     return manifest
+
+
+def _hbm_estimate(topology, specs, parameters, rows, seq_len):
+    """The static device-memory estimate of the largest bucket's program
+    (parameters, its feed and the forward's activations;
+    analyze/topology_check.py), the manifest's ``hbm_estimate_bytes``: the
+    replica fleets size against it. A bundle over the budget
+    (``PADDLE_TPU_TORCH_HBM_BUDGET``) is written with a warning."""
+    from paddle_tpu_torch.analyze import topology_check
+
+    seq_pads = {s["name"]: seq_len for s in specs if s["kind"] in SEQ_KINDS}
+    total = int(topology_check.estimate_hbm_bytes(
+        topology, rows=rows, seq_pad=seq_pads, parameters=parameters,
+        mode="infer")["total"])
+    budget = topology_check.hbm_budget_bytes()
+    if budget is not None and total > budget:
+        logger.warning(
+            "export_bundle: static device-memory estimate %s for the "
+            "largest bucket (batch=%d) exceeds %s=%s; the bundle will not "
+            "fit its serving card", topology_check._fmt_bytes(total), rows,
+            topology_check.BUDGET_ENV, topology_check._fmt_bytes(budget))
+    return total
 
 
 def _export_decode(topology, specs, out_names, params, quantization,

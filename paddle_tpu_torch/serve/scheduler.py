@@ -45,8 +45,9 @@ the writer thread); every retired request offers its phase breakdown
 the exemplar reservoir and the health history, and a sampled one also
 writes its ``serve_trace`` record. ``register_knobs`` adopts the live
 knobs (``max_queue``, ``idle_spill_ms``, ``admit_budget``,
-``park_budget``). The replica fleets' ``replica`` label waits for
-serve/fleet.py.
+``park_budget``). ``replica=`` marks the scheduler as one member of a
+replica fleet (serve/fleet.py, serve/workers.py): ``{replica=}`` on every
+metric family and a ``replica`` field on its step-log records.
 """
 
 import collections
@@ -65,7 +66,7 @@ from paddle_tpu_torch.observe import tracing as observe_tracing
 from paddle_tpu_torch.serve.bundle import SEQ_KINDS
 from paddle_tpu_torch.serve.engine import Overloaded
 from paddle_tpu_torch.serve.sessions import (SessionGone, SessionState,
-                                             SessionStore)
+                                             SessionStore, host_leaf)
 from paddle_tpu_torch.utils.logger import logger
 
 
@@ -166,9 +167,9 @@ class ContinuousScheduler:
 
     def __init__(self, bundle, slots=None, steplog=None, warmup=True,
                  run_name="serve", metrics_registry=None, model=None,
-                 max_queue=256, session_capacity=4096, idle_spill_ms=None,
-                 session_slo_grace_ms=None, session_ttl_ms=None,
-                 paging=True, session_store=None):
+                 max_queue=256, replica=None, session_capacity=4096,
+                 idle_spill_ms=None, session_slo_grace_ms=None,
+                 session_ttl_ms=None, paging=True, session_store=None):
         if not bundle.has_decoder():
             raise ValueError(
                 "bundle %r has no decode artifacts; re-export with "
@@ -188,7 +189,10 @@ class ContinuousScheduler:
         # queue pressure. None leaves both unbounded.
         self.admit_budget = None
         self.park_budget = None
+        self.replica = None if replica is None else str(replica)
         self._labels = {"model": str(model)} if model else {}
+        if self.replica is not None:
+            self._labels["replica"] = self.replica
         self._seq_specs = [s for s in bundle.inputs
                            if s["kind"] in SEQ_KINDS]
         self._out_names = [o["name"] for o in bundle.outputs]
@@ -231,7 +235,8 @@ class ContinuousScheduler:
         self._warmer = None
         if warmup == "async":
             self._warmer = threading.Thread(
-                target=self._warmup_quietly, name="serve-decode-warmup",
+                target=self._warmup_quietly,
+                name=self._thread_name("serve-decode-warmup"),
                 daemon=True)
             self._warmer.start()
         elif warmup:
@@ -242,12 +247,20 @@ class ContinuousScheduler:
         # the spill writer owns the blocking waits on the device-to-host
         # copies, so the decode worker never waits on a transfer
         self._swap_writer = threading.Thread(
-            target=self._swap_writer_loop, name="serve-session-spill",
+            target=self._swap_writer_loop,
+            name=self._thread_name("serve-session-spill"),
             daemon=True)
         self._swap_writer.start()
         self._worker = threading.Thread(
-            target=self._loop, name="serve-decode-worker", daemon=True)
+            target=self._loop, name=self._thread_name("serve-decode-worker"),
+            daemon=True)
         self._worker.start()
+
+    def _thread_name(self, base):
+        """Thread names carry the replica index, so a fleet's schedulers
+        are told apart in a stack dump."""
+        return (base if self.replica is None
+                else "%s-r%s" % (base, self.replica))
 
     def _warmup(self):
         try:
@@ -482,6 +495,8 @@ class ContinuousScheduler:
         out["session_bytes"] = store_stats["bytes"]
         if self.model:
             out["model"] = self.model
+        if self.replica is not None:
+            out["replica"] = self.replica
         out["ready"] = self.ready()
         out["latency_ms"] = self._m_latency.percentiles()
         out["trace"] = observe_tracing.trace_state()
@@ -665,7 +680,7 @@ class ContinuousScheduler:
                     if slot.req is None and not self._worker.is_alive():
                         ses = slot.session
                         rows = self.bundle.carry_slice(self._carry, idx)
-                        host = {layer: [leaf.cpu().numpy()
+                        host = {layer: [host_leaf(leaf)
                                         for leaf in leaves]
                                 for layer, leaves in rows.items()}
                         slot.session = None
@@ -698,7 +713,8 @@ class ContinuousScheduler:
         if self._slog is not None:
             self._slog.log_serve_swap(
                 op=op, session=sid, nbytes=nbytes, overlap_ms=overlap_ms,
-                reason=reason, pos=pos, model=self.model)
+                reason=reason, pos=pos, model=self.model,
+                replica=self.replica)
 
     def _account_evictions(self, evicted, reason="capacity"):
         for state in evicted:
@@ -1159,7 +1175,7 @@ class ContinuousScheduler:
                     window=self.window, slots=self.slots, steps=steps,
                     admitted=len(plan.admitted), retired=len(retired),
                     infer_ms=infer_ms, model=self.model,
-                    resident=resident,
+                    replica=self.replica, resident=resident,
                     suspended=self._store.suspended_count())
         finally:
             # deliver last, and no matter what: a client waking from
@@ -1188,7 +1204,7 @@ class ContinuousScheduler:
                         else trace.child()) as scope:
                     if copied is not None:
                         copied.synchronize()
-                    carry = {layer: [leaf.numpy().copy() for leaf in leaves]
+                    carry = {layer: [host_leaf(leaf) for leaf in leaves]
                              for layer, leaves in host.items()}
                 del rows, host  # the copy landed: the buffers may go
                 overlap_ms = scope.dur * 1e3
@@ -1316,7 +1332,7 @@ class ContinuousScheduler:
                 }
                 trace_total_ms = (t_ser - req.t_enqueue) * 1e3
                 exemplars.offer(trace_total_ms, phases, model=self.model,
-                                session=req.session,
+                                replica=self.replica, session=req.session,
                                 trace_id=(req.trace.trace_id
                                           if req.trace else None))
                 observe_health.get_history().record_request(
@@ -1352,5 +1368,5 @@ class ContinuousScheduler:
             self._slog.log_serve_trace(
                 latency_ms=latency_ms, phases=phases,
                 trace_id=ctx.trace_id, span_id=ctx.span_id,
-                model=self.model, req_id=req.req_id, rows=1,
-                iterations=req.iters, session=req.session)
+                model=self.model, replica=self.replica, req_id=req.req_id,
+                rows=1, iterations=req.iters, session=req.session)

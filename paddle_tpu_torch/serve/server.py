@@ -1,5 +1,5 @@
-"""Minimal HTTP front end over a bundle and its engine (stdlib only;
-paddle_tpu/serve/server.py, the single-model server).
+"""Minimal HTTP front end over a bundle and its engine, or over a router
+of several (stdlib only; paddle_tpu/serve/server.py).
 
 ``POST /infer`` takes ``{"inputs": {flat key: nested list}}`` and answers
 ``{"outputs": {name: list}}``. ``GET /healthz`` (live and ready; 503
@@ -20,9 +20,16 @@ in the answer) and ``end_session: true`` (close it with the request). An
 evicted session answers 410 Gone with ``session_id`` and ``reason``; a
 full queue answers 429. ``POST /admin/session/spill`` and
 ``/admin/session/close`` (body ``{"session_id": ...}``) are the session
-tier's admin verbs; ``export`` and ``import`` carry the fleets' binary
-frame codec, which is not ported yet, and answer 501. The multi-model
-router (``make_router_server``) waits for serve/router.py.
+tier's admin verbs; ``export`` answers the session's state in the frame
+codec of serve/workers.py (``application/x-paddle-frames``: header
+``{"session_id", "state"}`` and the carry's raw arrays) and ``import``
+takes such a body.
+
+``make_router_server`` fronts a :class:`~paddle_tpu_torch.serve.router.
+Router`: ``POST /infer/<model>`` (``/infer`` with one model), per-model
+``/healthz`` / ``/livez`` / ``/readyz``, ``/manifest/<model>``, 429
+shedding, and one ``/metrics`` over the router's registry and every
+worker fleet's workers (``{worker=}``).
 """
 
 import json
@@ -32,6 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from paddle_tpu_torch.observe import health as observe_health
+from paddle_tpu_torch.observe import metrics as observe_metrics
 from paddle_tpu_torch.observe import spans as observe_spans
 from paddle_tpu_torch.observe import tracing as observe_tracing
 from paddle_tpu_torch.serve.bundle import SEQ_KINDS, flat_keys
@@ -61,6 +69,8 @@ def _request_arrays(bundle, payload):
 
 
 class _BaseHandler(BaseHTTPRequestHandler):
+    _FRAMES_TYPE = "application/x-paddle-frames"
+
     def _send(self, code, obj, headers=None):
         self._send_text(code, json.dumps(obj), "application/json",
                         headers=headers)
@@ -226,23 +236,43 @@ class _Handler(_BaseHandler):
     def _session_admin(self, verb):
         """``spill`` commits a parked session's carry to the store and
         returns once it is there; ``close`` aborts a session wherever it
-        sits (idempotent)."""
+        sits (idempotent); ``export`` removes the session's state and
+        answers it as frames; ``import`` adopts frames a peer exported."""
         engine = self.engine
         if not hasattr(engine, "spill_session"):
             raise ValueError(
                 "this engine has no session admin surface (serve "
                 "--continuous holds sessions; batch engines do not)")
+        from paddle_tpu_torch.serve import workers as serve_workers
+
         length = int(self.headers.get("Content-Length", "0"))
+        if verb == "import":
+            header, arrays = serve_workers.decode_buffer(
+                self.rfile.read(length))
+            sid = str(header["session_id"])
+            state = serve_workers.decode_state(sid, header["state"], arrays)
+            engine.import_session(sid, state)
+            self._send(200, {"ok": True, "session_id": sid,
+                             "nbytes": int(state.nbytes)})
+            return
         payload = json.loads(self.rfile.read(length) or b"{}")
         sid = payload.get("session_id")
         if sid is None:
             raise ValueError('body must be {"session_id": ...}')
         sid = str(sid)
+        timeout = float(payload.get("timeout_s", 30.0))
         if verb == "close":
             engine.close_session(sid)
-        else:
-            engine.spill_session(
-                sid, timeout=float(payload.get("timeout_s", 30.0)))
+        elif verb == "spill":
+            engine.spill_session(sid, timeout=timeout)
+        else:  # export
+            shead, sarrays = serve_workers.encode_state(
+                engine.export_session(sid, timeout=timeout))
+            frames, _total = serve_workers.encode_frames(
+                {"session_id": sid, "state": shead}, sarrays)
+            self._send_bytes(200, b"".join(bytes(f) for f in frames),
+                             self._FRAMES_TYPE)
+            return
         self._send(200, {"ok": True, "session_id": sid})
 
     def do_POST(self):
@@ -250,11 +280,6 @@ class _Handler(_BaseHandler):
             verb = self.path[len("/admin/session/"):]
             if verb not in ("spill", "export", "import", "close"):
                 self._send(404, {"error": "unknown path %s" % self.path})
-            elif verb in ("export", "import"):
-                self._send(501, {"error": "POST /admin/session/%s is not "
-                                          "ported yet: it needs the fleets' "
-                                          "binary frame codec "
-                                          "(serve/workers.py)" % verb})
             else:
                 self._infer_errors(lambda: self._session_admin(verb))
             return
@@ -277,6 +302,100 @@ class _Handler(_BaseHandler):
 
         self._infer_errors(
             lambda: self._run_infer(self.bundle, infer))
+
+
+class _RouterHandler(_BaseHandler):
+    """Multi-model handler over a Router."""
+
+    router = None
+    slo = None
+    controller = None
+
+    def do_GET(self):
+        router = self.router
+        if self.path == "/healthz":
+            live, ready = router.live(), router.ready()
+            live_d, ready_d = router.live_detail(), router.ready_detail()
+            self._send(200 if (live and ready) else 503,
+                       {"ok": live and ready, "live": live,
+                        "ready": ready,
+                        "models": {name: {"live": live_d[name],
+                                          "ready": ready_d[name]}
+                                   for name in sorted(live_d)}})
+        elif self.path == "/livez":
+            live = router.live()
+            self._send(200 if live else 503,
+                       {"live": live, "models": router.live_detail()})
+        elif self.path == "/readyz":
+            # 503 until every hosted model is warm
+            ready = router.ready()
+            self._send(200 if ready else 503,
+                       {"ready": ready, "models": router.ready_detail()})
+        elif self.path == "/metrics":
+            # the router's registry, and each worker fleet's workers under
+            # {worker=} (their series carry {model=} too)
+            extras = [dump for front in self._fronts()
+                      if hasattr(front, "metric_dumps")
+                      for dump in front.metric_dumps()]
+            self._send_text(200, observe_metrics.merged_exposition(
+                router.metrics, extras),
+                "text/plain; version=0.0.4; charset=utf-8")
+        elif self.path == "/stats":
+            self._send(200, router.stats())
+        elif self.path == "/debug/traces":
+            self._send(200, observe_health.collect_traces(self._fronts()))
+        elif self.path == "/debug/slo":
+            self._send(200, self.slo.evaluate())
+        elif self.path == "/debug/control":
+            if self.controller is None:
+                self._send(404, {"error": "no controller on this "
+                                          "server (serve --autotune)"})
+            else:
+                self._send(200, self.controller.snapshot())
+        elif self.path == "/manifest":
+            try:
+                self._send(200, router.default_model().bundle.manifest)
+            except KeyError as exc:
+                self._send(400, {"error": str(exc)})
+        elif self.path.startswith("/manifest/"):
+            try:
+                name = self.path[len("/manifest/"):]
+                self._send(200, router.model(name).bundle.manifest)
+            except KeyError as exc:
+                self._send(404, {"error": str(exc)})
+        else:
+            self._send(404, {"error": "unknown path %s" % self.path})
+
+    def do_POST(self):
+        router = self.router
+        if self.path == "/infer":
+            def run():
+                self._route(router.default_model())
+        elif self.path.startswith("/infer/"):
+            name = self.path[len("/infer/"):]
+
+            def run():
+                try:
+                    hosted = router.model(name)
+                except KeyError as exc:
+                    self._send(404, {"error": str(exc)})
+                    return
+                self._route(hosted)
+        else:
+            self._send(404, {"error": "unknown path %s" % self.path})
+            return
+        self._infer_errors(run)
+
+    def _route(self, hosted):
+        self._run_infer(
+            hosted.bundle,
+            lambda arrays, timeout, session_id, end_session, trace:
+                self.router.infer(hosted.name, arrays, timeout=timeout,
+                                  session_id=session_id,
+                                  end_session=end_session, trace=trace))
+
+    def _fronts(self):
+        return [m.engine for m in self.router.models().values()]
 
 
 class _Server(ThreadingHTTPServer):
@@ -317,6 +436,32 @@ def serve_in_thread(bundle, engine, host="127.0.0.1", port=0, slo=None,
     with ``server.shutdown(); server.server_close(); thread.join()``."""
     server = make_server(bundle, engine, host, port, slo=slo,
                          controller=controller, compiles_fn=compiles_fn)
+    thread = threading.Thread(target=server.serve_forever,
+                              name="serve-http", daemon=True)
+    thread.start()
+    return server, thread
+
+
+def make_router_server(router, host="127.0.0.1", port=0, slo=None,
+                       controller=None):
+    """Multi-model server over a :class:`~paddle_tpu_torch.serve.router.
+    Router` (``POST /infer/<model>``, per-model ``/readyz``, 429
+    shedding)."""
+    if slo is None:
+        slo = observe_health.SloMonitor(
+            [m.engine for m in router.models().values()])
+    handler = type("RouterHandler", (_RouterHandler,),
+                   {"router": router, "slo": slo,
+                    "controller": controller})
+    return _Server((host, port), handler)
+
+
+def serve_router_in_thread(router, host="127.0.0.1", port=0, slo=None,
+                           controller=None):
+    """Start a router server on a daemon thread; returns (server,
+    thread)."""
+    server = make_router_server(router, host, port, slo=slo,
+                                controller=controller)
     thread = threading.Thread(target=server.serve_forever,
                               name="serve-http", daemon=True)
     thread.start()

@@ -12,14 +12,22 @@
   serve/server.py) instead of restarting the conversation from a zero
   carry.
 
-Everything the store holds is numpy, committed by the scheduler's
+* :class:`ConsistentHashRing` — md5 over 160 virtual nodes per member:
+  the replica fleets' session affinity (serve/fleet.py, serve/workers.py),
+  the same preference order as the JAX package's ring for the same
+  members.
+
+Everything the store holds is host memory, committed by the scheduler's
 ``serve-session-spill`` writer thread after the device-to-host copy
-landed, so a state exported from either package imports into the other.
-The JAX module's ``ConsistentHashRing`` belongs to the replica fleets and
-is not ported yet.
+landed: numpy rows, except that a bfloat16 leaf (a carry of a bundle
+exported under the bfloat16 policy), which numpy cannot hold, stays a CPU
+tensor (:func:`host_leaf`). A state exported from either package imports
+into the other, through the frame codec (serve/workers.py) when the carry
+is bfloat16.
 """
 
 import collections
+import hashlib
 import threading
 import time
 
@@ -47,9 +55,19 @@ class SessionGone(RuntimeError):
         self.reason = reason or "evicted"
 
 
+def host_leaf(tensor):
+    """A host copy of one carry leaf (a tensor on any device): a numpy
+    array, or for bfloat16, which numpy has no dtype for, a CPU tensor of
+    the same bits."""
+    tensor = tensor.detach().cpu()
+    if str(tensor.dtype) == "torch.bfloat16":
+        return tensor.clone()
+    return tensor.numpy().copy()
+
+
 class SessionState:
-    """One suspended session: the spilled carry rows (numpy,
-    ``{recurrent_layer_name: [row, ...]}`` — the slot dimension sliced
+    """One suspended session: the spilled carry rows (host arrays,
+    :func:`host_leaf`, ``{recurrent_layer_name: [row, ...]}`` — the slot dimension sliced
     off), the absolute decode position, and the scheduling metadata the
     eviction policy orders by."""
 
@@ -237,3 +255,58 @@ class SessionStore:
                 "bytes": self._bytes,
                 "tombstones": len(self._tombstones),
             }
+
+
+class ConsistentHashRing:
+    """Consistent hashing over replica indices for fleet-wide session
+    affinity (paddle_tpu/serve/sessions.py): ``order(session_id)`` returns
+    every member in ring-walk preference order, so a fleet routes a
+    session to the first *eligible* entry — the same replica every time
+    while it lives (its store holds the carry), and a stable fallback when
+    it dies (only the dead member's sessions move; 160 virtual nodes per
+    member smooth the arcs)."""
+
+    def __init__(self, members, vnodes=160):
+        members = list(members)
+        if not members:
+            raise ValueError("hash ring needs at least one member")
+        points = []
+        for member in members:
+            for v in range(vnodes):
+                digest = hashlib.md5(
+                    ("%s:%d" % (member, v)).encode()).digest()
+                points.append((int.from_bytes(digest[:8], "big"), member))
+        points.sort()
+        self._points = points
+        self._members = members
+
+    @staticmethod
+    def _hash(session_id):
+        digest = hashlib.md5(str(session_id).encode()).digest()
+        return int.from_bytes(digest[:8], "big")
+
+    def order(self, session_id):
+        """Every member once, in preference order for one session id (the
+        first is the session's home)."""
+        h = self._hash(session_id)
+        points = self._points
+        lo, hi = 0, len(points)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if points[mid][0] < h:
+                lo = mid + 1
+            else:
+                hi = mid
+        seen, out = set(), []
+        for i in range(len(points)):
+            member = points[(lo + i) % len(points)][1]
+            if member not in seen:
+                seen.add(member)
+                out.append(member)
+                if len(out) == len(self._members):
+                    break
+        return out
+
+    def lookup(self, session_id):
+        """The session's home member (first in :meth:`order`)."""
+        return self.order(session_id)[0]

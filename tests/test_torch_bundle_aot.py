@@ -144,10 +144,9 @@ def fp_pair(tmp_path_factory):
 def test_manifest_keys_and_specs_match_jax(fp_pair):
     port_dir, jax_dir = fp_pair
     port, ref = load_bundle(port_dir, device="cpu"), jax_load(jax_dir)
-    # hbm_estimate_bytes needs the static analyzer, which is not ported
-    assert set(port.manifest) == set(ref.manifest) - {"hbm_estimate_bytes"}
+    assert set(port.manifest) == set(ref.manifest)
     for key in ("version", "name", "platforms", "compute_dtype", "inputs",
-                "outputs", "seq_len", "params_file"):
+                "outputs", "seq_len", "params_file", "hbm_estimate_bytes"):
         assert port.manifest[key] == ref.manifest[key], key
     assert [b["batch"] for b in port.manifest["buckets"]] == list(BUCKETS)
     assert [b["artifact"] for b in port.manifest["buckets"]] == [

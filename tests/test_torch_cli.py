@@ -495,8 +495,7 @@ def test_cli_test_and_time(tmp_path, capsys):
     (["cluster_train", "--num-processes", "2"], "not ported yet"),
     (["merge_model", "--params", "p.tar", "-o", "m.tar"], "not ported yet"),
     (["analyze", "--all"], "not ported yet"),
-    (["serve", "b", "--continuous", "--session-store-addr", "h:1"],
-     "not ported yet"),
+    (["serve", "b", "--join", "h:1"], "not ported yet"),
     (["observe", ".", "--regress", "BASELINE.json"], "not ported yet"),
     (["observe", ".", "--fleet-stats", "h:1"], "not ported yet")])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):
@@ -505,3 +504,123 @@ def test_unported_verbs_and_options_raise(tmp_path, argv, match):
         argv = argv + ["--config", conf, "--device", "cpu"]
     with pytest.raises((NotImplementedError, EnforceError), match=match):
         cli.main(argv)
+
+
+# -- serve: several models, fleets and their refusals -------------------------
+
+@pytest.mark.parametrize("flag", ["--front", "--host-id", "--lease-ttl",
+                                  "--rehome-retries"])
+def test_cluster_flags_raise_by_name(flag):
+    value = {"--front": [], "--host-id": ["h1"], "--lease-ttl": ["5"],
+             "--rehome-retries": ["1"]}[flag]
+    with pytest.raises(EnforceError, match="serve %s is not ported yet"
+                       % flag):
+        cli.main(["serve", "b", flag, *value])
+
+
+@pytest.fixture(scope="module")
+def fleet_dirs(tmp_path_factory):
+    """The small flagship, fp and int8, exported by both packages from the
+    same numpy parameters: {kind: (port dir, JAX dir)}."""
+    from tests.torch_fleet import FLAGSHIP, FLAGSHIP_BUILDER, export_both
+
+    return {kind: export_both(tmp_path_factory.mktemp("cli_" + kind),
+                              FLAGSHIP_BUILDER, FLAGSHIP,
+                              quantize=None if kind == "fp" else "int8")
+            for kind in ("fp", "int8")}
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--workers", "2", "--replicas", "2"], "mutually exclusive"),
+    (["--workers", "2", "--session-store-addr", "127.0.0.1:9"],
+     "cannot combine with --workers")])
+def test_serve_refuses_conflicting_data_planes(fleet_dirs, capsys, extra,
+                                               message):
+    with pytest.raises(SystemExit) as exc_info:
+        cli.main(["serve", fleet_dirs["fp"][0], "--device", "cpu", *extra])
+    assert exc_info.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--model", "a=DIR", "--selfcheck"], "drop the positional"),
+    (["--model", "noequals"], "NAME=DIR[:PRIORITY]"),
+    ([], "a bundle directory or --model")])
+def test_serve_argument_errors_exit_2(capsys, argv, message):
+    assert cli.main(["serve", *argv]) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_serve_models_behind_the_router_with_replicas(fleet_dirs):
+    """``cli serve --model a=FP:high --model b=INT8:low --replicas 2`` in
+    its own process: answers of both models against the JAX package's
+    bundles of the same parameters, two replicas of each, the priorities,
+    and SIGTERM exits 0."""
+    import signal
+    import subprocess
+    import urllib.request
+
+    from paddle_tpu.serve import load_bundle as jax_load
+    from tests.torch_fleet import (FLAGSHIP_OUT, INT8_TOL, assert_close,
+                                   flagship_request)
+
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", "serve",
+         "--model", "a=%s:high" % fleet_dirs["fp"][0],
+         "--model", "b=%s:low" % fleet_dirs["int8"][0],
+         "--replicas", "2", "--device", "cpu", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    try:
+        lines = []
+        while not lines or "http://" not in lines[-1]:
+            line = proc.stdout.readline()
+            assert line, "".join(lines)
+            lines.append(line)
+        base = "http://" + lines[-1].split("http://", 1)[1].split(" ", 1)[0]
+        assert "['a', 'b']" in lines[-1]
+
+        def get(path):
+            return urllib.request.urlopen(base + path, timeout=60)
+
+        import time
+
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                if get("/readyz").status == 200:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        for name, kind, tol in (("a", "fp", None), ("b", "int8", INT8_TOL)):
+            ref = jax_load(fleet_dirs[kind][1])
+            for rows in (1, 3):
+                req = flagship_request(rows, seed=80 + rows)
+                body = json.dumps({"inputs": {
+                    k: v.tolist() for k, v in req.items()}}).encode()
+                resp = json.load(urllib.request.urlopen(
+                    urllib.request.Request(
+                        base + "/infer/" + name, data=body,
+                        headers={"Content-Type": "application/json"}),
+                    timeout=60))
+                got = {FLAGSHIP_OUT: np.asarray(
+                    resp["outputs"][FLAGSHIP_OUT], np.float32)}
+                assert_close(got, {FLAGSHIP_OUT: np.asarray(
+                    ref.infer(req)[FLAGSHIP_OUT])}, tol=tol)
+        stats = json.load(get("/stats"))
+        assert stats["priorities"] == {"a": "high", "b": "low"}
+        assert stats["models"]["a"]["replicas"] == 2
+        assert stats["models"]["b"]["replicas"] == 2
+        metrics = get("/metrics").read().decode()
+        assert 'model="b",replica="1"' in metrics
+        assert json.load(get("/manifest/b"))["quantization"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()

@@ -6,15 +6,15 @@ port's own copy of the JAX module.
   ring stays pinned, concurrent writers never tear a window;
 * the SLO monitor walks ok -> burning -> breached -> ok with its
   ``slo_status`` records and ``paddle_tpu_slo_*`` gauges;
-* the trace/history merge over a local front, and a front with workers
-  raising by name (the worker fleets, serve/workers.py, are not ported);
+* the trace/history merge over a local front, and over a front with
+  worker processes (a live and a dead worker: partial);
 * ``/debug/slo`` and ``/debug/traces`` over HTTP from the port's engine;
 * ``cli observe``'s per-worker merge of ``serve_trace`` streams;
 * the same history, merge, window statistics and monitor verdicts from
   the port's copy and the JAX module on the same inputs.
 
-Left out with what they need: the 2-worker fleet (serve/workers.py) and
-the bench gate's burn-rate direction (observe/regress.py).
+Left out with what it needs: the bench gate's burn-rate direction
+(observe/regress.py). The 2-worker fleet is in tests/test_torch_workers.py.
 """
 
 import json
@@ -459,19 +459,72 @@ def test_cli_observe_prints_fleet_breakdown(tmp_path, capsys):
     assert "w0 p99" in out and "w1 p99" in out
 
 
-# -- the worker fan-out waits for serve/workers.py ----------------------------
+# -- the worker fan-out (serve/workers.py) ---------------------------------
+
+class _Handle:
+    """A worker handle as the fan-out sees it: an index, liveness, and a
+    control RPC answering the ``traces`` / ``history`` verbs (``history``
+    with the snapshot it was given)."""
+
+    def __init__(self, index, dead=False, history=None):
+        self.index = index
+        self._dead = dead
+        self._history = history
+
+    def dead(self):
+        return self._dead
+
+    def try_rpc(self, header, timeout=2.0):
+        if header["op"] == "traces":
+            return {"ok": True, "traces": {
+                "sampled": 1, "exemplars_offered": 2, "exemplars_kept": 1,
+                "slowest": [{"latency_ms": 1e6 + self.index,
+                             "phases": {"queue_ms": 1.0}}]}}
+        return {"ok": True, "history": self._history}
+
 
 class _WorkerFront:
-    """A front with worker handles (the WorkerSet shape)."""
+    """A front with worker handles (the WorkerSet shape): worker 0
+    answers, worker 1 is dead."""
+
+    def __init__(self, history=None):
+        self._history = history
 
     def workers(self):
-        return []
+        return [_Handle(0, history=self._history), _Handle(1, dead=True)]
 
 
 @pytest.mark.parametrize("collect", ["collect_traces", "collect_history"])
 def test_worker_fronts_raise_by_name(collect):
-    with pytest.raises(NotImplementedError, match="serve/workers.py"):
-        getattr(health, collect)([_WorkerFront()])
+    """The fan-out over a front with workers (the name is kept from when
+    it raised): each live worker's reply merges in, exemplars stamped
+    ``worker``, a dead worker makes the answer partial, and the port's
+    merge equals the JAX module's over the same replies."""
+    from paddle_tpu.observe import tracing as jax_tracing
+
+    if collect == "collect_traces":
+        jax_tracing.get_exemplars().reset()  # the fixture empties the port's
+        base = tracing.trace_state(), jax_tracing.trace_state()
+        out = health.collect_traces([_WorkerFront()])
+        jout = jax_health.collect_traces([_WorkerFront()])
+        assert out["slowest"] == jout["slowest"]
+        assert out["slowest"][0]["worker"] == "0"
+        assert out["slowest"][0]["latency_ms"] == 1e6
+        for key, added in (("sampled", 1), ("exemplars_offered", 2),
+                           ("exemplars_kept", 1)):
+            assert out[key] - base[0][key] == \
+                jout[key] - base[1][key] == added
+    else:
+        (hist, jhist), now = _twin_histories(0)
+        (worker, _), _ = _twin_histories(10)
+        front = _WorkerFront(worker.snapshot(now=now))
+        out = health.collect_history([front], history=hist)
+        jout = jax_health.collect_history([front], history=jhist)
+        assert _without_clock(out) == _without_clock(jout)
+        assert out["totals"] == health.merge_history(
+            [hist.snapshot(now=now), worker.snapshot(now=now)])["totals"]
+    assert out["workers"] == jout["workers"] == ["0"]
+    assert out["partial"] is True and jout["partial"] is True
 
 
 # -- the port's copy against the JAX module ---------------------------------

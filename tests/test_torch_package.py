@@ -97,6 +97,21 @@ def test_import_scan_covers_the_serving_modules(part):
                 if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
 
 
+@pytest.mark.parametrize("part", [
+    "serve/router.py", "serve/fleet.py", "serve/workers.py",
+    "serve/remote_store.py", "serve/sessions.py", "serve/__init__.py",
+    "analyze/__init__.py", "analyze/topology_check.py", "cli.py"])
+def test_import_scan_covers_the_fleet_modules(part):
+    """The scan reads the router, the replica and worker fleets, the remote
+    session store and the memory estimate, and none of them imports JAX or
+    the JAX package."""
+    sources = {os.path.relpath(p, PKG): p for p in _port_sources()
+               if p.startswith(PKG + os.sep)}
+    assert part in sources
+    assert not [m for m in _imported_modules(sources[part])
+                if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+
+
 def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -3,7 +3,8 @@
 seeded sequence of operations on a shared fake clock), and the
 scheduler's parking, spill -> restore, pressure paging, close, eviction,
 TTL, ``export_session`` / ``import_session`` across the packages, the
-``serve_swap`` records with ``cli observe`` over them, and the HTTP flow.
+``serve_swap`` records with ``cli observe`` over them, and the HTTP flow
+(the admin verbs: spill, close, and export / import as frames).
 
 Sizes are tests/test_scheduler.py's (tagger hidden 12, 2 slots, window 4);
 both packages export the same numpy parameters (tests/torch_decode.py).
@@ -27,6 +28,7 @@ from paddle_tpu_torch.observe.metrics import MetricsRegistry
 from paddle_tpu_torch.serve import (ContinuousScheduler, SessionGone,
                                     SessionStore, serve_in_thread)
 from paddle_tpu_torch.serve import sessions as port_sessions
+from paddle_tpu_torch.serve import workers as port_workers
 from tests.torch_decode import (load_pair, per_request, read_records,
                                 schema_valid, sequences)
 
@@ -402,12 +404,33 @@ def test_http_session_flow_close_and_410(pair):
             payload = json.load(exc_info.value)
             assert (payload["session_id"], payload["reason"]) == (
                 "web2", "capacity")
-            for verb in ("export", "import"):
-                with pytest.raises(urllib.error.HTTPError) as exc_info:
-                    _post(base, "/admin/session/" + verb,
-                          {"session_id": "web3"})
-                assert exc_info.value.code == 501
-                assert "not ported yet" in json.load(exc_info.value)["error"]
+            # export answers the state as frames (serve/workers.py's
+            # codec) and removes it; import adopts the frames, and the
+            # session continues where it stopped
+            req = urllib.request.Request(
+                base + "/admin/session/export",
+                data=json.dumps({"session_id": "web3"}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as fh:
+                assert (fh.headers["Content-Type"]
+                        == "application/x-paddle-frames")
+                frames = fh.read()
+            assert not engine.has_session("web3")
+            header, _arrays = port_workers.decode_buffer(frames)
+            assert header["session_id"] == "web3"
+            assert header["state"]["pos"] == 3
+            req = urllib.request.Request(
+                base + "/admin/session/import", data=frames,
+                headers={"Content-Type": "application/x-paddle-frames"})
+            assert json.load(urllib.request.urlopen(req, timeout=60)) == {
+                "ok": True, "session_id": "web3", "nbytes": 48}
+            tail = _post(base, "/infer", {"inputs": {
+                "word": seq[3:6].tolist()}, "session_id": "web3"})
+            whole6 = _post(base, "/infer", {"inputs": {
+                "word": seq[:6].tolist()}})
+            np.testing.assert_array_equal(
+                np.asarray(tail["outputs"][OUT]),
+                np.asarray(whole6["outputs"][OUT])[3:])
         finally:
             server.shutdown()
             server.server_close()

@@ -18,9 +18,9 @@ end take ``trace=`` as the JAX ones do.
   sink that loses telemetry and never results, and ``cli observe``'s tail
   report.
 
-Left out with the parts they need: the trace-overhead bench smoke
-(``benchmark/exp_serve.py``, which gates against TPU rows) and the router
-and replica fleet (serve/router.py, serve/fleet.py).
+Left out with the part it needs: the trace-overhead bench smoke
+(``benchmark/exp_serve.py``, which gates against TPU rows). The worker
+fleet's merged ``/debug/traces`` is held in tests/test_torch_workers.py.
 """
 
 import glob
