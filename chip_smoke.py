@@ -480,6 +480,48 @@ result line:
            TAGGER --continuous --session-store-addr`` hosts (8 sessions:
            chunks 1-2 on A, spilled, A killed -9, chunks 3-4 on B, bit for
            bit).
+    layers_card  (after checkgrad) the remaining layers, one small
+           topology a group (misc: tensor, prelu, gated_unit, out_prod,
+           selective_fc, multiplex; extra: data_norm, featmap_expand, nce,
+           hsigmoid, warp_ctc; image utilities: batch_norm(img3D), maxout,
+           pad, crop, rotate, bilinear_interp up and down, spp,
+           conv_shift; row_conv and block_expand; mdlstmemory at 8 x 8;
+           the transposed conv through img_conv, conv_projection and
+           conv_operator; detection: cross_channel_norm, priorbox,
+           multibox_loss), one train-mode step each on the card against
+           the CPU (cost and every gradient within 1e-4; the CPU's pools
+           and relus deciding as the card's, nce's negatives and the hard
+           negatives the card's: CardChoices), and the detection group's
+           detection_output and detection_map in test mode against the
+           CPU (rows equal up to near ties, the mAP within 1e-6); a row a
+           group with its seconds.
+    train_crnn_ctc  CRNN (Shi, Bai and Yao 2015) at its published widths:
+           1 x 32 x 100 images at batch 64, six 3 x 3 convs and the 2 x 2
+           valid one (64, 128, 256, 256, 512, 512, 512 filters), four max
+           pools (the last two halve the height only), batch norm after
+           the fifth and sixth, block_expand(1, 1) into a 24-step
+           sequence, two stacked bidirectional LSTMs of 256, an fc to 37
+           classes and warp_ctc(blank 0, norm_by_times); labels of 1-10
+           characters. One step's cost and gradients and 3 Momentum steps
+           (costs and every parameter) on the card against the CPU within
+           1e-4, the ctc_error evaluator on both within 1/64, 10 timed
+           steps (ms a step), K7, its data gradient, K8, K1 and K2 launches
+           equal to the counts the topology gives (5 convs in K7's family,
+           4 LSTM layers), a profile, and the kernels at the phase's
+           shapes against their plain versions.
+    ssd300_head  SSD300's head (Liu et al. 2016) at batch 8: its six
+           source maps as data (512 x 38^2 through cross_channel_norm, 1024
+           x 19^2, 512 x 10^2, 256 x 5^2, 256 x 3^2, 256 x 1^2) and the 3 x
+           300 x 300 image priorbox reads; 3 x 3 loc predictors (16 or 24
+           filters: K7's family) and conf predictors (84 or 126:
+           F.conv2d); 8732 priors, asserted; 21 classes, 1-5 boxes an
+           image. One multibox_loss step on the card against the CPU
+           (cost and every gradient within 1e-4, the hard negatives the
+           card's), its K7/K8 launches equal to the topology's, then
+           detection_output (NMS 0.45, top 400, keep 200) and
+           detection_map against the CPU (rows equal up to near ties, the
+           mAP within 1e-6), ms a call, and K7/K8 at the loc predictors'
+           shapes against their plain versions.
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -490,7 +532,8 @@ result line:
            shapes, and K1/K2, K5/K6 and K7/K8 at the v1_text and
            mixed_conv phases', K1/K2 at nested_text's; K1, K5, K7 and K9
            also as the ops inside serve_aot's loaded programs, with the
-           fresh processes' launches), then the
+           fresh processes' launches; K7/K8 at train_crnn_ctc's and
+           ssd300_head's family convs, K1/K2 at CRNN's BiLSTM), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -3745,7 +3788,7 @@ def phase_serve_resnet(torch, ck, tmp):
 
 def resident_bytes(bundle):
     """Bytes of the bundle's parameter tensors resident on its device."""
-    return sum(t.nbytes for t in bundle.params.values())
+    return sum(t.nbytes for t in bundle.params().values())
 
 
 def accuracy_gate(got, want):
@@ -3909,7 +3952,7 @@ def phase_serve_resnet_int8(torch, ik, ck, tmp):
            "resident_bytes_fp": resident_bytes(fp),
            "resident_bytes_int8": resident_bytes(bundle),
            "resident_int8_tensors": sum(
-               t.dtype == torch.int8 for t in bundle.params.values()),
+               t.dtype == torch.int8 for t in bundle.params().values()),
            "forward_ms_bucket8_fp": forward_ms(fp, full, 8),
            "forward_ms_bucket8_int8": forward_ms(bundle, full, 8),
            "burst_images_per_s": sum(len(r["image"]) for r in burst) / wall,
@@ -4320,7 +4363,7 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
             with np.load(job["outputs"] % batch) as data:
                 got = {k: data[k] for k in data.files}
             with torch.inference_mode():
-                eager = host_numpy(forward(card.params,
+                eager = host_numpy(forward(card.payload,
                                            card.device_inputs(inputs)))
             eager_err = max(eager_err, worst_error(got, eager))
             cpu_err = max(cpu_err, worst_error(
@@ -4350,7 +4393,7 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
             step = export_mod._make_decode_step(
                 topology, [s for s in card.inputs], names, card.quantization)
             with torch.inference_mode():
-                carry, outs = step(card.params, card.zero_carry(),
+                carry, outs = step(card.payload, card.zero_carry(),
                                    card.device_inputs(flat))
             eager = host_numpy(outs)
             eager.update({"carry:%s:%d" % (layer, i): leaf.cpu().numpy()
@@ -4383,11 +4426,11 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
 
         def run_program():
             with torch.inference_mode():
-                program(card.params, feed)
+                program(card.payload, feed)
 
         def run_eager():
             with torch.inference_mode():
-                forward(card.params, feed)
+                forward(card.payload, feed)
 
         row.update({"timed_bucket": batch,
                     "program_ms": synced_ms(torch, run_program),
@@ -4407,7 +4450,7 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
     bf16_dir = os.path.join(tmp, "aot_flagship_bf16")
     dtype_mod.set_mixed_precision("bfloat16")
     try:
-        export_mod.export_bundle(out, Parameters(dict(card.params)),
+        export_mod.export_bundle(out, Parameters(dict(card.payload)),
                                  bf16_dir, batch_sizes=(8,), seq_len=AOT_SEQ,
                                  platforms=("cpu", "cuda"))
         forward = export_mod._make_forward(
@@ -4415,7 +4458,7 @@ def phase_serve_aot(torch, ck, gk, ik, lk, tmp):
         with np.load(jobs["flagship"]["inputs"] % 8) as data:
             req = {k: data[k] for k in data.files}
         with torch.inference_mode():
-            eager16 = host_numpy(forward(card.params, card.device_inputs(req)))
+            eager16 = host_numpy(forward(card.payload, card.device_inputs(req)))
     finally:
         dtype_mod.set_mixed_precision(None)
     bf16 = load_bundle(bf16_dir, device=DEVICE)
@@ -5260,7 +5303,7 @@ def phase_serve_fleet(torch, aot, tmp):
         memory[name] = {
             "hbm_estimate_bytes": card[name].manifest["hbm_estimate_bytes"],
             "params_bytes": sum(t.nbytes for t in
-                                card[name].params.values()),
+                                card[name].params().values()),
             "load_added_bytes": torch.cuda.memory_allocated() - before}
         cpu[name] = load_bundle(directory, device="cpu")
     reqs = fleet_requests(rng, FLEET_REQUESTS)
@@ -5683,8 +5726,8 @@ def decode_paths(torch, rig, params, batch, device):
     decode = layer.crf_decoding(input=rig.out, param_attr=attr.ParamAttr(
         name="tag_crf.w0"))
     topology = Topology(decode)
-    feed = convert_feed(topology, [(ids,) for ids, _ in batch], device,
-                        max_len=batch.bucket)
+    feed = convert_feed(topology, [(ids,) for ids, _ in batch],
+                        max_len=batch.bucket, device=device)
     values = {n: torch.as_tensor(params.get(n), device=device)
               for n in topology.param_specs()}
     paths = topology.apply(values, feed, mode="test")[0][decode.name]
@@ -5826,7 +5869,7 @@ def feed_ms(torch, topology, batches):
     times = []
     for batch in batches:
         t0 = time.perf_counter()
-        convert_feed(topology, batch, DEVICE)
+        convert_feed(topology, batch, device=DEVICE)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -6393,7 +6436,8 @@ DEMO_RUNS = [
      ("test error", "predictions:"), None, 128),
     ("quick_start_lstm", "quick_start/train.py", ["--model", "lstm"],
      ("test error",), ("lstm", 1), 64),
-    ("seq2seq", "seq2seq/train.py", ["--dict-size", "30000"],
+    ("seq2seq", "seq2seq/train.py", ["--dict-size", "30000",
+                                     "--num-passes", "1"],
      ("beam best",), ("gru", 2), 32),
     ("traffic_prediction", "traffic_prediction/train.py", [],
      ("test RMSE",), ("gru", 1), 32),
@@ -6494,20 +6538,25 @@ def demo_step(torch, cost, rows, init, device):
     topo = Topology(cost)
     params = {k: v.detach().clone().to(device).requires_grad_()
               for k, v in init.items()}
-    values, _ = topo.apply(params, convert_feed(topo, rows, device),
+    values, _ = topo.apply(params, convert_feed(topo, rows, device=device),
                         mode="train",
                         rng=torch.Generator(device=device))
     loss = values[cost.name].float().mean()
     loss.backward()
-    return float(loss.detach()), {k: p.grad.float().cpu()
-                                  for k, p in params.items()}
+    # a running statistic (batch norm's) has no gradient: zero
+    return float(loss.detach()), {
+        k: (p.grad if p.grad is not None else torch.zeros_like(p))
+        .float().cpu() for k, p in params.items()}
 
 
-def step_vs_cpu(torch, cost, rows, init, counts, replays=()):
+def step_vs_cpu(torch, cost, rows, init, counts, replays=(),
+                grad_floor=0.0):
     """One train-mode step (demo_step) of ``cost`` on ``rows`` from
     ``init`` on the card, then on the CPU: the cost's error over max(1,
     |CPU|), each gradient's largest error over its own largest CPU entry
-    (the worst of them, and the three worst), the parameters whose card
+    (or over ``grad_floor`` times the step's largest CPU gradient entry,
+    where that is larger: a gradient that is zero but for rounding), the
+    worst of them and the three worst, the parameters whose card
     gradient is zero or not finite, and ``counts()`` read after the card's
     step (the caller resets the counters). Each of ``replays``
     (SharedKinks, SeededMasks, patched in by the caller) is reset between
@@ -6518,8 +6567,10 @@ def step_vs_cpu(torch, cost, rows, init, counts, replays=()):
     for replay in replays:
         replay.reset()
     cpu = demo_step(torch, cost, rows, init, "cpu")
+    floor = max(grad_floor * max(float(g.abs().max())
+                                 for g in cpu[1].values()), 1e-30)
     errors = {n: float((card[1][n] - g).abs().max())
-              / max(float(g.abs().max()), 1e-30) for n, g in cpu[1].items()}
+              / max(float(g.abs().max()), floor) for n, g in cpu[1].items()}
     return {"cost_card": card[0], "cost_cpu": cpu[0],
             "cost_err_rel": abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0])),
             "grad_err_rel": max(errors.values()),
@@ -7585,8 +7636,9 @@ def packed_vs_unpacked(torch, rig, samples, rows):
     feed = bucketing.pack_feed(topo, rows, max_len=PACKED_ROW, device=DEVICE)
     packed = topo.apply(params, feed, mode="test")[0][rig.out.name].data
     flat = [s for row in rows for s in row]
-    alone = topo.apply(params, convert_feed(topo, flat, DEVICE,
-                                            max_len=PACKED_ROW),
+    alone = topo.apply(params, convert_feed(topo, flat,
+                                            max_len=PACKED_ROW,
+                                            device=DEVICE),
                        mode="test")[0][rig.out.name].data
     err, i = 0.0, 0
     for r, row in enumerate(rows):
@@ -7638,7 +7690,8 @@ def phase_packed_tagger(torch, gk):
     bucketed = [b for b in bucketing.rebucket_batches(
         lambda: iter([used[i:i + PACKED_ROWS] for i in range(
             0, len(used), PACKED_ROWS)]), buckets=PACKED_BUCKETS)()]
-    bucket_feeds = [convert_feed(topo, b, DEVICE, max_len=b.bucket)
+    bucket_feeds = [convert_feed(topo, b, max_len=b.bucket,
+                                 device=DEVICE)
                     for b in bucketed]
     bucket_pad = 1.0 - fill / float(sum(len(b) * b.bucket
                                         for b in bucketed))
@@ -7884,6 +7937,753 @@ def phase_checkgrad(torch, tmp):
     if rc != 0 or "checkgrad PASSED" not in out.getvalue():
         raise AssertionError("cli checkgrad on the card: %r" % row)
     return row
+
+
+# -- phases layers_card, train_crnn_ctc, ssd300_head: the remaining layers ---
+
+class CardChoices:
+    """A stand-in for a function whose result is a discrete choice (the
+    negatives torch.multinomial draws for nce, the hard negatives of
+    ops.detection.hard_negatives) in the card-against-CPU checks only:
+    while recording (the card's pass) each call runs ``real`` and keeps its
+    result; after ``reset()`` (the CPU's pass) the i-th call returns the
+    i-th kept result on its first argument's device, so both passes take
+    the card's choices (a draw from another generator, or a ranking of
+    values within rounding of each other, would differ)."""
+
+    def __init__(self, real):
+        self.real, self.record, self.kept, self.calls = real, True, [], 0
+
+    def reset(self):
+        self.record, self.calls = False, 0
+
+    def __call__(self, *args, **kwargs):
+        if self.record:
+            self.kept.append(self.real(*args, **kwargs))
+            return self.kept[-1]
+        self.calls += 1
+        return self.kept[self.calls - 1].to(args[0].device)
+
+
+LAYERS_BATCH = 8
+LAYER_GROUPS = ("misc", "extra", "image_utilities", "row_conv_block_expand",
+                "mdlstm", "transposed_conv", "detection")
+# the detection group's head: two maps of a 3 x 16 x 16 image, 4 priors a
+# cell, so its loc convs (16 filters over 8 channels) are in K7's family
+SSD_SMALL = {"image": (3, 16, 16), "classes": 3, "boxes": (1, 3),
+             "maps": [(8, 4, 4, 4.0, 8.0, (2.0,)),
+                      (8, 2, 4, 8.0, 12.0, (2.0,))],
+             "variance": [0.1, 0.1, 0.2, 0.2], "top_k": 20, "keep": 16}
+
+
+def layer_group(name, rng, batch=LAYERS_BATCH):
+    """One layers_card group: ``cost`` (its topology ends in a cost),
+    ``rows`` (``batch`` seeded tuples in the topology's data-layer order),
+    ``overrides`` of the seeded parameters, and for the detection group
+    its ``detections`` and ``mean_ap`` nodes."""
+    from paddle_tpu_torch import activation as A
+    from paddle_tpu_torch import data_type as dt
+    from paddle_tpu_torch import layer as L
+    from paddle_tpu_torch import pooling
+    from paddle_tpu_torch.graph import reset_name_counters
+    from paddle_tpu_torch.topology import Topology
+
+    reset_name_counters()
+
+    def dense(n, dim, **kw):
+        return L.data(name=n, type=dt.dense_vector(dim), **kw)
+
+    def vec(dim, scale=1.0):
+        return lambda: (rng.randn(dim) * scale).astype(np.float32)
+
+    def head(x):
+        out = L.fc(input=x, size=4, act=A.Softmax(), name="head")
+        return L.classification_cost(input=out, label=label)
+
+    label = L.data(name="label", type=dt.integer_value(4))
+    make = {"label": lambda: int(rng.randint(0, 4))}
+    group = {"overrides": {}}
+    if name == "misc":
+        x, x2 = dense("x", 16), dense("x2", 12)
+        sel = dense("sel", 8)
+        idx = L.data(name="idx", type=dt.integer_value(2))
+        t = L.tensor(x, x2, size=8, act=A.Tanh())
+        g = L.gated_unit(input=L.prelu(input=t, partial_sum=2), size=8,
+                         act=A.Tanh())
+        o = L.out_prod(g, L.fc(input=x2, size=4, act=A.Tanh()))
+        s = L.selective_fc(input=o, select=sel, size=8, act=A.Sigmoid())
+        cost = head(L.multiplex(input=[idx, s, g]))
+        make.update(x=vec(16), x2=vec(12), idx=lambda: int(rng.randint(2)),
+                    sel=lambda: (rng.rand(8) > 0.3).astype(np.float32))
+    elif name == "extra":
+        x, y = dense("x", 16), L.data(name="y", type=dt.integer_value(10))
+        xs = L.data(name="xs", type=dt.dense_vector_sequence(8))
+        lab = L.data(name="lab", type=dt.integer_value_sequence(6))
+        norm = L.data_norm(input=x, name="norm")
+        feat = L.fc(input=L.featmap_expand(input=norm, num_filters=2),
+                    size=16, act=A.Tanh())
+        cost = L.addto(input=[
+            L.nce(input=feat, label=y, num_classes=10, num_neg_samples=5),
+            L.hsigmoid(input=feat, label=y, num_classes=10),
+            L.warp_ctc(input=L.fc(input=xs, size=6), label=lab, blank=0,
+                       norm_by_times=True)])
+        make.update(x=vec(16, 2.0), y=lambda: int(rng.randint(10)),
+                    xs=lambda: rng.randn(rng.randint(5, 9), 8).astype(
+                        np.float32),
+                    lab=lambda: rng.randint(1, 6, rng.randint(1, 3)).tolist())
+        stats = np.zeros((5, 16), np.float32)
+        stats[0], stats[1] = rng.randn(16), rng.uniform(1.0, 3.0, 16)
+        group["overrides"]["norm.w0"] = stats
+    elif name == "image_utilities":
+        img = dense("img", 3 * 8 * 8, height=8, width=8)
+        c1 = L.img_conv(input=img, filter_size=3, num_filters=8, padding=1,
+                        act=A.Relu())
+        bn = L.batch_norm(input=c1, img3D=True, act=A.Relu())
+        padded = L.pad(input=L.maxout(input=bn, groups=2), pad_c=(2, 2),
+                       pad_h=(0, 1), pad_w=(1, 0))
+        cropped = L.crop(input=padded, axis=2, offset=(1, 0),
+                         shape=(1, 8, 8, 8))
+        c2 = L.img_conv(input=cropped, filter_size=3, num_filters=8,
+                        padding=1, act=A.Relu())
+        up = L.bilinear_interp(input=L.rotate(input=c2, height=8, width=8),
+                               out_size_x=12, out_size_y=12)
+        down = L.bilinear_interp(input=up, out_size_x=6, out_size_y=6)
+        pyr = L.spp(input=down, pyramid_height=2)
+        cost = head(L.conv_shift(L.fc(input=pyr, size=16, act=A.Tanh()),
+                                 L.fc(input=pyr, size=3, act=A.Softmax())))
+        make.update(img=vec(192))
+    elif name == "row_conv_block_expand":
+        img = dense("img", 8 * 4 * 6, height=4, width=6)
+        conv = L.img_conv(input=img, filter_size=3, num_filters=16,
+                          padding=1, act=A.Relu())
+        seq = L.block_expand(input=conv, block_x=2, block_y=2, stride_x=1,
+                             stride_y=2)
+        rc = L.row_conv(input=seq, context_len=3, act=A.Relu())
+        cost = head(L.pooling(input=L.fc(input=rc, size=8, act=A.Tanh()),
+                              pooling_type=pooling.AvgPooling()))
+        make.update(img=vec(192))
+    elif name == "mdlstm":
+        img = dense("img", 4 * 8 * 8, height=8, width=8)
+        cost = head(L.mdlstmemory(input=img, size=8,
+                                  directions=(False, True)))
+        make.update(img=vec(256))
+    elif name == "transposed_conv":
+        img, z = dense("img", 8 * 6 * 6, height=6, width=6), dense("z", 8)
+        up = L.img_conv(input=img, filter_size=3, num_filters=8, stride=2,
+                        padding=1, trans=True, act=A.Tanh())
+        proj = L.mixed(input=[L.conv_projection(
+            up, filter_size=3, num_filters=8, padding=1, trans=True)],
+            act=A.Tanh())
+        filt = L.fc(input=z, size=8 * 8 * 9, act=A.Tanh())
+        cost = head(L.mixed(input=[L.conv_operator(
+            img=proj, filter=filt, filter_size=3, num_filters=8,
+            num_channels=8, padding=1, trans=True)]))
+        make.update(img=vec(288), z=vec(8))
+    else:
+        cost, group["detections"], group["mean_ap"] = ssd_head(SSD_SMALL)
+        make.update(ssd_make(SSD_SMALL, rng))
+    group["cost"] = cost
+    group["rows"] = [tuple(make[n]() for n, _ in Topology(cost).data_types())
+                     for _ in range(batch)]
+    return group
+
+
+def ssd_head(spec):
+    """SSD's head over ``spec``'s source maps (data layers ``map<i>``, the
+    first through cross_channel_norm), the ``image`` priorbox reads:
+    per map a priorbox and 3 x 3 pad-1 loc and conf predictors (k * 4 and
+    k * classes filters, k priors a cell). Returns (multibox_loss,
+    detection_output, detection_map)."""
+    from paddle_tpu_torch import activation as A
+    from paddle_tpu_torch import data_type as dt
+    from paddle_tpu_torch import evaluator
+    from paddle_tpu_torch import layer as L
+
+    c, h, w = spec["image"]
+    classes = spec["classes"]
+    image = L.data(name="image", type=dt.dense_vector(c * h * w), height=h,
+                   width=w)
+    locs, confs, priors = [], [], []
+    for i, (ch, side, k, lo, hi, ars) in enumerate(spec["maps"]):
+        fmap = L.data(name="map%d" % i,
+                      type=dt.dense_vector(ch * side * side), height=side,
+                      width=side)
+        if i == 0:
+            fmap = L.cross_channel_norm(input=fmap, name="map0_norm")
+        priors.append(L.priorbox(input=fmap, image=image,
+                                 aspect_ratio=list(ars),
+                                 variance=spec["variance"], min_size=[lo],
+                                 max_size=[hi], name="prior%d" % i))
+        for kind, filters, out in (("loc", k * 4, locs),
+                                   ("conf", k * classes, confs)):
+            out.append(L.img_conv(input=fmap, filter_size=3, padding=1,
+                                  num_filters=filters, act=A.Linear(),
+                                  name="%s%d" % (kind, i)))
+    gt = L.data(name="gt", type=dt.dense_vector_sequence(6))
+    loss = L.multibox_loss(input_loc=locs, input_conf=confs,
+                           priorbox=priors, label=gt, num_classes=classes,
+                           name="mbox_loss")
+    det = L.detection_output(input_loc=locs, input_conf=confs,
+                             priorbox=priors, num_classes=classes,
+                             nms_threshold=0.45, nms_top_k=spec["top_k"],
+                             keep_top_k=spec["keep"], name="detections")
+    return loss, det, evaluator.detection_map(input=det, label=gt,
+                                              name="mean_ap")
+
+
+def ssd_make(spec, rng):
+    """Row makers of ssd_head's data layers: N(0, 1) maps, a zero image
+    (only its size is read), and the ground truth, rows [label, xmin,
+    ymin, xmax, ymax, difficult], of a count in spec["boxes"] an image:
+    the even ones on a prior's box, each image's first from the next map
+    in turn (so every map's priors match some box: each predictor has a
+    gradient), the odd ones anywhere."""
+    from paddle_tpu_torch.layer.detection import _make_priors
+
+    c, h, w = spec["image"]
+    tables = [_make_priors(side, side, h, w, [lo], [hi], list(ars),
+                           spec["variance"])[:, :4]
+              for _, side, _, lo, hi, ars in spec["maps"]]
+    images = []
+
+    def boxes():
+        n = int(rng.randint(spec["boxes"][0], spec["boxes"][1] + 1))
+        out = []
+        for j in range(n):
+            if j % 2:
+                lo = rng.rand(2) * 0.6
+                box = [lo[0], lo[1], lo[0] + 0.1 + rng.rand() * 0.3,
+                       lo[1] + 0.1 + rng.rand() * 0.3]
+            else:
+                table = tables[(len(images) + j // 2) % len(tables)]
+                box = list(table[rng.randint(len(table))])
+            out.append([float(rng.randint(1, spec["classes"]))] + box
+                       + [float(rng.rand() < 0.2)])
+        images.append(n)
+        return np.asarray(out, np.float32)
+
+    make = {"image": lambda: np.zeros(c * h * w, np.float32), "gt": boxes}
+    for i, (ch, side, *_) in enumerate(spec["maps"]):
+        make["map%d" % i] = (lambda n=ch * side * side:
+                             rng.randn(n).astype(np.float32))
+    return make
+
+
+def conv_family(topology, batch):
+    """The img_conv layers of ``topology`` in the kernels' family at
+    ``batch`` (any H and W), as sorted [(N, H, W, C, F, k, count,
+    needs_dx)]: needs_dx where the conv's input depends on a parameter
+    (its data gradient runs)."""
+    import torch
+
+    from paddle_tpu_torch.ops import conv_kernels as ck
+
+    trained, found = set(), {}
+    specs = topology.param_specs()
+    for node in topology.nodes:  # topological order
+        if node.param_specs or any(p.name in trained for p in node.inputs):
+            trained.add(node.name)
+        if node.layer_type != "img_conv":
+            continue
+        k, _, c, f = specs[node.name + ".w0"].shape
+        _, h, w = node.inputs[0].out_img_shape
+        pad = k // 2
+        if tuple(node.out_img_shape[1:]) == (h, w) and ck.kernel_supported(
+                (batch, h, w, c), (k, k, c, f), (1, 1),
+                ((pad, pad), (pad, pad)), 1, (1, 1), torch.float32,
+                torch.float32):
+            key = (batch, h, w, c, f, k, node.inputs[0].name in trained)
+            found[key] = found.get(key, 0) + 1
+    return [key[:6] + (n, key[6]) for key, n in sorted(found.items())]
+
+
+def family_step_launches(convs, lstm_layers=0):
+    """The launches one training step makes: K7 (forward and data
+    gradient), K7's data gradients alone, K8, and K1 = K2 = the LSTM
+    layers."""
+    dgrad = sum(n for *_, n, dx in convs if dx)
+    fwd = sum(n for *_, n, _ in convs)
+    return {"k7": fwd + dgrad, "k7_dgrad": dgrad, "k8": fwd,
+            "lstm_fwd": lstm_layers, "lstm_bwd": lstm_layers}
+
+
+def family_sum(rows, which, dtype, convs, label):
+    """One row of ``dtype`` for ``convs`` (conv_family's) of one forward
+    (``which`` "fwd"), their data gradients ("dgrad") or filter gradients
+    ("bwdw"): each shape's numbers times its count, summed."""
+    kernel = {"fwd": "conv2d_same_fwd",
+              "dgrad": "conv2d_same_fwd[data_gradient]",
+              "bwdw": "conv2d_same_bwd_filter"}[which]
+    by_shape = {tuple(r["shape"]): r for r in rows
+                if r["kernel"] == kernel and r["dtype"] == dtype}
+    these = [(by_shape[tuple(c[:6])], c[6]) for c in convs
+             if which != "dgrad" or c[7]]
+    return summed(these, "%s: %d convs (%s)" % (
+        label, sum(n for _, n in these), dtype), dtype)
+
+
+def conv_rows(torch, ck, convs, phase):
+    """K7, its data gradient and K8 at ``convs``' shapes, timed as
+    kernel_conv and kernel_conv_bwd time them."""
+    cases = sorted({tuple(c[:6]) for c in convs})
+    return (phase_kernel_conv(torch, ck, cases, phase, plain_reps=2)
+            + phase_kernel_conv_bwd(torch, ck, cases, phase, plain_reps=2))
+
+
+def state_names(names):
+    """The running statistics among ``names`` (they have no gradient)."""
+    return [n for n in names if n.endswith((".moving_mean", ".moving_var"))]
+
+
+def phase_layers_card(torch, ck):
+    """Each group of LAYER_GROUPS (module docstring, layers_card): one
+    train-mode step on the card against the CPU (step_vs_cpu; the CPU's
+    pools and relus deciding as the card's, nce's draws and the hard
+    negatives the card's); the detection group's detection_output and
+    detection_map in test mode against the CPU."""
+    from paddle_tpu_torch import activation
+    from paddle_tpu_torch.ops import conv as conv_ops
+    from paddle_tpu_torch.ops import detection as det_ops
+    from paddle_tpu_torch.topology import Topology
+
+    rows = []
+    for i, name in enumerate(LAYER_GROUPS):
+        t0 = time.perf_counter()
+        group = layer_group(name, np.random.RandomState(SEED + 1000 + i))
+        cost = group["cost"]
+        init = numpy_params(Topology(cost), SEED + 1010 + i).as_dict()
+        init.update({k: torch.from_numpy(v)
+                     for k, v in group["overrides"].items()})
+        kinks, draws = SharedKinks(), CardChoices(torch.multinomial)
+        negatives = CardChoices(det_ops.hard_negatives)
+        with mock.patch.object(conv_ops, "max_pool2d", kinks.pool), \
+                mock.patch.object(activation.Relu, "apply", kinks.relu), \
+                mock.patch.object(torch, "multinomial", draws), \
+                mock.patch.object(det_ops, "hard_negatives", negatives):
+            ck.reset_launches()
+            step = step_vs_cpu(torch, cost, group["rows"], init,
+                               lambda: {"k7": ck.launches,
+                                        "k8": ck.bwdw_launches},
+                               (kinks, draws, negatives))
+        step["no_gradient"] = sorted(set(step["no_gradient"])
+                                     - set(state_names(init)))
+        row = dict(step, phase="layers_card", group=name,
+                   rows=len(group["rows"]), tol=TOL_TRAIN,
+                   replayed={"pools": kinks.calls["pool"],
+                             "relus": kinks.calls["relu"],
+                             "draws": len(draws.kept),
+                             "negatives": len(negatives.kept)})
+        if name == "detection":
+            row["detections"] = detections_vs_cpu(
+                torch, group["detections"], group["mean_ap"], group["rows"],
+                init)
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        if not (row["cost_err_rel"] <= TOL_TRAIN
+                and row["grad_err_rel"] <= TOL_TRAIN
+                and np.isfinite(row["cost_card"])
+                and not row["no_gradient"]):
+            raise AssertionError("layers_card %s: the card departs from the "
+                                 "CPU: %r" % (name, row))
+        rows.append(row)
+    return rows
+
+
+def detection_faults(card, cpu):
+    """detection_output's rows on the card against the CPU's ([B, K, 7],
+    score order): the scores within TOL_TRAIN position by position (a
+    swap of near-equal scores keeps them so), the labels and boxes equal
+    (boxes within TOL_TRAIN) except inside runs of scores within TIE_GAP
+    of each other, where the labels are compared as sets. Returns (faults,
+    rows inside near-tie runs)."""
+    faults, near = [], 0
+    for b in range(card.shape[0]):
+        s = cpu[b, :, 2]
+        scale = np.maximum(1.0, np.abs(s))
+        if np.abs(card[b, :, 2] - s).max() > TOL_TRAIN:
+            faults.append("image %d: scores differ" % b)
+        close = np.abs(np.diff(s)) <= TIE_GAP * scale[1:]
+        tie = np.zeros(len(s), bool)
+        tie[:-1] |= close
+        tie[1:] |= close
+        near += int(tie.sum())
+        same = ~tie
+        if not np.array_equal(card[b, same, 1], cpu[b, same, 1]):
+            faults.append("image %d: labels differ outside near ties" % b)
+        elif np.abs(card[b, same, 3:] - cpu[b, same, 3:]).max(
+                initial=0.0) > TOL_TRAIN:
+            faults.append("image %d: boxes differ" % b)
+        start = 0
+        for end in range(1, len(s) + 1):  # each run of tied rows as a set
+            if end == len(s) or not close[end - 1]:
+                if sorted(card[b, start:end, 1]) != sorted(
+                        cpu[b, start:end, 1]):
+                    faults.append("image %d: near-tied rows %d-%d differ"
+                                  % (b, start, end - 1))
+                start = end
+    return faults, near
+
+
+def detections_vs_cpu(torch, det, mean_ap, rows, init):
+    """detection_output and detection_map in test mode on the card
+    against the CPU (detection_faults; the mAP within 1e-6), and the
+    card's ms a call of each (detection_map's with its detections)."""
+    from paddle_tpu_torch.evaluator import host_stats
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    topo = Topology([det, mean_ap])
+    got = {}
+    for device in (DEVICE, "cpu"):
+        params = {k: v.to(device) for k, v in init.items()}
+        feed = convert_feed(topo, rows, device=device)
+        values = topo.apply(params, feed, mode="test")[0]
+        stats = host_stats(values[mean_ap.name])
+        got[device] = (values[det.name].float().cpu().numpy(),
+                       mean_ap.result(mean_ap.merge(None, stats)))
+        if device == DEVICE:
+            ms = {out: synced_ms(torch, lambda out=out: topo.apply(
+                params, feed, mode="test", outputs=[out]), reps=3)
+                for out in (det.name, mean_ap.name)}
+    faults, near = detection_faults(got[DEVICE][0], got["cpu"][0])
+    map_err = abs(got[DEVICE][1] - got["cpu"][1])
+    if map_err > 1e-6:
+        faults.append("mAP %r against %r" % (got[DEVICE][1], got["cpu"][1]))
+    row = {"kept": int((got["cpu"][0][..., 1] >= 0).sum()),
+           "near_tied_rows": near, "map_card": got[DEVICE][1],
+           "map_cpu": got["cpu"][1], "map_err": map_err,
+           "ms_detection_output": ms[det.name],
+           "ms_detection_map": ms[mean_ap.name], "faults": faults}
+    if faults:
+        raise AssertionError("detections on the card depart from the CPU: "
+                             "%r" % row)
+    return row
+
+
+# CRNN (Shi, Bai and Yao 2015, arXiv:1507.05717) at its published widths:
+# 1 x 32 x 100 grayscale, six 3 x 3 pad-1 convs and the paper's 2 x 2
+# valid one (filters, size, padding, the max pool after it: "2x2" or "h",
+# which halves the height only, and whether a batch norm follows), down to
+# 512 x 1 x 24; two stacked bidirectional LSTMs of 256; 36 characters and
+# the blank
+CRNN = {"height": 32, "width": 100, "classes": 37, "hidden": 256,
+        "convs": [(64, 3, 1, "2x2", False), (128, 3, 1, "2x2", False),
+                  (256, 3, 1, None, False), (256, 3, 1, "h", False),
+                  (512, 3, 1, None, True), (512, 3, 1, "h", True),
+                  (512, 2, 0, None, False)],
+        "label_lengths": (1, 10)}
+CRNN_BATCH, CRNN_STEPS, CRNN_LR = 64, 10, 1e-3
+# one decoded token of one of the 64 sequences moves ctc_error by at most
+# 1/64 (a best-path argmax within rounding of a tie may go either way)
+TOL_CTC_ERROR = 1.0 / CRNN_BATCH
+
+
+def crnn_cost():
+    """CRNN's cost (warp_ctc, blank 0, normalised by the input length)
+    and its scores (the per-step fc to CRNN["classes"]); data layers
+    ``image`` and ``label``."""
+    from paddle_tpu_torch import activation as A
+    from paddle_tpu_torch import data_type as dt
+    from paddle_tpu_torch import layer as L
+    from paddle_tpu_torch import networks, pooling
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    reset_name_counters()
+    h, w = CRNN["height"], CRNN["width"]
+    x = L.data(name="image", type=dt.dense_vector(h * w), height=h, width=w)
+    for i, (filters, k, pad, pool, bn) in enumerate(CRNN["convs"]):
+        # a conv before a batch norm has no bias (its gradient would be
+        # zero up to rounding): the batch norm's shift stands for it
+        x = L.img_conv(input=x, filter_size=k, num_filters=filters,
+                       padding=pad, act=A.Linear() if bn else A.Relu(),
+                       bias_attr=False if bn else None,
+                       name="crnn_conv%d" % i)
+        if bn:
+            x = L.batch_norm(input=x, act=A.Relu(), name="crnn_bn%d" % i)
+        if pool == "2x2":
+            x = L.img_pool(input=x, pool_size=2, stride=2,
+                           pool_type=pooling.MaxPooling())
+        elif pool == "h":  # halve the height only
+            x = L.img_pool(input=x, pool_size=1, pool_size_y=2, stride=1,
+                           stride_y=2, pool_type=pooling.MaxPooling())
+    seq = L.block_expand(input=x, block_x=1, block_y=1, name="crnn_columns")
+    for i in range(2):
+        seq = networks.bidirectional_lstm(input=seq, size=CRNN["hidden"],
+                                          return_seq=True,
+                                          name="crnn_blstm%d" % i)
+    scores = L.fc(input=seq, size=CRNN["classes"], name="crnn_scores")
+    label = L.data(name="label",
+                   type=dt.integer_value_sequence(CRNN["classes"]))
+    return L.warp_ctc(input=scores, label=label, blank=0, norm_by_times=True,
+                      name="crnn_ctc"), scores, label
+
+
+def crnn_batches(seed, n, rows):
+    """``n`` batches of ``rows`` (image, label): images U(0, 1), labels of
+    CRNN["label_lengths"] characters 1..36."""
+    rng = np.random.RandomState(seed)
+    lo, hi = CRNN["label_lengths"]
+    pixels = CRNN["height"] * CRNN["width"]
+    return [[(rng.rand(pixels).astype(np.float32),
+              rng.randint(1, CRNN["classes"], rng.randint(lo, hi + 1))
+              .tolist()) for _ in range(rows)] for _ in range(n)]
+
+
+def phase_train_crnn_ctc(torch, ck, lk):
+    """CRNN at its published widths (module docstring, train_crnn_ctc):
+    one step's gradients and 3 Momentum steps on the card against the
+    CPU, the ctc_error evaluator on both, CRNN_STEPS timed steps with the
+    launches derived from the topology, a profile, and K7/K8 and K1/K2 at
+    the phase's shapes against their plain versions."""
+    from paddle_tpu_torch import activation, evaluator, optimizer, trainer
+    from paddle_tpu_torch.ops import conv as conv_ops
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    cost, scores, label = crnn_cost()
+    topology = Topology(cost)
+    convs = conv_family(topology, CRNN_BATCH)
+    lstms = sum(n.layer_type == "lstmemory" for n in topology.nodes)
+    per_step = family_step_launches(convs, lstms)
+    steps_in = topology.by_name["crnn_columns"].inputs[0].out_img_shape
+    init = numpy_params(topology, SEED + 1100).as_dict()
+    batches = crnn_batches(SEED + 1101, 3, CRNN_BATCH)
+    err = evaluator.ctc_error(input=scores, label=label, name="ctc_error")
+
+    def make(device):
+        params = Parameters({k: v.clone() for k, v in init.items()},
+                            topology.param_specs())
+        return trainer.SGD(cost, params, optimizer.Momentum(
+            learning_rate=CRNN_LR, momentum=0.9), extra_layers=[err],
+            device=device)
+
+    counts = KernelCounts(ck, lk)
+    kinks, kinks3 = SharedKinks(), SharedKinks()
+    with mock.patch.object(conv_ops, "max_pool2d", kinks.pool), \
+            mock.patch.object(activation.Relu, "apply", kinks.relu), \
+            counts.counting():
+        counts.reset()
+        step = step_vs_cpu(torch, cost, batches[0], init, counts, (kinks,))
+    metrics = {}
+    with mock.patch.object(conv_ops, "max_pool2d", kinks3.pool), \
+            mock.patch.object(activation.Relu, "apply", kinks3.relu):
+        card = make(DEVICE)
+        costs, metrics["card"] = crnn_train(card, batches)
+        kinks3.reset()
+        cpu = make("cpu")
+        cpu_costs, metrics["cpu"] = crnn_train(cpu, batches)
+    step_launches = step.pop("launches")
+    cost_err = float(np.abs(np.subtract(costs, cpu_costs)).max()) / max(
+        1.0, float(np.abs(cpu_costs).max()))
+    param_err = rel_param_error(card.parameters, cpu.parameters,
+                                card.parameters.names())
+    ctc_err = max(abs(a - b) for a, b in zip(metrics["card"],
+                                             metrics["cpu"]))
+    # the main path: CRNN_STEPS steps at batch 64
+    full = crnn_batches(SEED + 1102, CRNN_STEPS, CRNN_BATCH)
+    with counts.counting():
+        counts.reset()
+        _, ms = train(torch, card, full, timed=True)
+        launches = counts()
+    want = {k: n * CRNN_STEPS for k, n in per_step.items()}
+    profile = profile_steps(torch, card, full[:3],
+                            kernels=("conv_fwd", "bwdw", "lstm"))
+    # the kernels at the phase's shapes against their plain versions
+    rows = conv_rows(torch, ck, convs, "kernel_crnn")
+    shape = (steps_in[2], CRNN_BATCH, CRNN["hidden"])
+    rows_lstm = {"lstm": phase_kernel(torch, lk, [shape], (), "kernel_crnn",
+                                      {}),
+                 "lstm_bwd": phase_kernel_bwd(torch, lk, [shape], (),
+                                              "kernel_crnn", {})}
+    row = {"phase": "train_crnn_ctc", "config": CRNN, "batch": CRNN_BATCH,
+           "sequence_length": steps_in[2], "map_before_columns": steps_in,
+           "family_convs": convs, "lstm_layers": lstms,
+           "launches_per_step": per_step, "step_vs_cpu": step,
+           "step_launches": step_launches,
+           "decided_otherwise_on_cpu": [kinks.differ, kinks3.differ],
+           "costs_card": costs, "costs_cpu": cpu_costs,
+           "cost_err_vs_cpu": cost_err, "param_err_vs_cpu": param_err,
+           "ctc_error_card": metrics["card"], "ctc_error_cpu": metrics["cpu"],
+           "ctc_error_diff": ctc_err, "tol": TOL_TRAIN,
+           "tol_ctc_error": TOL_CTC_ERROR,
+           "optimizer": "Momentum(%g, 0.9)" % CRNN_LR, "steps": CRNN_STEPS,
+           "ms_per_step": ms, "images_per_s": CRNN_BATCH / ms * 1e3,
+           "launches": launches, "want": want, "profile": profile}
+    emit(row)
+    checks = {
+        "step against the cpu": step["cost_err_rel"] <= TOL_TRAIN
+        and step["grad_err_rel"] <= TOL_TRAIN,
+        "every gradient": not (set(step["no_gradient"])
+                               - set(state_names(init))),
+        "3 steps against the cpu": cost_err <= TOL_TRAIN
+        and param_err <= TOL_TRAIN,
+        "ctc_error": ctc_err <= TOL_CTC_ERROR,
+        "launches": launches == want and step_launches == per_step,
+        "the sequence": steps_in[1] == 1 and steps_in[2] == 24,
+        "finite": bool(np.all(np.isfinite(costs))),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("train_crnn_ctc: %s failed: %r"
+                             % (", ".join(failed), row))
+    return dict(row, rows=rows, rows_lstm=rows_lstm, shape=shape)
+
+
+class KernelCounts:
+    """The conv and LSTM kernels' launches since ``reset()``, K7's
+    data-gradient launches apart: within ``counting()``, the growth of
+    K7's count in each ConvSame.backward (whose other launch is K8's,
+    counted apart)."""
+
+    def __init__(self, ck, lk):
+        self.ck, self.lk, self.dgrad = ck, lk, 0
+        self._real = ck.ConvSame.backward
+
+    def _backward(self, ctx, dy):
+        before = self.ck.launches
+        grads = self._real(ctx, dy)
+        self.dgrad += self.ck.launches - before
+        return grads
+
+    def counting(self):
+        return mock.patch.object(self.ck.ConvSame, "backward",
+                                 staticmethod(self._backward))
+
+    def reset(self):
+        self.ck.reset_launches()
+        self.lk.reset_launches()
+        self.dgrad = 0
+
+    def __call__(self):
+        return {"k7": self.ck.launches, "k7_dgrad": self.dgrad,
+                "k8": self.ck.bwdw_launches, "lstm_fwd": self.lk.launches,
+                "lstm_bwd": self.lk.bwd_launches}
+
+
+def crnn_train(tr, batches):
+    """Train ``batches`` through ``tr``: the per-step costs and ctc_error
+    values."""
+    from paddle_tpu_torch.event import EndIteration
+
+    costs, errors = [], []
+
+    def handler(evt):
+        if isinstance(evt, EndIteration):
+            costs.append(evt.cost)
+            errors.append(float(evt.metrics["ctc_error"]))
+
+    tr.train(lambda: iter(batches), event_handler=handler)
+    return costs, errors
+
+
+# SSD300's head (Liu et al. 2016, arXiv:1512.02325): the six source maps
+# (channels, side, priors a cell, min and max size, aspect ratios) of a
+# 3 x 300 x 300 image, 21 classes, 1-5 ground-truth boxes an image
+SSD300 = {"image": (3, 300, 300), "classes": 21, "boxes": (1, 5),
+          "maps": [(512, 38, 4, 30.0, 60.0, (2.0,)),
+                   (1024, 19, 6, 60.0, 111.0, (2.0, 3.0)),
+                   (512, 10, 6, 111.0, 162.0, (2.0, 3.0)),
+                   (256, 5, 6, 162.0, 213.0, (2.0, 3.0)),
+                   (256, 3, 4, 213.0, 264.0, (2.0,)),
+                   (256, 1, 4, 264.0, 315.0, (2.0,))],
+          "variance": [0.1, 0.1, 0.2, 0.2], "top_k": 400, "keep": 200}
+SSD_BATCH, SSD_PRIORS = 8, 8732
+# a gradient is held against the larger of its own largest entry and this
+# share of the step's largest: conf0's bias gradient is zero but for
+# rounding (each of its channels spans whole rows of the [P, 21] view of
+# the flat NCHW rows, and a row's softmax gradient sums to zero)
+SSD_GRAD_FLOOR = 1e-3
+
+
+def phase_ssd300_head(torch, ck, lk):
+    """SSD300's head (module docstring, ssd300_head): the prior count,
+    one multibox_loss training step on the card against the CPU (its
+    hard negatives the card's), detection_output and detection_map against
+    the CPU, ms a call, the K7/K8 launches derived from the topology, and
+    K7/K8 at the loc predictors' shapes against their plain versions."""
+    from paddle_tpu_torch.ops import detection as det_ops
+    from paddle_tpu_torch.topology import Topology, convert_feed
+
+    loss, det, mean_ap = ssd_head(SSD300)
+    topology = Topology(loss)
+    priors = sum(n.num_priors for n in topology.nodes
+                 if n.layer_type == "priorbox")
+    convs = conv_family(topology, SSD_BATCH)
+    per_step = family_step_launches(convs)
+    rng = np.random.RandomState(SEED + 1200)
+    make = ssd_make(SSD300, rng)
+    rows = [tuple(make[n]() for n, _ in topology.data_types())
+            for _ in range(SSD_BATCH)]
+    init = numpy_params(topology, SEED + 1201).as_dict()
+    negatives, counts = CardChoices(det_ops.hard_negatives), \
+        KernelCounts(ck, lk)
+    with mock.patch.object(det_ops, "hard_negatives", negatives), \
+            counts.counting():
+        counts.reset()
+        step = step_vs_cpu(torch, loss, rows, init, counts, (negatives,),
+                           grad_floor=SSD_GRAD_FLOOR)
+    launches = step.pop("launches")
+    want = per_step
+    params = {k: v.to(DEVICE).requires_grad_() for k, v in init.items()}
+    feed = convert_feed(topology, rows, device=DEVICE)
+
+    def loss_step():
+        value = topology.apply(params, feed, mode="train",
+                               rng=torch.Generator(device=DEVICE))[0]
+        value[loss.name].mean().backward()
+
+    ms_step = synced_ms(torch, loss_step, reps=3)
+    detections = detections_vs_cpu(torch, det, mean_ap, rows, init)
+    conv_case_rows = conv_rows(torch, ck, convs, "kernel_ssd")
+    row = {"phase": "ssd300_head", "config": SSD300, "batch": SSD_BATCH,
+           "priors": priors, "family_convs": convs,
+           "launches_per_step": per_step, "launches": launches,
+           "step_vs_cpu": step, "tol": TOL_TRAIN,
+           "grad_floor": SSD_GRAD_FLOOR,
+           "hard_negative_calls": len(negatives.kept),
+           "ms_multibox_step": ms_step, "detections": detections}
+    emit(row)
+    checks = {
+        "8732 priors": priors == SSD_PRIORS,
+        "step against the cpu": step["cost_err_rel"] <= TOL_TRAIN
+        and step["grad_err_rel"] <= TOL_TRAIN and not step["no_gradient"],
+        "launches": launches == want,
+        "finite": bool(np.isfinite(step["cost_card"])),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("ssd300_head: %s failed: %r"
+                             % (", ".join(failed), row))
+    return dict(row, rows=conv_case_rows)
+
+
+def remaining_layer_entries(crnn, ssd):
+    """The kernels-line entries of train_crnn_ctc and ssd300_head: K7 /
+    its data gradient / K8 as the sums over each phase's family convs
+    (launches: CRNN's timed steps; SSD's training step), K1/K2 at CRNN's
+    BiLSTM shape (launches: its timed steps)."""
+    out = []
+    for name, phase, launches in (("crnn", crnn, crnn["launches"]),
+                                  ("ssd300_head", ssd, ssd["launches"])):
+        for which, kernel, line, source, count in (
+                ("fwd", "conv2d_same_fwd[K7,%s_forward]", 175,
+                 "conv2d_same_fwd", launches["k7"] - launches["k7_dgrad"]),
+                ("dgrad", "conv2d_same_fwd[K7,%s_data_gradient]", 175,
+                 "conv2d_same_fwd", launches["k7_dgrad"]),
+                ("bwdw", "conv2d_same_bwd_filter[K8,%s_filter_gradient]",
+                 226, "conv2d_same_bwdw", launches["k8"])):
+            path = {"fwd": "conv2d_same_fwd",
+                    "dgrad": "conv2d_same_fwd[data_gradient]",
+                    "bwdw": "conv2d_same_bwd_filter"}[which]
+            out.append(kernel_entry(
+                [family_sum(phase["rows"], which, "float32",
+                            phase["family_convs"], name)],
+                kernel % name, "paddle_tpu/ops/pallas_conv.py:%d" % line,
+                count, source, path=conv_paths(phase["rows"], path)))
+    crnn_launches = crnn["launches"]
+    out += recurrent_pair(crnn["rows_lstm"], "lstm", "crnn", crnn["shape"],
+                          crnn_launches["lstm_fwd"],
+                          crnn_launches["lstm_bwd"])
+    return out
 
 
 def kernel_entry(cases, name, replaces, launches, source, select=None,
@@ -8147,6 +8947,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_demos_multi(torch, ck, tmp)
         phase_checkgrad(torch, tmp)
+    phase_layers_card(torch, ck)
+    crnn = phase_train_crnn_ctc(torch, ck, lk)
+    ssd = phase_ssd300_head(torch, ck, lk)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -8284,7 +9087,8 @@ def main():
           for row in aot["ops"]],
         *demo_entries(demos, demo_kernels),
         *text_layer_entries(v1_text, mixed, demo_kernels),
-        *nested_entries(nested)]})
+        *nested_entries(nested),
+        *remaining_layer_entries(crnn, ssd)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

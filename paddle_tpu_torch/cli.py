@@ -286,7 +286,7 @@ def cmd_checkgrad(args):
     device = resolve_device(args.device)
     batch = next(iter(minibatch.batch(cfg.train_reader(),
                                       getattr(cfg, "batch_size", 8))()))
-    feed = convert_feed(Topology(cost), batch, device)
+    feed = convert_feed(Topology(cost), batch, device=device)
     check_layer_grad(cost, feed, check_inputs=False, device=device)
     print("checkgrad PASSED")
     return 0

@@ -24,7 +24,7 @@ for _name in ("layer", "activation", "attr", "data_type", "pooling",
               "networks", "optimizer", "parameters", "trainer", "event",
               "inference", "evaluator", "reader", "minibatch", "dataset",
               "image"):
-    _mod = getattr(_pt, _name, None)  # dataset and image: not ported yet
+    _mod = getattr(_pt, _name, None)  # a lazy submodule loads here
     if _mod is not None:
         _sys.modules.setdefault("paddle.v2." + _name, _mod)
 

@@ -94,3 +94,19 @@ def device_count(place_type=None):
     if place_type is CPUPlace:
         return 1
     return torch.cuda.device_count()
+
+
+def device_put(tree, place=None):
+    """Stage a pytree of tensors (dicts, lists and tuples of them) onto a
+    place (paddle_tpu/core/place.py device_put; the default place when
+    ``place`` is None)."""
+    device = (place or default_place()).torch_device()
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        return torch.as_tensor(x, device=device)
+
+    return put(tree)

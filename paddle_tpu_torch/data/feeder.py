@@ -214,8 +214,8 @@ class DeviceFeeder:
         # a BucketBatch (or any minibatch with a ``bucket``) pads its
         # sequences to exactly that length, as the per-step feed does
         max_len = getattr(data_batch, "bucket", None)
-        host = convert_feed(self.topology, data_batch, "cpu", self.feeding,
-                            max_len=max_len)
+        host = convert_feed(self.topology, data_batch, self.feeding,
+                            max_len=max_len, device="cpu")
         if not self._cuda:
             return host, host, None
         with self.lock:

@@ -9,9 +9,6 @@ with the cost, the host accumulates them with ``merge`` and finalizes
 with ``result``: the JAX package's ``_mk_eval`` / ``_acc_add`` rules, in
 float64 on the host. Every forward is written without a read of a device
 value, so it can be captured.
-
-``detection_map`` waits for the detection layers (``layer/detection.py``)
-and raises until then.
 """
 
 import numpy as np
@@ -19,6 +16,10 @@ import torch
 
 from paddle_tpu_torch.layer.base import data_of, is_seq, make_node
 from paddle_tpu_torch.utils.error import enforce
+
+
+class EvalNode:
+    """Mixin marker: LayerNodes with .merge/.result are evaluators."""
 
 
 def _mk_eval(kind, forward, inputs, name, merge_fn, result_fn):
@@ -439,12 +440,105 @@ def pnpair(input, label, query_id, weight=None, name=None):
 
 def detection_map(input, label, overlap_threshold=0.5, background_id=0,
                   evaluate_difficult=False, ap_type="11point", name=None):
-    """Mean average precision over detection rows: waits for the
-    detection layers (``layer/detection.py``) of a later part of the
-    port."""
-    raise NotImplementedError(
-        "detection_map is not ported yet: it needs the detection layers "
-        "(layer/detection.py)")
+    """Mean average precision over detection_output rows (reference:
+    DetectionMAPEvaluator.cpp; paddle_tpu/evaluator.py detection_map).
+    ``input`` is a detection_output layer ([B, K, 7] rows), ``label`` the
+    ground-truth box sequence ([label, xmin, ymin, xmax, ymax,
+    difficult]).
+
+    Per batch the device marks each detection a true positive by a greedy
+    match in score order (ties in index order) against the unclaimed
+    ground truth of its class, one loop step per detection slot batched
+    over the images; without ``evaluate_difficult`` a detection whose
+    only match is a difficult box is ignored (VOC). The host accumulates
+    (class, score, tp) and the per-class positives and finalises AP by
+    the 11-point or the integral rule."""
+    from paddle_tpu_torch.ops import detection as det_ops
+
+    def forward(params, values, ctx):
+        det, gt = values[0], values[1]
+        rows = data_of(det)  # [B, K, 7]
+        enforce(is_seq(gt), "detection_map label must be a sequence")
+        gt_rows = data_of(gt)  # [B, G, 6]
+        gvalid = gt.mask()
+        dcls = rows[..., 1].long()
+        dvalid = dcls >= 0
+        gcls = gt_rows[..., 0].long()
+        gdiff = gt_rows[..., 5] > 0.5
+        gkeep = gvalid if evaluate_difficult else (gvalid & ~gdiff)
+        iou = det_ops.jaccard_overlap(rows[..., 3:7], gt_rows[..., 1:5])
+        same_cls = dcls[:, :, None] == gcls[:, None, :]
+        cand = torch.where(same_cls & gkeep[:, None, :], iou,
+                           torch.zeros_like(iou))
+        score = torch.where(dvalid, rows[..., 2],
+                            torch.full_like(rows[..., 2], -float("inf")))
+        order = torch.sort(score, dim=1, descending=True,
+                           stable=True).indices
+        batch = torch.arange(rows.shape[0], device=rows.device)
+        claimed = torch.zeros_like(gvalid, dtype=torch.bool)
+        tp = torch.zeros_like(dvalid)
+        minus_one = cand.new_full((), -1.0)
+        for k in range(rows.shape[1]):
+            i = order[:, k]
+            ious = torch.where(claimed, minus_one, cand[batch, i])
+            j = torch.argmax(ious, dim=1)
+            hit = (ious[batch, j] > overlap_threshold) & dvalid[batch, i]
+            claimed[batch, j] |= hit
+            tp[batch, i] = hit
+        if evaluate_difficult:
+            ignore = torch.zeros_like(tp)
+        else:
+            diff_cand = ((iou > overlap_threshold) & same_cls
+                         & (gvalid & gdiff)[:, None, :])
+            ignore = ~tp & diff_cand.any(dim=2)
+        return {"rows_cls": rows[..., 1], "rows_score": rows[..., 2],
+                "tp": tp, "ignore": ignore,
+                "gt_cls": torch.where(gkeep, gcls, torch.full_like(gcls, -1))}
+
+    def merge(acc, stats):
+        stats = {k: np.asarray(v) for k, v in stats.items()}
+        if acc is None:
+            acc = {"cls": [], "score": [], "tp": [], "npos": {}}
+        cls = stats["rows_cls"].reshape(-1)
+        keep = (cls >= 0) & ~stats["ignore"].reshape(-1)
+        acc["cls"].append(cls[keep])
+        acc["score"].append(stats["rows_score"].reshape(-1)[keep])
+        acc["tp"].append(stats["tp"].reshape(-1)[keep])
+        for c in stats["gt_cls"].reshape(-1):
+            if c >= 0:
+                acc["npos"][int(c)] = acc["npos"].get(int(c), 0) + 1
+        return acc
+
+    def result(acc):
+        if not acc or not acc["cls"]:
+            return 0.0
+        cls = np.concatenate(acc["cls"])
+        score = np.concatenate(acc["score"])
+        tp = np.concatenate(acc["tp"])
+        aps = []
+        for c, npos in acc["npos"].items():
+            sel = cls == c
+            if npos == 0:
+                continue
+            if not sel.any():
+                aps.append(0.0)
+                continue
+            tps = tp[sel][np.argsort(-score[sel])]
+            tp_cum = np.cumsum(tps)
+            fp_cum = np.cumsum(~tps)
+            rec = tp_cum / npos
+            prec = tp_cum / np.maximum(tp_cum + fp_cum, 1)
+            if ap_type == "11point":
+                ap = np.mean([prec[rec >= t].max() if (rec >= t).any()
+                              else 0.0 for t in np.linspace(0, 1, 11)])
+            else:  # integral
+                ap = float(np.sum(np.diff(np.concatenate([[0.0], rec]))
+                                  * prec))
+            aps.append(float(ap))
+        return float(np.mean(aps)) if aps else 0.0
+
+    return _mk_eval("detection_map", forward, [input, label], name, merge,
+                    result)
 
 
 def value_printer(input, name=None):

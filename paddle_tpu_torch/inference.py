@@ -27,7 +27,8 @@ class Inference:
         the JAX package's default and the one field ported)."""
         enforce(field == "value", "infer(field=%r) is not ported yet",
                 field)
-        feed = convert_feed(self.topology, input, self.device, feeding)
+        feed = convert_feed(self.topology, input, feeding,
+                                device=self.device)
         out, _ = self.topology.apply(self._params, feed, mode="test")
         results = []
         for node in self.outputs:

@@ -55,19 +55,31 @@ class ImageValue:
 
 def as_nhwc(value, c, h, w):
     """An image layer's input as an NHWC tensor: as it is when an image
-    layer produced it, else one transpose of the flat NCHW rows."""
+    layer produced it, else one transpose of the flat NCHW rows. A
+    sequence's data reshapes as the JAX package's does
+    (paddle_tpu/layer/base.py as_nhwc): every step an image, padding
+    steps included, [B * T, H, W, C]."""
     if isinstance(value, ImageValue):
         enforce(value.img_shape == (c, h, w),
                 "image shape mismatch: producer %s vs consumer (%d, %d, %d)",
                 value.img_shape, c, h, w)
         return value.nhwc
-    enforce(not isinstance(value, SequenceBatch),
-            "image layers over sequence inputs are not ported yet")
-    return value.reshape(-1, c, h, w).permute(0, 2, 3, 1)
+    return data_of(value).reshape(-1, c, h, w).permute(0, 2, 3, 1)
 
 
 def is_seq(value):
     return isinstance(value, SequenceBatch)
+
+
+def image_out(value, nhwc, img_shape):
+    """An image layer's output over its input ``value``: an ImageValue,
+    or over a sequence (nested or not) the flat NCHW rows of every step
+    with the input's sequence metadata, as the JAX package gives them
+    ([B * T, C*H*W] data, the input's lengths)."""
+    if isinstance(value, (SequenceBatch, NestedSequenceBatch)):
+        b, h, w, c = nhwc.shape
+        return like(value, nhwc.permute(0, 3, 1, 2).reshape(b, c * h * w))
+    return ImageValue(nhwc, img_shape)
 
 
 def featurewise(fn, value):

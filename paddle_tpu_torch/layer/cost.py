@@ -260,8 +260,9 @@ layer_registry.register("soft_binary_class_cross_entropy",
                         multi_binary_label_cross_entropy)
 
 # paddle_tpu/layer/cost.py:255-261: the layer types whose inputs after
-# the first are supervision targets (crf_decoding's label included; ctc
-# and warp_ctc are not ported yet and keep their names here)
+# the first are supervision targets (crf_decoding's label included; ctc's
+# nodes are of type "ctc", warp_ctc being ctc, and "warp_ctc" is kept as
+# the JAX package keeps it)
 COST_LAYER_TYPES = frozenset({
     "cross_entropy", "classification_cost", "square_error_cost",
     "multi_binary_label_cross_entropy", "cross_entropy_with_selfnorm",

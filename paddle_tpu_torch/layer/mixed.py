@@ -194,19 +194,21 @@ class conv_projection(BaseProjection):
     """Convolution as a mixed-layer projection (reference:
     ConvProjection.cpp; DSL conv_projection): owns the HWIO filter
     ``(fh, fw, C/groups, F)``; the output is the flat NCHW feature map of
-    ``F * oh * ow``. ``trans=True`` (the transposed conv) is not ported
-    yet and raises, as ``img_conv(trans=True)`` does."""
+    ``F * oh * ow``. ``trans=True`` is the transposed conv of
+    ``img_conv(trans=True)``, with its geometry rule."""
 
     def __init__(self, input, filter_size, num_filters, num_channels=None,
                  stride=1, padding=0, groups=1, param_attr=None,
                  trans=False):
         from paddle_tpu_torch.layer.conv import conv_geometry
 
-        enforce(not trans, "conv_projection(trans=True) is not ported yet")
+        enforce(not trans or groups == 1, "conv_projection(trans=True) "
+                "has no feature groups (the JAX package's "
+                "lax.conv_transpose fails on groups=%d)", groups)
         super().__init__(input, None, param_attr)
         (self.c, self.h, self.w, self.fh, self.fw, self.sh, self.sw,
          self.ph, self.pw, self.oh, self.ow) = conv_geometry(
-            input, num_channels, filter_size, stride, padding)
+            input, num_channels, filter_size, stride, padding, trans=trans)
         self.groups = groups
         self.num_filters = num_filters
         self.trans = trans
@@ -220,11 +222,15 @@ class conv_projection(BaseProjection):
         return [self.wspec]
 
     def forward(self, params, value, ctx):
-        y = conv_ops.conv2d(as_nhwc(value, self.c, self.h, self.w),
-                            params[self.wspec.name],
-                            stride=(self.sh, self.sw),
-                            padding=((self.ph, self.ph), (self.pw, self.pw)),
-                            groups=self.groups)
+        x = as_nhwc(value, self.c, self.h, self.w)
+        stride = (self.sh, self.sw)
+        padding = ((self.ph, self.ph), (self.pw, self.pw))
+        if self.trans:
+            y = conv_ops.conv2d_transpose(x, params[self.wspec.name],
+                                          stride=stride, padding=padding)
+        else:
+            y = conv_ops.conv2d(x, params[self.wspec.name], stride=stride,
+                                padding=padding, groups=self.groups)
         return like(value, _flat(y))
 
 
@@ -232,19 +238,18 @@ class conv_operator:
     """Parameter-free convolution of two layer outputs: ``img`` is the
     image, ``filter`` gives each sample its own filters, read as
     [F, C, fh, fw] (reference: ConvOperator.cpp; DSL conv_operator).
-    ``trans=True`` is not ported yet and raises."""
+    ``trans=True`` convolves transposed, as ``img_conv(trans=True)``."""
 
     def __init__(self, img, filter, filter_size, num_filters,
                  num_channels=None, stride=1, padding=0, filter_size_y=None,
                  stride_y=None, padding_y=None, trans=False):
         from paddle_tpu_torch.layer.conv import conv_geometry
 
-        enforce(not trans, "conv_operator(trans=True) is not ported yet")
         self.inputs = [img, filter]
         (self.c, self.h, self.w, self.fh, self.fw, self.sh, self.sw,
          self.ph, self.pw, self.oh, self.ow) = conv_geometry(
             img, num_channels, filter_size, stride, padding,
-            filter_size_y, stride_y, padding_y)
+            filter_size_y, stride_y, padding_y, trans=trans)
         self.num_filters = num_filters
         self.trans = trans
         self.size = num_filters * self.oh * self.ow
@@ -257,8 +262,9 @@ class conv_operator:
         ).permute(0, 3, 4, 2, 1)
         stride = (self.sh, self.sw)
         padding = ((self.ph, self.ph), (self.pw, self.pw))
-        y = torch.cat([conv_ops.conv2d(x[b:b + 1], filt[b].contiguous(),
-                                       stride=stride, padding=padding)
+        conv = conv_ops.conv2d_transpose if self.trans else conv_ops.conv2d
+        y = torch.cat([conv(x[b:b + 1], filt[b].contiguous(), stride=stride,
+                            padding=padding)
                        for b in range(x.shape[0])])
         return like(values[0], _flat(y))
 

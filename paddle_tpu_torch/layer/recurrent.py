@@ -1,15 +1,18 @@
-"""Recurrent layers: lstmemory, grumemory and recurrent (reference:
-LstmLayer.cpp, GatedRecurrentLayer, RecurrentLayer; paddle_tpu/layer/
-recurrent.py). Like the reference, ``lstmemory`` consumes an input
-already projected to 4*size, ``grumemory`` one projected to 3*size
-(networks.simple_lstm / simple_gru put an fc in front) and ``recurrent``
-one of its own size."""
+"""Recurrent layers: lstmemory, grumemory, recurrent and mdlstmemory
+(reference: LstmLayer.cpp, GatedRecurrentLayer, RecurrentLayer,
+MDLstmLayer.cpp; paddle_tpu/layer/recurrent.py). Like the reference,
+``lstmemory`` consumes an input already projected to 4*size,
+``grumemory`` one projected to 3*size (networks.simple_lstm / simple_gru
+put an fc in front) and ``recurrent`` one of its own size;
+``mdlstmemory`` sweeps an image."""
 
 from paddle_tpu_torch.activation import to_activation
 from paddle_tpu_torch.core.sequence import PackedSequenceBatch, SequenceBatch
 from paddle_tpu_torch.layer.base import (
+    as_nhwc,
     bias_spec,
     is_seq,
+    like,
     make_node,
     register_layer,
     weight_spec,
@@ -242,3 +245,46 @@ def recurrent(input, name=None, act=None, reverse=False, bias_attr=None,
     specs = [s for s in (wspec, bspec) if s is not None]
     return make_node("recurrent", forward, [input], name=name, size=size,
                      param_specs=specs, layer_attr=layer_attr)
+
+
+@register_layer("mdlstmemory", aliases=("mdlstm",))
+def mdlstmemory(input, size, directions=(True, True), name=None,
+                param_attr=None, bias_attr=None, layer_attr=None):
+    """Two-dimensional LSTM over an image-shaped input (reference:
+    MDLstmLayer.cpp, the mdlstmemory DSL; ``ops.rnn.mdlstm_2d``): the
+    input's ``out_img_shape`` (C, H, W) gives the grid, the output is
+    image-shaped (size, H, W) as flat NCHW rows. ``directions[k]=False``
+    sweeps axis k (H, then W) in reverse. The weights are ``<name>.w0``
+    [C, 5*size], ``.w1`` (up) and ``.w2`` (left) [size, 5*size]."""
+    from paddle_tpu_torch.graph import auto_name
+    from paddle_tpu_torch.layer.conv import _img_shape
+
+    c, h, w = _img_shape(input)
+    name = name or auto_name("mdlstm")
+    wx = weight_spec(name, 0, (c, 5 * size), param_attr, fan_in=c)
+    wup = weight_spec(name, 1, (size, 5 * size), param_attr, fan_in=size)
+    wleft = weight_spec(name, 2, (size, 5 * size), param_attr, fan_in=size)
+    bspec = bias_spec(name, (5 * size,),
+                      bias_attr if bias_attr is not None else True)
+    flips = [axis for axis, forward in zip((1, 2), directions)
+             if not forward]
+
+    def forward(params, values, ctx):
+        x = as_nhwc(values[0], c, h, w)
+        if flips:
+            x = x.flip(flips)
+        bias = params[bspec.name] if bspec is not None else 0.0
+        out = rnn_ops.mdlstm_2d(x, params[wx.name], params[wup.name],
+                                params[wleft.name], bias, size)
+        if flips:
+            out = out.flip(flips)
+        return like(values[0], out.permute(0, 3, 1, 2).reshape(
+            out.shape[0], -1))
+
+    node = make_node("mdlstmemory", forward, [input], name=name,
+                     size=size * h * w,
+                     param_specs=[sp for sp in (wx, wup, wleft, bspec)
+                                  if sp is not None],
+                     layer_attr=layer_attr)
+    node.out_img_shape = (size, h, w)
+    return node

@@ -1,7 +1,8 @@
 """Sequence layers: pooling, last_seq, first_seq, expand,
-context_projection_layer, max_id (maxid), sampling_id, eos_id and print
-(reference: SequencePoolLayer, SequenceLastInstanceLayer, ExpandLayer,
-ContextProjection, MaxIdLayer, SamplingIdLayer, EosIdCheckLayer,
+context_projection_layer, row_conv, block_expand, max_id (maxid),
+sampling_id, eos_id and print (reference: SequencePoolLayer,
+SequenceLastInstanceLayer, ExpandLayer, ContextProjection, RowConvLayer,
+BlockExpandLayer, MaxIdLayer, SamplingIdLayer, EosIdCheckLayer,
 PrintLayer; paddle_tpu/layer/sequence.py), with the nested
 (``agg_level``) and strided (``stride``) forms, and seq_concat,
 seq_reshape, seq_slice and sub_seq (SequenceConcatLayer,
@@ -11,9 +12,9 @@ reduce or mix across time refuse packed rows (``reject_packed``)."""
 import torch
 
 from paddle_tpu_torch.core.sequence import NestedSequenceBatch, SequenceBatch
-from paddle_tpu_torch.layer.base import (data_of, finalize, is_seq, like,
-                                         make_node, register_layer,
-                                         reject_packed)
+from paddle_tpu_torch.layer.base import (as_nhwc, data_of, finalize, is_seq,
+                                         like, make_node, register_layer,
+                                         reject_packed, weight_spec)
 from paddle_tpu_torch.ops import sequence as seq_ops
 from paddle_tpu_torch.pooling import to_pooling
 from paddle_tpu_torch.utils.error import enforce
@@ -322,6 +323,61 @@ def context_projection_layer(input, context_start, context_len,
     return make_node("context_projection", forward, [input], name=name,
                      size=proj.size, param_specs=specs,
                      layer_attr=layer_attr)
+
+
+@register_layer("row_conv")
+def row_conv(input, context_len, act=None, name=None, param_attr=None,
+             layer_attr=None):
+    """Lookahead convolution (reference: RowConvLayer, function/RowConvOp;
+    ``ops.sequence.row_conv``): the weight ``<name>.w0`` [context_len,
+    size]."""
+    from paddle_tpu_torch.graph import auto_name
+
+    name = name or auto_name("row_conv_layer")
+    wspec = weight_spec(name, 0, (context_len, input.size), param_attr,
+                        fan_in=context_len)
+
+    def forward(params, values, ctx):
+        x = values[0]
+        enforce(is_seq(x), "row_conv expects a sequence")
+        reject_packed(x, "row_conv")  # the lookahead spans segments
+        out = seq_ops.row_conv(x.data, x.mask(), params[wspec.name])
+        return finalize(SequenceBatch(out, x.lengths), act, node.extra_attr,
+                        ctx)
+
+    node = make_node("row_conv", forward, [input], name=name,
+                     size=input.size, param_specs=[wspec],
+                     layer_attr=layer_attr)
+    return node
+
+
+@register_layer("block_expand")
+def block_expand(input, block_x, block_y, stride_x=None, stride_y=None,
+                 padding_x=0, padding_y=0, num_channels=None, name=None,
+                 layer_attr=None):
+    """Image -> the sequence of its blocks (reference: BlockExpandLayer,
+    function/BlockExpandOp; the CTC OCR pipelines' bridge): zero padding,
+    then every block_y x block_x block, row by row, flattened C-major
+    ([C, by, bx]), as a full-length sequence of out_h * out_w steps of
+    width C * by * bx (``F.unfold``)."""
+    from paddle_tpu_torch.layer.conv import _img_shape
+
+    c, h, w = _img_shape(input, num_channels)
+    sx, sy = stride_x or block_x, stride_y or block_y
+    out_w = (w + 2 * padding_x - block_x) // sx + 1
+    out_h = (h + 2 * padding_y - block_y) // sy + 1
+
+    def forward(params, values, ctx):
+        x = as_nhwc(values[0], c, h, w).permute(0, 3, 1, 2)
+        blocks = torch.nn.functional.unfold(
+            x, (block_y, block_x), padding=(padding_y, padding_x),
+            stride=(sy, sx))  # [B, C*by*bx, out_h*out_w]
+        lengths = torch.full((x.shape[0],), out_h * out_w,
+                             dtype=torch.int32, device=x.device)
+        return SequenceBatch(blocks.transpose(1, 2), lengths)
+
+    return make_node("block_expand", forward, [input], name=name,
+                     size=block_x * block_y * c, layer_attr=layer_attr)
 
 
 @register_layer("max_id")

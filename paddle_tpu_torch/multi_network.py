@@ -146,7 +146,8 @@ class MultiNetworkTrainer:
         sample tuples, the v2 reader convention). Returns the phase's
         loss, the mean of its cost."""
         ph = self._phases[phase]
-        feed = convert_feed(ph["topo"], batch, self.device, feeding)
+        feed = convert_feed(ph["topo"], batch, feeding,
+                            device=self.device)
         leaves = {p: self._params[p].detach().requires_grad_()
                   for p in ph["train_names"]}
         params = {p: leaves.get(p, v) for p, v in self._params.items()
@@ -169,7 +170,8 @@ class MultiNetworkTrainer:
         """Forward ``phase``'s sub-network (test mode) on a minibatch: its
         declared extra outputs (or its cost) as host numpy arrays."""
         ph = self._phases[phase]
-        feed = convert_feed(ph["topo"], batch, self.device, feeding)
+        feed = convert_feed(ph["topo"], batch, feeding,
+                            device=self.device)
         params = {p: v for p, v in self._params.items() if p in ph["needed"]}
         outputs = ph["outputs"] or [ph["cost"]]
         values, _ = ph["topo"].apply(params, feed, mode="test",

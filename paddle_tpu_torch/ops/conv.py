@@ -18,7 +18,8 @@ package's analytic backward as an autograd Function, and
 ``cross_map_norm_auto``, the window sum as a banded [C, C] product in
 float32 (or wider), as the JAX package computes it outside any Pallas
 kernel (paddle_tpu/ops/conv.py:381-472); its bfloat16-band option
-(``lrn_bf16_band``, off by default there) is not ported.
+(the ``lrn_bf16_band`` flag, a TPU layout choice off by default there)
+has no counterpart here.
 
 Pooling pads explicitly, as the JAX package's reduce_window does: -inf
 for max, zeros with true window counts for averages that exclude the
@@ -37,20 +38,44 @@ from paddle_tpu_torch.ops.conv_kernels import conv_same, kernel_supported
 from paddle_tpu_torch.utils.error import enforce
 
 
-def conv2d(x_nhwc, w_hwio, stride=(1, 1), padding=((0, 0), (0, 0)),
-           groups=1, dilation=(1, 1)):
-    """NHWC x HWIO -> NHWC convolution with symmetric zero padding
-    ``((ph, ph), (pw, pw))`` (see module docstring for the routing)."""
+def _explicit_pads(padding, spatial, window, stride, dilation):
+    """((top, bottom), (left, right)) of a conv: ``padding`` as given, or
+    what lax's ``"SAME"`` (output ceil(in / stride), the odd pixel at the
+    bottom and right) or ``"VALID"`` (none) give."""
+    if not isinstance(padding, str):
+        return tuple(tuple(int(p) for p in pair) for pair in padding)
+    mode = padding.upper()
+    enforce(mode in ("SAME", "VALID"), "conv2d padding must be 'SAME', "
+            "'VALID' or ((top, bottom), (left, right)), got %r", padding)
+    if mode == "VALID":
+        return ((0, 0), (0, 0))
+    pads = []
+    for size, k, s, d in zip(spatial, window, stride, dilation):
+        extent = (k - 1) * d + 1
+        total = max((-(-size // s) - 1) * s + extent - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv2d(x_nhwc, w_hwio, stride=(1, 1), padding="SAME", groups=1,
+           dilation=(1, 1)):
+    """NHWC x HWIO -> NHWC convolution (see module docstring for the
+    routing). ``padding`` is the JAX package's: ``"SAME"`` (the default),
+    ``"VALID"`` or ``((top, bottom), (left, right))``; padding that is not
+    symmetric (SAME over an even kernel) is an ``F.pad`` before
+    ``F.conv2d``."""
     stride, dilation = tuple(stride), tuple(dilation)
-    (pt, pb), (pl, pr) = padding
-    enforce(pt == pb and pl == pr, "conv2d takes symmetric padding, got %s",
-            padding)
+    padding = _explicit_pads(padding, x_nhwc.shape[1:3], w_hwio.shape[:2],
+                             stride, dilation)
     if kernel_supported(x_nhwc.shape, w_hwio.shape, stride, padding, groups,
                         dilation, x_nhwc.dtype, w_hwio.dtype):
         return conv_same(x_nhwc, w_hwio)
-    y = F.conv2d(x_nhwc.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
-                 stride=stride, padding=(pt, pl), dilation=dilation,
-                 groups=groups)
+    (pt, pb), (pl, pr) = padding
+    x = x_nhwc.permute(0, 3, 1, 2)
+    if (pt, pl) != (pb, pr):
+        x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
+    y = F.conv2d(x, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                 padding=(pt, pl), dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -234,3 +259,50 @@ def batch_norm_infer(x, gamma, beta, moving_mean, moving_var, eps):
     y = (upcast_f32(gamma) * (upcast_f32(x) - moving_mean)
          * torch.rsqrt(moving_var + eps) + upcast_f32(beta))
     return y.to(x.dtype)
+
+
+def conv2d_transpose(x_nhwc, w_hwio, stride=(1, 1),
+                     padding=((0, 0), (0, 0))):
+    """What the JAX package's ``lax.conv_transpose`` with explicit pads
+    computes (paddle_tpu/ops/conv.py:145-153; ``transpose_kernel=False``):
+    a conv over the stride-dilated input with the kernel as given (not
+    flipped) and the pads as given, output (h - 1) * s + 2p - f + 2. That
+    is ``F.conv_transpose2d`` of the flipped, I/O-swapped kernel at
+    padding f - 1 - p (which needs p <= f - 1), outside the kernels'
+    family as in the JAX package."""
+    (pt, pb), (pl, pr) = padding
+    kh, kw = w_hwio.shape[:2]
+    enforce(pt == pb and pl == pr and pt <= kh - 1 and pl <= kw - 1,
+            "conv2d_transpose takes symmetric padding of at most f - 1, "
+            "got %s for a %dx%d kernel", padding, kh, kw)
+    weight = torch.flip(w_hwio, dims=(0, 1)).permute(2, 3, 0, 1)
+    y = F.conv_transpose2d(x_nhwc.permute(0, 3, 1, 2), weight,
+                           stride=tuple(stride),
+                           padding=(kh - 1 - pt, kw - 1 - pl))
+    return y.permute(0, 2, 3, 1)
+
+
+def spatial_pyramid_pool(x_nhwc, pyramid_height, pool="max"):
+    """Spatial pyramid pooling (reference: SpatialPyramidPoolLayer;
+    paddle_tpu/ops/conv.py spatial_pyramid_pool): the maps pooled on 1x1,
+    2x2, ..., 2^(h-1) x 2^(h-1) grids, each flattened in (H, W, C) order,
+    concatenated: [B, sum(4^l) * C]."""
+    b, h, w, _ = x_nhwc.shape
+    fn = max_pool2d if pool == "max" else avg_pool2d
+    outs = []
+    for level in range(pyramid_height):
+        bins = 2 ** level
+        window = (max(-(-h // bins), 1), max(-(-w // bins), 1))
+        stride = (max(h // bins if h >= bins else 1, 1),
+                  max(w // bins if w >= bins else 1, 1))
+        pooled = fn(x_nhwc, window, stride)[:, :bins, :bins, :]
+        outs.append(pooled.reshape(b, -1))
+    return torch.cat(outs, dim=-1)
+
+
+def maxout(x_nhwc, groups):
+    """Maxout over channel groups (reference: MaxOutLayer): C channels in
+    C / groups groups of ``groups`` consecutive ones, each its maximum
+    (a tie's gradient shared evenly, as the JAX package's ``max``)."""
+    b, h, w, c = x_nhwc.shape
+    return torch.amax(x_nhwc.reshape(b, h, w, c // groups, groups), dim=-1)

@@ -257,3 +257,48 @@ def rnn_scan(x_btd, mask_bt, w_rec, h0=None, act=torch.tanh, reverse=False,
     if reverse:
         h_seq = _reversed(h_seq, mask_bt)
     return h_seq * mask_bt[..., None].to(h_seq.dtype), h_f
+
+
+def mdlstm_2d(x_img, w_x, w_h_up, w_h_left, bias, size):
+    """Two-dimensional LSTM sweep (paddle_tpu/ops/rnn.py mdlstm_2d;
+    reference MDLstmLayer.cpp, Graves' multi-dimensional LSTM): each cell
+    sees its up and left neighbours,
+
+        c[i,j] = s(f_up) c[i-1,j] + s(f_left) c[i,j-1] + s(i) tanh(g)
+        h[i,j] = s(o) tanh(c[i,j])
+
+    with the gates (i, f_up, f_left, o, g) from x[i,j] @ w_x + bias +
+    h[i-1,j] @ w_h_up + h[i,j-1] @ w_h_left. The JAX package scans rows,
+    then columns (H * W steps); here one step per anti-diagonal (H + W - 1
+    steps), whose cells depend only on the diagonal before it and run as
+    one batch: a diagonal's state is [B, H, S], zero on rows off the
+    diagonal, so row i's up neighbour is the previous diagonal's row i-1
+    and its left neighbour the previous diagonal's row i.
+
+    x_img [B, H, W, C]; w_x [C, 5S]; w_h_up, w_h_left [S, 5S]; bias [5S]
+    (or 0.0). Returns h [B, H, W, S]."""
+    batch, height, width, _ = x_img.shape
+    gx = torch.matmul(x_img, w_x) + bias  # [B, H, W, 5S]
+    rows = torch.arange(height, device=x_img.device)
+    zeros = gx.new_zeros((batch, height, size))
+    h_prev, c_prev = zeros, zeros
+    diagonals = []
+    for d in range(height + width - 1):
+        cols = d - rows
+        on = ((cols >= 0) & (cols < width))[None, :, None]
+        g = (gx[:, rows, torch.clamp(cols, 0, width - 1)]
+             + torch.matmul(torch.cat([zeros[:, :1], h_prev[:, :-1]], 1),
+                            w_h_up)
+             + torch.matmul(h_prev, w_h_left))
+        gi, gf_up, gf_left, go, gc = torch.split(g, size, dim=-1)
+        c_up = torch.cat([zeros[:, :1], c_prev[:, :-1]], 1)
+        c = (torch.sigmoid(gf_up) * c_up + torch.sigmoid(gf_left) * c_prev
+             + torch.sigmoid(gi) * torch.tanh(gc))
+        h = torch.sigmoid(go) * torch.tanh(c)
+        h_prev = torch.where(on, h, zeros)
+        c_prev = torch.where(on, c, zeros)
+        diagonals.append(h_prev)
+    stacked = torch.stack(diagonals)  # [H + W - 1, B, H, S]
+    cols = torch.arange(width, device=x_img.device)
+    out = stacked[rows[:, None] + cols[None, :], :, rows[:, None]]
+    return out.permute(2, 0, 1, 3)  # [H, W, B, S] -> [B, H, W, S]

@@ -1,6 +1,6 @@
 """Sequence ops on padded [B, T, ...] data (paddle_tpu/ops/sequence.py):
-the shift of a batch within its sequences, the context window built on
-it, and expand. The JAX package computes these outside any Pallas kernel
+the shift of a batch within its sequences, the context window and the
+lookahead row convolution built on it, and expand. The JAX package computes these outside any Pallas kernel
 (shift, mask and concatenate, fused by XLA), and so do these."""
 
 import torch
@@ -56,6 +56,16 @@ def context_projection(data, mask, context_start, context_len,
             col = torch.where(use_pad, padding[begin_pad + offset - 1], col)
         cols.append(col)
     return torch.cat(cols, dim=-1)
+
+
+def row_conv(data, mask, weights):
+    """Lookahead row convolution (reference: RowConvOp, RowConvLayer):
+    out[:, t] = sum over i < k of w[i] * data[:, t + i], within each
+    sequence, zero on padding steps; ``weights`` [k, D]."""
+    out = torch.zeros_like(data)
+    for i in range(weights.shape[0]):
+        out = out + shift_steps(data, mask, i) * weights[i]
+    return out * mask[..., None].to(data.dtype)
 
 
 def expand_to(data, target_mask):

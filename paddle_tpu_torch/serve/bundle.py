@@ -28,7 +28,7 @@ Replica fleets (serve/fleet.py) serve one bundle from several engine
 threads: :meth:`Bundle.view` gives each a :class:`BundleReplica` on a
 device, which shares the manifest, the host payload and the deserialized
 programs, holds the parameters and the programs moved to its device once
-per device (``Bundle.params_on(device)``), and keeps its own per-call
+per device (``Bundle.params(device)``), and keeps its own per-call
 state (the run lock; ``last_device_ms`` per calling thread). Every view
 on one card shares the card's placement and its default stream, so the
 views' kernels run in the order the threads enqueue them.
@@ -163,8 +163,9 @@ class Bundle:
                 k: torch.from_numpy(np.ascontiguousarray(pz[k]))
                 .to(self.device) for k in sorted(pz.files)}
         # the payload on this bundle's device, a plain dict: the programs'
-        # first argument (their input spec is a dict's)
-        self.params = self._device_params[self._home]
+        # first argument (their input spec refuses a dict subclass);
+        # ``params(device)`` is the JAX package's accessor
+        self.payload = self._device_params[self._home]
         _register_ops()
         # per call: the engine's async warmup thread and its batcher
         # worker may both run a forward; one at a time keeps the device
@@ -180,12 +181,16 @@ class Bundle:
         the interval may hold another view's kernels enqueued meanwhile."""
         return getattr(self._calls, "device_ms", None)
 
-    def params_on(self, device):
-        """The parameter payload on ``device``, copied there from the
-        bundle's own device at first use and cached per device: the JAX
-        package's ``Bundle.params(device=)`` (the port's ``params`` is the
-        payload dict on the bundle's device)."""
-        device = resolve_device(device)
+    def _device(self, device):
+        """The device a call runs on: ``device``, or the bundle's own."""
+        return self.device if device is None else resolve_device(device)
+
+    def params(self, device=None):
+        """The parameter payload as tensors on ``device`` (None: the
+        bundle's own, ``payload``), copied there from the bundle's device
+        at first use and cached per device (paddle_tpu/serve/bundle.py
+        ``params(device=None)``)."""
+        device = self._device(device)
         key = _placement_key(device)
         values = self._device_params.get(key)
         if values is None:
@@ -197,10 +202,11 @@ class Bundle:
                     self._device_params[key] = values
         return values
 
-    def _load(self, artifact):
-        """The program in ``artifact``, deserialized, moved to this
-        placement's device and cached at first use per device."""
-        key = _placement_key(self.device)
+    def _load(self, artifact, device=None):
+        """The program in ``artifact``, deserialized, moved to ``device``
+        (default: the bundle's) and cached at first use per device."""
+        device = self._device(device)
+        key = _placement_key(device)
         program = self._programs.get((artifact, key))
         if program is None:
             with self._lock:
@@ -213,7 +219,7 @@ class Bundle:
                         exported = torch.export.load(
                             os.path.join(self.directory, artifact))
                         program = move_to_device_pass(
-                            exported, str(self.device)).module()
+                            exported, str(device)).module()
                     name = (artifact if key == self._home
                             else "%s@%s" % (artifact, key))
                     self.load_seconds[name] = time.perf_counter() - t0
@@ -226,12 +232,12 @@ class Bundle:
         ``view``)."""
         return BundleReplica(self, device)
 
-    def program(self, batch):
+    def program(self, batch, device=None):
         """The loaded program of one bucket batch size (JAX's
         ``executable(batch)``): ``program(params, flat) -> {output:
         tensor}`` on device tensors, deserialized at first use."""
         bucket = next(b for b in self.buckets if b["batch"] == batch)
-        return self._load(bucket["artifact"])
+        return self._load(bucket["artifact"], device)
 
     # -- bucket/shape machinery ---------------------------------------------
     def batch_sizes(self):
@@ -290,27 +296,29 @@ class Bundle:
                                       int(lens.min()), int(lens.max())))
 
     # -- execution ----------------------------------------------------------
-    def device_inputs(self, flat):
-        """Flat numpy (or tensor) inputs as tensors on the bundle's
-        device, in sorted key order (a program's argument)."""
+    def device_inputs(self, flat, device=None):
+        """Flat numpy (or tensor) inputs as tensors on ``device`` (default:
+        the bundle's), in sorted key order (a program's argument)."""
+        device = self._device(device)
         return {k: torch.as_tensor(v if torch.is_tensor(v)
-                                   else np.asarray(v), device=self.device)
+                                   else np.asarray(v), device=device)
                 for k, v in sorted(flat.items())}
 
-    def run(self, flat_inputs, batch):
-        """Run one exact-bucket batch (no padding logic). Returns
-        ``{output_name: np.ndarray}`` (float32 for bfloat16 outputs); on
-        the card ``last_device_ms`` holds the program's time by CUDA
-        events."""
+    def run(self, flat_inputs, batch, device=None):
+        """Run one exact-bucket batch (no padding logic) on ``device``
+        (default: the bundle's). Returns ``{output_name: np.ndarray}``
+        (float32 for bfloat16 outputs); on the card ``last_device_ms``
+        holds the program's time by CUDA events."""
         for key, arr in flat_inputs.items():
             if np.shape(arr)[0] != batch:
                 raise ValueError("input %r has %d rows, bucket is %d"
                                  % (key, np.shape(arr)[0], batch))
-        program = self.program(batch)
-        params = self.params
+        device = self._device(device)
+        program = self.program(batch, device)
+        params = self.params(device)
         with self._run_lock, torch.inference_mode():
-            feed = self.device_inputs(flat_inputs)
-            if self.device.type != "cuda":
+            feed = self.device_inputs(flat_inputs, device)
+            if device.type != "cuda":
                 out = program(params, feed)
                 return {name: _host(out[name]) for name in self._out_names}
             start = torch.cuda.Event(enable_timing=True)
@@ -323,12 +331,13 @@ class Bundle:
             self._calls.device_ms = start.elapsed_time(end)
             return host
 
-    def warmup(self):
-        """Run every bucket once on dummy inputs (the kernels build and the
-        allocator reaches its steady state before traffic). Returns the
-        number of buckets run."""
+    def warmup(self, device=None):
+        """Run every bucket once on dummy inputs on ``device`` (default:
+        the bundle's), so the kernels build and the allocator reaches its
+        steady state before traffic. Returns the number of buckets run."""
         for bucket in self.buckets:
-            self.run(self.dummy_inputs(bucket["batch"]), bucket["batch"])
+            self.run(self.dummy_inputs(bucket["batch"]), bucket["batch"],
+                     device)
         return len(self.buckets)
 
     # -- continuous-batching decode side ------------------------------------
@@ -367,15 +376,16 @@ class Bundle:
         ``{recurrent_layer: [zeros [slots, ...], ...]}`` per the manifest's
         carry spec, on ``device`` (default: the bundle's)."""
         slots = int(self._decode_bucket(slots)["slots"])
-        device = self.device if device is None else torch.device(device)
+        device = self._device(device)
         return {layer: [torch.zeros((slots,) + tuple(leaf["shape_suffix"]),
                                     dtype=getattr(torch, leaf["dtype"]),
                                     device=device)
                         for leaf in leaves]
                 for layer, leaves in self.manifest["decode"]["carry"].items()}
 
-    def decode_step(self, carry, flat, slots=None):
-        """Run ONE decode window: ``(carry, flat) -> (carry', outputs)``.
+    def decode_step(self, carry, flat, slots=None, device=None):
+        """Run ONE decode window on ``device`` (default: the bundle's):
+        ``(carry, flat) -> (carry', outputs)``.
         ``flat`` is ``dummy_decode_flat``'s dict (numpy or tensors); the
         new carry and the [slots, window, ...] outputs stay on the device
         (the scheduler's one readback a window is its own). The step
@@ -387,10 +397,11 @@ class Bundle:
         if np.shape(lens) != (slots,):
             raise ValueError("decode step for %d slots got lens of shape %s"
                              % (slots, np.shape(lens)))
-        program = self._load(bucket["artifact"])
+        device = self._device(device)
+        program = self._load(bucket["artifact"], device)
         with self._run_lock, torch.inference_mode():
-            return program(self.params, sorted_dict(carry),
-                           self.device_inputs(flat))
+            return program(self.params(device), sorted_dict(carry),
+                           self.device_inputs(flat, device))
 
     def carry_slice(self, carry, index):
         """One slot's carry rows as fresh device copies, ``{layer: [row,
@@ -433,28 +444,31 @@ class Bundle:
             flat[spec["name"]] = np.zeros(shape, np.dtype(spec["dtype"]))
         return flat
 
-    def warmup_decoder(self, slots=None):
+    def warmup_decoder(self, slots=None, device=None):
         """Run the decode step twice (a fresh carry, then the carry it
         returned) and one slice/insert round trip, as the JAX package's
         warmup does: the kernel libraries load and the allocator reaches
         its steady state before traffic, so paging churn after it builds
-        and loads nothing. Returns the slot capacity."""
+        and loads nothing (on ``device``, default: the bundle's). Returns
+        the slot capacity."""
+        device = self._device(device)
         slot_count = int(self._decode_bucket(slots)["slots"])
-        carry = self.zero_carry(slot_count)
+        carry = self.zero_carry(slot_count, device)
         for _ in range(2):
             carry, _ = self.decode_step(
-                carry, self.dummy_decode_flat(slot_count), slot_count)
+                carry, self.dummy_decode_flat(slot_count), slot_count,
+                device)
         rows = self.carry_slice(carry, 0)
         host = {layer: [host_leaf(leaf) for leaf in leaves]
                 for layer, leaves in rows.items()}
         self.carry_insert(carry, host, 0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         return slot_count
 
-    def infer(self, flat_inputs, rows=None):
-        """Pad ``flat_inputs`` to the nearest bucket, run, slice the
-        padding back off."""
+    def infer(self, flat_inputs, rows=None, device=None):
+        """Pad ``flat_inputs`` to the nearest bucket, run on ``device``
+        (default: the bundle's), slice the padding back off."""
         first = next(iter(flat_inputs.values()))
         rows = int(np.shape(first)[0]) if rows is None else int(rows)
         if rows < 1:
@@ -463,7 +477,7 @@ class Bundle:
         bucket = self.bucket_for(rows)
         padded = {k: pad_rows(np.asarray(v), bucket["batch"])
                   for k, v in flat_inputs.items()}
-        out = self.run(padded, bucket["batch"])
+        out = self.run(padded, bucket["batch"], device)
         return {k: arr[:rows] for k, arr in out.items()}
 
     def __repr__(self):
@@ -486,7 +500,7 @@ class BundleReplica(Bundle):
         self.__dict__.update(base.__dict__)
         self._base = base
         self.device = resolve_device(device)
-        self.params = base.params_on(self.device)
+        self.payload = base.params(self.device)
         self._run_lock = threading.Lock()
         self._calls = threading.local()
 

@@ -65,9 +65,9 @@ DEFAULT_DECODE_WINDOW = 8
 # types the port builds (tests/test_torch_scheduler.py holds the two
 # equal).
 STREAM_BLOCKED_TYPES = frozenset({
-    "context_projection", "crf", "crf_decoding", "expand", "first_seq",
-    "last_seq", "pooling", "recurrent_group", "seq_concat", "seq_reshape",
-    "seq_slice", "sub_seq"})
+    "context_projection", "crf", "crf_decoding", "ctc", "expand",
+    "first_seq", "last_seq", "pooling", "recurrent_group", "row_conv",
+    "seq_concat", "seq_reshape", "seq_slice", "sub_seq"})
 
 _KINDS = {(SEQ_NONE, DENSE): ("dense", "float32"),
           (SEQ_NONE, INDEX): ("index", "int32"),

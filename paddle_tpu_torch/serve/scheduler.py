@@ -999,7 +999,7 @@ class ContinuousScheduler:
             # this thread's kernels and carries go to the card that holds
             # the bundle's parameters, whatever the creating thread's was
             torch.cuda.set_device(
-                next(iter(self.bundle.params.values())).device)
+                next(iter(self.bundle.payload.values())).device)
         while self._wait_for_work():
             try:
                 self._run_iteration()

@@ -1130,8 +1130,10 @@ class WorkerSet:
         best = min(range(n), key=lambda j: (depths[j], j))
         return self._submit_to(order[best], inputs, trace=trace)
 
-    def submit_to(self, index, inputs, trace=None):
-        """Pin one request to worker ``index``."""
+    def submit_to(self, index, inputs, timeout=None, trace=None):
+        """Pin one request to worker ``index``; returns a Future. The JAX
+        package's signature: ``timeout`` is accepted and unused (the
+        caller's ``result(timeout=)`` bounds the wait)."""
         return self._submit_to(self._handles[index], inputs, trace=trace)
 
     def _submit_to(self, handle, inputs, session_id=None, priority=None,

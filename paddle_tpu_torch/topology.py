@@ -144,6 +144,17 @@ class Topology:
         out = self._evaluate(params, feed, ctx, outputs)
         return out, ctx.decode_state_out
 
+    def apply_all(self, params, feed, mode="test", rng=None):
+        """Like ``apply``, but every layer's value (paddle_tpu/topology.py
+        apply_all; the trainer's ``show_layer_stat``): ``({layer_name:
+        value}, state_updates)``, test mode by default."""
+        enforce(mode in ("test", "train"), "Topology.apply_all: mode must "
+                "be 'test' or 'train', got %r", mode)
+        ctx = Context(mode=mode, generator=rng)
+        out = self._evaluate(params, _feed_on(feed, params), ctx,
+                             [node.name for node in self.nodes])
+        return out, ctx.state_updates
+
     def _evaluate(self, params, feed, ctx, outputs, record=False):
         """Run the nodes; a test-mode evaluation runs under
         ``torch.inference_mode()`` unless ``record`` (the gradient check's
@@ -238,30 +249,41 @@ def _feed_on(feed, params):
     return {k: convert(v) for k, v in feed.items()}
 
 
-def convert_feed(topology, data_batch, device, feeding=None, max_len=None):
+def convert_feed(topology, data_batch, feeding=None, max_len=None, *,
+                 device=None):
     """Convert a host minibatch (list of tuples, v2 reader convention) into
-    feed values on ``device``: dense slots become [B, dim] tensors, index
+    feed values on ``device`` (the JAX package's signature, with ``device``
+    keyword-only; None is the default device, ``resolve_device``): dense
+    slots become [B, dim] tensors, index
     slots int32 [B], sequence slots SequenceBatch (padded to ``max_len``,
     default the length bucket of the batch's longest sequence), sparse
     slots SparseRows at or above the ``sparse_feed_threshold`` flag and
     dense [B, dim] rows below it, nested sequence slots
     NestedSequenceBatch."""
+    device = resolve_device(device)
     names = [name for name, _ in topology.data_types()]
     if feeding is None:
         feeding = {name: i for i, name in enumerate(names)}
     feed = {}
     for name, itype in topology.data_types():
         idx = feeding[name]
+        for row in data_batch:
+            enforce(idx < len(row), "sample tuple of length %d has no "
+                    "column %d for data layer %r (feeding=%r)", len(row),
+                    idx, name, feeding)
         col = [row[idx] for row in data_batch]
-        feed[name] = convert_column(col, itype, device, max_len)
+        feed[name] = convert_column(col, itype, max_len, device=device)
     return feed
 
 
-def convert_column(col, itype, device, max_len=None):
+def convert_column(col, itype, max_len=None, *, device=None):
+    """One data layer's column of a minibatch as its feed value on
+    ``device`` (None: the default device)."""
+    device = resolve_device(device)
     sparse = itype.value_type in (SPARSE_BINARY, SPARSE_FLOAT)
     np_dtype = {DENSE: np.float32, INDEX: np.int32}.get(itype.value_type)
     enforce(sparse or np_dtype is not None,
-            "input type %r is not ported yet", itype)
+            "unsupported input type %r", itype)
     if itype.seq_type == SEQ_NONE:
         if not sparse:
             return torch.as_tensor(np.asarray(col, dtype=np_dtype),
@@ -283,7 +305,7 @@ def convert_column(col, itype, device, max_len=None):
     if itype.seq_type == SEQ_NESTED:
         return NestedSequenceBatch.from_nested(
             [[steps(s) for s in subs] for subs in col], device=device)
-    enforce(itype.seq_type == SEQ_SINGLE, "input type %r is not ported yet",
+    enforce(itype.seq_type == SEQ_SINGLE, "unsupported input type %r",
             itype)
     return SequenceBatch.from_sequences([steps(s) for s in col],
                                         device=device, max_len=max_len)

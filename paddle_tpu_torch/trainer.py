@@ -629,8 +629,9 @@ class SGD:
                     # (``data_batch.bucket``), as in the JAX trainer
                     with observe_spans.span("feed") as feed_scope:
                         feed = convert_feed(
-                            self.topology, data_batch, self.device, feeding,
-                            max_len=getattr(data_batch, "bucket", None))
+                            self.topology, data_batch, feeding,
+                            max_len=getattr(data_batch, "bucket", None),
+                            device=self.device)
                     feed_ms, n_examples = feed_scope.dur * 1e3, \
                         len(data_batch)
                 else:
@@ -814,8 +815,8 @@ class SGD:
         total, n_batches = 0.0, 0
         for data_batch in reader():
             with observe_spans.span("test_feed"):
-                feed = convert_feed(self.topology, data_batch, self.device,
-                                    feeding)
+                feed = convert_feed(self.topology, data_batch, feeding,
+                                    device=self.device)
             with observe_spans.span("test_step"):
                 cost, stats, _, _ = self._forward(feed, "test")
             with observe_spans.span("eval_readback"):
@@ -836,9 +837,9 @@ class SGD:
         batch, in the JAX package's line format."""
         from paddle_tpu_torch.layer.base import data_of
 
-        values, _ = self.topology.apply(
+        values, _ = self.topology.apply_all(
             {**self._trainable, **self._static, **self._state}, feed,
-            mode="test", outputs=[n.name for n in self.topology.nodes])
+            mode="test")
         for name, val in values.items():
             val = data_of(val)
             if not (isinstance(val, torch.Tensor)

@@ -230,8 +230,8 @@ def test_lstmemory_gate_bias_and_batch_norm_img3d_are_refused():
     is ported: its default and "merged" give the merged 7*size bias, any
     other value the split parameterization, with JAX's parameter names
     and shapes (tests/test_torch_text_layers.py holds values and
-    gradients); ``batch_norm(img3D=True)`` is still refused as not ported
-    (not TypeError)."""
+    gradients); ``batch_norm(img3D=True)`` is accepted and unused, as in
+    the JAX package (not TypeError)."""
     def build(pkg, **kw):
         seq = pkg.layer.data(
             name="w", type=pkg.data_type.integer_value_sequence(10))
@@ -255,8 +255,7 @@ def test_lstmemory_gate_bias_and_batch_norm_img3d_are_refused():
     img = paddle.layer.data(name="im", type=paddle.data_type.dense_vector(
         3 * 4 * 4), height=4, width=4)
     assert paddle.layer.batch_norm(input=img, img3D=False).size == 48
-    with pytest.raises(EnforceError, match="not ported yet"):
-        paddle.layer.batch_norm(input=img, img3D=True)
+    assert paddle.layer.batch_norm(input=img, img3D=True).size == 48
 
 
 # -- A.5: pooling(bias_attr=None) ------------------------------------------

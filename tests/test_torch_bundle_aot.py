@@ -229,7 +229,7 @@ def test_int8_bundle_payload_and_answers_match_jax(tmp_path):
     port_dir, jax_dir = _flagship_pair(tmp_path, quantize="int8")
     port, ref = load_bundle(port_dir, device="cpu"), jax_load(jax_dir)
     assert port.manifest["quantization"] == ref.manifest["quantization"]
-    assert {k: v.dtype for k, v in port.params.items()
+    assert {k: v.dtype for k, v in port.params().items()
             if v.dtype == torch.int8}
     req = _request(4, seed=8)
     np.testing.assert_allclose(port.infer(req)["lstm_out"],

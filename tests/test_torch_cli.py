@@ -269,8 +269,8 @@ def test_define_py_data_sources2_equals_jax(form, monkeypatch):
 def test_shim_binds_every_name_of_the_jax_shim():
     """``from paddle.trainer_config_helpers import *`` binds in the port
     every public name the JAX shim binds: None where the JAX shim binds
-    None, a stub raising "not ported yet" where the port lacks the layer,
-    the port's own object elsewhere."""
+    None, the port's own object elsewhere (no layer name is left to a stub
+    raising "not ported yet")."""
     names = {}
     for compat in (os.path.join(ROOT, "compat"), cli.COMPAT_DIR):
         saved = _paddle_entries()
@@ -308,9 +308,18 @@ def test_shim_binds_every_name_of_the_jax_shim():
                  "lstmemory_group", "gru_group", "sequence_conv_pool",
                  "text_conv_pool"):
         assert port_names[name] is getattr(pt.networks, name), name
-    with pytest.raises(NotImplementedError, match="nce_layer is not "
-                       "ported yet"):
-        port_names["nce_layer"](input=None, label=None, num_classes=3)
+    # the remaining layers are ported: no stub is left
+    for name in ("nce_layer", "ctc_layer", "warp_ctc_layer",
+                 "block_expand_layer", "row_conv_layer", "tensor_layer",
+                 "selective_fc_layer", "priorbox_layer",
+                 "detection_output_layer", "multibox_loss_layer",
+                 "multiplex_layer", "prelu_layer", "gated_unit_layer",
+                 "out_prod_layer", "spp_layer", "maxout_layer", "pad_layer",
+                 "crop_layer", "rotate_layer", "conv_shift_layer",
+                 "bilinear_interp_layer", "hsigmoid"):
+        assert port_names[name].__module__.startswith(
+            "paddle_tpu_torch.layer."), name
+    assert port_names["nce_layer"] is pt.layer.nce
 
 
 # -- the CLI against JAX's ---------------------------------------------------
@@ -421,6 +430,87 @@ def test_v1_text_configs_train_like_the_jax_cli(tmp_path, capsys, name,
     assert cli.main(["train", *common, "--device", "cpu", "--save-dir",
                      str(tmp_path / "save_port")]) == 0
     got = _test_cost(capsys.readouterr().out)
+    assert abs(got - want) < TOL
+    for pass_id in (0, 1):
+        jparams = _pass_params(str(tmp_path / "save_jax"), pass_id)
+        params = _pass_params(str(tmp_path / "save_port"), pass_id)
+        assert sorted(params.names()) == sorted(jparams.names())
+        for n in jparams.names():
+            np.testing.assert_allclose(np.asarray(params.get(n)),
+                                       np.asarray(jparams.get(n)), rtol=TOL,
+                                       atol=TOL, err_msg=n)
+
+
+OCR_PROVIDER = '''
+import numpy as np
+from paddle.trainer.PyDataProvider2 import *
+
+
+def hook(settings, **kwargs):
+    settings.input_types = [dense_vector(96), integer_value_sequence(6)]
+
+
+@provider(init_hook=hook)
+def process(settings, file_name):
+    rng = np.random.RandomState(2 if file_name == "train" else 3)
+    for _ in range(16 if file_name == "train" else 8):
+        yield (rng.rand(96).astype(np.float32).tolist(),
+               [int(x) for x in rng.randint(1, 6, rng.randint(1, 4))])
+'''
+
+OCR_CONFIG = '''
+from paddle.trainer_config_helpers import *
+
+define_py_data_sources2(train_list=["train"], test_list=["test"],
+                        module="{provider}", obj="process")
+settings(batch_size=8, learning_rate=1e-3, learning_method=AdamOptimizer())
+
+img = data_layer(name="image", size=96, height=8, width=12)
+conv = img_conv_layer(input=img, filter_size=3, num_filters=8,
+                      num_channels=1, padding=1, act=TanhActivation())
+columns = block_expand_layer(input=conv, block_x=1, block_y=8,
+                             num_channels=8)
+proj = fc_layer(input=columns, size=16, act=TanhActivation())
+scores = fc_layer(input=proj, size=6, act=SoftmaxActivation())
+lab = data_layer(name="label", size=6)
+loss = warp_ctc_layer(input=scores, label=lab, size=6, blank=0,
+                      norm_by_times=True)
+outputs(loss)
+'''
+
+
+def test_v1_ocr_config_with_warp_ctc_and_block_expand_trains_like_jax(
+        tmp_path, capsys):
+    """A v1 OCR config (img_conv_layer, block_expand_layer into a
+    12-step sequence of columns, fc_layer, warp_ctc_layer), built by the
+    port's shim as by the JAX package's: ``python -m paddle_tpu_torch.cli
+    train`` in a fresh process and the JAX package's ``cli train``, from
+    one JAX checkpoint for 2 passes, give the same test cost and pass
+    checkpoints (1e-5)."""
+    import subprocess
+
+    d = tmp_path / "ocr"
+    d.mkdir()
+    (d / "ocr_provider.py").write_text(OCR_PROVIDER)
+    conf = str(d / "conf.py")
+    (d / "conf.py").write_text(OCR_CONFIG.format(provider="ocr_provider"))
+    jax_reset_names()
+    cfg = jcli._load_config(conf, "")
+    _, _, trainer = jcli._build(cfg)
+    init = str(tmp_path / "init")
+    trainer.save_checkpoint(init)
+    common = ["--config", conf, "--init-model", init, "--num-passes", "2"]
+    jax_reset_names()
+    assert jcli.main(["train", *common, "--save-dir",
+                      str(tmp_path / "save_jax")]) == 0
+    want = _test_cost(capsys.readouterr().out)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", "train", *common,
+         "--device", "cpu", "--save-dir", str(tmp_path / "save_port")],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = _test_cost(proc.stdout)
     assert abs(got - want) < TOL
     for pass_id in (0, 1):
         jparams = _pass_params(str(tmp_path / "save_jax"), pass_id)

@@ -528,8 +528,8 @@ def test_export_keeps_the_served_names_of_a_trained_superset(tmp_path):
     out_dir = str(tmp_path / "served")
     export_bundle(served, params, out_dir, batch_sizes=(4,), seq_len=12)
     bundle = load_bundle(out_dir, device="cpu")
-    assert sorted(bundle.params) == sorted(values)
-    assert "tag_crf.w0" in bundle.params
+    assert sorted(bundle.params()) == sorted(values)
+    assert "tag_crf.w0" in bundle.params()
     jscores, jcost = _tagger(jpaddle, jax_text, jax_reset_names, **SMALL)
     jparams = jpaddle.parameters.create(jcost)
     for name, arr in arrays.items():
@@ -537,7 +537,7 @@ def test_export_keeps_the_served_names_of_a_trained_superset(tmp_path):
     jax_export(jscores, jparams, str(tmp_path / "jax"), batch_sizes=(4,),
                seq_len=12)
     with np.load(str(tmp_path / "jax" / "params.npz")) as pz:
-        assert sorted(pz.files) == sorted(bundle.params)
+        assert sorted(pz.files) == sorted(bundle.params())
     short = {k: v for k, v in values.items() if k != "tag_fwd.w0"}
     with pytest.raises(Exception, match="tag_fwd.w0"):
         export_bundle(served, Parameters(short, topo.param_specs()),

@@ -241,8 +241,22 @@ def test_value_printer_passes_its_input_through(capsys):
 
 
 def test_detection_map_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        paddle.evaluator.detection_map(input=None, label=None)
+    """Ported now (the name is kept): detection_map builds an evaluator
+    over detection rows and a ground-truth sequence, whose empty result
+    is JAX's 0.0; tests/test_torch_detection.py holds its statistics and
+    mAP against the JAX package's."""
+    rows = paddle.layer.data(name="rows",
+                             type=paddle.data_type.dense_vector(7))
+    gt = paddle.layer.data(name="gt",
+                           type=paddle.data_type.dense_vector_sequence(6))
+    node = paddle.evaluator.detection_map(input=rows, label=gt)
+    jnode = jpaddle.evaluator.detection_map(
+        input=jpaddle.layer.data(name="rows",
+                                 type=jpaddle.data_type.dense_vector(7)),
+        label=jpaddle.layer.data(
+            name="gt", type=jpaddle.data_type.dense_vector_sequence(6)))
+    assert node.is_evaluator and jnode.is_evaluator
+    assert node.result(None) == jnode.result(None) == 0.0
 
 
 def test_evaluator_aliases_match_jax():

@@ -75,18 +75,24 @@ def _fleet(bundle, **kw):
 
 def test_params_cache_keyed_by_device_and_views_share_programs(flagship_dirs):
     bundle = load_bundle(flagship_dirs[0], device="cpu")
-    assert type(bundle.params) is dict  # a program's argument
+    assert type(bundle.payload) is dict  # a program's argument
     req = flagship_request(4, seed=2)
-    out = bundle.program(4)(bundle.params, bundle.device_inputs(req))
+    out = bundle.program(4)(bundle.payload, bundle.device_inputs(req))
     np.testing.assert_array_equal(out["lstm_out"].numpy(),
                                   bundle.run(req, 4)["lstm_out"])
-    # the bundle's own device: the same payload, one copy
-    assert bundle.params_on("cpu") is bundle.params
+    # the bundle's own device: the same payload, one copy, as
+    # tests/test_fleet.py reads it (params() and params(device=))
+    assert bundle.params() is bundle.payload
+    assert bundle.params(device="cpu") is bundle.payload
+    np.testing.assert_array_equal(
+        bundle.run(req, 4, device="cpu")["lstm_out"],
+        bundle.run(req, 4)["lstm_out"])
     view = bundle.view("cpu")
     assert isinstance(view, BundleReplica) and view.device.type == "cpu"
     assert view.name == bundle.name
     assert view.batch_sizes() == bundle.batch_sizes()
-    assert view.params is bundle.params
+    assert view.params() is bundle.params()
+    assert view.payload is bundle.payload
     req = flagship_request(3, seed=1)
     assert_equal(view.infer(req), bundle.infer(req))
     # the program the view ran is the bundle's: loaded once

@@ -314,15 +314,27 @@ def test_conv_operator_outside_the_family_matches_jax():
 
 
 def test_transposed_conv_projection_and_operator_are_refused():
+    """Ported: ``trans=True`` builds the transposed conv where its
+    geometry agrees with the conv it runs (2 * padding = filter_size - 1,
+    tests/test_torch_image_layers.py holds it against the JAX package),
+    and is refused elsewhere, where the JAX package fails."""
     import paddle_tpu_torch as paddle
 
     img = paddle.layer.data(name="img",
                             type=paddle.data_type.dense_vector(8 * 16))
-    with pytest.raises(EnforceError, match="not ported yet"):
+    proj = paddle.layer.conv_projection(input=img, filter_size=3,
+                                        num_filters=8, num_channels=8,
+                                        padding=1, trans=True)
+    assert proj.size == 8 * 16
+    op = paddle.layer.conv_operator(img=img, filter=img, filter_size=3,
+                                    num_filters=8, num_channels=8,
+                                    padding=1, trans=True)
+    assert op.size == 8 * 16
+    with pytest.raises(EnforceError, match="agree only where"):
         paddle.layer.conv_projection(input=img, filter_size=3,
                                      num_filters=8, num_channels=8,
                                      trans=True)
-    with pytest.raises(EnforceError, match="not ported yet"):
+    with pytest.raises(EnforceError, match="agree only where"):
         paddle.layer.conv_operator(img=img, filter=img, filter_size=3,
                                    num_filters=8, num_channels=8,
                                    trans=True)

@@ -124,7 +124,7 @@ def test_nested_feed_matches_jax(kind):
                   dt_j.sparse_binary_vector_sub_sequence(VOCAB))
         col = [[[ids[:2] for _ in range(len(ids))] for ids in subs]
                for subs in _nested_ids(1)]
-    got = convert_column(col, itypes[0], "cpu")
+    got = convert_column(col, itypes[0], device="cpu")
     want = jax_convert_column(col, itypes[1])
     assert isinstance(got, NestedSequenceBatch)
     assert got.data.dtype == {"index": torch.int32}.get(kind, torch.float32)

@@ -268,7 +268,7 @@ def test_packed_rows_match_unpacked_and_jax(rnn, bidirectional):
     topo, jtopo = Topology(cost), JaxTopology(jcost)
     params = numpy_params(topo.param_specs(), seed=6)
     cu, gu = _cost_and_grads(topo, cost, params,
-                             convert_feed(topo, PACK_SAMPLES, "cpu"))
+                             convert_feed(topo, PACK_SAMPLES, device="cpu"))
     rows = bucketing.pack_samples(PACK_SAMPLES, max_len=16)
     assert len(rows) < len(PACK_SAMPLES)
     feed = bucketing.pack_feed(topo, rows, max_len=16, device="cpu")

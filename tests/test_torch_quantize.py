@@ -277,7 +277,7 @@ def test_int8_mlp_bundle_matches_the_jax_int8_bundle(tmp_path):
     _same_payload(port_dir, jax_dir)
     port, ref = load_bundle(port_dir, device="cpu"), JaxBundle(jax_dir)
     assert "quantized=%s" % SCHEME in repr(port)
-    assert port.params["mlp_fc0.w0"].dtype == torch.int8
+    assert port.params()["mlp_fc0.w0"].dtype == torch.int8
     x = np.random.RandomState(3).randn(4, 784).astype(np.float32)
     for rows in (1, 3, 4):
         np.testing.assert_allclose(port.infer({"pixel": x[:rows]})["mlp_out"],
@@ -328,8 +328,8 @@ def test_int8_resnet18_matches_the_jax_forward_over_dequant_for_trace(
     np.testing.assert_allclose(got, np.asarray(want[jout.name]), rtol=0,
                                atol=1e-5)
     # the resident conv weights stay int8 after a forward
-    assert bundle.params["res2_0_a_conv.w0"].dtype == torch.int8
-    assert sum(t.dtype == torch.int8 for t in bundle.params.values()) == 21
+    assert bundle.params()["res2_0_a_conv.w0"].dtype == torch.int8
+    assert sum(t.dtype == torch.int8 for t in bundle.params().values()) == 21
 
 
 # -- the accuracy gate -----------------------------------------------------------

@@ -164,7 +164,7 @@ def test_ctr_gradients_match_jax():
     topo, jtopo = Topology(cost), JaxTopology(jcost)
     arrays = _numpy_params(topo.param_specs(), seed=1)
     batch = _ctr_batches(seed=2)[0]
-    feed = convert_feed(topo, batch, "cpu")
+    feed = convert_feed(topo, batch, device="cpu")
     assert isinstance(feed["wide_features"], SparseRows)
     params = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in arrays.items()}
@@ -327,7 +327,7 @@ def _both_values_and_grads(build, samples, outputs, seed=0):
     arrays = _numpy_params(topo.param_specs(), seed)
     params = {k: torch.from_numpy(v.copy()).requires_grad_()
               for k, v in arrays.items()}
-    values, _ = topo.apply(params, convert_feed(topo, samples, "cpu"),
+    values, _ = topo.apply(params, convert_feed(topo, samples, device="cpu"),
                         mode="train", outputs=outputs)
     values[outputs[-1]].mean().backward()
     jfeed = jax_convert_feed(jtopo, samples)
@@ -486,7 +486,7 @@ def test_movielens_bundle_payload_and_answers_match_jax(score_bundles):
     port, ref = load_bundle(port_dir, device="cpu"), JaxBundle(jax_dir)
     if port.quantization:
         assert len(port.quantization["params"]) == 8
-        assert port.params["rec_cat_fc.w0"].dtype == torch.int8
+        assert port.params()["rec_cat_fc.w0"].dtype == torch.int8
     rng = np.random.RandomState(12)
     for rows in (1, 3, 4):
         req = _score_request(rng, rows)

@@ -321,10 +321,10 @@ def test_trained_resnet_bundle_carries_its_moving_statistics(tmp_path):
     trainer.export_inference_bundle(port_model(BUILDER, **SMALL), out_dir,
                                     batch_sizes=(2,))
     bundle = load_bundle(out_dir, device="cpu")
-    stats = [n for n in bundle.params if n.endswith(".moving_var")]
+    stats = [n for n in bundle.params() if n.endswith(".moving_var")]
     assert len(stats) == 53
     for name in stats:
-        np.testing.assert_array_equal(bundle.params[name].numpy(),
+        np.testing.assert_array_equal(bundle.params()[name].numpy(),
                                       params.get(name))
         assert not np.array_equal(params.get(name), np.ones(
             params.get(name).shape, np.float32))

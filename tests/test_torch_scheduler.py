@@ -224,7 +224,7 @@ def test_int8_decode_payload_and_step_match_jax(tmp_path):
     from paddle_tpu_torch.serve import load_bundle
 
     port = load_bundle(port_dir, device="cpu")
-    assert port.params["gru_tag_out.w0"].dtype == torch.int8
+    assert port.params()["gru_tag_out.w0"].dtype == torch.int8
     _three_windows(port, jax_load(jax_dir), SMALL["dict_size"])
 
 

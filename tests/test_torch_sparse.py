@@ -119,7 +119,7 @@ def test_feed_is_sparse_at_the_threshold_and_dense_below(dim, sparse, kind):
     x = L.data(name="x", type=make[0](dim))
     jax_reset_names()
     jx = JL.data(name="x", type=make[1](dim))
-    feed = convert_feed(Topology(x), [(r,) for r in rows], "cpu")["x"]
+    feed = convert_feed(Topology(x), [(r,) for r in rows], device="cpu")["x"]
     jfeed = jax_convert_feed(JTopology(jx), [(r,) for r in rows])["x"]
     assert isinstance(feed, SparseRows) == sparse
     assert isinstance(jfeed, JSparseRows) == sparse
@@ -159,7 +159,7 @@ def test_sparse_sequence_slot_densifies_per_step(kind):
     x = L.data(name="x", type=make[0](10))
     jax_reset_names()
     jx = JL.data(name="x", type=make[1](10))
-    got = convert_feed(Topology(x), [(s,) for s in seqs], "cpu")["x"]
+    got = convert_feed(Topology(x), [(s,) for s in seqs], device="cpu")["x"]
     want = jax_convert_feed(JTopology(jx), [(s,) for s in seqs])["x"]
     np.testing.assert_array_equal(got.lengths.numpy(),
                                   np.asarray(want.lengths))
@@ -250,7 +250,7 @@ def test_sparse_fc_matches_jax_and_the_dense_path(request, threshold_side,
     topo, jtopo = Topology(cost), JTopology(jcost)
     arrays = _numpy_params(topo.param_specs())
     samples = _samples(kind, dim)
-    feed = convert_feed(topo, samples, "cpu")
+    feed = convert_feed(topo, samples, device="cpu")
     jfeed = jax_convert_feed(jtopo, samples)
     assert isinstance(feed["x"], SparseRows) == (threshold_side == "sparse")
     loss, grads = _port_value_and_grads(topo, cost, arrays, feed)
@@ -291,7 +291,7 @@ def test_a_layer_without_a_sparse_path_reads_the_dense_rows(force_sparse):
     jout = build(JL, jdt)
     samples = [(r,) for r in _valued([[1, 4, 4], [11]], seed=2)]
     got = Topology(out).apply({}, convert_feed(Topology(out), samples,
-                                               "cpu"),
+                                               device="cpu"),
                                   mode="test")[0][out.name]
     jtopo = JTopology(jout)
     want, _ = jtopo.apply({}, jax_convert_feed(jtopo, samples), mode="test")
@@ -323,7 +323,7 @@ def test_int8_sparse_fc_matches_jax_and_the_dequantized_product(
     samples = [(r,) for r in _valued([[1, 5, 7], [0], [2, 2, 30, 39]],
                                      seed=3)]
     topo, jtopo = Topology(out), JTopology(jout)
-    feed = convert_feed(topo, samples, "cpu")
+    feed = convert_feed(topo, samples, device="cpu")
     got = topo.apply({"qfc.w0": torch.from_numpy(q),
                       "qfc.w0::scale": torch.from_numpy(scale)},
                      feed, mode="test")[0][out.name].numpy()
@@ -351,7 +351,7 @@ def test_bfloat16_policy_casts_the_values_and_gathers_the_cast_table(
     params = {"bfc.w0": torch.from_numpy(
         _numpy_params(topo.param_specs())["bfc.w0"])}
     feed = convert_feed(topo, [(r,) for r in _valued([[1, 2], [29, 3, 3]])],
-                        "cpu")
+                        device="cpu")
     want = topo.apply(params, feed, mode="test")[0][out.name]
     dtype_mod.set_mixed_precision("bfloat16")
     try:

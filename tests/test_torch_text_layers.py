@@ -451,7 +451,7 @@ def test_cost_only_feed_stays_float32_under_bf16(cost):
         assert topo._label_feed_names == jtopo._label_feed_names == {"y"}
         want = jtopo.apply({}, jax_convert_feed(jtopo, rows), mode="test")[
             0][jout.name]
-        got = topo.apply({}, convert_feed(topo, rows, "cpu"),
+        got = topo.apply({}, convert_feed(topo, rows, device="cpu"),
                          mode="test")[0][out.name]
         return np.asarray(want, np.float64), got.double().numpy()
 
@@ -485,7 +485,7 @@ def test_a_feed_read_as_target_and_as_input_is_still_cast():
 
     def run():
         topo = Topology(out)
-        feed = convert_feed(topo, rows, "cpu")
+        feed = convert_feed(topo, rows, device="cpu")
         params = {k: torch.from_numpy(v) for k, v in numpy_params(
             topo.param_specs(), 20).items()}
         real = out.inputs[1].forward
@@ -786,23 +786,10 @@ def test_text_model_names_and_momentum_trajectory_match_jax(name):
 # -- the surface ---------------------------------------------------------------
 
 # The public names of the JAX package's layer, networks, models.text,
-# activation and pooling that the port does not have yet; ROADMAP.md
-# queues each (queue 1, item 9: misc, detection, the rest of extra and
-# conv, mdlstmemory).
+# activation and pooling that the port does not have yet: none since the
+# remaining layers and the detection layers were ported.
 STILL_QUEUED = {
-    "layer": {
-        # item 9: layer/misc.py
-        "gated_unit", "multiplex", "out_prod", "prelu", "selective_fc",
-        "tensor",
-        # item 9: layer/detection.py
-        "cross_channel_norm", "detection_output", "multibox_loss",
-        "priorbox",
-        # item 9: the rest of extra.py
-        "ctc", "warp_ctc", "nce", "hsigmoid", "data_norm", "featmap_expand",
-        # item 9: the rest of conv.py and sequence.py, and mdlstmemory
-        "bilinear_interp", "conv_shift", "crop", "maxout", "pad", "rotate",
-        "spp", "block_expand", "row_conv", "mdlstmemory",
-    },
+    "layer": set(),
     "networks": set(),
     "models.text": set(),
     "activation": set(),

@@ -598,13 +598,13 @@ def test_batch_bucket_sets_the_padded_length(monkeypatch):
     _, (_, cost) = _both_costs()
     topo = Topology(cost)
     rows = [([1, 2, 3], 0), ([4], 1)]
-    assert convert_feed(topo, rows, "cpu")["word"].max_len == 16
-    feed = convert_feed(topo, Bucketed(rows), "cpu",
+    assert convert_feed(topo, rows, device="cpu")["word"].max_len == 16
+    feed = convert_feed(topo, Bucketed(rows), device="cpu",
                         max_len=Bucketed.bucket)
     assert feed["word"].max_len == 12
     assert feed["word"].lengths.tolist() == [3, 1]
     with pytest.raises(EnforceError, match="longer than max_len"):
-        convert_feed(topo, rows, "cpu", max_len=2)
+        convert_feed(topo, rows, device="cpu", max_len=2)
     trainer = paddle.trainer.SGD(
         cost, Parameters.create(topo, device="cpu"),
         opt.Momentum(learning_rate=0.1), device="cpu")

@@ -137,7 +137,7 @@ def test_feeder_matches_sync_conversion():
     got = list(feeder.batches())
     assert len(got) == len(batches)
     for fb, batch in zip(got, batches):
-        want = convert_feed(topo, batch, "cpu", max_len=batch.bucket)
+        want = convert_feed(topo, batch, device="cpu", max_len=batch.bucket)
         for a, b in zip(feed_tensors(fb.feed), feed_tensors(want)):
             assert torch.equal(a, b)
         assert fb.examples == len(batch) and fb.bucket == batch.bucket

@@ -508,9 +508,18 @@ def test_img_cmrnorm_layer_matches_jax_and_refuses_sequences():
     got = Topology(out).apply({}, {"image": torch.from_numpy(x)},
                               mode="test")[0][out.name]
     assert _rel(got.numpy(), np.asarray(want)) <= 1e-6
-    seq = SequenceBatch(torch.zeros(2, 3, 72), torch.tensor([3, 1]))
-    with pytest.raises(EnforceError, match="not ported yet"):
-        Topology(out).apply({}, {"image": seq}, mode="test")
+    # over a sequence (no longer refused: the name is kept) every step is
+    # an image, padding included, as the JAX package's as_nhwc reads it
+    xs = np.random.RandomState(3).randn(2, 3, 72).astype(np.float32)
+    from paddle_tpu.core.sequence import SequenceBatch as JaxSequenceBatch
+
+    want = JaxTopology(jout).apply({}, {"image": JaxSequenceBatch(
+        jnp.asarray(xs), jnp.asarray([3, 1]))})[0][jout.name]
+    got = Topology(out).apply({}, {"image": SequenceBatch(
+        torch.from_numpy(xs), torch.tensor([3, 1]))}, mode="test")[0][
+        out.name]
+    assert got.data.shape == want.data.shape == (6, 72)
+    assert _rel(got.data.numpy(), np.asarray(want.data)) <= 1e-6
 
 
 # -- dropout -----------------------------------------------------------------

@@ -133,7 +133,7 @@ def run_both(build, rows, outputs, seed=0, params=None, scale=1.0,
         names = [n for n, _ in topo.data_types()]
         rows = [tuple(r[n] for n in names) for r in rows]
     feeding = {n: i for i, (n, _) in enumerate(topo.data_types())}
-    feed = convert_feed(topo, rows, "cpu", feeding=feeding)
+    feed = convert_feed(topo, rows, feeding, device="cpu")
     jfeed = jax_convert_feed(jtopo, rows, feeding=feeding)
     tparams = {k: torch.from_numpy(np.array(v)).requires_grad_(loss)
                for k, v in arrays.items()}
