@@ -522,6 +522,34 @@ result line:
            detection_map against the CPU (rows equal up to near ties, the
            mAP within 1e-6), ms a call, and K7/K8 at the loc predictors'
            shapes against their plain versions.
+    dp_card  (after ssd300_head) DataParallel over a process group of one
+           rank on the card over NCCL, in this process: the flagship at
+           full width (batch 64, length 100), 5 steps one a call and the
+           same 5 as one steps_per_call=5 CUDA graph (the NCCL all-reduces
+           captured in it), each held against the plain trainer's 5 steps
+           (costs and parameters within 1e-6 of max(1, max |.|); bit for
+           bit expected), K1/K2 2 a step (through the graph's replays),
+           the backend, ms a batch both ways and their profiles (idle
+           share).
+    cluster_card  two ranks on the one card over gloo (NCCL refuses two
+           ranks on one device), spawned as scripts: the flagship at global
+           batch 64 (32 rows a rank), 4 steps; the ranks' parameters equal
+           bit for bit, rank 0's within 1e-4 of a single process on the
+           same batches, 8 K1 and 8 K2 in each rank, ms a step, and what
+           gloo's staging through the host costs (torch.profiler over one
+           step: host ms in the collectives, device ms of the copies).
+           Then ``cli cluster_train --num-processes 2`` on a flagship
+           config: the launcher's lockstep check, and the final cost within
+           1e-4 of the config trained by one process.
+    elastic_card  the lost-worker scenario of the JAX package's test
+           (tests/test_distributed.py:558) at the flagship's full width on
+           the port's coordinator: a peer's lease lapses at shard s2, one
+           reform, w1 lost, the deals [s0, s2] then all four, every shard
+           trained in epoch 2, K1/K2 2 a step (the rewound steps
+           included), the parameters within 1e-4 of the same scenario on
+           the CPU; then the save election (of two clients exactly one
+           writes) and ``cli observe --fleet-stats`` (the live lease
+           listed).
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -533,7 +561,9 @@ result line:
            mixed_conv phases', K1/K2 at nested_text's; K1, K5, K7 and K9
            also as the ops inside serve_aot's loaded programs, with the
            fresh processes' launches; K7/K8 at train_crnn_ctc's and
-           ssd300_head's family convs, K1/K2 at CRNN's BiLSTM), then the
+           ssd300_head's family convs, K1/K2 at CRNN's BiLSTM, and K1/K2
+           in a cluster_card rank (its 32 rows) and in elastic_card's run,
+           each timed at that shape against its plain version), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -2417,7 +2447,7 @@ class TrainRig:
         self.topology = Topology(self.cost)
         self.init = (params or numpy_params)(self.topology, seed)
 
-    def trainer(self, device):
+    def trainer(self, device, parallelism=None):
         from paddle_tpu_torch import optimizer, trainer
         from paddle_tpu_torch.parameters import Parameters
 
@@ -2425,7 +2455,8 @@ class TrainRig:
                              for k, v in self.init.as_dict().items()},
                             self.topology.param_specs())
         return trainer.SGD(self.cost, params, optimizer.Momentum(
-            learning_rate=self.learning_rate, momentum=0.9), device=device)
+            learning_rate=self.learning_rate, momentum=0.9), device=device,
+            parallelism=parallelism)
 
 
 def flagship_rig(hidden, seed):
@@ -8686,6 +8717,476 @@ def remaining_layer_entries(crnn, ssd):
     return out
 
 
+# -- the distributed path: dp_card, cluster_card, elastic_card ----------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DP_STEPS = 5  # dp_card: 5 per-step batches, then the same 5 as one graph
+CLUSTER_RANKS, CLUSTER_STEPS = 2, 4
+CLUSTER_ROWS = TRAIN_BATCH // CLUSTER_RANKS
+CLUSTER_TIMEOUT = 300
+ELASTIC_TTL = 1.2
+ELASTIC_SHARDS = ["s0", "s1", "s2", "s3"]
+# K1/K2 at the shapes of a cluster rank and of the elastic run's steps (the
+# backward's (100, 64, 256) is phase 4's)
+DP_FWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256), (TRAIN_SEQ, TRAIN_BATCH, 256)]
+DP_BWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256)]
+
+# one rank of cluster_card: the flagship's global batches through a
+# DataParallel trainer over gloo (two ranks share the card); argv: the
+# repository, the rank, the store's port, the output directory
+CLUSTER_RANK_SRC = r'''
+import json
+import os
+import sys
+
+repo, rank, port, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+sys.path.insert(0, repo)
+import torch
+import torch.distributed as dist
+
+import chip_smoke as cs
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.distributed.multihost import initialize_multihost
+from paddle_tpu_torch.ops import lstm_kernels as lk
+from paddle_tpu_torch.parallel import DataParallel, build_mesh
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+paddle.init(use_tpu=True)
+assert initialize_multihost("127.0.0.1:" + port, cs.CLUSTER_RANKS, rank)
+dp = DataParallel(build_mesh())
+tr = cs.flagship_rig(256, cs.SEED + 2300).trainer(cs.DEVICE, parallelism=dp)
+batches = cs.cluster_batches()
+lk.reset_launches()
+costs, ms = cs.train(torch, tr, batches, timed=True)
+launches = [lk.launches, lk.bwd_launches]
+cs.np.savez(os.path.join(out, "rank%d.npz" % rank), **cs.snapshot(tr))
+staging = cs.gloo_staging(torch, tr, batches[:1])
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump({"rank": rank, "backend": dp.backend, "device": str(tr.device),
+               "costs": costs, "ms_per_step": ms, "launches": launches,
+               "staging": staging}, f)
+dist.destroy_process_group()
+'''
+
+# cli cluster_train's config: the flagship at full width, 4 global batches
+CLUSTER_CONFIG = '''
+import numpy as np
+from paddle_tpu_torch import data_type, layer
+from paddle_tpu_torch import optimizer as opt
+from paddle_tpu_torch.models.text import text_classification_lstm
+
+batch_size = %(batch)d
+
+
+def cost():
+    out = text_classification_lstm(**%(flagship)r)
+    label = layer.data(name="label", type=data_type.integer_value(2))
+    return layer.classification_cost(input=out, label=label)
+
+
+def optimizer():
+    return opt.Momentum(learning_rate=0.01, momentum=0.9)
+
+
+def train_reader():
+    def reader():
+        rng = np.random.RandomState(%(seed)d)
+        for _ in range(%(rows)d):
+            yield (rng.randint(0, %(vocab)d, %(seq)d).tolist(),
+                   int(rng.randint(2)))
+    return reader
+'''
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cluster_batches():
+    return train_batches(SEED + 2301, CLUSTER_STEPS, TRAIN_BATCH, False,
+                         FLAGSHIP["dict_size"])
+
+
+def gloo_staging(torch, tr, batches):
+    """What the exchange costs a step under gloo, whose collectives stage
+    CUDA tensors through the host: torch.profiler over ``batches``
+    through ``tr`` — the wall ms a step, the host ms a step inside the
+    collectives (the union of the CPU events named after all_reduce or
+    gloo), the device ms a step of the copies (Memcpy) and their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.observe.attribution import union_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(torch, tr, batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host, copies, names = [], [], set()
+    for evt in prof.events():
+        name = evt.name.lower()
+        span = (evt.time_range.start, evt.time_range.end)
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if "memcpy" in name:
+                copies.append(span)
+        elif "allreduce" in name or "all_reduce" in name or "gloo" in name:
+            host.append(span)
+            names.add(evt.name)
+    steps = len(batches)
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "collective_host_ms_per_step": union_us(host) / 1e3 / steps,
+            "collective_events_per_step": len(host) / steps,
+            "memcpy_device_ms_per_step": union_us(copies) / 1e3 / steps,
+            "memcpys_per_step": len(copies) / steps,
+            "collective_event_names": sorted(names)[:8]}
+
+
+def phase_dp_card(torch, lk):
+    """DataParallel over a world of one on the card, over NCCL, in this
+    process (module docstring, dp_card)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.multihost import initialize_multihost
+    from paddle_tpu_torch.parallel import DataParallel, build_mesh
+
+    t0 = time.perf_counter()
+    rig = flagship_rig(256, SEED + 2200)
+    batches = train_batches(SEED + 2201, DP_STEPS, TRAIN_BATCH, False,
+                            FLAGSHIP["dict_size"])
+    plain = rig.trainer(DEVICE)
+    costs = train(torch, plain, batches)
+    want = snapshot(plain)
+    if not initialize_multihost("127.0.0.1:%d" % free_port(), 1, 0):
+        raise AssertionError("dp_card: the process group did not start")
+    try:
+        dp = DataParallel(build_mesh())
+        backend = dp.backend
+        eager = rig.trainer(DEVICE, parallelism=dp)
+        lk.reset_launches()
+        eager_costs = train(torch, eager, batches)
+        eager_launches = check_launches(lk, DP_STEPS, 2, "dp_card per-step")
+        eager_err = trajectory_errors(want, snapshot(eager), costs,
+                                      eager_costs)
+        fused = rig.trainer(DEVICE, parallelism=dp)
+        before = fused.graph_launches()
+        lk.reset_launches()
+        fused_costs = train(torch, fused, batches, steps_per_call=DP_STEPS)
+        graph_launches = check_launches(
+            lk, DP_STEPS, 2, "dp_card graph",
+            counts=graph_run_launches(lk, fused, before))
+        fused_err = trajectory_errors(want, snapshot(fused), costs,
+                                      fused_costs)
+        graphs = graph_summary(fused)
+        _, _, ms_eager = loop_run(torch, eager, batches, mark=DP_STEPS)
+        _, _, ms_fused = loop_run(torch, fused, batches, mark=DP_STEPS,
+                                  steps_per_call=DP_STEPS)
+        profile = profile_steps(torch, eager, batches, kernels=("lstm",))
+        profile_fused = profile_steps(torch, fused, batches,
+                                      kernels=("lstm",),
+                                      steps_per_call=DP_STEPS)
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "dp_card", "config": rig.config, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "steps": DP_STEPS, "backend": backend,
+           "world_size": 1, "costs": costs,
+           "per_step_err_vs_plain": eager_err[:2],
+           "per_step_bitwise": eager_err[2],
+           "graph_err_vs_plain": fused_err[:2], "graph_bitwise": fused_err[2],
+           "tol": TOL_LOOP, "launches_per_step_run": eager_launches,
+           "launches_graph_run": graph_launches, "graphs": graphs,
+           "ms_per_batch_per_step": ms_eager, "ms_per_batch_graph": ms_fused,
+           "profile": profile, "profile_graph": profile_fused,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    checks = {
+        "nccl": backend == "nccl",
+        "per-step against the plain trainer": max(eager_err[:2]) <= TOL_LOOP,
+        "graph against the plain trainer": max(fused_err[:2]) <= TOL_LOOP,
+        "one graph of the 5 steps": len(graphs) == 1
+        and graphs[0]["steps"] == DP_STEPS and graphs[0]["replays"] >= 1,
+        "finite": bool(np.all(np.isfinite(costs)))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("dp_card: %s failed: %r"
+                             % (", ".join(failed), row))
+    return row
+
+
+def phase_cluster_card(torch, lk, tmp):
+    """Two ranks on the one card over gloo, spawned as scripts, against a
+    single process; then ``cli cluster_train --num-processes 2``
+    (module docstring, cluster_card)."""
+    from paddle_tpu_torch import cli, minibatch
+
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "cluster")
+    os.makedirs(work)
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(CLUSTER_RANK_SRC)
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, script, REPO, str(r), port,
+                               work], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(CLUSTER_RANKS)]
+    errs = []
+    try:
+        # the single-process references while the ranks start (their
+        # imports and the card's initialisation take several seconds): the
+        # ranks' batches, and the cli job's config
+        rig = flagship_rig(256, SEED + 2300)
+        single = rig.trainer(DEVICE)
+        single_costs = train(torch, single, cluster_batches())
+        want = snapshot(single)
+        conf = os.path.join(work, "flagship_conf.py")
+        with open(conf, "w") as f:
+            f.write(CLUSTER_CONFIG % {
+                "batch": TRAIN_BATCH, "flagship": FLAGSHIP,
+                "seed": SEED + 2302, "rows": CLUSTER_STEPS * TRAIN_BATCH,
+                "vocab": FLAGSHIP["dict_size"], "seq": TRAIN_SEQ})
+        cfg = cli._load_config(conf)
+        _, _, one = cli._build(cfg, DEVICE)
+        cli_single = train(torch, one, list(minibatch.batch(
+            cfg.train_reader(), TRAIN_BATCH)()))
+        for p in procs:
+            errs.append(p.communicate(timeout=CLUSTER_TIMEOUT)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError("cluster_card: rank %d exited %d: %s"
+                                 % (r, p.returncode, err[-3000:]))
+    # one process's ms a step, timed with the card to itself
+    _, single_ms = train(torch, rig.trainer(DEVICE), cluster_batches(),
+                         timed=True)
+    ranks = []
+    for r in range(CLUSTER_RANKS):
+        with open(os.path.join(work, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+        ranks[-1]["params"] = dict(np.load(os.path.join(work,
+                                                        "rank%d.npz" % r)))
+    p0 = ranks[0]["params"]
+    ranks_equal = ranks[0]["costs"] == ranks[1]["costs"] and all(
+        np.array_equal(p0[n], ranks[1]["params"][n]) for n in p0)
+    cost_err, param_err, _ = trajectory_errors(want, p0, single_costs,
+                                               ranks[0]["costs"])
+    want_launches = [2 * CLUSTER_STEPS, 2 * CLUSTER_STEPS]
+    # cli cluster_train on the flagship config, against its one process
+    t_cli = time.perf_counter()
+    rc, out, _ = cli_call(cli, ["cluster_train", "--config", conf,
+                                "--num-processes", str(CLUSTER_RANKS)])
+    cli_seconds = time.perf_counter() - t_cli
+    results = [json.loads(line) for line in
+               out.strip().splitlines()[-CLUSTER_RANKS:]]
+    cli_err = abs(results[0]["final_cost"] - cli_single[-1]) \
+        / max(1.0, abs(cli_single[-1]))
+    row = {"phase": "cluster_card", "config": FLAGSHIP, "ranks":
+           CLUSTER_RANKS, "global_batch": TRAIN_BATCH,
+           "rows_a_rank": CLUSTER_ROWS, "seq_len": TRAIN_SEQ,
+           "steps": CLUSTER_STEPS,
+           "backends": [r["backend"] for r in ranks],
+           "devices": [r["device"] for r in ranks],
+           "costs": ranks[0]["costs"], "single_costs": single_costs,
+           "ranks_bitwise_equal": ranks_equal,
+           "cost_err_vs_single": cost_err, "param_err_vs_single": param_err,
+           "tol": TOL_TRAIN, "launches": [r["launches"] for r in ranks],
+           "want_launches": want_launches,
+           "ms_per_step_rank": [r["ms_per_step"] for r in ranks],
+           "ms_per_step_single": single_ms,
+           "gloo_staging": [r["staging"] for r in ranks],
+           "cli_results": results, "cli_single_final_cost": cli_single[-1],
+           "cli_final_cost_err": cli_err, "cli_seconds": cli_seconds,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    checks = {
+        "gloo in every rank": all(r["backend"] == "gloo" for r in ranks),
+        "ranks bit for bit": ranks_equal,
+        "rank 0 against one process": cost_err <= TOL_TRAIN
+        and param_err <= TOL_TRAIN,
+        "launches": all(r["launches"] == want_launches for r in ranks),
+        "cli cluster_train": rc == 0 and len(results) == CLUSTER_RANKS
+        and all(r["backend"] == "gloo" and r["processes"] == CLUSTER_RANKS
+                for r in results),
+        "cli against one process": cli_err <= TOL_TRAIN,
+        "finite": bool(np.all(np.isfinite(ranks[0]["costs"])))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("cluster_card: %s failed: %r"
+                             % (", ".join(failed), row))
+    return {"launches": ranks[0]["launches"], "row": row}
+
+
+def elastic_run(torch, device, work, tag, lk=None):
+    """The lost-worker scenario of tests/test_distributed.py:558 at the
+    flagship's full width on ``device``, on a coordinator of its own: a
+    doomed peer "w1" heartbeats until the survivor starts shard s2, then
+    its lease lapses; one batch of TRAIN_BATCH rows a shard; checkpoints
+    under ``work``/ck-``tag``. Returns
+    (trainer, stats, consumed (epoch, shard) pairs, steps run, launches,
+    seconds, the coordinator's endpoint and process)."""
+    from paddle_tpu_torch import minibatch
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.distributed.client import \
+        spawn_coordinator_on_free_port
+    from paddle_tpu_torch.event import BeginIteration
+
+    port, proc = spawn_coordinator_on_free_port()
+    endpoint = "127.0.0.1:%d" % port
+    trainer = flagship_rig(256, SEED + 2400).trainer(device)
+    doomed = elastic.HeartbeatThread(endpoint, "w1", ttl=ELASTIC_TTL).start()
+    consumed, epoch, slept, steps = [], [0], [], [0]
+
+    def reader_of(shards):
+        epoch[0] += 1
+
+        def samples():
+            for shard in shards:
+                consumed.append((epoch[0], shard))
+                if shard == "s2" and not slept:
+                    # w1 "dies"; the shard's IO is slow enough for its
+                    # lease to lapse mid-pass
+                    slept.append(True)
+                    doomed.stop()
+                    time.sleep(ELASTIC_TTL + 0.4)
+                rng = np.random.RandomState(SEED + 2401 + int(shard[1:]))
+                for _ in range(TRAIN_BATCH):
+                    yield (rng.randint(0, FLAGSHIP["dict_size"],
+                                       TRAIN_SEQ).tolist(),
+                           int(rng.randint(2)))
+
+        return minibatch.batch(samples, TRAIN_BATCH)
+
+    def handler(evt):
+        if isinstance(evt, BeginIteration):
+            steps[0] += 1
+
+    if lk is not None:
+        lk.reset_launches()
+    t0 = time.perf_counter()
+    stats = elastic.run_elastic(
+        trainer, endpoint, ELASTIC_SHARDS, reader_of,
+        os.path.join(work, "ck-" + tag),
+        num_passes=1, checkpoint_every=1, checkpoint_sync=True,
+        worker_id="w0", heartbeat_ttl=30.0, poll_secs=0.05,
+        event_handler=handler)
+    seconds = time.perf_counter() - t0
+    launches = None if lk is None else [lk.launches, lk.bwd_launches]
+    return (trainer, stats, consumed, steps[0], launches, seconds,
+            endpoint, proc)
+
+
+def phase_elastic_card(torch, lk, tmp):
+    """The lost-worker scenario on the card against the CPU, the save
+    election and ``cli observe --fleet-stats`` (module docstring,
+    elastic_card)."""
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.distributed.client import CoordinatorClient
+
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "elastic")
+    os.makedirs(work)
+    cpu_run = elastic_run(torch, "cpu", work, "cpu")
+    cpu_run[7].kill()
+    cpu_run[7].wait()
+    card, stats, consumed, steps, launches, seconds, endpoint, proc = \
+        elastic_run(torch, DEVICE, work, "card", lk)
+    try:
+        cost_err, param_err, _ = trajectory_errors(snapshot(cpu_run[0]),
+                                                   snapshot(card))
+        # the save election: of two clients exactly one writes
+        clients = [CoordinatorClient(endpoint, worker_id="t%d" % i)
+                   for i in range(2)]
+        saved = [card.save_checkpoint(os.path.join(work, "elected"),
+                                      coordinator=c) for c in clients]
+        for c in clients:
+            c.close()
+        # cli observe --fleet-stats lists the live lease
+        hb = elastic.HeartbeatThread(endpoint, "trainer-0", ttl=30.0).start()
+        try:
+            rc, out, _ = cli_call(cli, ["observe", work, "--fleet-stats",
+                                        endpoint, "--json"])
+        finally:
+            hb.stop()
+        fleet = json.loads(out)["fleet_stats"]
+    finally:
+        proc.kill()
+        proc.wait()
+    want_deals = [["s0", "s2"], ELASTIC_SHARDS]
+    row = {"phase": "elastic_card", "config": FLAGSHIP,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "stats": stats,
+           "cpu_stats": cpu_run[1], "consumed": consumed, "steps": steps,
+           "cpu_steps": cpu_run[3], "launches": launches,
+           "param_err_vs_cpu": param_err, "tol": TOL_TRAIN,
+           "seconds_card": seconds, "seconds_cpu": cpu_run[5],
+           "elected_writes": sum(p is not None for p in saved),
+           "fleet_stats": fleet, "observe_rc": rc,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    checks = {
+        "one reform, w1 lost": stats["reforms"] == 1
+        and stats["lost"] == ["w1"],
+        "deals": stats["deals"] == want_deals,
+        "every shard in epoch 2": [s for e, s in consumed if e == 2]
+        == ELASTIC_SHARDS,
+        "the CPU's run": cpu_run[1] == stats and cpu_run[2] == consumed
+        and cpu_run[3] == steps,
+        "parameters against the CPU": param_err <= TOL_TRAIN,
+        "launches": launches == [2 * steps, 2 * steps],
+        "one elected write": row["elected_writes"] == 1,
+        "observe --fleet-stats": rc == 0 and "trainer-0" in [
+            w["id"] for w in fleet["workers"]]}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("elastic_card: %s failed: %r"
+                             % (", ".join(failed), row))
+    return row
+
+
+def dp_kernel_rows(torch, lk):
+    """K1/K2 at the distributed phases' shapes against their plain
+    versions (the rows of phases 3-4)."""
+    return {"fwd": phase_kernel(torch, lk, DP_FWD_CASES, (), "kernel_dp",
+                                {}),
+            "bwd": phase_kernel_bwd(torch, lk, DP_BWD_CASES, (),
+                                    "kernel_dp", {})}
+
+
+def distributed_entries(rows, bwd_cases, cluster, elastic):
+    """The kernels-line entries of K1 and K2 in a cluster_card rank (its
+    32 rows; launches: rank 0's run) and in elastic_card's run (the
+    global batch; launches: the card's run, the steps the rewind undid
+    included)."""
+    out = []
+    for name, shape, launches in (
+            ("cluster_rank", DP_FWD_CASES[0], cluster["launches"]),
+            ("elastic", DP_FWD_CASES[1], elastic["launches"])):
+        for cases, source, k, line, count in (
+                (rows["fwd"], "lstm_seq_fwd", "K1", 146, launches[0]),
+                (rows["bwd"] + bwd_cases, "lstm_seq_bwd", "K2", 347,
+                 launches[1])):
+            picked = [c for c in cases if (c["T"], c["B"], c["H"]) == shape
+                      and c["dtype"] == "float32"]
+            out.append(recurrent_entry(
+                cases, "%s[%s,h256_%s]" % (source, k, name),
+                "paddle_tpu/ops/pallas_kernels.py:%d" % line, count, 256,
+                source, path=picked[0]["launch"]["layout"], shape=shape))
+    return out
+
+
 def kernel_entry(cases, name, replaces, launches, source, select=None,
                  pick=None, path=None):
     """The kernels-line entry for one TPU kernel: the numbers of the
@@ -8950,6 +9451,11 @@ def main():
     phase_layers_card(torch, ck)
     crnn = phase_train_crnn_ctc(torch, ck, lk)
     ssd = phase_ssd300_head(torch, ck, lk)
+    phase_dp_card(torch, lk)
+    with tempfile.TemporaryDirectory() as tmp:
+        cluster = phase_cluster_card(torch, lk, tmp)
+        elastic = phase_elastic_card(torch, lk, tmp)
+    dp_rows = dp_kernel_rows(torch, lk)
 
     emit({"kernels": [
         recurrent_entry(cases, "lstm_seq_fwd[K1,h256]",
@@ -9088,7 +9594,8 @@ def main():
         *demo_entries(demos, demo_kernels),
         *text_layer_entries(v1_text, mixed, demo_kernels),
         *nested_entries(nested),
-        *remaining_layer_entries(crnn, ssd)]})
+        *remaining_layer_entries(crnn, ssd),
+        *distributed_entries(dp_rows, bwd_cases, cluster, elastic)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,11 @@ the step log, metrics, the sentinel, the device attribution); the v2
 data side (``reader``, ``dataset``, ``image``) and ``demo``, which runs a
 script written against the JAX package unchanged on the port. The
 process flags act as in the JAX package, but ``matmul_precision``, which
-is refused at any value but its default. The JAX package's submodules
-load on first use; ``parallel`` and ``interop`` are not ported yet.
+is refused at any value but its default. The distributed side: the
+coordinator, elastic training, multi-process data parallelism over
+torch.distributed (``parallel.DataParallel``) and the cluster launcher
+(``distributed``). The JAX package's submodules load on first use;
+``interop`` is not ported yet.
 """
 
 __version__ = "0.1.0"
@@ -69,7 +72,7 @@ _SUBMODULES = (
     "evaluator", "reader", "minibatch", "dataset", "parallel", "image",
     "topology", "config", "ops", "models", "interop", "serve", "data",
 )
-_NOT_PORTED = ("parallel", "interop")
+_NOT_PORTED = ("interop",)
 
 _initialized = False
 
@@ -102,16 +105,15 @@ def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
     point: True or None the card, False the CPU. The card stays the
     default, and choosing it on a machine without one raises: the port
     never moves to the CPU on its own. ``seed`` is the default seed of
-    parameter initialisation; other keywords become flags, as in the JAX
-    package. Data parallelism (``trainer_count`` other than 1) is not
-    ported yet."""
+    parameter initialisation; ``trainer_count`` the data-parallel width
+    that ``cli`` builds its mesh with (the ``trainer_count`` flag: the
+    ranks of the process group, one device each); other keywords become
+    flags, as in the JAX package."""
     global _initialized
-    enforce(int(trainer_count) == 1,
-            "init(trainer_count=%r): data parallelism is not ported yet",
-            trainer_count)
     device = "cpu" if use_tpu is False else "cuda"
     resolve_device(device)  # raises for the card on a machine without one
     set_default_device(device)
+    _flags.set_flag("trainer_count", int(trainer_count))
     if seed is not None:
         _flags.set_flag("seed", int(seed))
     for key, value in kwargs.items():

@@ -6,7 +6,10 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
     python -m paddle_tpu_torch.cli test  --config conf.py --params p.tar
     python -m paddle_tpu_torch.cli time  --config conf.py --iters 20
     python -m paddle_tpu_torch.cli checkgrad --config conf.py
-    python -m paddle_tpu_torch.cli observe TELEMETRY_DIR [--json]
+    python -m paddle_tpu_torch.cli cluster_train --config conf.py \
+        --num-processes 2 [--num-passes 1] [--device cpu]
+    python -m paddle_tpu_torch.cli observe TELEMETRY_DIR [--json] \
+        [--fleet-stats HOST:PORT]
     python -m paddle_tpu_torch.cli export \
         (--builder paddle_tpu_torch.models.text:text_classification_lstm \
          [--builder-kwargs '{"hidden": 256, "num_layers": 2}'] \
@@ -57,10 +60,20 @@ continuous-batching decode step of a streamable topology, which ``serve
 store process (serve/remote_store.py). SIGTERM stops a server as Ctrl-C
 does: engines drain, workers stop, shared memory is unlinked.
 
-Not ported yet, and refused: ``cluster_train``,
-``merge_model``, ``analyze``, ``observe --regress`` and ``--fleet-stats``,
-``serve --join/--front/--host-id/--lease-ttl/--rehome-retries`` (the
-multi-host cluster front), and ``--trainer-count`` above 1.
+``cluster_train`` launches ``--num-processes`` data-parallel workers on
+this machine (distributed/launcher.py; the CPU under ``--device cpu``,
+else the card: gloo where the ranks share one card, NCCL where each has
+its own) and prints each worker's result. ``--trainer-count N`` (the
+``trainer_count`` flag, as in the JAX package) trains over a
+DataParallel mesh of N devices: one process drives one device here, so N
+must be the ranks of the process group the command runs in
+(distributed/multihost.py), and a count above the visible devices exits
+with the JAX package's message. ``observe --fleet-stats HOST:PORT`` adds
+the coordinator's live leases to the summary.
+
+Not ported yet, and refused: ``merge_model``, ``analyze``, ``observe
+--regress``, and ``serve --join/--front/--host-id/--lease-ttl/
+--rehome-retries`` (the multi-host cluster front).
 """
 
 import argparse
@@ -176,19 +189,35 @@ def _load_config(path, config_args=""):
     return mod
 
 
-def _build(cfg, device=None):
+def _build(cfg, device=None, parallelism=None):
     """(cost, parameters, trainer) of a loaded config on ``device`` (the
-    card unless "cpu")."""
+    card unless "cpu"). ``--trainer-count N`` (the ``trainer_count``
+    flag) makes the trainer data-parallel over N devices
+    (paddle_tpu/cli.py:95-111): N must not exceed the visible devices, and
+    one process drives one device, so the mesh is the process group's."""
     from paddle_tpu_torch import optimizer as opt
     from paddle_tpu_torch.parameters import Parameters
     from paddle_tpu_torch.trainer import SGD
+    from paddle_tpu_torch.utils import flags
 
+    tc = flags.get_flag("trainer_count") or 1
+    if parallelism is None and tc > 1:
+        from paddle_tpu_torch.parallel import mesh
+
+        n_dev = mesh.device_count()
+        if tc > n_dev:
+            raise SystemExit(
+                "--trainer-count %d exceeds the %d visible devices (one "
+                "process drives one device: start %d ranks, e.g. cli "
+                "cluster_train --num-processes %d)" % (tc, n_dev, tc, tc))
+        parallelism = mesh.DataParallel(mesh.build_mesh({"data": tc}))
     cost = cfg.cost()
     params = Parameters.create(cost, device=device)
     optimizer = (cfg.optimizer() if hasattr(cfg, "optimizer")
                  else opt.Momentum(learning_rate=0.01, momentum=0.9))
     extra = list(cfg.evaluators()) if hasattr(cfg, "evaluators") else None
-    trainer = SGD(cost, params, optimizer, extra_layers=extra, device=device)
+    trainer = SGD(cost, params, optimizer, extra_layers=extra, device=device,
+                  parallelism=parallelism)
     return cost, params, trainer
 
 
@@ -292,6 +321,31 @@ def cmd_checkgrad(args):
     return 0
 
 
+def cmd_cluster_train(args):
+    """The cluster launcher job (reference scripts/cluster_train/paddle.py;
+    paddle_tpu/cli.py cmd_cluster_train): ``--num-processes`` workers on
+    this machine, each one rank of the data-parallel group; prints each
+    worker's result line."""
+    from paddle_tpu_torch.distributed.launcher import launch_local_cluster
+    from paddle_tpu_torch.utils import flags
+
+    if (flags.get_flag("trainer_count") or 1) > 1:
+        raise SystemExit(
+            "--trainer-count does not apply to cluster_train: every worker "
+            "spans the whole process group; use --num-processes to set the "
+            "parallel width")
+    use_tpu = None
+    if args.device:
+        use_tpu = not args.device.startswith("cpu")
+    results = launch_local_cluster(
+        args.config, args.num_processes, num_passes=args.num_passes,
+        batch_size=args.batch_size, config_args=args.config_args,
+        devices_per_process=args.devices_per_process, use_tpu=use_tpu)
+    for r in results:
+        print(json.dumps(r))
+    return 0
+
+
 def _not_ported(verb, needs):
     def refuse(args):
         raise NotImplementedError("cli %s is not ported yet: it needs %s"
@@ -306,15 +360,26 @@ def cmd_observe(args):
     counts, steady-state wall-time p50/p95/p99, event totals, feed
     stalls, checkpoints, the training-fleet block (observe/trainview.py)
     and the trace files to open in Perfetto — the JAX package's report,
-    line for line. ``--regress`` and ``--fleet-stats`` are not ported
-    yet."""
+    line for line. ``--fleet-stats HOST:PORT`` adds the coordinator's live
+    membership (``fleet_stats``: each lease's time to expiry) and its
+    serving hosts; ``--regress`` is not ported yet."""
     from paddle_tpu_torch.observe import steplog
 
     enforce(not args.regress, "cli observe --regress is not ported yet: "
             "it needs observe/regress.py")
-    enforce(not args.fleet_stats, "cli observe --fleet-stats is not ported "
-            "yet: it needs the coordinator (distributed/)")
     summary = steplog.summarize_dir(args.directory)
+    if args.fleet_stats:
+        # live membership next to the post-hoc file view; a short retry
+        # window, so the query does not hang behind a dead coordinator
+        from paddle_tpu_torch.distributed.client import CoordinatorClient
+
+        client = CoordinatorClient(args.fleet_stats, worker_id="observe",
+                                   retry_timeout=5.0)
+        try:
+            summary["fleet_stats"] = client.fleet_stats()
+            summary["serve_hosts_live"] = client.serve_hosts()
+        finally:
+            client.close()
     if args.json:
         print(json.dumps(summary, indent=2))
         return 0
@@ -516,6 +581,21 @@ def cmd_observe(args):
                 print("    at=%.3f %-18s worker=%-12s %s"
                       % (e["at"], e["kind"], e.get("worker", "-"),
                          "  ".join(extras)))
+    stats = summary.get("fleet_stats")
+    if stats:
+        ws = stats.get("workers", [])
+        print("  live fleet (%s): %d worker(s)"
+              % (args.fleet_stats, len(ws)))
+        for w in ws:
+            print("    %-12s lease remaining %.1fs"
+                  % (w["id"], w["lease_remaining"]))
+        hosts = summary.get("serve_hosts_live", {}).get("hosts", [])
+        if hosts:
+            print("  serving hosts: %d" % len(hosts))
+            for h in hosts:
+                print("    %-12s lease remaining %.1fs  %s"
+                      % (h["id"], h["lease_remaining"],
+                         h.get("meta", "")))
     if summary["trace_files"]:
         print("  traces (open in https://ui.perfetto.dev): %s"
               % ", ".join(summary["trace_files"]))
@@ -759,8 +839,7 @@ def cmd_serve(args):
     ``--selfcheck`` loads, warms, runs one batch and exits."""
     for flag in _CLUSTER_FLAGS:
         enforce(not getattr(args, flag), "serve --%s is not ported yet: it "
-                "needs the multi-host cluster front (serve/cluster.py) and "
-                "the coordinator's leases (distributed/elastic)",
+                "needs the multi-host cluster front (serve/cluster.py)",
                 flag.replace("_", "-"))
     with _graceful_sigterm():
         return _serve(args)
@@ -923,7 +1002,8 @@ def main(argv=None):
     common.add_argument("--batch-size", type=int, default=64)
     common.add_argument("--trainer-count", type=int, default=None,
                         help="data-parallel width (reference "
-                             "--trainer_count); only 1 is ported")
+                             "--trainer_count): the ranks of this "
+                             "process group")
     common.add_argument("--device", default=None,
                         help="torch device (default: the card)")
 
@@ -974,14 +1054,22 @@ def main(argv=None):
     p.add_argument("--regress-tol", type=float, default=10.0,
                    help="not ported yet")
     p.add_argument("--fleet-stats", default="", metavar="HOST:PORT",
-                   help="not ported yet")
+                   help="also query the coordinator at HOST:PORT for its "
+                        "live membership (per-lease time to expiry)")
     p.set_defaults(fn=cmd_observe)
 
     p = sub.add_parser("checkgrad", parents=[common])
     p.set_defaults(fn=cmd_checkgrad)
 
+    p = sub.add_parser("cluster_train", parents=[common])
+    p.add_argument("--num-processes", type=int, required=True,
+                   help="worker processes (one rank each)")
+    p.add_argument("--num-passes", type=int, default=1)
+    p.add_argument("--devices-per-process", type=int, default=None,
+                   help="devices per worker: 1 (each rank drives one)")
+    p.set_defaults(fn=cmd_cluster_train)
+
     for verb, needs in (
-            ("cluster_train", "distributed/ (the launcher and coordinator)"),
             ("merge_model", "the model proto (proto/)"),
             ("analyze", "analyze/")):
         p = sub.add_parser(verb, help="not ported yet")
@@ -1142,9 +1230,10 @@ def main(argv=None):
     args, extra = parser.parse_known_args(argv)
     if extra and not getattr(args.fn, "refuses", False):
         parser.error("unrecognized arguments: %s" % " ".join(extra))
-    tc = getattr(args, "trainer_count", None)
-    enforce(not tc or tc == 1, "--trainer-count %d: data parallelism is not "
-            "ported yet", tc or 0)
+    if getattr(args, "trainer_count", None):
+        from paddle_tpu_torch.utils import flags
+
+        flags.set_flag("trainer_count", args.trainer_count)
     return args.fn(args)
 
 

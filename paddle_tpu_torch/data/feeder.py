@@ -22,7 +22,13 @@ thread:
   The time the step thread blocks on the queue is the **feed stall**.
 
 On the CPU (``device="cpu"``) the producer converts and nothing is
-copied. Shutdown and cancellation work both ways, as in the JAX package:
+copied. ``convert=`` replaces the conversion (e.g. ``bucketing.pack_feed``;
+the JAX package's signature ``convert(topology, data_batch, feeding,
+max_len)``, called on the host). With a ``parallelism``
+(parallel/mesh.py ``DataParallel``) the producer converts the global batch
+and keeps this rank's share of its rows, which alone is pinned and copied;
+each FeedBatch then carries its ``share`` ``(rows, global rows)``, and a
+fused chunk never mixes shares, so every rank groups the same chunks. Shutdown and cancellation work both ways, as in the JAX package:
 a consumer that stops early (break, exception, garbage collection of the
 generator) cancels the producer, which exits promptly even while it is
 blocked on a full queue; an error of the producer (the reader or the
@@ -43,6 +49,7 @@ copy, the event); the trainer holds it while it captures a CUDA graph,
 so no feeder work runs on the card's API during a capture.
 """
 
+import inspect
 import queue
 import threading
 import time
@@ -52,7 +59,9 @@ import torch
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.observe import metrics as observe_metrics
 from paddle_tpu_torch.observe import spans as observe_spans
-from paddle_tpu_torch.core.sequence import SequenceBatch
+from paddle_tpu_torch.core.sequence import (NestedSequenceBatch,
+                                            PackedSequenceBatch,
+                                            SequenceBatch)
 from paddle_tpu_torch.core.sparse import SparseRows
 from paddle_tpu_torch.reader.decorator import _cancellable_put, _drain
 from paddle_tpu_torch.utils.logger import logger
@@ -84,6 +93,21 @@ def map_feed(feed, fn):
     return out
 
 
+def slot_to(value, device):
+    """One feed slot with every tensor on ``device``: a tensor, a
+    SequenceBatch (packed ones with their segments), a
+    NestedSequenceBatch or SparseRows."""
+    if isinstance(value, PackedSequenceBatch):
+        return PackedSequenceBatch(value.data.to(device),
+                                   value.lengths.to(device),
+                                   value.segments.to(device))
+    if isinstance(value, NestedSequenceBatch):
+        return NestedSequenceBatch(value.data.to(device),
+                                   value.outer_lengths.to(device),
+                                   value.inner_lengths.to(device))
+    return map_feed({"v": value}, lambda t: t.to(device))["v"]
+
+
 def feed_tensors(feed):
     """Every tensor of a feed, in slot order."""
     seen = []
@@ -113,13 +137,15 @@ class FeedBatch:
     (time the consumer blocked waiting for it), and for sequence feeds
     ``bucket`` (padded length), ``fill_tokens``/``pad_tokens``. ``host``
     is the pinned host copy the device tensors were copied from, ``event``
-    the copy stream's event (None on the CPU)."""
+    the copy stream's event (None on the CPU), ``share`` this rank's
+    ``(rows, global rows)`` under data parallelism (else None)."""
 
     __slots__ = ("feed", "examples", "convert_ms", "stall_ms", "bucket",
-                 "fill_tokens", "pad_tokens", "host", "event")
+                 "fill_tokens", "pad_tokens", "host", "event", "share")
 
     def __init__(self, feed, examples, convert_ms, bucket=None,
-                 fill_tokens=None, pad_tokens=None, host=None, event=None):
+                 fill_tokens=None, pad_tokens=None, host=None, event=None,
+                 share=None):
         self.feed = feed
         self.examples = examples
         self.convert_ms = convert_ms
@@ -129,6 +155,7 @@ class FeedBatch:
         self.pad_tokens = pad_tokens
         self.host = host
         self.event = event
+        self.share = share  # (rows, global rows) under data parallelism
 
 
 class ChunkBatch:
@@ -175,9 +202,11 @@ class DeviceFeeder:
     ``DeviceFeeder(reader, topology, device=...).batches()`` yields
     FeedBatch items on ``device`` (the card unless ``device="cpu"``); each
     call to ``batches()`` starts a fresh producer thread (one per training
-    pass)."""
+    pass). ``parallelism`` and ``convert`` are the JAX package's
+    (module docstring)."""
 
-    def __init__(self, reader, topology, feeding=None, depth=2, device=None,
+    def __init__(self, reader, topology, feeding=None, depth=2,
+                 parallelism=None, convert=None, device=None,
                  metrics_registry=None):
         if depth < 1:
             raise ValueError("DeviceFeeder depth must be >= 1")
@@ -185,6 +214,8 @@ class DeviceFeeder:
         self.topology = topology
         self.feeding = feeding
         self.depth = int(depth)
+        self.parallelism = parallelism
+        self._convert = convert
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._copy_stream = None
@@ -207,17 +238,32 @@ class DeviceFeeder:
         self._per_bucket = {}
 
     # -- producer side ------------------------------------------------------
-    def _convert_batch(self, data_batch):
-        """-> (host feed, device feed, copy event)."""
+    def _host_feed(self, data_batch):
+        """The batch converted on the host: ``convert`` or convert_feed."""
         from paddle_tpu_torch.topology import convert_feed
 
         # a BucketBatch (or any minibatch with a ``bucket``) pads its
         # sequences to exactly that length, as the per-step feed does
         max_len = getattr(data_batch, "bucket", None)
-        host = convert_feed(self.topology, data_batch, self.feeding,
-                            max_len=max_len, device="cpu")
+        if self._convert is None:
+            return convert_feed(self.topology, data_batch, self.feeding,
+                                max_len=max_len, device="cpu")
+        params = inspect.signature(self._convert).parameters
+        kw = ({"device": "cpu"} if "device" in params or any(
+            p.kind is p.VAR_KEYWORD for p in params.values()) else {})
+        feed = self._convert(self.topology, data_batch, self.feeding,
+                             max_len, **kw)
+        # a custom convert may place its feed elsewhere
+        return {name: slot_to(v, "cpu") for name, v in feed.items()}
+
+    def _convert_batch(self, data_batch):
+        """-> (host feed, device feed, copy event, share)."""
+        host = self._host_feed(data_batch)
+        share = None
+        if self.parallelism is not None:
+            host, share = self.parallelism.shard_batch(host)
         if not self._cuda:
-            return host, host, None
+            return host, host, None, share
         with self.lock:
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
@@ -227,7 +273,7 @@ class DeviceFeeder:
                     self.device, non_blocking=True))
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
-        return pinned, feed, event
+        return pinned, feed, event, share
 
     def _produce(self, q, cancel, skip=0):
         def put(item):
@@ -244,14 +290,14 @@ class DeviceFeeder:
                     skip -= 1
                     continue
                 t0 = time.perf_counter()
-                host, feed, event = self._convert_batch(data_batch)
+                host, feed, event, share = self._convert_batch(data_batch)
                 convert_ms = (time.perf_counter() - t0) * 1e3
                 bucket, fill, pad = _seq_stats(host)
                 fb = FeedBatch(feed, len(data_batch), convert_ms,
                                bucket=bucket, fill_tokens=fill,
                                pad_tokens=pad,
                                host=host if self._cuda else None,
-                               event=event)
+                               event=event, share=share)
                 if not put(fb):
                     return
                 if cancel.is_set():
@@ -361,7 +407,7 @@ class DeviceFeeder:
             return self._stack_chunk(group, key)
 
         for fb in self.batches(skip=skip):
-            fb_key = feed_shape_key(fb.feed)
+            fb_key = (feed_shape_key(fb.feed), fb.share)
             if group and fb_key != key:
                 yield close(group, was_split=True)
                 group = []
@@ -385,4 +431,4 @@ class DeviceFeeder:
 
 
 __all__ = ["ChunkBatch", "DeviceFeeder", "FeedBatch", "feed_shape_key",
-           "feed_tensors", "map_feed"]
+           "feed_tensors", "map_feed", "slot_to"]

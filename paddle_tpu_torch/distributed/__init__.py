@@ -1,8 +1,11 @@
-"""The distributed runtime of the port (paddle_tpu/distributed): only the
-durable checkpoint (``checkpoint``) is here. The elastic coordinator
-client, data parallelism and multi-host initialization come with a later
-part of the port: reading one raises AttributeError ("not ported yet")
-until then."""
+"""The distributed runtime of the port (paddle_tpu/distributed): the
+coordinator and its client (task dispatch, membership leases, the save
+election; ``client``, with the C++ service under ``coordinator/``),
+elastic training (``elastic``), durable checkpoints (``checkpoint``),
+multi-process initialization over torch.distributed (``multihost``) and
+the local cluster launcher and its worker (``launcher``, ``worker``).
+Gradient exchange is not here: parallel.DataParallel sums gradients with
+torch.distributed collectives."""
 
 from paddle_tpu_torch.distributed import checkpoint
 from paddle_tpu_torch.distributed.checkpoint import (
@@ -10,15 +13,6 @@ from paddle_tpu_torch.distributed.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-
-_NOT_PORTED = ("CoordinatorClient", "spawn_coordinator",
-               "initialize_multihost")
-
-
-def __getattr__(name):
-    # AttributeError, so that hasattr() answers False
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            "paddle_tpu_torch.distributed.%s is not ported yet" % name)
-    raise AttributeError("module 'paddle_tpu_torch.distributed' has no "
-                         "attribute %r" % name)
+from paddle_tpu_torch.distributed.client import (CoordinatorClient,
+                                                 spawn_coordinator)
+from paddle_tpu_torch.distributed.multihost import initialize_multihost

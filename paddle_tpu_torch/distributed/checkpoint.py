@@ -540,6 +540,23 @@ class AsyncCheckpointer:
             self._m_superseded.inc()
         return replaced
 
+    def discard_pending(self):
+        """Drop the not-yet-started pending snapshot, if any; returns True
+        when one was dropped. A reform abort (elastic.WorkerLost or
+        SelfLeaseLost) uses this: each survivor stops at its OWN step
+        boundary, so committing the pending snapshot during the unwind
+        would advance the shared directory's rewind target differently
+        per survivor. A write already in flight is left to finish (it is
+        atomic and verified; close() waits for it)."""
+        with self._cv:
+            dropped = self._pending is not None
+            self._pending = None
+            if dropped:
+                self.superseded += 1
+        if dropped:
+            self._m_superseded.inc()
+        return dropped
+
     def last_committed(self):
         """``(path, step)`` of the newest committed checkpoint, or
         ``(None, None)`` before the first commit."""

@@ -208,14 +208,36 @@ class _BatchNormTrain(torch.autograd.Function):
     (paddle_tpu/ops/conv.py _bn_train_vjp_bwd): the backward saves x,
     gamma, the batch mean and 1/sqrt(var + eps) only, and computes the
     standard two-pass gradient. The moving statistics are outputs without
-    a gradient."""
+    a gradient.
+
+    Inside a data-parallel step (parallel/mesh.py ``batch_reducer``) the
+    moments are those of the whole global batch: the forward sums x and
+    x^2 and the row count over the ranks, and the backward the sums of dy
+    and dy * xhat; the gradients of gamma and beta stay this rank's, which
+    the trainer sums with the others."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, moving_mean, moving_var, axes, momentum,
                 eps):
+        from paddle_tpu_torch.parallel.mesh import batch_reducer
+
         xf = upcast_f32(x)
-        mean = xf.mean(dim=axes)
-        mean_sq = (xf * xf).mean(dim=axes)
+        reduce = batch_reducer()
+        ctx.reduce = reduce
+        if reduce is None:
+            mean = xf.mean(dim=axes)
+            mean_sq = (xf * xf).mean(dim=axes)
+        else:
+            n = 1
+            for a in axes:
+                n *= x.shape[a]
+            sums = reduce(torch.cat([
+                xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                torch.full((1,), float(n), dtype=xf.dtype,
+                           device=xf.device)]))
+            c = (sums.shape[0] - 1) // 2
+            ctx.count = sums[-1]
+            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
         y = upcast_f32(gamma) * (xf - mean) * inv + upcast_f32(beta)
@@ -237,7 +259,14 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = (xf - mean) * inv
         dbeta = dyf.sum(dim=axes)
         dgamma = (dyf * xhat).sum(dim=axes)
-        dx = upcast_f32(gamma) * inv * (dyf - dbeta / n - xhat * (dgamma / n))
+        if ctx.reduce is None:
+            dx = upcast_f32(gamma) * inv * (dyf - dbeta / n
+                                            - xhat * (dgamma / n))
+        else:
+            sums = ctx.reduce(torch.cat([dbeta, dgamma]))
+            c = dbeta.shape[0]
+            dx = upcast_f32(gamma) * inv * (
+                dyf - sums[:c] / ctx.count - xhat * (sums[c:] / ctx.count))
         return (dx.to(x.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(gamma.dtype), None, None, None, None, None)
 

@@ -69,9 +69,23 @@ first step and tensor that held a NaN or an Inf (one chunk late under
 ``show_parameter_stats_period`` log the JAX package's lines.
 
 The trainer runs on ``device`` (the card unless ``device="cpu"``; it
-raises without a card). Not ported yet, and refused: data parallelism
-(``parallelism``), ``MultiNetwork`` costs and the save election
-(``save_checkpoint(coordinator=)``).
+raises without a card).
+
+Data parallelism (``parallelism=DataParallel(...)``, parallel/mesh.py): the
+trainer is built in every rank of a torch.distributed process group
+(distributed/multihost.py), and rank 0's parameters are broadcast to the
+others. Every rank reads the same global batch and trains its contiguous
+share of the rows (``DataParallel.shard_batch``). A step weights the
+rank's mean cost by its share of the global rows and sums the gradients
+with ``all_reduce`` (the flat pool gradient in one call, then each other
+gradient), so every rank applies the single-process update; the reported
+cost is the all-reduced global mean. The additive evaluator statistics
+(those merged by summing) are all-reduced in the step; the others are
+gathered at finalize and merged rank by rank. Train-mode batch norm
+reduces its moments over the global batch (ops/conv.py). Under NCCL the
+collectives are captured in the fused loop's CUDA graphs; gloo cannot be
+captured on CUDA tensors, so ``steps_per_call`` is refused there. The test
+pass is not split: every rank evaluates the whole test reader.
 """
 
 import itertools
@@ -155,14 +169,20 @@ class SGD:
                 "parameters must be a Parameters object")
         enforce(isinstance(update_equation, Optimizer),
                 "update_equation must be an Optimizer")
-        enforce(parallelism is None,
-                "SGD(parallelism=...): data parallelism is not ported yet")
+        from paddle_tpu_torch.parallel.mesh import DataParallel
+
+        enforce(parallelism is None or isinstance(parallelism, DataParallel),
+                "SGD(parallelism=%r): data parallelism takes a "
+                "paddle_tpu_torch.parallel.DataParallel", parallelism)
         extra = ([extra_layers] if isinstance(extra_layers, LayerNode)
                  else list(extra_layers or []))
         enforce(all(isinstance(e, LayerNode) for e in extra),
                 "SGD(extra_layers=...) takes layers (evaluators or extra "
                 "outputs), got %r", extra)
         self.device = resolve_device(device)
+        self.parallelism = parallelism
+        if parallelism is not None:
+            parallelism.check_device(self.device)
         from paddle_tpu_torch.multi_network import MultiNetwork
 
         if isinstance(cost, MultiNetwork):
@@ -195,6 +215,11 @@ class SGD:
         self._pooled = ({e[0] for e in self._pool.entries}
                         if self._pool is not None else set())
         self._materialize_device_state()
+        if parallelism is not None:
+            # every rank starts from rank 0's values
+            parallelism.broadcast_(_tree_tensors(self._carry())
+                                   + list(self._static.values())
+                                   + list(self._state.values()))
         self._opt_state = update_equation.init_state(self._carry(),
                                                      self._param_meta)
         # update hooks prune the initial values too (reference:
@@ -291,17 +316,22 @@ class SGD:
         outs = {o.name: values[o.name] for o in self.extra_outputs}
         return cost, stats, outs, updates
 
-    def _train_step(self, feed):
+    def _train_step(self, feed, share=None):
         """Forward, backward and update of one batch; returns the cost, the
         evaluator stats and, under ``trap_fpe``, the finiteness flags
-        (else None), as device tensors (not read back)."""
+        (else None), as device tensors (not read back). Under data
+        parallelism ``feed`` is this rank's share of the global batch and
+        ``share`` its ``(rows, global rows)``."""
         if self._pool is not None:
             self._pool_grad.zero_()
         for n, p in self._trainable.items():
             if n not in self._pooled:
                 p.grad = None
-        loss, stats, _, updates = self._forward(feed, "train")
-        loss.backward()
+        if self.parallelism is None:
+            loss, stats, _, updates = self._forward(feed, "train")
+            loss.backward()
+        else:
+            loss, stats, updates = self._dp_forward_backward(feed, share)
         self.optimizer.step(self._carry(), self._carry_grads(),
                             self._opt_state, self._param_meta)
         with torch.no_grad():
@@ -309,6 +339,52 @@ class SGD:
                 self._state[name].copy_(value)
             finite = self._finite_flags(loss) if self._trap else None
         return loss.detach(), stats, finite
+
+    def _dp_forward_backward(self, feed, share):
+        """The data-parallel forward and backward: the rank's mean cost
+        weighted by its share of the global rows, the gradients summed
+        over the ranks (the flat pool gradient first, then every other
+        gradient in the trainables' order), and the global cost and the
+        additive evaluator statistics summed the same way. A rank with an
+        empty share ran on one borrowed row, and counts nothing."""
+        from paddle_tpu_torch.evaluator import _acc_add
+
+        dp = self.parallelism
+        rows, total = share
+        weight = rows / total
+        with dp.batch_scope(rows > 0):
+            loss, stats, _, updates = self._forward(feed, "train")
+            (loss * weight).backward()
+        grads = [self._pool_grad] if self._pool is not None else []
+        for n, p in self._trainable.items():
+            if n not in self._pooled:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+        for g in grads:
+            dp.all_reduce_(g)
+        loss = dp.all_reduce_(loss.detach() * weight)
+        for e in self.evaluators:
+            if e.merge is _acc_add:
+                stats[e.name] = {
+                    k: dp.all_reduce_(v.clone() if rows
+                                      else torch.zeros_like(v))
+                    for k, v in stats[e.name].items()}
+        return loss, stats, updates
+
+    def _gathered_stats(self, host, share):
+        """Finalize's host stats with each non-additive evaluator's
+        replaced by every live rank's (:class:`_RankStats`), under data
+        parallelism; as they are otherwise."""
+        from paddle_tpu_torch.evaluator import _acc_add
+
+        names = [e.name for e in self.evaluators if e.merge is not _acc_add]
+        if self.parallelism is None or not names:
+            return host
+        mine = {n: host[n] for n in names} if share[0] else None
+        got = [g for g in self.parallelism.gather(mine) if g is not None]
+        return dict(host, **{n: _RankStats([g[n] for g in got])
+                             for n in names})
 
     def _finite_flags(self, loss):
         """One bool per tensor the step produced, in the order of
@@ -335,7 +411,8 @@ class SGD:
         a loop of the same step function."""
         if self.device.type == "cuda":
             return self._replay(chunk)
-        results = [self._train_step(feed) for feed in chunk.feed]
+        results = [self._train_step(feed, fb.share)
+                   for feed, fb in zip(chunk.feed, chunk.batches)]
         return _stack_results(results)
 
     # -- the fused loop's CUDA graphs ----------------------------------------
@@ -378,8 +455,9 @@ class SGD:
             saved = [t.clone() for t in self._mutable_tensors()]
         rng = self._generator.get_state()
         stream.wait_stream(torch.cuda.current_stream(self.device))
+        share = chunk.batches[0].share
         with torch.cuda.stream(stream):
-            self._train_step(feeds[0])
+            self._train_step(feeds[0], share)
             with torch.no_grad():
                 for t, s in zip(self._mutable_tensors(), saved):
                     t.copy_(s)
@@ -404,7 +482,8 @@ class SGD:
                 lock.acquire()
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode="thread_local"):
-                out = _stack_results([self._train_step(f) for f in feeds])
+                out = _stack_results([self._train_step(f, share)
+                                      for f in feeds])
         except Exception as exc:
             raise RuntimeError(
                 "steps_per_call=%d: capturing the fused chunk as a CUDA "
@@ -490,6 +569,13 @@ class SGD:
         k = int(steps_per_call or 0)
         if k:
             enforce(k >= 1, "steps_per_call must be >= 1, got %d", k)
+            enforce(self.parallelism is None
+                    or self.parallelism.capturable(self.device),
+                    "steps_per_call=%d: the %s process group stages CUDA "
+                    "tensors through the host, which a CUDA graph cannot "
+                    "capture; the fused loop does not run eagerly in its "
+                    "place (NCCL, one card a rank, captures it)", k,
+                    self.parallelism and self.parallelism.backend)
         log_period = flags.get_flag("log_period")
         test_period = flags.get_flag("test_period")
         self._trap = bool(flags.get_flag("trap_fpe"))
@@ -523,6 +609,17 @@ class SGD:
             # any escape from the loop dumps the black box (a sentinel
             # halt already did; on_exception skips it)
             tele.on_exception(exc)
+            if ckpt_ctx is not None and ckpt_ctx["writer"] is not None:
+                from paddle_tpu_torch.distributed.elastic import (
+                    SelfLeaseLost, WorkerLost)
+
+                if isinstance(exc, (WorkerLost, SelfLeaseLost)):
+                    # a reform abort: each worker stops at its OWN step
+                    # boundary, so committing the pending snapshot here
+                    # would move the shared directory's rewind target
+                    # differently per worker (and a self-lapsed worker's
+                    # snapshot is of the abandoned pre-reform branch)
+                    ckpt_ctx["writer"].discard_pending()
             raise
         finally:
             # drain and join the ckpt-writer thread; a writer error
@@ -559,7 +656,10 @@ class SGD:
                                    fpe_names[int(np.argmin(finite))]))
             metrics = {}
             for e in self.evaluators:
-                eval_acc[e.name] = e.merge(eval_acc[e.name], stats[e.name])
+                for s in (stats[e.name] if isinstance(stats[e.name],
+                                                      _RankStats)
+                          else (stats[e.name],)):
+                    eval_acc[e.name] = e.merge(eval_acc[e.name], s)
                 metrics[e.name] = e.result(eval_acc[e.name])
             tele.step(gstep, pass_id, b_id, cost, examples, metrics,
                       feed_ms, wall_ms, chunk_index)
@@ -607,7 +707,7 @@ class SGD:
                     feeder = DeviceFeeder(
                         reader, self.topology, feeding=feeding,
                         depth=self._feed_depth(feed_pipeline),
-                        device=self.device)
+                        parallelism=self.parallelism, device=self.device)
                 batch_iter = ((fb.examples, fb)
                               for fb in feeder.batches(skip=cursor0))
             if cursor0:
@@ -628,19 +728,16 @@ class SGD:
                     # a batch may carry the padded length of its bucket
                     # (``data_batch.bucket``), as in the JAX trainer
                     with observe_spans.span("feed") as feed_scope:
-                        feed = convert_feed(
-                            self.topology, data_batch, feeding,
-                            max_len=getattr(data_batch, "bucket", None),
-                            device=self.device)
+                        feed, share = self._convert(data_batch, feeding)
                     feed_ms, n_examples = feed_scope.dur * 1e3, \
                         len(data_batch)
                 else:
                     # the pipelined feed's "feed" span and feed_ms are the
                     # step thread's stall on the queue
-                    feed, feed_ms, n_examples = fb.feed, fb.stall_ms, \
-                        fb.examples
+                    feed, feed_ms, n_examples, share = fb.feed, \
+                        fb.stall_ms, fb.examples, fb.share
                 with observe_spans.span("train_step"):
-                    loss, stats, finite = self._train_step(feed)
+                    loss, stats, finite = self._train_step(feed, share)
                 self._step_count += 1
                 self._checkpoint_maybe(ckpt, pass_id, batch_id + 1)
                 if fb is not None:
@@ -648,7 +745,7 @@ class SGD:
                 if pending is not None:
                     self._finalize_one(finalize, pending, pass_base, tele)
                 pending = (batch_id, loss, stats, finite, feed, feed_ms,
-                           n_examples)
+                           n_examples, share)
                 batch_id += 1
             if pending is not None:
                 self._finalize_one(finalize, pending, pass_base, tele)
@@ -657,12 +754,25 @@ class SGD:
         if sync_params:
             self._sync_back()
 
-    @staticmethod
-    def _finalize_one(finalize, pending, pass_base, tele):
-        b_id, loss, stats, finite, feed, feed_ms, n_examples = pending
+    def _convert(self, data_batch, feeding):
+        """The synchronous feed of one minibatch on the trainer's device
+        (a batch may carry the padded length of its bucket,
+        ``data_batch.bucket``, as in the JAX trainer), and under data
+        parallelism this rank's share of it: ``(feed, share)``."""
+        max_len = getattr(data_batch, "bucket", None)
+        if self.parallelism is None:
+            return convert_feed(self.topology, data_batch, feeding,
+                                max_len=max_len, device=self.device), None
+        host = convert_feed(self.topology, data_batch, feeding,
+                            max_len=max_len, device="cpu")
+        return self.parallelism.shard_batch(host, device=self.device)
+
+    def _finalize_one(self, finalize, pending, pass_base, tele):
+        b_id, loss, stats, finite, feed, feed_ms, n_examples, share = pending
         with observe_spans.span("eval_readback"):
             cost = float(loss)
-            host = {name: host_stats(s) for name, s in stats.items()}
+            host = self._gathered_stats(
+                {name: host_stats(s) for name, s in stats.items()}, share)
             if finite is not None:
                 finite = finite.cpu().numpy()
         finalize(b_id, pass_base + b_id + 1, cost, host, n_examples, feed,
@@ -711,6 +821,7 @@ class SGD:
 
         feeder = DeviceFeeder(reader, self.topology, feeding=feeding,
                               depth=max(int(feed_depth), k),
+                              parallelism=self.parallelism,
                               device=self.device)
         self._capture_lock = feeder.lock
         for pass_id in range(start_pass, num_passes):
@@ -736,13 +847,14 @@ class SGD:
                 with observe_spans.span("eval_readback"):
                     costs = np.atleast_1d(losses.float().cpu().numpy()
                                           .astype(np.float64))
-                    host = {name: host_stats(s) for name, s in stats.items()}
+                    host = self._gathered_stats(
+                        {name: host_stats(s) for name, s in stats.items()},
+                        chunk.batches[0].share)
                     if finite is not None:
                         finite = np.atleast_2d(finite.cpu().numpy())
                 tele.chunk(base_step, pass_id, b_id, costs, chunk)
                 for i in range(len(costs)):
-                    step_stats = {name: ({key: v[i] for key, v in s.items()}
-                                         if chunk.stacked else s)
+                    step_stats = {name: _step_of(s, i, chunk.stacked)
                                   for name, s in host.items()}
                     fb = chunk.batches[i]
                     finalize(b_id + i, base_step + i + 1, float(costs[i]),
@@ -765,7 +877,8 @@ class SGD:
                     else:
                         # a one-batch chunk runs the per-step program, as
                         # the JAX package's _stack_chunk does
-                        out = self._train_step(chunk.feed)
+                        out = self._train_step(chunk.feed,
+                                               chunk.batches[0].share)
                 base_step = self._step_count
                 self._step_count += chunk.steps
                 # chunk boundary == step boundary: the first one at or past
@@ -1047,14 +1160,16 @@ class SGD:
     def save_checkpoint(self, directory, pass_id=0, keep=3,
                         coordinator=None, resume_at=None):
         """Durable checkpoint of parameters and optimizer state (the JAX
-        package's format). ``resume_at=(pass, cursor)`` embeds the
-        trainer_state block a deterministic ``train(resume=True)``
-        needs."""
+        package's format). With a ``coordinator`` client
+        (distributed/client.py) the trainer takes part in the save
+        election, so exactly one worker writes (reference
+        RequestSaveModel); a loser returns None. ``resume_at=(pass,
+        cursor)`` embeds the trainer_state block a deterministic
+        ``train(resume=True)`` needs."""
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
-        enforce(coordinator is None,
-                "save_checkpoint(coordinator=...): the save election is not "
-                "ported yet")
+        if coordinator is not None and not coordinator.request_save_model():
+            return None
         self._sync_back()
         opt_state = _tree_map(ckpt.to_numpy, self._opt_state)
         if self._pool is not None:
@@ -1109,6 +1224,19 @@ class SGD:
                 _copy_into(self._opt_state, state)
         self._step_count = int(meta.get("step", 0))
         return meta
+
+
+class _RankStats(list):
+    """One evaluator's host stats of a step from every live rank, in rank
+    order (a non-additive evaluator under data parallelism), merged one
+    after the other."""
+
+
+def _step_of(stats, i, stacked):
+    """Step ``i``'s stats of a fused chunk's stacked host stats."""
+    if isinstance(stats, _RankStats):
+        return _RankStats(_step_of(s, i, stacked) for s in stats)
+    return {key: v[i] for key, v in stats.items()} if stacked else stats
 
 
 def _stack_results(results):

@@ -91,6 +91,10 @@ def reset_flag(name):
 
 # Core process flags (parity set: paddle/utils/Flags.cpp:18-74).
 define_flag("seed", 0, "global RNG seed for parameter initialisation")
+define_flag("trainer_count", 1, "data-parallel width (cf. --trainer_count)")
+define_flag("trainer_id", 0,
+            "distinct id per trainer process (cf. --trainer_id)")
+define_flag("num_shards_per_task", 8, "dataset chunks per coordinator task")
 define_flag("default_dtype", "float32", "parameter/activation dtype")
 define_flag("compute_dtype", "",
             "mixed-precision forward dtype (bfloat16 = bf16 activations "

@@ -129,10 +129,22 @@ def test_init_without_a_card_raises_and_keeps_the_default(monkeypatch,
 
 
 def test_init_refuses_what_is_not_ported():
-    with pytest.raises(EnforceError, match="not ported yet"):
+    """The name is kept from when init refused ``trainer_count``: it now
+    sets the flag as the JAX package's init does (``cli`` builds its
+    data-parallel mesh from it), and what is still not ported, the
+    ``matmul_precision`` flag, is refused."""
+    try:
         paddle.init(use_tpu=False, trainer_count=2)
+        jpaddle.init(use_tpu=False, trainer_count=2)
+        assert flags.get_flag("trainer_count") == \
+            jflags.get_flag("trainer_count") == 2
+    finally:
+        flags.set_flag("trainer_count", 1)
+    with pytest.raises(EnforceError, match="not ported yet"):
+        paddle.init(use_tpu=False, matmul_precision="default")
     paddle.init(use_tpu=False, log_level="WARNING", my_flag=3)
     assert flags.get_flag("my_flag") == 3
+    assert flags.get_flag("trainer_count") == 1
 
 
 def test_top_level_infer_matches_jax():
@@ -643,7 +655,7 @@ def test_every_jax_submodule_resolves_or_raises_on_a_fresh_import():
     assert proc.returncode == 0, proc.stderr[-2000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     missing = sorted(n for n, (kind, _, _) in got.items() if kind == "error")
-    assert missing == ["interop", "parallel"]
+    assert missing == ["interop"]
     for name, (kind, text, has) in got.items():
         if kind == "module":
             assert text == "paddle_tpu_torch." + name and has, name
@@ -654,7 +666,7 @@ def test_every_jax_submodule_resolves_or_raises_on_a_fresh_import():
     assert paddle.dataset.mnist.IMAGE_DIM == 784
     assert {"reader", "dataset", "image", "infer", "batch"} <= set(
         dir(paddle))
-    assert "parallel" not in dir(paddle)
+    assert "parallel" in dir(paddle) and "interop" not in dir(paddle)
     with pytest.raises(AttributeError, match="no attribute 'nonesuch'"):
         paddle.nonesuch
 

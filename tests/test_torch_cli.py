@@ -581,13 +581,10 @@ def test_cli_test_and_time(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["train", "--trainer-count", "2"], "data parallelism is not ported"),
-    (["cluster_train", "--num-processes", "2"], "not ported yet"),
     (["merge_model", "--params", "p.tar", "-o", "m.tar"], "not ported yet"),
     (["analyze", "--all"], "not ported yet"),
     (["serve", "b", "--join", "h:1"], "not ported yet"),
-    (["observe", ".", "--regress", "BASELINE.json"], "not ported yet"),
-    (["observe", ".", "--fleet-stats", "h:1"], "not ported yet")])
+    (["observe", ".", "--regress", "BASELINE.json"], "not ported yet")])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):
     conf, _ = _write_config(tmp_path, "cfg_refuse")
     if argv[0] == "train":

@@ -187,8 +187,10 @@ def test_binding_sets_aside_and_restores_the_jax_package():
         sys.path.insert(0, "/nonexistent")
         with pytest.raises(ModuleNotFoundError, match="not ported yet"):
             import paddle_tpu.plot  # noqa: F401
+        # interop is still to port; parallel (ported) is the port's
         with pytest.raises(AttributeError, match="not ported yet"):
-            paddle_tpu.parallel
+            paddle_tpu.interop
+        assert paddle_tpu.parallel.__name__ == "paddle_tpu_torch.parallel"
     assert sys.modules["paddle_tpu"] is jax_pkg
     assert sys.modules["paddle_tpu.layer"] is jax_layer
     assert sys.path == path_before and sys.meta_path == meta_before

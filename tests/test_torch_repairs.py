@@ -8,8 +8,9 @@ packages on the CPU:
    updates.
 3. The shared packages re-export what the JAX package's do (``core``'s
    places and ``DDim``, ``utils``' timers, ``evaluator.EvalNode``,
-   ``core.place.device_put``), and ``distributed``'s names still to port
-   answer ``hasattr`` with False.
+   ``core.place.device_put``), ``distributed`` exports all of the JAX
+   package's names, and ``parallel``'s names still to port answer
+   ``hasattr`` with False.
 4. ``Bundle.params(device=None)`` is a method, ``run``, ``infer``,
    ``warmup``, ``decode_step`` and ``warmup_decoder`` take ``device=``,
    and ``WorkerSet.submit_to`` takes ``timeout=``.
@@ -160,7 +161,8 @@ def test_apply_all_returns_every_layer_and_state_updates(mode):
 
 # public names of a shared package's __init__ (paddle_tpu.<pkg> and
 # paddle_tpu_torch.<pkg>) that the JAX package has and the port does not
-# yet; ROADMAP.md queues each (queue 1: analyze, distributed)
+# yet; ROADMAP.md queues each (queue 1: analyze; tensor, sequence and
+# pipeline parallelism)
 NOT_YET = {
     "analyze": {
         "CHECKERS", "Finding", "RetraceBudgetExceeded", "check_topology",
@@ -169,9 +171,12 @@ NOT_YET = {
         "max_retraces", "predict_jit_entries", "scan_layer_modules",
         "verify_reject_packed_coverage"},
     "control": set(), "core": set(), "data": set(), "dataset": set(),
-    "distributed": {"CoordinatorClient", "initialize_multihost",
-                    "spawn_coordinator"},
+    "distributed": set(),
     "layer": set(), "models": set(), "observe": set(), "ops": set(),
+    "parallel": {"SequenceParallel", "TensorParallel", "full_attention",
+                 "megatron_dense_pair", "pipe_sharding", "pipeline_apply",
+                 "ring_attention", "stack_stage_params",
+                 "ulysses_attention"},
     "reader": set(), "serve": set(), "utils": set(),
 }
 
@@ -241,10 +246,23 @@ def test_utils_timers_evaluator_marker_and_device_put():
 @pytest.mark.parametrize("name", ["CoordinatorClient", "spawn_coordinator",
                                   "initialize_multihost"])
 def test_unported_distributed_names_answer_hasattr_false(name):
-    assert hasattr(jpaddle.distributed, name)
-    assert not hasattr(paddle.distributed, name)
-    with pytest.raises(AttributeError, match="not ported yet"):
-        getattr(paddle.distributed, name)
+    """The name is kept from when these three were still to port: each is
+    now the port's own, beside the JAX package's."""
+    jmod = importlib.import_module("paddle_tpu.distributed")
+    pmod = importlib.import_module("paddle_tpu_torch.distributed")
+    assert hasattr(jmod, name) and hasattr(pmod, name)
+    got, want = getattr(pmod, name), getattr(jmod, name)
+    assert got.__module__.startswith("paddle_tpu_torch.distributed.")
+    assert got.__name__ == want.__name__
+    assert inspect.signature(got).parameters.keys() == \
+        inspect.signature(want).parameters.keys()
+
+
+@pytest.mark.parametrize("name", sorted(NOT_YET["parallel"]))
+def test_unported_parallel_names_answer_hasattr_false(name):
+    assert hasattr(importlib.import_module("paddle_tpu.parallel"), name)
+    assert not hasattr(importlib.import_module("paddle_tpu_torch.parallel"),
+                       name)
 
 
 # -- 4. the bundle and worker API --------------------------------------------
