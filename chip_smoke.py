@@ -450,7 +450,8 @@ result line:
            96 requests of 32 rows at once until one is shed; /metrics
            counts exactly the requests and rows served and every 429,
            /debug/traces and the serve_trace records' phases sum to their
-           latency within 5 %, /debug/slo and /debug/control answer, every
+           latency within 5 %, /debug/slo and /debug/control answer,
+           /debug/compiles is 404 (no watcher without --join), every
            answer is within 1e-5 of Bundle.infer.
     serve_fleet  (after serve_observe) serve_aot's bundles behind the
            router and the fleets. In this process: the flagship fp (high)
@@ -475,11 +476,21 @@ result line:
            0 after chunk 2, every chunk equal to one scheduler on the card
            bit for bit; once the respawned worker is ready, 2 fresh
            sessions homed on it, bit for bit, its K5 growing by its decode
-           windows); ``python -m
-           paddle_tpu_torch.serve.remote_store`` and two ``cli serve
-           TAGGER --continuous --session-store-addr`` hosts (8 sessions:
-           chunks 1-2 on A, spilled, A killed -9, chunks 3-4 on B, bit for
-           bit).
+           windows); the serving cluster: the coordinator, ``python -m
+           paddle_tpu_torch.serve.remote_store``, two ``cli serve TAGGER
+           --continuous --session-store-addr S --join C --host-id hA|hB
+           --lease-ttl 2`` hosts and ``cli serve --front --join C`` (16
+           sessions of 2 chunks through the front and 16 straight to a
+           host: p50 / p99 a chunk each; 8 sessions of 4 chunks through
+           the front, kill -9 of the host home to most of them after chunk
+           2: every chunk equal to one scheduler on the card bit for bit,
+           the front's session_rehomes equal to the sessions homed there,
+           the host out of paddle_tpu_serve_hosts within the lease TTL and
+           one poll, the seconds to the first re-homed answer, the
+           survivor's /debug/compiles unmoved and its K5 growing by its
+           decode windows; the survivor stopped, the front answers 429
+           no_host; SIGTERM of the front and the survivor leaves no child
+           and no shared-memory segment).
     layers_card  (after checkgrad) the remaining layers, one small
            topology a group (misc: tensor, prelu, gated_unit, out_prod,
            selective_fc, multiplex; extra: data_norm, featmap_expand, nce,
@@ -550,6 +561,26 @@ result line:
            the CPU; then the save election (of two clients exactly one
            writes) and ``cli observe --fleet-stats`` (the live lease
            listed).
+    parallel_card  eight gloo ranks share the card, spawned as scripts,
+           one world for every check: the flagship as the JAX package's
+           ``__graft_entry__._flagship`` builds it (models/text.py
+           ``flagship``) with its table vocab-sharded over {"data": 4,
+           "model": 2} at the bench width (30000 x 128, 2 x LSTM 256,
+           global batch 64 at length 100, 16 rows a rank), f32, 2
+           Momentum steps under
+           DataParallel: the ranks bit for bit, costs and parameters
+           within 1e-5 of one process on the card, each rank's table and
+           slot 15000 x 128, 4 K1 + 4 K2 a rank, ms a step a rank, the
+           collectives' host ms and the copies' device ms (torch.profiler
+           over one step); one step of the Wide&Deep CTR at 1M sparse
+           dims (batch 512) with its field tables sharded the same way,
+           within 1e-4 of one process; ParallelTransformer at {"data": 2,
+           "model": 2, "pipe": 2} and its default widths, ring and
+           Ulysses: the forward within 2e-4 of apply_reference, one SGD
+           step; ring_attention and ulysses_attention alone at {"seq": 8}
+           (B 2, L 4096, 8 heads of 64, f32, causal): the output block and
+           the whole gradients within 1e-4 of full_attention on rank 0,
+           ms and each rank's peak bytes against full attention's.
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -561,9 +592,11 @@ result line:
            mixed_conv phases', K1/K2 at nested_text's; K1, K5, K7 and K9
            also as the ops inside serve_aot's loaded programs, with the
            fresh processes' launches; K7/K8 at train_crnn_ctc's and
-           ssd300_head's family convs, K1/K2 at CRNN's BiLSTM, and K1/K2
-           in a cluster_card rank (its 32 rows) and in elastic_card's run,
-           each timed at that shape against its plain version), then the
+           ssd300_head's family convs, K1/K2 at CRNN's BiLSTM, K1/K2
+           in a cluster_card rank (its 32 rows), in elastic_card's run and
+           in a parallel_card rank of the sharded flagship (its 16 rows),
+           K5 in the serving cluster's surviving host, each timed at that
+           shape against its plain version), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
 
@@ -4631,7 +4664,9 @@ def phase_serve_observe(torch, bundle_dir, tmp):
             metrics_text = fh.read().decode()
         slo_code, slo, _ = http_json(url + "/debug/slo")
         control_code, control, _ = http_json(url + "/debug/control")
-        compiles = http_json(url + "/debug/compiles")[1]
+        # no compile watcher without --join (the serve_fleet front drill
+        # reads the joined hosts' counters), as in the JAX server
+        compiles_code = http_json(url + "/debug/compiles")[0]
     finally:
         proc.send_signal(signal.SIGINT)
         try:
@@ -4668,7 +4703,7 @@ def phase_serve_observe(torch, bundle_dir, tmp):
                        "enabled": control.get("enabled"),
                        "knobs": sorted(control.get("knobs", {})),
                        "moves": control.get("moves")},
-           "compiles": compiles.get("compiles")}
+           "compiles_code": compiles_code}
     for key, lats in latencies.items():
         row["latency_ms_p50_" + key] = float(np.percentile(lats, 50))
         row["latency_ms_p99_" + key] = float(np.percentile(lats, 99))
@@ -4693,6 +4728,9 @@ def phase_serve_observe(torch, bundle_dir, tmp):
     if slo_code != 200 or control_code != 200 or not control["knobs"]:
         faults.append("/debug/slo %d, /debug/control %d" % (slo_code,
                                                             control_code))
+    if compiles_code != 404:
+        faults.append("/debug/compiles without a watcher answered %d"
+                      % compiles_code)
     if proc.returncode not in (0, -signal.SIGINT):
         faults.append("cli serve exited %d" % proc.returncode)
     if faults:
@@ -4710,7 +4748,11 @@ FLEET_BURST_HIGH, FLEET_BURST_LOW, FLEET_LOW_CEILING = 240, 30, 256
 FLEET_HTTP_REQUESTS = 100        # cli serve --model ... --workers 2
 FLEET_SESSIONS, FLEET_CHUNKS = 16, 4   # --continuous --workers 2
 FLEET_LATE_SESSIONS = 2                # homed on the respawned worker
-FLEET_STORE_SESSIONS = 8               # --session-store-addr, hosts A and B
+FLEET_FRONT_SESSIONS = 8               # cli serve --front, hosts hA and hB
+FLEET_TIMED_SESSIONS = 16              # 2 chunks through the front, 2 direct
+FRONT_LEASE_TTL = 2.0                  # the hosts' --lease-ttl
+FRONT_POLL_S = 1.0                     # ClusterFront's poll_interval
+FRONT_SAMPLE_S = 0.05                  # the drill's reading of the gauge
 FLEET_READY_S = 300
 FLEET_TERM_S = 30
 
@@ -5282,37 +5324,164 @@ def serve_fleet_rehome(server, sessions, late, want):
     return row
 
 
-def serve_fleet_store(store, hosts, sessions, want):
-    """Step 4: the remote store process and two ``cli serve TAGGER
-    --continuous --session-store-addr`` hosts: chunks 1-2 on A, spilled,
-    A killed -9, chunks 3-4 on B, bit for bit."""
-    a, b = (h.serving().ready() for h in hosts)
-    got = {sid: [] for sid in sessions}
-    for k in range(2):
-        for sid, chunks in sessions.items():
-            got[sid].append(post_chunk(a.url, sid, chunks[k]))
-    for sid in sessions:
-        post_json(a.url + "/admin/session/spill", {"session_id": sid})
-    a.stop(signal.SIGKILL)
+def front_metric(url, family, host):
+    """The value of ``family{host="<host>"}`` in the front's /metrics, or
+    None."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as fh:
+        text = fh.read().decode()
+    for line in text.splitlines():
+        if line.startswith('%s{host="%s"} ' % (family, host)):
+            return float(line.split()[-1])
+    return None
+
+
+def host_counters(url):
+    """A joined host's (decode windows, K5 launches) from its /stats."""
+    stats = http_json(url + "/stats")[1]
+    return stats["iterations"], stats["kernel_launches"]["gru_seq_fwd"]
+
+
+def timed_chunk(url, sid, chunk, into):
     t0 = time.perf_counter()
+    got = post_chunk(url, sid, chunk)
+    into.append((time.perf_counter() - t0) * 1e3)
+    return got
+
+
+def serve_fleet_front(front, hosts, sessions, timed, want):
+    """Step 4: the serving cluster (``cli serve --front`` over two ``cli
+    serve TAGGER --continuous --session-store-addr S --join C`` hosts and
+    the remote store). ``timed`` sessions' 2 chunks through the front and
+    as many straight to a host (the front's cost a chunk: its commit
+    round trip); ``sessions``' chunks 1-2 through the front, kill -9 of
+    the host that is home to most of them, chunks 3-4: every chunk equal
+    to one scheduler on the card bit for bit, each session homed there
+    re-homed once, the dead host out of ``paddle_tpu_serve_hosts`` within
+    the lease TTL and one poll, the survivor's /debug/compiles still, its
+    K5 launches growing by its decode windows; then the survivor stopped
+    and the front answering 429 no_host; SIGTERM of the front and of the
+    survivor leaves no child and no shared-memory segment."""
+    from paddle_tpu_torch.serve import ConsistentHashRing
+
+    urls = {}
+    for host_id, host in hosts.items():
+        urls[host_id] = host.serving().ready().url
+    front.serving()
+    deadline = time.monotonic() + FLEET_READY_S
+    while not (len(http_json(front.url + "/hosts")[1]) == len(hosts)
+               and http_json(front.url + "/readyz")[0] == 200):
+        if time.monotonic() > deadline:
+            raise AssertionError("serve_fleet front: hosts never joined: "
+                                 "%s" % front.output()[-3000:])
+        time.sleep(0.2)
+    ring = ConsistentHashRing(sorted(hosts))
+    homes = {sid: ring.lookup(sid) for sid in sessions}
+    victim = max(sorted(hosts), key=lambda h: sum(
+        1 for v in homes.values() if v == h))
+    survivor = [h for h in sorted(hosts) if h != victim][0]
+    got = {sid: [] for sid in list(sessions) + list(timed)
+           + ["d" + sid for sid in timed]}
+    lat = {"front": [], "direct": [], "after_kill": []}
+    for k in range(2):
+        for sid, chunks in timed.items():
+            got[sid].append(timed_chunk(front.url, sid, chunks[k],
+                                        lat["front"]))
+            got["d" + sid].append(timed_chunk(urls[survivor], "d" + sid,
+                                              chunks[k], lat["direct"]))
+        for sid, chunks in sessions.items():
+            got[sid].append(post_chunk(front.url, sid, chunks[k]))
+    compiles = {h: http_json(u + "/debug/compiles")[1]["compiles"]
+                for h, u in urls.items()}
+    before = host_counters(urls[survivor])
+    readings = []  # (seconds after the kill, the victim's gauge)
+
+    def watch_gauge():
+        # a transport failure excludes the dead host at once; the next
+        # membership poll admits it again while its lease lives (the JAX
+        # front's behaviour), and the lapse takes it out for good
+        end = time.perf_counter() + FRONT_LEASE_TTL + FRONT_POLL_S + 2.0
+        while time.perf_counter() < end:
+            readings.append((time.perf_counter() - t_kill, front_metric(
+                front.url, "paddle_tpu_serve_hosts", victim)))
+            time.sleep(FRONT_SAMPLE_S)
+
+    watcher = threading.Thread(target=watch_gauge, daemon=True)
+    t_kill = time.perf_counter()
+    hosts[victim].proc.send_signal(signal.SIGKILL)
+    watcher.start()
+    first_rehomed = None
     for k in range(2, FLEET_CHUNKS):
         for sid, chunks in sessions.items():
-            got[sid].append(post_chunk(b.url, sid, chunks[k]))
-    resume_s = time.perf_counter() - t0
-    restores = http_json(b.url + "/stats")[1].get("restores")
-    mismatched = [sid for sid in sessions
+            got[sid].append(timed_chunk(front.url, sid, chunks[k],
+                                        lat["after_kill"]))
+            if first_rehomed is None and homes[sid] == victim:
+                first_rehomed = time.perf_counter() - t_kill
+    watcher.join(timeout=FRONT_LEASE_TTL + FRONT_POLL_S + 30)
+    zeros = [t for t, v in readings if v == 0]
+    last_live = max([t for t, v in readings if v != 0], default=-1.0)
+    left_s = min([t for t in zeros if t > last_live], default=None)
+    after = host_counters(urls[survivor])
+    compiles_after = http_json(urls[survivor] + "/debug/compiles")[1][
+        "compiles"]
+    stats = http_json(front.url + "/stats")[1]
+    gauge = front_metric(front.url, "paddle_tpu_serve_hosts", victim)
+    want_all = dict(want)
+    want_all.update({"d" + sid: want[sid] for sid in timed})
+    mismatched = [sid for sid in got
                   if not all(np.array_equal(g, w) for g, w
-                             in zip(got[sid], want[sid]))]
-    row = {"phase": "serve_fleet", "step": "remote_store",
-           "sessions": len(sessions), "host_a_exit": a.proc.returncode,
-           "host_b_restores": restores, "chunks_3_4_on_b_s": resume_s,
-           "mismatched_sessions": mismatched,
-           "host_b_sigterm_exit": b.stop()}
-    store.stop()
+                             in zip(got[sid], want_all[sid]))]
+    homed = sum(1 for h in homes.values() if h == victim)
+    row = {"phase": "serve_fleet", "step": "front",
+           "sessions": len(sessions), "chunks": FLEET_CHUNKS,
+           "hosts": sorted(hosts), "lease_ttl_s": FRONT_LEASE_TTL,
+           "killed_host": victim, "sessions_homed_there": homed,
+           "front_stats": {k: stats[k] for k in (
+               "requests", "session_rehomes", "hosts_excluded",
+               "hosts_live")},
+           "killed_host_gauge": gauge,
+           "killed_host_first_excluded_after_s": zeros[0] if zeros
+           else None,
+           "killed_host_left_after_s": left_s,
+           "first_rehomed_answer_after_kill_s": first_rehomed,
+           "survivor_compiles": [compiles[survivor], compiles_after],
+           "survivor_windows_grown": after[0] - before[0],
+           "survivor_k5_grown": after[1] - before[1],
+           "mismatched_sessions": mismatched}
+    for key, values in lat.items():
+        row["chunk_ms_p50_" + key] = float(np.percentile(values, 50))
+        row["chunk_ms_p99_" + key] = float(np.percentile(values, 99))
+        row["chunks_timed_" + key] = len(values)
+    row["survivor_stop"] = stop_and_check(hosts[survivor],
+                                          "cli serve --join (survivor)")
+    code, body, _ = http_json(front.url + "/infer", {
+        "inputs": {"word": sessions[sorted(sessions)[0]][0].tolist()}})
+    row["no_host_answer"] = {"code": code, "reason": body.get("reason")}
+    row["front_stop"] = stop_and_check(front, "cli serve --front")
     emit(row)
-    if mismatched or restores != len(sessions) or row[
-            "host_b_sigterm_exit"] != 0:
-        raise AssertionError("serve_fleet remote_store: %r" % row)
+    faults = []
+    if mismatched:
+        faults.append("sessions off the uninterrupted run: %r" % mismatched)
+    if not homed or stats["session_rehomes"] != homed:
+        faults.append("%d sessions homed on %s, %r re-homed"
+                      % (homed, victim, stats["session_rehomes"]))
+    if gauge != 0 or left_s is None or \
+            left_s > FRONT_LEASE_TTL + FRONT_POLL_S + FRONT_SAMPLE_S:
+        faults.append("%s left the ring after %r s (gauge %r)"
+                      % (victim, left_s, gauge))
+    if compiles_after != compiles[survivor]:
+        faults.append("the survivor's compiles moved %d -> %d"
+                      % (compiles[survivor], compiles_after))
+    if row["survivor_windows_grown"] <= 0 or \
+            row["survivor_k5_grown"] != row["survivor_windows_grown"]:
+        faults.append("the survivor ran %d decode windows and %d K5"
+                      % (row["survivor_windows_grown"],
+                         row["survivor_k5_grown"]))
+    if code != 429 or body.get("reason") != "no_host":
+        faults.append("with no host the front answered %d %r"
+                      % (code, body))
+    if faults:
+        raise AssertionError("serve_fleet front: %s; %r"
+                             % ("; ".join(faults), row))
     return row
 
 
@@ -5357,28 +5526,46 @@ def phase_serve_fleet(torch, aot, tmp):
         "--respawn-workers", "--device", DEVICE, "--port", "0"])
     store = FleetProcess(tmp, "store", ["paddle_tpu_torch.serve.remote_store"])
     procs = [workers, rehome, store]
+    from paddle_tpu_torch.distributed.client import (
+        spawn_coordinator_on_free_port)
+
+    coord_port, coord = spawn_coordinator_on_free_port()
+    endpoint = "127.0.0.1:%d" % coord_port
     try:
         address = store.wait_for("listening").split()[-1]
-        hosts = [FleetProcess(tmp, "store_host_%s" % h, cli + [
+        hosts = {h: FleetProcess(tmp, "front_host_%s" % h, cli + [
             dirs["tagger"], "--continuous", "--session-store-addr",
-            address, "--device", DEVICE, "--port", "0"]) for h in "ab"]
-        procs += hosts
+            address, "--join", endpoint, "--host-id", h, "--lease-ttl",
+            str(FRONT_LEASE_TTL), "--device", DEVICE, "--port", "0"])
+            for h in ("hA", "hB")}
+        front = FleetProcess(tmp, "front", cli + [
+            "--front", "--join", endpoint, "--port", "0"])
+        procs += list(hosts.values()) + [front]
         sessions = session_chunks(rng, FLEET_SESSIONS)
-        store_sessions = session_chunks(rng, FLEET_STORE_SESSIONS)
+        front_sessions = {"r" + k: v for k, v in session_chunks(
+            rng, FLEET_FRONT_SESSIONS).items()}
+        timed = {"t" + k: v for k, v in session_chunks(
+            rng, FLEET_TIMED_SESSIONS).items()}
         late = homed_sessions(rng, FLEET_LATE_SESSIONS, 0)
         want_sessions = uninterrupted(card["tagger"], dict(
-            sessions, **late,
-            **{"r" + k: v for k, v in store_sessions.items()}))
+            sessions, **late, **front_sessions, **timed))
         serve_fleet_workers_http(dirs, cpu, workers, rng)
         serve_fleet_rehome(rehome, sessions, late, want_sessions)
-        serve_fleet_store(store, hosts, {"r" + k: v for k, v in
-                                         store_sessions.items()},
-                          want_sessions)
+        front_row = serve_fleet_front(front, hosts, front_sessions, timed,
+                                      want_sessions)
+        store.stop()
     finally:
         for proc in procs:
             proc.stop(signal.SIGKILL)
+        coord.terminate()
+        coord.wait(timeout=10)
     row = {"phase": "serve_fleet", "step": "summary",
-           "seconds": time.perf_counter() - t_phase}
+           "seconds": time.perf_counter() - t_phase,
+           "front": {k: front_row[k] for k in (
+               "chunk_ms_p50_front", "chunk_ms_p99_front",
+               "chunk_ms_p50_direct", "chunk_ms_p99_direct",
+               "first_rehomed_answer_after_kill_s",
+               "killed_host_left_after_s", "survivor_k5_grown")}}
     for key in ("one", "two"):
         row["replicas_%s" % key] = {
             m: {k: rows[key][m][k] for k in ("p50_ms", "p99_ms", "qps")}
@@ -8726,10 +8913,13 @@ CLUSTER_ROWS = TRAIN_BATCH // CLUSTER_RANKS
 CLUSTER_TIMEOUT = 300
 ELASTIC_TTL = 1.2
 ELASTIC_SHARDS = ["s0", "s1", "s2", "s3"]
-# K1/K2 at the shapes of a cluster rank and of the elastic run's steps (the
-# backward's (100, 64, 256) is phase 4's)
-DP_FWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256), (TRAIN_SEQ, TRAIN_BATCH, 256)]
-DP_BWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256)]
+# K1/K2 at the shapes of a cluster rank, of the elastic run's steps and of
+# a parallel_card rank (16 rows; the backward's (100, 64, 256) is phase
+# 4's)
+DP_FWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256), (TRAIN_SEQ, TRAIN_BATCH, 256),
+                (TRAIN_SEQ, TRAIN_BATCH // 4, 256)]
+DP_BWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256),
+                (TRAIN_SEQ, TRAIN_BATCH // 4, 256)]
 
 # one rank of cluster_card: the flagship's global batches through a
 # DataParallel trainer over gloo (two ranks share the card); argv: the
@@ -9156,6 +9346,449 @@ def phase_elastic_card(torch, lk, tmp):
     return row
 
 
+# -- phase parallel_card: tensor, sequence, pipeline and sharded-embedding
+# parallelism in one world of 8 gloo ranks on the card -----------------------
+
+PARALLEL_RANKS = 8
+PARALLEL_MESH = {"data": 4, "model": 2}     # the sharded flagship and CTR
+TRANSFORMER_MESH = {"data": 2, "model": 2, "pipe": 2}
+ATTENTION_MESH = {"seq": 8}
+PARALLEL_STEPS = 2
+PARALLEL_TIMED = 5               # the sharded flagship's timed steps
+PARALLEL_ROWS = TRAIN_BATCH // PARALLEL_MESH["data"]   # 16 rows a rank
+PAR_FLAGSHIP = {"dict_size": 30000, "emb": 128, "hidden": 256, "classes": 2}
+PAR_TOKENS = (8, 16)             # ParallelTransformer's batch and length
+PAR_ATTENTION = (2, 4096, 8, 64)  # B, L, heads, head dim
+TOL_PARALLEL = 1e-5              # the sharded flagship against one process
+TOL_PARALLEL_ATTN = 1e-4         # ring / Ulysses against full attention
+TOL_PARALLEL_CTR = 1e-4          # the sharded CTR against one process
+TOL_TRANSFORMER = 2e-4           # ParallelTransformer against its reference
+PARALLEL_TIMEOUT = 600
+
+# one rank of parallel_card; argv: the repository, the rank, the store's
+# port, the output directory
+PARALLEL_RANK_SRC = r"""
+import json
+import os
+import sys
+
+repo, rank, port, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+sys.path.insert(0, repo)
+import torch
+import torch.distributed as dist
+
+import chip_smoke as cs
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.distributed.multihost import initialize_multihost
+from paddle_tpu_torch.ops import lstm_kernels as lk
+from paddle_tpu_torch.parallel import build_mesh
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+paddle.init(use_tpu=True)
+assert initialize_multihost("127.0.0.1:" + port, cs.PARALLEL_RANKS, rank)
+mesh = build_mesh(cs.PARALLEL_MESH)
+res = {"rank": rank, "backend": dist.get_backend(),
+       "flagship": cs.parallel_flagship_rank(torch, lk, mesh, out, rank),
+       "ctr": cs.parallel_ctr_rank(torch, mesh, out, rank),
+       "transformer": cs.parallel_transformer_rank(
+           torch, build_mesh(cs.TRANSFORMER_MESH)),
+       "attention": cs.parallel_attention_rank(
+           torch, build_mesh(cs.ATTENTION_MESH), rank)}
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def sharded_flagship(sharded_emb_mesh=None, **config):
+    """The flagship as the JAX package's ``__graft_entry__._flagship``
+    builds it (the port's copy, models/text.py ``flagship``): (out,
+    label, cost)."""
+    from paddle_tpu_torch.models.text import flagship
+
+    _, label, out, cost = flagship(sharded_emb_mesh=sharded_emb_mesh,
+                                   **config)
+    return out, label, cost
+
+
+def dense_field_ctr(**config):
+    """The sharded CTR's single-process reference: ``wide_deep_ctr`` with
+    plain ``L.embedding`` field tables (not the sharded layer under test),
+    made to update whole, as the sharded tables do."""
+    from paddle_tpu_torch.models.recommender import wide_deep_ctr
+    from paddle_tpu_torch.topology import Topology
+
+    out, label, cost = wide_deep_ctr(**config)
+    for name, spec in Topology(cost).param_specs().items():
+        if name.startswith("ctr_field"):
+            spec.attr.sparse_update = False
+    return out, label, cost
+
+
+def parallel_batches():
+    return train_batches(SEED + 2401, PARALLEL_STEPS, TRAIN_BATCH, False,
+                         PAR_FLAGSHIP["dict_size"])
+
+
+def parallel_timing_batches():
+    """Steps timed after the checked ones (the median gap between
+    consecutive synchronized steps needs a few)."""
+    return train_batches(SEED + 2402, PARALLEL_TIMED, TRAIN_BATCH, False,
+                         PAR_FLAGSHIP["dict_size"])
+
+
+def param_digests(params):
+    import hashlib
+
+    return {n: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for n, v in params.items()}
+
+
+def held_shapes(tr, name):
+    """The shapes this rank holds of parameter ``name`` and of its
+    optimizer slots."""
+    from paddle_tpu_torch.trainer import _tree_tensors
+
+    return {"param": list(tr._trainable[name].shape),
+            "slots": [list(t.shape) for t in
+                      _tree_tensors(tr._opt_state["slots"][name])]}
+
+
+def parallel_flagship_rank(torch, lk, mesh, out, rank):
+    """The flagship at the bench width with its table vocab-sharded over
+    ``model``, 2 Momentum steps of the global batch 64 under DataParallel
+    over ``data``: costs, ms a step, K1/K2 launches, the parameters'
+    digests (rank 0 also saves them), the table's and slot's held shapes
+    and what gloo's staging costs a step."""
+    from paddle_tpu_torch.parallel import DataParallel
+
+    rig = CostRig(sharded_flagship, dict(PAR_FLAGSHIP,
+                                         sharded_emb_mesh=mesh),
+                  SEED + 2400, 0.01)
+    tr = rig.trainer(DEVICE, parallelism=DataParallel(mesh))
+    batches = parallel_batches()
+    lk.reset_launches()
+    costs = train(torch, tr, batches)
+    launches = [lk.launches, lk.bwd_launches]
+    params = snapshot(tr)    # the table gathered over model: a collective
+    if rank == 0:
+        np.savez(os.path.join(out, "flagship.npz"), **params)
+    # every rank gathers its blocks of the table and its slot; rank 0 writes
+    wrote = tr.save_checkpoint(os.path.join(out, "flagship-ckpt")) \
+        is not None
+    _, ms = train(torch, tr, parallel_timing_batches(), timed=True)
+    return {"costs": costs, "ms_per_step": ms, "launches": launches,
+            "digests": param_digests(params), "ckpt_written": wrote,
+            "held": held_shapes(tr, "flag_emb.w0"),
+            "staging": gloo_staging(torch, tr, batches[:1])}
+
+
+def parallel_ctr_rank(torch, mesh, out, rank):
+    """One step of the Wide&Deep CTR at its bench width (1M sparse dims,
+    batch 512) with the field embeddings vocab-sharded over ``model``,
+    under DataParallel over ``data``: cost, ms, digests (rank 0 saves the
+    parameters), the field table's held shapes."""
+    from paddle_tpu_torch.models.recommender import wide_deep_ctr
+    from paddle_tpu_torch.parallel import DataParallel
+
+    rig = CostRig(wide_deep_ctr, dict(CTR, sharded_mesh=mesh), SEED + 2420,
+                  CTR_LR)
+    tr = rig.trainer(DEVICE, parallelism=DataParallel(mesh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    costs = train(torch, tr, ctr_batches(SEED + 2421, 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    params = snapshot(tr)
+    if rank == 0:
+        np.savez(os.path.join(out, "ctr.npz"), **params)
+    return {"costs": costs, "ms_step": ms, "digests": param_digests(params),
+            "held": held_shapes(tr, "ctr_field0_emb.w0")}
+
+
+def parallel_transformer_rank(torch, mesh):
+    """ParallelTransformer at its default widths over {"data": 2, "model":
+    2, "pipe": 2}, ring and Ulysses: this rank's rows of the forward
+    against apply_reference on the global parameters, and one SGD step
+    (0.1) of the global loss: its loss and this rank's gradients against
+    the blocks of the global gradients of apply_reference's mean cross
+    entropy on this rank, ms."""
+    from paddle_tpu_torch.models.transformer import ParallelTransformer
+
+    rng = np.random.RandomState(SEED + 2411)
+    tokens = torch.tensor(rng.randint(0, 128, PAR_TOKENS), device=DEVICE)
+    labels = torch.tensor(rng.randint(0, 4, PAR_TOKENS[0]), device=DEVICE)
+    data = mesh.axis("data")
+
+    def flat(tree):
+        return [tree[k] for k in sorted(tree) if k != "pipe"] + [
+            tree["pipe"][k] for k in sorted(tree["pipe"])]
+
+    out = {}
+    for attention in ("ring", "ulysses"):
+        model = ParallelTransformer(mesh, attention=attention)
+        glob = model.init_params(SEED + 2410, device=DEVICE)
+        placed = model.place(glob)
+        got = model.apply(placed, tokens)
+        ref = model.apply_reference(glob, tokens).chunk(data.size)[
+            data.index]
+        err = float((got - ref).abs().max()) / max(
+            1.0, float(ref.abs().max()))
+        leaves = [v.requires_grad_() for v in flat(placed)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(placed, tokens, labels)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for p, g in zip(leaves, grads):
+                p -= 0.1 * g
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref_leaves = [v.requires_grad_() for v in flat(glob)]
+        ref_loss = torch.nn.functional.cross_entropy(
+            model.apply_reference(glob, tokens), labels.long())
+        ref_grads = torch.autograd.grad(ref_loss, ref_leaves)
+        want = [sh.shard(g) for sh, g in zip(
+            flat(model.param_shardings(glob)), ref_grads)]
+        out[attention] = {
+            "fwd_err_vs_reference": err, "loss": float(loss.detach()),
+            "loss_err_vs_reference": abs(float(loss.detach())
+                                         - float(ref_loss.detach())),
+            "grad_err_vs_reference": max(
+                float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(grads, want)),
+            "ms_step": ms}
+    return out
+
+
+def parallel_attention_rank(torch, mesh, rank):
+    """ring_attention and ulysses_attention alone over {"seq": 8} at B 2,
+    L 4096, 8 heads of 64, f32, causal: this rank's block of the output
+    and the whole gradients of q, k, v against full_attention on rank 0
+    (broadcast), ms and this rank's peak bytes above what it held."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import (full_attention, ring_attention,
+                                           ulysses_attention)
+
+    rng = np.random.RandomState(SEED + 2430)
+    qkv = [torch.tensor(rng.standard_normal(PAR_ATTENTION).astype(
+        np.float32), device=DEVICE) for _ in range(3)]
+
+    def run(fn, *args):
+        ins = [t.clone().requires_grad_() for t in qkv]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn(*ins, *args)
+        (got ** 2).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        # contiguous: the broadcast below sends the storage as it lies
+        return got.detach().contiguous(), [t.grad for t in ins], ms, peak
+
+    seq = mesh.axis("seq")
+    results = {}
+    for name, fn in (("ring", ring_attention),
+                     ("ulysses", ulysses_attention)):
+        results[name] = run(fn, mesh, "seq", True)
+    if rank == 0:
+        full, fgrads, full_ms, full_peak = run(
+            lambda q, k, v: full_attention(q, k, v, causal=True))
+    else:
+        full = torch.empty_like(qkv[0])
+        fgrads = [torch.empty_like(t) for t in qkv]
+        full_ms = full_peak = None
+    for t in [full] + fgrads:
+        dist.broadcast(t, src=0)
+    want = full.chunk(seq.size, 1)[seq.index]
+    out = {"full_ms": full_ms, "full_peak_bytes": full_peak}
+    for name, (got, grads, ms, peak) in results.items():
+        out[name] = {
+            "out_err": float((got - want).abs().max())
+            / max(1.0, float(want.abs().max())),
+            "grad_err": max(float((g - f).abs().max())
+                            / max(1.0, float(f.abs().max()))
+                            for g, f in zip(grads, fgrads)),
+            "ms_fwd_bwd": ms, "peak_bytes": peak}
+    return out
+
+
+def sharded_checkpoint_check(work, flag0, ranks):
+    """The checkpoint the sharded flagship's ranks saved after their
+    checked steps: which ranks wrote, its parameters bit for bit those
+    rank 0 gathered, and the shapes of the table's optimizer slot."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    path = ckpt.latest_checkpoint(os.path.join(work, "flagship-ckpt"))
+    params, opt_flat, meta = ckpt.load_checkpoint(path)
+    return {"writers": [r["rank"] for r in ranks
+                        if r["flagship"]["ckpt_written"]],
+            "step": meta["step"],
+            "params_equal": sorted(params.names()) == sorted(flag0) and all(
+                np.array_equal(params.get(n), flag0[n]) for n in flag0),
+            "table_slot_shapes": [list(v.shape) for k, v in
+                                  sorted(opt_flat.items())
+                                  if k.startswith("slots/flag_emb.w0")]}
+
+
+def phase_parallel_card(torch, lk, tmp):
+    """Eight gloo ranks share the card, spawned as scripts, one world for
+    every check (module docstring, parallel_card)."""
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "parallel")
+    os.makedirs(work)
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(PARALLEL_RANK_SRC)
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, script, REPO, str(r), port,
+                               work], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(PARALLEL_RANKS)]
+    errs = []
+    try:
+        # the single-process references while the ranks start
+        flag_rig = CostRig(sharded_flagship, PAR_FLAGSHIP, SEED + 2400, 0.01)
+        single = flag_rig.trainer(DEVICE)
+        single_costs = train(torch, single, parallel_batches())
+        single_flag = snapshot(single)
+        ctr_rig = CostRig(dense_field_ctr, CTR, SEED + 2420, CTR_LR)
+        one = ctr_rig.trainer(DEVICE)
+        ctr_costs = train(torch, one, ctr_batches(SEED + 2421, 1))
+        single_ctr = snapshot(one)
+        for p in procs:
+            errs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError("parallel_card: rank %d exited %d: %s"
+                                 % (r, p.returncode, err[-3000:]))
+    # one process's ms a step, timed with the card to itself
+    _, single_ms = train(torch, single, parallel_timing_batches(),
+                         timed=True)
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(work, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    flag0 = dict(np.load(os.path.join(work, "flagship.npz")))
+    ckpt = sharded_checkpoint_check(work, flag0, ranks)
+    ctr0 = dict(np.load(os.path.join(work, "ctr.npz")))
+    f_cost, f_param, _ = trajectory_errors(single_flag, flag0, single_costs,
+                                           ranks[0]["flagship"]["costs"])
+    c_cost, c_param, _ = trajectory_errors(single_ctr, ctr0, ctr_costs,
+                                           ranks[0]["ctr"]["costs"])
+    table_rows = PAR_FLAGSHIP["dict_size"] // PARALLEL_MESH["model"]
+    want_held = {"param": [table_rows, PAR_FLAGSHIP["emb"]],
+                 "slots": [[table_rows, PAR_FLAGSHIP["emb"]]]}
+    want_launches = [2 * PARALLEL_STEPS, 2 * PARALLEL_STEPS]
+
+    def same(key):
+        return all(r[key]["costs"] == ranks[0][key]["costs"]
+                   and r[key]["digests"] == ranks[0][key]["digests"]
+                   for r in ranks)
+
+    attention = {name: {
+        "out_err": max(r["attention"][name]["out_err"] for r in ranks),
+        "grad_err": max(r["attention"][name]["grad_err"] for r in ranks),
+        "ms_fwd_bwd": [r["attention"][name]["ms_fwd_bwd"] for r in ranks],
+        "peak_bytes": [r["attention"][name]["peak_bytes"] for r in ranks]}
+        for name in ("ring", "ulysses")}
+    attention["full"] = {"ms_fwd_bwd": ranks[0]["attention"]["full_ms"],
+                         "peak_bytes": ranks[0]["attention"][
+                             "full_peak_bytes"]}
+    transformer = {a: {
+        "fwd_err_vs_reference": max(r["transformer"][a][
+            "fwd_err_vs_reference"] for r in ranks),
+        "losses": sorted({r["transformer"][a]["loss"] for r in ranks}),
+        "loss_err_vs_reference": max(r["transformer"][a][
+            "loss_err_vs_reference"] for r in ranks),
+        "grad_err_vs_reference": max(r["transformer"][a][
+            "grad_err_vs_reference"] for r in ranks),
+        "ms_step": [r["transformer"][a]["ms_step"] for r in ranks]}
+        for a in ("ring", "ulysses")}
+    staging = [r["flagship"]["staging"] for r in ranks]
+    row = {"phase": "parallel_card", "ranks": PARALLEL_RANKS,
+           "backends": sorted({r["backend"] for r in ranks}),
+           "flagship": {
+               "mesh": PARALLEL_MESH, "config": PAR_FLAGSHIP,
+               "global_batch": TRAIN_BATCH, "rows_a_rank": PARALLEL_ROWS,
+               "seq_len": TRAIN_SEQ, "steps": PARALLEL_STEPS,
+               "costs": ranks[0]["flagship"]["costs"],
+               "single_costs": single_costs,
+               "cost_err_vs_single": f_cost,
+               "param_err_vs_single": f_param, "tol": TOL_PARALLEL,
+               "ranks_bitwise_equal": same("flagship"),
+               "held": [r["flagship"]["held"] for r in ranks],
+               "launches": [r["flagship"]["launches"] for r in ranks],
+               "want_launches": want_launches,
+               "ms_per_step_rank": [r["flagship"]["ms_per_step"]
+                                    for r in ranks],
+               "ms_per_step_single": single_ms,
+               "collective_host_ms_per_step": [
+                   s["collective_host_ms_per_step"] for s in staging],
+               "memcpy_device_ms_per_step": [
+                   s["memcpy_device_ms_per_step"] for s in staging],
+               "wall_ms_per_step_profiled": [s["wall_ms_per_step"]
+                                             for s in staging]},
+           "checkpoint": ckpt,
+           "ctr": {"mesh": PARALLEL_MESH, "sparse_dim": CTR["sparse_dim"],
+                   "batch": CTR_BATCH,
+                   "cost_err_vs_single": c_cost,
+                   "param_err_vs_single": c_param, "tol": TOL_PARALLEL_CTR,
+                   "ranks_bitwise_equal": same("ctr"),
+                   "held": ranks[0]["ctr"]["held"],
+                   "ms_step_rank": [r["ctr"]["ms_step"] for r in ranks]},
+           "transformer": dict(transformer, mesh=TRANSFORMER_MESH,
+                               tokens=PAR_TOKENS),
+           "attention": dict(attention, mesh=ATTENTION_MESH,
+                             shape=PAR_ATTENTION),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    checks = {
+        "gloo in every rank": row["backends"] == ["gloo"],
+        "flagship ranks bit for bit": row["flagship"]["ranks_bitwise_equal"],
+        "flagship against one process": f_cost <= TOL_PARALLEL
+        and f_param <= TOL_PARALLEL,
+        "a rank holds V/N rows of the table and its slot": all(
+            h == want_held for h in row["flagship"]["held"]),
+        "K1/K2 launches": all(l == want_launches
+                              for l in row["flagship"]["launches"]),
+        "the sharded checkpoint: rank 0 wrote the global table and slot":
+        ckpt["writers"] == [0] and ckpt["params_equal"]
+        and ckpt["table_slot_shapes"] == [
+            [PAR_FLAGSHIP["dict_size"], PAR_FLAGSHIP["emb"]]],
+        "transformer forward": all(
+            t["fwd_err_vs_reference"] <= TOL_TRANSFORMER
+            for t in transformer.values()),
+        "transformer step against the reference's gradients": all(
+            len(t["losses"]) == 1 and np.isfinite(t["losses"][0])
+            and t["loss_err_vs_reference"] <= TOL_TRANSFORMER
+            and t["grad_err_vs_reference"] <= TOL_TRANSFORMER
+            for t in transformer.values()),
+        "ring / ulysses against full attention": all(
+            attention[n]["out_err"] <= TOL_PARALLEL_ATTN
+            and attention[n]["grad_err"] <= TOL_PARALLEL_ATTN
+            for n in ("ring", "ulysses")),
+        "ctr ranks bit for bit": row["ctr"]["ranks_bitwise_equal"],
+        "ctr against one process": c_cost <= TOL_PARALLEL_CTR
+        and c_param <= TOL_PARALLEL_CTR,
+        "finite": bool(np.all(np.isfinite(row["flagship"]["costs"])))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("parallel_card: %s failed: %r"
+                             % (", ".join(failed), row))
+    return {"launches": ranks[0]["flagship"]["launches"], "row": row}
+
+
 def dp_kernel_rows(torch, lk):
     """K1/K2 at the distributed phases' shapes against their plain
     versions (the rows of phases 3-4)."""
@@ -9165,15 +9798,17 @@ def dp_kernel_rows(torch, lk):
                                     "kernel_dp", {})}
 
 
-def distributed_entries(rows, bwd_cases, cluster, elastic):
+def distributed_entries(rows, bwd_cases, cluster, elastic, parallel):
     """The kernels-line entries of K1 and K2 in a cluster_card rank (its
-    32 rows; launches: rank 0's run) and in elastic_card's run (the
-    global batch; launches: the card's run, the steps the rewind undid
-    included)."""
+    32 rows; launches: rank 0's run), in elastic_card's run (the global
+    batch; launches: the card's run, the steps the rewind undid included)
+    and in a parallel_card rank of the sharded flagship (its 16 rows of
+    the ep + dp mesh; launches: rank 0's run)."""
     out = []
     for name, shape, launches in (
             ("cluster_rank", DP_FWD_CASES[0], cluster["launches"]),
-            ("elastic", DP_FWD_CASES[1], elastic["launches"])):
+            ("elastic", DP_FWD_CASES[1], elastic["launches"]),
+            ("ep_dp_rank", DP_FWD_CASES[2], parallel["launches"])):
         for cases, source, k, line, count in (
                 (rows["fwd"], "lstm_seq_fwd", "K1", 146, launches[0]),
                 (rows["bwd"] + bwd_cases, "lstm_seq_bwd", "K2", 347,
@@ -9422,7 +10057,7 @@ def main():
         int8_resnet = phase_serve_resnet_int8(torch, ik, ck, tmp)
         aot = phase_serve_aot(torch, ck, gk, ik, lk, tmp)
         phase_serve_observe(torch, aot["flagship_dir"], tmp)
-        phase_serve_fleet(torch, aot, tmp)
+        fleet = phase_serve_fleet(torch, aot, tmp)
         trained_resnet = phase_train_resnet(torch, ck, tmp)
         trained_googlenet = phase_train_vision(torch, ck, tmp, "googlenet")
         phase_train_vision(torch, ck, tmp, "alexnet")
@@ -9455,6 +10090,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cluster = phase_cluster_card(torch, lk, tmp)
         elastic = phase_elastic_card(torch, lk, tmp)
+        parallel = phase_parallel_card(torch, lk, tmp)
     dp_rows = dp_kernel_rows(torch, lk)
 
     emit({"kernels": [
@@ -9595,7 +10231,16 @@ def main():
         *text_layer_entries(v1_text, mixed, demo_kernels),
         *nested_entries(nested),
         *remaining_layer_entries(crnn, ssd),
-        *distributed_entries(dp_rows, bwd_cases, cluster, elastic)]})
+        *distributed_entries(dp_rows, bwd_cases, cluster, elastic,
+                             parallel),
+        recurrent_entry(
+            [c for c in continuous["kernel_rows"]
+             if c["kernel"] == "gru_seq_fwd"],
+            "gru_seq_fwd[K5,decode_h256_front_host]",
+            "paddle_tpu/ops/pallas_kernels.py:668",
+            fleet["front"]["survivor_k5_grown"], 256, "gru_seq_fwd",
+            path="the survivor host behind the cluster front, window %d"
+            % CONT_WINDOW)]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

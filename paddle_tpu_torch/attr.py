@@ -67,10 +67,15 @@ class ExtraAttr:
     """Extra layer attributes (cf. ExtraLayerAttribute): dropout, error
     clipping, and per-layer placement.
 
-    ``sharding`` (a PartitionSpec-style tuple of mesh-axis names, one per
-    output dim) and ``device`` (an int in the reference) are accepted so
-    configs build unchanged; this package runs on one device and ignores
-    both until its parallel slice lands.
+    ``sharding`` is a PartitionSpec-style tuple of mesh-axis names, one
+    per output dim. Under ``parallel.use_mesh(mesh)`` an fc layer whose
+    last entry names an axis of the mesh computes only its column block
+    on each rank of that axis, and its consumers receive the gathered
+    value; any other layer kind, or any other entry, computes whole (the
+    value semantics of JAX's ``with_sharding_constraint``). With no
+    active mesh it changes nothing, as in the JAX package. ``device`` (an
+    int in the reference) is accepted so configs build unchanged and is
+    ignored (placement is expressed as sharding).
     """
 
     def __init__(self, drop_rate=None, error_clipping_threshold=None,

@@ -71,9 +71,13 @@ must be the ranks of the process group the command runs in
 with the JAX package's message. ``observe --fleet-stats HOST:PORT`` adds
 the coordinator's live leases to the summary.
 
-Not ported yet, and refused: ``merge_model``, ``analyze``, ``observe
---regress``, and ``serve --join/--front/--host-id/--lease-ttl/
---rehome-retries`` (the multi-host cluster front).
+``serve DIR --join COORD:PORT [--host-id H --lease-ttl S]`` makes the
+server a host of a serving cluster, and ``serve --front --join
+COORD:PORT [--rehome-retries N]`` runs the cluster's front over the
+joined hosts (serve/cluster.py).
+
+Not ported yet, and refused: ``merge_model``, ``analyze`` and ``observe
+--regress``.
 """
 
 import argparse
@@ -699,13 +703,15 @@ def _session_kwargs(args):
 
 
 def _make_engine(bundle, args, reg=None, model=None, warmup="async",
-                 budget_share=None):
+                 budget_share=None, steplog=None):
     """The serving front of one bundle (paddle_tpu/cli.py
     ``_make_engine``): the batching engine, or with ``--continuous`` the
     continuous scheduler; ``--replicas N|auto`` makes it a fleet of engine
     threads (serve/fleet.py), ``--workers N|auto`` a fleet of worker
     processes (serve/workers.py). ``budget_share`` is this model's part of
-    the device-memory budget for ``auto``."""
+    the device-memory budget for ``auto``; ``steplog`` is a joined host's
+    own step log (a single engine writes there; a fleet keeps its
+    per-member logs)."""
     from paddle_tpu_torch.serve import (ContinuousScheduler,
                                         InferenceEngine)
     from paddle_tpu_torch.serve.fleet import auto_replicas
@@ -754,7 +760,7 @@ def _make_engine(bundle, args, reg=None, model=None, warmup="async",
                           model=model, warmup=warmup)
     cls = ContinuousScheduler if args.continuous else InferenceEngine
     return cls(bundle, warmup=warmup, metrics_registry=reg, model=model,
-               **kwargs)
+               steplog=steplog, **kwargs)
 
 
 def _make_slo(fronts, args, model=None):
@@ -803,9 +809,6 @@ def _make_controller(slo, fronts, args, model=None):
     return controller
 
 
-_CLUSTER_FLAGS = ("join", "front", "host_id", "lease_ttl", "rehome_retries")
-
-
 @contextlib.contextmanager
 def _graceful_sigterm():
     """While serving, SIGTERM takes Ctrl-C's path: the ``finally`` blocks
@@ -836,21 +839,63 @@ def cmd_serve(args):
     ``--replicas`` / ``--workers`` for fleets). Several: repeat ``--model
     NAME=DIR[:PRIORITY]`` to host them behind the router (``POST
     /infer/<name>``, per-model ``/readyz``, priority shedding).
-    ``--selfcheck`` loads, warms, runs one batch and exits."""
-    for flag in _CLUSTER_FLAGS:
-        enforce(not getattr(args, flag), "serve --%s is not ported yet: it "
-                "needs the multi-host cluster front (serve/cluster.py)",
-                flag.replace("_", "-"))
+    ``--selfcheck`` loads, warms, runs one batch and exits. ``--join
+    COORD:PORT`` makes this a host of a serving cluster (a lease whose
+    meta carries its address, a step log of its own, ``GET
+    /debug/compiles``); ``--front --join COORD:PORT`` runs the cluster's
+    front instead of an engine (serve/cluster.py)."""
     with _graceful_sigterm():
         return _serve(args)
 
 
+def _serve_front(args):
+    """``serve --front --join COORD:PORT``: no bundle, no device; the
+    hosts come from the coordinator's leases, a consistent-hash ring over
+    them routes sessions, a lapsed lease re-homes them (paddle_tpu/cli.py
+    ``cmd_serve``)."""
+    from paddle_tpu_torch.observe import steplog
+    from paddle_tpu_torch.serve.cluster import (ClusterFront,
+                                                make_front_server)
+
+    slog = steplog.from_env("serve-front", meta={"phase": "serve_front"})
+    front = ClusterFront(endpoint=args.join, steplog=slog,
+                         rehome_retries=args.rehome_retries)
+    server = make_front_server(front, host=args.host, port=args.port)
+    print("serving front on http://%s:%d over coordinator %s (POST "
+          "/infer; GET /healthz /readyz /hosts /stats /metrics)"
+          % (*server.server_address, args.join), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        front.stop()
+        if slog is not None:
+            slog.close()
+    return 0
+
+
 def _serve(args):
     from paddle_tpu_torch.observe import metrics as observe_metrics
+    from paddle_tpu_torch.observe import steplog
     from paddle_tpu_torch.serve.bundle import load_bundle
-    from paddle_tpu_torch.serve.server import make_server
 
     reg = observe_metrics.get_registry()
+    if args.front:
+        if args.bundle or args.model or args.selfcheck:
+            print("--front holds no engine: drop the positional bundle / "
+                  "--model / --selfcheck", file=sys.stderr)
+            return 2
+        if not args.join:
+            print("--front needs --join COORD:PORT to discover hosts",
+                  file=sys.stderr)
+            return 2
+        return _serve_front(args)
+    if args.join and args.model:
+        print("--join serves ONE bundle per host: the cluster front routes "
+              "bare POST /infer, not per-model paths", file=sys.stderr)
+        return 2
     if args.model:
         if args.bundle or args.selfcheck:
             print("--model is multi-model mode: drop the positional "
@@ -869,11 +914,40 @@ def _serve(args):
               "re-export with --decode-slots" % bundle.name,
               file=sys.stderr)
         return 2
+    if args.join and not args.selfcheck:
+        # the counter behind GET /debug/compiles: the warmup's programs
+        # count too, the drill reads its change across a host's death
+        with steplog.watch_compiles() as watcher:
+            return _serve_one(args, reg, bundle, watcher)
+    return _serve_one(args, reg, bundle, None)
+
+
+def _serve_one(args, reg, bundle, watcher):
+    """One bundle behind its engine or fleet; with ``--join`` a host of a
+    serving cluster: one step log of its own (``serve@<host id>``, the
+    host in its meta line, so ``cli observe`` merges the hosts' files
+    into one timeline), ``GET /debug/compiles`` from ``watcher``, the
+    process's kernel launch counters in ``GET /stats``, and the lease
+    started only after the server bound, so the address it announces
+    already answers."""
+    from paddle_tpu_torch.observe import steplog
+    from paddle_tpu_torch.serve.server import make_server
+
+    host_slog, host_id = None, ""
+    if watcher is not None:
+        import socket
+
+        host_id = args.host_id or "%s-%d" % (socket.gethostname(),
+                                             os.getpid())
+        host_slog = steplog.from_env("serve@%s" % host_id,
+                                     meta={"phase": "serve",
+                                           "host": host_id})
     # selfcheck warms synchronously (it IS the warmth gate); serving warms
     # on a thread so /readyz honestly answers 503 until every bucket ran
     engine = _make_engine(bundle, args, reg,
-                          warmup=True if args.selfcheck else "async")
-    slo = controller = None
+                          warmup=True if args.selfcheck else "async",
+                          steplog=host_slog)
+    slo = controller = heartbeat = None
     try:
         if args.selfcheck:
             if hasattr(engine, "wait_ready"):
@@ -891,13 +965,35 @@ def _serve(args):
         slo = _make_slo([engine], args, model=bundle.name)
         controller = _make_controller(slo, [engine], args,
                                       model=bundle.name)
-        server = make_server(bundle, engine, host=args.host, port=args.port,
-                             slo=slo, controller=controller)
+        launches_fn = None
+        if watcher is not None:
+            from paddle_tpu_torch.serve.workers import kernel_launches
+
+            launches_fn = kernel_launches
+        server = make_server(
+            bundle, engine, host=args.host, port=args.port, slo=slo,
+            controller=controller,
+            compiles_fn=None if watcher is None else (
+                lambda: watcher.compiles),
+            launches_fn=launches_fn)
+        if watcher is not None:
+            from paddle_tpu_torch.distributed.client import encode_host_meta
+            from paddle_tpu_torch.distributed.elastic import HeartbeatThread
+
+            heartbeat = HeartbeatThread(
+                args.join, worker_id=host_id, ttl=args.lease_ttl,
+                steplog=host_slog,
+                meta=encode_host_meta(kind="serve", addr="%s:%d"
+                                      % server.server_address[:2]))
+            heartbeat.start()
         print("serving %r on http://%s:%d (POST /infer; GET /healthz "
-              "/livez /readyz /metrics /stats /debug/traces /debug/slo%s "
-              "/debug/compiles /manifest)"
-              % (bundle.name, *server.server_address,
-                 " /debug/control" if controller else ""), flush=True)
+              "/livez /readyz /metrics /stats /debug/traces /debug/slo%s%s "
+              "/manifest)%s"
+              % (bundle.name, *server.server_address[:2],
+                 " /debug/control" if controller else "",
+                 " /debug/compiles" if watcher is not None else "",
+                 (" joined %s as %r" % (args.join, host_id))
+                 if watcher is not None else ""), flush=True)
         try:
             server.serve_forever()
         except KeyboardInterrupt:
@@ -906,11 +1002,15 @@ def _serve(args):
             server.server_close()
         return 0
     finally:
+        if heartbeat is not None:
+            heartbeat.stop()
         if controller is not None:
             controller.stop()
         if slo is not None:
             slo.stop(close_slog=True)
         engine.stop()
+        if host_slog is not None:
+            host_slog.close()
 
 
 def _serve_models(args, reg):
@@ -1216,15 +1316,29 @@ def main(argv=None):
                         "paddle_tpu_torch.serve.remote_store) instead of a "
                         "private store, so committed sessions survive this "
                         "process and resume bitwise in another")
-    for flag in ("--join", "--host-id"):
-        p.add_argument(flag, default="",
-                       help="not ported yet (the multi-host cluster front)")
+    p.add_argument("--join", default="", metavar="COORD:PORT",
+                   help="multi-host serving: register this host with the "
+                        "coordinator under a TTL heartbeat lease whose "
+                        "meta publishes its dial address; a front started "
+                        "with --front routes to it while the lease holds")
+    p.add_argument("--host-id", default="",
+                   help="--join: stable host identity on the hash ring "
+                        "(default hostname-pid); keep it across restarts "
+                        "so a rejoining host reclaims its ring arcs")
+    p.add_argument("--lease-ttl", type=float, default=10.0,
+                   help="--join: coordinator lease TTL in seconds, the "
+                        "failure-detection horizon; a host silent this "
+                        "long is excluded from routing")
     p.add_argument("--front", action="store_true",
-                   help="not ported yet (the multi-host cluster front)")
-    p.add_argument("--lease-ttl", type=float, default=None,
-                   help="not ported yet (the multi-host cluster front)")
-    p.add_argument("--rehome-retries", type=int, default=None,
-                   help="not ported yet (the multi-host cluster front)")
+                   help="run the fleet-of-fleets front instead of an "
+                        "engine: no bundle, no device; only sockets, the "
+                        "consistent-hash ring over the hosts joined via "
+                        "--join's coordinator, and routing state (session "
+                        "affinity, re-home on lease lapse, shed reason "
+                        "no_host)")
+    p.add_argument("--rehome-retries", type=int, default=2,
+                   help="--front: extra hosts tried after the ring home "
+                        "fails before the request errors out")
     p.set_defaults(fn=cmd_serve)
 
     args, extra = parser.parse_known_args(argv)

@@ -49,7 +49,9 @@ def params_from_numpy(np_dict, topology, device=None, dtype=None,
     of a ``quantization`` block). Floating arrays become ``dtype``
     (default: the default dtype policy, float32), except the scale
     sidecars, which stay float32; integer arrays keep their type, and each
-    tensor the block lists must be int8."""
+    tensor the block lists must be int8. A parameter whose spec carries a
+    sharding (a sharded embedding's table) comes in whole and leaves as
+    this rank's block."""
     device = resolve_device(device)
     dtype = dtype_mod.canonical(dtype)
     specs = check_param_shapes(
@@ -68,5 +70,8 @@ def params_from_numpy(np_dict, topology, device=None, dtype=None,
             t = t.float()
         elif t.is_floating_point():
             t = t.to(dtype)
+        sharding = getattr(specs.get(name), "sharding", None)
+        if sharding is not None:
+            t = sharding.block(t, specs[name].shape)
         out[name] = t.to(device)
     return out

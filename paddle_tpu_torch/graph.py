@@ -95,7 +95,8 @@ def current_group():
 class ParamSpec:
     """Declaration of one named parameter buffer (cf. ParameterConfig)."""
 
-    __slots__ = ("name", "shape", "initializer", "attr", "is_state")
+    __slots__ = ("name", "shape", "initializer", "attr", "is_state",
+                 "sharding")
 
     def __init__(self, name, shape, initializer, attr=None, is_state=False):
         self.name = name
@@ -103,6 +104,10 @@ class ParamSpec:
         self.initializer = initializer
         self.attr = attr or ParamAttr()
         self.is_state = is_state  # non-trainable running state
+        # a parallel.mesh.NamedSharding where each rank holds a block of
+        # the parameter (a sharded embedding's table); ``shape`` stays
+        # the global shape
+        self.sharding = None
 
     def materialize(self, generator, dtype, device):
         return self.initializer(generator, self.shape, dtype, device)

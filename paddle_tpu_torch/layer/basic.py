@@ -75,7 +75,35 @@ def fc(input, size, act=None, name=None, param_attr=None, bias_attr=None,
             return value.matmul(w)
         return featurewise(lambda d: torch.matmul(d, w), value)
 
+    def sharded(params, values, ax):
+        """ExtraAttr(sharding=(..., axis)) under use_mesh: this rank
+        multiplies by its columns only; the consumers get the gathered
+        value (parallel/collectives.py: the input's gradient summed over
+        the axis, each weight's gathered whole)."""
+        from paddle_tpu_torch.parallel.collectives import (copy_to, gather,
+                                                           split)
+
+        out = None
+        for value, spec in zip(values, specs):
+            w = split(params[spec.name], ax, 1)
+            part = featurewise(lambda d: torch.matmul(copy_to(d, ax), w),
+                               value)
+            out = part if out is None else like(out, data_of(out)
+                                                + data_of(part))
+        if bspec is not None:
+            out = like(out, data_of(out) + split(params[bspec.name], ax, 0))
+        data = data_of(out)
+        return like(out, gather(data, ax, data.dim() - 1))
+
     def forward(params, values, ctx):
+        from paddle_tpu_torch.parallel.mesh import layer_column_axis
+
+        ax = layer_column_axis(node.extra_attr)
+        if ax is not None and not any(
+                isinstance(v, SparseRows) for v in values) and all(
+                params[s.name].dtype != torch.int8 for s in specs):
+            return finalize(sharded(params, values, ax), act,
+                            node.extra_attr, ctx)
         out = matmul(values[0], specs[0], params)
         for value, spec in zip(values[1:], specs[1:]):
             out = like(out, data_of(out) + data_of(matmul(value, spec,

@@ -15,7 +15,6 @@ from paddle_tpu_torch import data_type
 from paddle_tpu_torch import layer as L
 from paddle_tpu_torch import pooling as pool
 from paddle_tpu_torch.attr import ParamAttr
-from paddle_tpu_torch.utils.error import enforce
 
 
 def movielens_recommender(num_users=6041, num_movies=3953, num_genders=2,
@@ -74,10 +73,9 @@ def wide_deep_ctr(sparse_dim=10000, field_dims=(1000, 1000, 100),
     """Wide&Deep click-through-rate model. Returns (logit, label, cost):
     the click probability, the click label and the binary cross entropy.
     The wide table ``ctr_wide_w`` [sparse_dim, 1] and the field
-    embeddings update by rows. The sharded embedding (``sharded_mesh``)
-    is not ported yet."""
-    enforce(sharded_mesh is None, "wide_deep_ctr(sharded_mesh=...): the "
-            "sharded embedding (paddle.parallel) is not ported yet")
+    embeddings update by rows; with ``sharded_mesh`` (a parallel.Mesh)
+    the field embeddings are vocab-sharded over ``sharded_axis``
+    (parallel/sharded_embedding.py) and update whole."""
     wide_in = L.data(name="wide_features",
                      type=data_type.sparse_binary_vector(sparse_dim))
     wide = L.fc(input=wide_in, size=1, act=None, bias_attr=False,
@@ -87,10 +85,18 @@ def wide_deep_ctr(sparse_dim=10000, field_dims=(1000, 1000, 100),
     deep_feats = []
     for i, dim in enumerate(field_dims):
         field = L.data(name="field%d" % i, type=data_type.integer_value(dim))
-        deep_feats.append(L.embedding(
-            input=field, size=emb, name="ctr_field%d_emb" % i,
-            param_attr=ParamAttr(name="ctr_field%d_emb.w0" % i,
-                                 sparse_update=True)))
+        if sharded_mesh is not None:
+            from paddle_tpu_torch.parallel.sharded_embedding import (
+                sharded_embedding_layer)
+
+            deep_feats.append(sharded_embedding_layer(
+                field, emb, sharded_mesh, axis=sharded_axis,
+                name="ctr_field%d_emb" % i))
+        else:
+            deep_feats.append(L.embedding(
+                input=field, size=emb, name="ctr_field%d_emb" % i,
+                param_attr=ParamAttr(name="ctr_field%d_emb.w0" % i,
+                                     sparse_update=True)))
     h = L.fc(input=deep_feats, size=hidden[0], act=A.Relu(), name="ctr_h0")
     for j, width in enumerate(hidden[1:], start=1):
         h = L.fc(input=h, size=width, act=A.Relu(), name="ctr_h%d" % j)

@@ -178,3 +178,34 @@ def seq2seq_attention(src_dict_size=30000, trg_dict_size=30000, emb_size=64,
             max_length=max_length, name=name + "_gen")
 
     return cost, make_generator
+
+
+def flagship(dict_size=30000, emb=128, hidden=256, classes=2,
+             sharded_emb_mesh=None):
+    """The flagship as the JAX package's ``__graft_entry__._flagship``
+    builds it: embedding, 2 x ``simple_lstm``, max pooling, a softmax fc
+    and the classification cost, its layers named ``flag_*``. With ``sharded_emb_mesh`` (a parallel.Mesh) the embedding
+    table is vocab-sharded over its ``model`` axis (parallel/
+    sharded_embedding.py). Returns (words, label, out, cost); layer names
+    count from zero."""
+    from paddle_tpu_torch.graph import reset_name_counters
+
+    reset_name_counters()
+    words = L.data(name="word",
+                   type=data_type.integer_value_sequence(dict_size))
+    label = L.data(name="label", type=data_type.integer_value(classes))
+    if sharded_emb_mesh is not None:
+        from paddle_tpu_torch.parallel.sharded_embedding import (
+            sharded_embedding_layer)
+
+        embedding = sharded_embedding_layer(words, emb, sharded_emb_mesh,
+                                            axis="model", name="flag_emb")
+    else:
+        embedding = L.embedding(input=words, size=emb, name="flag_emb")
+    l1 = networks.simple_lstm(input=embedding, size=hidden,
+                              name="flag_lstm1")
+    l2 = networks.simple_lstm(input=l1, size=hidden, name="flag_lstm2")
+    pooled = L.pooling(input=l2, pooling_type=pool.MaxPooling())
+    out = L.fc(input=pooled, size=classes, act=A.Softmax(), name="flag_out")
+    cost = L.classification_cost(input=out, label=label)
+    return words, label, out, cost

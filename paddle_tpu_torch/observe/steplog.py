@@ -28,8 +28,10 @@ Record types (field ``type``):
   mirrors ``jax.monitoring`` (compile times) here; the port has no such
   bus and writes one for each kernel library built or loaded at first
   use (``/paddle_tpu_torch/kernel_build/<lib>``,
-  ``/paddle_tpu_torch/kernel_load/<lib>``, ops/_build.py) and for each
-  CUDA graph the fused loop captures
+  ``/paddle_tpu_torch/kernel_load/<lib>``, ops/_build.py), for each
+  program a bundle deserializes
+  (``/paddle_tpu_torch/program_load/<artifact>``, serve/bundle.py) and
+  for each CUDA graph the fused loop captures
   (``/paddle_tpu_torch/cuda_graph_capture``, trainer.py).
 * ``bench_row`` — a benchmark record mirrored by benchmark/run.py, so
   BENCH rows and telemetry can never disagree.
@@ -135,6 +137,7 @@ a record type, fields are only ever added, never renamed (bump
 
 import atexit
 import collections
+import contextlib
 import json
 import math
 import os
@@ -177,13 +180,63 @@ def _ensure_atexit():
 
 def emit_event(event, secs):
     """Write one duration ``event`` record into every open StepLog that
-    takes events — the port's stand-in for the ``jax.monitoring`` duration
-    listener: the kernel build/load at first use (ops/_build.py) and each
-    CUDA graph capture (trainer.py) report their seconds here."""
+    takes events, and show it to every :func:`watch_compiles` block — the
+    port's stand-in for the ``jax.monitoring`` duration listener: the
+    kernel build/load at first use (ops/_build.py), each program a bundle
+    deserializes (serve/bundle.py) and each CUDA graph capture
+    (trainer.py) report their seconds here."""
     with _registry_lock:
         logs = list(_open_logs)
+        watchers = list(_compile_watchers)
     for log in logs:
         log._on_monitoring_event(event, secs)
+    for watcher in watchers:
+        watcher._on_monitoring_event(event, secs)
+
+
+# the events that make a program ready to run: a torch.export program
+# deserialized (the JAX bundle's compile) and a CUDA graph captured (the
+# JAX fused loop's compile); a kernel library's build or load is not one
+COMPILE_EVENT_MARKERS = ("/paddle_tpu_torch/program_load",
+                         "/paddle_tpu_torch/cuda_graph_capture")
+_compile_watchers = set()
+
+
+class CompileWatcher:
+    """Counts the programs made ready while it watches
+    (``COMPILE_EVENT_MARKERS`` events, process-wide): the backing object
+    of :func:`watch_compiles`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.compiles = 0
+        self.events = []
+
+    def _on_monitoring_event(self, event, secs):
+        name = str(event)
+        if any(marker in name for marker in COMPILE_EVENT_MARKERS):
+            with self._lock:
+                self.compiles += 1
+                self.events.append(name)
+
+
+@contextlib.contextmanager
+def watch_compiles():
+    """Context manager counting the programs made ready inside the block
+    (paddle_tpu/observe/steplog.py ``watch_compiles``): every
+    ``torch.export`` program deserialized and every CUDA graph captured,
+    on any thread; a cached program counts nothing. Yields the
+    :class:`CompileWatcher`; read ``.compiles`` after (or during) the
+    block. ``cli serve --join`` answers ``GET /debug/compiles`` from
+    one."""
+    watcher = CompileWatcher()
+    with _registry_lock:
+        _compile_watchers.add(watcher)
+    try:
+        yield watcher
+    finally:
+        with _registry_lock:
+            _compile_watchers.discard(watcher)
 
 
 def _env_or_flag(env, flag):

@@ -1,12 +1,15 @@
-"""The device mesh and the data-parallel strategy (paddle_tpu/parallel/
-mesh.py).
+"""The device mesh, the sharding descriptor and the data-parallel strategy
+(paddle_tpu/parallel/mesh.py).
 
 Replaces (reference): MultiGradientMachine's thread-ring data parallelism
 and the pserver sync-SGD path. The JAX package pjits its train step over a
 ``jax.sharding.Mesh``; here the mesh is the ``torch.distributed`` process
 group (distributed/multihost.py ``initialize_multihost``): one device per
-rank, and the ``data`` axis has the size of the world. Without a process
-group the mesh is this process alone (size 1) and nothing is exchanged.
+rank, the ranks laid out row-major over the named axes, one process group
+per slice of each axis (:meth:`Mesh.axis`). Without a process group the
+mesh is this process alone (size 1) and nothing is exchanged.
+:class:`NamedSharding` (mesh plus :class:`PartitionSpec`) says which
+block of a global tensor a rank holds.
 
 :class:`DataParallel` is synchronous data parallelism over that axis:
 every rank reads the same global batch and trains its contiguous share of
@@ -57,16 +60,56 @@ def device_count():
     return world_size() if _group_up() else local_device_count()
 
 
+class Axis:
+    """One axis of a mesh as this rank sees it: its ``name``, ``size``,
+    this rank's ``index`` on it, the global ``ranks`` of the slice of the
+    mesh this rank shares with the other members of the axis (every other
+    coordinate equal), in axis order, and the process ``group`` over
+    them (None where nothing is exchanged: a size of 1, or no process
+    group)."""
+
+    __slots__ = ("name", "size", "index", "ranks", "group")
+
+    def __init__(self, name, size, index, ranks, group):
+        self.name, self.size, self.index = name, int(size), int(index)
+        self.ranks, self.group = list(ranks), group
+
+    def __repr__(self):
+        return "Axis(%r, size=%d, index=%d)" % (self.name, self.size,
+                                                self.index)
+
+
 class Mesh:
     """Named axes over the ranks of the process group (the port's
     ``jax.sharding.Mesh``): ``shape`` maps each axis name to its size,
-    ``devices`` are the ranks. A context manager, as JAX's mesh is."""
+    ``devices`` are the ranks, laid out row-major over the axes as
+    ``np.array(devices).reshape(sizes)`` lays out JAX's devices. Each
+    axis has one process group per slice (:meth:`axis`); a collective
+    over an axis runs over this rank's slice only. A context manager, as
+    JAX's mesh is."""
 
-    def __init__(self, devices, axis_names, sizes):
+    def __init__(self, devices, axis_names, sizes, groups=None, rank=0):
         self.devices = list(devices)
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, sizes))
         self.size = int(np.prod(sizes)) if sizes else 1
+        coords = (np.unravel_index(self.devices.index(int(rank)), sizes)
+                  if sizes else ())
+        layout = np.array(self.devices).reshape(sizes) if sizes else None
+        self._axes = {}
+        for pos, name in enumerate(self.axis_names):
+            where = list(coords)
+            where[pos] = slice(None)
+            ranks = [int(r) for r in layout[tuple(where)]]
+            self._axes[name] = Axis(name, sizes[pos], coords[pos], ranks,
+                                    (groups or {}).get(name))
+
+    def axis(self, name):
+        """This rank's :class:`Axis` ``name``: its index there, the axis
+        size and the process group of its slice."""
+        enforce(name in self._axes, "mesh %s has no axis %r", self.shape,
+                name)
+        return self._axes[name]
 
     def __enter__(self):
         return self
@@ -78,12 +121,39 @@ class Mesh:
         return "Mesh(%s)" % self.shape
 
 
+def _axis_groups(devices, names, sizes):
+    """{axis name: this rank's process group along it}: one
+    ``torch.distributed.new_group`` per slice of every axis wider than 1
+    (every rank creates every group, in the same order, as new_group
+    requires), the default group where the axis spans the whole world."""
+    import torch.distributed as dist
+
+    if not _group_up() or world_size() == 1:
+        return {}
+    me = rank()
+    layout = np.array(devices).reshape(sizes)
+    groups = {}
+    for pos, name in enumerate(names):
+        if sizes[pos] == 1:
+            continue
+        if sizes[pos] == world_size():
+            groups[name] = dist.group.WORLD
+            continue
+        slices = np.moveaxis(layout, pos, -1).reshape(-1, sizes[pos])
+        for ranks in slices:
+            group = dist.new_group([int(r) for r in ranks])
+            if me in ranks:
+                groups[name] = group
+    return groups
+
+
 def build_mesh(axes=None, devices=None):
     """Build the mesh over the process group's ranks. ``axes``: dict
     name->size or a list of (name, size); -1 for one axis fills it with
     the remaining ranks. The axes' product must be the world size: one
     process drives one device, so a mesh cannot span fewer ranks than the
-    group holds, nor more."""
+    group holds, nor more. Every rank of the group must call it with the
+    same axes (it creates the axes' process groups)."""
     devices = list(range(world_size())) if devices is None else list(devices)
     if axes is None:
         axes = {"data": len(devices)}
@@ -100,7 +170,99 @@ def build_mesh(axes=None, devices=None):
     enforce(sorted(devices) == list(range(world_size())),
             "a mesh spans the ranks 0..%d of the process group, got %s",
             world_size() - 1, devices)
-    return Mesh(devices, names, sizes)
+    return Mesh(devices, names, sizes,
+                groups=_axis_groups(devices, names, sizes), rank=rank())
+
+
+class PartitionSpec(tuple):
+    """One entry per dimension: the mesh axis that dimension is split
+    over, or None (replicated); JAX's ``PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "PartitionSpec%s" % (tuple.__repr__(self),)
+
+
+P = PartitionSpec
+
+
+class NamedSharding:
+    """The port's sharding descriptor: a mesh and a :class:`PartitionSpec`
+    (JAX's ``NamedSharding``). A rank holds the block of a global tensor
+    at its coordinates: :meth:`shard` cuts it, :meth:`gather` puts the
+    global tensor back together from every rank's block (a collective:
+    every rank of the named axes calls it)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+
+    def _dims(self, ndim):
+        enforce(len(self.spec) <= ndim, "sharding %s has more entries than "
+                "the tensor's %d dimensions", self.spec, ndim)
+        return [(d, self.mesh.axis(a)) for d, a in enumerate(self.spec)
+                if a is not None]
+
+    def local_shape(self, shape):
+        shape = list(shape)
+        for d, ax in self._dims(len(shape)):
+            enforce(shape[d] % ax.size == 0, "axis %s of size %d must "
+                    "divide dimension %d of %s", ax.name, ax.size, d,
+                    tuple(shape))
+            shape[d] //= ax.size
+        return tuple(shape)
+
+    def shard(self, tensor):
+        """This rank's block of the global ``tensor`` (a view where it
+        can be one)."""
+        self.local_shape(tensor.shape)
+        for d, ax in self._dims(tensor.dim()):
+            tensor = tensor.chunk(ax.size, d)[ax.index]
+        return tensor
+
+    def block(self, tensor, shape, grad=False):
+        """This rank's block of ``tensor``, the one place that tells a
+        global tensor of ``shape`` from a block of it: a global tensor is
+        cut (a copy, so the global one can be freed; with ``grad`` a
+        differentiable cut whose gradient gathers back whole), a block
+        passes through as it is."""
+        shape = tuple(int(s) for s in shape)
+        local = self.local_shape(shape)
+        if tuple(tensor.shape) == local:
+            return tensor
+        enforce(tuple(tensor.shape) == shape, "a tensor of shape %s is "
+                "neither the global %s nor this rank's block %s of %r",
+                tuple(tensor.shape), shape, local, self)
+        if not grad:
+            return self.shard(tensor).clone()
+        from paddle_tpu_torch.parallel.collectives import split
+
+        for d, ax in self._dims(len(shape)):
+            tensor = split(tensor, ax, d)
+        return tensor
+
+    def leading(self, ndim):
+        """The sharding of the spec's first ``ndim`` dimensions (a per-row
+        optimizer slot of a row-sharded table)."""
+        return NamedSharding(self.mesh, P(*tuple(self.spec)[:ndim]))
+
+    def gather(self, block):
+        """The global tensor from every rank's ``block`` (no gradient)."""
+        import torch.distributed as dist
+
+        out = block.detach()
+        for d, ax in self._dims(block.dim()):
+            if ax.group is None:
+                continue
+            parts = [torch.empty_like(out) for _ in range(ax.size)]
+            dist.all_gather(parts, out.contiguous(), group=ax.group)
+            out = torch.cat(parts, d)
+        return out
+
+    def __repr__(self):
+        return "NamedSharding(%r, %r)" % (self.mesh, self.spec)
 
 
 def _slice_rows(value, lo, hi):
@@ -150,22 +312,24 @@ class DataParallel:
     """Synchronous data parallelism over the mesh's ``axis``.
 
     Usage: ``SGD(..., parallelism=DataParallel(build_mesh()))`` in every
-    rank of the process group. ``shard_optimizer_state=True`` (the JAX
-    default, ZeRO-1 there) is accepted, and the optimizer slots stay whole
-    on each rank: the update is the same, only the memory differs."""
+    rank of the process group. On a mesh of more axes (a sharded
+    embedding over ``model``, say) the batch splits and the gradients sum
+    over this rank's slice of ``axis`` only: the ranks of another axis
+    hold the same rows. ``shard_optimizer_state=True`` (the JAX default,
+    ZeRO-1 there) is accepted, and the optimizer slots stay whole on each
+    rank: the update is the same, only the memory differs."""
 
     def __init__(self, mesh=None, axis="data", shard_optimizer_state=True):
         self.mesh = mesh or build_mesh()
-        enforce(axis in self.mesh.shape, "mesh %s has no axis %r",
-                self.mesh.shape, axis)
-        enforce(self.mesh.shape[axis] == self.mesh.size,
-                "DataParallel spans the whole mesh on %r; mesh %s has other "
-                "axes wider than 1", axis, self.mesh.shape)
+        ax = self.mesh.axis(axis)
         self.axis = axis
         self.shard_optimizer_state = bool(shard_optimizer_state)
-        self.world = self.mesh.size
-        self.rank = rank()
-        self._exchange = _group_up()
+        self.world = ax.size
+        self.rank = ax.index
+        self._first = ax.ranks[0]
+        self._group = ax.group  # None: the default group (a world of one)
+        self._exchange = _group_up() and (ax.group is not None
+                                          or self.mesh.size == 1)
 
     @property
     def backend(self):
@@ -173,7 +337,7 @@ class DataParallel:
         a group (a world of one, nothing exchanged)."""
         import torch.distributed as dist
 
-        return dist.get_backend() if self._exchange else None
+        return dist.get_backend() if _group_up() else None
 
     def check_device(self, device):
         """Refuse a trainer device the process group cannot exchange:
@@ -224,38 +388,46 @@ class DataParallel:
         return local, (rows, total)
 
     # -- the exchange -------------------------------------------------------
-    def broadcast_(self, tensors):
-        """Overwrite ``tensors`` with rank 0's values, in place."""
-        if not self._exchange:
+    def broadcast_(self, tensors, sharded=False):
+        """Overwrite ``tensors`` with rank 0's values, in place; with
+        ``sharded`` (each rank holds its own block, as a sharded
+        embedding's table) with the values of the first rank of this
+        rank's slice of the axis."""
+        if not _group_up():
             return
         import torch.distributed as dist
 
+        group, src = ((self._group, self._first) if sharded
+                      else (None, 0))
+        if sharded and not self._exchange:
+            return
         with torch.no_grad():
             for t in tensors:
-                dist.broadcast(t, src=0)
+                dist.broadcast(t, src=src, group=group)
 
     def all_reduce_(self, tensor):
-        """Sum ``tensor`` over the ranks, in place; returns it."""
+        """Sum ``tensor`` over the axis, in place; returns it."""
         if self._exchange:
             import torch.distributed as dist
 
-            dist.all_reduce(tensor)
+            dist.all_reduce(tensor, group=self._group)
         return tensor
 
     def gather(self, obj):
-        """Every rank's ``obj`` (picklable), in rank order."""
+        """Every rank's ``obj`` (picklable) along the axis, in rank
+        order."""
         if not self._exchange:
             return [obj]
         import torch.distributed as dist
 
         out = [None] * self.world
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self._group)
         return out
 
     @contextlib.contextmanager
     def batch_scope(self, live):
         """While a step's forward and backward run: train-mode batch norm
-        sums its moments over the ranks (this rank's times ``live``, 0 for
+        sums its moments over the axis (this rank's times ``live``, 0 for
         a rank with an empty share)."""
         def reduce(t):
             if not live:
@@ -283,9 +455,24 @@ def current_mesh():
     return _current_mesh
 
 
+def layer_column_axis(extra_attr):
+    """The axis an fc layer's output features split over: the last entry
+    of its ``ExtraAttr(sharding=...)`` under an active mesh, when that
+    axis is wider than 1; else None (the layer computes whole). Any other
+    entry, and any other layer kind, leaves the value as it is: the value
+    semantics of JAX's ``with_sharding_constraint``."""
+    spec = getattr(extra_attr, "sharding", None)
+    if _current_mesh is None or not spec or spec[-1] is None:
+        return None
+    ax = _current_mesh.axis(spec[-1])
+    return ax if ax.size > 1 else None
+
+
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Make ``mesh`` the active mesh."""
+    """Make ``mesh`` the active mesh: an fc layer whose
+    ``ExtraAttr(sharding=)`` names one of its axes computes its column
+    block there (:func:`layer_column_axis`)."""
     global _current_mesh
     prev = _current_mesh
     _current_mesh = mesh

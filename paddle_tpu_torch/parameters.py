@@ -26,9 +26,27 @@ TAR_FORMAT = "paddle_tpu-parameters-v1"
 
 
 class Parameters:
+    """A parameter whose spec carries a sharding (a sharded embedding's
+    table, parallel/sharded_embedding.py) is held as this rank's block
+    only; ``get`` (and so ``to_tar`` / ``to_npz``) gathers the global
+    value, a collective every rank of the sharding's axes must join, and
+    ``set`` takes the global value and keeps the block."""
+
     def __init__(self, values=None, specs=None):
-        self._values = dict(values or {})
         self._specs = dict(specs or {})
+        self._values = {k: self._block(k, v)
+                        for k, v in dict(values or {}).items()}
+
+    def _sharding(self, key):
+        return getattr(self._specs.get(key), "sharding", None)
+
+    def _block(self, key, value):
+        """This rank's block of ``value`` where ``key`` is sharded
+        (``NamedSharding.block``); ``value`` as it is otherwise."""
+        sharding = self._sharding(key)
+        if sharding is None:
+            return value
+        return sharding.block(value, self._specs[key].shape)
 
     @staticmethod
     def create(topology_or_cost, rng=None, dtype=None, seed=None,
@@ -86,6 +104,8 @@ class Parameters:
         """The value as a host numpy array: float32 for a bf16 tensor, every
         other dtype (a quantized bundle's int8 included) as it is."""
         t = self._values[key].detach()
+        if self._sharding(key) is not None:
+            t = self._sharding(key).gather(t)
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -94,10 +114,11 @@ class Parameters:
         enforce(key in self._values, "unknown parameter %r", key)
         old = self._values[key]
         value = torch.as_tensor(np.asarray(value))
-        enforce(tuple(value.shape) == tuple(old.shape),
+        enforce(tuple(value.shape) == self.get_shape(key),
                 "shape mismatch for %r: %s vs %s", key, tuple(value.shape),
-                tuple(old.shape))
-        self._values[key] = value.to(dtype=old.dtype, device=old.device)
+                self.get_shape(key))
+        self._values[key] = self._block(key, value).to(dtype=old.dtype,
+                                                       device=old.device)
 
     def __getitem__(self, key):
         return self.get(key)
@@ -106,6 +127,9 @@ class Parameters:
         self.set(key, value)
 
     def get_shape(self, key):
+        """The global shape (a sharded parameter's too)."""
+        if self._sharding(key) is not None:
+            return tuple(self._specs[key].shape)
         return tuple(self._values[key].shape)
 
     def spec(self, key):
@@ -127,7 +151,8 @@ class Parameters:
         return trainable, static, state
 
     def as_dict(self):
-        """``{name: tensor}``, the form Topology.apply takes."""
+        """``{name: tensor}``, the form Topology.apply takes (a sharded
+        parameter's block)."""
         return dict(self._values)
 
     def copy(self):

@@ -47,6 +47,7 @@ import torch
 
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.data.bucketing import bucket_index
+from paddle_tpu_torch.observe import steplog
 from paddle_tpu_torch.serve.sessions import host_leaf
 
 MANIFEST_NAME = "manifest.json"
@@ -223,6 +224,9 @@ class Bundle:
                     name = (artifact if key == self._home
                             else "%s@%s" % (artifact, key))
                     self.load_seconds[name] = time.perf_counter() - t0
+                    steplog.emit_event(
+                        "/paddle_tpu_torch/program_load/" + name,
+                        self.load_seconds[name])
                     self._programs[(artifact, key)] = program
         return program
 

@@ -194,6 +194,7 @@ class _Handler(_BaseHandler):
     slo = None
     controller = None
     compiles_fn = None
+    launches_fn = None
 
     def do_GET(self):
         if self.path == "/healthz":
@@ -210,7 +211,10 @@ class _Handler(_BaseHandler):
         elif self.path == "/metrics":
             self._send_metrics(self.engine.metrics)
         elif self.path == "/stats":
-            self._send(200, self.engine.stats())
+            stats = self.engine.stats()
+            if self.launches_fn is not None:
+                stats["kernel_launches"] = self.launches_fn()
+            self._send(200, stats)
         elif self.path == "/debug/traces":
             # sampling state + the slowest-N per-request phase
             # breakdowns (exemplars are kept for every request, so this
@@ -227,7 +231,14 @@ class _Handler(_BaseHandler):
             else:
                 self._send(200, self.controller.snapshot())
         elif self.path == "/debug/compiles":
-            self._send(200, {"compiles": int(self.compiles_fn())})
+            # the programs made ready since serve started: the cluster
+            # front diffs this across a host's death to show that a
+            # re-homed session loaded nothing new on the survivor
+            if self.compiles_fn is None:
+                self._send(404, {"error": "no compile watcher on this "
+                                          "server (serve --join)"})
+            else:
+                self._send(200, {"compiles": int(self.compiles_fn())})
         elif self.path == "/manifest":
             self._send(200, self.bundle.manifest)
         else:
@@ -407,26 +418,26 @@ class _Server(ThreadingHTTPServer):
 
 
 def make_server(bundle, engine, host="127.0.0.1", port=0, slo=None,
-                controller=None, compiles_fn=None):
+                controller=None, compiles_fn=None, launches_fn=None):
     """Server bound to (host, port); ``port=0`` picks a free port
     (``server.server_address[1]`` is the actual one). ``slo=`` is a
     :class:`~paddle_tpu_torch.observe.health.SloMonitor`; when omitted a
     no-objective monitor is built so ``GET /debug/slo`` always answers.
     ``controller=`` (a :class:`~paddle_tpu_torch.control.Controller`)
-    enables ``GET /debug/control``. ``GET /debug/compiles`` answers
-    ``compiles_fn()``, by default the number of programs the bundle has
-    deserialized (``Bundle.load_seconds``): a program's load is the
-    port's counterpart of the JAX bundle's compile, and a warm server
-    loads none."""
+    enables ``GET /debug/control``. ``compiles_fn=`` (``cli serve
+    --join`` passes a :func:`~paddle_tpu_torch.observe.steplog.
+    watch_compiles` counter) enables ``GET /debug/compiles``; without it
+    the route answers 404, as the JAX server's does. ``launches_fn=``
+    (``cli serve --join`` passes the process's kernel launch counters)
+    adds ``kernel_launches`` to ``GET /stats``, as a worker fleet's
+    ``/stats`` carries each worker's."""
     if slo is None:
         slo = observe_health.SloMonitor([engine])
-    if compiles_fn is None:
-        def compiles_fn():
-            return len(bundle.load_seconds)
     handler = type("BundleHandler", (_Handler,),
                    {"engine": engine, "bundle": bundle, "slo": slo,
                     "controller": controller,
-                    "compiles_fn": staticmethod(compiles_fn)})
+                    "compiles_fn": staticmethod(compiles_fn),
+                    "launches_fn": staticmethod(launches_fn)})
     return _Server((host, port), handler)
 
 

@@ -158,6 +158,21 @@ def _copy_into(live, values):
         live.copy_(torch.as_tensor(np.asarray(values)).to(live.dtype))
 
 
+def _map_sharded(tree, names, fn, name=None):
+    """``tree`` (the trainer's values or its per-name optimizer state)
+    with ``fn(name, leaf)`` applied to every leaf kept under a name in
+    ``names`` (a sharded parameter: its value, and each slot, per-row
+    step or average under its name)."""
+    if isinstance(tree, dict):
+        return {k: _map_sharded(v, names, fn, k if k in names else name)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_map_sharded(v, names, fn, name) for v in tree)
+    if name is None or not hasattr(tree, "shape"):
+        return tree
+    return fn(name, tree)
+
+
 class SGD:
     """v2-API trainer. ``update_equation`` is a paddle_tpu_torch.optimizer
     Optimizer; ``extra_layers`` are evaluators (paddle_tpu_torch.evaluator)
@@ -208,18 +223,28 @@ class SGD:
                             for n in trainable + static
                             if parameters.spec(n) is not None}
         values = parameters.as_dict()
-        pool = ParamPool({n: values[n] for n in trainable},
-                         self._param_meta)
+        # a sharded parameter (each rank its own block) stays out of the
+        # flat pool, whose buffer every rank of the world shares
+        self._sharded = {n: parameters.spec(n).sharding
+                         for n in trainable + static + state
+                         if getattr(parameters.spec(n), "sharding", None)
+                         is not None}
+        pool = ParamPool({n: values[n] for n in trainable
+                          if n not in self._sharded}, self._param_meta)
         self._pool = pool if (pool.enabled() and ParamPool.compatible_with(
             update_equation)) else None
         self._pooled = ({e[0] for e in self._pool.entries}
                         if self._pool is not None else set())
         self._materialize_device_state()
         if parallelism is not None:
-            # every rank starts from rank 0's values
-            parallelism.broadcast_(_tree_tensors(self._carry())
-                                   + list(self._static.values())
-                                   + list(self._state.values()))
+            # every rank starts from rank 0's values; a sharded parameter's
+            # block from the first rank of its data-axis slice
+            held = (list(self._carry().items())
+                    + list(self._static.items()) + list(self._state.items()))
+            for sharded in (False, True):
+                parallelism.broadcast_(
+                    [t for n, t in held if (n in self._sharded) == sharded],
+                    sharded=sharded)
         self._opt_state = update_equation.init_state(self._carry(),
                                                      self._param_meta)
         # update hooks prune the initial values too (reference:
@@ -627,7 +652,7 @@ class SGD:
             # unwinding stays the one the caller sees
             try:
                 if ckpt_ctx is not None:
-                    self._checkpoint_close(ckpt_ctx)
+                    self._checkpoint_close(ckpt_ctx, completed)
             except Exception:
                 if completed:
                     raise
@@ -1040,19 +1065,26 @@ class SGD:
 
     def _checkpoint_overlapped(self, ctx, pass_id, cursor):
         """The step thread's whole share of an overlapped save: a
-        device-side clone of the state on the compute stream, the start of
-        its copy into pinned host memory on a side stream, and the handoff
-        to the ckpt-writer thread (which waits on the copy's event)."""
+        device-side clone of the state on the compute stream (a sharded
+        parameter's gathered there, so the writer thread makes no
+        collective), the start of its copy into pinned host memory on a
+        side stream, and the handoff to the ckpt-writer thread (which
+        waits on the copy's event)."""
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
         t0 = time.perf_counter()
         with observe_spans.span("checkpoint_snapshot",
                                 args={"step": self._step_count}):
             with torch.no_grad():
-                values = _tree_map(torch.clone, {
+                values = _tree_map(torch.clone, self._gather_sharded({
                     "params": dict(self._trainable),
                     "state": dict(self._state),
-                    "static": dict(self._static), "opt": self._opt_state})
+                    "static": dict(self._static), "opt": self._opt_state}))
+            if not self._writes_checkpoints():
+                self.checkpoint_log.append({
+                    "step": self._step_count, "overlapped": True,
+                    "step_thread_ms": (time.perf_counter() - t0) * 1e3})
+                return
             event = None
             if self.device.type == "cuda":
                 if getattr(self, "_ckpt_stream", None) is None:
@@ -1072,8 +1104,10 @@ class SGD:
         unpool = self._pool.unpool_state if self._pool is not None else None
         ms = (time.perf_counter() - t0) * 1e3
         observe_trainview.get_train_history().record_checkpoint(ms)
+        template = (Parameters(None, self._global_specs()) if self._sharded
+                    else self.parameters.copy())
         ctx["writer"].submit(ckpt.CheckpointSnapshot(
-            host, self.parameters.copy(), step=self._step_count,
+            host, template, step=self._step_count,
             pass_id=pass_id, pass_cursor=cursor,
             rng=self._generator.get_state(), event=event, unpool=unpool,
             step_thread_ms=ms))
@@ -1094,6 +1128,11 @@ class SGD:
                                         resume_at=(pass_id, cursor))
         ms = (time.perf_counter() - t0) * 1e3
         observe_trainview.get_train_history().record_checkpoint(ms)
+        if path is None:   # another rank writes the sharded model's state
+            self.checkpoint_log.append({"step": self._step_count,
+                                        "step_thread_ms": ms,
+                                        "overlapped": False})
+            return
         nbytes = ckpt.checkpoint_bytes(path)
         self.checkpoint_log.append({"step": self._step_count,
                                     "step_thread_ms": ms, "bytes": nbytes,
@@ -1102,21 +1141,31 @@ class SGD:
             ckpt.log_commit(ctx["tele"].slog, self._step_count, ms, nbytes,
                             False, ms, pass_id, path)
 
-    def _checkpoint_close(self, ctx):
+    def _checkpoint_close(self, ctx, completed=False):
         """Drain and stop the writer; re-raises a writer error so a
-        checkpointing run cannot silently lose durability."""
+        checkpointing run cannot silently lose durability. After a run
+        that ``completed``, a sharded model's ranks wait for rank 0's
+        commits, so none leaves train() before a resume can read them."""
         self._ckpt_writer = None
         writer = ctx["writer"]
-        if writer is not None:
-            writer.close()
-            # a snapshot superseded before the writer started it has no
-            # commit, and keeps no bytes
-            commits = {c["step"]: c for c in writer.commits}
-            for entry in self.checkpoint_log:
-                commit = commits.get(entry["step"])
-                if commit is not None:
-                    entry.update(bytes=commit["bytes"],
-                                 writer_ms=commit["writer_ms"])
+        try:
+            if writer is not None:
+                writer.close()
+                # a snapshot superseded before the writer started it has
+                # no commit, and keeps no bytes
+                commits = {c["step"]: c for c in writer.commits}
+                for entry in self.checkpoint_log:
+                    commit = commits.get(entry["step"])
+                    if commit is not None:
+                        entry.update(bytes=commit["bytes"],
+                                     writer_ms=commit["writer_ms"])
+        finally:
+            from paddle_tpu_torch.parallel.mesh import world_size
+
+            if completed and self._sharded and world_size() > 1:
+                import torch.distributed as dist
+
+                dist.barrier()
 
     def _resume_restore(self, directory, mode=True):
         """Restore the newest valid checkpoint for ``train(resume=...)``;
@@ -1163,15 +1212,31 @@ class SGD:
         package's format). With a ``coordinator`` client
         (distributed/client.py) the trainer takes part in the save
         election, so exactly one worker writes (reference
-        RequestSaveModel); a loser returns None. ``resume_at=(pass,
-        cursor)`` embeds the trainer_state block a deterministic
-        ``train(resume=True)`` needs."""
+        RequestSaveModel); a loser returns None. Every rank of a model
+        with sharded parameters calls it without a ``coordinator``: each
+        gathers its blocks, rank 0 writes and the others return None.
+        ``resume_at=(pass, cursor)`` embeds the trainer_state block a
+        deterministic ``train(resume=True)`` needs."""
         from paddle_tpu_torch.distributed import checkpoint as ckpt
 
+        enforce(coordinator is None or not self._sharded,
+                "save_checkpoint(coordinator=) elects one writer, but "
+                "gathering the sharded parameters %s needs every rank: "
+                "save without coordinator= (rank 0 writes)",
+                sorted(self._sharded))
         if coordinator is not None and not coordinator.request_save_model():
             return None
         self._sync_back()
-        opt_state = _tree_map(ckpt.to_numpy, self._opt_state)
+        with torch.no_grad():
+            opt_state = self._gather_sharded(self._opt_state)
+        parameters = self.parameters
+        if self._sharded:
+            parameters = Parameters(
+                self._gather_sharded(parameters.as_dict()),
+                self._global_specs())
+        if not self._writes_checkpoints():
+            return None
+        opt_state = _tree_map(ckpt.to_numpy, opt_state)
         if self._pool is not None:
             opt_state = self._pool.unpool_state(opt_state)
         extra = None
@@ -1180,9 +1245,70 @@ class SGD:
                 self._generator.get_state(), resume_at[0], resume_at[1],
                 self._step_count)}
         return ckpt.save_checkpoint(
-            directory, self.parameters, opt_state=opt_state,
+            directory, parameters, opt_state=opt_state,
             step=self._step_count, pass_id=pass_id, keep=keep,
             extra_meta=extra)
+
+    # -- sharded parameters in a checkpoint ----------------------------------
+    # A checkpoint holds global values (the JAX package's format). Every
+    # rank gathers its sharded blocks and their optimizer entries on the
+    # step thread, a collective over the sharding's axes, and rank 0 of
+    # the world writes (the others hold the same global values); a
+    # restore cuts each rank's block again.
+    def _leaf_sharding(self, name, ndim):
+        """The sharding of a leaf of ``ndim`` dimensions kept for sharded
+        parameter ``name`` and the global shape it has: the parameter's
+        own for a leaf of its rank, that of its leading dimensions for a
+        per-row one (None for a scalar)."""
+        shape = self.parameters.spec(name).shape
+        if ndim == 0 or ndim > len(shape):
+            return None, None
+        return self._sharded[name].leading(ndim), shape[:ndim]
+
+    def _gather_sharded(self, tree):
+        """``tree`` with every block of a sharded parameter and of its
+        optimizer entries gathered to the global tensor."""
+        def gather(name, block):
+            sharding, shape = self._leaf_sharding(name, block.dim())
+            if sharding is None or \
+                    tuple(block.shape) != sharding.local_shape(shape):
+                return block
+            return sharding.gather(block)
+
+        return _map_sharded(tree, self._sharded, gather)
+
+    def _block_sharded(self, tree):
+        """``tree`` (numpy or tensor leaves) with every global tensor of a
+        sharded parameter's entries cut to this rank's block."""
+        def cut(name, value):
+            value = torch.as_tensor(np.asarray(value))
+            sharding, shape = self._leaf_sharding(name, value.dim())
+            if sharding is None or tuple(value.shape) != shape:
+                return value
+            return sharding.block(value, shape)
+
+        return _map_sharded(tree, self._sharded, cut)
+
+    def _global_specs(self):
+        """The parameters' specs without their sharding (a checkpoint's
+        values are global)."""
+        from paddle_tpu_torch.graph import ParamSpec
+
+        specs = {}
+        for name in self.parameters.names():
+            spec = self.parameters.spec(name)
+            if name in self._sharded:
+                spec = ParamSpec(spec.name, spec.shape, spec.initializer,
+                                 spec.attr, spec.is_state)
+            specs[name] = spec
+        return specs
+
+    def _writes_checkpoints(self):
+        """Whether this rank writes: every rank of an unsharded model (each
+        holds the whole state), rank 0 alone of a sharded one."""
+        from paddle_tpu_torch.parallel.mesh import rank
+
+        return not self._sharded or rank() == 0
 
     def restore_checkpoint(self, directory_or_path):
         """Restore parameters and optimizer state from the newest valid
@@ -1218,7 +1344,8 @@ class SGD:
                 # per-name template (the wire format), then re-pool
                 template = _tree_map(ckpt.to_numpy, self.optimizer.init_state(
                     self._trainable, self._param_meta))
-                state = ckpt.unflatten_state(template, opt_flat)
+                state = self._block_sharded(
+                    ckpt.unflatten_state(template, opt_flat))
                 if self._pool is not None:
                     state = self._pool.pool_state(state)
                 _copy_into(self._opt_state, state)

@@ -583,11 +583,12 @@ def test_cli_test_and_time(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["merge_model", "--params", "p.tar", "-o", "m.tar"], "not ported yet"),
     (["analyze", "--all"], "not ported yet"),
-    (["serve", "b", "--join", "h:1"], "not ported yet"),
+    (["cluster_train", "--num-processes", "2", "--devices-per-process",
+      "2"], "not ported yet"),
     (["observe", ".", "--regress", "BASELINE.json"], "not ported yet")])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):
     conf, _ = _write_config(tmp_path, "cfg_refuse")
-    if argv[0] == "train":
+    if argv[0] in ("train", "cluster_train"):
         argv = argv + ["--config", conf, "--device", "cpu"]
     with pytest.raises((NotImplementedError, EnforceError), match=match):
         cli.main(argv)
@@ -597,12 +598,24 @@ def test_unported_verbs_and_options_raise(tmp_path, argv, match):
 
 @pytest.mark.parametrize("flag", ["--front", "--host-id", "--lease-ttl",
                                   "--rehome-retries"])
-def test_cluster_flags_raise_by_name(flag):
+def test_cluster_flags_raise_by_name(flag, monkeypatch):
+    """The name is kept from when the cluster flags were refused: each now
+    parses as the JAX CLI's does, given and left at its default."""
+    import paddle_tpu.cli as jcli
+
     value = {"--front": [], "--host-id": ["h1"], "--lease-ttl": ["5"],
              "--rehome-retries": ["1"]}[flag]
-    with pytest.raises(EnforceError, match="serve %s is not ported yet"
-                       % flag):
-        cli.main(["serve", "b", flag, *value])
+    seen = {}
+    for name, module in (("port", cli), ("jax", jcli)):
+        monkeypatch.setattr(module, "cmd_serve", lambda args, name=name:
+                            seen.setdefault(name, []).append(vars(args)))
+        module.main(["serve", "b", flag, *value])
+        module.main(["serve", "b"])
+    key = flag[2:].replace("-", "_")
+    given, default = seen["port"]
+    assert given[key] == seen["jax"][0][key] != default[key]
+    assert default[key] == seen["jax"][1][key]
+    assert default["join"] == seen["jax"][1]["join"] == ""
 
 
 @pytest.fixture(scope="module")

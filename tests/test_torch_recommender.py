@@ -554,8 +554,20 @@ def test_sparse_sequence_slot_export_is_refused():
 
 
 def test_sharded_ctr_and_a_trainer_without_a_card_are_refused(monkeypatch):
-    with pytest.raises(EnforceError, match="not ported yet"):
-        rec.wide_deep_ctr(sharded_mesh=object())
+    """The name is kept from when the sharded CTR was refused: it now
+    builds its field embeddings vocab-sharded over the mesh's ``model``
+    axis (tests/test_torch_parallel.py trains it in a world of ranks); a
+    trainer without a card is still refused."""
+    from paddle_tpu_torch.parallel import build_mesh
+
+    reset_name_counters()
+    _, _, sharded = rec.wide_deep_ctr(
+        sharded_mesh=build_mesh({"data": 1, "model": 1}), **CTR)
+    topo = Topology(sharded)
+    assert [topo.by_name["ctr_field%d_emb" % i].layer_type
+            for i in range(3)] == ["sharded_embedding"] * 3
+    assert topo.param_specs()["ctr_field0_emb.w0"].sharding.spec == \
+        ("model", None)
     reset_name_counters()
     _, _, cost = rec.wide_deep_ctr(**CTR)
     params = Parameters.create(cost, device="cpu")

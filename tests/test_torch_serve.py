@@ -340,9 +340,9 @@ def test_engine_metrics_stats_and_shedding_match_jax(port_bundle, tmp_path):
 
 
 def test_http_routes_answer_as_the_jax_server(port_bundle):
-    """/livez, /metrics, /stats, /debug/traces, /debug/slo,
-    /debug/compiles and /manifest answer; /debug/control is 404 without
-    a controller; traceparent is echoed."""
+    """/livez, /metrics, /stats, /debug/traces, /debug/slo and /manifest
+    answer; /debug/control is 404 without a controller and
+    /debug/compiles without a compile watcher; traceparent is echoed."""
     bundle = load_bundle(port_bundle[0], device="cpu")
     engine = InferenceEngine(bundle, max_latency_ms=2.0)
     server, thread = serve_in_thread(bundle, engine)
@@ -359,13 +359,10 @@ def test_http_routes_answer_as_the_jax_server(port_bundle):
         with urllib.request.urlopen(http_req) as fh:
             assert fh.headers["traceparent"].split("-")[1] == "ab" * 16
         for path in ("/livez", "/stats", "/debug/traces", "/debug/slo",
-                     "/debug/compiles", "/manifest"):
+                     "/manifest"):
             with urllib.request.urlopen(url + path) as fh:
                 body = json.loads(fh.read())
                 assert fh.status == 200, path
-            if path == "/debug/compiles":
-                # the two buckets' programs, loaded at warmup
-                assert body == {"compiles": 2}
             if path == "/manifest":
                 assert body == bundle.manifest
             if path == "/debug/slo":
@@ -374,11 +371,75 @@ def test_http_routes_answer_as_the_jax_server(port_bundle):
             text = fh.read().decode()
         assert "paddle_tpu_serve_requests_total" in text
         assert "paddle_tpu_serve_request_latency_ms" in text
-        with pytest.raises(urllib.error.HTTPError) as exc:
-            urllib.request.urlopen(url + "/debug/control")
-        assert exc.value.code == 404
+        for path in ("/debug/control", "/debug/compiles"):
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                urllib.request.urlopen(url + path)
+            assert exc.value.code == 404, path
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
         engine.stop()
+
+
+def _get(url):
+    """(status, JSON body) of a GET, error answers included."""
+    try:
+        with urllib.request.urlopen(url) as fh:
+            return fh.status, json.loads(fh.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def test_debug_compiles_answers_as_the_jax_server(tmp_path):
+    """The same call through both packages' make_server: without a
+    compile watcher /debug/compiles is 404 with the same body; with one
+    (cli serve --join) it counts the programs made ready inside the
+    watch, which for the port is each bucket's program deserialized at
+    warmup, and nothing for a request served warm."""
+    from paddle_tpu.serve import InferenceEngine as JaxEngine
+    from paddle_tpu.serve import load_bundle as jax_load
+    from paddle_tpu.serve import server as jax_server
+    from paddle_tpu_torch.observe import steplog
+    from paddle_tpu_torch.serve import server as port_server
+    from tests.torch_fleet import MLP, MLP_BUILDER, export_both, mlp_request
+
+    port_dir, jax_dir = export_both(tmp_path, MLP_BUILDER, MLP)
+    answers = {}
+    for name, load, engine_cls, module in (
+            ("jax", jax_load, JaxEngine, jax_server),
+            ("port", lambda d: load_bundle(d, device="cpu"),
+             InferenceEngine, port_server)):
+        bundle = load(port_dir if name == "port" else jax_dir)
+        engine = engine_cls(bundle, max_latency_ms=2.0, warmup=True)
+        server, thread = module.serve_in_thread(bundle, engine)
+        try:
+            answers[name] = _get("http://127.0.0.1:%d/debug/compiles"
+                                 % server.server_address[1])
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            engine.stop()
+    assert answers["port"] == answers["jax"]
+    assert answers["port"][0] == 404
+    with steplog.watch_compiles() as watcher:
+        bundle = load_bundle(port_dir, device="cpu")
+        engine = InferenceEngine(bundle, max_latency_ms=2.0, warmup=True)
+        server, thread = port_server.serve_in_thread(
+            bundle, engine, compiles_fn=lambda: watcher.compiles)
+        url = "http://127.0.0.1:%d/debug/compiles" % server.server_address[1]
+        try:
+            assert _get(url) == (200, {"compiles": 2})
+            engine.infer(mlp_request(3), timeout=60)
+            assert _get(url) == (200, {"compiles": 2})
+            assert all("/paddle_tpu_torch/program_load/" in e
+                       for e in watcher.events)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            engine.stop()
+    with steplog.watch_compiles() as outside:
+        load_bundle(port_dir, device="cpu")
+    assert outside.compiles == 0  # loaded lazily: nothing at load
