@@ -611,6 +611,25 @@ result line:
            (B 2, L 4096, 8 heads of 64, f32, causal): the output block and
            the whole gradients within 1e-4 of full_attention on rank 0,
            ms and each rank's peak bytes against full attention's.
+    analyze_card  the static analysis at the flagship's full width (f32,
+           2 x LSTM 256, batch 64): ``cli analyze --all`` in a fresh
+           process exits 0 with its clean line (its seconds); ``cli
+           analyze --topology`` of a v2 flagship config with buckets 25,
+           50, 100 and steps_per_call 4 (a seeded reader: six blocks of
+           four batches, each block's lengths in one bucket, then a
+           ragged tail that leaves a partial batch a bucket) in another,
+           side by side: no errors, P programs; the same config trained
+           on the card under PADDLE_TPU_TORCH_ANALYZE=1 inside
+           analyze.max_retraces(P): exactly P CUDA graphs captured, each
+           one predicted entry (steps, rows, padded length), 2 K1 + 2 K2
+           a step inside the graphs, the costs and parameters bit for
+           bit those of the run without the hook; a fresh trainer under
+           max_retraces(P - 1) raises RetraceBudgetExceeded; each
+           predicted entry's resident bytes within 25 % of the trainer's
+           live parameter, slot and feed-slot bytes, the predicted peak
+           beside torch.cuda.max_memory_allocated(); then K1 at each
+           bucket's (T, 64, 256) and K2 at (25, 64, 256) and (50, 64,
+           256) against their plain versions.
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -628,7 +647,8 @@ result line:
            K5 in the serving cluster's surviving host, K1 behind the C API
            (the merged flagship at (128, 32, 256) and the int8 bundle), K9
            in the int8 bundle the C API loaded and K2 in interchange_card's
-           training fed from record shards, each timed at that
+           training fed from record shards, K1 and K2 at each of
+           analyze_card's buckets, each timed at that
            shape against its plain version), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
@@ -10217,6 +10237,253 @@ def phase_parallel_card(torch, lk, tmp):
     return {"launches": ranks[0]["flagship"]["launches"], "row": row}
 
 
+# analyze_card: the static analysis on the card (module docstring): the
+# lint in a fresh process, the program prediction of a v2 flagship config
+# and the live run pinned to it
+# the reader: ANALYZE_BLOCKS blocks of K batches, each block's lengths in
+# one bucket (cycling 5-25, 26-50, 51-100), so rebucketing gives chunks of
+# K; then ANALYZE_TAIL samples of lengths 5-100, which leave a partial
+# batch in each bucket (1-step chunks)
+ANALYZE_BUCKETS, ANALYZE_K = [25, 50, 100], 4
+ANALYZE_BLOCKS, ANALYZE_TAIL = 6, 100
+ANALYZE_CASES = [(25, TRAIN_BATCH, 256), (50, TRAIN_BATCH, 256),
+                 (100, TRAIN_BATCH, 256)]
+TOL_ANALYZE_HBM = 0.25  # the JAX package's (tests/test_analyze.py:739-762)
+ANALYZE_CONFIG_SRC = '''
+import numpy as np
+from paddle_tpu_torch import data_type, layer, optimizer as opt
+from paddle_tpu_torch.models.text import text_classification_lstm
+
+batch_size = %(batch)d
+
+
+def cost():
+    out = text_classification_lstm(**%(flagship)r)
+    label = layer.data(name="label", type=data_type.integer_value(2))
+    return layer.classification_cost(input=out, label=label)
+
+
+def optimizer():
+    return opt.Momentum(learning_rate=0.01, momentum=0.9)
+
+
+def train_reader():
+    spans = [(5, 25), (26, 50), (51, 100)]
+
+    def sample(rng, lo, hi):
+        n = int(rng.randint(lo, hi + 1))
+        return rng.randint(0, %(vocab)d, n).tolist(), int(rng.randint(0, 2))
+
+    def reader():
+        rng = np.random.RandomState(%(seed)d)
+        for block in range(%(blocks)d):
+            for _ in range(%(block_rows)d):
+                yield sample(rng, *spans[block %% 3])
+        for _ in range(%(tail)d):
+            yield sample(rng, 5, 100)
+    return reader
+'''
+
+
+def analyze_cli(args):
+    """``python -m paddle_tpu_torch.cli analyze ARGS`` in a fresh process
+    on this checkout: (Popen, start time)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    return (subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.cli", "analyze", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env), time.perf_counter())
+
+
+def analyze_finish(job, what):
+    proc, t0 = job
+    out, err = proc.communicate(timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("analyze_card %s: exit %d\n%s\n%s"
+                             % (what, proc.returncode, out[-2000:],
+                                err[-2000:]))
+    return out, seconds
+
+
+def analyze_live_bytes(tr):
+    """{(steps, rows, padded length): the trainer's parameter, slot and
+    state bytes plus that graph's feed slots} for every captured graph."""
+    from paddle_tpu_torch.data.feeder import feed_tensors
+
+    held = sum(int(t.nbytes) for t in tr._mutable_tensors()) + sum(
+        int(t.nbytes) for t in tr._static.values())
+    out = {}
+    for entry in tr._graphs.values():
+        info = entry["info"]
+        feed = sum(int(t.nbytes) for f in entry["feeds"]
+                   for t in feed_tensors(f))
+        out[analyze_key(info)] = held + feed
+    return out
+
+
+def analyze_key(info):
+    """(steps, rows, padded length) of a captured graph (trainer.graphs):
+    the word slot is the feed's one 2-D tensor."""
+    rows = info["feed_shapes"][0][0]
+    pad = max(s[1] for s in info["feed_shapes"] if len(s) == 2)
+    return info["steps"], rows, pad
+
+
+def phase_analyze_card(torch, lk, tmp):
+    """analyze_card (module docstring)."""
+    from paddle_tpu_torch import analyze, cli, minibatch, trainer
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.parameters import Parameters
+    from paddle_tpu_torch.topology import Topology
+
+    conf = os.path.join(tmp, "analyze_flagship.py")
+    with open(conf, "w") as fh:
+        fh.write(ANALYZE_CONFIG_SRC % {
+            "batch": TRAIN_BATCH, "flagship": FLAGSHIP, "seed": SEED + 110,
+            "blocks": ANALYZE_BLOCKS, "block_rows": ANALYZE_K * TRAIN_BATCH,
+            "tail": ANALYZE_TAIL, "vocab": FLAGSHIP["dict_size"]})
+    # (a) and (b) in fresh processes, side by side
+    lint_job = analyze_cli(["--all"])
+    topo_job = analyze_cli(["--topology", "--config", conf, "--buckets",
+                            ",".join(map(str, ANALYZE_BUCKETS)),
+                            "--steps-per-call", str(ANALYZE_K),
+                            "--format", "json"])
+    topo_out, topo_s = analyze_finish(topo_job, "--topology")
+    report = json.loads(topo_out)
+    pred = report["jit_entries"]
+    programs = pred["programs"]
+    predicted = {(e.get("steps", 1), e["rows"], e["seq_pad"]["word"]): e
+                 for e in pred["entries"]}
+
+    # (c) the live run under the hook and the budget, against the same
+    # run without the hook
+    cfg = cli._load_config(conf)
+    cost = cfg.cost()
+    topology = Topology(cost)
+    init = numpy_params(topology, SEED + 111)
+    batches = list(minibatch.batch(cfg.train_reader(), TRAIN_BATCH)())
+
+    def fresh():
+        params = Parameters({k: v.clone() for k, v in
+                             init.as_dict().items()},
+                            topology.param_specs())
+        return trainer.SGD(cost, params, cfg.optimizer(), device=DEVICE)
+
+    options = {"buckets": ANALYZE_BUCKETS, "steps_per_call": ANALYZE_K}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hooked = fresh()
+    lk.reset_launches()
+    before = hooked.graph_launches()
+    os.environ["PADDLE_TPU_TORCH_ANALYZE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        with analyze.max_retraces(programs) as watcher:
+            h_costs = train(torch, hooked, batches, **options)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PADDLE_TPU_TORCH_ANALYZE"]
+    steps = len(h_costs)
+    launches = check_launches(lk, steps, 2, "analyze_card live run",
+                              counts=graph_run_launches(lk, hooked, before))
+    peak_allocated = torch.cuda.max_memory_allocated()
+    plain = fresh()
+    p_costs = train(torch, plain, batches, **options)
+    _, _, identical = trajectory_errors(snapshot(plain), snapshot(hooked),
+                                        p_costs, h_costs)
+    captured = [analyze_key(g) for g in hooked.graphs]
+    per_bucket = {}
+    for info in hooked.graphs:
+        pad = analyze_key(info)[2]
+        got = per_bucket.setdefault(pad, {"lstm_seq_fwd": 0,
+                                          "lstm_seq_bwd": 0})
+        for name in got:
+            got[name] += info["captured"].get(name, 0) * info["replays"]
+
+    # (d) the budget bites
+    try:
+        with analyze.max_retraces(programs - 1):
+            train(torch, fresh(), batches, **options)
+        bites = False
+    except analyze.RetraceBudgetExceeded:
+        bites = True
+
+    # (e) the estimate against the live bytes
+    live = analyze_live_bytes(hooked)
+    estimate = {"%d/%d/%d" % key: {
+        "resident": predicted[key]["hbm"]["resident"],
+        "live": live.get(key),
+        "rel_err": (abs(predicted[key]["hbm"]["resident"] - live[key])
+                    / live[key] if key in live else None)}
+        for key in predicted}
+    lint_out, lint_s = analyze_finish(lint_job, "--all")
+    row = {"phase": "analyze_card", "config": dict(FLAGSHIP),
+           "batch": TRAIN_BATCH, "buckets": ANALYZE_BUCKETS,
+           "steps_per_call": ANALYZE_K, "incoming_batches": len(batches),
+           "lint": lint_out.strip().splitlines()[-1], "lint_s": lint_s,
+           "topology_s": topo_s, "topology_errors": report["errors"],
+           "topology_warnings": report["warnings"],
+           "packing": report["packing"], "donation": report["donation"],
+           "programs": programs, "predicted": sorted(predicted),
+           "compiles": watcher.compiles, "captured": captured,
+           "chunk_sizes": hooked.chunk_log, "steps": steps,
+           "live_run_s": live_s, "k1_k2_launches": launches,
+           "launches_per_bucket": per_bucket,
+           "hook_bitwise": identical, "budget_minus_one_raises": bites,
+           "hbm_estimate": estimate, "tol_hbm": TOL_ANALYZE_HBM,
+           "hbm_peak_bytes": pred["hbm_peak_bytes"],
+           "max_memory_allocated": peak_allocated,
+           "capture_ms": [g["capture_ms"] for g in hooked.graphs]}
+    emit(row)
+    checks = {
+        "lint clean": lint_out.strip().startswith("analyze clean: ")
+        and ", 9 checkers, " in lint_out,
+        "prediction without errors": report["errors"] == []
+        and programs >= len(ANALYZE_BUCKETS),
+        "captures equal the prediction": watcher.compiles == programs
+        and sorted(captured) == sorted(predicted),
+        "K1/K2 launched": launches[0] > 0 and launches[1] > 0
+        and all(b["lstm_seq_fwd"] > 0 for b in per_bucket.values()),
+        "hook observes only": identical,
+        "budget bites": bites,
+        "estimate within 25%": all(
+            e["rel_err"] is not None and e["rel_err"] <= TOL_ANALYZE_HBM
+            for e in estimate.values()),
+        "finite": bool(np.all(np.isfinite(h_costs))),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("analyze_card: %s failed" % ", ".join(failed))
+    rows = {"fwd": phase_kernel(torch, lk, ANALYZE_CASES, (),
+                                "kernel_analyze", {}),
+            "bwd": phase_kernel_bwd(torch, lk, ANALYZE_CASES[:2], (),
+                                    "kernel_analyze", {})}
+    return {"per_bucket": per_bucket, "rows": rows}
+
+
+def analyze_entries(analyzed, bwd_cases):
+    """The kernels-line entries of analyze_card: K1 and K2 at each
+    bucket's (T, 64, 256), launches: that bucket's graphs' captured
+    launches times their replays in the live run."""
+    rows = analyzed["rows"]
+    out = []
+    for steps, batch, hidden in ANALYZE_CASES:
+        launches = analyzed["per_bucket"].get(steps, {})
+        for cases, source, k, line in (
+                (rows["fwd"], "lstm_seq_fwd", "K1", 146),
+                (rows["bwd"] + bwd_cases, "lstm_seq_bwd", "K2", 347)):
+            out.append(recurrent_entry(
+                cases, "%s[%s,h256_analyze_bucket%d]" % (source, k, steps),
+                "paddle_tpu/ops/pallas_kernels.py:%d" % line,
+                launches.get(source, 0), hidden, source,
+                path="captured CUDA graphs under a predicted budget",
+                shape=(steps, batch, hidden)))
+    return out
+
+
 def dp_kernel_rows(torch, lk):
     """K1/K2 at the distributed phases' shapes against their plain
     versions (the rows of phases 3-4)."""
@@ -10546,6 +10813,8 @@ def main():
         cluster = phase_cluster_card(torch, lk, tmp)
         elastic = phase_elastic_card(torch, lk, tmp)
         parallel = phase_parallel_card(torch, lk, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        analyzed = phase_analyze_card(torch, lk, tmp)
     dp_rows = dp_kernel_rows(torch, lk)
     ic_rows = phase_kernel(torch, lk, [IC_K1_SHAPE], (),
                            "kernel_interchange", {})
@@ -10691,6 +10960,7 @@ def main():
         *distributed_entries(dp_rows, bwd_cases, cluster, elastic,
                              parallel),
         *interchange_entries(ic_rows, bwd_cases, aot["ops"], interchange),
+        *analyze_entries(analyzed, bwd_cases),
         recurrent_entry(
             [c for c in continuous["kernel_rows"]
              if c["kernel"] == "gru_seq_fwd"],

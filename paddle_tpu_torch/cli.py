@@ -31,6 +31,9 @@ paddle/trainer/TrainerMain.cpp, jobs train/test/time):
         [--replicas N|auto | --workers N|auto] [serve's other options]
     python -m paddle_tpu_torch.cli generate BUNDLE_DIR --prime 5,17,3 \
         [--steps 32] [--temperature 0] [--seed 0] [--json]
+    python -m paddle_tpu_torch.cli analyze [--all | FILE ...] [--json]
+    python -m paddle_tpu_torch.cli analyze --topology --config conf.py \
+        [--buckets 25,50,100] [--steps-per-call 4] [--format json]
 
 A --config file is a Python module: either a v1 config (``from
 paddle.trainer_config_helpers import *``, ``settings()``, layers,
@@ -83,7 +86,15 @@ joined hosts (serve/cluster.py).
 ``--config``'s model proto and a ``--params`` tar into one tar that the
 C API (capi/) loads without running any user Python.
 
-Not ported yet, and refused: ``analyze`` and ``observe --regress``.
+``analyze [--all | PATHS...] [--format json]`` lints the port's tree
+(analyze/lint.py's nine checkers, read in PyTorch terms) and checks the
+derived reject_packed coverage; ``analyze --topology --config conf.py
+[--buckets 25,50,100] [--steps-per-call 4]`` reports the topology checks
+and the programs (CUDA graph captures) the combination makes. Exit 0
+clean, 1 on findings or topology errors, 2 for ``--topology`` without
+``--config``, as in the JAX package.
+
+Not ported yet, and refused: ``observe --regress``.
 """
 
 import argparse
@@ -356,13 +367,103 @@ def cmd_cluster_train(args):
     return 0
 
 
-def _not_ported(verb, needs):
-    def refuse(args):
-        raise NotImplementedError("cli %s is not ported yet: it needs %s"
-                                  % (verb, needs))
+def cmd_analyze(args):
+    """Framework-aware static analysis (paddle_tpu/cli.py cmd_analyze).
 
-    refuse.refuses = True  # takes any arguments: it reads none of them
-    return refuse
+    Default/``--all``: lint the port's source tree (analyze/lint.py's nine
+    checkers) AND verify the derived reject_packed coverage; exits 1 on
+    any finding. With ``--topology --config cfg.py``: build the config's
+    topology and run the pre-dispatch graph checks plus the program
+    prediction for its reader/buckets/steps-per-call combination (no
+    tracing, no device); exits 1 on topology errors, 2 without
+    ``--config``. Arguments, output and exit codes are the JAX
+    package's."""
+    from paddle_tpu_torch.analyze import lint, topology_check
+
+    if args.topology:
+        if not args.config:
+            print("analyze --topology needs --config", file=sys.stderr)
+            return 2
+        from paddle_tpu_torch import minibatch
+        from paddle_tpu_torch.parameters import Parameters
+        from paddle_tpu_torch.topology import Topology
+
+        cfg = _load_config(args.config, args.config_args)
+        cost = cfg.cost()
+        params = Parameters.create(cost, device="cpu")
+        topo = Topology(cost)
+        report = topology_check.check_topology(
+            topo, parameters=params,
+            steps_per_call=args.steps_per_call or None)
+        optimizer = (cfg.optimizer()
+                     if hasattr(cfg, "optimizer") else None)
+        report["hbm"] = topology_check.estimate_hbm_bytes(
+            topo, parameters=params, optimizer=optimizer)
+        buckets = ([int(b) for b in args.buckets.split(",") if b]
+                   if args.buckets else None)
+        if hasattr(cfg, "train_reader"):
+            batch_size = getattr(cfg, "batch_size", args.batch_size)
+            reader = minibatch.batch(cfg.train_reader(), batch_size)
+            if args.sample_batches:
+                import itertools
+
+                base = reader
+                reader = lambda: itertools.islice(  # noqa: E731
+                    base(), args.sample_batches)
+            report["jit_entries"] = topology_check.predict_jit_entries(
+                topo, reader, buckets=buckets,
+                steps_per_call=args.steps_per_call or None,
+                parameters=params, optimizer=optimizer)
+        if args.format == "json":
+            print(json.dumps(report, indent=2))
+        else:
+            print(topology_check.format_report(report))
+            if "jit_entries" in report:
+                je = report["jit_entries"]
+                print("jit entries: %d program(s), est. hbm peak %s"
+                      % (je["programs"],
+                         topology_check._fmt_bytes(je["hbm_peak_bytes"])))
+                for e in je["entries"]:
+                    print("  %(kind)s rows=%(rows)d" % e
+                          + (" steps=%d" % e["steps"]
+                             if e["kind"] == "scan" else "")
+                          + (" pad=%s" % e["seq_pad"]
+                             if e["seq_pad"] else "")
+                          + " hbm=%s" % topology_check._fmt_bytes(
+                              e["hbm"]["total"]))
+        return 1 if report["errors"] else 0
+
+    if args.paths:
+        findings = lint.lint_paths(args.paths)
+        n_files = len(args.paths)
+    else:
+        findings, n_files = lint.lint_tree()
+    coverage = topology_check.verify_reject_packed_coverage()
+    rc = 1 if (findings or coverage["missing"]) else 0
+    if args.format == "json":
+        # each finding record keeps the file/line/id/title/message/fixit
+        # order (no sort_keys); findings are sorted by (file, line, id)
+        print(json.dumps({
+            "files": n_files,
+            "checkers": sorted(lint.CHECKERS),
+            "findings": [f.as_dict() for f in findings],
+            "reject_packed": coverage}, indent=2))
+        return rc
+    for f in findings:
+        print(lint.format_finding(f))
+    for name in coverage["missing"]:
+        print("reject_packed coverage gap: layer %r mixes across time "
+              "positions but accepts packed input (derived set: %s)"
+              % (name, coverage["expected"]))
+    if rc == 0:
+        print("analyze clean: %d files, %d checkers, reject_packed "
+              "coverage %d/%d layers"
+              % (n_files, len(lint.CHECKERS),
+                 len(coverage["covered"]), len(coverage["expected"])))
+    else:
+        print("analyze: %d finding(s)" % (len(findings)
+                                          + len(coverage["missing"])))
+    return rc
 
 
 def cmd_observe(args):
@@ -1261,8 +1362,36 @@ def main(argv=None):
                    help="merged tar to write")
     p.set_defaults(fn=cmd_merge_model)
 
-    p = sub.add_parser("analyze", help="not ported yet")
-    p.set_defaults(fn=_not_ported("analyze", "analyze/"))
+    p = sub.add_parser("analyze",
+                       help="static analysis: lint the port's tree, or "
+                            "check a config's topology")
+    p.add_argument("paths", nargs="*",
+                   help="explicit files to lint (default: the installed "
+                        "paddle_tpu_torch tree)")
+    p.add_argument("--all", action="store_true",
+                   help="full static-analysis gate (lint + reject_packed "
+                        "coverage; the default behavior, spelled out for "
+                        "the CI one-liner)")
+    p.add_argument("--topology", action="store_true",
+                   help="pre-dispatch topology checks + the programs "
+                        "(CUDA graph captures) --config will make")
+    p.add_argument("--config", default="")
+    p.add_argument("--config-args", default="")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--buckets", default="",
+                   help="comma-separated bucket boundaries for the "
+                        "program prediction")
+    p.add_argument("--steps-per-call", type=int, default=0)
+    p.add_argument("--sample-batches", type=int, default=64,
+                   help="how many reader batches the program prediction "
+                        "simulates")
+    p.add_argument("--format", choices=("text", "json"), default="text",
+                   help="json = machine-readable findings (file/line/id/"
+                        "message/fixit, stable ordering) for CI PR "
+                        "annotation")
+    p.add_argument("--json", dest="format", action="store_const",
+                   const="json", help="alias for --format=json")
+    p.set_defaults(fn=cmd_analyze)
 
     p = sub.add_parser("export", help="write a serving bundle")
     p.add_argument("--config", default="",
@@ -1430,9 +1559,7 @@ def main(argv=None):
                         "fails before the request errors out")
     p.set_defaults(fn=cmd_serve)
 
-    args, extra = parser.parse_known_args(argv)
-    if extra and not getattr(args.fn, "refuses", False):
-        parser.error("unrecognized arguments: %s" % " ".join(extra))
+    args = parser.parse_args(argv)
     if getattr(args, "trainer_count", None):
         from paddle_tpu_torch.utils import flags
 

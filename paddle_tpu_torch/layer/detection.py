@@ -159,6 +159,15 @@ def multibox_loss(input_loc, input_conf, priorbox, label, num_classes,
         pbox, pvar = table[:, :4], table[:, 4:]
         num_p = table.shape[0]
         enforce(loc.shape[1] == num_p, "loc predictions/prior count mismatch")
+        # each label row is one image's instance set, matched against
+        # that image's predictions; the JAX package's per-image map
+        # refuses a label whose rows are not the images' (a packed row of
+        # two images' boxes), where broadcasting would match one image's
+        # boxes against every image
+        enforce(gt.data.shape[0] == loc.shape[0],
+                "multibox_loss: the label has %d rows and the predictions "
+                "%d images; each label row holds one image's ground truth",
+                gt.data.shape[0], loc.shape[0])
         gt_label = gt.data[..., 0].long()
         gt_box = gt.data[..., 1:5]
         match, match_iou = det_ops.match_priors(pbox, gt_box, gt.mask(),

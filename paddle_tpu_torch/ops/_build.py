@@ -52,6 +52,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _loaded = {}     # name -> ctypes.CDLL
 build_logs = {}  # name -> nvcc/ptxas output of the build this process ran
+# guards build_logs: build_all's threads write it at once, and load()
+# holds _lock around build()
+_logs_lock = threading.Lock()
 
 
 def nvcc_path():
@@ -102,7 +105,8 @@ def build(name):
                            source_path(name)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
-    build_logs[name] = proc.stdout
+    with _logs_lock:
+        build_logs[name] = proc.stdout
     enforce(proc.returncode == 0,
             "kernel build failed: %s (nvcc exit %d):\n%s", name,
             proc.returncode, proc.stdout)

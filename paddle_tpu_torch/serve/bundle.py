@@ -193,7 +193,10 @@ class Bundle:
         ``params(device=None)``)."""
         device = self._device(device)
         key = _placement_key(device)
-        values = self._device_params.get(key)
+        # double-checked init: the unlocked read is the per-dispatch fast
+        # path; a stale miss only sends the reader into the locked slow
+        # path below, which re-reads under _lock (GIL-atomic load)
+        values = self._device_params.get(key)  # paddle-lint: disable=PTA005
         if values is None:
             with self._lock:
                 values = self._device_params.get(key)
@@ -208,7 +211,9 @@ class Bundle:
         (default: the bundle's) and cached at first use per device."""
         device = self._device(device)
         key = _placement_key(device)
-        program = self._programs.get((artifact, key))
+        # double-checked init: unlocked dict get is the warm fast path
+        # (GIL-atomic); a miss re-checks under _lock below
+        program = self._programs.get((artifact, key))  # paddle-lint: disable=PTA005
         if program is None:
             with self._lock:
                 program = self._programs.get((artifact, key))

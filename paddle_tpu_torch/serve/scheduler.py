@@ -753,13 +753,16 @@ class ContinuousScheduler:
 
     def _free_slot_possible_locked(self):
         """A request with no resident slot can be admitted iff some slot is
-        empty or (paging on) parked and spillable (cv held)."""
+        empty or (paging on) parked and spillable. cv HELD by every caller
+        (the ``_locked`` convention — reached two helper levels below the
+        cv, past the linter's one-level resolution)."""
         for slot in self._slots:
             if slot.req is not None:
                 continue
             if slot.session is None:
                 return True
-            if self.paging and slot.session.sid not in self._spill_asap:
+            if (self.paging and slot.session.sid
+                    not in self._spill_asap):  # paddle-lint: disable=PTA005
                 return True
         return False
 
@@ -986,12 +989,15 @@ class ContinuousScheduler:
             slot.session = None
 
     def _detach_locked(self, idx, spilling=False):
+        # cv HELD by every caller (the ``_locked`` convention — some
+        # call chains run two helper levels below the cv acquisition,
+        # past the linter's one-level resolution)
         slot = self._slots[idx]
         ses = slot.session
         if ses is not None:
-            self._session_slots.pop(ses.sid, None)
+            self._session_slots.pop(ses.sid, None)  # paddle-lint: disable=PTA005
             if spilling:
-                self._spill_asap.discard(ses.sid)
+                self._spill_asap.discard(ses.sid)  # paddle-lint: disable=PTA005
         slot.session = None
 
     def _loop(self):

@@ -70,6 +70,7 @@ class Topology:
         for node in self.nodes:
             for pos, parent in enumerate(node.inputs):
                 consumers.setdefault(parent.name, []).append((node, pos))
+        self.consumers = consumers
         self._label_feed_names = {
             name for name in self.data_layers
             if consumers.get(name)

@@ -38,11 +38,13 @@ every pass. The ``log_period`` flag logs the cost of every
 ``rebucket_batches``), ``feed_pipeline`` (data/feeder.py ``DeviceFeeder``,
 pinned host batches copied ahead of the step), ``steps_per_call=K`` (the
 fused loop: on the card each chunk of K same-shape feeds runs as ONE
-captured CUDA graph of the K steps; on the CPU as a loop of the same step
-function, with the same chunking and events) and durable checkpoints
-(``checkpoint_dir``, ``checkpoint_every``, ``checkpoint_keep``,
-``resume``, ``checkpoint_sync``; distributed/checkpoint.py, the JAX
-package's format).
+captured CUDA graph of the K steps, and a one-batch chunk as a 1-step
+graph; on the CPU as a loop of the same step function, with the same
+chunking and events; ``PADDLE_TPU_TORCH_ANALYZE=1`` runs the static
+checks of analyze/topology_check.py before the first dispatch) and
+durable checkpoints (``checkpoint_dir``, ``checkpoint_every``,
+``checkpoint_keep``, ``resume``, ``checkpoint_sync``;
+distributed/checkpoint.py, the JAX package's format).
 
 Dropout draws its masks from the trainer's own ``torch.Generator`` on its
 device, seeded from the ``seed`` flag; a captured graph registers it, so
@@ -430,12 +432,17 @@ class SGD:
                 + ["the updated parameter %s" % n for n in names])
 
     def _train_chunk(self, chunk):
-        """The K steps of a stacked chunk: length-K device stacks of the
-        costs, of each evaluator's stats and of the finiteness flags. On
-        the card one replay of the chunk's captured CUDA graph; on the CPU
-        a loop of the same step function."""
+        """The steps of a fused chunk. On the card one replay of the
+        chunk's captured CUDA graph, a one-batch chunk (a shape boundary,
+        the pass's last) too; on the CPU a loop of the same step function,
+        and a one-batch chunk runs the per-step function, as the JAX
+        package's _stack_chunk does. A stacked chunk gives length-K device
+        stacks of the costs, of each evaluator's stats and of the
+        finiteness flags; a one-batch chunk gives the step's own."""
         if self.device.type == "cuda":
             return self._replay(chunk)
+        if not chunk.stacked:
+            return self._train_step(chunk.feed, chunk.batches[0].share)
         results = [self._train_step(feed, fb.share)
                    for feed, fb in zip(chunk.feed, chunk.batches)]
         return _stack_results(results)
@@ -450,7 +457,7 @@ class SGD:
             entry = self._capture(chunk, key)
         # the static slots are written on the step's stream, so a queued
         # replay that still reads them runs before the copy
-        for slot, feed in zip(entry["feeds"], chunk.feed):
+        for slot, feed in zip(entry["feeds"], _chunk_feeds(chunk)):
             for dst, src in zip(feed_tensors(slot), feed_tensors(feed)):
                 dst.copy_(src)
         entry["graph"].replay()
@@ -468,7 +475,7 @@ class SGD:
         place."""
         from paddle_tpu_torch.data.feeder import feed_tensors, map_feed
 
-        feeds = [map_feed(f, torch.clone) for f in chunk.feed]
+        feeds = [map_feed(f, torch.clone) for f in _chunk_feeds(chunk)]
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
         stream = self._capture_stream
@@ -507,8 +514,11 @@ class SGD:
                 lock.acquire()
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode="thread_local"):
-                out = _stack_results([self._train_step(f, share)
-                                      for f in feeds])
+                if chunk.stacked:
+                    out = _stack_results([self._train_step(f, share)
+                                          for f in feeds])
+                else:
+                    out = self._train_step(feeds[0], share)
         except Exception as exc:
             raise RuntimeError(
                 "steps_per_call=%d: capturing the fused chunk as a CUDA "
@@ -570,7 +580,9 @@ class SGD:
         feeds, one captured CUDA graph replay per chunk on the card (the
         feed pipeline is implied and the queue deepened to K); per-step
         events fire K at a time, one chunk late; a one-batch chunk (a
-        shape boundary, the pass's last) runs the per-step program.
+        shape boundary, the pass's last) runs one step, on the card as a
+        1-step captured graph (one graph per distinct chunk: the programs
+        ``analyze.predict_jit_entries`` predicts).
         ``checkpoint_dir`` + ``checkpoint_every=N``: every N global steps
         (under the fused loop the first chunk boundary at or past it) a
         durable snapshot, overlapped on the ``ckpt-writer`` thread unless
@@ -601,6 +613,15 @@ class SGD:
                     "capture; the fused loop does not run eagerly in its "
                     "place (NCCL, one card a rank, captures it)", k,
                     self.parallelism and self.parallelism.backend)
+        if os.environ.get("PADDLE_TPU_TORCH_ANALYZE"):
+            # the pre-dispatch static checks (analyze/topology_check.py):
+            # packing legality, dtype hazards, the parameter partition,
+            # the memory budget — warnings log, errors raise; it reads
+            # the trainer and changes nothing
+            from paddle_tpu_torch.analyze.topology_check import (
+                pretrain_check)
+
+            pretrain_check(self, steps_per_call=k or None)
         log_period = flags.get_flag("log_period")
         test_period = flags.get_flag("test_period")
         self._trap = bool(flags.get_flag("trap_fpe"))
@@ -897,13 +918,7 @@ class SGD:
                 self.chunk_log.append(chunk.steps)
                 with observe_spans.span("train_chunk",
                                         args={"steps": chunk.steps}):
-                    if chunk.stacked:
-                        out = self._train_chunk(chunk)
-                    else:
-                        # a one-batch chunk runs the per-step program, as
-                        # the JAX package's _stack_chunk does
-                        out = self._train_step(chunk.feed,
-                                               chunk.batches[0].share)
+                    out = self._train_chunk(chunk)
                 base_step = self._step_count
                 self._step_count += chunk.steps
                 # chunk boundary == step boundary: the first one at or past
@@ -1364,6 +1379,12 @@ def _step_of(stats, i, stacked):
     if isinstance(stats, _RankStats):
         return _RankStats(_step_of(s, i, stacked) for s in stats)
     return {key: v[i] for key, v in stats.items()} if stacked else stats
+
+
+def _chunk_feeds(chunk):
+    """A fused chunk's member feeds: the K of a stacked chunk, or the one
+    of a one-batch chunk (which carries its feed unstacked)."""
+    return chunk.feed if chunk.stacked else (chunk.feed,)
 
 
 def _stack_results(results):

@@ -581,7 +581,8 @@ def test_cli_test_and_time(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["analyze", "--all"], "not ported yet"),
+    (["observe", ".", "--regress-tol", "5", "--regress", "BASELINE.json"],
+     "not ported yet"),
     (["cluster_train", "--num-processes", "2", "--devices-per-process",
       "2"], "not ported yet"),
     (["observe", ".", "--regress", "BASELINE.json"], "not ported yet")])

@@ -13,8 +13,9 @@
 * the engine's and the scheduler's ``register_knobs``, ``GET
   /debug/control``, and ``cli serve --autotune`` in a subprocess.
 
-Left out with what they need: the linter fixtures (analyze/), the bench
-gate (observe/regress.py) and the slo-ab bench (benchmark/exp_serve.py).
+Left out: the linter fixtures (tests/test_torch_analyze.py holds the
+port's), the bench gate (observe/regress.py, not ported) and the slo-ab
+bench (benchmark/exp_serve.py).
 The router's knobs are held in tests/test_torch_router.py, the replica
 and worker fleets' in tests/test_torch_fleet.py and
 tests/test_torch_workers.py.

@@ -112,12 +112,14 @@ def test_demo_runs_unchanged_on_the_port(name):
 
 
 UNPORTED_SCRIPT = """
-import paddle_tpu.analyze.lint
+import paddle_tpu.observe.regress
 """
 
 
+# the id is kept from when analyze.lint was the module the port lacked
 @pytest.mark.parametrize("args,error", [
-    ([], "paddle_tpu.analyze.lint is not ported yet")])
+    ([], "paddle_tpu.observe.regress is not ported yet")],
+    ids=["args0-paddle_tpu.analyze.lint is not ported yet"])
 def test_unported_demo_fails_on_the_port(tmp_path, args, error):
     """A script that imports a module the port lacks fails with the port's
     "not ported yet" (every reference demo but vae, which calls jax
@@ -186,8 +188,12 @@ def test_binding_sets_aside_and_restores_the_jax_package():
         assert paddle_tpu is paddle_tpu_torch
         sys.path.insert(0, "/nonexistent")
         with pytest.raises(ModuleNotFoundError, match="not ported yet"):
-            import paddle_tpu.analyze.lint  # noqa: F401
-        # interop and parallel (both ported) are the port's
+            import paddle_tpu.observe.regress  # noqa: F401
+        # interop, parallel and analyze (all ported) are the port's
+        import paddle_tpu.analyze.lint
+
+        assert paddle_tpu.analyze.lint.__name__ == \
+            "paddle_tpu_torch.analyze.lint"
         assert paddle_tpu.interop.__name__ == "paddle_tpu_torch.interop"
         assert paddle_tpu.parallel.__name__ == "paddle_tpu_torch.parallel"
     assert sys.modules["paddle_tpu"] is jax_pkg

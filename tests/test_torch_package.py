@@ -100,7 +100,8 @@ def test_import_scan_covers_the_serving_modules(part):
 @pytest.mark.parametrize("part", [
     "serve/router.py", "serve/fleet.py", "serve/workers.py",
     "serve/remote_store.py", "serve/sessions.py", "serve/__init__.py",
-    "analyze/__init__.py", "analyze/topology_check.py", "cli.py"])
+    "analyze/__init__.py", "analyze/topology_check.py", "analyze/lint.py",
+    "analyze/concurrency.py", "analyze/pytest_plugin.py", "cli.py"])
 def test_import_scan_covers_the_fleet_modules(part):
     """The scan reads the router, the replica and worker fleets, the remote
     session store and the memory estimate, and none of them imports JAX or

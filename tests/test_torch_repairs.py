@@ -1,4 +1,4 @@
-"""Five repairs of the port's v2 and serving surface, each through both
+"""Repairs of the port's v2 and serving surface, each through both
 packages on the CPU:
 
 1. ``topology.convert_feed`` / ``convert_column`` take the JAX package's
@@ -16,6 +16,10 @@ packages on the CPU:
    and ``WorkerSet.submit_to`` takes ``timeout=``.
 5. ``ops.conv.conv2d`` pads ``"SAME"`` by default and takes ``"SAME"`` and
    ``"VALID"``.
+6. ``multibox_loss`` refuses a label whose rows are not the images' (a
+   packed row of two images' boxes), as the JAX package's per-image map
+   does, and agrees with it on packed rows of one image each.
+7. The worker fleet counts a re-routed request before publishing it.
 
 Values within 1e-6 of max(1, max |JAX|) (``tests/torch_parity.py``).
 """
@@ -161,15 +165,10 @@ def test_apply_all_returns_every_layer_and_state_updates(mode):
 
 # public names of a shared package's __init__ (paddle_tpu.<pkg> and
 # paddle_tpu_torch.<pkg>) that the JAX package has and the port does not
-# yet; ROADMAP.md queues each (queue 1: analyze; tensor, sequence and
-# pipeline parallelism)
+# yet; ROADMAP.md queues each (every set is empty now: analyze's fifteen
+# names were the last)
 NOT_YET = {
-    "analyze": {
-        "CHECKERS", "Finding", "RetraceBudgetExceeded", "check_topology",
-        "estimate_hbm_bytes", "format_finding", "format_report",
-        "hbm_budget_bytes", "lint_paths", "lint_source", "lint_tree",
-        "max_retraces", "predict_jit_entries", "scan_layer_modules",
-        "verify_reject_packed_coverage"},
+    "analyze": set(),
     "control": set(), "core": set(), "data": set(), "dataset": set(),
     "distributed": set(), "io": set(),
     "layer": set(), "models": set(), "observe": set(), "ops": set(),
@@ -407,3 +406,149 @@ def test_register_layer_records_the_jax_packages_build_spec():
         assert node.build_spec[0] == jnode.build_spec[0]
         assert {k: encode_value(v) for k, v in node.build_spec[1].items()} \
             == {k: jax_encode(v) for k, v in jnode.build_spec[1].items()}
+
+
+# -- 6. multibox_loss refuses a label whose rows are not the images' ----------
+
+def _packed_label(pkg, gts, rows, segments):
+    """A PackedSequenceBatch of ground-truth boxes: ``rows`` lists, per
+    row, the indices of the images whose boxes it concatenates, and
+    ``segments`` gives each row's per-box segment ids."""
+    data = [np.concatenate([gts[i] for i in row]) for row in rows]
+    width = max(len(d) for d in data)
+    out = np.zeros((len(rows), width, 6), np.float32)
+    seg = -np.ones((len(rows), width), np.int32)
+    for r, d in enumerate(data):
+        out[r, :len(d)] = d
+        seg[r, :len(d)] = segments[r]
+    lens = np.asarray([len(d) for d in data], np.int32)
+    if pkg is paddle:
+        from paddle_tpu_torch.core.sequence import PackedSequenceBatch
+
+        return PackedSequenceBatch(torch.from_numpy(out),
+                                   torch.from_numpy(lens),
+                                   torch.from_numpy(seg))
+    from paddle_tpu.core.sequence import PackedSequenceBatch
+
+    return PackedSequenceBatch(jnp.asarray(out), jnp.asarray(lens),
+                               jnp.asarray(seg))
+
+
+def _multibox_both(label_rows, segments):
+    from test_torch_detection import _ssd, _ssd_rows
+
+    def build(pkg):
+        locs, confs, priors = _ssd(pkg, two_maps=True)
+        gt = pkg.layer.data(name="gt",
+                            type=pkg.data_type.dense_vector_sequence(6))
+        return pkg.layer.multibox_loss(
+            input_loc=locs, input_conf=confs, priorbox=priors, label=gt,
+            num_classes=3, name="out")
+
+    jout, out = both(build)
+    topo, jtopo = Topology(out), JaxTopology(jout)
+    arrays = numpy_params(topo.param_specs(), 0)
+    rows = _ssd_rows(5, n=2)
+    names = [n for n, _ in topo.data_types()]
+    tuples = [tuple(r[n] for n in names) for r in rows]
+    gts = [r["gt"] for r in rows]
+    feed = convert_feed(topo, tuples, device="cpu")
+    jfeed = jax_convert_feed(jtopo, tuples)
+    feed["gt"] = _packed_label(paddle, gts, label_rows, segments)
+    jfeed["gt"] = _packed_label(jpaddle, gts, label_rows, segments)
+    results = []
+    for run in (
+            lambda: topo.apply_all({k: torch.from_numpy(v)
+                                    for k, v in arrays.items()}, feed,
+                                   mode="train")[0]["out"].detach().numpy(),
+            lambda: np.asarray(jtopo.apply_all(
+                {k: jnp.asarray(v) for k, v in arrays.items()}, jfeed,
+                mode="train")[0]["out"])):
+        try:
+            results.append(run())
+        except Exception as exc:  # noqa: BLE001 — compared below
+            results.append(exc)
+    return results
+
+
+def test_multibox_loss_refuses_two_images_in_one_label_row():
+    """A packed label row holding two images' boxes against two images'
+    predictions: the JAX package's per-image map refuses it; the port
+    broadcast the one row over both images and matched each image
+    against both images' boxes. It now refuses too."""
+    from test_torch_detection import _ssd_rows
+
+    from paddle_tpu_torch.utils.error import EnforceError
+
+    gts = [r["gt"] for r in _ssd_rows(5, n=2)]
+    segments = [[0] * len(gts[0]) + [1] * len(gts[1])]
+    got, want = _multibox_both([[0, 1]], segments)
+    assert isinstance(want, ValueError), want
+    assert isinstance(got, EnforceError), got
+    assert "each label row holds one image's ground truth" in str(got)
+
+
+def test_multibox_loss_packed_rows_of_one_image_agree_with_jax():
+    """Each label row is one image's boxes, in two packed segments: both
+    packages read the row as that image's instance set and agree (so the
+    segment split mixes no images; the scanner does not derive
+    multibox_loss as a time-position mixer)."""
+    from test_torch_detection import _ssd_rows
+
+    gts = [r["gt"] for r in _ssd_rows(5, n=2)]
+    segments = [[0] * (len(g) // 2) + [1] * (len(g) - len(g) // 2)
+                for g in gts]
+    got, want = _multibox_both([[0], [1]], segments)
+    assert not isinstance(got, Exception) and not isinstance(
+        want, Exception), (got, want)
+    assert got.shape == want.shape == (2,)
+    assert rel(got, want) <= TOL_FWD
+
+
+# -- 7. a re-route is counted before its answer can come back ----------------
+
+def test_reroute_is_counted_before_it_is_published():
+    """The worker fleet counted a re-routed request after handing it to a
+    surviving worker, so its answer (and a caller reading the stats) could
+    come back before the count: tests/test_torch_workers.py's burst test
+    read seven of eight under load. The count now precedes the publish,
+    and a publish that fails takes it back."""
+    import itertools
+    import threading
+    from concurrent.futures import Future
+
+    from paddle_tpu_torch.serve.workers import WorkerSet
+
+    seen = []
+
+    class Target:
+        index = 0
+
+        def queue_depth(self):
+            return 0
+
+        def submit_encoded(self, req_id, header, arrays, future, entry):
+            # the answer comes back before submit returns
+            seen.append(fleet._stats["reroutes"])
+            future.set_result({"ok": True})
+            return future
+
+    class Failing(Target):
+        def submit_encoded(self, req_id, header, arrays, future, entry):
+            raise OSError("ring closed")
+
+    fleet = types.SimpleNamespace(
+        _lock=threading.Lock(), _stats={"reroutes": 0},
+        _req_ids=itertools.count(100), model="m",
+        _eligible=lambda: [Target()])
+    entry = {"future": Future(), "header": {"id": 1}, "arrays": (),
+             "session": None, "retries": 0}
+    WorkerSet._reroute(fleet, entry)
+    assert seen == [1] and fleet._stats["reroutes"] == 1
+    assert entry["future"].result(timeout=1) == {"ok": True}
+    fleet._eligible = lambda: [Failing()]
+    entry = dict(entry, future=Future(), retries=0)
+    WorkerSet._reroute(fleet, entry)
+    assert fleet._stats["reroutes"] == 1
+    with pytest.raises(OSError, match="ring closed"):
+        entry["future"].result(timeout=1)

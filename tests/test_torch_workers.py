@@ -262,7 +262,9 @@ def test_burst_in_flight_at_a_kill_is_rerouted(tagger_fleet):
                              metrics_registry=MetricsRegistry()) as one:
         want = [one.infer({"word": s})[TAGGER_OUT] for s in seqs]
     ws.wait_ready(timeout=READY_S)
-    reroutes = ws.stats()["router"].get("reroutes", 0)
+    before = ws.stats()["router"]
+    reroutes = before.get("reroutes", 0)
+    respawns = before.get("respawns", 0)
     pid = ws.workers()[1].pid()
     os.kill(pid, signal.SIGSTOP)
     try:
@@ -276,7 +278,9 @@ def test_burst_in_flight_at_a_kill_is_rerouted(tagger_fleet):
     assert router["reroutes"] - reroutes == len(seqs)
     ws.wait_ready(timeout=READY_S)
     assert ws.workers()[1].pid() != pid
-    assert router["respawns"] >= 1
+    # the respawn follows the re-routes on the heartbeat thread: read its
+    # count once the fleet is ready again
+    assert ws.stats()["router"]["respawns"] > respawns
     assert ws.submit_to(1, {"word": seqs[0]}).result(
         timeout=120)[TAGGER_OUT].shape == want[0].shape
 
