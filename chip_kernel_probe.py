@@ -2,6 +2,7 @@
 """Probe the recurrent forward kernels of paddle_tpu_torch on the card.
 
     python3 chip_kernel_probe.py [layouts] [grid] [fwd [ROOT]] [e2e [ROOT]]
+                                 [observe]
 
 Readings that chip_smoke.py does not take, each printed as JSON lines
 (the card's name and power limit first):
@@ -29,6 +30,13 @@ e2e      the end-to-end phases of ROOT's own chip_smoke.py that the
          served and trained, and the flagship's eager and fused training
          loop), and nothing before them: two checkouts' host-bound times
          compared without the kernel phases each script runs first.
+observe  chip_smoke.py's observe_card three times (the first cold), then
+         each attribution call over the flagship's step bundle timed
+         alone (profile_bundle, device_busy_ms, capture, profiler_trace
+         and parse_trace_dir), and one profile of 40 steps read both ways:
+         the profiler's raw results (what capture reads) and
+         prof.events(), with their seconds and whether the kernels,
+         calls, busy and window times agree.
 
 Needs one CUDA card and nvcc; exits 2 without a card. ``layouts`` and
 ``grid`` are run when no reading is named.
@@ -258,6 +266,79 @@ def probe_e2e(torch, lk, gk, root):
     smoke.phase_train_tagger(torch, gk)
 
 
+def probe_observe(torch, lk):
+    import collections
+    import tempfile
+    import time
+
+    import chip_smoke as smoke
+    from paddle_tpu_torch.observe import attribution
+    from paddle_tpu_torch.utils.stat import profiler_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for attempt in range(3):
+            t0 = time.perf_counter()
+            smoke.phase_observe_card(torch, lk, os.path.join(tmp,
+                                                             str(attempt)))
+            emit({"probe": "observe", "run": attempt,
+                  "phase_s": time.perf_counter() - t0})
+        rig = smoke.flagship_rig(256, smoke.SEED + 120)
+        tr = rig.trainer("cuda")
+        batch = smoke.train_batches(smoke.SEED + 121, 1, smoke.TRAIN_BATCH,
+                                    False, smoke.FLAGSHIP["dict_size"])[0]
+        bundle = smoke.StepBundle(torch, tr, tr._convert(batch, None)[0])
+
+        def run(n):
+            def steps():
+                for _ in range(n):
+                    bundle.carry = bundle.step(bundle.carry)
+            return steps
+
+        def traced():
+            with profiler_trace(os.path.join(tmp, "trace")):
+                run(5)()
+                torch.cuda.synchronize()
+
+        sync = torch.cuda.synchronize
+        for label, fn in (
+                ("profile_bundle_10",
+                 lambda: attribution.profile_bundle(bundle, 10)),
+                ("device_busy_ms_40",
+                 lambda: attribution.device_busy_ms(bundle, 40)),
+                ("capture_40", lambda: attribution.capture(run(40), sync)),
+                ("profiler_trace_5", traced),
+                ("parse_trace_dir",
+                 lambda: attribution.parse_trace_dir(
+                     os.path.join(tmp, "trace")))):
+            t0 = time.perf_counter()
+            fn()
+            emit({"probe": "observe", "call": label,
+                  "s": time.perf_counter() - t0})
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(40)()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = attribution.DeviceTrace(attribution._device_events(torch, prof))
+    t1 = time.perf_counter()
+    listed = attribution.DeviceTrace([
+        (e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA])
+    t2 = time.perf_counter()
+    emit({"probe": "observe", "reading": "raw_vs_events", "steps": 40,
+          "raw_s": t1 - t0, "events_s": t2 - t1,
+          "calls_equal": collections.Counter(raw.calls)
+          == collections.Counter(listed.calls),
+          "busy_us": [raw.busy_us, listed.busy_us],
+          "window_us": [raw.window_us, listed.window_us],
+          "per_op_max_diff_us": max(abs(raw.per_op_us[k]
+                                        - listed.per_op_us[k])
+                                    for k in listed.per_op_us)})
+
+
 def main():
     import torch
 
@@ -279,6 +360,9 @@ def main():
                          text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "observe" in which:
+        _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd"])
+        probe_observe(torch, lk)
     if "e2e" in which:
         # the four recurrent libraries at once, not one by one at first use
         _build.build_all(["lstm_seq_fwd", "lstm_seq_bwd", "gru_seq_fwd",

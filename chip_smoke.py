@@ -61,6 +61,23 @@ result line:
            the same under the bfloat16 compute policy, and the trained
            parameters exported as a bundle whose answers match
            inference.infer on the CPU.
+   observe_card  the device attribution and the bench gate over the same
+           model's training step (trainer.SGD's step on one fixed batch
+           of 64 x 100 on the card, as a step bundle: .step, .carry,
+           .fetch): attribution.profile_bundle of 10 steps, whose
+           class_report puts K1 and K2 under "recurrent" with a non-zero
+           share (the shares sum to 100 +- 0.1 %); device_busy_ms of 40
+           steps, positive, below the wall ms a step, and within 10 % of
+           dispatch_gap's busy ms of a capture of 40 steps; 5 steps under
+           utils.stat.profiler_trace, whose file parse_trace_dir reads to
+           the same kernel names and calls as a capture of 5 more (its
+           report_text printed); every kernel classified, none of K1-K9's
+           kernels (their names read from csrc/) or a cuBLAS GEMM as
+           "other"; the busy ms mirrored as a bench_row into a telemetry
+           dir and gated by ``cli observe --regress``: exit 0 against a
+           baseline at the measured value, 1 against half of it; 2 K1 + 2
+           K2 a step. K1 and K2 at (100, 64, 256) are held against their
+           plain versions in kernel_dp's and phase 4's rows.
    train_loop  the v2 training loop on the card (trainer.SGD.train's
            feed_pipeline, buckets, steps_per_call, checkpoint_dir/resume):
            (a) the flagship at 64 x 100 with Adam(1e-3) and
@@ -472,7 +489,8 @@ result line:
            list in shard order (costs and parameters bit for bit, K1/K2 2
            each a step, ms a batch of each feed), 4 reader threads giving
            the same multiset; profiler_trace around one step, its trace
-           naming K1's and K2's kernels.
+           (read by attribution.parse_trace_dir) naming K1's and K2's
+           kernels.
     serve_observe  ``cli serve`` of the flagship bundle in a subprocess on
            the card (--slo-p99-ms 50 --autotune --max-queue-rows 256): 100
            requests of 1-8 rows one at a time, each with a traceparent,
@@ -629,7 +647,8 @@ result line:
            live parameter, slot and feed-slot bytes, the predicted peak
            beside torch.cuda.max_memory_allocated(); then K1 at each
            bucket's (T, 64, 256) and K2 at (25, 64, 256) and (50, 64,
-           256) against their plain versions.
+           256) against their plain versions (K1 at (100, 64, 256):
+           kernel_dp's row).
 35. kernels one entry per TPU kernel the port replaced (the redesigned
            ones with the paths or layouts they ran; K7, K8, K1 and K2 also
            at GoogleNet's and the BiLSTM's shapes; K9 also at the int8
@@ -648,7 +667,8 @@ result line:
            (the merged flagship at (128, 32, 256) and the int8 bundle), K9
            in the int8 bundle the C API loaded and K2 in interchange_card's
            training fed from record shards, K1 and K2 at each of
-           analyze_card's buckets, each timed at that
+           analyze_card's buckets and in observe_card's step bundle, each
+           timed at that
            shape against its plain version), then the
            card's name and power limit, then the last line
            {"ok": true, "device": {...}}.
@@ -2724,6 +2744,188 @@ def phase_train_flagship(torch, lk, tmp):
     if not bf16_err <= TOL_TRAIN_BF16:
         raise AssertionError("bf16 training departs from f32: %r" % row)
     return {"fwd_launches": launches[0], "bwd_launches": launches[1]}
+
+
+# -- phase observe_card: attribution's readers and the bench gate ------------
+
+OBSERVE_PROFILE_STEPS, OBSERVE_BUSY_STEPS, OBSERVE_TRACE_STEPS = 10, 40, 5
+TOL_OBSERVE_BUSY = 0.10      # device_busy_ms against a capture's busy ms
+TOL_OBSERVE_SHARES = 0.1     # the class shares' sum, in percent
+OBSERVE_METRIC = "flagship_train_device_busy_ms_per_batch_bs64"
+# the names of K1-K9's kernels and the recurrent backward's recompute GEMM
+# (csrc/), and of cuBLAS's GEMMs, none of which classify may call "other"
+PORT_KERNEL_NAME = r"\b(lstm_|gru_|seqre::|conv_fwd_|bwdw_|conv_bwdw_|i8_)"
+CUBLAS_GEMM_NAME = r"gemm|gemv|nvjet|cublas|cutlass"
+
+
+class StepBundle:
+    """A step bundle (observe.attribution's device_busy_ms / profile_bundle
+    contract: ``.step(carry) -> carry``, ``.carry``, ``.fetch(carry)``)
+    over a trainer's training step (the step ``SGD.train`` runs for each
+    batch) on one fixed feed on its device; the carry is the last step's
+    cost, a device tensor."""
+
+    def __init__(self, torch, tr, feed):
+        self.torch, self.tr, self.feed = torch, tr, feed
+        self.carry = torch.zeros((), device=tr.device)
+
+    def step(self, carry):
+        loss, _, _ = self.tr._train_step(self.feed)
+        return loss
+
+    def fetch(self, carry):
+        self.torch.cuda.synchronize()
+        return float(carry)
+
+
+def csrc_kernel_names():
+    """The ``__global__`` function names of csrc/ (K1-K9 and the
+    recompute GEMMs)."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(REPO, "paddle_tpu_torch", "csrc",
+                                       "*.cu*")):
+        with open(path) as fh:
+            src = fh.read()
+        for m in re.finditer(r"__global__", src):
+            head = re.sub(r"__launch_bounds__\s*\([^)]*\)", "",
+                          src[m.end():m.end() + 400])
+            names.add(re.search(r"([A-Za-z_]\w*)\s*\(", head).group(1))
+    return sorted(names)
+
+
+def phase_observe_card(torch, lk, tmp):
+    """observe_card (module docstring)."""
+    import contextlib
+    import io
+    import re
+
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.observe import attribution, steplog
+    from paddle_tpu_torch.utils.stat import profiler_trace
+
+    rig = flagship_rig(256, SEED + 120)
+    tr = rig.trainer(DEVICE)
+    batch = train_batches(SEED + 121, 1, TRAIN_BATCH, False,
+                          FLAGSHIP["dict_size"])[0]
+    feed, _ = tr._convert(batch, None)
+    bundle = StepBundle(torch, tr, feed)
+
+    def run(n):
+        def steps():
+            for _ in range(n):
+                bundle.carry = bundle.step(bundle.carry)
+        return steps
+
+    t0 = time.perf_counter()
+    lk.reset_launches()
+    # (a) profile_bundle: one untimed step, then 10 traced
+    trace = attribution.profile_bundle(bundle, OBSERVE_PROFILE_STEPS)
+    classes = attribution.class_report(trace, OBSERVE_PROFILE_STEPS)
+    recurrent = sorted({name for name in trace.per_op_us
+                        if attribution.classify(name) == "recurrent"})
+    # (b) device_busy_ms of 40 steps, the wall of 40 unprofiled steps and
+    # a capture of 40 more
+    busy = attribution.device_busy_ms(bundle, OBSERVE_BUSY_STEPS)
+    bundle.fetch(bundle.carry)
+    w0 = time.perf_counter()
+    run(OBSERVE_BUSY_STEPS)()
+    bundle.fetch(bundle.carry)
+    wall = (time.perf_counter() - w0) * 1e3 / OBSERVE_BUSY_STEPS
+    captured = attribution.capture(run(OBSERVE_BUSY_STEPS),
+                                   torch.cuda.synchronize)
+    gap = attribution.dispatch_gap(captured, OBSERVE_BUSY_STEPS)
+    # (c) 5 steps under profiler_trace, read back from its file, against
+    # a capture of 5 more
+    logdir = os.path.join(tmp, "observe_trace")
+    with profiler_trace(logdir):
+        run(OBSERVE_TRACE_STEPS)()
+        torch.cuda.synchronize()
+    parsed = attribution.parse_trace_dir(logdir)
+    twin = attribution.capture(run(OBSERVE_TRACE_STEPS),
+                               torch.cuda.synchronize)
+    bundle.fetch(bundle.carry)
+    total_steps = (1 + OBSERVE_PROFILE_STEPS + 3 * OBSERVE_BUSY_STEPS
+                   + 2 * OBSERVE_TRACE_STEPS)
+    launches = (lk.launches, lk.bwd_launches)
+    names = sorted(set(parsed.calls) | set(trace.per_op_us)
+                   | set(captured.calls))
+    other = [n for n in names if attribution.classify(n) == "other"]
+    csrc = csrc_kernel_names()
+    misfiled = [n for n in names + csrc if attribution.classify(n) == "other"
+                and (re.search(PORT_KERNEL_NAME, n)
+                     or re.search(CUBLAS_GEMM_NAME, n, re.I))]
+    print(attribution.report_text(parsed, OBSERVE_TRACE_STEPS, top=12,
+                                  wall_ms_per_step=wall), flush=True)
+    # (d) the gate over the busy ms mirrored as a bench row
+    teldir = os.path.join(tmp, "observe_telemetry")
+    with steplog.StepLog(teldir, run_name="bench",
+                         compile_events=False) as slog:
+        slog.write({"type": "bench_row", "metric": OBSERVE_METRIC,
+                    "value": busy, "unit": "ms/batch"})
+    gate = {}
+    for label, factor in (("at_value", 1.0), ("at_half", 0.5)):
+        base = os.path.join(tmp, "observe_baseline_%s.json" % label)
+        with open(base, "w") as fh:
+            json.dump([{"metric": OBSERVE_METRIC, "unit": "ms/batch",
+                        "value": busy * factor}], fh)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["observe", teldir, "--regress", base])
+        gate[label] = {"rc": rc, "lines": [
+            ln.strip() for ln in out.getvalue().splitlines()
+            if "gate" in ln or "REGRESSION" in ln or ln.strip()
+            .startswith("ok ")]}
+    share = {tag: pct for tag, _, pct in classes}
+    row = {"phase": "observe_card", "config": dict(FLAGSHIP),
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "class_report": [list(c) for c in classes],
+           "recurrent_kernels": recurrent,
+           "shares_sum_pct": sum(share.values()),
+           "device_busy_ms": busy, "wall_ms_per_step": wall,
+           "capture_busy_ms": gap["device_busy_ms_per_step"],
+           "capture_idle_pct": gap["gap_pct"],
+           "busy_rel_diff": (abs(busy - gap["device_busy_ms_per_step"])
+                             / gap["device_busy_ms_per_step"]),
+           "tol_busy": TOL_OBSERVE_BUSY,
+           "trace_files": parsed.n_files,
+           "parsed_vs_capture_equal": dict(parsed.calls) == dict(twin.calls),
+           "parsed_kernel_names": len(parsed.calls),
+           "parsed_calls": sum(parsed.calls.values()),
+           "capture_calls": sum(twin.calls.values()),
+           "other_names": [n[:100] for n in other],
+           "csrc_kernels": csrc, "misfiled": misfiled, "gate": gate,
+           "steps": total_steps, "k1_k2_launches": launches,
+           "seconds": time.perf_counter() - t0}
+    if dict(parsed.calls) != dict(twin.calls):
+        row["calls_differ"] = {
+            n[:100]: [parsed.calls.get(n, 0), twin.calls.get(n, 0)]
+            for n in set(parsed.calls) | set(twin.calls)
+            if parsed.calls.get(n, 0) != twin.calls.get(n, 0)}
+    emit(row)
+    checks = {
+        "K1/K2 recurrent": share.get("recurrent", 0.0) > 0
+        and any("lstm_fwd" in n or "lstm_seq_fwd" in n for n in recurrent)
+        and any("lstm_bwd" in n or "lstm_seq_bwd" in n for n in recurrent),
+        "shares sum to 100": abs(sum(share.values()) - 100.0)
+        <= TOL_OBSERVE_SHARES,
+        "busy below the wall": busy is not None and 0 < busy < wall,
+        "busy within 10% of the capture": row["busy_rel_diff"]
+        <= TOL_OBSERVE_BUSY,
+        "parsed trace equals capture": row["parsed_vs_capture_equal"]
+        and parsed.n_files == 1 and parsed.calls,
+        "K1-K9 and cuBLAS classified": not misfiled and len(csrc) >= 9,
+        "gate exits 0 then 1": (gate["at_value"]["rc"],
+                                gate["at_half"]["rc"]) == (0, 1),
+        "K1/K2 launched": launches[0] > 0 and launches[1] > 0
+        and launches == (2 * total_steps, 2 * total_steps),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("observe_card: %s failed" % ", ".join(failed))
+    return {"launches": launches}
 
 
 def loop_trainer(rig, err, device=None):
@@ -4844,10 +5046,11 @@ def ic_recordio(torch, lk, tmp):
 
 
 def ic_profile(torch, rig, batches, tmp):
-    """profiler_trace around one flagship step: the trace file names the
-    K1 and K2 kernels."""
+    """profiler_trace around one flagship step: the trace file, read by
+    attribution.parse_trace_dir, names the K1 and K2 kernels."""
     import re
 
+    from paddle_tpu_torch.observe import attribution
     from paddle_tpu_torch.utils.stat import profiler_trace
 
     tr = rig.trainer(DEVICE)
@@ -4855,14 +5058,11 @@ def ic_profile(torch, rig, batches, tmp):
     with profiler_trace(os.path.join(tmp, "ic_trace")) as logdir:
         train(torch, tr, batches[1:2])
         torch.cuda.synchronize()
-    files = sorted(os.listdir(logdir))
-    with open(os.path.join(logdir, files[-1])) as fh:
-        events = json.load(fh)["traceEvents"]
-    kernels = sorted({e["name"] for e in events
-                      if e.get("cat") == "kernel"})
+    trace = attribution.parse_trace_dir(logdir)
+    kernels = sorted(trace.calls)
     found = {pat: [k for k in kernels if re.search(pat, k)]
              for pat in IC_KERNEL_NAMES}
-    row = {"trace_files": files, "kernel_names": len(kernels),
+    row = {"trace_files": trace.n_files, "kernel_names": len(kernels),
            "lstm_kernels": {p: names[:2] for p, names in found.items()}}
     if not all(found.values()):
         raise AssertionError("interchange_card profile: no K1/K2 kernel "
@@ -10457,23 +10657,25 @@ def phase_analyze_card(torch, lk, tmp):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError("analyze_card: %s failed" % ", ".join(failed))
-    rows = {"fwd": phase_kernel(torch, lk, ANALYZE_CASES, (),
+    # (100, 64, 256): K1 in kernel_dp's row, K2 in phase 4's
+    rows = {"fwd": phase_kernel(torch, lk, ANALYZE_CASES[:2], (),
                                 "kernel_analyze", {}),
             "bwd": phase_kernel_bwd(torch, lk, ANALYZE_CASES[:2], (),
                                     "kernel_analyze", {})}
     return {"per_bucket": per_bucket, "rows": rows}
 
 
-def analyze_entries(analyzed, bwd_cases):
+def analyze_entries(analyzed, bwd_cases, dp_rows):
     """The kernels-line entries of analyze_card: K1 and K2 at each
-    bucket's (T, 64, 256), launches: that bucket's graphs' captured
-    launches times their replays in the live run."""
+    bucket's (T, 64, 256) (at 100: kernel_dp's and phase 4's rows),
+    launches: that bucket's graphs' captured launches times their replays
+    in the live run."""
     rows = analyzed["rows"]
     out = []
     for steps, batch, hidden in ANALYZE_CASES:
         launches = analyzed["per_bucket"].get(steps, {})
         for cases, source, k, line in (
-                (rows["fwd"], "lstm_seq_fwd", "K1", 146),
+                (rows["fwd"] + dp_rows["fwd"], "lstm_seq_fwd", "K1", 146),
                 (rows["bwd"] + bwd_cases, "lstm_seq_bwd", "K2", 347)):
             out.append(recurrent_entry(
                 cases, "%s[%s,h256_analyze_bucket%d]" % (source, k, steps),
@@ -10482,6 +10684,24 @@ def analyze_entries(analyzed, bwd_cases):
                 path="captured CUDA graphs under a predicted budget",
                 shape=(steps, batch, hidden)))
     return out
+
+
+def observe_entries(observed, bwd_cases, dp_rows):
+    """The kernels-line entries of observe_card: K1 and K2 at the step
+    bundle's (100, 64, 256) (kernel_dp's and phase 4's rows), launches:
+    the phase's."""
+    shape = (TRAIN_SEQ, TRAIN_BATCH, 256)
+    return [recurrent_entry(cases, "%s[%s,h256_observe_step_bundle]"
+                            % (source, k),
+                            "paddle_tpu/ops/pallas_kernels.py:%d" % line,
+                            count, 256, source, path="the training step "
+                            "as a step bundle under the profiler",
+                            shape=shape)
+            for cases, source, k, line, count in (
+                (dp_rows["fwd"], "lstm_seq_fwd", "K1", 146,
+                 observed["launches"][0]),
+                (bwd_cases, "lstm_seq_bwd", "K2", 347,
+                 observed["launches"][1]))]
 
 
 def dp_kernel_rows(torch, lk):
@@ -10769,6 +10989,7 @@ def main():
         flagship = phase_serve_flagship(torch, lk, tmp)
         wide = phase_serve_wide(torch, lk, tmp)
         trained = phase_train_flagship(torch, lk, tmp)
+        observed = phase_observe_card(torch, lk, tmp)
         trained_loop = phase_train_loop(torch, lk, tmp)
         trained_cli = phase_cli_train(torch, lk, tmp)
         tagger = phase_serve_tagger(torch, gk, tmp)
@@ -10960,7 +11181,8 @@ def main():
         *distributed_entries(dp_rows, bwd_cases, cluster, elastic,
                              parallel),
         *interchange_entries(ic_rows, bwd_cases, aot["ops"], interchange),
-        *analyze_entries(analyzed, bwd_cases),
+        *analyze_entries(analyzed, bwd_cases, dp_rows),
+        *observe_entries(observed, bwd_cases, dp_rows),
         recurrent_entry(
             [c for c in continuous["kernel_rows"]
              if c["kernel"] == "gru_seq_fwd"],

@@ -110,6 +110,7 @@ def init(use_tpu=None, trainer_count=1, seed=None, log_level=None, **kwargs):
     device = "cpu" if use_tpu is False else "cuda"
     resolve_device(device)  # raises for the card on a machine without one
     set_default_device(device)
+    _flags.set_flag("use_tpu", device == "cuda")
     _flags.set_flag("trainer_count", int(trainer_count))
     if seed is not None:
         _flags.set_flag("seed", int(seed))

@@ -94,7 +94,9 @@ and the programs (CUDA graph captures) the combination makes. Exit 0
 clean, 1 on findings or topology errors, 2 for ``--topology`` without
 ``--config``, as in the JAX package.
 
-Not ported yet, and refused: ``observe --regress``.
+``observe DIR --regress BASELINE.json [--regress-tol PCT]`` gates the
+``bench_row`` records of DIR's step logs against the baseline's audited
+rows (observe/regress.py) and exits 1 on a gated regression.
 """
 
 import argparse
@@ -473,12 +475,30 @@ def cmd_observe(args):
     and the trace files to open in Perfetto — the JAX package's report,
     line for line. ``--fleet-stats HOST:PORT`` adds the coordinator's live
     membership (``fleet_stats``: each lease's time to expiry) and its
-    serving hosts; ``--regress`` is not ported yet."""
+    serving hosts. With ``--regress <baseline.json>`` the ``bench_row``
+    records mirrored into the directory are gated against the audited
+    baseline (observe/regress.py) and a gated regression exits 1."""
     from paddle_tpu_torch.observe import steplog
 
-    enforce(not args.regress, "cli observe --regress is not ported yet: "
-            "it needs observe/regress.py")
     summary = steplog.summarize_dir(args.directory)
+    rc = 0
+    regress_results = None
+    if args.regress:
+        import glob as _glob
+
+        from paddle_tpu_torch.observe import regress as observe_regress
+
+        rows = []
+        for path in sorted(_glob.glob(
+                os.path.join(args.directory, "*.steps.jsonl"))):
+            rows.extend(r for r in steplog.read_jsonl(path)
+                        if r.get("type") == "bench_row")
+        results, regressions = observe_regress.gate_rows(
+            rows, baseline_paths=[args.regress],
+            base_tol_pct=args.regress_tol)
+        regress_results = results
+        if regressions:
+            rc = 1
     if args.fleet_stats:
         # live membership next to the post-hoc file view; a short retry
         # window, so the query does not hang behind a dead coordinator
@@ -492,8 +512,10 @@ def cmd_observe(args):
         finally:
             client.close()
     if args.json:
+        if regress_results is not None:
+            summary["regress"] = regress_results
         print(json.dumps(summary, indent=2))
-        return 0
+        return rc
     print("telemetry dir: %s" % summary["directory"])
     for run in summary["runs"]:
         print("  run %-12s schema=%s backend=%-5s steps=%-5d "
@@ -712,7 +734,17 @@ def cmd_observe(args):
               % ", ".join(summary["trace_files"]))
     if not summary["runs"]:
         print("  no *.steps.jsonl runs found")
-    return 0
+    if regress_results is not None:
+        from paddle_tpu_torch.observe.regress import format_result
+
+        gated = [r for r in regress_results
+                 if r["status"] == "regression"]
+        print("  regression gate vs %s: %d row(s) checked, %d gated"
+              % (args.regress, len(regress_results), len(gated)))
+        for r in regress_results:
+            if r["status"] in ("regression", "ok"):
+                print("    " + format_result(r))
+    return rc
 
 
 def _export_outputs(args):
@@ -1281,6 +1313,9 @@ def main(argv=None):
                              "process group")
     common.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    common.add_argument("--use-tpu", action="store_true", default=None,
+                        help="the JAX package's option: run on the card "
+                             "(the default; refused with --device cpu)")
 
     p = sub.add_parser("train", parents=[common])
     p.add_argument("--num-passes", type=int, default=1)
@@ -1325,9 +1360,14 @@ def main(argv=None):
                    help="telemetry directory (PADDLE_TPU_TORCH_TELEMETRY)")
     p.add_argument("--json", action="store_true",
                    help="machine-readable summary")
-    p.add_argument("--regress", default="", help="not ported yet")
+    p.add_argument("--regress", default="",
+                   help="audited baseline JSON (a BENCH_*.json driver "
+                        "record or a bench-row lines file); gates the "
+                        "dir's bench_row records and exits non-zero on "
+                        "a gated regression (observe/regress.py)")
     p.add_argument("--regress-tol", type=float, default=10.0,
-                   help="not ported yet")
+                   help="base tolerance %% before the row's own "
+                        "spread_pct widens it")
     p.add_argument("--fleet-stats", default="", metavar="HOST:PORT",
                    help="also query the coordinator at HOST:PORT for its "
                         "live membership (per-lease time to expiry)")
@@ -1560,6 +1600,15 @@ def main(argv=None):
     p.set_defaults(fn=cmd_serve)
 
     args = parser.parse_args(argv)
+    if getattr(args, "use_tpu", None):
+        if (args.device or "").startswith("cpu"):
+            parser.error("--use-tpu asks for the card and --device %s for "
+                         "the CPU: give one of them" % args.device)
+        if args.fn is not cmd_cluster_train:
+            # the launcher's parent does not touch the card (its workers do)
+            import paddle_tpu_torch as paddle
+
+            paddle.init(use_tpu=True)
     if getattr(args, "trainer_count", None):
         from paddle_tpu_torch.utils import flags
 

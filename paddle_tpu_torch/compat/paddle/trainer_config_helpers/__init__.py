@@ -3,11 +3,9 @@ mapped onto paddle_tpu_torch; reference: python/paddle/trainer_config_
 helpers/__init__.py) so reference config files run verbatim via ``from
 paddle.trainer_config_helpers import *``.
 
-It binds every name the JAX package's shim binds. A name whose layer,
-activation, pooling or network the port does not have yet is bound to a
-stub that raises "<name> is not ported yet" when it is called, so a
-config that never uses it runs; where the JAX shim itself binds None
-(``img_conv_group``), so does this one.
+It binds every name the JAX package's shim binds, each to the port's
+layer, activation, pooling or network of that name; where the JAX shim
+itself binds None (``img_conv_group``), so does this one.
 """
 
 from paddle_tpu_torch import activation as _act
@@ -40,20 +38,6 @@ from paddle_tpu_torch.optimizer import (  # noqa: F401
 )
 
 
-def _unported(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError("%s is not ported yet" % name)
-
-    stub.__name__ = name
-    return stub
-
-
-def _pick(module, attr, name):
-    """``module.attr``, or a stub named ``name`` where the port lacks it."""
-    found = getattr(module, attr, None)
-    return found if found is not None else _unported(name)
-
-
 # -- attrs ------------------------------------------------------------------
 ParamAttr = _attr.ParamAttr
 ParameterAttribute = _attr.ParamAttr
@@ -65,19 +49,18 @@ LinearActivation = _act.Linear
 IdentityActivation = _act.Linear
 SigmoidActivation = _act.Sigmoid
 TanhActivation = _act.Tanh
-STanhActivation = _pick(_act, "STanh", "STanhActivation")
+STanhActivation = _act.STanh
 ReluActivation = _act.Relu
-BReluActivation = _pick(_act, "BRelu", "BReluActivation")
-SoftReluActivation = _pick(_act, "SoftRelu", "SoftReluActivation")
+BReluActivation = _act.BRelu
+SoftReluActivation = _act.SoftRelu
 SoftmaxActivation = _act.Softmax
-SequenceSoftmaxActivation = _pick(_act, "SequenceSoftmax",
-                                  "SequenceSoftmaxActivation")
-ExpActivation = _pick(_act, "Exp", "ExpActivation")
-LogActivation = _pick(_act, "Log", "LogActivation")
-AbsActivation = _pick(_act, "Abs", "AbsActivation")
-SquareActivation = _pick(_act, "Square", "SquareActivation")
-SqrtActivation = _pick(_act, "Sqrt", "SqrtActivation")
-ReciprocalActivation = _pick(_act, "Reciprocal", "ReciprocalActivation")
+SequenceSoftmaxActivation = _act.SequenceSoftmax
+ExpActivation = _act.Exp
+LogActivation = _act.Log
+AbsActivation = _act.Abs
+SquareActivation = _act.Square
+SqrtActivation = _act.Sqrt
+ReciprocalActivation = _act.Reciprocal
 
 
 # -- sequence level enums (reference: layers.py AggregateLevel/ExpandLevel) -
@@ -98,7 +81,7 @@ class ExpandLevel:
 MaxPooling = _pooling.MaxPooling
 AvgPooling = _pooling.AvgPooling
 SumPooling = _pooling.SumPooling
-SqrtAvgPooling = _pick(_pooling, "SqrtAvgPooling", "SqrtAvgPooling")
+SqrtAvgPooling = _pooling.SqrtAvgPooling
 
 
 # -- layers (v1 *_layer names; reference: layers.py __all__ :33) ------------
@@ -174,14 +157,14 @@ _LAYERS = (
     ("out_prod_layer", "out_prod"),
 )
 for _name, _attr_name in _LAYERS:
-    globals()[_name] = _pick(_L, _attr_name, _name)
+    globals()[_name] = getattr(_L, _attr_name)
 
 # -- network composites (reference: networks.py) ----------------------------
 for _name in ("bidirectional_lstm", "sequence_conv_pool", "simple_attention",
               "simple_gru", "simple_img_conv_pool", "simple_lstm",
               "text_conv_pool", "vgg_16_network", "bidirectional_gru",
               "lstmemory_group", "gru_group"):
-    globals()[_name] = _pick(_networks, _name, _name)
+    globals()[_name] = getattr(_networks, _name)
 img_conv_group = None  # None in the JAX package's shim too
 
 

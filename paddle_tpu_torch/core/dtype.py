@@ -40,6 +40,18 @@ def default_dtype():
     return _NAMES[flags.get_flag("default_dtype")]
 
 
+def set_default_dtype(dtype):
+    """Set the ``default_dtype`` flag from a name or a torch dtype."""
+    flags.set_flag("default_dtype", dtype if isinstance(dtype, str)
+                   else name_of(canonical(dtype)))
+
+
+def matmul_precision():
+    """The ``matmul_precision`` flag's value (the port refuses any other
+    than its default: float32 matmuls run with TF32 off)."""
+    return flags.get_flag("matmul_precision")
+
+
 def compute_dtype():
     """Forward-pass compute dtype, or None for 'same as parameters'."""
     name = flags.get_flag("compute_dtype")

@@ -44,6 +44,10 @@ class SparseRows:
         self.vals = vals
         self.dim = int(dim)
 
+    @property
+    def size(self):
+        return self.dim
+
     @classmethod
     def from_rows(cls, rows, dim, with_values, device=None):
         """rows: id lists (binary) or (id, value)-pair lists; the tensors

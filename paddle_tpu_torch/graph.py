@@ -93,16 +93,19 @@ def current_group():
 
 
 class ParamSpec:
-    """Declaration of one named parameter buffer (cf. ParameterConfig)."""
+    """Declaration of one named parameter buffer (cf. ParameterConfig);
+    the JAX package's signature (paddle_tpu/graph.py ParamSpec)."""
 
-    __slots__ = ("name", "shape", "initializer", "attr", "is_state",
-                 "sharding")
+    __slots__ = ("name", "shape", "initializer", "attr", "dtype",
+                 "is_state", "sharding")
 
-    def __init__(self, name, shape, initializer, attr=None, is_state=False):
+    def __init__(self, name, shape, initializer, attr=None, dtype=None,
+                 is_state=False):
         self.name = name
         self.shape = tuple(int(s) for s in shape)
         self.initializer = initializer
         self.attr = attr or ParamAttr()
+        self.dtype = dtype  # None: the dtype materialize is given
         self.is_state = is_state  # non-trainable running state
         # a parallel.mesh.NamedSharding where each rank holds a block of
         # the parameter (a sharded embedding's table); ``shape`` stays
@@ -110,10 +113,15 @@ class ParamSpec:
         self.sharding = None
 
     def materialize(self, generator, dtype, device):
-        return self.initializer(generator, self.shape, dtype, device)
+        from paddle_tpu_torch.core import dtype as dtype_mod
+
+        return self.initializer(generator, self.shape,
+                                dtype_mod.canonical(self.dtype or dtype),
+                                device)
 
     def __repr__(self):
-        return "ParamSpec(%s, shape=%s)" % (self.name, self.shape)
+        return "ParamSpec(%s, shape=%s%s)" % (
+            self.name, self.shape, ", state" if self.is_state else "")
 
 
 class Context:
@@ -137,6 +145,8 @@ class Context:
         # {id(step program): [value of each step output]} of the
         # recurrent groups run so far (layer/rnn_group.py get_output)
         self.group_outputs = {}
+        self.aux = {}  # observe(): auxiliary observations of a forward
+        self._group_seeds = {}
 
     @property
     def is_train(self):
@@ -153,9 +163,40 @@ class Context:
                 tensor.device)
         return gen
 
+    def next_rng(self):
+        """A fresh ``torch.Generator`` on the context's device, seeded by a
+        draw from the context's generator (JAX's ``fold_in`` of the key
+        with a counter: each call gives a new, reproducible stream)."""
+        import torch
+
+        gen = self.generator
+        enforce(gen is not None, "this network uses stochastic layers "
+                "(dropout/sampling); pass rng= (a torch.Generator)")
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device))
+        return torch.Generator(device=gen.device).manual_seed(seed)
+
+    def group_rng(self, key):
+        """A stable per-group stream: every call with the same ``key``
+        gives a generator in the same state (a recurrent_group and its
+        get_output siblings draw identical streams); None without a
+        generator."""
+        import torch
+
+        if self.generator is None:
+            return None
+        if key not in self._group_seeds:
+            self._group_seeds[key] = self.next_rng().initial_seed()
+        return torch.Generator(device=self.generator.device).manual_seed(
+            self._group_seeds[key])
+
     def update_state(self, name, value):
         """Record the new value of the running-state parameter ``name``."""
         self.state_updates[name] = value
+
+    def observe(self, name, value):
+        """Record an auxiliary observation ``name`` into ``aux``."""
+        self.aux[name] = value
 
 
 class LayerNode:
@@ -163,13 +204,14 @@ class LayerNode:
     downstream layers (cf. LayerConfig.size)."""
 
     def __init__(self, layer_type, forward_fn, inputs=(), name=None, size=0,
-                 param_specs=(), extra_attr=None):
+                 param_specs=(), extra_attr=None, seq_level=None):
         self.layer_type = layer_type
         self.name = name or auto_name(layer_type)
         self.inputs = list(inputs)
         self.size = size
         self.param_specs = list(param_specs)
         self.extra_attr = extra_attr or ExtraAttr()
+        self.seq_level = seq_level  # None=unknown, 0=plain, 1=seq, 2=nested
         self._forward_fn = forward_fn
         # declaration order: the default feeding maps reader tuple columns
         # to data layers in the order the user declared them

@@ -224,7 +224,8 @@ def finalize(x, act, extra_attr, ctx):
 
 
 def make_node(layer_type, forward_fn, inputs, name=None, size=0,
-              param_specs=(), layer_attr=None):
+              param_specs=(), layer_attr=None, **kw):
+    """A LayerNode; extra keywords (``seq_level=``) go to LayerNode."""
     return LayerNode(layer_type, forward_fn, inputs=to_list(inputs),
                      name=name, size=size, param_specs=param_specs,
-                     extra_attr=ExtraAttr.to_attr(layer_attr))
+                     extra_attr=ExtraAttr.to_attr(layer_attr), **kw)

@@ -18,7 +18,8 @@ def data(name, type, height=None, width=None, layer_attr=None):
     def forward(params, inputs, ctx):
         return inputs[0]
 
-    node = LayerNode("data", forward, inputs=(), name=name, size=type.dim)
+    node = LayerNode("data", forward, inputs=(), name=name, size=type.dim,
+                     seq_level=type.seq_type)
     node.input_type = type
     if height is not None or width is not None:
         enforce(height and width,

@@ -1,13 +1,17 @@
 """paddle_tpu_torch.observe — spans, device attribution, step telemetry
-(paddle_tpu/observe, less the bench gate ``regress``, which gates
-against TPU rows and waits for the port's own benchmark).
+and the bench regression gate (paddle_tpu/observe).
 
 * :mod:`~paddle_tpu_torch.observe.spans` — nested named host spans,
   thread-safe, exportable as Chrome-trace/Perfetto JSON, feeding the
   :class:`paddle_tpu_torch.utils.stat.StatSet` aggregates.
 * :mod:`~paddle_tpu_torch.observe.attribution` — the card's side:
-  torch.profiler kernel events, busy time as a union, the idle share of
-  the wall and of the device window, top kernels, the gaps between them.
+  torch.profiler kernel events (captured, or read back from the Chrome
+  traces the profiler writes), busy time as a union, the idle share of
+  the wall and of the device window, top kernels and kernel classes, the
+  gaps between them.
+* :mod:`~paddle_tpu_torch.observe.regress` — the spread-aware bench
+  regression gate (``cli observe --regress``) against named audited
+  baselines.
 * :mod:`~paddle_tpu_torch.observe.steplog` — the per-step JSONL sink with
   the JAX package's schema, activated by ``PADDLE_TPU_TORCH_TELEMETRY``.
 * :mod:`~paddle_tpu_torch.observe.metrics` — counters, gauges and
@@ -32,8 +36,8 @@ runs.
 """
 
 from paddle_tpu_torch.observe import (attribution, health,  # noqa: F401
-                                      metrics, sentinel, spans, steplog,
-                                      tracing)
+                                      metrics, regress, sentinel, spans,
+                                      steplog, tracing)
 from paddle_tpu_torch.observe.tracing import TraceContext  # noqa: F401
 from paddle_tpu_torch.observe.metrics import get_registry  # noqa: F401
 from paddle_tpu_torch.observe.spans import get_tracer, span  # noqa: F401

@@ -290,24 +290,46 @@ def batch_norm_infer(x, gamma, beta, moving_mean, moving_var, eps):
     return y.to(x.dtype)
 
 
-def conv2d_transpose(x_nhwc, w_hwio, stride=(1, 1),
-                     padding=((0, 0), (0, 0))):
-    """What the JAX package's ``lax.conv_transpose`` with explicit pads
-    computes (paddle_tpu/ops/conv.py:145-153; ``transpose_kernel=False``):
-    a conv over the stride-dilated input with the kernel as given (not
-    flipped) and the pads as given, output (h - 1) * s + 2p - f + 2. That
-    is ``F.conv_transpose2d`` of the flipped, I/O-swapped kernel at
-    padding f - 1 - p (which needs p <= f - 1), outside the kernels'
-    family as in the JAX package."""
-    (pt, pb), (pl, pr) = padding
+def _conv_transpose_padding(k, s, padding):
+    """``lax.conv_transpose``'s (before, after) pads of one spatial dim for
+    ``"SAME"`` / ``"VALID"``; an explicit pair is used as given."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    else:
+        enforce(False, "conv2d_transpose padding must be 'SAME', 'VALID' "
+                "or (before, after) pairs, got %r", padding)
+    return pad_a, pad_len - pad_a
+
+
+def conv2d_transpose(x_nhwc, w_hwio, stride=(1, 1), padding="SAME"):
+    """What the JAX package's ``lax.conv_transpose`` computes
+    (paddle_tpu/ops/conv.py:145-153; ``transpose_kernel=False``): a conv
+    over the stride-dilated input with the kernel as given (not flipped)
+    and pads (before, after) per spatial dim — ``"SAME"`` and ``"VALID"``
+    with lax's meaning, or explicit pairs, asymmetric ones too — output
+    (h - 1) * s + 1 + before + after - f + 1. That is
+    ``F.conv_transpose2d`` of the flipped, I/O-swapped kernel: at padding
+    f - 1 - p where the pads are symmetric and p <= f - 1, else at padding
+    0 (lax's pads of f - 1) with the difference cropped or zero-padded.
+    Outside the kernels' family, as in the JAX package."""
     kh, kw = w_hwio.shape[:2]
-    enforce(pt == pb and pl == pr and pt <= kh - 1 and pl <= kw - 1,
-            "conv2d_transpose takes symmetric padding of at most f - 1, "
-            "got %s for a %dx%d kernel", padding, kh, kw)
+    if isinstance(padding, str):
+        (pt, pb), (pl, pr) = (_conv_transpose_padding(k, s, padding)
+                              for k, s in zip((kh, kw), stride))
+    else:
+        (pt, pb), (pl, pr) = padding
     weight = torch.flip(w_hwio, dims=(0, 1)).permute(2, 3, 0, 1)
-    y = F.conv_transpose2d(x_nhwc.permute(0, 3, 1, 2), weight,
-                           stride=tuple(stride),
-                           padding=(kh - 1 - pt, kw - 1 - pl))
+    x = x_nhwc.permute(0, 3, 1, 2)
+    if pt == pb and pl == pr and 0 <= pt <= kh - 1 and 0 <= pl <= kw - 1:
+        y = F.conv_transpose2d(x, weight, stride=tuple(stride),
+                               padding=(kh - 1 - pt, kw - 1 - pl))
+    else:
+        y = F.pad(F.conv_transpose2d(x, weight, stride=tuple(stride)),
+                  (pl - kw + 1, pr - kw + 1, pt - kh + 1, pb - kh + 1))
     return y.permute(0, 2, 3, 1)
 
 

@@ -352,6 +352,40 @@ class DataParallel:
         which a capture cannot hold."""
         return device.type != "cuda" or self.backend in (None, "nccl")
 
+    # -- sharding descriptors (paddle_tpu/parallel/mesh.py:69-110) ---------
+    def batch_sharding(self):
+        """The batch's descriptor: rows split over ``axis``."""
+        return NamedSharding(self.mesh, P(self.axis))
+
+    def replicated(self):
+        """The descriptor of a tensor every rank holds whole."""
+        return NamedSharding(self.mesh, P())
+
+    def slot_sharding(self, opt_state):
+        """The descriptor of each optimizer slot in ``opt_state`` (dicts,
+        lists and tuples of tensors): replicated, since the port keeps
+        the slots whole on each rank (the class docstring)."""
+        if isinstance(opt_state, dict):
+            return {k: self.slot_sharding(v) for k, v in opt_state.items()}
+        if isinstance(opt_state, (list, tuple)):
+            return type(opt_state)(self.slot_sharding(v) for v in opt_state)
+        return self.replicated()
+
+    def _no_jit_wrapper(name):
+        def refuse(self, *args, **kwargs):
+            raise NotImplementedError(
+                "DataParallel.%s is not ported: it wraps a jitted step of "
+                "the JAX trainer; the port's trainer.SGD(parallelism=) runs "
+                "the step and its exchange itself" % name)
+
+        refuse.__name__ = name
+        return refuse
+
+    shard_train_step = _no_jit_wrapper("shard_train_step")
+    shard_train_chunk = _no_jit_wrapper("shard_train_chunk")
+    shard_eval_step = _no_jit_wrapper("shard_eval_step")
+    del _no_jit_wrapper
+
     # -- the batch ----------------------------------------------------------
     def share(self, rows):
         """(lo, hi): this rank's contiguous rows of a global batch of

@@ -248,6 +248,17 @@ class Bundle:
         bucket = next(b for b in self.buckets if b["batch"] == batch)
         return self._load(bucket["artifact"], device)
 
+    def executable(self, batch, device=None):
+        """JAX's name for :meth:`program` (paddle_tpu/serve/bundle.py
+        ``executable``)."""
+        return self.program(batch, device)
+
+    def decode_executable(self, slots=None, device=None):
+        """The loaded decode-step program of one slot capacity (default:
+        the largest), as :meth:`decode_step` runs it: ``program(params,
+        carry, flat) -> (carry', outputs)``."""
+        return self._load(self._decode_bucket(slots)["artifact"], device)
+
     # -- bucket/shape machinery ---------------------------------------------
     def batch_sizes(self):
         return [b["batch"] for b in self.buckets]

@@ -1314,7 +1314,8 @@ class SGD:
             spec = self.parameters.spec(name)
             if name in self._sharded:
                 spec = ParamSpec(spec.name, spec.shape, spec.initializer,
-                                 spec.attr, spec.is_state)
+                                 spec.attr, dtype=spec.dtype,
+                                 is_state=spec.is_state)
             specs[name] = spec
         return specs
 

@@ -5,12 +5,14 @@ are typed, defaulted, override-able from the environment
 (``PADDLE_TPU_TORCH_<NAME>``), and readable anywhere. Modules call
 :func:`define_flag` at import time.
 
-The process flags the JAX package acts on are defined here with its
-defaults (paddle_tpu/utils/flags.py:74-101). ``matmul_precision``, which
-this port does not act on yet, is refused at any value but its default
-(``define_flag(..., ported=False)``): ``set_flag``, ``init(**flags)`` and
-the environment raise "... is not ported yet" rather than accept a value
-and ignore it.
+The JAX package's core process flags are defined here with its defaults
+and help (paddle_tpu/utils/flags.py:69-101). ``matmul_precision`` and
+``enable_x64``, which this port does not act on, are refused at any value
+but their default (``define_flag(..., ported=False)``): ``set_flag``,
+``init(**flags)`` and the environment raise "... is not ported yet"
+rather than accept a value and ignore it. ``use_tpu`` is set by ``init``
+(True: the card); the others are read nowhere, as in the JAX package,
+whose CLI options and trainer arguments carry the same settings.
 Unknown flags stay accepted, as in the JAX package.
 """
 
@@ -90,11 +92,26 @@ def reset_flag(name):
 
 
 # Core process flags (parity set: paddle/utils/Flags.cpp:18-74).
+define_flag("use_tpu", True, "run compute on the card (cf. --use_gpu); "
+            "init(use_tpu=False) makes the CPU the default device")
 define_flag("seed", 0, "global RNG seed for parameter initialisation")
 define_flag("trainer_count", 1, "data-parallel width (cf. --trainer_count)")
 define_flag("trainer_id", 0,
             "distinct id per trainer process (cf. --trainer_id)")
+define_flag("checkgrad_eps", 1e-4, "perturbation for numeric gradient checking")
+define_flag("prefetch_batches", 4, "data-provider background prefetch depth")
+define_flag("save_dir", "", "checkpoint output directory (cf. --save_dir)")
+define_flag("init_model_path", "",
+            "load parameters from this path before training")
+define_flag("start_pass", 0, "resume pass number (cf. --start_pass)")
+define_flag("num_passes", 1, "number of training passes (cf. --num_passes)")
+define_flag("coordinator_endpoint", "",
+            "host:port of the elastic coordinator service")
 define_flag("num_shards_per_task", 8, "dataset chunks per coordinator task")
+define_flag("task_timeout_sec", 600.0,
+            "coordinator task timeout (cf. go/master timeoutDur)")
+define_flag("task_failure_max", 3,
+            "drop a task after N failures (cf. go/master failureMax)")
 define_flag("default_dtype", "float32", "parameter/activation dtype")
 define_flag("compute_dtype", "",
             "mixed-precision forward dtype (bfloat16 = bf16 activations "
@@ -111,6 +128,9 @@ define_flag("stats", False, "print + reset the global StatSet at every "
 define_flag("trap_fpe", False, "fail fast on NaN/Inf: FloatingPointError at "
             "the first step whose loss, gradients or updated parameters hold "
             "one")
-# the JAX package acts on this; this port does not yet (it decides TF32)
+# the JAX package acts on these; this port does not (it decides TF32, and
+# its dtypes are torch's)
 define_flag("matmul_precision", "highest",
             "matmul precision: default|high|highest", ported=False)
+define_flag("enable_x64", False, "enable float64/int64 (cf. WITH_DOUBLE)",
+            ported=False)

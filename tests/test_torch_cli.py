@@ -580,13 +580,33 @@ def test_cli_test_and_time(tmp_path, capsys):
     assert timed["batch_size"] == 8
 
 
+# the ids are kept from when --regress was refused: the two observe cases
+# now gate a telemetry dir's bench rows (exit 0 within tolerance, 1 on a
+# gated regression), and cluster_train still refuses two devices a process
 @pytest.mark.parametrize("argv,match", [
     (["observe", ".", "--regress-tol", "5", "--regress", "BASELINE.json"],
-     "not ported yet"),
+     0),
     (["cluster_train", "--num-processes", "2", "--devices-per-process",
       "2"], "not ported yet"),
-    (["observe", ".", "--regress", "BASELINE.json"], "not ported yet")])
+    (["observe", ".", "--regress", "BASELINE.json"], 1)],
+    ids=["argv0-not ported yet", "argv1-not ported yet",
+         "argv2-not ported yet"])
 def test_unported_verbs_and_options_raise(tmp_path, argv, match):
+    if argv[0] == "observe":
+        from paddle_tpu_torch.observe import steplog
+
+        baseline = tmp_path / "BASELINE.json"
+        baseline.write_text(json.dumps({"metric": "audited rows",
+                                        "published": {"x_ms": 10.0}}))
+        with steplog.StepLog(str(tmp_path), run_name="bench",
+                             compile_events=False) as slog:
+            slog.write({"type": "bench_row", "metric": "x_ms",
+                        "value": 10.4 if match == 0 else 12.0,
+                        "unit": "ms", "spread_pct": 0.0})
+        argv = [str(tmp_path) if a == "." else
+                str(baseline) if a == "BASELINE.json" else a for a in argv]
+        assert cli.main(argv) == match
+        return
     conf, _ = _write_config(tmp_path, "cfg_refuse")
     if argv[0] in ("train", "cluster_train"):
         argv = argv + ["--config", conf, "--device", "cpu"]

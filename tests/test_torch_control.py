@@ -14,8 +14,9 @@
   /debug/control``, and ``cli serve --autotune`` in a subprocess.
 
 Left out: the linter fixtures (tests/test_torch_analyze.py holds the
-port's), the bench gate (observe/regress.py, not ported) and the slo-ab
-bench (benchmark/exp_serve.py).
+port's), the bench gate (observe/regress.py: tests/test_torch_regress.py,
+where ``convergence_steps`` gates lower-better as in the JAX package) and
+the slo-ab bench (benchmark/exp_serve.py).
 The router's knobs are held in tests/test_torch_router.py, the replica
 and worker fleets' in tests/test_torch_fleet.py and
 tests/test_torch_workers.py.

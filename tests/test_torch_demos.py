@@ -112,13 +112,24 @@ def test_demo_runs_unchanged_on_the_port(name):
 
 
 UNPORTED_SCRIPT = """
-import paddle_tpu.observe.regress
+import paddle_tpu.utils.cpu_mesh
+"""
+
+# a script of the JAX package's bench gate (observe/regress.py, ported)
+REGRESS_SCRIPT = """
+import json, sys
+from paddle_tpu.observe import regress
+rows = [{"metric": "x_ms", "value": 12.0, "unit": "ms"}]
+best = {"x_ms": {"metric": "x_ms", "value": 10.0, "_source": "base"}}
+print(regress.__name__)
+print(regress.format_result(regress.check_row(rows[0], best)))
 """
 
 
 # the id is kept from when analyze.lint was the module the port lacked
+# (utils.cpu_mesh exists only for jax: the port has no counterpart)
 @pytest.mark.parametrize("args,error", [
-    ([], "paddle_tpu.observe.regress is not ported yet")],
+    ([], "paddle_tpu.utils.cpu_mesh is not ported yet")],
     ids=["args0-paddle_tpu.analyze.lint is not ported yet"])
 def test_unported_demo_fails_on_the_port(tmp_path, args, error):
     """A script that imports a module the port lacks fails with the port's
@@ -130,6 +141,17 @@ def test_unported_demo_fails_on_the_port(tmp_path, args, error):
     assert proc.returncode != 0
     assert error in proc.stderr, proc.stderr[-2000:]
     assert "paddle_tpu_torch" in proc.stderr  # the port answered
+
+
+def test_demo_of_the_bench_gate_runs_on_the_port(tmp_path):
+    script = tmp_path / "gate.py"
+    script.write_text(REGRESS_SCRIPT)
+    proc = run_demo(str(script), [])
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.splitlines()[-2:] == [
+        "paddle_tpu_torch.observe.regress",
+        "REGRESSION x_ms: 12 is 20.0% worse than audited best 10 (base), "
+        "tolerance 10.0%"]
 
 
 BINDING_PROBE = r"""
@@ -188,9 +210,14 @@ def test_binding_sets_aside_and_restores_the_jax_package():
         assert paddle_tpu is paddle_tpu_torch
         sys.path.insert(0, "/nonexistent")
         with pytest.raises(ModuleNotFoundError, match="not ported yet"):
-            import paddle_tpu.observe.regress  # noqa: F401
-        # interop, parallel and analyze (all ported) are the port's
+            import paddle_tpu.utils.cpu_mesh  # noqa: F401
+        # interop, parallel, analyze and the bench gate (all ported) are
+        # the port's
         import paddle_tpu.analyze.lint
+        import paddle_tpu.observe.regress
+
+        assert paddle_tpu.observe.regress.__name__ == \
+            "paddle_tpu_torch.observe.regress"
 
         assert paddle_tpu.analyze.lint.__name__ == \
             "paddle_tpu_torch.analyze.lint"

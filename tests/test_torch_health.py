@@ -13,8 +13,9 @@ port's own copy of the JAX module.
 * the same history, merge, window statistics and monitor verdicts from
   the port's copy and the JAX module on the same inputs.
 
-Left out with what it needs: the bench gate's burn-rate direction
-(observe/regress.py). The 2-worker fleet is in tests/test_torch_workers.py.
+The bench gate's burn-rate direction (observe/regress.py) is held in
+tests/test_torch_regress.py. The 2-worker fleet is in
+tests/test_torch_workers.py.
 """
 
 import json

@@ -20,6 +20,17 @@ packages on the CPU:
    packed row of two images' boxes), as the JAX package's per-image map
    does, and agrees with it on packed rows of one image each.
 7. The worker fleet counts a re-routed request before publishing it.
+8. ``ops.conv.conv2d_transpose`` pads ``"SAME"`` by default and takes
+   ``"VALID"`` and explicit pairs, asymmetric ones too, as
+   ``lax.conv_transpose`` does.
+9. ``graph.ParamSpec`` takes ``dtype`` fifth, as the JAX package's.
+10. The CLI takes ``--use-tpu``, and ``init`` sets the ``use_tpu`` flag.
+11. The JAX package's eleven remaining core flags are defined.
+12. ``LayerNode(seq_level=)``, ``make_node(**kw)``, ``SparseRows.size``,
+    ``core.dtype.set_default_dtype`` and ``matmul_precision()``.
+13. ``Bundle.executable`` / ``decode_executable``, ``DataParallel``'s
+    sharding helpers (the jit wrappers refused by name), and
+    ``Context.next_rng`` / ``group_rng`` / ``observe``.
 
 Values within 1e-6 of max(1, max |JAX|) (``tests/torch_parity.py``).
 """
@@ -45,6 +56,7 @@ from paddle_tpu_torch.core import place
 from paddle_tpu_torch.ops import conv as conv_ops
 from paddle_tpu_torch.ops import conv_kernels as ck
 from paddle_tpu_torch.topology import Topology, convert_column, convert_feed
+from paddle_tpu_torch.utils.error import EnforceError
 
 from torch_parity import TOL_FWD, both, numpy_params, rel
 
@@ -552,3 +564,266 @@ def test_reroute_is_counted_before_it_is_published():
     assert fleet._stats["reroutes"] == 1
     with pytest.raises(OSError, match="ring closed"):
         entry["future"].result(timeout=1)
+
+
+# -- 8. conv2d_transpose's padding -------------------------------------------
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("padding", [None, "SAME", "VALID", ((1, 1), (1, 1)),
+                                     ((0, 2), (1, 0)), ((3, 1), (2, 4))],
+                         ids=["default", "SAME", "VALID", "pairs",
+                              "asymmetric", "beyond_f"])
+def test_conv2d_transpose_padding_matches_jax(stride, padding):
+    """5 x 5 input, 3 x 3 kernel: JAX gives 5 x 5 (stride 1) and 10 x 10
+    (stride 2) at its "SAME" default."""
+    rng = np.random.RandomState(stride)
+    x = rng.randn(2, 5, 5, 3).astype(np.float32)
+    w = rng.randn(3, 3, 3, 4).astype(np.float32) / 3
+    kwargs = {"stride": (stride, stride)}
+    if padding is not None:
+        kwargs["padding"] = padding
+    got = conv_ops.conv2d_transpose(torch.from_numpy(x), torch.from_numpy(w),
+                                    **kwargs)
+    want = jax_conv_ops.conv2d_transpose(jnp.asarray(x), jnp.asarray(w),
+                                         **kwargs)
+    assert got.shape == want.shape
+    if padding is None:
+        assert got.shape[1:3] == ((5, 5) if stride == 1 else (10, 10))
+    assert rel(got.numpy(), np.asarray(want)) <= 1e-5
+
+
+# -- 9. ParamSpec's dtype ----------------------------------------------------
+
+def test_param_spec_takes_dtype_fifth_as_jax():
+    import jax
+
+    from paddle_tpu.graph import ParamSpec as JaxParamSpec
+    from paddle_tpu.initializer import Constant as JaxConstant
+    from paddle_tpu_torch.graph import ParamSpec
+    from paddle_tpu_torch.initializer import Constant
+
+    assert list(inspect.signature(ParamSpec).parameters) == \
+        list(inspect.signature(JaxParamSpec).parameters)
+    got = ParamSpec("w", (2, 3), Constant(0.5), None, "bfloat16")
+    want = JaxParamSpec("w", (2, 3), JaxConstant(0.5), None, "bfloat16")
+    assert got.dtype == want.dtype == "bfloat16"
+    assert got.is_state is want.is_state is False
+    assert repr(got) == repr(want)
+    value = got.materialize(torch.Generator(), torch.float32, "cpu")
+    jvalue = want.materialize(jax.random.PRNGKey(0), jnp.float32)
+    assert str(value.dtype).replace("torch.", "") == jvalue.dtype.name
+    np.testing.assert_array_equal(value.float().numpy(),
+                                  np.asarray(jvalue, np.float32))
+    # without a dtype the caller's; is_state is the sixth
+    plain = ParamSpec("m", (2,), Constant(0.0), is_state=True)
+    assert plain.dtype is None and plain.is_state is True
+    assert plain.materialize(torch.Generator(), torch.float32,
+                             "cpu").dtype == torch.float32
+    assert repr(plain) == repr(JaxParamSpec("m", (2,), JaxConstant(0.0),
+                                            is_state=True))
+
+
+# -- 10. --use-tpu -----------------------------------------------------------
+
+def test_cli_takes_use_tpu_as_jax(tmp_path, monkeypatch, capsys, cpu_default):
+    """``--use-tpu`` parses in both CLIs and reaches ``init(use_tpu=True)``
+    (recorded here: the CPU has no card); with ``--device cpu`` the port
+    refuses it, naming both."""
+    from paddle_tpu import cli as jcli
+    from paddle_tpu.utils import flags as jflags
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.utils import flags
+    from test_torch_cli import _write_config
+
+    calls = []
+    monkeypatch.setattr(jpaddle, "init", lambda **kw: calls.append(
+        ("jax", kw.get("use_tpu"))))
+    monkeypatch.setattr(paddle, "init", lambda **kw: calls.append(
+        ("port", kw.get("use_tpu"))))
+    for pkg_cli, name in ((jcli, "jax_use_tpu"), (cli, "port_use_tpu")):
+        conf, _ = _write_config(tmp_path, name)
+        assert pkg_cli.main(["time", "--config", conf, "--use-tpu",
+                             "--iters", "1"]) == 0
+    assert calls == [("jax", True), ("port", True)]
+    with pytest.raises(SystemExit) as info:
+        cli.main(["time", "--config", conf, "--use-tpu", "--device", "cpu"])
+    assert info.value.code == 2
+    err = capsys.readouterr().err
+    assert "--use-tpu" in err and "--device cpu" in err
+    monkeypatch.undo()
+    jpaddle.init(use_tpu=False)
+    paddle.init(use_tpu=False)
+    assert flags.get_flag("use_tpu") is jflags.get_flag("use_tpu") is False
+    jflags.set_flag("use_tpu", True)
+    flags.set_flag("use_tpu", True)
+
+
+# -- 11. the eleven core flags -----------------------------------------------
+
+ELEVEN_FLAGS = {  # name: a value other than the default (None: refused)
+    "use_tpu": False, "enable_x64": None, "checkgrad_eps": 1e-3,
+    "prefetch_batches": 2, "save_dir": "/ckpt", "init_model_path": "/m.tar",
+    "start_pass": 2, "num_passes": 5, "coordinator_endpoint": "h:1",
+    "task_timeout_sec": 30.0, "task_failure_max": 7}
+
+
+def _redefined_from_env(mod, prefix, name, raw, monkeypatch):
+    """The value ``define_flag`` gives ``name`` with its environment
+    variable set to ``raw`` (the registry entry put back after)."""
+    ftype, default, help_str = mod._defs.pop(name)
+    value = mod._values.pop(name)
+    monkeypatch.setenv(prefix + name.upper(), raw)
+    try:
+        mod.define_flag(name, default, help_str)
+        return mod.get_flag(name)
+    finally:
+        mod._defs[name] = (ftype, default, help_str)
+        mod._values[name] = value
+
+
+@pytest.mark.parametrize("name", sorted(ELEVEN_FLAGS))
+def test_core_flag_is_defined_as_in_jax(name, monkeypatch):
+    from paddle_tpu.utils import flags as jflags
+    from paddle_tpu_torch.utils import flags
+
+    default = jflags.get_flag(name)
+    assert flags.get_flag(name) == default
+    assert type(flags.get_flag(name)) is type(default)
+    assert flags._defs[name][1] == jflags._defs[name][1]
+    other = ELEVEN_FLAGS[name]
+    try:
+        if other is None:  # not acted on by the port: refused but default
+            flags.set_flag(name, default)
+            with pytest.raises(EnforceError, match="not ported yet"):
+                flags.set_flag(name, not default)
+        else:
+            for mod in (jflags, flags):
+                mod.set_flag(name, other)
+            assert flags.get_flag(name) == jflags.get_flag(name) == other
+        raw = str(default if other is None else other)
+        assert _redefined_from_env(flags, "PADDLE_TPU_TORCH_", name, raw,
+                                   monkeypatch) == \
+            _redefined_from_env(jflags, "PADDLE_TPU_", name, raw,
+                                monkeypatch)
+    finally:
+        jflags.reset_flag(name)
+        flags.reset_flag(name)
+
+
+# -- 12. the graph-building surface ------------------------------------------
+
+def test_seq_level_make_node_sparse_size_and_dtype_helpers():
+    from paddle_tpu import data_type as jdt
+    from paddle_tpu import layer as jlayer
+    from paddle_tpu.core import dtype as jdtype
+    from paddle_tpu.core.sparse import SparseRows as JaxSparseRows
+    from paddle_tpu.layer.base import make_node as jmake_node
+    from paddle_tpu.utils import flags as jflags
+    from paddle_tpu_torch import data_type as dt
+    from paddle_tpu_torch import layer
+    from paddle_tpu_torch.core import dtype as dtype_mod
+    from paddle_tpu_torch.core.sparse import SparseRows
+    from paddle_tpu_torch.layer.base import make_node
+    from paddle_tpu_torch.utils import flags
+
+    for kind in ("dense_vector", "integer_value_sequence",
+                 "sparse_binary_vector_sub_sequence"):
+        jnode = jlayer.data(name="x_" + kind, type=getattr(jdt, kind)(7))
+        node = layer.data(name="x_" + kind, type=getattr(dt, kind)(7))
+        assert node.seq_level == jnode.seq_level
+    jnode = jmake_node("probe", lambda p, v, c: v[0], [], name="jp",
+                       seq_level=2)
+    node = make_node("probe", lambda p, v, c: v[0], [], name="pp",
+                     seq_level=2)
+    assert node.seq_level == jnode.seq_level == 2
+    assert make_node("probe", None, [], name="pq").seq_level is None
+    ids = np.array([[1, 4, -1]], np.int32)
+    assert SparseRows(torch.from_numpy(ids), None, 9).size == \
+        JaxSparseRows(jnp.asarray(ids), None, 9).size == 9
+    try:
+        for mod in (jdtype, dtype_mod):
+            mod.set_default_dtype("bfloat16")
+        assert flags.get_flag("default_dtype") == \
+            jflags.get_flag("default_dtype") == "bfloat16"
+        dtype_mod.set_default_dtype(torch.float64)
+        jdtype.set_default_dtype(np.float64)
+        assert flags.get_flag("default_dtype") == \
+            jflags.get_flag("default_dtype") == "float64"
+    finally:
+        for mod in (jflags, flags):
+            mod.reset_flag("default_dtype")
+    assert dtype_mod.matmul_precision() == jdtype.matmul_precision() == \
+        flags.get_flag("matmul_precision")
+
+
+# -- 13. the missing public names --------------------------------------------
+
+def test_bundle_executable_names_the_loaded_programs(tmp_path):
+    from paddle_tpu.serve.bundle import Bundle as JaxBundle
+    from torch_decode import load_pair
+
+    port, ref = load_pair(tmp_path, "gru")
+    for name in ("executable", "decode_executable"):
+        assert callable(getattr(JaxBundle, name))
+    batch = port.batch_sizes()[0]
+    assert port.executable(batch) is port.program(batch)
+    assert ref.executable(batch) is not None
+    flat = port.dummy_decode_flat()
+    flat["lens"][:] = 2
+    carry = port.zero_carry(device="cpu")
+    step = port.decode_executable()
+    assert step is port.decode_executable(port.decode_slot_sizes()[-1])
+    with torch.inference_mode():
+        _, outs = step(port.params("cpu"), dict(sorted(carry.items())),
+                       port.device_inputs(flat, "cpu"))
+    _, jouts = ref.decode_step(ref.zero_carry(), flat)
+    for name in jouts:
+        assert rel(outs[name].numpy(), np.asarray(jouts[name])) <= 1e-5
+
+
+def test_data_parallel_sharding_helpers_as_jax():
+    from paddle_tpu.parallel import DataParallel as JaxDataParallel
+    from paddle_tpu.parallel import build_mesh as jax_build_mesh
+    from paddle_tpu_torch.parallel import DataParallel, build_mesh
+
+    dp, jdp = DataParallel(build_mesh()), JaxDataParallel(jax_build_mesh())
+    assert tuple(dp.batch_sharding().spec) == \
+        tuple(jdp.batch_sharding().spec) == ("data",)
+    assert tuple(dp.replicated().spec) == tuple(jdp.replicated().spec) == ()
+    slots = dp.slot_sharding({"w": [torch.zeros(4)], "b": torch.zeros(2)})
+    assert tuple(slots["w"][0].spec) == tuple(slots["b"].spec) == ()
+    for name in ("shard_train_step", "shard_train_chunk", "shard_eval_step"):
+        assert list(inspect.signature(getattr(DataParallel, name))
+                    .parameters)[0] == "self"
+        with pytest.raises(NotImplementedError, match=name):
+            getattr(dp, name)(None, None)
+
+
+def test_context_next_rng_group_rng_and_observe():
+    import jax
+
+    from paddle_tpu.graph import Context as JaxContext
+    from paddle_tpu_torch.graph import Context
+
+    jctx = JaxContext(rng=jax.random.PRNGKey(0))
+    ctx = Context(generator=torch.Generator().manual_seed(0))
+    for c in (jctx, ctx):
+        c.observe("loss_scale", 2.0)
+    assert ctx.aux == jctx.aux == {"loss_scale": 2.0}
+
+    def draws(gen):
+        return torch.rand(4, generator=gen).numpy()
+
+    first, second = ctx.next_rng(), ctx.next_rng()
+    assert not np.array_equal(draws(first), draws(second))
+    again = Context(generator=torch.Generator().manual_seed(0))
+    assert np.array_equal(draws(again.next_rng()),
+                          draws(Context(generator=torch.Generator()
+                                        .manual_seed(0)).next_rng()))
+    assert np.array_equal(draws(ctx.group_rng("g")), draws(ctx.group_rng("g")))
+    assert not np.array_equal(draws(ctx.group_rng("g")),
+                              draws(ctx.group_rng("h")))
+    assert Context().group_rng("g") is None is \
+        JaxContext().group_rng("g")
+    with pytest.raises(EnforceError, match="rng="):
+        Context().next_rng()
