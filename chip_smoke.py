@@ -359,7 +359,10 @@ result line:
            context window of 3, hidden 128), sequence_tagging --model
            linear_crf (emb 64, a window -2..+2, an fc to the labels, the
            CRF) and --model rnn_crf (a forward and a reversed LSTM of 128:
-           2 K1 and 2 K2 a step), both at batch 32, --num-passes 1.
+           2 K1 and 2 K2 a step), both at batch 32, --num-passes 1. Last
+           the port's own VAE demo (paddle_tpu_torch.demos.vae --quick,
+           the counterpart of demos/vae/train.py, which calls jax itself):
+           finite losses, the last below the first, no kernel launched.
    v1_text  two v1 configs in the ``from paddle.trainer_config_helpers
            import *`` form over a synthetic IMDB-schema provider (dict
            5000, lengths 1-100, batch 64, Adam 2e-3 with L2 8e-4 and
@@ -590,6 +593,23 @@ result line:
            bit expected), K1/K2 2 a step (through the graph's replays),
            the backend, ms a batch both ways and their profiles (idle
            share).
+    local_dp_card  one process driving two local replicas that share the
+           one card (DataParallel over build_mesh({"data": 2},
+           devices=[cuda:0, cuda:0]); a thread a replica, the reference's
+           MultiGradientMachine): the flagship at full width, global batch
+           64 (32 rows a replica), length 100, 4 steps against one process
+           on the same batches (costs and parameters within 1e-6 of max(1,
+           max |.|)), the two replicas' state equal bit for bit, 16 K1 and
+           16 K2 (2 replicas x 2 layers x 4 steps), the same steps through
+           the pipelined feed (each replica's share copied on a copy
+           stream) bit for bit, steps_per_call refused by name, ms a step
+           against one process (two replicas on one card measure the
+           replica path, not two cards); then ``cli train
+           --trainer-count 2`` (cli.main in this process) with
+           PADDLE_TPU_TORCH_VIRTUAL_DEVICES=2 on a flagship config (4
+           batches of 64): two replicas, bit for bit, 16 K1 and 16 K2, its
+           costs and saved parameters within 1e-6 of the same config
+           trained by one process here.
     cluster_card  two ranks on the one card over gloo (NCCL refuses two
            ranks on one device), spawned as scripts: the flagship at global
            batch 64 (32 rows a rank), 4 steps; the ranks' parameters equal
@@ -7665,7 +7685,40 @@ def phase_demos(torch, ck, gk, ik, lk, tmp):
             raise AssertionError("demo %s: %s" % (name, "; ".join(faults)))
         results[name] = dict(row, per_step=per_step)
     results["vgg_convs"] = vgg_convs
+    results["vae"] = demo_vae(torch, ck, gk, ik, lk)
     return results
+
+
+def demo_vae(torch, ck, gk, ik, lk):
+    """The port's VAE demo (paddle_tpu_torch.demos.vae) with --quick on
+    the card: its lines, finite losses, the last below the first, and no
+    kernel launched (fc layers only)."""
+    import io
+
+    from paddle_tpu_torch.demos import vae
+
+    reset_kernel_counts(ck, gk, ik, lk)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        first, last = vae.main(["--quick"])
+    text = out.getvalue()
+    launches = kernel_counts(ck, gk, lk)
+    row = {"phase": "demos", "demo": "vae",
+           "script": "paddle_tpu_torch/demos/vae.py", "args": ["--quick"],
+           "seconds": time.perf_counter() - t0, "first_loss": first,
+           "last_loss": last, "launches": launches,
+           "tail": text.strip().splitlines()[-3:]}
+    emit(row)
+    faults = [line for line in ("elbo-loss", "decoded sample stats")
+              if line not in text]
+    if not (np.isfinite(first) and np.isfinite(last)) or last >= first:
+        faults.append("losses %r -> %r" % (first, last))
+    if any(launches.values()):
+        faults.append("kernel launches %r" % launches)
+    if faults:
+        raise AssertionError("demo vae: %s" % "; ".join(faults))
+    return row
 
 
 # -- phase v1_text: the quick_start text configs through cli train ------------
@@ -9561,9 +9614,9 @@ CLUSTER_ROWS = TRAIN_BATCH // CLUSTER_RANKS
 CLUSTER_TIMEOUT = 300
 ELASTIC_TTL = 1.2
 ELASTIC_SHARDS = ["s0", "s1", "s2", "s3"]
-# K1/K2 at the shapes of a cluster rank, of the elastic run's steps and of
-# a parallel_card rank (16 rows; the backward's (100, 64, 256) is phase
-# 4's)
+# K1/K2 at the shapes of a cluster rank (and of a local_dp_card replica),
+# of the elastic run's steps and of a parallel_card rank (16 rows; the
+# backward's (100, 64, 256) is phase 4's)
 DP_FWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256), (TRAIN_SEQ, TRAIN_BATCH, 256),
                 (TRAIN_SEQ, TRAIN_BATCH // 4, 256)]
 DP_BWD_CASES = [(TRAIN_SEQ, CLUSTER_ROWS, 256),
@@ -9758,6 +9811,148 @@ def phase_dp_card(torch, lk):
         raise AssertionError("dp_card: %s failed: %r"
                              % (", ".join(failed), row))
     return row
+
+
+LOCAL_DP_REPLICAS, LOCAL_DP_STEPS = 2, 4
+
+
+def phase_local_dp_card(torch, lk, tmp):
+    """One process driving two local replicas that share the one card
+    (MultiGradientMachine's threads), against one process, then ``cli
+    train --trainer-count 2`` with PADDLE_TPU_TORCH_VIRTUAL_DEVICES=2
+    (module docstring, local_dp_card)."""
+    from paddle_tpu_torch import cli, minibatch
+    from paddle_tpu_torch import trainer as trainer_mod
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.event import EndIteration
+    from paddle_tpu_torch.parallel import DataParallel, build_mesh
+    from paddle_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
+    from paddle_tpu_torch.utils import flags
+    from paddle_tpu_torch.utils.error import EnforceError
+
+    t0 = time.perf_counter()
+    rig = flagship_rig(256, SEED + 2400)
+    batches = train_batches(SEED + 2401, LOCAL_DP_STEPS, TRAIN_BATCH, False,
+                            FLAGSHIP["dict_size"])
+    single = rig.trainer(DEVICE)
+    costs, single_ms = train(torch, single, batches, timed=True)
+    want = snapshot(single)
+    card = torch.device(DEVICE, torch.cuda.current_device())
+    dp = DataParallel(build_mesh({"data": LOCAL_DP_REPLICAS},
+                                 devices=[card] * LOCAL_DP_REPLICAS))
+    tr = rig.trainer(DEVICE, parallelism=dp)
+    lk.reset_launches()
+    rep_costs, rep_ms = train(torch, tr, batches, timed=True)
+    launches = check_launches(lk, LOCAL_DP_STEPS, 2 * LOCAL_DP_REPLICAS,
+                              "local_dp_card")
+    err = trajectory_errors(want, snapshot(tr), costs, rep_costs)
+
+    def replicas_equal(trainer):
+        held = [trainer._mutable_tensors(rep) for rep in trainer._replicas]
+        return len(held) == LOCAL_DP_REPLICAS and all(
+            torch.equal(a, b) for other in held[1:]
+            for a, b in zip(held[0], other))
+
+    replicas_bitwise = replicas_equal(tr)
+    # the pipelined feed copies each replica's share on its device's copy
+    # stream: the same steps, bit for bit
+    piped = rig.trainer(DEVICE, parallelism=dp)
+    piped_costs = train(torch, piped, batches, feed_pipeline=2)
+    piped_bitwise = trajectory_errors(snapshot(tr), snapshot(piped),
+                                      rep_costs, piped_costs)[2]
+    try:
+        tr.train(lambda: iter(batches), steps_per_call=2)
+        refused = None
+    except EnforceError as exc:
+        refused = str(exc)
+    # cli train --trainer-count 2 (cli.main, as python -m runs it) under
+    # PADDLE_TPU_TORCH_VIRTUAL_DEVICES=2, against the same config trained
+    # here by one process
+    work = os.path.join(tmp, "local_dp")
+    os.makedirs(work)
+    conf = os.path.join(work, "flagship_conf.py")
+    with open(conf, "w") as f:
+        f.write(CLUSTER_CONFIG % {
+            "batch": TRAIN_BATCH, "flagship": FLAGSHIP,
+            "seed": SEED + 2402, "rows": LOCAL_DP_STEPS * TRAIN_BATCH,
+            "vocab": FLAGSHIP["dict_size"], "seq": TRAIN_SEQ})
+    cfg = cli._load_config(conf)
+    _, _, one = cli._build(cfg, DEVICE)
+    cli_single = train(torch, one, list(minibatch.batch(
+        cfg.train_reader(), TRAIN_BATCH)()))
+    save = os.path.join(work, "save")
+    cli_costs, real_train = [], trainer_mod.SGD.train
+
+    def recording(self, reader, num_passes=1, event_handler=None, **kw):
+        def handler(evt):
+            if isinstance(evt, EndIteration):
+                cli_costs.append(evt.cost)
+            event_handler(evt)
+
+        return real_train(self, reader, num_passes=num_passes,
+                          event_handler=handler, **kw)
+
+    env, count = os.environ.get(VIRTUAL_DEVICES_ENV), \
+        flags.get_flag("trainer_count")
+    os.environ[VIRTUAL_DEVICES_ENV] = str(LOCAL_DP_REPLICAS)
+    t_cli = time.perf_counter()
+    lk.reset_launches()
+    try:
+        with mock.patch.object(trainer_mod.SGD, "train", recording):
+            rc, _, built = cli_call(cli, [
+                "train", "--config", conf, "--trainer-count",
+                str(LOCAL_DP_REPLICAS), "--save-dir", save])
+        cli_launches = (lk.launches, lk.bwd_launches)
+    finally:
+        flags.set_flag("trainer_count", count)
+        if env is None:
+            del os.environ[VIRTUAL_DEVICES_ENV]
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = env
+    cli_seconds = time.perf_counter() - t_cli
+    saved, _, _ = ckpt.load_checkpoint(ckpt.latest_checkpoint(save))
+    cli_err = trajectory_errors(snapshot(one), {
+        n: saved.get(n) for n in saved.names()}, cli_single, cli_costs)
+    cli_replicas = built[0].parallelism.replicas
+    row = {"phase": "local_dp_card", "config": FLAGSHIP,
+           "replicas": LOCAL_DP_REPLICAS, "devices": [str(card)] * 2,
+           "global_batch": TRAIN_BATCH,
+           "rows_a_replica": TRAIN_BATCH // LOCAL_DP_REPLICAS,
+           "seq_len": TRAIN_SEQ, "steps": LOCAL_DP_STEPS, "costs": costs,
+           "replica_costs": rep_costs, "cost_err_vs_one_process": err[0],
+           "param_err_vs_one_process": err[1], "tol": TOL_LOOP,
+           "replicas_bitwise_equal": replicas_bitwise,
+           "pipelined_feed_bitwise": piped_bitwise,
+           "launches": launches,
+           "want_launches": 2 * LOCAL_DP_REPLICAS * LOCAL_DP_STEPS,
+           "ms_per_step_one_process": single_ms,
+           "ms_per_step_two_replicas": rep_ms,
+           "steps_per_call_refusal": refused,
+           "cli_rc": rc, "cli_replicas": cli_replicas,
+           "cli_costs": cli_costs, "cli_single_costs": cli_single,
+           "cli_cost_err": cli_err[0], "cli_param_err": cli_err[1],
+           "cli_launches": cli_launches,
+           "cli_replicas_bitwise_equal": replicas_equal(built[0]),
+           "cli_seconds": cli_seconds, "seconds": time.perf_counter() - t0}
+    emit(row)
+    checks = {
+        "two replicas against one process": max(err[:2]) <= TOL_LOOP,
+        "replicas bit for bit": replicas_bitwise
+        and row["cli_replicas_bitwise_equal"],
+        "pipelined feed bit for bit": piped_bitwise,
+        "steps_per_call refused by name": bool(refused)
+        and "local replicas" in refused,
+        "cli train --trainer-count": rc == 0
+        and cli_replicas == LOCAL_DP_REPLICAS
+        and len(cli_costs) == LOCAL_DP_STEPS,
+        "cli against one process": max(cli_err[:2]) <= TOL_LOOP,
+        "cli launches": cli_launches == launches,
+        "finite": bool(np.all(np.isfinite(rep_costs)))}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("local_dp_card: %s failed: %r"
+                             % (", ".join(failed), row))
+    return {"launches": launches, "row": row}
 
 
 def phase_cluster_card(torch, lk, tmp):
@@ -10713,17 +10908,20 @@ def dp_kernel_rows(torch, lk):
                                     "kernel_dp", {})}
 
 
-def distributed_entries(rows, bwd_cases, cluster, elastic, parallel):
+def distributed_entries(rows, bwd_cases, cluster, elastic, parallel,
+                        local_dp):
     """The kernels-line entries of K1 and K2 in a cluster_card rank (its
     32 rows; launches: rank 0's run), in elastic_card's run (the global
-    batch; launches: the card's run, the steps the rewind undid included)
-    and in a parallel_card rank of the sharded flagship (its 16 rows of
-    the ep + dp mesh; launches: rank 0's run)."""
+    batch; launches: the card's run, the steps the rewind undid included),
+    in a parallel_card rank of the sharded flagship (its 16 rows of the
+    ep + dp mesh; launches: rank 0's run) and in a local replica of
+    local_dp_card (its 32 rows; launches: both replicas' run)."""
     out = []
     for name, shape, launches in (
             ("cluster_rank", DP_FWD_CASES[0], cluster["launches"]),
             ("elastic", DP_FWD_CASES[1], elastic["launches"]),
-            ("ep_dp_rank", DP_FWD_CASES[2], parallel["launches"])):
+            ("ep_dp_rank", DP_FWD_CASES[2], parallel["launches"]),
+            ("local_replica", DP_FWD_CASES[0], local_dp["launches"])):
         for cases, source, k, line, count in (
                 (rows["fwd"], "lstm_seq_fwd", "K1", 146, launches[0]),
                 (rows["bwd"] + bwd_cases, "lstm_seq_bwd", "K2", 347,
@@ -11031,6 +11229,7 @@ def main():
     ssd = phase_ssd300_head(torch, ck, lk)
     phase_dp_card(torch, lk)
     with tempfile.TemporaryDirectory() as tmp:
+        local_dp = phase_local_dp_card(torch, lk, tmp)
         cluster = phase_cluster_card(torch, lk, tmp)
         elastic = phase_elastic_card(torch, lk, tmp)
         parallel = phase_parallel_card(torch, lk, tmp)
@@ -11179,7 +11378,7 @@ def main():
         *nested_entries(nested),
         *remaining_layer_entries(crnn, ssd),
         *distributed_entries(dp_rows, bwd_cases, cluster, elastic,
-                             parallel),
+                             parallel, local_dp),
         *interchange_entries(ic_rows, bwd_cases, aot["ops"], interchange),
         *analyze_entries(analyzed, bwd_cases, dp_rows),
         *observe_entries(observed, bwd_cases, dp_rows),

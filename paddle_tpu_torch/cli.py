@@ -2,12 +2,14 @@
 paddle/trainer/TrainerMain.cpp, jobs train/test/time):
 
     python -m paddle_tpu_torch.cli train --config conf.py --num-passes 5 \
-        [--config-args k=v,...] [--steps-per-call 10] [--device cpu]
+        [--config-args k=v,...] [--steps-per-call 10] [--device cpu] \
+        [--trainer-count N]
     python -m paddle_tpu_torch.cli test  --config conf.py --params p.tar
     python -m paddle_tpu_torch.cli time  --config conf.py --iters 20
     python -m paddle_tpu_torch.cli checkgrad --config conf.py
     python -m paddle_tpu_torch.cli cluster_train --config conf.py \
-        --num-processes 2 [--num-passes 1] [--device cpu]
+        --num-processes 2 [--num-passes 1] [--devices-per-process k] \
+        [--device cpu]
     python -m paddle_tpu_torch.cli observe TELEMETRY_DIR [--json] \
         [--fleet-stats HOST:PORT]
     python -m paddle_tpu_torch.cli export \
@@ -69,12 +71,17 @@ does: engines drain, workers stop, shared memory is unlinked.
 ``cluster_train`` launches ``--num-processes`` data-parallel workers on
 this machine (distributed/launcher.py; the CPU under ``--device cpu``,
 else the card: gloo where the ranks share one card, NCCL where each has
-its own) and prints each worker's result. ``--trainer-count N`` (the
-``trainer_count`` flag, as in the JAX package) trains over a
-DataParallel mesh of N devices: one process drives one device here, so N
-must be the ranks of the process group the command runs in
-(distributed/multihost.py), and a count above the visible devices exits
-with the JAX package's message. ``observe --fleet-stats HOST:PORT`` adds
+its own) and prints each worker's result; ``--devices-per-process k``
+gives each worker k local devices (replicas sharing the cards where there
+are fewer). ``--trainer-count N`` (the ``trainer_count`` flag, as in the
+JAX package) trains over a DataParallel mesh of N local devices in this
+one process, a replica and a thread each (the reference's
+MultiGradientMachine); a count above the visible devices exits with the
+JAX package's message, and ``PADDLE_TPU_TORCH_VIRTUAL_DEVICES=N`` names N
+replicas on the visible devices, as JAX's
+``--xla_force_host_platform_device_count`` does. Inside a process group
+of N ranks (distributed/multihost.py) it spans the ranks instead.
+``observe --fleet-stats HOST:PORT`` adds
 the coordinator's live leases to the summary.
 
 ``serve DIR --join COORD:PORT [--host-id H --lease-ttl S]`` makes the
@@ -216,8 +223,9 @@ def _build(cfg, device=None, parallelism=None):
     """(cost, parameters, trainer) of a loaded config on ``device`` (the
     card unless "cpu"). ``--trainer-count N`` (the ``trainer_count``
     flag) makes the trainer data-parallel over N devices
-    (paddle_tpu/cli.py:95-111): N must not exceed the visible devices, and
-    one process drives one device, so the mesh is the process group's."""
+    (paddle_tpu/cli.py:95-111): N local replicas of this process, which
+    must not exceed the visible devices (``PADDLE_TPU_TORCH_VIRTUAL_DEVICES``
+    names more); inside a process group, the group's N ranks."""
     from paddle_tpu_torch import optimizer as opt
     from paddle_tpu_torch.parameters import Parameters
     from paddle_tpu_torch.trainer import SGD
@@ -227,13 +235,23 @@ def _build(cfg, device=None, parallelism=None):
     if parallelism is None and tc > 1:
         from paddle_tpu_torch.parallel import mesh
 
-        n_dev = mesh.device_count()
-        if tc > n_dev:
-            raise SystemExit(
-                "--trainer-count %d exceeds the %d visible devices (one "
-                "process drives one device: start %d ranks, e.g. cli "
-                "cluster_train --num-processes %d)" % (tc, n_dev, tc, tc))
-        parallelism = mesh.DataParallel(mesh.build_mesh({"data": tc}))
+        if mesh.world_size() > 1:
+            n_dev = mesh.device_count()
+            if tc > n_dev:
+                raise SystemExit(
+                    "--trainer-count %d exceeds the %d devices of the "
+                    "process group's ranks" % (tc, n_dev))
+            parallelism = mesh.DataParallel(mesh.build_mesh(
+                {"data": tc}, devices=mesh.rank_devices(device)))
+        else:
+            local = mesh.local_devices(device=device)
+            if tc > len(local):
+                raise SystemExit(
+                    "--trainer-count %d exceeds the %d visible devices "
+                    "(set %s=N for N replicas on the visible devices)"
+                    % (tc, len(local), mesh.VIRTUAL_DEVICES_ENV))
+            parallelism = mesh.DataParallel(
+                mesh.build_mesh({"data": tc}, devices=local[:tc]))
     cost = cfg.cost()
     params = Parameters.create(cost, device=device)
     optimizer = (cfg.optimizer() if hasattr(cfg, "optimizer")
@@ -1309,8 +1327,9 @@ def main(argv=None):
     common.add_argument("--batch-size", type=int, default=64)
     common.add_argument("--trainer-count", type=int, default=None,
                         help="data-parallel width (reference "
-                             "--trainer_count): the ranks of this "
-                             "process group")
+                             "--trainer_count): local replicas of this "
+                             "process, a thread each (the ranks of the "
+                             "process group where one is up)")
     common.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     common.add_argument("--use-tpu", action="store_true", default=None,
@@ -1381,7 +1400,8 @@ def main(argv=None):
                    help="worker processes (one rank each)")
     p.add_argument("--num-passes", type=int, default=1)
     p.add_argument("--devices-per-process", type=int, default=None,
-                   help="devices per worker: 1 (each rank drives one)")
+                   help="local devices per worker, a replica each "
+                        "(default 1)")
     p.set_defaults(fn=cmd_cluster_train)
 
     p = sub.add_parser("merge_model",

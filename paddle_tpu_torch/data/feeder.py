@@ -26,9 +26,12 @@ copied. ``convert=`` replaces the conversion (e.g. ``bucketing.pack_feed``;
 the JAX package's signature ``convert(topology, data_batch, feeding,
 max_len)``, called on the host). With a ``parallelism``
 (parallel/mesh.py ``DataParallel``) the producer converts the global batch
-and keeps this rank's share of its rows, which alone is pinned and copied;
-each FeedBatch then carries its ``share`` ``(rows, global rows)``, and a
-fused chunk never mixes shares, so every rank groups the same chunks. Shutdown and cancellation work both ways, as in the JAX package:
+and keeps this rank's share of its rows, which alone is pinned and copied:
+each FeedBatch's feed is then a :class:`ReplicaFeeds`, the share of each
+of the rank's local replicas (one for a rank that drives one device),
+each copied to its replica's device on a copy stream of that device, and
+its ``share`` one ``(rows, global rows)`` a replica; a fused chunk never
+mixes shares, so every rank groups the same chunks. Shutdown and cancellation work both ways, as in the JAX package:
 a consumer that stops early (break, exception, garbage collection of the
 generator) cancels the producer, which exits promptly even while it is
 blocked on a full queue; an error of the producer (the reader or the
@@ -78,9 +81,21 @@ class _Error:
         self.exc = exc
 
 
+class ReplicaFeeds(tuple):
+    """The feeds of one step's local replicas (parallel/mesh.py
+    ``DataParallel.shard_batch``): replica i's share of the batch, a feed
+    dict, at position i."""
+
+    def __repr__(self):
+        return "ReplicaFeeds%s" % (tuple.__repr__(self),)
+
+
 def map_feed(feed, fn):
     """``feed`` with ``fn`` applied to every tensor of every slot (plain
-    tensors, SequenceBatch data and lengths, SparseRows ids and values)."""
+    tensors, SequenceBatch data and lengths, SparseRows ids and values),
+    of every replica's feed of a :class:`ReplicaFeeds`."""
+    if isinstance(feed, ReplicaFeeds):
+        return ReplicaFeeds(map_feed(part, fn) for part in feed)
     out = {}
     for name, value in feed.items():
         if isinstance(value, SequenceBatch):
@@ -119,6 +134,8 @@ def feed_shape_key(feed):
     """Hashable (slot names and kinds, tensor shapes and dtypes) key:
     batches may only share a fused chunk (and its captured graph) when
     their feeds have the same shapes."""
+    if isinstance(feed, ReplicaFeeds):
+        return tuple(feed_shape_key(part) for part in feed)
     parts = []
     for name in sorted(feed):
         value = feed[name]
@@ -138,7 +155,8 @@ class FeedBatch:
     ``bucket`` (padded length), ``fill_tokens``/``pad_tokens``. ``host``
     is the pinned host copy the device tensors were copied from, ``event``
     the copy stream's event (None on the CPU), ``share`` this rank's
-    ``(rows, global rows)`` under data parallelism (else None)."""
+    ``((rows, global rows), ...)``, one a local replica, under data
+    parallelism (else None)."""
 
     __slots__ = ("feed", "examples", "convert_ms", "stall_ms", "bucket",
                  "fill_tokens", "pad_tokens", "host", "event", "share")
@@ -155,7 +173,7 @@ class FeedBatch:
         self.pad_tokens = pad_tokens
         self.host = host
         self.event = event
-        self.share = share  # (rows, global rows) under data parallelism
+        self.share = share  # ((rows, global rows), ...) a local replica
 
 
 class ChunkBatch:
@@ -185,7 +203,8 @@ def _seq_stats(feed):
     """(padded_len, fill_tokens, pad_tokens) over the sequence slots of a
     host feed (None when the feed has no sequence slots)."""
     bucket = fill = slots = 0
-    for value in feed.values():
+    parts = feed if isinstance(feed, ReplicaFeeds) else (feed,)
+    for value in (v for part in parts for v in part.values()):
         if isinstance(value, SequenceBatch):
             lens = value.lengths.numpy()
             bucket = max(bucket, int(value.max_len))
@@ -218,7 +237,7 @@ class DeviceFeeder:
         self._convert = convert
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
-        self._copy_stream = None
+        self._copy_streams = {}  # device -> its copy stream
         self.lock = threading.Lock()
         m = metrics_registry or observe_metrics.get_registry()
         self.metrics = m
@@ -257,23 +276,37 @@ class DeviceFeeder:
         return {name: slot_to(v, "cpu") for name, v in feed.items()}
 
     def _convert_batch(self, data_batch):
-        """-> (host feed, device feed, copy event, share)."""
+        """-> (host feed, device feed, copy event, share); under data
+        parallelism the feeds are ReplicaFeeds and the events one per
+        replica."""
         host = self._host_feed(data_batch)
         share = None
         if self.parallelism is not None:
             host, share = self.parallelism.shard_batch(host)
         if not self._cuda:
             return host, host, None, share
+        if share is None:
+            return self._copy(host, self.device) + (share,)
+        pinned, feeds, events = zip(*(
+            self._copy(part, self.parallelism.device_of(i, self.device))
+            for i, part in enumerate(host)))
+        return ReplicaFeeds(pinned), ReplicaFeeds(feeds), events, share
+
+    def _copy(self, host, device):
+        """-> (pinned host feed, its copy on ``device``, the copy's
+        event); the copy runs on ``device``'s copy stream."""
         with self.lock:
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_streams.get(device)
+            if stream is None:
+                stream = self._copy_streams[device] = torch.cuda.Stream(
+                    device)
             pinned = map_feed(host, lambda t: t.pin_memory())
-            with torch.cuda.stream(self._copy_stream):
-                feed = map_feed(pinned, lambda t: t.to(
-                    self.device, non_blocking=True))
+            with torch.cuda.stream(stream):
+                feed = map_feed(pinned, lambda t: t.to(device,
+                                                       non_blocking=True))
                 event = torch.cuda.Event()
-                event.record(self._copy_stream)
-        return pinned, feed, event, share
+                event.record(stream)
+        return pinned, feed, event
 
     def _produce(self, q, cancel, skip=0):
         def put(item):
@@ -314,10 +347,14 @@ class DeviceFeeder:
         it."""
         if fb.event is None:
             return
-        stream = torch.cuda.current_stream(self.device)
-        stream.wait_event(fb.event)
-        for t in feed_tensors(fb.feed):
-            t.record_stream(stream)
+        for part, event in (((fb.feed, fb.event),) if fb.share is None
+                            else zip(fb.feed, fb.event)):
+            tensors = feed_tensors(part)
+            stream = torch.cuda.current_stream(
+                tensors[0].device if tensors else self.device)
+            stream.wait_event(event)
+            for t in tensors:
+                t.record_stream(stream)
 
     def batches(self, skip=0):
         """Generator of FeedBatch items; owns the producer thread for its
@@ -430,5 +467,5 @@ class DeviceFeeder:
                           stacked=True, key=key)
 
 
-__all__ = ["ChunkBatch", "DeviceFeeder", "FeedBatch", "feed_shape_key",
-           "feed_tensors", "map_feed", "slot_to"]
+__all__ = ["ChunkBatch", "DeviceFeeder", "FeedBatch", "ReplicaFeeds",
+           "feed_shape_key", "feed_tensors", "map_feed", "slot_to"]

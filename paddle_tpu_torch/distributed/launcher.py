@@ -41,16 +41,14 @@ def launch_local_cluster(config, num_processes, num_passes=1,
     """Spawn ``num_processes`` workers on localhost and wait.
 
     ``use_tpu``: True the card, False the CPU, None the workers' default
-    (the card). ``devices_per_process``: each rank drives one device, so
-    only None or 1. Returns the list of per-worker result dicts
-    (CLUSTER_RESULT lines). Raises RuntimeError if any worker fails, or
-    if the workers disagree on the final cost (synchronous data
-    parallelism keeps every rank's cost the same, bit for bit)."""
-    if devices_per_process not in (None, 1):
-        raise NotImplementedError(
-            "launch_local_cluster(devices_per_process=%r): a process "
-            "driving several devices is not ported yet (each rank drives "
-            "one)" % (devices_per_process,))
+    (the card). ``devices_per_process=k`` (default 1): each worker trains
+    k local replicas (``--devices-per-process``), on its own cards where
+    the machine has them and sharing them where it has fewer, as the JAX
+    package gives each process k virtual devices. Returns the list of
+    per-worker result dicts (CLUSTER_RESULT lines). Raises RuntimeError
+    if any worker fails, or if the workers disagree on the final cost
+    (synchronous data parallelism keeps every rank's cost the same, bit
+    for bit)."""
     port = _free_port()
     base_env = dict(os.environ)
     if env:
@@ -70,6 +68,8 @@ def launch_local_cluster(config, num_processes, num_passes=1,
             cmd += ["--batch-size", str(batch_size)]
         if config_args:
             cmd += ["--config-args", config_args]
+        if devices_per_process is not None:
+            cmd += ["--devices-per-process", str(int(devices_per_process))]
         if use_tpu is not None:
             cmd += ["--use-tpu" if use_tpu else "--no-use-tpu"]
         # log FILES, not pipes: a chatty worker fills a 64 KB pipe buffer

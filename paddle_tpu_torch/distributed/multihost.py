@@ -7,10 +7,14 @@ store at ``coordinator_address`` (rank 0 hosts the store), after which
 ``parallel.DataParallel`` sums gradients over the group's collectives.
 
 The backend is chosen, not configured: gloo when the trainer's device (the
-default device, ``init(use_tpu=...)``) is the CPU, or when more ranks
-share this host than it has cards (NCCL refuses two ranks on one device);
-NCCL otherwise, each rank on its own card (``cuda:<local rank>``). The
-ranks learn who shares their host through the store.
+default device, ``init(use_tpu=...)``) is the CPU, or when the ranks'
+devices on this host (each rank's local replicas, the
+``PADDLE_TPU_TORCH_VIRTUAL_DEVICES`` a worker of ``--devices-per-process
+k`` sets to k; one without it) outnumber its cards (NCCL refuses two
+ranks on one device); NCCL otherwise, each rank on its own cards
+(``cuda:<local rank * replicas>`` first). The ranks learn who shares
+their host through the store; :func:`local_rank` is this rank's place
+among them.
 """
 
 import datetime
@@ -25,6 +29,13 @@ from paddle_tpu_torch.utils.error import enforce
 from paddle_tpu_torch.utils.logger import logger
 
 STORE_TIMEOUT_SECS = 300
+_local_rank = 0
+
+
+def local_rank():
+    """This rank's place among the ranks of its host (0 without a
+    group)."""
+    return _local_rank
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
@@ -34,6 +45,8 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     under the port's prefix: ``PADDLE_TPU_TORCH_NUM_HOSTS`` is the default
     process count, the ``trainer_id`` flag
     (``PADDLE_TPU_TORCH_TRAINER_ID``) the default rank."""
+    global _local_rank
+    from paddle_tpu_torch.parallel.mesh import virtual_device_count
     import torch.distributed as dist
 
     num_processes = num_processes or int(
@@ -58,17 +71,19 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     keys = ["paddle_tpu_torch/host/%d" % r for r in range(num_processes)]
     store.wait(keys)
     local = [r for r, k in enumerate(keys) if store.get(k).decode() == me]
-    local_rank = local.index(process_id)
+    _local_rank = local.index(process_id)
+    replicas = virtual_device_count() or 1
+    first = _local_rank * replicas
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
-    backend = "gloo" if device.type == "cpu" or len(local) > cards \
-        else "nccl"
+    backend = "gloo" if device.type == "cpu" \
+        or len(local) * replicas > cards else "nccl"
     if device.type == "cuda":
-        torch.cuda.set_device(local_rank % cards)
+        torch.cuda.set_device(first % cards)
     dist.init_process_group(backend, store=store, world_size=num_processes,
                             rank=process_id)
     logger.info("torch.distributed initialized: process %d/%d over %s "
                 "(%d rank(s) on this host, device %s)", process_id,
                 num_processes, backend, len(local),
                 "cpu" if device.type == "cpu"
-                else "cuda:%d" % (local_rank % cards))
+                else "cuda:%d" % (first % cards))
     return True

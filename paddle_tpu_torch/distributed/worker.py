@@ -8,8 +8,9 @@ Reference role: the per-host trainer process the cluster launcher started
 1. joins the process group (distributed/multihost.py; gloo on the CPU and
    where ranks share a card, NCCL where each rank has its own card),
 2. builds the config's topology and a DataParallel plan over the whole
-   group (parallel/mesh.py): gradients are summed with all_reduce, with no
-   parameter server,
+   group times its ``--devices-per-process`` local replicas
+   (parallel/mesh.py): gradients are summed over the replicas and then
+   with all_reduce, with no parameter server,
 3. runs the standard SGD loop; every rank reads the identical batch
    stream (same reader seed) and trains its share of each batch's rows,
 4. prints its per-pass costs and a final ``CLUSTER_RESULT`` line, which
@@ -37,6 +38,10 @@ def main(argv=None):
                          "hosts it)")
     ap.add_argument("--num-passes", type=int, default=1)
     ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--devices-per-process", type=int, default=1,
+                    help="local devices this worker drives, a replica "
+                         "each (they share the cards where there are "
+                         "fewer)")
     ap.add_argument("--use-tpu", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="train on the card (--no-use-tpu: the CPU)")
@@ -83,6 +88,13 @@ def main(argv=None):
     from paddle_tpu_torch.distributed.multihost import initialize_multihost
     from paddle_tpu_torch.utils.error import enforce
 
+    from paddle_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
+
+    k = args.devices_per_process
+    enforce(k >= 1, "--devices-per-process %d: at least 1", k)
+    # this process names k devices, as the JAX launcher's XLA_FLAGS give
+    # each worker k (the backend's choice counts them)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(k)
     initialize_multihost(coordinator_address=args.coordinator,
                          num_processes=args.num_processes,
                          process_id=args.process_id)
@@ -90,12 +102,14 @@ def main(argv=None):
 
     from paddle_tpu_torch import minibatch
     from paddle_tpu_torch.cli import _build, _load_config
-    from paddle_tpu_torch.parallel.mesh import DataParallel, build_mesh
+    from paddle_tpu_torch.parallel.mesh import (DataParallel, build_mesh,
+                                                rank_devices)
 
     cfg = _load_config(args.config, args.config_args)
-    # the mesh spans every rank; the trainer broadcasts rank 0's
-    # parameters when it is built
-    mesh = build_mesh({"data": dist.get_world_size()})
+    # the mesh spans every rank's k replicas; the trainer broadcasts rank
+    # 0's parameters when it is built
+    mesh = build_mesh({"data": dist.get_world_size() * k},
+                      devices=rank_devices())
     cost, params, trainer = _build(cfg, parallelism=DataParallel(mesh))
 
     # the config's batch_size wins, as in the train job (cmd_train)
@@ -141,7 +155,7 @@ def main(argv=None):
 
     final = {"process_id": args.process_id,
              "processes": dist.get_world_size(),
-             "global_devices": dist.get_world_size(),
+             "global_devices": dist.get_world_size() * k,
              "backend": dist.get_backend(),
              "device": str(trainer.device),
              "first_cost": costs[0] if costs else None,

@@ -212,9 +212,9 @@ class _BatchNormTrain(torch.autograd.Function):
 
     Inside a data-parallel step (parallel/mesh.py ``batch_reducer``) the
     moments are those of the whole global batch: the forward sums x and
-    x^2 and the row count over the ranks, and the backward the sums of dy
-    and dy * xhat; the gradients of gamma and beta stay this rank's, which
-    the trainer sums with the others."""
+    x^2 and the row count over the local replicas and the ranks, and the
+    backward the sums of dy and dy * xhat; the gradients of gamma and beta
+    stay this replica's, which the trainer sums with the others."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, moving_mean, moving_var, axes, momentum,

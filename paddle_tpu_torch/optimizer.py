@@ -427,7 +427,8 @@ class StaticPruningHook:
 
     def apply(self, name, param):
         mask = self._masks.get(name)
-        return param if mask is None else param * mask
+        # a local replica on another card applies the same mask
+        return param if mask is None else param * mask.to(param.device)
 
 
 # ---------------------------------------------------------------------------

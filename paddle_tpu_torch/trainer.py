@@ -88,6 +88,22 @@ reduces its moments over the global batch (ops/conv.py). Under NCCL the
 collectives are captured in the fused loop's CUDA graphs; gloo cannot be
 captured on CUDA tensors, so ``steps_per_call`` is refused there. The test
 pass is not split: every rank evaluates the whole test reader.
+
+A process may also drive several local replicas (a mesh over
+``build_mesh(devices=[...])``; ``cli train --trainer-count N``), the
+reference's MultiGradientMachine: replica 0 is the trainer's own state
+and every other replica a copy of it on its device (masters, running
+state, optimizer state, a dropout generator of its own seeded alike).
+Each step runs one thread per replica on the replica's share of the rows
+(``DataParallel.run_replicas``); the threads meet in
+``DataParallel.sum_``, which sums the gradients, the weighted cost and
+the additive statistics over the replicas and then over the ranks, and
+every replica applies the same update, so the replicas stay bit for bit
+equal. The non-additive statistics are kept per replica. The parameters,
+the checkpoints and the tars read replica 0; a write into the trainer's
+state (``stage_parameters``, a restore) is copied to every replica. On
+the card ``steps_per_call`` is refused with several local replicas: the
+threads' meeting is Python, which a CUDA graph cannot hold.
 """
 
 import itertools
@@ -238,6 +254,11 @@ class SGD:
         self._pooled = ({e[0] for e in self._pool.entries}
                         if self._pool is not None else set())
         self._materialize_device_state()
+        replicas = parallelism.replicas if parallelism is not None else 1
+        enforce(replicas == 1 or not self._sharded, "SGD: the sharded "
+                "parameters %s are split across ranks; with %d local "
+                "replicas a process holds no single block of them",
+                sorted(self._sharded), replicas)
         if parallelism is not None:
             # every rank starts from rank 0's values; a sharded parameter's
             # block from the first rank of its data-axis slice
@@ -259,6 +280,10 @@ class SGD:
                             hook.apply(n, self._trainable[n]))
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(flags.get_flag("seed") or 0))
+        # replica 0 is the trainer itself; the others copy its state
+        self._replicas = [self] + [
+            self._make_replica(parallelism.device_of(i, self.device))
+            for i in range(1, replicas)]
         self._step_count = 0  # global steps, across passes and train calls
         # the fused loop's captured graphs, by (chunk length, feed shape);
         # ``graphs`` describes each: its key, the kernel launches captured
@@ -280,62 +305,101 @@ class SGD:
         trainer's float32 masters (pooled ones as views of one flat
         buffer, with their gradients views of one flat gradient buffer),
         its static parameters and its running state."""
-        values = {n: v.detach().to(self.device)
-                  for n, v in self.parameters.as_dict().items()}
-        self._trainable = {}
+        self._stage_state(self, self.parameters.as_dict(), self.device)
+
+    def _stage_state(self, rep, values, device):
+        """Give ``rep`` (the trainer, or a local replica) the masters, the
+        static parameters and the running state of ``values`` (name ->
+        tensor) on ``device``, as copies."""
+        values = {n: v.detach().to(device) for n, v in values.items()}
+        rep._trainable = {}
         if self._pool is not None:
             flat = self._pool.compress(values)[ParamPool.POOL_KEY]
-            self._pool_flat = flat
-            self._pool_grad = torch.zeros_like(flat)
+            rep._pool_flat = flat
+            rep._pool_grad = torch.zeros_like(flat)
             for name, off, size, shape in self._pool.entries:
                 view = flat[off:off + size].view(shape).requires_grad_()
-                view.grad = self._pool_grad[off:off + size].view(shape)
-                self._trainable[name] = view
+                view.grad = rep._pool_grad[off:off + size].view(shape)
+                rep._trainable[name] = view
         for n in self._trainable_names:
-            if n not in self._trainable:
-                self._trainable[n] = (values[n].to(torch.float32).clone()
-                                      .requires_grad_())
-        self._static = {n: values[n] for n in self._static_names}
-        self._state = {n: values[n].to(torch.float32).clone()
-                       for n in self._state_names}
+            if n not in rep._trainable:
+                rep._trainable[n] = (values[n].to(torch.float32).clone()
+                                     .requires_grad_())
+        rep._static = {n: values[n] for n in self._static_names}
+        rep._state = {n: values[n].to(torch.float32).clone()
+                      for n in self._state_names}
 
-    def _carry(self):
+    def _make_replica(self, device):
+        """A local replica on ``device``: a copy of the trainer's masters,
+        static parameters, running state, optimizer state and generator
+        state."""
+        rep = _Replica(device)
+        self._stage_state(rep, {n: t.detach() for n, t in {
+            **self._trainable, **self._static, **self._state}.items()},
+            device)
+        rep._opt_state = _tree_map(lambda t: t.to(device, copy=True),
+                                   self._opt_state)
+        rep._generator = torch.Generator(device=device)
+        rep._generator.set_state(self._generator.get_state())
+        return rep
+
+    def _sync_replicas(self):
+        """Copy the trainer's state into every other local replica, after
+        a write into it outside a step (a restore, stage_parameters)."""
+        with torch.no_grad():
+            for rep in self._replicas[1:]:
+                for dst, src in zip(self._mutable_tensors(rep),
+                                    self._mutable_tensors()):
+                    dst.copy_(src)
+                for n, t in self._static.items():
+                    if rep._static[n] is not t:
+                        rep._static[n].copy_(t)
+                rep._generator.set_state(self._generator.get_state())
+
+    def _carry(self, rep=None):
         """The masters as the optimizer updates them: the flat pool under
-        its key, every other trainable by name."""
+        its key, every other trainable by name (of replica ``rep``, the
+        trainer's own by default)."""
+        rep = rep or self
         if self._pool is None:
-            return self._trainable
-        out = {ParamPool.POOL_KEY: self._pool_flat}
-        out.update({n: t for n, t in self._trainable.items()
+            return rep._trainable
+        out = {ParamPool.POOL_KEY: rep._pool_flat}
+        out.update({n: t for n, t in rep._trainable.items()
                     if n not in self._pooled})
         return out
 
-    def _carry_grads(self):
+    def _carry_grads(self, rep=None):
+        rep = rep or self
         out = {}
-        for n, p in self._carry().items():
+        for n, p in self._carry(rep).items():
             if n == ParamPool.POOL_KEY:
-                out[n] = self._pool_grad
+                out[n] = rep._pool_grad
             else:
                 out[n] = p.grad if p.grad is not None else torch.zeros_like(p)
         return out
 
-    def _mutable_tensors(self):
+    def _mutable_tensors(self, rep=None):
         """Every tensor a train step writes: the masters, the optimizer
-        state and the running state."""
-        return (_tree_tensors(self._carry()) + _tree_tensors(self._opt_state)
-                + list(self._state.values()))
+        state and the running state (of replica ``rep``, the trainer's
+        own by default)."""
+        rep = rep or self
+        return (_tree_tensors(self._carry(rep))
+                + _tree_tensors(rep._opt_state) + list(rep._state.values()))
 
     # -- one step -----------------------------------------------------------
-    def _forward(self, feed, mode):
+    def _forward(self, feed, mode, rep=None):
         """(cost, evaluator stats, extra outputs, running-state updates) of
-        one batch: the cost is the weighted sum over the cost layers of
-        their mean per-sample cost (paddle_tpu/trainer.py:123; each weight
-        1 but under a MultiNetwork's joint cost)."""
+        one batch on replica ``rep`` (the trainer's own by default): the
+        cost is the weighted sum over the cost layers of their mean
+        per-sample cost (paddle_tpu/trainer.py:123; each weight 1 but
+        under a MultiNetwork's joint cost)."""
+        rep = rep or self
         wanted = ([c.name for c in self.costs]
                   + [e.name for e in self.evaluators]
                   + [o.name for o in self.extra_outputs])
         values, updates = self.topology.apply(
-            {**self._trainable, **self._static, **self._state}, feed,
-            mode=mode, rng=self._generator, outputs=wanted)
+            {**rep._trainable, **rep._static, **rep._state}, feed,
+            mode=mode, rng=rep._generator, outputs=wanted)
         cost = sum(w * values[c.name].float().mean()
                    for c, w in zip(self.costs, self._cost_weights))
         stats = {e.name: {k: v.detach() for k, v in values[e.name].items()}
@@ -347,70 +411,86 @@ class SGD:
         """Forward, backward and update of one batch; returns the cost, the
         evaluator stats and, under ``trap_fpe``, the finiteness flags
         (else None), as device tensors (not read back). Under data
-        parallelism ``feed`` is this rank's share of the global batch and
-        ``share`` its ``(rows, global rows)``."""
+        parallelism ``feed`` is this rank's ReplicaFeeds (each local
+        replica's share of the global batch) and ``share`` one ``(rows,
+        global rows)`` a replica, each replica's step on a thread of its
+        own, and the stats of a non-additive evaluator those of every
+        live replica (:class:`_RankStats`)."""
+        if self.parallelism is None:
+            return self._replica_step(0, feed, None)
+        from paddle_tpu_torch.evaluator import _acc_add
+
+        results = self.parallelism.run_replicas(
+            lambda i: self._replica_step(i, feed[i], share[i]))
+        loss, stats, finite = results[0]
+        live = [r[1] for r, sh in zip(results, share) if sh[0]]
+        for e in self.evaluators:
+            if e.merge is not _acc_add:
+                stats[e.name] = _RankStats(s[e.name] for s in live)
+        return loss, stats, finite
+
+    def _replica_step(self, i, feed, share):
+        """One replica's step (the trainer's own without parallelism).
+        Under data parallelism the replica's mean cost is weighted by its
+        share of the global rows, and ``DataParallel.sum_`` sums over the
+        replicas and the ranks the gradients (the flat pool gradient
+        first, then every other gradient in the trainables' order), the
+        global cost and the additive evaluator statistics; a replica with
+        an empty share ran on one borrowed row, and counts nothing. Every
+        replica then applies the same update to its own state."""
+        from paddle_tpu_torch.evaluator import _acc_add
+
+        rep = self._replicas[i]
         if self._pool is not None:
-            self._pool_grad.zero_()
-        for n, p in self._trainable.items():
+            rep._pool_grad.zero_()
+        for n, p in rep._trainable.items():
             if n not in self._pooled:
                 p.grad = None
-        if self.parallelism is None:
+        dp = self.parallelism
+        if dp is None:
             loss, stats, _, updates = self._forward(feed, "train")
             loss.backward()
         else:
-            loss, stats, updates = self._dp_forward_backward(feed, share)
-        self.optimizer.step(self._carry(), self._carry_grads(),
-                            self._opt_state, self._param_meta)
+            rows, total = share
+            weight = rows / total
+            with dp.batch_scope(rows > 0, replica=i):
+                loss, stats, _, updates = self._forward(feed, "train", rep)
+                (loss * weight).backward()
+            grads = [rep._pool_grad] if self._pool is not None else []
+            for n, p in rep._trainable.items():
+                if n not in self._pooled:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
+            loss = loss.detach() * weight
+            added = []
+            for e in self.evaluators:
+                if e.merge is _acc_add:
+                    stats[e.name] = {
+                        k: v.clone() if rows else torch.zeros_like(v)
+                        for k, v in stats[e.name].items()}
+                    added += list(stats[e.name].values())
+            dp.sum_(grads + [loss] + added, replica=i)
+        self.optimizer.step(self._carry(rep), self._carry_grads(rep),
+                            rep._opt_state, self._param_meta)
         with torch.no_grad():
             for name, value in updates.items():
-                self._state[name].copy_(value)
-            finite = self._finite_flags(loss) if self._trap else None
+                rep._state[name].copy_(value)
+            finite = (self._finite_flags(loss) if self._trap and i == 0
+                      else None)
         return loss.detach(), stats, finite
 
-    def _dp_forward_backward(self, feed, share):
-        """The data-parallel forward and backward: the rank's mean cost
-        weighted by its share of the global rows, the gradients summed
-        over the ranks (the flat pool gradient first, then every other
-        gradient in the trainables' order), and the global cost and the
-        additive evaluator statistics summed the same way. A rank with an
-        empty share ran on one borrowed row, and counts nothing."""
-        from paddle_tpu_torch.evaluator import _acc_add
-
-        dp = self.parallelism
-        rows, total = share
-        weight = rows / total
-        with dp.batch_scope(rows > 0):
-            loss, stats, _, updates = self._forward(feed, "train")
-            (loss * weight).backward()
-        grads = [self._pool_grad] if self._pool is not None else []
-        for n, p in self._trainable.items():
-            if n not in self._pooled:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
-        for g in grads:
-            dp.all_reduce_(g)
-        loss = dp.all_reduce_(loss.detach() * weight)
-        for e in self.evaluators:
-            if e.merge is _acc_add:
-                stats[e.name] = {
-                    k: dp.all_reduce_(v.clone() if rows
-                                      else torch.zeros_like(v))
-                    for k, v in stats[e.name].items()}
-        return loss, stats, updates
-
-    def _gathered_stats(self, host, share):
+    def _gathered_stats(self, host):
         """Finalize's host stats with each non-additive evaluator's
-        replaced by every live rank's (:class:`_RankStats`), under data
-        parallelism; as they are otherwise."""
+        replaced by every live replica's of every rank (:class:`_RankStats`,
+        in rank order), under data parallelism; as they are otherwise."""
         from paddle_tpu_torch.evaluator import _acc_add
 
         names = [e.name for e in self.evaluators if e.merge is not _acc_add]
         if self.parallelism is None or not names:
             return host
-        mine = {n: host[n] for n in names} if share[0] else None
-        got = [g for g in self.parallelism.gather(mine) if g is not None]
-        return dict(host, **{n: _RankStats([g[n] for g in got])
+        got = self.parallelism.gather({n: list(host[n]) for n in names})
+        return dict(host, **{n: _RankStats(s for g in got for s in g[n])
                              for n in names})
 
     def _finite_flags(self, loss):
@@ -606,13 +686,20 @@ class SGD:
         k = int(steps_per_call or 0)
         if k:
             enforce(k >= 1, "steps_per_call must be >= 1, got %d", k)
-            enforce(self.parallelism is None
-                    or self.parallelism.capturable(self.device),
+            dp = self.parallelism
+            enforce(dp is None or dp.replicas == 1
+                    or dp.capturable(self.device),
+                    "steps_per_call=%d with %d local replicas on the card: "
+                    "the replica threads meet in Python between the kernels "
+                    "of a step, which a CUDA graph cannot capture; the fused "
+                    "loop does not run eagerly in its place (one replica a "
+                    "rank captures it)", k, dp and dp.replicas)
+            enforce(dp is None or dp.capturable(self.device),
                     "steps_per_call=%d: the %s process group stages CUDA "
                     "tensors through the host, which a CUDA graph cannot "
                     "capture; the fused loop does not run eagerly in its "
                     "place (NCCL, one card a rank, captures it)", k,
-                    self.parallelism and self.parallelism.backend)
+                    dp and dp.backend)
         if os.environ.get("PADDLE_TPU_TORCH_ANALYZE"):
             # the pre-dispatch static checks (analyze/topology_check.py):
             # packing legality, dtype hazards, the parameter partition,
@@ -791,7 +878,7 @@ class SGD:
                 if pending is not None:
                     self._finalize_one(finalize, pending, pass_base, tele)
                 pending = (batch_id, loss, stats, finite, feed, feed_ms,
-                           n_examples, share)
+                           n_examples)
                 batch_id += 1
             if pending is not None:
                 self._finalize_one(finalize, pending, pass_base, tele)
@@ -814,11 +901,10 @@ class SGD:
         return self.parallelism.shard_batch(host, device=self.device)
 
     def _finalize_one(self, finalize, pending, pass_base, tele):
-        b_id, loss, stats, finite, feed, feed_ms, n_examples, share = pending
+        b_id, loss, stats, finite, feed, feed_ms, n_examples = pending
         with observe_spans.span("eval_readback"):
             cost = float(loss)
-            host = self._gathered_stats(
-                {name: host_stats(s) for name, s in stats.items()}, share)
+            host = self._gathered_stats(_host_stats(stats))
             if finite is not None:
                 finite = finite.cpu().numpy()
         finalize(b_id, pass_base + b_id + 1, cost, host, n_examples, feed,
@@ -893,9 +979,7 @@ class SGD:
                 with observe_spans.span("eval_readback"):
                     costs = np.atleast_1d(losses.float().cpu().numpy()
                                           .astype(np.float64))
-                    host = self._gathered_stats(
-                        {name: host_stats(s) for name, s in stats.items()},
-                        chunk.batches[0].share)
+                    host = self._gathered_stats(_host_stats(stats))
                     if finite is not None:
                         finite = np.atleast_2d(finite.cpu().numpy())
                 tele.chunk(base_step, pass_id, b_id, costs, chunk)
@@ -990,6 +1074,8 @@ class SGD:
         batch, in the JAX package's line format."""
         from paddle_tpu_torch.layer.base import data_of
 
+        if self.parallelism is not None:
+            feed = feed[0]
         values, _ = self.topology.apply_all(
             {**self._trainable, **self._static, **self._state}, feed,
             mode="test")
@@ -1027,6 +1113,7 @@ class SGD:
             for n, t in {**self._trainable, **self._static,
                          **self._state}.items():
                 t.copy_(values[n].to(t.device, t.dtype))
+        self._sync_replicas()
 
     def save_parameter_to_tar(self, f):
         self._sync_back()
@@ -1209,6 +1296,7 @@ class SGD:
                 and len(ts["rng_key"]) == own.numel():
             self._generator.set_state(torch.tensor(ts["rng_key"],
                                                    dtype=torch.uint8))
+            self._sync_replicas()
         else:
             logger.warning(
                 "resume: the checkpoint's random key (%s) does not carry "
@@ -1365,8 +1453,21 @@ class SGD:
                 if self._pool is not None:
                     state = self._pool.pool_state(state)
                 _copy_into(self._opt_state, state)
+        self._sync_replicas()
         self._step_count = int(meta.get("step", 0))
         return meta
+
+
+class _Replica:
+    """One local replica's training state beside the trainer's own
+    (MultiGradientMachine's per-thread GradientMachine): the attributes
+    the trainer keeps for itself, on ``device``."""
+
+    __slots__ = ("device", "_trainable", "_pool_flat", "_pool_grad",
+                 "_static", "_state", "_opt_state", "_generator")
+
+    def __init__(self, device):
+        self.device = device
 
 
 class _RankStats(list):
@@ -1388,12 +1489,28 @@ def _chunk_feeds(chunk):
     return chunk.feed if chunk.stacked else (chunk.feed,)
 
 
+def _host_stats(stats):
+    """A step's device stats on the host (evaluator.host_stats), each
+    replica's of a :class:`_RankStats`."""
+    return {name: _RankStats(host_stats(x) for x in s)
+            if isinstance(s, _RankStats) else host_stats(s)
+            for name, s in stats.items()}
+
+
+def _stack_stats(steps):
+    """One evaluator's stats of K steps stacked into [K] leaves (each
+    replica's apart, for a :class:`_RankStats`)."""
+    if isinstance(steps[0], _RankStats):
+        return _RankStats(_stack_stats([s[r] for s in steps])
+                          for r in range(len(steps[0])))
+    return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}
+
+
 def _stack_results(results):
     """[(loss, stats, finite)] of K steps -> (losses [K], stats with [K]
     leaves, finite [K, n] or None)."""
     losses = torch.stack([r[0] for r in results])
-    stats = {name: {key: torch.stack([r[1][name][key] for r in results])
-                    for key in results[0][1][name]}
+    stats = {name: _stack_stats([r[1][name] for r in results])
              for name in results[0][1]}
     finite = (None if results[0][2] is None
               else torch.stack([r[2] for r in results]))

@@ -42,7 +42,6 @@ from paddle_tpu_torch import cli
 from paddle_tpu_torch import config
 from paddle_tpu_torch.distributed import checkpoint as ckpt
 from paddle_tpu_torch.graph import reset_name_counters
-from paddle_tpu_torch.utils.error import EnforceError
 
 TOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -580,18 +579,20 @@ def test_cli_test_and_time(tmp_path, capsys):
     assert timed["batch_size"] == 8
 
 
-# the ids are kept from when --regress was refused: the two observe cases
+# the ids are kept from when these were refused: the two observe cases
 # now gate a telemetry dir's bench rows (exit 0 within tolerance, 1 on a
-# gated regression), and cluster_train still refuses two devices a process
+# gated regression), and cluster_train trains two workers of two local
+# replicas each (four global devices)
 @pytest.mark.parametrize("argv,match", [
     (["observe", ".", "--regress-tol", "5", "--regress", "BASELINE.json"],
      0),
     (["cluster_train", "--num-processes", "2", "--devices-per-process",
-      "2"], "not ported yet"),
+      "2"], 0),
     (["observe", ".", "--regress", "BASELINE.json"], 1)],
     ids=["argv0-not ported yet", "argv1-not ported yet",
          "argv2-not ported yet"])
-def test_unported_verbs_and_options_raise(tmp_path, argv, match):
+def test_unported_verbs_and_options_raise(tmp_path, argv, match, capsys,
+                                          monkeypatch):
     if argv[0] == "observe":
         from paddle_tpu_torch.observe import steplog
 
@@ -608,10 +609,17 @@ def test_unported_verbs_and_options_raise(tmp_path, argv, match):
         assert cli.main(argv) == match
         return
     conf, _ = _write_config(tmp_path, "cfg_refuse")
-    if argv[0] in ("train", "cluster_train"):
-        argv = argv + ["--config", conf, "--device", "cpu"]
-    with pytest.raises((NotImplementedError, EnforceError), match=match):
-        cli.main(argv)
+    argv = argv + ["--config", conf, "--device", "cpu"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    capsys.readouterr()
+    assert cli.main(argv) == match
+    results = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()[-2:]]
+    assert [r["process_id"] for r in results] == [0, 1]
+    for r in results:
+        assert r["processes"] == 2 and r["global_devices"] == 4
+        assert r["backend"] == "gloo" and r["device"] == "cpu"
+    assert results[0]["final_cost"] == results[1]["final_cost"]
 
 
 # -- serve: several models, fleets and their refusals -------------------------

@@ -20,8 +20,8 @@ device, on the CPU.
   exchange; ``init(trainer_count=)`` and ``--trainer-count`` as in the JAX
   package.
 - ``launch_local_cluster`` and ``cli cluster_train`` with two CPU workers
-  (JAX tests/test_multihost.py:131), and a failing worker ending the
-  launch with an error.
+  (JAX tests/test_multihost.py:131), also of two local replicas each, and
+  a failing worker ending the launch with an error.
 """
 
 import json
@@ -188,13 +188,13 @@ def test_shard_batch_slices_every_slot_kind():
                                         torch.ones(7, 2, dtype=torch.int32)),
             "sparse": SparseRows(torch.zeros(7, 8, dtype=torch.int32),
                                  None, 100)}
-    local, share = _rank_view(1, 2).shard_batch(feed)
+    (local,), (share,) = _rank_view(1, 2).shard_batch(feed)
     assert share == (3, 7)
     assert torch.equal(local["dense"], feed["dense"][4:])
     assert torch.equal(local["seq"].lengths, feed["seq"].lengths[4:])
     assert local["nest"].data.shape[0] == local["sparse"].ids.shape[0] == 3
     # an empty share borrows the first row, weighted 0 by the trainer
-    local, share = _rank_view(1, 2).shard_batch(
+    (local,), (share,) = _rank_view(1, 2).shard_batch(
         {"dense": feed["dense"][:1]})
     assert share == (0, 1) and local["dense"].shape[0] == 1
 
@@ -231,10 +231,12 @@ def test_device_feeder_takes_parallelism_and_convert():
     list(JaxFeeder(lambda: iter(data), JaxTopology(jcost),
                    convert=recorder("jax", jconvert)).batches())
     assert calls["port"] == calls["jax"]
-    assert [fb.share for fb in fbs] == [(3, 7), (3, 7), (0, 1)]
+    # one feed and one share for the rank's one device
+    assert [fb.share for fb in fbs] == [((3, 7),), ((3, 7),), ((0, 1),)]
+    assert all(len(fb.feed) == 1 for fb in fbs)
     assert [fb.examples for fb in fbs] == [7, 7, 1]
     full = convert_feed(topology, data[0], device="cpu")
-    for name, value in fbs[0].feed.items():
+    for name, value in fbs[0].feed[0].items():
         want = full[name]
         got = value.data if hasattr(value, "data") else value
         ref = want.data if hasattr(want, "data") else want
@@ -267,11 +269,13 @@ def test_steps_per_call_refused_where_the_exchange_cannot_be_captured(
                       steps_per_call=2)
 
 
-def test_init_and_trainer_count_act_as_in_jax(tmp_path):
+def test_init_and_trainer_count_act_as_in_jax(tmp_path, monkeypatch):
     """init(trainer_count=) sets the flag as the JAX package's init does;
     ``--trainer-count`` above the visible devices exits with the JAX
-    CLI's message (one process drives one device: the mesh is the
-    process group's)."""
+    CLI's message (the CPU is one device unless
+    PADDLE_TPU_TORCH_VIRTUAL_DEVICES names more; the replicas' training
+    is tests/test_torch_local_dp.py's)."""
+    monkeypatch.delenv(mesh_mod.VIRTUAL_DEVICES_ENV, raising=False)
     from paddle_tpu_torch import cli
     from paddle_tpu_torch.core import place
 
@@ -357,8 +361,13 @@ def test_cluster_launcher_two_workers(tmp_path):
     _check_results(launch_local_cluster(
         str(config), num_processes=2, num_passes=2, env=_env(),
         timeout=SPAWN_TIMEOUT, use_tpu=False))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        launch_local_cluster(str(config), 2, devices_per_process=2)
+    # two local replicas a worker: four global devices
+    results = launch_local_cluster(str(config), 2, devices_per_process=2,
+                                   env=_env(), timeout=SPAWN_TIMEOUT,
+                                   use_tpu=False)
+    assert [r["global_devices"] for r in results] == [4, 4]
+    assert results[0]["final_cost"] == results[1]["final_cost"]
+    assert results[0]["final_cost"] < results[0]["first_cost"]
 
 
 def test_cli_cluster_train_two_workers(tmp_path, capsys, monkeypatch):

@@ -21,7 +21,11 @@
 * the binding itself: no file of the JAX package is loaded, ``paddle_tpu``
   names the port's modules only inside it, and a script whose modules
   are not ported fails with the port's "not ported yet". quick_start's
-  lr and cnn and sequence_tagging run in tests/test_torch_demos_text.py.
+  lr and cnn and sequence_tagging run in tests/test_torch_demos_text.py;
+* vae, whose JAX script calls jax itself, through its port
+  ``paddle_tpu_torch.demos.vae``: the ELBO and three Adam steps against
+  the JAX demo's ``build`` and loss at the same weights and noise (1e-5),
+  and ``python -m paddle_tpu_torch.demos.vae --quick --device cpu``.
 
 seq2seq runs at ``--dict-size 30000``: the JAX package's synthetic wmt14
 draws ids up to 30000 whatever ``dict_size`` says, where the port's
@@ -133,8 +137,8 @@ print(regress.format_result(regress.check_row(rows[0], best)))
     ids=["args0-paddle_tpu.analyze.lint is not ported yet"])
 def test_unported_demo_fails_on_the_port(tmp_path, args, error):
     """A script that imports a module the port lacks fails with the port's
-    "not ported yet" (every reference demo but vae, which calls jax
-    itself, now runs)."""
+    "not ported yet" (every reference demo now has a port: vae's, whose
+    JAX script calls jax itself, is paddle_tpu_torch/demos/vae.py)."""
     script = tmp_path / "unported.py"
     script.write_text(UNPORTED_SCRIPT)
     proc = run_demo(str(script), args)
@@ -378,6 +382,82 @@ def test_fit_a_line_step_matches_jax():
     jbuilt, built, mod = _both_built("fit_a_line/train.py",
                                      lambda m: m.build())
     _step_both(jbuilt[1], built[1], _first(mod.uci_housing.train(), 8))
+
+
+def test_vae_demo_matches_jax():
+    """The port's VAE (paddle_tpu_torch/demos/vae.py) against the JAX
+    demo's ``build`` and its loss (demos/vae/train.py:61-71, with the
+    noise given instead of drawn) at the --quick sizes, from the same
+    numpy weights, batch and noise: the ELBO before each of three
+    Adam(1e-3) steps within 1e-5 relative, every parameter after them
+    within 1e-5 of max(1, its largest |entry|); then the demo itself with
+    --quick on the CPU in a subprocess."""
+    import jax.numpy as jnp
+
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.demos import vae
+
+    data_dim, hidden, latent, rows = 784, 64, 16, 32
+    jmod = _jax_demo("vae/train.py")
+    jax_reset_names()
+    jenc, jdec = jmod.build(data_dim, hidden, latent)
+    reset_name_counters()
+    enc, dec = vae.build(data_dim, hidden, latent)
+    specs = {**enc.param_specs(), **dec.param_specs()}
+    assert sorted(specs) == sorted({**jenc.param_specs(),
+                                    **jdec.param_specs()})
+    rng = np.random.RandomState(4)
+    np_params = {n: (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])
+                     ).astype(np.float32) for n, s in sorted(specs.items())}
+    x01 = rng.rand(rows, data_dim).astype(np.float32)
+    noise = [rng.standard_normal((rows, latent)).astype(np.float32)
+             for _ in range(3)]
+
+    def jax_loss(params, x01, eps):
+        enc_out, _ = jenc.apply(params, {"image": x01}, mode="test")
+        mu, logvar = enc_out["enc_mu"], enc_out["enc_logvar"]
+        z = mu + jnp.exp(0.5 * logvar) * eps
+        dec_out, _ = jdec.apply(params, {"z": z}, mode="test")
+        recon = dec_out["dec_out"]
+        bce = -jnp.sum(x01 * jnp.log(recon + 1e-7)
+                       + (1.0 - x01) * jnp.log(1.0 - recon + 1e-7), axis=1)
+        kl = -0.5 * jnp.sum(1.0 + logvar - mu ** 2 - jnp.exp(logvar),
+                            axis=1)
+        return jnp.mean(bce + kl)
+
+    jparams = {n: jnp.asarray(v) for n, v in np_params.items()}
+    jadam = jopt.Adam(learning_rate=1e-3)
+    jstate = jadam.init_state(jparams)
+    params = {n: torch.from_numpy(v.copy()).requires_grad_()
+              for n, v in np_params.items()}
+    adam = opt.Adam(learning_rate=1e-3)
+    state = adam.init_state(params)
+    for eps in noise:
+        jvalue, jgrads = jax.value_and_grad(jax_loss)(jparams,
+                                                      jnp.asarray(x01),
+                                                      jnp.asarray(eps))
+        jparams, jstate = jadam.step(jparams, jgrads, jstate)
+        value = vae.train_step(enc, dec, adam, params, state,
+                               torch.from_numpy(x01), torch.from_numpy(eps))
+        assert abs(float(value) - float(jvalue)) <= TOL_COST * abs(
+            float(jvalue))
+    for name, want in jparams.items():
+        want = np.asarray(want)
+        got = params[name].detach().numpy()
+        assert np.abs(got - want).max() <= TOL_COST * max(
+            1.0, float(np.abs(want).max())), name
+        assert not np.array_equal(got, np_params[name]), name
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.demos.vae", "--quick",
+         "--device", "cpu"], capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env=dict(SUBPROCESS_ENV, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    losses = [float(line.split()[-1]) for line in proc.stdout.splitlines()
+              if "elbo-loss" in line]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    assert "decoded sample stats" in proc.stdout
 
 
 def test_fit_a_line_exports_at_its_default_path_like_jax(tmp_path):

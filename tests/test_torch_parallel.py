@@ -180,7 +180,12 @@ def test_pipeline_matches_jax(worlds):
 @pytest.fixture(scope="module")
 def jax_attention():
     """{(world, strategy, causal): (out, (gq, gk, gv))} of the JAX
-    package's ring / Ulysses attention over {"seq": world}."""
+    package's ring / Ulysses attention over {"seq": world}, as numpy
+    arrays. The results come back to the host here, once: the jitted
+    outputs are sharded over the virtual CPU mesh, and slicing one in a
+    test would run a program over all of its devices, whose collective
+    rendezvous aborts the process when a device thread stalls past XLA's
+    timeout (it did under six pytest-xdist workers)."""
     from paddle_tpu.parallel.context_parallel import (ring_attention,
                                                       ulysses_attention)
 
@@ -198,10 +203,12 @@ def jax_attention():
                 def loss(q, k, v, fwd=fwd):
                     return jnp.sum(fwd(q, k, v) ** 2)
 
-                out[(world, name, causal)] = jax.jit(
+                res, grads = jax.jit(
                     lambda q, k, v, fwd=fwd, loss=loss: (
                         fwd(q, k, v),
                         jax.grad(loss, argnums=(0, 1, 2))(q, k, v)))(q, k, v)
+                out[(world, name, causal)] = (
+                    np.asarray(res), tuple(np.asarray(g) for g in grads))
     return out
 
 

@@ -12,9 +12,20 @@ names, forward, training, serving and the CLI.
   ``classification_cost``, both packages' ``trainer.SGD`` with
   ``Momentum(learning_rate=0.01, momentum=0.9)`` from the same numpy
   parameters (gammas 1, betas 0, as the initialisers give) on the same
-  minibatches of 4 images. ResNet-18 runs 3 steps: costs within 1e-5
-  relative, every parameter and moving statistic within 1e-5 of max(1,
-  its largest |entry|). ResNet-50 at this size
+  minibatches of 4 images. ResNet-18 runs 3 steps: the first cost within
+  1e-5 relative of JAX's; then both packages' float32 trajectories are
+  held to the JAX package's trajectory in float64 from the same start
+  (``tests/jax_float64.py``: the same graph, cost and gradients in
+  float64, the Momentum step written out, in a process of its own under
+  ``jax_enable_x64``). The port's own float64 trajectory agrees with it
+  within 1e-10 (costs relative, parameters and moving statistics
+  relative to max(1, the largest |entry|)). The port's float32 costs and
+  every parameter and moving statistic are within twice JAX's float32
+  departure from it, never held tighter than 1e-5, and that bound stays
+  under 1e-3 (costs) and 1e-2 (parameters), so it never waves the port
+  through. Three steps at this size amplify the rounding of the CPU's
+  BLAS and oneDNN kernels, so a fixed bound between the two float32
+  runs passes on one machine and fails on another. ResNet-50 at this size
   has a train-mode gradient that is not stable under rounding: in the JAX
   package alone, a perturbation of 1e-6 of every parameter moves some
   gradients by 22 % (in the port, in float64, by 43 %, all of it in one
@@ -59,6 +70,7 @@ from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.serve import (InferenceEngine, export_bundle,
                                     load_bundle, serve_in_thread)
 from paddle_tpu_torch.topology import Topology
+from tests import jax_float64
 from tests.torch_decode import port_model
 
 BUILDER = "paddle_tpu_torch.models.vision:resnet"
@@ -183,7 +195,8 @@ def _costs_of(trainer, batches, event_mod):
 
 @pytest.mark.parametrize("depth,steps,tol_cost,tol", [(18, 3, 1e-5, 1e-5),
                                                       (50, 1, 1e-4, 1e-2)])
-def test_resnet_training_trajectory_matches_jax(depth, steps, tol_cost, tol):
+def test_resnet_training_trajectory_matches_jax(depth, steps, tol_cost, tol,
+                                                tmp_path):
     jax_reset_names()
     _, jcost = _cost(jpaddle, jax_resnet, depth)
     reset_name_counters()
@@ -206,13 +219,83 @@ def test_resnet_training_trajectory_matches_jax(depth, steps, tol_cost, tol):
         device="cpu"), batches, paddle.event)
 
     assert len(costs) == len(jcosts) == steps
-    np.testing.assert_allclose(costs, jcosts, rtol=tol_cost)
+    np.testing.assert_allclose(costs[0], jcosts[0], rtol=tol_cost)
+    if steps == 1:
+        want_costs, want = jcosts, {n: jparams.get(n) for n in np_params}
+        jcost_gap = jgap = 0.0
+    else:
+        want_costs, want = jax_float64.run(
+            tmp_path, "resnet-%d" % depth, np_params, batches, 0.01, 0.9)
+        port_costs, port = _float64_trajectory(topo, cost, np_params,
+                                               batches)
+        port_gap = max(_gap(port[n], want[n]) for n in np_params)
+        jcost_gap = _cost_gap(jcosts, want_costs)
+        jgap = max(_gap(jparams.get(n), want[n]) for n in np_params)
+        print("ResNet-%d, %d steps: the port's float64 run departs from "
+              "JAX's by %.3g (costs) and %.3g (parameters); float32 "
+              "departs from float64 by %.3g and %.3g in the port, by %.3g "
+              "and %.3g in JAX" % (
+                  depth, steps, _cost_gap(port_costs, want_costs), port_gap,
+                  _cost_gap(costs, want_costs),
+                  max(_gap(params.get(n), want[n]) for n in np_params),
+                  jcost_gap, jgap))
+        assert _cost_gap(port_costs, want_costs) <= 1e-10
+        assert port_gap <= 1e-10
+    cost_bound, bound = max(tol_cost, 2.0 * jcost_gap), max(tol, 2.0 * jgap)
+    assert cost_bound <= 1e-3 and bound <= 1e-2
+    assert _cost_gap(costs, want_costs) <= cost_bound
     for name in sorted(np_params):
-        got, want = params.get(name), jparams.get(name)
-        err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
-        assert err <= tol, (name, err)
+        got = params.get(name)
+        err = _gap(got, want[name])
+        assert err <= bound, (name, err)
         # every parameter and every moving statistic moved
         assert not np.array_equal(got, np_params[name]), name
+
+
+def _gap(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(1.0,
+                                                 float(np.abs(want).max()))
+
+
+def _cost_gap(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _float64_trajectory(topo, cost, np_params, batches, lr=0.01, mu=0.9):
+    """The port's training trajectory in float64, as
+    ``tests/jax_float64.py`` runs the JAX package's: per batch the mean cost
+    of the train-mode graph, its gradients by autograd, the moving
+    statistics from the step's state updates and the Momentum step
+    (v = mu * v - lr * g; p += v) from zero velocity. -> (costs, {name:
+    final value})."""
+    from paddle_tpu_torch.topology import convert_feed
+
+    values = {k: torch.from_numpy(v.astype(np.float64))
+              for k, v in np_params.items()}
+    trainable, _, _ = Parameters(
+        {k: torch.from_numpy(v) for k, v in np_params.items()},
+        topo.param_specs()).partition()
+    velocity = {n: torch.zeros_like(values[n]) for n in trainable}
+    costs = []
+    for batch in batches:
+        feed = convert_feed(topo, batch, device="cpu")
+        feed["image"] = feed["image"].double()
+        live = {k: v.clone().requires_grad_(k in trainable)
+                for k, v in values.items()}
+        out, updates = topo.apply(live, feed, mode="train",
+                                  outputs=[cost.name])
+        loss = out[cost.name].mean()
+        grads = torch.autograd.grad(loss, [live[n] for n in trainable])
+        costs.append(float(loss.detach()))
+        with torch.no_grad():
+            for n, g in zip(trainable, grads):
+                velocity[n] = mu * velocity[n] - lr * g
+                values[n] = values[n] + velocity[n]
+            for n, v in updates.items():
+                values[n] = v.detach().double()
+    return costs, {k: v.numpy() for k, v in values.items()}
 
 
 def test_trainer_test_pass_and_tar_use_the_moving_statistics(tmp_path):

@@ -58,6 +58,7 @@ from paddle_tpu_torch.parameters import Parameters
 from paddle_tpu_torch.topology import Topology
 from paddle_tpu_torch.utils import flags
 from paddle_tpu_torch.utils.error import EnforceError
+from tests import jax_float64
 
 MODELS = {"googlenet": (3 * 224 * 224, 1000),
           "alexnet": (3 * 227 * 227, 1000), "smallnet_cifar": (3072, 10),
@@ -310,16 +311,25 @@ def test_train_step_matches_jax_with_the_same_dropout_masks(
 
 
 def test_googlenet_step_at_a_saturated_start_matches_float64(
-        monkeypatch, nets):
+        monkeypatch, nets, tmp_path):
     """One float32 ``trainer.SGD`` + ``Momentum(0.01, 0.9)`` step of
     GoogleNet with every weight at N(0, 2/fan_in), the output layer
     included: a saturated start (first cost 15.9, far above ln 1000),
     where the gradient is ill-conditioned. Against the same step in
-    float64 (the cost and gradient of the same graph in float64, then the
-    first Momentum step from zero velocity, p - lr * g): the cost within
-    1e-6 relative and every updated parameter within 1e-4 of max(1, its
-    largest |entry|), the tolerance of the JAX parity test above."""
-    _, _, topo, cost, _, _, _ = nets["googlenet"]
+    float64: the JAX package's cost and gradient of the same graph in
+    float64, then the first Momentum step from zero velocity, p - lr * g
+    (``tests/jax_float64.py``, in a process of its own under
+    ``jax_enable_x64``). The port's same step in float64 agrees with it
+    within 1e-10 (relative to max(1, the largest |entry|)). The port's
+    float32 cost is within 1e-6 relative of it, and every updated
+    parameter as close to it as the JAX trainer's float32 step from the
+    same start is. The float32 rounding of this step depends on the
+    CPU's BLAS and oneDNN kernels, so the bound is measured on the
+    machine that runs the test, from the JAX package alone: twice the
+    JAX step's departure from float64, and never below 1e-4, the
+    tolerance of the JAX parity test above; and that bound stays under
+    1e-2, so it never waves the port through."""
+    jtopo, jcost, topo, cost, _, _, _ = nets["googlenet"]
     specs = topo.param_specs()
     rng = np.random.RandomState(0)
     np_params = {name: (0.01 * rng.randn(*spec.shape) if
@@ -331,8 +341,16 @@ def test_googlenet_step_at_a_saturated_start_matches_float64(
     monkeypatch.setattr(dropout_ops, "keep_mask",
                         lambda shape, p, generator, device:
                         torch.from_numpy(mask).to(device))
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p, shape: jnp.asarray(mask))
     batches = _batches("googlenet", 1, 2, seed=5)
     lr = 0.01
+
+    jparams = _jax_parameters(jtopo, {k: v.astype(np.float32)
+                                      for k, v in np_params.items()})
+    _costs_of(jpaddle.trainer.SGD(
+        jcost, jparams, jopt.Momentum(learning_rate=lr, momentum=0.9)),
+        batches, jpaddle.event)
 
     params = Parameters({k: torch.from_numpy(v.astype(np.float32))
                          for k, v in np_params.items()}, specs)
@@ -350,18 +368,27 @@ def test_googlenet_step_at_a_saturated_start_matches_float64(
     names = sorted(wide)
     grads = dict(zip(names, torch.autograd.grad(
         value, [wide[n] for n in names])))
-    cost64 = float(value.detach())
+    (cost64,), want = jax_float64.run(tmp_path, "googlenet", np_params,
+                                      batches, lr, 0.9, dropout_mask=mask)
     assert cost64 > 2 * np.log(1000)
+    assert float(value.detach()) == pytest.approx(cost64, rel=1e-10)
     assert cost32 == pytest.approx(cost64, rel=1e-6)
-    worst = 0.0
+    worst = jworst = port64 = 0.0
     for name in names:
-        want = (wide[name] - lr * grads[name]).detach().numpy()
+        port64 = max(port64, _rel((wide[name] - lr * grads[name]).detach()
+                                  .numpy(), want[name]))
         got = params.get(name)
         assert not np.array_equal(got, np_params[name].astype(np.float32))
-        worst = max(worst, _rel(got, want))
-    print("saturated start: cost %.4f; float32 step departs from float64 "
-          "by %.3g" % (cost64, worst))
-    assert worst <= 1e-4
+        worst = max(worst, _rel(got, want[name]))
+        jworst = max(jworst, _rel(np.asarray(jparams.get(name)), want[name]))
+    print("saturated start: cost %.4f; the port's float64 step departs "
+          "from JAX's by %.3g; the float32 step departs from float64 by "
+          "%.3g in the port, by %.3g in the JAX trainer"
+          % (cost64, port64, worst, jworst))
+    assert port64 <= 1e-10
+    bound = max(1e-4, 2.0 * jworst)
+    assert bound <= 1e-2
+    assert worst <= bound
 
 
 def test_smallnet_cifar_trajectory_matches_jax(nets):

@@ -123,9 +123,10 @@ def numpy_params(topology, seed=5):
             for name, spec in sorted(topology.param_specs().items())}
 
 
-def port_run(case, parallelism=None):
+def port_run(case, parallelism=None, keep=None):
     """Train ``case`` with the port on the CPU: (costs, errors, params,
-    the label probe's last result)."""
+    the label probe's last result); the trainer goes into the list
+    ``keep`` when given."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import optimizer as opt
     from paddle_tpu_torch.convert import params_from_numpy
@@ -150,13 +151,16 @@ def port_run(case, parallelism=None):
     data = batches(case)
     trainer.train(lambda: iter(data), num_passes=1, event_handler=handler,
                   **train_options(case))
+    if keep is not None:
+        keep.append(trainer)
     return (np.asarray(costs), np.asarray(errors),
             {n: params.get(n) for n in params.names()}, np.asarray(labels))
 
 
-def jax_run(case):
-    """Train ``case`` with the JAX package's single-device trainer from the
-    same numpy parameters: (costs, errors, params)."""
+def jax_run(case, parallelism=None):
+    """Train ``case`` with the JAX package's trainer (single-device, or
+    over ``parallelism``, a JAX DataParallel) from the same numpy
+    parameters: (costs, errors, params)."""
     import jax.numpy as jnp
 
     import paddle_tpu as jpaddle
@@ -170,7 +174,7 @@ def jax_run(case):
                       for k, v in numpy_params(topology).items()}
     trainer = jpaddle.trainer.SGD(
         cost, params, jopt.Momentum(learning_rate=0.1, momentum=0.9),
-        extra_layers=[err])
+        extra_layers=[err], parallelism=parallelism)
     costs, errors = [], []
 
     def handler(evt):
